@@ -1,0 +1,472 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (constriction_tpu_torch) on one card.
+
+    python3 chip_smoke.py
+
+Needs one CUDA device (it exits non-zero without one) and nvcc; it builds
+the kernels from constriction_tpu_torch/ops/csrc into build/ first.  It
+prints one JSON object per phase, then the kernels line, the card's
+``nvidia-smi`` name and power limit, and as its last line
+``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
+
+1. build     -- nvcc build time, ptxas register/shared-memory report.
+2. kernels   -- each of the four kernels against its plain PyTorch twin on
+                the same CUDA tensors and against the numpy host oracle
+                (L=32768, about 2^20 symbols, with and without seeds):
+                streams, initial and final lane states and symbols must be
+                identical (integer coding: tolerance 0).
+3. main path -- bench.py's workload (2^25 symbols, K=100, Dirichlet(2),
+                seed 1234) through ``constriction_tpu_torch.cuda.encode_iid``
+                -> ``decode_iid`` at P=24 and P=12, v2 and v1 containers.
+                Each container must equal the host oracle's byte for byte
+                and decode to the symbols; every kernel must have launched.
+4. times     -- kernel-only encode/decode at that size (CUDA events), and
+                the twins on the card at the same size, whose streams,
+                states and symbols must equal the kernels'; kernel times
+                at bench.py's explicit configs (L=65536, P=24 and P=12).
+5. sweep     -- kernel time per coding step at T=256 steps over
+                L=128 .. 65536, both presets: the per-step floor (at
+                L=128) and the added microseconds per 1024 lanes (the
+                slope from L=4096 to 65536).
+
+Everything comes from the port: the model's CDF
+(``constriction_tpu_torch.models``) and the host oracle, which is the
+port's numpy ILANS2 host coder under the port's container framing (the CPU
+tests hold both byte for byte against the JAX package).  The script
+imports nothing of JAX or of the JAX package, and checks that at the end.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+N_KERNEL_CHECK = (1 << 20) - 12345  # partial last step
+N_MAIN = 1 << 25
+K_MAIN = 100
+BENCH_LANES = 1 << 16
+
+# kernel -> (module whose LAUNCHES counts it, counter key, Pallas site)
+KERNELS = {
+    "ilans2_decode_w32s64": ("coder64", "decode",
+                             "constriction_tpu/ops/pallas_coder64.py:187"),
+    "ilans2_encode_w32s64": ("coder64", "encode",
+                             "constriction_tpu/ops/pallas_coder64.py:373"),
+    "ilans2_decode_w16s32": ("coder", "decode",
+                             "constriction_tpu/ops/pallas_coder.py:1638"),
+    "ilans2_encode_w16s32": ("coder", "encode",
+                             "constriction_tpu/ops/pallas_coder.py:1352"),
+}
+SOURCE = "constriction_tpu_torch/ops/csrc/ilans2.cu"
+SWEEP_LANES = (128, 1024, 4096, 16384, 32768, 65536)
+SWEEP_STEPS = 256
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def gpu_line() -> str:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if proc.returncode != 0:
+        fail(f"nvidia-smi failed: {proc.stderr.strip()}")
+    return proc.stdout.strip().splitlines()[0]
+
+
+def model_cdf(probs, precision):
+    from constriction_tpu_torch.models import fast_quantized_cdf
+
+    return fast_quantized_cdf(probs, precision)
+
+
+def host_container(symbols, cdf, cfg, compact: bool):
+    """The host oracle's container: the numpy host coder for every lane,
+    under the v2 framing or in a v1 container (the JAX package's
+    ``framing.encode_iid_v2`` / ``interleaved2.encode_iid_categorical2``
+    with ``device=False``)."""
+    import numpy as np
+
+    from constriction_tpu_torch.ops import framing
+    from constriction_tpu_torch.ops import interleaved2 as il2
+
+    cdf64 = np.asarray(cdf, dtype=np.uint64)
+    cums = cdf64[symbols]
+    probs = cdf64[symbols + 1] - cums
+    if not compact:
+        states, stream = il2.encode_shared(cums, probs, cfg)
+        return il2.pack_container2(states, stream, len(symbols), cfg)
+
+    def encode_a(n_A, seeds):
+        return il2.encode_shared(cums[:n_A], probs[:n_A], cfg, seeds=seeds)
+
+    return framing.frame_planes_v2(cums, probs, cfg, None, encode_a)
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call over ``reps`` calls after one warm-up,
+    between CUDA events (device time, including any sync a call makes)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def presets():
+    """(label, W, S, P, encode, decode, encode_plain, decode_plain)."""
+    from constriction_tpu_torch.ops import coder, coder64
+
+    return [
+        ("w32s64", 32, 64, 24, coder64.encode_iid64, coder64.decode_shared64,
+         coder64.encode_iid64_plain, coder64.decode_shared64_plain),
+        ("w16s32", 16, 32, 12, coder.encode_iid, coder.decode_shared,
+         coder.encode_iid_plain, coder.decode_shared_plain),
+    ]
+
+
+def mismatch(a, b) -> int:
+    """Largest |a - b| over two integer tensors; fails the run if their
+    shapes differ."""
+    import torch
+
+    if a.shape != b.shape:
+        fail(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    if torch.equal(a, b):
+        return 0
+    return max(1, int((a.long() - b.long()).abs().max()))
+
+
+def phase_build() -> dict:
+    from constriction_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.library()
+    info = _build.build_info or {}
+    return {
+        "phase": "build",
+        "seconds": time.perf_counter() - t0,
+        "nvcc_seconds": info.get("seconds"),
+        "command": info.get("command"),
+        "ptxas": [ln.strip() for ln in info.get("log", "").splitlines()
+                  if "registers" in ln or "spill" in ln],
+        "gpu": gpu_line(),
+    }
+
+
+def phase_kernels(device, n: int, L: int) -> tuple[dict, dict]:
+    """Each kernel against its twin on the same tensors, and both times on
+    the unseeded case.  Returns the phase record and {kernel name:
+    max_abs_err}."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import interleaved2 as il2
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    rng = np.random.RandomState(7)
+    probs = rng.dirichlet(np.full(K_MAIN, 2.0))
+    syms_np = rng.choice(K_MAIN, size=n, p=probs).astype(np.int32)
+    syms = torch.from_numpy(syms_np).to(device)
+    errs: dict[str, int] = {}
+    rows = []
+    for label, W, S, P, enc, dec, enc_p, dec_p in presets():
+        cfg = LaneConfig(num_lanes=L, word_bits=W, state_bits=S, precision=P)
+        cdf_np = model_cdf(probs, P)
+        cdf = convert.cdf_to_torch(cdf_np, device)
+        cums = cdf_np[syms_np]
+        probs_np = cdf_np[syms_np + 1] - cums
+        floor = 1 << (S - W)
+        # start states over all of [2^(S-W), 2^S), u64 ones >= 2^63 included
+        seeds_np = rng.randint(0, 1 << 32, size=L).astype(np.uint64)
+        if S == 64:
+            seeds_np = (seeds_np << np.uint64(32)) | rng.randint(
+                0, 1 << 32, size=L).astype(np.uint64)
+        seeds_np = np.maximum(seeds_np, np.uint64(floor))
+        for seeded in (False, True):
+            seeds = (convert.states_to_torch(seeds_np, cfg, device)
+                     if seeded else None)
+            st_k, w_k = enc(syms, cdf, cfg, seeds=seeds)
+            st_p, w_p = enc_p(syms, cdf, cfg, seeds=seeds)
+            e_enc = max(mismatch(st_k, st_p), mismatch(w_k, w_p))
+            out_k, fin_k = dec(st_k, w_k, cdf, cfg, n,
+                               return_final_states=True)
+            out_p, fin_p = dec_p(st_k, w_k, cdf, cfg, n,
+                                 return_final_states=True)
+            e_dec = max(mismatch(out_k, out_p), mismatch(fin_k, fin_p))
+            start = (seeds if seeded else torch.full_like(st_k, floor))
+            round_trip = (mismatch(out_k, syms) == 0
+                          and mismatch(fin_k, start) == 0)
+            # the numpy host oracle on the same inputs
+            st_h, w_h = il2.encode_shared(cums, probs_np, cfg,
+                                          seeds=seeds_np if seeded else None)
+            out_h, fin_h = il2.decode_shared_cdf(st_h, w_h, n, cdf_np, cfg,
+                                                 return_final_states=True)
+            e_enc = max(e_enc, mismatch(st_k, convert.states_to_torch(
+                st_h, cfg, device)), mismatch(w_k, convert.u32_to_torch(
+                    w_h, device)))
+            e_dec = max(e_dec, mismatch(out_k.cpu(), torch.from_numpy(out_h)),
+                        mismatch(fin_k, convert.states_to_torch(
+                            fin_h, cfg, device)))
+            errs[f"ilans2_encode_{label}"] = max(
+                errs.get(f"ilans2_encode_{label}", 0), e_enc)
+            errs[f"ilans2_decode_{label}"] = max(
+                errs.get(f"ilans2_decode_{label}", 0), e_dec)
+            row = {"preset": label, "seeded": seeded,
+                   "words": int(w_k.numel()), "encode_max_abs_err": e_enc,
+                   "decode_max_abs_err": e_dec, "round_trip": round_trip}
+            rows.append(row)
+            if e_enc != 0 or e_dec != 0 or not round_trip:
+                fail(f"kernel != twin or host oracle, or no round trip: "
+                     f"{row}")
+            if not seeded:
+                row["encode_ms"] = time_ms(lambda: enc(syms, cdf, cfg), 3)
+                row["encode_plain_ms"] = time_ms(
+                    lambda: enc_p(syms, cdf, cfg), 1)
+                row["decode_ms"] = time_ms(
+                    lambda: dec(st_k, w_k, cdf, cfg, n), 3)
+                row["decode_plain_ms"] = time_ms(
+                    lambda: dec_p(st_k, w_k, cdf, cfg, n), 1)
+    return {"phase": "kernels", "num_lanes": L, "n": n, "cases": rows}, errs
+
+
+def main_workload():
+    import numpy as np
+
+    rng = np.random.RandomState(1234)
+    probs = rng.dirichlet(np.full(K_MAIN, 2.0))
+    symbols = rng.choice(K_MAIN, size=N_MAIN, p=probs).astype(np.int64)
+    return probs, symbols
+
+
+def phase_main(device, probs, symbols) -> dict:
+    """The facade on the card at full size, against the host oracle."""
+    import numpy as np
+
+    from constriction_tpu_torch import cuda as ctt
+
+    rows = []
+    for P in (24, 12):
+        cdf = model_cdf(probs, P)
+        p = (cdf[symbols + 1].astype(np.float64) - cdf[symbols]) / cdf[-1]
+        cfg = ctt._pick_cfg(len(symbols), None, cdf,
+                            est_bits=float((-np.log2(p)).sum()))
+        for compact in (True, False):
+            t0 = time.perf_counter()
+            data = ctt.encode_iid(symbols, cdf, compact=compact,
+                                  device=device)
+            t1 = time.perf_counter()
+            out = ctt.decode_iid(data, cdf, device=device)
+            t2 = time.perf_counter()
+            ref = host_container(symbols, cdf, cfg, compact)
+            t3 = time.perf_counter()
+            row = {
+                "P": P, "container": "v2" if compact else "v1",
+                "num_lanes": cfg.num_lanes, "words": int(len(data)),
+                "identical_to_host_oracle": bool(np.array_equal(data, ref)),
+                "decodes_exactly": bool(np.array_equal(out, symbols)),
+                "encode_call_s": t1 - t0, "decode_call_s": t2 - t1,
+                "host_oracle_encode_s": t3 - t2,
+            }
+            rows.append(row)
+            if not (row["identical_to_host_oracle"]
+                    and row["decodes_exactly"]):
+                fail(f"main path: {row}")
+    return {"phase": "main_path", "n": len(symbols), "cases": rows}
+
+
+def phase_times(device, probs, symbols, gpu: str,
+                errs: dict) -> tuple[dict, dict]:
+    """Kernel-only times at the main path's size, and the twins on the card
+    at the facade's config and the same size: the twins' streams, states
+    and symbols must equal the kernels' (their largest difference goes into
+    ``errs``).  Returns the phase record and {kernel: (ms, plain_ms)}."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch import cuda as ctt
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    n = len(symbols)
+    syms = torch.from_numpy(symbols.astype(np.int32)).to(device)
+    rows = []
+    times = {}
+    for label, W, S, P, enc, dec, enc_p, dec_p in presets():
+        cdf_np = model_cdf(probs, P)
+        cdf = convert.cdf_to_torch(cdf_np, device)
+        p = (cdf_np[symbols + 1].astype(np.float64) - cdf_np[symbols]) \
+            / cdf_np[-1]
+        facade = ctt._pick_cfg(n, None, cdf_np,
+                               est_bits=float((-np.log2(p)).sum()))
+        bench = LaneConfig(num_lanes=BENCH_LANES, word_bits=W, state_bits=S,
+                           precision=P)
+        for cfg, plain in ((facade, True), (bench, False)):
+            st, w = enc(syms, cdf, cfg)
+            out, fin = dec(st, w, cdf, cfg, n, return_final_states=True)
+            if (mismatch(out, syms) != 0
+                    or mismatch(fin, torch.full_like(st, 1 << (S - W))) != 0):
+                fail(f"times: {label} L={cfg.num_lanes} round trip")
+            row = {
+                "preset": label, "P": P, "num_lanes": cfg.num_lanes, "n": n,
+                "encode_ms": time_ms(lambda: enc(syms, cdf, cfg), 3),
+                "decode_ms": time_ms(lambda: dec(st, w, cdf, cfg, n), 3),
+            }
+            if plain:
+                st_p, w_p = enc_p(syms, cdf, cfg)
+                out_p, fin_p = dec_p(st, w, cdf, cfg, n,
+                                     return_final_states=True)
+                e_enc = max(mismatch(st, st_p), mismatch(w, w_p))
+                e_dec = max(mismatch(out, out_p), mismatch(fin, fin_p))
+                row["encode_max_abs_err"] = e_enc
+                row["decode_max_abs_err"] = e_dec
+                if e_enc != 0 or e_dec != 0:
+                    fail(f"times: kernel != twin at full size: {row}")
+                for key, e in ((f"ilans2_encode_{label}", e_enc),
+                               (f"ilans2_decode_{label}", e_dec)):
+                    errs[key] = max(errs[key], e)
+                row["encode_plain_ms"] = time_ms(
+                    lambda: enc_p(syms, cdf, cfg), 1)
+                row["decode_plain_ms"] = time_ms(
+                    lambda: dec_p(st, w, cdf, cfg, n), 1)
+                times[f"ilans2_encode_{label}"] = (
+                    row["encode_ms"], row["encode_plain_ms"])
+                times[f"ilans2_decode_{label}"] = (
+                    row["decode_ms"], row["decode_plain_ms"])
+            for k in ("encode", "decode"):
+                row[f"{k}_gsym_per_s"] = n / (row[f"{k}_ms"] * 1e-3) / 1e9
+            row["gpu"] = gpu
+            rows.append(row)
+    return {"phase": "times", "cases": rows}, times
+
+
+def phase_sweep(device, gpu: str) -> dict:
+    """Kernel time per coding step at SWEEP_STEPS steps over SWEEP_LANES
+    lanes, both presets; per kernel, the floor (microseconds per step at the
+    fewest lanes) and the slope from 4096 lanes up (microseconds per step
+    per 1024 lanes).  Small L sits above that line, so the two are read
+    separately rather than fitted as one."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    rng = np.random.RandomState(11)
+    probs = rng.dirichlet(np.full(K_MAIN, 2.0))
+    n_max = max(SWEEP_LANES) * SWEEP_STEPS
+    all_syms = torch.from_numpy(
+        rng.choice(K_MAIN, size=n_max, p=probs).astype(np.int32)).to(device)
+    rows = []
+    fits = {}
+    for label, W, S, P, enc, dec, _, _ in presets():
+        cdf = convert.cdf_to_torch(model_cdf(probs, P), device)
+        us = {"encode": [], "decode": []}
+        for L in SWEEP_LANES:
+            cfg = LaneConfig(num_lanes=L, word_bits=W, state_bits=S,
+                             precision=P)
+            n = L * SWEEP_STEPS
+            syms = all_syms[:n]
+            st, w = enc(syms, cdf, cfg)
+            if mismatch(dec(st, w, cdf, cfg, n), syms) != 0:
+                fail(f"sweep: {label} L={L} round trip")
+            row = {"preset": label, "P": P, "num_lanes": L,
+                   "steps": SWEEP_STEPS}
+            for k, fn in (("encode", lambda: enc(syms, cdf, cfg)),
+                          ("decode", lambda: dec(st, w, cdf, cfg, n))):
+                ms = time_ms(fn, 3)
+                row[f"{k}_ms"] = ms
+                row[f"{k}_us_per_step"] = ms * 1e3 / SWEEP_STEPS
+                us[k].append(row[f"{k}_us_per_step"])
+            rows.append(row)
+        i = SWEEP_LANES.index(4096)
+        for k, ys in us.items():
+            fits[f"ilans2_{k}_{label}"] = {
+                "us_per_step_floor": ys[0],
+                "us_per_1024_lanes_per_step": (ys[-1] - ys[i]) * 1024 / (
+                    SWEEP_LANES[-1] - SWEEP_LANES[i]),
+            }
+    return {"phase": "sweep", "cases": rows, "fits": fits, "gpu": gpu}
+
+
+def main(argv) -> int:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs "
+             "a CUDA device")
+    if not os.path.isdir(os.path.join(REPO, "constriction_tpu_torch")):
+        fail(f"constriction_tpu_torch not found next to {__file__}")
+    if argv:
+        fail(f"unknown arguments {argv}; usage: chip_smoke.py")
+    sys.path.insert(0, REPO)
+    from constriction_tpu_torch.ops import coder, coder64
+
+    device = torch.device("cuda", 0)
+    build = phase_build()
+    emit(build)
+    gpu = build["gpu"]
+
+    kernels, errs = phase_kernels(device, N_KERNEL_CHECK, 32768)
+    emit(kernels)
+
+    probs, symbols = main_workload()
+    modules = {"coder": coder.LAUNCHES, "coder64": coder64.LAUNCHES}
+    for counts in modules.values():
+        for key in counts:
+            counts[key] = 0
+    main_path = phase_main(device, probs, symbols)
+    launches = {name: modules[mod][key]
+                for name, (mod, key, _) in KERNELS.items()}
+    main_path["launches"] = launches
+    emit(main_path)
+    if not all(launches.values()):
+        fail(f"a kernel of the main path never launched: {launches}")
+
+    times_rec, times = phase_times(device, probs, symbols, gpu, errs)
+    emit(times_rec)
+    emit(phase_sweep(device, gpu))
+
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "constriction_tpu"))
+    if foreign:
+        fail(f"JAX or the JAX package was imported: {foreign}")
+    emit({"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCE, "replaces": site,
+         "launches": launches[name], "max_abs_err": errs[name],
+         "ms": times[name][0], "plain_ms": times[name][1]}
+        for name, (_, _, site) in KERNELS.items()
+    ]})
+    print(gpu, flush=True)
+    emit({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

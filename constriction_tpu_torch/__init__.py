@@ -1,0 +1,15 @@
+"""constriction_tpu_torch: the PyTorch and CUDA port of constriction_tpu.
+
+The JAX package ``constriction_tpu`` stays the reference; this package
+imports ``torch`` and nothing of ``jax`` or of the JAX package.  It carries
+its own copy of the host layer it needs (``LaneConfig``, the categorical
+CDF builder, the container framing and the numpy host coder), held byte
+for byte against the reference by the tests, and replaces the device
+layer: every Pallas kernel on a ported path becomes a hand-written Hopper
+kernel under ``ops/csrc``, with a plain PyTorch twin beside it.
+
+Ported so far: the i.i.d. categorical coder (``cuda.encode_iid`` /
+``cuda.decode_iid``, v1 and v2 ILANS2 containers, both presets).
+"""
+
+__version__ = "0.1.0"

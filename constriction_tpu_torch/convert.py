@@ -1,0 +1,115 @@
+"""State carried between the JAX package and the port.
+
+This system has no weights.  What crosses between the packages is integer
+data, and the port holds it in signed torch dtypes as bit patterns, because
+torch has few operations on unsigned integers:
+
+- u32 data (stream words, S <= 32 lane states) -> ``torch.int32`` holding the
+  same 32 bits;
+- u64 data (S = 64 lane states) -> ``torch.int64`` holding the same 64 bits,
+  so values >= 2^63 read as negative and come back unchanged;
+- CDF tables -> ``torch.int64`` values (they are below 2^25).
+
+Kernels read these buffers as ``uint32_t`` / ``uint64_t``; the plain twins
+widen them with :func:`u32_values` / :func:`u64_halves`.
+
+JAX counterpart of this module: the JAX package keeps the same data as
+numpy u32/u64 arrays and moves them with ``jnp.asarray``; its S=64 kernels
+split u64 states into (hi, lo) u32 tiles
+(``pallas_coder64.decode_shared64_pallas``), as :func:`u64_halves` does.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.interleaved import LaneConfig
+
+_M32 = 0xFFFFFFFF
+
+
+def u32_to_torch(words, device="cpu") -> torch.Tensor:
+    """u32 numpy data -> int32 tensor with the same bits on ``device``.
+    JAX counterpart: ``jnp.asarray(words, jnp.uint32)``."""
+    a = np.ascontiguousarray(np.asarray(words, dtype=np.uint32).reshape(-1))
+    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+
+
+def u32_from_torch(t: torch.Tensor) -> np.ndarray:
+    """Inverse of :func:`u32_to_torch`: u32 numpy array.  JAX
+    counterpart: ``np.asarray(array, np.uint32)``."""
+    return t.detach().to("cpu", torch.int32).contiguous().numpy().view(
+        np.uint32
+    ).copy()
+
+
+def u64_to_torch(values, device="cpu") -> torch.Tensor:
+    """u64 numpy data -> int64 tensor with the same bits on ``device``.
+    JAX counterpart: the (hi, lo) u32 split in
+    ``pallas_coder64.encode_iid64_pallas`` (JAX has no u64 on the TPU)."""
+    a = np.ascontiguousarray(np.asarray(values, dtype=np.uint64).reshape(-1))
+    return torch.from_numpy(a.view(np.int64).copy()).to(device)
+
+
+def u64_from_torch(t: torch.Tensor) -> np.ndarray:
+    """Inverse of :func:`u64_to_torch`: u64 numpy array.  JAX
+    counterpart: the (hi, lo) join in ``pallas_coder64`` wrappers."""
+    return t.detach().to("cpu", torch.int64).contiguous().numpy().view(
+        np.uint64
+    ).copy()
+
+
+def states_to_torch(states, cfg: LaneConfig, device="cpu") -> torch.Tensor:
+    """Lane states (u32 for S <= 32, u64 for S = 64, as the JAX package
+    returns them) -> the port's layout: int32 or int64 bit patterns.
+    JAX counterpart: ``interleaved._state_dtype`` picks the same widths."""
+    if cfg.state_bits > 32:
+        return u64_to_torch(states, device)
+    return u32_to_torch(states, device)
+
+
+def states_from_torch(t: torch.Tensor, cfg: LaneConfig) -> np.ndarray:
+    """Inverse of :func:`states_to_torch`: u32 or u64 numpy array, as
+    ``interleaved2.encode_shared`` returns states."""
+    if cfg.state_bits > 32:
+        return u64_from_torch(t)
+    return u32_from_torch(t)
+
+
+def cdf_to_torch(cdf, device="cpu") -> torch.Tensor:
+    """Fixed-point CDF table (numpy, from
+    ``constriction_tpu.models.categorical``) -> int64 tensor on ``device``.
+    JAX counterpart: the Pallas ``_build_*`` functions take the CDF as a
+    host tuple (``tuple(int(x) for x in cdf)``) baked into the kernel."""
+    return torch.from_numpy(
+        np.asarray(cdf, dtype=np.uint32).astype(np.int64)
+    ).to(device)
+
+
+def u32_values(t: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> their u32 values as int64.  JAX counterpart:
+    none needed (jnp.uint32 arithmetic)."""
+    return t.to(torch.int64) & _M32
+
+
+def u32_bits(values: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`u32_values`: u32 values (int64) -> int32 bits.
+    JAX counterpart: none needed (jnp.uint32 arithmetic)."""
+    return torch.where(values >= 1 << 31, values - (1 << 32), values).to(
+        torch.int32
+    )
+
+
+def u64_halves(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """int64 bit patterns -> (hi, lo) u32 values as int64.  JAX
+    counterpart: the (hi, lo) tiles of ``pallas_coder64``."""
+    return (t >> 32) & _M32, t & _M32
+
+
+def u64_join(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """(hi, lo) u32 values -> int64 bit pattern of hi * 2^32 + lo, without
+    signed overflow: hi >= 2^31 is first moved into [-2^31, 0).  JAX
+    counterpart: the (hi, lo) join in ``pallas_coder64`` wrappers."""
+    signed_hi = torch.where(hi >= 1 << 31, hi - (1 << 32), hi)
+    return signed_hi * (1 << 32) + lo

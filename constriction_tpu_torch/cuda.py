@@ -1,0 +1,150 @@
+"""Public facade of the port: the i.i.d. categorical coder on a CUDA card.
+
+The counterpart of ``constriction_tpu/tpu.py``'s ``encode_iid`` /
+``decode_iid``, writing and reading the same ILANS2 containers byte for
+byte.
+
+    import constriction_tpu_torch.cuda as ctt
+
+    data = ctt.encode_iid(symbols, cdf)      # ILANS2 container (u32 numpy)
+    out = ctt.decode_iid(data, cdf)
+
+``device`` is explicit: ``"cuda"`` (the default) runs the hand-written
+kernels and raises when no CUDA device is available; ``"cpu"`` runs their
+plain PyTorch twins.  Nothing falls back from one to the other.
+
+``_pick_cfg`` and ``_check_cdf`` are copies of ``tpu.py``'s (the port
+imports nothing of the JAX package): the lane count they pick decides the
+container bytes, so they must stay equal to the originals in behaviour.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops import framing as _framing
+from .ops import interleaved2 as _il2
+from .ops.interleaved import LaneConfig
+
+DEFAULT_CFG = LaneConfig(num_lanes=32768, word_bits=16, state_bits=32,
+                         precision=12)
+
+
+def _pick_cfg(n: int, cfg: LaneConfig | None,
+              cdf=None, est_bits: float | None = None) -> LaneConfig:
+    """Lane config for an n-symbol message.  Copy of ``tpu._pick_cfg``:
+    up to 32768 lanes but no more than n/8, capped so the seed capacity
+    L*(S-W) stays under a quarter of the message's information; P <= 16
+    models take W=16/S=32, 16 < P <= 24 take W=32/S=64."""
+    if cfg is not None:
+        return cfg
+    L = 128
+    while L * 2 <= min(DEFAULT_CFG.num_lanes, max(n // 8, 128)):
+        L *= 2
+    if est_bits is not None and est_bits > 0:
+        cap = 128
+        while cap * 2 <= min(L, max(int(est_bits) // 32 // 4, 128)):
+            cap *= 2
+        L = cap
+    P = 12
+    if cdf is not None:
+        top = int(np.asarray(cdf)[-1])
+        if top & (top - 1) or not (1 << 2) <= top <= (1 << 24):
+            raise ValueError(
+                f"cdf[-1] == {top} is not a supported power of two "
+                "(2^2 .. 2^24); rebuild the model with a fixed-point "
+                "precision in that range"
+            )
+        P = top.bit_length() - 1
+    if P <= 16:
+        return LaneConfig(num_lanes=L, word_bits=16, state_bits=32,
+                          precision=P)
+    return LaneConfig(num_lanes=L, word_bits=32, state_bits=64, precision=P)
+
+
+def _check_cdf(cdf, cfg: LaneConfig) -> None:
+    """Copy of ``tpu._check_cdf``: a CDF whose total is not 2^P would
+    silently corrupt the container."""
+    top = int(np.asarray(cdf)[-1])
+    if top != 1 << cfg.precision:
+        raise ValueError(
+            f"cdf[-1] == {top} but the lane config uses precision "
+            f"{cfg.precision} (expected {1 << cfg.precision}); rebuild the "
+            f"model with precision={cfg.precision} or pass a matching "
+            f"LaneConfig"
+        )
+
+
+def _device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device={str(device)!r} but torch finds no CUDA device; "
+                "pass device='cpu' to run the plain PyTorch coder"
+            )
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+def encode_iid(symbols, cdf, cfg: LaneConfig | None = None, alphabet=None,
+               compact: bool = True, device="cuda") -> np.ndarray:
+    """Encode i.i.d. categorical symbols into a self-describing ILANS2
+    container (u32 numpy array).  JAX counterpart:
+    ``constriction_tpu.tpu.encode_iid``.
+
+    ``alphabet`` (optional, sorted-unique) maps non-contiguous symbols to
+    their indices, which are coded against ``cdf``.  ``compact=True`` writes
+    the v2 framing, ``False`` the v1 container.  ``device`` as in the module
+    docstring."""
+    dev = _device(device)
+    symbols = np.asarray(symbols, dtype=np.int64)
+    if alphabet is not None:
+        alphabet = np.asarray(alphabet)
+        idx = np.searchsorted(alphabet, symbols)
+        bad_mask = (idx >= len(alphabet)) | (
+            alphabet[np.minimum(idx, len(alphabet) - 1)] != symbols
+        )
+        if np.any(bad_mask):
+            raise ValueError(
+                f"symbol {int(symbols[bad_mask][0])} not in the alphabet"
+            )
+        symbols = idx.astype(np.int64)
+    elif len(symbols) and (
+        int(symbols.min()) < 0 or int(symbols.max()) >= len(cdf) - 1
+    ):
+        raise ValueError(
+            f"symbols must be in [0, {len(cdf) - 1}), got range "
+            f"[{int(symbols.min())}, {int(symbols.max())}]"
+        )
+    est_bits = None
+    sym_bits = None
+    if cfg is None and len(symbols):
+        cdf64 = np.asarray(cdf, dtype=np.float64)
+        p = (cdf64[symbols + 1] - cdf64[symbols]) / cdf64[-1]
+        sym_bits = -np.log2(p)
+        est_bits = float(sym_bits.sum())
+    cfg = _pick_cfg(len(symbols), cfg, cdf, est_bits=est_bits)
+    _check_cdf(cdf, cfg)
+    if compact:
+        return _framing.encode_iid_v2(symbols, cdf, cfg, device=dev,
+                                      sym_bits=sym_bits)
+    return _il2.encode_iid_categorical2(symbols, cdf, cfg, device=dev)
+
+
+def decode_iid(container, cdf, alphabet=None, device="cuda") -> np.ndarray:
+    """Decode an ILANS2 container of either framing version.  JAX
+    counterpart: ``constriction_tpu.tpu.decode_iid``.  With ``alphabet``,
+    decoded indices map back to the non-contiguous symbols."""
+    dev = _device(device)
+    container = np.asarray(container)
+    _check_cdf(cdf, _framing.peek_cfg(container))
+    if _framing.container_version(container) == 2:
+        out = _framing.decode_iid_v2(container, cdf, device=dev)
+    else:
+        out = _il2.decode_iid_categorical2(container, cdf, device=dev)
+    if alphabet is not None:
+        out = np.asarray(alphabet)[out]
+    return out

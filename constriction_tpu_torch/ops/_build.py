@@ -1,0 +1,151 @@
+"""Builds the CUDA sources under ``ops/csrc`` and binds them with ctypes.
+
+On first use, :func:`library` compiles every ``csrc/*.cu`` with nvcc for
+``sm_90a`` into one shared library with a plain C interface, under
+``build/constriction_tpu_torch/<hash>/`` at the root of the checkout, keyed
+by a hash of the sources and flags so an edited source never loads a stale
+binary.  A missing nvcc or a failed build raises; nothing continues on a
+kernel's plain version.
+
+Every C entry point returns ``cudaGetLastError()``; :func:`call` raises if
+that is not 0.  Pointers and the CUDA stream travel as ``ctypes.c_void_p``.
+
+JAX counterpart: none as such; the JAX package compiles each Pallas kernel
+through ``jax.jit`` in a ``_build_*`` function (``pallas_coder._build_decoder``),
+cached per (CDF, config) by ``inversion_keyed_cache``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_ROOT = os.path.join(
+    os.path.dirname(os.path.dirname(_HERE)), "build", "constriction_tpu_torch"
+)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+_DECODE_ARGS = [_P, _P, _I64, _P, _I32, _P, _I64, _I32, _I32, _P, _I32]
+_ENCODE_ARGS = [_P, _P, _I64, _P, _I32, _P, _I64, _P, _I32, _I32, _P, _I32]
+SIGNATURES = {
+    "ctt_ilans2_decode_w16s32": _DECODE_ARGS,
+    "ctt_ilans2_decode_w32s64": _DECODE_ARGS,
+    "ctt_ilans2_encode_w16s32": _ENCODE_ARGS,
+    "ctt_ilans2_encode_w32s64": _ENCODE_ARGS,
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+# what the last build in this process did: seconds spent and nvcc's output
+# (register and shared-memory use per kernel from -Xptxas -v); None when the
+# library was already on disk
+build_info: dict | None = None
+
+
+def _sources() -> list[str]:
+    return sorted(
+        os.path.join(CSRC, f) for f in os.listdir(CSRC)
+        if f.endswith((".cu", ".cuh"))
+    )
+
+
+def _key(sources: list[str]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                     "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
+        "constriction_tpu_torch cannot be built"
+    )
+
+
+def _compile(sources: list[str], out: str) -> None:
+    global build_info
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *(s for s in sources if s.endswith(".cu"))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    build_info = {
+        "seconds": time.perf_counter() - t0,
+        "command": " ".join(cmd),
+        "log": proc.stdout + proc.stderr,
+    }
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first use and loaded once per process.
+    JAX counterpart: the jit compile in the Pallas ``_build_*`` functions."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            sources = _sources()
+            out = os.path.join(BUILD_ROOT, _key(sources), "libctt_kernels.so")
+            if not os.path.exists(out):
+                _compile(sources, out)
+            lib = ctypes.CDLL(out)
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.ctt_error_string.argtypes = [ctypes.c_int]
+            lib.ctt_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def _arg(x):
+    if isinstance(x, torch.Tensor):
+        return ctypes.c_void_p(x.data_ptr())
+    return x
+
+
+def call(name: str, device: torch.device, *args) -> None:
+    """Launch C entry ``name`` on ``device``'s current stream; tensors pass
+    as their data pointers.  Raises RuntimeError on a nonzero CUDA error.
+    JAX counterpart: calling a built Pallas kernel, ``fn(*arrays)``."""
+    lib = library()
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    stream = torch.cuda.current_stream(index).cuda_stream
+    err = getattr(lib, name)(
+        *(_arg(a) for a in args), ctypes.c_void_p(stream), index
+    )
+    if err != 0:
+        msg = lib.ctt_error_string(err).decode()
+        raise RuntimeError(f"{name} failed: CUDA error {err} ({msg})")

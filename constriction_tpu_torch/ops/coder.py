@@ -1,0 +1,306 @@
+"""ILANS2 rANS at the small preset (W=16, S=32, P <= 16) on the GPU.
+
+The counterpart of the S=32 encode/decode pair of
+``constriction_tpu/ops/pallas_coder.py``.  The wrappers here launch the
+hand-written kernels of ``csrc/ilans2.cu`` for CUDA tensors and run the
+plain PyTorch twins for CPU tensors; any other device raises.  The twins
+run the same step loop as the kernels with int64 tensors, and are also what
+the kernels are held against on the card.
+
+The Pallas kernel's in-kernel helpers become, in GPU form:
+
+- ``_refill_words`` / ``_ranks_flat`` / ``_expand_monotone_2d`` -> an
+  exclusive scan of the refill mask plus an indexed read of the stream
+  (:func:`_refill_words` here; a warp ballot plus a block scan in the kernel);
+- ``_emit_words`` / ``_compact_monotone_2d`` -> an exclusive scan of the
+  renorm mask plus an indexed write below the end pointer
+  (:func:`_emit_words`);
+- ``_compare_sum_auto`` -> a binary search over the CDF with
+  ``searchsorted(side="right") - 1`` semantics;
+- ``_cum_prob_from_sym`` -> two CDF reads; ``_exact_div`` -> integer division.
+
+Tensor layout (constriction_tpu_torch/convert.py): lane states and stream
+words are int32 tensors holding u32 bits; CDFs are int64; symbols int32.
+
+The helpers below (argument checks, the scans, the launch glue) are shared
+with the S=64 preset in :mod:`constriction_tpu_torch.ops.coder64`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import convert
+from . import _build
+from .interleaved import LaneConfig
+
+# kernel launches made by this module's wrappers (never by the twins)
+LAUNCHES = {"encode": 0, "decode": 0}
+
+
+# ---------------------------------------------------------------------------
+# shared by both presets
+# ---------------------------------------------------------------------------
+
+
+def _num_steps(n: int, L: int) -> int:
+    return -(-n // L) if n else 0
+
+
+def _check_cfg(cfg: LaneConfig, W: int, S: int, max_p: int) -> None:
+    if (cfg.word_bits, cfg.state_bits) != (W, S) or not (
+        0 < cfg.precision <= max_p
+    ):
+        raise ValueError(
+            f"this coder takes W={W}, S={S}, P<={max_p}; got W="
+            f"{cfg.word_bits}, S={cfg.state_bits}, P={cfg.precision}"
+        )
+    if cfg.num_lanes <= 0 or cfg.num_lanes % 128:
+        raise ValueError(
+            f"num_lanes must be a positive multiple of 128, got "
+            f"{cfg.num_lanes}"
+        )
+
+
+def _check(name: str, t, dtype: torch.dtype, device: torch.device,
+           numel: int | None = None) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D tensor")
+    if numel is not None and t.numel() != numel:
+        raise ValueError(f"{name} must have {numel} entries, got {t.numel()}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def _on_cuda(device: torch.device) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors
+    (run the twin); raises for any other device."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device.type == "cuda"
+
+
+def _check_cdf_arg(cdf, device: torch.device) -> None:
+    _check("cdf", cdf, torch.int64, device)
+    if cdf.numel() < 2:
+        raise ValueError("cdf needs at least 2 entries (one symbol)")
+
+
+def _check_seeds(seeds, cfg: LaneConfig, dtype: torch.dtype,
+                 device: torch.device) -> None:
+    """Same errors as ``interleaved2.encode_shared``."""
+    L, S, W = cfg.num_lanes, cfg.state_bits, cfg.word_bits
+    if seeds.numel() != L:
+        raise ValueError(f"seeds must have num_lanes={L} entries")
+    _check("seeds", seeds, dtype, device)
+    if S > 32:  # int64 bits: below the floor 2^32 iff in [0, 2^32)
+        bad = (seeds >= 0) & (seeds < 1 << (S - W))
+    else:
+        bad = convert.u32_values(seeds) < 1 << (S - W)
+    if bool(bad.any()):
+        raise ValueError("seeds must lie in [2^(S-W), 2^S)")
+
+
+def _encode_args(symbols, cdf, cfg: LaneConfig, seeds, state_dtype):
+    """Validates the encoder's arguments; returns the start states (a fresh
+    tensor the coder may update in place)."""
+    if not isinstance(symbols, torch.Tensor):
+        raise TypeError("symbols must be a torch.Tensor")
+    device = symbols.device
+    _check("symbols", symbols, torch.int32, device)
+    _check_cdf_arg(cdf, device)
+    if seeds is not None:
+        _check_seeds(seeds, cfg, state_dtype, device)
+        return seeds.clone()
+    floor = 1 << (cfg.state_bits - cfg.word_bits)
+    return torch.full((cfg.num_lanes,), floor, dtype=state_dtype,
+                      device=device)
+
+
+def _decode_args(states, stream, cdf, cfg: LaneConfig, state_dtype) -> None:
+    if not isinstance(states, torch.Tensor):
+        raise TypeError("states must be a torch.Tensor")
+    device = states.device
+    _check("states", states, state_dtype, device, cfg.num_lanes)
+    _check("stream", stream, torch.int32, device)
+    _check_cdf_arg(cdf, device)
+
+
+def _refill_words(m: torch.Tensor, words: torch.Tensor, base: torch.Tensor):
+    """Decode-side refill: lane l with ``m[l]`` takes stream word ``base +
+    rank_l`` (rank = exclusive prefix count of ``m``); reads past the end
+    give 0.  Returns ``(per-lane words, next base)``."""
+    mi = m.to(torch.int64)
+    idx = base + torch.cumsum(mi, 0) - mi
+    if words.numel() == 0:
+        got = torch.zeros_like(idx)
+    else:
+        got = words[idx.clamp(0, words.numel() - 1)]
+        got = torch.where(idx < words.numel(), got, 0)
+    return got, base + mi.sum()
+
+
+def _emit_words(buf: torch.Tensor, renorm: torch.Tensor, vals: torch.Tensor,
+                e: torch.Tensor, cap: int) -> torch.Tensor:
+    """Encode-side emission: the step's k renorming lanes write their words,
+    in ascending lane order, to ``buf[e - k : e]``; the other lanes write
+    the junk slot ``buf[cap]``.  Returns the new end pointer ``e - k``."""
+    ri = renorm.to(torch.int64)
+    e = e - ri.sum()
+    pos = torch.where(renorm, e + torch.cumsum(ri, 0) - ri, cap)
+    buf.scatter_(0, pos, vals)
+    return e
+
+
+def _symbol_tables(symbols, cdf64, i, n, K):
+    """(cum, prob) of the symbols at flat indices ``i`` (clamped to the
+    message); out-of-range symbols read as K-1, as in the kernel."""
+    s = symbols[i.clamp(max=n - 1)].to(torch.int64)
+    s = torch.where((s < 0) | (s >= K), K - 1, s)
+    cum = cdf64[s]
+    return cum, cdf64[s + 1] - cum
+
+
+def _find_symbols(cdf64, q, K):
+    """Quantile -> symbol: ``searchsorted(cdf, q, side="right") - 1``."""
+    return (torch.searchsorted(cdf64, q, right=True) - 1).clamp(0, K - 1)
+
+
+def _launch_decode(tag: str, states, stream, cdf, cfg: LaneConfig, n: int):
+    """One kernel launch; returns (symbols int32[n], final states)."""
+    device = states.device
+    fin = states.clone()
+    syms = torch.empty(n, dtype=torch.int32, device=device)
+    cdf32 = cdf.to(torch.int32)
+    _build.call(
+        f"ctt_ilans2_decode_{tag}", device, fin, stream, stream.numel(),
+        cdf32, cdf32.numel() - 1, syms, n, cfg.num_lanes, cfg.precision,
+    )
+    return syms, fin
+
+
+def _launch_encode(tag: str, symbols, cdf, cfg: LaneConfig, states):
+    """One kernel launch coding into ``states`` in place; returns
+    (final states, stream).  Reads the end pointer back (one sync)."""
+    device = symbols.device
+    n = symbols.numel()
+    buf = torch.empty(n, dtype=torch.int32, device=device)
+    end = torch.empty(1, dtype=torch.int64, device=device)
+    cdf32 = cdf.to(torch.int32)
+    _build.call(
+        f"ctt_ilans2_encode_{tag}", device, states, symbols, n, cdf32,
+        cdf32.numel() - 1, buf, n, end, cfg.num_lanes, cfg.precision,
+    )
+    return states, buf[int(end.item()):]
+
+
+# ---------------------------------------------------------------------------
+# W=16 / S=32
+# ---------------------------------------------------------------------------
+
+
+def encode_iid(symbols, cdf, cfg: LaneConfig, seeds=None):
+    """Encode i.i.d. categorical symbols into the ILANS2 format (W=16,
+    S=32, P <= 16).  JAX counterpart:
+    ``constriction_tpu.ops.pallas_coder.encode_iid_pallas``.
+
+    ``symbols`` int32[n] and ``cdf`` int64[K+1] on one device; ``seeds``
+    (optional, int32[L] holding u32 start states in [2^16, 2^32)).  Returns
+    ``(states int32[L], stream int32[num_words])``: the decoder's initial
+    states and the W-bit words, one per element.  CUDA tensors launch the
+    kernel, CPU tensors run :func:`encode_iid_plain`."""
+    _check_cfg(cfg, 16, 32, 16)
+    states = _encode_args(symbols, cdf, cfg, seeds, torch.int32)
+    if not _on_cuda(symbols.device):
+        return encode_iid_plain(symbols, cdf, cfg, seeds)
+    if symbols.numel() == 0:
+        return states, torch.zeros(0, dtype=torch.int32,
+                                   device=symbols.device)
+    LAUNCHES["encode"] += 1
+    return _launch_encode("w16s32", symbols, cdf, cfg, states)
+
+
+def encode_iid_plain(symbols, cdf, cfg: LaneConfig, seeds=None):
+    """Plain PyTorch twin of :func:`encode_iid` (any device, no checks).
+    JAX counterpart: ``constriction_tpu.ops.pallas_coder.encode_iid_pallas``;
+    numpy oracle ``interleaved2.encode_shared``."""
+    L, S, W, P = cfg.num_lanes, cfg.state_bits, cfg.word_bits, cfg.precision
+    device = symbols.device
+    n = symbols.numel()
+    if seeds is not None:
+        x = convert.u32_values(seeds)
+    else:
+        x = torch.full((L,), 1 << (S - W), dtype=torch.int64, device=device)
+    cdf64 = cdf.to(torch.int64)
+    K = cdf64.numel() - 1
+    lanes = torch.arange(L, device=device)
+    buf = torch.zeros(n + 1, dtype=torch.int64, device=device)
+    e = torch.tensor(n, dtype=torch.int64, device=device)
+    for t in range(_num_steps(n, L) - 1, -1, -1):
+        i = t * L + lanes
+        active = i < n
+        cum, prob = _symbol_tables(symbols, cdf64, i, n, K)
+        prob = torch.where(active, prob, 1)
+        renorm = active & ((x >> (S - P)) >= prob)
+        e = _emit_words(buf, renorm, x & cfg.word_mask, e, n)
+        x = torch.where(renorm, x >> W, x)
+        x = torch.where(active, ((x // prob) << P) | (cum + x % prob), x)
+    return convert.u32_bits(x), convert.u32_bits(buf[int(e):n])
+
+
+def decode_shared(states, stream, cdf, cfg: LaneConfig, n: int,
+                  return_final_states: bool = False):
+    """Decode n symbols of an ILANS2 stream (W=16, S=32, P <= 16).  JAX
+    counterpart: ``constriction_tpu.ops.pallas_coder.decode_shared_pallas``.
+
+    ``states`` int32[L] (u32 bits), ``stream`` int32 words, ``cdf``
+    int64[K+1], all on one device.  Returns symbols int32[n], and with
+    ``return_final_states`` also the final states int32[L] (after a full
+    decode, the encoder's seeds).  CUDA tensors launch the kernel, CPU
+    tensors run :func:`decode_shared_plain`."""
+    _check_cfg(cfg, 16, 32, 16)
+    _decode_args(states, stream, cdf, cfg, torch.int32)
+    if not _on_cuda(states.device):
+        return decode_shared_plain(states, stream, cdf, cfg, n,
+                                   return_final_states)
+    if n == 0:
+        syms, fin = torch.zeros(0, dtype=torch.int32,
+                                device=states.device), states.clone()
+    else:
+        LAUNCHES["decode"] += 1
+        syms, fin = _launch_decode("w16s32", states, stream, cdf, cfg, n)
+    return (syms, fin) if return_final_states else syms
+
+
+def decode_shared_plain(states, stream, cdf, cfg: LaneConfig, n: int,
+                        return_final_states: bool = False):
+    """Plain PyTorch twin of :func:`decode_shared` (any device, no checks).
+    JAX counterpart: ``constriction_tpu.ops.pallas_coder.decode_shared_pallas``;
+    numpy oracle ``interleaved2.decode_shared_cdf``."""
+    L, S, W, P = cfg.num_lanes, cfg.state_bits, cfg.word_bits, cfg.precision
+    device = states.device
+    x = convert.u32_values(states)
+    words = convert.u32_values(stream)
+    cdf64 = cdf.to(torch.int64)
+    K = cdf64.numel() - 1
+    T = _num_steps(n, L)
+    lanes = torch.arange(L, device=device)
+    out = torch.empty(T * L, dtype=torch.int32, device=device)
+    base = torch.zeros((), dtype=torch.int64, device=device)
+    for t in range(T):
+        active = t * L + lanes < n
+        q = x & ((1 << P) - 1)
+        sym = _find_symbols(cdf64, q, K)
+        cum = cdf64[sym]
+        prob = cdf64[sym + 1] - cum
+        x = torch.where(active, (x >> P) * prob + (q - cum), x)
+        m = x < 1 << (S - W)
+        w, base = _refill_words(m, words, base)
+        x = torch.where(m, (x << W) | (w & cfg.word_mask), x)
+        out[t * L:(t + 1) * L] = sym.to(torch.int32)
+    syms = out[:n]
+    return (syms, convert.u32_bits(x)) if return_final_states else syms
