@@ -9,31 +9,59 @@ prints one JSON object per phase, then the kernels line, the card's
 ``nvidia-smi`` name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
 
-1. build     -- nvcc build time, ptxas register/shared-memory report.
-2. kernels   -- each of the four kernels against its plain PyTorch twin on
-                the same CUDA tensors and against the numpy host oracle
-                (L=32768, about 2^20 symbols, with and without seeds):
-                streams, initial and final lane states and symbols must be
-                identical (integer coding: tolerance 0).
-3. main path -- bench.py's workload (2^25 symbols, K=100, Dirichlet(2),
-                seed 1234) through ``constriction_tpu_torch.cuda.encode_iid``
-                -> ``decode_iid`` at P=24 and P=12, v2 and v1 containers.
-                Each container must equal the host oracle's byte for byte
-                and decode to the symbols; every kernel must have launched.
-4. times     -- kernel-only encode/decode at that size (CUDA events), and
-                the twins on the card at the same size, whose streams,
-                states and symbols must equal the kernels'; kernel times
-                at bench.py's explicit configs (L=65536, P=24 and P=12).
-5. sweep     -- kernel time per coding step at T=256 steps over
-                L=128 .. 65536, both presets: the per-step floor (at
-                L=128) and the added microseconds per 1024 lanes (the
-                slope from L=4096 to 65536).
+1. build         -- nvcc build time (one nvcc per source, in parallel),
+                    ptxas register/shared-memory report.
+2. kernels       -- each rANS kernel against its plain PyTorch twin on the
+                    same CUDA tensors and against the numpy host oracle
+                    (L=32768, about 2^20 symbols, with and without seeds):
+                    streams, initial and final lane states and symbols must
+                    be identical (integer coding: tolerance 0).
+3. main path     -- bench.py's workload (2^25 symbols, K=100, Dirichlet(2),
+                    seed 1234) through ``constriction_tpu_torch.cuda.
+                    encode_iid`` -> ``decode_iid`` at P=24 and P=12, v2 and
+                    v1 containers.  Each container must equal the host
+                    oracle's byte for byte and decode to the symbols; every
+                    rANS kernel must have launched.
+4. times         -- kernel-only rANS encode/decode at that size (CUDA
+                    events), and the twins on the card at the same size,
+                    whose streams, states and symbols must equal the
+                    kernels'; kernel times at bench.py's explicit configs
+                    (L=65536, P=24 and P=12).
+5. sweep         -- kernel time per coding step at T=256 steps over
+                    L=128 .. 65536, both presets: the per-step floor (at
+                    L=128) and the added microseconds per 1024 lanes (the
+                    slope from L=4096 to 65536).
+6. range_kernels -- each of the six range kernels (phase A, phase B,
+                    decode; both presets) against its twin on the same CUDA
+                    tensors and against the port's numpy host range coder
+                    (L=32768, about 2^20 symbols, P=24 and P=12, and a
+                    skewed carry-run model), plus a seeded decode from a
+                    checkpoint of ``build_checkpoints_range``: records,
+                    final planes, points, streams and symbols identical.
+7. range_main_path -- the same 2^25-symbol workload through
+                    ``cuda.encode_iid_range`` -> ``decode_iid_range`` at
+                    P=24 and P=12 (the facade's L, 32768): points and stream
+                    byte for byte the host oracle's, the decode equal to the
+                    symbols; every range kernel must have launched.
+8. range_times   -- kernel-only time of each range kernel at that size
+                    (CUDA events around each launch, after a warm-up), its
+                    twin's time on the card (outputs equal to the kernel's),
+                    and the facade's encode and decode call times.
+
+Each main path runs with every launch counter set to 0 just before it, and
+the counts read just after it are the ``launches`` of its kernels.
+``bound_ms`` is the larger of the bytes the function must move (each input
+read once, each output written once) over the card's 3.35 TB/s and its
+integer operations over 33.5 T per second (NVIDIA's 67 TFLOP/s float32
+rate counts a fused multiply-add as two).  No single PyTorch call computes
+these functions, so ``library_ms`` is null.
 
 Everything comes from the port: the model's CDF
-(``constriction_tpu_torch.models``) and the host oracle, which is the
-port's numpy ILANS2 host coder under the port's container framing (the CPU
-tests hold both byte for byte against the JAX package).  The script
-imports nothing of JAX or of the JAX package, and checks that at the end.
+(``constriction_tpu_torch.models``) and the host oracles, which are the
+port's numpy ILANS2 and ILANS2-R host coders under the port's container
+framing (the CPU tests hold them byte for byte against the JAX package).
+The script imports nothing of JAX or of the JAX package, and checks that
+at the end.
 """
 
 from __future__ import annotations
@@ -50,19 +78,49 @@ N_KERNEL_CHECK = (1 << 20) - 12345  # partial last step
 N_MAIN = 1 << 25
 K_MAIN = 100
 BENCH_LANES = 1 << 16
+N_SKEWED = 1 << 19  # the carry-run model: 4096 steps on 128 lanes
+SKEWED_LANES = 128
 
-# kernel -> (module whose LAUNCHES counts it, counter key, Pallas site)
+RANS_SOURCE = "constriction_tpu_torch/ops/csrc/ilans2.cu"
+RANGE_SOURCE = "constriction_tpu_torch/ops/csrc/ilans2_range.cu"
+# kernel -> (module whose LAUNCHES counts it, counter key, Pallas site,
+# source)
 KERNELS = {
     "ilans2_decode_w32s64": ("coder64", "decode",
-                             "constriction_tpu/ops/pallas_coder64.py:187"),
+                             "constriction_tpu/ops/pallas_coder64.py:187",
+                             RANS_SOURCE),
     "ilans2_encode_w32s64": ("coder64", "encode",
-                             "constriction_tpu/ops/pallas_coder64.py:373"),
+                             "constriction_tpu/ops/pallas_coder64.py:373",
+                             RANS_SOURCE),
     "ilans2_decode_w16s32": ("coder", "decode",
-                             "constriction_tpu/ops/pallas_coder.py:1638"),
+                             "constriction_tpu/ops/pallas_coder.py:1638",
+                             RANS_SOURCE),
     "ilans2_encode_w16s32": ("coder", "encode",
-                             "constriction_tpu/ops/pallas_coder.py:1352"),
+                             "constriction_tpu/ops/pallas_coder.py:1352",
+                             RANS_SOURCE),
 }
-SOURCE = "constriction_tpu_torch/ops/csrc/ilans2.cu"
+RANGE_KERNELS = {
+    "ilans2_range_decode_w32s64": (
+        "coder64", "range_decode",
+        "constriction_tpu/ops/pallas_coder64.py:677", RANGE_SOURCE),
+    "ilans2_range_decode_w16s32": (
+        "coder", "range_decode",
+        "constriction_tpu/ops/pallas_coder.py:1550", RANGE_SOURCE),
+    "ilans2_range_record_w16s32": (
+        "range_enc", "record",
+        "constriction_tpu/ops/pallas_range_enc.py:151", RANGE_SOURCE),
+    "ilans2_range_resolve_w16s32": (
+        "range_enc", "resolve",
+        "constriction_tpu/ops/pallas_range_enc.py:185", RANGE_SOURCE),
+    "ilans2_range_record_w32s64": (
+        "range_enc", "record64",
+        "constriction_tpu/ops/pallas_range_enc.py:441", RANGE_SOURCE),
+    "ilans2_range_resolve_w32s64": (
+        "range_enc", "resolve64",
+        "constriction_tpu/ops/pallas_range_enc.py:484", RANGE_SOURCE),
+}
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+INT_OPS_PER_S = 33.5e12  # 32-bit scalar operations, 132 SMs
 SWEEP_LANES = (128, 1024, 4096, 16384, 32768, 65536)
 SWEEP_STEPS = 256
 
@@ -155,6 +213,19 @@ def mismatch(a, b) -> int:
     if torch.equal(a, b):
         return 0
     return max(1, int((a.long() - b.long()).abs().max()))
+
+
+def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
+    """(bound_ms, bound_by): the least time the card could take to move
+    ``bytes_moved`` bytes and do ``ops`` integer operations."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def search_ops(K: int) -> int:
+    """Integer operations of the quantile -> symbol binary search."""
+    return 3 * max(1, (K - 1).bit_length())
 
 
 def phase_build() -> dict:
@@ -350,10 +421,17 @@ def phase_times(device, probs, symbols, gpu: str,
                     lambda: enc_p(syms, cdf, cfg), 1)
                 row["decode_plain_ms"] = time_ms(
                     lambda: dec_p(st, w, cdf, cfg, n), 1)
+                K, B = len(cdf_np) - 1, S // 8
+                L, words = cfg.num_lanes, int(w.numel())
+                # encode: symbols and CDF in; states and stream out
                 times[f"ilans2_encode_{label}"] = (
-                    row["encode_ms"], row["encode_plain_ms"])
+                    row["encode_ms"], row["encode_plain_ms"],
+                    *bound(4 * n + 4 * (K + 1) + B * L + 4 * words, 10 * n))
+                # decode: states, stream and CDF in; symbols, states out
                 times[f"ilans2_decode_{label}"] = (
-                    row["decode_ms"], row["decode_plain_ms"])
+                    row["decode_ms"], row["decode_plain_ms"],
+                    *bound(2 * B * L + 4 * words + 4 * (K + 1) + 4 * n,
+                           (search_ops(K) + 8) * n))
             for k in ("encode", "decode"):
                 row[f"{k}_gsym_per_s"] = n / (row[f"{k}_ms"] * 1e-3) / 1e9
             row["gpu"] = gpu
@@ -410,6 +488,327 @@ def phase_sweep(device, gpu: str) -> dict:
     return {"phase": "sweep", "cases": rows, "fits": fits, "gpu": gpu}
 
 
+def range_presets():
+    """(label, W, S, P, decode, decode_plain)."""
+    from constriction_tpu_torch.ops import coder, coder64
+
+    return [
+        ("w32s64", 32, 64, 24, coder64.decode_shared_range64,
+         coder64.decode_shared_range64_plain),
+        ("w16s32", 16, 32, 12, coder.decode_shared_range,
+         coder.decode_shared_range_plain),
+    ]
+
+
+def host_range(symbols, cdf, cfg):
+    """The port's numpy host range encoder: ``(points, stream)``."""
+    import numpy as np
+
+    from constriction_tpu_torch.ops import interleaved2 as il2
+
+    c = np.asarray(cdf, dtype=np.uint64)
+    cums = c[symbols]
+    return il2.encode_shared_range(cums, c[symbols + 1] - cums, cfg)
+
+
+def planes_err(a, b) -> int:
+    return max(mismatch(x, y) for x, y in zip(a, b))
+
+
+def range_case(device, cfg, syms_np, cdf_np, dec, dec_p, label,
+               errs) -> dict:
+    """The three range kernels of one preset against their twins on the
+    same CUDA tensors and against the host oracle, and a seeded decode
+    from the middle checkpoint.  Adds each kernel's largest difference to
+    ``errs``."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import interleaved2 as il2
+    from constriction_tpu_torch.ops import range_enc
+
+    n, L = len(syms_np), cfg.num_lanes
+    syms = torch.from_numpy(syms_np.astype(np.int32)).to(device)
+    cdf = convert.cdf_to_torch(cdf_np, device)
+    rec = range_enc.record(syms, cdf, cfg)
+    e_rec = planes_err(rec, range_enc.record_plain(syms, cdf, cfg))
+    s0, carry = range_enc.seal(rec[1], rec[2], cfg)
+    pts, words = range_enc.resolve(rec[0], s0, carry, cfg, n)
+    e_res = planes_err((pts, words),
+                       range_enc.resolve_plain(rec[0], s0, carry, cfg, n))
+    pts_h, words_h = host_range(syms_np, cdf_np, cfg)
+    e_res = max(e_res, mismatch(pts, convert.states_to_torch(
+        pts_h, cfg, device)), mismatch(words, convert.u32_to_torch(
+            words_h, device)))
+    out, fin = dec(pts, words, cdf, cfg, n, return_final_states=True)
+    out_p, fin_p = dec_p(pts, words, cdf, cfg, n, return_final_states=True)
+    e_dec = max(mismatch(out, out_p), planes_err(fin, fin_p),
+                mismatch(out.cpu(), torch.from_numpy(
+                    il2.decode_shared_range_cdf(pts_h, words_h, n, cdf_np,
+                                                cfg))))
+    round_trip = mismatch(out, syms) == 0
+    # seeded: resume from the middle checkpoint (every 8 steps)
+    off, lows, rngs, pps = il2.build_checkpoints_range(
+        pts_h, words_h, n, cdf_np, cfg, 8)
+    c = len(off) // 2
+    start = (c + 1) * 8 * L
+    lo, rn, pt = convert.planes_to_torch((lows[c], rngs[c], pps[c]), cfg,
+                                         device)
+    sub = convert.u32_to_torch(words_h[off[c]:], device)
+    k = dec(pt, sub, cdf, cfg, n - start, lows=lo, rngs=rn,
+            return_final_states=True)
+    p = dec_p(pt, sub, cdf, cfg, n - start, lows=lo, rngs=rn,
+              return_final_states=True)
+    e_dec = max(e_dec, mismatch(k[0], p[0]), planes_err(k[1], p[1]),
+                planes_err(k[1], fin))
+    seeded_ok = mismatch(k[0], syms[start:]) == 0
+    for kind, e in (("record", e_rec), ("resolve", e_res), ("decode", e_dec)):
+        name = f"ilans2_range_{kind}_{label}"
+        errs[name] = max(errs.get(name, 0), e)
+    row = {"preset": label, "P": cfg.precision, "words": int(words.numel()),
+           "carries": int(((rec[0].long() >> (cfg.word_bits + 1)) & 1).sum()),
+           "record_max_abs_err": e_rec, "resolve_max_abs_err": e_res,
+           "decode_max_abs_err": e_dec, "round_trip": round_trip,
+           "seeded_from_step": (c + 1) * 8, "seeded_decode_exact": seeded_ok}
+    if e_rec or e_res or e_dec or not round_trip or not seeded_ok:
+        fail(f"range kernel != twin or host oracle, or no round trip: {row}")
+    return row
+
+
+def phase_range_kernels(device, n: int, L: int) -> tuple[dict, dict]:
+    import numpy as np
+
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    rng = np.random.RandomState(17)
+    probs = rng.dirichlet(np.full(K_MAIN, 2.0))
+    syms = rng.choice(K_MAIN, size=n, p=probs).astype(np.int64)
+    # 99.9% of the mass on one symbol: a lane renorms only every thousand
+    # steps or so, after long runs of deferred words, so this model runs
+    # on few lanes and many steps
+    skewed = np.where(rng.random_sample(N_SKEWED) < 0.999, 0,
+                      rng.randint(1, 4, N_SKEWED)).astype(np.int64)
+    errs: dict[str, int] = {}
+    rows = []
+    for label, W, S, P, dec, dec_p in range_presets():
+        cfg = LaneConfig(num_lanes=L, word_bits=W, state_bits=S, precision=P)
+        row = range_case(device, cfg, syms, model_cdf(probs, P), dec, dec_p,
+                         label, errs)
+        rows.append({"model": "dirichlet", "num_lanes": L, "n": n, **row})
+        q = np.array([(1 << P) - 3, 1, 1, 1], dtype=np.int64)
+        cdf = np.concatenate([[0], np.cumsum(q)]).astype(np.uint32)
+        cfg = LaneConfig(num_lanes=SKEWED_LANES, word_bits=W, state_bits=S,
+                         precision=P)
+        row = range_case(device, cfg, skewed, cdf, dec, dec_p, label, errs)
+        rows.append({"model": "skewed 99.9%", "num_lanes": SKEWED_LANES,
+                     "n": N_SKEWED, **row})
+    return {"phase": "range_kernels", "cases": rows}, errs
+
+
+def phase_range_main(device, probs, symbols) -> dict:
+    """The range facade on the card at full size, against the host
+    oracle."""
+    import numpy as np
+
+    from constriction_tpu_torch import cuda as ctt
+
+    rows = []
+    for P in (24, 12):
+        cdf = model_cdf(probs, P)
+        cfg = ctt._pick_cfg(len(symbols), None, cdf)
+        t0 = time.perf_counter()
+        pts, words = ctt.encode_iid_range(symbols, cdf, device=device)
+        t1 = time.perf_counter()
+        out = ctt.decode_iid_range(pts, words, cdf, len(symbols),
+                                   device=device)
+        t2 = time.perf_counter()
+        pts_h, words_h = host_range(symbols, cdf, cfg)
+        t3 = time.perf_counter()
+        row = {
+            "P": P, "num_lanes": cfg.num_lanes, "words": int(len(words)),
+            "identical_to_host_oracle": bool(
+                pts.dtype == pts_h.dtype and np.array_equal(pts, pts_h)
+                and np.array_equal(words, words_h)),
+            "decodes_exactly": bool(np.array_equal(out, symbols)),
+            "encode_call_s": t1 - t0, "decode_call_s": t2 - t1,
+            "host_oracle_encode_s": t3 - t2,
+        }
+        rows.append(row)
+        if not (row["identical_to_host_oracle"] and row["decodes_exactly"]):
+            fail(f"range main path: {row}")
+    return {"phase": "range_main_path", "n": len(symbols), "cases": rows}
+
+
+def kernel_ms(setup, launch, reps: int) -> float:
+    """Mean milliseconds of ``launch()`` alone over ``reps`` runs after one
+    warm-up: CUDA events around each launch, ``setup()`` (restoring state
+    the kernel updates in place) outside them."""
+    import torch
+
+    setup()
+    launch()
+    total = 0.0
+    for _ in range(reps):
+        setup()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def timed(fn):
+    """(milliseconds, result) of one call, between CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def phase_range_times(device, probs, symbols, gpu: str,
+                      errs: dict) -> tuple[dict, dict]:
+    """Kernel-only time of each range kernel at the main path's size and
+    config, its twin's time and outputs (which must equal the kernel's)
+    on the same tensors, and the facade's call times.  Returns the phase
+    record and {kernel: (ms, plain_ms, bound_ms, bound_by)}."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch import cuda as ctt
+    from constriction_tpu_torch.ops import _build, range_enc
+
+    n = len(symbols)
+    syms = torch.from_numpy(symbols.astype(np.int32)).to(device)
+    rows, times = [], {}
+    for label, W, S, P, dec, dec_p in range_presets():
+        cdf_np = model_cdf(probs, P)
+        cfg = ctt._pick_cfg(n, None, cdf_np)
+        L, K, B = cfg.num_lanes, len(cdf_np) - 1, S // 8
+        T = -(-n // L)
+        cdf = convert.cdf_to_torch(cdf_np, device)
+        cdf32 = cdf.to(torch.int32)
+        recs, low_f, rng_f = range_enc.record(syms, cdf, cfg)
+        s0, carry = range_enc.seal(low_f, rng_f, cfg)
+        pts, words = range_enc.resolve(recs, s0, carry, cfg, n)
+        out, fin = dec(pts, words, cdf, cfg, n, return_final_states=True)
+        if mismatch(out, syms):
+            fail(f"range_times: {label} round trip")
+        nw = int(words.numel())
+        # kernel-only: the C entry points on preallocated buffers
+        r_buf = torch.empty_like(recs)
+        lo_buf, rg_buf = torch.empty_like(low_f), torch.empty_like(rng_f)
+        pend, d1, d2 = (torch.empty_like(s0) for _ in range(3))
+        buf = torch.empty(n, dtype=torch.int32, device=device)
+        end = torch.empty(1, dtype=torch.int64, device=device)
+        p_buf = torch.empty_like(pts)
+        planes = [torch.empty_like(pts) for _ in range(3)]
+        o_buf = torch.empty(n, dtype=torch.int32, device=device)
+        bad = torch.empty(1, dtype=torch.int64, device=device)
+
+        def reset_resolve():
+            pend.copy_(carry)
+            d1.copy_(s0)
+            d2.zero_()
+
+        def reset_decode():
+            planes[0].zero_()
+            planes[1].fill_(-1)
+            planes[2].copy_(pts)
+            bad.fill_(n)
+
+        ms = {
+            "record": kernel_ms(lambda: None, lambda: _build.call(
+                f"ctt_ilans2_range_record_{label}", device, syms, n, cdf32,
+                K, r_buf, lo_buf, rg_buf, L, P), 3),
+            "resolve": kernel_ms(reset_resolve, lambda: _build.call(
+                f"ctt_ilans2_range_resolve_{label}", device, recs, pend, d1,
+                d2, buf, n, end, p_buf, L, T), 3),
+            "decode": kernel_ms(reset_decode, lambda: _build.call(
+                f"ctt_ilans2_range_decode_{label}", device, *planes, words,
+                nw, cdf32, K, o_buf, n, L, P, bad), 3),
+        }
+        if not (torch.equal(r_buf, recs) and torch.equal(p_buf, pts)
+                and torch.equal(o_buf, syms) and int(bad.item()) == n):
+            fail(f"range_times: {label} timed launches differ")
+        # the twins on the same tensors (after the smaller warm-up above)
+        plain_ms, rec_p = timed(lambda: range_enc.record_plain(syms, cdf,
+                                                               cfg))
+        plain = {"record": plain_ms}
+        plain["resolve"], res_p = timed(lambda: range_enc.resolve_plain(
+            recs, s0, carry, cfg, n))
+        plain["decode"], dec_out = timed(lambda: dec_p(
+            pts, words, cdf, cfg, n, return_final_states=True))
+        e = {"record": planes_err((recs, low_f, rng_f), rec_p),
+             "resolve": planes_err((pts, words), res_p),
+             "decode": max(mismatch(out, dec_out[0]),
+                           planes_err(fin, dec_out[1]))}
+        bounds = {
+            # symbols and CDF in; records and final (lower, range) out
+            "record": bound(4 * n + 4 * (K + 1) + B * T * L + 2 * B * L,
+                            12 * n),
+            # records, seal words and carries in; stream and points out
+            "resolve": bound(B * T * L + 8 * L + 4 * nw + B * L, 8 * T * L),
+            # points, stream and CDF in; symbols and final planes out
+            "decode": bound(B * L + 4 * nw + 4 * (K + 1) + 4 * n + 3 * B * L,
+                            (search_ops(K) + 14) * n),
+        }
+        for kind in ms:
+            name = f"ilans2_range_{kind}_{label}"
+            errs[name] = max(errs[name], e[kind])
+            times[name] = (ms[kind], plain[kind], *bounds[kind])
+        if any(e.values()):
+            fail(f"range_times: kernel != twin at full size: {label} {e}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_np, w_np = ctt.encode_iid_range(symbols, cdf_np, device=device)
+        t1 = time.perf_counter()
+        ctt.decode_iid_range(p_np, w_np, cdf_np, n, device=device)
+        t2 = time.perf_counter()
+        rows.append({
+            "preset": label, "P": P, "num_lanes": L, "n": n, "words": nw,
+            **{f"{k}_ms": v for k, v in ms.items()},
+            **{f"{k}_plain_ms": v for k, v in plain.items()},
+            **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
+            **{f"{k}_max_abs_err": v for k, v in e.items()},
+            "encode_kernels_gsym_per_s": n / ((ms["record"] + ms["resolve"])
+                                              * 1e-3) / 1e9,
+            "decode_kernel_gsym_per_s": n / (ms["decode"] * 1e-3) / 1e9,
+            "facade_encode_call_s": t1 - t0, "facade_decode_call_s": t2 - t1,
+            "facade_encode_ns_per_symbol": (t1 - t0) / n * 1e9,
+            "facade_decode_ns_per_symbol": (t2 - t1) / n * 1e9,
+            "gpu": gpu,
+        })
+    return {"phase": "range_times", "cases": rows}, times
+
+
+def run_main_path(modules: dict, table: dict, phase):
+    """Runs ``phase()`` with every launch counter set to 0 just before it;
+    returns its record with the launches of ``table``'s kernels, read just
+    after it.  Fails if one of them never launched."""
+    for counts in modules.values():
+        for key in counts:
+            counts[key] = 0
+    record = phase()
+    launches = {name: modules[mod][key]
+                for name, (mod, key, _, _) in table.items()}
+    record["launches"] = launches
+    emit(record)
+    if not all(launches.values()):
+        fail(f"a kernel of {record['phase']} never launched: {launches}")
+    return launches
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -423,42 +822,46 @@ def main(argv) -> int:
     if argv:
         fail(f"unknown arguments {argv}; usage: chip_smoke.py")
     sys.path.insert(0, REPO)
-    from constriction_tpu_torch.ops import coder, coder64
+    from constriction_tpu_torch.ops import coder, coder64, range_enc
 
     device = torch.device("cuda", 0)
     build = phase_build()
     emit(build)
     gpu = build["gpu"]
+    modules = {"coder": coder.LAUNCHES, "coder64": coder64.LAUNCHES,
+               "range_enc": range_enc.LAUNCHES}
 
     kernels, errs = phase_kernels(device, N_KERNEL_CHECK, 32768)
     emit(kernels)
-
     probs, symbols = main_workload()
-    modules = {"coder": coder.LAUNCHES, "coder64": coder64.LAUNCHES}
-    for counts in modules.values():
-        for key in counts:
-            counts[key] = 0
-    main_path = phase_main(device, probs, symbols)
-    launches = {name: modules[mod][key]
-                for name, (mod, key, _) in KERNELS.items()}
-    main_path["launches"] = launches
-    emit(main_path)
-    if not all(launches.values()):
-        fail(f"a kernel of the main path never launched: {launches}")
-
+    launches = run_main_path(modules, KERNELS,
+                             lambda: phase_main(device, probs, symbols))
     times_rec, times = phase_times(device, probs, symbols, gpu, errs)
     emit(times_rec)
     emit(phase_sweep(device, gpu))
+
+    range_rec, range_errs = phase_range_kernels(device, N_KERNEL_CHECK, 32768)
+    emit(range_rec)
+    errs.update(range_errs)
+    launches.update(run_main_path(
+        modules, RANGE_KERNELS,
+        lambda: phase_range_main(device, probs, symbols)))
+    range_times, more = phase_range_times(device, probs, symbols, gpu, errs)
+    emit(range_times)
+    times.update(more)
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "constriction_tpu"))
     if foreign:
         fail(f"JAX or the JAX package was imported: {foreign}")
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": site,
+        {"name": name, "route": "cuda", "source": source, "replaces": site,
          "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
-        for name, (_, _, site) in KERNELS.items()
+         "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": times[name][2], "bound_by": times[name][3],
+         "library_ms": None}
+        for name, (_, _, site, source) in {**KERNELS,
+                                           **RANGE_KERNELS}.items()
     ]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {

@@ -8,8 +8,10 @@ for byte against the reference by the tests, and replaces the device
 layer: every Pallas kernel on a ported path becomes a hand-written Hopper
 kernel under ``ops/csrc``, with a plain PyTorch twin beside it.
 
-Ported so far: the i.i.d. categorical coder (``cuda.encode_iid`` /
-``cuda.decode_iid``, v1 and v2 ILANS2 containers, both presets).
+Ported so far: the i.i.d. categorical coders at both presets: ILANS2 rANS
+(``cuda.encode_iid`` / ``cuda.decode_iid``, v1 and v2 containers) and
+ILANS2-R range coding (``cuda.encode_iid_range`` / ``cuda.decode_iid_range``,
+with range checkpoints).
 """
 
 __version__ = "0.1.0"

@@ -4,10 +4,11 @@ This system has no weights.  What crosses between the packages is integer
 data, and the port holds it in signed torch dtypes as bit patterns, because
 torch has few operations on unsigned integers:
 
-- u32 data (stream words, S <= 32 lane states) -> ``torch.int32`` holding the
-  same 32 bits;
-- u64 data (S = 64 lane states) -> ``torch.int64`` holding the same 64 bits,
-  so values >= 2^63 read as negative and come back unchanged;
+- u32 data (stream words, S <= 32 lane states, range points and planes)
+  -> ``torch.int32`` holding the same 32 bits;
+- u64 data (S = 64 lane states, range points and planes) ->
+  ``torch.int64`` holding the same 64 bits, so values >= 2^63 read as
+  negative and come back unchanged;
 - CDF tables -> ``torch.int64`` values (they are below 2^25).
 
 Kernels read these buffers as ``uint32_t`` / ``uint64_t``; the plain twins
@@ -75,6 +76,21 @@ def states_from_torch(t: torch.Tensor, cfg: LaneConfig) -> np.ndarray:
     if cfg.state_bits > 32:
         return u64_from_torch(t)
     return u32_from_torch(t)
+
+
+def planes_to_torch(planes, cfg: LaneConfig, device="cpu") -> tuple:
+    """Range-coder planes -> the port's layout, plane by plane as
+    :func:`states_to_torch`: the points of an ILANS2-R stream, or a
+    checkpoint's (lows, rngs, pts) rows, u32 for S <= 32 and u64 for S = 64
+    (``interleaved2.build_checkpoints_range``).  JAX counterpart: the
+    ``jnp.asarray(...).reshape(R, 128)`` planes (S=32) and (hi, lo) u32
+    splits (S=64) in ``interleaved2.decode_range_from_checkpoint``."""
+    return tuple(states_to_torch(p, cfg, device) for p in planes)
+
+
+def planes_from_torch(tensors, cfg: LaneConfig) -> tuple:
+    """Inverse of :func:`planes_to_torch`: u32 or u64 numpy arrays."""
+    return tuple(states_from_torch(t, cfg) for t in tensors)
 
 
 def cdf_to_torch(cdf, device="cpu") -> torch.Tensor:

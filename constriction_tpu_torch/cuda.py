@@ -1,13 +1,16 @@
-"""Public facade of the port: the i.i.d. categorical coder on a CUDA card.
+"""Public facade of the port: the i.i.d. categorical coders on a CUDA card.
 
 The counterpart of ``constriction_tpu/tpu.py``'s ``encode_iid`` /
-``decode_iid``, writing and reading the same ILANS2 containers byte for
-byte.
+``decode_iid`` (ILANS2 rANS containers) and ``encode_iid_range`` /
+``decode_iid_range`` (ILANS2-R range coding), writing and reading the same
+bytes.
 
     import constriction_tpu_torch.cuda as ctt
 
     data = ctt.encode_iid(symbols, cdf)      # ILANS2 container (u32 numpy)
     out = ctt.decode_iid(data, cdf)
+    points, stream = ctt.encode_iid_range(symbols, cdf)
+    out = ctt.decode_iid_range(points, stream, cdf, len(symbols))
 
 ``device`` is explicit: ``"cuda"`` (the default) runs the hand-written
 kernels and raises when no CUDA device is available; ``"cpu"`` runs their
@@ -89,6 +92,16 @@ def _device(device) -> torch.device:
     return dev
 
 
+def _check_symbols(symbols, cdf) -> None:
+    if len(symbols) and (
+        int(symbols.min()) < 0 or int(symbols.max()) >= len(cdf) - 1
+    ):
+        raise ValueError(
+            f"symbols must be in [0, {len(cdf) - 1}), got range "
+            f"[{int(symbols.min())}, {int(symbols.max())}]"
+        )
+
+
 def encode_iid(symbols, cdf, cfg: LaneConfig | None = None, alphabet=None,
                compact: bool = True, device="cuda") -> np.ndarray:
     """Encode i.i.d. categorical symbols into a self-describing ILANS2
@@ -112,13 +125,8 @@ def encode_iid(symbols, cdf, cfg: LaneConfig | None = None, alphabet=None,
                 f"symbol {int(symbols[bad_mask][0])} not in the alphabet"
             )
         symbols = idx.astype(np.int64)
-    elif len(symbols) and (
-        int(symbols.min()) < 0 or int(symbols.max()) >= len(cdf) - 1
-    ):
-        raise ValueError(
-            f"symbols must be in [0, {len(cdf) - 1}), got range "
-            f"[{int(symbols.min())}, {int(symbols.max())}]"
-        )
+    else:
+        _check_symbols(symbols, cdf)
     est_bits = None
     sym_bits = None
     if cfg is None and len(symbols):
@@ -148,3 +156,37 @@ def decode_iid(container, cdf, alphabet=None, device="cuda") -> np.ndarray:
     if alphabet is not None:
         out = np.asarray(alphabet)[out]
     return out
+
+
+def encode_iid_range(symbols, cdf, cfg: LaneConfig | None = None,
+                     device="cuda"):
+    """Range-coder twin of :func:`encode_iid`: returns ``(points, stream)``
+    of the ILANS2-R format (u32 points at S=32, u64 at S=64; u32 words).
+    JAX counterpart: ``constriction_tpu.tpu.encode_iid_range``, byte for
+    byte; unlike it, symbols outside [0, K) raise ValueError.  The lane
+    config is picked without the entropy cap of :func:`encode_iid`; P <= 16
+    models run W=16/S=32, 16 < P <= 24 W=32/S=64.  Configs the kernels do
+    not take are coded by the host encoder, as in the JAX package."""
+    dev = _device(device)
+    symbols = np.asarray(symbols, dtype=np.int64)
+    _check_symbols(symbols, cdf)
+    cfg = _pick_cfg(len(symbols), cfg, cdf)
+    _check_cdf(cdf, cfg)
+    return _il2.encode_iid_categorical_range(symbols, cdf, cfg, device=dev)
+
+
+def decode_iid_range(points, stream, cdf, num_symbols: int,
+                     cfg: LaneConfig | None = None,
+                     device="cuda") -> np.ndarray:
+    """Decode an ILANS2-R ``(points, stream)`` pair of ``num_symbols``
+    symbols; returns int32 numpy.  JAX counterpart:
+    ``constriction_tpu.tpu.decode_iid_range``.  ``cfg`` must be the
+    encoder's (``None`` picks it again from ``num_symbols`` and ``cdf``)."""
+    dev = _device(device)
+    cfg = _pick_cfg(num_symbols, cfg, cdf)
+    _check_cdf(cdf, cfg)
+    if not _il2.kernel_eligible(cfg):
+        return _il2.decode_shared_range_cdf(
+            np.asarray(points), np.asarray(stream), num_symbols, cdf, cfg)
+    return _il2.decode_range_lanes(np.asarray(points), np.asarray(stream),
+                                   num_symbols, cdf, cfg, dev)

@@ -1,11 +1,12 @@
 """Builds the CUDA sources under ``ops/csrc`` and binds them with ctypes.
 
 On first use, :func:`library` compiles every ``csrc/*.cu`` with nvcc for
-``sm_90a`` into one shared library with a plain C interface, under
+``sm_90a`` (one nvcc per source, all started together) and links them into
+one shared library with a plain C interface, under
 ``build/constriction_tpu_torch/<hash>/`` at the root of the checkout, keyed
-by a hash of the sources and flags so an edited source never loads a stale
-binary.  A missing nvcc or a failed build raises; nothing continues on a
-kernel's plain version.
+by a hash of the sources (``*.cuh`` headers included) and flags so an
+edited source never loads a stale binary.  A missing nvcc or a failed build
+raises; nothing continues on a kernel's plain version.
 
 Every C entry point returns ``cudaGetLastError()``; :func:`call` raises if
 that is not 0.  Pointers and the CUDA stream travel as ``ctypes.c_void_p``.
@@ -34,7 +35,7 @@ BUILD_ROOT = os.path.join(
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -42,11 +43,22 @@ _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _DECODE_ARGS = [_P, _P, _I64, _P, _I32, _P, _I64, _I32, _I32, _P, _I32]
 _ENCODE_ARGS = [_P, _P, _I64, _P, _I32, _P, _I64, _P, _I32, _I32, _P, _I32]
+_RANGE_RECORD_ARGS = [_P, _I64, _P, _I32, _P, _P, _P, _I32, _I32, _P, _I32]
+_RANGE_RESOLVE_ARGS = [_P, _P, _P, _P, _P, _I64, _P, _P, _I32, _I32, _P,
+                       _I32]
+_RANGE_DECODE_ARGS = [_P, _P, _P, _P, _I64, _P, _I32, _P, _I64, _I32, _I32,
+                      _P, _P, _I32]
 SIGNATURES = {
     "ctt_ilans2_decode_w16s32": _DECODE_ARGS,
     "ctt_ilans2_decode_w32s64": _DECODE_ARGS,
     "ctt_ilans2_encode_w16s32": _ENCODE_ARGS,
     "ctt_ilans2_encode_w32s64": _ENCODE_ARGS,
+    "ctt_ilans2_range_record_w16s32": _RANGE_RECORD_ARGS,
+    "ctt_ilans2_range_record_w32s64": _RANGE_RECORD_ARGS,
+    "ctt_ilans2_range_resolve_w16s32": _RANGE_RESOLVE_ARGS,
+    "ctt_ilans2_range_resolve_w32s64": _RANGE_RESOLVE_ARGS,
+    "ctt_ilans2_range_decode_w16s32": _RANGE_DECODE_ARGS,
+    "ctt_ilans2_range_decode_w32s64": _RANGE_DECODE_ARGS,
 }
 
 _lock = threading.Lock()
@@ -88,23 +100,38 @@ def _nvcc() -> str:
 
 
 def _compile(sources: list[str], out: str) -> None:
+    """One nvcc per ``.cu`` into an object, all running at once, then one
+    link into ``out``."""
     global build_info
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(s for s in sources if s.endswith(".cu"))]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    cus = [src for src in sources if src.endswith(".cu")]
+    objs = [f"{tmp}.{i}.o" for i in range(len(cus))]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            for obj, src in zip(objs, cus)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+    done = subprocess.run(link, capture_output=True, text=True)
+    for obj in objs:
+        os.remove(obj)
+    if done.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
+            f"nvcc link failed ({done.returncode}): {' '.join(link)}\n"
+            f"{done.stdout}{done.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     build_info = {
         "seconds": time.perf_counter() - t0,
-        "command": " ".join(cmd),
-        "log": proc.stdout + proc.stderr,
+        "command": "; ".join(" ".join(c) for c in (*cmds, link)),
+        "log": "".join(logs) + done.stdout + done.stderr,
     }
 
 

@@ -1,9 +1,11 @@
-"""ILANS2 rANS at the small preset (W=16, S=32, P <= 16) on the GPU.
+"""ILANS2 rANS and ILANS2-R range decoding at the small preset (W=16,
+S=32, P <= 16) on the GPU.
 
-The counterpart of the S=32 encode/decode pair of
+The counterpart of the S=32 encode/decode pair and the range decoder of
 ``constriction_tpu/ops/pallas_coder.py``.  The wrappers here launch the
-hand-written kernels of ``csrc/ilans2.cu`` for CUDA tensors and run the
-plain PyTorch twins for CPU tensors; any other device raises.  The twins
+hand-written kernels of ``csrc/ilans2.cu`` and ``csrc/ilans2_range.cu`` for
+CUDA tensors and run the plain PyTorch twins for CPU tensors; any other
+device raises.  The twins
 run the same step loop as the kernels with int64 tensors, and are also what
 the kernels are held against on the card.
 
@@ -19,8 +21,9 @@ The Pallas kernel's in-kernel helpers become, in GPU form:
   ``searchsorted(side="right") - 1`` semantics;
 - ``_cum_prob_from_sym`` -> two CDF reads; ``_exact_div`` -> integer division.
 
-Tensor layout (constriction_tpu_torch/convert.py): lane states and stream
-words are int32 tensors holding u32 bits; CDFs are int64; symbols int32.
+Tensor layout (constriction_tpu_torch/convert.py): lane states, range
+planes and stream words are int32 tensors holding u32 bits; CDFs are
+int64; symbols int32.
 
 The helpers below (argument checks, the scans, the launch glue) are shared
 with the S=64 preset in :mod:`constriction_tpu_torch.ops.coder64`.
@@ -35,7 +38,7 @@ from . import _build
 from .interleaved import LaneConfig
 
 # kernel launches made by this module's wrappers (never by the twins)
-LAUNCHES = {"encode": 0, "decode": 0}
+LAUNCHES = {"encode": 0, "decode": 0, "range_decode": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +201,57 @@ def _launch_encode(tag: str, symbols, cdf, cfg: LaneConfig, states):
     return states, buf[int(end.item()):]
 
 
+def _range_decode_args(points, stream, cdf, cfg: LaneConfig, lows, rngs,
+                       state_dtype):
+    """Validates the range decoder's arguments; returns fresh initial
+    (lows, rngs, pts) planes the coder may update in place: lower 0 and
+    range 2^S - 1 unless a checkpoint's planes are given."""
+    if not isinstance(points, torch.Tensor):
+        raise TypeError("points must be a torch.Tensor")
+    device = points.device
+    L = cfg.num_lanes
+    _check("points", points, state_dtype, device, L)
+    _check("stream", stream, torch.int32, device)
+    _check_cdf_arg(cdf, device)
+    if (lows is None) != (rngs is None):
+        raise ValueError("lows and rngs are given together or not at all")
+    if lows is None:
+        lows = torch.zeros(L, dtype=state_dtype, device=device)
+        rngs = torch.full((L,), -1, dtype=state_dtype, device=device)
+    else:
+        _check("lows", lows, state_dtype, device, L)
+        _check("rngs", rngs, state_dtype, device, L)
+    return lows.clone(), rngs.clone(), points.clone()
+
+
+def _raise_if_invalid(first_bad: int, n: int) -> None:
+    """The host oracle's error for a quantile >= 2^P at symbol
+    ``first_bad`` (no error when it is n)."""
+    if first_bad < n:
+        raise ValueError(
+            "Tried to decode data that is inconsistent with the entropy "
+            f"model (quantile >= 2**precision at symbol {first_bad})."
+        )
+
+
+def _launch_range_decode(tag: str, planes, stream, cdf, cfg: LaneConfig,
+                         n: int):
+    """One range-decode launch updating ``planes`` (lows, rngs, pts) in
+    place; returns symbols int32[n].  Reads the invalid-data flag back (one
+    sync) and raises on it."""
+    device = stream.device
+    syms = torch.empty(n, dtype=torch.int32, device=device)
+    bad = torch.full((1,), n, dtype=torch.int64, device=device)
+    cdf32 = cdf.to(torch.int32)
+    _build.call(
+        f"ctt_ilans2_range_decode_{tag}", device, *planes, stream,
+        stream.numel(), cdf32, cdf32.numel() - 1, syms, n, cfg.num_lanes,
+        cfg.precision, bad,
+    )
+    _raise_if_invalid(int(bad.item()), n)
+    return syms
+
+
 # ---------------------------------------------------------------------------
 # W=16 / S=32
 # ---------------------------------------------------------------------------
@@ -304,3 +358,82 @@ def decode_shared_plain(states, stream, cdf, cfg: LaneConfig, n: int,
         out[t * L:(t + 1) * L] = sym.to(torch.int32)
     syms = out[:n]
     return (syms, convert.u32_bits(x)) if return_final_states else syms
+
+
+def decode_shared_range(points, stream, cdf, cfg: LaneConfig, n: int,
+                        lows=None, rngs=None,
+                        return_final_states: bool = False):
+    """Decode n symbols of an ILANS2-R range stream (W=16, S=32, P <= 16).
+    JAX counterpart:
+    ``constriction_tpu.ops.pallas_coder.decode_shared_range_pallas``
+    (``_build_range_decoder``, ``seeded=True`` when ``lows``/``rngs`` are
+    given).
+
+    ``points`` int32[L] (u32 bits), ``stream`` int32 words, ``cdf``
+    int64[K+1], all on one device; ``lows``, ``rngs`` (optional, int32[L]):
+    a checkpoint's lower and range planes
+    (``interleaved2.build_checkpoints_range``).  Returns symbols int32[n],
+    and with ``return_final_states`` also the final ``(lows, rngs, pts)``
+    planes.  Raises the host oracle's ValueError on data inconsistent with
+    the model.  CUDA tensors launch the kernel, CPU tensors run
+    :func:`decode_shared_range_plain`."""
+    _check_cfg(cfg, 16, 32, 16)
+    planes = _range_decode_args(points, stream, cdf, cfg, lows, rngs,
+                                torch.int32)
+    if not _on_cuda(points.device):
+        return decode_shared_range_plain(points, stream, cdf, cfg, n, lows,
+                                         rngs, return_final_states)
+    if n == 0:
+        syms = torch.zeros(0, dtype=torch.int32, device=points.device)
+    else:
+        LAUNCHES["range_decode"] += 1
+        syms = _launch_range_decode("w16s32", planes, stream, cdf, cfg, n)
+    return (syms, planes) if return_final_states else syms
+
+
+def decode_shared_range_plain(points, stream, cdf, cfg: LaneConfig, n: int,
+                              lows=None, rngs=None,
+                              return_final_states: bool = False):
+    """Plain PyTorch twin of :func:`decode_shared_range` (any device, no
+    argument checks).  JAX counterpart:
+    ``constriction_tpu.ops.pallas_coder.decode_shared_range_pallas``; numpy
+    oracle ``interleaved2.decode_shared_range_cdf``."""
+    L, S, W, P = cfg.num_lanes, cfg.state_bits, cfg.word_bits, cfg.precision
+    M = (1 << S) - 1
+    device = points.device
+    pt = convert.u32_values(points)
+    lo = (torch.zeros(L, dtype=torch.int64, device=device) if lows is None
+          else convert.u32_values(lows))
+    rg = (torch.full((L,), M, dtype=torch.int64, device=device)
+          if rngs is None else convert.u32_values(rngs))
+    words = convert.u32_values(stream)
+    cdf64 = cdf.to(torch.int64)
+    K = cdf64.numel() - 1
+    T = _num_steps(n, L)
+    lanes = torch.arange(L, device=device)
+    out = torch.empty(T * L, dtype=torch.int32, device=device)
+    base = torch.zeros((), dtype=torch.int64, device=device)
+    first_bad = torch.full((), n, dtype=torch.int64, device=device)
+    for t in range(T):
+        i = t * L + lanes
+        active = i < n
+        scale = rg >> P
+        q = torch.where(scale > 0, ((pt - lo) & M) // scale.clamp(min=1), 0)
+        bad = active & (q >= 1 << P)
+        first_bad = torch.minimum(first_bad, torch.where(bad, i, n).min())
+        sym = _find_symbols(cdf64, q.clamp(max=(1 << P) - 1), K)
+        cum = cdf64[sym]
+        prob = cdf64[sym + 1] - cum
+        lo = torch.where(active, (lo + scale * cum) & M, lo)
+        rg = torch.where(active, scale * prob, rg)
+        m = active & (rg < 1 << (S - W))
+        w, base = _refill_words(m, words, base)
+        lo = torch.where(m, (lo << W) & M, lo)
+        rg = torch.where(m, rg << W, rg)
+        pt = torch.where(m, ((pt << W) & M) | w, pt)
+        out[t * L:(t + 1) * L] = sym.to(torch.int32)
+    _raise_if_invalid(int(first_bad), n)
+    syms = out[:n]
+    if return_final_states:
+        return syms, tuple(convert.u32_bits(v) for v in (lo, rg, pt))
+    return syms

@@ -31,117 +31,13 @@
 // device memory (the caller's state tensor, updated in place; 256 KB at
 // L = 32768, S = 64, which stays in L2); the ballots, the group prefixes and
 // the CDF (when it fits) live in shared memory.  A cluster- or grid-wide
-// scan that spreads the lanes over many SMs is later work.
+// scan that spreads the lanes over many SMs is later work.  The ballot,
+// the block scan, the CDF staging and the symbol search are in lanes.cuh,
+// shared with the range coder (ilans2_range.cu).
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "lanes.cuh"
 
 namespace {
-
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
-// dynamic shared memory a launch may ask for (the card offers 227 KB)
-constexpr size_t kSmemBudget = 200 * 1024;
-
-template <int S>
-struct StateOf;
-template <>
-struct StateOf<32> {
-  using type = uint32_t;
-};
-template <>
-struct StateOf<64> {
-  using type = uint64_t;
-};
-
-// Shared-memory carve-up: ballots and group prefixes for two steps (the
-// fused loop reads step t's while it writes step t + 1's), the per-warp
-// sums of the block scan, then the CDF when it fits.  Buffers are picked by
-// pointer arithmetic on the step parity, which keeps them out of local
-// memory.
-struct Smem {
-  uint32_t* base;
-  int G;
-  __device__ uint32_t* ballots(int parity) const { return base + parity * G; }
-  __device__ uint32_t* prefix(int parity) const {
-    return base + (2 + parity) * G;
-  }
-  __device__ uint32_t* warp_sums() const { return base + 4 * G; }
-  __device__ uint32_t* cdf() const { return base + 4 * G + kWarps; }
-};
-
-__host__ __device__ constexpr size_t scratch_words(int G) {
-  return 4 * static_cast<size_t>(G) + kWarps;
-}
-
-// CDF in shared memory when it fits, else read from device memory.
-__device__ __forceinline__ const uint32_t* stage_cdf(const Smem& s,
-                                                     const uint32_t* cdf_g,
-                                                     int K, int cdf_in_smem) {
-  if (!cdf_in_smem) return cdf_g;
-  uint32_t* cdf = s.cdf();
-  for (int i = threadIdx.x; i <= K; i += kThreads) cdf[i] = cdf_g[i];
-  return cdf;
-}
-
-// Largest s in [0, K) with cdf[s] <= q: searchsorted(cdf, q, "right") - 1,
-// so zero-probability entries resolve as the host oracle does.  Needs
-// cdf[0] <= q < cdf[K], which holds for q < 2^P.
-__device__ __forceinline__ int find_symbol(const uint32_t* cdf, int K,
-                                           uint32_t q) {
-  int lo = 0, hi = K;
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (cdf[mid] <= q) {
-      lo = mid;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
-// Exclusive block scan over the G = L / 32 per-group popcounts of `ballots`
-// into `prefix`; returns the step's total.  Each thread sums a contiguous
-// run of groups, warps scan with shuffles, and every warp rescans the 32
-// warp sums itself (one barrier fewer than a warp-0 pass).  The caller puts
-// a barrier after it before `prefix` is read.
-__device__ __forceinline__ uint32_t scan_groups(const uint32_t* ballots,
-                                                uint32_t* prefix,
-                                                uint32_t* warp_sums, int G) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int per = (G + kThreads - 1) / kThreads;
-  const int g0 = tid * per;
-  uint32_t local = 0;
-  for (int k = 0; k < per; ++k) {
-    if (g0 + k < G) local += __popc(ballots[g0 + k]);
-  }
-  uint32_t incl = local;
-  for (int off = 1; off < 32; off <<= 1) {
-    const uint32_t v = __shfl_up_sync(kFull, incl, off);
-    if (lane >= off) incl += v;
-  }
-  if (lane == 31) warp_sums[warp] = incl;
-  __syncthreads();
-  const uint32_t ws = warp_sums[lane];
-  uint32_t wincl = ws;
-  for (int off = 1; off < 32; off <<= 1) {
-    const uint32_t v = __shfl_up_sync(kFull, wincl, off);
-    if (lane >= off) wincl += v;
-  }
-  const uint32_t warp_base = __shfl_sync(kFull, wincl - ws, warp);
-  const uint32_t total = __shfl_sync(kFull, wincl, 31);
-  uint32_t run = warp_base + incl - local;
-  for (int k = 0; k < per; ++k) {
-    if (g0 + k < G) {
-      prefix[g0 + k] = run;
-      run += __popc(ballots[g0 + k]);
-    }
-  }
-  return total;
-}
 
 // Decode n symbols.  states[L]: initial decoder states in, final states out.
 // stream[slen]: W-bit words, one per u32; reads past the end yield 0 (a
@@ -157,7 +53,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ uint32_t smem[];
   const int G = L / 32;
   const Smem s{smem, G};
-  const uint32_t* cdf = stage_cdf(s, cdf_g, K, cdf_in_smem);
+  const uint32_t* cdf = stage_cdf(s.cdf(), cdf_g, K, cdf_in_smem);
   __syncthreads();
 
   constexpr State kLower = State(1) << (S - W);
@@ -225,7 +121,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ uint32_t smem[];
   const int G = L / 32;
   const Smem s{smem, G};
-  const uint32_t* cdf = stage_cdf(s, cdf_g, K, cdf_in_smem);
+  const uint32_t* cdf = stage_cdf(s.cdf(), cdf_g, K, cdf_in_smem);
   __syncthreads();
 
   constexpr State kWordMask = W == 32 ? State(kFull) : State((1u << W) - 1u);
@@ -283,30 +179,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tid == 0) *end_out = e;
 }
 
-// Shared-memory size for a launch; decides whether the CDF is staged.
-size_t smem_bytes(int L, int K, int* cdf_in_smem) {
-  const size_t scratch = scratch_words(L / 32) * sizeof(uint32_t);
-  const size_t cdf = (static_cast<size_t>(K) + 1) * sizeof(uint32_t);
-  *cdf_in_smem = scratch + cdf <= kSmemBudget;
-  return scratch + (*cdf_in_smem ? cdf : 0);
-}
-
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int device, int L, int P, int K,
-                    size_t bytes) {
-  if (L <= 0 || L % 32 != 0 || K < 1 || P < 1 || P > 24) {
-    return cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-  }
-  return err;
-}
-
 template <int W, int S>
 int launch_decode(void* states, const void* stream, long long slen,
                   const void* cdf, int K, void* syms, long long n, int L,
@@ -314,7 +186,8 @@ int launch_decode(void* states, const void* stream, long long slen,
   int cdf_in_smem = 0;
   const size_t bytes = smem_bytes(L, K, &cdf_in_smem);
   auto kernel = ilans2_decode_kernel<W, S>;
-  const cudaError_t err = prepare(kernel, device, L, P, K, bytes);
+  if (!valid_args(L, P, K)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = prepare(kernel, device, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   const int T = static_cast<int>((n + L - 1) / L);
@@ -333,7 +206,8 @@ int launch_encode(void* states, const void* syms, long long n, const void* cdf,
   int cdf_in_smem = 0;
   const size_t bytes = smem_bytes(L, K, &cdf_in_smem);
   auto kernel = ilans2_encode_kernel<W, S>;
-  const cudaError_t err = prepare(kernel, device, L, P, K, bytes);
+  if (!valid_args(L, P, K)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = prepare(kernel, device, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   const int T = static_cast<int>((n + L - 1) / L);

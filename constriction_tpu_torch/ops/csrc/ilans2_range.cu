@@ -1,0 +1,385 @@
+// ILANS2-R shared-stream interleaved RANGE coding on Hopper (sm_90a): the
+// range decoder and the two phases of the range encoder, templated on the
+// preset (W, S) in {(16, 32), (32, 64)}.
+//
+// Replaces the Pallas kernels
+//   constriction_tpu/ops/pallas_coder.py     _range_decode_kernel_body   (W=16, S=32)
+//   constriction_tpu/ops/pallas_coder64.py   _range_decode_kernel_body64 (W=32, S=64)
+//   constriction_tpu/ops/pallas_range_enc.py _range_record_kernel        (phase A, S=32)
+//   constriction_tpu/ops/pallas_range_enc.py _range_record_kernel64      (phase A, S=64)
+//   constriction_tpu/ops/pallas_range_enc.py _range_resolve_kernel       (phase B, S=32)
+//   constriction_tpu/ops/pallas_range_enc.py _range_resolve_kernel64     (phase B, S=64)
+// and holds the same wire format: symbol i belongs to lane i mod L; each
+// lane is a reference range coder (lower, range, point); all lanes share one
+// word stream in decode-consumption order (at each step the refilling lanes
+// take the next words in ascending lane order); a lane's first S/W words
+// are its initial point.  The TPU kernels hold S=64 values as u32 pairs
+// (_mul40x25, _div64_by_scale, _pair_add); here they are native uint64_t.
+//
+// Encoding is the two-phase big-number formulation of pallas_range_enc.py:
+// a range coder's emitted words are base-2^W digits of an unbounded
+// `lower`, and a wrap of the S-bit lower adds +1 to the digits already
+// emitted.  Phase A runs the interval updates forward and records, per
+// (step, lane), the provisional word, the renorm flag and the carry flag;
+// the seal (range_enc.py, on the device) turns the final (lower, range)
+// into the last word and a last carry; phase B walks the steps backward,
+// resolves the carries with a pending +1 per lane, and places each lane's
+// words through a 2-deep delay line (the r-th renorm of a lane carries the
+// lane's word r + 2; words 0 and 1 form the point header).
+//
+// What bounds them on this card:
+// - Decode and phase B are serial over the T steps, and each step needs an
+//   exclusive prefix over all L lanes (refill ranks, emission offsets).  As
+//   the rANS kernels (ilans2.cu) they run in ONE block of 1024 threads with
+//   a warp ballot and a block scan per step (lanes.cuh), lane state in
+//   device memory (L2-resident) updated in place, and the refill / emission
+//   of step t fused with the coding / flagging of the next step.  They are
+//   latency-bound on one SM; the decoder's u64 / u64 division at S=64 is a
+//   software routine of some tens of instructions on the lane chain.
+// - Phase A has no cross-lane dependency: a grid of L / 128 blocks, one
+//   thread per lane looping over T, with symbol reads and record writes
+//   coalesced across a warp and the next step's symbol loaded ahead.  It
+//   moves T * L symbols in and T * L records out, so device memory bounds
+//   it once enough warps are in flight; at L = 32768 only 1024 warps cover
+//   132 SMs, so latency still shows.
+
+#include "lanes.cuh"
+
+namespace {
+
+constexpr int kRecordThreads = 128;
+
+// Record layout (phase A -> phase B), one State-wide word per (step, lane):
+// bits [0, W) the provisional renorm word (0 without renorm), bit W the
+// renorm flag, bit W + 1 the carry flag.  At S=32 this is the Pallas u32
+// record; at S=64 it packs the Pallas kernel's record and flags planes.
+
+// Phase A.  records[T * L] out; low_out / rng_out[L]: the final (lower,
+// range) per lane.  Steps at i >= n leave the lane unchanged with record
+// 0.  Symbols outside [0, K) are clamped to K-1; callers validate them.
+template <int W, int S>
+__global__ void __launch_bounds__(kRecordThreads)
+    ilans2_range_record_kernel(const int32_t* __restrict__ syms, int64_t n,
+                               const uint32_t* __restrict__ cdf_g, int K,
+                               typename StateOf<S>::type* __restrict__ records,
+                               typename StateOf<S>::type* __restrict__ low_out,
+                               typename StateOf<S>::type* __restrict__ rng_out,
+                               int L, int P, int T, int cdf_in_smem) {
+  using State = typename StateOf<S>::type;
+  extern __shared__ uint32_t smem[];
+  const uint32_t* cdf = stage_cdf(smem, cdf_g, K, cdf_in_smem);
+  __syncthreads();
+  const int l = blockIdx.x * kRecordThreads + threadIdx.x;
+  if (l >= L) return;
+
+  constexpr State kLower = State(1) << (S - W);
+  const uint32_t kmax = static_cast<uint32_t>(K - 1);
+  State lower = 0, range = ~State(0);
+  int32_t next = l < n ? syms[l] : 0;
+  for (int t = 0; t < T; ++t) {
+    const int64_t i = static_cast<int64_t>(t) * L + l;
+    const int32_t cur = next;
+    if (i + L < n) next = syms[i + L];  // the next step's load in flight
+    State rec = 0;
+    if (i < n) {
+      const uint32_t sym = min(static_cast<uint32_t>(cur), kmax);
+      const uint32_t cum = cdf[sym];
+      const uint32_t prob = cdf[sym + 1] - cum;
+      const State scale = range >> P;
+      const State add = scale * cum;
+      lower += add;  // wraps mod 2^S: the big-number +1 event
+      const State carry = lower < add ? 1 : 0;
+      range = scale * prob;
+      if (range < kLower) {
+        rec = (lower >> (S - W)) | (State(1) << W);
+        lower <<= W;
+        range <<= W;
+      }
+      rec |= carry << (W + 1);
+    }
+    records[i] = rec;
+  }
+  low_out[l] = lower;
+  rng_out[l] = range;
+}
+
+// Phase B, walking steps T-1 .. 0.  pend / d1s / d2s[L]: each lane's
+// pending carry and delay line, seeded by the caller from the seal (pend =
+// seal carry, d1 = the seal's word, d2 = 0) and updated in place.  buf[cap]:
+// the words of step t land right to left below an end pointer e, lanes
+// ascending, so on return the stream is buf[*end_out : cap].  points[L]:
+// the first two resolved words of each lane, (d1 << W) | d2.
+template <int W, int S>
+__global__ void __launch_bounds__(kThreads, 1)
+    ilans2_range_resolve_kernel(
+        const typename StateOf<S>::type* __restrict__ records,
+        uint32_t* __restrict__ pend, uint32_t* __restrict__ d1s,
+        uint32_t* __restrict__ d2s, uint32_t* __restrict__ buf, int64_t cap,
+        int64_t* __restrict__ end_out,
+        typename StateOf<S>::type* __restrict__ points, int L, int T) {
+  using State = typename StateOf<S>::type;
+  extern __shared__ uint32_t smem[];
+  const int G = L / 32;
+  const Smem s{smem, G};
+
+  constexpr uint64_t kWordMask = (uint64_t(1) << W) - 1;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const uint32_t lt_mask = (1u << lane) - 1u;
+  const int rows = (L + kThreads - 1) / kThreads;
+  int64_t e = cap;  // words of the finished steps occupy buf[e : cap]
+
+  // Iteration j resolves and places step T - j (flagged in iteration
+  // j - 1), then flags the renorming lanes of step T - 1 - j.
+  for (int j = 0; j <= T; ++j) {
+    const int cur = j & 1, prev = cur ^ 1;
+    const int t = T - 1 - j;
+    for (int r = 0; r < rows; ++r) {
+      if (r * kThreads + (tid & ~31) >= L) break;  // warp-uniform
+      const int l = r * kThreads + tid;
+      const int g = l >> 5;
+      uint32_t p = pend[l], d1 = d1s[l], d2 = d2s[l];
+      if (j > 0) {
+        const State rec = records[static_cast<int64_t>(t + 1) * L + l];
+        if ((rec >> W) & 1) {
+          const int64_t idx = e + s.prefix(prev)[g] +
+                              __popc(s.ballots(prev)[g] & lt_mask);
+          buf[idx] = d2;  // the word resolved two emissions later
+          const uint64_t vfull = (uint64_t(rec) & kWordMask) + p;
+          d2 = d1;
+          d1 = static_cast<uint32_t>(vfull & kWordMask);
+          p = static_cast<uint32_t>(vfull >> W);
+        }
+        p += static_cast<uint32_t>((rec >> (W + 1)) & 1);
+      }
+      if (j < T) {
+        const State rec = records[static_cast<int64_t>(t) * L + l];
+        const unsigned bal = __ballot_sync(kFull, ((rec >> W) & 1) != 0);
+        if (lane == 0) s.ballots(cur)[g] = bal;
+      } else {
+        points[l] = (State(d1) << W) | State(d2);
+      }
+      pend[l] = p;
+      d1s[l] = d1;
+      d2s[l] = d2;
+    }
+    if (j == T) break;
+    __syncthreads();
+    const uint32_t total = scan_groups(s.ballots(cur), s.prefix(cur),
+                                       s.warp_sums(), G);
+    __syncthreads();
+    e -= total;
+  }
+  if (tid == 0) *end_out = e;
+}
+
+// Decode n symbols.  lows / rngs / pts[L]: the initial (lower, range,
+// point) planes in (lower 0 and range 2^S - 1 unless resuming from a
+// checkpoint), the final planes out.  stream[slen]: W-bit words, one per
+// u32; reads past the end yield 0.  *bad: the caller sets n; the kernel
+// lowers it to the first symbol whose quantile is >= 2^P (data
+// inconsistent with the model), and then decodes on without faulting.
+template <int W, int S>
+__global__ void __launch_bounds__(kThreads, 1)
+    ilans2_range_decode_kernel(typename StateOf<S>::type* __restrict__ lows,
+                               typename StateOf<S>::type* __restrict__ rngs,
+                               typename StateOf<S>::type* __restrict__ pts,
+                               const uint32_t* __restrict__ stream,
+                               int64_t slen,
+                               const uint32_t* __restrict__ cdf_g, int K,
+                               int32_t* __restrict__ syms, int64_t n, int L,
+                               int P, int T, int cdf_in_smem,
+                               unsigned long long* __restrict__ bad) {
+  using State = typename StateOf<S>::type;
+  extern __shared__ uint32_t smem[];
+  const int G = L / 32;
+  const Smem s{smem, G};
+  const uint32_t* cdf = stage_cdf(s.cdf(), cdf_g, K, cdf_in_smem);
+  __syncthreads();
+
+  constexpr State kLower = State(1) << (S - W);
+  const State qlimit = State(1) << P;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const uint32_t lt_mask = (1u << lane) - 1u;
+  const int rows = (L + kThreads - 1) / kThreads;
+  int64_t base = 0;         // first stream word of the pending step's refills
+  uint32_t last_total = 0;  // words the pending step consumed
+
+  // Iteration t refills for step t - 1, then decodes step t.
+  for (int t = 0; t <= T; ++t) {
+    const int cur = t & 1, prev = cur ^ 1;
+    for (int r = 0; r < rows; ++r) {
+      if (r * kThreads + (tid & ~31) >= L) break;  // warp-uniform
+      const int l = r * kThreads + tid;
+      const int g = l >> 5;
+      State lo = lows[l], rg = rngs[l], pt = pts[l];
+      if (t > 0) {
+        const uint32_t bal = s.ballots(prev)[g];
+        if ((bal >> lane) & 1u) {
+          const int64_t idx = base + s.prefix(prev)[g] + __popc(bal & lt_mask);
+          const uint32_t word = idx < slen ? stream[idx] : 0u;
+          lo <<= W;
+          rg <<= W;
+          pt = (pt << W) | State(word);
+        }
+      }
+      if (t < T) {
+        const int64_t i = static_cast<int64_t>(t) * L + l;
+        bool refill = false;
+        if (i < n) {
+          const State scale = rg >> P;
+          const State q = scale ? State(pt - lo) / scale : State(0);
+          if (q >= qlimit) atomicMin(bad, static_cast<unsigned long long>(i));
+          const int sym = find_symbol(
+              cdf, K, static_cast<uint32_t>(q < qlimit ? q : qlimit - 1));
+          const uint32_t cum = cdf[sym];
+          const uint32_t prob = cdf[sym + 1] - cum;
+          lo += scale * cum;  // mod 2^S
+          rg = scale * prob;
+          syms[i] = sym;
+          refill = rg < kLower;
+        }
+        const unsigned bal = __ballot_sync(kFull, refill);
+        if (lane == 0) s.ballots(cur)[g] = bal;
+      }
+      lows[l] = lo;
+      rngs[l] = rg;
+      pts[l] = pt;
+    }
+    if (t == T) break;
+    __syncthreads();
+    const uint32_t total = scan_groups(s.ballots(cur), s.prefix(cur),
+                                       s.warp_sums(), G);
+    __syncthreads();
+    base += last_total;
+    last_total = total;
+  }
+}
+
+int num_steps(long long n, int L) {
+  return static_cast<int>((n + L - 1) / L);
+}
+
+template <int W, int S>
+int launch_record(const void* syms, long long n, const void* cdf, int K,
+                  void* records, void* low_out, void* rng_out, int L, int P,
+                  void* cuda_stream, int device) {
+  using State = typename StateOf<S>::type;
+  int cdf_in_smem = 0;
+  const size_t bytes = cdf_smem_bytes(0, K, &cdf_in_smem);
+  auto kernel = ilans2_range_record_kernel<W, S>;
+  if (!valid_args(L, P, K)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = prepare(kernel, device, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const int blocks = (L + kRecordThreads - 1) / kRecordThreads;
+  kernel<<<blocks, kRecordThreads, bytes,
+           static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<const int32_t*>(syms), n, static_cast<const uint32_t*>(cdf),
+      K, static_cast<State*>(records), static_cast<State*>(low_out),
+      static_cast<State*>(rng_out), L, P, num_steps(n, L), cdf_in_smem);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int W, int S>
+int launch_resolve(const void* records, void* pend, void* d1, void* d2,
+                   void* buf, long long cap, void* end_out, void* points,
+                   int L, int T, void* cuda_stream, int device) {
+  using State = typename StateOf<S>::type;
+  const size_t bytes = scratch_words(L / 32) * sizeof(uint32_t);
+  auto kernel = ilans2_range_resolve_kernel<W, S>;
+  if (L <= 0 || L % 32 != 0 || T < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = prepare(kernel, device, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (T == 0) return static_cast<int>(cudaGetLastError());
+  kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<const State*>(records), static_cast<uint32_t*>(pend),
+      static_cast<uint32_t*>(d1), static_cast<uint32_t*>(d2),
+      static_cast<uint32_t*>(buf), cap, static_cast<int64_t*>(end_out),
+      static_cast<State*>(points), L, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int W, int S>
+int launch_decode(void* lows, void* rngs, void* pts, const void* stream,
+                  long long slen, const void* cdf, int K, void* syms,
+                  long long n, int L, int P, void* bad, void* cuda_stream,
+                  int device) {
+  using State = typename StateOf<S>::type;
+  int cdf_in_smem = 0;
+  const size_t bytes = smem_bytes(L, K, &cdf_in_smem);
+  auto kernel = ilans2_range_decode_kernel<W, S>;
+  if (!valid_args(L, P, K)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = prepare(kernel, device, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<State*>(lows), static_cast<State*>(rngs),
+      static_cast<State*>(pts), static_cast<const uint32_t*>(stream), slen,
+      static_cast<const uint32_t*>(cdf), K, static_cast<int32_t*>(syms), n, L,
+      P, num_steps(n, L), cdf_in_smem,
+      static_cast<unsigned long long*>(bad));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C interface, bound with ctypes (constriction_tpu_torch/ops/_build.py).
+// Each entry launches on the given stream, synchronises nothing, allocates
+// nothing, and returns cudaGetLastError() (0 on success).
+extern "C" {
+
+int ctt_ilans2_range_record_w16s32(const void* syms, long long n,
+                                   const void* cdf, int K, void* records,
+                                   void* low_out, void* rng_out, int L, int P,
+                                   void* cuda_stream, int device) {
+  return launch_record<16, 32>(syms, n, cdf, K, records, low_out, rng_out, L,
+                               P, cuda_stream, device);
+}
+
+int ctt_ilans2_range_record_w32s64(const void* syms, long long n,
+                                   const void* cdf, int K, void* records,
+                                   void* low_out, void* rng_out, int L, int P,
+                                   void* cuda_stream, int device) {
+  return launch_record<32, 64>(syms, n, cdf, K, records, low_out, rng_out, L,
+                               P, cuda_stream, device);
+}
+
+int ctt_ilans2_range_resolve_w16s32(const void* records, void* pend,
+                                    void* d1, void* d2, void* buf,
+                                    long long cap, void* end_out,
+                                    void* points, int L, int T,
+                                    void* cuda_stream, int device) {
+  return launch_resolve<16, 32>(records, pend, d1, d2, buf, cap, end_out,
+                                points, L, T, cuda_stream, device);
+}
+
+int ctt_ilans2_range_resolve_w32s64(const void* records, void* pend,
+                                    void* d1, void* d2, void* buf,
+                                    long long cap, void* end_out,
+                                    void* points, int L, int T,
+                                    void* cuda_stream, int device) {
+  return launch_resolve<32, 64>(records, pend, d1, d2, buf, cap, end_out,
+                                points, L, T, cuda_stream, device);
+}
+
+int ctt_ilans2_range_decode_w16s32(void* lows, void* rngs, void* pts,
+                                   const void* stream, long long slen,
+                                   const void* cdf, int K, void* syms,
+                                   long long n, int L, int P, void* bad,
+                                   void* cuda_stream, int device) {
+  return launch_decode<16, 32>(lows, rngs, pts, stream, slen, cdf, K, syms, n,
+                               L, P, bad, cuda_stream, device);
+}
+
+int ctt_ilans2_range_decode_w32s64(void* lows, void* rngs, void* pts,
+                                   const void* stream, long long slen,
+                                   const void* cdf, int K, void* syms,
+                                   long long n, int L, int P, void* bad,
+                                   void* cuda_stream, int device) {
+  return launch_decode<32, 64>(lows, rngs, pts, stream, slen, cdf, K, syms, n,
+                               L, P, bad, cuda_stream, device);
+}
+
+}  // extern "C"

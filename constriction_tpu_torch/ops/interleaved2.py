@@ -16,12 +16,19 @@ v1 container layout (u32 words):
                  u32 planes [7 .. 7+2L), all low words then all high words
     then         the stream, W-bit words packed into u32 (little-endian)
 
+ILANS2-R (range coding) shares the stream layout: each lane is a range
+coder (lower, range, point), refilling lanes take the next words in
+ascending lane order, and a lane's first S/W words form its initial point,
+which travels beside the stream as ``points``.
+
 JAX counterpart: ``constriction_tpu.ops.interleaved2``.  The host functions
-here (``encode_shared``, ``decode_shared_cdf``, the packers) are copies of
-its numpy paths, so that the port imports nothing of the JAX package; the
-JAX package runs the same algebra in C++ where it can, and
-``tests/test_torch_host.py`` holds the two byte for byte.  Lane coding for
-the containers runs on the port's coder: the kernels for a CUDA device, the
+here (``encode_shared``, ``decode_shared_cdf``, the packers, the range
+decoder and checkpoints) are copies of its numpy paths, so that the port
+imports nothing of the JAX package; the JAX package runs the same algebra
+in C++ where it can, and ``tests/test_torch_host.py`` and
+``tests/test_torch_range.py`` hold the two byte for byte.  Its host range
+encoder is C++ only; the port's (:func:`encode_shared_range`) is numpy.
+Lane coding runs on the port's coder: the kernels for a CUDA device, the
 plain twins for the CPU.  Configs the kernels do not take are coded by the
 host coder, exactly as the JAX package does: the same semantics, not a
 fallback.
@@ -154,6 +161,205 @@ def decode_shared_cdf(init_states, stream, num_symbols: int, cdf,
     if return_final_states:
         return out[:num_symbols], states.astype(state_dtype(cfg))
     return out[:num_symbols]
+
+
+# ---------------------------------------------------------------------------
+# ILANS2-R: the host range coder (numpy)
+# ---------------------------------------------------------------------------
+
+
+def _state_mask(S: int) -> np.uint64:
+    return np.uint64((1 << S) - 1)
+
+
+def encode_shared_range(cums, probs, cfg: LaneConfig):
+    """Host ILANS2-R encoder over per-symbol (cum, prob) tables: L range
+    coders sharing one word stream in decode-consumption order.  Returns
+    ``(points, stream u32[num_words])``: u32 points for S=32, u64 for S=64.
+
+    JAX counterpart: ``constriction_tpu.ops.interleaved2.encode_shared_range``,
+    which wraps the C++ ``ctpu_ilans2_range_encode`` (per-lane Inverted-run
+    bookkeeping).  This one is numpy, in the two-phase big-number form of
+    ``pallas_range_enc.py``: a forward pass over steps, vectorised over
+    lanes, records each step's provisional renorm word, renorm flag and
+    carry (a wrap of the S-bit lower, i.e. +1 to the words already emitted);
+    the seal (:func:`range_enc.seal32` / :func:`range_enc.seal64_limbs`)
+    adds the last word and carry; a backward pass resolves the carries with
+    a pending +1 per lane and places each lane's words through a 2-deep
+    delay line (the r-th renorm carries the lane's word r + 2, words 0 and 1
+    are the point).  Covers the two presets' (W, S) at any L and P."""
+    n = len(cums)
+    if len(probs) != n:
+        raise ValueError(
+            f"cums and probs must have equal length, got {n} vs {len(probs)}"
+        )
+    L = cfg.num_lanes
+    S, W, P = cfg.state_bits, cfg.word_bits, cfg.precision
+    if (W, S) not in ((16, 32), (32, 64)):
+        raise ValueError(
+            f"the host range encoder covers (W, S) = (16, 32) and (32, 64); "
+            f"got ({W}, {S})"
+        )
+    T = -(-n // L) if n else 0
+    mask = _state_mask(S)
+    lower_bound = np.uint64(1 << (S - W))
+    cums64 = np.zeros(T * L, dtype=np.uint64)
+    probs64 = np.ones(T * L, dtype=np.uint64)
+    cums64[:n] = cums
+    probs64[:n] = probs
+    lows = np.zeros(L, dtype=np.uint64)
+    rngs = np.full(L, mask, dtype=np.uint64)
+    words = np.zeros((T, L), dtype=np.uint32)
+    renorm = np.zeros((T, L), dtype=bool)
+    carries = np.zeros((T, L), dtype=bool)
+    lanes = np.arange(L)
+    for t in range(T):  # phase A
+        idx = t * L + lanes
+        active = idx < n
+        scale = rngs >> np.uint64(P)
+        add = scale * cums64[idx]
+        new_lows = (lows + add) & mask
+        carries[t] = active & (new_lows < add)
+        lows = np.where(active, new_lows, lows)
+        rngs = np.where(active, scale * probs64[idx], rngs)
+        m = active & (rngs < lower_bound)
+        renorm[t] = m
+        words[t] = np.where(m, lows >> np.uint64(S - W), np.uint64(0))
+        lows = np.where(m, (lows << np.uint64(W)) & mask, lows)
+        rngs = np.where(m, rngs << np.uint64(W), rngs)
+
+    from .range_enc import seal32, seal64_limbs
+
+    if S == 32:
+        s0, pend = seal32(np, lows, rngs, S, W)
+    else:
+        m32 = np.uint64(0xFFFFFFFF)
+        s0, pend = seal64_limbs(np, lows >> np.uint64(32), lows & m32,
+                                rngs >> np.uint64(32), rngs & m32)
+    wmask = np.uint64(cfg.word_mask)
+    d1, d2 = s0.astype(np.uint64), np.zeros(L, dtype=np.uint64)
+    pend = pend.astype(np.uint64)
+    chunks = []  # per-step placed words, t = T-1 .. 0
+    for t in range(T - 1, -1, -1):  # phase B
+        m = renorm[t]
+        vfull = words[t].astype(np.uint64) + pend
+        chunks.append(d2[m].astype(np.uint32))
+        pend = np.where(m, vfull >> np.uint64(W), pend) + carries[t]
+        d2 = np.where(m, d1, d2)
+        d1 = np.where(m, vfull & wmask, d1)
+    stream = (np.concatenate(chunks[::-1]) if chunks
+              else np.zeros(0, dtype=np.uint32))
+    points = (d1 << np.uint64(W)) | d2
+    return points.astype(state_dtype(cfg)), stream
+
+
+def _range_oracle_loop(pts, lows, rngs, stream, num_symbols, cdf64, cfg,
+                       capture_interval=0):
+    """Vectorised range-decode loop from an arbitrary (lows, rngs, pts)
+    state (u64 arrays, updated in place).  With ``capture_interval`` > 0,
+    snapshots (stream offset, lows, rngs, pts) before every
+    ``capture_interval``-th step.  Returns ``(symbols, captures)``.  JAX
+    counterpart: ``constriction_tpu.ops.interleaved2._range_oracle_loop``."""
+    L = cfg.num_lanes
+    S, W, P = cfg.state_bits, cfg.word_bits, cfg.precision
+    T = -(-num_symbols // L) if num_symbols else 0
+    mask = _state_mask(S)
+    lower_bound = np.uint64(1 << (S - W))
+    base = 0
+    out = np.empty(T * L, dtype=np.int32)
+    lanes = np.arange(L)
+    caps = []
+    for t in range(T):
+        if capture_interval > 0 and t > 0 and t % capture_interval == 0:
+            caps.append((base, lows.copy(), rngs.copy(), pts.copy()))
+        idx = t * L + lanes
+        active = idx < num_symbols
+        scale = rngs >> np.uint64(P)
+        q = ((pts - lows) & mask) // scale
+        bad = active & (q >= cdf64[-1])
+        if bad.any():
+            raise ValueError(
+                "Tried to decode data that is inconsistent with the entropy "
+                f"model (quantile >= 2**precision at symbol "
+                f"{int(idx[bad][0])})."
+            )
+        q = np.where(active, q, np.uint64(0))
+        sym = np.searchsorted(cdf64, q, side="right") - 1
+        cum = cdf64[sym]
+        prob = cdf64[sym + 1] - cum
+        lows = np.where(active, (lows + scale * cum) & mask, lows)
+        rngs = np.where(active, scale * prob, rngs)
+        m = active & (rngs < lower_bound)
+        k = int(m.sum())
+        lows = np.where(m, (lows << np.uint64(W)) & mask, lows)
+        rngs = np.where(m, rngs << np.uint64(W), rngs)
+        if k:
+            words = np.zeros(k, dtype=np.uint64)
+            avail = stream[base:base + k]
+            words[:len(avail)] = avail
+            pts[m] = ((pts[m] << np.uint64(W)) & mask) | words
+            base += k
+        out[idx] = sym
+    return out[:num_symbols], caps
+
+
+def decode_shared_range_cdf(points, stream, num_symbols: int, cdf,
+                            cfg: LaneConfig):
+    """Host ILANS2-R decoder with a CDF-table model (numpy); reads past the
+    end of the stream give zero words; data inconsistent with the model
+    raises ValueError.  JAX counterpart: the numpy branch of
+    ``constriction_tpu.ops.interleaved2.decode_shared_range_cdf``."""
+    L = cfg.num_lanes
+    if len(points) != L:
+        raise ValueError(
+            f"points must have num_lanes={L} entries, got {len(points)}"
+        )
+    if int(np.asarray(cdf)[-1]) != 1 << cfg.precision:
+        raise ValueError(
+            f"cdf[-1] must equal 2**precision = {1 << cfg.precision}, got "
+            f"{int(np.asarray(cdf)[-1])}"
+        )
+    out, _ = _range_oracle_loop(
+        np.asarray(points).astype(np.uint64), np.zeros(L, np.uint64),
+        np.full(L, _state_mask(cfg.state_bits), np.uint64),
+        np.asarray(stream), num_symbols, np.asarray(cdf, dtype=np.uint64), cfg,
+    )
+    return out
+
+
+def build_checkpoints_range(points, stream, num_symbols: int, cdf,
+                            cfg: LaneConfig, interval: int):
+    """Decode once (host oracle), capturing the full decoder state (stream
+    offset, lows, ranges, points) every ``interval`` steps.  Snapshot c
+    resumes decoding at symbol ``(c + 1) * interval * L`` through
+    :func:`decode_range_from_checkpoint`.  Returns ``(offsets i64[C], lows
+    [C, L], rngs [C, L], pts [C, L])`` (u32 planes for S=32, u64 for S=64)
+    with ``C = ceil(T / interval) - 1``.  JAX counterpart:
+    ``constriction_tpu.ops.interleaved2.build_checkpoints_range``."""
+    if interval <= 0:
+        raise ValueError(f"interval must be positive, got {interval}")
+    L = cfg.num_lanes
+    T = -(-num_symbols // L) if num_symbols else 0
+    C = max(-(-T // interval) - 1, 0)
+    dt = state_dtype(cfg)
+    offsets = np.zeros(C, dtype=np.int64)
+    lows_out = np.zeros((C, L), dtype=dt)
+    rngs_out = np.zeros((C, L), dtype=dt)
+    pts_out = np.zeros((C, L), dtype=dt)
+    if C == 0:
+        return offsets, lows_out, rngs_out, pts_out
+    _, caps = _range_oracle_loop(
+        np.asarray(points).astype(np.uint64), np.zeros(L, np.uint64),
+        np.full(L, _state_mask(cfg.state_bits), np.uint64),
+        np.asarray(stream), num_symbols, np.asarray(cdf, dtype=np.uint64),
+        cfg, capture_interval=interval,
+    )
+    for c, (base, lo, rn, pt) in enumerate(caps):
+        offsets[c] = base
+        lows_out[c] = lo.astype(dt)
+        rngs_out[c] = rn.astype(dt)
+        pts_out[c] = pt.astype(dt)
+    return offsets, lows_out, rngs_out, pts_out
 
 
 # ---------------------------------------------------------------------------
@@ -308,3 +514,94 @@ def decode_iid_categorical2(data, cdf, device="cuda") -> np.ndarray:
     if kernel_eligible(cfg):
         return decode_lanes(init_states, stream, n, cdf, cfg, device)[0]
     return decode_shared_cdf(init_states, stream, n, cdf, cfg)
+
+
+# ---------------------------------------------------------------------------
+# ILANS2-R lane coding on the port's coder
+# ---------------------------------------------------------------------------
+
+
+def encode_range_lanes(symbols, cdf, cfg: LaneConfig, device):
+    """Range-code numpy symbols on ``device`` with the port's coder;
+    returns numpy ``(points, stream)`` as :func:`encode_shared_range` does.
+    JAX counterpart: ``pallas_range_enc.encode_iid_range_pallas`` /
+    ``encode_iid_range64_pallas``."""
+    from . import range_enc
+
+    device = torch.device(device)
+    syms = torch.from_numpy(
+        np.ascontiguousarray(symbols, dtype=np.int32)
+    ).to(device)
+    encode = (range_enc.encode_iid_range64 if cfg.state_bits == 64
+              else range_enc.encode_iid_range)
+    points, stream = encode(syms, convert.cdf_to_torch(cdf, device), cfg)
+    return (convert.states_from_torch(points, cfg),
+            convert.u32_from_torch(stream))
+
+
+def decode_range_lanes(points, stream, n: int, cdf, cfg: LaneConfig, device,
+                       lows=None, rngs=None) -> np.ndarray:
+    """Range-decode with the port's coder on ``device``, from the initial
+    points or from a checkpoint's (lows, rngs, points) planes; returns numpy
+    symbols int32[n].  JAX counterpart:
+    ``pallas_coder.decode_shared_range_pallas`` /
+    ``pallas_coder64.decode_shared_range64_pallas`` (``seeded=True`` with
+    planes)."""
+    device = torch.device(device)
+    decode = (coder64.decode_shared_range64 if cfg.state_bits == 64
+              else coder.decode_shared_range)
+    planes = {}
+    if lows is not None:
+        lo, rn = convert.planes_to_torch((lows, rngs), cfg, device)
+        planes = {"lows": lo, "rngs": rn}
+    syms = decode(
+        convert.states_to_torch(points, cfg, device),
+        convert.u32_to_torch(stream, device),
+        convert.cdf_to_torch(cdf, device), cfg, n, **planes,
+    )
+    return syms.cpu().numpy()
+
+
+def encode_iid_categorical_range(symbols, cdf, cfg: LaneConfig,
+                                 device="cuda"):
+    """Range-code i.i.d. categorical symbols; returns ``(points, stream)``.
+    Configs the kernels take run on the port's coder on ``device``; the
+    others on the host encoder, as the JAX package does.  JAX counterpart:
+    ``constriction_tpu.ops.interleaved2.encode_iid_categorical_range(...,
+    device=True)``."""
+    symbols = np.asarray(symbols, dtype=np.int64)
+    if kernel_eligible(cfg):
+        return encode_range_lanes(symbols, cdf, cfg, device)
+    cdf64 = np.asarray(cdf, dtype=np.uint64)
+    cums = cdf64[symbols]
+    return encode_shared_range(cums, cdf64[symbols + 1] - cums, cfg)
+
+
+def decode_range_from_checkpoint(ckpt_index: int, offsets, lows, rngs, pts,
+                                 stream, num_symbols: int, cdf,
+                                 cfg: LaneConfig, interval: int,
+                                 device="cuda"):
+    """Decode a range stream's suffix from checkpoint ``ckpt_index`` of
+    :func:`build_checkpoints_range`; returns ``(start_symbol,
+    suffix_symbols)``, equal to that slice of a full decode.  Configs the
+    kernels take resume on the port's coder on ``device`` (the decoder
+    seeded with the checkpoint's planes); the others on the host decoder.
+    JAX counterpart:
+    ``constriction_tpu.ops.interleaved2.decode_range_from_checkpoint(...,
+    device=True)``."""
+    L = cfg.num_lanes
+    start = (ckpt_index + 1) * interval * L
+    remaining = num_symbols - start
+    if remaining <= 0:
+        return start, np.zeros(0, dtype=np.int64)
+    sub_stream = np.asarray(stream)[int(offsets[ckpt_index]):]
+    lo = np.asarray(lows[ckpt_index], np.uint64)
+    rn = np.asarray(rngs[ckpt_index], np.uint64)
+    pt = np.asarray(pts[ckpt_index], np.uint64)
+    if kernel_eligible(cfg):
+        return start, decode_range_lanes(pt, sub_stream, remaining, cdf, cfg,
+                                         device, lows=lo, rngs=rn)
+    out, _ = _range_oracle_loop(pt.copy(), lo.copy(), rn.copy(), sub_stream,
+                                remaining, np.asarray(cdf, dtype=np.uint64),
+                                cfg)
+    return start, out

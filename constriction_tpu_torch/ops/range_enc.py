@@ -1,0 +1,314 @@
+"""ILANS2-R range encoding on the GPU: both presets, two phases.
+
+The counterpart of ``constriction_tpu/ops/pallas_range_enc.py``.  A range
+coder's deferred carries are big-number arithmetic: every emitted word is a
+base-2^W digit of an unbounded ``lower``, and a wrap of the S-bit lower
+adds +1 to the digits emitted so far.  So the encoder runs in two phases:
+
+- **phase A** (:func:`record`): per lane, the interval updates forward in
+  time, recording per (step, lane) the provisional renorm word, the renorm
+  flag and the carry flag, and the final (lower, range);
+- **the seal** (:func:`seal32`, :func:`seal64_limbs`): closed-form per lane,
+  the last word and the last carry;
+- **phase B** (:func:`resolve`): backward in time, a pending +1 per lane
+  resolves the carries, and a 2-deep delay line places each lane's words
+  (its first two words form the point header) in the shared stream, step
+  by step, lanes ascending.
+
+The wrappers launch the kernels of ``csrc/ilans2_range.cu`` for CUDA
+tensors, the seal running between the two launches on the device; CPU
+tensors run the plain PyTorch twins (``*_plain``); any other device raises.
+
+Tensor layout (constriction_tpu_torch/convert.py): symbols int32, CDFs
+int64, stream words int32 holding u32 bits; points and the final (lower,
+range) planes int32 (u32 bits) at S=32 and int64 (u64 bits) at S=64.  A
+record is one word of the state's width: bits [0, W) the provisional word,
+bit W the renorm flag, bit W + 1 the carry.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import convert
+from . import _build
+from .coder import (
+    _check,
+    _check_cdf_arg,
+    _check_cfg,
+    _emit_words,
+    _num_steps,
+    _on_cuda,
+    _symbol_tables,
+)
+from .coder64 import _add64, _mul_small, _shr64
+from .interleaved import LaneConfig
+
+# kernel launches made by this module's wrappers (never by the twins)
+LAUNCHES = {"record": 0, "resolve": 0, "record64": 0, "resolve64": 0}
+
+_M32 = 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# the seal, one rule for numpy and torch
+# ---------------------------------------------------------------------------
+
+
+def seal32(xp, low_f, rng_f, S: int, W: int):
+    """``(s0, seal_carry)`` from the final (lower, range) planes at S=32:
+    point = lower + (2^(S-W) - 1) mod 2^32, whose wrap is the seal's +1
+    event; the seal's word is point >> (S-W).  Untouched lanes (range
+    still 2^32 - 1: no symbol coded) seal to 0 with carry 0.  ``xp`` is
+    numpy (u32 or u64 arrays) or torch (int64 tensors of u32 values); the
+    results have the inputs' type.  JAX counterpart:
+    ``pallas_range_enc.seal32``."""
+    zero = xp.zeros_like(low_f)
+    touched = rng_f != _M32
+    point = (low_f + ((1 << (S - W)) - 1)) & _M32
+    seal_carry = xp.where(touched & (point < low_f), zero + 1, zero)
+    s0 = xp.where(touched, point >> (S - W), zero)
+    return s0, seal_carry
+
+
+def seal64_limbs(xp, lhi, llo, rhi, rlo):
+    """``(s0, seal_carry)`` at S=64, W=32 from the u32 halves of the final
+    (lower, range) planes: point = lower + (2^32 - 1), the low half's wrap
+    carries into the high half, whose own wrap is the seal's +1 event; the
+    seal's word is the high half.  Untouched lanes seal to 0 with carry 0.
+    ``xp`` as in :func:`seal32`.  JAX counterpart:
+    ``pallas_range_enc.seal64_limbs``."""
+    zero = xp.zeros_like(lhi)
+    touched = (rlo != _M32) | (rhi != _M32)
+    plus = (llo + _M32) & _M32
+    p_hi = (lhi + xp.where(plus < llo, zero + 1, zero)) & _M32
+    s0 = xp.where(touched, p_hi, zero)
+    seal_carry = xp.where(touched & (p_hi < lhi), zero + 1, zero)
+    return s0, seal_carry
+
+
+def seal(low_f, rng_f, cfg: LaneConfig):
+    """The seal on the port's tensors (any device, no host round trip):
+    final planes in the state layout -> ``(s0, seal_carry)`` int32."""
+    if cfg.state_bits == 64:
+        s0, c = seal64_limbs(torch, *convert.u64_halves(low_f),
+                             *convert.u64_halves(rng_f))
+    else:
+        s0, c = seal32(torch, convert.u32_values(low_f),
+                       convert.u32_values(rng_f), 32, cfg.word_bits)
+    return convert.u32_bits(s0), convert.u32_bits(c)
+
+
+# ---------------------------------------------------------------------------
+# phase A
+# ---------------------------------------------------------------------------
+
+
+def _preset(cfg: LaneConfig):
+    """(state dtype, kernel tag, LAUNCHES suffix) of a config the kernels
+    take; raises for any other."""
+    if cfg.state_bits == 64:
+        _check_cfg(cfg, 32, 64, 24)
+        return torch.int64, "w32s64", "64"
+    _check_cfg(cfg, 16, 32, 16)
+    return torch.int32, "w16s32", ""
+
+
+def _check_symbols(symbols, cdf) -> None:
+    if not isinstance(symbols, torch.Tensor):
+        raise TypeError("symbols must be a torch.Tensor")
+    _check("symbols", symbols, torch.int32, symbols.device)
+    _check_cdf_arg(cdf, symbols.device)
+    K = cdf.numel() - 1
+    if symbols.numel() and bool(((symbols < 0) | (symbols >= K)).any()):
+        raise ValueError(
+            f"symbols must be in [0, {K}), got range "
+            f"[{int(symbols.min())}, {int(symbols.max())}]"
+        )
+
+
+def record(symbols, cdf, cfg: LaneConfig):
+    """Phase A: ``(records [T*L], low_f [L], rng_f [L])`` in the state
+    layout (module docstring).  JAX counterpart:
+    ``pallas_range_enc._range_record_kernel`` / ``_range_record_kernel64``.
+    CUDA tensors launch the kernel, CPU tensors run :func:`record_plain`."""
+    dtype, tag, suffix = _preset(cfg)
+    _check_symbols(symbols, cdf)
+    if not _on_cuda(symbols.device):
+        return record_plain(symbols, cdf, cfg)
+    L, n = cfg.num_lanes, symbols.numel()
+    device = symbols.device
+    records = torch.empty(_num_steps(n, L) * L, dtype=dtype, device=device)
+    low_f = torch.zeros(L, dtype=dtype, device=device)
+    rng_f = torch.full((L,), -1, dtype=dtype, device=device)
+    if n:
+        LAUNCHES["record" + suffix] += 1
+        cdf32 = cdf.to(torch.int32)
+        _build.call(
+            f"ctt_ilans2_range_record_{tag}", device, symbols, n, cdf32,
+            cdf32.numel() - 1, records, low_f, rng_f, L, cfg.precision,
+        )
+    return records, low_f, rng_f
+
+
+def record_plain(symbols, cdf, cfg: LaneConfig):
+    """Plain PyTorch twin of :func:`record` (any device, no checks); S=64
+    on (hi, lo) halves."""
+    L, S, W, P = cfg.num_lanes, cfg.state_bits, cfg.word_bits, cfg.precision
+    device = symbols.device
+    n = symbols.numel()
+    T = _num_steps(n, L)
+    cdf64 = cdf.to(torch.int64)
+    K = cdf64.numel() - 1
+    lanes = torch.arange(L, device=device)
+    recs = torch.empty(T * L, dtype=torch.int64, device=device)
+    zeros = torch.zeros(L, dtype=torch.int64, device=device)
+    ones = torch.full((L,), _M32, dtype=torch.int64, device=device)
+    l_hi, l_lo, r_hi, r_lo = zeros, zeros, ones, ones  # S=32 uses lo only
+    for t in range(T):
+        i = t * L + lanes
+        active = i < n
+        cum, prob = _symbol_tables(symbols, cdf64, i, n, K)
+        if S == 64:
+            s_hi, s_lo = _shr64(r_hi, r_lo, P)
+            n_hi, n_lo, carry = _add64(l_hi, l_lo,
+                                       *_mul_small(s_hi, s_lo, cum))
+            g_hi, g_lo = _mul_small(s_hi, s_lo, prob)
+        else:
+            scale = r_lo >> P
+            total = l_lo + scale * cum
+            n_hi, n_lo, carry = zeros, total & _M32, total >> 32
+            g_hi, g_lo = zeros, scale * prob
+        carry = torch.where(active, carry, 0)
+        l_hi = torch.where(active, n_hi, l_hi)
+        l_lo = torch.where(active, n_lo, l_lo)
+        r_hi = torch.where(active, g_hi, r_hi)
+        r_lo = torch.where(active, g_lo, r_lo)
+        if S == 64:  # range < 2^32 <=> hi == 0
+            m = active & (r_hi == 0)
+            word = l_hi
+            l_hi, l_lo = torch.where(m, l_lo, l_hi), torch.where(m, 0, l_lo)
+            r_hi, r_lo = torch.where(m, r_lo, r_hi), torch.where(m, 0, r_lo)
+        else:
+            m = active & (r_lo < 1 << (S - W))
+            word = l_lo >> (S - W)
+            l_lo = torch.where(m, (l_lo << W) & _M32, l_lo)
+            r_lo = torch.where(m, r_lo << W, r_lo)
+        recs[t * L:(t + 1) * L] = (torch.where(m, word | (1 << W), 0)
+                                   | (carry << (W + 1)))
+    if S == 64:
+        return (recs, convert.u64_join(l_hi, l_lo),
+                convert.u64_join(r_hi, r_lo))
+    return (recs.to(torch.int32), convert.u32_bits(l_lo),
+            convert.u32_bits(r_lo))
+
+
+# ---------------------------------------------------------------------------
+# phase B
+# ---------------------------------------------------------------------------
+
+
+def resolve(records, s0, seal_carry, cfg: LaneConfig, n: int):
+    """Phase B: resolve the carries and place the words.  ``records`` from
+    :func:`record`, ``(s0, seal_carry)`` from :func:`seal`, ``n`` the
+    message length.  Returns ``(points [L], stream int32[num_words])``.
+    JAX counterpart: ``pallas_range_enc._range_resolve_kernel`` /
+    ``_range_resolve_kernel64``.  CUDA tensors launch the kernel (reading
+    the stream's start back: one sync), CPU tensors run
+    :func:`resolve_plain`."""
+    dtype, tag, suffix = _preset(cfg)
+    L = cfg.num_lanes
+    device = records.device
+    _check("records", records, dtype, device)
+    _check("s0", s0, torch.int32, device, L)
+    _check("seal_carry", seal_carry, torch.int32, device, L)
+    T = _num_steps(n, L)
+    if records.numel() != T * L:
+        raise ValueError(f"records must have {T * L} entries for n={n}, "
+                         f"got {records.numel()}")
+    if not _on_cuda(device):
+        return resolve_plain(records, s0, seal_carry, cfg, n)
+    points = torch.zeros(L, dtype=dtype, device=device)
+    if T == 0:
+        return points, torch.zeros(0, dtype=torch.int32, device=device)
+    LAUNCHES["resolve" + suffix] += 1
+    buf = torch.empty(n, dtype=torch.int32, device=device)
+    end = torch.empty(1, dtype=torch.int64, device=device)
+    _build.call(
+        f"ctt_ilans2_range_resolve_{tag}", device, records,
+        seal_carry.clone(), s0.clone(), torch.zeros_like(s0), buf, n, end,
+        points, L, T,
+    )
+    return points, buf[int(end.item()):]
+
+
+def resolve_plain(records, s0, seal_carry, cfg: LaneConfig, n: int):
+    """Plain PyTorch twin of :func:`resolve` (any device, no checks)."""
+    L, S, W = cfg.num_lanes, cfg.state_bits, cfg.word_bits
+    device = records.device
+    recs = records.to(torch.int64)
+    wmask = (1 << W) - 1
+    p = convert.u32_values(seal_carry)
+    d1 = convert.u32_values(s0)
+    d2 = torch.zeros(L, dtype=torch.int64, device=device)
+    buf = torch.zeros(n + 1, dtype=torch.int64, device=device)
+    e = torch.tensor(n, dtype=torch.int64, device=device)
+    for t in range(_num_steps(n, L) - 1, -1, -1):
+        rec = recs[t * L:(t + 1) * L]
+        m = ((rec >> W) & 1) == 1
+        vfull = (rec & wmask) + p
+        e = _emit_words(buf, m, d2, e, n)  # the word resolved two later
+        p = torch.where(m, vfull >> W, p) + ((rec >> (W + 1)) & 1)
+        d2 = torch.where(m, d1, d2)
+        d1 = torch.where(m, vfull & wmask, d1)
+    stream = convert.u32_bits(buf[int(e):n])
+    if S == 64:
+        return convert.u64_join(d1, d2), stream
+    return convert.u32_bits((d1 << W) | d2), stream
+
+
+# ---------------------------------------------------------------------------
+# the encoders
+# ---------------------------------------------------------------------------
+
+
+def _encode(symbols, cdf, cfg: LaneConfig):
+    records, low_f, rng_f = record(symbols, cdf, cfg)
+    s0, seal_carry = seal(low_f, rng_f, cfg)
+    return resolve(records, s0, seal_carry, cfg, symbols.numel())
+
+
+def encode_iid_range(symbols, cdf, cfg: LaneConfig):
+    """Range-code i.i.d. categorical symbols into ILANS2-R (W=16, S=32,
+    P <= 16).  JAX counterpart:
+    ``constriction_tpu.ops.pallas_range_enc.encode_iid_range_pallas``.
+
+    ``symbols`` int32[n] in [0, K) (others raise ValueError) and ``cdf``
+    int64[K+1] on one device.  Returns ``(points int32[L], stream
+    int32[num_words])``: u32 points and W-bit words.  CUDA tensors launch
+    the phase-A and phase-B kernels, CPU tensors run
+    :func:`encode_iid_range_plain`."""
+    _check_cfg(cfg, 16, 32, 16)
+    return _encode(symbols, cdf, cfg)
+
+
+def encode_iid_range_plain(symbols, cdf, cfg: LaneConfig):
+    """Plain PyTorch twin of :func:`encode_iid_range` and
+    :func:`encode_iid_range64` (any device, no checks).  Numpy oracle:
+    ``interleaved2.encode_shared_range``."""
+    records, low_f, rng_f = record_plain(symbols, cdf, cfg)
+    s0, seal_carry = seal(low_f, rng_f, cfg)
+    return resolve_plain(records, s0, seal_carry, cfg, symbols.numel())
+
+
+def encode_iid_range64(symbols, cdf, cfg: LaneConfig):
+    """Range-code i.i.d. categorical symbols into the DEFAULT-preset
+    ILANS2-R64 format (W=32, S=64, P <= 24).  JAX counterpart:
+    ``constriction_tpu.ops.pallas_range_enc.encode_iid_range64_pallas``.
+
+    As :func:`encode_iid_range`, with ``points`` int64[L] (u64 bits)."""
+    _check_cfg(cfg, 32, 64, 24)
+    return _encode(symbols, cdf, cfg)
+
+
+encode_iid_range64_plain = encode_iid_range_plain

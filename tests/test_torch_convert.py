@@ -68,3 +68,23 @@ def test_cdf_to_torch(P):
     t = convert.cdf_to_torch(cdf)
     assert t.dtype == torch.int64 and int(t[-1]) == 1 << P
     np.testing.assert_array_equal(t.numpy(), cdf.astype(np.int64))
+
+
+@pytest.mark.parametrize("cfg", [CFG32, CFG64], ids=["S32", "S64"])
+def test_range_planes_round_trip(cfg):
+    """Checkpoint planes as the JAX package's build_checkpoints_range
+    returns them (u32 rows at S=32, u64 at S=64) -> the port's tensors and
+    back, bit for bit."""
+    rng = np.random.RandomState(cfg.state_bits)
+    if cfg.state_bits == 64:
+        planes = tuple(_u64(rng, 128) for _ in range(3))
+        dtype = torch.int64
+    else:
+        planes = tuple(rng.randint(0, 1 << 32, size=128).astype(np.uint32)
+                       for _ in range(3))
+        dtype = torch.int32
+    ts = convert.planes_to_torch(planes, cfg)
+    assert len(ts) == 3 and all(t.dtype == dtype for t in ts)
+    for a, b in zip(convert.planes_from_torch(ts, cfg), planes):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
