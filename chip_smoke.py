@@ -48,18 +48,50 @@ prints one JSON object per phase, then the kernels line, the card's
                     twin's time on the card (outputs equal to the kernel's),
                     and the facade's encode and decode call times.
 
+9. family_math   -- the kernels' integer CDF (``left(x, mean, scale)``,
+                    through the test entry point ``ctt_family_left``)
+                    against the plain arithmetic in torch on the card and
+                    in numpy, for all four families: every ``t_fix`` in
+                    [-32768, 32767], 2^22 random (x, mean, scale) triples at
+                    support [-100, 100], and an extreme grid (scale 1e-6 ..
+                    1e6, mean -500 .. 500).  Tolerance 0.
+10. family_kernels -- the rANS family pair and the TChain-12 bits-back pair
+                    against their twins and the port's numpy host oracles,
+                    all four families, L=32768 (about 2^20 symbols with a
+                    partial last step; 32 full steps for TChain): states,
+                    heads, words, quantiles and symbols identical.
+11. family_main_path -- the JAX package's family benchmark workload (2^23
+                    symbols, gaussian, support [-100, 100], seed 1234)
+                    through ``cuda.encode_family`` -> ``decode_family`` and
+                    2^23 uniform 12-bit quantiles through
+                    ``cuda.bits_back_decode_family`` ->
+                    ``bits_back_encode_family``: byte for byte the host
+                    oracles', exact round trips, heads back at 16; each of
+                    the four kernels must have launched.
+12. family_times -- kernel-only time of each of the four at that size, its
+                    twin's time on the card (outputs equal), the facade's
+                    call times, and each kernel's bound.
+13. checkpoints  -- random access: on the v2 and v1 containers of the rANS
+                    main path at both presets, ``cuda.build_checkpoints``
+                    then ``cuda.decode_from_checkpoint`` from the middle
+                    checkpoint must give the message's suffix, through the
+                    decode kernels.
+
 Each main path runs with every launch counter set to 0 just before it, and
 the counts read just after it are the ``launches`` of its kernels.
 ``bound_ms`` is the larger of the bytes the function must move (each input
 read once, each output written once) over the card's 3.35 TB/s and its
 integer operations over 33.5 T per second (NVIDIA's 67 TFLOP/s float32
-rate counts a fused multiply-add as two).  No single PyTorch call computes
-these functions, so ``library_ms`` is null.
+rate counts a fused multiply-add as two); for the family kernels the
+operations are ``left()`` evaluations (LEFT_OPS each, counted from
+family.cuh) times what this run's inputs need.  No single PyTorch call
+computes these functions, so ``library_ms`` is null.
 
 Everything comes from the port: the model's CDF
 (``constriction_tpu_torch.models``) and the host oracles, which are the
 port's numpy ILANS2 and ILANS2-R host coders under the port's container
-framing (the CPU tests hold them byte for byte against the JAX package).
+framing, and its numpy family and TChain-12 oracles (the CPU tests hold
+them byte for byte against the JAX package).
 The script imports nothing of JAX or of the JAX package, and checks that
 at the end.
 """
@@ -119,6 +151,31 @@ RANGE_KERNELS = {
         "range_enc", "resolve64",
         "constriction_tpu/ops/pallas_range_enc.py:484", RANGE_SOURCE),
 }
+FAMILY_SOURCE = "constriction_tpu_torch/ops/csrc/ilans2_family.cu"
+TCHAIN_SOURCE = "constriction_tpu_torch/ops/csrc/tchain.cu"
+FAMILY_KERNELS = {
+    "family_decode": ("family", "decode",
+                      "constriction_tpu/ops/pallas_family.py:629",
+                      FAMILY_SOURCE),
+    "family_encode": ("family", "encode",
+                      "constriction_tpu/ops/pallas_family.py:670",
+                      FAMILY_SOURCE),
+    "tchain12_family_decode": ("tchain", "decode12_family",
+                               "constriction_tpu/ops/tchain.py:691",
+                               TCHAIN_SOURCE),
+    "tchain12_family_encode": ("tchain", "encode12_family",
+                               "constriction_tpu/ops/tchain.py:733",
+                               TCHAIN_SOURCE),
+}
+N_FAMILY = 1 << 23  # the family benchmark row of the JAX package's suite
+FAMILY_SUPPORT = (-100, 100)
+MAIN_FAMILY = "gaussian"
+N_MATH = 1 << 22
+CKPT_INTERVAL = 256
+# arithmetic operations of one left() in family.cuh (standardized argument
+# 8, sign 2, the family's sigmoid or arctangent, one or two small floor
+# divisions of 10, the offset 2)
+LEFT_OPS = {"gaussian": 50, "laplace": 36, "logistic": 40, "cauchy": 56}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 INT_OPS_PER_S = 33.5e12  # 32-bit scalar operations, 132 SMs
 SWEEP_LANES = (128, 1024, 4096, 16384, 32768, 65536)
@@ -331,8 +388,10 @@ def main_workload():
     return probs, symbols
 
 
-def phase_main(device, probs, symbols) -> dict:
-    """The facade on the card at full size, against the host oracle."""
+def phase_main(device, probs, symbols, keep: dict) -> dict:
+    """The facade on the card at full size, against the host oracle.
+    ``keep[(P, compact)]`` gets each (cdf, container) for the checkpoints
+    phase."""
     import numpy as np
 
     from constriction_tpu_torch import cuda as ctt
@@ -361,6 +420,7 @@ def phase_main(device, probs, symbols) -> dict:
                 "host_oracle_encode_s": t3 - t2,
             }
             rows.append(row)
+            keep[(P, compact)] = (cdf, data)
             if not (row["identical_to_host_oracle"]
                     and row["decodes_exactly"]):
                 fail(f"main path: {row}")
@@ -792,6 +852,423 @@ def phase_range_times(device, probs, symbols, gpu: str,
     return {"phase": "range_times", "cases": rows}, times
 
 
+def family_workload(n: int):
+    """The family benchmark row of the JAX package's suite: per-symbol
+    gaussian parameters and symbols at support [-100, 100]."""
+    import numpy as np
+
+    rng = np.random.RandomState(1234)
+    means = (rng.randn(n) * 10).astype(np.float32)
+    scales = (0.3 + np.abs(rng.randn(n)) * 5).astype(np.float32)
+    symbols = np.clip(np.round(means + rng.randn(n) * scales),
+                      *FAMILY_SUPPORT).astype(np.int32)
+    quantiles = rng.randint(0, 1 << 12, size=n).astype(np.uint16)
+    return means, scales, symbols, quantiles
+
+
+def phase_family_math(device) -> dict:
+    """``ctt_family_left`` against the plain arithmetic, value by value."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch.ops import family as fam
+
+    lo, hi = FAMILY_SUPPORT
+    rng = np.random.RandomState(23)
+    # x = 0, scale = 1, mean = -(0.5 + t / 4096): t_fix is exactly t
+    t = np.arange(-fam.T_CLAMP, fam.T_CLAMP, dtype=np.int64)
+    grid = np.array([(x, m, s) for m in (-500.0, -100.0, 0.0, 99.7, 500.0)
+                     for s in (1e-6, 0.01, 1.0, 1e4, 1e6)
+                     for x in range(lo + 1, hi + 2)], dtype=np.float64)
+    cases = {
+        "every_t_fix": (np.zeros(len(t)), -(0.5 + t / 4096.0),
+                        np.ones(len(t))),
+        "random": (rng.randint(lo + 1, hi + 2, size=N_MATH),
+                   rng.randn(N_MATH) * 30, np.exp(rng.randn(N_MATH) * 3)),
+        "extreme_grid": (grid[:, 0], grid[:, 1], grid[:, 2]),
+    }
+    rows = []
+    for name, (x, mean, scale) in cases.items():
+        x_np = x.astype(np.int32)
+        mean_np, scale_np = mean.astype(np.float32), scale.astype(np.float32)
+        xs, mu, sg = (torch.from_numpy(a).to(device)
+                      for a in (x_np, mean_np, scale_np))
+        for family in fam.FAMILIES:
+            got = fam.family_left(xs, mu, sg, family, lo, hi)
+            plain = fam.left(torch, family, lo, hi, xs, mu, 1.0 / sg)
+            host = fam.left(np, family, lo, hi, x_np, mean_np,
+                            np.float32(1.0) / scale_np)
+            row = {"case": name, "family": family, "values": len(x_np),
+                   "max_abs_err": max(mismatch(got, plain), mismatch(
+                       got.cpu(), torch.from_numpy(host)))}
+            if name == "every_t_fix":
+                t_fix = fam.t_fixed(torch, xs, mu, 1.0 / sg).cpu().numpy()
+                row["t_fix_covered"] = bool(np.array_equal(t_fix, t))
+                if not row["t_fix_covered"]:
+                    fail(f"family_math: t_fix domain not covered: {row}")
+            rows.append(row)
+            if row["max_abs_err"]:
+                fail(f"family_math: kernel CDF != plain CDF: {row}")
+    return {"phase": "family_math", "cases": rows, "max_abs_err": 0}
+
+
+def family_case(device, cfg, family, means, scales, symbols, errs) -> dict:
+    """The rANS family pair against its twins and the numpy host oracles."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import family as fam
+    from constriction_tpu_torch.ops import interleaved2 as il2
+
+    lo, hi = FAMILY_SUPPORT
+    n, L = len(symbols), cfg.num_lanes
+    mu, sg = convert.params_to_torch(means, scales, n, L, device)
+    syms = torch.from_numpy(symbols).to(device)
+    st, w = fam.encode_family(syms, mu, sg, family, lo, hi, cfg)
+    st_p, w_p = fam.encode_family_plain(syms, mu, sg, family, lo, hi, cfg)
+    cums, probs = fam.family_tables_host(symbols, means, scales, family, lo,
+                                         hi)
+    st_h, w_h = il2.encode_shared(cums, probs, cfg)
+    e_enc = max(mismatch(st, st_p), mismatch(w, w_p),
+                mismatch(st, convert.u32_to_torch(st_h, device)),
+                mismatch(w, convert.u32_to_torch(w_h, device)))
+    out, fin = fam.decode_family(st, w, mu, sg, family, lo, hi, cfg, n,
+                                 return_final_states=True)
+    out_p, fin_p = fam.decode_family_plain(st, w, mu, sg, family, lo, hi, cfg,
+                                           n, return_final_states=True)
+    out_h = fam.decode_family_host(st_h, w_h, means, scales, family, lo, hi,
+                                   cfg, n)
+    e_dec = max(mismatch(out, out_p), mismatch(fin, fin_p),
+                mismatch(out.cpu(), torch.from_numpy(out_h)))
+    round_trip = (mismatch(out, syms) == 0
+                  and mismatch(fin, torch.full_like(fin, 1 << 16)) == 0)
+    errs["family_encode"] = max(errs.get("family_encode", 0), e_enc)
+    errs["family_decode"] = max(errs.get("family_decode", 0), e_dec)
+    row = {"coder": "rans", "family": family, "n": n, "num_lanes": L,
+           "words": int(w.numel()), "encode_max_abs_err": e_enc,
+           "decode_max_abs_err": e_dec, "round_trip": round_trip}
+    if e_enc or e_dec or not round_trip:
+        fail(f"family kernel != twin or host oracle, or no round trip: {row}")
+    return row
+
+
+def tchain_case(device, cfg, family, means, scales, quantiles, errs) -> dict:
+    """The TChain-12 bits-back pair against its twins and host oracles."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import tchain as tc
+
+    lo, hi = FAMILY_SUPPORT
+    n, L = len(quantiles), cfg.num_lanes
+    mu, sg = convert.params_to_torch(means, scales, n, L, device)
+    qw = convert.quantiles_to_torch(quantiles, L, device)
+    dec = tc.tchain12_family_decode(qw, mu, sg, family, lo, hi, cfg)
+    dec_p = tc.tchain12_family_decode_plain(qw, mu, sg, family, lo, hi, cfg)
+    syms_h, rem_h, heads_h = tc.tchain12_family_decode_host(
+        quantiles, means, scales, family, lo, hi, cfg)
+    e_dec = max(planes_err(dec, dec_p),
+                mismatch(dec[0].cpu(), torch.from_numpy(syms_h)),
+                mismatch(dec[1], convert.u32_to_torch(rem_h, device)),
+                mismatch(dec[2], convert.u32_to_torch(heads_h, device)))
+    enc = tc.tchain12_family_encode(*dec, mu, sg, family, lo, hi, cfg)
+    enc_p = tc.tchain12_family_encode_plain(*dec, mu, sg, family, lo, hi, cfg)
+    q_h, h_h = tc.tchain12_family_encode_host(syms_h, rem_h, heads_h, means,
+                                              scales, family, lo, hi, cfg)
+    e_enc = max(planes_err(enc, enc_p), mismatch(
+        torch.from_numpy(convert.quantiles_from_torch(enc[0], L).astype(
+            np.int32)), torch.from_numpy(q_h.astype(np.int32))),
+        mismatch(enc[1], convert.u32_to_torch(h_h, device)))
+    round_trip = (mismatch(enc[0], qw) == 0
+                  and mismatch(enc[1], torch.full_like(enc[1], 16)) == 0)
+    errs["tchain12_family_decode"] = max(
+        errs.get("tchain12_family_decode", 0), e_dec)
+    errs["tchain12_family_encode"] = max(
+        errs.get("tchain12_family_encode", 0), e_enc)
+    row = {"coder": "tchain12", "family": family, "n": n, "num_lanes": L,
+           "words": int(dec[1].numel()), "decode_max_abs_err": e_dec,
+           "encode_max_abs_err": e_enc, "round_trip": round_trip}
+    if e_enc or e_dec or not round_trip:
+        fail(f"tchain kernel != twin or host oracle, or no round trip: {row}")
+    return row
+
+
+def phase_family_kernels(device, n: int, L: int) -> tuple[dict, dict]:
+    from constriction_tpu_torch.ops import family as fam
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    cfg = LaneConfig(num_lanes=L, word_bits=16, state_bits=32, precision=12)
+    n_chain = 32 * L
+    means, scales, symbols, quantiles = family_workload(max(n, n_chain))
+    errs: dict[str, int] = {}
+    rows = []
+    for family in fam.FAMILIES:
+        rows.append(family_case(device, cfg, family, means[:n], scales[:n],
+                                symbols[:n], errs))
+        rows.append(tchain_case(device, cfg, family, means[:n_chain],
+                                scales[:n_chain], quantiles[:n_chain], errs))
+    return {"phase": "family_kernels", "cases": rows}, errs
+
+
+def phase_family_main(device, work) -> dict:
+    """The family facade on the card at full size, against the host
+    oracles."""
+    import numpy as np
+
+    from constriction_tpu_torch import cuda as ctt
+    from constriction_tpu_torch.ops import family as fam
+    from constriction_tpu_torch.ops import interleaved2 as il2
+    from constriction_tpu_torch.ops import tchain as tc
+
+    means, scales, symbols, quantiles = work
+    lo, hi = FAMILY_SUPPORT
+    n = len(symbols)
+    cfg = ctt._pick_cfg(n, None)
+    t0 = time.perf_counter()
+    states, stream = ctt.encode_family(symbols, means, scales, MAIN_FAMILY,
+                                       lo, hi, device=device)
+    t1 = time.perf_counter()
+    out = ctt.decode_family(states, stream, means, scales, MAIN_FAMILY, lo,
+                            hi, n, device=device)
+    t2 = time.perf_counter()
+    cums, probs = fam.family_tables_host(symbols, means, scales, MAIN_FAMILY,
+                                         lo, hi)
+    st_h, w_h = il2.encode_shared(cums, probs, cfg)
+    t3 = time.perf_counter()
+    syms, rem, heads = ctt.bits_back_decode_family(
+        quantiles, means, scales, MAIN_FAMILY, lo, hi, device=device)
+    t4 = time.perf_counter()
+    q_back, h_back = ctt.bits_back_encode_family(
+        syms, rem, heads, means, scales, MAIN_FAMILY, lo, hi, device=device)
+    t5 = time.perf_counter()
+    syms_h, rem_h, heads_h = tc.tchain12_family_decode_host(
+        quantiles, means, scales, MAIN_FAMILY, lo, hi)
+    t6 = time.perf_counter()
+    row = {
+        "family": MAIN_FAMILY, "support": [lo, hi], "n": n,
+        "num_lanes": cfg.num_lanes, "stream_words": int(len(stream)),
+        "remainder_words": int(len(rem)),
+        "encode_identical_to_host_oracle": bool(
+            states.dtype == st_h.dtype and np.array_equal(states, st_h)
+            and np.array_equal(stream, w_h)),
+        "decodes_exactly": bool(np.array_equal(out, symbols)),
+        "bits_back_decode_identical_to_host_oracle": bool(
+            np.array_equal(syms, syms_h) and np.array_equal(rem, rem_h)
+            and np.array_equal(heads, heads_h)),
+        "bits_back_round_trip": bool(np.array_equal(q_back, quantiles)
+                                     and (h_back == 16).all()),
+        "max_abs_err": 0,
+        "encode_call_s": t1 - t0, "decode_call_s": t2 - t1,
+        "host_oracle_encode_s": t3 - t2,
+        "bits_back_decode_call_s": t4 - t3,
+        "bits_back_encode_call_s": t5 - t4,
+        "host_oracle_bits_back_decode_s": t6 - t5,
+    }
+    if not (row["encode_identical_to_host_oracle"] and row["decodes_exactly"]
+            and row["bits_back_decode_identical_to_host_oracle"]
+            and row["bits_back_round_trip"]):
+        fail(f"family main path: {row}")
+    return {"phase": "family_main_path", "cases": [row]}
+
+
+def phase_family_times(device, work, gpu: str,
+                       errs: dict) -> tuple[dict, dict]:
+    """Kernel-only time of each family kernel at the main path's size and
+    config (the C entry points on preallocated buffers), its twin's time
+    and outputs on the same tensors, the facade's call times, and each
+    kernel's bound.  Returns the phase record and {kernel: (ms, plain_ms,
+    bound_ms, bound_by)}."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch import cuda as ctt
+    from constriction_tpu_torch.ops import _build
+    from constriction_tpu_torch.ops import family as fam
+    from constriction_tpu_torch.ops import tchain as tc
+
+    means, scales, symbols, quantiles = work
+    lo, hi = FAMILY_SUPPORT
+    family, n = MAIN_FAMILY, len(symbols)
+    cfg = ctt._pick_cfg(n, None)
+    L = cfg.num_lanes
+    T = n // L
+    fi = fam.FAMILIES.index(family)
+    mu, sg = convert.params_to_torch(means, scales, n, L, device)
+    syms = torch.from_numpy(symbols).to(device)
+    qw = convert.quantiles_to_torch(quantiles, L, device)
+    st, w = fam.encode_family(syms, mu, sg, family, lo, hi, cfg)
+    out, fin = fam.decode_family(st, w, mu, sg, family, lo, hi, cfg, n,
+                                 return_final_states=True)
+    bb = tc.tchain12_family_decode(qw, mu, sg, family, lo, hi, cfg)
+    back = tc.tchain12_family_encode(*bb, mu, sg, family, lo, hi, cfg)
+    if mismatch(out, syms) or mismatch(back[0], qw):
+        fail("family_times: round trip")
+    nw, nr = int(w.numel()), int(bb[1].numel())
+
+    i32 = {"dtype": torch.int32, "device": device}
+    s_buf, h_buf = torch.empty(L, **i32), torch.empty(L, **i32)
+    tab, o_buf = torch.empty(L, **i32), torch.empty(n, **i32)
+    w_buf, q_buf = torch.empty(n, **i32), torch.empty_like(qw)
+    end = torch.empty(1, dtype=torch.int64, device=device)
+    ms = {}
+    ms["family_encode"] = kernel_ms(
+        lambda: s_buf.fill_(1 << 16), lambda: _build.call(
+            "ctt_family_encode", device, s_buf, syms, n, mu, sg, tab, w_buf,
+            n, end, L, fi, lo, hi), 3)
+    same = (torch.equal(s_buf, st)
+            and torch.equal(w_buf[int(end.item()):], w))
+    ms["family_decode"] = kernel_ms(
+        lambda: s_buf.copy_(st), lambda: _build.call(
+            "ctt_family_decode", device, s_buf, w, nw, mu, sg, o_buf, n, L,
+            fi, lo, hi), 3)
+    same = same and torch.equal(o_buf, syms) and torch.equal(s_buf, fin)
+    ms["tchain12_family_decode"] = kernel_ms(
+        lambda: h_buf.fill_(16), lambda: _build.call(
+            "ctt_tchain12_family_decode", device, h_buf, qw, mu, sg, o_buf,
+            w_buf, n, end, L, T, fi, lo, hi), 3)
+    same = (same and torch.equal(o_buf, bb[0]) and torch.equal(h_buf, bb[2])
+            and torch.equal(w_buf[int(end.item()):], bb[1]))
+
+    def reset_chain_encode():
+        h_buf.copy_(bb[2])
+        q_buf.zero_()  # the kernel ORs its bits into zeroed words
+
+    ms["tchain12_family_encode"] = kernel_ms(
+        reset_chain_encode, lambda: _build.call(
+            "ctt_tchain12_family_encode", device, h_buf, bb[0], mu, sg, bb[1],
+            nr, tab, q_buf, L, T, fi, lo, hi), 3)
+    same = same and torch.equal(q_buf, qw) and bool((h_buf == 16).all())
+    if not same:
+        fail("family_times: timed launches differ from the wrappers' output")
+
+    plain, e = {}, {}
+    plain["family_encode"], p = timed(lambda: fam.encode_family_plain(
+        syms, mu, sg, family, lo, hi, cfg))
+    e["family_encode"] = planes_err((st, w), p)
+    plain["family_decode"], p = timed(lambda: fam.decode_family_plain(
+        st, w, mu, sg, family, lo, hi, cfg, n, return_final_states=True))
+    e["family_decode"] = planes_err((out, fin), p)
+    plain["tchain12_family_decode"], p = timed(
+        lambda: tc.tchain12_family_decode_plain(qw, mu, sg, family, lo, hi,
+                                                cfg))
+    e["tchain12_family_decode"] = planes_err(bb, p)
+    plain["tchain12_family_encode"], p = timed(
+        lambda: tc.tchain12_family_encode_plain(*bb, mu, sg, family, lo, hi,
+                                                cfg))
+    e["tchain12_family_encode"] = planes_err(back, p)
+
+    # operations: left() evaluations these inputs need.  A decoded symbol
+    # bisects in bit_length(max - min) steps; an encoded symbol evaluates
+    # both ends of its interval unless one is pinned (min_sym, max_sym).
+    per_left = LEFT_OPS[family]
+    steps = fam.bisection_steps(lo, hi)
+    decode_ops = n * (steps * (per_left + 6) + 8)
+    ends = int(np.count_nonzero(symbols == lo)
+               + np.count_nonzero(symbols == hi))
+    bb_syms = bb[0].cpu().numpy()
+    bb_ends = int(np.count_nonzero(bb_syms == lo)
+                  + np.count_nonzero(bb_syms == hi))
+    q_bytes = 3 * n // 2
+    bounds = {
+        # symbols and parameters in; states and stream out
+        "family_encode": bound(4 * n + 8 * n + 4 * L + 4 * nw,
+                               (2 * n - ends) * per_left + 12 * n),
+        # states, stream and parameters in; symbols and states out
+        "family_decode": bound(8 * L + 4 * nw + 8 * n + 4 * n, decode_ops),
+        # quantiles and parameters in; symbols, remainders and heads out
+        "tchain12_family_decode": bound(
+            q_bytes + 8 * n + 4 * n + 4 * nr + 4 * L, decode_ops),
+        # symbols, parameters, remainders, heads in; quantiles, heads out
+        "tchain12_family_encode": bound(
+            4 * n + 8 * n + 4 * nr + 8 * L + q_bytes,
+            (2 * n - bb_ends) * per_left + 12 * n),
+    }
+    times = {}
+    for name in ms:
+        errs[name] = max(errs[name], e[name])
+        times[name] = (ms[name], plain[name], *bounds[name])
+    if any(e.values()):
+        fail(f"family_times: kernel != twin at full size: {e}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_np, w_np = ctt.encode_family(symbols, means, scales, family, lo, hi,
+                                   device=device)
+    t1 = time.perf_counter()
+    ctt.decode_family(s_np, w_np, means, scales, family, lo, hi, n,
+                      device=device)
+    t2 = time.perf_counter()
+    got = ctt.bits_back_decode_family(quantiles, means, scales, family, lo,
+                                      hi, device=device)
+    t3 = time.perf_counter()
+    ctt.bits_back_encode_family(*got, means, scales, family, lo, hi,
+                                device=device)
+    t4 = time.perf_counter()
+    calls = {"encode_family": t1 - t0, "decode_family": t2 - t1,
+             "bits_back_decode_family": t3 - t2,
+             "bits_back_encode_family": t4 - t3}
+    kernel_of = {"encode_family": "family_encode",
+                 "decode_family": "family_decode",
+                 "bits_back_decode_family": "tchain12_family_decode",
+                 "bits_back_encode_family": "tchain12_family_encode"}
+    row = {
+        "family": family, "support": [lo, hi], "n": n, "num_lanes": L,
+        "stream_words": nw, "remainder_words": nr,
+        "left_evaluations_per_decoded_symbol": steps,
+        "left_evaluations_encode": 2 * n - ends,
+        **{f"{k}_ms": v for k, v in ms.items()},
+        **{f"{k}_ns_per_symbol": v * 1e6 / n for k, v in ms.items()},
+        **{f"{k}_plain_ms": v for k, v in plain.items()},
+        **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
+        **{f"{k}_bound_by": v[1] for k, v in bounds.items()},
+        **{f"{k}_max_abs_err": v for k, v in e.items()},
+        **{f"facade_{k}_call_s": v for k, v in calls.items()},
+        **{f"facade_{k}_ns_per_symbol": v / n * 1e9
+           for k, v in calls.items()},
+        **{f"facade_{k}_host_share": 1 - ms[kernel_of[k]] * 1e-3 / v
+           for k, v in calls.items()},
+        "gpu": gpu,
+    }
+    return {"phase": "family_times", "cases": [row]}, times
+
+
+def phase_checkpoints(device, symbols, containers: dict,
+                      counters: dict) -> dict:
+    """Random access on the rANS main path's containers: a decode from the
+    middle checkpoint must equal the message's suffix and must have run
+    the decode kernel."""
+    import numpy as np
+
+    from constriction_tpu_torch import cuda as ctt
+
+    rows = []
+    for (P, compact), (cdf, data) in containers.items():
+        for counts in counters.values():
+            counts["decode"] = 0
+        t0 = time.perf_counter()
+        offsets, states = ctt.build_checkpoints(data, cdf, CKPT_INTERVAL)
+        t1 = time.perf_counter()
+        c = len(offsets) // 2
+        start, suffix = ctt.decode_from_checkpoint(
+            data, cdf, CKPT_INTERVAL, c, offsets, states, device=device)
+        t2 = time.perf_counter()
+        launches = sum(counts["decode"] for counts in counters.values())
+        row = {"P": P, "container": "v2" if compact else "v1",
+               "interval_steps": CKPT_INTERVAL, "checkpoints": len(offsets),
+               "from_checkpoint": c, "start_symbol": int(start),
+               "suffix_exact": bool(np.array_equal(suffix, symbols[start:])),
+               "decode_launches": launches,
+               "build_checkpoints_s": t1 - t0,
+               "decode_from_checkpoint_s": t2 - t1}
+        rows.append(row)
+        if not (len(offsets) and row["suffix_exact"] and launches == 1):
+            fail(f"checkpoints: {row}")
+    return {"phase": "checkpoints", "n": len(symbols), "cases": rows}
+
+
 def run_main_path(modules: dict, table: dict, phase):
     """Runs ``phase()`` with every launch counter set to 0 just before it;
     returns its record with the launches of ``table``'s kernels, read just
@@ -822,20 +1299,24 @@ def main(argv) -> int:
     if argv:
         fail(f"unknown arguments {argv}; usage: chip_smoke.py")
     sys.path.insert(0, REPO)
-    from constriction_tpu_torch.ops import coder, coder64, range_enc
+    from constriction_tpu_torch.ops import (coder, coder64, family, range_enc,
+                                            tchain)
 
     device = torch.device("cuda", 0)
     build = phase_build()
     emit(build)
     gpu = build["gpu"]
     modules = {"coder": coder.LAUNCHES, "coder64": coder64.LAUNCHES,
-               "range_enc": range_enc.LAUNCHES}
+               "range_enc": range_enc.LAUNCHES, "family": family.LAUNCHES,
+               "tchain": tchain.LAUNCHES}
 
     kernels, errs = phase_kernels(device, N_KERNEL_CHECK, 32768)
     emit(kernels)
     probs, symbols = main_workload()
+    containers: dict = {}
     launches = run_main_path(modules, KERNELS,
-                             lambda: phase_main(device, probs, symbols))
+                             lambda: phase_main(device, probs, symbols,
+                                                containers))
     times_rec, times = phase_times(device, probs, symbols, gpu, errs)
     emit(times_rec)
     emit(phase_sweep(device, gpu))
@@ -850,6 +1331,21 @@ def main(argv) -> int:
     emit(range_times)
     times.update(more)
 
+    emit(phase_family_math(device))
+    family_rec, family_errs = phase_family_kernels(device, N_KERNEL_CHECK,
+                                                   32768)
+    emit(family_rec)
+    errs.update(family_errs)
+    work = family_workload(N_FAMILY)
+    launches.update(run_main_path(
+        modules, FAMILY_KERNELS, lambda: phase_family_main(device, work)))
+    family_times, more = phase_family_times(device, work, gpu, errs)
+    emit(family_times)
+    times.update(more)
+    emit(phase_checkpoints(
+        device, symbols, containers,
+        {"coder": coder.LAUNCHES, "coder64": coder64.LAUNCHES}))
+
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "constriction_tpu"))
     if foreign:
@@ -860,8 +1356,8 @@ def main(argv) -> int:
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": times[name][2], "bound_by": times[name][3],
          "library_ms": None}
-        for name, (_, _, site, source) in {**KERNELS,
-                                           **RANGE_KERNELS}.items()
+        for name, (_, _, site, source) in {**KERNELS, **RANGE_KERNELS,
+                                           **FAMILY_KERNELS}.items()
     ]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {

@@ -9,7 +9,11 @@ torch has few operations on unsigned integers:
 - u64 data (S = 64 lane states, range points and planes) ->
   ``torch.int64`` holding the same 64 bits, so values >= 2^63 read as
   negative and come back unchanged;
-- CDF tables -> ``torch.int64`` values (they are below 2^25).
+- CDF tables -> ``torch.int64`` values (they are below 2^25);
+- per-symbol model parameters (the device families' means and scales) ->
+  ``torch.float32``, padded to whole coding steps;
+- 12-bit quantiles (TChain-12 bits-back) -> the packed u32 planes of
+  ``ops.tchain.pack_q12`` as int32 bit patterns.
 
 Kernels read these buffers as ``uint32_t`` / ``uint64_t``; the plain twins
 widen them with :func:`u32_values` / :func:`u64_halves`.
@@ -101,6 +105,45 @@ def cdf_to_torch(cdf, device="cpu") -> torch.Tensor:
     return torch.from_numpy(
         np.asarray(cdf, dtype=np.uint32).astype(np.int64)
     ).to(device)
+
+
+def params_to_torch(means, scales, n: int, L: int, device="cpu") -> tuple:
+    """Per-symbol (mean, scale) parameters of an n-symbol message on L
+    lanes -> two float32 tensors of ceil(n / L) * L entries on ``device``,
+    padded past n with mean 0 and scale 1 (the model of a lane that codes
+    nothing in the last step).  The values are cast to float32, the type
+    the integer CDF is defined on.  JAX counterpart:
+    ``pallas_family._blocks3d`` (means with fill 0, scales with fill 1)."""
+    total = -(-n // L) * L if n else 0
+    out = []
+    for name, values, fill in (("means", means, 0.0), ("scales", scales, 1.0)):
+        a = np.asarray(values, dtype=np.float32).reshape(-1)
+        if len(a) != n:
+            raise ValueError(f"{name} must have {n} entries, got {len(a)}")
+        padded = np.full(total, fill, dtype=np.float32)
+        padded[:n] = a
+        out.append(torch.from_numpy(padded).to(device))
+    return tuple(out)
+
+
+def quantiles_to_torch(quantiles, L: int, device="cpu") -> torch.Tensor:
+    """12-bit quantiles (numpy, a whole number of L-lane steps) -> the
+    packed planes of ``ops.tchain.pack_q12`` as a flat int32 tensor on
+    ``device`` (1.5 bytes per quantile).  JAX counterpart:
+    ``jnp.asarray(tchain.pack_q12(q, L))``."""
+    from .ops.tchain import pack_q12
+
+    return u32_to_torch(pack_q12(quantiles, L), device)
+
+
+def quantiles_from_torch(qw: torch.Tensor, L: int) -> np.ndarray:
+    """Inverse of :func:`quantiles_to_torch`: u16 numpy quantiles.  JAX
+    counterpart: ``tchain.unpack_q12(np.asarray(qw))``."""
+    from .ops.tchain import unpack_q12
+
+    rows = 3 * (L // 1024)
+    words = u32_from_torch(qw).reshape(qw.numel() // (rows * 128), rows, 128)
+    return unpack_q12(words).reshape(-1).astype(np.uint16)
 
 
 def u32_values(t: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,12 @@
-"""Public facade of the port: the i.i.d. categorical coders on a CUDA card.
+"""Public facade of the port: the coders that run on a CUDA card.
 
 The counterpart of ``constriction_tpu/tpu.py``'s ``encode_iid`` /
-``decode_iid`` (ILANS2 rANS containers) and ``encode_iid_range`` /
-``decode_iid_range`` (ILANS2-R range coding), writing and reading the same
+``decode_iid`` (ILANS2 rANS containers, with ``build_checkpoints`` /
+``decode_from_checkpoint`` for random access), ``encode_iid_range`` /
+``decode_iid_range`` (ILANS2-R range coding), ``encode_family`` /
+``decode_family`` (per-symbol gaussian, laplace, logistic or cauchy
+models) and ``bits_back_decode_family`` / ``bits_back_encode_family``
+(TChain-12 bits-back under the same models), writing and reading the same
 bytes.
 
     import constriction_tpu_torch.cuda as ctt
@@ -11,6 +15,9 @@ bytes.
     out = ctt.decode_iid(data, cdf)
     points, stream = ctt.encode_iid_range(symbols, cdf)
     out = ctt.decode_iid_range(points, stream, cdf, len(symbols))
+    states, stream = ctt.encode_family(sym, mu, sigma, "gaussian", -100, 100)
+    out = ctt.decode_family(states, stream, mu, sigma, "gaussian",
+                            -100, 100, len(sym))
 
 ``device`` is explicit: ``"cuda"`` (the default) runs the hand-written
 kernels and raises when no CUDA device is available; ``"cpu"`` runs their
@@ -26,8 +33,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import convert as _convert
+from .ops import family as _family
 from .ops import framing as _framing
 from .ops import interleaved2 as _il2
+from .ops import tchain as _tchain
 from .ops.interleaved import LaneConfig
 
 DEFAULT_CFG = LaneConfig(num_lanes=32768, word_bits=16, state_bits=32,
@@ -190,3 +200,123 @@ def decode_iid_range(points, stream, cdf, num_symbols: int,
             np.asarray(points), np.asarray(stream), num_symbols, cdf, cfg)
     return _il2.decode_range_lanes(np.asarray(points), np.asarray(stream),
                                    num_symbols, cdf, cfg, dev)
+
+
+def build_checkpoints(container, cdf, interval: int):
+    """Periodic decoder snapshots for an ILANS2 container of either
+    framing version, made by one host decode (no ``device``: nothing runs
+    on the card).  Returns ``(offsets, states)`` for
+    :func:`decode_from_checkpoint`.  JAX counterpart:
+    ``constriction_tpu.tpu.build_checkpoints``."""
+    container = np.asarray(container)
+    _check_cdf(cdf, _framing.peek_cfg(container))
+    if _framing.container_version(container) == 2:
+        return _framing.build_checkpoints_v2(container, cdf, interval)
+    init_states, stream, n, cfg = _il2.unpack_container2(container)
+    return _il2.build_checkpoints(init_states, stream, n, cdf, cfg, interval)
+
+
+def decode_from_checkpoint(container, cdf, interval: int, ckpt_index: int,
+                           offsets, states, device="cuda"):
+    """Decode an ILANS2 container's suffix from checkpoint ``ckpt_index``
+    (symbol ``(ckpt_index + 1) * interval * num_lanes``) without touching
+    the prefix.  Returns ``(start_symbol, suffix)``, equal to the full
+    decode's tail.  JAX counterpart:
+    ``constriction_tpu.tpu.decode_from_checkpoint``."""
+    dev = _device(device)
+    container = np.asarray(container)
+    _check_cdf(cdf, _framing.peek_cfg(container))
+    if _framing.container_version(container) == 2:
+        return _framing.decode_from_checkpoint_v2(
+            container, cdf, interval, ckpt_index, offsets, states, device=dev)
+    init_states, stream, n, cfg = _il2.unpack_container2(container)
+    return _il2.decode_from_checkpoint(ckpt_index, offsets, states, stream,
+                                       n, cdf, cfg, interval, device=dev)
+
+
+def encode_family(symbols, means, scales, family: str, min_sym: int,
+                  max_sym: int, cfg: LaneConfig | None = None,
+                  device="cuda"):
+    """Encode symbols under per-symbol (mean, scale) models of one family
+    (gaussian, laplace, logistic or cauchy; exact-integer CDF, the same
+    bits on every backend) at W=16, S=32, P=12.  Returns ``(init_states
+    u32[L], stream u32[num_words])`` numpy arrays.  JAX counterpart:
+    ``constriction_tpu.tpu.encode_family``, byte for byte; unlike it,
+    symbols outside [min_sym, max_sym], means that are not finite and
+    scales without a finite positive float32 reciprocal raise
+    ValueError."""
+    dev = _device(device)
+    symbols = np.asarray(symbols)
+    cfg = _pick_cfg(len(symbols), cfg)
+    means_t, scales_t = _convert.params_to_torch(
+        means, scales, len(symbols), cfg.num_lanes, dev)
+    syms_t = torch.from_numpy(
+        np.ascontiguousarray(symbols, dtype=np.int32)).to(dev)
+    states, stream = _family.encode_family(
+        syms_t, means_t, scales_t, family, int(min_sym), int(max_sym), cfg)
+    return _convert.u32_from_torch(states), _convert.u32_from_torch(stream)
+
+
+def decode_family(init_states, stream, means, scales, family: str,
+                  min_sym: int, max_sym: int, num_symbols: int,
+                  cfg: LaneConfig | None = None, device="cuda") -> np.ndarray:
+    """Decode ``num_symbols`` symbols of an :func:`encode_family` stream
+    under the same per-symbol models; returns int32 numpy.  JAX
+    counterpart: ``constriction_tpu.tpu.decode_family``."""
+    dev = _device(device)
+    cfg = _pick_cfg(num_symbols, cfg)
+    means_t, scales_t = _convert.params_to_torch(
+        means, scales, num_symbols, cfg.num_lanes, dev)
+    syms = _family.decode_family(
+        _convert.u32_to_torch(init_states, dev),
+        _convert.u32_to_torch(stream, dev), means_t, scales_t, family,
+        int(min_sym), int(max_sym), cfg, num_symbols)
+    return syms.cpu().numpy()
+
+
+def _chain_params(means, scales, n: int, dev):
+    L = _tchain.TCHAIN12_CFG.num_lanes
+    if n % L:
+        raise ValueError(
+            f"the message length must be a multiple of {L} lanes, got {n}")
+    return _convert.params_to_torch(means, scales, n, L, dev)
+
+
+def bits_back_decode_family(quantiles, means, scales, family: str,
+                            min_sym: int, max_sym: int, device="cuda"):
+    """Neural bits-back (TChain-12): decode 12-bit quantiles (their count
+    a multiple of 32768) as symbols under per-symbol (mean, scale) models.
+    Returns numpy ``(symbols int32, remainders u32, heads u32[32768])``;
+    :func:`bits_back_encode_family` recovers the quantiles exactly.  JAX
+    counterpart: ``constriction_tpu.tpu.bits_back_decode_family``."""
+    dev = _device(device)
+    q = np.asarray(quantiles, dtype=np.uint16)
+    if not (q < (1 << 12)).all():
+        raise ValueError("quantiles must be 12-bit values")
+    means_t, scales_t = _chain_params(means, scales, len(q), dev)
+    L = _tchain.TCHAIN12_CFG.num_lanes
+    syms, stream, heads = _tchain.tchain12_family_decode(
+        _convert.quantiles_to_torch(q, L, dev), means_t, scales_t, family,
+        int(min_sym), int(max_sym))
+    return (syms.cpu().numpy(), _convert.u32_from_torch(stream),
+            _convert.u32_from_torch(heads))
+
+
+def bits_back_encode_family(symbols, remainders, heads, means, scales,
+                            family: str, min_sym: int, max_sym: int,
+                            device="cuda"):
+    """Reverse pass of :func:`bits_back_decode_family`: returns numpy
+    ``(quantiles u16, heads u32[32768])``, the heads back at 16 after a
+    full reverse.  JAX counterpart:
+    ``constriction_tpu.tpu.bits_back_encode_family``."""
+    dev = _device(device)
+    symbols = np.ascontiguousarray(symbols, dtype=np.int32)
+    means_t, scales_t = _chain_params(means, scales, len(symbols), dev)
+    L = _tchain.TCHAIN12_CFG.num_lanes
+    qw, out_heads = _tchain.tchain12_family_encode(
+        torch.from_numpy(symbols).to(dev),
+        _convert.u32_to_torch(remainders, dev),
+        _convert.u32_to_torch(heads, dev), means_t, scales_t, family,
+        int(min_sym), int(max_sym))
+    return (_convert.quantiles_from_torch(qw, L),
+            _convert.u32_from_torch(out_heads))

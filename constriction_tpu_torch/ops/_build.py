@@ -48,6 +48,16 @@ _RANGE_RESOLVE_ARGS = [_P, _P, _P, _P, _P, _I64, _P, _P, _I32, _I32, _P,
                        _I32]
 _RANGE_DECODE_ARGS = [_P, _P, _P, _P, _I64, _P, _I32, _P, _I64, _I32, _I32,
                       _P, _P, _I32]
+# family index, min_sym, max_sym (or free); then the stream and the device
+_FAMILY_TAIL = [_I32, _I32, _I32, _P, _I32]
+_FAMILY_DECODE_ARGS = [_P, _P, _I64, _P, _P, _P, _I64, _I32, *_FAMILY_TAIL]
+_FAMILY_ENCODE_ARGS = [_P, _P, _I64, _P, _P, _P, _P, _I64, _P, _I32,
+                       *_FAMILY_TAIL]
+_FAMILY_LEFT_ARGS = [_P, _P, _P, _P, _I64, *_FAMILY_TAIL]
+_TCHAIN12_DECODE_ARGS = [_P, _P, _P, _P, _P, _P, _I64, _P, _I32, _I32,
+                         *_FAMILY_TAIL]
+_TCHAIN12_ENCODE_ARGS = [_P, _P, _P, _P, _P, _I64, _P, _P, _I32, _I32,
+                         *_FAMILY_TAIL]
 SIGNATURES = {
     "ctt_ilans2_decode_w16s32": _DECODE_ARGS,
     "ctt_ilans2_decode_w32s64": _DECODE_ARGS,
@@ -59,6 +69,11 @@ SIGNATURES = {
     "ctt_ilans2_range_resolve_w32s64": _RANGE_RESOLVE_ARGS,
     "ctt_ilans2_range_decode_w16s32": _RANGE_DECODE_ARGS,
     "ctt_ilans2_range_decode_w32s64": _RANGE_DECODE_ARGS,
+    "ctt_family_decode": _FAMILY_DECODE_ARGS,
+    "ctt_family_encode": _FAMILY_ENCODE_ARGS,
+    "ctt_family_left": _FAMILY_LEFT_ARGS,
+    "ctt_tchain12_family_decode": _TCHAIN12_DECODE_ARGS,
+    "ctt_tchain12_family_encode": _TCHAIN12_ENCODE_ARGS,
 }
 
 _lock = threading.Lock()

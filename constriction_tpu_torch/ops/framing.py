@@ -538,6 +538,41 @@ def decode_iid_v2(data, cdf, device="cuda") -> np.ndarray:
     return np.concatenate([out_A, _decode_region_b(p, fin, cdf)])
 
 
+def build_checkpoints_v2(data, cdf, interval: int):
+    """Periodic decoder snapshots over a v2 container's region A (region B
+    is a short tail decoded from recovered seeds; seeks land in A).
+    Returns ``(offsets, states)`` as ``interleaved2.build_checkpoints``.
+    JAX counterpart: ``constriction_tpu.ops.framing.build_checkpoints_v2``."""
+    p = parse_v2(data)
+    return il2.build_checkpoints(p.states_A, p.stream_A, p.n_A, cdf, p.cfg,
+                                 interval)
+
+
+def decode_from_checkpoint_v2(data, cdf, interval: int, ckpt_index: int,
+                              offsets, states, device="cuda"):
+    """Decode a v2 container's suffix from checkpoint ``ckpt_index``
+    (symbol ``(ckpt_index + 1) * interval * L``); the recovered-seed tail
+    (region B) is decoded and appended, so the suffix runs to the end of
+    the message.  Returns ``(start_symbol, suffix)``, equal to that slice of
+    :func:`decode_iid_v2`.  JAX counterpart:
+    ``constriction_tpu.ops.framing.decode_from_checkpoint_v2(...,
+    device=True)``."""
+    p = parse_v2(data)
+    start = (ckpt_index + 1) * interval * p.cfg.num_lanes
+    remaining = p.n_A - start
+    if remaining <= 0:
+        raise ValueError(
+            f"checkpoint {ckpt_index} starts at symbol {start}, beyond "
+            f"region A ({p.n_A} symbols); decode the tail with decode_iid_v2"
+        )
+    sub_stream = p.stream_A[int(offsets[ckpt_index]):]
+    out_A, fin = _decode_region_a(np.asarray(states[ckpt_index]), sub_stream,
+                                  remaining, cdf, p.cfg, device)
+    if p.k_B == 0:
+        return start, out_A
+    return start, np.concatenate([out_A, _decode_region_b(p, fin, cdf)])
+
+
 def container_version(data) -> int:
     """Version of an ILANS2 container (1 or 2).  JAX counterpart:
     ``constriction_tpu.ops.framing.container_version``."""

@@ -23,11 +23,12 @@ which travels beside the stream as ``points``.
 
 JAX counterpart: ``constriction_tpu.ops.interleaved2``.  The host functions
 here (``encode_shared``, ``decode_shared_cdf``, the packers, the range
-decoder and checkpoints) are copies of its numpy paths, so that the port
-imports nothing of the JAX package; the JAX package runs the same algebra
-in C++ where it can, and ``tests/test_torch_host.py`` and
-``tests/test_torch_range.py`` hold the two byte for byte.  Its host range
-encoder is C++ only; the port's (:func:`encode_shared_range`) is numpy.
+decoder, the rANS and range checkpoints) are copies of its numpy paths, so
+that the port imports nothing of the JAX package; the JAX package runs the
+same algebra in C++ where it can, and ``tests/test_torch_host.py``,
+``tests/test_torch_range.py`` and ``tests/test_torch_checkpoints.py`` hold
+the two byte for byte.  Its host range encoder is C++ only; the port's
+(:func:`encode_shared_range`) is numpy.
 Lane coding runs on the port's coder: the kernels for a CUDA device, the
 plain twins for the CPU.  Configs the kernels do not take are coded by the
 host coder, exactly as the JAX package does: the same semantics, not a
@@ -514,6 +515,87 @@ def decode_iid_categorical2(data, cdf, device="cuda") -> np.ndarray:
     if kernel_eligible(cfg):
         return decode_lanes(init_states, stream, n, cdf, cfg, device)[0]
     return decode_shared_cdf(init_states, stream, n, cdf, cfg)
+
+
+# ---------------------------------------------------------------------------
+# random access: periodic decoder checkpoints
+# ---------------------------------------------------------------------------
+
+
+def build_checkpoints(init_states, stream, num_symbols: int, cdf,
+                      cfg: LaneConfig, interval: int):
+    """Decode once on the host, capturing a (stream offset, lane states)
+    snapshot every ``interval`` steps.  Snapshot c is a complete coder
+    state for symbol ``(c + 1) * interval * L`` on: a decoder seeded with
+    ``(states[c], stream[offsets[c]:])`` decodes the suffix without touching
+    the prefix (:func:`decode_from_checkpoint`).  Returns ``(offsets
+    i64[C], states [C, L])``, u64 states for S > 32 and u32 otherwise, with
+    ``C = ceil(T / interval) - 1`` (the snapshot at step 0 is the container
+    header itself).  JAX counterpart: the numpy branch of
+    ``constriction_tpu.ops.interleaved2.build_checkpoints`` (its C++ branch
+    gives the same arrays)."""
+    if interval <= 0:
+        raise ValueError(f"interval must be positive, got {interval}")
+    L = cfg.num_lanes
+    S, W, P = cfg.state_bits, cfg.word_bits, cfg.precision
+    T = -(-num_symbols // L) if num_symbols else 0
+    C = max(-(-T // interval) - 1, 0)
+    offsets = np.zeros(C, dtype=np.int64)
+    states_out = np.zeros((C, L), dtype=state_dtype(cfg))
+    if C == 0:
+        return offsets, states_out
+    states = np.asarray(init_states).astype(np.uint64)
+    stream = np.asarray(stream)
+    cdf64 = np.asarray(cdf, dtype=np.uint64)
+    base = 0
+    lanes = np.arange(L)
+    lower = np.uint64(1 << (S - W))
+    c = 0
+    for t in range(T):
+        if t > 0 and t % interval == 0:
+            offsets[c] = base
+            states_out[c] = states.astype(states_out.dtype)
+            c += 1
+        active = t * L + lanes < num_symbols
+        q = states & np.uint64((1 << P) - 1)
+        sym = np.searchsorted(cdf64, q, side="right") - 1
+        cum = cdf64[sym]
+        prob = cdf64[sym + 1] - cum
+        states = np.where(active, (states >> np.uint64(P)) * prob + (q - cum),
+                          states)
+        m = states < lower
+        k = int(m.sum())
+        if k:
+            words = np.zeros(k, dtype=np.uint64)
+            avail = stream[base:base + k]
+            words[:len(avail)] = avail
+            states[m] = (states[m] << np.uint64(W)) | words
+            base += k
+    return offsets, states_out
+
+
+def decode_from_checkpoint(ckpt_index: int, offsets, ckpt_states, stream,
+                           num_symbols: int, cdf, cfg: LaneConfig,
+                           interval: int, device="cuda"):
+    """Decode the message suffix that starts at checkpoint ``ckpt_index``
+    of :func:`build_checkpoints` (symbol ``(ckpt_index + 1) * interval *
+    L``).  Returns ``(start_symbol, suffix_symbols)``, equal to that slice
+    of a full decode.  A checkpoint is an ordinary (states, stream suffix)
+    pair: configs the kernels take decode it on the port's coder on
+    ``device``, the others on the host decoder.  JAX counterpart:
+    ``constriction_tpu.ops.interleaved2.decode_from_checkpoint(...,
+    device=True)``."""
+    L = cfg.num_lanes
+    start = (ckpt_index + 1) * interval * L
+    remaining = num_symbols - start
+    if remaining <= 0:
+        return start, np.zeros(0, dtype=np.int64)
+    sub_stream = np.asarray(stream)[int(offsets[ckpt_index]):]
+    if kernel_eligible(cfg):
+        return start, decode_lanes(ckpt_states[ckpt_index], sub_stream,
+                                   remaining, cdf, cfg, device)[0]
+    return start, decode_shared_cdf(ckpt_states[ckpt_index], sub_stream,
+                                    remaining, cdf, cfg)
 
 
 # ---------------------------------------------------------------------------

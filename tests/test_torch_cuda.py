@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch twins and the host
 oracles, on the card: the rANS kernels against the JAX package's
 (``interleaved2.encode_shared`` / ``decode_shared_cdf``, numpy and C++), the
-range kernels against the port's numpy range coder (the CPU tests hold that
-one against the JAX package's).
+range kernels against the port's numpy range coder, the device-family and
+TChain-12 kernels (and their integer CDF, value by value) against the
+port's numpy family oracles (the CPU tests hold those against the JAX
+package's).
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX (the oracle's modules import none), so on a machine with a
@@ -22,7 +24,9 @@ from constriction_tpu_torch import convert
 from constriction_tpu_torch import cuda as ctt
 from constriction_tpu_torch.models import fast_quantized_cdf
 from constriction_tpu_torch.ops import coder, coder64, range_enc
+from constriction_tpu_torch.ops import family as fam
 from constriction_tpu_torch.ops import interleaved2 as il2
+from constriction_tpu_torch.ops import tchain as tc
 from constriction_tpu_torch.ops.interleaved import LaneConfig
 
 pytestmark = pytest.mark.cuda
@@ -317,3 +321,214 @@ def test_range_facade_cuda_matches_cpu(dev, P):
     np.testing.assert_array_equal(
         ctt.decode_iid_range(pts, words, cdf, len(symbols), device="cuda"),
         symbols)
+
+
+# --- the device families: integer CDF, rANS pair, TChain-12 bits-back pair
+
+LO, HI = -100, 100
+
+
+def _family_cfg(L):
+    return LaneConfig(num_lanes=L, word_bits=16, state_bits=32, precision=12)
+
+
+def _family_data(rng, n, cauchy=False):
+    means = (rng.randn(n) * 10).astype(np.float32)
+    scales = (0.3 + np.abs(rng.randn(n)) * 5).astype(np.float32)
+    noise = rng.standard_cauchy(n) if cauchy else rng.randn(n)
+    symbols = np.clip(np.round(means + noise * scales), LO, HI)
+    return means, scales, symbols.astype(np.int32)
+
+
+def _left_case(name):
+    rng = np.random.RandomState(41)
+    if name == "every_t_fix":  # x = 0, scale = 1: t_fix is exactly t
+        t = np.arange(-fam.T_CLAMP, fam.T_CLAMP, dtype=np.int64)
+        return np.zeros(len(t)), -(0.5 + t / 4096.0), np.ones(len(t))
+    if name == "random":
+        n = 1 << 20
+        return (rng.randint(LO + 1, HI + 2, size=n), rng.randn(n) * 30,
+                np.exp(rng.randn(n) * 3))
+    g = np.array([(x, m, s) for m in (-500.0, -100.0, 0.0, 99.7, 500.0)
+                  for s in (1e-6, 0.01, 1.0, 1e4, 1e6)
+                  for x in range(LO + 1, HI + 2)], dtype=np.float64)
+    return g[:, 0], g[:, 1], g[:, 2]
+
+
+@pytest.mark.parametrize("case", ["every_t_fix", "random", "extreme_grid"])
+@pytest.mark.parametrize("family", fam.FAMILIES)
+def test_family_left_matches_plain_arithmetic(dev, family, case):
+    x, mean, scale = _left_case(case)
+    x = x.astype(np.int32)
+    mean, scale = mean.astype(np.float32), scale.astype(np.float32)
+    xt, mt, st = (torch.from_numpy(a).to(dev) for a in (x, mean, scale))
+    got = fam.family_left(xt, mt, st, family, LO, HI)
+    assert torch.equal(got, fam.left(torch, family, LO, HI, xt, mt, 1.0 / st))
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        fam.left(np, family, LO, HI, x, mean, np.float32(1.0) / scale))
+
+
+def _check_family(cfg, family, means, scales, symbols, dev, lo=LO, hi=HI):
+    n, L = len(symbols), cfg.num_lanes
+    mu, sg = convert.params_to_torch(means, scales, n, L, dev)
+    syms = torch.from_numpy(symbols).to(dev)
+    before = dict(fam.LAUNCHES)
+    st, w = fam.encode_family(syms, mu, sg, family, lo, hi, cfg)
+    st_p, w_p = fam.encode_family_plain(syms, mu, sg, family, lo, hi, cfg)
+    assert torch.equal(st, st_p) and torch.equal(w, w_p)
+    cums, probs = fam.family_tables_host(symbols, means, scales, family, lo,
+                                         hi)
+    st_h, w_h = il2.encode_shared(cums, probs, cfg)
+    np.testing.assert_array_equal(convert.u32_from_torch(st), st_h)
+    np.testing.assert_array_equal(convert.u32_from_torch(w), w_h)
+    out, fin = fam.decode_family(st, w, mu, sg, family, lo, hi, cfg, n,
+                                 return_final_states=True)
+    out_p, fin_p = fam.decode_family_plain(st, w, mu, sg, family, lo, hi, cfg,
+                                           n, return_final_states=True)
+    assert torch.equal(out, out_p) and torch.equal(fin, fin_p)
+    assert torch.equal(out, syms)
+    assert torch.equal(fin, torch.full_like(fin, 1 << 16))
+    if n:
+        assert fam.LAUNCHES["encode"] == before["encode"] + 1
+        assert fam.LAUNCHES["decode"] == before["decode"] + 1
+    return st, w, mu, sg
+
+
+@pytest.mark.parametrize("family", fam.FAMILIES)
+@pytest.mark.parametrize("L,n", [(128, 1), (128, 3000), (384, 1000),
+                                 (1024, 1024 * 9), (32768, 32768 * 3 + 5),
+                                 (65536, 65536 * 2 + 77)])
+def test_family_kernels_match_twins(dev, family, L, n):
+    rng = np.random.RandomState(L + n)
+    means, scales, symbols = _family_data(rng, n, cauchy=family == "cauchy")
+    _check_family(_family_cfg(L), family, means, scales, symbols, dev)
+
+
+@pytest.mark.parametrize("family", fam.FAMILIES)
+def test_family_extreme_parameters_round_trip(dev, family):
+    rng = np.random.RandomState(11)
+    cases = [(m, s) for m in (-500.0, -100.0, 0.0, 99.7, 500.0)
+             for s in (1e-6, 0.01, 1.0, 1e4, 1e6)]
+    means = np.array([c[0] for c in cases] * 8, np.float32)
+    scales = np.array([c[1] for c in cases] * 8, np.float32)
+    symbols = rng.randint(LO, HI + 1, size=len(means)).astype(np.int32)
+    _check_family(_family_cfg(128), family, means, scales, symbols, dev)
+
+
+def test_family_other_supports(dev):
+    """The widest support the precision allows, and the narrowest."""
+    rng = np.random.RandomState(3)
+    means, scales, _ = _family_data(rng, 5000)
+    wide = rng.randint(0, 2048, 5000).astype(np.int32)
+    _check_family(_family_cfg(256), "laplace", means + 1000, scales * 40,
+                  wide, dev, lo=0, hi=2047)
+    narrow = rng.randint(7, 9, 5000).astype(np.int32)
+    _check_family(_family_cfg(256), "gaussian", means, scales, narrow, dev,
+                  lo=7, hi=8)
+
+
+def test_family_truncated_stream_zero_fills(dev):
+    rng = np.random.RandomState(5)
+    cfg = _family_cfg(256)
+    means, scales, symbols = _family_data(rng, 4000)
+    st, w, mu, sg = _check_family(cfg, "gaussian", means, scales, symbols,
+                                  dev)
+    cut = w[: w.numel() // 3].clone()
+    out, fin = fam.decode_family(st, cut, mu, sg, "gaussian", LO, HI, cfg,
+                                 4000, return_final_states=True)
+    out_p, fin_p = fam.decode_family_plain(st, cut, mu, sg, "gaussian", LO,
+                                           HI, cfg, 4000,
+                                           return_final_states=True)
+    assert torch.equal(out, out_p) and torch.equal(fin, fin_p)
+    np.testing.assert_array_equal(
+        out.cpu().numpy(), fam.decode_family_host(
+            convert.u32_from_torch(st), convert.u32_from_torch(cut), means,
+            scales, "gaussian", LO, HI, cfg, 4000))
+
+
+@pytest.mark.parametrize("family", fam.FAMILIES)
+@pytest.mark.parametrize("L,T", [(1024, 1), (1024, 5), (3072, 3),
+                                 (32768, 2)])
+def test_tchain12_kernels_match_twins(dev, family, L, T):
+    rng = np.random.RandomState(L + T)
+    cfg = _family_cfg(L)
+    n = L * T
+    means, scales, _ = _family_data(rng, n)
+    q = rng.randint(0, 1 << 12, size=n).astype(np.uint16)
+    mu, sg = convert.params_to_torch(means, scales, n, L, dev)
+    qw = convert.quantiles_to_torch(q, L, dev)
+    before = dict(tc.LAUNCHES)
+    got = tc.tchain12_family_decode(qw, mu, sg, family, LO, HI, cfg)
+    twin = tc.tchain12_family_decode_plain(qw, mu, sg, family, LO, HI, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(got, twin))
+    host = tc.tchain12_family_decode_host(q, means, scales, family, LO, HI,
+                                          cfg)
+    np.testing.assert_array_equal(got[0].cpu().numpy(), host[0])
+    np.testing.assert_array_equal(convert.u32_from_torch(got[1]), host[1])
+    np.testing.assert_array_equal(convert.u32_from_torch(got[2]), host[2])
+    back = tc.tchain12_family_encode(*got, mu, sg, family, LO, HI, cfg)
+    back_p = tc.tchain12_family_encode_plain(*got, mu, sg, family, LO, HI,
+                                             cfg)
+    assert all(torch.equal(a, b) for a, b in zip(back, back_p))
+    assert torch.equal(back[0], qw)
+    assert torch.equal(back[1], torch.full_like(back[1], 16))
+    assert tc.LAUNCHES["decode12_family"] == before["decode12_family"] + 1
+    assert tc.LAUNCHES["encode12_family"] == before["encode12_family"] + 1
+    # truncated remainders read as zero words, as in the host oracle
+    cut = got[1][: got[1].numel() // 2].clone()
+    a = tc.tchain12_family_encode(got[0], cut, got[2], mu, sg, family, LO, HI,
+                                  cfg)
+    b = tc.tchain12_family_encode_plain(got[0], cut, got[2], mu, sg, family,
+                                        LO, HI, cfg)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_family_facade_cuda_matches_cpu(dev):
+    rng = np.random.RandomState(8)
+    means, scales, symbols = _family_data(rng, 50_000)
+    got = ctt.encode_family(symbols, means, scales, "gaussian", LO, HI,
+                            device="cuda")
+    ref = ctt.encode_family(symbols, means, scales, "gaussian", LO, HI,
+                            device="cpu")
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1], ref[1])
+    np.testing.assert_array_equal(
+        ctt.decode_family(*got, means, scales, "gaussian", LO, HI,
+                          len(symbols), device="cuda"), symbols)
+    n = 2 * 32768
+    q = rng.randint(0, 1 << 12, size=n).astype(np.uint16)
+    means, scales, _ = _family_data(rng, n)
+    got = ctt.bits_back_decode_family(q, means, scales, "logistic", LO, HI,
+                                      device="cuda")
+    ref = ctt.bits_back_decode_family(q, means, scales, "logistic", LO, HI,
+                                      device="cpu")
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+    q2, h2 = ctt.bits_back_encode_family(*got, means, scales, "logistic", LO,
+                                         HI, device="cuda")
+    np.testing.assert_array_equal(q2, q)
+    assert np.all(h2 == 16)
+
+
+@pytest.mark.parametrize("P,compact", [(24, True), (24, False), (12, True),
+                                       (12, False)])
+def test_decode_from_checkpoint_on_the_card(dev, P, compact):
+    cdf, probs = _cdf(100, P, seed=6)
+    symbols = np.random.RandomState(7).choice(100, size=60_000, p=probs)
+    data = ctt.encode_iid(symbols, cdf, compact=compact, device="cuda")
+    ckpt = ctt.build_checkpoints(data, cdf, 3)
+    assert len(ckpt[0]) >= 2
+    for c in range(len(ckpt[0])):
+        start, out = ctt.decode_from_checkpoint(data, cdf, 3, c, *ckpt,
+                                                device="cuda")
+        np.testing.assert_array_equal(out, symbols[start:])
+
+
+def test_family_wrapper_rejects_mixed_devices(dev):
+    rng = np.random.RandomState(2)
+    means, scales, symbols = _family_data(rng, 256)
+    mu, sg = convert.params_to_torch(means, scales, 256, 128, dev)
+    with pytest.raises(ValueError, match="is on cuda"):
+        fam.encode_family(torch.from_numpy(symbols), mu, sg, "gaussian", LO,
+                          HI, _family_cfg(128))

@@ -1,7 +1,8 @@
 """The port's facade (constriction_tpu_torch.cuda) against the JAX facade
 (constriction_tpu.tpu, Pallas in interpret mode) and the host oracle:
-containers must be byte-identical, decode each other's output, and raise
-the same errors."""
+containers, family streams and bits-back outputs must be byte-identical,
+decode each other's output, and raise the same errors.  (The checkpoint
+entry points: tests/test_torch_checkpoints.py.)"""
 
 import os
 import subprocess
@@ -151,6 +152,142 @@ def test_errors_match_jax_facade():
                 lambda: ctt.encode_iid(symbols, odd, device="cpu"))
 
 
+# --- the device families and the TChain-12 bits-back pair
+
+
+def _family_data(n, seed):
+    rng = np.random.RandomState(seed)
+    means = (rng.randn(n) * 10).astype(np.float32)
+    scales = (0.3 + np.abs(rng.randn(n)) * 5).astype(np.float32)
+    symbols = np.clip(np.round(means + rng.randn(n) * scales), -100, 100)
+    return symbols.astype(np.int32), means, scales
+
+
+@pytest.mark.parametrize("family", ["gaussian", "laplace", "logistic",
+                                    "cauchy"])
+def test_family_streams_identical_to_jax_facade(family):
+    """The facade picks the lane count (2500 symbols: L=256, a partial last
+    step); states and stream equal the JAX facade's, the port decodes the
+    JAX-made stream, and (one family: the bytes are equal) the JAX facade
+    decodes the port's."""
+    sym, mu, sigma = _family_data(2500, seed=len(family))
+    ref = ctpu.encode_family(sym, mu, sigma, family, -100, 100)
+    states, stream = ctt.encode_family(sym, mu, sigma, family, -100, 100,
+                                       device="cpu")
+    assert states.dtype == stream.dtype == np.uint32
+    assert len(states) == ctt._pick_cfg(len(sym), None).num_lanes == 256
+    np.testing.assert_array_equal(states, np.asarray(ref[0]))
+    np.testing.assert_array_equal(stream, np.asarray(ref[1]))
+    out = ctt.decode_family(np.asarray(ref[0]), np.asarray(ref[1]), mu, sigma,
+                            family, -100, 100, len(sym), device="cpu")
+    assert out.dtype == np.int32
+    np.testing.assert_array_equal(out, sym)
+    if family == "gaussian":
+        np.testing.assert_array_equal(
+            np.asarray(ctpu.decode_family(states, stream, mu, sigma, family,
+                                          -100, 100, len(sym))), sym)
+
+
+def test_family_explicit_config_lists_and_empty_message():
+    from constriction_tpu.ops.interleaved import LaneConfig as RefLaneConfig
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    sym, mu, sigma = _family_data(700, seed=3)
+    cfg = LaneConfig(num_lanes=384, word_bits=16, state_bits=32, precision=12)
+    ref = ctpu.encode_family(sym, mu, sigma, "logistic", -100, 100,
+                             cfg=RefLaneConfig(384, 16, 32, 12))
+    # plain Python lists and float64 parameters are cast as the JAX side does
+    states, stream = ctt.encode_family(
+        sym.tolist(), mu.astype(np.float64), sigma.tolist(), "logistic", -100,
+        100, cfg=cfg, device="cpu")
+    np.testing.assert_array_equal(states, np.asarray(ref[0]))
+    np.testing.assert_array_equal(stream, np.asarray(ref[1]))
+    np.testing.assert_array_equal(
+        ctt.decode_family(states, stream, mu, sigma, "logistic", -100, 100,
+                          700, cfg=cfg, device="cpu"), sym)
+    none = np.zeros(0, np.float32)
+    states, stream = ctt.encode_family(np.zeros(0, np.int32), none, none,
+                                       "gaussian", -100, 100, device="cpu")
+    ref = ctpu.encode_family(np.zeros(0, np.int32), none, none, "gaussian",
+                             -100, 100)
+    np.testing.assert_array_equal(states, np.asarray(ref[0]))
+    assert len(stream) == 0 == len(ctt.decode_family(
+        states, stream, none, none, "gaussian", -100, 100, 0, device="cpu"))
+
+
+def test_family_facade_errors():
+    sym, mu, sigma = _family_data(300, seed=5)
+    bad = sym.copy()
+    bad[3] = 101
+    with pytest.raises(ValueError, match=r"symbols must be in \[min_sym"):
+        ctt.encode_family(bad, mu, sigma, "gaussian", -100, 100, device="cpu")
+    zero = sigma.copy()
+    zero[7] = 0.0
+    with pytest.raises(ValueError, match="scales must be positive"):
+        ctt.encode_family(sym, mu, zero, "gaussian", -100, 100, device="cpu")
+    nan = mu.copy()
+    nan[0] = np.nan
+    with pytest.raises(ValueError, match="means must be finite"):
+        ctt.decode_family(np.zeros(128, np.uint32), np.zeros(3, np.uint32),
+                          nan, sigma, "gaussian", -100, 100, 300,
+                          device="cpu")
+    with pytest.raises(ValueError, match="family must be one of"):
+        ctt.encode_family(sym, mu, sigma, "binomial", -100, 100, device="cpu")
+    with pytest.raises(ValueError, match="means must have 300 entries"):
+        ctt.encode_family(sym, mu[:-1], sigma, "gaussian", -100, 100,
+                          device="cpu")
+
+
+def test_bits_back_family_identical_to_jax_facade():
+    """One step of the fixed 32768 lanes through both facades."""
+    rng = np.random.RandomState(12)
+    n = 32768
+    _, mu, sigma = _family_data(n, seed=6)
+    q = rng.randint(0, 1 << 12, size=n).astype(np.uint16)
+    ref = ctpu.bits_back_decode_family(q, mu, sigma, "gaussian", -100, 100)
+    got = ctt.bits_back_decode_family(q, mu, sigma, "gaussian", -100, 100,
+                                      device="cpu")
+    for a, b in zip(got, ref):
+        assert a.dtype == np.asarray(b).dtype
+        np.testing.assert_array_equal(a, np.asarray(b))
+    ref2 = ctpu.bits_back_encode_family(*ref, mu, sigma, "gaussian", -100,
+                                        100)
+    got2 = ctt.bits_back_encode_family(*got, mu, sigma, "gaussian", -100, 100,
+                                       device="cpu")
+    for a, b in zip(got2, ref2):
+        assert a.dtype == np.asarray(b).dtype
+        np.testing.assert_array_equal(a, np.asarray(b))
+    np.testing.assert_array_equal(got2[0], q)
+    assert np.all(got2[1] == 16)
+
+
+def test_bits_back_family_errors_and_empty_message():
+    _, mu, sigma = _family_data(32768, seed=7)
+    q = np.zeros(32768, np.uint16)
+    q[5] = 1 << 12
+    with pytest.raises(ValueError) as a:
+        ctpu.bits_back_decode_family(q, mu, sigma, "gaussian", -100, 100)
+    with pytest.raises(ValueError) as b:
+        ctt.bits_back_decode_family(q, mu, sigma, "gaussian", -100, 100,
+                                    device="cpu")
+    assert str(b.value) == str(a.value) == "quantiles must be 12-bit values"
+    with pytest.raises(ValueError, match="multiple of 32768"):
+        ctt.bits_back_decode_family(q[:1000] & 0xFFF, mu[:1000], sigma[:1000],
+                                    "gaussian", -100, 100, device="cpu")
+    none = np.zeros(0, np.float32)
+    got = ctt.bits_back_decode_family(np.zeros(0, np.uint16), none, none,
+                                      "cauchy", -100, 100, device="cpu")
+    ref = ctpu.bits_back_decode_family(np.zeros(0, np.uint16), none, none,
+                                       "cauchy", -100, 100)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    q2, h2 = ctt.bits_back_encode_family(*got, none, none, "cauchy", -100,
+                                         100, device="cpu")
+    assert len(q2) == 0 and q2.dtype == np.uint16
+    np.testing.assert_array_equal(h2, got[2])
+
+
 def test_cuda_without_a_card_raises(monkeypatch):
     cdf, symbols = _data(12, 100, seed=5)
     data = ctt.encode_iid(symbols, cdf, device="cpu")
@@ -161,6 +298,20 @@ def test_cuda_without_a_card_raises(monkeypatch):
         ctt.decode_iid(data, cdf, device="cuda")
     with pytest.raises(ValueError, match="unsupported device"):
         ctt.encode_iid(symbols, cdf, device="meta")
+    sym, mu, sigma = _family_data(200, seed=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ctt.encode_family(sym, mu, sigma, "gaussian", -100, 100)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ctt.decode_family(np.zeros(128, np.uint32), np.zeros(1, np.uint32),
+                          mu, sigma, "gaussian", -100, 100, 200)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ctt.bits_back_decode_family(np.zeros(0, np.uint16), mu[:0],
+                                    sigma[:0], "gaussian", -100, 100)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ctt.bits_back_encode_family(np.zeros(0, np.int32),
+                                    np.zeros(0, np.uint32),
+                                    np.full(32768, 16, np.uint32), mu[:0],
+                                    sigma[:0], "gaussian", -100, 100)
 
 
 def test_port_imports_no_jax():
@@ -172,7 +323,7 @@ def test_port_imports_no_jax():
         "import constriction_tpu_torch, constriction_tpu_torch.cuda\n"
         "import constriction_tpu_torch.convert, constriction_tpu_torch.models\n"
         "from constriction_tpu_torch.ops import (_build, coder, coder64,\n"
-        "    framing, interleaved, interleaved2, range_enc)\n"
+        "    family, framing, interleaved, interleaved2, range_enc, tchain)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'constriction_tpu'))\n"
         "assert not bad, bad\n"
