@@ -76,6 +76,26 @@ prints one JSON object per phase, then the kernels line, the card's
                     then ``cuda.decode_from_checkpoint`` from the middle
                     checkpoint must give the message's suffix, through the
                     decode kernels.
+14. tchain_kernels -- the TChain-16 and TChain-24 pairs against their twins
+                    and the port's numpy host oracles (L=32768, 2^20
+                    quantiles, a K=100 Dirichlet(2) model at P=16 and P=24):
+                    symbols, remainders, heads and re-encoded quantiles
+                    identical, every head back at its seed.
+15. tchain_main_path -- the JAX package's TChain benchmark rows (2^24
+                    uniform quantiles, that model, L=32768, T=512) through
+                    ``cuda.bits_back_decode`` -> ``bits_back_encode`` and
+                    ``bits_back_decode24`` -> ``bits_back_encode24``: the
+                    decode byte for byte the host oracle's, the quantiles
+                    back with every head at 1 (P=16) and 256 (P=24); each of
+                    the four kernels must have launched.
+16. tchain_times -- kernel-only time of each of the four at that size, its
+                    twin's time on the card (outputs equal), the facade's
+                    call times, and each kernel's bound.
+17. chain_decode -- ``cuda.decode_chain_iid`` on 2^24 symbols of random
+                    chain data (K=100, P=24) and ``cuda.decode_chain_rows``
+                    on 2^20 symbols with a K=16 model each, against the
+                    port's numpy path (torch operations, no kernel of this
+                    repository).
 
 Each main path runs with every launch counter set to 0 just before it, and
 the counts read just after it are the ``launches`` of its kernels.
@@ -90,8 +110,8 @@ computes these functions, so ``library_ms`` is null.
 Everything comes from the port: the model's CDF
 (``constriction_tpu_torch.models``) and the host oracles, which are the
 port's numpy ILANS2 and ILANS2-R host coders under the port's container
-framing, and its numpy family and TChain-12 oracles (the CPU tests hold
-them byte for byte against the JAX package).
+framing, its numpy family and TChain oracles and its numpy chain decode
+(the CPU tests hold them byte for byte against the JAX package).
 The script imports nothing of JAX or of the JAX package, and checks that
 at the end.
 """
@@ -167,6 +187,19 @@ FAMILY_KERNELS = {
                                "constriction_tpu/ops/tchain.py:733",
                                TCHAIN_SOURCE),
 }
+TCHAIN_KERNELS = {
+    "tchain16_decode": ("tchain", "decode16",
+                        "constriction_tpu/ops/tchain.py:264", TCHAIN_SOURCE),
+    "tchain16_encode": ("tchain", "encode16",
+                        "constriction_tpu/ops/tchain.py:302", TCHAIN_SOURCE),
+    "tchain24_decode": ("tchain", "decode24",
+                        "constriction_tpu/ops/tchain.py:1106", TCHAIN_SOURCE),
+    "tchain24_encode": ("tchain", "encode24",
+                        "constriction_tpu/ops/tchain.py:1147", TCHAIN_SOURCE),
+}
+N_TCHAIN = 1 << 24  # the JAX suite's TChain rows: 2^24 quantiles, T = 512
+N_KERNEL_CHECK_TCHAIN = 1 << 20  # 32 steps of 32768 lanes
+N_CHAIN_ROWS = 1 << 20
 N_FAMILY = 1 << 23  # the family benchmark row of the JAX package's suite
 FAMILY_SUPPORT = (-100, 100)
 MAIN_FAMILY = "gaussian"
@@ -1269,6 +1302,284 @@ def phase_checkpoints(device, symbols, containers: dict,
     return {"phase": "checkpoints", "n": len(symbols), "cases": rows}
 
 
+def cat_presets() -> dict:
+    """P -> (label, cfg, decode, encode, decode_plain, encode_plain,
+    host decode, host encode, seed head) of the categorical TChain pair."""
+    from constriction_tpu_torch.ops import tchain as tc
+
+    return {
+        16: ("tchain16", tc.TCHAIN_CFG, tc.tchain16_decode,
+             tc.tchain16_encode, tc.tchain16_decode_plain,
+             tc.tchain16_encode_plain, tc.tchain_decode_host,
+             tc.tchain_encode_host, 1),
+        24: ("tchain24", tc.TCHAIN24_CFG, tc.tchain24_decode,
+             tc.tchain24_encode, tc.tchain24_decode_plain,
+             tc.tchain24_encode_plain, tc.tchain24_decode_host,
+             tc.tchain24_encode_host, 256),
+    }
+
+
+def cat_workload(n: int) -> dict:
+    """The JAX suite's TChain rows at n quantiles: a K=100 Dirichlet(2)
+    model at P=16 and P=24 and uniform quantiles, from RandomState(1234).
+    Returns {P: (cdf, quantiles)}."""
+    import numpy as np
+
+    rng = np.random.RandomState(1234)
+    probs = rng.dirichlet(np.full(K_MAIN, 2.0))
+    work = {}
+    for P, dtype in ((16, np.uint16), (24, np.uint32)):
+        work[P] = (model_cdf(probs, P),
+                   rng.randint(0, 1 << P, size=n).astype(dtype))
+    return work
+
+
+def cat_to_torch(P: int, values, L: int, device):
+    """TChain quantiles or heads (numpy) -> the port's tensors."""
+    import numpy as np
+
+    from constriction_tpu_torch import convert
+
+    if values.dtype == np.uint64:
+        return convert.u64_to_torch(values, device)
+    if P == 16 and values.dtype == np.uint16:
+        return convert.quantiles16_to_torch(values, L, device)
+    return convert.u32_to_torch(values, device)
+
+
+def phase_tchain_kernels(device, n: int) -> tuple[dict, dict]:
+    """Each categorical TChain kernel against its twin and the numpy host
+    oracle (L=32768, n quantiles): symbols, remainders, heads and the
+    re-encoded quantiles identical, every head back at its seed."""
+    import torch
+
+    from constriction_tpu_torch import convert
+
+    work = cat_workload(n)
+    errs: dict[str, int] = {}
+    rows = []
+    for P, (label, cfg, dec, enc, dec_p, enc_p, dec_h, enc_h,
+            seed) in cat_presets().items():
+        L = cfg.num_lanes
+        cdf_np, q = work[P]
+        cdf = convert.cdf_to_torch(cdf_np, device)
+        qt = cat_to_torch(P, q, L, device)
+        got = dec(qt, cdf, cfg)
+        host = dec_h(q, cdf_np, cfg)
+        e_dec = max(planes_err(got, dec_p(qt, cdf, cfg)),
+                    mismatch(got[0].cpu(), torch.from_numpy(host[0])),
+                    mismatch(got[1], convert.u32_to_torch(host[1], device)),
+                    mismatch(got[2], cat_to_torch(P, host[2], L, device)))
+        back = enc(*got, cdf, cfg)
+        q_h, h_h = enc_h(*host, cdf_np, cfg)
+        e_enc = max(planes_err(back, enc_p(*got, cdf, cfg)),
+                    mismatch(back[0], cat_to_torch(P, q_h, L, device)),
+                    mismatch(back[1], cat_to_torch(P, h_h, L, device)))
+        round_trip = (mismatch(back[0], qt) == 0
+                      and bool((back[1] == seed).all()))
+        errs[f"{label}_decode"], errs[f"{label}_encode"] = e_dec, e_enc
+        row = {"coder": label, "K": len(cdf_np) - 1, "n": n, "num_lanes": L,
+               "remainder_words": int(got[1].numel()),
+               "decode_max_abs_err": e_dec, "encode_max_abs_err": e_enc,
+               "round_trip": round_trip}
+        rows.append(row)
+        if e_dec or e_enc or not round_trip:
+            fail(f"tchain kernel != twin or host oracle, or no round trip: "
+                 f"{row}")
+    return {"phase": "tchain_kernels", "cases": rows}, errs
+
+
+def phase_tchain_main(device, work) -> dict:
+    """The bits-back facade at the JAX suite's TChain shape: decode then
+    encode at P=16 and P=24, byte for byte the host oracle's decode, and
+    the quantiles back with every head at its seed."""
+    import numpy as np
+
+    from constriction_tpu_torch import cuda as ctt
+
+    facade = {16: (ctt.bits_back_decode, ctt.bits_back_encode),
+              24: (ctt.bits_back_decode24, ctt.bits_back_encode24)}
+    rows = []
+    for P, (label, cfg, *_, dec_h, _enc_h, seed) in cat_presets().items():
+        cdf, q = work[P]
+        decode, encode = facade[P]
+        t0 = time.perf_counter()
+        syms, rem, heads = decode(q, cdf, device=device)
+        t1 = time.perf_counter()
+        q_back, h_back = encode(syms, rem, heads, cdf, device=device)
+        t2 = time.perf_counter()
+        ref = dec_h(q, cdf, cfg)
+        t3 = time.perf_counter()
+        row = {
+            "coder": label, "K": len(cdf) - 1, "n": len(q),
+            "num_lanes": cfg.num_lanes, "remainder_words": int(len(rem)),
+            "decode_identical_to_host_oracle": all(
+                a.dtype == b.dtype and np.array_equal(a, b)
+                for a, b in zip((syms, rem, heads), ref)),
+            "round_trip": bool(q_back.dtype == q.dtype
+                               and np.array_equal(q_back, q)
+                               and (h_back == seed).all()),
+            "max_abs_err": 0,
+            "decode_call_s": t1 - t0, "encode_call_s": t2 - t1,
+            "host_oracle_decode_s": t3 - t2,
+        }
+        rows.append(row)
+        if not (row["decode_identical_to_host_oracle"] and row["round_trip"]):
+            fail(f"tchain main path: {row}")
+    return {"phase": "tchain_main_path", "cases": rows}
+
+
+def phase_tchain_times(device, work, gpu: str,
+                       errs: dict) -> tuple[dict, dict]:
+    """Kernel-only time of each categorical TChain kernel at the main
+    path's shape (the C entry points on preallocated buffers), its twin's
+    time and outputs on the same tensors, the facade's call times, and each
+    kernel's bound.  Returns the phase record and {kernel: (ms, plain_ms,
+    bound_ms, bound_by)}."""
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch import cuda as ctt
+    from constriction_tpu_torch.ops import _build
+
+    facade = {16: (ctt.bits_back_decode, ctt.bits_back_encode),
+              24: (ctt.bits_back_decode24, ctt.bits_back_encode24)}
+    rows, times = [], {}
+    for P, (label, cfg, dec, enc, dec_p, enc_p, _dh, _eh,
+            seed) in cat_presets().items():
+        cdf_np, q = work[P]
+        L, n = cfg.num_lanes, len(q)
+        T, K = n // L, len(cdf_np) - 1
+        cdf = convert.cdf_to_torch(cdf_np, device)
+        cdf32 = cdf.to(torch.int32)
+        qt = cat_to_torch(P, q, L, device)
+        got = dec(qt, cdf, cfg)
+        back = enc(*got, cdf, cfg)
+        if mismatch(back[0], qt):
+            fail(f"tchain_times: {label} round trip")
+        nr = int(got[1].numel())
+        h_buf = torch.empty_like(got[2])
+        s_buf = torch.empty(n, dtype=torch.int32, device=device)
+        w_buf = torch.empty(n, dtype=torch.int32, device=device)
+        q_buf = torch.empty_like(qt)
+        end = torch.empty(1, dtype=torch.int64, device=device)
+        ms = {}
+        ms["decode"] = kernel_ms(
+            lambda: h_buf.fill_(seed), lambda: _build.call(
+                f"ctt_{label}_decode", device, h_buf, qt, cdf32, K, s_buf,
+                w_buf, n, end, L, T), 5)
+        same = (torch.equal(s_buf, got[0]) and torch.equal(h_buf, got[2])
+                and torch.equal(w_buf[int(end.item()):], got[1]))
+        ms["encode"] = kernel_ms(
+            lambda: h_buf.copy_(got[2]), lambda: _build.call(
+                f"ctt_{label}_encode", device, h_buf, got[0], cdf32, K,
+                got[1], nr, q_buf, L, T), 5)
+        same = same and torch.equal(q_buf, qt) and bool((h_buf == seed).all())
+        if not same:
+            fail(f"tchain_times: {label} timed launches differ from the "
+                 f"wrappers' output")
+        plain, e = {}, {}
+        plain["decode"], p = timed(lambda: dec_p(qt, cdf, cfg))
+        e["decode"] = planes_err(got, p)
+        plain["encode"], p = timed(lambda: enc_p(*got, cdf, cfg))
+        e["encode"] = planes_err(back, p)
+        # bytes: each input read once, each output written once (quantiles
+        # 2 bytes at P=16, 4 at P=24; heads 4 or 8 bytes a lane)
+        qb, hb = (2, 4) if P == 16 else (4, 8)
+        cdf_b = 4 * (K + 1)
+        bounds = {
+            # quantiles and CDF in; symbols, remainders and heads out
+            "decode": bound(qb * n + cdf_b + 4 * n + 4 * nr + hb * L,
+                            (search_ops(K) + 8) * n),
+            # symbols, CDF, remainders and heads in; quantiles, heads out
+            "encode": bound(4 * n + cdf_b + 4 * nr + hb * L + qb * n + hb * L,
+                            10 * n),
+        }
+        for kind in ms:
+            name = f"{label}_{kind}"
+            errs[name] = max(errs[name], e[kind])
+            times[name] = (ms[kind], plain[kind], *bounds[kind])
+        if any(e.values()):
+            fail(f"tchain_times: {label} kernel != twin at full size: {e}")
+        decode, encode = facade[P]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = decode(q, cdf_np, device=device)
+        t1 = time.perf_counter()
+        encode(*out, cdf_np, device=device)
+        t2 = time.perf_counter()
+        calls = {"decode": t1 - t0, "encode": t2 - t1}
+        rows.append({
+            "coder": label, "K": K, "n": n, "num_lanes": L,
+            "remainder_words": nr,
+            **{f"{k}_ms": v for k, v in ms.items()},
+            **{f"{k}_ns_per_symbol": v * 1e6 / n for k, v in ms.items()},
+            **{f"{k}_plain_ms": v for k, v in plain.items()},
+            **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
+            **{f"{k}_bound_by": v[1] for k, v in bounds.items()},
+            **{f"{k}_max_abs_err": v for k, v in e.items()},
+            **{f"facade_{k}_call_s": v for k, v in calls.items()},
+            **{f"facade_{k}_ns_per_symbol": v / n * 1e9
+               for k, v in calls.items()},
+            **{f"facade_{k}_host_share": 1 - ms[k] * 1e-3 / v
+               for k, v in calls.items()},
+            "gpu": gpu,
+        })
+    return {"phase": "tchain_times", "cases": rows}, times
+
+
+def phase_chain_decode(device, gpu: str) -> dict:
+    """The chain coder's parallel decode on the card against the port's
+    numpy path: 2^24 i.i.d. symbols (K=100, P=24) and 2^20 symbols with a
+    K=16 model each, from random chain data."""
+    import numpy as np
+
+    from constriction_tpu_torch import cuda as ctt
+    from constriction_tpu_torch.ops import chain as ch
+
+    rng = np.random.RandomState(1234)
+    cdf = model_cdf(rng.dirichlet(np.full(K_MAIN, 2.0)), 24)
+    # the per-row form of fast_quantized_cdf: every symbol weight >= 1
+    p = rng.dirichlet(np.ones(16), size=N_CHAIN_ROWS)
+    cum = np.concatenate([np.zeros((N_CHAIN_ROWS, 1)),
+                          np.cumsum(p, 1)[:, :-1]], 1)
+    rows = np.empty((N_CHAIN_ROWS, 17), np.uint32)
+    rows[:, :16] = np.floor(cum * ((1 << 24) - 16)) + np.arange(16)
+    rows[:, 16] = 1 << 24
+    def data(n):
+        words = rng.randint(0, 1 << 32, size=n - n // 4 + 8,
+                            dtype=np.uint64).astype(np.uint32)
+        words[-1] |= 0x8000_0000  # a head the from_compressed framing takes
+        return words
+
+    iid, per_row = data(N_TCHAIN), data(N_CHAIN_ROWS)
+    ctt.decode_chain_iid(iid[:64], 16, cdf, device=device)  # warm-up
+    ctt.decode_chain_rows(per_row[:64], rows[:16], device=device)
+    t0 = time.perf_counter()
+    got_iid = ctt.decode_chain_iid(iid, N_TCHAIN, cdf, device=device)
+    t1 = time.perf_counter()
+    ref_iid = ch.chain_decode_iid(iid, N_TCHAIN, cdf, np)
+    t2 = time.perf_counter()
+    got_rows = ctt.decode_chain_rows(per_row, rows, device=device)
+    t3 = time.perf_counter()
+    ref_rows = ch.chain_decode_rows(per_row, rows, np)
+    t4 = time.perf_counter()
+    out = []
+    for name, n, K, got, ref, call_s, numpy_s in (
+            ("iid", N_TCHAIN, K_MAIN, got_iid, ref_iid, t1 - t0, t2 - t1),
+            ("rows", N_CHAIN_ROWS, 16, got_rows, ref_rows, t3 - t2,
+             t4 - t3)):
+        row = {"model": name, "n": n, "K": K,
+               "identical_to_numpy_path": bool(
+                   got.dtype == ref.dtype and np.array_equal(got, ref)),
+               "call_s": call_s, "numpy_s": numpy_s,
+               "call_ns_per_symbol": call_s / n * 1e9, "gpu": gpu}
+        out.append(row)
+        if not row["identical_to_numpy_path"]:
+            fail(f"chain_decode: {row}")
+    return {"phase": "chain_decode", "cases": out, "max_abs_err": 0}
+
+
 def run_main_path(modules: dict, table: dict, phase):
     """Runs ``phase()`` with every launch counter set to 0 just before it;
     returns its record with the launches of ``table``'s kernels, read just
@@ -1346,6 +1657,17 @@ def main(argv) -> int:
         device, symbols, containers,
         {"coder": coder.LAUNCHES, "coder64": coder64.LAUNCHES}))
 
+    tchain_rec, tchain_errs = phase_tchain_kernels(device, N_KERNEL_CHECK_TCHAIN)
+    emit(tchain_rec)
+    errs.update(tchain_errs)
+    work = cat_workload(N_TCHAIN)
+    launches.update(run_main_path(
+        modules, TCHAIN_KERNELS, lambda: phase_tchain_main(device, work)))
+    tchain_times, more = phase_tchain_times(device, work, gpu, errs)
+    emit(tchain_times)
+    times.update(more)
+    emit(phase_chain_decode(device, gpu))
+
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "constriction_tpu"))
     if foreign:
@@ -1356,8 +1678,9 @@ def main(argv) -> int:
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": times[name][2], "bound_by": times[name][3],
          "library_ms": None}
-        for name, (_, _, site, source) in {**KERNELS, **RANGE_KERNELS,
-                                           **FAMILY_KERNELS}.items()
+        for name, (_, _, site, source) in {
+            **KERNELS, **RANGE_KERNELS, **FAMILY_KERNELS,
+            **TCHAIN_KERNELS}.items()
     ]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {

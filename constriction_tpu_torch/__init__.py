@@ -9,9 +9,14 @@ layer: every Pallas kernel on a ported path becomes a hand-written Hopper
 kernel under ``ops/csrc``, with a plain PyTorch twin beside it.
 
 Ported so far: the i.i.d. categorical coders at both presets: ILANS2 rANS
-(``cuda.encode_iid`` / ``cuda.decode_iid``, v1 and v2 containers) and
-ILANS2-R range coding (``cuda.encode_iid_range`` / ``cuda.decode_iid_range``,
-with range checkpoints).
+(``cuda.encode_iid`` / ``cuda.decode_iid``, v1 and v2 containers, random
+access) and ILANS2-R range coding (``cuda.encode_iid_range`` /
+``cuda.decode_iid_range``, with range checkpoints); the device families
+(``cuda.encode_family`` / ``cuda.decode_family``); bits-back coding
+(``cuda.bits_back_decode`` / ``_encode`` at P=16, ``bits_back_decode24`` /
+``_encode24`` at P=24, ``bits_back_decode_family`` / ``_encode_family``);
+and the chain coder's parallel decode (``cuda.decode_chain_iid`` /
+``cuda.decode_chain_rows``).
 """
 
 __version__ = "0.1.0"

@@ -13,7 +13,11 @@ torch has few operations on unsigned integers:
 - per-symbol model parameters (the device families' means and scales) ->
   ``torch.float32``, padded to whole coding steps;
 - 12-bit quantiles (TChain-12 bits-back) -> the packed u32 planes of
-  ``ops.tchain.pack_q12`` as int32 bit patterns.
+  ``ops.tchain.pack_q12`` as int32 bit patterns;
+- 16-bit quantiles (TChain-16) -> the planar u32 words of
+  ``ops.tchain.pack_quantiles`` as int32 bit patterns;
+- 24-bit quantiles (TChain-24) -> one u32 word each (:func:`u32_to_torch`);
+  TChain-24 remainder heads are u64 data (:func:`u64_to_torch`).
 
 Kernels read these buffers as ``uint32_t`` / ``uint64_t``; the plain twins
 widen them with :func:`u32_values` / :func:`u64_halves`.
@@ -144,6 +148,24 @@ def quantiles_from_torch(qw: torch.Tensor, L: int) -> np.ndarray:
     rows = 3 * (L // 1024)
     words = u32_from_torch(qw).reshape(qw.numel() // (rows * 128), rows, 128)
     return unpack_q12(words).reshape(-1).astype(np.uint16)
+
+
+def quantiles16_to_torch(quantiles, L: int, device="cpu") -> torch.Tensor:
+    """16-bit quantiles (numpy, a whole number of L-lane steps) -> the
+    planar words of ``ops.tchain.pack_quantiles`` as a flat int32 tensor on
+    ``device`` (2 bytes per quantile).  JAX counterpart:
+    ``jnp.asarray(tchain.pack_quantiles(q, L))``."""
+    from .ops.tchain import pack_quantiles
+
+    return u32_to_torch(pack_quantiles(quantiles, L), device)
+
+
+def quantiles16_from_torch(qw: torch.Tensor, L: int) -> np.ndarray:
+    """Inverse of :func:`quantiles16_to_torch`: u16 numpy quantiles.  JAX
+    counterpart: ``tchain.unpack_quantiles(np.asarray(qw))``."""
+    from .ops.tchain import unpack_quantiles
+
+    return unpack_quantiles(u32_from_torch(qw).reshape(-1, L // 256, 128))
 
 
 def u32_values(t: torch.Tensor) -> torch.Tensor:

@@ -5,9 +5,12 @@ The counterpart of ``constriction_tpu/tpu.py``'s ``encode_iid`` /
 ``decode_from_checkpoint`` for random access), ``encode_iid_range`` /
 ``decode_iid_range`` (ILANS2-R range coding), ``encode_family`` /
 ``decode_family`` (per-symbol gaussian, laplace, logistic or cauchy
-models) and ``bits_back_decode_family`` / ``bits_back_encode_family``
-(TChain-12 bits-back under the same models), writing and reading the same
-bytes.
+models), ``bits_back_decode`` / ``bits_back_encode`` and
+``bits_back_decode24`` / ``bits_back_encode24`` (TChain-16 and TChain-24
+categorical bits-back), ``bits_back_decode_family`` /
+``bits_back_encode_family`` (TChain-12 bits-back under the family models)
+and ``decode_chain_iid`` / ``decode_chain_rows`` (the chain coder's
+parallel symbol decode), writing and reading the same bytes.
 
     import constriction_tpu_torch.cuda as ctt
 
@@ -18,6 +21,8 @@ bytes.
     states, stream = ctt.encode_family(sym, mu, sigma, "gaussian", -100, 100)
     out = ctt.decode_family(states, stream, mu, sigma, "gaussian",
                             -100, 100, len(sym))
+    sym, rem, heads = ctt.bits_back_decode(quantiles, cdf16)
+    quantiles = ctt.bits_back_encode(sym, rem, heads, cdf16)[0]
 
 ``device`` is explicit: ``"cuda"`` (the default) runs the hand-written
 kernels and raises when no CUDA device is available; ``"cpu"`` runs their
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 
 from . import convert as _convert
+from .ops import chain as _chain
 from .ops import family as _family
 from .ops import framing as _framing
 from .ops import interleaved2 as _il2
@@ -274,11 +280,15 @@ def decode_family(init_states, stream, means, scales, family: str,
     return syms.cpu().numpy()
 
 
-def _chain_params(means, scales, n: int, dev):
-    L = _tchain.TCHAIN12_CFG.num_lanes
+def _steps(n: int, L: int) -> None:
     if n % L:
         raise ValueError(
             f"the message length must be a multiple of {L} lanes, got {n}")
+
+
+def _chain_params(means, scales, n: int, dev):
+    L = _tchain.TCHAIN12_CFG.num_lanes
+    _steps(n, L)
     return _convert.params_to_torch(means, scales, n, L, dev)
 
 
@@ -320,3 +330,98 @@ def bits_back_encode_family(symbols, remainders, heads, means, scales,
         int(min_sym), int(max_sym))
     return (_convert.quantiles_from_torch(qw, L),
             _convert.u32_from_torch(out_heads))
+
+
+def bits_back_decode(quantiles, cdf, device="cuda"):
+    """TChain-16 bits-back decode: 16-bit quantiles (their count a multiple
+    of 32768) -> numpy ``(symbols int32, remainders u32, heads u32[32768])``
+    under a fixed-point CDF at P=16; :func:`bits_back_encode` recovers the
+    quantiles exactly.  JAX counterpart:
+    ``constriction_tpu.tpu.bits_back_decode``; unlike it, quantiles outside
+    [0, 2^16) and a CDF that does not rise from 0 to 2^16 raise
+    ValueError."""
+    dev = _device(device)
+    q = np.asarray(quantiles)
+    if q.size and (int(q.min()) < 0 or int(q.max()) >= 1 << 16):
+        raise ValueError("quantiles must be 16-bit values")
+    L = _tchain.TCHAIN_CFG.num_lanes
+    _steps(len(q), L)
+    syms, stream, heads = _tchain.tchain16_decode(
+        _convert.quantiles16_to_torch(q.astype(np.uint16), L, dev),
+        _convert.cdf_to_torch(cdf, dev))
+    return (syms.cpu().numpy(), _convert.u32_from_torch(stream),
+            _convert.u32_from_torch(heads))
+
+
+def bits_back_encode(symbols, remainders, heads, cdf, device="cuda"):
+    """Reverse pass of :func:`bits_back_decode`: numpy ``(quantiles u16,
+    heads u32[32768])``, the heads back at 1 after a full reverse.  JAX
+    counterpart: ``constriction_tpu.tpu.bits_back_encode``; unlike it,
+    symbols outside [0, K) or of zero probability raise ValueError."""
+    dev = _device(device)
+    symbols = np.asarray(symbols, dtype=np.int64)
+    _check_symbols(symbols, cdf)
+    L = _tchain.TCHAIN_CFG.num_lanes
+    _steps(len(symbols), L)
+    qw, out_heads = _tchain.tchain16_encode(
+        torch.from_numpy(symbols.astype(np.int32)).to(dev),
+        _convert.u32_to_torch(remainders, dev),
+        _convert.u32_to_torch(heads, dev), _convert.cdf_to_torch(cdf, dev))
+    return (_convert.quantiles16_from_torch(qw, L),
+            _convert.u32_from_torch(out_heads))
+
+
+def bits_back_decode24(quantiles, cdf, device="cuda"):
+    """TChain-24 bits-back decode at the reference's default precision
+    (W=32, S=64, P=24): 24-bit quantiles in u32 (their count a multiple of
+    32768) -> numpy ``(symbols int32, remainders u32, heads u64[32768])``;
+    :func:`bits_back_encode24` recovers the quantiles exactly.  JAX
+    counterpart: ``constriction_tpu.tpu.bits_back_decode24``; unlike it,
+    a CDF that does not rise from 0 to 2^24 raises ValueError."""
+    dev = _device(device)
+    q = np.asarray(quantiles, dtype=np.uint32)
+    if not (q < (1 << 24)).all():
+        raise ValueError("quantiles must be 24-bit values")
+    L = _tchain.TCHAIN24_CFG.num_lanes
+    _steps(len(q), L)
+    syms, stream, heads = _tchain.tchain24_decode(
+        _convert.u32_to_torch(q, dev), _convert.cdf_to_torch(cdf, dev))
+    return (syms.cpu().numpy(), _convert.u32_from_torch(stream),
+            _convert.u64_from_torch(heads))
+
+
+def bits_back_encode24(symbols, remainders, heads, cdf, device="cuda"):
+    """Reverse pass of :func:`bits_back_decode24`: numpy ``(quantiles u32,
+    heads u64[32768])``, the heads back at 256 after a full reverse.  JAX
+    counterpart: ``constriction_tpu.tpu.bits_back_encode24``; unlike it,
+    symbols outside [0, K) or of zero probability raise ValueError."""
+    dev = _device(device)
+    symbols = np.asarray(symbols, dtype=np.int64)
+    _check_symbols(symbols, cdf)
+    L = _tchain.TCHAIN24_CFG.num_lanes
+    _steps(len(symbols), L)
+    q, out_heads = _tchain.tchain24_encode(
+        torch.from_numpy(symbols.astype(np.int32)).to(dev),
+        _convert.u32_to_torch(remainders, dev),
+        _convert.u64_to_torch(heads, dev), _convert.cdf_to_torch(cdf, dev))
+    return _convert.u32_from_torch(q), _convert.u64_from_torch(out_heads)
+
+
+def decode_chain_iid(data, num_symbols: int, cdf, device="cuda") -> np.ndarray:
+    """Decode ``num_symbols`` i.i.d. symbols from chain-coder data (the
+    reference's default preset, ``from_compressed`` framing) in one parallel
+    pass; returns int32 numpy.  Data too short for ``num_symbols`` raises
+    ``ops.chain.OutOfCompressedData``.  JAX counterpart:
+    ``constriction_tpu.tpu.decode_chain_iid``."""
+    dev = _device(device)
+    return _chain.chain_decode_iid(np.asarray(data), num_symbols, cdf,
+                                   torch, dev).cpu().numpy()
+
+
+def decode_chain_rows(data, rows, device="cuda") -> np.ndarray:
+    """Chain decode with one categorical model per symbol (``rows``: [n,
+    K+1] fixed-point CDFs at P=24); returns int32 numpy.  JAX counterpart:
+    ``constriction_tpu.tpu.decode_chain_rows``."""
+    dev = _device(device)
+    return _chain.chain_decode_rows(np.asarray(data), rows, torch,
+                                    dev).cpu().numpy()

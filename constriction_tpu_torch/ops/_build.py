@@ -58,6 +58,9 @@ _TCHAIN12_DECODE_ARGS = [_P, _P, _P, _P, _P, _P, _I64, _P, _I32, _I32,
                          *_FAMILY_TAIL]
 _TCHAIN12_ENCODE_ARGS = [_P, _P, _P, _P, _P, _I64, _P, _P, _I32, _I32,
                          *_FAMILY_TAIL]
+_TCHAIN_DECODE_ARGS = [_P, _P, _P, _I32, _P, _P, _I64, _P, _I32, _I32, _P,
+                       _I32]
+_TCHAIN_ENCODE_ARGS = [_P, _P, _P, _I32, _P, _I64, _P, _I32, _I32, _P, _I32]
 SIGNATURES = {
     "ctt_ilans2_decode_w16s32": _DECODE_ARGS,
     "ctt_ilans2_decode_w32s64": _DECODE_ARGS,
@@ -72,6 +75,10 @@ SIGNATURES = {
     "ctt_family_decode": _FAMILY_DECODE_ARGS,
     "ctt_family_encode": _FAMILY_ENCODE_ARGS,
     "ctt_family_left": _FAMILY_LEFT_ARGS,
+    "ctt_tchain16_decode": _TCHAIN_DECODE_ARGS,
+    "ctt_tchain16_encode": _TCHAIN_ENCODE_ARGS,
+    "ctt_tchain24_decode": _TCHAIN_DECODE_ARGS,
+    "ctt_tchain24_encode": _TCHAIN_ENCODE_ARGS,
     "ctt_tchain12_family_decode": _TCHAIN12_DECODE_ARGS,
     "ctt_tchain12_family_encode": _TCHAIN12_ENCODE_ARGS,
 }

@@ -1,7 +1,8 @@
-// Lane machinery shared by the ILANS2 kernels on Hopper (sm_90a):
-// ilans2.cu (rANS) and ilans2_range.cu (range coding).
+// Lane machinery shared by the single-block coders on Hopper (sm_90a):
+// ilans2.cu (rANS), ilans2_range.cu (range coding), ilans2_family.cu
+// (per-symbol families) and tchain.cu (bits-back).
 //
-// Every ILANS2 coder runs L lanes that share one word stream, so each
+// Every such coder runs L lanes that share one word stream, so each
 // coding step needs an exclusive prefix count over all L lanes (refill
 // ranks when decoding, emission offsets when encoding).  The single-block
 // kernels get it from a warp ballot per 32 lanes, a block scan of the

@@ -1,35 +1,286 @@
-// TChain bits-back coding on Hopper (sm_90a).  TChain-12 with per-symbol
-// continuous families: the decoder turns 12-bit quantiles into symbols and
-// gathers the information they did not need into per-lane remainder heads
-// and a shared word stream; the encoder is its exact reverse.
+// TChain bits-back coding on Hopper (sm_90a).  A decoder turns quantiles
+// into symbols and gathers the information they did not need into per-lane
+// remainder heads and a shared word stream; the encoder is its exact
+// reverse.  Symbol i belongs to lane i mod L; a message is T full steps of
+// L lanes.
 //
-// Replaces the Pallas kernels
-//   constriction_tpu/ops/tchain.py  _tchain12_family_decode_kernel
-//   constriction_tpu/ops/tchain.py  _tchain12_family_encode_kernel
-// (W=16, S=32, P=12; heads seeded at 2^(S-W-P) = 16 and kept in
-// [2^4, 2^20)).  Symbol i belongs to lane i mod L; a message is T full
-// steps of L lanes, L a multiple of 1024.
+// Replaces the Pallas kernels of constriction_tpu/ops/tchain.py:
+//   _tchain_decode_kernel / _tchain_encode_kernel       TChain-16: W=16,
+//       S=32, P=16, one categorical CDF, heads seeded at 1
+//   _tchain24_decode_kernel / _tchain24_encode_kernel   TChain-24: W=32,
+//       S=64, P=24, one categorical CDF, u64 heads seeded at 2^8
+//   _tchain12_family_decode_kernel / _tchain12_family_encode_kernel
+//       TChain-12: W=16, S=32, P=12, per-symbol continuous families,
+//       heads seeded at 16
+// Every preset keeps its heads in [2^(S-W-P), 2^(S-P)) between steps: a
+// decoded head at or above 2^(S-P) flushes its low W bits, an encoded head
+// below prob << (S-W-P) refills W bits, the one the exact inverse of the
+// other.
 //
-// Quantiles keep the Pallas wire layout (ops/tchain.py pack_q12): within a
-// step, the eight lanes l = 1024 k + 128 j + c (j = 0 .. 7) share the three
-// u32 words at (3 k + {0, 1, 2}) * 128 + c, lane j's 12 bits starting at bit
-// 12 j of the 96.  The TPU kernel unpacks whole [3R/8, 128] planes; here a
-// lane computes its own word index and shift, reads one or two words, and
-// the encoder ORs its bits into the zeroed output with atomicOr (lanes of
-// eight different warps share a word).
+// The categorical pair is one template over (W, S, P), in the shape of the
+// TChain-12 pair below: one thread block codes the message, heads live in
+// device memory (updated in place), the words a step flushes are written
+// in the next iteration once the block scan (lanes.cuh) has placed them,
+// the CDF is staged in shared memory when it fits, and a quantile finds its
+// symbol by binary search (find_symbol).  Lanes are strided (lane = row *
+// 1024 + thread) and the last row is guarded per warp, so any L that is a
+// multiple of 32 runs (the wrappers take multiples of 256 and 128, as the
+// JAX package does).  The head update is native: u32 at S=32 (head < 2^16
+// and prob <= 2^16 keep head * prob + (q - cum) below 2^32; the CDF and
+// prob are never held in 16 bits, since a one-symbol model has prob =
+// 2^16), u64 at S=64 (head < 2^40, prob <= 2^24: the product stays below
+// 2^64), and the S=64 encoder divides a u64 head by prob once per symbol
+// (a software routine on this card).
 //
-// What bounds them on this card: like ilans2_family.cu, operations and
-// latency: a bisection over left() per decoded quantile, two evaluations
-// per re-encoded symbol, on one thread block whose steps chain through
-// the per-step prefix count (lanes.cuh).  In the decoder only the word
-// placement couples the lanes; spreading the rest over all SMs is later
-// work.  The encoder keeps each lane's pending (cum, prob) in a scratch
-// array (`tab`) as the rANS family encoder does.
+// Quantile layouts keep the Pallas wire format.  TChain-24: one quantile
+// per u32 word.  TChain-16 (ops/tchain.py pack_quantiles): within a step
+// of L/2 words, lane l < L/2 is the low half of word l and lane l >= L/2
+// the high half of word l - L/2; lanes read and write their own 16-bit
+// half, so two lanes of different warps never touch the same bytes and
+// the encoder's output needs no zeroing and no atomics.  TChain-12 (pack_q12):
+// eight 128-lane rows share three word rows; the encoder ORs its bits into
+// zeroed words with atomicOr.
+//
+// What bounds them on this card: latency and issue on one SM.  The table
+// pair does what the ILANS2 rANS kernels do per symbol (a dependent chain
+// of head load, CDF search, head update and store), so it should cost what
+// they cost per step; the family pair adds a bisection over left() per
+// decoded quantile and two evaluations per re-encoded symbol (the encoder
+// keeps each lane's pending (cum, prob) in a scratch array, `tab`, as the
+// rANS family encoder does).  In the decoders only the word placement
+// couples the lanes; spreading the rest over all SMs is later work.
 
 #include "family.cuh"
 #include "lanes.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// TChain-16 and TChain-24: one categorical CDF for every symbol
+// ---------------------------------------------------------------------------
+
+// The u16 half that holds lane l's quantile in a TChain-16 step of L/2
+// words (little-endian: the low half of word w is half 2w).
+__device__ __forceinline__ int64_t planar_half(int l, int L) {
+  return l < L / 2 ? 2 * static_cast<int64_t>(l)
+                   : 2 * static_cast<int64_t>(l - L / 2) + 1;
+}
+
+template <int S>
+__device__ __forceinline__ uint32_t load_quantile(const uint32_t* __restrict__ q,
+                                                  int t, int l, int L) {
+  if constexpr (S == 32) {
+    const uint16_t* half = reinterpret_cast<const uint16_t*>(q);
+    return half[static_cast<int64_t>(t) * L + planar_half(l, L)];
+  } else {
+    return q[static_cast<int64_t>(t) * L + l];
+  }
+}
+
+template <int S>
+__device__ __forceinline__ void store_quantile(uint32_t* __restrict__ q, int t,
+                                               int l, int L, uint32_t v) {
+  if constexpr (S == 32) {
+    uint16_t* half = reinterpret_cast<uint16_t*>(q);
+    half[static_cast<int64_t>(t) * L + planar_half(l, L)] =
+        static_cast<uint16_t>(v);
+  } else {
+    q[static_cast<int64_t>(t) * L + l] = v;
+  }
+}
+
+// Bits-back decode of T * L quantiles under cdf_g[K+1] (total 2^P).
+// heads[L]: the seeds 2^(S-W-P) in, the final heads out.  q: TChain-16
+// planar words (T * L/2) or TChain-24 words (T * L), values below 2^P.
+// buf[cap]: the flushed words of step t land right to left below an end
+// pointer, so on return the remainder stream is buf[*end_out : cap].
+template <int W, int S, int P>
+__global__ void __launch_bounds__(kThreads, 1)
+    tchain_decode_kernel(typename StateOf<S>::type* __restrict__ heads,
+                         const uint32_t* __restrict__ q,
+                         const uint32_t* __restrict__ cdf_g, int K,
+                         int32_t* __restrict__ syms, uint32_t* __restrict__ buf,
+                         int64_t cap, int64_t* __restrict__ end_out, int L,
+                         int T, int cdf_in_smem) {
+  using Head = typename StateOf<S>::type;
+  extern __shared__ uint32_t smem[];
+  const int G = L / 32;
+  const Smem s{smem, G};
+  const uint32_t* cdf = stage_cdf(s.cdf(), cdf_g, K, cdf_in_smem);
+  __syncthreads();
+
+  constexpr Head kFlush = Head(1) << (S - P);
+  constexpr Head kMask = (Head(1) << W) - 1u;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const uint32_t lt_mask = (1u << lane) - 1u;
+  const int rows = (L + kThreads - 1) / kThreads;
+  int64_t e = cap;  // words of the finished steps occupy buf[e : cap]
+
+  // Iteration t writes the words step t - 1 flushed (a head still at or
+  // above 2^(S-P) carries its pending word in its low W bits), then decodes
+  // step t.
+  for (int t = 0; t <= T; ++t) {
+    const int cur = t & 1, prev = cur ^ 1;
+    for (int r = 0; r < rows; ++r) {
+      if (r * kThreads + (tid & ~31) >= L) break;  // warp-uniform
+      const int l = r * kThreads + tid;
+      const int g = l >> 5;
+      Head h = heads[l];
+      if (t > 0 && h >= kFlush) {
+        const int64_t idx = e + s.prefix(prev)[g] +
+                            __popc(s.ballots(prev)[g] & lt_mask);
+        buf[idx] = static_cast<uint32_t>(h & kMask);
+        h >>= W;
+      }
+      if (t < T) {
+        const uint32_t qv = load_quantile<S>(q, t, l, L);
+        const int sym = find_symbol(cdf, K, qv);
+        const uint32_t cum = cdf[sym];
+        const uint32_t prob = cdf[sym + 1] - cum;
+        h = h * prob + (qv - cum);
+        syms[static_cast<int64_t>(t) * L + l] = sym;
+        const unsigned bal = __ballot_sync(kFull, h >= kFlush);
+        if (lane == 0) s.ballots(cur)[g] = bal;
+      }
+      heads[l] = h;
+    }
+    if (t == T) break;
+    __syncthreads();
+    const uint32_t total = scan_groups(s.ballots(cur), s.prefix(cur),
+                                       s.warp_sums(), G);
+    __syncthreads();
+    e -= total;
+  }
+  if (tid == 0) *end_out = e;
+}
+
+// The reverse pass over T * L symbols, steps T-1 .. 0.  heads[L]: the
+// decoder's final heads in, the heads before step 0 out (the seeds after a
+// full reverse).  words[wlen]: the remainder stream; reads past its end
+// yield 0.  q: the quantiles out, every one written.  Symbols are clamped
+// to K-1; callers validate them (and reject symbols of zero probability,
+// which would divide by 0).
+template <int W, int S, int P>
+__global__ void __launch_bounds__(kThreads, 1)
+    tchain_encode_kernel(typename StateOf<S>::type* __restrict__ heads,
+                         const int32_t* __restrict__ syms,
+                         const uint32_t* __restrict__ cdf_g, int K,
+                         const uint32_t* __restrict__ words, int64_t wlen,
+                         uint32_t* __restrict__ q, int L, int T,
+                         int cdf_in_smem) {
+  using Head = typename StateOf<S>::type;
+  extern __shared__ uint32_t smem[];
+  const int G = L / 32;
+  const Smem s{smem, G};
+  const uint32_t* cdf = stage_cdf(s.cdf(), cdf_g, K, cdf_in_smem);
+  __syncthreads();
+
+  constexpr int kShift = S - W - P;  // refill: head < prob << (S-W-P)
+  constexpr uint32_t kMask = W == 32 ? kFull : ((1u << W) - 1u);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const uint32_t lt_mask = (1u << lane) - 1u;
+  const int rows = (L + kThreads - 1) / kThreads;
+  const uint32_t kmax = static_cast<uint32_t>(K - 1);
+  int64_t base = 0;         // first word of the pending step's refills
+  uint32_t last_total = 0;  // words the pending step consumed
+
+  // Iteration j refills and un-codes step T - j (flagged in iteration
+  // j - 1), then flags the refilling lanes of step T - 1 - j.
+  for (int j = 0; j <= T; ++j) {
+    const int cur = j & 1, prev = cur ^ 1;
+    const int t = T - 1 - j;
+    for (int r = 0; r < rows; ++r) {
+      if (r * kThreads + (tid & ~31) >= L) break;  // warp-uniform
+      const int l = r * kThreads + tid;
+      const int g = l >> 5;
+      Head h = heads[l];
+      if (j > 0) {
+        const uint32_t sym = min(
+            static_cast<uint32_t>(syms[static_cast<int64_t>(t + 1) * L + l]),
+            kmax);
+        const uint32_t cum = cdf[sym];
+        const uint32_t prob = cdf[sym + 1] - cum;
+        if (h < (static_cast<Head>(prob) << kShift)) {  // flagged last time
+          const int64_t idx = base + s.prefix(prev)[g] +
+                              __popc(s.ballots(prev)[g] & lt_mask);
+          const uint32_t word = idx < wlen ? words[idx] : 0u;
+          h = (h << W) | static_cast<Head>(word & kMask);
+        }
+        const Head quot = h / prob;
+        store_quantile<S>(q, t + 1, l, L,
+                          cum + static_cast<uint32_t>(h - quot * prob));
+        h = quot;
+      }
+      if (j < T) {
+        const uint32_t sym = min(
+            static_cast<uint32_t>(syms[static_cast<int64_t>(t) * L + l]), kmax);
+        const uint32_t prob = cdf[sym + 1] - cdf[sym];
+        const unsigned bal =
+            __ballot_sync(kFull, h < (static_cast<Head>(prob) << kShift));
+        if (lane == 0) s.ballots(cur)[g] = bal;
+      }
+      heads[l] = h;
+    }
+    if (j == T) break;
+    __syncthreads();
+    const uint32_t total = scan_groups(s.ballots(cur), s.prefix(cur),
+                                       s.warp_sums(), G);
+    __syncthreads();
+    base += last_total;
+    last_total = total;
+  }
+}
+
+// L a positive multiple of `lane_multiple` (256 planar at S=32, 128 at
+// S=64), at least one symbol, T steps whose symbol indices fit int64.
+template <int S>
+bool valid_cat(int L, int K, long long T) {
+  const int lane_multiple = S == 32 ? 256 : 128;
+  return L > 0 && L % lane_multiple == 0 && K >= 1 && T >= 0 &&
+         T <= (1 << 30);
+}
+
+template <int W, int S, int P>
+int launch_cat_decode(void* heads, const void* q, const void* cdf, int K,
+                      void* syms, void* buf, long long cap, void* end_out,
+                      int L, int T, void* cuda_stream, int device) {
+  if (!valid_cat<S>(L, K, T)) return static_cast<int>(cudaErrorInvalidValue);
+  int cdf_in_smem = 0;
+  const size_t bytes = smem_bytes(L, K, &cdf_in_smem);
+  auto kernel = tchain_decode_kernel<W, S, P>;
+  const cudaError_t err = prepare(kernel, device, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (T == 0) return static_cast<int>(cudaGetLastError());
+  kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<typename StateOf<S>::type*>(heads),
+      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(cdf), K,
+      static_cast<int32_t*>(syms), static_cast<uint32_t*>(buf), cap,
+      static_cast<int64_t*>(end_out), L, T, cdf_in_smem);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int W, int S, int P>
+int launch_cat_encode(void* heads, const void* syms, const void* cdf, int K,
+                      const void* words, long long wlen, void* q, int L, int T,
+                      void* cuda_stream, int device) {
+  if (!valid_cat<S>(L, K, T)) return static_cast<int>(cudaErrorInvalidValue);
+  int cdf_in_smem = 0;
+  const size_t bytes = smem_bytes(L, K, &cdf_in_smem);
+  auto kernel = tchain_encode_kernel<W, S, P>;
+  const cudaError_t err = prepare(kernel, device, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (T == 0) return static_cast<int>(cudaGetLastError());
+  kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<typename StateOf<S>::type*>(heads),
+      static_cast<const int32_t*>(syms), static_cast<const uint32_t*>(cdf), K,
+      static_cast<const uint32_t*>(words), wlen, static_cast<uint32_t*>(q), L,
+      T, cdf_in_smem);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// TChain-12: per-symbol continuous families
+// ---------------------------------------------------------------------------
 
 constexpr int kW = 16, kP = family::kFx;
 constexpr uint32_t kWordMask = 0xffffu;
@@ -246,9 +497,38 @@ int launch_encode(void* heads, const void* syms, const void* means,
 
 // Plain C interface, bound with ctypes (constriction_tpu_torch/ops/_build.py).
 // Each entry launches on the given stream, synchronises nothing, allocates
-// nothing, and returns cudaGetLastError() (0 on success).  `fam` indexes
-// (gaussian, laplace, logistic, cauchy).
+// nothing, and returns cudaGetLastError() (0 on success).  `K` is the
+// alphabet size (the CDF has K + 1 entries); `fam` indexes (gaussian,
+// laplace, logistic, cauchy).
 extern "C" {
+
+int ctt_tchain16_decode(void* heads, const void* qw, const void* cdf, int K,
+                        void* syms, void* buf, long long cap, void* end_out,
+                        int L, int T, void* cuda_stream, int device) {
+  return launch_cat_decode<16, 32, 16>(heads, qw, cdf, K, syms, buf, cap,
+                                       end_out, L, T, cuda_stream, device);
+}
+
+int ctt_tchain24_decode(void* heads, const void* q, const void* cdf, int K,
+                        void* syms, void* buf, long long cap, void* end_out,
+                        int L, int T, void* cuda_stream, int device) {
+  return launch_cat_decode<32, 64, 24>(heads, q, cdf, K, syms, buf, cap,
+                                       end_out, L, T, cuda_stream, device);
+}
+
+int ctt_tchain16_encode(void* heads, const void* syms, const void* cdf, int K,
+                        const void* words, long long wlen, void* qw, int L,
+                        int T, void* cuda_stream, int device) {
+  return launch_cat_encode<16, 32, 16>(heads, syms, cdf, K, words, wlen, qw,
+                                       L, T, cuda_stream, device);
+}
+
+int ctt_tchain24_encode(void* heads, const void* syms, const void* cdf, int K,
+                        const void* words, long long wlen, void* q, int L,
+                        int T, void* cuda_stream, int device) {
+  return launch_cat_encode<32, 64, 24>(heads, syms, cdf, K, words, wlen, q, L,
+                                       T, cuda_stream, device);
+}
 
 int ctt_tchain12_family_decode(void* heads, const void* qw, const void* means,
                                const void* scales, void* syms, void* buf,

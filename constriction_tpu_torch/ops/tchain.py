@@ -1,26 +1,37 @@
-"""TChain bits-back coding on the GPU: TChain-12 with per-symbol continuous
-families (neural bits-back).
+"""TChain bits-back coding on the GPU: TChain-16 and TChain-24 under one
+categorical model, TChain-12 under per-symbol continuous families (neural
+bits-back).
 
-The counterpart of the TChain-12 part of ``constriction_tpu/ops/tchain.py``.
-The decoder reads 12-bit quantiles as if they were compressed data: each
-lane inverts its symbol's model (``family.invert_family``), and what the
-quantile carried beyond the symbol goes into the lane's remainder head,
-``head = head * prob + (q - cum)`` from the seed 2^(S-W-P) = 16; a head at
-or above 2^(S-P) = 2^20 flushes its low 16 bits into a shared word stream
-(step chunks right to left, lanes ascending within a step).  The encoder
-runs the steps backward, refills a head below ``prob << 4`` from the stream
-and recovers ``q = cum + head % prob`` exactly; after a full reverse every
-head is back at 16.  W=16, S=32, P=12; a message is T full steps of L lanes
-and L is a multiple of 1024.
+The counterpart of ``constriction_tpu/ops/tchain.py``.  A decoder reads
+quantiles as if they were compressed data: each lane finds the symbol whose
+interval holds its quantile, and what the quantile carried beyond the
+symbol goes into the lane's remainder head, ``head = head * prob + (q -
+cum)``; a head at or above 2^(S-P) flushes its low W bits into a shared
+word stream (step chunks right to left, lanes ascending within a step).
+The encoder runs the steps backward, refills a head below ``prob <<
+(S-W-P)`` from the stream (reads past its end give zero words) and recovers
+``q = cum + head % prob`` exactly; after a full reverse every head is back
+at its seed.  Symbol i belongs to lane i mod L; a message is T full steps of
+L lanes.  The presets:
+
+- TChain-16: W=16, S=32, P=16, heads seeded at 1; 16-bit quantiles in
+  planar u32 words (:func:`pack_quantiles`), L a multiple of 256;
+- TChain-24 (the reference's default precision): W=32, S=64, P=24, u64
+  heads seeded at 2^8; one 24-bit quantile per u32 word, L a multiple of
+  128;
+- TChain-12: W=16, S=32, P=12, heads seeded at 16, the model of each
+  symbol inverted in-kernel (``family.invert_family``); 12-bit quantiles
+  packed by :func:`pack_q12`, L a multiple of 1024.
 
 The wrappers launch the hand-written kernels of ``csrc/tchain.cu`` for CUDA
 tensors and run the plain PyTorch twins for CPU tensors; any other device
 raises.
 
-Tensor layout: quantiles travel packed, 12 bits each, as int32 tensors
-holding the u32 words of :func:`pack_q12` (T * 3L/8 words); symbols
-int32[T * L]; heads and stream words int32 holding u32 bits; means and
-scales float32[T * L].
+Tensor layout: quantiles travel as int32 tensors of u32 words (TChain-16:
+the planar words, T * L/2 of them; TChain-24: one per quantile; TChain-12:
+the words of :func:`pack_q12`, T * 3L/8); symbols int32[T * L]; stream
+words and TChain-12/16 heads int32 holding u32 bits; TChain-24 heads int64
+holding u64 bits; CDFs int64[K+1]; means and scales float32[T * L].
 """
 
 from __future__ import annotations
@@ -31,16 +42,24 @@ import torch
 from .. import convert
 from . import _build
 from . import family as fam
-from .coder import _check, _emit_words, _on_cuda, _refill_words
+from .coder import (_check, _check_cdf_arg, _emit_words, _find_symbols,
+                    _on_cuda, _refill_words)
 from .interleaved import LaneConfig
 
+TCHAIN_CFG = LaneConfig(num_lanes=32768, word_bits=16, state_bits=32,
+                        precision=16)
+TCHAIN24_CFG = LaneConfig(num_lanes=32768, word_bits=32, state_bits=64,
+                          precision=24)
 TCHAIN12_CFG = LaneConfig(num_lanes=32768, word_bits=16, state_bits=32,
                           precision=12)
 
 # kernel launches made by this module's wrappers (never by the twins)
-LAUNCHES = {"decode12_family": 0, "encode12_family": 0}
+LAUNCHES = {"decode16": 0, "encode16": 0, "decode24": 0, "encode24": 0,
+            "decode12_family": 0, "encode12_family": 0}
 
 _M12 = 0xFFF
+_M16 = 0xFFFF
+_M24 = 0xFFFFFF
 _M32 = 0xFFFFFFFF
 _SEED = 1 << 4  # 2^(S-W-P)
 _FLUSH_AT = 1 << 20  # 2^(S-P)
@@ -332,3 +351,489 @@ def tchain12_family_encode_plain(symbols, remainders, heads, means, scales,
         h = h // prob
     qw = _pack_q12_block(torch, q_out.reshape(T * L // 128, 128))
     return convert.u32_bits(qw.reshape(-1)), convert.u32_bits(h)
+
+
+# ---------------------------------------------------------------------------
+# TChain-16 and TChain-24: categorical bits-back (one CDF for every symbol)
+# ---------------------------------------------------------------------------
+
+
+def _check_preset(cfg: LaneConfig, want: LaneConfig, lane_multiple: int):
+    """Checks (W, S, P) against the preset ``want`` and L against
+    ``lane_multiple``; returns L."""
+    got = (cfg.word_bits, cfg.state_bits, cfg.precision)
+    if got != (want.word_bits, want.state_bits, want.precision):
+        raise ValueError(
+            f"cfg must be W={want.word_bits}, S={want.state_bits}, "
+            f"P={want.precision}, got W={got[0]}, S={got[1]}, P={got[2]}")
+    L = cfg.num_lanes
+    if L <= 0 or L % lane_multiple:
+        raise ValueError(
+            f"num_lanes must be a positive multiple of {lane_multiple}, got "
+            f"{L}")
+    return L
+
+
+def _whole_steps(n: int, L: int) -> int:
+    if n % L:
+        raise ValueError(
+            f"the message length must be a multiple of num_lanes={L}, got "
+            f"{n}")
+    return n // L
+
+
+def pack_quantiles(q, L: int) -> np.ndarray:
+    """[T*L] u16 quantiles (lane order) -> [T, R/2, 128] u32 planar words
+    (R = L / 128): the word at (t, r, c) holds lane r*128 + c in its low
+    half and lane (r + R/2)*128 + c in its high half.  JAX counterpart:
+    ``tchain.pack_quantiles``."""
+    if L % 256:
+        raise ValueError(
+            f"num_lanes must be a multiple of 256 for planar packing, got "
+            f"{L}")
+    q = np.asarray(q)
+    T = len(q) // L
+    return _pack_planar(q.astype(np.uint32).reshape(T, L // 128, 128))
+
+
+def _pack_planar(q3):
+    """[T, R, 128] quantiles -> [T, R/2, 128] planar words (numpy u32, or
+    torch int64 of u32 values)."""
+    R = q3.shape[1]
+    return q3[:, :R // 2] | (q3[:, R // 2:] << 16)
+
+
+def unpack_quantiles(w, xp=np):
+    """Inverse of :func:`pack_quantiles`: [T, R/2, 128] words -> [T*L]
+    quantiles, u16 for numpy words, int64 for torch int64 words of u32
+    values.  JAX counterpart: ``tchain.unpack_quantiles``."""
+    q = xp.concatenate([w & _M16, w >> 16], 1).reshape(-1)
+    return q.astype(np.uint16) if xp is np else q
+
+
+def pack_q24(q, L: int) -> np.ndarray:
+    """[T*L] u32 (24-bit) quantiles -> [T, 3R/4, 128] u32 planar words: four
+    128-lane rows share three word rows.  A storage helper only (a quarter
+    smaller than one quantile per word); the TChain-24 coders take one
+    quantile per word.  JAX counterpart: ``tchain.pack_q24``."""
+    if L % 512:
+        raise ValueError(
+            f"num_lanes must be a multiple of 512 for 24-bit packing, got {L}")
+    q = np.asarray(q)
+    T = len(q) // L
+    g = q.astype(np.uint32).reshape(T, L // 512, 4, 128)
+    w = np.empty((T, L // 512, 3, 128), dtype=np.uint32)
+    w[:, :, 0] = g[:, :, 0] | (g[:, :, 1] << 24)
+    w[:, :, 1] = (g[:, :, 1] >> 8) | (g[:, :, 2] << 16)
+    w[:, :, 2] = (g[:, :, 2] >> 16) | (g[:, :, 3] << 8)
+    return w.reshape(T, 3 * (L // 512), 128)
+
+
+def unpack_q24(w) -> np.ndarray:
+    """[T, 3R/4, 128] words -> [T, R, 128] u32 quantile values.  JAX
+    counterpart: ``tchain.unpack_q24``."""
+    T, rows, _ = w.shape
+    g = np.asarray(w).reshape(T, rows // 3, 3, 128)
+    w0, w1, w2 = g[:, :, 0], g[:, :, 1], g[:, :, 2]
+    q = np.stack([
+        w0 & _M24,
+        (w0 >> 24) | ((w1 & _M16) << 8),
+        (w1 >> 16) | ((w2 & 0xFF) << 16),
+        w2 >> 8,
+    ], 2)
+    return q.reshape(T, rows // 3 * 4, 128)
+
+
+def tchain_decode_host(quantiles, cdf, cfg: LaneConfig = TCHAIN_CFG):
+    """Numpy oracle of the TChain-16 decode: ``(symbols int32[n],
+    remainders u32, heads u32[L])``, the remainders in the order the reverse
+    pass reads them.  JAX counterpart: ``tchain.tchain_decode_host``."""
+    L = _check_preset(cfg, TCHAIN_CFG, 1)
+    W, S = cfg.word_bits, cfg.state_bits
+    n = len(quantiles)
+    T = _whole_steps(n, L)
+    cdf64 = np.asarray(cdf, dtype=np.uint64)
+    heads = np.ones(L, dtype=np.uint64)
+    out = np.empty(n, dtype=np.int32)
+    chunks = []
+    lanes = np.arange(L)
+    for t in range(T):
+        q = quantiles[t * L:(t + 1) * L].astype(np.uint64)
+        sym = np.searchsorted(cdf64, q, side="right") - 1
+        cum = cdf64[sym]
+        prob = cdf64[sym + 1] - cum
+        heads = heads * prob + (q - cum)
+        m = heads >= np.uint64(1 << (S - W))
+        chunks.append((heads[m] & np.uint64(_M16)).astype(np.uint32))
+        heads = np.where(m, heads >> np.uint64(W), heads)
+        out[t * L + lanes] = sym
+    stream = np.concatenate(chunks[::-1]) if chunks else np.zeros(0, np.uint32)
+    return out, stream, heads.astype(np.uint32)
+
+
+def tchain_encode_host(symbols, remainders, heads, cdf,
+                       cfg: LaneConfig = TCHAIN_CFG):
+    """Numpy oracle of the TChain-16 reverse pass: ``(quantiles u16[n],
+    heads u32[L])``, the heads all 1 after a full round trip.  JAX
+    counterpart: ``tchain.tchain_encode_host``."""
+    L = _check_preset(cfg, TCHAIN_CFG, 1)
+    W = cfg.word_bits
+    n = len(symbols)
+    T = _whole_steps(n, L)
+    cdf64 = np.asarray(cdf, dtype=np.uint64)
+    h = np.asarray(heads).astype(np.uint64)
+    q_out = np.empty(n, dtype=np.uint16)
+    base = 0
+    lanes = np.arange(L)
+    for tt in range(T - 1, -1, -1):
+        sym = np.asarray(symbols[tt * L:(tt + 1) * L], dtype=np.int64)
+        cum = cdf64[sym]
+        prob = cdf64[sym + 1] - cum
+        m = h < prob
+        k = int(m.sum())
+        if k:
+            words = np.zeros(k, dtype=np.uint64)
+            avail = remainders[base:base + k]
+            words[:len(avail)] = avail
+            h[m] = (h[m] << np.uint64(W)) | words
+            base += k
+        r = h % prob
+        h = h // prob
+        q_out[tt * L + lanes] = (cum + r).astype(np.uint16)
+    return q_out, h.astype(np.uint32)
+
+
+def tchain24_decode_host(quantiles, cdf, cfg: LaneConfig = TCHAIN24_CFG):
+    """Numpy oracle of the TChain-24 decode: ``(symbols int32[n],
+    remainders u32, heads u64[L])``.  Heads live in [2^(S-W-P), 2^(S-P)) =
+    [2^8, 2^40), which makes the encoder's refill test (head < prob << 8)
+    the exact inverse of the decoder's flush test (head >= 2^40).  JAX
+    counterpart: ``tchain.tchain24_decode_host``."""
+    L = _check_preset(cfg, TCHAIN24_CFG, 1)
+    S, W, P = cfg.state_bits, cfg.word_bits, cfg.precision
+    n = len(quantiles)
+    T = _whole_steps(n, L)
+    cdf64 = np.asarray(cdf, dtype=np.uint64)
+    heads = np.full(L, 1 << (S - W - P), dtype=np.uint64)
+    out = np.empty(n, dtype=np.int32)
+    chunks = []
+    lanes = np.arange(L)
+    inv = np.uint64(1) << np.uint64(S - P)
+    for t in range(T):
+        q = quantiles[t * L:(t + 1) * L].astype(np.uint64)
+        sym = np.searchsorted(cdf64, q, side="right") - 1
+        cum = cdf64[sym]
+        prob = cdf64[sym + 1] - cum
+        heads = heads * prob + (q - cum)
+        m = heads >= inv
+        chunks.append((heads[m] & np.uint64(_M32)).astype(np.uint32))
+        heads = np.where(m, heads >> np.uint64(W), heads)
+        out[t * L + lanes] = sym
+    stream = np.concatenate(chunks[::-1]) if chunks else np.zeros(0, np.uint32)
+    return out, stream, heads
+
+
+def tchain24_encode_host(symbols, remainders, heads, cdf,
+                         cfg: LaneConfig = TCHAIN24_CFG):
+    """Numpy oracle of the TChain-24 reverse pass: ``(quantiles u32[n],
+    heads u64[L])``, the heads all 256 after a full round trip.  JAX
+    counterpart: ``tchain.tchain24_encode_host``."""
+    L = _check_preset(cfg, TCHAIN24_CFG, 1)
+    S, W, P = cfg.state_bits, cfg.word_bits, cfg.precision
+    n = len(symbols)
+    T = _whole_steps(n, L)
+    cdf64 = np.asarray(cdf, dtype=np.uint64)
+    h = np.asarray(heads, dtype=np.uint64).copy()
+    q_out = np.empty(n, dtype=np.uint32)
+    base = 0
+    lanes = np.arange(L)
+    for tt in range(T - 1, -1, -1):
+        sym = np.asarray(symbols[tt * L:(tt + 1) * L], dtype=np.int64)
+        cum = cdf64[sym]
+        prob = cdf64[sym + 1] - cum
+        m = h < (prob << np.uint64(S - W - P))
+        k = int(m.sum())
+        if k:
+            words = np.zeros(k, dtype=np.uint64)
+            avail = remainders[base:base + k]
+            words[:len(avail)] = avail
+            h[m] = (h[m] << np.uint64(W)) | words
+            base += k
+        r = h % prob
+        h = h // prob
+        q_out[tt * L + lanes] = (cum + r).astype(np.uint32)
+    return q_out, h
+
+
+# --- the coders
+
+
+def _check_model(cdf, device: torch.device, P: int) -> None:
+    """A fixed-point CDF at precision P: 0 first, non-decreasing, 2^P
+    last."""
+    _check_cdf_arg(cdf, device)
+    c = cdf.cpu()
+    if int(c[0]) != 0 or int(c[-1]) != 1 << P or bool((c[1:] < c[:-1]).any()):
+        raise ValueError(
+            f"cdf must rise from 0 to 2^{P} = {1 << P}, got cdf[0] = "
+            f"{int(c[0])}, cdf[-1] = {int(c[-1])}")
+
+
+def _check_cat_symbols(symbols, cdf) -> None:
+    """Symbols an encoder can code: in [0, K) and of nonzero probability."""
+    K = cdf.numel() - 1
+    if not symbols.numel():
+        return
+    lo, hi = int(symbols.min()), int(symbols.max())
+    if lo < 0 or hi >= K:
+        raise ValueError(f"symbols must be in [0, {K}), got range [{lo}, {hi}]")
+    prob = cdf[1:] - cdf[:-1]
+    if bool((prob[symbols.long()] == 0).any()):
+        raise ValueError("symbols of zero probability cannot be encoded")
+
+
+def _cat_args(first, name: str, cfg: LaneConfig, want: LaneConfig,
+              lane_multiple: int, step: int, cdf) -> int:
+    """Checks the leading tensor, the config and the CDF; returns T, the
+    tensor holding ``step`` entries per coding step."""
+    if not isinstance(first, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor")
+    _check(name, first, torch.int32, first.device)
+    _check_preset(cfg, want, lane_multiple)
+    _check_model(cdf, first.device, want.precision)
+    if first.numel() % step:
+        raise ValueError(
+            f"{name} must hold whole steps of {step} entries (num_lanes="
+            f"{cfg.num_lanes}), got {first.numel()}")
+    return first.numel() // step
+
+
+def _encode_args(symbols, remainders, heads, cdf, cfg: LaneConfig,
+                 want: LaneConfig, lane_multiple: int, head_dtype) -> int:
+    T = _cat_args(symbols, "symbols", cfg, want, lane_multiple,
+                  cfg.num_lanes, cdf)
+    _check("remainders", remainders, torch.int32, symbols.device)
+    _check("heads", heads, head_dtype, symbols.device, cfg.num_lanes)
+    _check_cat_symbols(symbols, cdf)
+    return T
+
+
+def _launch_decode(tag: str, q, cdf, L: int, T: int, seed: int,
+                   head_dtype):
+    """One decode launch; returns (symbols, stream, heads).  Reads the end
+    pointer back (one sync)."""
+    device = q.device
+    n = T * L
+    heads = torch.full((L,), seed, dtype=head_dtype, device=device)
+    syms = torch.empty(n, dtype=torch.int32, device=device)
+    if T == 0:
+        return syms, torch.zeros(0, dtype=torch.int32, device=device), heads
+    buf = torch.empty(n, dtype=torch.int32, device=device)  # <= 1 word/symbol
+    end = torch.empty(1, dtype=torch.int64, device=device)
+    cdf32 = cdf.to(torch.int32)
+    LAUNCHES[f"decode{tag}"] += 1
+    _build.call(f"ctt_tchain{tag}_decode", device, heads, q, cdf32,
+                cdf32.numel() - 1, syms, buf, n, end, L, T)
+    return syms, buf[int(end.item()):], heads
+
+
+def _launch_encode(tag: str, symbols, remainders, heads, cdf, L: int, T: int,
+                   q_words: int):
+    """One encode launch; returns (quantile words, heads).  The kernel
+    writes every quantile (TChain-16 as 16-bit halves), so the output needs
+    no zeroing."""
+    device = symbols.device
+    out_heads = heads.clone()
+    q = torch.empty(T * q_words, dtype=torch.int32, device=device)
+    if T:
+        cdf32 = cdf.to(torch.int32)
+        LAUNCHES[f"encode{tag}"] += 1
+        _build.call(f"ctt_tchain{tag}_encode", device, out_heads, symbols,
+                    cdf32, cdf32.numel() - 1, remainders, remainders.numel(),
+                    q, L, T)
+    return q, out_heads
+
+
+def tchain16_decode(qw, cdf, cfg: LaneConfig = TCHAIN_CFG):
+    """TChain-16 bits-back decode.  JAX counterpart:
+    ``tchain.tchain_decode_pallas``.
+
+    ``qw`` int32[T * L/2] (the :func:`pack_quantiles` words, flattened),
+    ``cdf`` int64[K+1] at P=16, on one device.  Returns ``(symbols
+    int32[T * L], stream int32[num_words], heads int32[L])``.  CUDA tensors
+    launch the kernel, CPU tensors run :func:`tchain16_decode_plain`."""
+    L = cfg.num_lanes
+    T = _cat_args(qw, "qw", cfg, TCHAIN_CFG, 256, L // 2, cdf)
+    if not _on_cuda(qw.device):
+        return tchain16_decode_plain(qw, cdf, cfg)
+    return _launch_decode("16", qw, cdf, L, T, 1, torch.int32)
+
+
+def tchain16_decode_plain(qw, cdf, cfg: LaneConfig = TCHAIN_CFG):
+    """Plain PyTorch twin of :func:`tchain16_decode` (any device, no
+    checks).  Numpy oracle: :func:`tchain_decode_host`."""
+    L, W, S = cfg.num_lanes, cfg.word_bits, cfg.state_bits
+    device = qw.device
+    T = qw.numel() // (L // 2)
+    n = T * L
+    q_all = unpack_quantiles(
+        convert.u32_values(qw).reshape(T, L // 256, 128), torch).reshape(T, L)
+    cdf64 = cdf.to(torch.int64)
+    K = cdf64.numel() - 1
+    heads = torch.ones(L, dtype=torch.int64, device=device)
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    buf = torch.zeros(n + 1, dtype=torch.int64, device=device)
+    e = torch.tensor(n, dtype=torch.int64, device=device)
+    for t in range(T):
+        q = q_all[t]
+        sym = _find_symbols(cdf64, q, K)
+        cum = cdf64[sym]
+        heads = heads * (cdf64[sym + 1] - cum) + (q - cum)  # < 2^32
+        m = heads >= 1 << (S - W)
+        e = _emit_words(buf, m, heads & _M16, e, n)
+        heads = torch.where(m, heads >> W, heads)
+        out[t * L:(t + 1) * L] = sym
+    return out, convert.u32_bits(buf[int(e):n]), convert.u32_bits(heads)
+
+
+def tchain16_encode(symbols, remainders, heads, cdf,
+                    cfg: LaneConfig = TCHAIN_CFG):
+    """The reverse pass of :func:`tchain16_decode`.  JAX counterpart:
+    ``tchain.tchain_encode_pallas``.
+
+    ``symbols`` int32[T * L] in [0, K) and of nonzero probability,
+    ``remainders`` int32 words, ``heads`` int32[L], ``cdf`` int64[K+1], on
+    one device.  Returns ``(qw int32[T * L/2], heads int32[L])``: the
+    planar quantile words and the heads before step 0.  CUDA tensors launch
+    the kernel, CPU tensors run :func:`tchain16_encode_plain`."""
+    L = cfg.num_lanes
+    T = _encode_args(symbols, remainders, heads, cdf, cfg, TCHAIN_CFG, 256,
+                     torch.int32)
+    if not _on_cuda(symbols.device):
+        return tchain16_encode_plain(symbols, remainders, heads, cdf, cfg)
+    return _launch_encode("16", symbols, remainders, heads, cdf, L, T, L // 2)
+
+
+def tchain16_encode_plain(symbols, remainders, heads, cdf,
+                          cfg: LaneConfig = TCHAIN_CFG):
+    """Plain PyTorch twin of :func:`tchain16_encode` (any device, no
+    checks).  Numpy oracle: :func:`tchain_encode_host`; a refill word keeps
+    its low 16 bits, as in the Pallas kernel."""
+    L, W = cfg.num_lanes, cfg.word_bits
+    T = symbols.numel() // L
+    cdf64 = cdf.to(torch.int64)
+    syms = symbols.to(torch.int64)
+    h = convert.u32_values(heads)
+    words = convert.u32_values(remainders)
+    q_out = torch.empty(T, L, dtype=torch.int64, device=symbols.device)
+    base = torch.zeros((), dtype=torch.int64, device=symbols.device)
+    for t in range(T - 1, -1, -1):
+        s = syms[t * L:(t + 1) * L]
+        cum = cdf64[s]
+        prob = cdf64[s + 1] - cum
+        m = h < prob
+        w, base = _refill_words(m, words, base)
+        h = torch.where(m, (h << W) | (w & _M16), h)
+        q_out[t] = cum + h % prob
+        h = h // prob
+    qw = _pack_planar(q_out.reshape(T, L // 128, 128))
+    return convert.u32_bits(qw.reshape(-1)), convert.u32_bits(h)
+
+
+def tchain24_decode(q, cdf, cfg: LaneConfig = TCHAIN24_CFG):
+    """TChain-24 bits-back decode.  JAX counterpart:
+    ``tchain.tchain24_decode_pallas``.
+
+    ``q`` int32[T * L] (24-bit quantiles, one per word), ``cdf``
+    int64[K+1] at P=24, on one device.  Returns ``(symbols int32[T * L],
+    stream int32[num_words], heads int64[L])`` (heads as u64 bits).  CUDA
+    tensors launch the kernel, CPU tensors run
+    :func:`tchain24_decode_plain`."""
+    L = cfg.num_lanes
+    T = _cat_args(q, "q", cfg, TCHAIN24_CFG, 128, L, cdf)
+    if T and not bool(((q >= 0) & (q <= _M24)).all()):
+        raise ValueError("quantiles must be 24-bit values")
+    if not _on_cuda(q.device):
+        return tchain24_decode_plain(q, cdf, cfg)
+    return _launch_decode("24", q, cdf, L, T, 1 << 8, torch.int64)
+
+
+def tchain24_decode_plain(q, cdf, cfg: LaneConfig = TCHAIN24_CFG):
+    """Plain PyTorch twin of :func:`tchain24_decode` (any device, no
+    checks).  Numpy oracle: :func:`tchain24_decode_host`.  Heads are held
+    as (hi, lo) u32 halves: head * prob reaches 2^64 - 1, past int64."""
+    L, W, S, P = (cfg.num_lanes, cfg.word_bits, cfg.state_bits,
+                  cfg.precision)
+    device = q.device
+    T = q.numel() // L
+    n = T * L
+    q_all = convert.u32_values(q).reshape(T, L)
+    cdf64 = cdf.to(torch.int64)
+    K = cdf64.numel() - 1
+    hi = torch.zeros(L, dtype=torch.int64, device=device)
+    lo = torch.full((L,), 1 << (S - W - P), dtype=torch.int64, device=device)
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    buf = torch.zeros(n + 1, dtype=torch.int64, device=device)
+    e = torch.tensor(n, dtype=torch.int64, device=device)
+    for t in range(T):
+        qt = q_all[t]
+        sym = _find_symbols(cdf64, qt, K)
+        cum = cdf64[sym]
+        prob = cdf64[sym + 1] - cum
+        # head < 2^40, so hi < 2^8 and every partial fits int64
+        low = lo * prob + (qt - cum)
+        hi = hi * prob + (low >> 32)
+        lo = low & _M32
+        m = hi >= 1 << (S - P - 32)  # head >= 2^40: flush lo
+        e = _emit_words(buf, m, lo, e, n)
+        hi, lo = torch.where(m, 0, hi), torch.where(m, hi, lo)
+        out[t * L:(t + 1) * L] = sym
+    return (out, convert.u32_bits(buf[int(e):n]), convert.u64_join(hi, lo))
+
+
+def tchain24_encode(symbols, remainders, heads, cdf,
+                    cfg: LaneConfig = TCHAIN24_CFG):
+    """The reverse pass of :func:`tchain24_decode`.  JAX counterpart:
+    ``tchain.tchain24_encode_pallas``.
+
+    ``symbols`` int32[T * L] in [0, K) and of nonzero probability,
+    ``remainders`` int32 words, ``heads`` int64[L] (u64 bits), ``cdf``
+    int64[K+1], on one device.  Returns ``(q int32[T * L], heads
+    int64[L])``: the quantiles and the heads before step 0.  CUDA tensors
+    launch the kernel, CPU tensors run :func:`tchain24_encode_plain`."""
+    L = cfg.num_lanes
+    T = _encode_args(symbols, remainders, heads, cdf, cfg, TCHAIN24_CFG, 128,
+                     torch.int64)
+    if not _on_cuda(symbols.device):
+        return tchain24_encode_plain(symbols, remainders, heads, cdf, cfg)
+    return _launch_encode("24", symbols, remainders, heads, cdf, L, T, L)
+
+
+def tchain24_encode_plain(symbols, remainders, heads, cdf,
+                          cfg: LaneConfig = TCHAIN24_CFG):
+    """Plain PyTorch twin of :func:`tchain24_encode` (any device, no
+    checks).  Numpy oracle: :func:`tchain24_encode_host`.  Heads are (hi,
+    lo) u32 halves and divide by two base-2^32 digits: the remainder of the
+    first is below prob <= 2^24, so ``r << 32 | lo`` fits int64."""
+    L, W, S, P = (cfg.num_lanes, cfg.word_bits, cfg.state_bits,
+                  cfg.precision)
+    T = symbols.numel() // L
+    cdf64 = cdf.to(torch.int64)
+    syms = symbols.to(torch.int64)
+    hi, lo = convert.u64_halves(heads)
+    words = convert.u32_values(remainders)
+    q_out = torch.empty(T, L, dtype=torch.int64, device=symbols.device)
+    base = torch.zeros((), dtype=torch.int64, device=symbols.device)
+    for t in range(T - 1, -1, -1):
+        s = syms[t * L:(t + 1) * L]
+        cum = cdf64[s]
+        prob = cdf64[s + 1] - cum
+        # head < prob << 8 <= 2^32 needs hi == 0
+        m = (hi == 0) & (lo < prob << (S - W - P))
+        w, base = _refill_words(m, words, base)
+        hi, lo = torch.where(m, lo, hi), torch.where(m, w, lo)
+        q_hi, r = hi // prob, hi % prob
+        part = (r << 32) | lo
+        q_out[t] = cum + part % prob
+        hi, lo = q_hi, part // prob
+    return convert.u32_bits(q_out.reshape(-1)), convert.u64_join(hi, lo)

@@ -3,7 +3,9 @@ oracles, on the card: the rANS kernels against the JAX package's
 (``interleaved2.encode_shared`` / ``decode_shared_cdf``, numpy and C++), the
 range kernels against the port's numpy range coder, the device-family and
 TChain-12 kernels (and their integer CDF, value by value) against the
-port's numpy family oracles (the CPU tests hold those against the JAX
+port's numpy family oracles, the TChain-16 and TChain-24 kernels against
+the port's numpy TChain oracles, and the chain decode on the card against
+its numpy path (the CPU tests hold the port's oracles against the JAX
 package's).
 
 Every test here needs a CUDA device and skips without one.  The file
@@ -23,7 +25,8 @@ from constriction_tpu.ops import interleaved2 as ref_il2
 from constriction_tpu_torch import convert
 from constriction_tpu_torch import cuda as ctt
 from constriction_tpu_torch.models import fast_quantized_cdf
-from constriction_tpu_torch.ops import coder, coder64, range_enc
+from constriction_tpu_torch.ops import _build, coder, coder64, range_enc
+from constriction_tpu_torch.ops import chain as ch
 from constriction_tpu_torch.ops import family as fam
 from constriction_tpu_torch.ops import interleaved2 as il2
 from constriction_tpu_torch.ops import tchain as tc
@@ -532,3 +535,146 @@ def test_family_wrapper_rejects_mixed_devices(dev):
     with pytest.raises(ValueError, match="is on cuda"):
         fam.encode_family(torch.from_numpy(symbols), mu, sg, "gaussian", LO,
                           HI, _family_cfg(128))
+
+
+# --- TChain-16 and TChain-24: categorical bits-back ------------------------
+
+CAT = {  # P: decode, encode, their twins, their host oracles, the seed
+    16: (tc.tchain16_decode, tc.tchain16_encode, tc.tchain16_decode_plain,
+         tc.tchain16_encode_plain, tc.tchain_decode_host,
+         tc.tchain_encode_host, 1),
+    24: (tc.tchain24_decode, tc.tchain24_encode, tc.tchain24_decode_plain,
+         tc.tchain24_encode_plain, tc.tchain24_decode_host,
+         tc.tchain24_encode_host, 256),
+}
+
+
+def _cat_cfg(P, L):
+    if P == 16:
+        return LaneConfig(num_lanes=L, word_bits=16, state_bits=32,
+                          precision=16)
+    return LaneConfig(num_lanes=L, word_bits=32, state_bits=64, precision=24)
+
+
+def _cat_cdf(K, P, seed):
+    if K == 1:
+        return np.array([0, 1 << P], np.uint64)
+    return _cdf(K, P, seed)[0]
+
+
+def _q_to_torch(P, q, L, dev):
+    if P == 16:
+        return convert.quantiles16_to_torch(q, L, dev)
+    return convert.u32_to_torch(q, dev)
+
+
+def _q_from_torch(P, t, L):
+    if P == 16:
+        return convert.quantiles16_from_torch(t, L)
+    return convert.u32_from_torch(t)
+
+
+def _heads_np(P, t):
+    return convert.u32_from_torch(t) if P == 16 else convert.u64_from_torch(t)
+
+
+def _check_cat(P, L, T, K, dev, seed):
+    dec, enc, dec_p, enc_p, dec_h, enc_h, seed_head = CAT[P]
+    cfg = _cat_cfg(P, L)
+    rng = np.random.RandomState(seed)
+    cdf_np = _cat_cdf(K, P, seed)
+    q = rng.randint(0, 1 << P, size=L * T).astype(
+        np.uint16 if P == 16 else np.uint32)
+    cdf = convert.cdf_to_torch(cdf_np, dev)
+    qt = _q_to_torch(P, q, L, dev)
+    before = dict(tc.LAUNCHES)
+    got = dec(qt, cdf, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(got, dec_p(qt, cdf, cfg)))
+    host = dec_h(q, cdf_np, cfg)
+    np.testing.assert_array_equal(got[0].cpu().numpy(), host[0])
+    np.testing.assert_array_equal(convert.u32_from_torch(got[1]), host[1])
+    np.testing.assert_array_equal(_heads_np(P, got[2]), host[2])
+    back = enc(*got, cdf, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(back, enc_p(*got, cdf, cfg)))
+    assert torch.equal(back[0], qt)
+    assert bool((back[1] == seed_head).all())
+    q_h, h_h = enc_h(*host, cdf_np, cfg)
+    np.testing.assert_array_equal(_q_from_torch(P, back[0], L), q_h)
+    np.testing.assert_array_equal(_heads_np(P, back[1]), h_h)
+    if T:
+        assert tc.LAUNCHES[f"decode{P}"] == before[f"decode{P}"] + 1
+        assert tc.LAUNCHES[f"encode{P}"] == before[f"encode{P}"] + 1
+    # truncated remainders read as zero words, as in the host oracle
+    cut = got[1][: got[1].numel() // 2].clone()
+    a = enc(got[0], cut, got[2], cdf, cfg)
+    assert all(torch.equal(x, y)
+               for x, y in zip(a, enc_p(got[0], cut, got[2], cdf, cfg)))
+    q_h, h_h = enc_h(host[0], convert.u32_from_torch(cut), host[2], cdf_np,
+                     cfg)
+    np.testing.assert_array_equal(_q_from_torch(P, a[0], L), q_h)
+    np.testing.assert_array_equal(_heads_np(P, a[1]), h_h)
+    return got, cdf, qt
+
+
+@pytest.mark.parametrize("P", [16, 24])
+@pytest.mark.parametrize("L,T,K", [(256, 1, 16), (256, 7, 2), (512, 5, 100),
+                                   (768, 3, 1), (1280, 9, 40),
+                                   (32768, 3, 100), (32768, 2, 1000),
+                                   (512, 0, 16)])
+def test_tchain_cat_kernels_match_twins(dev, P, L, T, K):
+    _check_cat(P, L, T, K, dev, seed=L + T + K)
+
+
+@pytest.mark.parametrize("P,K", [(16, 60_000), (24, 70_000)])
+def test_tchain_cat_large_alphabet_reads_cdf_from_device_memory(dev, P, K):
+    _check_cat(P, 512, 4, K, dev, seed=K)
+
+
+@pytest.mark.parametrize("P", [16, 24])
+def test_tchain_cat_encoder_writes_every_quantile(dev, P):
+    """The encoder stores each quantile (TChain-16: its 16-bit half of a
+    planar word); an output buffer full of ones comes back exact."""
+    L, T = 512, 3
+    got, cdf, qt = _check_cat(P, L, T, 100, dev, seed=11)
+    out = torch.full_like(qt, -1)
+    heads = got[2].clone()
+    cdf32 = cdf.to(torch.int32)
+    _build.call(f"ctt_tchain{P}_encode", dev, heads, got[0], cdf32,
+                cdf32.numel() - 1, got[1], got[1].numel(), out, L, T)
+    assert torch.equal(out, qt)
+
+
+@pytest.mark.parametrize("P", [16, 24])
+def test_bits_back_facade_cuda_matches_cpu(dev, P):
+    n = 2 * 32768
+    rng = np.random.RandomState(P)
+    cdf = _cdf(100, P, seed=P)[0]
+    q = rng.randint(0, 1 << P, size=n).astype(
+        np.uint16 if P == 16 else np.uint32)
+    decode = ctt.bits_back_decode if P == 16 else ctt.bits_back_decode24
+    encode = ctt.bits_back_encode if P == 16 else ctt.bits_back_encode24
+    got = decode(q, cdf, device="cuda")
+    ref = decode(q, cdf, device="cpu")
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    q2, h2 = encode(*got, cdf, device="cuda")
+    assert q2.dtype == q.dtype
+    np.testing.assert_array_equal(q2, q)
+    assert np.all(h2 == (1 if P == 16 else 256))
+
+
+def test_chain_decode_on_the_card(dev):
+    rng = np.random.RandomState(3)
+    n = 100_003
+    data = rng.randint(0, 1 << 32, size=n, dtype=np.uint64).astype(np.uint32)
+    data[-1] |= 0x8000_0000
+    cdf = _cdf(100, 24, seed=5)[0]
+    got = ctt.decode_chain_iid(data, n, cdf, device="cuda")
+    np.testing.assert_array_equal(got, ch.chain_decode_iid(data, n, cdf, np))
+    probs = rng.dirichlet(np.ones(16), size=20_000)
+    rows = np.stack([fast_quantized_cdf(p, 24) for p in probs])
+    got = ctt.decode_chain_rows(data, rows, device="cuda")
+    np.testing.assert_array_equal(got, ch.chain_decode_rows(data, rows, np))
+    with pytest.raises(ch.OutOfCompressedData):
+        ctt.decode_chain_iid(data[:1000], n, cdf, device="cuda")

@@ -323,7 +323,8 @@ def test_port_imports_no_jax():
         "import constriction_tpu_torch, constriction_tpu_torch.cuda\n"
         "import constriction_tpu_torch.convert, constriction_tpu_torch.models\n"
         "from constriction_tpu_torch.ops import (_build, coder, coder64,\n"
-        "    family, framing, interleaved, interleaved2, range_enc, tchain)\n"
+        "    chain, family, framing, interleaved, interleaved2, range_enc,\n"
+        "    tchain)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'constriction_tpu'))\n"
         "assert not bad, bad\n"
