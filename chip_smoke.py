@@ -96,6 +96,44 @@ prints one JSON object per phase, then the kernels line, the card's
                     on 2^20 symbols with a K=16 model each, against the
                     port's numpy path (torch operations, no kernel of this
                     repository).
+18. exact_builder -- the reference-exact families' on-card table builder:
+                    both canaries (window evaluator, whole builder) pass
+                    on the card; kernel 18 (window evaluation) against its
+                    twin on the card and every entry it calls unambiguous
+                    against the host oracle ``exact_tv_at`` (2^20 symbols
+                    of the suite's distribution, gaussian, laplace, cauchy);
+                    tables built on the card equal to the host builder's
+                    bit for bit (2^18 symbols each).
+19. exact_kernels -- kernels 15, 16 and 17 against their twins on the same
+                    CUDA tensors and the port's numpy oracles
+                    (``encode_shared``, ``decode_family_exact_host``) at
+                    L=32768, about 2^20 symbols: kernel 17 with and without
+                    seeds, kernel 15 over the host builder's tables at the
+                    batch's largest core, kernel 16 over three or more
+                    segments with tables built on the card.
+20. exact_main_path -- the JAX suite's exact-family row (2^22 symbols,
+                    synthetic latents, gaussian, support [-100, 100], P=24,
+                    L=32768, seed 1234) through ``cuda.encode_family_exact``
+                    -> ``decode_family_exact`` (grouped), ``cuda.
+                    encode_family_exact_container`` -> ``decode_family_
+                    exact_container``, the ungrouped pair (the facade's
+                    encode, then ``exact_family.decode_family_exact`` with
+                    tables built on the card), and the facade's ungrouped
+                    pair on the first 2^18 symbols (tables from the host
+                    builder, cmax=None): states, streams and container
+                    byte for byte the host oracles', every decode equal to
+                    the symbols, each of the four kernels launched; the
+                    container's overhead against the information content
+                    (as the suite computes it), the host rows and segments
+                    of the builder and which libm functions
+                    ``utils/special.py`` picked.
+21. exact_times  -- kernel-only time of each of the four at that size, its
+                    twin's time on the card, the device table build split
+                    into evaluation, host patch and derive + pack (Msym/s),
+                    the facade's call times, and each kernel's bound
+                    (kernels 15 and 16: the table words on the binary
+                    search's path, counted from this run's tables and
+                    symbols).
 
 Each main path runs with every launch counter set to 0 just before it, and
 the counts read just after it are the ``launches`` of its kernels.
@@ -104,16 +142,20 @@ read once, each output written once) over the card's 3.35 TB/s and its
 integer operations over 33.5 T per second (NVIDIA's 67 TFLOP/s float32
 rate counts a fused multiply-add as two); for the family kernels the
 operations are ``left()`` evaluations (LEFT_OPS each, counted from
-family.cuh) times what this run's inputs need.  No single PyTorch call
-computes these functions, so ``library_ms`` is null.
+family.cuh) times what this run's inputs need; for the window evaluator
+the float64 operations of each window entry (EVAL_OPS) over the card's
+34 TFLOP/s float64 rate outside the tensor cores (NVIDIA's data sheet).
+No single PyTorch call computes these functions, so ``library_ms`` is
+null.  The numpy host oracles of phases 18 and 19 run in worker processes
+(at most 8), which the script stops before phase 20.
 
 Everything comes from the port: the model's CDF
 (``constriction_tpu_torch.models``) and the host oracles, which are the
 port's numpy ILANS2 and ILANS2-R host coders under the port's container
-framing, its numpy family and TChain oracles and its numpy chain decode
-(the CPU tests hold them byte for byte against the JAX package).
-The script imports nothing of JAX or of the JAX package, and checks that
-at the end.
+framing, its numpy family and TChain oracles, its numpy chain decode and
+its numpy exact-family host builder and decode oracle (the CPU tests
+hold them byte for byte against the JAX package).  The script imports
+nothing of JAX or of the JAX package, and checks that at the end.
 """
 
 from __future__ import annotations
@@ -197,6 +239,30 @@ TCHAIN_KERNELS = {
     "tchain24_encode": ("tchain", "encode24",
                         "constriction_tpu/ops/tchain.py:1147", TCHAIN_SOURCE),
 }
+EXACT_SOURCE = "constriction_tpu_torch/ops/csrc/exact_family.cu"
+EXACT_KERNELS = {
+    "exact_decode64": ("exact", "decode64",
+                       "constriction_tpu/ops/exact_family.py:1835",
+                       EXACT_SOURCE),
+    "exact_decode64_seg": ("exact", "decode64_seg",
+                           "constriction_tpu/ops/exact_family.py:1919",
+                           EXACT_SOURCE),
+    "exact_encode64": ("exact", "encode64",
+                       "constriction_tpu/ops/exact_family.py:1953",
+                       EXACT_SOURCE),
+    "exact_eval_window": ("exact", "eval_window",
+                          "constriction_tpu/ops/df32_pallas.py:135",
+                          EXACT_SOURCE),
+}
+N_EXACT = 1 << 22  # the JAX suite's exact-family row at its TPU size
+N_EXACT_CHECK = (1 << 20) - 12345  # partial last step
+N_EXACT_EVAL = 1 << 20
+N_EXACT_TABLES = 1 << 18
+N_EXACT_FACADE_UNGROUPED = 1 << 18  # the facade's ungrouped decode builds
+# its tables on the host (numpy f64 CDFs): a size where that takes seconds
+EXACT_SUPPORT = (-100, 100)
+EXACT_FAMILY = "gaussian"
+EXACT_P = 24
 N_TCHAIN = 1 << 24  # the JAX suite's TChain rows: 2^24 quantiles, T = 512
 N_KERNEL_CHECK_TCHAIN = 1 << 20  # 32 steps of 32768 lanes
 N_CHAIN_ROWS = 1 << 20
@@ -1580,6 +1646,727 @@ def phase_chain_decode(device, gpu: str) -> dict:
     return {"phase": "chain_decode", "cases": out, "max_abs_err": 0}
 
 
+# ---------------------------------------------------------------------------
+# reference-exact families (W=32, S=64, P=24)
+# ---------------------------------------------------------------------------
+
+
+def exact_workload(n: int, scale_sd: float = 0.4, scale_mu: float = 0.7):
+    """The JAX suite's exact-family row with its synthetic latents
+    (benchmarks/suite.py:894-907): means tile 512 * 512 latents randn *
+    0.15 * 50, scales exp(N(0.7, 0.4)), symbols clip(round(mean + scale *
+    randn), -100, 100), from RandomState(1234)."""
+    import numpy as np
+
+    rng = np.random.RandomState(1234)
+    lat = rng.randn(512 * 512) * 0.15
+    means = np.tile(lat * 50.0, -(-n // len(lat)))[:n]
+    scales = np.exp(rng.normal(scale_mu, scale_sd, size=n))
+    lo, hi = EXACT_SUPPORT
+    symbols = np.clip(np.round(means + scales * rng.randn(n)), lo, hi
+                      ).astype(np.int64)
+    return means, scales, symbols
+
+
+def _exact_oracle_tv(args):
+    """Host oracle (a worker process): exact trunc values of one chunk of
+    windows, int32 [n * W]; the out-of-support sentinel past max_sym."""
+    import numpy as np
+
+    from constriction_tpu_torch.ops.exact_tables import exact_tv_at
+
+    family, means, scales, ws, W = args
+    lo, hi = EXACT_SUPPORT
+    svals = (ws[:, None] + np.arange(W)[None, :]).reshape(-1)
+    sym_i = np.repeat(np.arange(len(means)), W)
+    live = svals <= hi
+    out = np.full(len(svals), (1 << EXACT_P) - 1 - (hi - lo), np.int32)
+    out[live] = exact_tv_at(family, lo, hi, EXACT_P, means, scales,
+                            sym_i[live], svals[live])
+    return out
+
+
+def _exact_oracle_tables(args):
+    """Host builder (a worker process): ``exact_family.
+    packed_tables_device`` at cmax = the batch's largest core when ``cmax``
+    is None."""
+    from constriction_tpu_torch.ops import exact_family as ef
+
+    family, means, scales, cmax, nsteps, R = args
+    lo, hi = EXACT_SUPPORT
+    if cmax is None:
+        cmax = max(int(ef.exact_ncore(means, scales, family, lo, hi,
+                                      EXACT_P).max()), 1)
+    return ef.packed_tables_device(means, scales, family, lo, hi, EXACT_P,
+                                   cmax, nsteps, R)
+
+
+def _exact_oracle_decode(args):
+    """Host decode oracle (a worker process):
+    ``exact_family.decode_family_exact_host``."""
+    from constriction_tpu_torch.ops import exact_family as ef
+
+    states, stream, means, scales, family, cfg, n = args
+    lo, hi = EXACT_SUPPORT
+    return ef.decode_family_exact_host(states, stream, means, scales, family,
+                                       lo, hi, cfg, n)
+
+
+def host_pool():
+    """Worker processes for the numpy host oracles (spawned: they never
+    touch the card); the caller's ``with`` block stops them."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    return ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                               mp_context=multiprocessing.get_context("spawn"))
+
+
+def builder_windows(family, means, scales, W_core: int):
+    """The builder's window starts (``packed_tables_on_device_batch``) and
+    a window width: W_core for gaussian and laplace, the whole support
+    plus 16 for cauchy."""
+    import numpy as np
+
+    from constriction_tpu_torch.ops import exact_family as ef
+
+    lo, hi = EXACT_SUPPORT
+    CL = ef._EST_C[family][0]
+    if np.isinf(CL):
+        return np.full(len(means), lo + 1, np.int64), hi - lo + 1 + 16
+    ws = np.clip(np.ceil(means - CL * scales) - 3.0, lo + 1, hi)
+    return ws.astype(np.int64), W_core
+
+
+def phase_exact_builder(device, pool, errs: dict) -> dict:
+    """Both canaries on the card; kernel 18 against its twin on the card
+    and every entry it calls unambiguous against the host oracle (2^20
+    symbols of each continuous family); device-built tables against the
+    host builder, bit for bit (2^18 symbols each)."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import exact_family as ef
+    from constriction_tpu_torch.ops import exact_tables as et
+    from constriction_tpu_torch.utils import special
+
+    lo, hi = EXACT_SUPPORT
+    t0 = time.perf_counter()
+    et.eval_window_canary(device)
+    et.builder_canary(device)
+    canary_s = time.perf_counter() - t0
+    means, scales, _ = exact_workload(N_EXACT_EVAL)
+    L = 32768
+    nt = N_EXACT_TABLES
+    tables = {fam: pool.submit(_exact_oracle_tables, (
+        fam, means[:nt], scales[:nt], None, nt // L, L // 128))
+        for fam in ef.DEVICE_FAMILIES}
+    rows = []
+    err = 0
+    for family in ef.DEVICE_FAMILIES:
+        ws, W = builder_windows(family, means, scales, 64)
+        m_t, s_t = convert.params64_to_torch(means, scales, device)
+        ws_t = torch.from_numpy(ws.astype(np.int32)).to(device)
+        tv, amb = et.eval_window(m_t, s_t, ws_t, family, lo, hi, EXACT_P, W)
+        tv_p, amb_p = et.eval_window_plain(m_t, s_t, ws_t, family, lo, hi,
+                                           EXACT_P, W)
+        both = ~amb & ~amb_p
+        twin_err = int((tv[both].long() - tv_p[both].long()).abs().max()) \
+            if bool(both.any()) else 0
+        flags_differ = int((amb != amb_p).sum())
+        del tv_p, amb_p, both
+        tv_h = tv.cpu().numpy().reshape(-1)
+        amb_h = amb.cpu().numpy().reshape(-1)
+        del tv, amb
+        chunk = 1 << 16
+        exact = np.concatenate(list(pool.map(_exact_oracle_tv, [
+            (family, means[i:i + chunk], scales[i:i + chunk],
+             ws[i:i + chunk], W) for i in range(0, len(means), chunk)])))
+        wrong = int(np.count_nonzero(~amb_h & (tv_h != exact)))
+        share = float(amb_h.mean())
+        err = max(err, twin_err, wrong)
+        rows.append({
+            "family": family, "symbols": len(means), "W": W,
+            "entries": int(tv_h.size), "ambiguous_share": share,
+            "accepted_entries_wrong": wrong, "twin_max_abs_err": twin_err,
+            "flags_differ_from_twin": flags_differ,
+            "identical_to_twin": twin_err == 0 and flags_differ == 0,
+        })
+        if wrong or twin_err or share >= 0.2:
+            fail(f"exact_builder: window evaluator: {rows[-1]}")
+    for family in ef.DEVICE_FAMILIES:
+        host4, ch = tables[family].result()
+        nc = int(host4[:, 0].max() >> 24)
+        (dev_t, cd), = et.packed_tables_on_device_batch(
+            [(means[:nt], scales[:nt], max(nc, 1), nt // L)], family, lo, hi,
+            EXACT_P, L, device)
+        same = cd == ch and np.array_equal(
+            convert.exact_tables_from_torch(dev_t), host4)
+        rows.append({"family": family, "symbols": nt, "cmax": ch,
+                     "device_tables_identical_to_host_builder": same})
+        if not same:
+            fail(f"exact_builder: device tables differ from the host "
+                 f"builder's ({family})")
+    errs["exact_eval_window"] = err
+    return {"phase": "exact_builder", "canaries_passed": True,
+            "canary_s": canary_s, "cases": rows,
+            "special_picked": special.PICKED}
+
+
+def phase_exact_kernels(device, pool, errs: dict) -> dict:
+    """Kernels 15, 16 and 17 against their twins on the same CUDA tensors
+    and against the numpy oracles at L=32768 and about 2^20 symbols:
+    ungrouped (kernel 15, host-built tables, cmax from the batch's largest
+    core) and grouped (kernel 16, three or more segments, tables built on
+    the card), kernel 17 with and without seeds.  Scales exp(N(0, 0.3))
+    keep the host builder's windows near 60 wide (it evaluates n * (cmax +
+    8) CDFs in numpy)."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import exact_family as ef
+    from constriction_tpu_torch.ops import interleaved2 as il2
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    lo, hi = EXACT_SUPPORT
+    family, n, L = EXACT_FAMILY, N_EXACT_CHECK, 32768
+    means, scales, syms = exact_workload(n, scale_sd=0.3, scale_mu=0.0)
+    cfg = LaneConfig(num_lanes=L, word_bits=32, state_bits=64,
+                     precision=EXACT_P)
+    T = -(-n // L)
+    pm, ps = ef._pad_params(means, scales, T * L, family, hi)
+    host_tabs = pool.submit(_exact_oracle_tables,
+                            (family, pm, ps, None, T, L // 128))
+    cums, probs = ef.exact_ecp(syms, means, scales, family, lo, hi, EXACT_P)
+    c_t, p_t = convert.ecp_to_torch(cums, probs, L, device)
+    rng = np.random.RandomState(5)
+    e_enc = 0
+    rows = []
+    for seeded in (False, True):
+        seeds = (rng.randint(1 << 32, (1 << 63) - 1, L, dtype=np.int64)
+                 .astype(np.uint64) if seeded else None)
+        s_t = None if seeds is None else convert.u64_to_torch(seeds, device)
+        st, w = ef.encode_tables(c_t, p_t, cfg, s_t, n)
+        st_p, w_p = ef.encode_tables_plain(c_t, p_t, cfg, s_t, n)
+        st_h, w_h = il2.encode_shared(cums, probs, cfg, seeds=seeds)
+        e = max(mismatch(st, st_p), mismatch(w, w_p))
+        same_h = (np.array_equal(convert.u64_from_torch(st), st_h)
+                  and np.array_equal(convert.u32_from_torch(w), w_h))
+        e_enc = max(e_enc, e, 0 if same_h else 1)
+        rows.append({"kernel": "exact_encode64", "seeded": seeded, "n": n,
+                     "max_abs_err_vs_twin": e,
+                     "identical_to_host_oracle": same_h})
+        if not seeded:
+            states, stream = st, w
+    host_dec = pool.submit(_exact_oracle_decode, (
+        convert.u64_from_torch(states), convert.u32_from_torch(stream), means,
+        scales, family, cfg, n))
+    # ungrouped: kernel 15 over the host builder's tables
+    tabs4, cmax_u = host_tabs.result()
+    tabs = convert.exact_tables_to_torch(tabs4, device)
+    out, fin = ef.decode_tables(states, stream, tabs, cfg, lo, hi, n,
+                                return_final_states=True)
+    out_p, fin_p, _ = ef.decode_tables_plain(states, stream, tabs, cfg, lo,
+                                             hi, n)
+    e15 = max(mismatch(out, out_p), mismatch(fin, fin_p))
+    ok15 = (np.array_equal(out.cpu().numpy(), syms)
+            and bool((fin == 1 << 32).all()))
+    # grouped: kernel 17 in core-size order, kernel 16 per segment
+    perm, segs = ef.group_plan(means, scales, family, lo, hi, EXACT_P, L, n)
+    if len(segs) < 3:
+        fail(f"exact_kernels: the grouped plan has {len(segs)} segments")
+    gst, gw = ef.encode_family_exact_grouped(syms, means, scales, family, lo,
+                                             hi, cfg, device)
+    host_gdec = pool.submit(_exact_oracle_decode, (
+        convert.u64_from_torch(gst), convert.u32_from_torch(gw), means[perm],
+        scales[perm], family, cfg, n))
+    gpm, gps = ef._pad_params(means[perm], scales[perm], T * L, family, hi)
+    built = ef._segment_tables(gpm, gps, segs, family, lo, hi, cfg, device,
+                               device_tables=True)
+    base = torch.zeros(1, dtype=torch.int64, device=device)
+    st_k = st_q = gst
+    base_q = base
+    outs = []
+    e16 = 0
+    for (t0, ns, _), (tb, _) in zip(segs, built):
+        k = min(ns * L, n - t0 * L)
+        o, st_k, base = ef.decode_tables_seg(st_k, gw, tb, base, cfg, lo, hi,
+                                             k)
+        o_q, st_q, base_q = ef.decode_tables_plain(st_q, gw, tb, cfg, lo, hi,
+                                                   k, base_q)
+        e16 = max(e16, mismatch(o, o_q), mismatch(st_k, st_q),
+                  mismatch(base, base_q))
+        outs.append(o.cpu().numpy())
+    ok16 = (np.array_equal(np.concatenate(outs), syms[perm])
+            and int(base) == gw.numel() and bool((st_k == 1 << 32).all()))
+    ok15 = ok15 and np.array_equal(host_dec.result(), syms)
+    ok16 = ok16 and np.array_equal(host_gdec.result(), syms[perm])
+    rows.append({"kernel": "exact_decode64", "n": n, "cmax": cmax_u,
+                 "max_abs_err_vs_twin": e15,
+                 "decodes_like_host_oracle": ok15})
+    rows.append({"kernel": "exact_decode64_seg", "n": n,
+                 "segments": [list(s) for s in segs],
+                 "max_abs_err_vs_twin": e16,
+                 "decodes_like_host_oracle": ok16})
+    errs["exact_encode64"] = e_enc
+    errs["exact_decode64"] = e15
+    errs["exact_decode64_seg"] = e16
+    if e_enc or e15 or e16 or not (ok15 and ok16):
+        fail(f"exact_kernels: {rows}")
+    return {"phase": "exact_kernels", "num_lanes": L, "cases": rows}
+
+
+def info_bits(symbols, means, scales) -> float:
+    """Information content of the message under the true sampling
+    probabilities of clip(round(N(mean, scale^2))), as the JAX suite
+    computes it (benchmarks/suite.py:78-89, :910-911)."""
+    import numpy as np
+    from scipy.special import ndtr
+
+    lo, hi = EXACT_SUPPORT
+    x = np.asarray(symbols, np.float64)
+    upper = np.where(x >= hi, 1.0, ndtr((x + 0.5 - means) / scales))
+    lower = np.where(x <= lo, 0.0, ndtr((x - 0.5 - means) / scales))
+    return float(-np.sum(np.log2(np.maximum(upper - lower, 1e-300))))
+
+
+def phase_exact_main(device, work, keep: dict) -> dict:
+    """The JAX suite's exact-family row (2^22 symbols, gaussian, support
+    [-100, 100], P=24, L=32768) through the four facade entry points
+    (grouped pair and v2 container), the ungrouped pair (the facade's
+    encode with the same DEFAULT-preset config, then
+    ``exact_family.decode_family_exact`` with tables built on the card), and
+    the facade's ungrouped pair on the first N_EXACT_FACADE_UNGROUPED
+    symbols (its decode builds the tables on the host): states, streams and
+    container byte for byte the port's numpy host oracles', every decode
+    equal to the symbols."""
+    import numpy as np
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch import cuda as ctt
+    from constriction_tpu_torch.ops import exact_family as ef
+    from constriction_tpu_torch.ops import exact_tables as et
+    from constriction_tpu_torch.ops import framing
+    from constriction_tpu_torch.ops import interleaved2 as il2
+    from constriction_tpu_torch.utils import special
+
+    means, scales, syms = work
+    lo, hi = EXACT_SUPPORT
+    family, n = EXACT_FAMILY, len(syms)
+    cfg = ctt._pick_cfg_family(n, None, True)
+    et.HOST_ROWS["count"] = et.HOST_SEGMENTS["count"] = 0
+    clock = time.perf_counter
+    t = [clock()]
+    st, w = ctt.encode_family_exact(syms, means, scales, family, lo, hi,
+                                    grouped=True, device=device)
+    t.append(clock())
+    out = ctt.decode_family_exact(st, w, means, scales, family, lo, hi, n,
+                                  grouped=True, device=device)
+    t.append(clock())
+    data = ctt.encode_family_exact_container(syms, means, scales, family, lo,
+                                             hi, device=device)
+    t.append(clock())
+    out_c = ctt.decode_family_exact_container(data, means, scales, family,
+                                              lo, hi, device=device)
+    t.append(clock())
+    st_u, w_u = ctt.encode_family_exact(syms, means, scales, family, lo, hi,
+                                        cfg=cfg, device=device)
+    t.append(clock())
+    cmax_u = min(255, -(-int(ef._ncore_estimate(
+        means, scales, family, lo, hi).max()) // 4) * 4)
+    out_u = ef.decode_family_exact(
+        convert.u64_to_torch(st_u, device), convert.u32_to_torch(w_u, device),
+        means, scales, family, lo, hi, cfg, n, cmax=cmax_u,
+        device_tables=True).cpu().numpy()
+    t.append(clock())
+    # the facade's ungrouped decode (host-built tables, cmax=None) on the
+    # message's first N_EXACT_FACADE_UNGROUPED symbols
+    nf = N_EXACT_FACADE_UNGROUPED
+    st_f, w_f = ctt.encode_family_exact(syms[:nf], means[:nf], scales[:nf],
+                                        family, lo, hi, cfg=cfg,
+                                        device=device)
+    t_f = clock()
+    out_f = ctt.decode_family_exact(st_f, w_f, means[:nf], scales[:nf],
+                                    family, lo, hi, nf, cfg=cfg,
+                                    device=device)
+    t_f = clock() - t_f
+    t.append(clock())
+    # host oracles
+    perm, segs = ef.group_plan(means, scales, family, lo, hi, EXACT_P,
+                               cfg.num_lanes, n)
+    cums, probs = ef.exact_ecp(syms[perm], means[perm], scales[perm], family,
+                               lo, hi, EXACT_P)
+    st_h, w_h = il2.encode_shared(cums, probs, cfg)
+
+    def encode_a(n_A, seeds):
+        return il2.encode_shared(cums[:n_A], probs[:n_A], cfg, seeds=seeds)
+
+    data_h = framing.frame_planes_v2(cums, probs, cfg, None, encode_a)
+    cu, pu = ef.exact_ecp(syms, means, scales, family, lo, hi, EXACT_P)
+    st_uh, w_uh = il2.encode_shared(cu, pu, cfg)
+    st_fh, w_fh = il2.encode_shared(cu[:nf], pu[:nf], cfg)
+    t.append(clock())
+    info = info_bits(syms, means, scales)
+    p = framing.parse_v2(data)
+    calls = dict(zip(("encode_grouped", "decode_grouped",
+                      "encode_container", "decode_container",
+                      "encode_ungrouped", "decode_ungrouped_device_tables",
+                      "ungrouped_facade_pair", "host_oracles"), np.diff(t)))
+    row = {
+        "family": family, "support": [lo, hi], "n": n,
+        "num_lanes": cfg.num_lanes, "precision": cfg.precision,
+        "segments": [list(s) for s in segs],
+        "weighted_cmax": sum(ns * cm for _, ns, cm in segs) / (-(-n // cfg.num_lanes)),
+        "ungrouped_cmax_bound": cmax_u,
+        "stream_words": int(len(w)), "container_words": int(len(data)),
+        "region_B_symbols": p.k_B,
+        "grouped_identical_to_host_oracle": bool(
+            np.array_equal(st, st_h) and np.array_equal(w, w_h)),
+        "container_identical_to_host_oracle": bool(
+            np.array_equal(data, data_h)),
+        "ungrouped_identical_to_host_oracle": bool(
+            np.array_equal(st_u, st_uh) and np.array_equal(w_u, w_uh)
+            and np.array_equal(st_f, st_fh) and np.array_equal(w_f, w_fh)),
+        "decodes_exactly": bool(np.array_equal(out, syms)
+                                and np.array_equal(out_c, syms)
+                                and np.array_equal(out_u, syms)
+                                and np.array_equal(out_f, syms[:nf])),
+        "ungrouped_facade_n": nf,
+        "decode_ungrouped_facade_host_tables_call_s": t_f,
+        "max_abs_err": 0,
+        "entropy_bits_per_symbol": info / n,
+        "container_overhead_pct": (len(data) * 32 / info - 1) * 100,
+        "raw_grouped_overhead_pct": (
+            (cfg.num_lanes * 64 + len(w) * 32) / info - 1) * 100,
+        "host_rows": et.HOST_ROWS["count"],
+        "host_segments": et.HOST_SEGMENTS["count"],
+        "special_picked": special.PICKED,
+        **{f"{k}_call_s": v for k, v in calls.items()},
+    }
+    keep.update(calls=calls, segs=segs, perm=perm, cums=cums, probs=probs,
+                cmax_u=cmax_u)
+    if not (row["grouped_identical_to_host_oracle"]
+            and row["container_identical_to_host_oracle"]
+            and row["ungrouped_identical_to_host_oracle"]
+            and row["decodes_exactly"]):
+        fail(f"exact main path: {row}")
+    return {"phase": "exact_main_path", "cases": [row]}
+
+
+def search_sweep(device, states, stream, spans, built, cfg) -> list:
+    """Kernels 15 and 16 per table width: each segment ``(first symbol,
+    count)`` alone from the states and stream offset it starts from, its
+    fields found by the linear scan and by binary search, timed in turns
+    (scan, bisect, bisect, scan); the two must decode alike."""
+    import torch
+
+    from constriction_tpu_torch.ops import _build
+    from constriction_tpu_torch.ops import exact_family as ef
+
+    lo, hi = EXACT_SUPPORT
+    L = cfg.num_lanes
+    x = states
+    b = torch.zeros(1, dtype=torch.int64, device=device)
+    rows = []
+    for (r0, k), (tb, _) in zip(spans, built):
+        x0, b0 = x.clone(), b.clone()
+        s_buf, b_buf = x0.clone(), b0.clone()
+        outs = {}
+        res = {0: [], 1: []}
+        for mode in (0, 1, 1, 0):
+            o_buf = torch.empty(k, dtype=torch.int32, device=device)
+
+            def reset():
+                s_buf.copy_(x0)
+                b_buf.copy_(b0)
+
+            res[mode].append(kernel_ms(reset, lambda: _build.call(
+                "ctt_exact_decode64_seg", device, s_buf, stream,
+                stream.numel(), tb, tb.shape[1], o_buf, k, L, cfg.precision,
+                lo, hi, mode, b_buf), 3))
+            outs[mode] = (o_buf, s_buf.clone(), b_buf.clone())
+        if not all(torch.equal(a, c) for a, c in zip(outs[0], outs[1])):
+            fail(f"search_sweep: scan and bisect differ at {tb.shape[1]} "
+                 "planes")
+        x, b = outs[0][1], outs[0][2]
+        rows.append({"planes": int(tb.shape[1]), "symbols": k,
+                     "scan_ms": sum(res[0]) / 2, "bisect_ms": sum(res[1]) / 2})
+    return rows
+
+
+def search_path_words(tabs, cums, k: int) -> tuple[int, int]:
+    """What kernels 15 and 16 need to read of the tables ``tabs`` int32
+    [T, CP1, L] to decode the first ``k`` symbols (symbol i in column i %
+    L of step i // L) whose ``cums`` (numpy, decode order) are known: per
+    symbol the aux word and the distinct words of the packed fields that
+    the binary search over the ascending fields probes (``field(mid)``,
+    then ``field(cnt - 1)`` and ``field(cnt)``, as exact_family.cu's
+    ``TableModel`` does; fields 1 and 2 of a group straddle two words).
+    ``cnt``, the number of fields below the quantile, is the same for
+    every quantile of a symbol's interval, so the symbol's cum stands for
+    it.  Counted for every width, also where the wrapper scans: the least
+    the decode needs.  Returns ``(words, probes)`` summed over symbols."""
+    import numpy as np
+    import torch
+
+    T, CP1, L = tabs.shape
+    N = 4 * ((CP1 - 1) // 3)
+    q_all = torch.from_numpy(np.asarray(cums[:k], np.int64)).to(tabs.device)
+    words = probes = 0
+    per = max(1, (1 << 18) // L)  # steps a chunk
+    for t0 in range(0, -(-k // L), per):
+        t1 = min(t0 + per, -(-k // L))
+        col = tabs[t0:t1].permute(0, 2, 1).reshape(-1, CP1)[:k - t0 * L]
+        col = col.to(torch.int64) & 0xFFFFFFFF
+        m = col.shape[0]
+        w = col[:, 1:].reshape(m, -1, 3)
+        w0, w1, w2 = w[..., 0], w[..., 1], w[..., 2]
+        fields = torch.stack([
+            w0 & 0xFFFFFF, (w0 >> 24) | ((w1 & 0xFFFF) << 8),
+            (w1 >> 16) | ((w2 & 0xFF) << 16), w2 >> 8], -1).reshape(m, N)
+        cnt = (fields < q_all[t0 * L:t0 * L + m, None]).sum(1)
+        del fields, w, w0, w1, w2, col
+        touched = torch.zeros((m, CP1), dtype=torch.bool, device=tabs.device)
+        touched[:, 0] = True  # the aux word
+
+        def mark(kf, live):
+            base = 1 + 3 * (kf >> 2)
+            r = kf & 3
+            first = base + (r - 1).clamp(min=0)
+            second = torch.where((r == 1) | (r == 2), base + r, first)
+            for idx in (first, second):
+                touched.scatter_(1, torch.where(live, idx, 0)[:, None], True)
+            return int(live.sum())
+
+        lo = torch.zeros(m, dtype=torch.int64, device=tabs.device)
+        hi = torch.full_like(lo, N)
+        while True:
+            live = lo < hi
+            if not bool(live.any()):
+                break
+            mid = (lo + hi) >> 1
+            probes += mark(mid, live)
+            below = mid < cnt
+            lo = torch.where(live & below, mid + 1, lo)
+            hi = torch.where(live & ~below, mid, hi)
+        probes += mark((cnt - 1).clamp(min=0), cnt > 0)
+        probes += mark(cnt.clamp(max=N - 1), cnt < N)
+        words += int(touched.sum())
+    return words, probes
+
+
+# integer operations per symbol of the S=64 encoder (u64 division and
+# remainder, renorm test, emission) and of the table decoder outside its
+# search (regions, u64 update, refill), and per packed field it probes
+ENCODE64_OPS = 30
+DECODE64_OPS = 40
+PROBE_OPS = 6
+# f64 operations of one window entry in exact_family.cu's kernel 18 (the
+# argument 4, the rounding rules 12, the CDF: erf about 24, exp about 16,
+# atan about 22 from CUDA's polynomial degrees)
+EVAL_OPS = {"gaussian": 40, "laplace": 32, "cauchy": 38}
+F64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores
+
+
+def phase_exact_times(device, work, keep: dict, gpu: str,
+                      errs: dict) -> tuple[dict, dict]:
+    """Kernel-only time of each of the four at the main path's shapes
+    (CUDA events around the C entry points on preallocated buffers, after
+    a warm-up), its twin's time on the card (outputs equal), the device
+    table build broken into evaluation, host patch and derive + pack, and
+    each kernel's bound.  Returns the phase record and {kernel: (ms,
+    plain_ms, bound_ms, bound_by)}."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import _build
+    from constriction_tpu_torch.ops import exact_family as ef
+    from constriction_tpu_torch.ops import exact_tables as et
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    means, scales, syms = work
+    lo, hi = EXACT_SUPPORT
+    family, n = EXACT_FAMILY, len(syms)
+    segs, perm = keep["segs"], keep["perm"]
+    L = 32768
+    T = -(-n // L)
+    cfg = LaneConfig(num_lanes=L, word_bits=32, state_bits=64,
+                     precision=EXACT_P)
+    c_t, p_t = convert.ecp_to_torch(keep["cums"], keep["probs"], L, device)
+    st, w = ef.encode_tables(c_t, p_t, cfg, None, n)
+    nw = int(w.numel())
+    # the device table build of the grouped decode, by phase
+    pm, ps = ef._pad_params(means[perm], scales[perm], T * L, family, hi)
+    seg_args = [(pm[t0 * L:(t0 + ns) * L], ps[t0 * L:(t0 + ns) * L], cm, ns)
+                for t0, ns, cm in segs]
+    build = {}
+    t0 = time.perf_counter()
+    built = et.packed_tables_on_device_batch(seg_args, family, lo, hi,
+                                             EXACT_P, L, device,
+                                             timings=build)
+    build_s = time.perf_counter() - t0
+    # kernel 18 alone over the segments' windows
+    wins = []
+    for m, s, cm, ns in seg_args:
+        ws, _ = builder_windows(family, m, s, 0)
+        W = min(cm + 16, hi - lo + 1 + 16)
+        m_t, s_t = convert.params64_to_torch(m, s, device)
+        wins.append((m_t, s_t, torch.from_numpy(ws.astype(np.int32)).to(
+            device), W, torch.empty((len(m), W), dtype=torch.int32,
+                                    device=device),
+            torch.empty((len(m), W), dtype=torch.bool, device=device)))
+    t_star, eps, has_star = et._band(family)
+    fi = ef.DEVICE_FAMILIES.index(family)
+
+    def eval_all():
+        for m_t, s_t, ws_t, W, tv, amb in wins:
+            _build.call("ctt_exact_eval_window", device, m_t, s_t, ws_t,
+                        m_t.numel(), W, fi, lo, hi, EXACT_P, t_star, eps,
+                        int(has_star), tv, amb)
+
+    ms, plain, e = {}, {}, {}
+    ms["exact_eval_window"] = kernel_ms(lambda: None, eval_all, 3)
+    e_eval = 0
+    t0 = time.perf_counter()
+    for m_t, s_t, ws_t, W, tv, amb in wins:
+        tv_p, amb_p = et.eval_window_plain(m_t, s_t, ws_t, family, lo, hi,
+                                           EXACT_P, W)
+        both = ~amb & ~amb_p
+        if bool(both.any()):
+            e_eval = max(e_eval, int((tv[both].long() - tv_p[both].long())
+                                     .abs().max()))
+        del tv_p, amb_p, both
+    torch.cuda.synchronize()
+    plain["exact_eval_window"] = (time.perf_counter() - t0) * 1e3
+    e["exact_eval_window"] = e_eval
+    # kernel 17 alone
+    s_buf = torch.empty(L, dtype=torch.int64, device=device)
+    w_buf = torch.empty(n, dtype=torch.int32, device=device)
+    end = torch.empty(1, dtype=torch.int64, device=device)
+    ms["exact_encode64"] = kernel_ms(
+        lambda: s_buf.fill_(1 << 32), lambda: _build.call(
+            "ctt_exact_encode64", device, s_buf, c_t, p_t, n, w_buf, n, end,
+            L, EXACT_P), 3)
+    same = torch.equal(s_buf, st) and torch.equal(w_buf[int(end):], w)
+    plain["exact_encode64"], pe = timed(
+        lambda: ef.encode_tables_plain(c_t, p_t, cfg, None, n))
+    e["exact_encode64"] = planes_err((st, w), pe)
+    # kernel 16 alone: the segment chain
+    o_buf = torch.empty(n, dtype=torch.int32, device=device)
+    b_buf = torch.empty(1, dtype=torch.int64, device=device)
+    spans = [(t0 * L, min(ns * L, n - t0 * L)) for t0, ns, _ in segs]
+
+    def seg_chain():
+        for (r0, k), (tb, _) in zip(spans, built):
+            _build.call("ctt_exact_decode64_seg", device, s_buf, w, nw, tb,
+                        tb.shape[1], o_buf[r0:], k, L, EXACT_P, lo, hi,
+                        int(ef.bisect_tables(tb.shape[1])), b_buf)
+
+    def reset():
+        s_buf.copy_(st)
+        b_buf.zero_()
+
+    ms["exact_decode64_seg"] = kernel_ms(reset, seg_chain, 3)
+    same = (same and torch.equal(o_buf.cpu(), torch.from_numpy(
+        syms[perm].astype(np.int32))) and int(b_buf) == nw)
+
+    def seg_twin():
+        x, b = st, torch.zeros(1, dtype=torch.int64, device=device)
+        outs = []
+        for (r0, k), (tb, _) in zip(spans, built):
+            o, x, b = ef.decode_tables_plain(x, w, tb, cfg, lo, hi, k, b)
+            outs.append(o)
+        return torch.cat(outs), x
+
+    plain["exact_decode64_seg"], pd = timed(seg_twin)
+    e["exact_decode64_seg"] = planes_err((o_buf, s_buf), pd)
+    search = search_sweep(device, st, w, spans, built, cfg)
+    # kernel 15 alone: the ungrouped message, tables built on the card
+    cu, pr = ef.exact_ecp(syms, means, scales, family, lo, hi, EXACT_P)
+    cu_t, pu_t = convert.ecp_to_torch(cu, pr, L, device)
+    su, wu = ef.encode_tables(cu_t, pu_t, cfg, None, n)
+    del cu_t, pu_t
+    pmu, psu = ef._pad_params(means, scales, T * L, family, hi)
+    (tab_u, cmax_u), = et.packed_tables_on_device_batch(
+        [(pmu, psu, keep["cmax_u"], T)], family, lo, hi, EXACT_P, L, device)
+    nwu = int(wu.numel())
+    ms["exact_decode64"] = kernel_ms(
+        lambda: s_buf.copy_(su), lambda: _build.call(
+            "ctt_exact_decode64", device, s_buf, wu, nwu, tab_u,
+            tab_u.shape[1], o_buf, n, L, EXACT_P, lo, hi,
+            int(ef.bisect_tables(tab_u.shape[1])), None), 3)
+    same = (same and torch.equal(o_buf.cpu(), torch.from_numpy(
+        syms.astype(np.int32))) and bool((s_buf == 1 << 32).all()))
+    plain["exact_decode64"], pu = timed(lambda: ef.decode_tables_plain(
+        su, wu, tab_u, cfg, lo, hi, n)[:2])
+    e["exact_decode64"] = planes_err((o_buf, s_buf), pu)
+    search += search_sweep(device, su, wu, [(0, n)], [(tab_u, cmax_u)], cfg)
+    if not same:
+        fail("exact_times: timed launches differ from the wrappers' output")
+    if any(e.values()):
+        fail(f"exact_times: kernel != twin at full size: {e}")
+
+    # bounds: the table words on the binary search's path (aux word plus
+    # the probed fields), stream, symbol and state bytes (decoders), planes,
+    # stream and states (encoder), tv + flags against f64 operations
+    # (evaluator)
+    cums = keep["cums"]
+    seg_path = [search_path_words(tb, cums[r0:r0 + k], k)
+                for (r0, k), (tb, _) in zip(spans, built)]
+    seg_words = sum(wd for wd, _ in seg_path)
+    seg_probes = sum(pr for _, pr in seg_path)
+    u_words, u_probes = search_path_words(tab_u, cu, n)
+    entries = sum(m_t.numel() * W for m_t, _, _, W, _, _ in wins)
+    bounds = {
+        "exact_encode64": bound(8 * n + 16 * L + 4 * nw, ENCODE64_OPS * n),
+        "exact_decode64_seg": bound(
+            4 * seg_words + 4 * nw + 4 * n + 16 * L,
+            PROBE_OPS * seg_probes + DECODE64_OPS * n),
+        "exact_decode64": bound(
+            4 * u_words + 4 * nwu + 4 * n + 16 * L,
+            PROBE_OPS * u_probes + DECODE64_OPS * n),
+    }
+    t_bytes = (entries * 5 + 20 * sum(m_t.numel() for m_t, *_ in wins)) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = entries * EVAL_OPS[family] / F64_OPS_PER_S * 1e3
+    bounds["exact_eval_window"] = ((t_bytes, "bytes") if t_bytes >= t_ops
+                                   else (t_ops, "operations"))
+    times = {}
+    for name in ms:
+        errs[name] = max(errs[name], e[name])
+        times[name] = (ms[name], plain[name], *bounds[name])
+    calls = keep["calls"]
+    row = {
+        "family": family, "n": n, "num_lanes": L,
+        "segments": len(segs), "window_entries": entries,
+        "seg_table_bytes": sum(k * 4 * tb.shape[1] for (_, k), (tb, _)
+                               in zip(spans, built)),
+        "seg_search_path_bytes_per_symbol": 4 * seg_words / n,
+        "ungrouped_search_path_bytes_per_symbol": 4 * u_words / n,
+        "ungrouped_table_width": cmax_u,
+        **{f"{k}_ms": v for k, v in ms.items()},
+        **{f"{k}_ns_per_symbol": v * 1e6 / n for k, v in ms.items()},
+        **{f"{k}_plain_ms": v for k, v in plain.items()},
+        **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
+        **{f"{k}_bound_by": v[1] for k, v in bounds.items()},
+        **{f"{k}_max_abs_err": v for k, v in e.items()},
+        "search_by_width": search,
+        "device_build_s": build_s,
+        **{f"device_build_{k}": v for k, v in build.items()},
+        "device_prep_Msyms": n / build_s / 1e6,
+        "e2e_fresh_Msyms": n / (build_s + ms["exact_decode64_seg"] * 1e-3)
+        / 1e6,
+        **{f"facade_{k}_call_s": v for k, v in calls.items()},
+        **{f"facade_{k}_Msyms": n / v / 1e6 for k, v in calls.items()
+           if k not in ("host_oracles", "ungrouped_facade_pair")},
+        "gpu": gpu,
+    }
+    return {"phase": "exact_times", "cases": [row]}, times
+
+
 def run_main_path(modules: dict, table: dict, phase):
     """Runs ``phase()`` with every launch counter set to 0 just before it;
     returns its record with the launches of ``table``'s kernels, read just
@@ -1610,8 +2397,8 @@ def main(argv) -> int:
     if argv:
         fail(f"unknown arguments {argv}; usage: chip_smoke.py")
     sys.path.insert(0, REPO)
-    from constriction_tpu_torch.ops import (coder, coder64, family, range_enc,
-                                            tchain)
+    from constriction_tpu_torch.ops import (coder, coder64, exact_family,
+                                            family, range_enc, tchain)
 
     device = torch.device("cuda", 0)
     build = phase_build()
@@ -1619,7 +2406,7 @@ def main(argv) -> int:
     gpu = build["gpu"]
     modules = {"coder": coder.LAUNCHES, "coder64": coder64.LAUNCHES,
                "range_enc": range_enc.LAUNCHES, "family": family.LAUNCHES,
-               "tchain": tchain.LAUNCHES}
+               "tchain": tchain.LAUNCHES, "exact": exact_family.LAUNCHES}
 
     kernels, errs = phase_kernels(device, N_KERNEL_CHECK, 32768)
     emit(kernels)
@@ -1668,6 +2455,17 @@ def main(argv) -> int:
     times.update(more)
     emit(phase_chain_decode(device, gpu))
 
+    with host_pool() as pool:
+        emit(phase_exact_builder(device, pool, errs))
+        emit(phase_exact_kernels(device, pool, errs))
+    work = exact_workload(N_EXACT)
+    keep: dict = {}
+    launches.update(run_main_path(
+        modules, EXACT_KERNELS, lambda: phase_exact_main(device, work, keep)))
+    exact_times, more = phase_exact_times(device, work, keep, gpu, errs)
+    emit(exact_times)
+    times.update(more)
+
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "constriction_tpu"))
     if foreign:
@@ -1680,7 +2478,7 @@ def main(argv) -> int:
          "library_ms": None}
         for name, (_, _, site, source) in {
             **KERNELS, **RANGE_KERNELS, **FAMILY_KERNELS,
-            **TCHAIN_KERNELS}.items()
+            **TCHAIN_KERNELS, **EXACT_KERNELS}.items()
     ]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {

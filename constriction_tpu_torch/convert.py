@@ -17,7 +17,12 @@ torch has few operations on unsigned integers:
 - 16-bit quantiles (TChain-16) -> the planar u32 words of
   ``ops.tchain.pack_quantiles`` as int32 bit patterns;
 - 24-bit quantiles (TChain-24) -> one u32 word each (:func:`u32_to_torch`);
-  TChain-24 remainder heads are u64 data (:func:`u64_to_torch`).
+  TChain-24 remainder heads are u64 data (:func:`u64_to_torch`);
+- the reference-exact families' f64 means and scales -> ``torch.float64``
+  (:func:`params64_to_torch`), their per-symbol (cum, prob) u32 planes ->
+  int32 ``[T, L]`` (:func:`ecp_to_torch`) and their packed wide decode
+  tables ``u32[T, CP1, R, 128]`` -> int32 ``[T, CP1, L]``
+  (:func:`exact_tables_to_torch`).
 
 Kernels read these buffers as ``uint32_t`` / ``uint64_t``; the plain twins
 widen them with :func:`u32_values` / :func:`u64_halves`.
@@ -128,6 +133,68 @@ def params_to_torch(means, scales, n: int, L: int, device="cpu") -> tuple:
         padded[:n] = a
         out.append(torch.from_numpy(padded).to(device))
     return tuple(out)
+
+
+def params64_to_torch(means, scales, device="cpu") -> tuple:
+    """f64 means and scales of the reference-exact families (numpy) ->
+    two float64 tensors on ``device``, values unchanged.  JAX
+    counterpart: ``np.asarray(..., np.float64)`` (the JAX package keeps
+    them on the host, or ``jnp.asarray`` under ``jax.enable_x64``)."""
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(
+            np.asarray(a, dtype=np.float64).reshape(-1)).copy()).to(device)
+        for a in (means, scales))
+
+
+def params64_from_torch(means: torch.Tensor, scales: torch.Tensor) -> tuple:
+    """Inverse of :func:`params64_to_torch`: two f64 numpy arrays."""
+    return tuple(t.detach().to("cpu", torch.float64).numpy().copy()
+                 for t in (means, scales))
+
+
+def ecp_to_torch(cums, probs, L: int, device="cpu") -> tuple:
+    """Per-symbol (cum, prob) u32 planes of an n-symbol message (numpy,
+    ``exact_family.exact_ecp``) -> two int32 bit-pattern tensors ``[T, L]``
+    (T = ceil(n / L)) on ``device``, padded past n with (cum 0, prob 1) as
+    ``exact_family.encode_tables_pallas`` pads them.  JAX counterpart:
+    ``jnp.asarray(cpad).reshape(T, R, 128)`` there."""
+    c = np.asarray(cums, dtype=np.uint32).reshape(-1)
+    p = np.asarray(probs, dtype=np.uint32).reshape(-1)
+    if len(c) != len(p):
+        raise ValueError(
+            f"cums and probs must have equal length, got {len(c)} vs "
+            f"{len(p)}")
+    T = -(-len(c) // L) if len(c) else 0
+    out = []
+    for a, fill in ((c, 0), (p, 1)):
+        padded = np.full(T * L, fill, dtype=np.uint32)
+        padded[:len(a)] = a
+        out.append(u32_to_torch(padded, device).reshape(T, L))
+    return tuple(out)
+
+
+def ecp_from_torch(cums: torch.Tensor, probs: torch.Tensor,
+                   n: int | None = None) -> tuple:
+    """Inverse of :func:`ecp_to_torch`: the first ``n`` (default all)
+    entries of each plane as u32 numpy arrays."""
+    return tuple(u32_from_torch(t.reshape(-1))[:n] for t in (cums, probs))
+
+
+def exact_tables_to_torch(tabs4, device="cpu") -> torch.Tensor:
+    """Packed wide decode tables in the JAX package's device layout
+    ``u32[T, CP1, R, 128]`` (``exact_family.packed_tables_device``) -> an
+    int32 bit-pattern tensor ``[T, CP1, L]`` (L = 128 R) on ``device``:
+    the same order, the lane axes merged.  JAX counterpart: the
+    ``jnp.asarray(tabs4)`` handed to the Pallas decoders."""
+    a = np.asarray(tabs4, dtype=np.uint32)
+    T, CP1 = a.shape[:2]
+    return u32_to_torch(a, device).reshape(T, CP1, -1)
+
+
+def exact_tables_from_torch(tabs: torch.Tensor) -> np.ndarray:
+    """Inverse of :func:`exact_tables_to_torch`: ``u32[T, CP1, R, 128]``."""
+    T, CP1, L = tabs.shape
+    return u32_from_torch(tabs.reshape(-1)).reshape(T, CP1, L // 128, 128)
 
 
 def quantiles_to_torch(quantiles, L: int, device="cpu") -> torch.Tensor:

@@ -9,8 +9,12 @@ models), ``bits_back_decode`` / ``bits_back_encode`` and
 ``bits_back_decode24`` / ``bits_back_encode24`` (TChain-16 and TChain-24
 categorical bits-back), ``bits_back_decode_family`` /
 ``bits_back_encode_family`` (TChain-12 bits-back under the family models)
-and ``decode_chain_iid`` / ``decode_chain_rows`` (the chain coder's
-parallel symbol decode), writing and reading the same bytes.
+``decode_chain_iid`` / ``decode_chain_rows`` (the chain coder's
+parallel symbol decode), and ``encode_family_exact`` /
+``decode_family_exact`` with ``encode_family_exact_container`` /
+``decode_family_exact_container`` (reference-exact per-symbol gaussian,
+laplace, cauchy or binomial models at W=32, S=64), writing and reading the
+same bytes.
 
     import constriction_tpu_torch.cuda as ctt
 
@@ -23,12 +27,17 @@ parallel symbol decode), writing and reading the same bytes.
                             -100, 100, len(sym))
     sym, rem, heads = ctt.bits_back_decode(quantiles, cdf16)
     quantiles = ctt.bits_back_encode(sym, rem, heads, cdf16)[0]
+    data = ctt.encode_family_exact_container(sym, mu, sigma, "gaussian",
+                                             -100, 100)
+    out = ctt.decode_family_exact_container(data, mu, sigma, "gaussian",
+                                            -100, 100)
 
 ``device`` is explicit: ``"cuda"`` (the default) runs the hand-written
 kernels and raises when no CUDA device is available; ``"cpu"`` runs their
 plain PyTorch twins.  Nothing falls back from one to the other.
 
-``_pick_cfg`` and ``_check_cdf`` are copies of ``tpu.py``'s (the port
+``_pick_cfg``, ``_pick_cfg_family`` and ``_check_cdf`` are copies of
+``tpu.py``'s (the port
 imports nothing of the JAX package): the lane count they pick decides the
 container bytes, so they must stay equal to the originals in behaviour.
 """
@@ -40,8 +49,10 @@ import torch
 
 from . import convert as _convert
 from .ops import chain as _chain
+from .ops import exact_family as _exact
 from .ops import family as _family
 from .ops import framing as _framing
+from .ops import framing_family as _ffam
 from .ops import interleaved2 as _il2
 from .ops import tchain as _tchain
 from .ops.interleaved import LaneConfig
@@ -80,6 +91,21 @@ def _pick_cfg(n: int, cfg: LaneConfig | None,
         return LaneConfig(num_lanes=L, word_bits=16, state_bits=32,
                           precision=P)
     return LaneConfig(num_lanes=L, word_bits=32, state_bits=64, precision=P)
+
+
+def _pick_cfg_family(n: int, cfg: LaneConfig | None,
+                     grouped: bool) -> LaneConfig:
+    """Copy of ``tpu._pick_cfg_family``: grouped coding exists only at
+    S=64, so ``grouped=True`` with no cfg picks the DEFAULT-preset sizes
+    (P=24, W=32, S=64) at ``_pick_cfg``'s lane count; otherwise
+    ``_pick_cfg``'s config (W=16, S=32, P=12 without a CDF)."""
+    if cfg is not None:
+        return cfg
+    base = _pick_cfg(n, None)
+    if grouped:
+        return LaneConfig(num_lanes=base.num_lanes, word_bits=32,
+                          state_bits=64, precision=24)
+    return base
 
 
 def _check_cdf(cdf, cfg: LaneConfig) -> None:
@@ -425,3 +451,90 @@ def decode_chain_rows(data, rows, device="cuda") -> np.ndarray:
     dev = _device(device)
     return _chain.chain_decode_rows(np.asarray(data), rows, torch,
                                     dev).cpu().numpy()
+
+
+def encode_family_exact(symbols, means, scales, family: str, min_sym: int,
+                        max_sym: int, cfg: LaneConfig | None = None,
+                        grouped: bool = False, device="cuda"):
+    """REFERENCE-EXACT per-symbol family encode: the model tables are the
+    host f64 LeakyQuantizer's (bit-identical to the reference's
+    QuantizedGaussian / Laplace / Cauchy / Binomial, quantize.rs:525-568),
+    and the rANS loop runs in kernel 17.  For ``family="binomial"`` pass
+    ``(n_trials, p)`` in the (means, scales) slots.  ``grouped=True``
+    stable-sorts the symbols by core size (the wire order the grouped
+    decoder expects; pass the same flag to :func:`decode_family_exact`).
+    Returns ``(init_states u64[L], stream u32[num_words])`` numpy arrays.
+    JAX counterpart: ``constriction_tpu.tpu.encode_family_exact``, byte for
+    byte.  Only W=32, S=64 configs are ported: without a ``cfg`` the
+    ungrouped call picks ``_pick_cfg``'s W=16, S=32 config, as the JAX
+    facade does, and raises NotImplementedError."""
+    dev = _device(device)
+    symbols = np.asarray(symbols)
+    cfg = _pick_cfg_family(len(symbols), cfg, grouped)
+    if grouped:
+        states, stream = _exact.encode_family_exact_grouped(
+            symbols, means, scales, family, int(min_sym), int(max_sym), cfg,
+            dev)
+    else:
+        states, stream = _exact.encode_family_exact(
+            symbols, means, scales, family, int(min_sym), int(max_sym), cfg,
+            dev)
+    return _convert.u64_from_torch(states), _convert.u32_from_torch(stream)
+
+
+def decode_family_exact(init_states, stream, means, scales, family: str,
+                        min_sym: int, max_sym: int, num_symbols: int,
+                        cfg: LaneConfig | None = None,
+                        cmax: int | None = None, grouped: bool = False,
+                        device="cuda") -> np.ndarray:
+    """REFERENCE-EXACT per-symbol family decode (twin of
+    :func:`encode_family_exact`): compact exact boundary tables, quantile
+    inversion and the state machine in kernel 15 (ungrouped: host-built
+    tables, ``cmax=None`` sizes them to the batch's largest core) or
+    kernel 16 (``grouped=True``: one launch per segment; on a CUDA device
+    the tables of gaussian, laplace and cauchy models are built on the card
+    with kernel 18, binomial tables on the host).  Returns int32 symbols
+    (int64 when grouped), as the JAX facade.  JAX counterpart:
+    ``constriction_tpu.tpu.decode_family_exact``."""
+    dev = _device(device)
+    cfg = _pick_cfg_family(num_symbols, cfg, grouped)
+    states = _convert.u64_to_torch(init_states, dev)
+    words = _convert.u32_to_torch(stream, dev)
+    if grouped:
+        out = _exact.decode_family_exact_grouped(
+            states, words, means, scales, family, int(min_sym), int(max_sym),
+            cfg, num_symbols)
+        return out.cpu().numpy().astype(np.int64)
+    return _exact.decode_family_exact(
+        states, words, means, scales, family, int(min_sym), int(max_sym),
+        cfg, num_symbols, cmax=cmax).cpu().numpy()
+
+
+def encode_family_exact_container(symbols, means, scales, family: str,
+                                  min_sym: int, max_sym: int,
+                                  cfg: LaneConfig | None = None,
+                                  device="cuda") -> np.ndarray:
+    """REFERENCE-EXACT per-symbol family encode into a compact v2
+    container (u32 numpy): core-size grouping, a region-B tail carried in
+    region A's seeds, region A coded by kernel 17.  The lane count is
+    ``_pick_cfg_family``'s, blind to the message's entropy, as in the JAX
+    facade.  JAX counterpart:
+    ``constriction_tpu.tpu.encode_family_exact_container``, byte for
+    byte."""
+    dev = _device(device)
+    symbols = np.asarray(symbols)
+    cfg = _pick_cfg_family(len(symbols), cfg, True)
+    return _ffam.encode_family_v2(symbols, means, scales, family,
+                                  int(min_sym), int(max_sym), cfg, dev)
+
+
+def decode_family_exact_container(container, means, scales, family: str,
+                                  min_sym: int, max_sym: int,
+                                  device="cuda") -> np.ndarray:
+    """Decode an :func:`encode_family_exact_container` container (int64
+    numpy): region A through kernel 16 per segment (tables built on the
+    card on a CUDA device), region B on the host oracle.  JAX counterpart:
+    ``constriction_tpu.tpu.decode_family_exact_container``."""
+    dev = _device(device)
+    return _ffam.decode_family_v2(np.asarray(container), means, scales,
+                                  family, int(min_sym), int(max_sym), dev)

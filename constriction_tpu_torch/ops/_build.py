@@ -61,6 +61,12 @@ _TCHAIN12_ENCODE_ARGS = [_P, _P, _P, _P, _P, _I64, _P, _P, _I32, _I32,
 _TCHAIN_DECODE_ARGS = [_P, _P, _P, _I32, _P, _P, _I64, _P, _I32, _I32, _P,
                        _I32]
 _TCHAIN_ENCODE_ARGS = [_P, _P, _P, _I32, _P, _I64, _P, _I32, _I32, _P, _I32]
+_D = ctypes.c_double
+_EXACT_ENCODE_ARGS = [_P, _P, _P, _I64, _P, _I64, _P, _I32, _I32, _P, _I32]
+_EXACT_DECODE_ARGS = [_P, _P, _I64, _P, _I32, _P, _I64, _I32, _I32, _I32,
+                      _I32, _I32, _P, _P, _I32]
+_EXACT_EVAL_ARGS = [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _D, _D,
+                    _I32, _P, _P, _P, _I32]
 SIGNATURES = {
     "ctt_ilans2_decode_w16s32": _DECODE_ARGS,
     "ctt_ilans2_decode_w32s64": _DECODE_ARGS,
@@ -81,6 +87,10 @@ SIGNATURES = {
     "ctt_tchain24_encode": _TCHAIN_ENCODE_ARGS,
     "ctt_tchain12_family_decode": _TCHAIN12_DECODE_ARGS,
     "ctt_tchain12_family_encode": _TCHAIN12_ENCODE_ARGS,
+    "ctt_exact_encode64": _EXACT_ENCODE_ARGS,
+    "ctt_exact_decode64": _EXACT_DECODE_ARGS,
+    "ctt_exact_decode64_seg": _EXACT_DECODE_ARGS,
+    "ctt_exact_eval_window": _EXACT_EVAL_ARGS,
 }
 
 _lock = threading.Lock()

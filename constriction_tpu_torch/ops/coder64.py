@@ -129,23 +129,37 @@ def encode_iid64_plain(symbols, cdf, cfg: LaneConfig, seeds=None):
     JAX counterpart:
     ``constriction_tpu.ops.pallas_coder64.encode_iid64_pallas``; numpy
     oracle ``interleaved2.encode_shared``."""
-    L, P = cfg.num_lanes, cfg.precision
-    device = symbols.device
     n = symbols.numel()
+    cdf64 = cdf.to(torch.int64)
+    K = cdf64.numel() - 1
+
+    def tables_at(i):
+        return _symbol_tables(symbols, cdf64, i, n, K)
+
+    return encode64_steps(tables_at, n, cfg, seeds, symbols.device)
+
+
+def encode64_steps(tables_at, n: int, cfg: LaneConfig, seeds, device):
+    """The S=64 encoder's step loop on (hi, lo) halves, steps T-1 .. 0:
+    ``tables_at(i)`` gives the (cum, prob) int64 of the flat symbol indices
+    ``i`` (one step's lanes; indices past n are masked).  Shared by the
+    categorical twin above and the exact-family planes twin
+    (``exact_family.encode_tables_plain``), as the kernels share
+    ``csrc/ilans2.cuh``'s encode loop.  Returns ``(states int64[L], stream
+    int32)``."""
+    L, P = cfg.num_lanes, cfg.precision
     if seeds is not None:
         hi, lo = convert.u64_halves(seeds)
     else:  # the floor 2^32
         hi = torch.ones(L, dtype=torch.int64, device=device)
         lo = torch.zeros(L, dtype=torch.int64, device=device)
-    cdf64 = cdf.to(torch.int64)
-    K = cdf64.numel() - 1
     lanes = torch.arange(L, device=device)
     buf = torch.zeros(n + 1, dtype=torch.int64, device=device)
     e = torch.tensor(n, dtype=torch.int64, device=device)
     for t in range(_num_steps(n, L) - 1, -1, -1):
         i = t * L + lanes
         active = i < n
-        cum, prob = _symbol_tables(symbols, cdf64, i, n, K)
+        cum, prob = tables_at(i)
         prob = torch.where(active, prob, 1)
         # state >> (64 - P) >= prob; 64 - P >= 32, so only hi matters
         renorm = active & ((hi >> (32 - P)) >= prob)

@@ -1,0 +1,369 @@
+// Reference-exact per-symbol families at the DEFAULT preset (W=32, S=64,
+// 16 < P <= 24) on Hopper (sm_90a): the encoder over per-symbol (cum, prob)
+// planes, the decoder against packed wide decode tables (whole message or
+// one segment of a core-size-grouped message), and the window evaluator of
+// the on-card table builder.
+//
+// Replaces the Pallas kernels
+//   constriction_tpu/ops/exact_family.py  _build_exact_encoder64     (17)
+//   constriction_tpu/ops/exact_family.py  _build_exact_decoder64     (15)
+//   constriction_tpu/ops/exact_family.py  _build_exact_decoder64_seg (16)
+//   constriction_tpu/ops/df32_pallas.py   _build_eval                (18)
+// and holds the same wire format and table layout.
+//
+// Kernels 15-17 are the ILANS2 loops of ilans2.cuh (one block, a warp
+// ballot and block scan per step for the shared word stream, states in
+// device memory, native uint64_t state algebra), instantiated over the
+// models below; ilans2.cu's header says what bounds those loops.  The TPU
+// kernels' chunked table DMA, their 40x25-bit multiply limbs and their
+// refill/emit compaction stay behind.
+//
+// Kernel 17 reads (cum, prob) from the planes at t * L + l.
+//
+// Kernels 15 and 16 read, per lane and step, the aux plane (core_lo - min |
+// ncore << 24) and then the lane's 3G packed planes: four 24-bit (b - 1)
+// fields per three u32, ascending within a lane, pads 2^P - 1 (never below
+// a quantile).  The table layout [T, CP1, L] is plane-major, so one plane
+// of a step is a coalesced row.  The fields are found by a linear scan with
+// the Pallas body's select semantics (cnt counts the fields below q, cumc
+// is the last one selected, nxtc its successor, 2^P - 1 past the last
+// field) or, for wide tables, by a binary search (the wrapper picks by
+// width, ops/exact_family.py BISECT_FROM_PLANES); then the left tail, core
+// or right tail decide (sym, cum, prob) as _invert_with_tables does.  What
+// bounds them: the table bytes, 4 + 12 G bytes a symbol, read by one SM
+// with the lane loop's latency (see ilans2.cu): the scan reads every word
+// of a lane's column, the binary search about log2(4G) + 2 fields, one
+// dependent load after another.
+//
+// Kernel 18 evaluates one (symbol, window position) entry per thread in
+// native float64 with CUDA's erf / exp / atan: tv = trunc(free * CDF(s -
+// 1/2)) where that is farther than 2^-6 from an integer, else an ambiguity
+// flag for the host's exact patch (constriction_tpu_torch/ops/
+// exact_tables.py states the rules).  The double-f32 arithmetic of the TPU
+// kernel, which had no native f64, is not carried over.  The products and
+// sums use __dmul_rn / __dadd_rn / __dsub_rn, so no multiply-add is fused
+// and the plain twin's separate torch operations round alike.  What bounds
+// it: the 5 bytes written per entry against one erf, exp or atan and a
+// division per entry; every SM runs it.
+
+#include "ilans2.cuh"
+
+namespace {
+
+// Kernel 17's model: (cum, prob) planes [T, L], symbol i at index i.
+struct PlaneModel {
+  const uint32_t* cums;
+  const uint32_t* probs;
+
+  __device__ void stage(uint32_t*) {}
+  __device__ void lookup(int64_t i, uint32_t& cum, uint32_t& prob) const {
+    cum = cums[i];
+    prob = probs[i];
+  }
+  __device__ uint32_t prob(int64_t i) const { return probs[i]; }
+};
+
+// Kernels 15 and 16's model: packed wide tables [T, CP1, L].  ``bisect``
+// picks the search: a linear scan with the Pallas body's select semantics
+// (every word of the lane, loads independent of each other), or a binary
+// search over the ascending fields (about log2(4G) + 2 dependent field
+// reads).  On tables the builders produce (fields ascending, pads last)
+// both give the same (cnt, cumc, nxtc).
+struct TableModel {
+  const uint32_t* tabs;
+  int CP1, L, P, min_sym, span, free;
+  bool bisect;
+
+  __device__ void stage(uint32_t*) {}
+
+  // field k (b - 1 of boundary k) of the lane whose aux word is col[0]
+  __device__ uint32_t field(const uint32_t* col, int k) const {
+    const uint32_t* w = col + static_cast<int64_t>(1 + 3 * (k >> 2)) * L;
+    switch (k & 3) {
+      case 0:
+        return w[0] & 0xFFFFFFu;
+      case 1:
+        return (w[0] >> 24) | ((w[L] & 0xFFFFu) << 8);
+      case 2:
+        return (w[L] >> 16) | ((w[2 * L] & 0xFFu) << 16);
+      default:
+        return w[2 * L] >> 8;
+    }
+  }
+
+  __device__ int invert(int t, int l, uint32_t q, uint32_t& cum,
+                        uint32_t& prob) const {
+    const uint32_t* col = tabs + static_cast<int64_t>(t) * CP1 * L + l;
+    const uint32_t aux = col[0];
+    const int cl = static_cast<int>(aux & 0xFFFFFFu);
+    const int nc = static_cast<int>(aux >> 24);
+    const int G = (CP1 - 1) / 3;
+    int cnt = 0;
+    uint32_t cumc = 0xFFFFFFFFu;  // b - 1 of the last field below q
+    uint32_t nxtc = 0;            // b - 1 of its successor
+    if (bisect) {
+      int lo = 0, hi = 4 * G;  // cnt = the number of fields below q
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (field(col, mid) < q) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      cnt = lo;
+      if (cnt > 0) cumc = field(col, cnt - 1);
+      nxtc = cnt < 4 * G ? field(col, cnt) : (1u << P) - 1u;
+    } else {
+      uint32_t pend = 0;  // the field awaiting its successor
+      // one step of the select scan: field b, followed by field bn
+      auto take = [&](uint32_t b, uint32_t bn) {
+        if (b < q) {
+          ++cnt;
+          cumc = b;
+          nxtc = bn;
+        }
+      };
+#pragma unroll 2
+      for (int g = 0; g < G; ++g) {
+        const uint32_t* w = col + static_cast<int64_t>(1 + 3 * g) * L;
+        const uint32_t w0 = w[0], w1 = w[L], w2 = w[2 * L];
+        const uint32_t b0 = w0 & 0xFFFFFFu;
+        const uint32_t b1 = (w0 >> 24) | ((w1 & 0xFFFFu) << 8);
+        const uint32_t b2 = (w1 >> 16) | ((w2 & 0xFFu) << 16);
+        const uint32_t b3 = w2 >> 8;
+        if (g == 0) {
+          nxtc = b0;  // covers cnt == 0
+        } else {
+          take(pend, b0);
+        }
+        take(b0, b1);
+        take(b1, b2);
+        take(b2, b3);
+        pend = b3;
+      }
+      take(pend, (1u << P) - 1u);
+    }
+    const int qi = static_cast<int>(q);
+    const int cum_c = static_cast<int>(cumc + 1u);  // back to b space
+    const int nxt_c = static_cast<int>(nxtc + 1u);
+    const int core_hi_rel = cl + nc - 1;
+    const int rstart = core_hi_rel >= span ? (1 << P) : free + 1 + core_hi_rel;
+    const int s_rel_l = min(qi, cl - 1);
+    const int next_l = s_rel_l >= cl - 1 ? nxt_c : s_rel_l + 1;
+    const int sym_c = cl + cnt - 1;
+    const int next_c = min(nxt_c, rstart);
+    const int s_rel_r = min(qi - free, span);
+    const int cum_r = free + s_rel_r;
+    const int next_r = s_rel_r >= span ? (1 << P) : cum_r + 1;
+    const bool right = qi >= rstart;
+    const bool leftr = cnt == 0;
+    const int s_rel = right ? s_rel_r : (leftr ? s_rel_l : sym_c);
+    const int c = right ? cum_r : (leftr ? s_rel_l : cum_c);
+    const int nx = right ? next_r : (leftr ? next_l : next_c);
+    cum = static_cast<uint32_t>(c);
+    prob = static_cast<uint32_t>(nx) - cum;
+    return s_rel + min_sym;
+  }
+};
+
+// Kernel 18.  F: 0 gaussian, 1 laplace, 2 cauchy.  tv[n, W], ambig[n, W]
+// (one byte, 0 or 1) for s = ws[i] + j.
+template <int F>
+__global__ void __launch_bounds__(256)
+    exact_eval_window_kernel(const double* __restrict__ means,
+                             const double* __restrict__ scales,
+                             const int32_t* __restrict__ ws, int64_t n, int W,
+                             int max_sym, double free, int freei,
+                             double t_star, double eps, int has_star,
+                             int32_t* __restrict__ tv,
+                             uint8_t* __restrict__ ambig) {
+  constexpr double kMargin = 0.015625;  // 2^-6
+  constexpr double kSqrt2 = 1.4142135623730951;
+  constexpr double kPi = 3.141592653589793;
+  const int64_t total = n * W;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t i = e / W;
+    const int j = static_cast<int>(e - i * W);
+    const int64_t s = static_cast<int64_t>(ws[i]) + j;
+    if (s > max_sym) {  // out of support: the saturated sentinel
+      tv[e] = freei;
+      ambig[e] = 0;
+      continue;
+    }
+    const double x =
+        __dsub_rn(__dsub_rn(static_cast<double>(s), 0.5), means[i]);
+    const double den = F == 0 ? __dmul_rn(scales[i], kSqrt2) : scales[i];
+    const double t = __ddiv_rn(x, den);
+    double cdf;
+    if (F == 0) {
+      cdf = __dmul_rn(0.5, __dadd_rn(1.0, erf(t)));
+    } else if (F == 1) {
+      cdf = t < 0.0 ? __dmul_rn(0.5, exp(t))
+                    : __dsub_rn(1.0, __dmul_rn(0.5, exp(-t)));
+    } else {
+      cdf = __dadd_rn(0.5, __ddiv_rn(atan(t), kPi));
+    }
+    const double A = __dmul_rn(free, cdf);
+    const double I = rint(A);
+    const double f = __dsub_rn(A, I);
+    const double fl = floor(f);
+    const int u = static_cast<int>(I) + static_cast<int>(fl);
+    const double fr = __dsub_rn(f, fl);
+    const bool unamb_frac = fr > kMargin && fr < 1.0 - kMargin;
+    // A + margin < 1 pins trunc to 0 regardless of sign wobble near 0
+    const bool unamb_zero = u <= 0 && A < 1.0 - kMargin;
+    bool certain_sat = false, band = false;
+    if (has_star) {
+      const double d = __dsub_rn(t, t_star);
+      certain_sat = d > eps;
+      band = fabs(d) <= eps;
+    }
+    // below the threshold the CDF is certainly < 1.0: A margin-close to
+    // free from below pins the value to free - 1
+    const bool unamb_top = !certain_sat && !band &&
+                           A > __dadd_rn(__dsub_rn(free, 1.0), kMargin);
+    int v = u > 0 ? u : 0;
+    if (unamb_zero) v = 0;
+    if (unamb_top) v = freei - 1;
+    if (certain_sat) v = freei;
+    const bool unamb = unamb_frac || unamb_zero || unamb_top || certain_sat;
+    tv[e] = v;
+    ambig[e] = (!unamb || band) ? 1 : 0;
+  }
+}
+
+size_t table_smem_bytes(int L) {
+  return scratch_words(L / 32) * sizeof(uint32_t);
+}
+
+bool valid_exact(int L, int P) {
+  return L > 0 && L % 32 == 0 && P > 16 && P <= 24;
+}
+
+template <bool Seg>
+int launch_decode(void* states, const void* stream, long long slen,
+                  const void* tabs, int CP1, void* syms, long long n, int L,
+                  int P, int min_sym, int max_sym, int bisect, void* base_io,
+                  void* cuda_stream, int device) {
+  auto kernel = ilans2_decode_kernel<32, 64, TableModel, Seg>;
+  const size_t bytes = table_smem_bytes(L);
+  const long long span = static_cast<long long>(max_sym) - min_sym;
+  const long long free = (1ll << P) - 1 - span;
+  if (!valid_exact(L, P) || CP1 < 4 || (CP1 - 1) % 3 || span < 1 ||
+      free < 2 || (Seg && base_io == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = prepare(kernel, device, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const int T = static_cast<int>((n + L - 1) / L);
+  const TableModel model{static_cast<const uint32_t*>(tabs),
+                         CP1,
+                         L,
+                         P,
+                         min_sym,
+                         static_cast<int>(span),
+                         static_cast<int>(free),
+                         bisect != 0};
+  kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<uint64_t*>(states), static_cast<const uint32_t*>(stream),
+      slen, model, static_cast<int32_t*>(syms), n, L, P, T,
+      static_cast<int64_t*>(base_io));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int F>
+int launch_eval(const void* means, const void* scales, const void* ws,
+                long long n, int W, int min_sym, int max_sym, int P,
+                double t_star, double eps, int has_star, void* tv,
+                void* ambig, void* cuda_stream, int device) {
+  const long long freei = (1ll << P) - 1 - (static_cast<long long>(max_sym) -
+                                            min_sym);
+  if (W < 1 || P <= 16 || P > 24 || freei < 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const long long total = n * W;
+  constexpr int kBlock = 256;
+  const long long want = (total + kBlock - 1) / kBlock;
+  const int blocks = static_cast<int>(want < 132 * 64 ? want : 132 * 64);
+  exact_eval_window_kernel<F>
+      <<<blocks, kBlock, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
+          static_cast<const double*>(means), static_cast<const double*>(scales),
+          static_cast<const int32_t*>(ws), n, W, max_sym,
+          static_cast<double>(freei), static_cast<int>(freei), t_star, eps,
+          has_star, static_cast<int32_t*>(tv), static_cast<uint8_t*>(ambig));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C interface, bound with ctypes (constriction_tpu_torch/ops/_build.py).
+// Each entry launches on the given stream, synchronises nothing, allocates
+// nothing, and returns cudaGetLastError() (0 on success).
+extern "C" {
+
+int ctt_exact_encode64(void* states, const void* cums, const void* probs,
+                       long long n, void* buf, long long cap, void* end_out,
+                       int L, int P, void* cuda_stream, int device) {
+  auto kernel = ilans2_encode_kernel<32, 64, PlaneModel>;
+  const size_t bytes = table_smem_bytes(L);
+  if (!valid_exact(L, P)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = prepare(kernel, device, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const int T = static_cast<int>((n + L - 1) / L);
+  const PlaneModel model{static_cast<const uint32_t*>(cums),
+                         static_cast<const uint32_t*>(probs)};
+  kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<uint64_t*>(states), model, n, static_cast<uint32_t*>(buf),
+      cap, static_cast<int64_t*>(end_out), L, P, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int ctt_exact_decode64(void* states, const void* stream, long long slen,
+                       const void* tabs, int CP1, void* syms, long long n,
+                       int L, int P, int min_sym, int max_sym, int bisect,
+                       void* base_io, void* cuda_stream, int device) {
+  return launch_decode<false>(states, stream, slen, tabs, CP1, syms, n, L, P,
+                              min_sym, max_sym, bisect, base_io, cuda_stream,
+                              device);
+}
+
+int ctt_exact_decode64_seg(void* states, const void* stream, long long slen,
+                           const void* tabs, int CP1, void* syms, long long n,
+                           int L, int P, int min_sym, int max_sym, int bisect,
+                           void* base_io, void* cuda_stream, int device) {
+  return launch_decode<true>(states, stream, slen, tabs, CP1, syms, n, L, P,
+                             min_sym, max_sym, bisect, base_io, cuda_stream,
+                             device);
+}
+
+int ctt_exact_eval_window(const void* means, const void* scales,
+                          const void* ws, long long n, int W, int family,
+                          int min_sym, int max_sym, int P, double t_star,
+                          double eps, int has_star, void* tv, void* ambig,
+                          void* cuda_stream, int device) {
+  switch (family) {
+    case 0:
+      return launch_eval<0>(means, scales, ws, n, W, min_sym, max_sym, P,
+                            t_star, eps, has_star, tv, ambig, cuda_stream,
+                            device);
+    case 1:
+      return launch_eval<1>(means, scales, ws, n, W, min_sym, max_sym, P,
+                            t_star, eps, has_star, tv, ambig, cuda_stream,
+                            device);
+    case 2:
+      return launch_eval<2>(means, scales, ws, n, W, min_sym, max_sym, P,
+                            t_star, eps, has_star, tv, ambig, cuda_stream,
+                            device);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // extern "C"

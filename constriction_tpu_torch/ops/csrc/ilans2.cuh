@@ -1,0 +1,157 @@
+// The ILANS2 decode and encode loops on Hopper (sm_90a), shared by the
+// coders whose model is a table lookup: ilans2.cu (one CDF for every
+// symbol) and exact_family.cu (the reference-exact families: per-symbol
+// (cum, prob) planes when encoding, packed per-symbol decode tables when
+// decoding).  The loops are templated on the preset (W, S) and on a model
+// policy; ilans2.cu's header comment says what bounds them and why one
+// block codes the whole message.
+//
+// A decode model provides
+//   __device__ void stage(uint32_t* smem_cdf);   // before the first step
+//   __device__ int invert(int t, int l, uint32_t q,
+//                         uint32_t& cum, uint32_t& prob) const;
+// (quantile q of lane l at step t -> symbol, cum, prob), an encode model
+//   __device__ void stage(uint32_t* smem_cdf);
+//   __device__ void lookup(int64_t i, uint32_t& cum, uint32_t& prob) const;
+//   __device__ uint32_t prob(int64_t i) const;
+// (the interval of symbol i).  The decode loop's Seg flag makes it read its
+// first stream word index from *base_io and write the index after its last
+// refill there, so consecutive launches decode one continuous stream.
+
+#pragma once
+
+#include "lanes.cuh"
+
+namespace {
+
+// Decode n symbols.  states[L]: initial decoder states in, final states out.
+// stream[slen]: W-bit words, one per u32; reads past the end yield 0 (a
+// truncated or corrupt stream decodes to garbage, never faults).
+template <int W, int S, class Model, bool Seg>
+__global__ void __launch_bounds__(kThreads, 1)
+    ilans2_decode_kernel(typename StateOf<S>::type* __restrict__ states,
+                         const uint32_t* __restrict__ stream, int64_t slen,
+                         Model model, int32_t* __restrict__ syms, int64_t n,
+                         int L, int P, int T, int64_t* __restrict__ base_io) {
+  using State = typename StateOf<S>::type;
+  extern __shared__ uint32_t smem[];
+  const int G = L / 32;
+  const Smem s{smem, G};
+  model.stage(s.cdf());
+  __syncthreads();
+
+  constexpr State kLower = State(1) << (S - W);
+  constexpr uint32_t kWordMask = W == 32 ? kFull : ((1u << W) - 1u);
+  const uint32_t qmask = (1u << P) - 1u;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const uint32_t lt_mask = (1u << lane) - 1u;
+  const int rows = (L + kThreads - 1) / kThreads;
+  // first stream word of the pending step's refills
+  int64_t base = Seg ? *base_io : 0;
+  uint32_t last_total = 0;  // words the pending step consumed
+
+  // Iteration t refills for step t - 1, then decodes step t.
+  for (int t = 0; t <= T; ++t) {
+    const int cur = t & 1, prev = cur ^ 1;
+    for (int r = 0; r < rows; ++r) {
+      if (r * kThreads + (tid & ~31) >= L) break;  // warp-uniform
+      const int l = r * kThreads + tid;
+      const int g = l >> 5;
+      State x = states[l];
+      if (t > 0 && x < kLower) {
+        const int64_t idx = base + s.prefix(prev)[g] +
+                            __popc(s.ballots(prev)[g] & lt_mask);
+        const uint32_t word = idx < slen ? stream[idx] : 0u;
+        x = (x << W) | static_cast<State>(word & kWordMask);
+      }
+      if (t < T) {
+        const int64_t i = static_cast<int64_t>(t) * L + l;
+        if (i < n) {
+          const uint32_t q = static_cast<uint32_t>(x) & qmask;
+          uint32_t cum, prob;
+          const int sym = model.invert(t, l, q, cum, prob);
+          x = (x >> P) * prob + (q - cum);
+          syms[i] = sym;
+        }
+        const unsigned bal = __ballot_sync(kFull, x < kLower);
+        if (lane == 0) s.ballots(cur)[g] = bal;
+      }
+      states[l] = x;
+    }
+    if (t == T) break;
+    __syncthreads();
+    const uint32_t total = scan_groups(s.ballots(cur), s.prefix(cur),
+                                       s.warp_sums(), G);
+    __syncthreads();
+    base += last_total;
+    last_total = total;
+  }
+  if (Seg && tid == 0) *base_io = base + last_total;
+}
+
+// Encode n symbols, walking steps T-1 .. 0.  states[L]: encoder start states
+// (the seeds) in, final states (the decoder's initial states) out.  buf[cap]:
+// the words of step t land right to left below an end pointer e, so on
+// return the stream is buf[*end_out : cap].
+template <int W, int S, class Model>
+__global__ void __launch_bounds__(kThreads, 1)
+    ilans2_encode_kernel(typename StateOf<S>::type* __restrict__ states,
+                         Model model, int64_t n, uint32_t* __restrict__ buf,
+                         int64_t cap, int64_t* __restrict__ end_out, int L,
+                         int P, int T) {
+  using State = typename StateOf<S>::type;
+  extern __shared__ uint32_t smem[];
+  const int G = L / 32;
+  const Smem s{smem, G};
+  model.stage(s.cdf());
+  __syncthreads();
+
+  constexpr State kWordMask = W == 32 ? State(kFull) : State((1u << W) - 1u);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const uint32_t lt_mask = (1u << lane) - 1u;
+  const int rows = (L + kThreads - 1) / kThreads;
+  int64_t e = cap;  // words of the finished steps occupy buf[e : cap]
+
+  // Iteration j emits and codes step T - j (flagged in iteration j - 1),
+  // then flags the renorming lanes of step T - 1 - j.
+  for (int j = 0; j <= T; ++j) {
+    const int cur = j & 1, prev = cur ^ 1;
+    const int t = T - 1 - j;
+    for (int r = 0; r < rows; ++r) {
+      if (r * kThreads + (tid & ~31) >= L) break;  // warp-uniform
+      const int l = r * kThreads + tid;
+      const int g = l >> 5;
+      State x = states[l];
+      if (j > 0) {
+        const int64_t i = static_cast<int64_t>(t + 1) * L + l;
+        if (i < n) {
+          uint32_t cum, prob;
+          model.lookup(i, cum, prob);
+          if ((x >> (S - P)) >= prob) {  // the decision flagged last iteration
+            const int64_t idx = e + s.prefix(prev)[g] +
+                                __popc(s.ballots(prev)[g] & lt_mask);
+            buf[idx] = static_cast<uint32_t>(x & kWordMask);
+            x >>= W;
+          }
+          x = ((x / prob) << P) | static_cast<State>(cum + x % prob);
+        }
+      }
+      if (j < T) {
+        const int64_t i = static_cast<int64_t>(t) * L + l;
+        const bool renorm = i < n && (x >> (S - P)) >= model.prob(i);
+        const unsigned bal = __ballot_sync(kFull, renorm);
+        if (lane == 0) s.ballots(cur)[g] = bal;
+      }
+      states[l] = x;
+    }
+    if (j == T) break;
+    __syncthreads();
+    const uint32_t total = scan_groups(s.ballots(cur), s.prefix(cur),
+                                       s.warp_sums(), G);
+    __syncthreads();
+    e -= total;
+  }
+  if (tid == 0) *end_out = e;
+}
+
+}  // namespace

@@ -1,0 +1,1130 @@
+"""Reference-exact per-symbol families at the DEFAULT preset (W=32, S=64,
+16 < P <= 24) on the GPU.
+
+The device families of ``ops/family.py`` use an exact INTEGER CDF.  This
+module is the path whose tables are bit-identical to the reference's f64
+``LeakyQuantizer`` (the reference's quantize.rs:525-568) over per-symbol
+gaussian, laplace, cauchy or binomial models, so a stream the reference
+produces can be re-coded here with zero rate change:
+
+- encode: the host evaluates two f64 CDFs per symbol into ``(cum, prob)``
+  planes (:func:`exact_ecp`), and kernel 17 codes them
+  (:func:`encode_tables`);
+- decode: per symbol, a compact exact description of the quantile
+  partition.  The leaky-quantized table is linear in both tails, so only
+  the core boundaries (at most ``cmax``) are stored, packed four 24-bit
+  ``(b - 1)`` fields to three u32 planes behind an aux plane
+  (:func:`pack_decode_tables`); kernel 15 inverts the quantiles against
+  them (:func:`decode_tables`), kernel 16 does the same for one segment of
+  a core-size-grouped message, carrying the stream offset from launch to
+  launch (:func:`decode_tables_seg`);
+- grouping: :func:`group_plan` stable-sorts the symbols by a deterministic
+  core-size bound computed from (means, scales) alone, so each decode
+  segment runs at its own tight table width.
+
+The tables come from the host builder here (numpy) or from the on-card
+builder of ``ops/exact_tables.py`` (kernel 18 evaluates the windows).
+
+JAX counterpart: ``constriction_tpu/ops/exact_family.py``.  The host part
+(the model helpers, :func:`exact_ncore`, :func:`exact_ecp`,
+:func:`exact_boundary_tables`, :func:`pack_decode_tables`,
+:func:`packed_tables_device`, the host decode oracle and the grouping
+plan) is a copy of its numpy branches, which the JAX package's tests hold
+bit-identical to its C++ ones; the port builds no C++ host library.  The
+device part replaces the Pallas kernels ``_build_exact_decoder64``,
+``_build_exact_decoder64_seg`` and ``_build_exact_encoder64`` with the
+hand-written kernels of ``csrc/exact_family.cu``.  The S=32 pair
+(``_build_exact_decoder`` / ``_build_exact_encoder``, narrow P <= 16
+tables) is not ported yet: an S=32 config raises NotImplementedError.
+
+Tensor layout (constriction_tpu_torch/convert.py): lane states int64 (u64
+bits), stream words int32 (u32 bits), (cum, prob) planes int32 ``[T, L]``
+(padded past n with (0, 1)), packed decode tables int32 ``[T, CP1, L]``,
+symbols int32.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .. import convert
+from ..utils import special
+from . import _build
+from .coder import _check, _check_seeds, _num_steps, _on_cuda, _refill_words
+from .coder64 import _M32, encode64_steps
+from .interleaved import LaneConfig
+
+LANES = 128
+EXACT_FAMILIES = ("gaussian", "laplace", "cauchy", "binomial")
+# the families the on-card builder evaluates (kernel 18)
+DEVICE_FAMILIES = ("gaussian", "laplace", "cauchy")
+
+# kernel launches made by this module's wrappers and by ops/exact_tables.py
+# (never by the twins)
+LAUNCHES = {"encode64": 0, "decode64": 0, "decode64_seg": 0,
+            "eval_window": 0}
+
+# rows of a packed_tables_device call built at a time (bounds the numpy
+# window arrays; rows are independent)
+_ROW_CHUNK = 1 << 16
+
+
+# ---------------------------------------------------------------------------
+# model helpers (numpy f64)
+# ---------------------------------------------------------------------------
+
+
+def _cdf(family: str, x, mean, scale):
+    """For the continuous families (mean, scale) are location/scale; for
+    "binomial" the pair is (n_trials, p).  JAX counterpart:
+    ``exact_family._cdf``."""
+    if family == "gaussian":
+        return special.gaussian_cdf(x, mean, scale)
+    if family == "laplace":
+        return special.laplace_cdf(x, mean, scale)
+    if family == "cauchy":
+        return special.cauchy_cdf(x, mean, scale)
+    if family == "binomial":
+        return special.binomial_cdf(x, mean, scale)
+    raise ValueError(f"unknown family {family!r}")
+
+
+def _ppf_guess(family: str, p: float, mean, scale):
+    """Approximate inverse CDF -- only a WINDOW GUESS; exactness comes from
+    verifying the trunc values at the window edges.  JAX counterpart:
+    ``exact_family._ppf_guess``."""
+    mean = np.asarray(mean, dtype=np.float64)
+    scale = np.asarray(scale, dtype=np.float64)
+    if family == "gaussian":
+        from scipy.special import ndtri
+
+        return mean + scale * ndtri(p)
+    if family == "laplace":
+        if p < 0.5:
+            return mean + scale * np.log(2.0 * p)
+        return mean - scale * np.log(2.0 * (1.0 - p))
+    if family == "cauchy":
+        return mean + scale * np.tan(np.pi * (p - 0.5))
+    if family == "binomial":
+        from scipy.special import ndtri
+
+        mu = mean * scale  # n * p
+        sd = np.sqrt(np.maximum(mean * scale * (1.0 - scale), 0.0))
+        return mu + sd * ndtri(p)
+    raise ValueError(family)
+
+
+def _dedup_probe(mean, scale):
+    """(unique_pairs, inverse) when a full exact-pair dedup is likely to
+    pay, else None.  A 4096-point sample gates the O(n log n) np.unique --
+    fully-continuous parameter batches (sampled unique fraction > 1/2)
+    skip it entirely.  JAX counterpart: ``exact_family._dedup_probe``."""
+    n = len(mean)
+    if n >= 4096:
+        step = max(n // 4096, 1)
+        zs = mean[::step] + 1j * scale[::step]
+        if len(np.unique(zs)) > len(zs) // 2:
+            return None
+    z = mean + 1j * scale
+    uz, inv = np.unique(z, return_inverse=True)
+    return (uz, inv) if len(uz) <= n // 2 else None
+
+
+def _trunc(x: np.ndarray) -> np.ndarray:
+    """Truncating f64 -> u32 cast with Rust `as` semantics (saturating,
+    NaN -> 0).  JAX counterpart: ``exact_family._trunc``."""
+    hi = float((1 << 32) - 1)
+    with np.errstate(invalid="ignore"):
+        clipped = np.clip(x, 0.0, hi)
+        clipped = np.where(np.isnan(x), 0.0, clipped)
+    return np.trunc(clipped).astype(np.int64)
+
+
+def _free(min_sym: int, max_sym: int, precision: int) -> float:
+    return float((1 << precision) - 1 - (max_sym - min_sym))
+
+
+# ---------------------------------------------------------------------------
+# per-symbol tables (host, numpy)
+# ---------------------------------------------------------------------------
+
+
+def exact_ncore(means, scales, family: str, min_sym: int, max_sym: int,
+                precision: int) -> np.ndarray:
+    """Per-symbol core sizes (number of non-linear boundaries): a batch
+    bisection on the monotone trunc value.  JAX counterpart: the numpy
+    branch of ``exact_family.exact_ncore``."""
+    mean = np.asarray(means, dtype=np.float64).reshape(-1)
+    scale = np.asarray(scales, dtype=np.float64).reshape(-1)
+    n = len(mean)
+    free = _free(min_sym, max_sym, precision)
+    freeu = int(free)
+
+    def tv(s):
+        return _trunc(free * _cdf(family, s.astype(np.float64) - 0.5,
+                                  mean, scale))
+
+    def bisect(lo, hi, threshold):
+        # lanes stop updating once hi - lo == 1
+        while np.any(hi - lo > 1):
+            active = (hi - lo) > 1
+            mid = lo + ((hi - lo) >> 1)
+            pred = tv(mid) >= threshold
+            hi = np.where(active & pred, mid, hi)
+            lo = np.where(active & ~pred, mid, lo)
+        return hi
+
+    tv_max = tv(np.full(n, max_sym, np.int64))
+    # core_lo: first s in (min, max] with tv >= 1 (max_sym when none)
+    hi = bisect(np.full(n, min_sym, np.int64),
+                np.full(n, max_sym, np.int64), 1)
+    core_lo = np.where(tv_max < 1, max_sym, hi)
+    # core_hi: last s with tv <= free-1 == (first s with tv >= free) - 1
+    hi = bisect(np.full(n, min_sym + 1, np.int64),
+                np.full(n, max_sym, np.int64), freeu)
+    tv_lo1 = tv(np.full(n, min_sym + 1, np.int64))
+    core_hi = np.where(
+        tv_max <= freeu - 1, max_sym,
+        np.where(tv_lo1 >= freeu, min_sym, hi - 1),
+    )
+    core_hi = np.maximum(core_hi, core_lo)
+    return (core_hi - core_lo + 1).astype(np.uint32)
+
+
+def exact_ecp(symbols, means, scales, family: str, min_sym: int,
+              max_sym: int, precision: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-symbol (cum, prob) u32 with the exact reference formulas
+    (quantize.rs:525-568), vectorized over per-symbol (mean, scale).  JAX
+    counterpart: the numpy branch of ``exact_family.exact_ecp``."""
+    s = np.asarray(symbols, dtype=np.int64)
+    if np.any((s < min_sym) | (s > max_sym)):
+        raise ValueError("symbol outside support")
+    mean = np.asarray(means, dtype=np.float64)
+    scale = np.asarray(scales, dtype=np.float64)
+    free = _free(min_sym, max_sym, precision)
+    if free < 1.0:
+        raise ValueError("support too large for precision")
+    slack = s - min_sym
+    sf = s.astype(np.float64)
+    left = _trunc(free * _cdf(family, sf - 0.5, mean, scale)) + slack
+    left = np.where(s == min_sym, 0, left)
+    right = _trunc(free * _cdf(family, sf + 0.5, mean, scale)) + slack + 1
+    right = np.where(s == max_sym, 1 << precision, right)
+    prob = right - left
+    if np.any(prob <= 0):
+        raise ValueError("invalid underlying continuous distribution")
+    return left.astype(np.uint32), prob.astype(np.uint32)
+
+
+def exact_boundary_tables(means, scales, family: str, min_sym: int,
+                          max_sym: int, precision: int,
+                          cmax: int | None = None
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """Compact exact decode tables: per symbol position, the core boundary
+    values ``b(s) = trunc(free * CDF(s - 1/2)) + (s - min)`` for s in
+    [core_lo, core_hi], where the core is the maximal range outside which
+    the trunc value is exactly 0 (left tail) or saturated (right tail).
+
+    Returns ``(aux u32[n], core u32[n, cmax])``.  For P <= 16 ("narrow")
+    ``aux = (core_lo - min) | ncore << 16`` and pads are 0xFFFF; for
+    16 < P <= 24 ("wide") ``aux = (core_lo - min) | ncore << 24`` and pads
+    are ``1 << P``, a value no real boundary takes that doubles as the
+    no-next-boundary sentinel.  Raises ValueError if a symbol's core
+    exceeds ``cmax``.  JAX counterpart: the numpy window branch of
+    ``exact_family.exact_boundary_tables``."""
+    mean = np.asarray(means, dtype=np.float64).reshape(-1)
+    scale = np.asarray(scales, dtype=np.float64).reshape(-1)
+    n = len(mean)
+    P = precision
+    if P > 24:
+        raise ValueError("exact tables support precisions up to 24")
+    wide = P > 16
+    padv = (1 << P) if wide else 0xFFFF
+    aux_shift = 24 if wide else 16
+    if cmax is None:
+        # auto-size to the tight max: table bytes and the kernel's scan
+        # both cost O(cmax)
+        ncore = exact_ncore(mean, scale, family, min_sym, max_sym, P)
+        cmax = max(int(ncore.max()) if n else 1, 1)
+        if not wide:
+            cmax += cmax & 1  # narrow tables pack boundary PAIRS
+        if cmax >= (1 << (32 - aux_shift)):
+            raise ValueError(
+                f"core needs {cmax} boundaries; the {'wide' if wide else 'narrow'}"
+                f" table format caps ncore at {(1 << (32 - aux_shift)) - 1}"
+                " (use the host decode path for this model)"
+            )
+    if cmax >= (1 << (32 - aux_shift)):
+        raise ValueError(
+            f"cmax={cmax} exceeds the table format's ncore cap "
+            f"{(1 << (32 - aux_shift)) - 1}")
+    free = _free(min_sym, max_sym, P)
+    if free < 2.0:
+        raise ValueError("support too large for precision")
+    span = max_sym - min_sym
+
+    # window guess from the approximate PPF, with margin; exactness is then
+    # verified on the evaluated trunc values at the window edges
+    margin = 4
+    wwin = min(cmax + 2 * margin, span + 1)
+    lo_g = np.floor(_ppf_guess(family, 1.0 / free, mean, scale))
+    lo_g = np.where(np.isfinite(lo_g), lo_g, float(min_sym))
+    a = np.clip(
+        lo_g.astype(np.int64) - margin, min_sym + 1,
+        max(min_sym + 1, max_sym - wwin + 1)
+    )
+    grid = a[:, None] + np.arange(wwin)[None, :]  # [n, wwin] symbol values
+    valid = grid <= max_sym
+    gridc = np.minimum(grid, max_sym)
+    tv = _trunc(
+        free * _cdf(family, gridc.astype(np.float64) - 0.5,
+                    mean[:, None], scale[:, None])
+    )
+    # cdf rounds to exactly 1.0 in f64 well inside heavy right tails, so
+    # trunc(free * cdf) takes the value free there (NOT free-1); the single
+    # right-linear regime is b(s) = free + s - min, and everything below
+    # saturation (including the trunc == free-1 stretch) belongs to the core
+    pos = (tv >= 1) & valid
+    nonsat = (tv <= int(free) - 1) & valid
+
+    any_pos = pos.any(axis=1)
+    lo_w = np.where(any_pos, pos.argmax(axis=1), wwin - 1)
+    # the first positive trunc must be INSIDE the window (edge value 0)
+    # unless the window starts at the support edge
+    edge_ok = (~any_pos) | (lo_w > 0) | (a == min_sym + 1)
+    if not np.all(edge_ok):
+        raise ValueError(
+            "core window missed the left edge (distribution wider than "
+            f"cmax={cmax}? increase cmax)"
+        )
+    any_ns = nonsat.any(axis=1)
+    hi_w = np.where(any_ns, wwin - 1 - nonsat[:, ::-1].argmax(axis=1), lo_w)
+    # the right edge is covered when the last non-saturated value is inside
+    # the window OR the window already reaches the end of the support
+    hi_ok = (hi_w < wwin - 1) | (grid[:, wwin - 1] >= max_sym)
+    if not np.all(hi_ok):
+        raise ValueError(
+            "core window missed the right edge (distribution wider than "
+            f"cmax={cmax}? increase cmax)"
+        )
+    # clamp to a non-empty core (all-linear / sharp-step cases)
+    lo_w = np.where(any_pos, lo_w, np.minimum(max_sym - a, wwin - 1))
+    hi_w = np.maximum(hi_w, lo_w)
+    ncore = hi_w - lo_w + 1
+    if np.any(ncore > cmax):
+        raise ValueError(
+            f"core needs {int(ncore.max())} boundaries > cmax={cmax}; "
+            "increase cmax (flat distributions make the whole support "
+            "non-linear)"
+        )
+
+    b = tv + (gridc - min_sym)  # boundary values on the window grid
+    idx = lo_w[:, None] + np.arange(cmax)[None, :]
+    take = np.take_along_axis(
+        np.concatenate([b, np.full((n, cmax), padv, np.int64)], axis=1),
+        np.minimum(idx, wwin + cmax - 1),
+        axis=1,
+    )
+    core = np.where(np.arange(cmax)[None, :] < ncore[:, None], take, padv)
+    core_lo_rel = (np.take_along_axis(grid, lo_w[:, None], 1)[:, 0] - min_sym)
+    aux = (core_lo_rel.astype(np.uint32)
+           | (ncore.astype(np.uint32) << aux_shift))
+    return aux, core.astype(np.uint32)
+
+
+def pack_decode_tables(aux: np.ndarray, core: np.ndarray,
+                       precision: int) -> Tuple[np.ndarray, int]:
+    """(aux, core) -> table rows ``[n, CP1] u32`` in the decode kernels'
+    packed (b - 1) layout, plus the effective (rounded) cmax.
+
+    Plane 0 is aux.  Wide (16 < P <= 24): 24-bit (b - 1) quads, four
+    boundaries per three planes; raw wide pads are 2^P, so ``core - 1``
+    maps them to 2^P - 1, which no quantile exceeds.  Narrow (P <= 16):
+    u16 (b - 1) pairs with pads forced to 0xFFFF.  JAX counterpart:
+    ``exact_family.pack_decode_tables``."""
+    n, cmax = core.shape
+    if precision > 16:
+        G = -(-cmax // 4)
+        bm1 = np.full((n, 4 * G), (1 << precision) - 1, np.uint32)
+        bm1[:, :cmax] = core - 1
+        grp = bm1.reshape(n, G, 4)
+        tabs = np.empty((n, 1 + 3 * G), np.uint32)
+        tabs[:, 0] = aux
+        w = np.empty((n, G, 3), np.uint32)
+        w[..., 0] = grp[..., 0] | (grp[..., 1] << 24)
+        w[..., 1] = (grp[..., 1] >> 8) | (grp[..., 2] << 16)
+        w[..., 2] = (grp[..., 2] >> 16) | (grp[..., 3] << 8)
+        tabs[:, 1:] = w.reshape(n, 3 * G)
+        return tabs, 4 * G
+    if cmax % 2:
+        raise ValueError("narrow tables need an even cmax")
+    ncore = (aux >> 16).astype(np.int64)
+    bm1 = np.where(
+        np.arange(cmax)[None, :] < ncore[:, None], core - 1, 0xFFFF
+    ).astype(np.uint32)
+    tabs = np.empty((n, cmax // 2 + 1), np.uint32)
+    tabs[:, 0] = aux
+    tabs[:, 1:] = bm1[:, 0::2] | (bm1[:, 1::2] << 16)
+    return tabs, cmax
+
+
+def _packed_table_rows(mean, scale, family: str, min_sym: int, max_sym: int,
+                       precision: int, cmax: int) -> Tuple[np.ndarray, int]:
+    """Packed wide-table rows ``[n, 1 + 3*ceil(cmax/4)] u32`` (plane 0 is
+    aux) for any parameter vectors, built ``_ROW_CHUNK`` rows at a time
+    (each row depends on its own (mean, scale) only).  JAX counterpart:
+    the numpy branch of ``exact_family._packed_table_rows``."""
+    mean = np.asarray(mean, np.float64).reshape(-1)
+    scale = np.asarray(scale, np.float64).reshape(-1)
+    n = len(mean)
+    G = -(-cmax // 4)
+    tabs = np.empty((n, 1 + 3 * G), np.uint32)
+    for r0 in range(0, n, _ROW_CHUNK):
+        r1 = min(r0 + _ROW_CHUNK, n)
+        aux, core = exact_boundary_tables(
+            mean[r0:r1], scale[r0:r1], family, min_sym, max_sym, precision,
+            cmax)
+        tabs[r0:r1], _ = pack_decode_tables(aux, core, precision)
+    return tabs, 4 * G
+
+
+def packed_tables_device(means, scales, family: str, min_sym: int,
+                         max_sym: int, precision: int, cmax: int,
+                         nsteps: int, R: int) -> Tuple[np.ndarray, int]:
+    """Wide decode tables in the JAX package's device layout ``[nsteps,
+    CP1, R, 128]`` u32 (plane axis in front of the lane axes), plus the
+    rounded cmax; :func:`convert.exact_tables_to_torch` gives the port's
+    ``[nsteps, CP1, L]``.  Repeated (mean, scale) pairs are built once and
+    gathered back; the caller's cmax is an upper bound, and the rows are
+    refilled at the tight width when that is at least one quad narrower.
+    JAX counterpart: the numpy branch of
+    ``exact_family.packed_tables_device``."""
+    mean = np.ascontiguousarray(np.asarray(means, np.float64).reshape(-1))
+    scale = np.ascontiguousarray(np.asarray(scales, np.float64).reshape(-1))
+    n = nsteps * R * LANES
+    if len(mean) != n or len(scale) != n:
+        raise ValueError(
+            f"means and scales must have nsteps * R * 128 = {n} entries")
+    if not 16 < precision <= 24:
+        raise ValueError(f"wide tables need 16 < P <= 24, got {precision}")
+    dd = _dedup_probe(mean, scale)
+    if dd is not None:
+        uz, inv = dd
+        um = np.ascontiguousarray(uz.real)
+        us = np.ascontiguousarray(uz.imag)
+    else:
+        um, us = mean, scale
+    tabs, cmax_r = _packed_table_rows(um, us, family, min_sym, max_sym,
+                                      precision, cmax)
+    tight = max(4, -(-max(int((tabs[:, 0] >> 24).max()), 1) // 4) * 4)
+    if tight < cmax_r:
+        tabs, cmax_r = _packed_table_rows(um, us, family, min_sym, max_sym,
+                                          precision, tight)
+    if dd is not None:
+        tabs = tabs[inv]
+    CP1 = tabs.shape[1]
+    tabs4 = np.ascontiguousarray(
+        tabs.reshape(nsteps, R, LANES, CP1).transpose(0, 3, 1, 2)
+    )
+    return tabs4, cmax_r
+
+
+# ---------------------------------------------------------------------------
+# host decode oracle (numpy)
+# ---------------------------------------------------------------------------
+
+
+def _invert_with_tables(q, aux, core, min_sym, max_sym, precision):
+    """Vectorized quantile inversion from (aux, core) tables; the kernels'
+    region logic.  q, aux: [L]; core: [L, cmax].  JAX counterpart:
+    ``exact_family._invert_with_tables``."""
+    P = precision
+    free = (1 << P) - 1 - (max_sym - min_sym)
+    span = max_sym - min_sym
+    wide = P > 16
+    aux_shift = 24 if wide else 16
+    q = q.astype(np.int64)
+    cl = (aux & ((1 << aux_shift) - 1)).astype(np.int64)
+    nc = (aux >> aux_shift).astype(np.int64)
+    c = core.astype(np.int64)  # pads: 0xFFFF (narrow) / 2^P (wide)
+    # entry j is real iff j < ncore; the no-next sentinel is 2^P
+    real = np.arange(core.shape[1])[None, :] < nc[:, None]
+    le = (c <= q[:, None]) & real
+    cnt = le.sum(axis=1)
+    cumc = np.where(le, c, 0).max(axis=1)
+    nxtc = np.where(le | ~real, 1 << P, c).min(axis=1)
+    core_hi_rel = cl + nc - 1
+    rstart = np.where(
+        core_hi_rel >= span, 1 << P, free + core_hi_rel + 1
+    )
+    # left-linear region
+    s_rel_l = np.minimum(q, cl - 1)
+    next_l = np.where(s_rel_l >= cl - 1, nxtc, s_rel_l + 1)
+    # core region
+    sym_c = cl + cnt - 1
+    next_c = np.minimum(nxtc, rstart)
+    # right-linear region (saturated: b(s) = free + s - min)
+    s_rel_r = np.minimum(q - free, span)
+    cum_r = free + s_rel_r
+    next_r = np.where(s_rel_r >= span, 1 << P, cum_r + 1)
+
+    right = q >= rstart
+    leftr = cnt == 0
+    s_rel = np.where(right, s_rel_r, np.where(leftr, s_rel_l, sym_c))
+    cum = np.where(right, cum_r, np.where(leftr, s_rel_l, cumc))
+    nxt = np.where(right, next_r, np.where(leftr, next_l, next_c))
+    return (
+        (s_rel + min_sym).astype(np.int64),
+        cum.astype(np.uint64),
+        (nxt - cum).astype(np.uint64),
+    )
+
+
+def _pad_to(arr, n, fill=0.0):
+    arr = np.asarray(arr, dtype=np.float64).reshape(-1)
+    if len(arr) >= n:
+        return arr[:n]
+    out = np.full(n, fill, np.float64)
+    out[: len(arr)] = arr
+    return out
+
+
+def _pad_params(means, scales, n, family, max_sym):
+    """Pad (mean, scale) slots for inactive tail lanes: a unit model at the
+    origin for the continuous families, (max_sym trials, p = 1/2) for
+    binomial.  JAX counterpart: ``exact_family._pad_params``."""
+    if family == "binomial":
+        return (_pad_to(means, n, float(max_sym)), _pad_to(scales, n, 0.5))
+    return _pad_to(means, n), _pad_to(scales, n, 1.0)
+
+
+def decode_family_exact_host(init_states, stream, means, scales, family: str,
+                             min_sym: int, max_sym: int, cfg: LaneConfig,
+                             num_symbols: int,
+                             cmax: int | None = None) -> np.ndarray:
+    """Numpy oracle of the exact-family decoder (the schedule of
+    ``interleaved2.decode_shared_cdf`` over per-symbol tables); any lane
+    count.  Reads past the end of the stream give zero words.  JAX
+    counterpart: ``exact_family.decode_family_exact_host``."""
+    L = cfg.num_lanes
+    S, W, P = cfg.state_bits, cfg.word_bits, cfg.precision
+    T = -(-num_symbols // L) if num_symbols else 0
+    lower = np.uint64(1 << (S - W))
+    aux_all, core_all = exact_boundary_tables(
+        *_pad_params(means, scales, T * L, family, max_sym), family,
+        min_sym, max_sym, P, cmax,
+    )
+    states = np.asarray(init_states).astype(np.uint64)
+    base = 0
+    out = np.empty(T * L, dtype=np.int64)
+    lanes = np.arange(L)
+    stream = np.asarray(stream)
+    for t in range(T):
+        idx = t * L + lanes
+        active = idx < num_symbols
+        q = states & np.uint64((1 << P) - 1)
+        sym, cum, prob = _invert_with_tables(
+            q.astype(np.int64), aux_all[idx], core_all[idx],
+            min_sym, max_sym, P,
+        )
+        new_states = (states >> np.uint64(P)) * prob + (q - cum)
+        states = np.where(active, new_states, states)
+        m = states < lower
+        k = int(m.sum())
+        if k:
+            words = np.zeros(k, dtype=np.uint64)
+            avail = stream[base : base + k]
+            words[: len(avail)] = avail
+            states[m] = (states[m] << np.uint64(W)) | words
+            base += k
+        out[idx] = sym
+    return out[:num_symbols]
+
+
+# ---------------------------------------------------------------------------
+# core-size grouping (numpy f64: both sides compute the same permutation
+# from (means, scales) alone)
+# ---------------------------------------------------------------------------
+
+
+def _segment_dp(stepw: np.ndarray, max_segments: int):
+    """Partition the non-decreasing per-step width sequence into at most
+    ``max_segments`` contiguous segments minimizing sum(len * max); the
+    candidate boundaries are the distinct-width run edges.  Returns
+    [(t0, nsteps, cmax)].  JAX counterpart: ``exact_family._segment_dp``."""
+    T = len(stepw)
+    vals, starts = [], []
+    for t in range(T):
+        if not vals or stepw[t] != vals[-1]:
+            vals.append(int(stepw[t]))
+            starts.append(t)
+    starts.append(T)
+    m = len(vals)
+    if m <= max_segments:
+        return [
+            (starts[i], starts[i + 1] - starts[i], vals[i]) for i in range(m)
+        ]
+    # dp[k][j]: min cost of runs 0..j with k+1 segments; cost of a segment
+    # of runs i..j is (#steps) * vals[j] (widths ascend)
+    INF = float("inf")
+
+    def nsteps(i, j):
+        return starts[j + 1] - starts[i]
+
+    dp = [[INF] * m for _ in range(max_segments)]
+    choice = [[0] * m for _ in range(max_segments)]
+    for j in range(m):
+        dp[0][j] = nsteps(0, j) * vals[j]
+    for k in range(1, max_segments):
+        for j in range(k, m):
+            best, bi = INF, k
+            for i in range(k, j + 1):
+                c = dp[k - 1][i - 1] + nsteps(i, j) * vals[j]
+                if c < best:
+                    best, bi = c, i
+            dp[k][j] = best
+            choice[k][j] = bi
+    segs = []
+    j = m - 1
+    k = max_segments - 1
+    while k > 0:
+        i = choice[k][j]
+        segs.append((starts[i], starts[j + 1] - starts[i], vals[j]))
+        j = i - 1
+        k -= 1
+    segs.append((0, starts[j + 1], vals[j]))
+    return segs[::-1]
+
+
+# Per-family tail constants of the core-interval OVERESTIMATE below:
+# LEFT edge: the first s with CDF >= 1/free (t >= -5.37 gaussian, -16.64
+# laplace at free <= 2^24); RIGHT edge: the f64 CDF rounds to exactly 1.0
+# (t ~ 8.38 gaussian, 36.74 laplace; cauchy effectively never).  Binomial
+# slots hold (a, b) of the half-width a*sd + b around the mean.  Generous
+# fixed literals, so the estimate needs no transcendentals.  JAX
+# counterpart: ``exact_family._EST_C``.
+_EST_C = {
+    "gaussian": (5.5, 8.6),
+    "laplace": (16.8, 37.2),
+    "cauchy": (np.inf, np.inf),
+    "binomial": (10.0, 6.0),
+}
+
+
+def _ncore_estimate(means, scales, family, min_sym, max_sym):
+    """Deterministic per-symbol upper bound on the core size, computed with
+    IEEE +, -, *, sqrt, ceil/floor/clip only, so every platform agrees bit
+    for bit (a libm difference could flip a sort key and desynchronize
+    encoder and decoder).  JAX counterpart:
+    ``exact_family._ncore_estimate``."""
+    m = np.asarray(means, np.float64)
+    s = np.asarray(scales, np.float64)
+    if family == "binomial":
+        a, b = _EST_C[family]
+        pp = np.clip(s, 0.0, 1.0)
+        mu = m * pp
+        half = a * np.sqrt(m * pp * (1.0 - pp)) + b
+        lo = np.clip(np.ceil(mu - half) - 1.0, min_sym + 1, max_sym)
+        hi = np.clip(np.floor(mu + half) + 1.0, lo, max_sym)
+        return (hi - lo).astype(np.int64) + 1
+    CL, CR = _EST_C[family]
+    lo = np.clip(np.ceil(m - CL * s) - 1.0, min_sym + 1, max_sym)
+    hi = np.clip(np.floor(m + CR * s) + 1.0, lo, max_sym)
+    return (hi - lo).astype(np.int64) + 1
+
+
+def group_plan(means, scales, family: str, min_sym: int, max_sym: int,
+               precision: int, L: int, num_symbols: int,
+               max_segments: int = 10):
+    """Deterministic core-size grouping shared by encoder and decoder.
+
+    Returns ``(perm, segments)``: ``perm`` (i64[n]) is the stable symbol
+    order (sorted by the per-symbol core-size bound); ``segments`` is
+    ``[(t0, nsteps, cmax)]`` over the permuted message's steps, each cmax
+    a multiple of 4.  JAX counterpart: ``exact_family.group_plan``."""
+    n = num_symbols
+    T = -(-n // L) if n else 0
+    ncore = _ncore_estimate(
+        np.asarray(means, np.float64).reshape(-1)[:n],
+        np.asarray(scales, np.float64).reshape(-1)[:n],
+        family, min_sym, max_sym,
+    )
+    # u16 key => numpy's stable sort runs its O(n) radix path
+    perm = np.argsort(
+        np.minimum(ncore, 0xFFFF).astype(np.uint16), kind="stable"
+    )
+    # inactive tail lanes get the _pad_params model: size the final
+    # segment for it too
+    if family == "binomial":
+        pad_core = int(_ncore_estimate(
+            np.full(1, float(max_sym)), np.full(1, 0.5), family,
+            min_sym, max_sym)[0])
+    else:
+        pad_core = int(_ncore_estimate(
+            np.zeros(1), np.ones(1), family, min_sym, max_sym)[0])
+    padded = np.full(T * L, pad_core, np.int64)
+    padded[:n] = ncore[perm]
+    stepmax = padded.reshape(T, L).max(axis=1)
+    stepw = np.minimum((stepmax + 3) & ~3, np.int64(255 & ~3) + 4)
+    if int(stepw.max(initial=0)) >= (1 << 8):
+        raise ValueError(
+            f"core needs {int(stepmax.max())} boundaries; the wide table "
+            "format caps ncore at 255 (use the host decode path)"
+        )
+    return perm, _segment_dp(stepw, max_segments)
+
+
+# ---------------------------------------------------------------------------
+# argument checks
+# ---------------------------------------------------------------------------
+
+
+def check_cfg(cfg: LaneConfig) -> None:
+    """The configs of this path: W=32, S=64, 16 < P <= 24, lanes a positive
+    multiple of 128.  An S=32 config raises NotImplementedError."""
+    if (cfg.word_bits, cfg.state_bits) == (16, 32):
+        raise NotImplementedError(
+            "the S=32 reference-exact coders (narrow P <= 16 tables; the "
+            "JAX package's _build_exact_decoder / _build_exact_encoder, "
+            "rows 13 and 14 of the kernel table) are not ported yet; pass "
+            "a W=32, S=64, 16 < P <= 24 LaneConfig"
+        )
+    if (cfg.word_bits, cfg.state_bits) != (32, 64) or not (
+            16 < cfg.precision <= 24):
+        raise ValueError(
+            f"the exact-family coders take W=32, S=64, 16 < P <= 24; got "
+            f"W={cfg.word_bits}, S={cfg.state_bits}, P={cfg.precision}")
+    if cfg.num_lanes <= 0 or cfg.num_lanes % LANES:
+        raise ValueError(
+            f"num_lanes must be a positive multiple of {LANES}, got "
+            f"{cfg.num_lanes}")
+
+
+def check_family(family: str, allowed=EXACT_FAMILIES) -> None:
+    if family not in allowed:
+        raise ValueError(f"family must be one of {allowed}, got {family!r}")
+
+
+def _check_steps(name: str, t, device, shape: tuple) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be torch.int32, got {t.dtype}")
+    if tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(
+            f"{name} must be a contiguous tensor of shape {shape}, got "
+            f"{tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def _check_tables(tabs, device, T: int, L: int) -> int:
+    """Packed decode tables int32 [T, CP1, L] with CP1 = 1 + 3G, G >= 1;
+    returns CP1."""
+    if not isinstance(tabs, torch.Tensor) or tabs.dim() != 3:
+        raise ValueError("tabs must be a 3-D tensor [T, CP1, L]")
+    CP1 = tabs.shape[1]
+    if CP1 < 4 or (CP1 - 1) % 3:
+        raise ValueError(f"tabs has {CP1} planes; expected 1 + 3G, G >= 1")
+    _check_steps("tabs", tabs, device, (T, CP1, L))
+    return CP1
+
+
+# ---------------------------------------------------------------------------
+# kernel 17: encode over (cum, prob) planes
+# ---------------------------------------------------------------------------
+
+
+def encode_tables(cums, probs, cfg: LaneConfig, seeds=None,
+                  num_symbols: int | None = None):
+    """ILANS2 encode (W=32, S=64) of explicit per-symbol (cum, prob)
+    planes.  JAX counterpart: ``exact_family.encode_tables_pallas`` at
+    S=64 (``_build_exact_encoder64``); unlike it, this takes seeds.
+
+    ``cums``, ``probs`` int32 ``[T, L]`` (u32 bits; symbol ``t * L + l``,
+    padded past ``num_symbols`` -- default ``T * L`` -- with anything);
+    ``seeds`` (optional) int64[L] start states in [2^32, 2^64).  Returns
+    ``(states int64[L], stream int32[num_words])``, bit-identical to
+    ``interleaved2.encode_shared``.  CUDA tensors launch the kernel, CPU
+    tensors run :func:`encode_tables_plain`."""
+    check_cfg(cfg)
+    if not isinstance(cums, torch.Tensor):
+        raise TypeError("cums must be a torch.Tensor")
+    device = cums.device
+    L = cfg.num_lanes
+    T = cums.shape[0] if cums.dim() == 2 else -1
+    _check_steps("cums", cums, device, (T, L))
+    _check_steps("probs", probs, device, (T, L))
+    n = T * L if num_symbols is None else int(num_symbols)
+    if not (T - 1) * L < n <= T * L and not (n == 0 and T == 0):
+        raise ValueError(
+            f"num_symbols={n} does not fill the {T} steps of the planes")
+    if seeds is not None:
+        _check_seeds(seeds, cfg, torch.int64, device)
+    if not _on_cuda(device):
+        return encode_tables_plain(cums, probs, cfg, seeds, n)
+    states = (seeds.clone() if seeds is not None else torch.full(
+        (L,), 1 << 32, dtype=torch.int64, device=device))
+    if n == 0:
+        return states, torch.zeros(0, dtype=torch.int32, device=device)
+    buf = torch.empty(n, dtype=torch.int32, device=device)
+    end = torch.empty(1, dtype=torch.int64, device=device)
+    LAUNCHES["encode64"] += 1
+    _build.call("ctt_exact_encode64", device, states, cums, probs, n, buf, n,
+                end, L, cfg.precision)
+    return states, buf[int(end.item()):]
+
+
+def encode_tables_plain(cums, probs, cfg: LaneConfig, seeds=None,
+                        num_symbols: int | None = None):
+    """Plain PyTorch twin of :func:`encode_tables` (any device, no checks):
+    ``coder64.encode_iid64_plain``'s step loop over the planes.  Numpy
+    oracle: ``interleaved2.encode_shared``."""
+    n = cums.numel() if num_symbols is None else int(num_symbols)
+    flat_c = convert.u32_values(cums.reshape(-1))
+    flat_p = convert.u32_values(probs.reshape(-1))
+
+    def tables_at(i):
+        return flat_c[i], flat_p[i]
+
+    return encode64_steps(tables_at, n, cfg, seeds, cums.device)
+
+
+# ---------------------------------------------------------------------------
+# kernels 15 and 16: decode against packed wide tables
+# ---------------------------------------------------------------------------
+
+
+def _decode_args(states, stream, tabs, cfg: LaneConfig, min_sym: int,
+                 max_sym: int, n: int) -> torch.device:
+    check_cfg(cfg)
+    if not isinstance(states, torch.Tensor):
+        raise TypeError("states must be a torch.Tensor")
+    device = states.device
+    _check("states", states, torch.int64, device, cfg.num_lanes)
+    _check("stream", stream, torch.int32, device)
+    _check_tables(tabs, device, _num_steps(n, cfg.num_lanes), cfg.num_lanes)
+    if max_sym <= min_sym or _free(min_sym, max_sym, cfg.precision) < 2:
+        raise ValueError(
+            f"support [{min_sym}, {max_sym}] does not fit precision "
+            f"{cfg.precision}")
+    return device
+
+
+# planes per lane (CP1 = 1 + 3G) from which kernels 15 and 16 binary-search
+# the packed fields instead of scanning them all: measured on an H100 by
+# chip_smoke.py's search sweep (exact_times), where the binary search was
+# faster at every width from 37 planes up (2.4x at 139) and the scan at or
+# within 15% of it below
+BISECT_FROM_PLANES = 37
+
+
+def bisect_tables(CP1: int) -> bool:
+    """Whether kernels 15 and 16 binary-search tables of ``CP1`` planes."""
+    return CP1 >= BISECT_FROM_PLANES
+
+
+def decode_tables(states, stream, tabs, cfg: LaneConfig, min_sym: int,
+                  max_sym: int, num_symbols: int,
+                  return_final_states: bool = False):
+    """Decode ``num_symbols`` symbols of a W=32/S=64 exact-family stream
+    against packed wide tables (kernel 15).  JAX counterpart: the S=64
+    branch of ``exact_family.decode_family_exact``
+    (``_build_exact_decoder64``).
+
+    ``states`` int64[L] (u64 bits), ``stream`` int32 words, ``tabs`` int32
+    ``[T, CP1, L]`` (``convert.exact_tables_to_torch``), one device.
+    Returns symbols int32[n], and with ``return_final_states`` also the
+    final states.  CUDA tensors launch the kernel, CPU tensors run
+    :func:`decode_tables_plain`."""
+    device = _decode_args(states, stream, tabs, cfg, min_sym, max_sym,
+                          num_symbols)
+    if not _on_cuda(device):
+        syms, fin, _ = decode_tables_plain(states, stream, tabs, cfg,
+                                           min_sym, max_sym, num_symbols)
+        return (syms, fin) if return_final_states else syms
+    fin = states.clone()
+    syms = torch.empty(num_symbols, dtype=torch.int32, device=device)
+    if num_symbols:
+        LAUNCHES["decode64"] += 1
+        _build.call("ctt_exact_decode64", device, fin, stream, stream.numel(),
+                    tabs, tabs.shape[1], syms, num_symbols, cfg.num_lanes,
+                    cfg.precision, min_sym, max_sym,
+                    int(bisect_tables(tabs.shape[1])), None)
+    return (syms, fin) if return_final_states else syms
+
+
+def decode_tables_seg(states, stream, tabs, base, cfg: LaneConfig,
+                      min_sym: int, max_sym: int, num_symbols: int):
+    """One segment of a grouped decode (kernel 16): as :func:`decode_tables`
+    from stream word ``base`` on.  JAX counterpart:
+    ``exact_family._build_exact_decoder64_seg``.
+
+    ``base`` int64[1] on the states' device.  Returns ``(symbols int32[n],
+    final states int64[L], next base int64[1])``; the next segment starts
+    from those states and that base, with no host round trip."""
+    device = _decode_args(states, stream, tabs, cfg, min_sym, max_sym,
+                          num_symbols)
+    _check("base", base, torch.int64, device, 1)
+    if not _on_cuda(device):
+        return decode_tables_plain(states, stream, tabs, cfg, min_sym,
+                                   max_sym, num_symbols, base)
+    fin = states.clone()
+    nxt = base.clone()
+    syms = torch.empty(num_symbols, dtype=torch.int32, device=device)
+    if num_symbols:
+        LAUNCHES["decode64_seg"] += 1
+        _build.call("ctt_exact_decode64_seg", device, fin, stream,
+                    stream.numel(), tabs, tabs.shape[1], syms, num_symbols,
+                    cfg.num_lanes, cfg.precision, min_sym, max_sym,
+                    int(bisect_tables(tabs.shape[1])), nxt)
+    return syms, fin, nxt
+
+
+def _table_fields(tab, P: int):
+    """The (b - 1) fields of one step's table planes ``[CP1, L]`` (u32
+    values in int64), in order: ``[4G, L]``."""
+    w0, w1, w2 = tab[1::3], tab[2::3], tab[3::3]
+    b0 = w0 & 0xFFFFFF
+    b1 = (w0 >> 24) | ((w1 & 0xFFFF) << 8)
+    b2 = (w1 >> 16) | ((w2 & 0xFF) << 16)
+    b3 = w2 >> 8
+    return torch.stack([b0, b1, b2, b3], dim=1).reshape(-1, tab.shape[1])
+
+
+def invert_tables(q, tab, min_sym: int, max_sym: int, P: int):
+    """Quantiles int64[L] -> ``(sym, cum, prob)`` int64 against one step's
+    packed table planes (u32 values in int64, ``[CP1, L]``): the kernels'
+    scan with select semantics (``cnt`` counts the fields below q, the last
+    selected field is ``cumc``, its successor ``nxtc``) and the
+    left-tail / core / right-tail regions of ``_invert_with_tables``."""
+    free = (1 << P) - 1 - (max_sym - min_sym)
+    span = max_sym - min_sym
+    aux = tab[0]
+    cl = aux & 0xFFFFFF
+    nc = aux >> 24
+    fields = _table_fields(tab, P)
+    nf = fields.shape[0]
+    le = fields < q
+    cnt = le.sum(0)
+    pos = torch.arange(1, nf + 1, device=q.device)[:, None]
+    last = (le * pos).max(0).values - 1  # -1 when nothing is selected
+    cumc = fields.gather(0, last.clamp(min=0)[None])[0] + 1
+    succ = fields.gather(0, (last + 1).clamp(max=nf - 1)[None])[0]
+    nxtc = torch.where(last + 1 >= nf, (1 << P) - 1, succ) + 1
+    core_hi_rel = cl + nc - 1
+    rstart = torch.where(core_hi_rel >= span, 1 << P,
+                         free + 1 + core_hi_rel)
+    s_rel_l = torch.minimum(q, cl - 1)
+    next_l = torch.where(s_rel_l >= cl - 1, nxtc, s_rel_l + 1)
+    sym_c = cl + cnt - 1
+    next_c = torch.minimum(nxtc, rstart)
+    s_rel_r = (q - free).clamp(max=span)
+    cum_r = free + s_rel_r
+    next_r = torch.where(s_rel_r >= span, 1 << P, cum_r + 1)
+    right = q >= rstart
+    leftr = cnt == 0
+    s_rel = torch.where(right, s_rel_r, torch.where(leftr, s_rel_l, sym_c))
+    cum = torch.where(right, cum_r, torch.where(leftr, s_rel_l, cumc))
+    nxt = torch.where(right, next_r, torch.where(leftr, next_l, next_c))
+    return s_rel + min_sym, cum, (nxt - cum) & _M32
+
+
+def decode_tables_plain(states, stream, tabs, cfg: LaneConfig, min_sym: int,
+                        max_sym: int, num_symbols: int, base=None):
+    """Plain PyTorch twin of kernels 15 and 16 (any device, no checks).
+    Returns ``(symbols int32[n], final states int64[L], next base
+    int64[1])``, decoding from stream word ``base`` (int64[1], default 0).
+    Numpy oracle: :func:`decode_family_exact_host`."""
+    L, P = cfg.num_lanes, cfg.precision
+    device = states.device
+    hi, lo = convert.u64_halves(states)
+    words = convert.u32_values(stream)
+    T = _num_steps(num_symbols, L)
+    lanes = torch.arange(L, device=device)
+    out = torch.empty(T * L, dtype=torch.int32, device=device)
+    pos = (torch.zeros((), dtype=torch.int64, device=device) if base is None
+           else base.reshape(()).clone())
+    for t in range(T):
+        active = t * L + lanes < num_symbols
+        q = lo & ((1 << P) - 1)
+        sym, cum, prob = invert_tables(q, convert.u32_values(tabs[t]),
+                                       min_sym, max_sym, P)
+        # (state >> P) * prob + (q - cum), the product split at 2^32
+        sh_hi = hi >> P
+        sh_lo = ((hi << (32 - P)) & _M32) | (lo >> P)
+        low = sh_lo * prob + ((q - cum) & _M32)  # < 2^57
+        hi = torch.where(active, (sh_hi * prob + (low >> 32)) & _M32, hi)
+        lo = torch.where(active, low & _M32, lo)
+        m = hi == 0
+        w, pos = _refill_words(m, words, pos)
+        hi, lo = torch.where(m, lo, hi), torch.where(m, w, lo)
+        out[t * L:(t + 1) * L] = sym.to(torch.int32)
+    return out[:num_symbols], convert.u64_join(hi, lo), pos.reshape(1)
+
+
+# ---------------------------------------------------------------------------
+# the coders over (means, scales)
+# ---------------------------------------------------------------------------
+
+
+def encode_family_exact(symbols, means, scales, family: str, min_sym: int,
+                        max_sym: int, cfg: LaneConfig, device, seeds=None):
+    """Reference-exact family encode: host f64 (cum, prob) planes, kernel
+    17 on ``device`` (the twin on the CPU).  ``symbols``, ``means``,
+    ``scales`` numpy; ``seeds`` optional u64 numpy [L].  Returns ``(states
+    int64[L], stream int32)`` tensors on ``device``.  JAX counterpart:
+    ``exact_family.encode_family_exact``."""
+    check_cfg(cfg)
+    check_family(family)
+    cums, probs = exact_ecp(symbols, means, scales, family, min_sym, max_sym,
+                            cfg.precision)
+    c_t, p_t = convert.ecp_to_torch(cums, probs, cfg.num_lanes, device)
+    seeds_t = None if seeds is None else convert.u64_to_torch(seeds, device)
+    return encode_tables(c_t, p_t, cfg, seeds_t, len(cums))
+
+
+def encode_family_exact_grouped(symbols, means, scales, family: str,
+                                min_sym: int, max_sym: int, cfg: LaneConfig,
+                                device, max_segments: int = 10):
+    """Core-size-grouped reference-exact encode: :func:`encode_family_exact`
+    of the symbols in :func:`group_plan` order.  JAX counterpart:
+    ``exact_family.encode_family_exact_grouped``."""
+    check_family(family, tuple(_EST_C))
+    symbols = np.asarray(symbols).reshape(-1)
+    means = np.asarray(means, np.float64).reshape(-1)
+    scales = np.asarray(scales, np.float64).reshape(-1)
+    check_cfg(cfg)
+    perm, _ = group_plan(means, scales, family, min_sym, max_sym,
+                         cfg.precision, cfg.num_lanes, len(symbols),
+                         max_segments)
+    return encode_family_exact(symbols[perm], means[perm], scales[perm],
+                               family, min_sym, max_sym, cfg, device)
+
+
+def _device_tables_default(family: str, min_sym: int, max_sym: int,
+                           device) -> bool:
+    """The on-card builder for the continuous families on a CUDA device,
+    within the JAX package's support bound (2^22); the host builder
+    otherwise (binomial always)."""
+    return (torch.device(device).type == "cuda"
+            and family in DEVICE_FAMILIES
+            and max(abs(int(min_sym)), abs(int(max_sym))) <= (1 << 22))
+
+
+def _segment_tables(pm, ps, segs, family, min_sym, max_sym, cfg, device,
+                    device_tables: bool):
+    """[(tabs int32 [nsteps, CP1, L], cmax)] of each segment ``(t0,
+    nsteps, cmax)`` over the padded parameters ``pm``, ``ps``."""
+    L = cfg.num_lanes
+    if device_tables:
+        from . import exact_tables
+
+        return exact_tables.packed_tables_on_device_batch(
+            [(pm[t0 * L:(t0 + ns) * L], ps[t0 * L:(t0 + ns) * L], cm, ns)
+             for t0, ns, cm in segs],
+            family, min_sym, max_sym, cfg.precision, L, device)
+    out = []
+    for t0, ns, cm in segs:
+        tabs4, cmax_r = packed_tables_device(
+            pm[t0 * L:(t0 + ns) * L], ps[t0 * L:(t0 + ns) * L], family,
+            min_sym, max_sym, cfg.precision, cm, ns, L // LANES)
+        out.append((convert.exact_tables_to_torch(tabs4, device), cmax_r))
+    return out
+
+
+def decode_family_exact(init_states, stream, means, scales, family: str,
+                        min_sym: int, max_sym: int, cfg: LaneConfig,
+                        num_symbols: int, cmax: int | None = None,
+                        device_tables: bool = False):
+    """Reference-exact family decode (kernel 15): tables for every step,
+    then one launch.  ``init_states`` int64[L] and ``stream`` int32 on one
+    device; ``means``, ``scales`` numpy.  ``cmax=None`` sizes the table
+    width to this batch's largest core (:func:`exact_ncore`).  The tables
+    come from the host builder, or with ``device_tables=True`` from the
+    on-card builder (``ops/exact_tables.py``).  Returns symbols int32[n].
+    JAX counterpart: ``exact_family.decode_family_exact`` (S=64)."""
+    check_cfg(cfg)
+    check_family(family)
+    device = init_states.device
+    n = int(num_symbols)
+    if n == 0:
+        return torch.zeros(0, dtype=torch.int32, device=device)
+    if device_tables:
+        check_family(family, DEVICE_FAMILIES)
+    L = cfg.num_lanes
+    T = _num_steps(n, L)
+    pm, ps = _pad_params(means, scales, T * L, family, max_sym)
+    if cmax is None:
+        nc = exact_ncore(pm, ps, family, min_sym, max_sym, cfg.precision)
+        cmax = max(int(nc.max()) if len(nc) else 1, 1)
+    (tabs, _), = _segment_tables(pm, ps, [(0, T, cmax)], family, min_sym,
+                                 max_sym, cfg, device, device_tables)
+    return decode_tables(init_states, stream, tabs, cfg, int(min_sym),
+                         int(max_sym), n)
+
+
+def decode_segments(init_states, stream, pm, ps, segs, family: str,
+                    min_sym: int, max_sym: int, cfg: LaneConfig,
+                    num_symbols: int, device_tables: bool):
+    """Grouped decode of the first ``num_symbols`` symbols of a permuted
+    message: one kernel-16 launch per segment ``(t0, nsteps, cmax)`` (the
+    segments cover the message's steps in order), lane states and the
+    stream offset chained from launch to launch.  Returns ``(symbols
+    int32[n] in wire order, final states int64[L])``."""
+    device = init_states.device
+    L = cfg.num_lanes
+    built = _segment_tables(pm, ps, segs, family, min_sym, max_sym, cfg,
+                            device, device_tables)
+    base = torch.zeros(1, dtype=torch.int64, device=device)
+    states = init_states
+    outs = []
+    for (t0, nsteps, _), (tabs, _) in zip(segs, built):
+        n_seg = min(nsteps * L, num_symbols - t0 * L)
+        syms, states, base = decode_tables_seg(
+            states, stream, tabs, base, cfg, int(min_sym), int(max_sym),
+            n_seg)
+        outs.append(syms)
+    syms = (torch.cat(outs) if outs
+            else torch.zeros(0, dtype=torch.int32, device=device))
+    return syms, states
+
+
+def decode_family_exact_grouped(init_states, stream, means, scales,
+                                family: str, min_sym: int, max_sym: int,
+                                cfg: LaneConfig, num_symbols: int,
+                                max_segments: int = 10,
+                                device_tables: bool | None = None):
+    """Decode a :func:`encode_family_exact_grouped` stream: the core-size
+    order from (means, scales), one tight-width kernel-16 launch per
+    segment, symbols scattered back to their positions.  ``device_tables``
+    (default: on a CUDA device for gaussian, laplace and cauchy) builds the
+    tables on the card (kernel 18); otherwise the host builder runs.
+    Returns symbols int32[n] on the states' device.  JAX counterpart:
+    ``exact_family.decode_family_exact_grouped``."""
+    check_family(family, tuple(_EST_C))
+    check_cfg(cfg)
+    device = init_states.device
+    n = int(num_symbols)
+    if n == 0:
+        return torch.zeros(0, dtype=torch.int32, device=device)
+    if device_tables is None:
+        device_tables = _device_tables_default(family, min_sym, max_sym,
+                                               device)
+    elif device_tables:
+        check_family(family, DEVICE_FAMILIES)
+    means = np.asarray(means, np.float64).reshape(-1)
+    scales = np.asarray(scales, np.float64).reshape(-1)
+    L = cfg.num_lanes
+    perm, segments = group_plan(means, scales, family, min_sym, max_sym,
+                                cfg.precision, L, n, max_segments)
+    T = _num_steps(n, L)
+    pm, ps = _pad_params(means[perm], scales[perm], T * L, family, max_sym)
+    syms, _ = decode_segments(init_states, stream, pm, ps, segments, family,
+                              min_sym, max_sym, cfg, n, device_tables)
+    out = torch.empty_like(syms)
+    out[torch.from_numpy(perm).to(device)] = syms
+    return out

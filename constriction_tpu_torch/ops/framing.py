@@ -277,6 +277,14 @@ def _payload_from_seeds(fin_states, cfg: LaneConfig) -> np.ndarray:
     return _int_bits(x, F).reshape(-1)
 
 
+def _bits_to_stream(bits, W: int, nwords: int) -> np.ndarray:
+    """The first ``nwords`` W-bit words of an MSB-first bit stream, as u32.
+    JAX counterpart: ``constriction_tpu.ops.framing._bits_to_stream``."""
+    return _bits_int(
+        np.asarray(bits[:nwords * W], dtype=np.uint8).reshape(nwords, W)
+    ).astype(np.uint32)
+
+
 def _pick_lb(L_A: int) -> int:
     """Region-B lane count: small, so that B's own state floor is noise
     against A's seed capacity."""
@@ -513,8 +521,7 @@ def _decode_region_b(p: ParsedV2, fin_states, cdf) -> np.ndarray:
     W, S, P = p.cfg.word_bits, p.cfg.state_bits, p.cfg.precision
     payload = _payload_from_seeds(fin_states, p.cfg)
     sb_bits = p.slen_B * W
-    stream_B = _bits_int(payload[:sb_bits].reshape(p.slen_B, W)).astype(
-        np.uint32)
+    stream_B = _bits_to_stream(payload, W, p.slen_B)
     psb = np.concatenate([payload[sb_bits:sb_bits + p.psb_in_seed],
                           p.psb_rem])
     cfg_B = LaneConfig(num_lanes=p.L_B, word_bits=W, state_bits=S,

@@ -4,9 +4,11 @@ oracles, on the card: the rANS kernels against the JAX package's
 range kernels against the port's numpy range coder, the device-family and
 TChain-12 kernels (and their integer CDF, value by value) against the
 port's numpy family oracles, the TChain-16 and TChain-24 kernels against
-the port's numpy TChain oracles, and the chain decode on the card against
-its numpy path (the CPU tests hold the port's oracles against the JAX
-package's).
+the port's numpy TChain oracles, the chain decode on the card against
+its numpy path, and the reference-exact family kernels (encoder over
+planes, table decoder, grouped segment decoder, window evaluator) against
+their twins and the port's numpy exact-family oracles (the CPU tests hold
+the port's oracles against the JAX package's).
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX (the oracle's modules import none), so on a machine with a
@@ -27,6 +29,8 @@ from constriction_tpu_torch import cuda as ctt
 from constriction_tpu_torch.models import fast_quantized_cdf
 from constriction_tpu_torch.ops import _build, coder, coder64, range_enc
 from constriction_tpu_torch.ops import chain as ch
+from constriction_tpu_torch.ops import exact_family as ef
+from constriction_tpu_torch.ops import exact_tables as et
 from constriction_tpu_torch.ops import family as fam
 from constriction_tpu_torch.ops import interleaved2 as il2
 from constriction_tpu_torch.ops import tchain as tc
@@ -678,3 +682,221 @@ def test_chain_decode_on_the_card(dev):
     np.testing.assert_array_equal(got, ch.chain_decode_rows(data, rows, np))
     with pytest.raises(ch.OutOfCompressedData):
         ctt.decode_chain_iid(data[:1000], n, cdf, device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# reference-exact families (W=32, S=64, P=24)
+# ---------------------------------------------------------------------------
+
+
+def _exact_data(n, seed, spread=20.0):
+    rng = np.random.RandomState(seed)
+    means = rng.randn(n) * spread
+    scales = np.exp(rng.normal(0.4, 0.6, n))
+    syms = np.clip(np.round(means + scales * rng.randn(n)), -100, 100
+                   ).astype(np.int64)
+    return means, scales, syms
+
+
+def _exact_cfg(L, P=24):
+    return LaneConfig(num_lanes=L, word_bits=32, state_bits=64, precision=P)
+
+
+@pytest.mark.parametrize("L,n,seeded", [(128, 1, False), (256, 3000, False),
+                                        (256, 3000, True),
+                                        (32768, 3 * 32768 - 99, True)])
+def test_exact_encode_kernel_matches_twin(dev, L, n, seeded):
+    cfg = _exact_cfg(L)
+    means, scales, syms = _exact_data(n, seed=n + L)
+    cums, probs = ef.exact_ecp(syms, means, scales, "gaussian", -100, 100, 24)
+    rng = np.random.RandomState(L)
+    seeds = (rng.randint(1 << 32, (1 << 63) - 1, L, dtype=np.int64).astype(
+        np.uint64) if seeded else None)
+    c_t, p_t = convert.ecp_to_torch(cums, probs, L, dev)
+    s_t = None if seeds is None else convert.u64_to_torch(seeds, dev)
+    before = ef.LAUNCHES["encode64"]
+    st, w = ef.encode_tables(c_t, p_t, cfg, s_t, n)
+    assert ef.LAUNCHES["encode64"] == before + 1
+    st_p, w_p = ef.encode_tables_plain(c_t, p_t, cfg, s_t, n)
+    assert torch.equal(st, st_p) and torch.equal(w, w_p)
+    st_h, w_h = il2.encode_shared(cums, probs, cfg, seeds=seeds)
+    np.testing.assert_array_equal(convert.u64_from_torch(st), st_h)
+    np.testing.assert_array_equal(convert.u32_from_torch(w), w_h)
+
+
+def _host_tables(means, scales, family, cfg, n, dev):
+    L = cfg.num_lanes
+    T = -(-n // L)
+    pm, ps = ef._pad_params(means, scales, T * L, family, 100)
+    nc = ef.exact_ncore(pm, ps, family, -100, 100, cfg.precision)
+    tabs4, _ = ef.packed_tables_device(pm, ps, family, -100, 100,
+                                       cfg.precision, int(nc.max()), T,
+                                       L // 128)
+    return convert.exact_tables_to_torch(tabs4, dev)
+
+
+@pytest.mark.parametrize("family", ["gaussian", "laplace", "cauchy"])
+@pytest.mark.parametrize("L,n", [(128, 700), (1024, 5 * 1024 - 3)])
+def test_exact_decode_kernel_matches_twin(dev, family, L, n, monkeypatch):
+    cfg = _exact_cfg(L)
+    means, scales, syms = _exact_data(n, seed=L + n)
+    states, stream = ef.encode_family_exact(syms, means, scales, family,
+                                            -100, 100, cfg, dev)
+    tabs = _host_tables(means, scales, family, cfg, n, dev)
+    before = ef.LAUNCHES["decode64"]
+    out, fin = ef.decode_tables(states, stream, tabs, cfg, -100, 100, n,
+                                return_final_states=True)
+    assert ef.LAUNCHES["decode64"] == before + 1
+    out_p, fin_p, _ = ef.decode_tables_plain(states, stream, tabs, cfg, -100,
+                                             100, n)
+    assert torch.equal(out, out_p) and torch.equal(fin, fin_p)
+    np.testing.assert_array_equal(out.cpu().numpy(), syms)
+    assert bool((fin == 1 << 32).all())
+    # the other search mode of the kernel decodes alike
+    for planes in (0, 1 << 30):
+        monkeypatch.setattr(ef, "BISECT_FROM_PLANES", planes)
+        got = ef.decode_tables(states, stream, tabs, cfg, -100, 100, n)
+        assert torch.equal(got, out)
+    # a truncated stream decodes as the numpy oracle does (zero words)
+    cut = stream[: stream.numel() // 2]
+    got = ef.decode_tables(states, cut, tabs, cfg, -100, 100, n)
+    host = ef.decode_family_exact_host(
+        convert.u64_from_torch(states), convert.u32_from_torch(cut), means,
+        scales, family, -100, 100, cfg, n)
+    np.testing.assert_array_equal(got.cpu().numpy(), host)
+
+
+def test_exact_segment_kernel_chains_offsets(dev):
+    """Three kernel-16 launches over one grouped stream: symbols, states
+    and the word offset equal the twin's after every segment."""
+    L, n = 256, 9 * 256 - 31
+    cfg = _exact_cfg(L)
+    means, scales, syms = _exact_data(n, seed=7)
+    means[:40] *= 0.01
+    scales[:300] *= 4.0
+    perm, segs = ef.group_plan(means, scales, "gaussian", -100, 100, 24, L,
+                               n, max_segments=3)
+    assert len(segs) == 3
+    states, stream = ef.encode_family_exact_grouped(
+        syms, means, scales, "gaussian", -100, 100, cfg, dev, max_segments=3)
+    T = -(-n // L)
+    pm, ps = ef._pad_params(means[perm], scales[perm], T * L, "gaussian", 100)
+    base = torch.zeros(1, dtype=torch.int64, device=dev)
+    st = st_p = states
+    base_p = base
+    outs = []
+    for t0, ns, cm in segs:
+        tabs4, _ = ef.packed_tables_device(
+            pm[t0 * L:(t0 + ns) * L], ps[t0 * L:(t0 + ns) * L], "gaussian",
+            -100, 100, 24, cm, ns, L // 128)
+        tabs = convert.exact_tables_to_torch(tabs4, dev)
+        k = min(ns * L, n - t0 * L)
+        out, st, base = ef.decode_tables_seg(st, stream, tabs, base, cfg,
+                                             -100, 100, k)
+        out_p, st_p, base_p = ef.decode_tables_plain(st_p, stream, tabs, cfg,
+                                                     -100, 100, k, base_p)
+        assert torch.equal(out, out_p) and torch.equal(st, st_p)
+        assert torch.equal(base, base_p)
+        outs.append(out.cpu().numpy())
+    assert int(base) == stream.numel()
+    np.testing.assert_array_equal(np.concatenate(outs), syms[perm])
+
+
+@pytest.mark.parametrize("family", ["gaussian", "laplace", "cauchy"])
+def test_eval_window_kernel_matches_oracle(dev, family):
+    """Every entry the kernel calls unambiguous equals the host oracle; the
+    twin on the card agrees on every entry both call unambiguous."""
+    rng = np.random.RandomState(len(family))
+    n, W = 4096, 48 if family != "cauchy" else 218
+    means = rng.uniform(-110, 110, n)
+    scales = np.exp(rng.uniform(np.log(0.02), np.log(12.0), n))
+    CL = ef._EST_C[family][0]
+    ws = (np.full(n, -99, np.int64) if np.isinf(CL) else np.clip(
+        np.ceil(means - CL * scales) - 3.0, -99, 100).astype(np.int64))
+    m_t, s_t = convert.params64_to_torch(means, scales, dev)
+    ws_t = torch.from_numpy(ws.astype(np.int32)).to(dev)
+    before = ef.LAUNCHES["eval_window"]
+    tv, amb = et.eval_window(m_t, s_t, ws_t, family, -100, 100, 24, W)
+    assert ef.LAUNCHES["eval_window"] == before + 1
+    tv_p, amb_p = et.eval_window_plain(m_t, s_t, ws_t, family, -100, 100, 24,
+                                       W)
+    both = ~amb & ~amb_p
+    assert torch.equal(tv[both], tv_p[both])
+    tv, amb = tv.cpu().numpy().reshape(-1), amb.cpu().numpy().reshape(-1)
+    svals = (ws[:, None] + np.arange(W)[None, :]).reshape(-1)
+    sym_i = np.repeat(np.arange(n), W)
+    live = svals <= 100
+    exact = np.full(n * W, (1 << 24) - 1 - 200, np.int64)
+    exact[live] = et.exact_tv_at(family, -100, 100, 24, means, scales,
+                                 sym_i[live], svals[live])
+    assert not np.any(~amb & (tv != exact))
+    assert amb.mean() < 0.2
+
+
+def test_exact_canaries_on_the_card(dev):
+    et.eval_window_canary(dev)
+    et.builder_canary(dev)
+
+
+@pytest.mark.parametrize("family", ["gaussian", "laplace", "cauchy"])
+def test_device_tables_equal_host_tables(dev, family):
+    rng = np.random.RandomState(77)
+    L, nsteps = 256, 3
+    n = nsteps * L
+    means = rng.randn(n) * 30
+    scales = np.exp(rng.normal(0.3, 0.9, size=n))
+    means[:8] = [-108.3, 108.3, -99.9999, 99.9999, 0.0, -50.0, 1e-6, 3e4]
+    nc = ef.exact_ncore(means, scales, family, -100, 100, 24)
+    cmax = min(max(int(nc.max()), 1), 255)
+    host, ch_ = ef.packed_tables_device(means, scales, family, -100, 100, 24,
+                                        cmax, nsteps, L // 128)
+    (tabs, cd), = et.packed_tables_on_device_batch(
+        [(means, scales, cmax, nsteps)], family, -100, 100, 24, L, dev)
+    assert tabs.device.type == "cuda" and cd == ch_
+    np.testing.assert_array_equal(convert.exact_tables_from_torch(tabs), host)
+
+
+def test_exact_facade_on_the_card(dev):
+    n = 5 * 4096 + 17
+    means, scales, syms = _exact_data(n, seed=12)
+    st, w = ctt.encode_family_exact(syms, means, scales, "gaussian", -100,
+                                    100, grouped=True)
+    st_c, w_c = ctt.encode_family_exact(syms, means, scales, "gaussian",
+                                        -100, 100, grouped=True, device="cpu")
+    np.testing.assert_array_equal(st, st_c)
+    np.testing.assert_array_equal(w, w_c)
+    out = ctt.decode_family_exact(st, w, means, scales, "gaussian", -100, 100,
+                                  n, grouped=True)
+    np.testing.assert_array_equal(out, syms)
+    data = ctt.encode_family_exact_container(syms, means, scales, "laplace",
+                                             -100, 100)
+    np.testing.assert_array_equal(
+        data, ctt.encode_family_exact_container(
+            syms, means, scales, "laplace", -100, 100, device="cpu"))
+    np.testing.assert_array_equal(
+        ctt.decode_family_exact_container(data, means, scales, "laplace",
+                                          -100, 100), syms)
+
+
+@pytest.mark.parametrize("family", ["gaussian", "cauchy"])
+def test_exact_facade_ungrouped_on_the_card(dev, family):
+    """The facade's ungrouped pair at the DEFAULT preset: kernel 17, then
+    kernel 15 over host-built tables sized by ``cmax=None``; equal to the
+    ``device="cpu"`` result and to the symbols."""
+    n, cfg = 3 * 1024 - 5, _exact_cfg(1024)
+    means, scales, syms = _exact_data(n, seed=21)
+    st, w = ctt.encode_family_exact(syms, means, scales, family, -100, 100,
+                                    cfg=cfg)
+    st_c, w_c = ctt.encode_family_exact(syms, means, scales, family, -100,
+                                        100, cfg=cfg, device="cpu")
+    np.testing.assert_array_equal(st, st_c)
+    np.testing.assert_array_equal(w, w_c)
+    before = ef.LAUNCHES["decode64"]
+    out = ctt.decode_family_exact(st, w, means, scales, family, -100, 100, n,
+                                  cfg=cfg)
+    assert ef.LAUNCHES["decode64"] == before + 1
+    out_c = ctt.decode_family_exact(st, w, means, scales, family, -100, 100,
+                                    n, cfg=cfg, device="cpu")
+    assert out.dtype == out_c.dtype
+    np.testing.assert_array_equal(out, out_c)
+    np.testing.assert_array_equal(out, syms)

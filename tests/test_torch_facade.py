@@ -312,6 +312,22 @@ def test_cuda_without_a_card_raises(monkeypatch):
                                     np.zeros(0, np.uint32),
                                     np.full(32768, 16, np.uint32), mu[:0],
                                     sigma[:0], "gaussian", -100, 100)
+    mu64, sigma64 = mu.astype(np.float64), sigma.astype(np.float64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ctt.encode_family_exact(sym, mu64, sigma64, "gaussian", -100, 100,
+                                grouped=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ctt.decode_family_exact(np.full(128, 1 << 32, np.uint64),
+                                np.zeros(1, np.uint32), mu64, sigma64,
+                                "gaussian", -100, 100, 200, grouped=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ctt.encode_family_exact_container(sym, mu64, sigma64, "gaussian",
+                                          -100, 100)
+    container = ctt.encode_family_exact_container(
+        sym, mu64, sigma64, "gaussian", -100, 100, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ctt.decode_family_exact_container(container, mu64, sigma64,
+                                          "gaussian", -100, 100)
 
 
 def test_port_imports_no_jax():
@@ -322,9 +338,10 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import constriction_tpu_torch, constriction_tpu_torch.cuda\n"
         "import constriction_tpu_torch.convert, constriction_tpu_torch.models\n"
+        "import constriction_tpu_torch.utils.special\n"
         "from constriction_tpu_torch.ops import (_build, coder, coder64,\n"
-        "    chain, family, framing, interleaved, interleaved2, range_enc,\n"
-        "    tchain)\n"
+        "    chain, exact_family, exact_tables, family, framing,\n"
+        "    framing_family, interleaved, interleaved2, range_enc, tchain)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'constriction_tpu'))\n"
         "assert not bad, bad\n"

@@ -248,3 +248,13 @@ def test_parse_v2_errors_match():
                 lambda: framing.container_version(data[:1]))
     _same_error(lambda: ref_framing.peek_cfg(data[:5]),
                 lambda: framing.peek_cfg(data[:5]))
+
+
+@pytest.mark.parametrize("W,nwords", [(32, 0), (32, 37), (16, 5), (8, 64)])
+def test_bits_to_stream_matches(W, nwords):
+    bits = np.random.RandomState(W + nwords).randint(
+        0, 2, nwords * W + 11).astype(np.uint8)
+    got = framing._bits_to_stream(bits, W, nwords)
+    ref = ref_framing._bits_to_stream(bits, W, nwords)
+    assert got.dtype == ref.dtype
+    np.testing.assert_array_equal(got, ref)
