@@ -116,13 +116,14 @@ prints one JSON object per phase, then the kernels line, the card's
                     L=32768, seed 1234) through ``cuda.encode_family_exact``
                     -> ``decode_family_exact`` (grouped), ``cuda.
                     encode_family_exact_container`` -> ``decode_family_
-                    exact_container``, the ungrouped pair (the facade's
-                    encode, then ``exact_family.decode_family_exact`` with
-                    tables built on the card), and the facade's ungrouped
-                    pair on the first 2^18 symbols (tables from the host
-                    builder, cmax=None): states, streams and container
-                    byte for byte the host oracles', every decode equal to
-                    the symbols, each of the four kernels launched; the
+                    exact_container``, the facade's ungrouped pair at the
+                    same config (its decode builds the tables on the card
+                    by default), and on the first 2^18 symbols the
+                    ungrouped decode with ``device_tables=False`` (tables
+                    from the host builder, cmax=None): states, streams and
+                    container byte for byte the host oracles', every
+                    decode equal to the symbols, each of the four kernels
+                    launched; the
                     container's overhead against the information content
                     (as the suite computes it), the host rows and segments
                     of the builder and which libm functions
@@ -134,6 +135,35 @@ prints one JSON object per phase, then the kernels line, the card's
                     (kernels 15 and 16: the table words on the binary
                     search's path, counted from this run's tables and
                     symbols).
+22. exact32_kernels -- kernels 14 and 13 (the S=32 reference-exact pair)
+                    against their twins on the same CUDA tensors and the
+                    port's numpy oracles (``encode_shared``,
+                    ``decode_family_exact_host``) at L=32768: gaussian,
+                    laplace and cauchy on [-100, 100] (about 2^20 symbols,
+                    partial last step), gaussian with sharp cores (2^20)
+                    and binomial (2 steps) at P=12, a
+                    flat P=16 gaussian on [-50, 50] with a run of top
+                    symbols (4 steps); kernel 14 with and without seeds,
+                    kernel 13 through its wrapper and with the scan and
+                    the binary search forced, over the host builder's
+                    narrow tables.  Tolerance 0.
+23. exact32_main_path -- the facade's DEFAULT exact call, no cfg
+                    (W=16, S=32, P=12, L=32768): ``cuda.encode_family_
+                    exact(sym, mu, sigma, "gaussian", -100, 100)`` ->
+                    ``decode_family_exact(..., num_symbols=n)`` on 2^20
+                    symbols of the suite's synthetic latents (the host
+                    table builder cuts the suite's 2^22): states and
+                    stream byte for byte the numpy host coder's on
+                    ``exact_ecp``'s planes, the decode equal to the
+                    symbols; both kernels launched.
+24. exact32_times -- kernel-only time of kernels 14 and 13 at that size
+                    over the main path's planes and tables, the twins'
+                    time on the card (outputs equal), the facade's call
+                    times and host share, each kernel's bound (kernel 13:
+                    the table words on the binary search's path), and the
+                    narrow search sweep (scan and binary search at table
+                    widths from the tight one to 128 planes) that fixes
+                    ``exact_family.BISECT_FROM_PLANES_NARROW``.
 
 Each main path runs with every launch counter set to 0 just before it, and
 the counts read just after it are the ``launches`` of its kernels.
@@ -146,8 +176,9 @@ family.cuh) times what this run's inputs need; for the window evaluator
 the float64 operations of each window entry (EVAL_OPS) over the card's
 34 TFLOP/s float64 rate outside the tensor cores (NVIDIA's data sheet).
 No single PyTorch call computes these functions, so ``library_ms`` is
-null.  The numpy host oracles of phases 18 and 19 run in worker processes
-(at most 8), which the script stops before phase 20.
+null.  The numpy host oracles of phases 18 and 19 and of phase 22 run in
+worker processes (at most 8), which the script stops before phase 20 and
+before phase 23.
 
 Everything comes from the port: the model's CDF
 (``constriction_tpu_torch.models``) and the host oracles, which are the
@@ -254,12 +285,32 @@ EXACT_KERNELS = {
                           "constriction_tpu/ops/df32_pallas.py:135",
                           EXACT_SOURCE),
 }
+EXACT32_KERNELS = {
+    "exact_decode32": ("exact", "decode32",
+                       "constriction_tpu/ops/exact_family.py:1106",
+                       EXACT_SOURCE),
+    "exact_encode32": ("exact", "encode32",
+                       "constriction_tpu/ops/exact_family.py:1148",
+                       EXACT_SOURCE),
+}
 N_EXACT = 1 << 22  # the JAX suite's exact-family row at its TPU size
 N_EXACT_CHECK = (1 << 20) - 12345  # partial last step
 N_EXACT_EVAL = 1 << 20
 N_EXACT_TABLES = 1 << 18
-N_EXACT_FACADE_UNGROUPED = 1 << 18  # the facade's ungrouped decode builds
-# its tables on the host (numpy f64 CDFs): a size where that takes seconds
+N_EXACT_HOST_TABLES = 1 << 18  # the ungrouped decode with host-built
+# tables (numpy f64 CDFs): a size where that takes seconds
+# the facade's default S=32 pair (W=16, P=12): its narrow tables come from
+# the host builder (numpy f64 CDFs, about a minute per 2^20 symbols on the
+# card's host), which cuts the suite's 2^22 symbols to 2^20
+N_EXACT32 = 1 << 20
+N_EXACT32_CHECK = (1 << 20) - 12345  # partial last step
+EXACT32_CHECK_LANES = 32768
+# binomial's f64 CDF costs about 4 us on the host: 2 steps of 32768 lanes
+N_EXACT32_BINOMIAL = 2 * 32768 - 99
+N_EXACT32_FLAT = 4 * 32768 - 99
+EXACT32_P = 12
+# narrow table widths (planes) of the search sweep
+SWEEP32_PLANES = (4, 6, 7, 8, 10, 12, 14, 16, 20, 24, 32, 48, 64, 96, 128)
 EXACT_SUPPORT = (-100, 100)
 EXACT_FAMILY = "gaussian"
 EXACT_P = 24
@@ -1935,13 +1986,13 @@ def info_bits(symbols, means, scales) -> float:
 def phase_exact_main(device, work, keep: dict) -> dict:
     """The JAX suite's exact-family row (2^22 symbols, gaussian, support
     [-100, 100], P=24, L=32768) through the four facade entry points
-    (grouped pair and v2 container), the ungrouped pair (the facade's
-    encode with the same DEFAULT-preset config, then
-    ``exact_family.decode_family_exact`` with tables built on the card), and
-    the facade's ungrouped pair on the first N_EXACT_FACADE_UNGROUPED
-    symbols (its decode builds the tables on the host): states, streams and
-    container byte for byte the port's numpy host oracles', every decode
-    equal to the symbols."""
+    (grouped pair and v2 container), the facade's ungrouped pair with the
+    same DEFAULT-preset config (its decode builds the tables on the card by
+    default), and on the first N_EXACT_HOST_TABLES symbols the ungrouped
+    pair with ``exact_family.decode_family_exact(..., device_tables=False)``
+    (tables from the host builder): states, streams and container byte for
+    byte the port's numpy host oracles', every decode equal to the
+    symbols."""
     import numpy as np
 
     from constriction_tpu_torch import convert
@@ -1974,23 +2025,23 @@ def phase_exact_main(device, work, keep: dict) -> dict:
     st_u, w_u = ctt.encode_family_exact(syms, means, scales, family, lo, hi,
                                         cfg=cfg, device=device)
     t.append(clock())
+    # the bound the ungrouped decode's on-card builder starts from
     cmax_u = min(255, -(-int(ef._ncore_estimate(
         means, scales, family, lo, hi).max()) // 4) * 4)
-    out_u = ef.decode_family_exact(
-        convert.u64_to_torch(st_u, device), convert.u32_to_torch(w_u, device),
-        means, scales, family, lo, hi, cfg, n, cmax=cmax_u,
-        device_tables=True).cpu().numpy()
+    out_u = ctt.decode_family_exact(st_u, w_u, means, scales, family, lo, hi,
+                                    n, cfg=cfg, device=device)
     t.append(clock())
-    # the facade's ungrouped decode (host-built tables, cmax=None) on the
-    # message's first N_EXACT_FACADE_UNGROUPED symbols
-    nf = N_EXACT_FACADE_UNGROUPED
+    # the host builder's route (cmax=None) on the message's first
+    # N_EXACT_HOST_TABLES symbols
+    nf = N_EXACT_HOST_TABLES
     st_f, w_f = ctt.encode_family_exact(syms[:nf], means[:nf], scales[:nf],
                                         family, lo, hi, cfg=cfg,
                                         device=device)
     t_f = clock()
-    out_f = ctt.decode_family_exact(st_f, w_f, means[:nf], scales[:nf],
-                                    family, lo, hi, nf, cfg=cfg,
-                                    device=device)
+    out_f = ef.decode_family_exact(
+        convert.u64_to_torch(st_f, device), convert.u32_to_torch(w_f, device),
+        means[:nf], scales[:nf], family, lo, hi, cfg, nf,
+        device_tables=False).cpu().numpy()
     t_f = clock() - t_f
     t.append(clock())
     # host oracles
@@ -2012,8 +2063,9 @@ def phase_exact_main(device, work, keep: dict) -> dict:
     p = framing.parse_v2(data)
     calls = dict(zip(("encode_grouped", "decode_grouped",
                       "encode_container", "decode_container",
-                      "encode_ungrouped", "decode_ungrouped_device_tables",
-                      "ungrouped_facade_pair", "host_oracles"), np.diff(t)))
+                      "encode_ungrouped", "decode_ungrouped",
+                      "ungrouped_host_tables_pair", "host_oracles"),
+                     np.diff(t)))
     row = {
         "family": family, "support": [lo, hi], "n": n,
         "num_lanes": cfg.num_lanes, "precision": cfg.precision,
@@ -2033,8 +2085,8 @@ def phase_exact_main(device, work, keep: dict) -> dict:
                                 and np.array_equal(out_c, syms)
                                 and np.array_equal(out_u, syms)
                                 and np.array_equal(out_f, syms[:nf])),
-        "ungrouped_facade_n": nf,
-        "decode_ungrouped_facade_host_tables_call_s": t_f,
+        "host_tables_n": nf,
+        "decode_ungrouped_host_tables_call_s": t_f,
         "max_abs_err": 0,
         "entropy_bits_per_symbol": info / n,
         "container_overhead_pct": (len(data) * 32 / info - 1) * 100,
@@ -2096,14 +2148,17 @@ def search_sweep(device, states, stream, spans, built, cfg) -> list:
     return rows
 
 
-def search_path_words(tabs, cums, k: int) -> tuple[int, int]:
-    """What kernels 15 and 16 need to read of the tables ``tabs`` int32
-    [T, CP1, L] to decode the first ``k`` symbols (symbol i in column i %
-    L of step i // L) whose ``cums`` (numpy, decode order) are known: per
-    symbol the aux word and the distinct words of the packed fields that
-    the binary search over the ascending fields probes (``field(mid)``,
-    then ``field(cnt - 1)`` and ``field(cnt)``, as exact_family.cu's
-    ``TableModel`` does; fields 1 and 2 of a group straddle two words).
+def search_path_words(tabs, cums, k: int,
+                      narrow: bool = False) -> tuple[int, int]:
+    """What kernels 15 and 16 (or with ``narrow``, kernel 13) need to read
+    of the tables ``tabs`` int32 [T, CP1, L] to decode the first ``k``
+    symbols (symbol i in column i % L of step i // L) whose ``cums``
+    (numpy, decode order) are known: per symbol the aux word and the
+    distinct words of the packed fields that the binary search over the
+    ascending fields probes (``field(mid)``, then ``field(cnt - 1)`` and
+    ``field(cnt)``, as exact_family.cu's ``TableModel`` and
+    ``NarrowTableModel`` do; in wide tables fields 1 and 2 of a group
+    straddle two words, in narrow tables a word holds two fields).
     ``cnt``, the number of fields below the quantile, is the same for
     every quantile of a symbol's interval, so the symbol's cum stands for
     it.  Counted for every width, also where the wrapper scans: the least
@@ -2112,7 +2167,7 @@ def search_path_words(tabs, cums, k: int) -> tuple[int, int]:
     import torch
 
     T, CP1, L = tabs.shape
-    N = 4 * ((CP1 - 1) // 3)
+    N = 2 * (CP1 - 1) if narrow else 4 * ((CP1 - 1) // 3)
     q_all = torch.from_numpy(np.asarray(cums[:k], np.int64)).to(tabs.device)
     words = probes = 0
     per = max(1, (1 << 18) // L)  # steps a chunk
@@ -2121,21 +2176,28 @@ def search_path_words(tabs, cums, k: int) -> tuple[int, int]:
         col = tabs[t0:t1].permute(0, 2, 1).reshape(-1, CP1)[:k - t0 * L]
         col = col.to(torch.int64) & 0xFFFFFFFF
         m = col.shape[0]
-        w = col[:, 1:].reshape(m, -1, 3)
-        w0, w1, w2 = w[..., 0], w[..., 1], w[..., 2]
-        fields = torch.stack([
-            w0 & 0xFFFFFF, (w0 >> 24) | ((w1 & 0xFFFF) << 8),
-            (w1 >> 16) | ((w2 & 0xFF) << 16), w2 >> 8], -1).reshape(m, N)
+        if narrow:
+            w = col[:, 1:]
+            fields = torch.stack([w & 0xFFFF, w >> 16], -1).reshape(m, N)
+        else:
+            w = col[:, 1:].reshape(m, -1, 3)
+            w0, w1, w2 = w[..., 0], w[..., 1], w[..., 2]
+            fields = torch.stack([
+                w0 & 0xFFFFFF, (w0 >> 24) | ((w1 & 0xFFFF) << 8),
+                (w1 >> 16) | ((w2 & 0xFF) << 16), w2 >> 8], -1).reshape(m, N)
         cnt = (fields < q_all[t0 * L:t0 * L + m, None]).sum(1)
-        del fields, w, w0, w1, w2, col
+        del fields, w, col
         touched = torch.zeros((m, CP1), dtype=torch.bool, device=tabs.device)
         touched[:, 0] = True  # the aux word
 
         def mark(kf, live):
-            base = 1 + 3 * (kf >> 2)
-            r = kf & 3
-            first = base + (r - 1).clamp(min=0)
-            second = torch.where((r == 1) | (r == 2), base + r, first)
+            if narrow:
+                first = second = 1 + (kf >> 1)
+            else:
+                base = 1 + 3 * (kf >> 2)
+                r = kf & 3
+                first = base + (r - 1).clamp(min=0)
+                second = torch.where((r == 1) | (r == 2), base + r, first)
             for idx in (first, second):
                 touched.scatter_(1, torch.where(live, idx, 0)[:, None], True)
             return int(live.sum())
@@ -2361,10 +2423,365 @@ def phase_exact_times(device, work, keep: dict, gpu: str,
         / 1e6,
         **{f"facade_{k}_call_s": v for k, v in calls.items()},
         **{f"facade_{k}_Msyms": n / v / 1e6 for k, v in calls.items()
-           if k not in ("host_oracles", "ungrouped_facade_pair")},
+           if k not in ("host_oracles", "ungrouped_host_tables_pair")},
         "gpu": gpu,
     }
     return {"phase": "exact_times", "cases": [row]}, times
+
+
+# ---------------------------------------------------------------------------
+# reference-exact families at the small preset (W=16, S=32, P <= 16)
+# ---------------------------------------------------------------------------
+
+# integer operations per symbol of the S=32 encoder (u32 division and
+# remainder, renorm test, emission) and of the narrow table decoder outside
+# its search (regions, state update, refill)
+ENCODE32_OPS = 20
+DECODE32_OPS = 30
+
+
+def _exact32_oracle_tables(args):
+    """Host builder (a worker process): ``exact_family.narrow_tables`` at
+    cmax = the batch's largest core, rounded up to even."""
+    from constriction_tpu_torch.ops import exact_family as ef
+
+    family, means, scales, lo, hi, P, nsteps, R = args
+    return ef.narrow_tables(means, scales, family, lo, hi, P, None, nsteps,
+                            R)
+
+
+def _exact32_oracle_decode(args):
+    """Host decode oracle (a worker process):
+    ``exact_family.decode_family_exact_host``."""
+    from constriction_tpu_torch.ops import exact_family as ef
+
+    states, stream, means, scales, family, lo, hi, cfg, n = args
+    return ef.decode_family_exact_host(states, stream, means, scales, family,
+                                       lo, hi, cfg, n)
+
+
+def exact32_cases():
+    """The kernel checks' messages: (label, family, lo, hi, P, means,
+    scales, symbols).  Gaussian, laplace and cauchy models of the suite's
+    latents with scales exp(N(-0.5, 0.3)) on [-100, 100], gaussian models
+    with sharp cores (scales exp(N(-2.5, 0.2)), whole steps, so that no
+    padded lane's unit model widens the tables: the narrowest tables of
+    the search sweep) and binomial (60 trials) at P=12; a flat P=16 gaussian
+    on [-50, 50] whose run of top symbols steers quantiles into the top
+    interval."""
+    import numpy as np
+
+    n = N_EXACT32_CHECK
+    means, scales, syms = exact_workload(n, scale_sd=0.3, scale_mu=-0.5)
+    cases = [(fam, fam, -100, 100, EXACT32_P, means, scales, syms)
+             for fam in ("gaussian", "laplace", "cauchy")]
+    cases.append(("gaussian_sharp", "gaussian", -100, 100, EXACT32_P,
+                  *exact_workload(1 << 20, scale_sd=0.2, scale_mu=-2.5)))
+    rng = np.random.RandomState(7)
+    nb = N_EXACT32_BINOMIAL
+    ps = rng.uniform(0.02, 0.98, nb)
+    cases.append(("binomial", "binomial", 0, 60, EXACT32_P,
+                  np.full(nb, 60.0), ps, rng.binomial(60, ps)))
+    nf = N_EXACT32_FLAT
+    flat = rng.randint(-50, 51, nf)
+    flat[nf // 5:2 * nf // 5] = 50
+    cases.append(("flat16", "gaussian", -50, 50, 16, np.zeros(nf),
+                  np.full(nf, 500.0), flat))
+    return cases
+
+
+def decode32_launch(device, states, stream, tabs, syms, n, cfg, lo, hi,
+                    bisect: int):
+    """One kernel-13 launch through its C entry point, the search forced:
+    ``bisect`` 0 scans, 1 binary-searches."""
+    from constriction_tpu_torch.ops import _build
+
+    _build.call("ctt_exact_decode32", device, states, stream, stream.numel(),
+                tabs, tabs.shape[1], syms, n, cfg.num_lanes, cfg.precision,
+                lo, hi, bisect, None)
+
+
+def phase_exact32_kernels(device, pool, errs: dict, keep: dict) -> dict:
+    """Kernels 14 and 13 against their twins on the same CUDA tensors and
+    against the numpy oracles (``encode_shared``,
+    ``decode_family_exact_host``), L=32768: kernel 14 with and without
+    seeds, kernel 13 through its wrapper and with the scan and the binary
+    search forced, over the host builder's narrow tables."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import exact_family as ef
+    from constriction_tpu_torch.ops import interleaved2 as il2
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    L = EXACT32_CHECK_LANES
+    cases = exact32_cases()
+    tables = []
+    for label, family, lo, hi, P, means, scales, syms in cases:
+        T = -(-len(syms) // L)
+        pm, ps = ef._pad_params(means, scales, T * L, family, hi)
+        tables.append(pool.submit(_exact32_oracle_tables, (
+            family, pm, ps, lo, hi, P, T, L // 128)))
+    rng = np.random.RandomState(6)
+    rows, decodes, e14, e13 = [], [], 0, 0
+    for label, family, lo, hi, P, means, scales, syms in cases:
+        n = len(syms)
+        cfg = LaneConfig(num_lanes=L, word_bits=16, state_bits=32,
+                         precision=P)
+        cums, probs = ef.exact_ecp(syms, means, scales, family, lo, hi, P)
+        c_t, p_t = convert.ecp_to_torch(cums, probs, L, device)
+        for seeded in (False, True):
+            seeds = (rng.randint(1 << 16, 1 << 32, L, dtype=np.int64)
+                     .astype(np.uint32) if seeded else None)
+            s_t = None if seeds is None else convert.u32_to_torch(seeds,
+                                                                  device)
+            st, w = ef.encode_tables(c_t, p_t, cfg, s_t, n)
+            st_p, w_p = ef.encode_tables_plain(c_t, p_t, cfg, s_t, n)
+            st_h, w_h = il2.encode_shared(cums, probs, cfg, seeds=seeds)
+            e = max(mismatch(st, st_p), mismatch(w, w_p))
+            same_h = (np.array_equal(convert.u32_from_torch(st), st_h)
+                      and np.array_equal(convert.u32_from_torch(w), w_h))
+            e14 = max(e14, e, 0 if same_h else 1)
+            rows.append({"kernel": "exact_encode32", "case": label,
+                         "seeded": seeded, "n": n, "max_abs_err_vs_twin": e,
+                         "identical_to_host_oracle": same_h})
+            if not seeded:
+                states, stream = st, w
+        decodes.append((states, stream, cfg, pool.submit(
+            _exact32_oracle_decode, (
+                convert.u32_from_torch(states),
+                convert.u32_from_torch(stream), means, scales, family, lo,
+                hi, cfg, n))))
+    for case, table, (states, stream, cfg, host) in zip(cases, tables,
+                                                         decodes):
+        label, family, lo, hi, P, means, scales, syms = case
+        n = len(syms)
+        tabs4, cmax = table.result()
+        tabs = convert.exact_tables_to_torch(tabs4, device)
+        out, fin = ef.decode_tables(states, stream, tabs, cfg, lo, hi, n,
+                                    return_final_states=True)
+        out_p, fin_p, _ = ef.decode_tables_plain(states, stream, tabs, cfg,
+                                                 lo, hi, n)
+        e = max(mismatch(out, out_p), mismatch(fin, fin_p))
+        for mode in (0, 1):  # the scan and the binary search, forced
+            o_m, f_m = torch.empty_like(out), states.clone()
+            decode32_launch(device, f_m, stream, tabs, o_m, n, cfg, lo, hi,
+                            mode)
+            e = max(e, mismatch(o_m, out), mismatch(f_m, fin))
+        ok = (np.array_equal(out.cpu().numpy(), syms)
+              and bool((fin == 1 << 16).all())
+              and np.array_equal(host.result(), syms))
+        e13 = max(e13, e)
+        rows.append({"kernel": "exact_decode32", "case": label, "n": n,
+                     "cmax": cmax, "planes": int(tabs.shape[1]),
+                     "bisect_by_default": ef.bisect_tables(tabs.shape[1],
+                                                           True),
+                     "max_abs_err_vs_twin_and_forced_modes": e,
+                     "decodes_like_host_oracle": ok})
+        if label in ("gaussian", "gaussian_sharp"):
+            keep.setdefault("sweep_cases", []).append(
+                (states, stream, tabs, n, cfg, lo, hi))
+        if not ok:
+            e13 = max(e13, 1)
+    errs["exact_encode32"] = e14
+    errs["exact_decode32"] = e13
+    if e14 or e13:
+        fail(f"exact32_kernels: {rows}")
+    return {"phase": "exact32_kernels", "num_lanes": L, "cases": rows}
+
+
+def phase_exact32_main(device, work, keep: dict) -> dict:
+    """The facade's default exact pair: ``cuda.encode_family_exact(sym, mu,
+    sigma, "gaussian", -100, 100)`` -> ``cuda.decode_family_exact(...,
+    num_symbols=n)`` with no cfg (W=16, S=32, P=12 at L=32768) on the
+    suite's synthetic latents: states and stream byte for byte the numpy
+    host coder's on ``exact_ecp``'s planes, the decode equal to the
+    symbols.  The narrow tables the decode builds are kept for the times
+    phase."""
+    import numpy as np
+
+    from constriction_tpu_torch import cuda as ctt
+    from constriction_tpu_torch.ops import exact_family as ef
+    from constriction_tpu_torch.ops import interleaved2 as il2
+
+    means, scales, syms = work
+    lo, hi = EXACT_SUPPORT
+    family, n = EXACT_FAMILY, len(syms)
+    build = ef.narrow_tables
+
+    def kept_tables(*args):
+        keep["tables"] = build(*args)
+        return keep["tables"]
+
+    clock = time.perf_counter
+    t = [clock()]
+    st, w = ctt.encode_family_exact(syms, means, scales, family, lo, hi,
+                                    device=device)
+    t.append(clock())
+    ef.narrow_tables = kept_tables
+    try:
+        out = ctt.decode_family_exact(st, w, means, scales, family, lo, hi, n,
+                                      device=device)
+    finally:
+        ef.narrow_tables = build
+    t.append(clock())
+    cfg = ctt._pick_cfg_family(n, None, False)
+    cums, probs = ef.exact_ecp(syms, means, scales, family, lo, hi,
+                               cfg.precision)
+    st_h, w_h = il2.encode_shared(cums, probs, cfg)
+    t.append(clock())
+    tabs4, cmax = keep["tables"]
+    ncore = tabs4[:, 0] >> 16
+    calls = dict(zip(("encode", "decode", "host_oracle"), np.diff(t)))
+    row = {
+        "family": family, "support": [lo, hi], "n": n,
+        "num_lanes": cfg.num_lanes, "word_bits": cfg.word_bits,
+        "state_bits": cfg.state_bits, "precision": cfg.precision,
+        "states_dtype": str(st.dtype), "symbols_dtype": str(out.dtype),
+        "ncore_max": int(ncore.max()), "ncore_mean": float(ncore.mean()),
+        "cmax": cmax, "planes": int(tabs4.shape[1]),
+        "stream_words": int(len(w)),
+        "identical_to_host_oracle": bool(
+            st.dtype == np.uint32 and np.array_equal(st, st_h)
+            and np.array_equal(w, w_h)),
+        "decodes_exactly": bool(np.array_equal(out, syms)),
+        "max_abs_err": 0,
+        **{f"{k}_call_s": v for k, v in calls.items()},
+    }
+    keep.update(calls=calls, cums=cums, probs=probs, cfg=cfg, st=st, w=w)
+    if not (row["identical_to_host_oracle"] and row["decodes_exactly"]):
+        fail(f"exact32 main path: {row}")
+    return {"phase": "exact32_main_path", "cases": [row]}
+
+
+def search_sweep32(device, cases) -> tuple[list, int | None]:
+    """Kernel 13 per table width: each message's narrow tables padded with
+    pad planes (0xFFFF pairs, which no quantile selects) to every width of
+    SWEEP32_PLANES above its own, decoded by the scan and by the binary
+    search, timed in turns (scan, bisect, bisect, scan); the two must
+    decode alike.  Returns the rows and the narrowest width from which the
+    binary search was the faster at every width measured (None if
+    never)."""
+    import torch
+
+    rows = []
+    for states, stream, tabs, n, cfg, lo, hi in cases:
+        T, CP1, L = tabs.shape
+        for planes in [CP1] + [p for p in SWEEP32_PLANES if p > CP1]:
+            tb = tabs if planes == CP1 else torch.cat([tabs, torch.full(
+                (T, planes - CP1, L), -1, dtype=torch.int32,
+                device=device)], 1)
+            s_buf = states.clone()
+            o_buf = torch.empty(n, dtype=torch.int32, device=device)
+            res, outs = {0: [], 1: []}, {}
+            for mode in (0, 1, 1, 0):
+                res[mode].append(kernel_ms(
+                    lambda: s_buf.copy_(states), lambda: decode32_launch(
+                        device, s_buf, stream, tb, o_buf, n, cfg, lo, hi,
+                        mode), 3))
+                outs[mode] = (o_buf.clone(), s_buf.clone())
+            if not all(torch.equal(a, b) for a, b in zip(outs[0], outs[1])):
+                fail(f"search_sweep32: scan and bisect differ at {planes} "
+                     "planes")
+            rows.append({"planes": planes, "symbols": n,
+                         "scan_ms": sum(res[0]) / 2,
+                         "bisect_ms": sum(res[1]) / 2})
+            del tb
+    rows.sort(key=lambda r: r["planes"])
+    from_planes = None
+    for r in reversed(rows):
+        if r["bisect_ms"] >= r["scan_ms"]:
+            break
+        from_planes = r["planes"]
+    return rows, from_planes
+
+
+def phase_exact32_times(device, work, keep: dict, gpu: str,
+                        errs: dict) -> tuple[dict, dict]:
+    """Kernel-only time of kernels 14 and 13 at the main path's shapes (CUDA
+    events around the C entry points, after a warm-up), over the main
+    path's own planes and tables; each twin's time on the card (outputs
+    equal); the facade's call times and their host share; each kernel's
+    bound (kernel 13: the table words on the binary search's path, counted
+    from this run's tables and symbols); and the narrow search sweep."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import _build
+    from constriction_tpu_torch.ops import exact_family as ef
+
+    means, scales, syms = work
+    lo, hi = EXACT_SUPPORT
+    n, cfg = len(syms), keep["cfg"]
+    L, P = cfg.num_lanes, cfg.precision
+    c_t, p_t = convert.ecp_to_torch(keep["cums"], keep["probs"], L, device)
+    st = convert.u32_to_torch(keep["st"], device)
+    w = convert.u32_to_torch(keep["w"], device)
+    nw = int(w.numel())
+    tabs = convert.exact_tables_to_torch(keep["tables"][0], device)
+    ms, plain, e = {}, {}, {}
+    s_buf = torch.empty(L, dtype=torch.int32, device=device)
+    w_buf = torch.empty(n, dtype=torch.int32, device=device)
+    end = torch.empty(1, dtype=torch.int64, device=device)
+    ms["exact_encode32"] = kernel_ms(
+        lambda: s_buf.fill_(1 << 16), lambda: _build.call(
+            "ctt_exact_encode32", device, s_buf, c_t, p_t, n, w_buf, n, end,
+            L, P), 3)
+    same = torch.equal(s_buf, st) and torch.equal(w_buf[int(end):], w)
+    plain["exact_encode32"], pe = timed(
+        lambda: ef.encode_tables_plain(c_t, p_t, cfg, None, n))
+    e["exact_encode32"] = planes_err((st, w), pe)
+    o_buf = torch.empty(n, dtype=torch.int32, device=device)
+    bisect = int(ef.bisect_tables(tabs.shape[1], True))
+    ms["exact_decode32"] = kernel_ms(
+        lambda: s_buf.copy_(st), lambda: decode32_launch(
+            device, s_buf, w, tabs, o_buf, n, cfg, lo, hi, bisect), 3)
+    same = (same and torch.equal(o_buf.cpu(), torch.from_numpy(
+        syms.astype(np.int32))) and bool((s_buf == 1 << 16).all()))
+    plain["exact_decode32"], pd = timed(lambda: ef.decode_tables_plain(
+        st, w, tabs, cfg, lo, hi, n)[:2])
+    e["exact_decode32"] = planes_err((o_buf, s_buf), pd)
+    if not same:
+        fail("exact32_times: timed launches differ from the wrappers' output")
+    if any(e.values()):
+        fail(f"exact32_times: kernel != twin at full size: {e}")
+    sweep, from_planes = search_sweep32(device, [
+        *keep["sweep_cases"], (st, w, tabs, n, cfg, lo, hi)])
+
+    words, probes = search_path_words(tabs, keep["cums"], n, narrow=True)
+    bounds = {
+        "exact_encode32": bound(8 * n + 8 * L + 4 * nw, ENCODE32_OPS * n),
+        "exact_decode32": bound(4 * words + 4 * nw + 4 * n + 8 * L,
+                                PROBE_OPS * probes + DECODE32_OPS * n),
+    }
+    times = {}
+    for name in ms:
+        errs[name] = max(errs[name], e[name])
+        times[name] = (ms[name], plain[name], *bounds[name])
+    calls = keep["calls"]
+    kernel_of = {"encode": "exact_encode32", "decode": "exact_decode32"}
+    row = {
+        "family": EXACT_FAMILY, "n": n, "num_lanes": L, "precision": P,
+        "planes": int(tabs.shape[1]),
+        "search_path_bytes_per_symbol": 4 * words / n,
+        "bisect_by_default": bool(bisect),
+        **{f"{k}_ms": v for k, v in ms.items()},
+        **{f"{k}_ns_per_symbol": v * 1e6 / n for k, v in ms.items()},
+        **{f"{k}_plain_ms": v for k, v in plain.items()},
+        **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
+        **{f"{k}_bound_by": v[1] for k, v in bounds.items()},
+        **{f"{k}_max_abs_err": v for k, v in e.items()},
+        **{f"facade_{k}_call_s": calls[k] for k in kernel_of},
+        **{f"facade_{k}_host_share": 1 - ms[v] * 1e-3 / calls[k]
+           for k, v in kernel_of.items()},
+        "search_by_width": sweep,
+        "bisect_from_planes_measured": from_planes,
+        "BISECT_FROM_PLANES_NARROW": ef.BISECT_FROM_PLANES_NARROW,
+        "gpu": gpu,
+    }
+    return {"phase": "exact32_times", "cases": [row]}, times
 
 
 def run_main_path(modules: dict, table: dict, phase):
@@ -2466,6 +2883,17 @@ def main(argv) -> int:
     emit(exact_times)
     times.update(more)
 
+    keep32: dict = {}
+    with host_pool() as pool:
+        emit(phase_exact32_kernels(device, pool, errs, keep32))
+    work = exact_workload(N_EXACT32)
+    launches.update(run_main_path(
+        modules, EXACT32_KERNELS,
+        lambda: phase_exact32_main(device, work, keep32)))
+    exact32_times, more = phase_exact32_times(device, work, keep32, gpu, errs)
+    emit(exact32_times)
+    times.update(more)
+
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "constriction_tpu"))
     if foreign:
@@ -2478,7 +2906,7 @@ def main(argv) -> int:
          "library_ms": None}
         for name, (_, _, site, source) in {
             **KERNELS, **RANGE_KERNELS, **FAMILY_KERNELS,
-            **TCHAIN_KERNELS, **EXACT_KERNELS}.items()
+            **TCHAIN_KERNELS, **EXACT_KERNELS, **EXACT32_KERNELS}.items()
     ]})
     print(gpu, flush=True)
     emit({"ok": True, "device": {

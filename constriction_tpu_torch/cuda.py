@@ -13,8 +13,8 @@ categorical bits-back), ``bits_back_decode_family`` /
 parallel symbol decode), and ``encode_family_exact`` /
 ``decode_family_exact`` with ``encode_family_exact_container`` /
 ``decode_family_exact_container`` (reference-exact per-symbol gaussian,
-laplace, cauchy or binomial models at W=32, S=64), writing and reading the
-same bytes.
+laplace, cauchy or binomial models; W=16, S=32, P=12 by default, W=32,
+S=64 grouped and in the container), writing and reading the same bytes.
 
     import constriction_tpu_torch.cuda as ctt
 
@@ -25,6 +25,10 @@ same bytes.
     states, stream = ctt.encode_family(sym, mu, sigma, "gaussian", -100, 100)
     out = ctt.decode_family(states, stream, mu, sigma, "gaussian",
                             -100, 100, len(sym))
+    states, stream = ctt.encode_family_exact(sym, mu, sigma, "gaussian",
+                                             -100, 100)
+    out = ctt.decode_family_exact(states, stream, mu, sigma, "gaussian",
+                                  -100, 100, len(sym))
     sym, rem, heads = ctt.bits_back_decode(quantiles, cdf16)
     quantiles = ctt.bits_back_encode(sym, rem, heads, cdf16)[0]
     data = ctt.encode_family_exact_container(sym, mu, sigma, "gaussian",
@@ -459,15 +463,19 @@ def encode_family_exact(symbols, means, scales, family: str, min_sym: int,
     """REFERENCE-EXACT per-symbol family encode: the model tables are the
     host f64 LeakyQuantizer's (bit-identical to the reference's
     QuantizedGaussian / Laplace / Cauchy / Binomial, quantize.rs:525-568),
-    and the rANS loop runs in kernel 17.  For ``family="binomial"`` pass
-    ``(n_trials, p)`` in the (means, scales) slots.  ``grouped=True``
+    and the rANS loop runs in kernel 14 (W=16, S=32) or kernel 17 (W=32,
+    S=64).  For ``family="binomial"`` pass ``(n_trials, p)`` in the (means,
+    scales) slots.  Without a ``cfg`` the ungrouped call picks
+    ``_pick_cfg``'s W=16, S=32, P=12 config and ``grouped=True`` the
+    W=32, S=64, P=24 one, as the JAX facade does.  ``grouped=True``
     stable-sorts the symbols by core size (the wire order the grouped
     decoder expects; pass the same flag to :func:`decode_family_exact`).
-    Returns ``(init_states u64[L], stream u32[num_words])`` numpy arrays.
-    JAX counterpart: ``constriction_tpu.tpu.encode_family_exact``, byte for
-    byte.  Only W=32, S=64 configs are ported: without a ``cfg`` the
-    ungrouped call picks ``_pick_cfg``'s W=16, S=32 config, as the JAX
-    facade does, and raises NotImplementedError."""
+    Returns ``(init_states, stream u32[num_words])`` numpy arrays, the
+    states u32[L] at S=32 and u64[L] at S=64.  JAX counterpart:
+    ``constriction_tpu.tpu.encode_family_exact``, byte for byte; unlike
+    it, a model whose core exceeds the decode tables' cap, or whose
+    support leaves the quantizer less than 2 of free mass, raises
+    ValueError instead of writing a stream no decoder reads."""
     dev = _device(device)
     symbols = np.asarray(symbols)
     cfg = _pick_cfg_family(len(symbols), cfg, grouped)
@@ -479,7 +487,8 @@ def encode_family_exact(symbols, means, scales, family: str, min_sym: int,
         states, stream = _exact.encode_family_exact(
             symbols, means, scales, family, int(min_sym), int(max_sym), cfg,
             dev)
-    return _convert.u64_from_torch(states), _convert.u32_from_torch(stream)
+    return (_convert.states_from_torch(states, cfg),
+            _convert.u32_from_torch(stream))
 
 
 def decode_family_exact(init_states, stream, means, scales, family: str,
@@ -488,17 +497,20 @@ def decode_family_exact(init_states, stream, means, scales, family: str,
                         cmax: int | None = None, grouped: bool = False,
                         device="cuda") -> np.ndarray:
     """REFERENCE-EXACT per-symbol family decode (twin of
-    :func:`encode_family_exact`): compact exact boundary tables, quantile
-    inversion and the state machine in kernel 15 (ungrouped: host-built
-    tables, ``cmax=None`` sizes them to the batch's largest core) or
-    kernel 16 (``grouped=True``: one launch per segment; on a CUDA device
-    the tables of gaussian, laplace and cauchy models are built on the card
-    with kernel 18, binomial tables on the host).  Returns int32 symbols
-    (int64 when grouped), as the JAX facade.  JAX counterpart:
+    :func:`encode_family_exact`; ``init_states`` u32 at S=32, u64 at
+    S=64): compact exact boundary tables, then quantile inversion and the
+    state machine in one kernel.  Ungrouped at S=32 (the default config):
+    narrow tables from the host builder, kernel 13.  Ungrouped at S=64:
+    kernel 15.  Grouped (S=64): kernel 16, one launch per segment.
+    ``cmax=None`` sizes the ungrouped tables to the batch's largest core.
+    At S=64 on a CUDA device the tables of gaussian, laplace and cauchy
+    models are built on the card with kernel 18, binomial tables (and
+    every table on the CPU) on the host.  Returns int32 symbols (int64
+    when grouped), as the JAX facade.  JAX counterpart:
     ``constriction_tpu.tpu.decode_family_exact``."""
     dev = _device(device)
     cfg = _pick_cfg_family(num_symbols, cfg, grouped)
-    states = _convert.u64_to_torch(init_states, dev)
+    states = _convert.states_to_torch(init_states, cfg, dev)
     words = _convert.u32_to_torch(stream, dev)
     if grouped:
         out = _exact.decode_family_exact_grouped(

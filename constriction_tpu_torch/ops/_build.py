@@ -88,7 +88,9 @@ SIGNATURES = {
     "ctt_tchain12_family_decode": _TCHAIN12_DECODE_ARGS,
     "ctt_tchain12_family_encode": _TCHAIN12_ENCODE_ARGS,
     "ctt_exact_encode64": _EXACT_ENCODE_ARGS,
+    "ctt_exact_encode32": _EXACT_ENCODE_ARGS,
     "ctt_exact_decode64": _EXACT_DECODE_ARGS,
+    "ctt_exact_decode32": _EXACT_DECODE_ARGS,
     "ctt_exact_decode64_seg": _EXACT_DECODE_ARGS,
     "ctt_exact_eval_window": _EXACT_EVAL_ARGS,
 }

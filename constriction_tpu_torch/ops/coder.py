@@ -282,22 +282,36 @@ def encode_iid_plain(symbols, cdf, cfg: LaneConfig, seeds=None):
     """Plain PyTorch twin of :func:`encode_iid` (any device, no checks).
     JAX counterpart: ``constriction_tpu.ops.pallas_coder.encode_iid_pallas``;
     numpy oracle ``interleaved2.encode_shared``."""
-    L, S, W, P = cfg.num_lanes, cfg.state_bits, cfg.word_bits, cfg.precision
-    device = symbols.device
     n = symbols.numel()
+    cdf64 = cdf.to(torch.int64)
+    K = cdf64.numel() - 1
+
+    def tables_at(i):
+        return _symbol_tables(symbols, cdf64, i, n, K)
+
+    return encode32_steps(tables_at, n, cfg, seeds, symbols.device)
+
+
+def encode32_steps(tables_at, n: int, cfg: LaneConfig, seeds, device):
+    """The S=32 encoder's step loop, steps T-1 .. 0: ``tables_at(i)`` gives
+    the (cum, prob) int64 of the flat symbol indices ``i`` (one step's
+    lanes; indices past n are masked).  Shared by the categorical twin
+    above and the exact-family planes twin
+    (``exact_family.encode_tables_plain``), as the kernels share
+    ``csrc/ilans2.cuh``'s encode loop.  ``seeds`` optional int32[L] (u32
+    bits).  Returns ``(states int32[L], stream int32)``."""
+    L, S, W, P = cfg.num_lanes, cfg.state_bits, cfg.word_bits, cfg.precision
     if seeds is not None:
         x = convert.u32_values(seeds)
     else:
         x = torch.full((L,), 1 << (S - W), dtype=torch.int64, device=device)
-    cdf64 = cdf.to(torch.int64)
-    K = cdf64.numel() - 1
     lanes = torch.arange(L, device=device)
     buf = torch.zeros(n + 1, dtype=torch.int64, device=device)
     e = torch.tensor(n, dtype=torch.int64, device=device)
     for t in range(_num_steps(n, L) - 1, -1, -1):
         i = t * L + lanes
         active = i < n
-        cum, prob = _symbol_tables(symbols, cdf64, i, n, K)
+        cum, prob = tables_at(i)
         prob = torch.where(active, prob, 1)
         renorm = active & ((x >> (S - P)) >= prob)
         e = _emit_words(buf, renorm, x & cfg.word_mask, e, n)

@@ -1,24 +1,28 @@
-// Reference-exact per-symbol families at the DEFAULT preset (W=32, S=64,
-// 16 < P <= 24) on Hopper (sm_90a): the encoder over per-symbol (cum, prob)
-// planes, the decoder against packed wide decode tables (whole message or
-// one segment of a core-size-grouped message), and the window evaluator of
-// the on-card table builder.
+// Reference-exact per-symbol families on Hopper (sm_90a), at the DEFAULT
+// preset (W=32, S=64, 16 < P <= 24) and at the small preset (W=16, S=32,
+// P <= 16): the encoder over per-symbol (cum, prob) planes, the decoder
+// against packed decode tables (wide at S=64, whole message or one segment
+// of a core-size-grouped message; narrow at S=32), and the window
+// evaluator of the on-card table builder.
 //
 // Replaces the Pallas kernels
 //   constriction_tpu/ops/exact_family.py  _build_exact_encoder64     (17)
 //   constriction_tpu/ops/exact_family.py  _build_exact_decoder64     (15)
 //   constriction_tpu/ops/exact_family.py  _build_exact_decoder64_seg (16)
 //   constriction_tpu/ops/df32_pallas.py   _build_eval                (18)
+//   constriction_tpu/ops/exact_family.py  _build_exact_encoder       (14)
+//   constriction_tpu/ops/exact_family.py  _build_exact_decoder       (13)
 // and holds the same wire format and table layout.
 //
-// Kernels 15-17 are the ILANS2 loops of ilans2.cuh (one block, a warp
+// Kernels 13-17 are the ILANS2 loops of ilans2.cuh (one block, a warp
 // ballot and block scan per step for the shared word stream, states in
-// device memory, native uint64_t state algebra), instantiated over the
-// models below; ilans2.cu's header says what bounds those loops.  The TPU
-// kernels' chunked table DMA, their 40x25-bit multiply limbs and their
+// device memory, native uint64_t / uint32_t state algebra and division),
+// instantiated over the models below; ilans2.cu's header says what bounds
+// those loops.  The TPU kernels' chunked table DMA, their 40x25-bit
+// multiply limbs, their f32-estimate division (_exact_div) and their
 // refill/emit compaction stay behind.
 //
-// Kernel 17 reads (cum, prob) from the planes at t * L + l.
+// Kernels 17 and 14 read (cum, prob) from the planes at t * L + l.
 //
 // Kernels 15 and 16 read, per lane and step, the aux plane (core_lo - min |
 // ncore << 24) and then the lane's 3G packed planes: four 24-bit (b - 1)
@@ -45,6 +49,19 @@
 // and the plain twin's separate torch operations round alike.  What bounds
 // it: the 5 bytes written per entry against one erf, exp or atan and a
 // division per entry; every SM runs it.
+//
+// Kernel 13 reads narrow tables [T, CP1, L]: the aux plane (core_lo - min
+// | ncore << 16), then CP1 - 1 planes of two 16-bit (b - 1) fields each,
+// the low half first, ascending within a lane, pads 0xFFFF.  Quantiles are
+// below 2^P <= 2^16, so the strict field < q never selects a pad, and the
+// no-successor value past the last field is 0xFFFF (0x10000 in b space,
+// only ever used through min(nxtc, rstart)).  The scan and the binary
+// search are those of kernel 15 over 2 (CP1 - 1) fields (the wrapper picks
+// by width, ops/exact_family.py BISECT_FROM_PLANES_NARROW: on an H100 the
+// binary search was the faster from 7 planes up).  What bounds
+// it: as kernel 15, the table words a lane reads (4 + 2 (CP1 - 1) bytes a
+// symbol for the scan, about log2(2 (CP1 - 1)) + 2 dependent words for the
+// search) by one SM.
 
 #include "ilans2.cuh"
 
@@ -62,6 +79,37 @@ struct PlaneModel {
   }
   __device__ uint32_t prob(int64_t i) const { return probs[i]; }
 };
+
+// The regions of _invert_with_tables once the core search has given cnt
+// (fields below q), cumc (b - 1 of the last of them) and nxtc (b - 1 of its
+// successor): the left tail, the core or the saturated right tail decide
+// (sym, cum, prob).
+__device__ __forceinline__ int exact_regions(uint32_t q, int cl, int nc,
+                                             int cnt, uint32_t cumc,
+                                             uint32_t nxtc, int P, int span,
+                                             int free, int min_sym,
+                                             uint32_t& cum, uint32_t& prob) {
+  const int qi = static_cast<int>(q);
+  const int cum_c = static_cast<int>(cumc + 1u);  // back to b space
+  const int nxt_c = static_cast<int>(nxtc + 1u);
+  const int core_hi_rel = cl + nc - 1;
+  const int rstart = core_hi_rel >= span ? (1 << P) : free + 1 + core_hi_rel;
+  const int s_rel_l = min(qi, cl - 1);
+  const int next_l = s_rel_l >= cl - 1 ? nxt_c : s_rel_l + 1;
+  const int sym_c = cl + cnt - 1;
+  const int next_c = min(nxt_c, rstart);
+  const int s_rel_r = min(qi - free, span);
+  const int cum_r = free + s_rel_r;
+  const int next_r = s_rel_r >= span ? (1 << P) : cum_r + 1;
+  const bool right = qi >= rstart;
+  const bool leftr = cnt == 0;
+  const int s_rel = right ? s_rel_r : (leftr ? s_rel_l : sym_c);
+  const int c = right ? cum_r : (leftr ? s_rel_l : cum_c);
+  const int nx = right ? next_r : (leftr ? next_l : next_c);
+  cum = static_cast<uint32_t>(c);
+  prob = static_cast<uint32_t>(nx) - cum;
+  return s_rel + min_sym;
+}
 
 // Kernels 15 and 16's model: packed wide tables [T, CP1, L].  ``bisect``
 // picks the search: a linear scan with the Pallas body's select semantics
@@ -144,26 +192,75 @@ struct TableModel {
       }
       take(pend, (1u << P) - 1u);
     }
-    const int qi = static_cast<int>(q);
-    const int cum_c = static_cast<int>(cumc + 1u);  // back to b space
-    const int nxt_c = static_cast<int>(nxtc + 1u);
-    const int core_hi_rel = cl + nc - 1;
-    const int rstart = core_hi_rel >= span ? (1 << P) : free + 1 + core_hi_rel;
-    const int s_rel_l = min(qi, cl - 1);
-    const int next_l = s_rel_l >= cl - 1 ? nxt_c : s_rel_l + 1;
-    const int sym_c = cl + cnt - 1;
-    const int next_c = min(nxt_c, rstart);
-    const int s_rel_r = min(qi - free, span);
-    const int cum_r = free + s_rel_r;
-    const int next_r = s_rel_r >= span ? (1 << P) : cum_r + 1;
-    const bool right = qi >= rstart;
-    const bool leftr = cnt == 0;
-    const int s_rel = right ? s_rel_r : (leftr ? s_rel_l : sym_c);
-    const int c = right ? cum_r : (leftr ? s_rel_l : cum_c);
-    const int nx = right ? next_r : (leftr ? next_l : next_c);
-    cum = static_cast<uint32_t>(c);
-    prob = static_cast<uint32_t>(nx) - cum;
-    return s_rel + min_sym;
+    return exact_regions(q, cl, nc, cnt, cumc, nxtc, P, span, free, min_sym,
+                         cum, prob);
+  }
+};
+
+// Kernel 13's model: narrow tables [T, CP1, L], field k in the 16-bit half
+// k & 1 of plane 1 + k / 2.  The same two searches as TableModel over the
+// 2 (CP1 - 1) fields, with the pad 0xFFFF past the last one.
+struct NarrowTableModel {
+  const uint32_t* tabs;
+  int CP1, L, P, min_sym, span, free;
+  bool bisect;
+
+  __device__ void stage(uint32_t*) {}
+
+  __device__ uint32_t field(const uint32_t* col, int k) const {
+    const uint32_t w = col[static_cast<int64_t>(1 + (k >> 1)) * L];
+    return (w >> (16 * (k & 1))) & 0xFFFFu;
+  }
+
+  __device__ int invert(int t, int l, uint32_t q, uint32_t& cum,
+                        uint32_t& prob) const {
+    const uint32_t* col = tabs + static_cast<int64_t>(t) * CP1 * L + l;
+    const uint32_t aux = col[0];
+    const int cl = static_cast<int>(aux & 0xFFFFu);
+    const int nc = static_cast<int>(aux >> 16);
+    const int N = 2 * (CP1 - 1);
+    int cnt = 0;
+    uint32_t cumc = 0xFFFFFFFFu;  // b - 1 of the last field below q
+    uint32_t nxtc = 0;            // b - 1 of its successor
+    if (bisect) {
+      int lo = 0, hi = N;  // cnt = the number of fields below q
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (field(col, mid) < q) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      cnt = lo;
+      if (cnt > 0) cumc = field(col, cnt - 1);
+      nxtc = cnt < N ? field(col, cnt) : 0xFFFFu;
+    } else {
+      uint32_t pend = 0;  // the field awaiting its successor
+      auto take = [&](uint32_t b, uint32_t bn) {
+        if (b < q) {
+          ++cnt;
+          cumc = b;
+          nxtc = bn;
+        }
+      };
+#pragma unroll 4
+      for (int g = 0; g < CP1 - 1; ++g) {
+        const uint32_t w = col[static_cast<int64_t>(1 + g) * L];
+        const uint32_t b0 = w & 0xFFFFu;
+        const uint32_t b1 = w >> 16;
+        if (g == 0) {
+          nxtc = b0;  // covers cnt == 0
+        } else {
+          take(pend, b0);
+        }
+        take(b0, b1);
+        pend = b1;
+      }
+      take(pend, 0xFFFFu);
+    }
+    return exact_regions(q, cl, nc, cnt, cumc, nxtc, P, span, free, min_sym,
+                         cum, prob);
   }
 };
 
@@ -238,39 +335,68 @@ size_t table_smem_bytes(int L) {
   return scratch_words(L / 32) * sizeof(uint32_t);
 }
 
-bool valid_exact(int L, int P) {
-  return L > 0 && L % 32 == 0 && P > 16 && P <= 24;
+// The lane counts and precisions of the wide (S=64) and narrow (S=32)
+// coders.
+bool valid_exact(int L, int P, bool wide) {
+  const bool p_ok = wide ? P > 16 && P <= 24 : P >= 1 && P <= 16;
+  return L > 0 && L % 32 == 0 && p_ok;
 }
 
-template <bool Seg>
+// Model: TableModel (S=64, wide) or NarrowTableModel (S=32).
+template <int W, int S, class Model, bool Seg>
 int launch_decode(void* states, const void* stream, long long slen,
                   const void* tabs, int CP1, void* syms, long long n, int L,
                   int P, int min_sym, int max_sym, int bisect, void* base_io,
                   void* cuda_stream, int device) {
-  auto kernel = ilans2_decode_kernel<32, 64, TableModel, Seg>;
+  constexpr bool kWide = S == 64;
+  auto kernel = ilans2_decode_kernel<W, S, Model, Seg>;
   const size_t bytes = table_smem_bytes(L);
   const long long span = static_cast<long long>(max_sym) - min_sym;
   const long long free = (1ll << P) - 1 - span;
-  if (!valid_exact(L, P) || CP1 < 4 || (CP1 - 1) % 3 || span < 1 ||
-      free < 2 || (Seg && base_io == nullptr)) {
+  const bool planes_ok = kWide ? CP1 >= 4 && (CP1 - 1) % 3 == 0 : CP1 >= 2;
+  if (!valid_exact(L, P, kWide) || !planes_ok || span < 1 || free < 2 ||
+      (Seg && base_io == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err = prepare(kernel, device, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   const int T = static_cast<int>((n + L - 1) / L);
-  const TableModel model{static_cast<const uint32_t*>(tabs),
-                         CP1,
-                         L,
-                         P,
-                         min_sym,
-                         static_cast<int>(span),
-                         static_cast<int>(free),
-                         bisect != 0};
+  const Model model{static_cast<const uint32_t*>(tabs),
+                    CP1,
+                    L,
+                    P,
+                    min_sym,
+                    static_cast<int>(span),
+                    static_cast<int>(free),
+                    bisect != 0};
   kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<uint64_t*>(states), static_cast<const uint32_t*>(stream),
-      slen, model, static_cast<int32_t*>(syms), n, L, P, T,
+      static_cast<typename StateOf<S>::type*>(states),
+      static_cast<const uint32_t*>(stream), slen, model,
+      static_cast<int32_t*>(syms), n, L, P, T,
       static_cast<int64_t*>(base_io));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int W, int S>
+int launch_encode(void* states, const void* cums, const void* probs,
+                  long long n, void* buf, long long cap, void* end_out, int L,
+                  int P, void* cuda_stream, int device) {
+  auto kernel = ilans2_encode_kernel<W, S, PlaneModel>;
+  const size_t bytes = table_smem_bytes(L);
+  if (!valid_exact(L, P, S == 64)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = prepare(kernel, device, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const int T = static_cast<int>((n + L - 1) / L);
+  const PlaneModel model{static_cast<const uint32_t*>(cums),
+                         static_cast<const uint32_t*>(probs)};
+  kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<typename StateOf<S>::type*>(states), model, n,
+      static_cast<uint32_t*>(buf), cap, static_cast<int64_t*>(end_out), L, P,
+      T);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -310,37 +436,42 @@ extern "C" {
 int ctt_exact_encode64(void* states, const void* cums, const void* probs,
                        long long n, void* buf, long long cap, void* end_out,
                        int L, int P, void* cuda_stream, int device) {
-  auto kernel = ilans2_encode_kernel<32, 64, PlaneModel>;
-  const size_t bytes = table_smem_bytes(L);
-  if (!valid_exact(L, P)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = prepare(kernel, device, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const int T = static_cast<int>((n + L - 1) / L);
-  const PlaneModel model{static_cast<const uint32_t*>(cums),
-                         static_cast<const uint32_t*>(probs)};
-  kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<uint64_t*>(states), model, n, static_cast<uint32_t*>(buf),
-      cap, static_cast<int64_t*>(end_out), L, P, T);
-  return static_cast<int>(cudaGetLastError());
+  return launch_encode<32, 64>(states, cums, probs, n, buf, cap, end_out, L,
+                               P, cuda_stream, device);
+}
+
+int ctt_exact_encode32(void* states, const void* cums, const void* probs,
+                       long long n, void* buf, long long cap, void* end_out,
+                       int L, int P, void* cuda_stream, int device) {
+  return launch_encode<16, 32>(states, cums, probs, n, buf, cap, end_out, L,
+                               P, cuda_stream, device);
 }
 
 int ctt_exact_decode64(void* states, const void* stream, long long slen,
                        const void* tabs, int CP1, void* syms, long long n,
                        int L, int P, int min_sym, int max_sym, int bisect,
                        void* base_io, void* cuda_stream, int device) {
-  return launch_decode<false>(states, stream, slen, tabs, CP1, syms, n, L, P,
-                              min_sym, max_sym, bisect, base_io, cuda_stream,
-                              device);
+  return launch_decode<32, 64, TableModel, false>(
+      states, stream, slen, tabs, CP1, syms, n, L, P, min_sym, max_sym,
+      bisect, base_io, cuda_stream, device);
 }
 
 int ctt_exact_decode64_seg(void* states, const void* stream, long long slen,
                            const void* tabs, int CP1, void* syms, long long n,
                            int L, int P, int min_sym, int max_sym, int bisect,
                            void* base_io, void* cuda_stream, int device) {
-  return launch_decode<true>(states, stream, slen, tabs, CP1, syms, n, L, P,
-                             min_sym, max_sym, bisect, base_io, cuda_stream,
-                             device);
+  return launch_decode<32, 64, TableModel, true>(
+      states, stream, slen, tabs, CP1, syms, n, L, P, min_sym, max_sym,
+      bisect, base_io, cuda_stream, device);
+}
+
+int ctt_exact_decode32(void* states, const void* stream, long long slen,
+                       const void* tabs, int CP1, void* syms, long long n,
+                       int L, int P, int min_sym, int max_sym, int bisect,
+                       void* base_io, void* cuda_stream, int device) {
+  return launch_decode<16, 32, NarrowTableModel, false>(
+      states, stream, slen, tabs, CP1, syms, n, L, P, min_sym, max_sym,
+      bisect, base_io, cuda_stream, device);
 }
 
 int ctt_exact_eval_window(const void* means, const void* scales,

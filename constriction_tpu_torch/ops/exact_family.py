@@ -1,5 +1,6 @@
-"""Reference-exact per-symbol families at the DEFAULT preset (W=32, S=64,
-16 < P <= 24) on the GPU.
+"""Reference-exact per-symbol families on the GPU, at the DEFAULT preset
+(W=32, S=64, 16 < P <= 24, "wide" tables) and at the small preset (W=16,
+S=32, P <= 16, "narrow" tables).
 
 The device families of ``ops/family.py`` use an exact INTEGER CDF.  This
 module is the path whose tables are bit-identical to the reference's f64
@@ -8,22 +9,26 @@ gaussian, laplace, cauchy or binomial models, so a stream the reference
 produces can be re-coded here with zero rate change:
 
 - encode: the host evaluates two f64 CDFs per symbol into ``(cum, prob)``
-  planes (:func:`exact_ecp`), and kernel 17 codes them
-  (:func:`encode_tables`);
+  planes (:func:`exact_ecp`), and kernel 17 (S=64) or kernel 14 (S=32)
+  codes them (:func:`encode_tables`);
 - decode: per symbol, a compact exact description of the quantile
   partition.  The leaky-quantized table is linear in both tails, so only
-  the core boundaries (at most ``cmax``) are stored, packed four 24-bit
-  ``(b - 1)`` fields to three u32 planes behind an aux plane
-  (:func:`pack_decode_tables`); kernel 15 inverts the quantiles against
-  them (:func:`decode_tables`), kernel 16 does the same for one segment of
-  a core-size-grouped message, carrying the stream offset from launch to
-  launch (:func:`decode_tables_seg`);
-- grouping: :func:`group_plan` stable-sorts the symbols by a deterministic
-  core-size bound computed from (means, scales) alone, so each decode
-  segment runs at its own tight table width.
+  the core boundaries (at most ``cmax``) are stored behind an aux plane
+  (:func:`pack_decode_tables`): wide tables pack four 24-bit ``(b - 1)``
+  fields to three u32 planes, narrow tables two 16-bit fields to one.
+  Kernel 15 (wide) or kernel 13 (narrow) inverts the quantiles against
+  them (:func:`decode_tables`); kernel 16 does the same for one segment of
+  a core-size-grouped message at S=64, carrying the stream offset from
+  launch to launch (:func:`decode_tables_seg`);
+- grouping (S=64 only, as in the JAX package): :func:`group_plan`
+  stable-sorts the symbols by a deterministic core-size bound computed
+  from (means, scales) alone, so each decode segment runs at its own tight
+  table width.
 
-The tables come from the host builder here (numpy) or from the on-card
-builder of ``ops/exact_tables.py`` (kernel 18 evaluates the windows).
+Wide tables come from the host builder here (numpy) or from the on-card
+builder of ``ops/exact_tables.py`` (kernel 18 evaluates the windows);
+narrow tables from the host builder (:func:`narrow_tables`), as in the JAX
+package.
 
 JAX counterpart: ``constriction_tpu/ops/exact_family.py``.  The host part
 (the model helpers, :func:`exact_ncore`, :func:`exact_ecp`,
@@ -32,15 +37,14 @@ JAX counterpart: ``constriction_tpu/ops/exact_family.py``.  The host part
 plan) is a copy of its numpy branches, which the JAX package's tests hold
 bit-identical to its C++ ones; the port builds no C++ host library.  The
 device part replaces the Pallas kernels ``_build_exact_decoder64``,
-``_build_exact_decoder64_seg`` and ``_build_exact_encoder64`` with the
-hand-written kernels of ``csrc/exact_family.cu``.  The S=32 pair
-(``_build_exact_decoder`` / ``_build_exact_encoder``, narrow P <= 16
-tables) is not ported yet: an S=32 config raises NotImplementedError.
+``_build_exact_decoder64_seg``, ``_build_exact_encoder64``,
+``_build_exact_decoder`` and ``_build_exact_encoder`` with the
+hand-written kernels of ``csrc/exact_family.cu``.
 
 Tensor layout (constriction_tpu_torch/convert.py): lane states int64 (u64
-bits), stream words int32 (u32 bits), (cum, prob) planes int32 ``[T, L]``
-(padded past n with (0, 1)), packed decode tables int32 ``[T, CP1, L]``,
-symbols int32.
+bits) at S=64 and int32 (u32 bits) at S=32, stream words int32 (u32 bits),
+(cum, prob) planes int32 ``[T, L]`` (padded past n with (0, 1)), packed
+decode tables int32 ``[T, CP1, L]``, symbols int32.
 """
 
 from __future__ import annotations
@@ -53,7 +57,8 @@ import torch
 from .. import convert
 from ..utils import special
 from . import _build
-from .coder import _check, _check_seeds, _num_steps, _on_cuda, _refill_words
+from .coder import (_check, _check_seeds, _num_steps, _on_cuda,
+                    _refill_words, encode32_steps)
 from .coder64 import _M32, encode64_steps
 from .interleaved import LaneConfig
 
@@ -65,7 +70,7 @@ DEVICE_FAMILIES = ("gaussian", "laplace", "cauchy")
 # kernel launches made by this module's wrappers and by ops/exact_tables.py
 # (never by the twins)
 LAUNCHES = {"encode64": 0, "decode64": 0, "decode64_seg": 0,
-            "eval_window": 0}
+            "eval_window": 0, "encode32": 0, "decode32": 0}
 
 # rows of a packed_tables_device call built at a time (bounds the numpy
 # window arrays; rows are independent)
@@ -432,6 +437,40 @@ def packed_tables_device(means, scales, family: str, min_sym: int,
     return tabs4, cmax_r
 
 
+def narrow_tables(means, scales, family: str, min_sym: int, max_sym: int,
+                  precision: int, cmax: int | None, nsteps: int,
+                  R: int) -> Tuple[np.ndarray, int]:
+    """Narrow (P <= 16) decode tables in the JAX package's device layout
+    ``[nsteps, CP1, R, 128]`` u32 with ``CP1 = cmax / 2 + 1``, plus the
+    cmax.  ``cmax=None`` sizes it to the batch's largest core, rounded up
+    to even, as :func:`exact_boundary_tables` does; the rows are then built
+    ``_ROW_CHUNK`` at a time at that width (each row depends on its own
+    (mean, scale) only), which bounds the numpy window arrays.  JAX
+    counterpart: the S=32 branch of ``exact_family.decode_family_exact``
+    (``exact_boundary_tables``, ``pack_decode_tables``, transpose)."""
+    mean = np.asarray(means, np.float64).reshape(-1)
+    scale = np.asarray(scales, np.float64).reshape(-1)
+    n = nsteps * R * LANES
+    if len(mean) != n or len(scale) != n:
+        raise ValueError(
+            f"means and scales must have nsteps * R * 128 = {n} entries")
+    if not 0 < precision <= 16:
+        raise ValueError(f"narrow tables need P <= 16, got {precision}")
+    if cmax is None:
+        nc = exact_ncore(mean, scale, family, min_sym, max_sym, precision)
+        cmax = max(int(nc.max()) if n else 1, 1)
+        cmax += cmax & 1
+    tabs = np.empty((n, cmax // 2 + 1), np.uint32)
+    for r0 in range(0, n, _ROW_CHUNK):
+        r1 = min(r0 + _ROW_CHUNK, n)
+        aux, core = exact_boundary_tables(mean[r0:r1], scale[r0:r1], family,
+                                          min_sym, max_sym, precision, cmax)
+        tabs[r0:r1], _ = pack_decode_tables(aux, core, precision)
+    tabs4 = np.ascontiguousarray(
+        tabs.reshape(nsteps, R, LANES, -1).transpose(0, 3, 1, 2))
+    return tabs4, cmax
+
+
 # ---------------------------------------------------------------------------
 # host decode oracle (numpy)
 # ---------------------------------------------------------------------------
@@ -683,24 +722,74 @@ def group_plan(means, scales, family: str, min_sym: int, max_sym: int,
 
 
 def check_cfg(cfg: LaneConfig) -> None:
-    """The configs of this path: W=32, S=64, 16 < P <= 24, lanes a positive
-    multiple of 128.  An S=32 config raises NotImplementedError."""
-    if (cfg.word_bits, cfg.state_bits) == (16, 32):
-        raise NotImplementedError(
-            "the S=32 reference-exact coders (narrow P <= 16 tables; the "
-            "JAX package's _build_exact_decoder / _build_exact_encoder, "
-            "rows 13 and 14 of the kernel table) are not ported yet; pass "
-            "a W=32, S=64, 16 < P <= 24 LaneConfig"
-        )
-    if (cfg.word_bits, cfg.state_bits) != (32, 64) or not (
-            16 < cfg.precision <= 24):
+    """The configs of this path: W=32, S=64, 16 < P <= 24 (wide tables) or
+    W=16, S=32, P <= 16 (narrow tables), lanes a positive multiple of
+    128."""
+    ws = (cfg.word_bits, cfg.state_bits)
+    if not ((ws == (32, 64) and 16 < cfg.precision <= 24)
+            or (ws == (16, 32) and 0 < cfg.precision <= 16)):
         raise ValueError(
-            f"the exact-family coders take W=32, S=64, 16 < P <= 24; got "
-            f"W={cfg.word_bits}, S={cfg.state_bits}, P={cfg.precision}")
+            "the exact-family coders take W=32, S=64, 16 < P <= 24 or W=16, "
+            f"S=32, P <= 16; got W={cfg.word_bits}, S={cfg.state_bits}, "
+            f"P={cfg.precision}")
     if cfg.num_lanes <= 0 or cfg.num_lanes % LANES:
         raise ValueError(
             f"num_lanes must be a positive multiple of {LANES}, got "
             f"{cfg.num_lanes}")
+
+
+def _wide(cfg: LaneConfig) -> bool:
+    return cfg.state_bits == 64
+
+
+def check_grouped_cfg(cfg: LaneConfig) -> None:
+    """Grouped coding (kernel 16) exists at S=64 only, as in the JAX
+    package (its grouped decoder asserts S=64)."""
+    check_cfg(cfg)
+    if not _wide(cfg):
+        raise ValueError(
+            "grouped exact coding takes a W=32, S=64, 16 < P <= 24 config "
+            "(the facade's grouped=True default); got W=16, S=32")
+
+
+def _check_support(min_sym: int, max_sym: int, precision: int) -> None:
+    """The support must leave free >= 2, as the table builders demand."""
+    if max_sym <= min_sym or _free(min_sym, max_sym, precision) < 2:
+        raise ValueError(
+            f"support [{min_sym}, {max_sym}] does not fit precision "
+            f"{precision}")
+
+
+def _check_core_cap(means, scales, family: str, min_sym: int, max_sym: int,
+                    cfg: LaneConfig) -> None:
+    """Raises the table builders' ValueError when a model's core (the
+    padded tail model's too, when the last step is partial) exceeds the
+    table format's ncore cap, so no decoder could read the stream.  The
+    deterministic bound :func:`_ncore_estimate` (which is at least the
+    core size) picks the symbols worth the exact :func:`exact_ncore`."""
+    wide = _wide(cfg)
+    cap = (1 << (8 if wide else 16)) - 1
+    mean = np.asarray(means, np.float64).reshape(-1)
+    scale = np.asarray(scales, np.float64).reshape(-1)
+    if len(mean) % cfg.num_lanes:
+        pm, ps = _pad_params([], [], 1, family, max_sym)
+        mean, scale = np.append(mean, pm), np.append(scale, ps)
+
+    def need(nc):  # narrow tables hold boundary pairs
+        return nc if wide else nc + (nc & 1)
+
+    est = _ncore_estimate(mean, scale, family, min_sym, max_sym)
+    big = need(est) > cap
+    if not big.any():
+        return
+    worst = int(need(exact_ncore(mean[big], scale[big], family, min_sym,
+                                 max_sym, cfg.precision).astype(np.int64)
+                     ).max())
+    if worst > cap:
+        raise ValueError(
+            f"core needs {worst} boundaries; the "
+            f"{'wide' if wide else 'narrow'} table format caps ncore at "
+            f"{cap}, so no decoder could read this stream")
 
 
 def check_family(family: str, allowed=EXACT_FAMILIES) -> None:
@@ -721,36 +810,42 @@ def _check_steps(name: str, t, device, shape: tuple) -> None:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
 
 
-def _check_tables(tabs, device, T: int, L: int) -> int:
-    """Packed decode tables int32 [T, CP1, L] with CP1 = 1 + 3G, G >= 1;
-    returns CP1."""
+def _check_tables(tabs, device, T: int, L: int, wide: bool) -> int:
+    """Packed decode tables int32 [T, CP1, L]: wide CP1 = 1 + 3G, G >= 1;
+    narrow CP1 = cmax / 2 + 1 >= 2.  Returns CP1."""
     if not isinstance(tabs, torch.Tensor) or tabs.dim() != 3:
         raise ValueError("tabs must be a 3-D tensor [T, CP1, L]")
     CP1 = tabs.shape[1]
-    if CP1 < 4 or (CP1 - 1) % 3:
+    if wide and (CP1 < 4 or (CP1 - 1) % 3):
         raise ValueError(f"tabs has {CP1} planes; expected 1 + 3G, G >= 1")
+    if not wide and CP1 < 2:
+        raise ValueError(f"tabs has {CP1} planes; expected cmax / 2 + 1 >= 2")
     _check_steps("tabs", tabs, device, (T, CP1, L))
     return CP1
 
 
 # ---------------------------------------------------------------------------
-# kernel 17: encode over (cum, prob) planes
+# kernels 17 (S=64) and 14 (S=32): encode over (cum, prob) planes
 # ---------------------------------------------------------------------------
 
 
 def encode_tables(cums, probs, cfg: LaneConfig, seeds=None,
                   num_symbols: int | None = None):
-    """ILANS2 encode (W=32, S=64) of explicit per-symbol (cum, prob)
-    planes.  JAX counterpart: ``exact_family.encode_tables_pallas`` at
-    S=64 (``_build_exact_encoder64``); unlike it, this takes seeds.
+    """ILANS2 encode of explicit per-symbol (cum, prob) planes: kernel 17
+    at W=32/S=64, kernel 14 at W=16/S=32.  JAX counterpart:
+    ``exact_family.encode_tables_pallas`` (``_build_exact_encoder64`` /
+    ``_build_exact_encoder``); unlike it, this takes seeds.
 
     ``cums``, ``probs`` int32 ``[T, L]`` (u32 bits; symbol ``t * L + l``,
     padded past ``num_symbols`` -- default ``T * L`` -- with anything);
-    ``seeds`` (optional) int64[L] start states in [2^32, 2^64).  Returns
-    ``(states int64[L], stream int32[num_words])``, bit-identical to
-    ``interleaved2.encode_shared``.  CUDA tensors launch the kernel, CPU
-    tensors run :func:`encode_tables_plain`."""
+    ``seeds`` (optional) start states in [2^(S-W), 2^S): int64[L] (u64
+    bits) at S=64, int32[L] (u32 bits) at S=32.  Returns ``(states[L],
+    stream int32[num_words])``, the states in the seeds' type,
+    bit-identical to ``interleaved2.encode_shared``.  CUDA tensors launch
+    the kernel, CPU tensors run :func:`encode_tables_plain`."""
     check_cfg(cfg)
+    wide = _wide(cfg)
+    state_dtype = torch.int64 if wide else torch.int32
     if not isinstance(cums, torch.Tensor):
         raise TypeError("cums must be a torch.Tensor")
     device = cums.device
@@ -763,17 +858,18 @@ def encode_tables(cums, probs, cfg: LaneConfig, seeds=None,
         raise ValueError(
             f"num_symbols={n} does not fill the {T} steps of the planes")
     if seeds is not None:
-        _check_seeds(seeds, cfg, torch.int64, device)
+        _check_seeds(seeds, cfg, state_dtype, device)
     if not _on_cuda(device):
         return encode_tables_plain(cums, probs, cfg, seeds, n)
     states = (seeds.clone() if seeds is not None else torch.full(
-        (L,), 1 << 32, dtype=torch.int64, device=device))
+        (L,), cfg.lower_bound, dtype=state_dtype, device=device))
     if n == 0:
         return states, torch.zeros(0, dtype=torch.int32, device=device)
     buf = torch.empty(n, dtype=torch.int32, device=device)
     end = torch.empty(1, dtype=torch.int64, device=device)
-    LAUNCHES["encode64"] += 1
-    _build.call("ctt_exact_encode64", device, states, cums, probs, n, buf, n,
+    tag = "encode64" if wide else "encode32"
+    LAUNCHES[tag] += 1
+    _build.call(f"ctt_exact_{tag}", device, states, cums, probs, n, buf, n,
                 end, L, cfg.precision)
     return states, buf[int(end.item()):]
 
@@ -781,8 +877,9 @@ def encode_tables(cums, probs, cfg: LaneConfig, seeds=None,
 def encode_tables_plain(cums, probs, cfg: LaneConfig, seeds=None,
                         num_symbols: int | None = None):
     """Plain PyTorch twin of :func:`encode_tables` (any device, no checks):
-    ``coder64.encode_iid64_plain``'s step loop over the planes.  Numpy
-    oracle: ``interleaved2.encode_shared``."""
+    the step loop of ``coder64.encode_iid64_plain`` (S=64) or
+    ``coder.encode_iid_plain`` (S=32) over the planes.  Numpy oracle:
+    ``interleaved2.encode_shared``."""
     n = cums.numel() if num_symbols is None else int(num_symbols)
     flat_c = convert.u32_values(cums.reshape(-1))
     flat_p = convert.u32_values(probs.reshape(-1))
@@ -790,11 +887,12 @@ def encode_tables_plain(cums, probs, cfg: LaneConfig, seeds=None,
     def tables_at(i):
         return flat_c[i], flat_p[i]
 
-    return encode64_steps(tables_at, n, cfg, seeds, cums.device)
+    steps = encode64_steps if _wide(cfg) else encode32_steps
+    return steps(tables_at, n, cfg, seeds, cums.device)
 
 
 # ---------------------------------------------------------------------------
-# kernels 15 and 16: decode against packed wide tables
+# kernels 15 and 16 (wide tables) and 13 (narrow tables): decode
 # ---------------------------------------------------------------------------
 
 
@@ -804,13 +902,13 @@ def _decode_args(states, stream, tabs, cfg: LaneConfig, min_sym: int,
     if not isinstance(states, torch.Tensor):
         raise TypeError("states must be a torch.Tensor")
     device = states.device
-    _check("states", states, torch.int64, device, cfg.num_lanes)
+    wide = _wide(cfg)
+    _check("states", states, torch.int64 if wide else torch.int32, device,
+           cfg.num_lanes)
     _check("stream", stream, torch.int32, device)
-    _check_tables(tabs, device, _num_steps(n, cfg.num_lanes), cfg.num_lanes)
-    if max_sym <= min_sym or _free(min_sym, max_sym, cfg.precision) < 2:
-        raise ValueError(
-            f"support [{min_sym}, {max_sym}] does not fit precision "
-            f"{cfg.precision}")
+    _check_tables(tabs, device, _num_steps(n, cfg.num_lanes), cfg.num_lanes,
+                  wide)
+    _check_support(min_sym, max_sym, cfg.precision)
     return device
 
 
@@ -820,25 +918,35 @@ def _decode_args(states, stream, tabs, cfg: LaneConfig, min_sym: int,
 # faster at every width from 37 planes up (2.4x at 139) and the scan at or
 # within 15% of it below
 BISECT_FROM_PLANES = 37
+# the same for kernel 13's narrow tables (CP1 = cmax / 2 + 1, two fields a
+# plane): measured on an H100 by chip_smoke.py's narrow search sweep
+# (exact32_times), where the binary search was faster at every width from
+# 7 planes up (by 15% at 7, 4.6-6.0x at 128) and the scan below (by 17% at
+# 3 and 4 planes, 5% at 6)
+BISECT_FROM_PLANES_NARROW = 7
 
 
-def bisect_tables(CP1: int) -> bool:
-    """Whether kernels 15 and 16 binary-search tables of ``CP1`` planes."""
-    return CP1 >= BISECT_FROM_PLANES
+def bisect_tables(CP1: int, narrow: bool = False) -> bool:
+    """Whether kernels 15 and 16 (or with ``narrow``, kernel 13)
+    binary-search tables of ``CP1`` planes."""
+    return CP1 >= (BISECT_FROM_PLANES_NARROW if narrow
+                   else BISECT_FROM_PLANES)
 
 
 def decode_tables(states, stream, tabs, cfg: LaneConfig, min_sym: int,
                   max_sym: int, num_symbols: int,
                   return_final_states: bool = False):
-    """Decode ``num_symbols`` symbols of a W=32/S=64 exact-family stream
-    against packed wide tables (kernel 15).  JAX counterpart: the S=64
-    branch of ``exact_family.decode_family_exact``
-    (``_build_exact_decoder64``).
+    """Decode ``num_symbols`` symbols of an exact-family stream: against
+    packed wide tables at W=32/S=64 (kernel 15), against narrow tables at
+    W=16/S=32 (kernel 13).  JAX counterpart:
+    ``exact_family.decode_family_exact``'s kernels
+    (``_build_exact_decoder64`` / ``_build_exact_decoder``).
 
-    ``states`` int64[L] (u64 bits), ``stream`` int32 words, ``tabs`` int32
-    ``[T, CP1, L]`` (``convert.exact_tables_to_torch``), one device.
-    Returns symbols int32[n], and with ``return_final_states`` also the
-    final states.  CUDA tensors launch the kernel, CPU tensors run
+    ``states`` int64[L] (u64 bits) at S=64 or int32[L] (u32 bits) at S=32,
+    ``stream`` int32 words, ``tabs`` int32 ``[T, CP1, L]``
+    (``convert.exact_tables_to_torch``), one device.  Returns symbols
+    int32[n], and with ``return_final_states`` also the final states.
+    CUDA tensors launch the kernel, CPU tensors run
     :func:`decode_tables_plain`."""
     device = _decode_args(states, stream, tabs, cfg, min_sym, max_sym,
                           num_symbols)
@@ -849,23 +957,25 @@ def decode_tables(states, stream, tabs, cfg: LaneConfig, min_sym: int,
     fin = states.clone()
     syms = torch.empty(num_symbols, dtype=torch.int32, device=device)
     if num_symbols:
-        LAUNCHES["decode64"] += 1
-        _build.call("ctt_exact_decode64", device, fin, stream, stream.numel(),
+        tag = "decode64" if _wide(cfg) else "decode32"
+        LAUNCHES[tag] += 1
+        _build.call(f"ctt_exact_{tag}", device, fin, stream, stream.numel(),
                     tabs, tabs.shape[1], syms, num_symbols, cfg.num_lanes,
                     cfg.precision, min_sym, max_sym,
-                    int(bisect_tables(tabs.shape[1])), None)
+                    int(bisect_tables(tabs.shape[1], not _wide(cfg))), None)
     return (syms, fin) if return_final_states else syms
 
 
 def decode_tables_seg(states, stream, tabs, base, cfg: LaneConfig,
                       min_sym: int, max_sym: int, num_symbols: int):
-    """One segment of a grouped decode (kernel 16): as :func:`decode_tables`
-    from stream word ``base`` on.  JAX counterpart:
+    """One segment of a grouped decode (kernel 16, S=64): as
+    :func:`decode_tables` from stream word ``base`` on.  JAX counterpart:
     ``exact_family._build_exact_decoder64_seg``.
 
     ``base`` int64[1] on the states' device.  Returns ``(symbols int32[n],
     final states int64[L], next base int64[1])``; the next segment starts
     from those states and that base, with no host round trip."""
+    check_grouped_cfg(cfg)
     device = _decode_args(states, stream, tabs, cfg, min_sym, max_sym,
                           num_symbols)
     _check("base", base, torch.int64, device, 1)
@@ -884,8 +994,8 @@ def decode_tables_seg(states, stream, tabs, base, cfg: LaneConfig,
     return syms, fin, nxt
 
 
-def _table_fields(tab, P: int):
-    """The (b - 1) fields of one step's table planes ``[CP1, L]`` (u32
+def _table_fields(tab):
+    """The (b - 1) fields of one step's wide table planes ``[CP1, L]`` (u32
     values in int64), in order: ``[4G, L]``."""
     w0, w1, w2 = tab[1::3], tab[2::3], tab[3::3]
     b0 = w0 & 0xFFFFFF
@@ -895,18 +1005,30 @@ def _table_fields(tab, P: int):
     return torch.stack([b0, b1, b2, b3], dim=1).reshape(-1, tab.shape[1])
 
 
+def _narrow_fields(tab):
+    """The (b - 1) fields of one step's narrow table planes ``[CP1, L]``
+    (u32 values in int64), in order, the low half of a plane first:
+    ``[2 (CP1 - 1), L]``."""
+    w = tab[1:]
+    return torch.stack([w & 0xFFFF, w >> 16], dim=1).reshape(-1, tab.shape[1])
+
+
 def invert_tables(q, tab, min_sym: int, max_sym: int, P: int):
     """Quantiles int64[L] -> ``(sym, cum, prob)`` int64 against one step's
-    packed table planes (u32 values in int64, ``[CP1, L]``): the kernels'
-    scan with select semantics (``cnt`` counts the fields below q, the last
-    selected field is ``cumc``, its successor ``nxtc``) and the
-    left-tail / core / right-tail regions of ``_invert_with_tables``."""
+    packed table planes (u32 values in int64, ``[CP1, L]``; wide for P >
+    16, narrow otherwise): the kernels' scan with select semantics (``cnt``
+    counts the fields below q, the last selected field is ``cumc``, its
+    successor ``nxtc``; past the last field the pad value, 2^P - 1 wide and
+    0xFFFF narrow, stands in) and the left-tail / core / right-tail regions
+    of ``_invert_with_tables``."""
     free = (1 << P) - 1 - (max_sym - min_sym)
     span = max_sym - min_sym
+    wide = P > 16
+    shift = 24 if wide else 16
     aux = tab[0]
-    cl = aux & 0xFFFFFF
-    nc = aux >> 24
-    fields = _table_fields(tab, P)
+    cl = aux & ((1 << shift) - 1)
+    nc = aux >> shift
+    fields = _table_fields(tab) if wide else _narrow_fields(tab)
     nf = fields.shape[0]
     le = fields < q
     cnt = le.sum(0)
@@ -914,7 +1036,8 @@ def invert_tables(q, tab, min_sym: int, max_sym: int, P: int):
     last = (le * pos).max(0).values - 1  # -1 when nothing is selected
     cumc = fields.gather(0, last.clamp(min=0)[None])[0] + 1
     succ = fields.gather(0, (last + 1).clamp(max=nf - 1)[None])[0]
-    nxtc = torch.where(last + 1 >= nf, (1 << P) - 1, succ) + 1
+    nxtc = torch.where(last + 1 >= nf, (1 << P) - 1 if wide else 0xFFFF,
+                       succ) + 1
     core_hi_rel = cl + nc - 1
     rstart = torch.where(core_hi_rel >= span, 1 << P,
                          free + 1 + core_hi_rel)
@@ -935,19 +1058,33 @@ def invert_tables(q, tab, min_sym: int, max_sym: int, P: int):
 
 def decode_tables_plain(states, stream, tabs, cfg: LaneConfig, min_sym: int,
                         max_sym: int, num_symbols: int, base=None):
-    """Plain PyTorch twin of kernels 15 and 16 (any device, no checks).
-    Returns ``(symbols int32[n], final states int64[L], next base
-    int64[1])``, decoding from stream word ``base`` (int64[1], default 0).
-    Numpy oracle: :func:`decode_family_exact_host`."""
+    """Plain PyTorch twin of kernels 15, 16 and 13 (any device, no checks).
+    Returns ``(symbols int32[n], final states, next base int64[1])``, the
+    states in the type of ``states``, decoding from stream word ``base``
+    (int64[1], default 0).  Numpy oracle: :func:`decode_family_exact_host`."""
     L, P = cfg.num_lanes, cfg.precision
     device = states.device
-    hi, lo = convert.u64_halves(states)
     words = convert.u32_values(stream)
     T = _num_steps(num_symbols, L)
     lanes = torch.arange(L, device=device)
     out = torch.empty(T * L, dtype=torch.int32, device=device)
     pos = (torch.zeros((), dtype=torch.int64, device=device) if base is None
            else base.reshape(()).clone())
+    if not _wide(cfg):
+        # S=32: the state algebra fits int64 whole
+        x = convert.u32_values(states)
+        for t in range(T):
+            active = t * L + lanes < num_symbols
+            q = x & ((1 << P) - 1)
+            sym, cum, prob = invert_tables(q, convert.u32_values(tabs[t]),
+                                           min_sym, max_sym, P)
+            x = torch.where(active, (x >> P) * prob + (q - cum), x)
+            m = x < cfg.lower_bound
+            w, pos = _refill_words(m, words, pos)
+            x = torch.where(m, (x << cfg.word_bits) | (w & cfg.word_mask), x)
+            out[t * L:(t + 1) * L] = sym.to(torch.int32)
+        return out[:num_symbols], convert.u32_bits(x), pos.reshape(1)
+    hi, lo = convert.u64_halves(states)
     for t in range(T):
         active = t * L + lanes < num_symbols
         q = lo & ((1 << P) - 1)
@@ -974,16 +1111,26 @@ def decode_tables_plain(states, stream, tabs, cfg: LaneConfig, min_sym: int,
 def encode_family_exact(symbols, means, scales, family: str, min_sym: int,
                         max_sym: int, cfg: LaneConfig, device, seeds=None):
     """Reference-exact family encode: host f64 (cum, prob) planes, kernel
-    17 on ``device`` (the twin on the CPU).  ``symbols``, ``means``,
-    ``scales`` numpy; ``seeds`` optional u64 numpy [L].  Returns ``(states
-    int64[L], stream int32)`` tensors on ``device``.  JAX counterpart:
+    17 (S=64) or kernel 14 (S=32) on ``device`` (the twin on the CPU).
+    ``symbols``, ``means``, ``scales`` numpy; ``seeds`` optional numpy [L]
+    (u64 at S=64, u32 at S=32).  Returns ``(states[L], stream int32)``
+    tensors on ``device``, the states int64 (u64 bits) at S=64 and int32
+    (u32 bits) at S=32.
+
+    Before it codes, it makes the decoders' checks of the model: the
+    support leaves free >= 2 and no core exceeds the table format's cap;
+    otherwise it raises ValueError, where the JAX package writes a stream
+    that no decoder reads.  JAX counterpart:
     ``exact_family.encode_family_exact``."""
     check_cfg(cfg)
     check_family(family)
+    _check_support(min_sym, max_sym, cfg.precision)
+    _check_core_cap(means, scales, family, min_sym, max_sym, cfg)
     cums, probs = exact_ecp(symbols, means, scales, family, min_sym, max_sym,
                             cfg.precision)
     c_t, p_t = convert.ecp_to_torch(cums, probs, cfg.num_lanes, device)
-    seeds_t = None if seeds is None else convert.u64_to_torch(seeds, device)
+    seeds_t = (None if seeds is None
+               else convert.states_to_torch(seeds, cfg, device))
     return encode_tables(c_t, p_t, cfg, seeds_t, len(cums))
 
 
@@ -997,7 +1144,7 @@ def encode_family_exact_grouped(symbols, means, scales, family: str,
     symbols = np.asarray(symbols).reshape(-1)
     means = np.asarray(means, np.float64).reshape(-1)
     scales = np.asarray(scales, np.float64).reshape(-1)
-    check_cfg(cfg)
+    check_grouped_cfg(cfg)
     perm, _ = group_plan(means, scales, family, min_sym, max_sym,
                          cfg.precision, cfg.num_lanes, len(symbols),
                          max_segments)
@@ -1039,30 +1186,57 @@ def _segment_tables(pm, ps, segs, family, min_sym, max_sym, cfg, device,
 def decode_family_exact(init_states, stream, means, scales, family: str,
                         min_sym: int, max_sym: int, cfg: LaneConfig,
                         num_symbols: int, cmax: int | None = None,
-                        device_tables: bool = False):
-    """Reference-exact family decode (kernel 15): tables for every step,
-    then one launch.  ``init_states`` int64[L] and ``stream`` int32 on one
-    device; ``means``, ``scales`` numpy.  ``cmax=None`` sizes the table
-    width to this batch's largest core (:func:`exact_ncore`).  The tables
-    come from the host builder, or with ``device_tables=True`` from the
-    on-card builder (``ops/exact_tables.py``).  Returns symbols int32[n].
-    JAX counterpart: ``exact_family.decode_family_exact`` (S=64)."""
+                        device_tables: bool | None = None):
+    """Reference-exact family decode: tables for every step, then one
+    launch of kernel 15 (S=64) or kernel 13 (S=32).  ``init_states``
+    (int64[L] at S=64, int32[L] at S=32) and ``stream`` int32 on one
+    device; ``means``, ``scales`` numpy.
+
+    S=64: ``device_tables`` (default: on a CUDA device for gaussian,
+    laplace and cauchy, as :func:`decode_family_exact_grouped`) builds the
+    tables on the card (kernel 18), else the host builder runs; both give
+    the same tables bit for bit.  ``cmax=None`` sizes the table width to
+    this batch's largest core: :func:`exact_ncore` for the host builder;
+    the on-card builder starts from the deterministic bound
+    :func:`_ncore_estimate` (at most 255) and cuts its tables to the
+    tight width itself.  S=32: narrow tables from the host builder
+    (:func:`narrow_tables`; ``cmax``, when given, even), as in the JAX
+    package, which has no on-device narrow builder; ``device_tables=True``
+    raises.  Returns symbols int32[n].  JAX counterpart:
+    ``exact_family.decode_family_exact``."""
     check_cfg(cfg)
     check_family(family)
     device = init_states.device
+    wide = _wide(cfg)
+    if device_tables is None:
+        device_tables = wide and _device_tables_default(family, min_sym,
+                                                        max_sym, device)
+    elif device_tables:
+        if not wide:
+            raise ValueError(
+                "narrow (S=32) tables are built on the host: pass "
+                "device_tables=False or None")
+        check_family(family, DEVICE_FAMILIES)
     n = int(num_symbols)
     if n == 0:
         return torch.zeros(0, dtype=torch.int32, device=device)
-    if device_tables:
-        check_family(family, DEVICE_FAMILIES)
     L = cfg.num_lanes
     T = _num_steps(n, L)
     pm, ps = _pad_params(means, scales, T * L, family, max_sym)
-    if cmax is None:
-        nc = exact_ncore(pm, ps, family, min_sym, max_sym, cfg.precision)
-        cmax = max(int(nc.max()) if len(nc) else 1, 1)
-    (tabs, _), = _segment_tables(pm, ps, [(0, T, cmax)], family, min_sym,
-                                 max_sym, cfg, device, device_tables)
+    if not wide:
+        tabs4, _ = narrow_tables(pm, ps, family, min_sym, max_sym,
+                                 cfg.precision, cmax, T, L // LANES)
+        tabs = convert.exact_tables_to_torch(tabs4, device)
+    else:
+        if cmax is None and device_tables:
+            est = int(_ncore_estimate(pm, ps, family, min_sym, max_sym).max())
+            cmax = min(255, -(-est // 4) * 4)
+        elif cmax is None:
+            nc = exact_ncore(pm, ps, family, min_sym, max_sym, cfg.precision)
+            cmax = max(int(nc.max()) if len(nc) else 1, 1)
+        (tabs, _), = _segment_tables(pm, ps, [(0, T, cmax)], family,
+                                     min_sym, max_sym, cfg, device,
+                                     device_tables)
     return decode_tables(init_states, stream, tabs, cfg, int(min_sym),
                          int(max_sym), n)
 
@@ -1106,7 +1280,7 @@ def decode_family_exact_grouped(init_states, stream, means, scales,
     Returns symbols int32[n] on the states' device.  JAX counterpart:
     ``exact_family.decode_family_exact_grouped``."""
     check_family(family, tuple(_EST_C))
-    check_cfg(cfg)
+    check_grouped_cfg(cfg)
     device = init_states.device
     n = int(num_symbols)
     if n == 0:

@@ -400,7 +400,9 @@ def encode_iid_v2(symbols, cdf, cfg: LaneConfig, device="cuda",
     """Encode i.i.d. categorical symbols into a compact v2 container.  JAX
     counterpart: ``constriction_tpu.ops.framing.encode_iid_v2(...,
     device=True)``; ``sym_bits`` (each symbol's ideal code length in bits,
-    optional) as there."""
+    optional) as there.  Unlike it, a config with P > W raises ValueError
+    (``interleaved2.check_precision``)."""
+    il2.check_precision(cfg)
     symbols = np.asarray(symbols, dtype=np.int64)
     cdf64 = np.asarray(cdf, dtype=np.uint64)
     cums = cdf64[symbols]

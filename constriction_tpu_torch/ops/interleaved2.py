@@ -492,11 +492,28 @@ def decode_lanes(states, stream, n: int, cdf, cfg: LaneConfig, device):
     return syms.cpu().numpy(), convert.states_from_torch(fin, cfg)
 
 
+def check_precision(cfg: LaneConfig) -> None:
+    """The i.i.d. encoders' config check: the reference asserts PRECISION
+    <= Word::BITS statically, and a config with P > W writes containers
+    that may decode to wrong symbols.  ``LaneConfig`` (a copy of the JAX
+    package's) checks S >= W + P only; the JAX package's i.i.d. encoders
+    accept P > W, the port's raise.  Wording as ``ops/ans.py``'s
+    ``_check_precision``."""
+    if cfg.precision > cfg.word_bits:
+        raise ValueError(
+            f"model precision {cfg.precision} is incompatible with this "
+            f"coder (word_bits={cfg.word_bits}, state_bits="
+            f"{cfg.state_bits}): needs precision <= word_bits and "
+            "state_bits >= word_bits + precision")
+
+
 def encode_iid_categorical2(symbols, cdf, cfg: LaneConfig,
                             device="cuda") -> np.ndarray:
     """Encode i.i.d. categorical symbols into a v1 ILANS2 container (u32).
     JAX counterpart: ``constriction_tpu.ops.interleaved2.
-    encode_iid_categorical2(..., device=True)``."""
+    encode_iid_categorical2(..., device=True)``; unlike it, a config with
+    P > W raises ValueError (:func:`check_precision`)."""
+    check_precision(cfg)
     symbols = np.asarray(symbols, dtype=np.int64)
     if kernel_eligible(cfg):
         states, stream = encode_lanes(symbols, cdf, cfg, device)

@@ -5,10 +5,11 @@ range kernels against the port's numpy range coder, the device-family and
 TChain-12 kernels (and their integer CDF, value by value) against the
 port's numpy family oracles, the TChain-16 and TChain-24 kernels against
 the port's numpy TChain oracles, the chain decode on the card against
-its numpy path, and the reference-exact family kernels (encoder over
-planes, table decoder, grouped segment decoder, window evaluator) against
-their twins and the port's numpy exact-family oracles (the CPU tests hold
-the port's oracles against the JAX package's).
+its numpy path, and the reference-exact family kernels (encoders over
+planes at S=64 and S=32, wide and narrow table decoders, grouped segment
+decoder, window evaluator) against their twins and the port's numpy
+exact-family oracles (the CPU tests hold the port's oracles against the
+JAX package's).
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX (the oracle's modules import none), so on a machine with a
@@ -881,8 +882,9 @@ def test_exact_facade_on_the_card(dev):
 @pytest.mark.parametrize("family", ["gaussian", "cauchy"])
 def test_exact_facade_ungrouped_on_the_card(dev, family):
     """The facade's ungrouped pair at the DEFAULT preset: kernel 17, then
-    kernel 15 over host-built tables sized by ``cmax=None``; equal to the
-    ``device="cpu"`` result and to the symbols."""
+    kernel 15 over tables sized by ``cmax=None`` (built on the card by
+    default); equal to the ``device="cpu"`` result (host-built tables) and
+    to the symbols."""
     n, cfg = 3 * 1024 - 5, _exact_cfg(1024)
     means, scales, syms = _exact_data(n, seed=21)
     st, w = ctt.encode_family_exact(syms, means, scales, family, -100, 100,
@@ -898,5 +900,132 @@ def test_exact_facade_ungrouped_on_the_card(dev, family):
     out_c = ctt.decode_family_exact(st, w, means, scales, family, -100, 100,
                                     n, cfg=cfg, device="cpu")
     assert out.dtype == out_c.dtype
+    np.testing.assert_array_equal(out, out_c)
+    np.testing.assert_array_equal(out, syms)
+
+
+def test_exact_ungrouped_decode_builds_tables_on_the_card(dev):
+    """The ungrouped S=64 decode picks the on-card builder by default (as
+    the grouped decode does), and decodes as with the host builder."""
+    n, cfg = 4 * 1024 - 7, _exact_cfg(1024)
+    means, scales, syms = _exact_data(n, seed=23)
+    st, w = ef.encode_family_exact(syms, means, scales, "laplace", -100, 100,
+                                   cfg, dev)
+    before = ef.LAUNCHES["eval_window"]
+    out = ef.decode_family_exact(st, w, means, scales, "laplace", -100, 100,
+                                 cfg, n)
+    assert ef.LAUNCHES["eval_window"] > before
+    host = ef.decode_family_exact(st, w, means, scales, "laplace", -100, 100,
+                                  cfg, n, device_tables=False)
+    assert ef.LAUNCHES["eval_window"] > before
+    assert torch.equal(out, host)
+    np.testing.assert_array_equal(out.cpu().numpy(), syms)
+
+
+# ---------------------------------------------------------------------------
+# reference-exact families at W=16, S=32 (kernels 13 and 14)
+# ---------------------------------------------------------------------------
+
+
+def _exact32_cfg(L, P=12):
+    return LaneConfig(num_lanes=L, word_bits=16, state_bits=32, precision=P)
+
+
+@pytest.mark.parametrize("P", [12, 16])
+@pytest.mark.parametrize("L,n,seeded", [(128, 1, False), (256, 3000, False),
+                                        (256, 3000, True),
+                                        (32768, 3 * 32768 - 99, True)])
+def test_exact32_encode_kernel_matches_twin(dev, P, L, n, seeded):
+    cfg = _exact32_cfg(L, P)
+    means, scales, syms = _exact_data(n, seed=n + L + P)
+    cums, probs = ef.exact_ecp(syms, means, scales, "gaussian", -100, 100, P)
+    rng = np.random.RandomState(L)
+    seeds = (rng.randint(1 << 16, 1 << 32, L, dtype=np.int64).astype(
+        np.uint32) if seeded else None)
+    c_t, p_t = convert.ecp_to_torch(cums, probs, L, dev)
+    s_t = None if seeds is None else convert.u32_to_torch(seeds, dev)
+    before = ef.LAUNCHES["encode32"]
+    st, w = ef.encode_tables(c_t, p_t, cfg, s_t, n)
+    assert ef.LAUNCHES["encode32"] == before + 1
+    st_p, w_p = ef.encode_tables_plain(c_t, p_t, cfg, s_t, n)
+    assert torch.equal(st, st_p) and torch.equal(w, w_p)
+    st_h, w_h = il2.encode_shared(cums, probs, cfg, seeds=seeds)
+    np.testing.assert_array_equal(convert.u32_from_torch(st), st_h)
+    np.testing.assert_array_equal(convert.u32_from_torch(w), w_h)
+
+
+def _exact32_case(family, n, seed):
+    """(means, scales, symbols, lo, hi, P): the continuous families and
+    binomial at P=12, and a flat P=16 gaussian whose run of top symbols
+    steers quantiles into the top interval."""
+    if family == "binomial":
+        rng = np.random.RandomState(seed)
+        ps = rng.uniform(0.02, 0.98, n)
+        return np.full(n, 60.0), ps, rng.binomial(60, ps), 0, 60, 12
+    if family == "flat16":
+        rng = np.random.RandomState(seed)
+        syms = rng.randint(-50, 51, n)
+        syms[n // 5:2 * n // 5] = 50
+        return np.zeros(n), np.full(n, 500.0), syms, -50, 50, 16
+    return (*_exact_data(n, seed), -100, 100, 12)
+
+
+@pytest.mark.parametrize("family", ["gaussian", "laplace", "cauchy",
+                                    "binomial", "flat16"])
+@pytest.mark.parametrize("L,n", [(128, 700), (1024, 5 * 1024 - 3)])
+def test_exact32_decode_kernel_matches_twin(dev, family, L, n, monkeypatch):
+    means, scales, syms, lo, hi, P = _exact32_case(family, n, seed=L + n)
+    fam_name = "gaussian" if family == "flat16" else family
+    cfg = _exact32_cfg(L, P)
+    states, stream = ef.encode_family_exact(syms, means, scales, fam_name, lo,
+                                            hi, cfg, dev)
+    T = -(-n // L)
+    pm, ps = ef._pad_params(means, scales, T * L, fam_name, hi)
+    tabs4, _ = ef.narrow_tables(pm, ps, fam_name, lo, hi, P, None, T,
+                                L // 128)
+    tabs = convert.exact_tables_to_torch(tabs4, dev)
+    before = ef.LAUNCHES["decode32"]
+    out, fin = ef.decode_tables(states, stream, tabs, cfg, lo, hi, n,
+                                return_final_states=True)
+    assert ef.LAUNCHES["decode32"] == before + 1
+    out_p, fin_p, _ = ef.decode_tables_plain(states, stream, tabs, cfg, lo,
+                                             hi, n)
+    assert torch.equal(out, out_p) and torch.equal(fin, fin_p)
+    np.testing.assert_array_equal(out.cpu().numpy(), syms)
+    assert bool((fin == 1 << 16).all())
+    # the scan and the binary search both, whatever the threshold says
+    for planes in (0, 1 << 30):
+        monkeypatch.setattr(ef, "BISECT_FROM_PLANES_NARROW", planes)
+        got = ef.decode_tables(states, stream, tabs, cfg, lo, hi, n)
+        assert torch.equal(got, out)
+    # a truncated stream decodes as the numpy oracle does (zero words)
+    cut = stream[: stream.numel() // 2]
+    got = ef.decode_tables(states, cut, tabs, cfg, lo, hi, n)
+    host = ef.decode_family_exact_host(
+        convert.u32_from_torch(states), convert.u32_from_torch(cut), means,
+        scales, fam_name, lo, hi, cfg, n)
+    np.testing.assert_array_equal(got.cpu().numpy(), host)
+
+
+@pytest.mark.parametrize("family", ["gaussian", "laplace", "cauchy"])
+def test_exact32_facade_default_on_the_card(dev, family):
+    """The facade's default call (no cfg: W=16, S=32, P=12): kernel 14,
+    then kernel 13; equal to the ``device="cpu"`` result and the
+    symbols."""
+    n = 5 * 4096 + 17
+    means, scales, syms = _exact_data(n, seed=31)
+    before = dict(ef.LAUNCHES)
+    st, w = ctt.encode_family_exact(syms, means, scales, family, -100, 100)
+    st_c, w_c = ctt.encode_family_exact(syms, means, scales, family, -100,
+                                        100, device="cpu")
+    assert st.dtype == np.uint32
+    np.testing.assert_array_equal(st, st_c)
+    np.testing.assert_array_equal(w, w_c)
+    out = ctt.decode_family_exact(st, w, means, scales, family, -100, 100, n)
+    assert ef.LAUNCHES["encode32"] == before["encode32"] + 1
+    assert ef.LAUNCHES["decode32"] == before["decode32"] + 1
+    out_c = ctt.decode_family_exact(st, w, means, scales, family, -100, 100,
+                                    n, device="cpu")
+    assert out.dtype == out_c.dtype == np.int32
     np.testing.assert_array_equal(out, out_c)
     np.testing.assert_array_equal(out, syms)

@@ -20,7 +20,6 @@ import pytest
 import torch
 
 from constriction_tpu import native
-from constriction_tpu import tpu as ctpu
 from constriction_tpu.ops import exact_family as ref_ef
 from constriction_tpu.ops import exact_tables_jax as etj
 from constriction_tpu.ops import interleaved2 as ref_il2
@@ -570,24 +569,6 @@ def test_interpret_mode_segment_decoder_and_encoder():
 # ---------------------------------------------------------------------------
 # argument checks and the facade on the CPU
 # ---------------------------------------------------------------------------
-
-
-def test_s32_config_is_not_ported():
-    means, scales, syms = _data(300, seed=1)
-    cfg32 = LaneConfig(num_lanes=128, word_bits=16, state_bits=32,
-                       precision=12)
-    with pytest.raises(NotImplementedError, match="rows 13 and 14"):
-        ef.encode_family_exact(syms, means, scales, "gaussian", -100, 100,
-                               cfg32, "cpu")
-    # the facade's ungrouped default is the S=32 config, as in tpu.py
-    assert ctpu._pick_cfg_family(300, None, False).state_bits == 32
-    with pytest.raises(NotImplementedError):
-        ctt.encode_family_exact(syms, means, scales, "gaussian", -100, 100,
-                                device="cpu")
-    with pytest.raises(NotImplementedError):
-        ctt.decode_family_exact(np.zeros(128, np.uint32), np.zeros(4),
-                                means, scales, "gaussian", -100, 100, 300,
-                                device="cpu")
 
 
 def test_argument_errors():
