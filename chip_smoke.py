@@ -11,6 +11,12 @@ prints one JSON object per phase, then the kernels line, the card's
 
 1. build         -- nvcc build time (one nvcc per source, in parallel),
                     ptxas register/shared-memory report.
+   geometry      -- the launch geometry of the DEFAULT preset's rANS pair
+                    (kernels 1 and 2) at L=32768 and 65536: the decode's
+                    cluster size, CTAs, threads, lanes per thread and the
+                    card's maximum of such active clusters (more than one
+                    CTA, or the run fails), the encode's pass-A grid, and
+                    ptxas' registers and spills for their kernels.
 2. kernels       -- each rANS kernel against its plain PyTorch twin on the
                     same CUDA tensors and against the numpy host oracle
                     (L=32768, about 2^20 symbols, with and without seeds):
@@ -26,7 +32,9 @@ prints one JSON object per phase, then the kernels line, the card's
                     events), and the twins on the card at the same size,
                     whose streams, states and symbols must equal the
                     kernels'; kernel times at bench.py's explicit configs
-                    (L=65536, P=24 and P=12).
+                    (L=65536, P=24 and P=12); the DEFAULT preset's pair
+                    also at P=12 (L=32768 and 65536), and its encode's
+                    pass A and pass B timed apart.
 5. sweep         -- kernel time per coding step at T=256 steps over
                     L=128 .. 65536, both presets: the per-step floor (at
                     L=128) and the added microseconds per 1024 lanes (the
@@ -207,16 +215,18 @@ N_SKEWED = 1 << 19  # the carry-run model: 4096 steps on 128 lanes
 SKEWED_LANES = 128
 
 RANS_SOURCE = "constriction_tpu_torch/ops/csrc/ilans2.cu"
+# the DEFAULT preset's pair: the cluster decode and the two-pass encode
+WIDE_SOURCE = "constriction_tpu_torch/ops/csrc/ilans2_wide.cuh"
 RANGE_SOURCE = "constriction_tpu_torch/ops/csrc/ilans2_range.cu"
 # kernel -> (module whose LAUNCHES counts it, counter key, Pallas site,
 # source)
 KERNELS = {
     "ilans2_decode_w32s64": ("coder64", "decode",
                              "constriction_tpu/ops/pallas_coder64.py:187",
-                             RANS_SOURCE),
+                             WIDE_SOURCE),
     "ilans2_encode_w32s64": ("coder64", "encode",
                              "constriction_tpu/ops/pallas_coder64.py:373",
-                             RANS_SOURCE),
+                             WIDE_SOURCE),
     "ilans2_decode_w16s32": ("coder", "decode",
                              "constriction_tpu/ops/pallas_coder.py:1638",
                              RANS_SOURCE),
@@ -452,6 +462,42 @@ def phase_build() -> dict:
     }
 
 
+def ptxas_usage(log: str, marks: tuple) -> dict:
+    """Registers and spill bytes from nvcc's ``-Xptxas -v`` output for each
+    kernel whose mangled name holds one of ``marks``."""
+    out = {}
+    name = None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else None
+            if name is not None and not any(m in name for m in marks):
+                name = None
+        elif name is not None and ("registers" in ln or "spill" in ln):
+            out.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
+    return out
+
+
+def phase_geometry(device) -> dict:
+    """Launch geometry of kernels 1 and 2 (the DEFAULT preset's cluster
+    decode and two-pass encode) at bench.py's lane counts for its K, and
+    what ptxas reported for their kernels."""
+    from constriction_tpu_torch.ops import _build, coder64
+
+    rows = [{"num_lanes": L, "K": K_MAIN,
+             **coder64.geometry(L, K_MAIN, device)}
+            for L in (32768, BENCH_LANES)]
+    for row in rows:
+        row["encode_grid"] = (f"{row['encode_blocks']} x "
+                              f"{row['encode_threads']}")
+        if row["cluster"] < 2:
+            fail(f"geometry: kernel 1 runs on one CTA at L={row['num_lanes']}")
+    log = (_build.build_info or {}).get("log", "")
+    return {"phase": "geometry", "cases": rows,
+            "ptxas": ptxas_usage(log, ("cluster_decode_kernelILi32ELi64E",
+                                       "encode_lanes_kernelILi32ELi64E",
+                                       "division_records", "compact_"))}
+
+
 def phase_kernels(device, n: int, L: int) -> tuple[dict, dict]:
     """Each kernel against its twin on the same tensors, and both times on
     the unseeded case.  Returns the phase record and {kernel name:
@@ -577,12 +623,29 @@ def phase_main(device, probs, symbols, keep: dict) -> dict:
     return {"phase": "main_path", "n": len(symbols), "cases": rows}
 
 
+def time_passes(row: dict, syms, cdf, cfg, stream) -> None:
+    """Kernel 2's two passes timed apart (CUDA events): pass A (the
+    lane-parallel coding) and pass B (the row-major compaction of its
+    words, whose stream must equal the two-pass call's)."""
+    from constriction_tpu_torch.ops import coder64
+
+    words, ballots, _ = coder64.lanes_pass64(syms, cdf, cfg)
+    if mismatch(coder64.compact_pass(words, ballots), stream) != 0:
+        fail(f"times: pass B's stream != the encode's at {cfg}")
+    row["encode_pass_a_ms"] = time_ms(
+        lambda: coder64.lanes_pass64(syms, cdf, cfg), 3)
+    row["encode_pass_b_ms"] = time_ms(
+        lambda: coder64.compact_pass(words, ballots), 3)
+
+
 def phase_times(device, probs, symbols, gpu: str,
                 errs: dict) -> tuple[dict, dict]:
     """Kernel-only times at the main path's size, and the twins on the card
     at the facade's config and the same size: the twins' streams, states
     and symbols must equal the kernels' (their largest difference goes into
-    ``errs``).  Returns the phase record and {kernel: (ms, plain_ms)}."""
+    ``errs``); the DEFAULT preset's pair also at P=12 (L=32768, against its
+    twins) and its encode's two passes apart.  Returns the phase record and
+    {kernel: (ms, plain_ms, bound_ms, bound_by)}."""
     import numpy as np
     import torch
 
@@ -594,26 +657,36 @@ def phase_times(device, probs, symbols, gpu: str,
     syms = torch.from_numpy(symbols.astype(np.int32)).to(device)
     rows = []
     times = {}
-    for label, W, S, P, enc, dec, enc_p, dec_p in presets():
-        cdf_np = model_cdf(probs, P)
-        cdf = convert.cdf_to_torch(cdf_np, device)
-        p = (cdf_np[symbols + 1].astype(np.float64) - cdf_np[symbols]) \
-            / cdf_np[-1]
-        facade = ctt._pick_cfg(n, None, cdf_np,
-                               est_bits=float((-np.log2(p)).sum()))
-        bench = LaneConfig(num_lanes=BENCH_LANES, word_bits=W, state_bits=S,
-                           precision=P)
-        for cfg, plain in ((facade, True), (bench, False)):
+    for label, W, S, P_main, enc, dec, enc_p, dec_p in presets():
+        cases = []
+        for P in ((P_main, 12) if S == 64 else (P_main,)):
+            cdf_np = model_cdf(probs, P)
+            p = (cdf_np[symbols + 1].astype(np.float64) - cdf_np[symbols]) \
+                / cdf_np[-1]
+            facade = ctt._pick_cfg(n, None, cdf_np,
+                                   est_bits=float((-np.log2(p)).sum()))
+            if P != P_main:  # P=12 takes the small preset in the facade
+                facade = LaneConfig(num_lanes=facade.num_lanes, word_bits=W,
+                                    state_bits=S, precision=P)
+            bench = LaneConfig(num_lanes=BENCH_LANES, word_bits=W,
+                               state_bits=S, precision=P)
+            cases += [(cdf_np, facade, True, P == P_main),
+                      (cdf_np, bench, False, False)]
+        for cdf_np, cfg, plain, main in cases:
+            cdf = convert.cdf_to_torch(cdf_np, device)
             st, w = enc(syms, cdf, cfg)
             out, fin = dec(st, w, cdf, cfg, n, return_final_states=True)
             if (mismatch(out, syms) != 0
                     or mismatch(fin, torch.full_like(st, 1 << (S - W))) != 0):
                 fail(f"times: {label} L={cfg.num_lanes} round trip")
             row = {
-                "preset": label, "P": P, "num_lanes": cfg.num_lanes, "n": n,
+                "preset": label, "P": cfg.precision,
+                "num_lanes": cfg.num_lanes, "n": n,
                 "encode_ms": time_ms(lambda: enc(syms, cdf, cfg), 3),
                 "decode_ms": time_ms(lambda: dec(st, w, cdf, cfg, n), 3),
             }
+            if S == 64:
+                time_passes(row, syms, cdf, cfg, w)
             if plain:
                 st_p, w_p = enc_p(syms, cdf, cfg)
                 out_p, fin_p = dec_p(st, w, cdf, cfg, n,
@@ -631,6 +704,7 @@ def phase_times(device, probs, symbols, gpu: str,
                     lambda: enc_p(syms, cdf, cfg), 1)
                 row["decode_plain_ms"] = time_ms(
                     lambda: dec_p(st, w, cdf, cfg, n), 1)
+            if main:
                 K, B = len(cdf_np) - 1, S // 8
                 L, words = cfg.num_lanes, int(w.numel())
                 # encode: symbols and CDF in; states and stream out
@@ -2825,6 +2899,7 @@ def main(argv) -> int:
                "range_enc": range_enc.LAUNCHES, "family": family.LAUNCHES,
                "tchain": tchain.LAUNCHES, "exact": exact_family.LAUNCHES}
 
+    emit(phase_geometry(device))
     kernels, errs = phase_kernels(device, N_KERNEL_CHECK, 32768)
     emit(kernels)
     probs, symbols = main_workload()

@@ -16,6 +16,14 @@ float64 estimate corrected against the exact product; the range kernel
 (``csrc/ilans2_range.cu``) divides in native u64 in place of
 ``_div64_by_scale``.
 
+The rANS pair runs ``csrc/ilans2_wide.cuh``'s design: the decode on a
+cluster of CTAs with the lane states in registers (:func:`geometry` says
+which cluster the card runs for L lanes), the encode as a lane-parallel
+pass and a row-major compaction.  :func:`lanes_pass64_plain` and
+:func:`compact_pass_plain` are those two passes in plain PyTorch; the
+kernels' index math mirrors them, and their composition is
+:func:`encode_iid64_plain`'s stream.
+
 Lane states and range planes travel as int64 tensors holding u64 bits
 (constriction_tpu_torch/convert.py); stream words as int32 holding u32 bits.
 """
@@ -25,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from .. import convert
+from . import _build
 from .coder import (
     _check_cfg,
     _decode_args,
@@ -32,7 +41,6 @@ from .coder import (
     _encode_args,
     _find_symbols,
     _launch_decode,
-    _launch_encode,
     _launch_range_decode,
     _num_steps,
     _on_cuda,
@@ -43,10 +51,16 @@ from .coder import (
 )
 from .interleaved import LaneConfig
 
-# kernel launches made by this module's wrappers (never by the twins)
-LAUNCHES = {"encode": 0, "decode": 0, "range_decode": 0}
+# kernel launches made by this module's wrappers (never by the twins); the
+# encode's two passes launched alone (lanes_pass64, compact_pass) count
+# under their own keys
+LAUNCHES = {"encode": 0, "decode": 0, "range_decode": 0, "encode_lanes": 0,
+            "compact": 0}
 
 _M32 = 0xFFFFFFFF
+# blocks of the encode's compaction pass at most: the length of its offsets
+# scratch (csrc/ilans2_wide.cuh, kScanBlocks)
+SCAN_BLOCKS = 1024
 
 
 # ---------------------------------------------------------------------------
@@ -121,7 +135,7 @@ def encode_iid64(symbols, cdf, cfg: LaneConfig, seeds=None):
         return states, torch.zeros(0, dtype=torch.int32,
                                    device=symbols.device)
     LAUNCHES["encode"] += 1
-    return _launch_encode("w32s64", symbols, cdf, cfg, states)
+    return _launch_encode64(symbols, cdf, cfg, states)
 
 
 def encode_iid64_plain(symbols, cdf, cfg: LaneConfig, seeds=None):
@@ -148,11 +162,7 @@ def encode64_steps(tables_at, n: int, cfg: LaneConfig, seeds, device):
     ``csrc/ilans2.cuh``'s encode loop.  Returns ``(states int64[L], stream
     int32)``."""
     L, P = cfg.num_lanes, cfg.precision
-    if seeds is not None:
-        hi, lo = convert.u64_halves(seeds)
-    else:  # the floor 2^32
-        hi = torch.ones(L, dtype=torch.int64, device=device)
-        lo = torch.zeros(L, dtype=torch.int64, device=device)
+    hi, lo = _start_halves64(seeds, L, device)
     lanes = torch.arange(L, device=device)
     buf = torch.zeros(n + 1, dtype=torch.int64, device=device)
     e = torch.tensor(n, dtype=torch.int64, device=device)
@@ -161,20 +171,116 @@ def encode64_steps(tables_at, n: int, cfg: LaneConfig, seeds, device):
         active = i < n
         cum, prob = tables_at(i)
         prob = torch.where(active, prob, 1)
-        # state >> (64 - P) >= prob; 64 - P >= 32, so only hi matters
-        renorm = active & ((hi >> (32 - P)) >= prob)
+        renorm = _renorms64(hi, prob, active, P)
         e = _emit_words(buf, renorm, lo, e, n)
-        hi, lo = torch.where(renorm, 0, hi), torch.where(renorm, hi, lo)
-        # state // prob and state % prob, two base-2^32 digits
-        q_hi, r = hi // prob, hi % prob
-        part = (r << 32) | lo
-        q_lo, rem = part // prob, part % prob
-        # (q << P) | (cum + rem)
-        new_hi = (q_hi << P) | (q_lo >> (32 - P))
-        new_lo = ((q_lo << P) & _M32) | (cum + rem)
-        hi = torch.where(active, new_hi, hi)
-        lo = torch.where(active, new_lo, lo)
+        hi, lo = _code64(hi, lo, cum, prob, active, renorm, P)
     return convert.u64_join(hi, lo), convert.u32_bits(buf[int(e):n])
+
+
+def _start_halves64(seeds, L: int, device):
+    """(hi, lo) of the encoder's start states: the seeds, or the floor
+    2^32."""
+    if seeds is not None:
+        return convert.u64_halves(seeds)
+    return (torch.ones(L, dtype=torch.int64, device=device),
+            torch.zeros(L, dtype=torch.int64, device=device))
+
+
+def _renorms64(hi, prob, active, P: int):
+    """The lanes that emit a word before coding: state >> (64 - P) >= prob;
+    64 - P >= 32, so only hi matters."""
+    return active & ((hi >> (32 - P)) >= prob)
+
+
+def _code64(hi, lo, cum, prob, active, renorm, P: int):
+    """One encode step on (hi, lo) halves: renorming lanes drop their low
+    word (state >>= 32), then active lanes take (state // prob) << P |
+    (cum + state % prob), the division in two base-2^32 digits."""
+    hi, lo = torch.where(renorm, 0, hi), torch.where(renorm, hi, lo)
+    q_hi, r = hi // prob, hi % prob
+    part = (r << 32) | lo
+    q_lo, rem = part // prob, part % prob
+    new_hi = (q_hi << P) | (q_lo >> (32 - P))
+    new_lo = ((q_lo << P) & _M32) | (cum + rem)
+    return torch.where(active, new_hi, hi), torch.where(active, new_lo, lo)
+
+
+def division_magic(prob: int) -> tuple[int, int]:
+    """The encode kernel's multiply-high reciprocal of a probability 1 <=
+    prob <= 2^24 (``csrc/ilans2_wide.cuh``, ``DivisionRecord``; Granlund
+    and Montgomery 1994, fig. 4.1): ``(magic, l)`` with l = ceil(log2 prob)
+    and magic = floor(2^64 (2^l - prob) / prob) + 1, in Python integers."""
+    l = (prob - 1).bit_length()
+    return ((1 << 64) * ((1 << l) - prob)) // prob + 1, l
+
+
+def divide_by_magic(x: int, magic: int, l: int) -> int:
+    """x // prob for a 64-bit x as the kernel computes it from
+    ``division_magic(prob)``: t = (magic x) >> 64, then (t + ((x - t) >>
+    min(l, 1))) >> max(l - 1, 0)."""
+    t = (magic * x) >> 64
+    return (t + ((x - t) >> min(l, 1))) >> max(l - 1, 0)
+
+
+def lanes_pass64_plain(symbols, cdf, cfg: LaneConfig, seeds=None):
+    """Pass A of the S=64 encoder in plain PyTorch (any device, no checks):
+    every lane runs steps T-1 .. 0 on its own.  Returns ``(words int32[T,
+    L], flags bool[T, L], states int64[L])``: ``flags[t, l]`` is set where
+    lane l renorms at step t, before coding symbol t * L + l, and
+    ``words[t, l]`` is then the word it emits (0 elsewhere); ``states`` are
+    the final states.  Lanes of a partial last step neither code nor flag.
+    The kernel (``csrc/ilans2_wide.cuh``, ``encode_lanes_kernel``) keeps
+    ``flags`` as one ballot per 32 lanes (:func:`flag_ballots`)."""
+    n = symbols.numel()
+    L, P = cfg.num_lanes, cfg.precision
+    device = symbols.device
+    cdf64 = cdf.to(torch.int64)
+    K = cdf64.numel() - 1
+    T = _num_steps(n, L)
+    hi, lo = _start_halves64(seeds, L, device)
+    lanes = torch.arange(L, device=device)
+    words = torch.zeros(T, L, dtype=torch.int64, device=device)
+    flags = torch.zeros(T, L, dtype=torch.bool, device=device)
+    for t in range(T - 1, -1, -1):
+        i = t * L + lanes
+        active = i < n
+        cum, prob = _symbol_tables(symbols, cdf64, i, n, K)
+        prob = torch.where(active, prob, 1)
+        renorm = _renorms64(hi, prob, active, P)
+        words[t] = torch.where(renorm, lo, 0)
+        flags[t] = renorm
+        hi, lo = _code64(hi, lo, cum, prob, active, renorm, P)
+    return convert.u32_bits(words), flags, convert.u64_join(hi, lo)
+
+
+def compact_pass_plain(words, flags):
+    """Pass B of the encoder in plain PyTorch (any device): the flagged
+    words of ``words[T, L]`` (``flags`` bool[T, L]) in the decoder's
+    consumption order, steps ascending and lanes ascending in a step.  The
+    index math is the kernel's (``compact_*_kernel``): the flags of step t
+    and 32-lane group g count c[t, g]; an exclusive scan of c in row-major
+    order gives each group's offset, and lane j of the group lands at that
+    offset plus the flagged lanes below j.  Returns int32[words]."""
+    T, L = flags.shape
+    f = flags.reshape(T * L // 32, 32).to(torch.int64)
+    counts = f.sum(1)
+    offsets = torch.cumsum(counts, 0) - counts
+    below = torch.cumsum(f, 1) - f
+    pos = (offsets[:, None] + below).reshape(-1)
+    out = torch.zeros(int(counts.sum()), dtype=torch.int32,
+                      device=words.device)
+    sel = flags.reshape(-1)
+    out[pos[sel]] = words.reshape(-1)[sel]
+    return out
+
+
+def flag_ballots(flags):
+    """bool[T, L] renorm flags -> the kernel's int32[T, L / 32] ballots (bit
+    j of group g: lane 32 g + j)."""
+    T, L = flags.shape
+    bits = flags.reshape(T, L // 32, 32).to(torch.int64) << torch.arange(
+        32, device=flags.device)
+    return convert.u32_bits(bits.sum(2))
 
 
 def decode_shared64(states, stream, cdf, cfg: LaneConfig, n: int,
@@ -235,6 +341,128 @@ def decode_shared64_plain(states, stream, cdf, cfg: LaneConfig, n: int,
         out[t * L:(t + 1) * L] = sym.to(torch.int32)
     syms = out[:n]
     return (syms, convert.u64_join(hi, lo)) if return_final_states else syms
+
+
+# ---------------------------------------------------------------------------
+# launches of the rANS pair's kernels (csrc/ilans2.cu, ilans2_wide.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _launch_encode64(symbols, cdf, cfg: LaneConfig, states):
+    """Both encode passes in one C call, coding into ``states`` in place;
+    returns (final states, stream).  The scratch: the dense words (T * L),
+    the ballots (T * L / 32), the compaction's block offsets and each
+    symbol's division record (four words: the multiply-high reciprocal of
+    :func:`division_magic`, cum, prob).  Reads the stream's start back (one
+    sync)."""
+    device = symbols.device
+    n, L = symbols.numel(), cfg.num_lanes
+    T = _num_steps(n, L)
+    buf = torch.empty(n, dtype=torch.int32, device=device)
+    end = torch.empty(1, dtype=torch.int64, device=device)
+    words = torch.empty(T * L, dtype=torch.int32, device=device)
+    flags = torch.empty(T * L // 32, dtype=torch.int32, device=device)
+    offsets = torch.empty(SCAN_BLOCKS, dtype=torch.int64, device=device)
+    cdf32 = cdf.to(torch.int32)
+    K = cdf32.numel() - 1
+    records = torch.empty(4 * K, dtype=torch.int32, device=device)
+    _build.call(
+        "ctt_ilans2_encode_w32s64", device, states, symbols, n, cdf32, K, buf,
+        n, end, words, flags, offsets, records, L, cfg.precision,
+    )
+    return states, buf[int(end.item()):]
+
+
+def lanes_pass64(symbols, cdf, cfg: LaneConfig, seeds=None):
+    """Pass A of :func:`encode_iid64` alone (n > 0): ``(words int32[T, L],
+    ballots int32[T, L / 32], states int64[L])``.  On the card the words of
+    lanes that emit nothing are left unwritten; a CPU tensor runs
+    :func:`lanes_pass64_plain` and packs its flags with
+    :func:`flag_ballots`."""
+    states = _encode_args(symbols, cdf, cfg, seeds, torch.int64)
+    if not _on_cuda(symbols.device):
+        words, flags, fin = lanes_pass64_plain(symbols, cdf, cfg, seeds)
+        return words, flag_ballots(flags), fin
+    device = symbols.device
+    n, L = symbols.numel(), cfg.num_lanes
+    T = _num_steps(n, L)
+    words = torch.empty(T, L, dtype=torch.int32, device=device)
+    ballots = torch.empty(T, L // 32, dtype=torch.int32, device=device)
+    cdf32 = cdf.to(torch.int32)
+    K = cdf32.numel() - 1
+    records = torch.empty(4 * K, dtype=torch.int32, device=device)
+    LAUNCHES["encode_lanes"] += 1
+    _build.call(
+        "ctt_ilans2_encode_lanes_w32s64", device, states, symbols, n, cdf32,
+        K, words, ballots, records, L, cfg.precision,
+    )
+    return words, ballots, states
+
+
+def compact_pass(words, ballots):
+    """Pass B of :func:`encode_iid64` alone: the stream of ``words``
+    int32[T, L] under ``ballots`` int32[T, L / 32] (T > 0).  A CPU tensor
+    runs :func:`compact_pass_plain`."""
+    if not _on_cuda(words.device):
+        return compact_pass_plain(words, ballot_flags(ballots))
+    device = words.device
+    cap = words.numel()
+    buf = torch.empty(cap, dtype=torch.int32, device=device)
+    end = torch.empty(1, dtype=torch.int64, device=device)
+    offsets = torch.empty(SCAN_BLOCKS, dtype=torch.int64, device=device)
+    LAUNCHES["compact"] += 1
+    _build.call("ctt_ilans2_compact", device, ballots, words, ballots.numel(),
+                buf, cap, end, offsets)
+    return buf[int(end.item()):]
+
+
+def ballot_flags(ballots):
+    """Inverse of :func:`flag_ballots`: int32[T, G] -> bool[T, 32 G]."""
+    T, G = ballots.shape
+    bits = (convert.u32_values(ballots)[..., None] >> torch.arange(
+        32, device=ballots.device)) & 1
+    return bits.reshape(T, G * 32).bool()
+
+
+def decode_shared64_cluster(states, stream, cdf, cfg: LaneConfig, n: int,
+                            cluster: int):
+    """The decode kernel on a cluster of ``cluster`` CTAs (1 .. 16) in
+    place of the size it picks from L, for any L that is a multiple of 32
+    (n > 0, CUDA tensors): how the card tests reach uneven partitions and
+    CTAs with no lanes.  Returns (symbols int32[n], final states)."""
+    _decode_args(states, stream, cdf, cfg, torch.int64)
+    device = states.device
+    if not _on_cuda(device):
+        raise ValueError("decode_shared64_cluster needs CUDA tensors")
+    fin = states.clone()
+    syms = torch.empty(n, dtype=torch.int32, device=device)
+    cdf32 = cdf.to(torch.int32)
+    LAUNCHES["decode"] += 1
+    _build.call(
+        "ctt_ilans2_decode_cluster_w32s64", device, fin, stream,
+        stream.numel(), cdf32, cdf32.numel() - 1, syms, n, cfg.num_lanes,
+        cfg.precision, cluster,
+    )
+    return syms, fin
+
+
+def geometry(L: int, K: int, device=None, cluster: int = 0) -> dict:
+    """The launch geometry of the rANS pair for L lanes and K symbols on
+    ``device`` (a CUDA device; the current one by default): the decode's
+    cluster (``cluster`` 0: the size the kernel picks from L, stepped down
+    while the card cannot co-schedule it), its CTAs' groups, lanes per
+    thread and threads, the card's maximum of such active clusters, the
+    shared memory of a CTA and whether the CDF is in it; the encode's pass-A
+    grid."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    out = torch.zeros(9, dtype=torch.int64)
+    _build.call("ctt_ilans2_geometry_w32s64", device, L, K, cluster, out)
+    keys = ("cluster", "groups_per_cta", "lanes_per_thread",
+            "threads_per_cta", "max_active_clusters", "smem_bytes",
+            "cdf_in_smem", "encode_blocks", "encode_threads")
+    geo = dict(zip(keys, (int(v) for v in out)))
+    geo["ctas"] = geo["cluster"]
+    return geo
 
 
 def decode_shared_range64(points, stream, cdf, cfg: LaneConfig, n: int,

@@ -1,6 +1,6 @@
 // ILANS2 shared-stream interleaved rANS on Hopper (sm_90a): the encode and
-// decode kernels of the i.i.d. categorical coder, templated on the preset
-// (W, S) in {(16, 32), (32, 64)}.
+// decode kernels of the i.i.d. categorical coder at the presets (W, S) in
+// {(16, 32), (32, 64)}.
 //
 // Replaces the Pallas kernels
 //   constriction_tpu/ops/pallas_coder.py    _decode_kernel_body   (W=16, S=32)
@@ -12,32 +12,42 @@
 // decode-consumption order (at each step the refilling lanes take the next
 // words in ascending lane order).
 //
-// What bounds it on this card: the T coding steps form a serial chain, and
-// every step needs an exclusive prefix count over all L lanes (the refill
-// ranks when decoding, the emission offsets when encoding), so no step can
-// start before the previous step's prefix is known.  This first design runs
-// the whole message in ONE thread block: per step, each warp ballots its 32
-// lanes' refill/renorm flags, a block scan turns the per-warp popcounts into
-// group offsets, and each lane's word index is base + group offset +
-// popc(ballot & lanemask_lt).  Measured on an H100 (chip_smoke.py, sweep),
-// a step costs about 1.5 us at L = 128 (barriers and scan) and 1.0-1.5 us
-// more per 1024 lanes: each thread walks its lanes one after another, and
-// each lane is a chain of dependent loads (state, CDF search, refill word),
-// so at L = 32768 the lane loop's latency, not the barriers, bounds a step.
-// The other SMs idle.  Lane ownership is strided
-// (lane = row * 1024 + thread) so symbol reads and writes coalesce, and the
-// refill (or emission) of step t is fused with the coding of step t + 1 so
-// each lane state is loaded and stored once per step.  Lane states live in
-// device memory (the caller's state tensor, updated in place; 256 KB at
-// L = 32768, S = 64, which stays in L2); the ballots, the group prefixes and
-// the CDF (when it fits) live in shared memory.  A cluster- or grid-wide
-// scan that spreads the lanes over many SMs is later work.  The two loops
-// are in ilans2.cuh, templated on the model (here one CDF, CdfModel below;
-// exact_family.cu instantiates them over per-symbol tables); the ballot,
-// the block scan, the CDF staging and the symbol search are in lanes.cuh,
-// shared with the range coder (ilans2_range.cu).
+// What bounds them on this card: the T coding steps of a lane form a serial
+// chain of dependent loads and arithmetic, and the lanes meet in the word
+// stream, whose positions need an exclusive count over all L lanes at each
+// step (refill ranks when decoding, emission offsets when encoding).  The
+// two presets run two designs:
+//
+// - DEFAULT preset (W=32, S=64): ilans2_wide.cuh.  The decode runs on a
+//   cluster of up to 16 CTAs (one SM each) with the lane states in
+//   registers for the whole message and one distributed-shared-memory
+//   exchange and cluster barrier per step; a bucket table in front of
+//   the CDF search (BucketCdfModel) shortens each lane's chain of
+//   shared-memory probes.  The encode has no cross-lane dependency in its
+//   state algebra, so it runs as a lane-parallel pass over the whole grid
+//   (one thread per lane, every emitted word into a dense scratch, one
+//   renorm ballot per step and 32 lanes; the division by the symbol's
+//   probability a multiply-high by a per-symbol reciprocal,
+//   RecordCdfModel) and a row-major compaction (a scan of the ballots'
+//   popcounts and a scatter of the flagged words).  The cluster size
+//   follows L (auto_cluster) and the wrapper reports it
+//   (ctt_ilans2_geometry_w32s64).
+// - Small preset (W=16, S=32): ilans2.cuh's single-block loops.  One block
+//   of 1024 threads codes the message; per step each warp ballots its 32
+//   lanes' flags, a block scan turns the per-warp popcounts into group
+//   offsets, and each thread walks its lanes one after another (lane =
+//   row * 1024 + thread), loading and storing each lane state in device
+//   memory once per step.  Measured on an H100 (chip_smoke.py, sweep), a
+//   step costs about 1.5 us at L = 128 and 1.0-1.5 us more per 1024 lanes:
+//   the lane loop's latency, not the barriers, bounds a step on one SM.
+//
+// The model policies below (CdfModel for the single-block loops,
+// BucketCdfModel and RecordCdfModel for the wide ones) hold one CDF; the
+// ballot, the block scan, the CDF staging and the symbol search are in
+// lanes.cuh, shared with the range coder (ilans2_range.cu).
 
 #include "ilans2.cuh"
+#include "ilans2_wide.cuh"
 
 namespace {
 
@@ -74,6 +84,97 @@ struct CdfModel {
     return cdf[sym + 1] - cdf[sym];
   }
 };
+
+// The decode model of ilans2_wide.cuh's cluster decode (the DEFAULT
+// preset): the CDF, in shared memory when it fits, behind a bucket table
+// in shared memory: lut[b] is the symbol of quantile b << (P - lut_bits),
+// so quantile q's symbol lies between lut[q >> (P - lut_bits)] and the
+// next entry, and a binary search between the two (zero or one probe for
+// most quantiles of a K=100 model at P=24) gives find_symbol's answer.
+struct BucketCdfModel {
+  const uint32_t* cdf;
+  int K;
+  int cdf_in_smem;
+  int P;
+  int lut_bits;
+  const uint32_t* lut;  // set by stage
+
+  __device__ void stage(uint32_t* smem) {
+    const uint32_t* cdf_g = cdf;
+    uint32_t* table = smem;
+    const int shift = P - lut_bits;
+    for (int b = threadIdx.x; b <= (1 << lut_bits); b += blockDim.x) {
+      table[b] = find_symbol(cdf_g, K, static_cast<uint32_t>(b) << shift);
+    }
+    lut = table;
+    cdf = stage_cdf(smem + (1 << lut_bits) + 1, cdf_g, K, cdf_in_smem);
+  }
+  template <int R>
+  __device__ void invert_lanes(int, const int (&)[R], const uint32_t (&q)[R],
+                               int (&sym)[R], uint32_t (&cum)[R],
+                               uint32_t (&prob)[R]) const {
+    const int shift = P - lut_bits;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const uint32_t b = q[r] >> shift;
+      int lo = static_cast<int>(lut[b]), hi = static_cast<int>(lut[b + 1]);
+      while (lo < hi) {  // the largest s in [lo, hi] with cdf[s] <= q
+        const int mid = (lo + hi + 1) >> 1;
+        if (cdf[mid] <= q[r]) {
+          lo = mid;
+        } else {
+          hi = mid - 1;
+        }
+      }
+      sym[r] = lo;
+      cum[r] = cdf[lo];
+      prob[r] = cdf[lo + 1] - cum[r];
+    }
+  }
+};
+
+// The encode model of ilans2_wide.cuh's pass A (the DEFAULT preset): each
+// symbol's DivisionRecord (its interval and the multiply-high reciprocal
+// of its probability, built from the CDF by division_records_kernel), in
+// shared memory when the K records fit.  Symbols outside [0, K) are
+// clamped to K-1, as in CdfModel.
+struct RecordCdfModel {
+  using Token = uint32_t;  // the symbol
+  using Interval = DivisionRecord;
+  const int32_t* syms;
+  const DivisionRecord* records;
+  int K;
+  int in_smem;
+
+  __device__ void stage(uint32_t* smem) {
+    if (!in_smem) return;
+    auto* dst = reinterpret_cast<DivisionRecord*>(smem);
+    for (int s = threadIdx.x; s < K; s += blockDim.x) dst[s] = records[s];
+    records = dst;
+  }
+  __device__ Token fetch(int64_t i) const {
+    return min(static_cast<uint32_t>(syms[i]), static_cast<uint32_t>(K - 1));
+  }
+  __device__ Interval interval(Token sym) const { return records[sym]; }
+};
+
+constexpr int kLutBits = 12;  // the decode's bucket table: 2^12 + 1 words
+
+// Dynamic shared memory of the DEFAULT preset's decode: the bucket table,
+// then the CDF when it fits beside it; fills in the model's table size
+// and CDF placement.
+size_t bucket_smem_bytes(BucketCdfModel* model) {
+  model->lut_bits = std::min(model->P, kLutBits);
+  const size_t lut = ((size_t(1) << model->lut_bits) + 1) * sizeof(uint32_t);
+  return lut + cdf_smem_bytes(lut, model->K, &model->cdf_in_smem);
+}
+
+// Dynamic shared memory of pass A: the K division records when they fit.
+size_t record_smem_bytes(RecordCdfModel* model) {
+  const size_t bytes = static_cast<size_t>(model->K) * sizeof(DivisionRecord);
+  model->in_smem = bytes <= kSmemBudget;
+  return model->in_smem ? bytes : 0;
+}
 
 template <int W, int S>
 int launch_decode(void* states, const void* stream, long long slen,
@@ -117,6 +218,91 @@ int launch_encode(void* states, const void* syms, long long n, const void* cdf,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The DEFAULT preset's cluster decode; `cluster` 0 picks the cluster size
+// from L.
+template <int W, int S>
+int launch_cluster_decode(void* states, const void* stream, long long slen,
+                          const void* cdf, int K, void* syms, long long n,
+                          int L, int P, int cluster, void* cuda_stream,
+                          int device) {
+  if (!valid_args(L, P, K)) return static_cast<int>(cudaErrorInvalidValue);
+  BucketCdfModel model{static_cast<const uint32_t*>(cdf), K, 0, P, 0,
+                       nullptr};
+  const size_t bytes = bucket_smem_bytes(&model);
+  ClusterGeometry geo;
+  ClusterDecodeFn<W, S, BucketCdfModel, false> kernel;
+  cudaError_t err = plan_cluster_decode<W, S, BucketCdfModel, false>(
+      L, cluster, bytes, device, &geo, &kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const int T = static_cast<int>((n + L - 1) / L);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      geo, bytes, static_cast<cudaStream_t>(cuda_stream), &attr);
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<typename StateOf<S>::type*>(states),
+      static_cast<const uint32_t*>(stream), static_cast<int64_t>(slen), model,
+      static_cast<int32_t*>(syms), static_cast<int64_t>(n), L, P, T,
+      geo.groups_per_cta, static_cast<int64_t*>(nullptr));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The DEFAULT preset's encode, pass A: the division records of the CDF's
+// symbols into records[K], then the lanes.
+template <int W, int S>
+int launch_encode_lanes(void* states, const void* syms, long long n,
+                        const void* cdf, int K, void* words, void* flags,
+                        void* records, int L, int P, void* cuda_stream,
+                        int device) {
+  if (!valid_args(L, P, K)) return static_cast<int>(cudaErrorInvalidValue);
+  RecordCdfModel model{static_cast<const int32_t*>(syms),
+                       static_cast<const DivisionRecord*>(records), K, 0};
+  const size_t bytes = record_smem_bytes(&model);
+  auto kernel = encode_lanes_kernel<W, S, RecordCdfModel>;
+  cudaError_t err = prepare(kernel, device, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const auto stream = static_cast<cudaStream_t>(cuda_stream);
+  division_records_kernel<<<ceil_div(K, 128), 128, 0, stream>>>(
+      static_cast<const uint32_t*>(cdf), K,
+      static_cast<DivisionRecord*>(records));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int T = static_cast<int>((n + L - 1) / L);
+  kernel<<<ceil_div(L, kLaneThreads), kLaneThreads, bytes, stream>>>(
+      static_cast<typename StateOf<S>::type*>(states), model, n,
+      static_cast<uint32_t*>(words), static_cast<uint32_t*>(flags), L, P, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Pass B: n_flags renorm ballots (T * L / 32) and their words into
+// buf[*end_out : cap]; offsets[kScanBlocks] is scratch.
+int launch_compact(const void* flags, const void* words, long long n_flags,
+                   void* buf, long long cap, void* end_out, void* offsets,
+                   void* cuda_stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_flags <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto stream = static_cast<cudaStream_t>(cuda_stream);
+  const int64_t chunk = scan_chunk(n_flags);
+  const int blocks = static_cast<int>((n_flags + chunk - 1) / chunk);
+  const auto* f = static_cast<const uint32_t*>(flags);
+  auto* off = static_cast<uint64_t*>(offsets);
+  auto* end = static_cast<int64_t*>(end_out);
+  compact_count_kernel<<<blocks, kScanThreads, 0, stream>>>(f, n_flags, chunk,
+                                                            off);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  compact_offsets_kernel<<<1, 1024, 0, stream>>>(off, blocks, cap, end);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  compact_scatter_kernel<<<blocks, kScanThreads, 0, stream>>>(
+      f, static_cast<const uint32_t*>(words), n_flags, chunk, off, end,
+      static_cast<uint32_t*>(buf));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes (constriction_tpu_torch/ops/_build.py).
@@ -134,8 +320,45 @@ int ctt_ilans2_decode_w16s32(void* states, const void* stream, long long slen,
 int ctt_ilans2_decode_w32s64(void* states, const void* stream, long long slen,
                              const void* cdf, int K, void* syms, long long n,
                              int L, int P, void* cuda_stream, int device) {
-  return launch_decode<32, 64>(states, stream, slen, cdf, K, syms, n, L, P,
-                               cuda_stream, device);
+  return launch_cluster_decode<32, 64>(states, stream, slen, cdf, K, syms, n,
+                                       L, P, 0, cuda_stream, device);
+}
+
+// The same decode on a cluster of `cluster` CTAs (1 .. 16).
+int ctt_ilans2_decode_cluster_w32s64(void* states, const void* stream,
+                                     long long slen, const void* cdf, int K,
+                                     void* syms, long long n, int L, int P,
+                                     int cluster, void* cuda_stream,
+                                     int device) {
+  if (cluster < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_cluster_decode<32, 64>(states, stream, slen, cdf, K, syms, n,
+                                       L, P, cluster, cuda_stream, device);
+}
+
+// The decode's and the encode's launch geometry for L lanes and K symbols
+// at P=24 (`cluster` 0: the size the decode picks), into out[9]: cluster
+// size, groups per CTA, lanes per thread, threads per CTA, the card's
+// maximum of active clusters of that shape, the decode's dynamic shared
+// memory bytes, whether the CDF is in shared memory; pass A's blocks and
+// threads.
+int ctt_ilans2_geometry_w32s64(int L, int K, int cluster, long long* out,
+                               void* cuda_stream, int device) {
+  (void)cuda_stream;
+  if (!valid_args(L, 24, K)) return static_cast<int>(cudaErrorInvalidValue);
+  BucketCdfModel model{nullptr, K, 0, 24, 0, nullptr};
+  const size_t bytes = bucket_smem_bytes(&model);
+  const int cdf_in_smem = model.cdf_in_smem;
+  ClusterGeometry geo;
+  ClusterDecodeFn<32, 64, BucketCdfModel, false> kernel;
+  const cudaError_t err = plan_cluster_decode<32, 64, BucketCdfModel, false>(
+      L, cluster, bytes, device, &geo, &kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long vals[9] = {geo.cluster, geo.groups_per_cta, geo.rows,
+                             geo.threads, geo.max_active_clusters,
+                             static_cast<long long>(bytes), cdf_in_smem,
+                             ceil_div(L, kLaneThreads), kLaneThreads};
+  for (int k = 0; k < 9; ++k) out[k] = vals[k];
+  return 0;
 }
 
 int ctt_ilans2_encode_w16s32(void* states, const void* syms, long long n,
@@ -146,12 +369,38 @@ int ctt_ilans2_encode_w16s32(void* states, const void* syms, long long n,
                                P, cuda_stream, device);
 }
 
+// Both passes: words[T * L], flags[T * L / 32], offsets[kScanBlocks] (u64)
+// and records[K] (16 bytes each) are scratch the caller allocates.
 int ctt_ilans2_encode_w32s64(void* states, const void* syms, long long n,
                              const void* cdf, int K, void* buf, long long cap,
-                             void* end_out, int L, int P, void* cuda_stream,
-                             int device) {
-  return launch_encode<32, 64>(states, syms, n, cdf, K, buf, cap, end_out, L,
-                               P, cuda_stream, device);
+                             void* end_out, void* words, void* flags,
+                             void* offsets, void* records, int L, int P,
+                             void* cuda_stream, int device) {
+  const int err = launch_encode_lanes<32, 64>(states, syms, n, cdf, K, words,
+                                              flags, records, L, P,
+                                              cuda_stream, device);
+  if (err != 0 || n <= 0) return err;
+  const long long n_flags = (n + L - 1) / L * (L / 32);
+  return launch_compact(flags, words, n_flags, buf, cap, end_out, offsets,
+                        cuda_stream, device);
+}
+
+// Pass A alone (records[K] is scratch).
+int ctt_ilans2_encode_lanes_w32s64(void* states, const void* syms,
+                                   long long n, const void* cdf, int K,
+                                   void* words, void* flags, void* records,
+                                   int L, int P, void* cuda_stream,
+                                   int device) {
+  return launch_encode_lanes<32, 64>(states, syms, n, cdf, K, words, flags,
+                                     records, L, P, cuda_stream, device);
+}
+
+// Pass B alone (any preset: one word per u32).
+int ctt_ilans2_compact(const void* flags, const void* words, long long n_flags,
+                       void* buf, long long cap, void* end_out, void* offsets,
+                       void* cuda_stream, int device) {
+  return launch_compact(flags, words, n_flags, buf, cap, end_out, offsets,
+                        cuda_stream, device);
 }
 
 const char* ctt_error_string(int err) {

@@ -1,10 +1,12 @@
-// The ILANS2 decode and encode loops on Hopper (sm_90a), shared by the
-// coders whose model is a table lookup: ilans2.cu (one CDF for every
-// symbol) and exact_family.cu (the reference-exact families: per-symbol
-// (cum, prob) planes when encoding, packed per-symbol decode tables when
-// decoding).  The loops are templated on the preset (W, S) and on a model
-// policy; ilans2.cu's header comment says what bounds them and why one
-// block codes the whole message.
+// The single-block ILANS2 decode and encode loops on Hopper (sm_90a), shared
+// by the coders whose model is a table lookup: ilans2.cu's small preset
+// (W=16, S=32, one CDF for every symbol) and exact_family.cu (the
+// reference-exact families: per-symbol (cum, prob) planes when encoding,
+// packed per-symbol decode tables when decoding).  One block codes the
+// whole message; ilans2.cu's header comment says what bounds it.  The
+// loops are templated on the preset (W, S) and on a model policy, as are
+// ilans2_wide.cuh's cluster decode and two-pass encode, which run the
+// DEFAULT preset's categorical coder and take the same model policies.
 //
 // A decode model provides
 //   __device__ void stage(uint32_t* smem_cdf);   // before the first step

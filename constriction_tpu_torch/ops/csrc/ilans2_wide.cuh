@@ -1,0 +1,528 @@
+// The ILANS2 decode and encode loops spread over many SMs (sm_90a): a
+// decode that runs the lanes on a cluster of CTAs with each lane's state in
+// a register for the whole message, and an encode split into a lane-parallel
+// pass over the whole grid and a row-major compaction of the emitted words.
+// ilans2.cu instantiates them for the DEFAULT preset's categorical coder
+// (W=32, S=64, one CDF).  Like ilans2.cuh's single-block loops they are
+// templated on (W, S, Model), so the coders that still run those (the
+// W=16/S=32 pair, exact_family.cu's table and plane models) can move here
+// by instantiation once their models provide, besides stage():
+//   decode: template <int R> invert_lanes(t, l[R], q[R], sym[R], cum[R],
+//           prob[R]) -- the R quantiles of one thread at once;
+//   encode: Token fetch(i) and Interval interval(Token) -- the device-
+//           memory read of symbol i's model, issued a step before the
+//           (shared-memory) interval is needed; an Interval has cum,
+//           prob(), divide(x) (x / prob) and a static unit() (cum 0,
+//           prob 1).
+// ilans2.cu's BucketCdfModel (decode: a bucket table in front of the CDF
+// search) and RecordCdfModel (encode: DivisionRecord, the division as a
+// multiply-high) provide them.
+//
+// Decode (cluster_decode_kernel).  A decode step needs the exclusive count of
+// refilling lanes below each lane over all L lanes, and that count depends on
+// every lane's decoded state, so the steps stay serial and the design makes one
+// step cheap.  The 32-lane groups are split into C contiguous runs, one per CTA
+// of a cluster (C <= 16); in CTA `rank` warp w owns R consecutive groups (slot
+// r: group g_begin + w * R + r), and each thread keeps its R lane states in
+// registers from the first step to the last.  One step: decode the R lanes
+// (quantile, the model's symbol search in shared memory, state update, symbol
+// write); ballot each slot's refill flags; one block barrier and a warp
+// reduction of the per-warp counts give each warp its offset in the CTA; each
+// CTA writes its step total into slot [t & 1][rank] of every CTA of the cluster
+// through distributed shared memory; one cluster barrier (arrive.release /
+// wait.acquire); a warp reduction of the totals of lower ranks gives the CTA's
+// offset.  A refilling lane then reads stream word base + CTA offset + warp
+// offset + earlier slots' counts + popc(ballot & lanemask_lt) (the R loads
+// issued before any is used), and base advances by the cluster total.
+// Double-buffering the totals and warp counts by step parity makes one cluster
+// barrier a step enough: a buffer is written again two steps later, after every
+// CTA has passed the barrier that follows its last read.  Each step also
+// prefetches into L2 the stream words the next two steps can reach (2L words
+// from the next step's first word).
+//
+// Encode (encode_lanes_kernel, then compact_*_kernel).  A lane's renorm
+// decision and next state depend on its own state and symbol only; the lanes
+// meet only in where their words land in the stream.  Pass A: one thread per
+// lane over the grid runs its lane through steps T-1 .. 0 in registers (the
+// model's division: a multiply-high in place of a 64-bit division by software),
+// writes each emitted word to a dense scratch words[t * L + l] and one warp
+// ballot of renorm flags per (step, group) to flags[t * G + g]; no barrier
+// inside the step loop.  Pass B: an exclusive scan of popc(flags) in row-major
+// order (step ascending, group ascending: the decoder's consumption order) by
+// block sums (compact_count_kernel), one block scanning those sums
+// (compact_offsets_kernel) and a scan within each block that scatters the
+// flagged words (compact_scatter_kernel).  Word k of the stream lands at
+// buf[cap - total + k], so the stream is buf[*end_out : cap] as with the
+// single-block encoder.
+
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include <algorithm>
+
+#include "lanes.cuh"
+
+namespace {
+
+namespace cg = cooperative_groups;
+
+constexpr int kMaxCluster = 16;  // non-portable cluster size on the H100
+constexpr int kPortableCluster = 8;
+constexpr int kClusterWarps = 32;  // warps of one cluster CTA at most
+// the geometry picked from L gives each CTA up to this many groups (two
+// lanes a thread) until the cluster has kMaxCluster CTAs
+constexpr int kAutoGroupsPerCta = 64;
+constexpr int kLaneThreads = 128;  // threads of a pass-A block, one per lane
+constexpr int kScanThreads = 256;  // threads of a compaction block
+constexpr int kScanPer = 8;  // flag words a compaction thread scans a tile
+constexpr int kScanTile = kScanThreads * kScanPer;
+// compaction blocks at most; the wrapper sizes the offsets scratch by it
+// (constriction_tpu_torch/ops/coder64.py, SCAN_BLOCKS)
+constexpr int kScanBlocks = 1024;
+
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+__device__ __forceinline__ uint32_t warp_inclusive_scan(uint32_t v,
+                                                        int lane) {
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint32_t u = __shfl_up_sync(kFull, v, off);
+    if (lane >= off) v += u;
+  }
+  return v;
+}
+
+// A symbol's interval for the encode, with the division by its probability
+// as a multiply-high (Granlund and Montgomery, "Division by invariant
+// integers using multiplication", 1994, fig. 4.1): for 1 <= prob <= 2^24
+// and l = ceil(log2 prob), magic = floor(2^64 (2^l - prob) / prob) + 1 and
+//   x / prob = (t + ((x - t) >> min(l, 1))) >> max(l - 1, 0),
+//   t = mulhi64(magic, x),
+// for every 64-bit x (constriction_tpu_torch/ops/coder64.py holds the same
+// arithmetic exact against integer division, division_magic).
+struct __align__(16) DivisionRecord {
+  uint64_t magic;
+  uint32_t cum;
+  uint32_t prob_log;  // prob | l << 25
+
+  __device__ static DivisionRecord unit() { return {1, 0, 1}; }
+  __device__ uint32_t prob() const { return prob_log & ((1u << 25) - 1u); }
+  __device__ uint64_t divide(uint64_t x) const {
+    const int l = static_cast<int>(prob_log >> 25);
+    const uint64_t t = __umul64hi(magic, x);
+    return (t + ((x - t) >> (l > 0 ? 1 : 0))) >> (l > 0 ? l - 1 : 0);
+  }
+};
+
+// The division record of each of the K symbols of a CDF (prob 0 gives a
+// record that is never used: callers validate their symbols).
+__global__ void __launch_bounds__(128)
+    division_records_kernel(const uint32_t* __restrict__ cdf, int K,
+                            DivisionRecord* __restrict__ out) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= K) return;
+  const uint32_t cum = cdf[s], prob = cdf[s + 1] - cum;
+  const int l = prob > 1 ? 32 - __clz(prob - 1) : 0;
+  uint64_t rem = (uint64_t(1) << l) - prob, q = 0;  // rem < prob
+  for (int k = 0; k < 64 && prob > 0; ++k) {  // floor(rem 2^64 / prob)
+    rem <<= 1;
+    q <<= 1;
+    if (rem >= prob) {
+      rem -= prob;
+      q |= 1;
+    }
+  }
+  out[s] = DivisionRecord{q + 1, cum, prob | (static_cast<uint32_t>(l) << 25)};
+}
+
+// Decode n symbols on a cluster of CTAs.  states[L]: initial decoder states
+// in, final states out.  stream[slen]: W-bit words, one per u32; reads past
+// the end yield 0.  groups_per_cta: the run of 32-lane groups of one CTA
+// (the last CTAs may hold fewer or none).  With Seg, the first stream word
+// index comes from *base_io and the index after the last refill goes back
+// there (consecutive launches decode one continuous stream).
+template <int W, int S, int R, class Model, bool Seg>
+__global__ void __launch_bounds__(kClusterWarps * 32, 1)
+    cluster_decode_kernel(typename StateOf<S>::type* __restrict__ states,
+                          const uint32_t* __restrict__ stream, int64_t slen,
+                          Model model, int32_t* __restrict__ syms, int64_t n,
+                          int L, int P, int T, int groups_per_cta,
+                          int64_t* __restrict__ base_io) {
+  using State = typename StateOf<S>::type;
+  extern __shared__ __align__(16) uint32_t smem_model[];
+  __shared__ uint32_t warp_counts[2][kClusterWarps];
+  __shared__ uint32_t cta_totals[2][kMaxCluster];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int C = static_cast<int>(cluster.num_blocks());
+
+  constexpr State kLower = State(1) << (S - W);
+  constexpr uint32_t kWordMask = W == 32 ? kFull : ((1u << W) - 1u);
+  const uint32_t qmask = (1u << P) - 1u;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warps = blockDim.x >> 5;
+  const uint32_t lt_mask = (1u << lane) - 1u;
+  const int G = L / 32;
+  const int g_end = min(G, (rank + 1) * groups_per_cta);
+  const int g0 = rank * groups_per_cta + warp * R;  // slot 0's group
+
+  model.stage(smem_model);
+  State x[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    x[r] = g0 + r < g_end ? states[(g0 + r) * 32 + lane] : State(0);
+  }
+  int64_t base = Seg ? *base_io : 0;  // first stream word of this step
+  // the first two steps' words into L2
+  const int64_t cluster_tid = static_cast<int64_t>(rank) * blockDim.x + tid;
+  const int64_t reach_lines = (2 * static_cast<int64_t>(L) + 31) / 32 + 1;
+  {
+    const int64_t at = (base & ~int64_t(31)) + cluster_tid * 32;
+    if (cluster_tid < reach_lines && at < slen) prefetch_l2(stream + at);
+  }
+  // the staged CDF is visible, and every CTA of the cluster runs before
+  // the first remote write
+  cluster_barrier();
+
+  for (int t = 0; t < T; ++t) {
+    const int par = t & 1;
+    // decode the R lanes
+    int l[R], sym[R];
+    uint32_t q[R], cum[R], prob[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      l[r] = (g0 + r) * 32 + lane;
+      q[r] = static_cast<uint32_t>(x[r]) & qmask;
+    }
+    model.invert_lanes(t, l, q, sym, cum, prob);
+    uint32_t count = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (g0 + r < g_end) {  // warp-uniform
+        const int64_t i = static_cast<int64_t>(t) * L + l[r];
+        if (i < n) {
+          x[r] = (x[r] >> P) * prob[r] + (q[r] - cum[r]);
+          syms[i] = sym[r];
+        }
+        count += __popc(__ballot_sync(kFull, x[r] < kLower));
+      }
+    }
+    // the CTA's count and this warp's offset in it; then every CTA's
+    // count into every CTA of the cluster, and the offset of this CTA
+    if (lane == 0) warp_counts[par][warp] = count;
+    __syncthreads();
+    const uint32_t wc = lane < warps ? warp_counts[par][lane] : 0u;
+    const uint32_t warp_off = __reduce_add_sync(kFull, lane < warp ? wc : 0u);
+    const uint32_t cta_total = __reduce_add_sync(kFull, wc);
+    if (warp == 0 && lane < C) {
+      *cluster.map_shared_rank(&cta_totals[par][rank], lane) = cta_total;
+    }
+    cluster_barrier();
+    const uint32_t ct = lane < C ? cta_totals[par][lane] : 0u;
+    const uint32_t cta_off = __reduce_add_sync(kFull, lane < rank ? ct : 0u);
+    const uint32_t step_total = __reduce_add_sync(kFull, ct);
+
+    // refill: the step's flagged lanes take the next words in lane order;
+    // all R loads are issued before any is used
+    int64_t idx = base + cta_off + warp_off;
+    uint32_t word[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      word[r] = 0u;
+      if (g0 + r < g_end) {
+        const bool refill = x[r] < kLower;
+        const unsigned bal = __ballot_sync(kFull, refill);
+        const int64_t at = idx + __popc(bal & lt_mask);
+        if (refill && at < slen) word[r] = stream[at];
+        idx += __popc(bal);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (g0 + r < g_end && x[r] < kLower) {
+        x[r] = (x[r] << W) | static_cast<State>(word[r] & kWordMask);
+      }
+    }
+    base += step_total;
+    const int64_t at = (base & ~int64_t(31)) + cluster_tid * 32;
+    if (cluster_tid < reach_lines && at < slen) prefetch_l2(stream + at);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (g0 + r < g_end) states[(g0 + r) * 32 + lane] = x[r];
+  }
+  if (Seg && rank == 0 && tid == 0) *base_io = base;
+}
+
+// Pass A of the encode: lane l = blockIdx.x * blockDim.x + threadIdx.x runs
+// steps T-1 .. 0.  states[L]: start states in, final states out.  At step t
+// a renorming lane writes its word to words[t * L + l]; flags[t * G + g] is
+// the ballot of group g's renorming lanes (other words are left as they
+// are).  Lanes of a partial last step (t * L + l >= n) neither code nor
+// flag.  The model's interval of step t - 1 is read while step t codes.
+template <int W, int S, class Model>
+__global__ void __launch_bounds__(kLaneThreads)
+    encode_lanes_kernel(typename StateOf<S>::type* __restrict__ states,
+                        Model model, int64_t n, uint32_t* __restrict__ words,
+                        uint32_t* __restrict__ flags, int L, int P, int T) {
+  using State = typename StateOf<S>::type;
+  extern __shared__ __align__(16) uint32_t smem_model[];
+  model.stage(smem_model);
+  __syncthreads();
+  constexpr State kWordMask = W == 32 ? State(kFull) : State((1u << W) - 1u);
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if ((l & ~31) >= L) return;  // warp-uniform: L % 32 == 0
+  const int lane = threadIdx.x & 31, g = l >> 5, G = L >> 5;
+  using Interval = typename Model::Interval;
+  State x = states[l];
+  int64_t i = static_cast<int64_t>(T - 1) * L + l;
+  bool active = i < n;  // only the last step can be partial
+  Interval cur = active ? model.interval(model.fetch(i)) : Interval::unit();
+  // step t - 1's token, read a step before its interval is needed
+  typename Model::Token next = T > 1 ? model.fetch(i - L)
+                                     : typename Model::Token{};
+  for (int t = T - 1; t >= 0; --t) {
+    const typename Model::Token after =
+        t > 1 ? model.fetch(i - 2 * static_cast<int64_t>(L))
+              : typename Model::Token{};
+    const Interval following = t > 0 ? model.interval(next) : Interval::unit();
+    const uint32_t prob = cur.prob();
+    const bool renorm = active && (x >> (S - P)) >= prob;
+    if (renorm) {
+      words[i] = static_cast<uint32_t>(x & kWordMask);
+      x >>= W;
+    }
+    const unsigned bal = __ballot_sync(kFull, renorm);
+    if (lane == 0) flags[static_cast<int64_t>(t) * G + g] = bal;
+    if (active) {  // (x / prob) << P | (cum + x % prob)
+      const State q = cur.divide(x);
+      x = (q << P) | static_cast<State>(cur.cum + (x - q * prob));
+    }
+    cur = following;
+    next = after;
+    active = true;
+    i -= L;
+  }
+  states[l] = x;
+}
+
+// Flag words a compaction block scans: whole tiles, so that at most
+// kScanBlocks blocks cover n_flags.
+__host__ __device__ inline int64_t scan_chunk(int64_t n_flags) {
+  const int64_t per = (n_flags + kScanBlocks - 1) / kScanBlocks;
+  return (per + kScanTile - 1) / kScanTile * kScanTile;
+}
+
+// Pass B, 1 of 3: the renorm count of each block's chunk of flags.
+__global__ void __launch_bounds__(kScanThreads)
+    compact_count_kernel(const uint32_t* __restrict__ flags, int64_t n_flags,
+                         int64_t chunk, uint64_t* __restrict__ offsets) {
+  __shared__ uint32_t warp_sums[kScanThreads / 32];
+  const int64_t begin = blockIdx.x * chunk;
+  const int64_t end = begin + chunk < n_flags ? begin + chunk : n_flags;
+  uint32_t s = 0;
+  for (int64_t k = begin + threadIdx.x; k < end; k += kScanThreads) {
+    s += __popc(flags[k]);
+  }
+  s = __reduce_add_sync(kFull, s);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    uint64_t total = 0;
+    for (int w = 0; w < kScanThreads / 32; ++w) total += warp_sums[w];
+    offsets[blockIdx.x] = total;
+  }
+}
+
+// Pass B, 2 of 3: one block of 1024 threads turns the blocks' counts into
+// exclusive offsets in place and writes the stream's start cap - total.
+__global__ void __launch_bounds__(1024)
+    compact_offsets_kernel(uint64_t* __restrict__ offsets, int blocks,
+                           int64_t cap, int64_t* __restrict__ end_out) {
+  __shared__ uint64_t warp_sums[32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint64_t v = tid < blocks ? offsets[tid] : 0;
+  uint64_t incl = v;
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint64_t u = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl += u;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  const uint64_t ws = warp_sums[lane];
+  uint64_t w_incl = ws;
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint64_t u = __shfl_up_sync(kFull, w_incl, off);
+    if (lane >= off) w_incl += u;
+  }
+  const uint64_t warp_base = __shfl_sync(kFull, w_incl - ws, warp);
+  if (tid < blocks) offsets[tid] = warp_base + incl - v;
+  if (tid == 1023) *end_out = cap - static_cast<int64_t>(warp_base + incl);
+}
+
+// Pass B, 3 of 3: each block scans its chunk tile by tile and scatters the
+// flagged words: flag word k (step t = k / G, group g = k % G) covers
+// words[k * 32 .. k * 32 + 31], and its lane j's word, when flagged, lands
+// at buf[start + offset(k) + popc(flags[k] & lanemask_lt(j))].
+__global__ void __launch_bounds__(kScanThreads)
+    compact_scatter_kernel(const uint32_t* __restrict__ flags,
+                           const uint32_t* __restrict__ words, int64_t n_flags,
+                           int64_t chunk, const uint64_t* __restrict__ offsets,
+                           const int64_t* __restrict__ end_io,
+                           uint32_t* __restrict__ buf) {
+  __shared__ uint32_t tile_flags[kScanTile];
+  __shared__ uint32_t tile_offsets[kScanTile];
+  __shared__ uint32_t warp_sums[kScanThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint32_t lt_mask = (1u << lane) - 1u;
+  const int64_t begin = blockIdx.x * chunk;
+  const int64_t end = begin + chunk < n_flags ? begin + chunk : n_flags;
+  int64_t run = *end_io + static_cast<int64_t>(offsets[blockIdx.x]);
+  for (int64_t tile = begin; tile < end; tile += kScanTile) {
+    uint32_t f[kScanPer];
+    uint32_t local = 0;
+#pragma unroll
+    for (int u = 0; u < kScanPer; ++u) {
+      const int64_t k = tile + tid * kScanPer + u;
+      f[u] = k < end ? flags[k] : 0u;
+      local += __popc(f[u]);
+    }
+    const uint32_t incl = warp_inclusive_scan(local, lane);
+    if (lane == 31) warp_sums[warp] = incl;
+    __syncthreads();
+    const uint32_t ws = lane < kScanThreads / 32 ? warp_sums[lane] : 0u;
+    const uint32_t w_incl = warp_inclusive_scan(ws, lane);
+    uint32_t o = __shfl_sync(kFull, w_incl - ws, warp) + incl - local;
+    const uint32_t tile_total = __shfl_sync(kFull, w_incl, 31);
+#pragma unroll
+    for (int u = 0; u < kScanPer; ++u) {
+      tile_flags[tid * kScanPer + u] = f[u];
+      tile_offsets[tid * kScanPer + u] = o;
+      o += __popc(f[u]);
+    }
+    __syncthreads();
+    const int span =
+        end - tile < kScanTile ? static_cast<int>(end - tile) : kScanTile;
+#pragma unroll 4
+    for (int j = warp; j < span; j += kScanThreads / 32) {
+      const uint32_t fl = tile_flags[j];
+      if ((fl >> lane) & 1u) {
+        buf[run + tile_offsets[j] + __popc(fl & lt_mask)] =
+            words[(tile + j) * 32 + lane];
+      }
+    }
+    run += tile_total;
+    __syncthreads();  // before the next tile overwrites the buffers
+  }
+}
+
+// Launch geometry of cluster_decode_kernel: C CTAs of `threads` threads,
+// each thread holding `rows` lanes (R, a power of two up to 32) of a CTA's
+// run of groups.
+struct ClusterGeometry {
+  int cluster;
+  int groups_per_cta;
+  int rows;
+  int threads;
+  int max_active_clusters;  // the card's answer for this geometry
+};
+
+inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+inline int pow2_at_least(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return p;
+}
+
+inline ClusterGeometry cluster_shape(int L, int cluster) {
+  ClusterGeometry geo{};
+  geo.cluster = cluster;
+  geo.groups_per_cta = ceil_div(L / 32, cluster);
+  geo.rows = pow2_at_least(ceil_div(geo.groups_per_cta, kClusterWarps));
+  geo.threads = ceil_div(geo.groups_per_cta, geo.rows) * 32;
+  return geo;
+}
+
+// The cluster size picked from L: CTAs of up to kAutoGroupsPerCta groups,
+// a power of two up to kMaxCluster.
+inline int auto_cluster(int L) {
+  return std::min(kMaxCluster,
+                  pow2_at_least(ceil_div(L / 32, kAutoGroupsPerCta)));
+}
+
+template <int W, int S, class Model, bool Seg>
+using ClusterDecodeFn = void (*)(typename StateOf<S>::type*, const uint32_t*,
+                                 int64_t, Model, int32_t*, int64_t, int, int,
+                                 int, int, int64_t*);
+
+template <int W, int S, class Model, bool Seg>
+ClusterDecodeFn<W, S, Model, Seg> cluster_decode_for(int rows) {
+  switch (rows) {
+    case 1: return cluster_decode_kernel<W, S, 1, Model, Seg>;
+    case 2: return cluster_decode_kernel<W, S, 2, Model, Seg>;
+    case 4: return cluster_decode_kernel<W, S, 4, Model, Seg>;
+    case 8: return cluster_decode_kernel<W, S, 8, Model, Seg>;
+    case 16: return cluster_decode_kernel<W, S, 16, Model, Seg>;
+    case 32: return cluster_decode_kernel<W, S, 32, Model, Seg>;
+    default: return nullptr;
+  }
+}
+
+inline cudaLaunchConfig_t cluster_config(const ClusterGeometry& geo,
+                                         size_t smem, cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(geo.cluster, 1, 1);
+  cfg.blockDim = dim3(geo.threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = geo.cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Picks the decode's geometry and kernel for L lanes and prepares the
+// kernel: `cluster` CTAs when it is given (> 0), else auto_cluster(L),
+// halved while the card reports that it cannot co-schedule such a cluster.
+// A geometry the card cannot run, or one past 32 lanes a thread (L above
+// 16 * 32 * 32 * 32), returns an error.
+template <int W, int S, class Model, bool Seg>
+cudaError_t plan_cluster_decode(int L, int cluster, size_t smem, int device,
+                                ClusterGeometry* geo,
+                                ClusterDecodeFn<W, S, Model, Seg>* kernel) {
+  if (cluster > kMaxCluster || L <= 0 || L % 32) return cudaErrorInvalidValue;
+  int C = cluster > 0 ? cluster : auto_cluster(L);
+  for (;;) {
+    *geo = cluster_shape(L, C);
+    *kernel = cluster_decode_for<W, S, Model, Seg>(geo->rows);
+    if (*kernel == nullptr) return cudaErrorInvalidValue;
+    cudaError_t err = prepare(*kernel, device, smem);
+    if (err == cudaSuccess && C > kPortableCluster) {
+      err = cudaFuncSetAttribute(
+          *kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    }
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(*geo, smem, nullptr, &attr);
+    err = cudaOccupancyMaxActiveClusters(&geo->max_active_clusters, *kernel,
+                                         &cfg);
+    if (err != cudaSuccess) return err;
+    if (geo->max_active_clusters > 0) return cudaSuccess;
+    if (cluster > 0 || C == 1) return cudaErrorInvalidConfiguration;
+    C /= 2;
+  }
+}
+
+}  // namespace

@@ -183,6 +183,151 @@ def test_wrapper_rejects_mixed_devices(dev):
         coder64.encode_iid64(syms, convert.cdf_to_torch(cdf), cfg)
 
 
+# --- the DEFAULT preset's redesigned pair: the cluster decode (kernel 1) and
+# the two-pass encode (kernel 2), csrc/ilans2_wide.cuh ----------------------
+
+
+def _wide_model(kind, rng):
+    """(cdf u32, symbol sampler): K=100 Dirichlet(2) at P=24, two symbols
+    at P=1, or one symbol (K=1) at P=24."""
+    if kind == "p1":
+        return np.array([0, 1, 2], np.uint32), lambda n: rng.randint(0, 2, n)
+    if kind == "k1":
+        return np.array([0, 1 << 24], np.uint32), lambda n: np.zeros(
+            n, np.int64)
+    cdf, probs = _cdf(100, 24, seed=9)
+    return cdf, lambda n: rng.choice(100, size=n, p=probs)
+
+
+def _wide_encode(syms, cdf, cfg, seeds):
+    """Kernel 2 at any L that is a multiple of 32 (the wrapper takes
+    multiples of 128)."""
+    states = coder._encode_args(syms, cdf, cfg, seeds, torch.int64)
+    return coder64._launch_encode64(syms, cdf, cfg, states)
+
+
+def _wide_pair(L, n, kind, seeded, dev, seed):
+    """Kernels 1 and 2 against their twins and the JAX package's host
+    oracle; returns (cfg, cdf, states, stream)."""
+    rng = np.random.RandomState(seed)
+    cdf_np, sample = _wide_model(kind, rng)
+    P = int(cdf_np[-1]).bit_length() - 1
+    cfg = _cfg(64, L, P)
+    syms = torch.from_numpy(sample(n).astype(np.int32)).to(dev)
+    cdf = convert.cdf_to_torch(cdf_np, dev)
+    seeds = _seeds(rng, cfg, dev) if seeded else None
+    st, w = _wide_encode(syms, cdf, cfg, seeds)
+    st_p, w_p = coder64.encode_iid64_plain(syms, cdf, cfg, seeds)
+    assert torch.equal(st, st_p) and torch.equal(w, w_p)
+    out, fin = coder._launch_decode("w32s64", st, w, cdf, cfg, n)
+    out_p, fin_p = coder64.decode_shared64_plain(st, w, cdf, cfg, n,
+                                                 return_final_states=True)
+    assert torch.equal(out, out_p) and torch.equal(fin, fin_p)
+    assert torch.equal(out, syms)
+    _check_oracle(cfg, syms, cdf, seeds, st, w, out, fin)
+    return cfg, cdf, st, w
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("size", ["one", "short", "steps"])
+@pytest.mark.parametrize("L", [32, 96, 128, 1024, 4096, 32768, 65536])
+def test_wide_kernels_match_twins_and_oracle(dev, L, size, seeded):
+    n = {"one": 1, "short": L // 2 + 1, "steps": 3 * L + L // 3 + 5}[size]
+    _wide_pair(L, n, "p24", seeded, dev, seed=L + n)
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("kind", ["p1", "k1"])
+def test_wide_kernels_at_p1_and_one_symbol(dev, kind, seeded):
+    _wide_pair(1024, 5 * 1024 - 77, kind, seeded, dev, seed=31)
+
+
+def test_wide_decode_runs_as_a_cluster_at_bench_lanes(dev):
+    for L in (32768, 65536):
+        geo = coder64.geometry(L, 100, dev)
+        assert geo["cluster"] > 1 and geo["max_active_clusters"] >= 1
+        assert geo["lanes_per_thread"] * geo["threads_per_cta"] // 32 \
+            >= geo["groups_per_cta"]
+        assert geo["encode_blocks"] * geo["encode_threads"] >= L
+
+
+@pytest.mark.parametrize("L,cluster", [
+    (128, 16), (96, 4), (2080, 16), (32000, 16), (4096, 2), (32768, 1),
+    (32768, 8), (65536, 16)])
+def test_cluster_partitions_match_twin(dev, L, cluster):
+    """Forced cluster sizes: groups that do not divide evenly over the
+    CTAs, CTAs left with no lanes (128/16, 96/4, 2080/16), one CTA holding
+    32 lanes a thread (32768/1)."""
+    geo = coder64.geometry(L, 100, dev, cluster=cluster)
+    assert geo["cluster"] == cluster
+    busy = -(-(L // 32) // geo["groups_per_cta"])
+    if (L, cluster) in ((128, 16), (96, 4), (2080, 16)):
+        assert busy < cluster
+    for n in (1, L - 5, 2 * L + 7):
+        cfg, cdf, st, w = _wide_pair(L, n, "p24", True, dev, seed=L + n)
+        out, fin = coder64.decode_shared64_cluster(st, w, cdf, cfg, n,
+                                                   cluster)
+        out_p, fin_p = coder64.decode_shared64_plain(
+            st, w, cdf, cfg, n, return_final_states=True)
+        assert torch.equal(out, out_p) and torch.equal(fin, fin_p)
+
+
+@pytest.mark.parametrize("L", [4096, 32768])
+def test_wide_decode_truncated_stream_zero_fills(dev, L):
+    n = 3 * L + 11
+    cfg, cdf, st, w = _wide_pair(L, n, "p24", True, dev, seed=L)
+    cut = w[: w.numel() // 3].clone()
+    out, fin = coder64.decode_shared64(st, cut, cdf, cfg, n,
+                                       return_final_states=True)
+    out_p, fin_p = coder64.decode_shared64_plain(st, cut, cdf, cfg, n,
+                                                 return_final_states=True)
+    assert torch.equal(out, out_p) and torch.equal(fin, fin_p)
+    out_h, fin_h = il2.decode_shared_cdf(
+        convert.states_from_torch(st, cfg), convert.u32_from_torch(cut), n,
+        cdf.cpu().numpy(), cfg, return_final_states=True)
+    np.testing.assert_array_equal(out.cpu().numpy(), out_h)
+    np.testing.assert_array_equal(convert.states_from_torch(fin, cfg), fin_h)
+
+
+@pytest.mark.parametrize("L,T,seeded", [(96, 50, True), (4096, 20, True),
+                                        (32768, 6, False)])
+def test_encode_passes_match_plain_passes(dev, L, T, seeded):
+    """Pass A's final states, ballots and the words it flags, and pass B's
+    stream, each against the plain pass on the same inputs."""
+    rng = np.random.RandomState(L + T)
+    cdf_np, sample = _wide_model("p24", rng)
+    cfg = _cfg(64, L, 24)
+    n = T * L - L // 3
+    syms = torch.from_numpy(sample(n).astype(np.int32)).to(dev)
+    cdf = convert.cdf_to_torch(cdf_np, dev)
+    seeds = _seeds(rng, cfg, dev) if seeded else None
+    before = dict(coder64.LAUNCHES)
+    words, ballots, st = coder64.lanes_pass64(syms, cdf, cfg, seeds)
+    w_p, f_p, st_p = coder64.lanes_pass64_plain(syms, cdf, cfg, seeds)
+    assert torch.equal(st, st_p)
+    assert torch.equal(ballots, coder64.flag_ballots(f_p))
+    assert torch.equal(words[f_p], w_p[f_p])
+    stream_p = coder64.compact_pass_plain(w_p, f_p)
+    assert torch.equal(coder64.compact_pass(words, ballots), stream_p)
+    assert torch.equal(coder64.compact_pass(w_p, ballots), stream_p)
+    assert torch.equal(stream_p, coder64.encode_iid64_plain(
+        syms, cdf, cfg, seeds)[1])
+    assert coder64.LAUNCHES["encode_lanes"] == before["encode_lanes"] + 1
+    assert coder64.LAUNCHES["compact"] == before["compact"] + 2
+
+
+def test_compaction_spans_many_tiles_a_block(dev):
+    """2.25M ballots: each compaction block scans two tiles."""
+    T, L = 1100, 65536
+    rng = np.random.RandomState(21)
+    flags = torch.from_numpy(rng.random_sample((T, L)) < 0.2).to(dev)
+    words = torch.from_numpy(
+        rng.randint(-(1 << 31), 1 << 31, size=(T, L), dtype=np.int64)
+        .astype(np.int32)).to(dev)
+    out = coder64.compact_pass(words, coder64.flag_ballots(flags))
+    assert torch.equal(out, coder64.compact_pass_plain(words, flags))
+
+
 # --- the range coder (ILANS2-R): phase A, phase B and decode kernels -------
 
 RANGE = {64: coder64.decode_shared_range64, 32: coder.decode_shared_range}
