@@ -11,12 +11,15 @@ prints one JSON object per phase, then the kernels line, the card's
 
 1. build         -- nvcc build time (one nvcc per source, in parallel),
                     ptxas register/shared-memory report.
-   geometry      -- the launch geometry of the DEFAULT preset's rANS pair
-                    (kernels 1 and 2) at L=32768 and 65536: the decode's
-                    cluster size, CTAs, threads, lanes per thread and the
+   geometry      -- the launch geometry of the rANS pairs at both
+                    presets (kernels 1 and 2 at P=24; kernels 3 and 4 at
+                    P=12 and P=16) at L=32768 and 65536: the decode's
+                    cluster size, CTAs, threads, lanes per thread, the
                     card's maximum of such active clusters (more than one
-                    CTA, or the run fails), the encode's pass-A grid, and
-                    ptxas' registers and spills for their kernels.
+                    CTA, or the run fails), its bucket table's lut_bits and
+                    whether the CDF is in shared memory, the encode's
+                    pass-A grid, and ptxas' registers and spills for their
+                    kernels at each preset.
 2. kernels       -- each rANS kernel against its plain PyTorch twin on the
                     same CUDA tensors and against the numpy host oracle
                     (L=32768, about 2^20 symbols, with and without seeds):
@@ -33,7 +36,8 @@ prints one JSON object per phase, then the kernels line, the card's
                     whose streams, states and symbols must equal the
                     kernels'; kernel times at bench.py's explicit configs
                     (L=65536, P=24 and P=12); the DEFAULT preset's pair
-                    also at P=12 (L=32768 and 65536), and its encode's
+                    also at P=12 (L=32768 and 65536), the small preset's
+                    also at P=16 (L=32768 and 65536), and each encode's
                     pass A and pass B timed apart.
 5. sweep         -- kernel time per coding step at T=256 steps over
                     L=128 .. 65536, both presets: the per-step floor (at
@@ -214,8 +218,8 @@ BENCH_LANES = 1 << 16
 N_SKEWED = 1 << 19  # the carry-run model: 4096 steps on 128 lanes
 SKEWED_LANES = 128
 
-RANS_SOURCE = "constriction_tpu_torch/ops/csrc/ilans2.cu"
-# the DEFAULT preset's pair: the cluster decode and the two-pass encode
+# the rANS pairs at both presets: the cluster decode and the two-pass
+# encode, instantiated in csrc/ilans2.cu
 WIDE_SOURCE = "constriction_tpu_torch/ops/csrc/ilans2_wide.cuh"
 RANGE_SOURCE = "constriction_tpu_torch/ops/csrc/ilans2_range.cu"
 # kernel -> (module whose LAUNCHES counts it, counter key, Pallas site,
@@ -229,10 +233,10 @@ KERNELS = {
                              WIDE_SOURCE),
     "ilans2_decode_w16s32": ("coder", "decode",
                              "constriction_tpu/ops/pallas_coder.py:1638",
-                             RANS_SOURCE),
+                             WIDE_SOURCE),
     "ilans2_encode_w16s32": ("coder", "encode",
                              "constriction_tpu/ops/pallas_coder.py:1352",
-                             RANS_SOURCE),
+                             WIDE_SOURCE),
 }
 RANGE_KERNELS = {
     "ilans2_range_decode_w32s64": (
@@ -478,23 +482,30 @@ def ptxas_usage(log: str, marks: tuple) -> dict:
 
 
 def phase_geometry(device) -> dict:
-    """Launch geometry of kernels 1 and 2 (the DEFAULT preset's cluster
-    decode and two-pass encode) at bench.py's lane counts for its K, and
-    what ptxas reported for their kernels."""
-    from constriction_tpu_torch.ops import _build, coder64
+    """Launch geometry of the rANS pairs (the cluster decode and two-pass
+    encode: kernels 1 and 2 at P=24, kernels 3 and 4 at P=12 and P=16) at
+    bench.py's lane counts for its K, and what ptxas reported for their
+    kernels at each preset."""
+    from constriction_tpu_torch.ops import _build, coder, coder64
 
-    rows = [{"num_lanes": L, "K": K_MAIN,
+    rows = [{"preset": "w32s64", "num_lanes": L, "K": K_MAIN, "P": 24,
              **coder64.geometry(L, K_MAIN, device)}
             for L in (32768, BENCH_LANES)]
+    rows += [{"preset": "w16s32", "num_lanes": L, "K": K_MAIN, "P": P,
+              **coder.geometry(L, K_MAIN, P, device)}
+             for L in (32768, BENCH_LANES) for P in (12, 16)]
     for row in rows:
         row["encode_grid"] = (f"{row['encode_blocks']} x "
                               f"{row['encode_threads']}")
         if row["cluster"] < 2:
-            fail(f"geometry: kernel 1 runs on one CTA at L={row['num_lanes']}")
+            fail(f"geometry: the {row['preset']} decode runs on one CTA at "
+                 f"L={row['num_lanes']}")
     log = (_build.build_info or {}).get("log", "")
     return {"phase": "geometry", "cases": rows,
             "ptxas": ptxas_usage(log, ("cluster_decode_kernelILi32ELi64E",
                                        "encode_lanes_kernelILi32ELi64E",
+                                       "cluster_decode_kernelILi16ELi32E",
+                                       "encode_lanes_kernelILi16ELi32E",
                                        "division_records", "compact_"))}
 
 
@@ -624,18 +635,21 @@ def phase_main(device, probs, symbols, keep: dict) -> dict:
 
 
 def time_passes(row: dict, syms, cdf, cfg, stream) -> None:
-    """Kernel 2's two passes timed apart (CUDA events): pass A (the
+    """An encode's two passes timed apart (CUDA events): pass A (the
     lane-parallel coding) and pass B (the row-major compaction of its
-    words, whose stream must equal the two-pass call's)."""
-    from constriction_tpu_torch.ops import coder64
+    words, whose stream must equal the two-pass call's), and pass A's
+    scratch (the dense words and the ballots) in bytes."""
+    from constriction_tpu_torch.ops import coder, coder64
 
-    words, ballots, _ = coder64.lanes_pass64(syms, cdf, cfg)
-    if mismatch(coder64.compact_pass(words, ballots), stream) != 0:
+    lanes = (coder64.lanes_pass64 if cfg.state_bits == 64
+             else coder.lanes_pass32)
+    words, ballots, _ = lanes(syms, cdf, cfg)
+    if mismatch(coder.compact_pass(words, ballots), stream) != 0:
         fail(f"times: pass B's stream != the encode's at {cfg}")
-    row["encode_pass_a_ms"] = time_ms(
-        lambda: coder64.lanes_pass64(syms, cdf, cfg), 3)
+    row["encode_pass_a_ms"] = time_ms(lambda: lanes(syms, cdf, cfg), 3)
     row["encode_pass_b_ms"] = time_ms(
-        lambda: coder64.compact_pass(words, ballots), 3)
+        lambda: coder.compact_pass(words, ballots), 3)
+    row["encode_scratch_bytes"] = 4 * (words.numel() + ballots.numel())
 
 
 def phase_times(device, probs, symbols, gpu: str,
@@ -643,9 +657,10 @@ def phase_times(device, probs, symbols, gpu: str,
     """Kernel-only times at the main path's size, and the twins on the card
     at the facade's config and the same size: the twins' streams, states
     and symbols must equal the kernels' (their largest difference goes into
-    ``errs``); the DEFAULT preset's pair also at P=12 (L=32768, against its
-    twins) and its encode's two passes apart.  Returns the phase record and
-    {kernel: (ms, plain_ms, bound_ms, bound_by)}."""
+    ``errs``); the DEFAULT preset's pair also at P=12 and the small
+    preset's at P=16 (L=32768 against their twins, and L=65536), and each
+    encode's two passes apart.  Returns the phase record and {kernel: (ms,
+    plain_ms, bound_ms, bound_by)}."""
     import numpy as np
     import torch
 
@@ -659,15 +674,15 @@ def phase_times(device, probs, symbols, gpu: str,
     times = {}
     for label, W, S, P_main, enc, dec, enc_p, dec_p in presets():
         cases = []
-        for P in ((P_main, 12) if S == 64 else (P_main,)):
+        for P in (P_main, 12 if S == 64 else 16):
             cdf_np = model_cdf(probs, P)
             p = (cdf_np[symbols + 1].astype(np.float64) - cdf_np[symbols]) \
                 / cdf_np[-1]
             facade = ctt._pick_cfg(n, None, cdf_np,
                                    est_bits=float((-np.log2(p)).sum()))
-            if P != P_main:  # P=12 takes the small preset in the facade
-                facade = LaneConfig(num_lanes=facade.num_lanes, word_bits=W,
-                                    state_bits=S, precision=P)
+            # the facade's lanes at this preset (P=12 takes the small one)
+            facade = LaneConfig(num_lanes=facade.num_lanes, word_bits=W,
+                                state_bits=S, precision=P)
             bench = LaneConfig(num_lanes=BENCH_LANES, word_bits=W,
                                state_bits=S, precision=P)
             cases += [(cdf_np, facade, True, P == P_main),
@@ -685,8 +700,7 @@ def phase_times(device, probs, symbols, gpu: str,
                 "encode_ms": time_ms(lambda: enc(syms, cdf, cfg), 3),
                 "decode_ms": time_ms(lambda: dec(st, w, cdf, cfg, n), 3),
             }
-            if S == 64:
-                time_passes(row, syms, cdf, cfg, w)
+            time_passes(row, syms, cdf, cfg, w)
             if plain:
                 st_p, w_p = enc_p(syms, cdf, cfg)
                 out_p, fin_p = dec_p(st, w, cdf, cfg, n,

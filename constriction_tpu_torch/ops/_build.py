@@ -42,7 +42,6 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _DECODE_ARGS = [_P, _P, _I64, _P, _I32, _P, _I64, _I32, _I32, _P, _I32]
-_ENCODE_ARGS = [_P, _P, _I64, _P, _I32, _P, _I64, _P, _I32, _I32, _P, _I32]
 # the two-pass encoder: its scratch (words, flags, offsets, records) after
 # end_out
 _ENCODE_WIDE_ARGS = [_P, _P, _I64, _P, _I32, _P, _I64, _P, _P, _P, _P, _P,
@@ -52,7 +51,7 @@ _ENCODE_LANES_ARGS = [_P, _P, _I64, _P, _I32, _P, _P, _P, _I32, _I32, _P,
 _COMPACT_ARGS = [_P, _P, _I64, _P, _I64, _P, _P, _P, _I32]
 _DECODE_CLUSTER_ARGS = [_P, _P, _I64, _P, _I32, _P, _I64, _I32, _I32, _I32,
                         _P, _I32]
-_GEOMETRY_ARGS = [_I32, _I32, _I32, _P, _P, _I32]
+_GEOMETRY_ARGS = [_I32, _I32, _I32, _I32, _P, _P, _I32]
 _RANGE_RECORD_ARGS = [_P, _I64, _P, _I32, _P, _P, _P, _I32, _I32, _P, _I32]
 _RANGE_RESOLVE_ARGS = [_P, _P, _P, _P, _P, _I64, _P, _P, _I32, _I32, _P,
                        _I32]
@@ -80,10 +79,13 @@ _EXACT_EVAL_ARGS = [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _D, _D,
 SIGNATURES = {
     "ctt_ilans2_decode_w16s32": _DECODE_ARGS,
     "ctt_ilans2_decode_w32s64": _DECODE_ARGS,
+    "ctt_ilans2_decode_cluster_w16s32": _DECODE_CLUSTER_ARGS,
     "ctt_ilans2_decode_cluster_w32s64": _DECODE_CLUSTER_ARGS,
+    "ctt_ilans2_geometry_w16s32": _GEOMETRY_ARGS,
     "ctt_ilans2_geometry_w32s64": _GEOMETRY_ARGS,
-    "ctt_ilans2_encode_w16s32": _ENCODE_ARGS,
+    "ctt_ilans2_encode_w16s32": _ENCODE_WIDE_ARGS,
     "ctt_ilans2_encode_w32s64": _ENCODE_WIDE_ARGS,
+    "ctt_ilans2_encode_lanes_w16s32": _ENCODE_LANES_ARGS,
     "ctt_ilans2_encode_lanes_w32s64": _ENCODE_LANES_ARGS,
     "ctt_ilans2_compact": _COMPACT_ARGS,
     "ctt_ilans2_range_record_w16s32": _RANGE_RECORD_ARGS,

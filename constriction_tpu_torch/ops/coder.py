@@ -9,24 +9,37 @@ device raises.  The twins
 run the same step loop as the kernels with int64 tensors, and are also what
 the kernels are held against on the card.
 
+The rANS pair runs ``csrc/ilans2_wide.cuh``'s design at both presets: the
+decode on a cluster of CTAs with the lane states in registers
+(:func:`geometry` says which cluster the card runs for L lanes), the encode
+as a lane-parallel pass and a row-major compaction.
+:func:`lanes_pass32_plain` and :func:`compact_pass_plain` are those two
+passes in plain PyTorch; the kernels' index math mirrors them, and their
+composition is :func:`encode_iid_plain`'s stream.
+
 The Pallas kernel's in-kernel helpers become, in GPU form:
 
 - ``_refill_words`` / ``_ranks_flat`` / ``_expand_monotone_2d`` -> an
   exclusive scan of the refill mask plus an indexed read of the stream
-  (:func:`_refill_words` here; a warp ballot plus a block scan in the kernel);
+  (:func:`_refill_words` here; a warp ballot plus a cluster-wide count in
+  the kernel);
 - ``_emit_words`` / ``_compact_monotone_2d`` -> an exclusive scan of the
   renorm mask plus an indexed write below the end pointer
-  (:func:`_emit_words`);
+  (:func:`_emit_words`; the encode kernel's pass B);
 - ``_compare_sum_auto`` -> a binary search over the CDF with
-  ``searchsorted(side="right") - 1`` semantics;
-- ``_cum_prob_from_sym`` -> two CDF reads; ``_exact_div`` -> integer division.
+  ``searchsorted(side="right") - 1`` semantics (a bucket table in front of
+  it in the kernel);
+- ``_cum_prob_from_sym`` -> two CDF reads; ``_exact_div`` -> integer
+  division (a multiply-high by a per-symbol reciprocal in the kernel,
+  :func:`division_magic32`).
 
 Tensor layout (constriction_tpu_torch/convert.py): lane states, range
 planes and stream words are int32 tensors holding u32 bits; CDFs are
 int64; symbols int32.
 
-The helpers below (argument checks, the scans, the launch glue) are shared
-with the S=64 preset in :mod:`constriction_tpu_torch.ops.coder64`.
+The helpers below (argument checks, the scans, the launch glue, the
+encode's pass B) are shared with the S=64 preset in
+:mod:`constriction_tpu_torch.ops.coder64`.
 """
 
 from __future__ import annotations
@@ -37,8 +50,18 @@ from .. import convert
 from . import _build
 from .interleaved import LaneConfig
 
-# kernel launches made by this module's wrappers (never by the twins)
-LAUNCHES = {"encode": 0, "decode": 0, "range_decode": 0}
+# kernel launches made by this module's wrappers (never by the twins); the
+# encode's two passes launched alone (lanes_pass32, and compact_pass at
+# either preset) count under their own keys
+LAUNCHES = {"encode": 0, "decode": 0, "range_decode": 0, "encode_lanes": 0,
+            "compact": 0}
+
+# blocks of the encode's compaction pass at most: the length of its offsets
+# scratch (csrc/ilans2_wide.cuh, kScanBlocks)
+SCAN_BLOCKS = 1024
+# the rANS decode's reach: a cluster of 16 CTAs of 32 warps, 32 lanes a
+# thread (csrc/ilans2_wide.cuh, plan_cluster_decode)
+MAX_DECODE_LANES = 16 * 32 * 32 * 32
 
 
 # ---------------------------------------------------------------------------
@@ -133,6 +156,15 @@ def _decode_args(states, stream, cdf, cfg: LaneConfig, state_dtype) -> None:
     _check_cdf_arg(cdf, device)
 
 
+def _check_cluster_args(states, stream, cdf, cfg: LaneConfig, cluster: int,
+                        state_dtype) -> None:
+    _decode_args(states, stream, cdf, cfg, state_dtype)
+    if not _on_cuda(states.device):
+        raise ValueError("a forced cluster size needs CUDA tensors")
+    if not 1 <= cluster <= 16:
+        raise ValueError(f"cluster must be in 1 .. 16, got {cluster}")
+
+
 def _refill_words(m: torch.Tensor, words: torch.Tensor, base: torch.Tensor):
     """Decode-side refill: lane l with ``m[l]`` takes stream word ``base +
     rank_l`` (rank = exclusive prefix count of ``m``); reads past the end
@@ -173,32 +205,144 @@ def _find_symbols(cdf64, q, K):
     return (torch.searchsorted(cdf64, q, right=True) - 1).clamp(0, K - 1)
 
 
-def _launch_decode(tag: str, states, stream, cdf, cfg: LaneConfig, n: int):
-    """One kernel launch; returns (symbols int32[n], final states)."""
+def _launch_decode(tag: str, states, stream, cdf, cfg: LaneConfig, n: int,
+                   cluster: int = 0):
+    """One launch of the cluster decode (``cluster`` CTAs, or the size it
+    picks from L when 0); returns (symbols int32[n], final states).  Raises
+    for an L past the cluster's reach."""
+    L = cfg.num_lanes
+    if L > MAX_DECODE_LANES:
+        raise ValueError(
+            f"the rANS decode kernel takes at most {MAX_DECODE_LANES} lanes "
+            f"(16 CTAs x 1024 threads x 32 lanes a thread), got {L}"
+        )
     device = states.device
     fin = states.clone()
     syms = torch.empty(n, dtype=torch.int32, device=device)
     cdf32 = cdf.to(torch.int32)
+    entry, extra = ((f"ctt_ilans2_decode_cluster_{tag}", (cluster,))
+                    if cluster else (f"ctt_ilans2_decode_{tag}", ()))
     _build.call(
-        f"ctt_ilans2_decode_{tag}", device, fin, stream, stream.numel(),
-        cdf32, cdf32.numel() - 1, syms, n, cfg.num_lanes, cfg.precision,
+        entry, device, fin, stream, stream.numel(), cdf32, cdf32.numel() - 1,
+        syms, n, L, cfg.precision, *extra,
     )
     return syms, fin
 
 
+def _records(cdf32, cfg: LaneConfig):
+    """Scratch for the encode's K division records: 16 bytes each at S=64,
+    8 at S=32 (csrc/ilans2_wide.cuh, DivisionRecord / DivisionRecord32)."""
+    words = 4 if cfg.state_bits == 64 else 2
+    return torch.empty(words * (cdf32.numel() - 1), dtype=torch.int32,
+                       device=cdf32.device)
+
+
 def _launch_encode(tag: str, symbols, cdf, cfg: LaneConfig, states):
-    """One kernel launch coding into ``states`` in place; returns
-    (final states, stream).  Reads the end pointer back (one sync)."""
+    """Both encode passes in one C call, coding into ``states`` in place;
+    returns (final states, stream).  The scratch: the dense words (T * L),
+    the ballots (T * L / 32), the compaction's block offsets and each
+    symbol's division record.  Reads the stream's start back (one sync)."""
     device = symbols.device
-    n = symbols.numel()
+    n, L = symbols.numel(), cfg.num_lanes
+    T = _num_steps(n, L)
     buf = torch.empty(n, dtype=torch.int32, device=device)
     end = torch.empty(1, dtype=torch.int64, device=device)
+    words = torch.empty(T * L, dtype=torch.int32, device=device)
+    flags = torch.empty(T * L // 32, dtype=torch.int32, device=device)
+    offsets = torch.empty(SCAN_BLOCKS, dtype=torch.int64, device=device)
     cdf32 = cdf.to(torch.int32)
     _build.call(
         f"ctt_ilans2_encode_{tag}", device, states, symbols, n, cdf32,
-        cdf32.numel() - 1, buf, n, end, cfg.num_lanes, cfg.precision,
+        cdf32.numel() - 1, buf, n, end, words, flags, offsets,
+        _records(cdf32, cfg), L, cfg.precision,
     )
     return states, buf[int(end.item()):]
+
+
+def _launch_lanes(tag: str, symbols, cdf, cfg: LaneConfig, states):
+    """Pass A alone, coding into ``states`` in place (n > 0): (words
+    int32[T, L], ballots int32[T, L / 32])."""
+    device = symbols.device
+    n, L = symbols.numel(), cfg.num_lanes
+    T = _num_steps(n, L)
+    words = torch.empty(T, L, dtype=torch.int32, device=device)
+    ballots = torch.empty(T, L // 32, dtype=torch.int32, device=device)
+    cdf32 = cdf.to(torch.int32)
+    _build.call(
+        f"ctt_ilans2_encode_lanes_{tag}", device, states, symbols, n, cdf32,
+        cdf32.numel() - 1, words, ballots, _records(cdf32, cfg), L,
+        cfg.precision,
+    )
+    return words, ballots
+
+
+def _geometry(tag: str, L: int, K: int, P: int, device, cluster: int):
+    """The rANS pair's launch geometry as the C entry reports it."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    out = torch.zeros(10, dtype=torch.int64)
+    _build.call(f"ctt_ilans2_geometry_{tag}", device, L, K, P, cluster, out)
+    keys = ("cluster", "groups_per_cta", "lanes_per_thread",
+            "threads_per_cta", "max_active_clusters", "smem_bytes",
+            "cdf_in_smem", "lut_bits", "encode_blocks", "encode_threads")
+    geo = dict(zip(keys, (int(v) for v in out)))
+    geo["ctas"] = geo["cluster"]
+    return geo
+
+
+def compact_pass_plain(words, flags):
+    """Pass B of the encoder in plain PyTorch (any device, either preset):
+    the flagged words of ``words[T, L]`` (``flags`` bool[T, L]) in the
+    decoder's consumption order, steps ascending and lanes ascending in a
+    step.  The index math is the kernel's (``compact_*_kernel``): the flags
+    of step t and 32-lane group g count c[t, g]; an exclusive scan of c in
+    row-major order gives each group's offset, and lane j of the group
+    lands at that offset plus the flagged lanes below j.  Returns
+    int32[words]."""
+    T, L = flags.shape
+    f = flags.reshape(T * L // 32, 32).to(torch.int64)
+    counts = f.sum(1)
+    offsets = torch.cumsum(counts, 0) - counts
+    below = torch.cumsum(f, 1) - f
+    pos = (offsets[:, None] + below).reshape(-1)
+    out = torch.zeros(int(counts.sum()), dtype=torch.int32,
+                      device=words.device)
+    sel = flags.reshape(-1)
+    out[pos[sel]] = words.reshape(-1)[sel]
+    return out
+
+
+def flag_ballots(flags):
+    """bool[T, L] renorm flags -> the kernel's int32[T, L / 32] ballots (bit
+    j of group g: lane 32 g + j)."""
+    T, L = flags.shape
+    bits = flags.reshape(T, L // 32, 32).to(torch.int64) << torch.arange(
+        32, device=flags.device)
+    return convert.u32_bits(bits.sum(2))
+
+
+def ballot_flags(ballots):
+    """Inverse of :func:`flag_ballots`: int32[T, G] -> bool[T, 32 G]."""
+    T, G = ballots.shape
+    bits = (convert.u32_values(ballots)[..., None] >> torch.arange(
+        32, device=ballots.device)) & 1
+    return bits.reshape(T, G * 32).bool()
+
+
+def compact_pass(words, ballots):
+    """Pass B of the encoders alone (either preset): the stream of
+    ``words`` int32[T, L] under ``ballots`` int32[T, L / 32] (T > 0).  A
+    CPU tensor runs :func:`compact_pass_plain`."""
+    if not _on_cuda(words.device):
+        return compact_pass_plain(words, ballot_flags(ballots))
+    device = words.device
+    cap = words.numel()
+    buf = torch.empty(cap, dtype=torch.int32, device=device)
+    end = torch.empty(1, dtype=torch.int64, device=device)
+    offsets = torch.empty(SCAN_BLOCKS, dtype=torch.int64, device=device)
+    LAUNCHES["compact"] += 1
+    _build.call("ctt_ilans2_compact", device, ballots, words, ballots.numel(),
+                buf, cap, end, offsets)
+    return buf[int(end.item()):]
 
 
 def _range_decode_args(points, stream, cdf, cfg: LaneConfig, lows, rngs,
@@ -297,14 +441,11 @@ def encode32_steps(tables_at, n: int, cfg: LaneConfig, seeds, device):
     the (cum, prob) int64 of the flat symbol indices ``i`` (one step's
     lanes; indices past n are masked).  Shared by the categorical twin
     above and the exact-family planes twin
-    (``exact_family.encode_tables_plain``), as the kernels share
-    ``csrc/ilans2.cuh``'s encode loop.  ``seeds`` optional int32[L] (u32
-    bits).  Returns ``(states int32[L], stream int32)``."""
-    L, S, W, P = cfg.num_lanes, cfg.state_bits, cfg.word_bits, cfg.precision
-    if seeds is not None:
-        x = convert.u32_values(seeds)
-    else:
-        x = torch.full((L,), 1 << (S - W), dtype=torch.int64, device=device)
+    (``exact_family.encode_tables_plain``), whose kernel runs
+    ``csrc/ilans2.cuh``'s single-block encode loop.  ``seeds`` optional
+    int32[L] (u32 bits).  Returns ``(states int32[L], stream int32)``."""
+    L = cfg.num_lanes
+    x = _start_states32(seeds, cfg, device)
     lanes = torch.arange(L, device=device)
     buf = torch.zeros(n + 1, dtype=torch.int64, device=device)
     e = torch.tensor(n, dtype=torch.int64, device=device)
@@ -313,11 +454,99 @@ def encode32_steps(tables_at, n: int, cfg: LaneConfig, seeds, device):
         active = i < n
         cum, prob = tables_at(i)
         prob = torch.where(active, prob, 1)
-        renorm = active & ((x >> (S - P)) >= prob)
+        renorm = _renorms32(x, prob, active, cfg)
         e = _emit_words(buf, renorm, x & cfg.word_mask, e, n)
-        x = torch.where(renorm, x >> W, x)
-        x = torch.where(active, ((x // prob) << P) | (cum + x % prob), x)
+        x = _code32(x, cum, prob, active, renorm, cfg)
     return convert.u32_bits(x), convert.u32_bits(buf[int(e):n])
+
+
+def _start_states32(seeds, cfg: LaneConfig, device):
+    """The encoder's start states as int64 values: the seeds, or the floor
+    2^16."""
+    if seeds is not None:
+        return convert.u32_values(seeds)
+    return torch.full((cfg.num_lanes,), 1 << (cfg.state_bits - cfg.word_bits),
+                      dtype=torch.int64, device=device)
+
+
+def _renorms32(x, prob, active, cfg: LaneConfig):
+    """The lanes that emit a word before coding: state >> (S - P) >= prob."""
+    return active & ((x >> (cfg.state_bits - cfg.precision)) >= prob)
+
+
+def _code32(x, cum, prob, active, renorm, cfg: LaneConfig):
+    """One encode step: renorming lanes drop their low word, then active
+    lanes take (state // prob) << P | (cum + state % prob)."""
+    x = torch.where(renorm, x >> cfg.word_bits, x)
+    return torch.where(active,
+                       ((x // prob) << cfg.precision) | (cum + x % prob), x)
+
+
+def lanes_pass32_plain(symbols, cdf, cfg: LaneConfig, seeds=None):
+    """Pass A of the S=32 encoder in plain PyTorch (any device, no checks):
+    every lane runs steps T-1 .. 0 on its own.  Returns ``(words int32[T,
+    L], flags bool[T, L], states int32[L])``: ``flags[t, l]`` is set where
+    lane l renorms at step t, before coding symbol t * L + l, and
+    ``words[t, l]`` is then the 16-bit word it emits (0 elsewhere);
+    ``states`` are the final states.  Lanes of a partial last step neither
+    code nor flag.  The kernel (``csrc/ilans2_wide.cuh``,
+    ``encode_lanes_kernel<16, 32, ...>``) keeps ``flags`` as one ballot per
+    32 lanes (:func:`flag_ballots`)."""
+    n = symbols.numel()
+    L = cfg.num_lanes
+    device = symbols.device
+    cdf64 = cdf.to(torch.int64)
+    K = cdf64.numel() - 1
+    T = _num_steps(n, L)
+    x = _start_states32(seeds, cfg, device)
+    lanes = torch.arange(L, device=device)
+    words = torch.zeros(T, L, dtype=torch.int64, device=device)
+    flags = torch.zeros(T, L, dtype=torch.bool, device=device)
+    for t in range(T - 1, -1, -1):
+        i = t * L + lanes
+        active = i < n
+        cum, prob = _symbol_tables(symbols, cdf64, i, n, K)
+        prob = torch.where(active, prob, 1)
+        renorm = _renorms32(x, prob, active, cfg)
+        words[t] = torch.where(renorm, x & cfg.word_mask, 0)
+        flags[t] = renorm
+        x = _code32(x, cum, prob, active, renorm, cfg)
+    return convert.u32_bits(words), flags, convert.u32_bits(x)
+
+
+def lanes_pass32(symbols, cdf, cfg: LaneConfig, seeds=None):
+    """Pass A of :func:`encode_iid` alone (n > 0): ``(words int32[T, L],
+    ballots int32[T, L / 32], states int32[L])``.  On the card the words of
+    lanes that emit nothing are left unwritten; a CPU tensor runs
+    :func:`lanes_pass32_plain` and packs its flags with
+    :func:`flag_ballots`."""
+    states = _encode_args(symbols, cdf, cfg, seeds, torch.int32)
+    if not _on_cuda(symbols.device):
+        words, flags, fin = lanes_pass32_plain(symbols, cdf, cfg, seeds)
+        return words, flag_ballots(flags), fin
+    LAUNCHES["encode_lanes"] += 1
+    words, ballots = _launch_lanes("w16s32", symbols, cdf, cfg, states)
+    return words, ballots, states
+
+
+def division_magic32(prob: int) -> tuple[int, int]:
+    """The S=32 encode kernel's multiply-high reciprocal of a probability 1
+    <= prob <= 2^16 (``csrc/ilans2_wide.cuh``, ``DivisionRecord32``;
+    Granlund and Montgomery 1994, fig. 4.1): ``(magic, l)`` with l =
+    ceil(log2 prob) and magic = floor(2^32 (2^l - prob) / prob) + 1 < 2^32,
+    in Python integers."""
+    l = (prob - 1).bit_length()
+    return ((1 << 32) * ((1 << l) - prob)) // prob + 1, l
+
+
+def divide_by_magic32(x, magic, l):
+    """x // prob for a 32-bit x as the kernel computes it from
+    ``division_magic32(prob)``: t = (magic x) >> 32 (``__umulhi``), then (t +
+    ((x - t) >> min(l, 1))) >> max(l - 1, 0).  Python integers, or numpy
+    uint64 arrays elementwise (every product stays below 2^64)."""
+    t = (magic * x) >> 32
+    up = l > 0  # min(l, 1); l - up is max(l - 1, 0)
+    return (t + ((x - t) >> up)) >> (l - up)
 
 
 def decode_shared(states, stream, cdf, cfg: LaneConfig, n: int,
@@ -328,8 +557,9 @@ def decode_shared(states, stream, cdf, cfg: LaneConfig, n: int,
     ``states`` int32[L] (u32 bits), ``stream`` int32 words, ``cdf``
     int64[K+1], all on one device.  Returns symbols int32[n], and with
     ``return_final_states`` also the final states int32[L] (after a full
-    decode, the encoder's seeds).  CUDA tensors launch the kernel, CPU
-    tensors run :func:`decode_shared_plain`."""
+    decode, the encoder's seeds).  CUDA tensors launch the kernel (a
+    ValueError for L above :data:`MAX_DECODE_LANES`), CPU tensors run
+    :func:`decode_shared_plain`."""
     _check_cfg(cfg, 16, 32, 16)
     _decode_args(states, stream, cdf, cfg, torch.int32)
     if not _on_cuda(states.device):
@@ -339,8 +569,8 @@ def decode_shared(states, stream, cdf, cfg: LaneConfig, n: int,
         syms, fin = torch.zeros(0, dtype=torch.int32,
                                 device=states.device), states.clone()
     else:
-        LAUNCHES["decode"] += 1
         syms, fin = _launch_decode("w16s32", states, stream, cdf, cfg, n)
+        LAUNCHES["decode"] += 1
     return (syms, fin) if return_final_states else syms
 
 
@@ -372,6 +602,30 @@ def decode_shared_plain(states, stream, cdf, cfg: LaneConfig, n: int,
         out[t * L:(t + 1) * L] = sym.to(torch.int32)
     syms = out[:n]
     return (syms, convert.u32_bits(x)) if return_final_states else syms
+
+
+def decode_shared_cluster(states, stream, cdf, cfg: LaneConfig, n: int,
+                          cluster: int):
+    """The decode kernel on a cluster of ``cluster`` CTAs (1 .. 16) in place
+    of the size it picks from L, for any L that is a multiple of 32 (n > 0,
+    CUDA tensors): how the card tests reach uneven partitions and CTAs with
+    no lanes.  Returns (symbols int32[n], final states)."""
+    _check_cluster_args(states, stream, cdf, cfg, cluster, torch.int32)
+    out = _launch_decode("w16s32", states, stream, cdf, cfg, n, cluster)
+    LAUNCHES["decode"] += 1
+    return out
+
+
+def geometry(L: int, K: int, P: int, device=None, cluster: int = 0) -> dict:
+    """The launch geometry of the rANS pair for L lanes, K symbols and
+    precision P on ``device`` (a CUDA device; the current one by default):
+    the decode's cluster (``cluster`` 0: the size the kernel picks from L,
+    stepped down while the card cannot co-schedule it), its CTAs' groups,
+    lanes per thread and threads, the card's maximum of such active
+    clusters, the shared memory of a CTA, whether the CDF is in it and the
+    bucket table's ``lut_bits`` (P when P <= 12: every quantile's symbol);
+    the encode's pass-A grid."""
+    return _geometry("w16s32", L, K, P, device, cluster)
 
 
 def decode_shared_range(points, stream, cdf, cfg: LaneConfig, n: int,

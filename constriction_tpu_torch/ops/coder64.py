@@ -16,13 +16,14 @@ float64 estimate corrected against the exact product; the range kernel
 (``csrc/ilans2_range.cu``) divides in native u64 in place of
 ``_div64_by_scale``.
 
-The rANS pair runs ``csrc/ilans2_wide.cuh``'s design: the decode on a
-cluster of CTAs with the lane states in registers (:func:`geometry` says
-which cluster the card runs for L lanes), the encode as a lane-parallel
-pass and a row-major compaction.  :func:`lanes_pass64_plain` and
-:func:`compact_pass_plain` are those two passes in plain PyTorch; the
-kernels' index math mirrors them, and their composition is
-:func:`encode_iid64_plain`'s stream.
+The rANS pair runs ``csrc/ilans2_wide.cuh``'s design, as the S=32 pair
+does: the decode on a cluster of CTAs with the lane states in registers
+(:func:`geometry` says which cluster the card runs for L lanes), the
+encode as a lane-parallel pass and a row-major compaction.
+:func:`lanes_pass64_plain` and :func:`compact_pass_plain` (shared with the
+S=32 pair, from :mod:`constriction_tpu_torch.ops.coder`) are those two
+passes in plain PyTorch; the kernels' index math mirrors them, and their
+composition is :func:`encode_iid64_plain`'s stream.
 
 Lane states and range planes travel as int64 tensors holding u64 bits
 (constriction_tpu_torch/convert.py); stream words as int32 holding u32 bits.
@@ -34,13 +35,18 @@ import torch
 
 from .. import convert
 from . import _build
-from .coder import (
+from .coder import (  # noqa: F401 (pass B and its helpers, re-exported)
+    SCAN_BLOCKS,
     _check_cfg,
+    _check_cluster_args,
     _decode_args,
     _emit_words,
     _encode_args,
     _find_symbols,
+    _geometry,
     _launch_decode,
+    _launch_encode,
+    _launch_lanes,
     _launch_range_decode,
     _num_steps,
     _on_cuda,
@@ -48,19 +54,19 @@ from .coder import (
     _range_decode_args,
     _refill_words,
     _symbol_tables,
+    ballot_flags,
+    compact_pass,
+    compact_pass_plain,
+    flag_ballots,
 )
 from .interleaved import LaneConfig
 
 # kernel launches made by this module's wrappers (never by the twins); the
-# encode's two passes launched alone (lanes_pass64, compact_pass) count
-# under their own keys
-LAUNCHES = {"encode": 0, "decode": 0, "range_decode": 0, "encode_lanes": 0,
-            "compact": 0}
+# encode's pass A launched alone (lanes_pass64) counts under its own key,
+# pass B alone (compact_pass) under coder.LAUNCHES["compact"]
+LAUNCHES = {"encode": 0, "decode": 0, "range_decode": 0, "encode_lanes": 0}
 
 _M32 = 0xFFFFFFFF
-# blocks of the encode's compaction pass at most: the length of its offsets
-# scratch (csrc/ilans2_wide.cuh, kScanBlocks)
-SCAN_BLOCKS = 1024
 
 
 # ---------------------------------------------------------------------------
@@ -135,7 +141,7 @@ def encode_iid64(symbols, cdf, cfg: LaneConfig, seeds=None):
         return states, torch.zeros(0, dtype=torch.int32,
                                    device=symbols.device)
     LAUNCHES["encode"] += 1
-    return _launch_encode64(symbols, cdf, cfg, states)
+    return _launch_encode("w32s64", symbols, cdf, cfg, states)
 
 
 def encode_iid64_plain(symbols, cdf, cfg: LaneConfig, seeds=None):
@@ -158,9 +164,9 @@ def encode64_steps(tables_at, n: int, cfg: LaneConfig, seeds, device):
     ``tables_at(i)`` gives the (cum, prob) int64 of the flat symbol indices
     ``i`` (one step's lanes; indices past n are masked).  Shared by the
     categorical twin above and the exact-family planes twin
-    (``exact_family.encode_tables_plain``), as the kernels share
-    ``csrc/ilans2.cuh``'s encode loop.  Returns ``(states int64[L], stream
-    int32)``."""
+    (``exact_family.encode_tables_plain``), whose kernel runs
+    ``csrc/ilans2.cuh``'s single-block encode loop.  Returns ``(states
+    int64[L], stream int32)``."""
     L, P = cfg.num_lanes, cfg.precision
     hi, lo = _start_halves64(seeds, L, device)
     lanes = torch.arange(L, device=device)
@@ -253,36 +259,6 @@ def lanes_pass64_plain(symbols, cdf, cfg: LaneConfig, seeds=None):
     return convert.u32_bits(words), flags, convert.u64_join(hi, lo)
 
 
-def compact_pass_plain(words, flags):
-    """Pass B of the encoder in plain PyTorch (any device): the flagged
-    words of ``words[T, L]`` (``flags`` bool[T, L]) in the decoder's
-    consumption order, steps ascending and lanes ascending in a step.  The
-    index math is the kernel's (``compact_*_kernel``): the flags of step t
-    and 32-lane group g count c[t, g]; an exclusive scan of c in row-major
-    order gives each group's offset, and lane j of the group lands at that
-    offset plus the flagged lanes below j.  Returns int32[words]."""
-    T, L = flags.shape
-    f = flags.reshape(T * L // 32, 32).to(torch.int64)
-    counts = f.sum(1)
-    offsets = torch.cumsum(counts, 0) - counts
-    below = torch.cumsum(f, 1) - f
-    pos = (offsets[:, None] + below).reshape(-1)
-    out = torch.zeros(int(counts.sum()), dtype=torch.int32,
-                      device=words.device)
-    sel = flags.reshape(-1)
-    out[pos[sel]] = words.reshape(-1)[sel]
-    return out
-
-
-def flag_ballots(flags):
-    """bool[T, L] renorm flags -> the kernel's int32[T, L / 32] ballots (bit
-    j of group g: lane 32 g + j)."""
-    T, L = flags.shape
-    bits = flags.reshape(T, L // 32, 32).to(torch.int64) << torch.arange(
-        32, device=flags.device)
-    return convert.u32_bits(bits.sum(2))
-
-
 def decode_shared64(states, stream, cdf, cfg: LaneConfig, n: int,
                     return_final_states: bool = False):
     """Decode n symbols of a DEFAULT-preset ILANS2-64 stream.  JAX
@@ -291,7 +267,9 @@ def decode_shared64(states, stream, cdf, cfg: LaneConfig, n: int,
     ``states`` int64[L] (u64 bits), ``stream`` int32 words, ``cdf``
     int64[K+1], all on one device.  Returns symbols int32[n], and with
     ``return_final_states`` also the final states int64[L].  CUDA tensors
-    launch the kernel, CPU tensors run :func:`decode_shared64_plain`."""
+    launch the kernel (a ValueError for L above
+    ``coder.MAX_DECODE_LANES``), CPU tensors run
+    :func:`decode_shared64_plain`."""
     _check_cfg(cfg, 32, 64, 24)
     _decode_args(states, stream, cdf, cfg, torch.int64)
     if not _on_cuda(states.device):
@@ -301,8 +279,8 @@ def decode_shared64(states, stream, cdf, cfg: LaneConfig, n: int,
         syms, fin = torch.zeros(0, dtype=torch.int32,
                                 device=states.device), states.clone()
     else:
-        LAUNCHES["decode"] += 1
         syms, fin = _launch_decode("w32s64", states, stream, cdf, cfg, n)
+        LAUNCHES["decode"] += 1
     return (syms, fin) if return_final_states else syms
 
 
@@ -348,31 +326,6 @@ def decode_shared64_plain(states, stream, cdf, cfg: LaneConfig, n: int,
 # ---------------------------------------------------------------------------
 
 
-def _launch_encode64(symbols, cdf, cfg: LaneConfig, states):
-    """Both encode passes in one C call, coding into ``states`` in place;
-    returns (final states, stream).  The scratch: the dense words (T * L),
-    the ballots (T * L / 32), the compaction's block offsets and each
-    symbol's division record (four words: the multiply-high reciprocal of
-    :func:`division_magic`, cum, prob).  Reads the stream's start back (one
-    sync)."""
-    device = symbols.device
-    n, L = symbols.numel(), cfg.num_lanes
-    T = _num_steps(n, L)
-    buf = torch.empty(n, dtype=torch.int32, device=device)
-    end = torch.empty(1, dtype=torch.int64, device=device)
-    words = torch.empty(T * L, dtype=torch.int32, device=device)
-    flags = torch.empty(T * L // 32, dtype=torch.int32, device=device)
-    offsets = torch.empty(SCAN_BLOCKS, dtype=torch.int64, device=device)
-    cdf32 = cdf.to(torch.int32)
-    K = cdf32.numel() - 1
-    records = torch.empty(4 * K, dtype=torch.int32, device=device)
-    _build.call(
-        "ctt_ilans2_encode_w32s64", device, states, symbols, n, cdf32, K, buf,
-        n, end, words, flags, offsets, records, L, cfg.precision,
-    )
-    return states, buf[int(end.item()):]
-
-
 def lanes_pass64(symbols, cdf, cfg: LaneConfig, seeds=None):
     """Pass A of :func:`encode_iid64` alone (n > 0): ``(words int32[T, L],
     ballots int32[T, L / 32], states int64[L])``.  On the card the words of
@@ -383,45 +336,9 @@ def lanes_pass64(symbols, cdf, cfg: LaneConfig, seeds=None):
     if not _on_cuda(symbols.device):
         words, flags, fin = lanes_pass64_plain(symbols, cdf, cfg, seeds)
         return words, flag_ballots(flags), fin
-    device = symbols.device
-    n, L = symbols.numel(), cfg.num_lanes
-    T = _num_steps(n, L)
-    words = torch.empty(T, L, dtype=torch.int32, device=device)
-    ballots = torch.empty(T, L // 32, dtype=torch.int32, device=device)
-    cdf32 = cdf.to(torch.int32)
-    K = cdf32.numel() - 1
-    records = torch.empty(4 * K, dtype=torch.int32, device=device)
     LAUNCHES["encode_lanes"] += 1
-    _build.call(
-        "ctt_ilans2_encode_lanes_w32s64", device, states, symbols, n, cdf32,
-        K, words, ballots, records, L, cfg.precision,
-    )
+    words, ballots = _launch_lanes("w32s64", symbols, cdf, cfg, states)
     return words, ballots, states
-
-
-def compact_pass(words, ballots):
-    """Pass B of :func:`encode_iid64` alone: the stream of ``words``
-    int32[T, L] under ``ballots`` int32[T, L / 32] (T > 0).  A CPU tensor
-    runs :func:`compact_pass_plain`."""
-    if not _on_cuda(words.device):
-        return compact_pass_plain(words, ballot_flags(ballots))
-    device = words.device
-    cap = words.numel()
-    buf = torch.empty(cap, dtype=torch.int32, device=device)
-    end = torch.empty(1, dtype=torch.int64, device=device)
-    offsets = torch.empty(SCAN_BLOCKS, dtype=torch.int64, device=device)
-    LAUNCHES["compact"] += 1
-    _build.call("ctt_ilans2_compact", device, ballots, words, ballots.numel(),
-                buf, cap, end, offsets)
-    return buf[int(end.item()):]
-
-
-def ballot_flags(ballots):
-    """Inverse of :func:`flag_ballots`: int32[T, G] -> bool[T, 32 G]."""
-    T, G = ballots.shape
-    bits = (convert.u32_values(ballots)[..., None] >> torch.arange(
-        32, device=ballots.device)) & 1
-    return bits.reshape(T, G * 32).bool()
 
 
 def decode_shared64_cluster(states, stream, cdf, cfg: LaneConfig, n: int,
@@ -430,39 +347,17 @@ def decode_shared64_cluster(states, stream, cdf, cfg: LaneConfig, n: int,
     place of the size it picks from L, for any L that is a multiple of 32
     (n > 0, CUDA tensors): how the card tests reach uneven partitions and
     CTAs with no lanes.  Returns (symbols int32[n], final states)."""
-    _decode_args(states, stream, cdf, cfg, torch.int64)
-    device = states.device
-    if not _on_cuda(device):
-        raise ValueError("decode_shared64_cluster needs CUDA tensors")
-    fin = states.clone()
-    syms = torch.empty(n, dtype=torch.int32, device=device)
-    cdf32 = cdf.to(torch.int32)
+    _check_cluster_args(states, stream, cdf, cfg, cluster, torch.int64)
+    out = _launch_decode("w32s64", states, stream, cdf, cfg, n, cluster)
     LAUNCHES["decode"] += 1
-    _build.call(
-        "ctt_ilans2_decode_cluster_w32s64", device, fin, stream,
-        stream.numel(), cdf32, cdf32.numel() - 1, syms, n, cfg.num_lanes,
-        cfg.precision, cluster,
-    )
-    return syms, fin
+    return out
 
 
 def geometry(L: int, K: int, device=None, cluster: int = 0) -> dict:
-    """The launch geometry of the rANS pair for L lanes and K symbols on
-    ``device`` (a CUDA device; the current one by default): the decode's
-    cluster (``cluster`` 0: the size the kernel picks from L, stepped down
-    while the card cannot co-schedule it), its CTAs' groups, lanes per
-    thread and threads, the card's maximum of such active clusters, the
-    shared memory of a CTA and whether the CDF is in it; the encode's pass-A
-    grid."""
-    device = torch.device("cuda") if device is None else torch.device(device)
-    out = torch.zeros(9, dtype=torch.int64)
-    _build.call("ctt_ilans2_geometry_w32s64", device, L, K, cluster, out)
-    keys = ("cluster", "groups_per_cta", "lanes_per_thread",
-            "threads_per_cta", "max_active_clusters", "smem_bytes",
-            "cdf_in_smem", "encode_blocks", "encode_threads")
-    geo = dict(zip(keys, (int(v) for v in out)))
-    geo["ctas"] = geo["cluster"]
-    return geo
+    """The launch geometry of the rANS pair for L lanes and K symbols at
+    P=24 on ``device`` (a CUDA device; the current one by default), as
+    :func:`constriction_tpu_torch.ops.coder.geometry` reports it."""
+    return _geometry("w32s64", L, K, 24, device, cluster)
 
 
 def decode_shared_range64(points, stream, cdf, cfg: LaneConfig, n: int,

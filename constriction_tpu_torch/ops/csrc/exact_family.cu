@@ -17,7 +17,7 @@
 // Kernels 13-17 are the ILANS2 loops of ilans2.cuh (one block, a warp
 // ballot and block scan per step for the shared word stream, states in
 // device memory, native uint64_t / uint32_t state algebra and division),
-// instantiated over the models below; ilans2.cu's header says what bounds
+// instantiated over the models below; ilans2.cuh's header says what bounds
 // those loops.  The TPU kernels' chunked table DMA, their 40x25-bit
 // multiply limbs, their f32-estimate division (_exact_div) and their
 // refill/emit compaction stay behind.

@@ -15,82 +15,51 @@
 // What bounds them on this card: the T coding steps of a lane form a serial
 // chain of dependent loads and arithmetic, and the lanes meet in the word
 // stream, whose positions need an exclusive count over all L lanes at each
-// step (refill ranks when decoding, emission offsets when encoding).  The
-// two presets run two designs:
+// step (refill ranks when decoding, emission offsets when encoding).  Both
+// presets run ilans2_wide.cuh's design, instantiated at (W, S):
 //
-// - DEFAULT preset (W=32, S=64): ilans2_wide.cuh.  The decode runs on a
-//   cluster of up to 16 CTAs (one SM each) with the lane states in
-//   registers for the whole message and one distributed-shared-memory
-//   exchange and cluster barrier per step; a bucket table in front of
-//   the CDF search (BucketCdfModel) shortens each lane's chain of
-//   shared-memory probes.  The encode has no cross-lane dependency in its
-//   state algebra, so it runs as a lane-parallel pass over the whole grid
-//   (one thread per lane, every emitted word into a dense scratch, one
-//   renorm ballot per step and 32 lanes; the division by the symbol's
-//   probability a multiply-high by a per-symbol reciprocal,
-//   RecordCdfModel) and a row-major compaction (a scan of the ballots'
-//   popcounts and a scatter of the flagged words).  The cluster size
-//   follows L (auto_cluster) and the wrapper reports it
-//   (ctt_ilans2_geometry_w32s64).
-// - Small preset (W=16, S=32): ilans2.cuh's single-block loops.  One block
-//   of 1024 threads codes the message; per step each warp ballots its 32
-//   lanes' flags, a block scan turns the per-warp popcounts into group
-//   offsets, and each thread walks its lanes one after another (lane =
-//   row * 1024 + thread), loading and storing each lane state in device
-//   memory once per step.  Measured on an H100 (chip_smoke.py, sweep), a
-//   step costs about 1.5 us at L = 128 and 1.0-1.5 us more per 1024 lanes:
-//   the lane loop's latency, not the barriers, bounds a step on one SM.
+// - Decode: a cluster of up to 16 CTAs (one SM each) with the lane states
+//   in registers for the whole message and one distributed-shared-memory
+//   exchange and cluster barrier per step.  BucketCdfModel puts a bucket
+//   table of 2^lut_bits + 1 entries, lut_bits = min(P, 12), in front of the
+//   CDF search.  At P <= 12 (the small preset's facade default, P=12) the
+//   table maps every quantile to its symbol and the lane searches nothing;
+//   at P = 13..16 and P = 24 a quantile's bucket spans 2^(P - 12) quantiles
+//   and a short binary search of the CDF between two entries finishes it.
+// - Encode: no cross-lane dependency in the state algebra, so a
+//   lane-parallel pass over the whole grid (one thread per lane, every
+//   emitted word into a dense scratch, one renorm ballot per step and 32
+//   lanes; the division by the symbol's probability a multiply-high by a
+//   per-symbol reciprocal, RecordCdfModel over DivisionRecord at S=64 or
+//   DivisionRecord32 at S=32) and a row-major compaction (a scan of the
+//   ballots' popcounts and a scatter of the flagged words), which moves
+//   one word per u32 at either preset.
 //
-// The model policies below (CdfModel for the single-block loops,
-// BucketCdfModel and RecordCdfModel for the wide ones) hold one CDF; the
-// ballot, the block scan, the CDF staging and the symbol search are in
-// lanes.cuh, shared with the range coder (ilans2_range.cu).
+// At S=32 the state stays a uint32_t (P <= 16, words masked to 16 bits):
+// the decode's (x >> P) * prob + (q - cum) < 2^(32-P) prob <= 2^32 (the K=1
+// model, prob = 2^P, gives x back), and the encode's (x / prob) << P |
+// (cum + x % prob) < 2^32, since a lane holds x < prob 2^(32-P) when it
+// codes (one that emitted a word holds x < 2^16).
+//
+// The cluster size follows L (auto_cluster) and the geometry entries report
+// it.  The L a cluster reaches is 16 * 32 * 32 * 32 lanes (32 lanes a
+// thread); a larger L returns an error.  ilans2.cuh's single-block loops
+// serve exact_family.cu's coders only.
+//
+// The model policies below hold one CDF; the CDF staging and the symbol
+// search are in lanes.cuh, shared with the range coder (ilans2_range.cu).
 
-#include "ilans2.cuh"
 #include "ilans2_wide.cuh"
 
 namespace {
 
-// One CDF for every symbol: the decode side searches it, the encode side
-// reads a symbol's interval (symbols outside [0, K) are clamped to K-1 to
-// keep CDF reads in bounds; callers validate them).  The CDF lives in
-// shared memory when it fits.
-struct CdfModel {
-  const int32_t* syms;  // encode only
-  const uint32_t* cdf;
-  int K;
-  int cdf_in_smem;
-
-  __device__ void stage(uint32_t* smem_cdf) {
-    cdf = stage_cdf(smem_cdf, cdf, K, cdf_in_smem);
-  }
-  __device__ int invert(int, int, uint32_t q, uint32_t& cum,
-                        uint32_t& prob) const {
-    const int sym = find_symbol(cdf, K, q);
-    cum = cdf[sym];
-    prob = cdf[sym + 1] - cum;
-    return sym;
-  }
-  __device__ uint32_t symbol(int64_t i) const {
-    return min(static_cast<uint32_t>(syms[i]), static_cast<uint32_t>(K - 1));
-  }
-  __device__ void lookup(int64_t i, uint32_t& cum, uint32_t& prob) const {
-    const uint32_t sym = symbol(i);
-    cum = cdf[sym];
-    prob = cdf[sym + 1] - cum;
-  }
-  __device__ uint32_t prob(int64_t i) const {
-    const uint32_t sym = symbol(i);
-    return cdf[sym + 1] - cdf[sym];
-  }
-};
-
-// The decode model of ilans2_wide.cuh's cluster decode (the DEFAULT
-// preset): the CDF, in shared memory when it fits, behind a bucket table
-// in shared memory: lut[b] is the symbol of quantile b << (P - lut_bits),
-// so quantile q's symbol lies between lut[q >> (P - lut_bits)] and the
-// next entry, and a binary search between the two (zero or one probe for
-// most quantiles of a K=100 model at P=24) gives find_symbol's answer.
+// The decode model of ilans2_wide.cuh's cluster decode: the CDF, in shared
+// memory when it fits, behind a bucket table in shared memory: lut[b] is
+// the symbol of quantile b << (P - lut_bits), so quantile q's symbol lies
+// between lut[q >> (P - lut_bits)] and the next entry, and a binary search
+// between the two (zero or one probe for most quantiles of a K=100 model at
+// P=24) gives find_symbol's answer.  With lut_bits == P, lut[q] is that
+// answer and nothing is searched.
 struct BucketCdfModel {
   const uint32_t* cdf;
   int K;
@@ -114,10 +83,14 @@ struct BucketCdfModel {
                                int (&sym)[R], uint32_t (&cum)[R],
                                uint32_t (&prob)[R]) const {
     const int shift = P - lut_bits;
+    // a complete table (shift 0) gives the answer in lut[b]: the bucket's
+    // upper end is then read from the same entry and nothing is searched
+    const uint32_t* upper = lut + (shift != 0);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const uint32_t b = q[r] >> shift;
-      int lo = static_cast<int>(lut[b]), hi = static_cast<int>(lut[b + 1]);
+      int lo = static_cast<int>(lut[b]);
+      int hi = static_cast<int>(upper[b]);
       while (lo < hi) {  // the largest s in [lo, hi] with cdf[s] <= q
         const int mid = (lo + hi + 1) >> 1;
         if (cdf[mid] <= q[r]) {
@@ -133,22 +106,23 @@ struct BucketCdfModel {
   }
 };
 
-// The encode model of ilans2_wide.cuh's pass A (the DEFAULT preset): each
-// symbol's DivisionRecord (its interval and the multiply-high reciprocal
-// of its probability, built from the CDF by division_records_kernel), in
-// shared memory when the K records fit.  Symbols outside [0, K) are
-// clamped to K-1, as in CdfModel.
+// The encode model of ilans2_wide.cuh's pass A: each symbol's division
+// record (its interval and the multiply-high reciprocal of its probability,
+// built from the CDF by division_records_kernel), in shared memory when the
+// K records fit.  Symbols outside [0, K) are clamped to K-1 to keep the
+// reads in bounds (callers validate them).
+template <class Record>
 struct RecordCdfModel {
   using Token = uint32_t;  // the symbol
-  using Interval = DivisionRecord;
+  using Interval = Record;
   const int32_t* syms;
-  const DivisionRecord* records;
+  const Record* records;
   int K;
   int in_smem;
 
   __device__ void stage(uint32_t* smem) {
     if (!in_smem) return;
-    auto* dst = reinterpret_cast<DivisionRecord*>(smem);
+    auto* dst = reinterpret_cast<Record*>(smem);
     for (int s = threadIdx.x; s < K; s += blockDim.x) dst[s] = records[s];
     records = dst;
   }
@@ -160,9 +134,8 @@ struct RecordCdfModel {
 
 constexpr int kLutBits = 12;  // the decode's bucket table: 2^12 + 1 words
 
-// Dynamic shared memory of the DEFAULT preset's decode: the bucket table,
-// then the CDF when it fits beside it; fills in the model's table size
-// and CDF placement.
+// Dynamic shared memory of the decode: the bucket table, then the CDF when
+// it fits beside it; fills in the model's table size and CDF placement.
 size_t bucket_smem_bytes(BucketCdfModel* model) {
   model->lut_bits = std::min(model->P, kLutBits);
   const size_t lut = ((size_t(1) << model->lut_bits) + 1) * sizeof(uint32_t);
@@ -170,62 +143,29 @@ size_t bucket_smem_bytes(BucketCdfModel* model) {
 }
 
 // Dynamic shared memory of pass A: the K division records when they fit.
-size_t record_smem_bytes(RecordCdfModel* model) {
-  const size_t bytes = static_cast<size_t>(model->K) * sizeof(DivisionRecord);
+template <class Record>
+size_t record_smem_bytes(RecordCdfModel<Record>* model) {
+  const size_t bytes = static_cast<size_t>(model->K) * sizeof(Record);
   model->in_smem = bytes <= kSmemBudget;
   return model->in_smem ? bytes : 0;
 }
 
+// The lane counts, alphabets and precisions a preset takes (P <= S - W:
+// the renorm keeps a state's top word nonzero).
 template <int W, int S>
-int launch_decode(void* states, const void* stream, long long slen,
-                  const void* cdf, int K, void* syms, long long n, int L,
-                  int P, void* cuda_stream, int device) {
-  int cdf_in_smem = 0;
-  const size_t bytes = smem_bytes(L, K, &cdf_in_smem);
-  auto kernel = ilans2_decode_kernel<W, S, CdfModel, false>;
-  if (!valid_args(L, P, K)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = prepare(kernel, device, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const int T = static_cast<int>((n + L - 1) / L);
-  const CdfModel model{nullptr, static_cast<const uint32_t*>(cdf), K,
-                       cdf_in_smem};
-  kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<typename StateOf<S>::type*>(states),
-      static_cast<const uint32_t*>(stream), slen, model,
-      static_cast<int32_t*>(syms), n, L, P, T, nullptr);
-  return static_cast<int>(cudaGetLastError());
+bool preset_args(int L, int P, int K) {
+  return valid_args(L, P, K) && P <= S - W;
 }
 
-template <int W, int S>
-int launch_encode(void* states, const void* syms, long long n, const void* cdf,
-                  int K, void* buf, long long cap, void* end_out, int L, int P,
-                  void* cuda_stream, int device) {
-  int cdf_in_smem = 0;
-  const size_t bytes = smem_bytes(L, K, &cdf_in_smem);
-  auto kernel = ilans2_encode_kernel<W, S, CdfModel>;
-  if (!valid_args(L, P, K)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = prepare(kernel, device, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const int T = static_cast<int>((n + L - 1) / L);
-  const CdfModel model{static_cast<const int32_t*>(syms),
-                       static_cast<const uint32_t*>(cdf), K, cdf_in_smem};
-  kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<typename StateOf<S>::type*>(states), model, n,
-      static_cast<uint32_t*>(buf), cap, static_cast<int64_t*>(end_out), L, P,
-      T);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The DEFAULT preset's cluster decode; `cluster` 0 picks the cluster size
-// from L.
+// The cluster decode; `cluster` 0 picks the cluster size from L.
 template <int W, int S>
 int launch_cluster_decode(void* states, const void* stream, long long slen,
                           const void* cdf, int K, void* syms, long long n,
                           int L, int P, int cluster, void* cuda_stream,
                           int device) {
-  if (!valid_args(L, P, K)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!preset_args<W, S>(L, P, K)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   BucketCdfModel model{static_cast<const uint32_t*>(cdf), K, 0, P, 0,
                        nullptr};
   const size_t bytes = bucket_smem_bytes(&model);
@@ -248,25 +188,28 @@ int launch_cluster_decode(void* states, const void* stream, long long slen,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The DEFAULT preset's encode, pass A: the division records of the CDF's
-// symbols into records[K], then the lanes.
+// The encode, pass A: the division records of the CDF's symbols into
+// records[K], then the lanes.
 template <int W, int S>
 int launch_encode_lanes(void* states, const void* syms, long long n,
                         const void* cdf, int K, void* words, void* flags,
                         void* records, int L, int P, void* cuda_stream,
                         int device) {
-  if (!valid_args(L, P, K)) return static_cast<int>(cudaErrorInvalidValue);
-  RecordCdfModel model{static_cast<const int32_t*>(syms),
-                       static_cast<const DivisionRecord*>(records), K, 0};
+  using Record = typename RecordOf<S>::type;
+  using Model = RecordCdfModel<Record>;
+  if (!preset_args<W, S>(L, P, K)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Model model{static_cast<const int32_t*>(syms),
+              static_cast<const Record*>(records), K, 0};
   const size_t bytes = record_smem_bytes(&model);
-  auto kernel = encode_lanes_kernel<W, S, RecordCdfModel>;
+  auto kernel = encode_lanes_kernel<W, S, Model>;
   cudaError_t err = prepare(kernel, device, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   const auto stream = static_cast<cudaStream_t>(cuda_stream);
-  division_records_kernel<<<ceil_div(K, 128), 128, 0, stream>>>(
-      static_cast<const uint32_t*>(cdf), K,
-      static_cast<DivisionRecord*>(records));
+  division_records_kernel<Record><<<ceil_div(K, 128), 128, 0, stream>>>(
+      static_cast<const uint32_t*>(cdf), K, static_cast<Record*>(records));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int T = static_cast<int>((n + L - 1) / L);
@@ -303,6 +246,49 @@ int launch_compact(const void* flags, const void* words, long long n_flags,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Both passes: words[T * L], flags[T * L / 32], offsets[kScanBlocks] (u64)
+// and records[K] are scratch the caller allocates.
+template <int W, int S>
+int launch_encode(void* states, const void* syms, long long n,
+                  const void* cdf, int K, void* buf, long long cap,
+                  void* end_out, void* words, void* flags, void* offsets,
+                  void* records, int L, int P, void* cuda_stream, int device) {
+  const int err = launch_encode_lanes<W, S>(states, syms, n, cdf, K, words,
+                                            flags, records, L, P, cuda_stream,
+                                            device);
+  if (err != 0 || n <= 0) return err;
+  const long long n_flags = (n + L - 1) / L * (L / 32);
+  return launch_compact(flags, words, n_flags, buf, cap, end_out, offsets,
+                        cuda_stream, device);
+}
+
+// The decode's and the encode's launch geometry for L lanes, K symbols and
+// precision P (`cluster` 0: the size the decode picks), into out[10]:
+// cluster size, groups per CTA, lanes per thread, threads per CTA, the
+// card's maximum of active clusters of that shape, the decode's dynamic
+// shared memory bytes, whether the CDF is in shared memory, the bucket
+// table's lut_bits; pass A's blocks and threads.
+template <int W, int S>
+int geometry(int L, int K, int P, int cluster, long long* out, int device) {
+  if (!preset_args<W, S>(L, P, K)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  BucketCdfModel model{nullptr, K, 0, P, 0, nullptr};
+  const size_t bytes = bucket_smem_bytes(&model);
+  ClusterGeometry geo;
+  ClusterDecodeFn<W, S, BucketCdfModel, false> kernel;
+  const cudaError_t err = plan_cluster_decode<W, S, BucketCdfModel, false>(
+      L, cluster, bytes, device, &geo, &kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long vals[10] = {geo.cluster, geo.groups_per_cta, geo.rows,
+                              geo.threads, geo.max_active_clusters,
+                              static_cast<long long>(bytes),
+                              model.cdf_in_smem, model.lut_bits,
+                              ceil_div(L, kLaneThreads), kLaneThreads};
+  for (int k = 0; k < 10; ++k) out[k] = vals[k];
+  return 0;
+}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes (constriction_tpu_torch/ops/_build.py).
@@ -313,8 +299,8 @@ extern "C" {
 int ctt_ilans2_decode_w16s32(void* states, const void* stream, long long slen,
                              const void* cdf, int K, void* syms, long long n,
                              int L, int P, void* cuda_stream, int device) {
-  return launch_decode<16, 32>(states, stream, slen, cdf, K, syms, n, L, P,
-                               cuda_stream, device);
+  return launch_cluster_decode<16, 32>(states, stream, slen, cdf, K, syms, n,
+                                       L, P, 0, cuda_stream, device);
 }
 
 int ctt_ilans2_decode_w32s64(void* states, const void* stream, long long slen,
@@ -324,7 +310,17 @@ int ctt_ilans2_decode_w32s64(void* states, const void* stream, long long slen,
                                        L, P, 0, cuda_stream, device);
 }
 
-// The same decode on a cluster of `cluster` CTAs (1 .. 16).
+// The same decodes on a cluster of `cluster` CTAs (1 .. 16).
+int ctt_ilans2_decode_cluster_w16s32(void* states, const void* stream,
+                                     long long slen, const void* cdf, int K,
+                                     void* syms, long long n, int L, int P,
+                                     int cluster, void* cuda_stream,
+                                     int device) {
+  if (cluster < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_cluster_decode<16, 32>(states, stream, slen, cdf, K, syms, n,
+                                       L, P, cluster, cuda_stream, device);
+}
+
 int ctt_ilans2_decode_cluster_w32s64(void* states, const void* stream,
                                      long long slen, const void* cdf, int K,
                                      void* syms, long long n, int L, int P,
@@ -335,57 +331,52 @@ int ctt_ilans2_decode_cluster_w32s64(void* states, const void* stream,
                                        L, P, cluster, cuda_stream, device);
 }
 
-// The decode's and the encode's launch geometry for L lanes and K symbols
-// at P=24 (`cluster` 0: the size the decode picks), into out[9]: cluster
-// size, groups per CTA, lanes per thread, threads per CTA, the card's
-// maximum of active clusters of that shape, the decode's dynamic shared
-// memory bytes, whether the CDF is in shared memory; pass A's blocks and
-// threads.
-int ctt_ilans2_geometry_w32s64(int L, int K, int cluster, long long* out,
-                               void* cuda_stream, int device) {
+int ctt_ilans2_geometry_w16s32(int L, int K, int P, int cluster,
+                               long long* out, void* cuda_stream,
+                               int device) {
   (void)cuda_stream;
-  if (!valid_args(L, 24, K)) return static_cast<int>(cudaErrorInvalidValue);
-  BucketCdfModel model{nullptr, K, 0, 24, 0, nullptr};
-  const size_t bytes = bucket_smem_bytes(&model);
-  const int cdf_in_smem = model.cdf_in_smem;
-  ClusterGeometry geo;
-  ClusterDecodeFn<32, 64, BucketCdfModel, false> kernel;
-  const cudaError_t err = plan_cluster_decode<32, 64, BucketCdfModel, false>(
-      L, cluster, bytes, device, &geo, &kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long vals[9] = {geo.cluster, geo.groups_per_cta, geo.rows,
-                             geo.threads, geo.max_active_clusters,
-                             static_cast<long long>(bytes), cdf_in_smem,
-                             ceil_div(L, kLaneThreads), kLaneThreads};
-  for (int k = 0; k < 9; ++k) out[k] = vals[k];
-  return 0;
+  return geometry<16, 32>(L, K, P, cluster, out, device);
 }
 
+int ctt_ilans2_geometry_w32s64(int L, int K, int P, int cluster,
+                               long long* out, void* cuda_stream,
+                               int device) {
+  (void)cuda_stream;
+  return geometry<32, 64>(L, K, P, cluster, out, device);
+}
+
+// Both passes of the encodes (records[K]: 8 bytes each at S=32, 16 at
+// S=64).
 int ctt_ilans2_encode_w16s32(void* states, const void* syms, long long n,
                              const void* cdf, int K, void* buf, long long cap,
-                             void* end_out, int L, int P, void* cuda_stream,
-                             int device) {
-  return launch_encode<16, 32>(states, syms, n, cdf, K, buf, cap, end_out, L,
-                               P, cuda_stream, device);
+                             void* end_out, void* words, void* flags,
+                             void* offsets, void* records, int L, int P,
+                             void* cuda_stream, int device) {
+  return launch_encode<16, 32>(states, syms, n, cdf, K, buf, cap, end_out,
+                               words, flags, offsets, records, L, P,
+                               cuda_stream, device);
 }
 
-// Both passes: words[T * L], flags[T * L / 32], offsets[kScanBlocks] (u64)
-// and records[K] (16 bytes each) are scratch the caller allocates.
 int ctt_ilans2_encode_w32s64(void* states, const void* syms, long long n,
                              const void* cdf, int K, void* buf, long long cap,
                              void* end_out, void* words, void* flags,
                              void* offsets, void* records, int L, int P,
                              void* cuda_stream, int device) {
-  const int err = launch_encode_lanes<32, 64>(states, syms, n, cdf, K, words,
-                                              flags, records, L, P,
-                                              cuda_stream, device);
-  if (err != 0 || n <= 0) return err;
-  const long long n_flags = (n + L - 1) / L * (L / 32);
-  return launch_compact(flags, words, n_flags, buf, cap, end_out, offsets,
-                        cuda_stream, device);
+  return launch_encode<32, 64>(states, syms, n, cdf, K, buf, cap, end_out,
+                               words, flags, offsets, records, L, P,
+                               cuda_stream, device);
 }
 
 // Pass A alone (records[K] is scratch).
+int ctt_ilans2_encode_lanes_w16s32(void* states, const void* syms,
+                                   long long n, const void* cdf, int K,
+                                   void* words, void* flags, void* records,
+                                   int L, int P, void* cuda_stream,
+                                   int device) {
+  return launch_encode_lanes<16, 32>(states, syms, n, cdf, K, words, flags,
+                                     records, L, P, cuda_stream, device);
+}
+
 int ctt_ilans2_encode_lanes_w32s64(void* states, const void* syms,
                                    long long n, const void* cdf, int K,
                                    void* words, void* flags, void* records,
@@ -395,7 +386,7 @@ int ctt_ilans2_encode_lanes_w32s64(void* states, const void* syms,
                                      records, L, P, cuda_stream, device);
 }
 
-// Pass B alone (any preset: one word per u32).
+// Pass B alone (either preset: one word per u32).
 int ctt_ilans2_compact(const void* flags, const void* words, long long n_flags,
                        void* buf, long long cap, void* end_out, void* offsets,
                        void* cuda_stream, int device) {

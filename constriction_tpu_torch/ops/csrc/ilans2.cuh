@@ -1,12 +1,18 @@
-// The single-block ILANS2 decode and encode loops on Hopper (sm_90a), shared
-// by the coders whose model is a table lookup: ilans2.cu's small preset
-// (W=16, S=32, one CDF for every symbol) and exact_family.cu (the
-// reference-exact families: per-symbol (cum, prob) planes when encoding,
-// packed per-symbol decode tables when decoding).  One block codes the
-// whole message; ilans2.cu's header comment says what bounds it.  The
-// loops are templated on the preset (W, S) and on a model policy, as are
-// ilans2_wide.cuh's cluster decode and two-pass encode, which run the
-// DEFAULT preset's categorical coder and take the same model policies.
+// The single-block ILANS2 decode and encode loops on Hopper (sm_90a), used
+// by exact_family.cu (the reference-exact families, kernels 13-17:
+// per-symbol (cum, prob) planes when encoding, packed per-symbol decode
+// tables when decoding).  One block of 1024 threads codes the whole
+// message: per step each warp ballots its 32 lanes' flags, a block scan
+// turns the per-warp popcounts into group offsets, and each thread walks
+// its lanes one after another (lane = row * 1024 + thread), loading and
+// storing each lane state in device memory once per step.  On an H100 a
+// step costs about 1.5 us at L = 128 and 1.0-1.5 us more per 1024 lanes
+// (chip_smoke.py, sweep): the lane loop's latency on one SM, not the
+// barriers, bounds it.  The loops are templated on the preset (W, S) and
+// on a model policy, as are ilans2_wide.cuh's cluster decode and two-pass
+// encode, which run the categorical coder (ilans2.cu) at both presets; a
+// model moves there by providing that header's invert_lanes or fetch /
+// interval.
 //
 // A decode model provides
 //   __device__ void stage(uint32_t* smem_cdf);   // before the first step

@@ -2,21 +2,22 @@
 // decode that runs the lanes on a cluster of CTAs with each lane's state in
 // a register for the whole message, and an encode split into a lane-parallel
 // pass over the whole grid and a row-major compaction of the emitted words.
-// ilans2.cu instantiates them for the DEFAULT preset's categorical coder
-// (W=32, S=64, one CDF).  Like ilans2.cuh's single-block loops they are
-// templated on (W, S, Model), so the coders that still run those (the
-// W=16/S=32 pair, exact_family.cu's table and plane models) can move here
-// by instantiation once their models provide, besides stage():
+// ilans2.cu instantiates them for the categorical coder at both presets
+// (W=32/S=64 and W=16/S=32, one CDF).  Like ilans2.cuh's single-block loops
+// they are templated on (W, S, Model), so the coders that still run those
+// (exact_family.cu's table and plane models) can move here by instantiation
+// once their models provide, besides stage():
 //   decode: template <int R> invert_lanes(t, l[R], q[R], sym[R], cum[R],
 //           prob[R]) -- the R quantiles of one thread at once;
 //   encode: Token fetch(i) and Interval interval(Token) -- the device-
 //           memory read of symbol i's model, issued a step before the
-//           (shared-memory) interval is needed; an Interval has cum,
+//           (shared-memory) interval is needed; an Interval has cum(),
 //           prob(), divide(x) (x / prob) and a static unit() (cum 0,
 //           prob 1).
 // ilans2.cu's BucketCdfModel (decode: a bucket table in front of the CDF
-// search) and RecordCdfModel (encode: DivisionRecord, the division as a
-// multiply-high) provide them.
+// search) and RecordCdfModel (encode: a division record per symbol, the
+// division as a multiply-high; DivisionRecord at S=64, DivisionRecord32 at
+// S=32) provide them.
 //
 // Decode (cluster_decode_kernel).  A decode step needs the exclusive count of
 // refilling lanes below each lane over all L lanes, and that count depends on
@@ -44,8 +45,8 @@
 // decision and next state depend on its own state and symbol only; the lanes
 // meet only in where their words land in the stream.  Pass A: one thread per
 // lane over the grid runs its lane through steps T-1 .. 0 in registers (the
-// model's division: a multiply-high in place of a 64-bit division by software),
-// writes each emitted word to a dense scratch words[t * L + l] and one warp
+// model's division: a multiply-high in place of the card's integer division,
+// which is a software routine at 32 and 64 bits), writes each emitted word to a dense scratch words[t * L + l] and one warp
 // ballot of renorm flags per (step, group) to flags[t * G + g]; no barrier
 // inside the step loop.  Pass B: an exclusive scan of popc(flags) in row-major
 // order (step ascending, group ascending: the decoder's consumption order) by
@@ -53,7 +54,7 @@
 // (compact_offsets_kernel) and a scan within each block that scatters the
 // flagged words (compact_scatter_kernel).  Word k of the stream lands at
 // buf[cap - total + k], so the stream is buf[*end_out : cap] as with the
-// single-block encoder.
+// single-block encoder.  Pass B moves one word per u32 whatever W is.
 
 #pragma once
 
@@ -78,7 +79,7 @@ constexpr int kScanThreads = 256;  // threads of a compaction block
 constexpr int kScanPer = 8;  // flag words a compaction thread scans a tile
 constexpr int kScanTile = kScanThreads * kScanPer;
 // compaction blocks at most; the wrapper sizes the offsets scratch by it
-// (constriction_tpu_torch/ops/coder64.py, SCAN_BLOCKS)
+// (constriction_tpu_torch/ops/coder.py, SCAN_BLOCKS)
 constexpr int kScanBlocks = 1024;
 
 __device__ __forceinline__ void cluster_barrier() {
@@ -99,20 +100,50 @@ __device__ __forceinline__ uint32_t warp_inclusive_scan(uint32_t v,
   return v;
 }
 
+// floor(2^N rem / prob) for rem < prob, by N steps of shift and subtract
+// (U: the N-bit result type).
+template <typename U>
+__device__ U scaled_quotient(uint32_t rem, uint32_t prob) {
+  U q = 0;
+  for (int k = 0; k < 8 * static_cast<int>(sizeof(U)); ++k) {
+    rem <<= 1;  // rem < prob <= 2^24 before the shift
+    q <<= 1;
+    if (rem >= prob) {
+      rem -= prob;
+      q |= 1;
+    }
+  }
+  return q;
+}
+
+__device__ __forceinline__ int ceil_log2(uint32_t prob) {
+  return prob > 1 ? 32 - __clz(prob - 1) : 0;
+}
+
 // A symbol's interval for the encode, with the division by its probability
 // as a multiply-high (Granlund and Montgomery, "Division by invariant
-// integers using multiplication", 1994, fig. 4.1): for 1 <= prob <= 2^24
-// and l = ceil(log2 prob), magic = floor(2^64 (2^l - prob) / prob) + 1 and
+// integers using multiplication", 1994, fig. 4.1): for N-bit states,
+// 1 <= prob <= 2^24 and l = ceil(log2 prob), magic = floor(2^N (2^l - prob)
+// / prob) + 1 < 2^N and
 //   x / prob = (t + ((x - t) >> min(l, 1))) >> max(l - 1, 0),
-//   t = mulhi64(magic, x),
-// for every 64-bit x (constriction_tpu_torch/ops/coder64.py holds the same
-// arithmetic exact against integer division, division_magic).
+//   t = mulhi_N(magic, x),
+// for every N-bit x (constriction_tpu_torch/ops/coder64.py and coder.py
+// hold the same arithmetic exact against integer division, division_magic
+// and division_magic32).  This record is the S=64 one (N = 64).
 struct __align__(16) DivisionRecord {
   uint64_t magic;
-  uint32_t cum;
+  uint32_t start;  // cum
   uint32_t prob_log;  // prob | l << 25
 
   __device__ static DivisionRecord unit() { return {1, 0, 1}; }
+  // prob 0 gives a record that is never used: callers validate symbols
+  __device__ static DivisionRecord build(uint32_t cum, uint32_t prob) {
+    const int l = ceil_log2(prob);
+    const uint64_t q =
+        prob > 0 ? scaled_quotient<uint64_t>((1u << l) - prob, prob) : 0;
+    return {q + 1, cum, prob | (static_cast<uint32_t>(l) << 25)};
+  }
+  __device__ uint32_t cum() const { return start; }
   __device__ uint32_t prob() const { return prob_log & ((1u << 25) - 1u); }
   __device__ uint64_t divide(uint64_t x) const {
     const int l = static_cast<int>(prob_log >> 25);
@@ -121,25 +152,49 @@ struct __align__(16) DivisionRecord {
   }
 };
 
-// The division record of each of the K symbols of a CDF (prob 0 gives a
-// record that is never used: callers validate their symbols).
+// The S=32 record (N = 32, 1 <= prob <= 2^16, cum < 2^16): the state never
+// needs 64 bits, so the division is one __umulhi in place of
+// __umul64hi's several 32-bit multiplies, a short link in pass A's chain of
+// dependent steps; 8 bytes a record, l recomputed from prob.
+struct __align__(8) DivisionRecord32 {
+  uint32_t magic;
+  uint32_t cum_prob;  // cum | (prob - 1) << 16
+
+  __device__ static DivisionRecord32 unit() { return {1, 0}; }
+  __device__ static DivisionRecord32 build(uint32_t cum, uint32_t prob) {
+    const int l = ceil_log2(prob);
+    const uint32_t q =
+        prob > 0 ? scaled_quotient<uint32_t>((1u << l) - prob, prob) : 0;
+    return {q + 1, (cum & 0xFFFFu) | ((prob - 1) << 16)};
+  }
+  __device__ uint32_t cum() const { return cum_prob & 0xFFFFu; }
+  __device__ uint32_t prob() const { return (cum_prob >> 16) + 1; }
+  __device__ uint32_t divide(uint32_t x) const {
+    const int l = ceil_log2(prob());
+    const uint32_t t = __umulhi(magic, x);
+    return (t + ((x - t) >> (l > 0 ? 1 : 0))) >> (l > 0 ? l - 1 : 0);
+  }
+};
+
+template <int S>
+struct RecordOf;
+template <>
+struct RecordOf<32> {
+  using type = DivisionRecord32;
+};
+template <>
+struct RecordOf<64> {
+  using type = DivisionRecord;
+};
+
+// The division record of each of the K symbols of a CDF.
+template <class Record>
 __global__ void __launch_bounds__(128)
     division_records_kernel(const uint32_t* __restrict__ cdf, int K,
-                            DivisionRecord* __restrict__ out) {
+                            Record* __restrict__ out) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= K) return;
-  const uint32_t cum = cdf[s], prob = cdf[s + 1] - cum;
-  const int l = prob > 1 ? 32 - __clz(prob - 1) : 0;
-  uint64_t rem = (uint64_t(1) << l) - prob, q = 0;  // rem < prob
-  for (int k = 0; k < 64 && prob > 0; ++k) {  // floor(rem 2^64 / prob)
-    rem <<= 1;
-    q <<= 1;
-    if (rem >= prob) {
-      rem -= prob;
-      q |= 1;
-    }
-  }
-  out[s] = DivisionRecord{q + 1, cum, prob | (static_cast<uint32_t>(l) << 25)};
+  out[s] = Record::build(cdf[s], cdf[s + 1] - cdf[s]);
 }
 
 // Decode n symbols on a cluster of CTAs.  states[L]: initial decoder states
@@ -303,7 +358,7 @@ __global__ void __launch_bounds__(kLaneThreads)
     if (lane == 0) flags[static_cast<int64_t>(t) * G + g] = bal;
     if (active) {  // (x / prob) << P | (cum + x % prob)
       const State q = cur.divide(x);
-      x = (q << P) | static_cast<State>(cur.cum + (x - q * prob));
+      x = (q << P) | static_cast<State>(cur.cum() + (x - q * prob));
     }
     cur = following;
     next = after;

@@ -5,18 +5,17 @@
 // ranks when decoding, emission offsets when encoding).  Two designs use
 // what is here:
 //
-// - The single-block coders: ilans2.cuh's loops at W=16/S=32 (ilans2.cu's
-//   small preset, kernels 3 and 4) and over exact_family.cu's table and
-//   plane models (kernels 13-17), ilans2_range.cu (range coding),
-//   ilans2_family.cu (per-symbol families) and tchain.cu (bits-back).  One
-//   block of kThreads threads codes the message; the prefix comes from a
-//   warp ballot per 32 lanes, a block scan of the per-warp popcounts
-//   (scan_groups, over the Smem carve-up below) and a popc of the ballot
-//   below the lane.
+// - The single-block coders: ilans2.cuh's loops over exact_family.cu's
+//   table and plane models (kernels 13-17), ilans2_range.cu (range
+//   coding), ilans2_family.cu (per-symbol families) and tchain.cu
+//   (bits-back).  One block of kThreads threads codes the message; the
+//   prefix comes from a warp ballot per 32 lanes, a block scan of the
+//   per-warp popcounts (scan_groups, over the Smem carve-up below) and a
+//   popc of the ballot below the lane.
 // - ilans2_wide.cuh's cluster decode and two-pass encode (ilans2.cu's
-//   DEFAULT preset, kernels 1 and 2), which take StateOf, the CDF staging,
-//   the symbol search, valid_args and prepare from here and scan across
-//   CTAs themselves.
+//   categorical coder at both presets, kernels 1-4), which take StateOf,
+//   the CDF staging, the symbol search, valid_args and prepare from here
+//   and scan across CTAs themselves.
 //
 // Also here: the CDF staging (shared memory when it fits, device memory
 // otherwise) and the quantile -> symbol search.

@@ -203,7 +203,7 @@ def _wide_encode(syms, cdf, cfg, seeds):
     """Kernel 2 at any L that is a multiple of 32 (the wrapper takes
     multiples of 128)."""
     states = coder._encode_args(syms, cdf, cfg, seeds, torch.int64)
-    return coder64._launch_encode64(syms, cdf, cfg, states)
+    return coder._launch_encode("w32s64", syms, cdf, cfg, states)
 
 
 def _wide_pair(L, n, kind, seeded, dev, seed):
@@ -301,7 +301,7 @@ def test_encode_passes_match_plain_passes(dev, L, T, seeded):
     syms = torch.from_numpy(sample(n).astype(np.int32)).to(dev)
     cdf = convert.cdf_to_torch(cdf_np, dev)
     seeds = _seeds(rng, cfg, dev) if seeded else None
-    before = dict(coder64.LAUNCHES)
+    before, compacts = dict(coder64.LAUNCHES), coder.LAUNCHES["compact"]
     words, ballots, st = coder64.lanes_pass64(syms, cdf, cfg, seeds)
     w_p, f_p, st_p = coder64.lanes_pass64_plain(syms, cdf, cfg, seeds)
     assert torch.equal(st, st_p)
@@ -313,7 +313,7 @@ def test_encode_passes_match_plain_passes(dev, L, T, seeded):
     assert torch.equal(stream_p, coder64.encode_iid64_plain(
         syms, cdf, cfg, seeds)[1])
     assert coder64.LAUNCHES["encode_lanes"] == before["encode_lanes"] + 1
-    assert coder64.LAUNCHES["compact"] == before["compact"] + 2
+    assert coder.LAUNCHES["compact"] == compacts + 2
 
 
 def test_compaction_spans_many_tiles_a_block(dev):
@@ -326,6 +326,190 @@ def test_compaction_spans_many_tiles_a_block(dev):
         .astype(np.int32)).to(dev)
     out = coder64.compact_pass(words, coder64.flag_ballots(flags))
     assert torch.equal(out, coder64.compact_pass_plain(words, flags))
+
+
+# --- the small preset's pair on the same design: the cluster decode (kernel
+# 4) and the two-pass encode with a 32-bit reciprocal (kernel 3) ----------
+
+
+def _wide32_model(P, K, rng):
+    """(cdf u32, symbol sampler) at S=32: K=1 (prob = 2^P), two symbols at
+    P=1, else K Dirichlet(2) symbols at P."""
+    if K == 1:
+        return np.array([0, 1 << P], np.uint32), lambda n: np.zeros(
+            n, np.int64)
+    if P == 1:
+        return np.array([0, 1, 2], np.uint32), lambda n: rng.randint(0, 2, n)
+    cdf, probs = _cdf(K, P, seed=P + K)
+    return cdf, lambda n: rng.choice(K, size=n, p=probs)
+
+
+def _wide32_pair(L, n, P, seeded, dev, seed, K=100):
+    """Kernels 3 and 4 at any L that is a multiple of 32 against their
+    twins and the JAX package's host oracle; returns (cfg, cdf, states,
+    stream)."""
+    rng = np.random.RandomState(seed)
+    cdf_np, sample = _wide32_model(P, K, rng)
+    cfg = _cfg(32, L, P)
+    syms = torch.from_numpy(sample(n).astype(np.int32)).to(dev)
+    cdf = convert.cdf_to_torch(cdf_np, dev)
+    seeds = _seeds(rng, cfg, dev) if seeded else None
+    states = coder._encode_args(syms, cdf, cfg, seeds, torch.int32)
+    before = dict(coder.LAUNCHES)
+    st, w = coder._launch_encode("w16s32", syms, cdf, cfg, states)
+    st_p, w_p = coder.encode_iid_plain(syms, cdf, cfg, seeds)
+    assert torch.equal(st, st_p) and torch.equal(w, w_p)
+    out, fin = coder._launch_decode("w16s32", st, w, cdf, cfg, n)
+    out_p, fin_p = coder.decode_shared_plain(st, w, cdf, cfg, n,
+                                             return_final_states=True)
+    assert torch.equal(out, out_p) and torch.equal(fin, fin_p)
+    assert torch.equal(out, syms)
+    _check_oracle(cfg, syms, cdf, seeds, st, w, out, fin)
+    assert coder.LAUNCHES == before  # the launch helpers count nothing
+    return cfg, cdf, st, w
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("size", ["one", "steps"])
+@pytest.mark.parametrize("P", [1, 8, 12, 16])
+@pytest.mark.parametrize("L", [32, 96, 4096, 32768, 65536])
+def test_wide32_kernels_match_twins_and_oracle(dev, L, P, size, seeded):
+    n = {"one": 1, "steps": 3 * L + L // 3 + 5}[size]
+    _wide32_pair(L, n, P, seeded, dev, seed=L + n + P)
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("P", [12, 16])
+def test_wide32_kernels_at_one_symbol(dev, P, seeded):
+    """K=1: prob = 2^P, the largest probability the division takes."""
+    _wide32_pair(1024, 5 * 1024 - 77, P, seeded, dev, seed=41, K=1)
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_wide32_large_alphabet_misses_shared_memory(dev, seeded):
+    """60000 symbols at P=16: the CDF stays in device memory behind the
+    bucket table, the 480 KB of division records too."""
+    geo = coder.geometry(4096, 60_000, 16, dev)
+    assert geo["cdf_in_smem"] == 0 and geo["lut_bits"] == 12
+    _wide32_pair(4096, 20_000, 16, seeded, dev, seed=43, K=60_000)
+
+
+def test_wide32_decode_runs_as_a_cluster_at_bench_lanes(dev):
+    for L in (32768, 65536):
+        for P in (12, 16):
+            geo = coder.geometry(L, 100, P, dev)
+            assert geo["cluster"] > 1 and geo["max_active_clusters"] >= 1
+            assert geo["lut_bits"] == 12 and geo["cdf_in_smem"] == 1
+            assert geo["lanes_per_thread"] * geo["threads_per_cta"] // 32 \
+                >= geo["groups_per_cta"]
+            assert geo["encode_blocks"] * geo["encode_threads"] >= L
+    assert coder.geometry(32768, 100, 8, dev)["lut_bits"] == 8
+
+
+@pytest.mark.parametrize("L,cluster", [
+    (128, 16), (96, 4), (2080, 16), (32000, 16), (4096, 2), (32768, 1),
+    (32768, 8), (65536, 16)])
+def test_cluster32_partitions_match_twin(dev, L, cluster):
+    """Forced cluster sizes at S=32: groups that do not divide evenly over
+    the CTAs, CTAs left with no lanes (128/16, 96/4, 2080/16), one CTA
+    holding 32 lanes a thread (32768/1)."""
+    geo = coder.geometry(L, 100, 12, dev, cluster=cluster)
+    assert geo["cluster"] == cluster
+    busy = -(-(L // 32) // geo["groups_per_cta"])
+    if (L, cluster) in ((128, 16), (96, 4), (2080, 16)):
+        assert busy < cluster
+    for n in (1, L - 5, 2 * L + 7):
+        cfg, cdf, st, w = _wide32_pair(L, n, 12, True, dev, seed=L + n)
+        before = coder.LAUNCHES["decode"]
+        out, fin = coder.decode_shared_cluster(st, w, cdf, cfg, n, cluster)
+        assert coder.LAUNCHES["decode"] == before + 1
+        out_p, fin_p = coder.decode_shared_plain(st, w, cdf, cfg, n,
+                                                 return_final_states=True)
+        assert torch.equal(out, out_p) and torch.equal(fin, fin_p)
+
+
+@pytest.mark.parametrize("L,P", [(4096, 12), (32768, 16)])
+def test_wide32_decode_truncated_stream_zero_fills(dev, L, P):
+    n = 3 * L + 11
+    cfg, cdf, st, w = _wide32_pair(L, n, P, True, dev, seed=L)
+    cut = w[: w.numel() // 3].clone()
+    out, fin = coder.decode_shared(st, cut, cdf, cfg, n,
+                                   return_final_states=True)
+    out_p, fin_p = coder.decode_shared_plain(st, cut, cdf, cfg, n,
+                                             return_final_states=True)
+    assert torch.equal(out, out_p) and torch.equal(fin, fin_p)
+    out_h, fin_h = il2.decode_shared_cdf(
+        convert.states_from_torch(st, cfg), convert.u32_from_torch(cut), n,
+        cdf.cpu().numpy(), cfg, return_final_states=True)
+    np.testing.assert_array_equal(out.cpu().numpy(), out_h)
+    np.testing.assert_array_equal(convert.states_from_torch(fin, cfg), fin_h)
+
+
+@pytest.mark.parametrize("L,T,P,seeded", [
+    (96, 50, 12, True), (4096, 20, 16, True), (32768, 6, 12, False),
+    (32768, 4, 1, True)])
+def test_encode32_passes_match_plain_passes(dev, L, T, P, seeded):
+    """Pass A's final states, ballots and the words it flags, and pass B's
+    stream, each against the plain pass on the same inputs."""
+    rng = np.random.RandomState(L + T + P)
+    cdf_np, sample = _wide32_model(P, 100, rng)
+    cfg = _cfg(32, L, P)
+    n = T * L - L // 3
+    syms = torch.from_numpy(sample(n).astype(np.int32)).to(dev)
+    cdf = convert.cdf_to_torch(cdf_np, dev)
+    seeds = _seeds(rng, cfg, dev) if seeded else None
+    before = dict(coder.LAUNCHES)
+    words, ballots, st = coder.lanes_pass32(syms, cdf, cfg, seeds)
+    w_p, f_p, st_p = coder.lanes_pass32_plain(syms, cdf, cfg, seeds)
+    assert torch.equal(st, st_p)
+    assert torch.equal(ballots, coder.flag_ballots(f_p))
+    assert torch.equal(words[f_p], w_p[f_p])
+    stream_p = coder.compact_pass_plain(w_p, f_p)
+    assert torch.equal(coder.compact_pass(words, ballots), stream_p)
+    assert torch.equal(stream_p, coder.encode_iid_plain(
+        syms, cdf, cfg, seeds)[1])
+    assert coder.LAUNCHES["encode_lanes"] == before["encode_lanes"] + 1
+    assert coder.LAUNCHES["compact"] == before["compact"] + 1
+
+
+def test_compaction32_spans_many_tiles_a_block(dev):
+    """2.25M ballots of 16-bit words at S=32's emit rate: each compaction
+    block scans two tiles."""
+    T, L = 1100, 65536
+    rng = np.random.RandomState(22)
+    flags = torch.from_numpy(rng.random_sample((T, L)) < 0.38).to(dev)
+    words = torch.from_numpy(
+        rng.randint(0, 1 << 16, size=(T, L)).astype(np.int32)).to(dev)
+    out = coder.compact_pass(words, coder.flag_ballots(flags))
+    assert torch.equal(out, coder.compact_pass_plain(words, flags))
+
+
+@pytest.mark.parametrize("S", [32, 64])
+def test_decode_lanes_at_and_past_the_cluster_reach(dev, S):
+    """16 CTAs x 1024 threads x 32 lanes a thread is the decode's reach:
+    L = 524288 decodes like the twin, 128 more lanes raise with the limit
+    named, and launch nothing."""
+    enc, dec, _, dec_p, launches = PRESETS[S]
+    P = 12 if S == 32 else 24
+    cdf_np, probs = _cdf(100, P, seed=5)
+    cdf = convert.cdf_to_torch(cdf_np, dev)
+    rng = np.random.RandomState(S)
+    L = coder.MAX_DECODE_LANES
+    syms = torch.from_numpy(
+        rng.choice(100, size=L + 99, p=probs).astype(np.int32)).to(dev)
+    cfg = _cfg(S, L, P)
+    st, w = enc(syms, cdf, cfg)
+    out, fin = dec(st, w, cdf, cfg, syms.numel(), return_final_states=True)
+    out_p, fin_p = dec_p(st, w, cdf, cfg, syms.numel(),
+                         return_final_states=True)
+    assert torch.equal(out, syms) and torch.equal(out, out_p)
+    assert torch.equal(fin, fin_p)
+    cfg = _cfg(S, L + 128, P)
+    st, w = enc(syms, cdf, cfg)
+    before = dict(launches)
+    with pytest.raises(ValueError, match=f"at most {L} lanes"):
+        dec(st, w, cdf, cfg, syms.numel())
+    assert launches == before
 
 
 # --- the range coder (ILANS2-R): phase A, phase B and decode kernels -------
@@ -665,7 +849,7 @@ def test_family_facade_cuda_matches_cpu(dev):
 
 
 @pytest.mark.parametrize("P,compact", [(24, True), (24, False), (12, True),
-                                       (12, False)])
+                                       (12, False), (16, True)])
 def test_decode_from_checkpoint_on_the_card(dev, P, compact):
     cdf, probs = _cdf(100, P, seed=6)
     symbols = np.random.RandomState(7).choice(100, size=60_000, p=probs)
