@@ -1,18 +1,35 @@
 #!/usr/bin/env python3
-"""The DEFAULT-preset rANS decode (kernel 1, the cluster decode) timed in
-several checkouts on one card, one after another in the order given.
+"""Six coding kernels timed in several checkouts on one card, one checkout
+after another in the order given.
 
     git archive <commit> | tar -x -C _scratch/parent
     python3 chip_ab.py _scratch/parent . . _scratch/parent
+    python3 chip_ab.py --kernels 1,4 _scratch/parent . . _scratch/parent
 
 Each checkout runs in a process of its own (the packages share a name),
-builds its kernels, codes bench.py's workload (2^25 symbols, K=100,
-Dirichlet(2), seed 1234) at W=32/S=64, L=32768, P=24 and P=12, checks the
-decode against the symbols, and prints one JSON line: the checkout and,
-for each P, five CUDA-event timings of ten decode launches each (ms per
-launch).  Give the checkouts in turns (parent, change, change, parent) to
-compare two versions within one call.  Needs a CUDA device; exits
-non-zero without one.
+builds its kernels and times, on the same inputs:
+
+- kernels 1 and 2, the DEFAULT-preset rANS decode and encode (W=32/S=64),
+  and kernels 4 and 3, the small preset's (W=16/S=32), on bench.py's
+  workload (2^25 symbols, K=100, Dirichlet(2), seed 1234) at L=32768:
+  kernels 1 and 2 at P=24 and P=12, kernels 3 and 4 at P=12 (an encode
+  timed as its whole call, as chip_smoke.py times it, and as its C entry
+  alone: both passes on preallocated scratch, no read-back);
+- kernel 5, the S=64 range decode, on the same symbols at L=32768 and
+  L=65536 (2 and 4 lanes a thread), P=24;
+- kernel 15, the S=64 reference-exact table decode, on the JAX suite's
+  exact row (2^22 synthetic symbols, gaussian, [-100, 100], P=24) at
+  L=32768 and L=65536, over tables built on the card at the ungrouped
+  core bound.
+
+``--kernels`` picks some of them (1 to 4 go together).  Each decode is
+checked against the symbols first, each encode entry against its call's
+states and stream.  A checkout prints one
+JSON line: its path and, per kernel, five timings of ten launches (ms per
+launch; the encodes' C entries and kernels 5 and 15 reset their in-place
+states or planes before each launch, outside the CUDA events around it).  Give the checkouts in turns
+(parent, change, change, parent) to compare two versions within one call.
+Needs a CUDA device; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -23,19 +40,59 @@ import subprocess
 import sys
 
 N = 1 << 25
+N_EXACT = 1 << 22
 K = 100
 LANES = 32768
 REPS, LAUNCHES = 5, 10
 
 
-def time_decodes(root: str) -> dict:
+def _events_ms(launch, reset=None) -> list:
+    """REPS samples of the mean ms of LAUNCHES launches: CUDA events
+    around the whole run, or around each launch when ``reset`` restores
+    state first."""
+    import torch
+
+    launch()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(REPS):
+        total = 0.0
+        for _ in range(1 if reset is None else LAUNCHES):
+            if reset is not None:
+                reset()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(LAUNCHES if reset is None else 1):
+                launch()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        out.append(total / LAUNCHES)
+    return out
+
+
+def _exact_workload(n: int):
+    """chip_smoke.py's exact row: the JAX suite's synthetic latents."""
+    import numpy as np
+
+    rng = np.random.RandomState(1234)
+    lat = rng.randn(512 * 512) * 0.15
+    means = np.tile(lat * 50.0, -(-n // len(lat)))[:n]
+    scales = np.exp(rng.normal(0.7, 0.4, size=n))
+    symbols = np.clip(np.round(means + scales * rng.randn(n)), -100, 100
+                      ).astype(np.int64)
+    return means, scales, symbols
+
+
+def time_decodes(root: str, kernels: set) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
 
     from constriction_tpu_torch import convert
     from constriction_tpu_torch.models import fast_quantized_cdf
-    from constriction_tpu_torch.ops import _build, coder64
+    from constriction_tpu_torch.ops import _build, coder, coder64
     from constriction_tpu_torch.ops.interleaved import LaneConfig
 
     if not torch.cuda.is_available():
@@ -47,38 +104,167 @@ def time_decodes(root: str) -> dict:
     syms = torch.from_numpy(
         rng.choice(K, size=N, p=probs).astype(np.int32)).to(dev)
     out = {"root": root}
-    for P in (24, 12):
+
+    def check(got, want, what):
+        if not torch.equal(got, want):
+            sys.exit(f"chip_ab: {root} codes wrong output ({what})")
+
+    # kernels 1 to 4
+    rans = ((32, 64, 24, coder64.encode_iid64, coder64.decode_shared64),
+            (32, 64, 12, coder64.encode_iid64, coder64.decode_shared64),
+            (16, 32, 12, coder.encode_iid, coder.decode_shared))
+    for W, S, P, enc, dec in rans if kernels & {1, 2, 3, 4} else ():
         cdf = convert.cdf_to_torch(fast_quantized_cdf(probs, P), dev)
-        cfg = LaneConfig(num_lanes=LANES, word_bits=32, state_bits=64,
+        cfg = LaneConfig(num_lanes=LANES, word_bits=W, state_bits=S,
                          precision=P)
-        st, w = coder64.encode_iid64(syms, cdf, cfg)
-        if not torch.equal(coder64.decode_shared64(st, w, cdf, cfg, N),
-                           syms):
-            sys.exit(f"chip_ab: {root} decodes wrong symbols at P={P}")
-        torch.cuda.synchronize()
-        ms = []
-        for _ in range(REPS):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(LAUNCHES):
-                coder64.decode_shared64(st, w, cdf, cfg, N)
-            end.record()
-            end.synchronize()
-            ms.append(start.elapsed_time(end) / LAUNCHES)
-        out[f"decode_P{P}_ms"] = ms
+        st, w = enc(syms, cdf, cfg)
+        check(dec(st, w, cdf, cfg, N), syms, f"w{W}s{S} P={P}")
+        suffix = "" if S == 64 else "_w16s32"
+        out[f"decode{suffix}_P{P}_ms"] = _events_ms(
+            lambda: dec(st, w, cdf, cfg, N))
+        out[f"encode{suffix}_P{P}_ms"] = _events_ms(
+            lambda: enc(syms, cdf, cfg))
+        _time_encode_entry(out, f"encode_entry{suffix}_P{P}_ms", syms, cdf,
+                           cfg, st, w, check)
+    if 5 in kernels:
+        _time_range(out, syms, probs, check)
+    if 15 in kernels:
+        _time_exact(out, check)
     return out
 
 
+def _time_encode_entry(out, key, syms, cdf, cfg, st, w, check):
+    """An encode's C entry alone (both passes, no read-back) into
+    ``out[key]``, on preallocated scratch, the start states reset outside
+    the CUDA events; its states and stream must equal the call's."""
+    import torch
+
+    from constriction_tpu_torch.ops import _build, coder
+
+    dev = syms.device
+    L, W, S = cfg.num_lanes, cfg.word_bits, cfg.state_bits
+    T = -(-N // L)
+    cdf32 = cdf.to(torch.int32)
+    states = torch.empty_like(st)
+    buf = torch.empty(N, dtype=torch.int32, device=dev)
+    end = torch.empty(1, dtype=torch.int64, device=dev)
+    scratch = (torch.empty(T * L, dtype=torch.int32, device=dev),
+               torch.empty(T * L // 32, dtype=torch.int32, device=dev),
+               torch.empty(coder.SCAN_BLOCKS, dtype=torch.int64, device=dev),
+               coder._records(cdf32, cfg))
+
+    def reset():
+        states.fill_(1 << (S - W))
+
+    def launch():
+        _build.call(f"ctt_ilans2_encode_w{W}s{S}", dev, states, syms, N, cdf32,
+                    K, buf, N, end, *scratch, L, cfg.precision)
+
+    reset()
+    launch()
+    check(states, st, key)
+    check(buf[int(end.item()):], w, key)
+    out[key] = _events_ms(launch, reset)
+
+
+def _time_range(out, syms, probs, check):
+    """Kernel 5 into ``out``: the C entry on preallocated planes."""
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.models import fast_quantized_cdf
+    from constriction_tpu_torch.ops import _build, range_enc
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    dev = syms.device
+    cdf = convert.cdf_to_torch(fast_quantized_cdf(probs, 24), dev)
+    cdf32 = cdf.to(torch.int32)
+    for lanes in (LANES, 2 * LANES):
+        cfg = LaneConfig(num_lanes=lanes, word_bits=32, state_bits=64,
+                         precision=24)
+        recs, low_f, rng_f = range_enc.record(syms, cdf, cfg)
+        s0, carry = range_enc.seal(low_f, rng_f, cfg)
+        pts, words = range_enc.resolve(recs, s0, carry, cfg, N)
+        del recs
+        planes = [torch.empty_like(pts) for _ in range(3)]
+        o_buf = torch.empty(N, dtype=torch.int32, device=dev)
+        bad = torch.empty(1, dtype=torch.int64, device=dev)
+
+        def reset_range():
+            planes[0].zero_()
+            planes[1].fill_(-1)
+            planes[2].copy_(pts)
+            bad.fill_(N)
+
+        key = "range_decode" + ("" if lanes == LANES else f"_L{lanes}")
+
+        def launch():
+            _build.call("ctt_ilans2_range_decode_w32s64", dev, *planes, words,
+                        words.numel(), cdf32, K, o_buf, N, lanes, 24, bad)
+        reset_range()
+        launch()
+        check(o_buf, syms, key)
+        out[f"{key}_ms"] = _events_ms(launch, reset_range)
+
+
+def _time_exact(out, check):
+    """Kernel 15 into ``out``: the ungrouped exact row over tables built on
+    the card, at L=32768 and L=65536 (2 and 4 lanes a thread)."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import _build
+    from constriction_tpu_torch.ops import exact_family as ef
+    from constriction_tpu_torch.ops import exact_tables as et
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    dev = torch.device("cuda", 0)
+    means, scales, esyms = _exact_workload(N_EXACT)
+    want = torch.from_numpy(esyms.astype(np.int32))
+    cu, pr = ef.exact_ecp(esyms, means, scales, "gaussian", -100, 100, 24)
+    cmax = min(255, -(-int(ef._ncore_estimate(
+        means, scales, "gaussian", -100, 100).max()) // 4) * 4)
+    for lanes in (LANES, 2 * LANES):
+        cfg = LaneConfig(num_lanes=lanes, word_bits=32, state_bits=64,
+                         precision=24)
+        c_t, p_t = convert.ecp_to_torch(cu, pr, lanes, dev)
+        st, w = ef.encode_tables(c_t, p_t, cfg, None, N_EXACT)
+        del c_t, p_t
+        T = -(-N_EXACT // lanes)
+        pm, ps = ef._pad_params(means, scales, T * lanes, "gaussian", 100)
+        (tabs, _), = et.packed_tables_on_device_batch(
+            [(pm, ps, cmax, T)], "gaussian", -100, 100, 24, lanes, dev)
+        s_buf = torch.empty_like(st)
+        e_buf = torch.empty(N_EXACT, dtype=torch.int32, device=dev)
+        bisect = int(ef.bisect_tables(tabs.shape[1]))
+
+        def launch_exact():
+            _build.call("ctt_exact_decode64", dev, s_buf, w, w.numel(), tabs,
+                        tabs.shape[1], e_buf, N_EXACT, lanes, 24, -100, 100,
+                        bisect, None)
+
+        key = "exact_decode" + ("" if lanes == LANES else f"_L{lanes}")
+        s_buf.copy_(st)
+        launch_exact()
+        check(e_buf.cpu(), want, key)
+        out["exact_planes"] = int(tabs.shape[1])
+        out[f"{key}_ms"] = _events_ms(launch_exact, lambda: s_buf.copy_(st))
+
+
 def main(argv: list[str]) -> int:
+    kernels = "1,2,3,4,5,15"
+    if len(argv) > 1 and argv[0] == "--kernels":
+        kernels, argv = argv[1], argv[2:]
     if len(argv) == 2 and argv[0] == "--one":
-        print(json.dumps(time_decodes(argv[1])), flush=True)
+        picked = {int(k) for k in kernels.split(",")}
+        print(json.dumps(time_decodes(argv[1], picked)), flush=True)
         return 0
     if not argv:
-        sys.exit("usage: chip_ab.py CHECKOUT [CHECKOUT ...]")
+        sys.exit("usage: chip_ab.py [--kernels 1,2,3,4,5,15] CHECKOUT ...")
     for root in argv:
         done = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--one", root])
+                               "--kernels", kernels, "--one", root])
         if done.returncode != 0:
             return done.returncode
     return 0

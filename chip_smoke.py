@@ -11,15 +11,17 @@ prints one JSON object per phase, then the kernels line, the card's
 
 1. build         -- nvcc build time (one nvcc per source, in parallel),
                     ptxas register/shared-memory report.
-   geometry      -- the launch geometry of the rANS pairs at both
-                    presets (kernels 1 and 2 at P=24; kernels 3 and 4 at
-                    P=12 and P=16) at L=32768 and 65536: the decode's
-                    cluster size, CTAs, threads, lanes per thread, the
-                    card's maximum of such active clusters (more than one
-                    CTA, or the run fails), its bucket table's lut_bits and
-                    whether the CDF is in shared memory, the encode's
+   geometry      -- the launch geometry of the cluster decodes and
+                    two-pass encodes at L=32768 and 65536: the rANS pairs
+                    at both presets (kernels 1 and 2 at P=24; kernels 3 and
+                    4 at P=12 and P=16), the S=64 range decode (kernel 5,
+                    P=24) and the S=64 exact table decode (kernel 15): the
+                    decode's cluster size, CTAs, threads, lanes per thread,
+                    the card's maximum of such active clusters (more than
+                    one CTA, or the run fails), its bucket table's lut_bits
+                    and whether the CDF is in shared memory, the encode's
                     pass-A grid, and ptxas' registers and spills for their
-                    kernels at each preset.
+                    kernels at each preset and lanes a thread.
 2. kernels       -- each rANS kernel against its plain PyTorch twin on the
                     same CUDA tensors and against the numpy host oracle
                     (L=32768, about 2^20 symbols, with and without seeds):
@@ -59,6 +61,8 @@ prints one JSON object per phase, then the kernels line, the card's
                     (CUDA events around each launch, after a warm-up), its
                     twin's time on the card (outputs equal to the kernel's),
                     and the facade's encode and decode call times.
+   range_sweep   -- the S=64 range decode's time per coding step at
+                    T=256 steps over L=128 .. 65536, as phase 5 fits it.
 
 9. family_math   -- the kernels' integer CDF (``left(x, mean, scale)``,
                     through the test entry point ``ctt_family_left``)
@@ -146,7 +150,11 @@ prints one JSON object per phase, then the kernels line, the card's
                     the facade's call times, and each kernel's bound
                     (kernels 15 and 16: the table words on the binary
                     search's path, counted from this run's tables and
-                    symbols).
+                    symbols); the search sweep (scan and binary search of
+                    kernels 16 and 15 at each segment's table width and
+                    at the ungrouped table's) that fixes
+                    ``exact_family.BISECT_FROM_PLANES`` (kernel 15) and
+                    ``BISECT_FROM_PLANES_SEG`` (kernel 16).
 22. exact32_kernels -- kernels 14 and 13 (the S=32 reference-exact pair)
                     against their twins on the same CUDA tensors and the
                     port's numpy oracles (``encode_shared``,
@@ -219,7 +227,10 @@ N_SKEWED = 1 << 19  # the carry-run model: 4096 steps on 128 lanes
 SKEWED_LANES = 128
 
 # the rANS pairs at both presets: the cluster decode and the two-pass
-# encode, instantiated in csrc/ilans2.cu
+# encode, instantiated in csrc/ilans2.cu; the S=64 range decode
+# (cluster_range_decode_kernel, instantiated in csrc/ilans2_range.cu) and
+# the S=64 exact table decode (the cluster decode over csrc/exact_family.cu's
+# TableModel)
 WIDE_SOURCE = "constriction_tpu_torch/ops/csrc/ilans2_wide.cuh"
 RANGE_SOURCE = "constriction_tpu_torch/ops/csrc/ilans2_range.cu"
 # kernel -> (module whose LAUNCHES counts it, counter key, Pallas site,
@@ -241,7 +252,7 @@ KERNELS = {
 RANGE_KERNELS = {
     "ilans2_range_decode_w32s64": (
         "coder64", "range_decode",
-        "constriction_tpu/ops/pallas_coder64.py:677", RANGE_SOURCE),
+        "constriction_tpu/ops/pallas_coder64.py:677", WIDE_SOURCE),
     "ilans2_range_decode_w16s32": (
         "coder", "range_decode",
         "constriction_tpu/ops/pallas_coder.py:1550", RANGE_SOURCE),
@@ -288,7 +299,7 @@ EXACT_SOURCE = "constriction_tpu_torch/ops/csrc/exact_family.cu"
 EXACT_KERNELS = {
     "exact_decode64": ("exact", "decode64",
                        "constriction_tpu/ops/exact_family.py:1835",
-                       EXACT_SOURCE),
+                       WIDE_SOURCE),
     "exact_decode64_seg": ("exact", "decode64_seg",
                            "constriction_tpu/ops/exact_family.py:1919",
                            EXACT_SOURCE),
@@ -482,23 +493,32 @@ def ptxas_usage(log: str, marks: tuple) -> dict:
 
 
 def phase_geometry(device) -> dict:
-    """Launch geometry of the rANS pairs (the cluster decode and two-pass
-    encode: kernels 1 and 2 at P=24, kernels 3 and 4 at P=12 and P=16) at
-    bench.py's lane counts for its K, and what ptxas reported for their
-    kernels at each preset."""
+    """Launch geometry of the cluster decodes and the two-pass encodes: the
+    rANS pairs (kernels 1 and 2 at P=24, kernels 3 and 4 at P=12 and P=16),
+    the S=64 range decode (kernel 5, P=24) and the S=64 exact table decode
+    (kernel 15) at bench.py's lane counts for its K, and what ptxas
+    reported for their kernels at each preset and lanes a thread."""
     from constriction_tpu_torch.ops import _build, coder, coder64
+    from constriction_tpu_torch.ops import exact_family as ef
 
-    rows = [{"preset": "w32s64", "num_lanes": L, "K": K_MAIN, "P": 24,
-             **coder64.geometry(L, K_MAIN, device)}
+    rows = [{"kernel": 1, "preset": "w32s64", "num_lanes": L, "K": K_MAIN,
+             "P": 24, **coder64.geometry(L, K_MAIN, device)}
             for L in (32768, BENCH_LANES)]
-    rows += [{"preset": "w16s32", "num_lanes": L, "K": K_MAIN, "P": P,
-              **coder.geometry(L, K_MAIN, P, device)}
+    rows += [{"kernel": 4, "preset": "w16s32", "num_lanes": L, "K": K_MAIN,
+              "P": P, **coder.geometry(L, K_MAIN, P, device)}
              for L in (32768, BENCH_LANES) for P in (12, 16)]
+    rows += [{"kernel": 5, "preset": "w32s64", "num_lanes": L, "K": K_MAIN,
+              "P": 24, **coder64.range_geometry(L, K_MAIN, 24, device)}
+             for L in (32768, BENCH_LANES)]
+    rows += [{"kernel": 15, "preset": "w32s64", "num_lanes": L,
+              "P": EXACT_P, **ef.geometry(L, device)}
+             for L in (32768, BENCH_LANES)]
     for row in rows:
-        row["encode_grid"] = (f"{row['encode_blocks']} x "
-                              f"{row['encode_threads']}")
+        if "encode_blocks" in row:
+            row["encode_grid"] = (f"{row['encode_blocks']} x "
+                                  f"{row['encode_threads']}")
         if row["cluster"] < 2:
-            fail(f"geometry: the {row['preset']} decode runs on one CTA at "
+            fail(f"geometry: kernel {row['kernel']} runs on one CTA at "
                  f"L={row['num_lanes']}")
     log = (_build.build_info or {}).get("log", "")
     return {"phase": "geometry", "cases": rows,
@@ -506,6 +526,7 @@ def phase_geometry(device) -> dict:
                                        "encode_lanes_kernelILi32ELi64E",
                                        "cluster_decode_kernelILi16ELi32E",
                                        "encode_lanes_kernelILi16ELi32E",
+                                       "cluster_range_decode_kernel",
                                        "division_records", "compact_"))}
 
 
@@ -1088,6 +1109,61 @@ def phase_range_times(device, probs, symbols, gpu: str,
             "gpu": gpu,
         })
     return {"phase": "range_times", "cases": rows}, times
+
+
+def phase_range_sweep(device, gpu: str) -> dict:
+    """The S=64 range decode (kernel 5) per coding step at SWEEP_STEPS
+    steps over SWEEP_LANES lanes, as phase_sweep times the rANS pairs:
+    kernel-only (CUDA events around the C entry, the planes reset outside
+    them), the floor at the fewest lanes and the slope from 4096 lanes up
+    (microseconds per step per 1024 lanes)."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import _build, range_enc
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    rng = np.random.RandomState(11)
+    probs = rng.dirichlet(np.full(K_MAIN, 2.0))
+    n_max = max(SWEEP_LANES) * SWEEP_STEPS
+    all_syms = torch.from_numpy(
+        rng.choice(K_MAIN, size=n_max, p=probs).astype(np.int32)).to(device)
+    cdf = convert.cdf_to_torch(model_cdf(probs, 24), device)
+    cdf32 = cdf.to(torch.int32)
+    rows, us = [], []
+    for L in SWEEP_LANES:
+        cfg = LaneConfig(num_lanes=L, word_bits=32, state_bits=64,
+                         precision=24)
+        n = L * SWEEP_STEPS
+        syms = all_syms[:n]
+        recs, low_f, rng_f = range_enc.record(syms, cdf, cfg)
+        s0, carry = range_enc.seal(low_f, rng_f, cfg)
+        pts, words = range_enc.resolve(recs, s0, carry, cfg, n)
+        planes = [torch.empty_like(pts) for _ in range(3)]
+        out = torch.empty(n, dtype=torch.int32, device=device)
+        bad = torch.empty(1, dtype=torch.int64, device=device)
+
+        def reset():
+            planes[0].zero_()
+            planes[1].fill_(-1)
+            planes[2].copy_(pts)
+            bad.fill_(n)
+
+        ms = kernel_ms(reset, lambda: _build.call(
+            "ctt_ilans2_range_decode_w32s64", device, *planes, words,
+            words.numel(), cdf32, K_MAIN, out, n, L, 24, bad), 3)
+        if mismatch(out, syms) != 0 or int(bad.item()) != n:
+            fail(f"range_sweep: L={L} round trip")
+        us.append(ms * 1e3 / SWEEP_STEPS)
+        rows.append({"kernel": 5, "num_lanes": L, "steps": SWEEP_STEPS,
+                     "decode_ms": ms, "decode_us_per_step": us[-1]})
+    i = SWEEP_LANES.index(4096)
+    fit = {"us_per_step_floor": us[0],
+           "us_per_1024_lanes_per_step": (us[-1] - us[i]) * 1024 / (
+               SWEEP_LANES[-1] - SWEEP_LANES[i])}
+    return {"phase": "range_sweep", "cases": rows,
+            "fits": {"ilans2_range_decode_w32s64": fit}, "gpu": gpu}
 
 
 def family_workload(n: int):
@@ -2196,14 +2272,17 @@ def phase_exact_main(device, work, keep: dict) -> dict:
 
 
 def search_sweep(device, states, stream, spans, built, cfg) -> list:
-    """Kernels 15 and 16 per table width: each segment ``(first symbol,
+    """Kernels 16 and 15 per table width: each segment ``(first symbol,
     count)`` alone from the states and stream offset it starts from, its
     fields found by the linear scan and by binary search, timed in turns
-    (scan, bisect, bisect, scan); the two must decode alike."""
+    (scan, bisect, bisect, scan), kernel 16 (one block) and kernel 15 (the
+    cluster decode, on the stream from the segment's first word); all four
+    must decode alike.  The cluster columns set
+    ``exact_family.BISECT_FROM_PLANES``, the single-block ones
+    ``BISECT_FROM_PLANES_SEG``."""
     import torch
 
     from constriction_tpu_torch.ops import _build
-    from constriction_tpu_torch.ops import exact_family as ef
 
     lo, hi = EXACT_SUPPORT
     L = cfg.num_lanes
@@ -2213,26 +2292,44 @@ def search_sweep(device, states, stream, spans, built, cfg) -> list:
     for (r0, k), (tb, _) in zip(spans, built):
         x0, b0 = x.clone(), b.clone()
         s_buf, b_buf = x0.clone(), b0.clone()
+        sub = stream[int(b0):]
         outs = {}
-        res = {0: [], 1: []}
-        for mode in (0, 1, 1, 0):
-            o_buf = torch.empty(k, dtype=torch.int32, device=device)
+        res = {}
+        for kernel in ("seg", "cluster"):
+            for mode in (0, 1, 1, 0):
+                o_buf = torch.empty(k, dtype=torch.int32, device=device)
 
-            def reset():
-                s_buf.copy_(x0)
-                b_buf.copy_(b0)
+                def reset():
+                    s_buf.copy_(x0)
+                    b_buf.copy_(b0)
 
-            res[mode].append(kernel_ms(reset, lambda: _build.call(
-                "ctt_exact_decode64_seg", device, s_buf, stream,
-                stream.numel(), tb, tb.shape[1], o_buf, k, L, cfg.precision,
-                lo, hi, mode, b_buf), 3))
-            outs[mode] = (o_buf, s_buf.clone(), b_buf.clone())
-        if not all(torch.equal(a, c) for a, c in zip(outs[0], outs[1])):
-            fail(f"search_sweep: scan and bisect differ at {tb.shape[1]} "
-                 "planes")
-        x, b = outs[0][1], outs[0][2]
+                if kernel == "seg":
+                    def launch():
+                        _build.call(
+                            "ctt_exact_decode64_seg", device, s_buf, stream,
+                            stream.numel(), tb, tb.shape[1], o_buf, k, L,
+                            cfg.precision, lo, hi, mode, b_buf)
+                else:
+                    def launch():
+                        _build.call(
+                            "ctt_exact_decode64", device, s_buf, sub,
+                            sub.numel(), tb, tb.shape[1], o_buf, k, L,
+                            cfg.precision, lo, hi, mode, None)
+                res.setdefault((kernel, mode), []).append(
+                    kernel_ms(reset, launch, 3))
+                outs[kernel, mode] = (o_buf, s_buf.clone())
+            if kernel == "seg":
+                nxt = b_buf.clone()
+        first = outs["seg", 0]
+        if not all(torch.equal(a, c) for out in outs.values()
+                   for a, c in zip(out, first)):
+            fail(f"search_sweep: the searches or kernels differ at "
+                 f"{tb.shape[1]} planes")
+        x, b = first[1], nxt
         rows.append({"planes": int(tb.shape[1]), "symbols": k,
-                     "scan_ms": sum(res[0]) / 2, "bisect_ms": sum(res[1]) / 2})
+                     **{f"{'' if kern == 'seg' else 'cluster_'}"
+                        f"{'bisect' if mode else 'scan'}_ms": sum(v) / 2
+                        for (kern, mode), v in res.items()}})
     return rows
 
 
@@ -2413,7 +2510,8 @@ def phase_exact_times(device, work, keep: dict, gpu: str,
         for (r0, k), (tb, _) in zip(spans, built):
             _build.call("ctt_exact_decode64_seg", device, s_buf, w, nw, tb,
                         tb.shape[1], o_buf[r0:], k, L, EXACT_P, lo, hi,
-                        int(ef.bisect_tables(tb.shape[1])), b_buf)
+                        int(ef.bisect_tables(tb.shape[1], seg=True)),
+                        b_buf)
 
     def reset():
         s_buf.copy_(st)
@@ -2504,6 +2602,8 @@ def phase_exact_times(device, work, keep: dict, gpu: str,
         **{f"{k}_bound_by": v[1] for k, v in bounds.items()},
         **{f"{k}_max_abs_err": v for k, v in e.items()},
         "search_by_width": search,
+        "BISECT_FROM_PLANES": ef.BISECT_FROM_PLANES,
+        "BISECT_FROM_PLANES_SEG": ef.BISECT_FROM_PLANES_SEG,
         "device_build_s": build_s,
         **{f"device_build_{k}": v for k, v in build.items()},
         "device_prep_Msyms": n / build_s / 1e6,
@@ -2934,6 +3034,7 @@ def main(argv) -> int:
     range_times, more = phase_range_times(device, probs, symbols, gpu, errs)
     emit(range_times)
     times.update(more)
+    emit(phase_range_sweep(device, gpu))
 
     emit(phase_family_math(device))
     family_rec, family_errs = phase_family_kernels(device, N_KERNEL_CHECK,

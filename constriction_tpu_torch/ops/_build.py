@@ -57,6 +57,8 @@ _RANGE_RESOLVE_ARGS = [_P, _P, _P, _P, _P, _I64, _P, _P, _I32, _I32, _P,
                        _I32]
 _RANGE_DECODE_ARGS = [_P, _P, _P, _P, _I64, _P, _I32, _P, _I64, _I32, _I32,
                       _P, _P, _I32]
+# the cluster size after `bad`
+_RANGE_DECODE_CLUSTER_ARGS = [*_RANGE_DECODE_ARGS[:12], _I32, _P, _I32]
 # family index, min_sym, max_sym (or free); then the stream and the device
 _FAMILY_TAIL = [_I32, _I32, _I32, _P, _I32]
 _FAMILY_DECODE_ARGS = [_P, _P, _I64, _P, _P, _P, _I64, _I32, *_FAMILY_TAIL]
@@ -74,6 +76,7 @@ _D = ctypes.c_double
 _EXACT_ENCODE_ARGS = [_P, _P, _P, _I64, _P, _I64, _P, _I32, _I32, _P, _I32]
 _EXACT_DECODE_ARGS = [_P, _P, _I64, _P, _I32, _P, _I64, _I32, _I32, _I32,
                       _I32, _I32, _P, _P, _I32]
+_EXACT_GEOMETRY_ARGS = [_I32, _P, _P, _I32]
 _EXACT_EVAL_ARGS = [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _D, _D,
                     _I32, _P, _P, _P, _I32]
 SIGNATURES = {
@@ -94,6 +97,8 @@ SIGNATURES = {
     "ctt_ilans2_range_resolve_w32s64": _RANGE_RESOLVE_ARGS,
     "ctt_ilans2_range_decode_w16s32": _RANGE_DECODE_ARGS,
     "ctt_ilans2_range_decode_w32s64": _RANGE_DECODE_ARGS,
+    "ctt_ilans2_range_decode_cluster_w32s64": _RANGE_DECODE_CLUSTER_ARGS,
+    "ctt_ilans2_range_geometry_w32s64": _GEOMETRY_ARGS,
     "ctt_family_decode": _FAMILY_DECODE_ARGS,
     "ctt_family_encode": _FAMILY_ENCODE_ARGS,
     "ctt_family_left": _FAMILY_LEFT_ARGS,
@@ -108,6 +113,7 @@ SIGNATURES = {
     "ctt_exact_decode64": _EXACT_DECODE_ARGS,
     "ctt_exact_decode32": _EXACT_DECODE_ARGS,
     "ctt_exact_decode64_seg": _EXACT_DECODE_ARGS,
+    "ctt_exact_geometry64": _EXACT_GEOMETRY_ARGS,
     "ctt_exact_eval_window": _EXACT_EVAL_ARGS,
 }
 

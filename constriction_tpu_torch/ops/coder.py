@@ -59,8 +59,9 @@ LAUNCHES = {"encode": 0, "decode": 0, "range_decode": 0, "encode_lanes": 0,
 # blocks of the encode's compaction pass at most: the length of its offsets
 # scratch (csrc/ilans2_wide.cuh, kScanBlocks)
 SCAN_BLOCKS = 1024
-# the rANS decode's reach: a cluster of 16 CTAs of 32 warps, 32 lanes a
-# thread (csrc/ilans2_wide.cuh, plan_cluster_decode)
+# the cluster decodes' reach (rANS at both presets, the S=64 range and
+# exact table decodes): a cluster of 16 CTAs of 32 warps, 32 lanes a thread
+# (csrc/ilans2_wide.cuh, plan_cluster)
 MAX_DECODE_LANES = 16 * 32 * 32 * 32
 
 
@@ -276,15 +277,21 @@ def _launch_lanes(tag: str, symbols, cdf, cfg: LaneConfig, states):
     return words, ballots
 
 
-def _geometry(tag: str, L: int, K: int, P: int, device, cluster: int):
-    """The rANS pair's launch geometry as the C entry reports it."""
+_GEOMETRY_KEYS = ("cluster", "groups_per_cta", "lanes_per_thread",
+                  "threads_per_cta", "max_active_clusters", "smem_bytes",
+                  "cdf_in_smem", "lut_bits", "encode_blocks",
+                  "encode_threads")
+
+
+def _geometry(tag: str, L: int, K: int, P: int, device, cluster: int,
+              entry: str = "ilans2_geometry", size: int = 10):
+    """A cluster decode's launch geometry as the C entry ``ctt_{entry}_
+    {tag}`` reports it (the rANS pair's by default: ``size`` 10 values,
+    the decode's eight and the encode's grid)."""
     device = torch.device("cuda") if device is None else torch.device(device)
-    out = torch.zeros(10, dtype=torch.int64)
-    _build.call(f"ctt_ilans2_geometry_{tag}", device, L, K, P, cluster, out)
-    keys = ("cluster", "groups_per_cta", "lanes_per_thread",
-            "threads_per_cta", "max_active_clusters", "smem_bytes",
-            "cdf_in_smem", "lut_bits", "encode_blocks", "encode_threads")
-    geo = dict(zip(keys, (int(v) for v in out)))
+    out = torch.zeros(size, dtype=torch.int64)
+    _build.call(f"ctt_{entry}_{tag}", device, L, K, P, cluster, out)
+    geo = dict(zip(_GEOMETRY_KEYS, (int(v) for v in out)))
     geo["ctas"] = geo["cluster"]
     return geo
 
@@ -379,18 +386,27 @@ def _raise_if_invalid(first_bad: int, n: int) -> None:
 
 
 def _launch_range_decode(tag: str, planes, stream, cdf, cfg: LaneConfig,
-                         n: int):
+                         n: int, cluster: int = 0):
     """One range-decode launch updating ``planes`` (lows, rngs, pts) in
     place; returns symbols int32[n].  Reads the invalid-data flag back (one
-    sync) and raises on it."""
+    sync) and raises on it.  The S=64 decode is the cluster decode (a
+    ValueError for an L past its reach): ``cluster`` CTAs, or the size it
+    picks from L when 0."""
     device = stream.device
+    L = cfg.num_lanes
+    if tag == "w32s64" and L > MAX_DECODE_LANES:
+        raise ValueError(
+            f"the range decode kernel takes at most {MAX_DECODE_LANES} lanes "
+            f"(16 CTAs x 1024 threads x 32 lanes a thread), got {L}"
+        )
     syms = torch.empty(n, dtype=torch.int32, device=device)
     bad = torch.full((1,), n, dtype=torch.int64, device=device)
     cdf32 = cdf.to(torch.int32)
+    entry, extra = ((f"ctt_ilans2_range_decode_cluster_{tag}", (cluster,))
+                    if cluster else (f"ctt_ilans2_range_decode_{tag}", ()))
     _build.call(
-        f"ctt_ilans2_range_decode_{tag}", device, *planes, stream,
-        stream.numel(), cdf32, cdf32.numel() - 1, syms, n, cfg.num_lanes,
-        cfg.precision, bad,
+        entry, device, *planes, stream, stream.numel(), cdf32,
+        cdf32.numel() - 1, syms, n, L, cfg.precision, bad, *extra,
     )
     _raise_if_invalid(int(bad.item()), n)
     return syms

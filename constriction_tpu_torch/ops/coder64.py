@@ -13,13 +13,17 @@ and the encoder's ``state // prob`` is a two-digit long division in base
 2^32 (each partial dividend < 2^56).  The range decoder's twin does all its
 u64 arithmetic on such halves (the helpers below), its quotient from a
 float64 estimate corrected against the exact product; the range kernel
-(``csrc/ilans2_range.cu``) divides in native u64 in place of
-``_div64_by_scale``.
+(``csrc/ilans2_wide.cuh``, ``cluster_range_decode_kernel``, instantiated
+in ``csrc/ilans2_range.cu``) takes the same route in place of
+``_div64_by_scale``: a float64 quotient of the two u64 values and one
+correcting product (:func:`range_quotient` is that arithmetic in Python
+integers, :func:`range_quantile` the lane's whole quantile).
 
 The rANS pair runs ``csrc/ilans2_wide.cuh``'s design, as the S=32 pair
 does: the decode on a cluster of CTAs with the lane states in registers
 (:func:`geometry` says which cluster the card runs for L lanes), the
-encode as a lane-parallel pass and a row-major compaction.
+encode as a lane-parallel pass and a row-major compaction.  The range
+decode runs on the same cluster step (:func:`range_geometry`).
 :func:`lanes_pass64_plain` and :func:`compact_pass_plain` (shared with the
 S=32 pair, from :mod:`constriction_tpu_torch.ops.coder`) are those two
 passes in plain PyTorch; the kernels' index math mirrors them, and their
@@ -360,6 +364,38 @@ def geometry(L: int, K: int, device=None, cluster: int = 0) -> dict:
     return _geometry("w32s64", L, K, 24, device, cluster)
 
 
+_M64 = (1 << 64) - 1
+
+
+def range_quotient(num: int, scale: int) -> int:
+    """floor(num / scale) as the range kernel computes it for 0 < scale and
+    num < scale << P, P <= 24 (``csrc/ilans2_wide.cuh``, ``f64_quotient``):
+    the float64 quotient of the two correctly rounded conversions,
+    truncated to u32 (saturating, as ``__double2uint_rz``), then one step
+    down or up against the product, in u64 and u32 arithmetic.  Python's
+    int -> float conversion and float division round to nearest even, as
+    ``__ull2double_rn`` and ``__ddiv_rn`` do."""
+    q = min(int(float(num) / float(scale)), _M32)
+    p = (q * scale) & _M64
+    if p > num:
+        return (q - 1) & _M32
+    return (q + 1) & _M32 if num - p >= scale else q
+
+
+def range_quantile(point: int, lower: int, rng: int, P: int):
+    """A range lane's quantile as the kernel computes it
+    (``range_quantile``): ``(q, over)`` with q = (point - lower) // (rng >>
+    P) clamped to 2^P - 1 and over = the unclamped quotient was >= 2^P,
+    told apart as num >= scale << P; (0, False) where the scale is 0."""
+    scale = rng >> P
+    num = (point - lower) & _M64
+    if scale == 0:
+        return 0, False
+    if num >= scale << P:
+        return (1 << P) - 1, True
+    return range_quotient(num, scale), False
+
+
 def decode_shared_range64(points, stream, cdf, cfg: LaneConfig, n: int,
                           lows=None, rngs=None,
                           return_final_states: bool = False):
@@ -386,9 +422,38 @@ def decode_shared_range64(points, stream, cdf, cfg: LaneConfig, n: int,
     if n == 0:
         syms = torch.zeros(0, dtype=torch.int32, device=points.device)
     else:
-        LAUNCHES["range_decode"] += 1
         syms = _launch_range_decode("w32s64", planes, stream, cdf, cfg, n)
+        LAUNCHES["range_decode"] += 1
     return (syms, planes) if return_final_states else syms
+
+
+def decode_shared_range64_cluster(points, stream, cdf, cfg: LaneConfig,
+                                  n: int, cluster: int, lows=None, rngs=None):
+    """The range decode kernel on a cluster of ``cluster`` CTAs (1 .. 16)
+    in place of the size it picks from L, for any L that is a multiple of
+    32 (n > 0, CUDA tensors): how the card tests reach uneven partitions
+    and CTAs with no lanes.  Returns (symbols int32[n], final (lows, rngs,
+    pts))."""
+    planes = _range_decode_args(points, stream, cdf, cfg, lows, rngs,
+                                torch.int64)
+    if not _on_cuda(points.device):
+        raise ValueError("a forced cluster size needs CUDA tensors")
+    if not 1 <= cluster <= 16:
+        raise ValueError(f"cluster must be in 1 .. 16, got {cluster}")
+    syms = _launch_range_decode("w32s64", planes, stream, cdf, cfg, n,
+                                cluster)
+    LAUNCHES["range_decode"] += 1
+    return syms, planes
+
+
+def range_geometry(L: int, K: int, P: int = 24, device=None,
+                   cluster: int = 0) -> dict:
+    """The launch geometry of the range decode for L lanes, K symbols and
+    precision P on ``device`` (a CUDA device; the current one by default):
+    the keys of :func:`constriction_tpu_torch.ops.coder.geometry` but the
+    encode's grid."""
+    return _geometry("w32s64", L, K, P, device, cluster,
+                     entry="ilans2_range_geometry", size=8)
 
 
 def decode_shared_range64_plain(points, stream, cdf, cfg: LaneConfig, n: int,

@@ -14,13 +14,15 @@
 //   constriction_tpu/ops/exact_family.py  _build_exact_decoder       (13)
 // and holds the same wire format and table layout.
 //
-// Kernels 13-17 are the ILANS2 loops of ilans2.cuh (one block, a warp
-// ballot and block scan per step for the shared word stream, states in
-// device memory, native uint64_t / uint32_t state algebra and division),
+// Kernels 13, 14, 16 and 17 are the ILANS2 loops of ilans2.cuh (one block,
+// a warp ballot and block scan per step for the shared word stream, states
+// in device memory, native uint64_t / uint32_t state algebra and division),
 // instantiated over the models below; ilans2.cuh's header says what bounds
-// those loops.  The TPU kernels' chunked table DMA, their 40x25-bit
-// multiply limbs, their f32-estimate division (_exact_div) and their
-// refill/emit compaction stay behind.
+// those loops.  Kernel 15 is ilans2_wide.cuh's cluster decode over
+// TableModel (up to 16 CTAs, states in registers, one exchange per step).
+// The TPU kernels' chunked table DMA, their 40x25-bit multiply limbs, their
+// f32-estimate division (_exact_div) and their refill/emit compaction stay
+// behind.
 //
 // Kernels 17 and 14 read (cum, prob) from the planes at t * L + l.
 //
@@ -34,10 +36,17 @@
 // field) or, for wide tables, by a binary search (the wrapper picks by
 // width, ops/exact_family.py BISECT_FROM_PLANES); then the left tail, core
 // or right tail decide (sym, cum, prob) as _invert_with_tables does.  What
-// bounds them: the table bytes, 4 + 12 G bytes a symbol, read by one SM
-// with the lane loop's latency (see ilans2.cu): the scan reads every word
-// of a lane's column, the binary search about log2(4G) + 2 fields, one
-// dependent load after another.
+// bounds them: the binary search's chain of dependent loads, about
+// log2(4G) + 2 of them a symbol (the scan reads every word of a lane's
+// column, independent loads).  Kernel 16 walks its lanes on one SM, so
+// the chain's latency adds up lane after lane.  Kernel 15 runs each
+// thread's two lanes (R at L = 32768) in lock step, so every level of the
+// search issues its R probes together, and its step is about ten
+// dependent device-memory reads plus the cluster exchange.  Prefetching
+// the next step's table slice into L2 (CP1 L 4 bytes a step, 18 MB at the
+// exact row's 139 planes) made it slower on an NVIDIA H100 80GB HBM3 at
+// 700 W, line by line (1.75 against 1.10 ms) or with bulk prefetches
+// (1.59): the prefetch traffic delays the search's own reads (chip_ab.py).
 //
 // Kernel 18 evaluates one (symbol, window position) entry per thread in
 // native float64 with CUDA's erf / exp / atan: tv = trunc(free * CDF(s -
@@ -56,14 +65,15 @@
 // below 2^P <= 2^16, so the strict field < q never selects a pad, and the
 // no-successor value past the last field is 0xFFFF (0x10000 in b space,
 // only ever used through min(nxtc, rstart)).  The scan and the binary
-// search are those of kernel 15 over 2 (CP1 - 1) fields (the wrapper picks
+// search are those of kernel 16 over 2 (CP1 - 1) fields (the wrapper picks
 // by width, ops/exact_family.py BISECT_FROM_PLANES_NARROW: on an H100 the
 // binary search was the faster from 7 planes up).  What bounds
-// it: as kernel 15, the table words a lane reads (4 + 2 (CP1 - 1) bytes a
+// it: as kernel 16, the table words a lane reads (4 + 2 (CP1 - 1) bytes a
 // symbol for the scan, about log2(2 (CP1 - 1)) + 2 dependent words for the
 // search) by one SM.
 
 #include "ilans2.cuh"
+#include "ilans2_wide.cuh"
 
 namespace {
 
@@ -116,7 +126,9 @@ __device__ __forceinline__ int exact_regions(uint32_t q, int cl, int nc,
 // (every word of the lane, loads independent of each other), or a binary
 // search over the ascending fields (about log2(4G) + 2 dependent field
 // reads).  On tables the builders produce (fields ascending, pads last)
-// both give the same (cnt, cumc, nxtc).
+// both give the same (cnt, cumc, nxtc).  Kernel 16 (ilans2.cuh's
+// single-block loop) calls invert; kernel 15 (ilans2_wide.cuh's cluster
+// decode) calls invert_lanes.
 struct TableModel {
   const uint32_t* tabs;
   int CP1, L, P, min_sym, span, free;
@@ -137,6 +149,55 @@ struct TableModel {
       default:
         return w[2 * L] >> 8;
     }
+  }
+
+  // field k of lane l of the step whose aux plane starts at `step`, as
+  // field() reads it, in a form without branches (the second word's load
+  // is predicated), so R lanes' probes issue together: sub-field s = k & 3
+  // starts in word 3 s / 4 at bit 24 s mod 32 and spills into the next
+  // word for s = 1, 2
+  __device__ uint32_t field_at(const uint32_t* step, int l, int k) const {
+    const int s = k & 3;
+    const uint32_t* w =
+        step + static_cast<int64_t>(1 + 3 * (k >> 2) + ((3 * s) >> 2)) * L +
+        l;
+    const uint32_t lo = w[0];
+    const uint32_t hi = s == 1 || s == 2 ? w[L] : 0u;
+    return __funnelshift_r(lo, hi, (24 * s) & 31) & 0xFFFFFFu;
+  }
+
+  // the select scan over all fields of one lane (the Pallas body's semantics)
+  __device__ void scan(const uint32_t* col, uint32_t q, int& cnt,
+                       uint32_t& cumc, uint32_t& nxtc) const {
+    const int G = (CP1 - 1) / 3;
+    uint32_t pend = 0;  // the field awaiting its successor
+    // one step of the select scan: field b, followed by field bn
+    auto take = [&](uint32_t b, uint32_t bn) {
+      if (b < q) {
+        ++cnt;
+        cumc = b;
+        nxtc = bn;
+      }
+    };
+#pragma unroll 2
+    for (int g = 0; g < G; ++g) {
+      const uint32_t* w = col + static_cast<int64_t>(1 + 3 * g) * L;
+      const uint32_t w0 = w[0], w1 = w[L], w2 = w[2 * L];
+      const uint32_t b0 = w0 & 0xFFFFFFu;
+      const uint32_t b1 = (w0 >> 24) | ((w1 & 0xFFFFu) << 8);
+      const uint32_t b2 = (w1 >> 16) | ((w2 & 0xFFu) << 16);
+      const uint32_t b3 = w2 >> 8;
+      if (g == 0) {
+        nxtc = b0;  // covers cnt == 0
+      } else {
+        take(pend, b0);
+      }
+      take(b0, b1);
+      take(b1, b2);
+      take(b2, b3);
+      pend = b3;
+    }
+    take(pend, (1u << P) - 1u);
   }
 
   __device__ int invert(int t, int l, uint32_t q, uint32_t& cum,
@@ -163,37 +224,81 @@ struct TableModel {
       if (cnt > 0) cumc = field(col, cnt - 1);
       nxtc = cnt < 4 * G ? field(col, cnt) : (1u << P) - 1u;
     } else {
-      uint32_t pend = 0;  // the field awaiting its successor
-      // one step of the select scan: field b, followed by field bn
-      auto take = [&](uint32_t b, uint32_t bn) {
-        if (b < q) {
-          ++cnt;
-          cumc = b;
-          nxtc = bn;
-        }
-      };
-#pragma unroll 2
-      for (int g = 0; g < G; ++g) {
-        const uint32_t* w = col + static_cast<int64_t>(1 + 3 * g) * L;
-        const uint32_t w0 = w[0], w1 = w[L], w2 = w[2 * L];
-        const uint32_t b0 = w0 & 0xFFFFFFu;
-        const uint32_t b1 = (w0 >> 24) | ((w1 & 0xFFFFu) << 8);
-        const uint32_t b2 = (w1 >> 16) | ((w2 & 0xFFu) << 16);
-        const uint32_t b3 = w2 >> 8;
-        if (g == 0) {
-          nxtc = b0;  // covers cnt == 0
-        } else {
-          take(pend, b0);
-        }
-        take(b0, b1);
-        take(b1, b2);
-        take(b2, b3);
-        pend = b3;
-      }
-      take(pend, (1u << P) - 1u);
+      scan(col, q, cnt, cumc, nxtc);
     }
     return exact_regions(q, cl, nc, cnt, cumc, nxtc, P, span, free, min_sym,
                          cum, prob);
+  }
+
+  // The R lanes of one thread at once.  The binary search runs them in
+  // lock step as a branchless lower bound over the N = 4G fields (Khuong
+  // and Morin's form: the probe count, ceil(log2 N), is the same for
+  // every lane), so each level issues its R probes before any is compared,
+  // and one last level loads the fields before, at and after the bound
+  // together with the aux words (independent of the search, so they wait
+  // on nothing and hold no register through it).  cnt, cumc and nxtc equal
+  // invert's (exact_family.py, invert_tables_bisect, is this probe order in
+  // plain PyTorch).  Lanes past L (a CTA's last warps) read lane L - 1's
+  // column.
+  template <int R>
+  __device__ void invert_lanes(int t, const int (&l)[R],
+                               const uint32_t (&q)[R], int (&sym)[R],
+                               uint32_t (&cum)[R], uint32_t (&prob)[R]) const {
+    const uint32_t* step = tabs + static_cast<int64_t>(t) * CP1 * L;
+    int lc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) lc[r] = min(l[r], L - 1);
+    if (bisect) {
+      const int N = 4 * ((CP1 - 1) / 3);
+      int base[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) base[r] = 0;
+      for (int len = N; len > 1;) {
+        const int half = len >> 1;
+        uint32_t f[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) f[r] = field_at(step, lc[r], base[r] + half);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (f[r] < q[r]) base[r] += half;
+        }
+        len -= half;
+      }
+      uint32_t aux[R], fp[R], fb[R], fn[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        aux[r] = step[lc[r]];
+        fp[r] = field_at(step, lc[r], max(base[r] - 1, 0));
+        fb[r] = field_at(step, lc[r], base[r]);
+        fn[r] = field_at(step, lc[r], min(base[r] + 1, N - 1));
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const bool below = fb[r] < q[r];
+        const uint32_t cumc = below ? fb[r]
+                              : base[r] > 0 ? fp[r]
+                                            : 0xFFFFFFFFu;
+        const uint32_t nxtc = !below ? fb[r]
+                              : base[r] + 1 < N ? fn[r]
+                                                : (1u << P) - 1u;
+        sym[r] = exact_regions(q[r], static_cast<int>(aux[r] & 0xFFFFFFu),
+                               static_cast<int>(aux[r] >> 24),
+                               base[r] + (below ? 1 : 0), cumc, nxtc, P,
+                               span, free, min_sym, cum[r], prob[r]);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const uint32_t* col = step + lc[r];
+        int cnt = 0;
+        uint32_t cumc = 0xFFFFFFFFu, nxtc = 0;
+        scan(col, q[r], cnt, cumc, nxtc);
+        const uint32_t aux = col[0];
+        sym[r] = exact_regions(q[r], static_cast<int>(aux & 0xFFFFFFu),
+                               static_cast<int>(aux >> 24), cnt, cumc, nxtc,
+                               P, span, free, min_sym, cum[r], prob[r]);
+      }
+    }
   }
 };
 
@@ -342,19 +447,27 @@ bool valid_exact(int L, int P, bool wide) {
   return L > 0 && L % 32 == 0 && p_ok;
 }
 
-// Model: TableModel (S=64, wide) or NarrowTableModel (S=32).
+// The table decoders' arguments: lane count and precision of the preset,
+// CP1 = 1 + 3G planes (wide) or >= 2 (narrow), a support of at least two
+// symbols with free >= 2.
+bool table_args(int L, int P, int CP1, long long span, long long free,
+                bool wide) {
+  const bool planes_ok = wide ? CP1 >= 4 && (CP1 - 1) % 3 == 0 : CP1 >= 2;
+  return valid_exact(L, P, wide) && planes_ok && span >= 1 && free >= 2;
+}
+
+// The single-block decode (kernels 16 and 13).  Model: TableModel (S=64,
+// wide) or NarrowTableModel (S=32).
 template <int W, int S, class Model, bool Seg>
 int launch_decode(void* states, const void* stream, long long slen,
                   const void* tabs, int CP1, void* syms, long long n, int L,
                   int P, int min_sym, int max_sym, int bisect, void* base_io,
                   void* cuda_stream, int device) {
-  constexpr bool kWide = S == 64;
   auto kernel = ilans2_decode_kernel<W, S, Model, Seg>;
   const size_t bytes = table_smem_bytes(L);
   const long long span = static_cast<long long>(max_sym) - min_sym;
   const long long free = (1ll << P) - 1 - span;
-  const bool planes_ok = kWide ? CP1 >= 4 && (CP1 - 1) % 3 == 0 : CP1 >= 2;
-  if (!valid_exact(L, P, kWide) || !planes_ok || span < 1 || free < 2 ||
+  if (!table_args(L, P, CP1, span, free, S == 64) ||
       (Seg && base_io == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -375,6 +488,45 @@ int launch_decode(void* states, const void* stream, long long slen,
       static_cast<const uint32_t*>(stream), slen, model,
       static_cast<int32_t*>(syms), n, L, P, T,
       static_cast<int64_t*>(base_io));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 15: ilans2_wide.cuh's cluster decode over TableModel (the tables
+// stay in device memory; no dynamic shared memory).
+int launch_cluster_table_decode(void* states, const void* stream,
+                                long long slen, const void* tabs, int CP1,
+                                void* syms, long long n, int L, int P,
+                                int min_sym, int max_sym, int bisect,
+                                void* cuda_stream, int device) {
+  const long long span = static_cast<long long>(max_sym) - min_sym;
+  const long long free = (1ll << P) - 1 - span;
+  if (!table_args(L, P, CP1, span, free, true)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  ClusterGeometry geo;
+  ClusterDecodeFn<32, 64, TableModel, false> kernel;
+  cudaError_t err = plan_cluster_decode<32, 64, TableModel, false>(
+      L, 0, 0, device, &geo, &kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const int T = static_cast<int>((n + L - 1) / L);
+  const TableModel model{static_cast<const uint32_t*>(tabs),
+                         CP1,
+                         L,
+                         P,
+                         min_sym,
+                         static_cast<int>(span),
+                         static_cast<int>(free),
+                         bisect != 0};
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      geo, 0, static_cast<cudaStream_t>(cuda_stream), &attr);
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<uint64_t*>(states),
+      static_cast<const uint32_t*>(stream), static_cast<int64_t>(slen), model,
+      static_cast<int32_t*>(syms), static_cast<int64_t>(n), L, P, T,
+      geo.groups_per_cta, static_cast<int64_t*>(nullptr));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -447,13 +599,32 @@ int ctt_exact_encode32(void* states, const void* cums, const void* probs,
                                P, cuda_stream, device);
 }
 
+// base_io is unused (kernel 15 decodes from stream word 0).
 int ctt_exact_decode64(void* states, const void* stream, long long slen,
                        const void* tabs, int CP1, void* syms, long long n,
                        int L, int P, int min_sym, int max_sym, int bisect,
                        void* base_io, void* cuda_stream, int device) {
-  return launch_decode<32, 64, TableModel, false>(
-      states, stream, slen, tabs, CP1, syms, n, L, P, min_sym, max_sym,
-      bisect, base_io, cuda_stream, device);
+  (void)base_io;
+  return launch_cluster_table_decode(states, stream, slen, tabs, CP1, syms, n,
+                                     L, P, min_sym, max_sym, bisect,
+                                     cuda_stream, device);
+}
+
+// Kernel 15's geometry for L lanes into out[5]: cluster size, groups per
+// CTA, lanes per thread, threads per CTA, the card's maximum of active
+// clusters of that shape.
+int ctt_exact_geometry64(int L, long long* out, void* cuda_stream,
+                         int device) {
+  (void)cuda_stream;
+  ClusterGeometry geo;
+  ClusterDecodeFn<32, 64, TableModel, false> kernel;
+  const cudaError_t err = plan_cluster_decode<32, 64, TableModel, false>(
+      L, 0, 0, device, &geo, &kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long vals[5] = {geo.cluster, geo.groups_per_cta, geo.rows,
+                             geo.threads, geo.max_active_clusters};
+  for (int k = 0; k < 5; ++k) out[k] = vals[k];
+  return 0;
 }
 
 int ctt_exact_decode64_seg(void* states, const void* stream, long long slen,

@@ -46,65 +46,14 @@
 // thread); a larger L returns an error.  ilans2.cuh's single-block loops
 // serve exact_family.cu's coders only.
 //
-// The model policies below hold one CDF; the CDF staging and the symbol
-// search are in lanes.cuh, shared with the range coder (ilans2_range.cu).
+// The decode model (BucketCdfModel) is ilans2_wide.cuh's, shared with the
+// range decode (ilans2_range.cu); the encode model below holds one CDF's
+// division records.  The CDF staging and the symbol search are in
+// lanes.cuh.
 
 #include "ilans2_wide.cuh"
 
 namespace {
-
-// The decode model of ilans2_wide.cuh's cluster decode: the CDF, in shared
-// memory when it fits, behind a bucket table in shared memory: lut[b] is
-// the symbol of quantile b << (P - lut_bits), so quantile q's symbol lies
-// between lut[q >> (P - lut_bits)] and the next entry, and a binary search
-// between the two (zero or one probe for most quantiles of a K=100 model at
-// P=24) gives find_symbol's answer.  With lut_bits == P, lut[q] is that
-// answer and nothing is searched.
-struct BucketCdfModel {
-  const uint32_t* cdf;
-  int K;
-  int cdf_in_smem;
-  int P;
-  int lut_bits;
-  const uint32_t* lut;  // set by stage
-
-  __device__ void stage(uint32_t* smem) {
-    const uint32_t* cdf_g = cdf;
-    uint32_t* table = smem;
-    const int shift = P - lut_bits;
-    for (int b = threadIdx.x; b <= (1 << lut_bits); b += blockDim.x) {
-      table[b] = find_symbol(cdf_g, K, static_cast<uint32_t>(b) << shift);
-    }
-    lut = table;
-    cdf = stage_cdf(smem + (1 << lut_bits) + 1, cdf_g, K, cdf_in_smem);
-  }
-  template <int R>
-  __device__ void invert_lanes(int, const int (&)[R], const uint32_t (&q)[R],
-                               int (&sym)[R], uint32_t (&cum)[R],
-                               uint32_t (&prob)[R]) const {
-    const int shift = P - lut_bits;
-    // a complete table (shift 0) gives the answer in lut[b]: the bucket's
-    // upper end is then read from the same entry and nothing is searched
-    const uint32_t* upper = lut + (shift != 0);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const uint32_t b = q[r] >> shift;
-      int lo = static_cast<int>(lut[b]);
-      int hi = static_cast<int>(upper[b]);
-      while (lo < hi) {  // the largest s in [lo, hi] with cdf[s] <= q
-        const int mid = (lo + hi + 1) >> 1;
-        if (cdf[mid] <= q[r]) {
-          lo = mid;
-        } else {
-          hi = mid - 1;
-        }
-      }
-      sym[r] = lo;
-      cum[r] = cdf[lo];
-      prob[r] = cdf[lo + 1] - cum[r];
-    }
-  }
-};
 
 // The encode model of ilans2_wide.cuh's pass A: each symbol's division
 // record (its interval and the multiply-high reciprocal of its probability,
@@ -131,16 +80,6 @@ struct RecordCdfModel {
   }
   __device__ Interval interval(Token sym) const { return records[sym]; }
 };
-
-constexpr int kLutBits = 12;  // the decode's bucket table: 2^12 + 1 words
-
-// Dynamic shared memory of the decode: the bucket table, then the CDF when
-// it fits beside it; fills in the model's table size and CDF placement.
-size_t bucket_smem_bytes(BucketCdfModel* model) {
-  model->lut_bits = std::min(model->P, kLutBits);
-  const size_t lut = ((size_t(1) << model->lut_bits) + 1) * sizeof(uint32_t);
-  return lut + cdf_smem_bytes(lut, model->K, &model->cdf_in_smem);
-}
 
 // Dynamic shared memory of pass A: the K division records when they fit.
 template <class Record>

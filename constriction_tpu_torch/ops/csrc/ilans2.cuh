@@ -1,5 +1,5 @@
 // The single-block ILANS2 decode and encode loops on Hopper (sm_90a), used
-// by exact_family.cu (the reference-exact families, kernels 13-17:
+// by exact_family.cu (the reference-exact families, kernels 13, 14, 16, 17:
 // per-symbol (cum, prob) planes when encoding, packed per-symbol decode
 // tables when decoding).  One block of 1024 threads codes the whole
 // message: per step each warp ballots its 32 lanes' flags, a block scan
@@ -10,9 +10,9 @@
 // (chip_smoke.py, sweep): the lane loop's latency on one SM, not the
 // barriers, bounds it.  The loops are templated on the preset (W, S) and
 // on a model policy, as are ilans2_wide.cuh's cluster decode and two-pass
-// encode, which run the categorical coder (ilans2.cu) at both presets; a
-// model moves there by providing that header's invert_lanes or fetch /
-// interval.
+// encode, which run the categorical coder (ilans2.cu) at both presets and
+// kernel 15 (exact_family.cu's TableModel); a model moves there by
+// providing that header's invert_lanes, or fetch / interval.
 //
 // A decode model provides
 //   __device__ void stage(uint32_t* smem_cdf);   // before the first step

@@ -14,7 +14,9 @@
 // word stream in decode-consumption order (at each step the refilling lanes
 // take the next words in ascending lane order); a lane's first S/W words
 // are its initial point.  The TPU kernels hold S=64 values as u32 pairs
-// (_mul40x25, _div64_by_scale, _pair_add); here they are native uint64_t.
+// (_mul40x25, _div64_by_scale, _pair_add); here they are native uint64_t,
+// and the S=64 decode's division by the scale an f64 estimate with one
+// correcting product.
 //
 // Encoding is the two-phase big-number formulation of pallas_range_enc.py:
 // a range coder's emitted words are base-2^W digits of an unbounded
@@ -29,13 +31,20 @@
 //
 // What bounds them on this card:
 // - Decode and phase B are serial over the T steps, and each step needs an
-//   exclusive prefix over all L lanes (refill ranks, emission offsets).  As
-//   the rANS kernels (ilans2.cu) they run in ONE block of 1024 threads with
-//   a warp ballot and a block scan per step (lanes.cuh), lane state in
-//   device memory (L2-resident) updated in place, and the refill / emission
-//   of step t fused with the coding / flagging of the next step.  They are
-//   latency-bound on one SM; the decoder's u64 / u64 division at S=64 is a
-//   software routine of some tens of instructions on the lane chain.
+//   exclusive prefix over all L lanes (refill ranks, emission offsets).
+//   The S=64 decode (kernel 5) runs ilans2_wide.cuh's cluster design
+//   (cluster_range_decode_kernel over BucketCdfModel, shared with the rANS
+//   decodes): up to 16 CTAs, each lane's (lower, range, point) in
+//   registers for the whole message, one distributed-shared-memory exchange
+//   and cluster barrier per step, a bucket table in front of the CDF
+//   search, and the quantile's u64 / u64 division replaced by an f64
+//   estimate and one correcting product (f64_quotient).  The step's
+//   barriers and its chain (quotient, search, products, refill load) bound
+//   it.  Phase B and the S=32 decode still run in ONE block of 1024
+//   threads with a warp ballot and a block scan per step (lanes.cuh), lane
+//   state in device memory (L2-resident) updated in place, and the refill /
+//   emission of step t fused with the coding / flagging of the next step:
+//   latency-bound on one SM.
 // - Phase A has no cross-lane dependency: a grid of L / 128 blocks, one
 //   thread per lane looping over T, with symbol reads and record writes
 //   coalesced across a warp and the next step's symbol loaded ahead.  It
@@ -43,7 +52,7 @@
 //   it once enough warps are in flight; at L = 32768 only 1024 warps cover
 //   132 SMs, so latency still shows.
 
-#include "lanes.cuh"
+#include "ilans2_wide.cuh"
 
 namespace {
 
@@ -172,8 +181,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tid == 0) *end_out = e;
 }
 
-// Decode n symbols.  lows / rngs / pts[L]: the initial (lower, range,
-// point) planes in (lower 0 and range 2^S - 1 unless resuming from a
+// Decode n symbols on one block (the S=32 decode, kernel 6).  lows / rngs /
+// pts[L]: the initial (lower, range, point) planes in (lower 0 and range 2^S - 1 unless resuming from a
 // checkpoint), the final planes out.  stream[slen]: W-bit words, one per
 // u32; reads past the end yield 0.  *bad: the caller sets n; the kernel
 // lowers it to the first symbol whose quantile is >= 2^P (data
@@ -323,6 +332,61 @@ int launch_decode(void* lows, void* rngs, void* pts, const void* stream,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The cluster decode (kernel 5); `cluster` 0 picks the cluster size from L.
+template <int W, int S>
+int launch_cluster_decode(void* lows, void* rngs, void* pts,
+                          const void* stream, long long slen, const void* cdf,
+                          int K, void* syms, long long n, int L, int P,
+                          void* bad, int cluster, void* cuda_stream,
+                          int device) {
+  using State = typename StateOf<S>::type;
+  if (!valid_args(L, P, K)) return static_cast<int>(cudaErrorInvalidValue);
+  BucketCdfModel model{static_cast<const uint32_t*>(cdf), K, 0, P, 0,
+                       nullptr};
+  const size_t bytes = bucket_smem_bytes(&model);
+  ClusterGeometry geo;
+  ClusterRangeDecodeFn<W, S, BucketCdfModel> kernel;
+  cudaError_t err = plan_cluster_range_decode<W, S, BucketCdfModel>(
+      L, cluster, bytes, device, &geo, &kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      geo, bytes, static_cast<cudaStream_t>(cuda_stream), &attr);
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<State*>(lows), static_cast<State*>(rngs),
+      static_cast<State*>(pts), static_cast<const uint32_t*>(stream),
+      static_cast<int64_t>(slen), model, static_cast<int32_t*>(syms),
+      static_cast<int64_t>(n), L, P, num_steps(n, L), geo.groups_per_cta,
+      static_cast<unsigned long long*>(bad));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The cluster decode's geometry for L lanes, K symbols and precision P
+// (`cluster` 0: the size the decode picks), into out[8]: cluster size,
+// groups per CTA, lanes per thread, threads per CTA, the card's maximum of
+// active clusters of that shape, the dynamic shared memory bytes, whether
+// the CDF is in shared memory, the bucket table's lut_bits.
+template <int W, int S>
+int cluster_geometry(int L, int K, int P, int cluster, long long* out,
+                     int device) {
+  if (!valid_args(L, P, K)) return static_cast<int>(cudaErrorInvalidValue);
+  BucketCdfModel model{nullptr, K, 0, P, 0, nullptr};
+  const size_t bytes = bucket_smem_bytes(&model);
+  ClusterGeometry geo;
+  ClusterRangeDecodeFn<W, S, BucketCdfModel> kernel;
+  const cudaError_t err = plan_cluster_range_decode<W, S, BucketCdfModel>(
+      L, cluster, bytes, device, &geo, &kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long vals[8] = {geo.cluster, geo.groups_per_cta, geo.rows,
+                             geo.threads, geo.max_active_clusters,
+                             static_cast<long long>(bytes),
+                             model.cdf_in_smem, model.lut_bits};
+  for (int k = 0; k < 8; ++k) out[k] = vals[k];
+  return 0;
+}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes (constriction_tpu_torch/ops/_build.py).
@@ -378,8 +442,27 @@ int ctt_ilans2_range_decode_w32s64(void* lows, void* rngs, void* pts,
                                    const void* cdf, int K, void* syms,
                                    long long n, int L, int P, void* bad,
                                    void* cuda_stream, int device) {
-  return launch_decode<32, 64>(lows, rngs, pts, stream, slen, cdf, K, syms, n,
-                               L, P, bad, cuda_stream, device);
+  return launch_cluster_decode<32, 64>(lows, rngs, pts, stream, slen, cdf, K,
+                                       syms, n, L, P, bad, 0, cuda_stream,
+                                       device);
+}
+
+// The same decode on a cluster of `cluster` CTAs (1 .. 16).
+int ctt_ilans2_range_decode_cluster_w32s64(
+    void* lows, void* rngs, void* pts, const void* stream, long long slen,
+    const void* cdf, int K, void* syms, long long n, int L, int P, void* bad,
+    int cluster, void* cuda_stream, int device) {
+  if (cluster < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_cluster_decode<32, 64>(lows, rngs, pts, stream, slen, cdf, K,
+                                       syms, n, L, P, bad, cluster,
+                                       cuda_stream, device);
+}
+
+int ctt_ilans2_range_geometry_w32s64(int L, int K, int P, int cluster,
+                                     long long* out, void* cuda_stream,
+                                     int device) {
+  (void)cuda_stream;
+  return cluster_geometry<32, 64>(L, K, P, cluster, out, device);
 }
 
 }  // extern "C"

@@ -3,21 +3,26 @@
 // a register for the whole message, and an encode split into a lane-parallel
 // pass over the whole grid and a row-major compaction of the emitted words.
 // ilans2.cu instantiates them for the categorical coder at both presets
-// (W=32/S=64 and W=16/S=32, one CDF).  Like ilans2.cuh's single-block loops
-// they are templated on (W, S, Model), so the coders that still run those
-// (exact_family.cu's table and plane models) can move here by instantiation
-// once their models provide, besides stage():
+// (W=32/S=64 and W=16/S=32, one CDF), exact_family.cu the decode for the
+// S=64 reference-exact tables (kernel 15), and ilans2_range.cu the range
+// decode's twin of the cluster decode (cluster_range_decode_kernel, kernel
+// 5), which shares its step exchange (exchange_step).  Like ilans2.cuh's
+// single-block loops they are templated on (W, S, Model), so the coders
+// that still run those can move here by instantiation once their models
+// provide, besides stage():
 //   decode: template <int R> invert_lanes(t, l[R], q[R], sym[R], cum[R],
-//           prob[R]) -- the R quantiles of one thread at once;
+//           prob[R]) -- the R quantiles of one thread at once (l may lie
+//           past L in a CTA's last warps; the result is then unused);
 //   encode: Token fetch(i) and Interval interval(Token) -- the device-
 //           memory read of symbol i's model, issued a step before the
 //           (shared-memory) interval is needed; an Interval has cum(),
 //           prob(), divide(x) (x / prob) and a static unit() (cum 0,
 //           prob 1).
-// ilans2.cu's BucketCdfModel (decode: a bucket table in front of the CDF
-// search) and RecordCdfModel (encode: a division record per symbol, the
-// division as a multiply-high; DivisionRecord at S=64, DivisionRecord32 at
-// S=32) provide them.
+// BucketCdfModel below (decode: a bucket table in front of the CDF
+// search), ilans2.cu's RecordCdfModel (encode: a division record per
+// symbol, the division as a multiply-high; DivisionRecord at S=64,
+// DivisionRecord32 at S=32) and exact_family.cu's TableModel (decode: the
+// packed tables in device memory, searched in lock step) provide them.
 //
 // Decode (cluster_decode_kernel).  A decode step needs the exclusive count of
 // refilling lanes below each lane over all L lanes, and that count depends on
@@ -40,6 +45,17 @@
 // CTA has passed the barrier that follows its last read.  Each step also
 // prefetches into L2 the stream words the next two steps can reach (2L words
 // from the next step's first word).
+//
+// Range decode (cluster_range_decode_kernel).  The same step with a range
+// lane's (lower, range, point) in place of the rANS state: the quantile
+// (point - lower) / (range >> P), the model's search, lower += scale cum and
+// range = scale prob, the refill flag range < 2^(S-W), the same exchange,
+// and a refill that shifts all three left by W and puts the word into
+// point.  The quotient is below 2^P <= 2^24 wherever the data is valid, so
+// in place of the card's u64 / u64 division (a software routine of some
+// tens of instructions on the lane's chain) it is an f64 estimate, off by
+// at most one, corrected by one product (f64_quotient); the invalid case
+// q >= 2^P is told apart first, exactly, as num >= scale << P.
 //
 // Encode (encode_lanes_kernel, then compact_*_kernel).  A lane's renorm
 // decision and next state depend on its own state and symbol only; the lanes
@@ -197,6 +213,113 @@ __global__ void __launch_bounds__(128)
   out[s] = Record::build(cdf[s], cdf[s + 1] - cdf[s]);
 }
 
+// The decode model of the categorical coders' cluster decodes (rANS,
+// kernels 1 and 4; range, kernel 5): the CDF, in shared memory when it
+// fits, behind a bucket table in shared memory: lut[b] is the symbol of
+// quantile b << (P - lut_bits), so quantile q's symbol lies between
+// lut[q >> (P - lut_bits)] and the next entry, and a binary search between
+// the two (zero or one probe for most quantiles of a K=100 model at P=24)
+// gives find_symbol's answer.  With lut_bits == P, lut[q] is that answer
+// and nothing is searched.
+struct BucketCdfModel {
+  const uint32_t* cdf;
+  int K;
+  int cdf_in_smem;
+  int P;
+  int lut_bits;
+  const uint32_t* lut;  // set by stage
+
+  __device__ void stage(uint32_t* smem) {
+    const uint32_t* cdf_g = cdf;
+    uint32_t* table = smem;
+    const int shift = P - lut_bits;
+    for (int b = threadIdx.x; b <= (1 << lut_bits); b += blockDim.x) {
+      table[b] = find_symbol(cdf_g, K, static_cast<uint32_t>(b) << shift);
+    }
+    lut = table;
+    cdf = stage_cdf(smem + (1 << lut_bits) + 1, cdf_g, K, cdf_in_smem);
+  }
+  template <int R>
+  __device__ void invert_lanes(int, const int (&)[R], const uint32_t (&q)[R],
+                               int (&sym)[R], uint32_t (&cum)[R],
+                               uint32_t (&prob)[R]) const {
+    const int shift = P - lut_bits;
+    // a complete table (shift 0) gives the answer in lut[b]: the bucket's
+    // upper end is then read from the same entry and nothing is searched
+    const uint32_t* upper = lut + (shift != 0);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const uint32_t b = q[r] >> shift;
+      int lo = static_cast<int>(lut[b]);
+      int hi = static_cast<int>(upper[b]);
+      while (lo < hi) {  // the largest s in [lo, hi] with cdf[s] <= q
+        const int mid = (lo + hi + 1) >> 1;
+        if (cdf[mid] <= q[r]) {
+          lo = mid;
+        } else {
+          hi = mid - 1;
+        }
+      }
+      sym[r] = lo;
+      cum[r] = cdf[lo];
+      prob[r] = cdf[lo + 1] - cum[r];
+    }
+  }
+};
+
+constexpr int kLutBits = 12;  // the decode's bucket table: 2^12 + 1 words
+
+// Dynamic shared memory of a BucketCdfModel decode: the bucket table, then
+// the CDF when it fits beside it; fills in the model's table size and CDF
+// placement.
+inline size_t bucket_smem_bytes(BucketCdfModel* model) {
+  model->lut_bits = std::min(model->P, kLutBits);
+  const size_t lut = ((size_t(1) << model->lut_bits) + 1) * sizeof(uint32_t);
+  return lut + cdf_smem_bytes(lut, model->K, &model->cdf_in_smem);
+}
+
+// The refill counts of one decode step in shared memory, double-buffered by
+// step parity: each warp's in its CTA, and every CTA's of the cluster in
+// every CTA (written remotely).
+struct StepExchange {
+  uint32_t warp_counts[2][kClusterWarps];
+  uint32_t cta_totals[2][kMaxCluster];
+};
+
+// Where a warp's refills of one step start: past those of the lower warps
+// of its CTA (warp) and of the lower CTAs of the cluster (cta); total is
+// the step's count over the cluster.
+struct StepOffsets {
+  uint32_t warp;
+  uint32_t cta;
+  uint32_t total;
+};
+
+// One step's exchange, called by every thread of the cluster with its
+// warp's refill count and the step parity: the per-warp counts, one block
+// barrier, this CTA's total written into slot [par][rank] of every CTA of
+// the cluster through distributed shared memory, one cluster barrier
+// (arrive.release / wait.acquire), and warp reductions for the offsets.
+// lane, warp and warps: the caller's lane, warp and warp count.
+__device__ __forceinline__ StepOffsets exchange_step(
+    StepExchange& x, cg::cluster_group& cluster, uint32_t count, int par,
+    int rank, int C, int lane, int warp, int warps) {
+  if (lane == 0) x.warp_counts[par][warp] = count;
+  __syncthreads();
+  const uint32_t wc = lane < warps ? x.warp_counts[par][lane] : 0u;
+  StepOffsets off;
+  off.warp = __reduce_add_sync(kFull, lane < warp ? wc : 0u);
+  const uint32_t cta_total = __reduce_add_sync(kFull, wc);
+  if (warp == 0 && lane < C) {
+    *cluster.map_shared_rank(&x.cta_totals[par][rank], lane) = cta_total;
+  }
+  cluster_barrier();
+  const uint32_t ct = lane < C ? x.cta_totals[par][lane] : 0u;
+  off.cta = __reduce_add_sync(kFull, lane < rank ? ct : 0u);
+  off.total = __reduce_add_sync(kFull, ct);
+  return off;
+}
+
 // Decode n symbols on a cluster of CTAs.  states[L]: initial decoder states
 // in, final states out.  stream[slen]: W-bit words, one per u32; reads past
 // the end yield 0.  groups_per_cta: the run of 32-lane groups of one CTA
@@ -212,8 +335,7 @@ __global__ void __launch_bounds__(kClusterWarps * 32, 1)
                           int64_t* __restrict__ base_io) {
   using State = typename StateOf<S>::type;
   extern __shared__ __align__(16) uint32_t smem_model[];
-  __shared__ uint32_t warp_counts[2][kClusterWarps];
-  __shared__ uint32_t cta_totals[2][kMaxCluster];
+  __shared__ StepExchange xch;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int C = static_cast<int>(cluster.num_blocks());
@@ -269,24 +391,12 @@ __global__ void __launch_bounds__(kClusterWarps * 32, 1)
         count += __popc(__ballot_sync(kFull, x[r] < kLower));
       }
     }
-    // the CTA's count and this warp's offset in it; then every CTA's
-    // count into every CTA of the cluster, and the offset of this CTA
-    if (lane == 0) warp_counts[par][warp] = count;
-    __syncthreads();
-    const uint32_t wc = lane < warps ? warp_counts[par][lane] : 0u;
-    const uint32_t warp_off = __reduce_add_sync(kFull, lane < warp ? wc : 0u);
-    const uint32_t cta_total = __reduce_add_sync(kFull, wc);
-    if (warp == 0 && lane < C) {
-      *cluster.map_shared_rank(&cta_totals[par][rank], lane) = cta_total;
-    }
-    cluster_barrier();
-    const uint32_t ct = lane < C ? cta_totals[par][lane] : 0u;
-    const uint32_t cta_off = __reduce_add_sync(kFull, lane < rank ? ct : 0u);
-    const uint32_t step_total = __reduce_add_sync(kFull, ct);
+    const StepOffsets off =
+        exchange_step(xch, cluster, count, par, rank, C, lane, warp, warps);
 
     // refill: the step's flagged lanes take the next words in lane order;
     // all R loads are issued before any is used
-    int64_t idx = base + cta_off + warp_off;
+    int64_t idx = base + off.cta + off.warp;
     uint32_t word[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -305,7 +415,7 @@ __global__ void __launch_bounds__(kClusterWarps * 32, 1)
         x[r] = (x[r] << W) | static_cast<State>(word[r] & kWordMask);
       }
     }
-    base += step_total;
+    base += off.total;
     const int64_t at = (base & ~int64_t(31)) + cluster_tid * 32;
     if (cluster_tid < reach_lines && at < slen) prefetch_l2(stream + at);
   }
@@ -314,6 +424,166 @@ __global__ void __launch_bounds__(kClusterWarps * 32, 1)
     if (g0 + r < g_end) states[(g0 + r) * 32 + lane] = x[r];
   }
   if (Seg && rank == 0 && tid == 0) *base_io = base;
+}
+
+// floor(num / scale) for 0 < scale and num < scale << P with P <= 24 (the
+// quotient below 2^24): the f64 quotient of the two correctly rounded
+// conversions is within 2^-51 of num / scale relatively, so its
+// truncation is off by at most one either way, and one product against num
+// tells which (it cannot overflow: (q + 1) scale <= num + scale < 2^S).
+// Elsewhere the result is some value the caller does not use; nothing
+// faults (a division by 0 saturates the conversion).
+// constriction_tpu_torch/ops/coder64.py (range_quotient) holds the same
+// arithmetic exact against integer division.
+template <typename State>
+__device__ __forceinline__ uint32_t f64_quotient(State num, State scale) {
+  const uint32_t q = __double2uint_rz(
+      __ddiv_rn(__ull2double_rn(static_cast<unsigned long long>(num)),
+                __ull2double_rn(static_cast<unsigned long long>(scale))));
+  const State p = static_cast<State>(q) * scale;
+  if (p > num) return q - 1u;
+  return num - p >= scale ? q + 1u : q;
+}
+
+// A range lane's quantile (point - lower) / scale with scale = range >> P,
+// clamped to 2^P - 1, and in *over whether it was >= 2^P (data
+// inconsistent with the model; only a lane holding a symbol reports it);
+// 0 where scale is 0, which only corrupt checkpoint planes give.  q >= 2^P
+// exactly when num >= scale << P, and that shift cannot overflow: (range >>
+// P) << P <= range.
+template <typename State>
+__device__ __forceinline__ uint32_t range_quantile(State num, State scale,
+                                                   int P, bool* over) {
+  *over = scale != 0 && num >= (scale << P);
+  const uint32_t q = f64_quotient(num, scale);
+  return scale == 0 ? 0u : (*over ? (1u << P) - 1u : q);
+}
+
+// Range-decode n symbols on a cluster of CTAs (the lanes split as in
+// cluster_decode_kernel).  lows / rngs / pts[L]: the initial (lower, range,
+// point) planes in (lower 0 and range 2^S - 1 unless resuming from a
+// checkpoint), the final planes out.  stream[slen]: W-bit words, one per
+// u32; reads past the end yield 0.  *bad: the caller sets n; the kernel
+// lowers it to the first symbol whose quantile is >= 2^P, and decodes on
+// with that quantile clamped to 2^P - 1.
+template <int W, int S, int R, class Model>
+__global__ void __launch_bounds__(kClusterWarps * 32, 1)
+    cluster_range_decode_kernel(typename StateOf<S>::type* __restrict__ lows,
+                                typename StateOf<S>::type* __restrict__ rngs,
+                                typename StateOf<S>::type* __restrict__ pts,
+                                const uint32_t* __restrict__ stream,
+                                int64_t slen, Model model,
+                                int32_t* __restrict__ syms, int64_t n, int L,
+                                int P, int T, int groups_per_cta,
+                                unsigned long long* __restrict__ bad) {
+  using State = typename StateOf<S>::type;
+  extern __shared__ __align__(16) uint32_t smem_model[];
+  __shared__ StepExchange xch;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int C = static_cast<int>(cluster.num_blocks());
+
+  constexpr State kLower = State(1) << (S - W);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warps = blockDim.x >> 5;
+  const uint32_t lt_mask = (1u << lane) - 1u;
+  const int G = L / 32;
+  const int g_end = min(G, (rank + 1) * groups_per_cta);
+  const int g0 = rank * groups_per_cta + warp * R;  // slot 0's group
+
+  model.stage(smem_model);
+  State lo[R], rg[R], pt[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int l = (g0 + r) * 32 + lane;
+    const bool live = g0 + r < g_end;
+    lo[r] = live ? lows[l] : State(0);
+    rg[r] = live ? rngs[l] : State(0);
+    pt[r] = live ? pts[l] : State(0);
+  }
+  int64_t base = 0;  // first stream word of this step
+  // the first two steps' words into L2
+  const int64_t cluster_tid = static_cast<int64_t>(rank) * blockDim.x + tid;
+  const int64_t reach_lines = (2 * static_cast<int64_t>(L) + 31) / 32 + 1;
+  if (cluster_tid < reach_lines && cluster_tid * 32 < slen) {
+    prefetch_l2(stream + cluster_tid * 32);
+  }
+  // the staged CDF is visible, and every CTA of the cluster runs before
+  // the first remote write
+  cluster_barrier();
+
+  for (int t = 0; t < T; ++t) {
+    const int par = t & 1;
+    // the R quantiles, then the model's search over all of them (the
+    // scale is shifted out again after it: registers, not a held array)
+    int l[R], sym[R];
+    uint32_t q[R], cum[R], prob[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      l[r] = (g0 + r) * 32 + lane;
+      bool over;
+      q[r] = range_quantile(State(pt[r] - lo[r]), rg[r] >> P, P, &over);
+      const int64_t i = static_cast<int64_t>(t) * L + l[r];
+      if (over && g0 + r < g_end && i < n) {
+        atomicMin(bad, static_cast<unsigned long long>(i));
+      }
+    }
+    model.invert_lanes(t, l, q, sym, cum, prob);
+    uint32_t count = 0;
+    bool refill[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      refill[r] = false;
+      if (g0 + r < g_end) {  // warp-uniform
+        const int64_t i = static_cast<int64_t>(t) * L + l[r];
+        if (i < n) {
+          const State scale = rg[r] >> P;
+          lo[r] += scale * cum[r];  // mod 2^S
+          rg[r] = scale * prob[r];
+          syms[i] = sym[r];
+          refill[r] = rg[r] < kLower;
+        }
+        count += __popc(__ballot_sync(kFull, refill[r]));
+      }
+    }
+    const StepOffsets off =
+        exchange_step(xch, cluster, count, par, rank, C, lane, warp, warps);
+
+    // refill: the step's flagged lanes take the next words in lane order;
+    // all R loads are issued before any is used
+    int64_t idx = base + off.cta + off.warp;
+    uint32_t word[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      word[r] = 0u;
+      if (g0 + r < g_end) {
+        const unsigned bal = __ballot_sync(kFull, refill[r]);
+        const int64_t at = idx + __popc(bal & lt_mask);
+        if (refill[r] && at < slen) word[r] = stream[at];
+        idx += __popc(bal);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (refill[r]) {
+        lo[r] <<= W;
+        rg[r] <<= W;
+        pt[r] = (pt[r] << W) | static_cast<State>(word[r]);
+      }
+    }
+    base += off.total;
+    const int64_t at = (base & ~int64_t(31)) + cluster_tid * 32;
+    if (cluster_tid < reach_lines && at < slen) prefetch_l2(stream + at);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (g0 + r < g_end) {
+      const int l = (g0 + r) * 32 + lane;
+      lows[l] = lo[r];
+      rngs[l] = rg[r];
+      pts[l] = pt[r];
+    }
+  }
 }
 
 // Pass A of the encode: lane l = blockIdx.x * blockDim.x + threadIdx.x runs
@@ -548,20 +818,40 @@ inline cudaLaunchConfig_t cluster_config(const ClusterGeometry& geo,
   return cfg;
 }
 
-// Picks the decode's geometry and kernel for L lanes and prepares the
+template <int W, int S, class Model>
+using ClusterRangeDecodeFn = void (*)(
+    typename StateOf<S>::type*, typename StateOf<S>::type*,
+    typename StateOf<S>::type*, const uint32_t*, int64_t, Model, int32_t*,
+    int64_t, int, int, int, int, unsigned long long*);
+
+template <int W, int S, class Model>
+ClusterRangeDecodeFn<W, S, Model> cluster_range_decode_for(int rows) {
+  switch (rows) {
+    case 1: return cluster_range_decode_kernel<W, S, 1, Model>;
+    case 2: return cluster_range_decode_kernel<W, S, 2, Model>;
+    case 4: return cluster_range_decode_kernel<W, S, 4, Model>;
+    case 8: return cluster_range_decode_kernel<W, S, 8, Model>;
+    case 16: return cluster_range_decode_kernel<W, S, 16, Model>;
+    case 32: return cluster_range_decode_kernel<W, S, 32, Model>;
+    default: return nullptr;
+  }
+}
+
+// Picks a cluster decode's geometry and kernel for L lanes and prepares the
 // kernel: `cluster` CTAs when it is given (> 0), else auto_cluster(L),
-// halved while the card reports that it cannot co-schedule such a cluster.
-// A geometry the card cannot run, or one past 32 lanes a thread (L above
-// 16 * 32 * 32 * 32), returns an error.
-template <int W, int S, class Model, bool Seg>
-cudaError_t plan_cluster_decode(int L, int cluster, size_t smem, int device,
-                                ClusterGeometry* geo,
-                                ClusterDecodeFn<W, S, Model, Seg>* kernel) {
+// halved while the card reports that it cannot co-schedule such a cluster;
+// for_rows(R) gives the kernel instance of R lanes a thread.  A geometry
+// the card cannot run, or one past 32 lanes a thread (L above 16 * 32 * 32
+// * 32), returns an error.
+template <class Kernel>
+cudaError_t plan_cluster(int L, int cluster, size_t smem, int device,
+                         ClusterGeometry* geo, Kernel* kernel,
+                         Kernel (*for_rows)(int)) {
   if (cluster > kMaxCluster || L <= 0 || L % 32) return cudaErrorInvalidValue;
   int C = cluster > 0 ? cluster : auto_cluster(L);
   for (;;) {
     *geo = cluster_shape(L, C);
-    *kernel = cluster_decode_for<W, S, Model, Seg>(geo->rows);
+    *kernel = for_rows(geo->rows);
     if (*kernel == nullptr) return cudaErrorInvalidValue;
     cudaError_t err = prepare(*kernel, device, smem);
     if (err == cudaSuccess && C > kPortableCluster) {
@@ -578,6 +868,22 @@ cudaError_t plan_cluster_decode(int L, int cluster, size_t smem, int device,
     if (cluster > 0 || C == 1) return cudaErrorInvalidConfiguration;
     C /= 2;
   }
+}
+
+template <int W, int S, class Model, bool Seg>
+cudaError_t plan_cluster_decode(int L, int cluster, size_t smem, int device,
+                                ClusterGeometry* geo,
+                                ClusterDecodeFn<W, S, Model, Seg>* kernel) {
+  return plan_cluster(L, cluster, smem, device, geo, kernel,
+                      cluster_decode_for<W, S, Model, Seg>);
+}
+
+template <int W, int S, class Model>
+cudaError_t plan_cluster_range_decode(
+    int L, int cluster, size_t smem, int device, ClusterGeometry* geo,
+    ClusterRangeDecodeFn<W, S, Model>* kernel) {
+  return plan_cluster(L, cluster, smem, device, geo, kernel,
+                      cluster_range_decode_for<W, S, Model>);
 }
 
 }  // namespace

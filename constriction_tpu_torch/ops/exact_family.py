@@ -19,7 +19,10 @@ produces can be re-coded here with zero rate change:
   Kernel 15 (wide) or kernel 13 (narrow) inverts the quantiles against
   them (:func:`decode_tables`); kernel 16 does the same for one segment of
   a core-size-grouped message at S=64, carrying the stream offset from
-  launch to launch (:func:`decode_tables_seg`);
+  launch to launch (:func:`decode_tables_seg`).  Kernel 15 runs
+  ``csrc/ilans2_wide.cuh``'s cluster decode (:func:`geometry`), its
+  binary search over the R lanes of a thread in lock step
+  (:func:`invert_tables_bisect` is that probe order in plain PyTorch);
 - grouping (S=64 only, as in the JAX package): :func:`group_plan`
   stable-sorts the symbols by a deterministic core-size bound computed
   from (means, scales) alone, so each decode segment runs at its own tight
@@ -57,8 +60,8 @@ import torch
 from .. import convert
 from ..utils import special
 from . import _build
-from .coder import (_check, _check_seeds, _num_steps, _on_cuda,
-                    _refill_words, encode32_steps)
+from .coder import (MAX_DECODE_LANES, _check, _check_seeds, _num_steps,
+                    _on_cuda, _refill_words, encode32_steps)
 from .coder64 import _M32, encode64_steps
 from .interleaved import LaneConfig
 
@@ -912,12 +915,17 @@ def _decode_args(states, stream, tabs, cfg: LaneConfig, min_sym: int,
     return device
 
 
-# planes per lane (CP1 = 1 + 3G) from which kernels 15 and 16 binary-search
-# the packed fields instead of scanning them all: measured on an H100 by
-# chip_smoke.py's search sweep (exact_times), where the binary search was
-# faster at every width from 37 planes up (2.4x at 139) and the scan at or
-# within 15% of it below
-BISECT_FROM_PLANES = 37
+# planes per lane (CP1 = 1 + 3G) from which kernel 15 (the cluster decode)
+# binary-searches the packed fields instead of scanning them all: measured
+# on an H100 by chip_smoke.py's search sweep (exact_times, the cluster
+# columns), where the lock-step binary search was faster at every width it
+# met, from 16 planes (by 11%) to 139 (3.9x); narrower tables were not
+# measured and keep the scan
+BISECT_FROM_PLANES = 16
+# the same for kernel 16 (one block): measured on an H100 by the same
+# sweep, where the binary search was faster at every width from 37 planes
+# up (2.4x at 139) and the scan at or within 15% of it below
+BISECT_FROM_PLANES_SEG = 37
 # the same for kernel 13's narrow tables (CP1 = cmax / 2 + 1, two fields a
 # plane): measured on an H100 by chip_smoke.py's narrow search sweep
 # (exact32_times), where the binary search was faster at every width from
@@ -926,11 +934,12 @@ BISECT_FROM_PLANES = 37
 BISECT_FROM_PLANES_NARROW = 7
 
 
-def bisect_tables(CP1: int, narrow: bool = False) -> bool:
-    """Whether kernels 15 and 16 (or with ``narrow``, kernel 13)
-    binary-search tables of ``CP1`` planes."""
-    return CP1 >= (BISECT_FROM_PLANES_NARROW if narrow
-                   else BISECT_FROM_PLANES)
+def bisect_tables(CP1: int, narrow: bool = False, seg: bool = False) -> bool:
+    """Whether kernel 15 (with ``seg``, kernel 16; with ``narrow``, kernel
+    13) binary-searches tables of ``CP1`` planes."""
+    if narrow:
+        return CP1 >= BISECT_FROM_PLANES_NARROW
+    return CP1 >= (BISECT_FROM_PLANES_SEG if seg else BISECT_FROM_PLANES)
 
 
 def decode_tables(states, stream, tabs, cfg: LaneConfig, min_sym: int,
@@ -954,6 +963,11 @@ def decode_tables(states, stream, tabs, cfg: LaneConfig, min_sym: int,
         syms, fin, _ = decode_tables_plain(states, stream, tabs, cfg,
                                            min_sym, max_sym, num_symbols)
         return (syms, fin) if return_final_states else syms
+    if _wide(cfg) and cfg.num_lanes > MAX_DECODE_LANES:
+        raise ValueError(
+            f"the exact table decode kernel takes at most {MAX_DECODE_LANES} "
+            f"lanes (16 CTAs x 1024 threads x 32 lanes a thread), got "
+            f"{cfg.num_lanes}")
     fin = states.clone()
     syms = torch.empty(num_symbols, dtype=torch.int32, device=device)
     if num_symbols:
@@ -964,6 +978,21 @@ def decode_tables(states, stream, tabs, cfg: LaneConfig, min_sym: int,
                     cfg.precision, min_sym, max_sym,
                     int(bisect_tables(tabs.shape[1], not _wide(cfg))), None)
     return (syms, fin) if return_final_states else syms
+
+
+def geometry(L: int, device=None) -> dict:
+    """Kernel 15's launch geometry for L lanes on ``device`` (a CUDA
+    device; the current one by default): its cluster, the CTAs' groups,
+    lanes per thread and threads, and the card's maximum of such active
+    clusters."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    out = torch.zeros(5, dtype=torch.int64)
+    _build.call("ctt_exact_geometry64", device, L, out)
+    keys = ("cluster", "groups_per_cta", "lanes_per_thread",
+            "threads_per_cta", "max_active_clusters")
+    geo = dict(zip(keys, (int(v) for v in out)))
+    geo["ctas"] = geo["cluster"]
+    return geo
 
 
 def decode_tables_seg(states, stream, tabs, base, cfg: LaneConfig,
@@ -990,7 +1019,7 @@ def decode_tables_seg(states, stream, tabs, base, cfg: LaneConfig,
         _build.call("ctt_exact_decode64_seg", device, fin, stream,
                     stream.numel(), tabs, tabs.shape[1], syms, num_symbols,
                     cfg.num_lanes, cfg.precision, min_sym, max_sym,
-                    int(bisect_tables(tabs.shape[1])), nxt)
+                    int(bisect_tables(tabs.shape[1], seg=True)), nxt)
     return syms, fin, nxt
 
 
@@ -1021,13 +1050,7 @@ def invert_tables(q, tab, min_sym: int, max_sym: int, P: int):
     successor ``nxtc``; past the last field the pad value, 2^P - 1 wide and
     0xFFFF narrow, stands in) and the left-tail / core / right-tail regions
     of ``_invert_with_tables``."""
-    free = (1 << P) - 1 - (max_sym - min_sym)
-    span = max_sym - min_sym
     wide = P > 16
-    shift = 24 if wide else 16
-    aux = tab[0]
-    cl = aux & ((1 << shift) - 1)
-    nc = aux >> shift
     fields = _table_fields(tab) if wide else _narrow_fields(tab)
     nf = fields.shape[0]
     le = fields < q
@@ -1038,20 +1061,63 @@ def invert_tables(q, tab, min_sym: int, max_sym: int, P: int):
     succ = fields.gather(0, (last + 1).clamp(max=nf - 1)[None])[0]
     nxtc = torch.where(last + 1 >= nf, (1 << P) - 1 if wide else 0xFFFF,
                        succ) + 1
+    return _table_regions(q, tab[0], cnt, cumc, nxtc, min_sym, max_sym, P)
+
+
+def invert_tables_bisect(q, tab, min_sym: int, max_sym: int, P: int):
+    """:func:`invert_tables` for wide tables by kernel 15's lock-step
+    binary search (``csrc/exact_family.cu``, ``TableModel::invert_lanes``),
+    in its probe order: a branchless lower bound over the N = 4G fields
+    (every lane probes ``base + half`` at each of the ceil(log2 N) levels
+    and moves ``base`` up where that field is below q), then one level
+    reading the fields before, at and after ``base``.  Equal to
+    :func:`invert_tables` on tables whose fields ascend (pads 2^P - 1
+    last), as the builders write them."""
+    fields = _table_fields(tab)
+    N = fields.shape[0]
+    lanes = torch.arange(fields.shape[1], device=q.device)
+    base = torch.zeros_like(q)
+    length = N
+    while length > 1:
+        half = length >> 1
+        base = torch.where(fields[base + half, lanes] < q, base + half, base)
+        length -= half
+    fp = fields[(base - 1).clamp(min=0), lanes]
+    fb = fields[base, lanes]
+    fn = fields[(base + 1).clamp(max=N - 1), lanes]
+    below = fb < q
+    cnt = base + below.to(torch.int64)
+    cumc = torch.where(below, fb, torch.where(base > 0, fp, _M32))
+    nxtc = torch.where(below, torch.where(base + 1 < N, fn, (1 << P) - 1), fb)
+    return _table_regions(q, tab[0], cnt, cumc + 1, nxtc + 1, min_sym,
+                          max_sym, P)
+
+
+def _table_regions(q, aux, cnt, cum_c, nxt_c, min_sym: int, max_sym: int,
+                   P: int):
+    """The regions of ``_invert_with_tables`` once the core search has
+    given ``cnt`` (fields below q), ``cum_c`` (b of the last of them) and
+    ``nxt_c`` (b of its successor): the left tail, the core or the
+    saturated right tail decide ``(sym, cum, prob)``."""
+    free = (1 << P) - 1 - (max_sym - min_sym)
+    span = max_sym - min_sym
+    shift = 24 if P > 16 else 16
+    cl = aux & ((1 << shift) - 1)
+    nc = aux >> shift
     core_hi_rel = cl + nc - 1
     rstart = torch.where(core_hi_rel >= span, 1 << P,
                          free + 1 + core_hi_rel)
     s_rel_l = torch.minimum(q, cl - 1)
-    next_l = torch.where(s_rel_l >= cl - 1, nxtc, s_rel_l + 1)
+    next_l = torch.where(s_rel_l >= cl - 1, nxt_c, s_rel_l + 1)
     sym_c = cl + cnt - 1
-    next_c = torch.minimum(nxtc, rstart)
+    next_c = torch.minimum(nxt_c, rstart)
     s_rel_r = (q - free).clamp(max=span)
     cum_r = free + s_rel_r
     next_r = torch.where(s_rel_r >= span, 1 << P, cum_r + 1)
     right = q >= rstart
     leftr = cnt == 0
     s_rel = torch.where(right, s_rel_r, torch.where(leftr, s_rel_l, sym_c))
-    cum = torch.where(right, cum_r, torch.where(leftr, s_rel_l, cumc))
+    cum = torch.where(right, cum_r, torch.where(leftr, s_rel_l, cum_c))
     nxt = torch.where(right, next_r, torch.where(leftr, next_l, next_c))
     return s_rel + min_sym, cum, (nxt - cum) & _M32
 

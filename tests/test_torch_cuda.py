@@ -660,6 +660,115 @@ def test_range_facade_cuda_matches_cpu(dev, P):
         symbols)
 
 
+# --- the S=64 range decode on the cluster step (kernel 5,
+# csrc/ilans2_wide.cuh cluster_range_decode_kernel) ------------------------
+
+
+def _range64_case(L, n, seed, dev):
+    """Points, stream and CDF on the card of n symbols at W=32/S=64/P=24
+    (the host encoder, any L that is a multiple of 32), and the symbols."""
+    rng = np.random.RandomState(seed)
+    cfg = _cfg(64, L, 24)
+    syms, cdf = _range_symbols(rng, 100, 24, n, skewed=False)
+    pts, words = _range_host(cfg, syms, cdf)
+    return (cfg, syms, convert.states_to_torch(pts, cfg, dev),
+            convert.u32_to_torch(words, dev), convert.cdf_to_torch(cdf, dev))
+
+
+def test_range_decode_runs_as_a_cluster_at_bench_lanes(dev):
+    for L in (32768, 65536):
+        geo = coder64.range_geometry(L, 100, 24, dev)
+        assert geo["cluster"] > 1 and geo["max_active_clusters"] >= 1
+        assert geo["lut_bits"] == 12 and geo["cdf_in_smem"] == 1
+        assert geo["lanes_per_thread"] * geo["threads_per_cta"] // 32 \
+            >= geo["groups_per_cta"]
+
+
+@pytest.mark.parametrize("L,cluster", [
+    (128, 16), (96, 4), (2080, 16), (32000, 16), (4096, 2), (32768, 1),
+    (32768, 8), (65536, 16)])
+def test_range_cluster_partitions_match_twin(dev, L, cluster):
+    """Forced cluster sizes: groups that do not divide evenly over the
+    CTAs, CTAs left with no lanes (128/16, 96/4, 2080/16), one CTA holding
+    32 lanes a thread (32768/1); partial last steps and n < L."""
+    geo = coder64.range_geometry(L, 100, 24, dev, cluster=cluster)
+    assert geo["cluster"] == cluster
+    for n in (1, L - 5, 2 * L + 7):
+        cfg, syms, pts, words, cdf = _range64_case(L, n, L + n, dev)
+        before = coder64.LAUNCHES["range_decode"]
+        out, fin = coder64.decode_shared_range64_cluster(
+            pts, words, cdf, cfg, n, cluster)
+        assert coder64.LAUNCHES["range_decode"] == before + 1
+        out_p, fin_p = coder64.decode_shared_range64_plain(
+            pts, words, cdf, cfg, n, return_final_states=True)
+        assert torch.equal(out, out_p)
+        assert all(torch.equal(a, b) for a, b in zip(fin, fin_p))
+        np.testing.assert_array_equal(out.cpu().numpy(), syms)
+
+
+def test_range_decode_lanes_at_and_past_the_cluster_reach(dev):
+    """16 CTAs x 1024 threads x 32 lanes a thread is the range decode's
+    reach too: L = 524288 decodes like the twin, 128 more lanes raise with
+    the limit named, and launch nothing."""
+    L = coder.MAX_DECODE_LANES
+    cfg, syms, pts, words, cdf = _range64_case(L, L + 99, 3, dev)
+    out, fin = coder64.decode_shared_range64(pts, words, cdf, cfg, L + 99,
+                                             return_final_states=True)
+    out_p, fin_p = coder64.decode_shared_range64_plain(
+        pts, words, cdf, cfg, L + 99, return_final_states=True)
+    assert torch.equal(out, out_p)
+    assert all(torch.equal(a, b) for a, b in zip(fin, fin_p))
+    np.testing.assert_array_equal(out.cpu().numpy(), syms)
+    cfg = _cfg(64, L + 128, 24)
+    pts = torch.zeros(L + 128, dtype=torch.int64, device=dev)
+    before = dict(coder64.LAUNCHES)
+    with pytest.raises(ValueError, match=f"at most {L} lanes"):
+        coder64.decode_shared_range64(pts, words, cdf, cfg, 1000)
+    assert coder64.LAUNCHES == before
+
+
+@pytest.mark.parametrize("cluster", [0, 3, 16])
+def test_range_cluster_invalid_planes_and_truncated_stream(dev, cluster):
+    """Garbage points, checkpoint planes with ranges below 2^P (scale 0),
+    and a truncated stream: the kernel raises the twin's error (naming the
+    same first bad symbol) or returns its symbols and planes."""
+    L, n = 1024, 5 * 1024 + 33
+    cfg, syms, pts, words, cdf = _range64_case(L, n, 61, dev)
+    rng = np.random.RandomState(62)
+    garbage = pts.clone()
+    garbage[::5] = torch.from_numpy(rng.randint(
+        -(1 << 62), 1 << 62, size=garbage[::5].numel())).to(dev)
+    garbage[L - 9] = -1  # 2^64 - 1: the quantile 2^P, outside every interval
+    # every third lane's range below 2^P: scale 0, quantile 0, a refill
+    # every step, and the other lanes' words shifted
+    lows = torch.zeros(L, dtype=torch.int64, device=dev)
+    rngs = torch.full((L,), -1, dtype=torch.int64, device=dev)
+    rngs[::3] = torch.from_numpy(rng.randint(0, 1 << 24, size=rngs[::3]
+                                             .numel())).to(dev)
+    cases = [(garbage, words, None, None),
+             (pts, words[: words.numel() // 3].clone(), None, None),
+             (pts, words, lows, rngs)]
+    for p, w, lo, rg in cases:
+        outcome = []
+        for fn in (
+            lambda: coder64.decode_shared_range64_plain(
+                p, w, cdf, cfg, n, lo, rg, return_final_states=True),
+            lambda: (coder64.decode_shared_range64_cluster(
+                p, w, cdf, cfg, n, cluster, lo, rg)
+                if cluster else coder64.decode_shared_range64(
+                    p, w, cdf, cfg, n, lo, rg, return_final_states=True))):
+            try:
+                outcome.append(fn())
+            except ValueError as e:
+                outcome.append(str(e))
+        if isinstance(outcome[0], str) or isinstance(outcome[1], str):
+            assert outcome[0] == outcome[1]
+        else:
+            assert torch.equal(outcome[0][0], outcome[1][0])
+            assert all(torch.equal(a, b)
+                       for a, b in zip(outcome[0][1], outcome[1][1]))
+
+
 # --- the device families: integer CDF, rANS pair, TChain-12 bits-back pair
 
 LO, HI = -100, 100
@@ -1096,9 +1205,60 @@ def test_exact_decode_kernel_matches_twin(dev, family, L, n, monkeypatch):
     np.testing.assert_array_equal(got.cpu().numpy(), host)
 
 
-def test_exact_segment_kernel_chains_offsets(dev):
+def test_exact_decode_runs_as_a_cluster(dev):
+    for L in (32768, 65536):
+        geo = ef.geometry(L, dev)
+        assert geo["cluster"] > 1 and geo["max_active_clusters"] >= 1
+        assert geo["lanes_per_thread"] * geo["threads_per_cta"] // 32 \
+            >= geo["groups_per_cta"]
+
+
+@pytest.mark.parametrize("family", ["gaussian", "laplace", "cauchy"])
+@pytest.mark.parametrize("L,n", [(32000, 2 * 32000 + 7), (32768, 32768 - 5),
+                                 (65536, 65536 * 2 + 999)])
+def test_exact_cluster_decode_matches_twin(dev, family, L, n, monkeypatch):
+    """Kernel 15 on its cluster at the bench lane counts and at L = 32000
+    (groups split unevenly, the last CTA's last warps past L), over tables
+    built on the card; the binary search and the scan alike, a partial
+    last step and n < L."""
+    cfg = _exact_cfg(L)
+    means, scales, syms = _exact_data(n, seed=L + n)
+    states, stream = ef.encode_family_exact(syms, means, scales, family,
+                                            -100, 100, cfg, dev)
+    T = -(-n // L)
+    pm, ps = ef._pad_params(means, scales, T * L, family, 100)
+    nc = ef.exact_ncore(pm, ps, family, -100, 100, 24)
+    (tabs, _), = et.packed_tables_on_device_batch(
+        [(pm, ps, min(255, int(nc.max())), T)], family, -100, 100, 24, L,
+        dev)
+    out_p, fin_p, _ = ef.decode_tables_plain(states, stream, tabs, cfg, -100,
+                                             100, n)
+    np.testing.assert_array_equal(out_p.cpu().numpy(), syms)
+    for planes in (0, 1 << 30):
+        monkeypatch.setattr(ef, "BISECT_FROM_PLANES", planes)
+        before = ef.LAUNCHES["decode64"]
+        out, fin = ef.decode_tables(states, stream, tabs, cfg, -100, 100, n,
+                                    return_final_states=True)
+        assert ef.LAUNCHES["decode64"] == before + 1
+        assert torch.equal(out, out_p) and torch.equal(fin, fin_p)
+
+
+def test_exact_decode_past_the_cluster_reach_raises(dev):
+    L = coder.MAX_DECODE_LANES + 128
+    cfg = _exact_cfg(L)
+    states = torch.full((L,), 1 << 32, dtype=torch.int64, device=dev)
+    stream = torch.zeros(4, dtype=torch.int32, device=dev)
+    tabs = torch.zeros((1, 4, L), dtype=torch.int32, device=dev)
+    before = dict(ef.LAUNCHES)
+    with pytest.raises(ValueError, match=f"at most {L - 128} lanes"):
+        ef.decode_tables(states, stream, tabs, cfg, -100, 100, 1000)
+    assert ef.LAUNCHES == before
+
+
+def test_exact_segment_kernel_chains_offsets(dev, monkeypatch):
     """Three kernel-16 launches over one grouped stream: symbols, states
-    and the word offset equal the twin's after every segment."""
+    and the word offset equal the twin's after every segment, with the
+    search each width picks, the scan and the binary search alike."""
     L, n = 256, 9 * 256 - 31
     cfg = _exact_cfg(L)
     means, scales, syms = _exact_data(n, seed=7)
@@ -1111,25 +1271,29 @@ def test_exact_segment_kernel_chains_offsets(dev):
         syms, means, scales, "gaussian", -100, 100, cfg, dev, max_segments=3)
     T = -(-n // L)
     pm, ps = ef._pad_params(means[perm], scales[perm], T * L, "gaussian", 100)
-    base = torch.zeros(1, dtype=torch.int64, device=dev)
-    st = st_p = states
-    base_p = base
-    outs = []
+    tables = []
     for t0, ns, cm in segs:
         tabs4, _ = ef.packed_tables_device(
             pm[t0 * L:(t0 + ns) * L], ps[t0 * L:(t0 + ns) * L], "gaussian",
             -100, 100, 24, cm, ns, L // 128)
-        tabs = convert.exact_tables_to_torch(tabs4, dev)
-        k = min(ns * L, n - t0 * L)
-        out, st, base = ef.decode_tables_seg(st, stream, tabs, base, cfg,
-                                             -100, 100, k)
-        out_p, st_p, base_p = ef.decode_tables_plain(st_p, stream, tabs, cfg,
-                                                     -100, 100, k, base_p)
-        assert torch.equal(out, out_p) and torch.equal(st, st_p)
-        assert torch.equal(base, base_p)
-        outs.append(out.cpu().numpy())
-    assert int(base) == stream.numel()
-    np.testing.assert_array_equal(np.concatenate(outs), syms[perm])
+        tables.append((convert.exact_tables_to_torch(tabs4, dev),
+                       min(ns * L, n - t0 * L)))
+    for planes in (ef.BISECT_FROM_PLANES_SEG, 0, 1 << 30):
+        monkeypatch.setattr(ef, "BISECT_FROM_PLANES_SEG", planes)
+        base = torch.zeros(1, dtype=torch.int64, device=dev)
+        st = st_p = states
+        base_p = base
+        outs = []
+        for tabs, k in tables:
+            out, st, base = ef.decode_tables_seg(st, stream, tabs, base, cfg,
+                                                 -100, 100, k)
+            out_p, st_p, base_p = ef.decode_tables_plain(
+                st_p, stream, tabs, cfg, -100, 100, k, base_p)
+            assert torch.equal(out, out_p) and torch.equal(st, st_p)
+            assert torch.equal(base, base_p)
+            outs.append(out.cpu().numpy())
+        assert int(base) == stream.numel()
+        np.testing.assert_array_equal(np.concatenate(outs), syms[perm])
 
 
 @pytest.mark.parametrize("family", ["gaussian", "laplace", "cauchy"])
