@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Six coding kernels timed in several checkouts on one card, one checkout
-after another in the order given.
+"""Eight coding kernels timed in several checkouts on one card, one
+checkout after another in the order given.
 
     git archive <commit> | tar -x -C _scratch/parent
     python3 chip_ab.py _scratch/parent . . _scratch/parent
@@ -17,10 +17,18 @@ builds its kernels and times, on the same inputs:
   alone: both passes on preallocated scratch, no read-back);
 - kernel 5, the S=64 range decode, on the same symbols at L=32768 and
   L=65536 (2 and 4 lanes a thread), P=24;
+- kernel 6, the S=32 range decode, on the same symbols at L=32768, P=12
+  and P=16, and at L=65536, P=12;
 - kernel 15, the S=64 reference-exact table decode, on the JAX suite's
   exact row (2^22 synthetic symbols, gaussian, [-100, 100], P=24) at
   L=32768 and L=65536, over tables built on the card at the ungrouped
-  core bound.
+  core bound;
+- kernel 21, the TChain-12 family decode, on inputs drawn as the JAX
+  suite's family row draws them (uniform 12-bit quantiles, gaussian means
+  and scales on [-100, 100], seed 1234), 2^23 and 2^24 quantiles at
+  L=32768, checked against its plain twin on the card, as whole calls of
+  ``tchain.tchain12_family_decode`` (their arguments are the same in
+  every checkout).
 
 ``--kernels`` picks some of them (1 to 4 go together).  Each decode is
 checked against the symbols first, each encode entry against its call's
@@ -128,8 +136,12 @@ def time_decodes(root: str, kernels: set) -> dict:
                            cfg, st, w, check)
     if 5 in kernels:
         _time_range(out, syms, probs, check)
+    if 6 in kernels:
+        _time_range32(out, syms, probs, check)
     if 15 in kernels:
         _time_exact(out, check)
+    if 21 in kernels:
+        _time_tchain12(out, check)
     return out
 
 
@@ -207,6 +219,84 @@ def _time_range(out, syms, probs, check):
         out[f"{key}_ms"] = _events_ms(launch, reset_range)
 
 
+def _time_range32(out, syms, probs, check):
+    """Kernel 6 into ``out``: the C entry on preallocated planes."""
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.models import fast_quantized_cdf
+    from constriction_tpu_torch.ops import _build, range_enc
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    dev = syms.device
+    for lanes, P in ((LANES, 12), (LANES, 16), (2 * LANES, 12)):
+        cdf = convert.cdf_to_torch(fast_quantized_cdf(probs, P), dev)
+        cdf32 = cdf.to(torch.int32)
+        cfg = LaneConfig(num_lanes=lanes, word_bits=16, state_bits=32,
+                         precision=P)
+        recs, low_f, rng_f = range_enc.record(syms, cdf, cfg)
+        s0, carry = range_enc.seal(low_f, rng_f, cfg)
+        pts, words = range_enc.resolve(recs, s0, carry, cfg, N)
+        del recs
+        planes = [torch.empty_like(pts) for _ in range(3)]
+        o_buf = torch.empty(N, dtype=torch.int32, device=dev)
+        bad = torch.empty(1, dtype=torch.int64, device=dev)
+
+        def reset_range():
+            planes[0].zero_()
+            planes[1].fill_(-1)
+            planes[2].copy_(pts)
+            bad.fill_(N)
+
+        key = f"range_decode_w16s32_P{P}" + (
+            "" if lanes == LANES else f"_L{lanes}")
+
+        def launch():
+            _build.call("ctt_ilans2_range_decode_w16s32", dev, *planes,
+                        words, words.numel(), cdf32, K, o_buf, N, lanes, P,
+                        bad)
+        reset_range()
+        launch()
+        check(o_buf, syms, key)
+        out[f"{key}_ms"] = _events_ms(launch, reset_range)
+
+
+def _time_tchain12(out, check):
+    """Kernel 21 into ``out``: whole calls of the wrapper (launches, the
+    scratch from PyTorch's caching allocator, the read-back of the
+    stream's start) on the family row's inputs, at 2^23 and 2^24
+    quantiles."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import tchain as tc
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    dev = torch.device("cuda", 0)
+    cfg = LaneConfig(num_lanes=LANES, word_bits=16, state_bits=32,
+                     precision=12)
+    rng = np.random.RandomState(1234)
+    n_max = 1 << 24
+    means = (rng.randn(n_max) * 10).astype(np.float32)
+    scales = (0.3 + np.abs(rng.randn(n_max)) * 5).astype(np.float32)
+    quantiles = rng.randint(0, 1 << 12, size=n_max).astype(np.uint16)
+    for n in (1 << 23, n_max):
+        mu, sg = convert.params_to_torch(means[:n], scales[:n], n, LANES,
+                                         dev)
+        qw = convert.quantiles_to_torch(quantiles[:n], LANES, dev)
+        got = tc.tchain12_family_decode(qw, mu, sg, "gaussian", -100, 100,
+                                        cfg)
+        if n == 1 << 23:
+            want = tc.tchain12_family_decode_plain(qw, mu, sg, "gaussian",
+                                                   -100, 100, cfg)
+            for a, b, what in zip(got, want, ("symbols", "stream", "heads")):
+                check(a, b, f"tchain12 {what}")
+        out[f"tchain12_decode_n{n.bit_length() - 1}_ms"] = _events_ms(
+            lambda: tc.tchain12_family_decode(qw, mu, sg, "gaussian", -100,
+                                              100, cfg))
+
+
 def _time_exact(out, check):
     """Kernel 15 into ``out``: the ungrouped exact row over tables built on
     the card, at L=32768 and L=65536 (2 and 4 lanes a thread)."""
@@ -253,7 +343,7 @@ def _time_exact(out, check):
 
 
 def main(argv: list[str]) -> int:
-    kernels = "1,2,3,4,5,15"
+    kernels = "1,2,3,4,5,6,15,21"
     if len(argv) > 1 and argv[0] == "--kernels":
         kernels, argv = argv[1], argv[2:]
     if len(argv) == 2 and argv[0] == "--one":
@@ -261,7 +351,8 @@ def main(argv: list[str]) -> int:
         print(json.dumps(time_decodes(argv[1], picked)), flush=True)
         return 0
     if not argv:
-        sys.exit("usage: chip_ab.py [--kernels 1,2,3,4,5,15] CHECKOUT ...")
+        sys.exit("usage: chip_ab.py [--kernels 1,2,3,4,5,6,15,21] "
+                 "CHECKOUT ...")
     for root in argv:
         done = subprocess.run([sys.executable, os.path.abspath(__file__),
                                "--kernels", kernels, "--one", root])

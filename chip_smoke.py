@@ -14,14 +14,18 @@ prints one JSON object per phase, then the kernels line, the card's
    geometry      -- the launch geometry of the cluster decodes and
                     two-pass encodes at L=32768 and 65536: the rANS pairs
                     at both presets (kernels 1 and 2 at P=24; kernels 3 and
-                    4 at P=12 and P=16), the S=64 range decode (kernel 5,
-                    P=24) and the S=64 exact table decode (kernel 15): the
-                    decode's cluster size, CTAs, threads, lanes per thread,
-                    the card's maximum of such active clusters (more than
-                    one CTA, or the run fails), its bucket table's lut_bits
-                    and whether the CDF is in shared memory, the encode's
-                    pass-A grid, and ptxas' registers and spills for their
-                    kernels at each preset and lanes a thread.
+                    4 at P=12 and P=16), the range decodes (kernel 5 at
+                    P=24, kernel 6 at P=12 and P=16) and the S=64 exact
+                    table decode (kernel 15): the decode's cluster size,
+                    CTAs, threads, lanes per thread, the card's maximum of
+                    such active clusters (more than one CTA, or the run
+                    fails), its bucket table's lut_bits and whether the CDF
+                    is in shared memory, the encode's pass-A grid, and
+                    ptxas' registers and spills for their kernels at each
+                    preset and lanes a thread and for the TChain-12
+                    decode's passes.  A spill in the range decodes or
+                    kernel 15 at 2 or 4 lanes a thread, or in the TChain-12
+                    passes, fails the run.
 2. kernels       -- each rANS kernel against its plain PyTorch twin on the
                     same CUDA tensors and against the numpy host oracle
                     (L=32768, about 2^20 symbols, with and without seeds):
@@ -49,7 +53,8 @@ prints one JSON object per phase, then the kernels line, the card's
                     decode; both presets) against its twin on the same CUDA
                     tensors and against the port's numpy host range coder
                     (L=32768, about 2^20 symbols, P=24 and P=12, and a
-                    skewed carry-run model), plus a seeded decode from a
+                    skewed carry-run model; the S=32 preset also at
+                    L=65536 and at P=16), plus a seeded decode from a
                     checkpoint of ``build_checkpoints_range``: records,
                     final planes, points, streams and symbols identical.
 7. range_main_path -- the same 2^25-symbol workload through
@@ -61,8 +66,9 @@ prints one JSON object per phase, then the kernels line, the card's
                     (CUDA events around each launch, after a warm-up), its
                     twin's time on the card (outputs equal to the kernel's),
                     and the facade's encode and decode call times.
-   range_sweep   -- the S=64 range decode's time per coding step at
-                    T=256 steps over L=128 .. 65536, as phase 5 fits it.
+   range_sweep   -- the range decodes' time per coding step (kernel 5 at
+                    P=24, kernel 6 at P=12) at T=256 steps over L=128 ..
+                    65536, as phase 5 fits it.
 
 9. family_math   -- the kernels' integer CDF (``left(x, mean, scale)``,
                     through the test entry point ``ctt_family_left``)
@@ -75,7 +81,10 @@ prints one JSON object per phase, then the kernels line, the card's
                     against their twins and the port's numpy host oracles,
                     all four families, L=32768 (about 2^20 symbols with a
                     partial last step; 32 full steps for TChain): states,
-                    heads, words, quantiles and symbols identical.
+                    heads, words, quantiles and symbols identical; the
+                    TChain-12 decode's three steps (inversion, heads,
+                    pass B) also launched alone, each against its plain
+                    version.
 11. family_main_path -- the JAX package's family benchmark workload (2^23
                     symbols, gaussian, support [-100, 100], seed 1234)
                     through ``cuda.encode_family`` -> ``decode_family`` and
@@ -86,7 +95,9 @@ prints one JSON object per phase, then the kernels line, the card's
                     the four kernels must have launched.
 12. family_times -- kernel-only time of each of the four at that size, its
                     twin's time on the card (outputs equal), the facade's
-                    call times, and each kernel's bound.
+                    call times, and each kernel's bound; the TChain-12
+                    decode's three steps timed apart, and the whole decode
+                    at 2^24 quantiles too.
 13. checkpoints  -- random access: on the v2 and v1 containers of the rANS
                     main path at both presets, ``cuda.build_checkpoints``
                     then ``cuda.decode_from_checkpoint`` from the middle
@@ -227,7 +238,7 @@ N_SKEWED = 1 << 19  # the carry-run model: 4096 steps on 128 lanes
 SKEWED_LANES = 128
 
 # the rANS pairs at both presets: the cluster decode and the two-pass
-# encode, instantiated in csrc/ilans2.cu; the S=64 range decode
+# encode, instantiated in csrc/ilans2.cu; the range decodes at both presets
 # (cluster_range_decode_kernel, instantiated in csrc/ilans2_range.cu) and
 # the S=64 exact table decode (the cluster decode over csrc/exact_family.cu's
 # TableModel)
@@ -255,7 +266,7 @@ RANGE_KERNELS = {
         "constriction_tpu/ops/pallas_coder64.py:677", WIDE_SOURCE),
     "ilans2_range_decode_w16s32": (
         "coder", "range_decode",
-        "constriction_tpu/ops/pallas_coder.py:1550", RANGE_SOURCE),
+        "constriction_tpu/ops/pallas_coder.py:1550", WIDE_SOURCE),
     "ilans2_range_record_w16s32": (
         "range_enc", "record",
         "constriction_tpu/ops/pallas_range_enc.py:151", RANGE_SOURCE),
@@ -492,12 +503,25 @@ def ptxas_usage(log: str, marks: tuple) -> dict:
     return out
 
 
+# the kernels ptxas must compile without spilling: the range decodes at
+# both presets and the S=64 exact table decode at 2 and 4 lanes a thread
+# (L = 32768 and 65536), and the TChain-12 decode's two passes
+NO_SPILL = (r"cluster_range_decode_kernelILi32ELi64ELi[24]E",
+            r"cluster_range_decode_kernelILi16ELi32ELi[24]E",
+            r"cluster_decode_kernelILi32ELi64ELi[24]E.*TableModel",
+            r"tchain12_invert_kernel", r"tchain12_heads_kernel")
+
+
 def phase_geometry(device) -> dict:
     """Launch geometry of the cluster decodes and the two-pass encodes: the
     rANS pairs (kernels 1 and 2 at P=24, kernels 3 and 4 at P=12 and P=16),
-    the S=64 range decode (kernel 5, P=24) and the S=64 exact table decode
-    (kernel 15) at bench.py's lane counts for its K, and what ptxas
-    reported for their kernels at each preset and lanes a thread."""
+    the range decodes (kernel 5 at P=24, kernel 6 at P=12 and P=16) and the
+    S=64 exact table decode (kernel 15) at bench.py's lane counts for its
+    K, and what ptxas reported for their kernels at each preset and lanes a
+    thread and for the TChain-12 decode's passes.  Fails on a spill in a
+    kernel of NO_SPILL."""
+    import re
+
     from constriction_tpu_torch.ops import _build, coder, coder64
     from constriction_tpu_torch.ops import exact_family as ef
 
@@ -510,6 +534,9 @@ def phase_geometry(device) -> dict:
     rows += [{"kernel": 5, "preset": "w32s64", "num_lanes": L, "K": K_MAIN,
               "P": 24, **coder64.range_geometry(L, K_MAIN, 24, device)}
              for L in (32768, BENCH_LANES)]
+    rows += [{"kernel": 6, "preset": "w16s32", "num_lanes": L, "K": K_MAIN,
+              "P": P, **coder.range_geometry(L, K_MAIN, P, device)}
+             for L in (32768, BENCH_LANES) for P in (12, 16)]
     rows += [{"kernel": 15, "preset": "w32s64", "num_lanes": L,
               "P": EXACT_P, **ef.geometry(L, device)}
              for L in (32768, BENCH_LANES)]
@@ -520,13 +547,25 @@ def phase_geometry(device) -> dict:
         if row["cluster"] < 2:
             fail(f"geometry: kernel {row['kernel']} runs on one CTA at "
                  f"L={row['num_lanes']}")
-    log = (_build.build_info or {}).get("log", "")
+    log = _build.ptxas_log()
+    spills = _build.ptxas_spills(log)
+    checked = {name: v for name, v in spills.items()
+               if any(re.search(pat, name) for pat in NO_SPILL)}
+    for pat in NO_SPILL:
+        if not any(re.search(pat, name) for name in checked):
+            fail(f"geometry: ptxas reported no kernel matching {pat}")
+    spilled = {name: v for name, v in checked.items() if v != (0, 0)}
+    if spilled:
+        fail(f"geometry: spills (store, load bytes) in {spilled}")
     return {"phase": "geometry", "cases": rows,
+            "no_spill_kernels": len(checked),
             "ptxas": ptxas_usage(log, ("cluster_decode_kernelILi32ELi64E",
                                        "encode_lanes_kernelILi32ELi64E",
                                        "cluster_decode_kernelILi16ELi32E",
                                        "encode_lanes_kernelILi16ELi32E",
                                        "cluster_range_decode_kernel",
+                                       "tchain12_invert_kernel",
+                                       "tchain12_heads_kernel",
                                        "division_records", "compact_"))}
 
 
@@ -835,11 +874,11 @@ def planes_err(a, b) -> int:
 
 
 def range_case(device, cfg, syms_np, cdf_np, dec, dec_p, label,
-               errs) -> dict:
+               errs, interval: int = 8) -> dict:
     """The three range kernels of one preset against their twins on the
     same CUDA tensors and against the host oracle, and a seeded decode
-    from the middle checkpoint.  Adds each kernel's largest difference to
-    ``errs``."""
+    from the middle checkpoint (one every ``interval`` steps).  Adds each
+    kernel's largest difference to ``errs``."""
     import numpy as np
     import torch
 
@@ -867,11 +906,11 @@ def range_case(device, cfg, syms_np, cdf_np, dec, dec_p, label,
                     il2.decode_shared_range_cdf(pts_h, words_h, n, cdf_np,
                                                 cfg))))
     round_trip = mismatch(out, syms) == 0
-    # seeded: resume from the middle checkpoint (every 8 steps)
+    # seeded: resume from the middle checkpoint
     off, lows, rngs, pps = il2.build_checkpoints_range(
-        pts_h, words_h, n, cdf_np, cfg, 8)
+        pts_h, words_h, n, cdf_np, cfg, interval)
     c = len(off) // 2
-    start = (c + 1) * 8 * L
+    start = (c + 1) * interval * L
     lo, rn, pt = convert.planes_to_torch((lows[c], rngs[c], pps[c]), cfg,
                                          device)
     sub = convert.u32_to_torch(words_h[off[c]:], device)
@@ -889,7 +928,8 @@ def range_case(device, cfg, syms_np, cdf_np, dec, dec_p, label,
            "carries": int(((rec[0].long() >> (cfg.word_bits + 1)) & 1).sum()),
            "record_max_abs_err": e_rec, "resolve_max_abs_err": e_res,
            "decode_max_abs_err": e_dec, "round_trip": round_trip,
-           "seeded_from_step": (c + 1) * 8, "seeded_decode_exact": seeded_ok}
+           "seeded_from_step": (c + 1) * interval,
+           "seeded_decode_exact": seeded_ok}
     if e_rec or e_res or e_dec or not round_trip or not seeded_ok:
         fail(f"range kernel != twin or host oracle, or no round trip: {row}")
     return row
@@ -922,6 +962,16 @@ def phase_range_kernels(device, n: int, L: int) -> tuple[dict, dict]:
         row = range_case(device, cfg, skewed, cdf, dec, dec_p, label, errs)
         rows.append({"model": "skewed 99.9%", "num_lanes": SKEWED_LANES,
                      "n": N_SKEWED, **row})
+    # kernel 6 on the cluster step at the facade's lane counts and both
+    # ends of its precisions (P=12: the bucket table holds every quantile;
+    # P=16: a search behind it), each resumed from a checkpoint's planes
+    for L, P in ((65536, 12), (32768, 16), (65536, 16)):
+        cfg = LaneConfig(num_lanes=L, word_bits=16, state_bits=32,
+                         precision=P)
+        row = range_case(device, cfg, syms, model_cdf(probs, P),
+                         *range_presets()[1][4:], "w16s32", errs,
+                         interval=max(1, -(-n // L) // 4))
+        rows.append({"model": "dirichlet", "num_lanes": L, "n": n, **row})
     return {"phase": "range_kernels", "cases": rows}, errs
 
 
@@ -1112,11 +1162,11 @@ def phase_range_times(device, probs, symbols, gpu: str,
 
 
 def phase_range_sweep(device, gpu: str) -> dict:
-    """The S=64 range decode (kernel 5) per coding step at SWEEP_STEPS
-    steps over SWEEP_LANES lanes, as phase_sweep times the rANS pairs:
-    kernel-only (CUDA events around the C entry, the planes reset outside
-    them), the floor at the fewest lanes and the slope from 4096 lanes up
-    (microseconds per step per 1024 lanes)."""
+    """The range decodes (kernel 5 at P=24, kernel 6 at P=12) per coding
+    step at SWEEP_STEPS steps over SWEEP_LANES lanes, as phase_sweep times
+    the rANS pairs: kernel-only (CUDA events around the C entry, the planes
+    reset outside them), the floor at the fewest lanes and the slope from
+    4096 lanes up (microseconds per step per 1024 lanes)."""
     import numpy as np
     import torch
 
@@ -1129,41 +1179,45 @@ def phase_range_sweep(device, gpu: str) -> dict:
     n_max = max(SWEEP_LANES) * SWEEP_STEPS
     all_syms = torch.from_numpy(
         rng.choice(K_MAIN, size=n_max, p=probs).astype(np.int32)).to(device)
-    cdf = convert.cdf_to_torch(model_cdf(probs, 24), device)
-    cdf32 = cdf.to(torch.int32)
-    rows, us = [], []
-    for L in SWEEP_LANES:
-        cfg = LaneConfig(num_lanes=L, word_bits=32, state_bits=64,
-                         precision=24)
-        n = L * SWEEP_STEPS
-        syms = all_syms[:n]
-        recs, low_f, rng_f = range_enc.record(syms, cdf, cfg)
-        s0, carry = range_enc.seal(low_f, rng_f, cfg)
-        pts, words = range_enc.resolve(recs, s0, carry, cfg, n)
-        planes = [torch.empty_like(pts) for _ in range(3)]
-        out = torch.empty(n, dtype=torch.int32, device=device)
-        bad = torch.empty(1, dtype=torch.int64, device=device)
+    rows, fits = [], {}
+    for kernel, label, W, S, P in ((5, "w32s64", 32, 64, 24),
+                                   (6, "w16s32", 16, 32, 12)):
+        cdf = convert.cdf_to_torch(model_cdf(probs, P), device)
+        cdf32 = cdf.to(torch.int32)
+        us = []
+        for L in SWEEP_LANES:
+            cfg = LaneConfig(num_lanes=L, word_bits=W, state_bits=S,
+                             precision=P)
+            n = L * SWEEP_STEPS
+            syms = all_syms[:n]
+            recs, low_f, rng_f = range_enc.record(syms, cdf, cfg)
+            s0, carry = range_enc.seal(low_f, rng_f, cfg)
+            pts, words = range_enc.resolve(recs, s0, carry, cfg, n)
+            planes = [torch.empty_like(pts) for _ in range(3)]
+            out = torch.empty(n, dtype=torch.int32, device=device)
+            bad = torch.empty(1, dtype=torch.int64, device=device)
 
-        def reset():
-            planes[0].zero_()
-            planes[1].fill_(-1)
-            planes[2].copy_(pts)
-            bad.fill_(n)
+            def reset():
+                planes[0].zero_()
+                planes[1].fill_(-1)
+                planes[2].copy_(pts)
+                bad.fill_(n)
 
-        ms = kernel_ms(reset, lambda: _build.call(
-            "ctt_ilans2_range_decode_w32s64", device, *planes, words,
-            words.numel(), cdf32, K_MAIN, out, n, L, 24, bad), 3)
-        if mismatch(out, syms) != 0 or int(bad.item()) != n:
-            fail(f"range_sweep: L={L} round trip")
-        us.append(ms * 1e3 / SWEEP_STEPS)
-        rows.append({"kernel": 5, "num_lanes": L, "steps": SWEEP_STEPS,
-                     "decode_ms": ms, "decode_us_per_step": us[-1]})
-    i = SWEEP_LANES.index(4096)
-    fit = {"us_per_step_floor": us[0],
-           "us_per_1024_lanes_per_step": (us[-1] - us[i]) * 1024 / (
-               SWEEP_LANES[-1] - SWEEP_LANES[i])}
-    return {"phase": "range_sweep", "cases": rows,
-            "fits": {"ilans2_range_decode_w32s64": fit}, "gpu": gpu}
+            ms = kernel_ms(reset, lambda: _build.call(
+                f"ctt_ilans2_range_decode_{label}", device, *planes, words,
+                words.numel(), cdf32, K_MAIN, out, n, L, P, bad), 3)
+            if mismatch(out, syms) != 0 or int(bad.item()) != n:
+                fail(f"range_sweep: kernel {kernel} L={L} round trip")
+            us.append(ms * 1e3 / SWEEP_STEPS)
+            rows.append({"kernel": kernel, "preset": label, "P": P,
+                         "num_lanes": L, "steps": SWEEP_STEPS,
+                         "decode_ms": ms, "decode_us_per_step": us[-1]})
+        i = SWEEP_LANES.index(4096)
+        fits[f"ilans2_range_decode_{label}"] = {
+            "us_per_step_floor": us[0],
+            "us_per_1024_lanes_per_step": (us[-1] - us[i]) * 1024 / (
+                SWEEP_LANES[-1] - SWEEP_LANES[i])}
+    return {"phase": "range_sweep", "cases": rows, "fits": fits, "gpu": gpu}
 
 
 def family_workload(n: int):
@@ -1273,6 +1327,7 @@ def tchain_case(device, cfg, family, means, scales, quantiles, errs) -> dict:
     import torch
 
     from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import coder
     from constriction_tpu_torch.ops import tchain as tc
 
     lo, hi = FAMILY_SUPPORT
@@ -1287,6 +1342,20 @@ def tchain_case(device, cfg, family, means, scales, quantiles, errs) -> dict:
                 mismatch(dec[0].cpu(), torch.from_numpy(syms_h)),
                 mismatch(dec[1], convert.u32_to_torch(rem_h, device)),
                 mismatch(dec[2], convert.u32_to_torch(heads_h, device)))
+    # the decode's three steps launched alone, each against its plain
+    # version on the same tensors, and composed against the twin
+    syms, recs = tc.tchain12_invert_pass(qw, mu, sg, family, lo, hi, cfg)
+    plain = tc.tchain12_invert_pass_plain(qw, mu, sg, family, lo, hi, cfg)
+    e_a = planes_err((syms, recs), plain)
+    words, ballots, heads = tc.tchain12_head_pass(recs, cfg)
+    words_p, flags_p, heads_p = tc.tchain12_head_pass_plain(recs, cfg)
+    e_b = max(mismatch(ballots, coder.flag_ballots(flags_p)),
+              mismatch(words[flags_p], words_p[flags_p]),
+              mismatch(heads, heads_p))
+    stream = coder.compact_pass(words, ballots)
+    e_c = max(mismatch(stream, coder.compact_pass_plain(words_p, flags_p)),
+              planes_err((syms, stream, heads), dec_p))
+    e_dec = max(e_dec, e_a, e_b, e_c)
     enc = tc.tchain12_family_encode(*dec, mu, sg, family, lo, hi, cfg)
     enc_p = tc.tchain12_family_encode_plain(*dec, mu, sg, family, lo, hi, cfg)
     q_h, h_h = tc.tchain12_family_encode_host(syms_h, rem_h, heads_h, means,
@@ -1303,6 +1372,8 @@ def tchain_case(device, cfg, family, means, scales, quantiles, errs) -> dict:
         errs.get("tchain12_family_encode", 0), e_enc)
     row = {"coder": "tchain12", "family": family, "n": n, "num_lanes": L,
            "words": int(dec[1].numel()), "decode_max_abs_err": e_dec,
+           "invert_pass_max_abs_err": e_a, "head_pass_max_abs_err": e_b,
+           "pass_b_max_abs_err": e_c,
            "encode_max_abs_err": e_enc, "round_trip": round_trip}
     if e_enc or e_dec or not round_trip:
         fail(f"tchain kernel != twin or host oracle, or no round trip: {row}")
@@ -1399,7 +1470,7 @@ def phase_family_times(device, work, gpu: str,
 
     from constriction_tpu_torch import convert
     from constriction_tpu_torch import cuda as ctt
-    from constriction_tpu_torch.ops import _build
+    from constriction_tpu_torch.ops import _build, coder
     from constriction_tpu_torch.ops import family as fam
     from constriction_tpu_torch.ops import tchain as tc
 
@@ -1439,12 +1510,46 @@ def phase_family_times(device, work, gpu: str,
             "ctt_family_decode", device, s_buf, w, nw, mu, sg, o_buf, n, L,
             fi, lo, hi), 3)
     same = same and torch.equal(o_buf, syms) and torch.equal(s_buf, fin)
+    # kernel 21's scratch: records, dense words, ballots, block offsets
+    recs, words = torch.empty(n, **i32), torch.empty(n, **i32)
+    flags = torch.empty(n // 32, **i32)
+    offsets = torch.empty(coder.SCAN_BLOCKS, dtype=torch.int64,
+                          device=device)
     ms["tchain12_family_decode"] = kernel_ms(
         lambda: h_buf.fill_(16), lambda: _build.call(
             "ctt_tchain12_family_decode", device, h_buf, qw, mu, sg, o_buf,
-            w_buf, n, end, L, T, fi, lo, hi), 3)
+            w_buf, n, end, recs, words, flags, offsets, L, T, fi, lo, hi), 3)
     same = (same and torch.equal(o_buf, bb[0]) and torch.equal(h_buf, bb[2])
             and torch.equal(w_buf[int(end.item()):], bb[1]))
+    # its three steps apart: (a) inversion, (b) heads, pass B
+    passes = {
+        "invert": kernel_ms(lambda: None, lambda: _build.call(
+            "ctt_tchain12_invert_pass", device, qw, mu, sg, o_buf, recs, L,
+            T, fi, lo, hi), 3),
+        "heads": kernel_ms(lambda: h_buf.fill_(16), lambda: _build.call(
+            "ctt_tchain12_head_pass", device, h_buf, recs, words, flags, L,
+            T), 3),
+        "pass_b": kernel_ms(lambda: None, lambda: _build.call(
+            "ctt_ilans2_compact", device, flags, words, flags.numel(), w_buf,
+            n, end, offsets), 3),
+    }
+    same = (same and torch.equal(o_buf, bb[0]) and torch.equal(h_buf, bb[2])
+            and torch.equal(w_buf[int(end.item()):], bb[1]))
+    # and the whole decode at the TChain rows' 2^24 quantiles
+    m24, s24, _, q24 = family_workload(N_TCHAIN)
+    mu24, sg24 = convert.params_to_torch(m24, s24, N_TCHAIN, L, device)
+    qw24 = convert.quantiles_to_torch(q24, L, device)
+    del m24, s24, q24
+    big = {k: torch.empty(N_TCHAIN, **i32) for k in ("o", "w", "r", "d")}
+    flags24 = torch.empty(N_TCHAIN // 32, **i32)
+    n24_ms = kernel_ms(lambda: h_buf.fill_(16), lambda: _build.call(
+        "ctt_tchain12_family_decode", device, h_buf, qw24, mu24, sg24,
+        big["o"], big["w"], N_TCHAIN, end, big["r"], big["d"], flags24,
+        offsets, L, N_TCHAIN // L, fi, lo, hi), 3)
+    ref24 = tc.tchain12_family_decode(qw24, mu24, sg24, family, lo, hi, cfg)
+    same = (same and torch.equal(big["o"], ref24[0])
+            and torch.equal(big["w"][int(end.item()):], ref24[1]))
+    del big, flags24, mu24, sg24, qw24, ref24
 
     def reset_chain_encode():
         h_buf.copy_(bb[2])
@@ -1534,6 +1639,10 @@ def phase_family_times(device, work, gpu: str,
         "left_evaluations_per_decoded_symbol": steps,
         "left_evaluations_encode": 2 * n - ends,
         **{f"{k}_ms": v for k, v in ms.items()},
+        **{f"tchain12_family_decode_{k}_ms": v for k, v in passes.items()},
+        "tchain12_family_decode_invert_bound_ms": bound(
+            q_bytes + 8 * n + 8 * n, decode_ops)[0],
+        "tchain12_family_decode_n24_ms": n24_ms,
         **{f"{k}_ns_per_symbol": v * 1e6 / n for k, v in ms.items()},
         **{f"{k}_plain_ms": v for k, v in plain.items()},
         **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},

@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -65,8 +66,12 @@ _FAMILY_DECODE_ARGS = [_P, _P, _I64, _P, _P, _P, _I64, _I32, *_FAMILY_TAIL]
 _FAMILY_ENCODE_ARGS = [_P, _P, _I64, _P, _P, _P, _P, _I64, _P, _I32,
                        *_FAMILY_TAIL]
 _FAMILY_LEFT_ARGS = [_P, _P, _P, _P, _I64, *_FAMILY_TAIL]
-_TCHAIN12_DECODE_ARGS = [_P, _P, _P, _P, _P, _P, _I64, _P, _I32, _I32,
-                         *_FAMILY_TAIL]
+# after end_out: the scratch (records, dense words, ballots, compaction
+# offsets)
+_TCHAIN12_DECODE_ARGS = [_P, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P,
+                         _I32, _I32, *_FAMILY_TAIL]
+_TCHAIN12_INVERT_ARGS = [_P, _P, _P, _P, _P, _I32, _I32, *_FAMILY_TAIL]
+_TCHAIN12_HEADS_ARGS = [_P, _P, _P, _P, _I32, _I32, _P, _I32]
 _TCHAIN12_ENCODE_ARGS = [_P, _P, _P, _P, _P, _I64, _P, _P, _I32, _I32,
                          *_FAMILY_TAIL]
 _TCHAIN_DECODE_ARGS = [_P, _P, _P, _I32, _P, _P, _I64, _P, _I32, _I32, _P,
@@ -97,7 +102,9 @@ SIGNATURES = {
     "ctt_ilans2_range_resolve_w32s64": _RANGE_RESOLVE_ARGS,
     "ctt_ilans2_range_decode_w16s32": _RANGE_DECODE_ARGS,
     "ctt_ilans2_range_decode_w32s64": _RANGE_DECODE_ARGS,
+    "ctt_ilans2_range_decode_cluster_w16s32": _RANGE_DECODE_CLUSTER_ARGS,
     "ctt_ilans2_range_decode_cluster_w32s64": _RANGE_DECODE_CLUSTER_ARGS,
+    "ctt_ilans2_range_geometry_w16s32": _GEOMETRY_ARGS,
     "ctt_ilans2_range_geometry_w32s64": _GEOMETRY_ARGS,
     "ctt_family_decode": _FAMILY_DECODE_ARGS,
     "ctt_family_encode": _FAMILY_ENCODE_ARGS,
@@ -108,6 +115,8 @@ SIGNATURES = {
     "ctt_tchain24_encode": _TCHAIN_ENCODE_ARGS,
     "ctt_tchain12_family_decode": _TCHAIN12_DECODE_ARGS,
     "ctt_tchain12_family_encode": _TCHAIN12_ENCODE_ARGS,
+    "ctt_tchain12_invert_pass": _TCHAIN12_INVERT_ARGS,
+    "ctt_tchain12_head_pass": _TCHAIN12_HEADS_ARGS,
     "ctt_exact_encode64": _EXACT_ENCODE_ARGS,
     "ctt_exact_encode32": _EXACT_ENCODE_ARGS,
     "ctt_exact_decode64": _EXACT_DECODE_ARGS,
@@ -183,12 +192,24 @@ def _compile(sources: list[str], out: str) -> None:
         raise RuntimeError(
             f"nvcc link failed ({done.returncode}): {' '.join(link)}\n"
             f"{done.stdout}{done.stderr}")
+    log = "".join(logs) + done.stdout + done.stderr
+    with open(_log_path(out), "w") as f:
+        f.write(log)
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     build_info = {
         "seconds": time.perf_counter() - t0,
         "command": "; ".join(" ".join(c) for c in (*cmds, link)),
-        "log": "".join(logs) + done.stdout + done.stderr,
+        "log": log,
     }
+
+
+def _log_path(out: str) -> str:
+    return os.path.join(os.path.dirname(out), "nvcc.log")
+
+
+def _library_path() -> str:
+    sources = _sources()
+    return os.path.join(BUILD_ROOT, _key(sources), "libctt_kernels.so")
 
 
 def library() -> ctypes.CDLL:
@@ -197,10 +218,9 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            sources = _sources()
-            out = os.path.join(BUILD_ROOT, _key(sources), "libctt_kernels.so")
+            out = _library_path()
             if not os.path.exists(out):
-                _compile(sources, out)
+                _compile(_sources(), out)
             lib = ctypes.CDLL(out)
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
@@ -210,6 +230,32 @@ def library() -> ctypes.CDLL:
             lib.ctt_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def ptxas_log() -> str:
+    """nvcc's output for the library this process loads (building it
+    first): ``-Xptxas -v`` gives each kernel's registers, shared memory and
+    spill bytes.  Kept beside the library, so it is there when an earlier
+    process built it."""
+    library()
+    with open(_log_path(_library_path())) as f:
+        return f.read()
+
+
+def ptxas_spills(log: str) -> dict:
+    """{mangled kernel name: (spill store bytes, spill load bytes)} from
+    nvcc's ``-Xptxas -v`` output (:func:`ptxas_log`)."""
+    out = {}
+    name = None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln and "'" in ln:
+            name = ln.split("'")[1]
+        elif name is not None and "spill stores" in ln:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          ln)
+            if m:
+                out[name] = (int(m.group(1)), int(m.group(2)))
+    return out
 
 
 def _arg(x):

@@ -12,7 +12,9 @@ the kernels are held against on the card.
 The rANS pair runs ``csrc/ilans2_wide.cuh``'s design at both presets: the
 decode on a cluster of CTAs with the lane states in registers
 (:func:`geometry` says which cluster the card runs for L lanes), the encode
-as a lane-parallel pass and a row-major compaction.
+as a lane-parallel pass and a row-major compaction.  The range decode runs
+on the same cluster step at both presets (:func:`range_geometry`;
+:func:`decode_range_lanes` is its lane form in Python integers).
 :func:`lanes_pass32_plain` and :func:`compact_pass_plain` are those two
 passes in plain PyTorch; the kernels' index math mirrors them, and their
 composition is :func:`encode_iid_plain`'s stream.
@@ -44,6 +46,9 @@ encode's pass B) are shared with the S=64 preset in
 
 from __future__ import annotations
 
+import bisect
+
+import numpy as np
 import torch
 
 from .. import convert
@@ -59,10 +64,11 @@ LAUNCHES = {"encode": 0, "decode": 0, "range_decode": 0, "encode_lanes": 0,
 # blocks of the encode's compaction pass at most: the length of its offsets
 # scratch (csrc/ilans2_wide.cuh, kScanBlocks)
 SCAN_BLOCKS = 1024
-# the cluster decodes' reach (rANS at both presets, the S=64 range and
-# exact table decodes): a cluster of 16 CTAs of 32 warps, 32 lanes a thread
+# the cluster decodes' reach (rANS and range at both presets, the S=64
+# exact table decode): a cluster of 16 CTAs of 32 warps, 32 lanes a thread
 # (csrc/ilans2_wide.cuh, plan_cluster)
 MAX_DECODE_LANES = 16 * 32 * 32 * 32
+_M32 = (1 << 32) - 1
 
 
 # ---------------------------------------------------------------------------
@@ -389,12 +395,12 @@ def _launch_range_decode(tag: str, planes, stream, cdf, cfg: LaneConfig,
                          n: int, cluster: int = 0):
     """One range-decode launch updating ``planes`` (lows, rngs, pts) in
     place; returns symbols int32[n].  Reads the invalid-data flag back (one
-    sync) and raises on it.  The S=64 decode is the cluster decode (a
+    sync) and raises on it.  Both presets run the cluster decode (a
     ValueError for an L past its reach): ``cluster`` CTAs, or the size it
     picks from L when 0."""
     device = stream.device
     L = cfg.num_lanes
-    if tag == "w32s64" and L > MAX_DECODE_LANES:
+    if L > MAX_DECODE_LANES:
         raise ValueError(
             f"the range decode kernel takes at most {MAX_DECODE_LANES} lanes "
             f"(16 CTAs x 1024 threads x 32 lanes a thread), got {L}"
@@ -659,7 +665,9 @@ def decode_shared_range(points, stream, cdf, cfg: LaneConfig, n: int,
     (``interleaved2.build_checkpoints_range``).  Returns symbols int32[n],
     and with ``return_final_states`` also the final ``(lows, rngs, pts)``
     planes.  Raises the host oracle's ValueError on data inconsistent with
-    the model.  CUDA tensors launch the kernel, CPU tensors run
+    the model.  CUDA tensors launch the kernel (the cluster decode of
+    ``csrc/ilans2_wide.cuh``; a ValueError for L above
+    :data:`MAX_DECODE_LANES`), CPU tensors run
     :func:`decode_shared_range_plain`."""
     _check_cfg(cfg, 16, 32, 16)
     planes = _range_decode_args(points, stream, cdf, cfg, lows, rngs,
@@ -670,9 +678,144 @@ def decode_shared_range(points, stream, cdf, cfg: LaneConfig, n: int,
     if n == 0:
         syms = torch.zeros(0, dtype=torch.int32, device=points.device)
     else:
-        LAUNCHES["range_decode"] += 1
         syms = _launch_range_decode("w16s32", planes, stream, cdf, cfg, n)
+        LAUNCHES["range_decode"] += 1
     return (syms, planes) if return_final_states else syms
+
+
+def decode_shared_range_cluster(points, stream, cdf, cfg: LaneConfig, n: int,
+                                cluster: int, lows=None, rngs=None):
+    """The range decode kernel on a cluster of ``cluster`` CTAs (1 .. 16) in
+    place of the size it picks from L, for any L that is a multiple of 32
+    (n > 0, CUDA tensors): how the card tests reach uneven partitions and
+    CTAs with no lanes.  Returns (symbols int32[n], final (lows, rngs,
+    pts)).  JAX counterpart: none (the TPU kernel has no cluster)."""
+    return _range_cluster("w16s32", points, stream, cdf, cfg, n, cluster,
+                          lows, rngs, torch.int32, LAUNCHES)
+
+
+def _range_cluster(tag: str, points, stream, cdf, cfg: LaneConfig, n: int,
+                   cluster: int, lows, rngs, state_dtype, launches: dict):
+    """The forced-cluster range decode of either preset; counts the launch
+    in its module's ``launches``."""
+    planes = _range_decode_args(points, stream, cdf, cfg, lows, rngs,
+                                state_dtype)
+    if not _on_cuda(points.device):
+        raise ValueError("a forced cluster size needs CUDA tensors")
+    if not 1 <= cluster <= 16:
+        raise ValueError(f"cluster must be in 1 .. 16, got {cluster}")
+    syms = _launch_range_decode(tag, planes, stream, cdf, cfg, n, cluster)
+    launches["range_decode"] += 1
+    return syms, planes
+
+
+def range_geometry(L: int, K: int, P: int, device=None,
+                   cluster: int = 0) -> dict:
+    """The launch geometry of the range decode for L lanes, K symbols and
+    precision P <= 16 on ``device`` (a CUDA device; the current one by
+    default): the keys of :func:`geometry` but the encode's grid."""
+    return _geometry("w16s32", L, K, P, device, cluster,
+                     entry="ilans2_range_geometry", size=8)
+
+
+def range_correct(q: int, num: int, scale: int, state_bits: int) -> int:
+    """The range kernel's correction of a quotient estimate ``q`` (a u32)
+    of num / scale (``csrc/ilans2_wide.cuh``, ``f64_quotient``): one
+    product against num, in state_bits-wide arithmetic, then one step down
+    or up, in u32 arithmetic.  floor(num / scale) for every estimate within
+    one of it, given 0 < scale, num < scale << P, P <= 24."""
+    p = (q * scale) & ((1 << state_bits) - 1)
+    if p > num:
+        return (q - 1) & _M32
+    return (q + 1) & _M32 if num - p >= scale else q
+
+
+def range_quotient(num: int, scale: int, state_bits: int) -> int:
+    """floor(num / scale) as the range kernel takes it for 0 < scale and
+    num < scale << P, P <= 24, num < 2^state_bits: an estimate truncated to
+    u32 (saturating, as ``__double2uint_rz``), then :func:`range_correct`.
+    The kernel's estimate is num times an approximate reciprocal refined by
+    one Newton step, within 2^-36 of num / scale relatively; here it is the
+    correctly rounded float64 quotient, within 2^-52 (Python's int -> float
+    conversion and float division round to nearest even).  Both are off by
+    at most one, where the correction makes them equal."""
+    q = min(int(float(num) / float(scale)), _M32)
+    return range_correct(q, num, scale, state_bits)
+
+
+def range_num_quantile(num: int, scale: int, P: int, state_bits: int):
+    """A range lane's quantile as the kernel takes it from num = point -
+    lower (mod 2^state_bits) and scale = range >> P (``range_quantile``):
+    ``(q, over)`` with q = num // scale clamped to 2^P - 1 and over = the
+    unclamped quotient was >= 2^P, told apart as num >= scale << P; (0,
+    False) where the scale is 0."""
+    if scale == 0:
+        return 0, False
+    if num >= scale << P:
+        return (1 << P) - 1, True
+    return range_quotient(num, scale, state_bits), False
+
+
+def range_quantile(point: int, lower: int, rng: int, P: int,
+                   state_bits: int):
+    """:func:`range_num_quantile` of a lane's (point, lower, range)."""
+    num = (point - lower) & ((1 << state_bits) - 1)
+    return range_num_quantile(num, rng >> P, P, state_bits)
+
+
+def decode_range_lanes(points, stream, cdf, cfg: LaneConfig, n: int,
+                       lows=None, rngs=None):
+    """The range kernel's lane form at either preset in Python integers
+    (``cluster_range_decode_kernel``): a lane carries num = point - lower
+    and range, takes its quantile from num (:func:`range_num_quantile`),
+    subtracts scale cum from num, and on a refill shifts num and range left
+    by W and adds the word; the point is only rewritten by a refill
+    ((point << W) | word), and the final lower is point - num.  A word with
+    bits above W (W=16: a corrupt stream) adds word & ~(point << W), the
+    bits the shifted point does not already hold, so num follows the
+    point the reference builds.  Slow (a Python loop over lanes and
+    steps); it models the kernel's algebra for the tests.
+
+    ``points``, ``lows``, ``rngs``: u32 or u64 values (numpy arrays or
+    sequences); ``stream``: u32 words; ``cdf``: K+1 values.  Returns
+    ``(symbols int32[n], (lows, rngs, pts))``, the planes as numpy uint64
+    arrays.  Raises the host oracle's ValueError on a quantile >= 2^P."""
+    L, S, W, P = cfg.num_lanes, cfg.state_bits, cfg.word_bits, cfg.precision
+    m = (1 << S) - 1
+    wmask = (1 << W) - 1
+    pts = [int(x) for x in points]
+    lo = [0] * L if lows is None else [int(x) for x in lows]
+    rg = [m] * L if rngs is None else [int(x) for x in rngs]
+    num = [(p - x) & m for p, x in zip(pts, lo)]
+    plo = [p & wmask for p in pts]
+    words = [int(x) for x in stream]
+    cdf = [int(x) for x in cdf]
+    K = len(cdf) - 1
+    out = np.zeros(n, dtype=np.int32)
+    base, first_bad = 0, n
+    for t in range(_num_steps(n, L)):
+        refills = []
+        for l in range(min(L, n - t * L)):
+            scale = rg[l] >> P
+            q, over = range_num_quantile(num[l], scale, P, S)
+            if over:
+                first_bad = min(first_bad, t * L + l)
+            sym = min(max(bisect.bisect_right(cdf, q) - 1, 0), K - 1)
+            num[l] = (num[l] - scale * cdf[sym]) & m
+            rg[l] = scale * (cdf[sym + 1] - cdf[sym])
+            out[t * L + l] = sym
+            if rg[l] < 1 << (S - W):
+                refills.append(l)
+        for k, l in enumerate(refills):
+            word = words[base + k] if base + k < len(words) else 0
+            num[l] = ((num[l] << W) + (word & ~(plo[l] << W))) & m
+            rg[l] <<= W
+            plo[l] = word & wmask
+            pts[l] = ((pts[l] << W) | word) & m
+        base += len(refills)
+    _raise_if_invalid(first_bad, n)
+    planes = ([(p - x) & m for p, x in zip(pts, num)], rg, pts)
+    return out, tuple(np.array(v, dtype=np.uint64) for v in planes)
 
 
 def decode_shared_range_plain(points, stream, cdf, cfg: LaneConfig, n: int,

@@ -15,9 +15,12 @@ u64 arithmetic on such halves (the helpers below), its quotient from a
 float64 estimate corrected against the exact product; the range kernel
 (``csrc/ilans2_wide.cuh``, ``cluster_range_decode_kernel``, instantiated
 in ``csrc/ilans2_range.cu``) takes the same route in place of
-``_div64_by_scale``: a float64 quotient of the two u64 values and one
-correcting product (:func:`range_quotient` is that arithmetic in Python
-integers, :func:`range_quantile` the lane's whole quantile).
+``_div64_by_scale``: a float64 quotient estimate of the two u64 values
+and one correcting product (:func:`range_quotient` is that arithmetic in
+Python integers, :func:`range_quantile` the lane's whole quantile; the
+estimate comes from an approximate reciprocal, and
+``coder.range_correct`` is the correction from any estimate within
+one).
 
 The rANS pair runs ``csrc/ilans2_wide.cuh``'s design, as the S=32 pair
 does: the decode on a cluster of CTAs with the lane states in registers
@@ -55,6 +58,7 @@ from .coder import (  # noqa: F401 (pass B and its helpers, re-exported)
     _num_steps,
     _on_cuda,
     _raise_if_invalid,
+    _range_cluster,
     _range_decode_args,
     _refill_words,
     _symbol_tables,
@@ -63,6 +67,8 @@ from .coder import (  # noqa: F401 (pass B and its helpers, re-exported)
     compact_pass_plain,
     flag_ballots,
 )
+from .coder import range_quantile as coder_range_quantile
+from .coder import range_quotient as coder_range_quotient
 from .interleaved import LaneConfig
 
 # kernel launches made by this module's wrappers (never by the twins); the
@@ -364,36 +370,19 @@ def geometry(L: int, K: int, device=None, cluster: int = 0) -> dict:
     return _geometry("w32s64", L, K, 24, device, cluster)
 
 
-_M64 = (1 << 64) - 1
-
-
 def range_quotient(num: int, scale: int) -> int:
-    """floor(num / scale) as the range kernel computes it for 0 < scale and
-    num < scale << P, P <= 24 (``csrc/ilans2_wide.cuh``, ``f64_quotient``):
-    the float64 quotient of the two correctly rounded conversions,
-    truncated to u32 (saturating, as ``__double2uint_rz``), then one step
-    down or up against the product, in u64 and u32 arithmetic.  Python's
-    int -> float conversion and float division round to nearest even, as
-    ``__ull2double_rn`` and ``__ddiv_rn`` do."""
-    q = min(int(float(num) / float(scale)), _M32)
-    p = (q * scale) & _M64
-    if p > num:
-        return (q - 1) & _M32
-    return (q + 1) & _M32 if num - p >= scale else q
+    """floor(num / scale) as the S=64 range kernel takes it
+    (:func:`constriction_tpu_torch.ops.coder.range_quotient` at 64 bits)."""
+    return coder_range_quotient(num, scale, 64)
 
 
 def range_quantile(point: int, lower: int, rng: int, P: int):
-    """A range lane's quantile as the kernel computes it
-    (``range_quantile``): ``(q, over)`` with q = (point - lower) // (rng >>
-    P) clamped to 2^P - 1 and over = the unclamped quotient was >= 2^P,
-    told apart as num >= scale << P; (0, False) where the scale is 0."""
-    scale = rng >> P
-    num = (point - lower) & _M64
-    if scale == 0:
-        return 0, False
-    if num >= scale << P:
-        return (1 << P) - 1, True
-    return range_quotient(num, scale), False
+    """A range lane's quantile as the S=64 kernel computes it
+    (:func:`constriction_tpu_torch.ops.coder.range_quantile` at 64 bits):
+    ``(q, over)`` with q = (point - lower) // (rng >> P) clamped to 2^P - 1
+    and over = the unclamped quotient was >= 2^P; (0, False) where the
+    scale is 0."""
+    return coder_range_quantile(point, lower, rng, P, 64)
 
 
 def decode_shared_range64(points, stream, cdf, cfg: LaneConfig, n: int,
@@ -434,16 +423,8 @@ def decode_shared_range64_cluster(points, stream, cdf, cfg: LaneConfig,
     32 (n > 0, CUDA tensors): how the card tests reach uneven partitions
     and CTAs with no lanes.  Returns (symbols int32[n], final (lows, rngs,
     pts))."""
-    planes = _range_decode_args(points, stream, cdf, cfg, lows, rngs,
-                                torch.int64)
-    if not _on_cuda(points.device):
-        raise ValueError("a forced cluster size needs CUDA tensors")
-    if not 1 <= cluster <= 16:
-        raise ValueError(f"cluster must be in 1 .. 16, got {cluster}")
-    syms = _launch_range_decode("w32s64", planes, stream, cdf, cfg, n,
-                                cluster)
-    LAUNCHES["range_decode"] += 1
-    return syms, planes
+    return _range_cluster("w32s64", points, stream, cdf, cfg, n, cluster,
+                          lows, rngs, torch.int64, LAUNCHES)
 
 
 def range_geometry(L: int, K: int, P: int = 24, device=None,

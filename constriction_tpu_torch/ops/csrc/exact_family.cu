@@ -233,21 +233,22 @@ struct TableModel {
   // The R lanes of one thread at once.  The binary search runs them in
   // lock step as a branchless lower bound over the N = 4G fields (Khuong
   // and Morin's form: the probe count, ceil(log2 N), is the same for
-  // every lane), so each level issues its R probes before any is compared,
-  // and one last level loads the fields before, at and after the bound
-  // together with the aux words (independent of the search, so they wait
-  // on nothing and hold no register through it).  cnt, cumc and nxtc equal
-  // invert's (exact_family.py, invert_tables_bisect, is this probe order in
-  // plain PyTorch).  Lanes past L (a CTA's last warps) read lane L - 1's
-  // column.
+  // every lane), so each level issues its R probes before any is compared.
+  // One last level loads, a lane at a time, the fields before, at and
+  // after the bound with the aux word (independent of the search, so they
+  // hold no register through it): four values a lane are live there, and
+  // for all R lanes at once, beside the bounds and quantiles, they
+  // overflowed the 64 registers a thread of a 1024-thread CTA has at R = 4
+  // (ptxas: 24 spill bytes; in two halves of R / 2 lanes, 8).  cnt, cumc
+  // and nxtc equal invert's
+  // (exact_family.py, invert_tables_bisect, is this probe order in plain
+  // PyTorch).  Lanes past L (a CTA's last warps) read lane L - 1's column
+  // (min(l, L - 1), recomputed where it is used rather than held).
   template <int R>
   __device__ void invert_lanes(int t, const int (&l)[R],
                                const uint32_t (&q)[R], int (&sym)[R],
                                uint32_t (&cum)[R], uint32_t (&prob)[R]) const {
     const uint32_t* step = tabs + static_cast<int64_t>(t) * CP1 * L;
-    int lc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) lc[r] = min(l[r], L - 1);
     if (bisect) {
       const int N = 4 * ((CP1 - 1) / 3);
       int base[R];
@@ -257,39 +258,36 @@ struct TableModel {
         const int half = len >> 1;
         uint32_t f[R];
 #pragma unroll
-        for (int r = 0; r < R; ++r) f[r] = field_at(step, lc[r], base[r] + half);
+        for (int r = 0; r < R; ++r) {
+          f[r] = field_at(step, min(l[r], L - 1), base[r] + half);
+        }
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           if (f[r] < q[r]) base[r] += half;
         }
         len -= half;
       }
-      uint32_t aux[R], fp[R], fb[R], fn[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        aux[r] = step[lc[r]];
-        fp[r] = field_at(step, lc[r], max(base[r] - 1, 0));
-        fb[r] = field_at(step, lc[r], base[r]);
-        fn[r] = field_at(step, lc[r], min(base[r] + 1, N - 1));
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const bool below = fb[r] < q[r];
-        const uint32_t cumc = below ? fb[r]
-                              : base[r] > 0 ? fp[r]
-                                            : 0xFFFFFFFFu;
-        const uint32_t nxtc = !below ? fb[r]
-                              : base[r] + 1 < N ? fn[r]
+        const int lc = min(l[r], L - 1);
+        const uint32_t aux = step[lc];
+        const uint32_t fp = field_at(step, lc, max(base[r] - 1, 0));
+        const uint32_t fb = field_at(step, lc, base[r]);
+        const uint32_t fn = field_at(step, lc, min(base[r] + 1, N - 1));
+        const bool below = fb < q[r];
+        const uint32_t cumc = below ? fb : base[r] > 0 ? fp : 0xFFFFFFFFu;
+        const uint32_t nxtc = !below ? fb
+                              : base[r] + 1 < N ? fn
                                                 : (1u << P) - 1u;
-        sym[r] = exact_regions(q[r], static_cast<int>(aux[r] & 0xFFFFFFu),
-                               static_cast<int>(aux[r] >> 24),
+        sym[r] = exact_regions(q[r], static_cast<int>(aux & 0xFFFFFFu),
+                               static_cast<int>(aux >> 24),
                                base[r] + (below ? 1 : 0), cumc, nxtc, P,
                                span, free, min_sym, cum[r], prob[r]);
       }
     } else {
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const uint32_t* col = step + lc[r];
+        const uint32_t* col = step + min(l[r], L - 1);
         int cnt = 0;
         uint32_t cumc = 0xFFFFFFFFu, nxtc = 0;
         scan(col, q[r], cnt, cumc, nxtc);

@@ -158,33 +158,6 @@ int launch_encode_lanes(void* states, const void* syms, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Pass B: n_flags renorm ballots (T * L / 32) and their words into
-// buf[*end_out : cap]; offsets[kScanBlocks] is scratch.
-int launch_compact(const void* flags, const void* words, long long n_flags,
-                   void* buf, long long cap, void* end_out, void* offsets,
-                   void* cuda_stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_flags <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const auto stream = static_cast<cudaStream_t>(cuda_stream);
-  const int64_t chunk = scan_chunk(n_flags);
-  const int blocks = static_cast<int>((n_flags + chunk - 1) / chunk);
-  const auto* f = static_cast<const uint32_t*>(flags);
-  auto* off = static_cast<uint64_t*>(offsets);
-  auto* end = static_cast<int64_t*>(end_out);
-  compact_count_kernel<<<blocks, kScanThreads, 0, stream>>>(f, n_flags, chunk,
-                                                            off);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  compact_offsets_kernel<<<1, 1024, 0, stream>>>(off, blocks, cap, end);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  compact_scatter_kernel<<<blocks, kScanThreads, 0, stream>>>(
-      f, static_cast<const uint32_t*>(words), n_flags, chunk, off, end,
-      static_cast<uint32_t*>(buf));
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Both passes: words[T * L], flags[T * L / 32], offsets[kScanBlocks] (u64)
 // and records[K] are scratch the caller allocates.
 template <int W, int S>

@@ -15,8 +15,8 @@
 // take the next words in ascending lane order); a lane's first S/W words
 // are its initial point.  The TPU kernels hold S=64 values as u32 pairs
 // (_mul40x25, _div64_by_scale, _pair_add); here they are native uint64_t,
-// and the S=64 decode's division by the scale an f64 estimate with one
-// correcting product.
+// and the decode's division by the scale an f64 estimate with one
+// correcting product at both presets.
 //
 // Encoding is the two-phase big-number formulation of pallas_range_enc.py:
 // a range coder's emitted words are base-2^W digits of an unbounded
@@ -32,18 +32,20 @@
 // What bounds them on this card:
 // - Decode and phase B are serial over the T steps, and each step needs an
 //   exclusive prefix over all L lanes (refill ranks, emission offsets).
-//   The S=64 decode (kernel 5) runs ilans2_wide.cuh's cluster design
-//   (cluster_range_decode_kernel over BucketCdfModel, shared with the rANS
-//   decodes): up to 16 CTAs, each lane's (lower, range, point) in
-//   registers for the whole message, one distributed-shared-memory exchange
-//   and cluster barrier per step, a bucket table in front of the CDF
-//   search, and the quantile's u64 / u64 division replaced by an f64
-//   estimate and one correcting product (f64_quotient).  The step's
-//   barriers and its chain (quotient, search, products, refill load) bound
-//   it.  Phase B and the S=32 decode still run in ONE block of 1024
-//   threads with a warp ballot and a block scan per step (lanes.cuh), lane
-//   state in device memory (L2-resident) updated in place, and the refill /
-//   emission of step t fused with the coding / flagging of the next step:
+//   The decode at both presets (kernel 5 at S=64, kernel 6 at S=32) runs
+//   ilans2_wide.cuh's cluster design (cluster_range_decode_kernel over
+//   BucketCdfModel, shared with the rANS decodes): up to 16 CTAs, each
+//   lane's num = point - lower and range in registers for the whole
+//   message (the point in device memory, touched by refills only), one
+//   distributed-shared-memory exchange and cluster barrier per step, a
+//   bucket table in front of the CDF search (at P <= 12 it holds every
+//   quantile's symbol), and the quantile's integer division replaced by an
+//   f64 estimate from an approximate reciprocal and one correcting product
+//   (f64_quotient).  The step's barriers and its chain (quotient, search,
+//   products, refill load) bound it.  Phase B still runs in ONE block of
+//   1024 threads with a warp ballot and a block scan per step (lanes.cuh),
+//   lane state in device memory (L2-resident) updated in place, and the
+//   emission of step t fused with the flagging of the next step:
 //   latency-bound on one SM.
 // - Phase A has no cross-lane dependency: a grid of L / 128 blocks, one
 //   thread per lane looping over T, with symbol reads and record writes
@@ -181,89 +183,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tid == 0) *end_out = e;
 }
 
-// Decode n symbols on one block (the S=32 decode, kernel 6).  lows / rngs /
-// pts[L]: the initial (lower, range, point) planes in (lower 0 and range 2^S - 1 unless resuming from a
-// checkpoint), the final planes out.  stream[slen]: W-bit words, one per
-// u32; reads past the end yield 0.  *bad: the caller sets n; the kernel
-// lowers it to the first symbol whose quantile is >= 2^P (data
-// inconsistent with the model), and then decodes on without faulting.
-template <int W, int S>
-__global__ void __launch_bounds__(kThreads, 1)
-    ilans2_range_decode_kernel(typename StateOf<S>::type* __restrict__ lows,
-                               typename StateOf<S>::type* __restrict__ rngs,
-                               typename StateOf<S>::type* __restrict__ pts,
-                               const uint32_t* __restrict__ stream,
-                               int64_t slen,
-                               const uint32_t* __restrict__ cdf_g, int K,
-                               int32_t* __restrict__ syms, int64_t n, int L,
-                               int P, int T, int cdf_in_smem,
-                               unsigned long long* __restrict__ bad) {
-  using State = typename StateOf<S>::type;
-  extern __shared__ uint32_t smem[];
-  const int G = L / 32;
-  const Smem s{smem, G};
-  const uint32_t* cdf = stage_cdf(s.cdf(), cdf_g, K, cdf_in_smem);
-  __syncthreads();
-
-  constexpr State kLower = State(1) << (S - W);
-  const State qlimit = State(1) << P;
-  const int tid = threadIdx.x, lane = tid & 31;
-  const uint32_t lt_mask = (1u << lane) - 1u;
-  const int rows = (L + kThreads - 1) / kThreads;
-  int64_t base = 0;         // first stream word of the pending step's refills
-  uint32_t last_total = 0;  // words the pending step consumed
-
-  // Iteration t refills for step t - 1, then decodes step t.
-  for (int t = 0; t <= T; ++t) {
-    const int cur = t & 1, prev = cur ^ 1;
-    for (int r = 0; r < rows; ++r) {
-      if (r * kThreads + (tid & ~31) >= L) break;  // warp-uniform
-      const int l = r * kThreads + tid;
-      const int g = l >> 5;
-      State lo = lows[l], rg = rngs[l], pt = pts[l];
-      if (t > 0) {
-        const uint32_t bal = s.ballots(prev)[g];
-        if ((bal >> lane) & 1u) {
-          const int64_t idx = base + s.prefix(prev)[g] + __popc(bal & lt_mask);
-          const uint32_t word = idx < slen ? stream[idx] : 0u;
-          lo <<= W;
-          rg <<= W;
-          pt = (pt << W) | State(word);
-        }
-      }
-      if (t < T) {
-        const int64_t i = static_cast<int64_t>(t) * L + l;
-        bool refill = false;
-        if (i < n) {
-          const State scale = rg >> P;
-          const State q = scale ? State(pt - lo) / scale : State(0);
-          if (q >= qlimit) atomicMin(bad, static_cast<unsigned long long>(i));
-          const int sym = find_symbol(
-              cdf, K, static_cast<uint32_t>(q < qlimit ? q : qlimit - 1));
-          const uint32_t cum = cdf[sym];
-          const uint32_t prob = cdf[sym + 1] - cum;
-          lo += scale * cum;  // mod 2^S
-          rg = scale * prob;
-          syms[i] = sym;
-          refill = rg < kLower;
-        }
-        const unsigned bal = __ballot_sync(kFull, refill);
-        if (lane == 0) s.ballots(cur)[g] = bal;
-      }
-      lows[l] = lo;
-      rngs[l] = rg;
-      pts[l] = pt;
-    }
-    if (t == T) break;
-    __syncthreads();
-    const uint32_t total = scan_groups(s.ballots(cur), s.prefix(cur),
-                                       s.warp_sums(), G);
-    __syncthreads();
-    base += last_total;
-    last_total = total;
-  }
-}
-
 int num_steps(long long n, int L) {
   return static_cast<int>((n + L - 1) / L);
 }
@@ -310,29 +229,8 @@ int launch_resolve(const void* records, void* pend, void* d1, void* d2,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int W, int S>
-int launch_decode(void* lows, void* rngs, void* pts, const void* stream,
-                  long long slen, const void* cdf, int K, void* syms,
-                  long long n, int L, int P, void* bad, void* cuda_stream,
-                  int device) {
-  using State = typename StateOf<S>::type;
-  int cdf_in_smem = 0;
-  const size_t bytes = smem_bytes(L, K, &cdf_in_smem);
-  auto kernel = ilans2_range_decode_kernel<W, S>;
-  if (!valid_args(L, P, K)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = prepare(kernel, device, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<State*>(lows), static_cast<State*>(rngs),
-      static_cast<State*>(pts), static_cast<const uint32_t*>(stream), slen,
-      static_cast<const uint32_t*>(cdf), K, static_cast<int32_t*>(syms), n, L,
-      P, num_steps(n, L), cdf_in_smem,
-      static_cast<unsigned long long*>(bad));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The cluster decode (kernel 5); `cluster` 0 picks the cluster size from L.
+// The cluster decode (kernels 5 and 6); `cluster` 0 picks the cluster size
+// from L.
 template <int W, int S>
 int launch_cluster_decode(void* lows, void* rngs, void* pts,
                           const void* stream, long long slen, const void* cdf,
@@ -433,8 +331,9 @@ int ctt_ilans2_range_decode_w16s32(void* lows, void* rngs, void* pts,
                                    const void* cdf, int K, void* syms,
                                    long long n, int L, int P, void* bad,
                                    void* cuda_stream, int device) {
-  return launch_decode<16, 32>(lows, rngs, pts, stream, slen, cdf, K, syms, n,
-                               L, P, bad, cuda_stream, device);
+  return launch_cluster_decode<16, 32>(lows, rngs, pts, stream, slen, cdf, K,
+                                       syms, n, L, P, bad, 0, cuda_stream,
+                                       device);
 }
 
 int ctt_ilans2_range_decode_w32s64(void* lows, void* rngs, void* pts,
@@ -447,7 +346,17 @@ int ctt_ilans2_range_decode_w32s64(void* lows, void* rngs, void* pts,
                                        device);
 }
 
-// The same decode on a cluster of `cluster` CTAs (1 .. 16).
+// The same decodes on a cluster of `cluster` CTAs (1 .. 16).
+int ctt_ilans2_range_decode_cluster_w16s32(
+    void* lows, void* rngs, void* pts, const void* stream, long long slen,
+    const void* cdf, int K, void* syms, long long n, int L, int P, void* bad,
+    int cluster, void* cuda_stream, int device) {
+  if (cluster < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_cluster_decode<16, 32>(lows, rngs, pts, stream, slen, cdf, K,
+                                       syms, n, L, P, bad, cluster,
+                                       cuda_stream, device);
+}
+
 int ctt_ilans2_range_decode_cluster_w32s64(
     void* lows, void* rngs, void* pts, const void* stream, long long slen,
     const void* cdf, int K, void* syms, long long n, int L, int P, void* bad,
@@ -456,6 +365,13 @@ int ctt_ilans2_range_decode_cluster_w32s64(
   return launch_cluster_decode<32, 64>(lows, rngs, pts, stream, slen, cdf, K,
                                        syms, n, L, P, bad, cluster,
                                        cuda_stream, device);
+}
+
+int ctt_ilans2_range_geometry_w16s32(int L, int K, int P, int cluster,
+                                     long long* out, void* cuda_stream,
+                                     int device) {
+  (void)cuda_stream;
+  return cluster_geometry<16, 32>(L, K, P, cluster, out, device);
 }
 
 int ctt_ilans2_range_geometry_w32s64(int L, int K, int P, int cluster,

@@ -4,9 +4,11 @@
 // pass over the whole grid and a row-major compaction of the emitted words.
 // ilans2.cu instantiates them for the categorical coder at both presets
 // (W=32/S=64 and W=16/S=32, one CDF), exact_family.cu the decode for the
-// S=64 reference-exact tables (kernel 15), and ilans2_range.cu the range
-// decode's twin of the cluster decode (cluster_range_decode_kernel, kernel
-// 5), which shares its step exchange (exchange_step).  Like ilans2.cuh's
+// S=64 reference-exact tables (kernel 15), ilans2_range.cu the range
+// decode's twin of the cluster decode at both presets
+// (cluster_range_decode_kernel, kernels 5 and 6), which shares its step
+// exchange (exchange_step), and tchain.cu the compaction (launch_compact)
+// behind its TChain-12 decode.  Like ilans2.cuh's
 // single-block loops they are templated on (W, S, Model), so the coders
 // that still run those can move here by instantiation once their models
 // provide, besides stage():
@@ -46,16 +48,18 @@
 // prefetches into L2 the stream words the next two steps can reach (2L words
 // from the next step's first word).
 //
-// Range decode (cluster_range_decode_kernel).  The same step with a range
-// lane's (lower, range, point) in place of the rANS state: the quantile
-// (point - lower) / (range >> P), the model's search, lower += scale cum and
-// range = scale prob, the refill flag range < 2^(S-W), the same exchange,
-// and a refill that shifts all three left by W and puts the word into
-// point.  The quotient is below 2^P <= 2^24 wherever the data is valid, so
-// in place of the card's u64 / u64 division (a software routine of some
-// tens of instructions on the lane's chain) it is an f64 estimate, off by
-// at most one, corrected by one product (f64_quotient); the invalid case
-// q >= 2^P is told apart first, exactly, as num >= scale << P.
+// Range decode (cluster_range_decode_kernel, both presets).  The same step
+// with a range lane in place of the rANS state: the lane keeps num = point -
+// lower and range in registers (the quantile num / (range >> P), the
+// model's search, num -= scale cum and range = scale prob, the refill flag
+// range < 2^(S-W), the same exchange, and a refill that shifts both left by
+// W and adds the word), and its point in device memory, where only a refill
+// touches it; the final lower is point - num.  The quotient is below 2^P
+// <= 2^24 wherever the data is valid, so in place of the card's integer
+// division (a software routine of some tens of instructions on the lane's
+// chain) it is an f64 estimate from an approximate reciprocal, off by at
+// most one, corrected by one product (f64_quotient); the invalid case q >=
+// 2^P is told apart first, exactly, as num >= scale << P.
 //
 // Encode (encode_lanes_kernel, then compact_*_kernel).  A lane's renorm
 // decision and next state depend on its own state and symbol only; the lanes
@@ -214,7 +218,7 @@ __global__ void __launch_bounds__(128)
 }
 
 // The decode model of the categorical coders' cluster decodes (rANS,
-// kernels 1 and 4; range, kernel 5): the CDF, in shared memory when it
+// kernels 1 and 4; range, kernels 5 and 6): the CDF, in shared memory when it
 // fits, behind a bucket table in shared memory: lut[b] is the symbol of
 // quantile b << (P - lut_bits), so quantile q's symbol lies between
 // lut[q >> (P - lut_bits)] and the next entry, and a binary search between
@@ -427,19 +431,29 @@ __global__ void __launch_bounds__(kClusterWarps * 32, 1)
 }
 
 // floor(num / scale) for 0 < scale and num < scale << P with P <= 24 (the
-// quotient below 2^24): the f64 quotient of the two correctly rounded
-// conversions is within 2^-51 of num / scale relatively, so its
-// truncation is off by at most one either way, and one product against num
-// tells which (it cannot overflow: (q + 1) scale <= num + scale < 2^S).
-// Elsewhere the result is some value the caller does not use; nothing
-// faults (a division by 0 saturates the conversion).
-// constriction_tpu_torch/ops/coder64.py (range_quotient) holds the same
-// arithmetic exact against integer division.
+// quotient below 2^24), without the card's integer division: an f64
+// estimate num * r, r the reciprocal of the scale from rcp.approx.ftz.f64
+// and one Newton step, and one correcting product.  The approximate
+// reciprocal comes from the top 32 bits of the scale's double and is good
+// to at least 2^-19 relatively, the Newton step squares that to below
+// 2^-37, and the conversions and the product add a few 2^-53: the
+// estimate is within 2^-36 of num / scale relatively, 2^-12 absolutely,
+// so its truncation is off by at most one either way, and
+// one product against num tells which (it cannot overflow: (q + 1) scale
+// <= scale << P <= range < 2^S).  Unlike __ddiv_rn, the sequence has no
+// slow-path call, whose register saves spilled the R = 4 kernels
+// (ROADMAP C.5).  Elsewhere the result is some value the caller does not
+// use; nothing faults.  constriction_tpu_torch/ops/coder.py
+// (range_correct) holds the correction exact against integer division
+// from every estimate within one.
 template <typename State>
 __device__ __forceinline__ uint32_t f64_quotient(State num, State scale) {
+  const double d = __ull2double_rn(static_cast<unsigned long long>(scale));
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(d));
+  r = __fma_rn(r, __fma_rn(-d, r, 1.0), r);
   const uint32_t q = __double2uint_rz(
-      __ddiv_rn(__ull2double_rn(static_cast<unsigned long long>(num)),
-                __ull2double_rn(static_cast<unsigned long long>(scale))));
+      __dmul_rn(__ull2double_rn(static_cast<unsigned long long>(num)), r));
   const State p = static_cast<State>(q) * scale;
   if (p > num) return q - 1u;
   return num - p >= scale ? q + 1u : q;
@@ -466,6 +480,16 @@ __device__ __forceinline__ uint32_t range_quantile(State num, State scale,
 // u32; reads past the end yield 0.  *bad: the caller sets n; the kernel
 // lowers it to the first symbol whose quantile is >= 2^P, and decodes on
 // with that quantile clamped to 2^P - 1.
+//
+// A lane holds num = point - lower and range in registers, the two values
+// on its chain: the quantile is num / (range >> P), a step subtracts
+// scale cum from num, a refill shifts num and range left by W and adds the
+// word.  The point stays in pts[l], rewritten only by a refill (a load and
+// a store nothing waits on), and the final lower is rebuilt as point - num
+// (mod 2^S).  With W < 32 a stream word may hold bits above W (a corrupt
+// stream), which the reference ORs into the shifted point; the lane then
+// keeps the point's low W bits (plo) so that num follows the same bits:
+// ((p << W) | w) - (p << W) = w & ~(p << W).
 template <int W, int S, int R, class Model>
 __global__ void __launch_bounds__(kClusterWarps * 32, 1)
     cluster_range_decode_kernel(typename StateOf<S>::type* __restrict__ lows,
@@ -484,6 +508,8 @@ __global__ void __launch_bounds__(kClusterWarps * 32, 1)
   const int C = static_cast<int>(cluster.num_blocks());
 
   constexpr State kLower = State(1) << (S - W);
+  constexpr bool kWideWords = W < 32;  // a u32 word can exceed W bits
+  constexpr uint32_t kWordMask = W == 32 ? kFull : ((1u << W) - 1u);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int warps = blockDim.x >> 5;
   const uint32_t lt_mask = (1u << lane) - 1u;
@@ -492,28 +518,35 @@ __global__ void __launch_bounds__(kClusterWarps * 32, 1)
   const int g0 = rank * groups_per_cta + warp * R;  // slot 0's group
 
   model.stage(smem_model);
-  State lo[R], rg[R], pt[R];
+  State num[R], rg[R];
+  uint32_t plo[R];  // the point's low W bits (used when kWideWords)
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int l = (g0 + r) * 32 + lane;
     const bool live = g0 + r < g_end;
-    lo[r] = live ? lows[l] : State(0);
+    const State pt = live ? pts[l] : State(0);
+    num[r] = live ? State(pt - lows[l]) : State(0);
     rg[r] = live ? rngs[l] : State(0);
-    pt[r] = live ? pts[l] : State(0);
+    plo[r] = static_cast<uint32_t>(pt) & kWordMask;
   }
   int64_t base = 0;  // first stream word of this step
-  // the first two steps' words into L2
+  // the first two steps' words into L2: thread k of the cluster fetches
+  // line k past the step's first word
   const int64_t cluster_tid = static_cast<int64_t>(rank) * blockDim.x + tid;
-  const int64_t reach_lines = (2 * static_cast<int64_t>(L) + 31) / 32 + 1;
-  if (cluster_tid < reach_lines && cluster_tid * 32 < slen) {
-    prefetch_l2(stream + cluster_tid * 32);
-  }
+  const bool prefetcher =
+      cluster_tid < (2 * static_cast<int64_t>(L) + 31) / 32 + 1;
+  const int64_t line = cluster_tid * 32;
+  if (prefetcher && line < slen) prefetch_l2(stream + line);
   // the staged CDF is visible, and every CTA of the cluster runs before
   // the first remote write
   cluster_barrier();
 
   for (int t = 0; t < T; ++t) {
     const int par = t & 1;
+    // lanes below `active` hold a symbol this step (only the last step can
+    // be partial)
+    const int64_t left = n - static_cast<int64_t>(t) * L;
+    const int active = left < L ? static_cast<int>(left) : L;
     // the R quantiles, then the model's search over all of them (the
     // scale is shifted out again after it: registers, not a held array)
     int l[R], sym[R];
@@ -522,10 +555,9 @@ __global__ void __launch_bounds__(kClusterWarps * 32, 1)
     for (int r = 0; r < R; ++r) {
       l[r] = (g0 + r) * 32 + lane;
       bool over;
-      q[r] = range_quantile(State(pt[r] - lo[r]), rg[r] >> P, P, &over);
-      const int64_t i = static_cast<int64_t>(t) * L + l[r];
-      if (over && g0 + r < g_end && i < n) {
-        atomicMin(bad, static_cast<unsigned long long>(i));
+      q[r] = range_quantile(num[r], rg[r] >> P, P, &over);
+      if (over && g0 + r < g_end && l[r] < active) {
+        atomicMin(bad, static_cast<unsigned long long>(t) * L + l[r]);
       }
     }
     model.invert_lanes(t, l, q, sym, cum, prob);
@@ -535,12 +567,11 @@ __global__ void __launch_bounds__(kClusterWarps * 32, 1)
     for (int r = 0; r < R; ++r) {
       refill[r] = false;
       if (g0 + r < g_end) {  // warp-uniform
-        const int64_t i = static_cast<int64_t>(t) * L + l[r];
-        if (i < n) {
+        if (l[r] < active) {
           const State scale = rg[r] >> P;
-          lo[r] += scale * cum[r];  // mod 2^S
+          num[r] -= scale * cum[r];  // mod 2^S
           rg[r] = scale * prob[r];
-          syms[i] = sym[r];
+          syms[static_cast<int64_t>(t) * L + l[r]] = sym[r];
           refill[r] = rg[r] < kLower;
         }
         count += __popc(__ballot_sync(kFull, refill[r]));
@@ -566,22 +597,27 @@ __global__ void __launch_bounds__(kClusterWarps * 32, 1)
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if (refill[r]) {
-        lo[r] <<= W;
+        uint32_t add = word[r];
+        if constexpr (kWideWords) {
+          add &= ~(plo[r] << W);
+          plo[r] = word[r] & kWordMask;
+        }
+        num[r] = (num[r] << W) + static_cast<State>(add);
         rg[r] <<= W;
-        pt[r] = (pt[r] << W) | static_cast<State>(word[r]);
+        State* p = pts + (g0 + r) * 32 + lane;
+        *p = (*p << W) | static_cast<State>(word[r]);
       }
     }
     base += off.total;
-    const int64_t at = (base & ~int64_t(31)) + cluster_tid * 32;
-    if (cluster_tid < reach_lines && at < slen) prefetch_l2(stream + at);
+    const int64_t at = (base & ~int64_t(31)) + line;
+    if (prefetcher && at < slen) prefetch_l2(stream + at);
   }
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (g0 + r < g_end) {
       const int l = (g0 + r) * 32 + lane;
-      lows[l] = lo[r];
+      lows[l] = pts[l] - num[r];
       rngs[l] = rg[r];
-      pts[l] = pt[r];
     }
   }
 }
@@ -746,6 +782,35 @@ __global__ void __launch_bounds__(kScanThreads)
     run += tile_total;
     __syncthreads();  // before the next tile overwrites the buffers
   }
+}
+
+// Pass B: n_flags ballots (row-major, one per 32-lane group of a row) and
+// their words words[k * 32 + j] into buf[*end_out : cap]; offsets[kScanBlocks]
+// is scratch.  Three launches on `cuda_stream`.
+inline int launch_compact(const void* flags, const void* words,
+                          long long n_flags, void* buf, long long cap,
+                          void* end_out, void* offsets, void* cuda_stream,
+                          int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_flags <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto stream = static_cast<cudaStream_t>(cuda_stream);
+  const int64_t chunk = scan_chunk(n_flags);
+  const int blocks = static_cast<int>((n_flags + chunk - 1) / chunk);
+  const auto* f = static_cast<const uint32_t*>(flags);
+  auto* off = static_cast<uint64_t*>(offsets);
+  auto* end = static_cast<int64_t*>(end_out);
+  compact_count_kernel<<<blocks, kScanThreads, 0, stream>>>(f, n_flags, chunk,
+                                                            off);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  compact_offsets_kernel<<<1, 1024, 0, stream>>>(off, blocks, cap, end);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  compact_scatter_kernel<<<blocks, kScanThreads, 0, stream>>>(
+      f, static_cast<const uint32_t*>(words), n_flags, chunk, off, end,
+      static_cast<uint32_t*>(buf));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launch geometry of cluster_decode_kernel: C CTAs of `threads` threads,

@@ -18,7 +18,7 @@
 // other.
 //
 // The categorical pair is one template over (W, S, P), in the shape of the
-// TChain-12 pair below: one thread block codes the message, heads live in
+// TChain-12 encoder below: one thread block codes the message, heads live in
 // device memory (updated in place), the words a step flushes are written
 // in the next iteration once the block scan (lanes.cuh) has placed them,
 // the CDF is staged in shared memory when it fits, and a quantile finds its
@@ -41,17 +41,22 @@
 // eight 128-lane rows share three word rows; the encoder ORs its bits into
 // zeroed words with atomicOr.
 //
-// What bounds them on this card: latency and issue on one SM.  The table
-// pair does what the ILANS2 rANS kernels do per symbol (a dependent chain
-// of head load, CDF search, head update and store), so it should cost what
-// they cost per step; the family pair adds a bisection over left() per
-// decoded quantile and two evaluations per re-encoded symbol (the encoder
-// keeps each lane's pending (cum, prob) in a scratch array, `tab`, as the
-// rANS family encoder does).  In the decoders only the word placement
-// couples the lanes; spreading the rest over all SMs is later work.
+// What bounds them on this card.  The TChain-12 decode (kernel 21) runs
+// over the whole grid in three steps (below, before its launchers): an
+// inversion pass of one thread per symbol, which holds its
+// operation-bound work (a bisection over left() per quantile), a head
+// pass of one thread per lane, and ilans2_wide.cuh's row-major compaction.
+// The other five kernels run on one SM: latency and issue.  The table pair
+// does what the ILANS2 rANS kernels do per symbol (a dependent chain of
+// head load, CDF search, head update and store), so it should cost what
+// they cost per step; the family encoder adds two evaluations of left()
+// per re-encoded symbol (it keeps each lane's pending (cum, prob) in a
+// scratch array, `tab`, as the rANS family encoder does).  The TChain-16
+// and TChain-24 decodes have the TChain-12 decode's lane independence and
+// can take its head pass and compaction by instantiation.
 
 #include "family.cuh"
-#include "lanes.cuh"
+#include "ilans2_wide.cuh"
 
 namespace {
 
@@ -314,64 +319,87 @@ __device__ __forceinline__ void store_q(uint32_t* __restrict__ qw, int l,
   if (s.shift > 20) atomicOr(&qw[s.word + 128], q >> (32 - s.shift));
 }
 
-// Bits-back decode of T * L quantiles.  heads[L]: the seeds (16) in, the
-// final heads out.  buf[cap]: the flushed words of step t land right to
-// left below an end pointer, so on return the remainder stream is
-// buf[*end_out : cap].
-template <int F>
-__global__ void __launch_bounds__(kThreads, 1)
-    tchain12_family_decode_kernel(uint32_t* __restrict__ heads,
-                                  const uint32_t* __restrict__ qw,
-                                  const float* __restrict__ means,
-                                  const float* __restrict__ scales,
-                                  int32_t* __restrict__ syms,
-                                  uint32_t* __restrict__ buf, int64_t cap,
-                                  int64_t* __restrict__ end_out, int L, int T,
-                                  family::Support sup) {
-  extern __shared__ uint32_t smem[];
-  const int G = L / 32;
-  const Smem s{smem, G};
-  const int tid = threadIdx.x, lane = tid & 31;
-  const uint32_t lt_mask = (1u << lane) - 1u;
-  const int rows = L / kThreads;
-  const int64_t step_words = 3 * static_cast<int64_t>(L) / 8;
-  int64_t e = cap;  // words of the finished steps occupy buf[e : cap]
+// The TChain-12 decode in three steps over the whole grid.  A lane's head
+// update h = h * prob + (q - cum) reads its own head only, and the
+// expensive part of a step, the model's inversion (a bisection over
+// left()), reads no head at all; the lanes meet only where their flushed
+// words land.  So:
+//   (a) tchain12_invert_kernel, one thread per symbol: the quantile, the
+//       model, the bisection; writes the symbol and a record
+//       (q - cum) | prob << 16 (prob <= 2^12);
+//   (b) tchain12_heads_kernel, one thread per lane: the head chain through
+//       steps 0 .. T-1 on the records alone, each flushed word into a
+//       dense scratch words[row * L + l] and one ballot per (step, 32-lane
+//       group) into flags[row * G + g], with row = T - 1 - t;
+//   (c) ilans2_wide.cuh's row-major compaction (launch_compact), which
+//       writes rows in ascending order: the stream's step chunks right to
+//       left, lanes ascending within a step, as the host oracle lays
+//       them out.
+// (a) holds the operation-bound work (about 8 evaluations of left() a
+// symbol) and fills the card; (b) is a chain of T short steps a lane with
+// the next records loaded ahead; (c) moves one word per u32.
+constexpr int kInvertThreads = 256;  // L is a multiple of 1024
+constexpr int kHeadThreads = 128;
+constexpr int kHeadAhead = 8;  // records a lane has in flight
 
-  // Iteration t writes the words step t - 1 flushed (a head still at or
-  // above 2^20 carries its pending word in its low 16 bits), then decodes
-  // step t.
-  for (int t = 0; t <= T; ++t) {
-    const int cur = t & 1, prev = cur ^ 1;
-    for (int r = 0; r < rows; ++r) {
-      const int l = r * kThreads + tid;
-      const int g = l >> 5;
-      uint32_t h = heads[l];
-      if (t > 0 && h >= kFlushAt) {
-        const int64_t idx = e + s.prefix(prev)[g] +
-                            __popc(s.ballots(prev)[g] & lt_mask);
-        buf[idx] = h & kWordMask;
-        h >>= kW;
-      }
-      if (t < T) {
-        const int64_t i = static_cast<int64_t>(t) * L + l;
-        const family::Model m = family::load_model(means, scales, i);
-        const uint32_t q = load_q(qw + t * step_words, l);
-        uint32_t cum, prob;
-        syms[i] = family::invert<F>(static_cast<int>(q), m, sup, &cum, &prob);
-        h = h * prob + (q - cum);
-        const unsigned bal = __ballot_sync(kFull, h >= kFlushAt);
-        if (lane == 0) s.ballots(cur)[g] = bal;
-      }
-      heads[l] = h;
-    }
-    if (t == T) break;
-    __syncthreads();
-    const uint32_t total = scan_groups(s.ballots(cur), s.prefix(cur),
-                                       s.warp_sums(), G);
-    __syncthreads();
-    e -= total;
+template <int F>
+__global__ void __launch_bounds__(kInvertThreads)
+    tchain12_invert_kernel(const uint32_t* __restrict__ qw,
+                           const float* __restrict__ means,
+                           const float* __restrict__ scales,
+                           int32_t* __restrict__ syms,
+                           uint32_t* __restrict__ recs, int L,
+                           family::Support sup) {
+  const int per_step = L / kInvertThreads;
+  const int t = blockIdx.x / per_step;
+  const int l = (blockIdx.x - t * per_step) * kInvertThreads + threadIdx.x;
+  const int64_t i = static_cast<int64_t>(t) * L + l;
+  const uint32_t q = load_q(qw + t * (3 * static_cast<int64_t>(L) / 8), l);
+  const family::Model m = family::load_model(means, scales, i);
+  uint32_t cum, prob;
+  syms[i] = family::invert<F>(static_cast<int>(q), m, sup, &cum, &prob);
+  recs[i] = (q - cum) | (prob << 16);
+}
+
+// heads[L]: the seeds (16) in, the final heads out.  recs[T * L] from (a).
+__global__ void __launch_bounds__(kHeadThreads)
+    tchain12_heads_kernel(uint32_t* __restrict__ heads,
+                          const uint32_t* __restrict__ recs,
+                          uint32_t* __restrict__ words,
+                          uint32_t* __restrict__ flags, int L, int T) {
+  const int l = blockIdx.x * kHeadThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31, g = l >> 5, G = L >> 5;
+  uint32_t h = heads[l];
+  uint32_t cur[kHeadAhead], nxt[kHeadAhead];
+#pragma unroll
+  for (int j = 0; j < kHeadAhead; ++j) {
+    cur[j] = j < T ? recs[static_cast<int64_t>(j) * L + l] : 0u;
   }
-  if (tid == 0) *end_out = e;
+  for (int t0 = 0; t0 < T; t0 += kHeadAhead) {
+#pragma unroll
+    for (int j = 0; j < kHeadAhead; ++j) {
+      const int t = t0 + kHeadAhead + j;
+      nxt[j] = t < T ? recs[static_cast<int64_t>(t) * L + l] : 0u;
+    }
+#pragma unroll
+    for (int j = 0; j < kHeadAhead; ++j) {
+      const int t = t0 + j;
+      if (t < T) {  // uniform
+        h = h * (cur[j] >> 16) + (cur[j] & 0xffffu);
+        const bool flush = h >= kFlushAt;
+        const int64_t row = T - 1 - t;
+        if (flush) {
+          words[row * L + l] = h & kWordMask;
+          h >>= kW;
+        }
+        const unsigned bal = __ballot_sync(kFull, flush);
+        if (lane == 0) flags[row * G + g] = bal;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kHeadAhead; ++j) cur[j] = nxt[j];
+  }
+  heads[l] = h;
 }
 
 // The reverse pass over T * L symbols, steps T-1 .. 0.  heads[L]: the
@@ -450,25 +478,58 @@ bool valid_chain(int L, long long T, int min_sym, int max_sym) {
 }
 
 template <int F>
-int launch_decode(void* heads, const void* qw, const void* means,
-                  const void* scales, void* syms, void* buf, long long cap,
-                  void* end_out, int L, int T, int min_sym, int max_sym,
-                  void* cuda_stream, int device) {
+int launch_invert(const void* qw, const void* means, const void* scales,
+                  void* syms, void* recs, int L, int T, int min_sym,
+                  int max_sym, void* cuda_stream, int device) {
   if (!valid_chain(L, T, min_sym, max_sym)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t bytes = scratch_words(L / 32) * sizeof(uint32_t);
-  auto kernel = tchain12_family_decode_kernel<F>;
-  const cudaError_t err = prepare(kernel, device, bytes);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (T == 0) return static_cast<int>(cudaGetLastError());
-  kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<uint32_t*>(heads), static_cast<const uint32_t*>(qw),
-      static_cast<const float*>(means), static_cast<const float*>(scales),
-      static_cast<int32_t*>(syms), static_cast<uint32_t*>(buf), cap,
-      static_cast<int64_t*>(end_out), L, T,
+  const long long blocks =
+      static_cast<long long>(T) * (L / kInvertThreads);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  tchain12_invert_kernel<F><<<static_cast<unsigned>(blocks), kInvertThreads,
+                              0, static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<const uint32_t*>(qw), static_cast<const float*>(means),
+      static_cast<const float*>(scales), static_cast<int32_t*>(syms),
+      static_cast<uint32_t*>(recs), L,
       family::make_support(min_sym, max_sym));
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_heads(void* heads, const void* recs, void* words, void* flags,
+                 int L, int T, void* cuda_stream, int device) {
+  if (L <= 0 || L % kThreads != 0 || T < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (T == 0) return static_cast<int>(cudaGetLastError());
+  tchain12_heads_kernel<<<L / kHeadThreads, kHeadThreads, 0,
+                          static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<uint32_t*>(heads), static_cast<const uint32_t*>(recs),
+      static_cast<uint32_t*>(words), static_cast<uint32_t*>(flags), L, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The whole decode: (a), (b) and the three compaction launches.  Scratch
+// the caller allocates: recs[T * L], words[T * L], flags[T * L / 32],
+// offsets[kScanBlocks] (u64).  On return the stream is buf[*end_out : cap].
+template <int F>
+int launch_decode(void* heads, const void* qw, const void* means,
+                  const void* scales, void* syms, void* buf, long long cap,
+                  void* end_out, void* recs, void* words, void* flags,
+                  void* offsets, int L, int T, int min_sym, int max_sym,
+                  void* cuda_stream, int device) {
+  int err = launch_invert<F>(qw, means, scales, syms, recs, L, T, min_sym,
+                             max_sym, cuda_stream, device);
+  if (err != 0 || T == 0) return err;
+  err = launch_heads(heads, recs, words, flags, L, T, cuda_stream, device);
+  if (err != 0) return err;
+  return launch_compact(flags, words, static_cast<long long>(T) * (L / 32),
+                        buf, cap, end_out, offsets, cuda_stream, device);
 }
 
 template <int F>
@@ -532,12 +593,31 @@ int ctt_tchain24_encode(void* heads, const void* syms, const void* cdf, int K,
 
 int ctt_tchain12_family_decode(void* heads, const void* qw, const void* means,
                                const void* scales, void* syms, void* buf,
-                               long long cap, void* end_out, int L, int T,
-                               int fam, int min_sym, int max_sym,
+                               long long cap, void* end_out, void* recs,
+                               void* words, void* flags, void* offsets, int L,
+                               int T, int fam, int min_sym, int max_sym,
                                void* cuda_stream, int device) {
   return CTT_DISPATCH_FAMILY(fam, launch_decode, heads, qw, means, scales,
-                             syms, buf, cap, end_out, L, T, min_sym, max_sym,
-                             cuda_stream, device);
+                             syms, buf, cap, end_out, recs, words, flags,
+                             offsets, L, T, min_sym, max_sym, cuda_stream,
+                             device);
+}
+
+// The decode's first two steps alone: (a) the inversion pass, (b) the head
+// pass (pass B alone is ctt_ilans2_compact).
+int ctt_tchain12_invert_pass(const void* qw, const void* means,
+                             const void* scales, void* syms, void* recs,
+                             int L, int T, int fam, int min_sym, int max_sym,
+                             void* cuda_stream, int device) {
+  return CTT_DISPATCH_FAMILY(fam, launch_invert, qw, means, scales, syms,
+                             recs, L, T, min_sym, max_sym, cuda_stream,
+                             device);
+}
+
+int ctt_tchain12_head_pass(void* heads, const void* recs, void* words,
+                           void* flags, int L, int T, void* cuda_stream,
+                           int device) {
+  return launch_heads(heads, recs, words, flags, L, T, cuda_stream, device);
 }
 
 int ctt_tchain12_family_encode(void* heads, const void* syms,

@@ -21,7 +21,10 @@ L lanes.  The presets:
   128;
 - TChain-12: W=16, S=32, P=12, heads seeded at 16, the model of each
   symbol inverted in-kernel (``family.invert_family``); 12-bit quantiles
-  packed by :func:`pack_q12`, L a multiple of 1024.
+  packed by :func:`pack_q12`, L a multiple of 1024.  Its decode's lanes
+  meet only where their flushed words land, so on the card it runs as
+  three steps over the whole grid (inversion, heads, compaction), each
+  with a plain twin here.
 
 The wrappers launch the hand-written kernels of ``csrc/tchain.cu`` for CUDA
 tensors and run the plain PyTorch twins for CPU tensors; any other device
@@ -42,8 +45,8 @@ import torch
 from .. import convert
 from . import _build
 from . import family as fam
-from .coder import (_check, _check_cdf_arg, _emit_words, _find_symbols,
-                    _on_cuda, _refill_words)
+from .coder import (SCAN_BLOCKS, _check, _check_cdf_arg, _emit_words,
+                    _find_symbols, _on_cuda, _refill_words, flag_ballots)
 from .interleaved import LaneConfig
 
 TCHAIN_CFG = LaneConfig(num_lanes=32768, word_bits=16, state_bits=32,
@@ -55,7 +58,8 @@ TCHAIN12_CFG = LaneConfig(num_lanes=32768, word_bits=16, state_bits=32,
 
 # kernel launches made by this module's wrappers (never by the twins)
 LAUNCHES = {"decode16": 0, "encode16": 0, "decode24": 0, "encode24": 0,
-            "decode12_family": 0, "encode12_family": 0}
+            "decode12_family": 0, "encode12_family": 0,
+            "invert12_family": 0, "heads12_family": 0}
 
 _M12 = 0xFFF
 _M16 = 0xFFFF
@@ -240,8 +244,13 @@ def tchain12_family_decode(qw, means, scales, family: str, min_sym: int,
     ``qw`` int32[T * 3L/8] (:func:`pack_q12` words, flattened), ``means``
     and ``scales`` float32[T * L], on one device.  Returns ``(symbols
     int32[T * L], stream int32[num_words], heads int32[L])``.  CUDA
-    tensors launch the kernel, CPU tensors run
-    :func:`tchain12_family_decode_plain`."""
+    tensors launch the decode's three steps over the whole grid
+    (``csrc/tchain.cu``): (a) the inversion, one thread per symbol
+    (:func:`tchain12_invert_pass`), (b) the heads, one thread per lane
+    (:func:`tchain12_head_pass`), and the row-major compaction of the
+    flushed words (``coder.compact_pass``; five launches, one C call).
+    CPU tensors run :func:`tchain12_family_decode_plain`, which equals the
+    composition of the three plain steps."""
     L = cfg.num_lanes
     T = _chain_args(qw, "qw", cfg, family, min_sym, max_sym,
                     _step_words(L))
@@ -257,11 +266,112 @@ def tchain12_family_decode(qw, means, scales, family: str, min_sym: int,
         return syms, torch.zeros(0, dtype=torch.int32, device=device), heads
     buf = torch.empty(n, dtype=torch.int32, device=device)
     end = torch.empty(1, dtype=torch.int64, device=device)
-    LAUNCHES["decode12_family"] += 1
+    # the passes' scratch: records, dense words, ballots, block offsets
+    recs = torch.empty(n, dtype=torch.int32, device=device)
+    words = torch.empty(n, dtype=torch.int32, device=device)
+    flags = torch.empty(n // 32, dtype=torch.int32, device=device)
+    offsets = torch.empty(SCAN_BLOCKS, dtype=torch.int64, device=device)
     _build.call("ctt_tchain12_family_decode", device, heads, qw, means,
-                scales, syms, buf, n, end, L, T, fam.FAMILIES.index(family),
-                min_sym, max_sym)
+                scales, syms, buf, n, end, recs, words, flags, offsets, L, T,
+                fam.FAMILIES.index(family), min_sym, max_sym)
+    LAUNCHES["decode12_family"] += 1
     return syms, buf[int(end.item()):], heads
+
+
+def tchain12_invert_pass(qw, means, scales, family: str, min_sym: int,
+                         max_sym: int, cfg: LaneConfig = TCHAIN12_CFG):
+    """Step (a) of :func:`tchain12_family_decode` alone (its arguments and
+    checks): ``(symbols int32[T * L], records int32[T * L])``, a record
+    being ``(q - cum) | prob << 16``.  CUDA tensors launch the inversion
+    kernel (``csrc/tchain.cu``, ``tchain12_invert_kernel``), CPU tensors
+    run :func:`tchain12_invert_pass_plain`."""
+    L = cfg.num_lanes
+    T = _chain_args(qw, "qw", cfg, family, min_sym, max_sym,
+                    _step_words(L))
+    device = qw.device
+    fam.check_params(means, scales, T * L, device)
+    if not _on_cuda(device):
+        return tchain12_invert_pass_plain(qw, means, scales, family, min_sym,
+                                          max_sym, cfg)
+    syms = torch.empty(T * L, dtype=torch.int32, device=device)
+    recs = torch.empty(T * L, dtype=torch.int32, device=device)
+    if T:
+        _build.call("ctt_tchain12_invert_pass", device, qw, means, scales,
+                    syms, recs, L, T, fam.FAMILIES.index(family), min_sym,
+                    max_sym)
+        LAUNCHES["invert12_family"] += 1
+    return syms, recs
+
+
+def tchain12_invert_pass_plain(qw, means, scales, family: str, min_sym: int,
+                               max_sym: int, cfg: LaneConfig = TCHAIN12_CFG):
+    """Step (a) in plain PyTorch (any device, no checks), vectorised over
+    all T * L symbols: each quantile's symbol through the model's
+    bisection (``family.invert_family``) and its record ``(q - cum) | prob
+    << 16`` (prob <= 2^12, q - cum < prob), what step (b) needs of it.
+    Returns ``(symbols int32[T * L], records int32[T * L])``."""
+    L = cfg.num_lanes
+    T = qw.numel() // _step_words(L)
+    q = unpack_q12(
+        convert.u32_values(qw).reshape(T, _step_words(L) // 128, 128),
+        torch).reshape(-1)
+    sym, cum, prob = fam.invert_family(torch, family, min_sym, max_sym,
+                                       q.to(torch.int32), means, 1.0 / scales)
+    recs = (q - cum.to(torch.int64)) | (prob.to(torch.int64) << 16)
+    return sym.to(torch.int32), recs.to(torch.int32)
+
+
+def tchain12_head_pass(recs, cfg: LaneConfig = TCHAIN12_CFG):
+    """Step (b) of :func:`tchain12_family_decode` alone on the records of
+    step (a) (``recs`` int32[T * L]): ``(words int32[T, L], ballots
+    int32[T, L / 32], heads int32[L])``, row r holding step T - 1 - r.  On
+    the card the words of lanes that flush nothing are left unwritten; a
+    CPU tensor runs :func:`tchain12_head_pass_plain` and packs its flags
+    with ``coder.flag_ballots``."""
+    L = _check_preset(cfg, TCHAIN12_CFG, 1024)
+    if not isinstance(recs, torch.Tensor):
+        raise TypeError("recs must be a torch.Tensor")
+    _check("recs", recs, torch.int32, recs.device)
+    if recs.numel() % L:
+        raise ValueError(
+            f"recs must hold whole steps of {L} entries, got {recs.numel()}")
+    device = recs.device
+    if not _on_cuda(device):
+        words, flags, heads = tchain12_head_pass_plain(recs, cfg)
+        return words, flag_ballots(flags), heads
+    T = recs.numel() // L
+    heads = torch.full((L,), _SEED, dtype=torch.int32, device=device)
+    words = torch.empty(T, L, dtype=torch.int32, device=device)
+    ballots = torch.empty(T, L // 32, dtype=torch.int32, device=device)
+    if T:
+        _build.call("ctt_tchain12_head_pass", device, heads, recs, words,
+                    ballots, L, T)
+        LAUNCHES["heads12_family"] += 1
+    return words, ballots, heads
+
+
+def tchain12_head_pass_plain(recs, cfg: LaneConfig = TCHAIN12_CFG):
+    """Step (b) in plain PyTorch (any device, no checks): a loop over steps
+    0 .. T-1, vectorised over lanes, of head = head * prob + (q - cum) from
+    the records; a head at or above 2^20 flushes its low 16 bits.  Returns
+    ``(words int32[T, L], flags bool[T, L], heads int32[L])`` in reversed
+    rows: row T - 1 - t holds step t's flushed words (0 elsewhere) and
+    flags, so the row-major compaction (``coder.compact_pass_plain``) puts
+    the step chunks right to left, lanes ascending in a step, as the
+    stream is laid out."""
+    L, W = cfg.num_lanes, cfg.word_bits
+    T = recs.numel() // L
+    r = recs.to(torch.int64).reshape(T, L)
+    heads = torch.full((L,), _SEED, dtype=torch.int64, device=recs.device)
+    words = torch.zeros(T, L, dtype=torch.int64, device=recs.device)
+    flags = torch.zeros(T, L, dtype=torch.bool, device=recs.device)
+    for t in range(T):
+        heads = heads * (r[t] >> 16) + (r[t] & _M16)
+        m = heads >= _FLUSH_AT
+        words[T - 1 - t] = torch.where(m, heads & _M16, 0)
+        flags[T - 1 - t] = m
+        heads = torch.where(m, heads >> W, heads)
+    return words.to(torch.int32), flags, convert.u32_bits(heads)
 
 
 def tchain12_family_decode_plain(qw, means, scales, family: str,

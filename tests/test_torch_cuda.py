@@ -769,6 +769,162 @@ def test_range_cluster_invalid_planes_and_truncated_stream(dev, cluster):
                        for a, b in zip(outcome[0][1], outcome[1][1]))
 
 
+# --- the S=32 range decode on the cluster step (kernel 6, the same
+# cluster_range_decode_kernel at W=16/S=32) -----------------------------
+
+
+def _range32_case(L, n, P, seed, dev):
+    """Points, stream and CDF on the card of n symbols at W=16/S=32, and the
+    symbols."""
+    rng = np.random.RandomState(seed)
+    cfg = _cfg(32, L, P)
+    syms, cdf = _range_symbols(rng, 100, P, n, skewed=False)
+    pts, words = _range_host(cfg, syms, cdf)
+    return (cfg, syms, convert.states_to_torch(pts, cfg, dev),
+            convert.u32_to_torch(words, dev), convert.cdf_to_torch(cdf, dev))
+
+
+@pytest.mark.parametrize("P", [12, 16])
+def test_range32_decode_runs_as_a_cluster(dev, P):
+    for L in (32768, 65536):
+        geo = coder.range_geometry(L, 100, P, dev)
+        assert geo["cluster"] > 1 and geo["max_active_clusters"] >= 1
+        assert geo["lut_bits"] == 12 and geo["cdf_in_smem"] == 1
+        assert geo["lanes_per_thread"] * geo["threads_per_cta"] // 32 \
+            >= geo["groups_per_cta"]
+
+
+@pytest.mark.parametrize("P", [12, 16])
+@pytest.mark.parametrize("L,cluster", [
+    (32768, 0), (65536, 0), (32768, 3), (65536, 16), (128, 16), (2080, 16),
+    (4096, 1)])
+def test_range32_cluster_matches_twin(dev, P, L, cluster):
+    """Kernel 6 at the facade's lane counts and at forced cluster sizes
+    (uneven partitions, CTAs with no lanes, one CTA), with partial last
+    steps: symbols and the final three planes equal the twin's, the
+    symbols the message."""
+    for n in (1, 2 * L + 7):
+        cfg, syms, pts, words, cdf = _range32_case(L, n, P, L + n + P, dev)
+        before = coder.LAUNCHES["range_decode"]
+        if cluster:
+            out, fin = coder.decode_shared_range_cluster(pts, words, cdf, cfg,
+                                                         n, cluster)
+        else:
+            out, fin = coder.decode_shared_range(pts, words, cdf, cfg, n,
+                                                 return_final_states=True)
+        assert coder.LAUNCHES["range_decode"] == before + 1
+        out_p, fin_p = coder.decode_shared_range_plain(
+            pts, words, cdf, cfg, n, return_final_states=True)
+        assert torch.equal(out, out_p)
+        assert all(torch.equal(a, b) for a, b in zip(fin, fin_p))
+        np.testing.assert_array_equal(out.cpu().numpy(), syms)
+
+
+@pytest.mark.parametrize("P", [12, 16])
+@pytest.mark.parametrize("L", [32768, 65536])
+def test_range32_cluster_resumes_from_checkpoint(dev, P, L):
+    """A decode resumed from non-default (lows, rngs, pts) planes (a host
+    checkpoint) equals the twin's, planes and symbols, and the suffix."""
+    n = 6 * L + 11
+    cfg, syms, _, _, cdf = _range32_case(L, n, P, 7 + P, dev)
+    c64 = cdf.cpu().numpy().astype(np.uint64)
+    pts_h, words_h = _range_host(cfg, syms, c64.astype(np.uint32))
+    off, lows, rngs, pps = il2.build_checkpoints_range(
+        pts_h, words_h, n, c64.astype(np.uint32), cfg, 2)
+    c = 1
+    start = (c + 1) * 2 * L
+    lo, rn, pt = convert.planes_to_torch((lows[c], rngs[c], pps[c]), cfg, dev)
+    sub = convert.u32_to_torch(words_h[off[c]:], dev)
+    k = coder.decode_shared_range(pt, sub, cdf, cfg, n - start, lows=lo,
+                                  rngs=rn, return_final_states=True)
+    p = coder.decode_shared_range_plain(pt, sub, cdf, cfg, n - start,
+                                        lows=lo, rngs=rn,
+                                        return_final_states=True)
+    assert torch.equal(k[0], p[0])
+    assert all(torch.equal(a, b) for a, b in zip(k[1], p[1]))
+    np.testing.assert_array_equal(k[0].cpu().numpy(), syms[start:])
+
+
+@pytest.mark.parametrize("cluster", [0, 5])
+def test_range32_cluster_invalid_planes_and_corrupt_stream(dev, cluster):
+    """Garbage points, checkpoint planes with scale 0, a truncated stream
+    and stream words with bits above 16 (which the reference ORs into the
+    shifted point): the kernel raises the twin's error (the same first bad
+    symbol) or returns its symbols and planes."""
+    L, n, P = 1024, 5 * 1024 + 33, 12
+    cfg, syms, pts, words, cdf = _range32_case(L, n, P, 71, dev)
+    rng = np.random.RandomState(72)
+    garbage = pts.clone()
+    garbage[::5] = torch.from_numpy(rng.randint(
+        -(1 << 31), 1 << 31, size=garbage[::5].numel()).astype(np.int32)).to(
+            dev)
+    lows = torch.zeros(L, dtype=torch.int32, device=dev)
+    rngs = torch.full((L,), -1, dtype=torch.int32, device=dev)
+    rngs[::3] = torch.from_numpy(rng.randint(0, 1 << 12, size=rngs[::3]
+                                             .numel()).astype(np.int32)).to(dev)
+    wide, tail = words.clone(), words.clone()
+    wide[::7] |= torch.from_numpy(rng.randint(
+        1, 1 << 15, size=wide[::7].numel()).astype(np.int32) << 16).to(dev)
+    tail[-40:] |= 0x2BCD0000  # consumed last: a decode, not an error
+    cases = [(garbage, words, None, None),
+             (pts, words[: words.numel() // 3].clone(), None, None),
+             (pts, words, lows, rngs), (pts, wide, None, None),
+             (pts, tail, None, None)]
+    for p, w, lo, rg in cases:
+        outcome = []
+        for fn in (
+            lambda: coder.decode_shared_range_plain(
+                p, w, cdf, cfg, n, lo, rg, return_final_states=True),
+            lambda: (coder.decode_shared_range_cluster(
+                p, w, cdf, cfg, n, cluster, lo, rg)
+                if cluster else coder.decode_shared_range(
+                    p, w, cdf, cfg, n, lo, rg, return_final_states=True))):
+            try:
+                outcome.append(fn())
+            except ValueError as e:
+                outcome.append(str(e))
+        if isinstance(outcome[0], str) or isinstance(outcome[1], str):
+            assert outcome[0] == outcome[1]
+        else:
+            assert torch.equal(outcome[0][0], outcome[1][0])
+            assert all(torch.equal(a, b)
+                       for a, b in zip(outcome[0][1], outcome[1][1]))
+
+
+def test_range32_decode_lanes_past_the_cluster_reach(dev):
+    L = coder.MAX_DECODE_LANES
+    cfg = _cfg(32, L + 128, 12)
+    pts = torch.zeros(L + 128, dtype=torch.int32, device=dev)
+    words = torch.zeros(16, dtype=torch.int32, device=dev)
+    cdf = convert.cdf_to_torch(_cdf(100, 12, seed=1)[0], dev)
+    before = dict(coder.LAUNCHES)
+    with pytest.raises(ValueError, match=f"at most {L} lanes"):
+        coder.decode_shared_range(pts, words, cdf, cfg, 1000)
+    assert coder.LAUNCHES == before
+
+
+# which kernels ptxas must compile without spilling, at 2 and 4 lanes a
+# thread (L = 32768 and 65536): the range decodes at both presets and the
+# S=64 exact table decode (kernel 15)
+NO_SPILL = {
+    "range S=64": r"cluster_range_decode_kernelILi32ELi64ELi{R}E",
+    "range S=32": r"cluster_range_decode_kernelILi16ELi32ELi{R}E",
+    "exact S=64": r"cluster_decode_kernelILi32ELi64ELi{R}E.*TableModel",
+}
+
+
+@pytest.mark.parametrize("R", [2, 4])
+@pytest.mark.parametrize("kernel", sorted(NO_SPILL))
+def test_cluster_decodes_do_not_spill(dev, kernel, R):
+    import re
+
+    spills = _build.ptxas_spills(_build.ptxas_log())
+    pattern = re.compile(NO_SPILL[kernel].format(R=R))
+    found = {k: v for k, v in spills.items() if pattern.search(k)}
+    assert found, f"ptxas reported no {kernel} kernel at R={R}"
+    assert all(v == (0, 0) for v in found.values()), found
+
+
 # --- the device families: integer CDF, rANS pair, TChain-12 bits-back pair
 
 LO, HI = -100, 100
@@ -928,6 +1084,41 @@ def test_tchain12_kernels_match_twins(dev, family, L, T):
     b = tc.tchain12_family_encode_plain(got[0], cut, got[2], mu, sg, family,
                                         LO, HI, cfg)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("family", fam.FAMILIES)
+@pytest.mark.parametrize("L,T", [(1024, 1), (3072, 3), (32768, 9)])
+def test_tchain12_decode_passes_match_plain(dev, family, L, T):
+    """Kernel 21's three steps launched alone, each against its plain
+    version on the same CUDA tensors: the inversion pass (symbols and
+    records), the head pass (the flushed words where flagged, the ballots
+    and the heads) and pass B (the stream); composed, the twin's decode."""
+    rng = np.random.RandomState(3 * L + T)
+    cfg = _family_cfg(L)
+    n = L * T
+    means, scales, _ = _family_data(rng, n)
+    q = rng.randint(0, 1 << 12, size=n).astype(np.uint16)
+    q[:L] = 0xFFF  # the first step's top quantiles: every head grows most
+    mu, sg = convert.params_to_torch(means, scales, n, L, dev)
+    qw = convert.quantiles_to_torch(q, L, dev)
+    before = dict(tc.LAUNCHES)
+    syms, recs = tc.tchain12_invert_pass(qw, mu, sg, family, LO, HI, cfg)
+    syms_p, recs_p = tc.tchain12_invert_pass_plain(qw, mu, sg, family, LO,
+                                                   HI, cfg)
+    assert torch.equal(syms, syms_p) and torch.equal(recs, recs_p)
+    words, ballots, heads = tc.tchain12_head_pass(recs, cfg)
+    words_p, flags_p, heads_p = tc.tchain12_head_pass_plain(recs, cfg)
+    assert torch.equal(ballots, coder.flag_ballots(flags_p))
+    assert torch.equal(words[flags_p], words_p[flags_p])
+    assert torch.equal(heads, heads_p)
+    stream = coder.compact_pass(words, ballots)
+    assert torch.equal(stream, coder.compact_pass_plain(words_p, flags_p))
+    twin = tc.tchain12_family_decode_plain(qw, mu, sg, family, LO, HI, cfg)
+    assert torch.equal(syms, twin[0]) and torch.equal(stream, twin[1])
+    assert torch.equal(heads, twin[2])
+    assert tc.LAUNCHES["invert12_family"] == before["invert12_family"] + 1
+    assert tc.LAUNCHES["heads12_family"] == before["heads12_family"] + 1
+    assert tc.LAUNCHES["decode12_family"] == before["decode12_family"]
 
 
 def test_family_facade_cuda_matches_cpu(dev):
