@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Eight coding kernels timed in several checkouts on one card, one
+"""Ten coding kernels timed in several checkouts on one card, one
 checkout after another in the order given.
 
     git archive <commit> | tar -x -C _scratch/parent
     python3 chip_ab.py _scratch/parent . . _scratch/parent
-    python3 chip_ab.py --kernels 1,4 _scratch/parent . . _scratch/parent
+    python3 chip_ab.py --kernels 11,16 _scratch/parent . . _scratch/parent
 
 Each checkout runs in a process of its own (the packages share a name),
 builds its kernels and times, on the same inputs:
@@ -28,7 +28,17 @@ builds its kernels and times, on the same inputs:
   and scales on [-100, 100], seed 1234), 2^23 and 2^24 quantiles at
   L=32768, checked against its plain twin on the card, as whole calls of
   ``tchain.tchain12_family_decode`` (their arguments are the same in
-  every checkout).
+  every checkout);
+- kernel 11, the family rANS decode, on the family row itself (2^23
+  symbols and their means and scales, seed 1234, [-100, 100]) at
+  L=32768, for each of the four families: its C entry on a stream the
+  checkout's own encoder wrote;
+- kernel 16, the S=64 exact segment decode, on the exact row's grouped
+  plan (2^22 symbols, gaussian, P=24, L=32768, its segments' tables built
+  on the card): the whole chain of its launches (CUDA events around it,
+  launched back to back), each launch alone (events around it after a
+  synchronisation, summed over the chain) and the host time of issuing
+  the chain (host clock, no synchronisation).
 
 ``--kernels`` picks some of them (1 to 4 go together).  Each decode is
 checked against the symbols first, each encode entry against its call's
@@ -142,6 +152,10 @@ def time_decodes(root: str, kernels: set) -> dict:
         _time_exact(out, check)
     if 21 in kernels:
         _time_tchain12(out, check)
+    if 11 in kernels:
+        _time_family(out, check)
+    if 16 in kernels:
+        _time_exact_seg(out, check)
     return out
 
 
@@ -342,8 +356,127 @@ def _time_exact(out, check):
         out[f"{key}_ms"] = _events_ms(launch_exact, lambda: s_buf.copy_(st))
 
 
+def _time_family(out, check):
+    """Kernel 11 into ``out``: the C entry on the family row, each family,
+    the states reset outside the CUDA events."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import _build
+    from constriction_tpu_torch.ops import family as fam
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    dev = torch.device("cuda", 0)
+    n = 1 << 23
+    cfg = LaneConfig(num_lanes=LANES, word_bits=16, state_bits=32,
+                     precision=12)
+    rng = np.random.RandomState(1234)
+    means = (rng.randn(n) * 10).astype(np.float32)
+    scales = (0.3 + np.abs(rng.randn(n)) * 5).astype(np.float32)
+    symbols = np.clip(np.round(means + rng.randn(n) * scales), -100, 100
+                      ).astype(np.int32)
+    mu, sg = convert.params_to_torch(means, scales, n, LANES, dev)
+    syms = torch.from_numpy(symbols).to(dev)
+    o_buf = torch.empty(n, dtype=torch.int32, device=dev)
+    for fi, family in enumerate(fam.FAMILIES):
+        st, w = fam.encode_family(syms, mu, sg, family, -100, 100, cfg)
+        s_buf = torch.empty_like(st)
+
+        def launch():
+            _build.call("ctt_family_decode", dev, s_buf, w, w.numel(), mu, sg,
+                        o_buf, n, LANES, fi, -100, 100)
+
+        s_buf.copy_(st)
+        launch()
+        check(o_buf, syms, f"family {family}")
+        out[f"family_decode_{family}_ms"] = _events_ms(
+            launch, lambda: s_buf.copy_(st))
+
+
+def _time_exact_seg(out, check):
+    """Kernel 16 into ``out``: the exact row's grouped decode, its launches
+    as one chain on preallocated buffers (the states and the base reset
+    outside the events), each launch alone, and the host time of issuing
+    the chain."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch.ops import _build
+    from constriction_tpu_torch.ops import exact_family as ef
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    dev = torch.device("cuda", 0)
+    lo, hi = -100, 100
+    means, scales, esyms = _exact_workload(N_EXACT)
+    cfg = LaneConfig(num_lanes=LANES, word_bits=32, state_bits=64,
+                     precision=24)
+    perm, segs = ef.group_plan(means, scales, "gaussian", lo, hi, 24, LANES,
+                               N_EXACT)
+    st, w = ef.encode_family_exact_grouped(esyms, means, scales, "gaussian",
+                                           lo, hi, cfg, dev)
+    T = -(-N_EXACT // LANES)
+    pm, ps = ef._pad_params(means[perm], scales[perm], T * LANES, "gaussian",
+                            hi)
+    built = ef._segment_tables(pm, ps, segs, "gaussian", lo, hi, cfg, dev,
+                               device_tables=True)
+    # the crossover of this checkout's kernel 16 (its own constant before
+    # the two were merged)
+    seg_from = getattr(ef, "BISECT_FROM_PLANES_SEG", ef.BISECT_FROM_PLANES)
+    s_buf = torch.empty_like(st)
+    b_buf = torch.empty(1, dtype=torch.int64, device=dev)
+    o_buf = torch.empty(N_EXACT, dtype=torch.int32, device=dev)
+    launches = []
+    for t0, ns, _ in segs:
+        r0, k = t0 * LANES, min(ns * LANES, N_EXACT - t0 * LANES)
+        tb = built[len(launches)][0]
+        launches.append(lambda r0=r0, k=k, tb=tb: _build.call(
+            "ctt_exact_decode64_seg", dev, s_buf, w, w.numel(), tb,
+            tb.shape[1], o_buf[r0:], k, LANES, 24, lo, hi,
+            int(tb.shape[1] >= seg_from), b_buf))
+
+    def reset():
+        s_buf.copy_(st)
+        b_buf.zero_()
+
+    def chain():
+        for launch in launches:
+            launch()
+
+    reset()
+    chain()
+    check(o_buf.cpu(), torch.from_numpy(esyms[perm].astype(np.int32)),
+          "exact segments")
+    out["exact_seg_planes"] = [int(tb.shape[1]) for tb, _ in built]
+    out["exact_seg_chain_ms"] = _events_ms(chain, reset)
+    alone, enqueue = [], []
+    for _ in range(REPS):
+        total = 0.0
+        reset()
+        for launch in launches:
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            launch()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        alone.append(total)
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chain()
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    out["exact_seg_launches_alone_ms"] = alone
+    out["exact_seg_enqueue_ms"] = enqueue
+
+
 def main(argv: list[str]) -> int:
-    kernels = "1,2,3,4,5,6,15,21"
+    kernels = "1,2,3,4,5,6,11,15,16,21"
     if len(argv) > 1 and argv[0] == "--kernels":
         kernels, argv = argv[1], argv[2:]
     if len(argv) == 2 and argv[0] == "--one":
@@ -351,7 +484,7 @@ def main(argv: list[str]) -> int:
         print(json.dumps(time_decodes(argv[1], picked)), flush=True)
         return 0
     if not argv:
-        sys.exit("usage: chip_ab.py [--kernels 1,2,3,4,5,6,15,21] "
+        sys.exit("usage: chip_ab.py [--kernels 1,2,3,4,5,6,11,15,16,21] "
                  "CHECKOUT ...")
     for root in argv:
         done = subprocess.run([sys.executable, os.path.abspath(__file__),

@@ -15,8 +15,10 @@ prints one JSON object per phase, then the kernels line, the card's
                     two-pass encodes at L=32768 and 65536: the rANS pairs
                     at both presets (kernels 1 and 2 at P=24; kernels 3 and
                     4 at P=12 and P=16), the range decodes (kernel 5 at
-                    P=24, kernel 6 at P=12 and P=16) and the S=64 exact
-                    table decode (kernel 15): the decode's cluster size,
+                    P=24, kernel 6 at P=12 and P=16), the S=64 exact
+                    table decodes (kernels 15 and 16) and the family
+                    decode (kernel 11, each family): the decode's cluster
+                    size,
                     CTAs, threads, lanes per thread, the card's maximum of
                     such active clusters (more than one CTA, or the run
                     fails), its bucket table's lut_bits and whether the CDF
@@ -24,8 +26,9 @@ prints one JSON object per phase, then the kernels line, the card's
                     ptxas' registers and spills for their kernels at each
                     preset and lanes a thread and for the TChain-12
                     decode's passes.  A spill in the range decodes or
-                    kernel 15 at 2 or 4 lanes a thread, or in the TChain-12
-                    passes, fails the run.
+                    kernels 11, 15 and 16 at 2 or 4 lanes a thread, or in
+                    the TChain-12 passes, fails the run, as does kernel 11
+                    or 16 on fewer than 16 CTAs at L=32768.
 2. kernels       -- each rANS kernel against its plain PyTorch twin on the
                     same CUDA tensors and against the numpy host oracle
                     (L=32768, about 2^20 symbols, with and without seeds):
@@ -46,9 +49,10 @@ prints one JSON object per phase, then the kernels line, the card's
                     also at P=16 (L=32768 and 65536), and each encode's
                     pass A and pass B timed apart.
 5. sweep         -- kernel time per coding step at T=256 steps over
-                    L=128 .. 65536, both presets: the per-step floor (at
-                    L=128) and the added microseconds per 1024 lanes (the
-                    slope from L=4096 to 65536).
+                    L=128 .. 65536, both presets and kernel 11 (gaussian,
+                    its C entry): the per-step floor (at L=128) and the
+                    added microseconds per 1024 lanes (the slope from
+                    L=4096 to 65536).
 6. range_kernels -- each of the six range kernels (phase A, phase B,
                     decode; both presets) against its twin on the same CUDA
                     tensors and against the port's numpy host range coder
@@ -95,9 +99,11 @@ prints one JSON object per phase, then the kernels line, the card's
                     the four kernels must have launched.
 12. family_times -- kernel-only time of each of the four at that size, its
                     twin's time on the card (outputs equal), the facade's
-                    call times, and each kernel's bound; the TChain-12
-                    decode's three steps timed apart, and the whole decode
-                    at 2^24 quantiles too.
+                    call times, and each kernel's bound; kernel 11's C
+                    entry for each of the four families (each on its own
+                    encode's stream); the TChain-12 decode's three steps
+                    timed apart, and the whole decode at 2^24 quantiles
+                    too.
 13. checkpoints  -- random access: on the v2 and v1 containers of the rANS
                     main path at both presets, ``cuda.build_checkpoints``
                     then ``cuda.decode_from_checkpoint`` from the middle
@@ -161,11 +167,15 @@ prints one JSON object per phase, then the kernels line, the card's
                     the facade's call times, and each kernel's bound
                     (kernels 15 and 16: the table words on the binary
                     search's path, counted from this run's tables and
-                    symbols); the search sweep (scan and binary search of
-                    kernels 16 and 15 at each segment's table width and
-                    at the ungrouped table's) that fixes
-                    ``exact_family.BISECT_FROM_PLANES`` (kernel 15) and
-                    ``BISECT_FROM_PLANES_SEG`` (kernel 16).
+                    symbols); kernel 16's chain of launches (one a
+                    segment) against its launches alone, summed, and the
+                    host time of issuing it (the gap between them); the
+                    search sweep (scan and binary search of kernels 16 and
+                    15 at each segment's table width and at the ungrouped
+                    table's) and the fewest planes from which the binary
+                    search won at every width, which fixes
+                    ``exact_family.BISECT_FROM_PLANES`` (kernels 15 and
+                    16).
 22. exact32_kernels -- kernels 14 and 13 (the S=32 reference-exact pair)
                     against their twins on the same CUDA tensors and the
                     port's numpy oracles (``encode_shared``,
@@ -239,9 +249,10 @@ SKEWED_LANES = 128
 
 # the rANS pairs at both presets: the cluster decode and the two-pass
 # encode, instantiated in csrc/ilans2.cu; the range decodes at both presets
-# (cluster_range_decode_kernel, instantiated in csrc/ilans2_range.cu) and
-# the S=64 exact table decode (the cluster decode over csrc/exact_family.cu's
-# TableModel)
+# (cluster_range_decode_kernel, instantiated in csrc/ilans2_range.cu), the
+# S=64 exact table decodes (the cluster decode over csrc/exact_family.cu's
+# TableModel, whole message and segment) and the family decode (over
+# csrc/ilans2_family.cu's FamilyModel)
 WIDE_SOURCE = "constriction_tpu_torch/ops/csrc/ilans2_wide.cuh"
 RANGE_SOURCE = "constriction_tpu_torch/ops/csrc/ilans2_range.cu"
 # kernel -> (module whose LAUNCHES counts it, counter key, Pallas site,
@@ -285,7 +296,7 @@ TCHAIN_SOURCE = "constriction_tpu_torch/ops/csrc/tchain.cu"
 FAMILY_KERNELS = {
     "family_decode": ("family", "decode",
                       "constriction_tpu/ops/pallas_family.py:629",
-                      FAMILY_SOURCE),
+                      WIDE_SOURCE),
     "family_encode": ("family", "encode",
                       "constriction_tpu/ops/pallas_family.py:670",
                       FAMILY_SOURCE),
@@ -313,7 +324,7 @@ EXACT_KERNELS = {
                        WIDE_SOURCE),
     "exact_decode64_seg": ("exact", "decode64_seg",
                            "constriction_tpu/ops/exact_family.py:1919",
-                           EXACT_SOURCE),
+                           WIDE_SOURCE),
     "exact_encode64": ("exact", "encode64",
                        "constriction_tpu/ops/exact_family.py:1953",
                        EXACT_SOURCE),
@@ -504,26 +515,32 @@ def ptxas_usage(log: str, marks: tuple) -> dict:
 
 
 # the kernels ptxas must compile without spilling: the range decodes at
-# both presets and the S=64 exact table decode at 2 and 4 lanes a thread
-# (L = 32768 and 65536), and the TChain-12 decode's two passes
+# both presets, the S=64 exact table decodes (kernels 15 and 16) and the
+# family decode (kernel 11, each family) at 2 and 4 lanes a thread (L =
+# 32768 and 65536), and the TChain-12 decode's two passes
 NO_SPILL = (r"cluster_range_decode_kernelILi32ELi64ELi[24]E",
             r"cluster_range_decode_kernelILi16ELi32ELi[24]E",
-            r"cluster_decode_kernelILi32ELi64ELi[24]E.*TableModel",
+            r"cluster_decode_kernelILi32ELi64ELi[24]E.*TableModelELb0E",
+            r"cluster_decode_kernelILi32ELi64ELi[24]E.*TableModelELb1E",
+            *(rf"cluster_decode_kernelILi16ELi32ELi[24]E.*FamilyModelILi{k}EE"
+              for k in range(4)),
             r"tchain12_invert_kernel", r"tchain12_heads_kernel")
 
 
 def phase_geometry(device) -> dict:
     """Launch geometry of the cluster decodes and the two-pass encodes: the
     rANS pairs (kernels 1 and 2 at P=24, kernels 3 and 4 at P=12 and P=16),
-    the range decodes (kernel 5 at P=24, kernel 6 at P=12 and P=16) and the
-    S=64 exact table decode (kernel 15) at bench.py's lane counts for its
-    K, and what ptxas reported for their kernels at each preset and lanes a
-    thread and for the TChain-12 decode's passes.  Fails on a spill in a
-    kernel of NO_SPILL."""
+    the range decodes (kernel 5 at P=24, kernel 6 at P=12 and P=16), the
+    S=64 exact table decodes (kernels 15 and 16) and the family decode
+    (kernel 11, each family) at bench.py's lane counts for its K, and what
+    ptxas reported for their kernels at each preset and lanes a thread and
+    for the TChain-12 decode's passes.  Fails on a spill in a kernel of
+    NO_SPILL, and unless kernels 11 and 16 run on 16 CTAs at L=32768."""
     import re
 
     from constriction_tpu_torch.ops import _build, coder, coder64
     from constriction_tpu_torch.ops import exact_family as ef
+    from constriction_tpu_torch.ops import family as fam
 
     rows = [{"kernel": 1, "preset": "w32s64", "num_lanes": L, "K": K_MAIN,
              "P": 24, **coder64.geometry(L, K_MAIN, device)}
@@ -537,9 +554,12 @@ def phase_geometry(device) -> dict:
     rows += [{"kernel": 6, "preset": "w16s32", "num_lanes": L, "K": K_MAIN,
               "P": P, **coder.range_geometry(L, K_MAIN, P, device)}
              for L in (32768, BENCH_LANES) for P in (12, 16)]
-    rows += [{"kernel": 15, "preset": "w32s64", "num_lanes": L,
-              "P": EXACT_P, **ef.geometry(L, device)}
-             for L in (32768, BENCH_LANES)]
+    rows += [{"kernel": 16 if seg else 15, "preset": "w32s64",
+              "num_lanes": L, "P": EXACT_P, **ef.geometry(L, device, seg)}
+             for L in (32768, BENCH_LANES) for seg in (False, True)]
+    rows += [{"kernel": 11, "preset": "w16s32", "num_lanes": L, "P": 12,
+              "family": family, **fam.geometry(L, family, device)}
+             for L in (32768, BENCH_LANES) for family in fam.FAMILIES]
     for row in rows:
         if "encode_blocks" in row:
             row["encode_grid"] = (f"{row['encode_blocks']} x "
@@ -547,6 +567,10 @@ def phase_geometry(device) -> dict:
         if row["cluster"] < 2:
             fail(f"geometry: kernel {row['kernel']} runs on one CTA at "
                  f"L={row['num_lanes']}")
+        if (row["kernel"] in (11, 16) and row["num_lanes"] == 32768
+                and row["ctas"] != 16):
+            fail(f"geometry: kernel {row['kernel']} runs on {row['ctas']} "
+                 f"CTAs at L=32768")
     log = _build.ptxas_log()
     spills = _build.ptxas_spills(log)
     checked = {name: v for name, v in spills.items()
@@ -799,14 +823,17 @@ def phase_times(device, probs, symbols, gpu: str,
 
 def phase_sweep(device, gpu: str) -> dict:
     """Kernel time per coding step at SWEEP_STEPS steps over SWEEP_LANES
-    lanes, both presets; per kernel, the floor (microseconds per step at the
-    fewest lanes) and the slope from 4096 lanes up (microseconds per step
-    per 1024 lanes).  Small L sits above that line, so the two are read
-    separately rather than fitted as one."""
+    lanes, both presets and kernel 11 (the family decode, gaussian on
+    FAMILY_SUPPORT, its C entry alone); per kernel, the floor (microseconds
+    per step at the fewest lanes) and the slope from 4096 lanes up
+    (microseconds per step per 1024 lanes).  Small L sits above that line,
+    so the two are read separately rather than fitted as one."""
     import numpy as np
     import torch
 
     from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import _build
+    from constriction_tpu_torch.ops import family as fam
     from constriction_tpu_torch.ops.interleaved import LaneConfig
 
     rng = np.random.RandomState(11)
@@ -843,6 +870,32 @@ def phase_sweep(device, gpu: str) -> dict:
                 "us_per_1024_lanes_per_step": (ys[-1] - ys[i]) * 1024 / (
                     SWEEP_LANES[-1] - SWEEP_LANES[i]),
             }
+    means, scales, symbols, _ = family_workload(n_max)
+    lo, hi = FAMILY_SUPPORT
+    fi = fam.FAMILIES.index(MAIN_FAMILY)
+    ys = []
+    for L in SWEEP_LANES:
+        cfg = LaneConfig(num_lanes=L, word_bits=16, state_bits=32,
+                         precision=12)
+        n = L * SWEEP_STEPS
+        mu, sg = convert.params_to_torch(means[:n], scales[:n], n, L, device)
+        syms = torch.from_numpy(symbols[:n]).to(device)
+        st, w = fam.encode_family(syms, mu, sg, MAIN_FAMILY, lo, hi, cfg)
+        s_buf = torch.empty_like(st)
+        o_buf = torch.empty(n, dtype=torch.int32, device=device)
+        ms = kernel_ms(lambda: s_buf.copy_(st), lambda: _build.call(
+            "ctt_family_decode", device, s_buf, w, w.numel(), mu, sg, o_buf,
+            n, L, fi, lo, hi), 3)
+        if mismatch(o_buf, syms) != 0:
+            fail(f"sweep: family decode L={L} round trip")
+        ys.append(ms * 1e3 / SWEEP_STEPS)
+        rows.append({"kernel": 11, "family": MAIN_FAMILY, "num_lanes": L,
+                     "steps": SWEEP_STEPS, "decode_ms": ms,
+                     "decode_us_per_step": ys[-1]})
+    fits["family_decode"] = {
+        "us_per_step_floor": ys[0],
+        "us_per_1024_lanes_per_step": (ys[-1] - ys[i]) * 1024 / (
+            SWEEP_LANES[-1] - SWEEP_LANES[i])}
     return {"phase": "sweep", "cases": rows, "fits": fits, "gpu": gpu}
 
 
@@ -1510,6 +1563,19 @@ def phase_family_times(device, work, gpu: str,
             "ctt_family_decode", device, s_buf, w, nw, mu, sg, o_buf, n, L,
             fi, lo, hi), 3)
     same = same and torch.equal(o_buf, syms) and torch.equal(s_buf, fin)
+    # kernel 11's C entry for each family on the same symbols and
+    # parameters, each on a stream of its own encode
+    per_family, family_words = {}, {}
+    for k, name in enumerate(fam.FAMILIES):
+        st_k, w_k = ((st, w) if name == family else fam.encode_family(
+            syms, mu, sg, name, lo, hi, cfg))
+        family_words[name] = int(w_k.numel())
+        per_family[name] = kernel_ms(
+            lambda: s_buf.copy_(st_k), lambda: _build.call(
+                "ctt_family_decode", device, s_buf, w_k, w_k.numel(), mu, sg,
+                o_buf, n, L, k, lo, hi), 3)
+        same = (same and torch.equal(o_buf, syms)
+                and bool((s_buf == 1 << 16).all()))
     # kernel 21's scratch: records, dense words, ballots, block offsets
     recs, words = torch.empty(n, **i32), torch.empty(n, **i32)
     flags = torch.empty(n // 32, **i32)
@@ -1639,6 +1705,10 @@ def phase_family_times(device, work, gpu: str,
         "left_evaluations_per_decoded_symbol": steps,
         "left_evaluations_encode": 2 * n - ends,
         **{f"{k}_ms": v for k, v in ms.items()},
+        **{f"family_decode_{k}_ms": v for k, v in per_family.items()},
+        **{f"family_decode_{k}_bound_ms": bound(
+            8 * L + 4 * family_words[k] + 8 * n + 4 * n,
+            n * (steps * (LEFT_OPS[k] + 6) + 8))[0] for k in per_family},
         **{f"tchain12_family_decode_{k}_ms": v for k, v in passes.items()},
         "tchain12_family_decode_invert_bound_ms": bound(
             q_bytes + 8 * n + 8 * n, decode_ops)[0],
@@ -2384,11 +2454,10 @@ def search_sweep(device, states, stream, spans, built, cfg) -> list:
     """Kernels 16 and 15 per table width: each segment ``(first symbol,
     count)`` alone from the states and stream offset it starts from, its
     fields found by the linear scan and by binary search, timed in turns
-    (scan, bisect, bisect, scan), kernel 16 (one block) and kernel 15 (the
-    cluster decode, on the stream from the segment's first word); all four
-    must decode alike.  The cluster columns set
-    ``exact_family.BISECT_FROM_PLANES``, the single-block ones
-    ``BISECT_FROM_PLANES_SEG``."""
+    (scan, bisect, bisect, scan), kernel 16 (the cluster decode's Seg
+    instance, from the segment's base) and kernel 15 (the cluster decode,
+    on the stream from the segment's first word); all four must decode
+    alike.  Both sets of columns set ``exact_family.BISECT_FROM_PLANES``."""
     import torch
 
     from constriction_tpu_torch.ops import _build
@@ -2440,6 +2509,45 @@ def search_sweep(device, states, stream, spans, built, cfg) -> list:
                         f"{'bisect' if mode else 'scan'}_ms": sum(v) / 2
                         for (kern, mode), v in res.items()}})
     return rows
+
+
+def chain_gap(launches, reset, reps: int) -> dict:
+    """A chain of launches (one call's, issued back to back on one stream)
+    against its launches one at a time: each alone between CUDA events
+    after a synchronisation, summed over the chain (``launches_alone_ms``),
+    and the host time of issuing the whole chain without synchronising
+    (``enqueue_ms``); means over ``reps`` runs, ``reset()`` first."""
+    import torch
+
+    alone = enqueue = 0.0
+    for _ in range(reps):
+        reset()
+        for launch in launches:
+            torch.cuda.synchronize()
+            ms, _ = timed(launch)
+            alone += ms
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for launch in launches:
+            launch()
+        enqueue += (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    return {"launches_alone_ms": alone / reps, "enqueue_ms": enqueue / reps}
+
+
+def crossover(rows: list, scan: str, bisect: str):
+    """The fewest planes from which the binary search was faster than the
+    scan at every width of ``rows`` (the search sweep's), or None."""
+    widths = sorted({r["planes"] for r in rows})
+    faster = {p: all(r[bisect] < r[scan] for r in rows if r["planes"] == p)
+              for p in widths}
+    best = None
+    for p in reversed(widths):
+        if not faster[p]:
+            break
+        best = p
+    return best
 
 
 def search_path_words(tabs, cums, k: int,
@@ -2615,12 +2723,16 @@ def phase_exact_times(device, work, keep: dict, gpu: str,
     b_buf = torch.empty(1, dtype=torch.int64, device=device)
     spans = [(t0 * L, min(ns * L, n - t0 * L)) for t0, ns, _ in segs]
 
+    seg_launches = [
+        lambda r0=r0, k=k, tb=tb: _build.call(
+            "ctt_exact_decode64_seg", device, s_buf, w, nw, tb, tb.shape[1],
+            o_buf[r0:], k, L, EXACT_P, lo, hi,
+            int(ef.bisect_tables(tb.shape[1])), b_buf)
+        for (r0, k), (tb, _) in zip(spans, built)]
+
     def seg_chain():
-        for (r0, k), (tb, _) in zip(spans, built):
-            _build.call("ctt_exact_decode64_seg", device, s_buf, w, nw, tb,
-                        tb.shape[1], o_buf[r0:], k, L, EXACT_P, lo, hi,
-                        int(ef.bisect_tables(tb.shape[1], seg=True)),
-                        b_buf)
+        for launch in seg_launches:
+            launch()
 
     def reset():
         s_buf.copy_(st)
@@ -2629,6 +2741,7 @@ def phase_exact_times(device, work, keep: dict, gpu: str,
     ms["exact_decode64_seg"] = kernel_ms(reset, seg_chain, 3)
     same = (same and torch.equal(o_buf.cpu(), torch.from_numpy(
         syms[perm].astype(np.int32))) and int(b_buf) == nw)
+    seg_gap = chain_gap(seg_launches, reset, 3)
 
     def seg_twin():
         x, b = st, torch.zeros(1, dtype=torch.int64, device=device)
@@ -2710,9 +2823,15 @@ def phase_exact_times(device, work, keep: dict, gpu: str,
         **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
         **{f"{k}_bound_by": v[1] for k, v in bounds.items()},
         **{f"{k}_max_abs_err": v for k, v in e.items()},
+        "seg_chain": {"launches": len(seg_launches),
+                      "chain_ms": ms["exact_decode64_seg"], **seg_gap,
+                      "gap_ms": ms["exact_decode64_seg"]
+                      - seg_gap["launches_alone_ms"]},
         "search_by_width": search,
+        "crossover_planes": {
+            kern: crossover(search, f"{col}scan_ms", f"{col}bisect_ms")
+            for kern, col in (("seg", ""), ("cluster", "cluster_"))},
         "BISECT_FROM_PLANES": ef.BISECT_FROM_PLANES,
-        "BISECT_FROM_PLANES_SEG": ef.BISECT_FROM_PLANES_SEG,
         "device_build_s": build_s,
         **{f"device_build_{k}": v for k, v in build.items()},
         "device_prep_Msyms": n / build_s / 1e6,

@@ -8,15 +8,22 @@ for byte against the reference by the tests, and replaces the device
 layer: every Pallas kernel on a ported path becomes a hand-written Hopper
 kernel under ``ops/csrc``, with a plain PyTorch twin beside it.
 
-Ported so far: the i.i.d. categorical coders at both presets: ILANS2 rANS
-(``cuda.encode_iid`` / ``cuda.decode_iid``, v1 and v2 containers, random
-access) and ILANS2-R range coding (``cuda.encode_iid_range`` /
-``cuda.decode_iid_range``, with range checkpoints); the device families
-(``cuda.encode_family`` / ``cuda.decode_family``); bits-back coding
-(``cuda.bits_back_decode`` / ``_encode`` at P=16, ``bits_back_decode24`` /
-``_encode24`` at P=24, ``bits_back_decode_family`` / ``_encode_family``);
-and the chain coder's parallel decode (``cuda.decode_chain_iid`` /
-``cuda.decode_chain_rows``).
+Everything ``cuda.py`` exports is ported: the i.i.d. categorical coders
+at both presets, ILANS2 rANS (``cuda.encode_iid`` / ``cuda.decode_iid``,
+v1 and v2 containers, random access through ``cuda.build_checkpoints`` /
+``cuda.decode_from_checkpoint``) and ILANS2-R range coding
+(``cuda.encode_iid_range`` / ``cuda.decode_iid_range``, with range
+checkpoints); the device families (``cuda.encode_family`` /
+``cuda.decode_family``); bits-back coding (``cuda.bits_back_decode`` /
+``_encode`` at P=16, ``bits_back_decode24`` / ``_encode24`` at P=24,
+``bits_back_decode_family`` / ``_encode_family``); the chain coder's
+parallel decode (``cuda.decode_chain_iid`` / ``cuda.decode_chain_rows``);
+and the reference-exact per-symbol families (gaussian, laplace, cauchy,
+binomial): ``cuda.encode_family_exact`` / ``cuda.decode_family_exact``
+(W=16, S=32, P=12 by default; W=32, S=64 ungrouped or core-size grouped)
+and the v2 family container, ``cuda.encode_family_exact_container`` /
+``cuda.decode_family_exact_container``.  All 24 Pallas kernels of the
+JAX package have a Hopper kernel here.
 """
 
 __version__ = "0.1.0"

@@ -298,7 +298,9 @@ def decode_family(init_states, stream, means, scales, family: str,
                   cfg: LaneConfig | None = None, device="cuda") -> np.ndarray:
     """Decode ``num_symbols`` symbols of an :func:`encode_family` stream
     under the same per-symbol models; returns int32 numpy.  JAX
-    counterpart: ``constriction_tpu.tpu.decode_family``."""
+    counterpart: ``constriction_tpu.tpu.decode_family``; on a CUDA device
+    a ``cfg`` of more than ``ops.coder.MAX_DECODE_LANES`` lanes raises
+    ValueError (the decode kernel's reach)."""
     dev = _device(device)
     cfg = _pick_cfg(num_symbols, cfg)
     means_t, scales_t = _convert.params_to_torch(

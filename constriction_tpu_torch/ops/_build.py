@@ -63,6 +63,10 @@ _RANGE_DECODE_CLUSTER_ARGS = [*_RANGE_DECODE_ARGS[:12], _I32, _P, _I32]
 # family index, min_sym, max_sym (or free); then the stream and the device
 _FAMILY_TAIL = [_I32, _I32, _I32, _P, _I32]
 _FAMILY_DECODE_ARGS = [_P, _P, _I64, _P, _P, _P, _I64, _I32, *_FAMILY_TAIL]
+# the cluster size after max_sym
+_FAMILY_DECODE_CLUSTER_ARGS = [*_FAMILY_DECODE_ARGS[:11], _I32, _P, _I32]
+# L, family index, cluster size, out[5]
+_FAMILY_GEOMETRY_ARGS = [_I32, _I32, _I32, _P, _P, _I32]
 _FAMILY_ENCODE_ARGS = [_P, _P, _I64, _P, _P, _P, _P, _I64, _P, _I32,
                        *_FAMILY_TAIL]
 _FAMILY_LEFT_ARGS = [_P, _P, _P, _P, _I64, *_FAMILY_TAIL]
@@ -81,7 +85,10 @@ _D = ctypes.c_double
 _EXACT_ENCODE_ARGS = [_P, _P, _P, _I64, _P, _I64, _P, _I32, _I32, _P, _I32]
 _EXACT_DECODE_ARGS = [_P, _P, _I64, _P, _I32, _P, _I64, _I32, _I32, _I32,
                       _I32, _I32, _P, _P, _I32]
-_EXACT_GEOMETRY_ARGS = [_I32, _P, _P, _I32]
+# the cluster size after base_io
+_EXACT_DECODE_CLUSTER_ARGS = [*_EXACT_DECODE_ARGS[:13], _I32, _P, _I32]
+# L, seg (kernel 16's instance), out[5]
+_EXACT_GEOMETRY_ARGS = [_I32, _I32, _P, _P, _I32]
 _EXACT_EVAL_ARGS = [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _D, _D,
                     _I32, _P, _P, _P, _I32]
 SIGNATURES = {
@@ -107,6 +114,8 @@ SIGNATURES = {
     "ctt_ilans2_range_geometry_w16s32": _GEOMETRY_ARGS,
     "ctt_ilans2_range_geometry_w32s64": _GEOMETRY_ARGS,
     "ctt_family_decode": _FAMILY_DECODE_ARGS,
+    "ctt_family_decode_cluster": _FAMILY_DECODE_CLUSTER_ARGS,
+    "ctt_family_geometry": _FAMILY_GEOMETRY_ARGS,
     "ctt_family_encode": _FAMILY_ENCODE_ARGS,
     "ctt_family_left": _FAMILY_LEFT_ARGS,
     "ctt_tchain16_decode": _TCHAIN_DECODE_ARGS,
@@ -122,6 +131,7 @@ SIGNATURES = {
     "ctt_exact_decode64": _EXACT_DECODE_ARGS,
     "ctt_exact_decode32": _EXACT_DECODE_ARGS,
     "ctt_exact_decode64_seg": _EXACT_DECODE_ARGS,
+    "ctt_exact_decode64_seg_cluster": _EXACT_DECODE_CLUSTER_ARGS,
     "ctt_exact_geometry64": _EXACT_GEOMETRY_ARGS,
     "ctt_exact_eval_window": _EXACT_EVAL_ARGS,
 }
@@ -228,6 +238,8 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.ctt_error_string.argtypes = [ctypes.c_int]
             lib.ctt_error_string.restype = ctypes.c_char_p
+            lib.ctt_clear_error.argtypes = []
+            lib.ctt_clear_error.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -266,7 +278,9 @@ def _arg(x):
 
 def call(name: str, device: torch.device, *args) -> None:
     """Launch C entry ``name`` on ``device``'s current stream; tensors pass
-    as their data pointers.  Raises RuntimeError on a nonzero CUDA error.
+    as their data pointers.  Raises RuntimeError on a nonzero CUDA error,
+    after resetting the runtime's last error so that the next call does not
+    report it again.
     JAX counterpart: calling a built Pallas kernel, ``fn(*arrays)``."""
     lib = library()
     index = (device.index if device.index is not None
@@ -276,5 +290,6 @@ def call(name: str, device: torch.device, *args) -> None:
         *(_arg(a) for a in args), ctypes.c_void_p(stream), index
     )
     if err != 0:
+        lib.ctt_clear_error()
         msg = lib.ctt_error_string(err).decode()
         raise RuntimeError(f"{name} failed: CUDA error {err} ({msg})")

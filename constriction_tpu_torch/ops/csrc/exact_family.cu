@@ -14,13 +14,16 @@
 //   constriction_tpu/ops/exact_family.py  _build_exact_decoder       (13)
 // and holds the same wire format and table layout.
 //
-// Kernels 13, 14, 16 and 17 are the ILANS2 loops of ilans2.cuh (one block,
-// a warp ballot and block scan per step for the shared word stream, states
+// Kernels 13, 14 and 17 are the ILANS2 loops of ilans2.cuh (one block, a
+// warp ballot and block scan per step for the shared word stream, states
 // in device memory, native uint64_t / uint32_t state algebra and division),
 // instantiated over the models below; ilans2.cuh's header says what bounds
-// those loops.  Kernel 15 is ilans2_wide.cuh's cluster decode over
-// TableModel (up to 16 CTAs, states in registers, one exchange per step).
-// The TPU kernels' chunked table DMA, their 40x25-bit multiply limbs, their
+// those loops.  Kernels 15 and 16 are ilans2_wide.cuh's cluster decode over
+// TableModel (up to 16 CTAs, states in registers, one exchange per step);
+// kernel 16 is its Seg instance, which starts from stream word *base_io and
+// writes the next segment's first word back there, so the segments of a
+// grouped message chain on the card with no host round trip.  The TPU
+// kernels' chunked table DMA, their 40x25-bit multiply limbs, their
 // f32-estimate division (_exact_div) and their refill/emit compaction stay
 // behind.
 //
@@ -38,15 +41,14 @@
 // or right tail decide (sym, cum, prob) as _invert_with_tables does.  What
 // bounds them: the binary search's chain of dependent loads, about
 // log2(4G) + 2 of them a symbol (the scan reads every word of a lane's
-// column, independent loads).  Kernel 16 walks its lanes on one SM, so
-// the chain's latency adds up lane after lane.  Kernel 15 runs each
-// thread's two lanes (R at L = 32768) in lock step, so every level of the
-// search issues its R probes together, and its step is about ten
-// dependent device-memory reads plus the cluster exchange.  Prefetching
-// the next step's table slice into L2 (CP1 L 4 bytes a step, 18 MB at the
-// exact row's 139 planes) made it slower on an NVIDIA H100 80GB HBM3 at
-// 700 W, line by line (1.75 against 1.10 ms) or with bulk prefetches
-// (1.59): the prefetch traffic delays the search's own reads (chip_ab.py).
+// column, independent loads).  Each thread runs its lanes (R = 2 at L =
+// 32768) in lock step, so every level of the search issues its R probes
+// together, and a step is about ten dependent device-memory reads plus the
+// cluster exchange.  Prefetching the next step's table slice into L2 (CP1
+// L 4 bytes a step, 18 MB at the exact row's 139 planes) made kernel 15
+// slower on an NVIDIA H100 80GB HBM3 at 700 W, line by line (1.75 against
+// 1.10 ms) or with bulk prefetches (1.59): the prefetch traffic delays the
+// search's own reads (chip_ab.py).
 //
 // Kernel 18 evaluates one (symbol, window position) entry per thread in
 // native float64 with CUDA's erf / exp / atan: tv = trunc(free * CDF(s -
@@ -65,12 +67,12 @@
 // below 2^P <= 2^16, so the strict field < q never selects a pad, and the
 // no-successor value past the last field is 0xFFFF (0x10000 in b space,
 // only ever used through min(nxtc, rstart)).  The scan and the binary
-// search are those of kernel 16 over 2 (CP1 - 1) fields (the wrapper picks
-// by width, ops/exact_family.py BISECT_FROM_PLANES_NARROW: on an H100 the
-// binary search was the faster from 7 planes up).  What bounds
-// it: as kernel 16, the table words a lane reads (4 + 2 (CP1 - 1) bytes a
-// symbol for the scan, about log2(2 (CP1 - 1)) + 2 dependent words for the
-// search) by one SM.
+// search (the wrapper picks by width, ops/exact_family.py
+// BISECT_FROM_PLANES_NARROW: on an H100 the binary search was the faster
+// from 7 planes up) run over the 2 (CP1 - 1) fields.  What bounds
+// it: the table words a lane reads (4 + 2 (CP1 - 1) bytes a symbol for the
+// scan, about log2(2 (CP1 - 1)) + 2 dependent words for the search) by one
+// SM.
 
 #include "ilans2.cuh"
 #include "ilans2_wide.cuh"
@@ -121,14 +123,13 @@ __device__ __forceinline__ int exact_regions(uint32_t q, int cl, int nc,
   return s_rel + min_sym;
 }
 
-// Kernels 15 and 16's model: packed wide tables [T, CP1, L].  ``bisect``
-// picks the search: a linear scan with the Pallas body's select semantics
-// (every word of the lane, loads independent of each other), or a binary
-// search over the ascending fields (about log2(4G) + 2 dependent field
-// reads).  On tables the builders produce (fields ascending, pads last)
-// both give the same (cnt, cumc, nxtc).  Kernel 16 (ilans2.cuh's
-// single-block loop) calls invert; kernel 15 (ilans2_wide.cuh's cluster
-// decode) calls invert_lanes.
+// Kernels 15 and 16's model (ilans2_wide.cuh's cluster decode): packed
+// wide tables [T, CP1, L].  ``bisect`` picks the search: a linear scan with
+// the Pallas body's select semantics (every word of the lane, loads
+// independent of each other), or a binary search over the ascending fields
+// (about log2(4G) + 2 dependent field reads).  On tables the builders
+// produce (fields ascending, pads last) both give the same (cnt, cumc,
+// nxtc).
 struct TableModel {
   const uint32_t* tabs;
   int CP1, L, P, min_sym, span, free;
@@ -136,23 +137,8 @@ struct TableModel {
 
   __device__ void stage(uint32_t*) {}
 
-  // field k (b - 1 of boundary k) of the lane whose aux word is col[0]
-  __device__ uint32_t field(const uint32_t* col, int k) const {
-    const uint32_t* w = col + static_cast<int64_t>(1 + 3 * (k >> 2)) * L;
-    switch (k & 3) {
-      case 0:
-        return w[0] & 0xFFFFFFu;
-      case 1:
-        return (w[0] >> 24) | ((w[L] & 0xFFFFu) << 8);
-      case 2:
-        return (w[L] >> 16) | ((w[2 * L] & 0xFFu) << 16);
-      default:
-        return w[2 * L] >> 8;
-    }
-  }
-
-  // field k of lane l of the step whose aux plane starts at `step`, as
-  // field() reads it, in a form without branches (the second word's load
+  // field k (b - 1 of boundary k) of lane l of the step whose aux plane
+  // starts at `step`, in a form without branches (the second word's load
   // is predicated), so R lanes' probes issue together: sub-field s = k & 3
   // starts in word 3 s / 4 at bit 24 s mod 32 and spills into the next
   // word for s = 1, 2
@@ -200,36 +186,6 @@ struct TableModel {
     take(pend, (1u << P) - 1u);
   }
 
-  __device__ int invert(int t, int l, uint32_t q, uint32_t& cum,
-                        uint32_t& prob) const {
-    const uint32_t* col = tabs + static_cast<int64_t>(t) * CP1 * L + l;
-    const uint32_t aux = col[0];
-    const int cl = static_cast<int>(aux & 0xFFFFFFu);
-    const int nc = static_cast<int>(aux >> 24);
-    const int G = (CP1 - 1) / 3;
-    int cnt = 0;
-    uint32_t cumc = 0xFFFFFFFFu;  // b - 1 of the last field below q
-    uint32_t nxtc = 0;            // b - 1 of its successor
-    if (bisect) {
-      int lo = 0, hi = 4 * G;  // cnt = the number of fields below q
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (field(col, mid) < q) {
-          lo = mid + 1;
-        } else {
-          hi = mid;
-        }
-      }
-      cnt = lo;
-      if (cnt > 0) cumc = field(col, cnt - 1);
-      nxtc = cnt < 4 * G ? field(col, cnt) : (1u << P) - 1u;
-    } else {
-      scan(col, q, cnt, cumc, nxtc);
-    }
-    return exact_regions(q, cl, nc, cnt, cumc, nxtc, P, span, free, min_sym,
-                         cum, prob);
-  }
-
   // The R lanes of one thread at once.  The binary search runs them in
   // lock step as a branchless lower bound over the N = 4G fields (Khuong
   // and Morin's form: the probe count, ceil(log2 N), is the same for
@@ -240,10 +196,10 @@ struct TableModel {
   // for all R lanes at once, beside the bounds and quantiles, they
   // overflowed the 64 registers a thread of a 1024-thread CTA has at R = 4
   // (ptxas: 24 spill bytes; in two halves of R / 2 lanes, 8).  cnt, cumc
-  // and nxtc equal invert's
-  // (exact_family.py, invert_tables_bisect, is this probe order in plain
-  // PyTorch).  Lanes past L (a CTA's last warps) read lane L - 1's column
-  // (min(l, L - 1), recomputed where it is used rather than held).
+  // and nxtc equal the scan's (exact_family.py, invert_tables_bisect, is
+  // this probe order in plain PyTorch).  Lanes past L (a CTA's last warps)
+  // read lane L - 1's column (min(l, L - 1), recomputed where it is used
+  // rather than held).
   template <int R>
   __device__ void invert_lanes(int t, const int (&l)[R],
                                const uint32_t (&q)[R], int (&sym)[R],
@@ -454,19 +410,17 @@ bool table_args(int L, int P, int CP1, long long span, long long free,
   return valid_exact(L, P, wide) && planes_ok && span >= 1 && free >= 2;
 }
 
-// The single-block decode (kernels 16 and 13).  Model: TableModel (S=64,
-// wide) or NarrowTableModel (S=32).
-template <int W, int S, class Model, bool Seg>
+// The single-block decode of kernel 13 (NarrowTableModel, S=32).
+template <int W, int S, class Model>
 int launch_decode(void* states, const void* stream, long long slen,
                   const void* tabs, int CP1, void* syms, long long n, int L,
-                  int P, int min_sym, int max_sym, int bisect, void* base_io,
+                  int P, int min_sym, int max_sym, int bisect,
                   void* cuda_stream, int device) {
-  auto kernel = ilans2_decode_kernel<W, S, Model, Seg>;
+  auto kernel = ilans2_decode_kernel<W, S, Model>;
   const size_t bytes = table_smem_bytes(L);
   const long long span = static_cast<long long>(max_sym) - min_sym;
   const long long free = (1ll << P) - 1 - span;
-  if (!table_args(L, P, CP1, span, free, S == 64) ||
-      (Seg && base_io == nullptr)) {
+  if (!table_args(L, P, CP1, span, free, S == 64)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err = prepare(kernel, device, bytes);
@@ -484,27 +438,31 @@ int launch_decode(void* states, const void* stream, long long slen,
   kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(cuda_stream)>>>(
       static_cast<typename StateOf<S>::type*>(states),
       static_cast<const uint32_t*>(stream), slen, model,
-      static_cast<int32_t*>(syms), n, L, P, T,
-      static_cast<int64_t*>(base_io));
+      static_cast<int32_t*>(syms), n, L, P, T);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernel 15: ilans2_wide.cuh's cluster decode over TableModel (the tables
-// stay in device memory; no dynamic shared memory).
+// Kernels 15 and 16: ilans2_wide.cuh's cluster decode over TableModel (the
+// tables stay in device memory; no dynamic shared memory) on `cluster`
+// CTAs (0: the size picked from L).  Seg (kernel 16) starts from stream
+// word *base_io and writes the next segment's first word back there.
+template <bool Seg>
 int launch_cluster_table_decode(void* states, const void* stream,
                                 long long slen, const void* tabs, int CP1,
                                 void* syms, long long n, int L, int P,
                                 int min_sym, int max_sym, int bisect,
-                                void* cuda_stream, int device) {
+                                void* base_io, int cluster, void* cuda_stream,
+                                int device) {
   const long long span = static_cast<long long>(max_sym) - min_sym;
   const long long free = (1ll << P) - 1 - span;
-  if (!table_args(L, P, CP1, span, free, true)) {
+  if (!table_args(L, P, CP1, span, free, true) ||
+      (Seg && base_io == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ClusterGeometry geo;
-  ClusterDecodeFn<32, 64, TableModel, false> kernel;
-  cudaError_t err = plan_cluster_decode<32, 64, TableModel, false>(
-      L, 0, 0, device, &geo, &kernel);
+  ClusterDecodeFn<32, 64, TableModel, Seg> kernel;
+  cudaError_t err = plan_cluster_decode<32, 64, TableModel, Seg>(
+      L, cluster, 0, device, &geo, &kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   const int T = static_cast<int>((n + L - 1) / L);
@@ -523,7 +481,7 @@ int launch_cluster_table_decode(void* states, const void* stream,
       &cfg, kernel, static_cast<uint64_t*>(states),
       static_cast<const uint32_t*>(stream), static_cast<int64_t>(slen), model,
       static_cast<int32_t*>(syms), static_cast<int64_t>(n), L, P, T,
-      geo.groups_per_cta, static_cast<int64_t*>(nullptr));
+      geo.groups_per_cta, static_cast<int64_t*>(Seg ? base_io : nullptr));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -603,21 +561,28 @@ int ctt_exact_decode64(void* states, const void* stream, long long slen,
                        int L, int P, int min_sym, int max_sym, int bisect,
                        void* base_io, void* cuda_stream, int device) {
   (void)base_io;
-  return launch_cluster_table_decode(states, stream, slen, tabs, CP1, syms, n,
-                                     L, P, min_sym, max_sym, bisect,
-                                     cuda_stream, device);
+  return launch_cluster_table_decode<false>(
+      states, stream, slen, tabs, CP1, syms, n, L, P, min_sym, max_sym,
+      bisect, nullptr, 0, cuda_stream, device);
 }
 
-// Kernel 15's geometry for L lanes into out[5]: cluster size, groups per
-// CTA, lanes per thread, threads per CTA, the card's maximum of active
-// clusters of that shape.
-int ctt_exact_geometry64(int L, long long* out, void* cuda_stream,
+// The geometry of kernel 15 (seg 0) or kernel 16 (seg 1) for L lanes into
+// out[5]: cluster size, groups per CTA, lanes per thread, threads per CTA,
+// the card's maximum of active clusters of that shape.
+int ctt_exact_geometry64(int L, int seg, long long* out, void* cuda_stream,
                          int device) {
   (void)cuda_stream;
   ClusterGeometry geo;
-  ClusterDecodeFn<32, 64, TableModel, false> kernel;
-  const cudaError_t err = plan_cluster_decode<32, 64, TableModel, false>(
-      L, 0, 0, device, &geo, &kernel);
+  cudaError_t err;
+  if (seg) {
+    ClusterDecodeFn<32, 64, TableModel, true> kernel;
+    err = plan_cluster_decode<32, 64, TableModel, true>(L, 0, 0, device,
+                                                        &geo, &kernel);
+  } else {
+    ClusterDecodeFn<32, 64, TableModel, false> kernel;
+    err = plan_cluster_decode<32, 64, TableModel, false>(L, 0, 0, device,
+                                                         &geo, &kernel);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long vals[5] = {geo.cluster, geo.groups_per_cta, geo.rows,
                              geo.threads, geo.max_active_clusters};
@@ -625,22 +590,38 @@ int ctt_exact_geometry64(int L, long long* out, void* cuda_stream,
   return 0;
 }
 
+// base_io: the segment's first stream word in, the next segment's out.
 int ctt_exact_decode64_seg(void* states, const void* stream, long long slen,
                            const void* tabs, int CP1, void* syms, long long n,
                            int L, int P, int min_sym, int max_sym, int bisect,
                            void* base_io, void* cuda_stream, int device) {
-  return launch_decode<32, 64, TableModel, true>(
+  return launch_cluster_table_decode<true>(
       states, stream, slen, tabs, CP1, syms, n, L, P, min_sym, max_sym,
-      bisect, base_io, cuda_stream, device);
+      bisect, base_io, 0, cuda_stream, device);
 }
 
+// The same segment decode on a cluster of `cluster` CTAs (1 .. 16).
+int ctt_exact_decode64_seg_cluster(void* states, const void* stream,
+                                   long long slen, const void* tabs, int CP1,
+                                   void* syms, long long n, int L, int P,
+                                   int min_sym, int max_sym, int bisect,
+                                   void* base_io, int cluster,
+                                   void* cuda_stream, int device) {
+  if (cluster < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_cluster_table_decode<true>(
+      states, stream, slen, tabs, CP1, syms, n, L, P, min_sym, max_sym,
+      bisect, base_io, cluster, cuda_stream, device);
+}
+
+// base_io is unused (kernel 13 decodes from stream word 0).
 int ctt_exact_decode32(void* states, const void* stream, long long slen,
                        const void* tabs, int CP1, void* syms, long long n,
                        int L, int P, int min_sym, int max_sym, int bisect,
                        void* base_io, void* cuda_stream, int device) {
-  return launch_decode<16, 32, NarrowTableModel, false>(
+  (void)base_io;
+  return launch_decode<16, 32, NarrowTableModel>(
       states, stream, slen, tabs, CP1, syms, n, L, P, min_sym, max_sym,
-      bisect, base_io, cuda_stream, device);
+      bisect, cuda_stream, device);
 }
 
 int ctt_exact_eval_window(const void* means, const void* scales,

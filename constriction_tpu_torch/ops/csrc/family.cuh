@@ -1,7 +1,8 @@
 // The device families' integer CDF on Hopper (sm_90a): the leaky-quantized
 // cumulative of a per-symbol continuous model (gaussian, laplace, logistic,
 // cauchy; mean and scale per symbol), and its inversion by bisection.
-// Shared by ilans2_family.cu (rANS) and tchain.cu (bits-back).
+// Shared by ilans2_family.cu (rANS; its decode inverts a thread's lanes in
+// lock step, FamilyModel) and tchain.cu (bits-back, through invert).
 //
 // Replaces the in-kernel helpers of constriction_tpu/ops/pallas_family.py
 // (_t_fixed, _exp2_neg, _mag, _floor_div_small, _atan_fix, _ctrunc,
@@ -93,11 +94,15 @@ __device__ __forceinline__ int atan_small(int v) {
   return floor_div_small(v << kFx, kOne + ((kCa * v2) >> kFx));
 }
 
-// atan(u / 4096) in units of 1/4096 rad, u >= 0.
+// atan(u / 4096) in units of 1/4096 rad, u >= 0: atan_small(u) up to 4096,
+// pi/2 - atan_small(2^24 / u) above.  Both arguments are computed and one
+// is selected, as the numpy form does, so no branch depends on u and a
+// thread's lanes in lock step (FamilyModel) issue together.
 __device__ __forceinline__ int atan_fix(int u) {
-  if (u <= kOne) return atan_small(u);
-  const int inv = floor_div_small(1 << (2 * kFx), u);
-  return kPi2Eff - atan_small(min(inv, kOne));
+  const bool small = u <= kOne;
+  const int inv = floor_div_small(1 << (2 * kFx), max(u, 1));
+  const int a = atan_small(small ? u : min(inv, kOne));
+  return small ? a : kPi2Eff - a;
 }
 
 // trunc(free * CDF(t)), monotone in t_fix.

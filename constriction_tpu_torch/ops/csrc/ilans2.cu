@@ -310,4 +310,9 @@ const char* ctt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Reads and resets the runtime's last error: an entry that failed in a
+// runtime call leaves it set, and the next entry would return it as its
+// own.
+int ctt_clear_error() { return static_cast<int>(cudaGetLastError()); }
+
 }  // extern "C"

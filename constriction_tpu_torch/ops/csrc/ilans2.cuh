@@ -1,18 +1,19 @@
 // The single-block ILANS2 decode and encode loops on Hopper (sm_90a), used
-// by exact_family.cu (the reference-exact families, kernels 13, 14, 16, 17:
-// per-symbol (cum, prob) planes when encoding, packed per-symbol decode
-// tables when decoding).  One block of 1024 threads codes the whole
-// message: per step each warp ballots its 32 lanes' flags, a block scan
-// turns the per-warp popcounts into group offsets, and each thread walks
-// its lanes one after another (lane = row * 1024 + thread), loading and
-// storing each lane state in device memory once per step.  On an H100 a
-// step costs about 1.5 us at L = 128 and 1.0-1.5 us more per 1024 lanes
-// (chip_smoke.py, sweep): the lane loop's latency on one SM, not the
-// barriers, bounds it.  The loops are templated on the preset (W, S) and
-// on a model policy, as are ilans2_wide.cuh's cluster decode and two-pass
-// encode, which run the categorical coder (ilans2.cu) at both presets and
-// kernel 15 (exact_family.cu's TableModel); a model moves there by
-// providing that header's invert_lanes, or fetch / interval.
+// by exact_family.cu (the reference-exact families: kernel 13, the S=32
+// narrow table decode; kernels 14 and 17, the encoders over per-symbol
+// (cum, prob) planes).  One block of 1024 threads codes the whole message:
+// per step each warp ballots its 32 lanes' flags, a block scan turns the
+// per-warp popcounts into group offsets, and each thread walks its lanes
+// one after another (lane = row * 1024 + thread), loading and storing each
+// lane state in device memory once per step.  On an H100 a step costs about
+// 1.5 us at L = 128 and 1.0-1.5 us more per 1024 lanes (chip_smoke.py,
+// sweep): the lane loop's latency on one SM, not the barriers, bounds it.
+// The loops are templated on the preset (W, S) and on a model policy, as
+// are ilans2_wide.cuh's cluster decode and two-pass encode, which run the
+// categorical coder (ilans2.cu) at both presets, kernels 15 and 16
+// (exact_family.cu's TableModel) and kernel 11 (ilans2_family.cu's
+// FamilyModel); a model moves there by providing that header's
+// invert_lanes, or fetch / interval.
 //
 // A decode model provides
 //   __device__ void stage(uint32_t* smem_cdf);   // before the first step
@@ -22,9 +23,7 @@
 //   __device__ void stage(uint32_t* smem_cdf);
 //   __device__ void lookup(int64_t i, uint32_t& cum, uint32_t& prob) const;
 //   __device__ uint32_t prob(int64_t i) const;
-// (the interval of symbol i).  The decode loop's Seg flag makes it read its
-// first stream word index from *base_io and write the index after its last
-// refill there, so consecutive launches decode one continuous stream.
+// (the interval of symbol i).
 
 #pragma once
 
@@ -35,12 +34,12 @@ namespace {
 // Decode n symbols.  states[L]: initial decoder states in, final states out.
 // stream[slen]: W-bit words, one per u32; reads past the end yield 0 (a
 // truncated or corrupt stream decodes to garbage, never faults).
-template <int W, int S, class Model, bool Seg>
+template <int W, int S, class Model>
 __global__ void __launch_bounds__(kThreads, 1)
     ilans2_decode_kernel(typename StateOf<S>::type* __restrict__ states,
                          const uint32_t* __restrict__ stream, int64_t slen,
                          Model model, int32_t* __restrict__ syms, int64_t n,
-                         int L, int P, int T, int64_t* __restrict__ base_io) {
+                         int L, int P, int T) {
   using State = typename StateOf<S>::type;
   extern __shared__ uint32_t smem[];
   const int G = L / 32;
@@ -54,8 +53,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x, lane = tid & 31;
   const uint32_t lt_mask = (1u << lane) - 1u;
   const int rows = (L + kThreads - 1) / kThreads;
-  // first stream word of the pending step's refills
-  int64_t base = Seg ? *base_io : 0;
+  int64_t base = 0;         // first stream word of the pending step's refills
   uint32_t last_total = 0;  // words the pending step consumed
 
   // Iteration t refills for step t - 1, then decodes step t.
@@ -94,7 +92,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     base += last_total;
     last_total = total;
   }
-  if (Seg && tid == 0) *base_io = base + last_total;
 }
 
 // Encode n symbols, walking steps T-1 .. 0.  states[L]: encoder start states

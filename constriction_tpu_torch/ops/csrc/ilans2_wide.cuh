@@ -3,18 +3,21 @@
 // a register for the whole message, and an encode split into a lane-parallel
 // pass over the whole grid and a row-major compaction of the emitted words.
 // ilans2.cu instantiates them for the categorical coder at both presets
-// (W=32/S=64 and W=16/S=32, one CDF), exact_family.cu the decode for the
-// S=64 reference-exact tables (kernel 15), ilans2_range.cu the range
-// decode's twin of the cluster decode at both presets
-// (cluster_range_decode_kernel, kernels 5 and 6), which shares its step
-// exchange (exchange_step), and tchain.cu the compaction (launch_compact)
-// behind its TChain-12 decode.  Like ilans2.cuh's
-// single-block loops they are templated on (W, S, Model), so the coders
-// that still run those can move here by instantiation once their models
-// provide, besides stage():
+// (W=32/S=64 and W=16/S=32, one CDF); exact_family.cu the decode for the
+// S=64 reference-exact tables, whole message (kernel 15) or one segment of
+// a grouped message (kernel 16, Seg); ilans2_family.cu the decode for the
+// per-symbol families (kernel 11); ilans2_range.cu the range decode's twin
+// of the cluster decode at both presets (cluster_range_decode_kernel,
+// kernels 5 and 6), which shares its step exchange (exchange_step); and
+// tchain.cu the compaction (launch_compact) behind its TChain-12 decode.
+// They are templated on (W, S, Model); a model provides, besides stage():
 //   decode: template <int R> invert_lanes(t, l[R], q[R], sym[R], cum[R],
 //           prob[R]) -- the R quantiles of one thread at once (l may lie
-//           past L in a CTA's last warps; the result is then unused);
+//           past L in a CTA's last warps; the result is then unused).  The
+//           kernel calls it once a step, steps in order, on its own copy of
+//           the model, so a model may carry registers from step to step:
+//           FamilyModel carries each lane's (mean, scale) of the next
+//           step, read at the end of a step;
 //   encode: Token fetch(i) and Interval interval(Token) -- the device-
 //           memory read of symbol i's model, issued a step before the
 //           (shared-memory) interval is needed; an Interval has cum(),
@@ -23,8 +26,10 @@
 // BucketCdfModel below (decode: a bucket table in front of the CDF
 // search), ilans2.cu's RecordCdfModel (encode: a division record per
 // symbol, the division as a multiply-high; DivisionRecord at S=64,
-// DivisionRecord32 at S=32) and exact_family.cu's TableModel (decode: the
-// packed tables in device memory, searched in lock step) provide them.
+// DivisionRecord32 at S=32), exact_family.cu's TableModel (decode: the
+// packed tables in device memory, searched in lock step) and
+// ilans2_family.cu's FamilyModel (decode: family.cuh's bisection over the
+// integer CDF, in lock step) provide them.
 //
 // Decode (cluster_decode_kernel).  A decode step needs the exclusive count of
 // refilling lanes below each lane over all L lanes, and that count depends on
@@ -33,8 +38,8 @@
 // of a cluster (C <= 16); in CTA `rank` warp w owns R consecutive groups (slot
 // r: group g_begin + w * R + r), and each thread keeps its R lane states in
 // registers from the first step to the last.  One step: decode the R lanes
-// (quantile, the model's symbol search in shared memory, state update, symbol
-// write); ballot each slot's refill flags; one block barrier and a warp
+// (quantile, the model's symbol search, state update, symbol write); ballot
+// each slot's refill flags; one block barrier and a warp
 // reduction of the per-warp counts give each warp its offset in the CTA; each
 // CTA writes its step total into slot [t & 1][rank] of every CTA of the cluster
 // through distributed shared memory; one cluster barrier (arrive.release /
@@ -91,6 +96,7 @@ namespace cg = cooperative_groups;
 constexpr int kMaxCluster = 16;  // non-portable cluster size on the H100
 constexpr int kPortableCluster = 8;
 constexpr int kClusterWarps = 32;  // warps of one cluster CTA at most
+constexpr int kMaxRows = 32;  // lanes a thread of a cluster decode at most
 // the geometry picked from L gives each CTA up to this many groups (two
 // lanes a thread) until the cluster has kMaxCluster CTAs
 constexpr int kAutoGroupsPerCta = 64;

@@ -19,8 +19,8 @@ produces can be re-coded here with zero rate change:
   Kernel 15 (wide) or kernel 13 (narrow) inverts the quantiles against
   them (:func:`decode_tables`); kernel 16 does the same for one segment of
   a core-size-grouped message at S=64, carrying the stream offset from
-  launch to launch (:func:`decode_tables_seg`).  Kernel 15 runs
-  ``csrc/ilans2_wide.cuh``'s cluster decode (:func:`geometry`), its
+  launch to launch (:func:`decode_tables_seg`).  Kernels 15 and 16 run
+  ``csrc/ilans2_wide.cuh``'s cluster decode (:func:`geometry`), their
   binary search over the R lanes of a thread in lock step
   (:func:`invert_tables_bisect` is that probe order in plain PyTorch);
 - grouping (S=64 only, as in the JAX package): :func:`group_plan`
@@ -915,17 +915,15 @@ def _decode_args(states, stream, tabs, cfg: LaneConfig, min_sym: int,
     return device
 
 
-# planes per lane (CP1 = 1 + 3G) from which kernel 15 (the cluster decode)
-# binary-searches the packed fields instead of scanning them all: measured
-# on an H100 by chip_smoke.py's search sweep (exact_times, the cluster
-# columns), where the lock-step binary search was faster at every width it
-# met, from 16 planes (by 11%) to 139 (3.9x); narrower tables were not
-# measured and keep the scan
+# planes per lane (CP1 = 1 + 3G) from which kernels 15 and 16 (the cluster
+# decode, whole message and segment) binary-search the packed fields
+# instead of scanning them all: measured on an NVIDIA H100 80GB HBM3 at 700
+# W by chip_smoke.py's search sweep (exact_times), where the lock-step
+# binary search was faster at every width it met, kernel 16 from 16 planes
+# (0.116 against 0.144 ms, 589824 symbols) through 19 (0.111 / 0.158), 37
+# (0.112 / 0.248) and 58 (0.044 / 0.088) to 139 (1.117 / 6.304 ms at 2^22
+# symbols), kernel 15 alike; narrower tables were not met and keep the scan
 BISECT_FROM_PLANES = 16
-# the same for kernel 16 (one block): measured on an H100 by the same
-# sweep, where the binary search was faster at every width from 37 planes
-# up (2.4x at 139) and the scan at or within 15% of it below
-BISECT_FROM_PLANES_SEG = 37
 # the same for kernel 13's narrow tables (CP1 = cmax / 2 + 1, two fields a
 # plane): measured on an H100 by chip_smoke.py's narrow search sweep
 # (exact32_times), where the binary search was faster at every width from
@@ -934,12 +932,12 @@ BISECT_FROM_PLANES_SEG = 37
 BISECT_FROM_PLANES_NARROW = 7
 
 
-def bisect_tables(CP1: int, narrow: bool = False, seg: bool = False) -> bool:
-    """Whether kernel 15 (with ``seg``, kernel 16; with ``narrow``, kernel
-    13) binary-searches tables of ``CP1`` planes."""
+def bisect_tables(CP1: int, narrow: bool = False) -> bool:
+    """Whether kernels 15 and 16 (with ``narrow``, kernel 13)
+    binary-search tables of ``CP1`` planes."""
     if narrow:
         return CP1 >= BISECT_FROM_PLANES_NARROW
-    return CP1 >= (BISECT_FROM_PLANES_SEG if seg else BISECT_FROM_PLANES)
+    return CP1 >= BISECT_FROM_PLANES
 
 
 def decode_tables(states, stream, tabs, cfg: LaneConfig, min_sym: int,
@@ -963,31 +961,38 @@ def decode_tables(states, stream, tabs, cfg: LaneConfig, min_sym: int,
         syms, fin, _ = decode_tables_plain(states, stream, tabs, cfg,
                                            min_sym, max_sym, num_symbols)
         return (syms, fin) if return_final_states else syms
-    if _wide(cfg) and cfg.num_lanes > MAX_DECODE_LANES:
-        raise ValueError(
-            f"the exact table decode kernel takes at most {MAX_DECODE_LANES} "
-            f"lanes (16 CTAs x 1024 threads x 32 lanes a thread), got "
-            f"{cfg.num_lanes}")
+    if _wide(cfg):
+        _check_reach(cfg)
     fin = states.clone()
     syms = torch.empty(num_symbols, dtype=torch.int32, device=device)
     if num_symbols:
         tag = "decode64" if _wide(cfg) else "decode32"
-        LAUNCHES[tag] += 1
         _build.call(f"ctt_exact_{tag}", device, fin, stream, stream.numel(),
                     tabs, tabs.shape[1], syms, num_symbols, cfg.num_lanes,
                     cfg.precision, min_sym, max_sym,
                     int(bisect_tables(tabs.shape[1], not _wide(cfg))), None)
+        LAUNCHES[tag] += 1
     return (syms, fin) if return_final_states else syms
 
 
-def geometry(L: int, device=None) -> dict:
-    """Kernel 15's launch geometry for L lanes on ``device`` (a CUDA
-    device; the current one by default): its cluster, the CTAs' groups,
-    lanes per thread and threads, and the card's maximum of such active
-    clusters."""
+def _check_reach(cfg: LaneConfig) -> None:
+    """The S=64 table decodes (kernels 15 and 16) run on a cluster of at
+    most 16 CTAs: L past :data:`MAX_DECODE_LANES` raises before a launch."""
+    if cfg.num_lanes > MAX_DECODE_LANES:
+        raise ValueError(
+            f"the exact table decode kernel takes at most {MAX_DECODE_LANES} "
+            f"lanes (16 CTAs x 1024 threads x 32 lanes a thread), got "
+            f"{cfg.num_lanes}")
+
+
+def geometry(L: int, device=None, seg: bool = False) -> dict:
+    """Kernel 15's (with ``seg``, kernel 16's) launch geometry for L lanes
+    on ``device`` (a CUDA device; the current one by default): its cluster,
+    the CTAs' groups, lanes per thread and threads, and the card's maximum
+    of such active clusters."""
     device = torch.device("cuda") if device is None else torch.device(device)
     out = torch.zeros(5, dtype=torch.int64)
-    _build.call("ctt_exact_geometry64", device, L, out)
+    _build.call("ctt_exact_geometry64", device, L, int(seg), out)
     keys = ("cluster", "groups_per_cta", "lanes_per_thread",
             "threads_per_cta", "max_active_clusters")
     geo = dict(zip(keys, (int(v) for v in out)))
@@ -997,13 +1002,15 @@ def geometry(L: int, device=None) -> dict:
 
 def decode_tables_seg(states, stream, tabs, base, cfg: LaneConfig,
                       min_sym: int, max_sym: int, num_symbols: int):
-    """One segment of a grouped decode (kernel 16, S=64): as
-    :func:`decode_tables` from stream word ``base`` on.  JAX counterpart:
-    ``exact_family._build_exact_decoder64_seg``.
+    """One segment of a grouped decode (kernel 16, S=64, the cluster decode
+    from stream word ``base`` on): as :func:`decode_tables` from that word.
+    JAX counterpart: ``exact_family._build_exact_decoder64_seg``.
 
     ``base`` int64[1] on the states' device.  Returns ``(symbols int32[n],
     final states int64[L], next base int64[1])``; the next segment starts
-    from those states and that base, with no host round trip."""
+    from those states and that base, with no host round trip.  CUDA
+    tensors launch the kernel (ValueError for L above
+    :data:`MAX_DECODE_LANES`), CPU tensors run :func:`decode_tables_plain`."""
     check_grouped_cfg(cfg)
     device = _decode_args(states, stream, tabs, cfg, min_sym, max_sym,
                           num_symbols)
@@ -1011,16 +1018,45 @@ def decode_tables_seg(states, stream, tabs, base, cfg: LaneConfig,
     if not _on_cuda(device):
         return decode_tables_plain(states, stream, tabs, cfg, min_sym,
                                    max_sym, num_symbols, base)
+    return _launch_seg(states, stream, tabs, base, cfg, min_sym, max_sym,
+                       num_symbols)
+
+
+def _launch_seg(states, stream, tabs, base, cfg: LaneConfig, min_sym: int,
+                max_sym: int, num_symbols: int, cluster: int = 0):
+    """One launch of kernel 16 (``cluster`` CTAs, or the size it picks from
+    L when 0), counted after it returns."""
+    _check_reach(cfg)
     fin = states.clone()
     nxt = base.clone()
-    syms = torch.empty(num_symbols, dtype=torch.int32, device=device)
+    syms = torch.empty(num_symbols, dtype=torch.int32, device=states.device)
     if num_symbols:
+        entry, extra = (("ctt_exact_decode64_seg_cluster", (cluster,))
+                        if cluster else ("ctt_exact_decode64_seg", ()))
+        _build.call(entry, states.device, fin, stream, stream.numel(), tabs,
+                    tabs.shape[1], syms, num_symbols, cfg.num_lanes,
+                    cfg.precision, min_sym, max_sym,
+                    int(bisect_tables(tabs.shape[1])), nxt, *extra)
         LAUNCHES["decode64_seg"] += 1
-        _build.call("ctt_exact_decode64_seg", device, fin, stream,
-                    stream.numel(), tabs, tabs.shape[1], syms, num_symbols,
-                    cfg.num_lanes, cfg.precision, min_sym, max_sym,
-                    int(bisect_tables(tabs.shape[1], seg=True)), nxt)
     return syms, fin, nxt
+
+
+def decode_tables_seg_cluster(states, stream, tabs, base, cfg: LaneConfig,
+                              min_sym: int, max_sym: int, num_symbols: int,
+                              cluster: int):
+    """:func:`decode_tables_seg` on a cluster of ``cluster`` CTAs (1 .. 16)
+    in place of the size it picks from L (CUDA tensors): how the card tests
+    reach uneven partitions and CTAs with no lanes."""
+    check_grouped_cfg(cfg)
+    device = _decode_args(states, stream, tabs, cfg, min_sym, max_sym,
+                          num_symbols)
+    _check("base", base, torch.int64, device, 1)
+    if not _on_cuda(device):
+        raise ValueError("a forced cluster size needs CUDA tensors")
+    if not 1 <= cluster <= 16:
+        raise ValueError(f"cluster must be in 1 .. 16, got {cluster}")
+    return _launch_seg(states, stream, tabs, base, cfg, min_sym, max_sym,
+                       num_symbols, cluster)
 
 
 def _table_fields(tab):

@@ -7,8 +7,9 @@ The counterpart of ``constriction_tpu/ops/pallas_family.py``: the rANS pair
 at the small preset (W=16, S=32, P=12) with the model inverted by bisection
 over ``left(x) = (x - min_sym) + trunc(free * CDF(t))``.  The wrappers
 launch the hand-written kernels of ``csrc/ilans2_family.cu`` for CUDA
-tensors and run the plain PyTorch twins for CPU tensors; any other device
-raises.
+tensors (the decode on ``csrc/ilans2_wide.cuh``'s cluster of up to 16 CTAs,
+at most :data:`coder.MAX_DECODE_LANES` lanes; the encode on one block) and
+run the plain PyTorch twins for CPU tensors; any other device raises.
 
 Float rounding is part of the wire format.  The standardized argument is
 ``t = ((float(x) - 0.5) - mean) * (1 / scale)``, then ``* 4096``, a clamp
@@ -33,7 +34,8 @@ import torch
 
 from .. import convert
 from . import _build
-from .coder import _check, _emit_words, _num_steps, _on_cuda, _refill_words
+from .coder import (MAX_DECODE_LANES, _check, _emit_words, _num_steps,
+                    _on_cuda, _refill_words)
 from .interleaved import LaneConfig
 
 FAMILIES = ("gaussian", "laplace", "logistic", "cauchy")
@@ -422,7 +424,8 @@ def decode_family(states, stream, means, scales, family: str, min_sym: int,
     ``scales`` float32[T * L] (padded layout), all on one device.  Returns
     symbols int32[n], and with ``return_final_states`` also the final
     states int32[L] (after a full decode, 2^16 each).  CUDA tensors launch
-    the kernel, CPU tensors run :func:`decode_family_plain`."""
+    the kernel (ValueError for L above :data:`coder.MAX_DECODE_LANES`),
+    CPU tensors run :func:`decode_family_plain`."""
     check_model(cfg, family, min_sym, max_sym)
     _decode_args(states, stream, means, scales, cfg, n)
     device = states.device
@@ -430,14 +433,67 @@ def decode_family(states, stream, means, scales, family: str, min_sym: int,
         return decode_family_plain(states, stream, means, scales, family,
                                    min_sym, max_sym, cfg, n,
                                    return_final_states)
+    syms, fin = _launch_decode(states, stream, means, scales, family, min_sym,
+                               max_sym, cfg, n)
+    return (syms, fin) if return_final_states else syms
+
+
+def _launch_decode(states, stream, means, scales, family: str, min_sym: int,
+                   max_sym: int, cfg: LaneConfig, n: int, cluster: int = 0):
+    """One launch of the cluster decode (``cluster`` CTAs, or the size it
+    picks from L when 0), counted after it returns; returns (symbols
+    int32[n], final states).  Raises for an L past the cluster's reach."""
+    L = cfg.num_lanes
+    if L > MAX_DECODE_LANES:
+        raise ValueError(
+            f"the family decode kernel takes at most {MAX_DECODE_LANES} lanes "
+            f"(16 CTAs x 1024 threads x 32 lanes a thread), got {L}")
+    device = states.device
     fin = states.clone()
     syms = torch.empty(n, dtype=torch.int32, device=device)
     if n:
+        entry, extra = (("ctt_family_decode_cluster", (cluster,)) if cluster
+                        else ("ctt_family_decode", ()))
+        _build.call(entry, device, fin, stream, stream.numel(), means, scales,
+                    syms, n, L, FAMILIES.index(family), min_sym, max_sym,
+                    *extra)
         LAUNCHES["decode"] += 1
-        _build.call("ctt_family_decode", device, fin, stream, stream.numel(),
-                    means, scales, syms, n, cfg.num_lanes,
-                    FAMILIES.index(family), min_sym, max_sym)
-    return (syms, fin) if return_final_states else syms
+    return syms, fin
+
+
+def decode_family_cluster(states, stream, means, scales, family: str,
+                          min_sym: int, max_sym: int, cfg: LaneConfig, n: int,
+                          cluster: int):
+    """The decode kernel on a cluster of ``cluster`` CTAs (1 .. 16) in place
+    of the size it picks from L, for any L that is a multiple of 32 (CUDA
+    tensors): how the card tests reach uneven partitions and CTAs with no
+    lanes.  Returns (symbols int32[n], final states)."""
+    check_model(cfg, family, min_sym, max_sym, lane_multiple=32)
+    _decode_args(states, stream, means, scales, cfg, n)
+    if not _on_cuda(states.device):
+        raise ValueError("a forced cluster size needs CUDA tensors")
+    if not 1 <= cluster <= 16:
+        raise ValueError(f"cluster must be in 1 .. 16, got {cluster}")
+    return _launch_decode(states, stream, means, scales, family, min_sym,
+                          max_sym, cfg, n, cluster)
+
+
+def geometry(L: int, family: str = "gaussian", device=None,
+             cluster: int = 0) -> dict:
+    """The decode kernel's launch geometry for L lanes and ``family`` on
+    ``device`` (a CUDA device; the current one by default): its cluster
+    (``cluster`` 0: the size it picks from L, stepped down while the card
+    cannot co-schedule it), the CTAs' groups, lanes per thread and threads,
+    and the card's maximum of such active clusters."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    out = torch.zeros(5, dtype=torch.int64)
+    _build.call("ctt_family_geometry", device, L, FAMILIES.index(family),
+                cluster, out)
+    keys = ("cluster", "groups_per_cta", "lanes_per_thread",
+            "threads_per_cta", "max_active_clusters")
+    geo = dict(zip(keys, (int(v) for v in out)))
+    geo["ctas"] = geo["cluster"]
+    return geo
 
 
 def decode_family_plain(states, stream, means, scales, family: str,

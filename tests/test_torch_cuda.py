@@ -904,12 +904,18 @@ def test_range32_decode_lanes_past_the_cluster_reach(dev):
 
 
 # which kernels ptxas must compile without spilling, at 2 and 4 lanes a
-# thread (L = 32768 and 65536): the range decodes at both presets and the
-# S=64 exact table decode (kernel 15)
+# thread (L = 32768 and 65536): the range decodes at both presets, the
+# S=64 exact table decodes (kernel 15; kernel 16, its Seg instance) and the
+# family decode (kernel 11, each family)
 NO_SPILL = {
     "range S=64": r"cluster_range_decode_kernelILi32ELi64ELi{R}E",
     "range S=32": r"cluster_range_decode_kernelILi16ELi32ELi{R}E",
     "exact S=64": r"cluster_decode_kernelILi32ELi64ELi{R}E.*TableModel",
+    "exact seg S=64":
+        r"cluster_decode_kernelILi32ELi64ELi{R}E.*TableModelELb1E",
+    **{f"family {name}":
+       rf"cluster_decode_kernelILi16ELi32ELi{{R}}E.*FamilyModelILi{k}EE"
+       for k, name in enumerate(fam.FAMILIES)},
 }
 
 
@@ -1047,6 +1053,128 @@ def test_family_truncated_stream_zero_fills(dev):
         out.cpu().numpy(), fam.decode_family_host(
             convert.u32_from_torch(st), convert.u32_from_torch(cut), means,
             scales, "gaussian", LO, HI, cfg, 4000))
+
+
+def _family_host_pair(L, n, family, seed):
+    """A family message coded by the numpy host coder at any L (a multiple
+    of 32): (cfg, means, scales, symbols, states, stream) as numpy."""
+    cfg = _family_cfg(L)
+    rng = np.random.RandomState(seed)
+    means, scales, symbols = _family_data(rng, n, cauchy=family == "cauchy")
+    cums, probs = fam.family_tables_host(symbols, means, scales, family, LO,
+                                         HI)
+    states, stream = il2.encode_shared(cums, probs, cfg)
+    return cfg, means, scales, symbols, states, stream
+
+
+def test_family_decode_runs_as_a_cluster(dev):
+    """Kernel 11 at the family row's L = 32768: 16 CTAs, 2 lanes a
+    thread, for every family."""
+    for family in fam.FAMILIES:
+        geo = fam.geometry(32768, family, dev)
+        assert geo["cluster"] == 16 and geo["max_active_clusters"] >= 1
+        assert geo["lanes_per_thread"] == 2
+        assert geo["lanes_per_thread"] * geo["threads_per_cta"] // 32 \
+            >= geo["groups_per_cta"]
+
+
+@pytest.mark.parametrize("family", fam.FAMILIES)
+@pytest.mark.parametrize("L,cluster", [
+    (32, 1), (32, 16), (96, 4), (96, 5), (4096, 3), (4096, 16), (32768, 1),
+    (32768, 8)])
+def test_family_cluster_partitions_match_twin(dev, family, L, cluster):
+    """Forced cluster sizes: groups that do not divide evenly over the CTAs
+    (4096/3), CTAs left with no lanes (32/16, 96/4, 96/5), one CTA holding
+    32 lanes a thread (32768/1); a partial last step whose lanes read the
+    padded parameters.  Against the twin and the numpy host oracle."""
+    geo = fam.geometry(L, family, dev, cluster=cluster)
+    assert geo["cluster"] == cluster
+    for n in (1, L - 5, 2 * L + 7):
+        cfg, means, scales, symbols, st_h, w_h = _family_host_pair(
+            L, n, family, seed=L + n + cluster)
+        mu, sg = convert.params_to_torch(means, scales, n, L, dev)
+        st = convert.u32_to_torch(st_h, dev)
+        w = convert.u32_to_torch(w_h, dev)
+        before = fam.LAUNCHES["decode"]
+        out, fin = fam.decode_family_cluster(st, w, mu, sg, family, LO, HI,
+                                             cfg, n, cluster)
+        assert fam.LAUNCHES["decode"] == before + 1
+        out_p, fin_p = fam.decode_family_plain(st, w, mu, sg, family, LO, HI,
+                                               cfg, n,
+                                               return_final_states=True)
+        assert torch.equal(out, out_p) and torch.equal(fin, fin_p)
+        np.testing.assert_array_equal(out.cpu().numpy(), symbols)
+        np.testing.assert_array_equal(
+            out.cpu().numpy(), fam.decode_family_host(
+                st_h, w_h, means, scales, family, LO, HI, cfg, n))
+        assert bool((fin == 1 << 16).all())
+
+
+def test_family_decode_lanes_at_and_past_the_cluster_reach(dev):
+    """16 CTAs x 1024 threads x 32 lanes a thread: L = 524288 decodes like
+    the twin and the host oracle; 128 lanes more raise with the limit named
+    and launch nothing.  (The message comes from the host coder: the
+    single-block encoder's shared memory holds 4 L / 32 + 32 words, more
+    than a block has at this L.)"""
+    L = coder.MAX_DECODE_LANES
+    n = L + 99
+    cfg, means, scales, symbols, st_h, w_h = _family_host_pair(
+        L, n, "gaussian", seed=17)
+    mu, sg = convert.params_to_torch(means, scales, n, L, dev)
+    st = convert.u32_to_torch(st_h, dev)
+    w = convert.u32_to_torch(w_h, dev)
+    out, fin = fam.decode_family(st, w, mu, sg, "gaussian", LO, HI, cfg, n,
+                                 return_final_states=True)
+    out_p, fin_p = fam.decode_family_plain(st, w, mu, sg, "gaussian", LO, HI,
+                                           cfg, n, return_final_states=True)
+    assert torch.equal(out, out_p) and torch.equal(fin, fin_p)
+    np.testing.assert_array_equal(out.cpu().numpy(), symbols)
+    cfg = _family_cfg(L + 128)
+    mu, sg = convert.params_to_torch(means, scales, n, L + 128, dev)
+    st = torch.full((L + 128,), 1 << 16, dtype=torch.int32, device=dev)
+    before = dict(fam.LAUNCHES)
+    with pytest.raises(ValueError, match=f"at most {L} lanes"):
+        fam.decode_family(st, w, mu, sg, "gaussian", LO, HI, cfg, n)
+    assert fam.LAUNCHES == before
+
+
+def test_failed_call_leaves_no_error_behind(dev):
+    """A C entry that fails in a runtime call (the single-block family
+    encode asks for more shared memory than a block has at L = 524288)
+    raises, and the next call does not report that failure as its own."""
+    L = coder.MAX_DECODE_LANES
+    rng = np.random.RandomState(29)
+    means, scales, symbols = _family_data(rng, 1000)
+    mu, sg = convert.params_to_torch(means, scales, 1000, L, dev)
+    with pytest.raises(RuntimeError, match="ctt_family_encode failed"):
+        fam.encode_family(torch.from_numpy(symbols).to(dev), mu, sg,
+                          "gaussian", LO, HI, _family_cfg(L))
+    _check_family(_family_cfg(128), "gaussian", means, scales, symbols, dev)
+
+
+@pytest.mark.parametrize("cluster", [0, 16])
+def test_family_cluster_truncated_stream_zero_fills(dev, cluster):
+    """Kernel 11 at L = 32768 on a stream cut to a third: the reads past its
+    end give zero words, as in the twin and the numpy host oracle."""
+    L, n = 32768, 3 * 32768 - 11
+    cfg, means, scales, symbols, st_h, w_h = _family_host_pair(
+        L, n, "cauchy", seed=23)
+    cut_h = w_h[: len(w_h) // 3]
+    mu, sg = convert.params_to_torch(means, scales, n, L, dev)
+    st = convert.u32_to_torch(st_h, dev)
+    cut = convert.u32_to_torch(cut_h, dev)
+    if cluster:
+        out, fin = fam.decode_family_cluster(st, cut, mu, sg, "cauchy", LO,
+                                             HI, cfg, n, cluster)
+    else:
+        out, fin = fam.decode_family(st, cut, mu, sg, "cauchy", LO, HI, cfg,
+                                     n, return_final_states=True)
+    out_p, fin_p = fam.decode_family_plain(st, cut, mu, sg, "cauchy", LO, HI,
+                                           cfg, n, return_final_states=True)
+    assert torch.equal(out, out_p) and torch.equal(fin, fin_p)
+    np.testing.assert_array_equal(
+        out.cpu().numpy(), fam.decode_family_host(
+            st_h, cut_h, means, scales, "cauchy", LO, HI, cfg, n))
 
 
 @pytest.mark.parametrize("family", fam.FAMILIES)
@@ -1397,11 +1525,13 @@ def test_exact_decode_kernel_matches_twin(dev, family, L, n, monkeypatch):
 
 
 def test_exact_decode_runs_as_a_cluster(dev):
+    """Kernels 15 and 16 at the bench lane counts: 16 CTAs."""
     for L in (32768, 65536):
-        geo = ef.geometry(L, dev)
-        assert geo["cluster"] > 1 and geo["max_active_clusters"] >= 1
-        assert geo["lanes_per_thread"] * geo["threads_per_cta"] // 32 \
-            >= geo["groups_per_cta"]
+        for seg in (False, True):
+            geo = ef.geometry(L, dev, seg=seg)
+            assert geo["cluster"] == 16 and geo["max_active_clusters"] >= 1
+            assert geo["lanes_per_thread"] * geo["threads_per_cta"] // 32 \
+                >= geo["groups_per_cta"]
 
 
 @pytest.mark.parametrize("family", ["gaussian", "laplace", "cauchy"])
@@ -1446,11 +1576,15 @@ def test_exact_decode_past_the_cluster_reach_raises(dev):
     assert ef.LAUNCHES == before
 
 
-def test_exact_segment_kernel_chains_offsets(dev, monkeypatch):
+@pytest.mark.parametrize("L,cluster", [(256, 0), (2176, 1), (2176, 4),
+                                       (2176, 16)])
+def test_exact_segment_kernel_chains_offsets(dev, monkeypatch, L, cluster):
     """Three kernel-16 launches over one grouped stream: symbols, states
     and the word offset equal the twin's after every segment, with the
-    search each width picks, the scan and the binary search alike."""
-    L, n = 256, 9 * 256 - 31
+    search each width picks, the scan and the binary search alike; on the
+    cluster it picks from L and on 1, 4 and 16 CTAs (L = 2176: 68 groups,
+    uneven over 4 CTAs, two CTAs of 16 without lanes)."""
+    n = 9 * L - 31
     cfg = _exact_cfg(L)
     means, scales, syms = _exact_data(n, seed=7)
     means[:40] *= 0.01
@@ -1469,15 +1603,21 @@ def test_exact_segment_kernel_chains_offsets(dev, monkeypatch):
             -100, 100, 24, cm, ns, L // 128)
         tables.append((convert.exact_tables_to_torch(tabs4, dev),
                        min(ns * L, n - t0 * L)))
-    for planes in (ef.BISECT_FROM_PLANES_SEG, 0, 1 << 30):
-        monkeypatch.setattr(ef, "BISECT_FROM_PLANES_SEG", planes)
+    for planes in (ef.BISECT_FROM_PLANES, 0, 1 << 30):
+        monkeypatch.setattr(ef, "BISECT_FROM_PLANES", planes)
         base = torch.zeros(1, dtype=torch.int64, device=dev)
         st = st_p = states
         base_p = base
         outs = []
         for tabs, k in tables:
-            out, st, base = ef.decode_tables_seg(st, stream, tabs, base, cfg,
-                                                 -100, 100, k)
+            before = ef.LAUNCHES["decode64_seg"]
+            if cluster:
+                out, st, base = ef.decode_tables_seg_cluster(
+                    st, stream, tabs, base, cfg, -100, 100, k, cluster)
+            else:
+                out, st, base = ef.decode_tables_seg(st, stream, tabs, base,
+                                                     cfg, -100, 100, k)
+            assert ef.LAUNCHES["decode64_seg"] == before + 1
             out_p, st_p, base_p = ef.decode_tables_plain(
                 st_p, stream, tabs, cfg, -100, 100, k, base_p)
             assert torch.equal(out, out_p) and torch.equal(st, st_p)
@@ -1485,6 +1625,20 @@ def test_exact_segment_kernel_chains_offsets(dev, monkeypatch):
             outs.append(out.cpu().numpy())
         assert int(base) == stream.numel()
         np.testing.assert_array_equal(np.concatenate(outs), syms[perm])
+
+
+def test_exact_segment_decode_past_the_cluster_reach_raises(dev):
+    L = coder.MAX_DECODE_LANES + 128
+    cfg = _exact_cfg(L)
+    states = torch.full((L,), 1 << 32, dtype=torch.int64, device=dev)
+    stream = torch.zeros(4, dtype=torch.int32, device=dev)
+    tabs = torch.zeros((1, 4, L), dtype=torch.int32, device=dev)
+    base = torch.zeros(1, dtype=torch.int64, device=dev)
+    before = dict(ef.LAUNCHES)
+    with pytest.raises(ValueError, match=f"at most {L - 128} lanes"):
+        ef.decode_tables_seg(states, stream, tabs, base, cfg, -100, 100,
+                             1000)
+    assert ef.LAUNCHES == before
 
 
 @pytest.mark.parametrize("family", ["gaussian", "laplace", "cauchy"])

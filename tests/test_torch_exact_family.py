@@ -497,28 +497,62 @@ def test_decode_twin_matches_host_oracle(family, lo, hi):
             scales, family, lo, hi, cfg, n))
 
 
-def test_segment_twin_chains_offsets():
+def _straddle_data():
+    """Three steps of L = 128 whose cores sort into segments of 13, 31 and
+    70 planes, either side of ``BISECT_FROM_PLANES`` (16): the kernel's
+    scan and its binary search in one grouped stream."""
+    L, n = 128, 3 * 128 - 5
+    rng = np.random.RandomState(21)
+    means = rng.randn(n) * 20
+    scales = np.concatenate([np.full(L, 0.6), np.full(L, 2.0),
+                             np.full(n - 2 * L, 5.0)]) * np.exp(
+                                 rng.normal(0, 0.1, n))
+    syms = np.clip(np.round(means + scales * rng.randn(n)), -100, 100
+                   ).astype(np.int64)
+    return means, scales, syms
+
+
+@pytest.mark.parametrize("case", ["laplace", "straddle"])
+def test_segment_twin_chains_offsets(case):
     """Segments decoded one after another carry states and the word offset
-    from launch to launch and end at the stream's last word."""
-    L, n = 128, 11 * 128 - 5
+    from launch to launch and end at the stream's last word.  The
+    ``straddle`` case's segments lie on both sides of the search crossover,
+    and its decode equals the JAX package's grouped decode (its segment
+    decoder in interpret mode, once a segment)."""
+    L = 128
+    if case == "laplace":
+        family, n, max_segments = "laplace", 11 * 128 - 5, 4
+        means, scales, syms = _data(n, seed=9)
+        scales[:200] *= 5.0
+    else:
+        family, max_segments = "gaussian", 3
+        means, scales, syms = _straddle_data()
+        n = len(syms)
     cfg = _cfg(L)
-    means, scales, syms = _data(n, seed=9)
-    scales[:200] *= 5.0
-    perm, segs = ef.group_plan(means, scales, "laplace", -100, 100, 24, L, n,
-                               max_segments=4)
+    perm, segs = ef.group_plan(means, scales, family, -100, 100, 24, L, n,
+                               max_segments=max_segments)
     assert len(segs) >= 3
-    st, w = ef.encode_family_exact_grouped(syms, means, scales, "laplace",
+    st, w = ef.encode_family_exact_grouped(syms, means, scales, family,
                                            -100, 100, cfg, "cpu",
-                                           max_segments=4)
+                                           max_segments=max_segments)
     T = -(-n // L)
-    pm, ps = ef._pad_params(means[perm], scales[perm], T * L, "laplace", 100)
-    out, fin = ef.decode_segments(st, w, pm, ps, segs, "laplace", -100, 100,
+    pm, ps = ef._pad_params(means[perm], scales[perm], T * L, family, 100)
+    out, fin = ef.decode_segments(st, w, pm, ps, segs, family, -100, 100,
                                   cfg, n, device_tables=False)
     np.testing.assert_array_equal(out.numpy(), syms[perm])
     assert bool((fin == 1 << 32).all())
-    whole = ef.decode_family_exact_grouped(st, w, means, scales, "laplace",
-                                           -100, 100, cfg, n, max_segments=4)
+    whole = ef.decode_family_exact_grouped(st, w, means, scales, family,
+                                           -100, 100, cfg, n,
+                                           max_segments=max_segments)
     np.testing.assert_array_equal(whole.numpy(), syms)
+    if case == "straddle":
+        planes = [1 + 3 * (cm // 4) for _, _, cm in segs]
+        assert min(planes) < ef.BISECT_FROM_PLANES <= max(planes)
+        ref = ref_ef.decode_family_exact_grouped(
+            convert.u64_from_torch(st), convert.u32_from_torch(w), means,
+            scales, family, -100, 100, _ref_cfg(L), n, interpret=True,
+            max_segments=max_segments, device_tables=False)
+        np.testing.assert_array_equal(whole.numpy(), ref)
 
 
 def test_interpret_mode_segment_decoder_and_encoder():
