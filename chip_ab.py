@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Ten coding kernels timed in several checkouts on one card, one
+"""Twelve coding kernels timed in several checkouts on one card, one
 checkout after another in the order given.
 
     git archive <commit> | tar -x -C _scratch/parent
@@ -19,6 +19,15 @@ builds its kernels and times, on the same inputs:
   L=65536 (2 and 4 lanes a thread), P=24;
 - kernel 6, the S=32 range decode, on the same symbols at L=32768, P=12
   and P=16, and at L=65536, P=12;
+- kernel 8, the S=32 range encode's phase B (carry resolve), on the same
+  symbols' records at L=32768, P=12: its C entry on preallocated scratch,
+  and, in a checkout that has it (``ctt_ilans2_range_resolve_direct_
+  w16s32``), its direct form: the flags counted from the records over the
+  grid, one scan, and the lane pass writing the stream itself (this
+  package keeps the scratch form, which was the faster);
+- kernel 24, the TChain-24 encode, on the JAX suite's TChain row (2^24
+  uniform quantiles, K=100 Dirichlet(2), seed 1234) at L=32768: its C
+  entry;
 - kernel 15, the S=64 reference-exact table decode, on the JAX suite's
   exact row (2^22 synthetic symbols, gaussian, [-100, 100], P=24) at
   L=32768 and L=65536, over tables built on the card at the ungrouped
@@ -148,6 +157,10 @@ def time_decodes(root: str, kernels: set) -> dict:
         _time_range(out, syms, probs, check)
     if 6 in kernels:
         _time_range32(out, syms, probs, check)
+    if 8 in kernels:
+        _time_resolve32(out, syms, probs, check)
+    if 24 in kernels:
+        _time_tchain24(out, check)
     if 15 in kernels:
         _time_exact(out, check)
     if 21 in kernels:
@@ -273,6 +286,104 @@ def _time_range32(out, syms, probs, check):
         launch()
         check(o_buf, syms, key)
         out[f"{key}_ms"] = _events_ms(launch, reset_range)
+
+
+def _time_resolve32(out, syms, probs, check):
+    """Kernel 8 into ``out``: the S=32 range resolve's C entry on bench.py's
+    symbols at L=32768, P=12, on preallocated scratch, against the
+    wrapper's points and stream.  A checkout whose entry takes the lane
+    state (pend, d1, d2: one block) has it reset outside the CUDA events;
+    one with the lane pass and the compaction also times the direct form
+    where it has one (a grid pass of flags from the records, one scan, the
+    lane pass writing the stream itself)."""
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.models import fast_quantized_cdf
+    from constriction_tpu_torch.ops import _build, range_enc
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    dev = syms.device
+    cdf = convert.cdf_to_torch(fast_quantized_cdf(probs, 12), dev)
+    cfg = LaneConfig(num_lanes=LANES, word_bits=16, state_bits=32,
+                     precision=12)
+    T = -(-N // LANES)
+    recs, low_f, rng_f = range_enc.record(syms, cdf, cfg)
+    s0, carry = range_enc.seal(low_f, rng_f, cfg)
+    pts, words = range_enc.resolve(recs, s0, carry, cfg, N)
+    buf = torch.empty(N, dtype=torch.int32, device=dev)
+    end = torch.empty(1, dtype=torch.int64, device=dev)
+    p_buf = torch.empty_like(pts)
+    entry = "ctt_ilans2_range_resolve_w16s32"
+    if len(_build.SIGNATURES[entry]) == 12:  # one block, state in place
+        lane_state = [torch.empty_like(s0) for _ in range(3)]
+
+        def reset():
+            lane_state[0].copy_(carry)
+            lane_state[1].copy_(s0)
+            lane_state[2].zero_()
+        forms = {"": (entry, (recs, *lane_state, buf, N, end, p_buf, LANES,
+                              T), reset)}
+    else:
+        scratch = (torch.empty(T * LANES, dtype=torch.int32, device=dev),
+                   torch.empty(T * LANES // 32, dtype=torch.int32,
+                               device=dev),
+                   torch.empty(1024, dtype=torch.int64, device=dev))
+        args = (recs, s0, carry, buf, N, end, p_buf, *scratch, LANES, T)
+        forms = {"": (entry, args, None)}
+        direct = "ctt_ilans2_range_resolve_direct_w16s32"
+        if direct in _build.SIGNATURES:
+            forms["_direct"] = (direct, args, None)
+    for suffix, (name, args, reset) in forms.items():
+        def launch():
+            _build.call(name, dev, *args)
+        if reset is not None:
+            reset()
+        launch()
+        check(p_buf, pts, f"resolve32{suffix} points")
+        check(buf[int(end.item()):], words, f"resolve32{suffix} stream")
+        out[f"resolve32{suffix}_ms"] = _events_ms(launch, reset)
+
+
+def _time_tchain24(out, check):
+    """Kernel 24 into ``out``: the TChain-24 encode's C entry on the JAX
+    suite's TChain row (2^24 uniform 24-bit quantiles, K=100 Dirichlet(2),
+    seed 1234, L=32768), the heads reset outside the CUDA events; the
+    quantiles must come back.  A checkout whose entry takes a records
+    scratch gets one."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.models import fast_quantized_cdf
+    from constriction_tpu_torch.ops import _build
+    from constriction_tpu_torch.ops import tchain as tc
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(1234)
+    probs = rng.dirichlet(np.full(K, 2.0))
+    cdf = convert.cdf_to_torch(fast_quantized_cdf(probs, 24), dev)
+    cdf32 = cdf.to(torch.int32)
+    n = 1 << 24
+    qt = convert.u32_to_torch(
+        rng.randint(0, 1 << 24, size=n).astype(np.uint32), dev)
+    syms, rem, heads = tc.tchain24_decode(qt, cdf, tc.TCHAIN24_CFG)
+    h_buf = torch.empty_like(heads)
+    q_buf = torch.empty_like(qt)
+    entry = "ctt_tchain24_encode"
+    records = (() if len(_build.SIGNATURES[entry]) == 11 else
+               (torch.empty(4 * K, dtype=torch.int32, device=dev),))
+
+    def reset():
+        h_buf.copy_(heads)
+
+    def launch():
+        _build.call(entry, dev, h_buf, syms, cdf32, K, rem, rem.numel(),
+                    q_buf, *records, LANES, n // LANES)
+    reset()
+    launch()
+    check(q_buf, qt, "tchain24 encode")
+    out["tchain24_encode_ms"] = _events_ms(launch, reset)
 
 
 def _time_tchain12(out, check):
@@ -476,7 +587,7 @@ def _time_exact_seg(out, check):
 
 
 def main(argv: list[str]) -> int:
-    kernels = "1,2,3,4,5,6,11,15,16,21"
+    kernels = "1,2,3,4,5,6,8,11,15,16,21,24"
     if len(argv) > 1 and argv[0] == "--kernels":
         kernels, argv = argv[1], argv[2:]
     if len(argv) == 2 and argv[0] == "--one":
@@ -484,8 +595,8 @@ def main(argv: list[str]) -> int:
         print(json.dumps(time_decodes(argv[1], picked)), flush=True)
         return 0
     if not argv:
-        sys.exit("usage: chip_ab.py [--kernels 1,2,3,4,5,6,11,15,16,21] "
-                 "CHECKOUT ...")
+        sys.exit("usage: chip_ab.py [--kernels "
+                 "1,2,3,4,5,6,8,11,15,16,21,24] CHECKOUT ...")
     for root in argv:
         done = subprocess.run([sys.executable, os.path.abspath(__file__),
                                "--kernels", kernels, "--one", root])

@@ -16,19 +16,20 @@ prints one JSON object per phase, then the kernels line, the card's
                     at both presets (kernels 1 and 2 at P=24; kernels 3 and
                     4 at P=12 and P=16), the range decodes (kernel 5 at
                     P=24, kernel 6 at P=12 and P=16), the S=64 exact
-                    table decodes (kernels 15 and 16) and the family
-                    decode (kernel 11, each family): the decode's cluster
+                    table decodes (kernels 15 and 16), the family
+                    decode (kernel 11, each family) and the TChain-24
+                    cluster encode (kernel 24): the decode's cluster
                     size,
                     CTAs, threads, lanes per thread, the card's maximum of
                     such active clusters (more than one CTA, or the run
                     fails), its bucket table's lut_bits and whether the CDF
                     is in shared memory, the encode's pass-A grid, and
                     ptxas' registers and spills for their kernels at each
-                    preset and lanes a thread and for the TChain-12
-                    decode's passes.  A spill in the range decodes or
-                    kernels 11, 15 and 16 at 2 or 4 lanes a thread, or in
-                    the TChain-12 passes, fails the run, as does kernel 11
-                    or 16 on fewer than 16 CTAs at L=32768.
+                    preset and lanes a thread and for the lane passes of
+                    kernels 21 and 8.  A spill in the range decodes or
+                    kernels 11, 15, 16 and 24 at 2 or 4 lanes a thread, or
+                    in those lane passes, fails the run, as does kernel 11,
+                    16 or 24 on fewer than 16 CTAs at L=32768.
 2. kernels       -- each rANS kernel against its plain PyTorch twin on the
                     same CUDA tensors and against the numpy host oracle
                     (L=32768, about 2^20 symbols, with and without seeds):
@@ -67,9 +68,11 @@ prints one JSON object per phase, then the kernels line, the card's
                     byte for byte the host oracle's, the decode equal to the
                     symbols; every range kernel must have launched.
 8. range_times   -- kernel-only time of each range kernel at that size
-                    (CUDA events around each launch, after a warm-up), its
-                    twin's time on the card (outputs equal to the kernel's),
-                    and the facade's encode and decode call times.
+                    (CUDA events around each launch, after a warm-up; the
+                    C entries on preallocated scratch), kernel 8's lane
+                    pass and pass B timed apart, its twin's time on the
+                    card (outputs equal to the kernel's), and the facade's
+                    encode and decode call times and host shares.
    range_sweep   -- the range decodes' time per coding step (kernel 5 at
                     P=24, kernel 6 at P=12) at T=256 steps over L=128 ..
                     65536, as phase 5 fits it.
@@ -121,9 +124,13 @@ prints one JSON object per phase, then the kernels line, the card's
                     decode byte for byte the host oracle's, the quantiles
                     back with every head at 1 (P=16) and 256 (P=24); each of
                     the four kernels must have launched.
-16. tchain_times -- kernel-only time of each of the four at that size, its
-                    twin's time on the card (outputs equal), the facade's
-                    call times, and each kernel's bound.
+16. tchain_times -- kernel-only time of each of the four at that size (C
+                    entries on preallocated buffers; kernel 24 with its
+                    records' scratch), its twin's time on the card
+                    (outputs equal), the facade's call times and host
+                    shares, and each kernel's bound.
+    tchain_sweep -- kernel 24's time per coding step at T=256 steps over
+                    L=128 .. 65536, as phase 5 fits it.
 17. chain_decode -- ``cuda.decode_chain_iid`` on 2^24 symbols of random
                     chain data (K=100, P=24) and ``cuda.decode_chain_rows``
                     on 2^20 symbols with a K=16 model each, against the
@@ -281,7 +288,8 @@ RANGE_KERNELS = {
     "ilans2_range_record_w16s32": (
         "range_enc", "record",
         "constriction_tpu/ops/pallas_range_enc.py:151", RANGE_SOURCE),
-    "ilans2_range_resolve_w16s32": (
+    # kernel 8: the lane pass and the compaction (ilans2_wide.cuh)
+    "range_resolve_lanes_w16s32": (
         "range_enc", "resolve",
         "constriction_tpu/ops/pallas_range_enc.py:185", RANGE_SOURCE),
     "ilans2_range_record_w32s64": (
@@ -314,8 +322,10 @@ TCHAIN_KERNELS = {
                         "constriction_tpu/ops/tchain.py:302", TCHAIN_SOURCE),
     "tchain24_decode": ("tchain", "decode24",
                         "constriction_tpu/ops/tchain.py:1106", TCHAIN_SOURCE),
-    "tchain24_encode": ("tchain", "encode24",
-                        "constriction_tpu/ops/tchain.py:1147", TCHAIN_SOURCE),
+    # kernel 24 on the cluster step
+    "cluster_tchain24_encode": ("tchain", "encode24",
+                                "constriction_tpu/ops/tchain.py:1147",
+                                TCHAIN_SOURCE),
 }
 EXACT_SOURCE = "constriction_tpu_torch/ops/csrc/exact_family.cu"
 EXACT_KERNELS = {
@@ -515,32 +525,37 @@ def ptxas_usage(log: str, marks: tuple) -> dict:
 
 
 # the kernels ptxas must compile without spilling: the range decodes at
-# both presets, the S=64 exact table decodes (kernels 15 and 16) and the
-# family decode (kernel 11, each family) at 2 and 4 lanes a thread (L =
-# 32768 and 65536), and the TChain-12 decode's two passes
+# both presets, the S=64 exact table decodes (kernels 15 and 16), the
+# family decode (kernel 11, each family) and the TChain-24 encode (kernel
+# 24) at 2 and 4 lanes a thread (L = 32768 and 65536), the TChain-12
+# decode's two passes and kernel 8's lane pass
 NO_SPILL = (r"cluster_range_decode_kernelILi32ELi64ELi[24]E",
             r"cluster_range_decode_kernelILi16ELi32ELi[24]E",
             r"cluster_decode_kernelILi32ELi64ELi[24]E.*TableModelELb0E",
             r"cluster_decode_kernelILi32ELi64ELi[24]E.*TableModelELb1E",
             *(rf"cluster_decode_kernelILi16ELi32ELi[24]E.*FamilyModelILi{k}EE"
               for k in range(4)),
-            r"tchain12_invert_kernel", r"tchain12_heads_kernel")
+            r"cluster_tchain_encode_kernelILi32ELi64ELi24ELi[24]E",
+            r"tchain12_invert_kernel", r"tchain12_heads_kernel",
+            r"range_resolve_lanes_kernel")
 
 
 def phase_geometry(device) -> dict:
     """Launch geometry of the cluster decodes and the two-pass encodes: the
     rANS pairs (kernels 1 and 2 at P=24, kernels 3 and 4 at P=12 and P=16),
     the range decodes (kernel 5 at P=24, kernel 6 at P=12 and P=16), the
-    S=64 exact table decodes (kernels 15 and 16) and the family decode
-    (kernel 11, each family) at bench.py's lane counts for its K, and what
-    ptxas reported for their kernels at each preset and lanes a thread and
-    for the TChain-12 decode's passes.  Fails on a spill in a kernel of
-    NO_SPILL, and unless kernels 11 and 16 run on 16 CTAs at L=32768."""
+    S=64 exact table decodes (kernels 15 and 16), the family decode
+    (kernel 11, each family) and the TChain-24 cluster encode (kernel 24)
+    at bench.py's lane counts for its K, and what ptxas reported for their
+    kernels at each preset and lanes a thread and for the lane passes of
+    kernels 21 and 8.  Fails on a spill in a kernel of NO_SPILL, and unless
+    kernels 11, 16 and 24 run on 16 CTAs at L=32768."""
     import re
 
     from constriction_tpu_torch.ops import _build, coder, coder64
     from constriction_tpu_torch.ops import exact_family as ef
     from constriction_tpu_torch.ops import family as fam
+    from constriction_tpu_torch.ops import tchain as tc
 
     rows = [{"kernel": 1, "preset": "w32s64", "num_lanes": L, "K": K_MAIN,
              "P": 24, **coder64.geometry(L, K_MAIN, device)}
@@ -560,6 +575,9 @@ def phase_geometry(device) -> dict:
     rows += [{"kernel": 11, "preset": "w16s32", "num_lanes": L, "P": 12,
               "family": family, **fam.geometry(L, family, device)}
              for L in (32768, BENCH_LANES) for family in fam.FAMILIES]
+    rows += [{"kernel": 24, "preset": "w32s64", "num_lanes": L, "K": K_MAIN,
+              "P": 24, **tc.geometry24(L, K_MAIN, device)}
+             for L in (32768, BENCH_LANES)]
     for row in rows:
         if "encode_blocks" in row:
             row["encode_grid"] = (f"{row['encode_blocks']} x "
@@ -567,7 +585,7 @@ def phase_geometry(device) -> dict:
         if row["cluster"] < 2:
             fail(f"geometry: kernel {row['kernel']} runs on one CTA at "
                  f"L={row['num_lanes']}")
-        if (row["kernel"] in (11, 16) and row["num_lanes"] == 32768
+        if (row["kernel"] in (11, 16, 24) and row["num_lanes"] == 32768
                 and row["ctas"] != 16):
             fail(f"geometry: kernel {row['kernel']} runs on {row['ctas']} "
                  f"CTAs at L=32768")
@@ -590,6 +608,8 @@ def phase_geometry(device) -> dict:
                                        "cluster_range_decode_kernel",
                                        "tchain12_invert_kernel",
                                        "tchain12_heads_kernel",
+                                       "cluster_tchain_encode_kernel",
+                                       "range_resolve_lanes_kernel",
                                        "division_records", "compact_"))}
 
 
@@ -922,6 +942,14 @@ def host_range(symbols, cdf, cfg):
     return il2.encode_shared_range(cums, c[symbols + 1] - cums, cfg)
 
 
+def range_name(kind: str, label: str) -> str:
+    """The name of a range kernel in RANGE_KERNELS: kernel 8 is the S=32
+    phase B's lane pass (and the compaction)."""
+    if (kind, label) == ("resolve", "w16s32"):
+        return "range_resolve_lanes_w16s32"
+    return f"ilans2_range_{kind}_{label}"
+
+
 def planes_err(a, b) -> int:
     return max(mismatch(x, y) for x, y in zip(a, b))
 
@@ -975,7 +1003,7 @@ def range_case(device, cfg, syms_np, cdf_np, dec, dec_p, label,
                 planes_err(k[1], fin))
     seeded_ok = mismatch(k[0], syms[start:]) == 0
     for kind, e in (("record", e_rec), ("resolve", e_res), ("decode", e_dec)):
-        name = f"ilans2_range_{kind}_{label}"
+        name = range_name(kind, label)
         errs[name] = max(errs.get(name, 0), e)
     row = {"preset": label, "P": cfg.precision, "words": int(words.numel()),
            "carries": int(((rec[0].long() >> (cfg.word_bits + 1)) & 1).sum()),
@@ -1108,7 +1136,7 @@ def phase_range_times(device, probs, symbols, gpu: str,
 
     from constriction_tpu_torch import convert
     from constriction_tpu_torch import cuda as ctt
-    from constriction_tpu_torch.ops import _build, range_enc
+    from constriction_tpu_torch.ops import _build, coder, range_enc
 
     n = len(symbols)
     syms = torch.from_numpy(symbols.astype(np.int32)).to(device)
@@ -1137,6 +1165,16 @@ def phase_range_times(device, probs, symbols, gpu: str,
         planes = [torch.empty_like(pts) for _ in range(3)]
         o_buf = torch.empty(n, dtype=torch.int32, device=device)
         bad = torch.empty(1, dtype=torch.int64, device=device)
+        if S == 32:  # kernel 8: the lane pass and pass B, their scratch
+            scratch = (torch.empty(T * L, dtype=torch.int32, device=device),
+                       torch.empty(T * L // 32, dtype=torch.int32,
+                                   device=device),
+                       torch.empty(coder.SCAN_BLOCKS, dtype=torch.int64,
+                                   device=device))
+            resolve_args = (recs, s0, carry, buf, n, end, p_buf, *scratch,
+                            L, T)
+        else:  # kernel 10: one block, the lane state in place
+            resolve_args = (recs, pend, d1, d2, buf, n, end, p_buf, L, T)
 
         def reset_resolve():
             pend.copy_(carry)
@@ -1154,15 +1192,31 @@ def phase_range_times(device, probs, symbols, gpu: str,
                 f"ctt_ilans2_range_record_{label}", device, syms, n, cdf32,
                 K, r_buf, lo_buf, rg_buf, L, P), 3),
             "resolve": kernel_ms(reset_resolve, lambda: _build.call(
-                f"ctt_ilans2_range_resolve_{label}", device, recs, pend, d1,
-                d2, buf, n, end, p_buf, L, T), 3),
+                f"ctt_ilans2_range_resolve_{label}", device, *resolve_args),
+                3),
             "decode": kernel_ms(reset_decode, lambda: _build.call(
                 f"ctt_ilans2_range_decode_{label}", device, *planes, words,
                 nw, cdf32, K, o_buf, n, L, P, bad), 3),
         }
         if not (torch.equal(r_buf, recs) and torch.equal(p_buf, pts)
+                and torch.equal(buf[int(end.item()):], words)
                 and torch.equal(o_buf, syms) and int(bad.item()) == n):
             fail(f"range_times: {label} timed launches differ")
+        passes = {}
+        if S == 32:  # kernel 8's two passes apart
+            passes["resolve_lanes_ms"] = kernel_ms(lambda: None, lambda: (
+                _build.call("ctt_ilans2_range_resolve_lanes_w16s32", device,
+                            recs, s0, carry, scratch[0], scratch[1], p_buf,
+                            L, T)), 3)
+            passes["resolve_pass_b_ms"] = kernel_ms(lambda: None, lambda: (
+                _build.call("ctt_ilans2_compact", device, scratch[1],
+                            scratch[0], scratch[1].numel(), buf, n, end,
+                            scratch[2])), 3)
+            if not (torch.equal(p_buf, pts)
+                    and torch.equal(buf[int(end.item()):], words)):
+                fail("range_times: kernel 8's passes timed apart differ")
+            passes["resolve_scratch_bytes"] = 4 * (scratch[0].numel()
+                                                   + scratch[1].numel())
         # the twins on the same tensors (after the smaller warm-up above)
         plain_ms, rec_p = timed(lambda: range_enc.record_plain(syms, cdf,
                                                                cfg))
@@ -1186,7 +1240,7 @@ def phase_range_times(device, probs, symbols, gpu: str,
                             (search_ops(K) + 14) * n),
         }
         for kind in ms:
-            name = f"ilans2_range_{kind}_{label}"
+            name = range_name(kind, label)
             errs[name] = max(errs[name], e[kind])
             times[name] = (ms[kind], plain[kind], *bounds[kind])
         if any(e.values()):
@@ -1203,12 +1257,16 @@ def phase_range_times(device, probs, symbols, gpu: str,
             **{f"{k}_plain_ms": v for k, v in plain.items()},
             **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
             **{f"{k}_max_abs_err": v for k, v in e.items()},
+            **passes,
             "encode_kernels_gsym_per_s": n / ((ms["record"] + ms["resolve"])
                                               * 1e-3) / 1e9,
             "decode_kernel_gsym_per_s": n / (ms["decode"] * 1e-3) / 1e9,
             "facade_encode_call_s": t1 - t0, "facade_decode_call_s": t2 - t1,
             "facade_encode_ns_per_symbol": (t1 - t0) / n * 1e9,
             "facade_decode_ns_per_symbol": (t2 - t1) / n * 1e9,
+            "facade_encode_host_share": 1 - (ms["record"] + ms["resolve"])
+            * 1e-3 / (t1 - t0),
+            "facade_decode_host_share": 1 - ms["decode"] * 1e-3 / (t2 - t1),
             "gpu": gpu,
         })
     return {"phase": "range_times", "cases": rows}, times
@@ -1779,6 +1837,14 @@ def cat_presets() -> dict:
     }
 
 
+def tchain_name(label: str, kind: str) -> str:
+    """The name of a categorical TChain kernel in TCHAIN_KERNELS: kernel
+    24 runs on the cluster step."""
+    if (label, kind) == ("tchain24", "encode"):
+        return "cluster_tchain24_encode"
+    return f"{label}_{kind}"
+
+
 def cat_workload(n: int) -> dict:
     """The JAX suite's TChain rows at n quantiles: a K=100 Dirichlet(2)
     model at P=16 and P=24 and uniform quantiles, from RandomState(1234).
@@ -1837,7 +1903,8 @@ def phase_tchain_kernels(device, n: int) -> tuple[dict, dict]:
                     mismatch(back[1], cat_to_torch(P, h_h, L, device)))
         round_trip = (mismatch(back[0], qt) == 0
                       and bool((back[1] == seed).all()))
-        errs[f"{label}_decode"], errs[f"{label}_encode"] = e_dec, e_enc
+        errs[tchain_name(label, "decode")] = e_dec
+        errs[tchain_name(label, "encode")] = e_enc
         row = {"coder": label, "K": len(cdf_np) - 1, "n": n, "num_lanes": L,
                "remainder_words": int(got[1].numel()),
                "decode_max_abs_err": e_dec, "encode_max_abs_err": e_enc,
@@ -1930,10 +1997,13 @@ def phase_tchain_times(device, work, gpu: str,
                 w_buf, n, end, L, T), 5)
         same = (torch.equal(s_buf, got[0]) and torch.equal(h_buf, got[2])
                 and torch.equal(w_buf[int(end.item()):], got[1]))
+        # kernel 24 takes a scratch for its K division records
+        records = (() if P == 16 else
+                   (torch.empty(4 * K, dtype=torch.int32, device=device),))
         ms["encode"] = kernel_ms(
             lambda: h_buf.copy_(got[2]), lambda: _build.call(
                 f"ctt_{label}_encode", device, h_buf, got[0], cdf32, K,
-                got[1], nr, q_buf, L, T), 5)
+                got[1], nr, q_buf, *records, L, T), 5)
         same = same and torch.equal(q_buf, qt) and bool((h_buf == seed).all())
         if not same:
             fail(f"tchain_times: {label} timed launches differ from the "
@@ -1956,7 +2026,7 @@ def phase_tchain_times(device, work, gpu: str,
                             10 * n),
         }
         for kind in ms:
-            name = f"{label}_{kind}"
+            name = tchain_name(label, kind)
             errs[name] = max(errs[name], e[kind])
             times[name] = (ms[kind], plain[kind], *bounds[kind])
         if any(e.values()):
@@ -1986,6 +2056,54 @@ def phase_tchain_times(device, work, gpu: str,
             "gpu": gpu,
         })
     return {"phase": "tchain_times", "cases": rows}, times
+
+
+def phase_tchain_sweep(device, gpu: str) -> dict:
+    """The TChain-24 encode (kernel 24) per coding step at SWEEP_STEPS
+    steps over SWEEP_LANES lanes, as phase_sweep times the rANS pairs:
+    kernel-only (CUDA events around the C entry, the heads reset outside
+    them), its quantiles equal to the decoded ones, the floor at the fewest
+    lanes and the slope from 4096 lanes up (microseconds per step per 1024
+    lanes)."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import _build
+    from constriction_tpu_torch.ops import tchain as tc
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    rng = np.random.RandomState(24)
+    probs = rng.dirichlet(np.full(K_MAIN, 2.0))
+    cdf = convert.cdf_to_torch(model_cdf(probs, 24), device)
+    cdf32 = cdf.to(torch.int32)
+    records = torch.empty(4 * K_MAIN, dtype=torch.int32, device=device)
+    all_q = convert.u32_to_torch(rng.randint(
+        0, 1 << 24, size=max(SWEEP_LANES) * SWEEP_STEPS).astype(np.uint32),
+        device)
+    rows, us = [], []
+    for L in SWEEP_LANES:
+        cfg = LaneConfig(num_lanes=L, word_bits=32, state_bits=64,
+                         precision=24)
+        q = all_q[:L * SWEEP_STEPS]
+        syms, rem, heads = tc.tchain24_decode(q, cdf, cfg)
+        h_buf = torch.empty_like(heads)
+        q_buf = torch.empty_like(q)
+        ms = kernel_ms(lambda: h_buf.copy_(heads), lambda: _build.call(
+            "ctt_tchain24_encode", device, h_buf, syms, cdf32, K_MAIN, rem,
+            rem.numel(), q_buf, records, L, SWEEP_STEPS), 3)
+        if mismatch(q_buf, q) != 0 or not bool((h_buf == 256).all()):
+            fail(f"tchain_sweep: kernel 24 L={L} round trip")
+        us.append(ms * 1e3 / SWEEP_STEPS)
+        rows.append({"kernel": 24, "num_lanes": L, "steps": SWEEP_STEPS,
+                     "encode_ms": ms, "encode_us_per_step": us[-1],
+                     **tc.geometry24(L, K_MAIN, device)})
+    i = SWEEP_LANES.index(4096)
+    fit = {"us_per_step_floor": us[0],
+           "us_per_1024_lanes_per_step": (us[-1] - us[i]) * 1024 / (
+               SWEEP_LANES[-1] - SWEEP_LANES[i])}
+    return {"phase": "tchain_sweep", "cases": rows,
+            "fits": {"cluster_tchain24_encode": fit}, "gpu": gpu}
 
 
 def phase_chain_decode(device, gpu: str) -> dict:
@@ -3288,6 +3406,7 @@ def main(argv) -> int:
     tchain_times, more = phase_tchain_times(device, work, gpu, errs)
     emit(tchain_times)
     times.update(more)
+    emit(phase_tchain_sweep(device, gpu))
     emit(phase_chain_decode(device, gpu))
 
     with host_pool() as pool:

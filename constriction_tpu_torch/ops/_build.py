@@ -56,6 +56,11 @@ _GEOMETRY_ARGS = [_I32, _I32, _I32, _I32, _P, _P, _I32]
 _RANGE_RECORD_ARGS = [_P, _I64, _P, _I32, _P, _P, _P, _I32, _I32, _P, _I32]
 _RANGE_RESOLVE_ARGS = [_P, _P, _P, _P, _P, _I64, _P, _P, _I32, _I32, _P,
                        _I32]
+# kernel 8: records, s0, seal carry, buf, cap, end_out, points; its scratch
+# (words, flags, offsets)
+_RANGE_RESOLVE32_ARGS = [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _I32,
+                         _I32, _P, _I32]
+_RANGE_RESOLVE_LANES_ARGS = [_P, _P, _P, _P, _P, _P, _I32, _I32, _P, _I32]
 _RANGE_DECODE_ARGS = [_P, _P, _P, _P, _I64, _P, _I32, _P, _I64, _I32, _I32,
                       _P, _P, _I32]
 # the cluster size after `bad`
@@ -81,6 +86,13 @@ _TCHAIN12_ENCODE_ARGS = [_P, _P, _P, _P, _P, _I64, _P, _P, _I32, _I32,
 _TCHAIN_DECODE_ARGS = [_P, _P, _P, _I32, _P, _P, _I64, _P, _I32, _I32, _P,
                        _I32]
 _TCHAIN_ENCODE_ARGS = [_P, _P, _P, _I32, _P, _I64, _P, _I32, _I32, _P, _I32]
+# kernel 24: the division records' scratch after q
+_TCHAIN24_ENCODE_ARGS = [_P, _P, _P, _I32, _P, _I64, _P, _P, _I32, _I32, _P,
+                         _I32]
+# the cluster size after T
+_TCHAIN24_ENCODE_CLUSTER_ARGS = [*_TCHAIN24_ENCODE_ARGS[:10], _I32, _P, _I32]
+# L, K, cluster size, out[7]
+_TCHAIN24_GEOMETRY_ARGS = [_I32, _I32, _I32, _P, _P, _I32]
 _D = ctypes.c_double
 _EXACT_ENCODE_ARGS = [_P, _P, _P, _I64, _P, _I64, _P, _I32, _I32, _P, _I32]
 _EXACT_DECODE_ARGS = [_P, _P, _I64, _P, _I32, _P, _I64, _I32, _I32, _I32,
@@ -105,7 +117,8 @@ SIGNATURES = {
     "ctt_ilans2_compact": _COMPACT_ARGS,
     "ctt_ilans2_range_record_w16s32": _RANGE_RECORD_ARGS,
     "ctt_ilans2_range_record_w32s64": _RANGE_RECORD_ARGS,
-    "ctt_ilans2_range_resolve_w16s32": _RANGE_RESOLVE_ARGS,
+    "ctt_ilans2_range_resolve_w16s32": _RANGE_RESOLVE32_ARGS,
+    "ctt_ilans2_range_resolve_lanes_w16s32": _RANGE_RESOLVE_LANES_ARGS,
     "ctt_ilans2_range_resolve_w32s64": _RANGE_RESOLVE_ARGS,
     "ctt_ilans2_range_decode_w16s32": _RANGE_DECODE_ARGS,
     "ctt_ilans2_range_decode_w32s64": _RANGE_DECODE_ARGS,
@@ -121,7 +134,9 @@ SIGNATURES = {
     "ctt_tchain16_decode": _TCHAIN_DECODE_ARGS,
     "ctt_tchain16_encode": _TCHAIN_ENCODE_ARGS,
     "ctt_tchain24_decode": _TCHAIN_DECODE_ARGS,
-    "ctt_tchain24_encode": _TCHAIN_ENCODE_ARGS,
+    "ctt_tchain24_encode": _TCHAIN24_ENCODE_ARGS,
+    "ctt_tchain24_encode_cluster": _TCHAIN24_ENCODE_CLUSTER_ARGS,
+    "ctt_tchain24_geometry": _TCHAIN24_GEOMETRY_ARGS,
     "ctt_tchain12_family_decode": _TCHAIN12_DECODE_ARGS,
     "ctt_tchain12_family_encode": _TCHAIN12_ENCODE_ARGS,
     "ctt_tchain12_invert_pass": _TCHAIN12_INVERT_ARGS,

@@ -46,48 +46,14 @@
 // thread); a larger L returns an error.  ilans2.cuh's single-block loops
 // serve exact_family.cu's coders only.
 //
-// The decode model (BucketCdfModel) is ilans2_wide.cuh's, shared with the
-// range decode (ilans2_range.cu); the encode model below holds one CDF's
-// division records.  The CDF staging and the symbol search are in
-// lanes.cuh.
+// Both models are ilans2_wide.cuh's: the decode's (BucketCdfModel) is
+// shared with the range decode (ilans2_range.cu), the encode's
+// (RecordCdfModel, one CDF's division records) with the TChain-24 encode
+// (tchain.cu).  The CDF staging and the symbol search are in lanes.cuh.
 
 #include "ilans2_wide.cuh"
 
 namespace {
-
-// The encode model of ilans2_wide.cuh's pass A: each symbol's division
-// record (its interval and the multiply-high reciprocal of its probability,
-// built from the CDF by division_records_kernel), in shared memory when the
-// K records fit.  Symbols outside [0, K) are clamped to K-1 to keep the
-// reads in bounds (callers validate them).
-template <class Record>
-struct RecordCdfModel {
-  using Token = uint32_t;  // the symbol
-  using Interval = Record;
-  const int32_t* syms;
-  const Record* records;
-  int K;
-  int in_smem;
-
-  __device__ void stage(uint32_t* smem) {
-    if (!in_smem) return;
-    auto* dst = reinterpret_cast<Record*>(smem);
-    for (int s = threadIdx.x; s < K; s += blockDim.x) dst[s] = records[s];
-    records = dst;
-  }
-  __device__ Token fetch(int64_t i) const {
-    return min(static_cast<uint32_t>(syms[i]), static_cast<uint32_t>(K - 1));
-  }
-  __device__ Interval interval(Token sym) const { return records[sym]; }
-};
-
-// Dynamic shared memory of pass A: the K division records when they fit.
-template <class Record>
-size_t record_smem_bytes(RecordCdfModel<Record>* model) {
-  const size_t bytes = static_cast<size_t>(model->K) * sizeof(Record);
-  model->in_smem = bytes <= kSmemBudget;
-  return model->in_smem ? bytes : 0;
-}
 
 // The lane counts, alphabets and precisions a preset takes (P <= S - W:
 // the renorm keeps a state's top word nonzero).

@@ -42,11 +42,16 @@
 //   quantile's symbol), and the quantile's integer division replaced by an
 //   f64 estimate from an approximate reciprocal and one correcting product
 //   (f64_quotient).  The step's barriers and its chain (quotient, search,
-//   products, refill load) bound it.  Phase B still runs in ONE block of
-//   1024 threads with a warp ballot and a block scan per step (lanes.cuh),
-//   lane state in device memory (L2-resident) updated in place, and the
-//   emission of step t fused with the flagging of the next step:
-//   latency-bound on one SM.
+//   products, refill load) bound it.  Phase B at S=32 (kernel 8) is a lane
+//   pass over the whole grid and the encoders' row-major compaction
+//   (range_resolve_lanes_kernel, then launch_compact): a lane's carry
+//   chain reads only its own records, whose renorm flags fix where its
+//   words land, so nothing couples the lanes inside the step loop; the
+//   record loads bound it.  Phase B at S=64 (kernel 10) still runs in ONE
+//   block of 1024 threads with a warp ballot and a block scan per step
+//   (lanes.cuh), lane state in device memory (L2-resident) updated in
+//   place, and the emission of step t fused with the flagging of the next
+//   step: latency-bound on one SM.
 // - Phase A has no cross-lane dependency: a grid of L / 128 blocks, one
 //   thread per lane looping over T, with symbol reads and record writes
 //   coalesced across a warp and the next step's symbol loaded ahead.  It
@@ -114,12 +119,13 @@ __global__ void __launch_bounds__(kRecordThreads)
   rng_out[l] = range;
 }
 
-// Phase B, walking steps T-1 .. 0.  pend / d1s / d2s[L]: each lane's
-// pending carry and delay line, seeded by the caller from the seal (pend =
-// seal carry, d1 = the seal's word, d2 = 0) and updated in place.  buf[cap]:
-// the words of step t land right to left below an end pointer e, lanes
-// ascending, so on return the stream is buf[*end_out : cap].  points[L]:
-// the first two resolved words of each lane, (d1 << W) | d2.
+// Phase B in one block (kernel 10, instantiated at S=64 only), walking
+// steps T-1 .. 0.  pend / d1s / d2s[L]: each lane's pending carry and delay
+// line, seeded by the caller from the seal (pend = seal carry, d1 = the
+// seal's word, d2 = 0) and updated in place.  buf[cap]: the words of step
+// t land right to left below an end pointer e, lanes ascending, so on
+// return the stream is buf[*end_out : cap].  points[L]: the first two
+// resolved words of each lane, (d1 << W) | d2.
 template <int W, int S>
 __global__ void __launch_bounds__(kThreads, 1)
     ilans2_range_resolve_kernel(
@@ -183,6 +189,75 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tid == 0) *end_out = e;
 }
 
+// The S=32 phase B (kernel 8) as a lane pass and the encoders' row-major
+// compaction.  A lane's pending carry and delay line (p, d1, d2) read only
+// the lane's own records, and where a word lands is fixed by the renorm
+// flags phase A already wrote into the records (bit W): the lanes meet
+// only there, as in the TChain-12 decode (tchain.cu, kernel 21).  So
+// range_resolve_lanes_kernel runs one thread per lane over the grid (blocks
+// of kResolveThreads, a per-warp guard: L is any multiple of 32), walks
+// t = T-1 .. 0 with (p, d1, d2) in registers, seeded from the seal (p =
+// seal carry, d1 = the seal's word, d2 = 0), and its records loaded
+// kResolveAhead steps ahead; at a renorm it writes d2 to a dense
+// words[t * L + l], each step one ballot of renorm flags per 32-lane group
+// to flags[t * G + g], and at the end points[l] = d1 << W | d2.  Pass B
+// (launch_compact) writes the rows in ascending order: the stream runs
+// from step 0 to step T-1, lanes ascending within a step, as the single
+// block laid it out.  The lane pass is a chain of T short steps a lane;
+// its loads are the records, coalesced across a warp.
+constexpr int kResolveThreads = 128;
+constexpr int kResolveAhead = 8;  // records a lane has in flight
+
+template <int W, int S>
+__global__ void __launch_bounds__(kResolveThreads)
+    range_resolve_lanes_kernel(
+        const typename StateOf<S>::type* __restrict__ records,
+        const uint32_t* __restrict__ s0,
+        const uint32_t* __restrict__ seal_carry,
+        uint32_t* __restrict__ words, uint32_t* __restrict__ flags,
+        typename StateOf<S>::type* __restrict__ points, int L, int T) {
+  using State = typename StateOf<S>::type;
+  constexpr uint64_t kWordMask = (uint64_t(1) << W) - 1;
+  const int l = blockIdx.x * kResolveThreads + threadIdx.x;
+  if ((l & ~31) >= L) return;  // warp-uniform: L % 32 == 0
+  const int lane = threadIdx.x & 31, g = l >> 5, G = L >> 5;
+  uint32_t p = seal_carry[l], d1 = s0[l], d2 = 0;
+  State cur[kResolveAhead], nxt[kResolveAhead];
+#pragma unroll
+  for (int j = 0; j < kResolveAhead; ++j) {
+    const int t = T - 1 - j;
+    cur[j] = t >= 0 ? records[static_cast<int64_t>(t) * L + l] : State(0);
+  }
+  for (int t0 = T - 1; t0 >= 0; t0 -= kResolveAhead) {
+#pragma unroll
+    for (int j = 0; j < kResolveAhead; ++j) {
+      const int t = t0 - kResolveAhead - j;
+      nxt[j] = t >= 0 ? records[static_cast<int64_t>(t) * L + l] : State(0);
+    }
+#pragma unroll
+    for (int j = 0; j < kResolveAhead; ++j) {
+      const int t = t0 - j;
+      if (t >= 0) {  // uniform
+        const State rec = cur[j];
+        const bool renorm = ((rec >> W) & 1) != 0;
+        if (renorm) {
+          words[static_cast<int64_t>(t) * L + l] = d2;  // resolved two later
+          const uint64_t vfull = (uint64_t(rec) & kWordMask) + p;
+          d2 = d1;
+          d1 = static_cast<uint32_t>(vfull & kWordMask);
+          p = static_cast<uint32_t>(vfull >> W);
+        }
+        p += static_cast<uint32_t>((rec >> (W + 1)) & 1);
+        const unsigned bal = __ballot_sync(kFull, renorm);
+        if (lane == 0) flags[static_cast<int64_t>(t) * G + g] = bal;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kResolveAhead; ++j) cur[j] = nxt[j];
+  }
+  points[l] = (State(d1) << W) | State(d2);
+}
+
 int num_steps(long long n, int L) {
   return static_cast<int>((n + L - 1) / L);
 }
@@ -227,6 +302,44 @@ int launch_resolve(const void* records, void* pend, void* d1, void* d2,
       static_cast<uint32_t*>(buf), cap, static_cast<int64_t*>(end_out),
       static_cast<State*>(points), L, T);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 8's lane pass alone: words[T * L] (left as they are where a lane
+// does not renorm) and flags[T * L / 32] out.
+int launch_resolve_lanes(const void* records, const void* s0,
+                         const void* seal_carry, void* words, void* flags,
+                         void* points, int L, int T, void* cuda_stream,
+                         int device) {
+  if (L <= 0 || L % 32 != 0 || T < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (T == 0) return static_cast<int>(cudaGetLastError());
+  range_resolve_lanes_kernel<16, 32><<<ceil_div(L, kResolveThreads),
+                                       kResolveThreads, 0,
+                                       static_cast<cudaStream_t>(
+                                           cuda_stream)>>>(
+      static_cast<const uint32_t*>(records),
+      static_cast<const uint32_t*>(s0),
+      static_cast<const uint32_t*>(seal_carry), static_cast<uint32_t*>(words),
+      static_cast<uint32_t*>(flags), static_cast<uint32_t*>(points), L, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 8: the lane pass, then pass B into buf[*end_out : cap].  Scratch
+// the caller allocates: words[T * L], flags[T * L / 32], offsets[kScanBlocks]
+// (u64).
+int launch_resolve32(const void* records, const void* s0,
+                     const void* seal_carry, void* buf, long long cap,
+                     void* end_out, void* points, void* words, void* flags,
+                     void* offsets, int L, int T, void* cuda_stream,
+                     int device) {
+  const int err = launch_resolve_lanes(records, s0, seal_carry, words, flags,
+                                       points, L, T, cuda_stream, device);
+  if (err != 0 || T == 0) return err;
+  return launch_compact(flags, words, static_cast<long long>(T) * (L / 32),
+                        buf, cap, end_out, offsets, cuda_stream, device);
 }
 
 // The cluster decode (kernels 5 and 6); `cluster` 0 picks the cluster size
@@ -308,13 +421,26 @@ int ctt_ilans2_range_record_w32s64(const void* syms, long long n,
                                P, cuda_stream, device);
 }
 
-int ctt_ilans2_range_resolve_w16s32(const void* records, void* pend,
-                                    void* d1, void* d2, void* buf,
+// Kernel 8 (words[T * L], flags[T * L / 32] and offsets[kScanBlocks] are
+// scratch; s0 and seal_carry are read only).
+int ctt_ilans2_range_resolve_w16s32(const void* records, const void* s0,
+                                    const void* seal_carry, void* buf,
                                     long long cap, void* end_out,
-                                    void* points, int L, int T,
+                                    void* points, void* words, void* flags,
+                                    void* offsets, int L, int T,
                                     void* cuda_stream, int device) {
-  return launch_resolve<16, 32>(records, pend, d1, d2, buf, cap, end_out,
-                                points, L, T, cuda_stream, device);
+  return launch_resolve32(records, s0, seal_carry, buf, cap, end_out, points,
+                          words, flags, offsets, L, T, cuda_stream, device);
+}
+
+// Kernel 8's lane pass alone (pass B alone is ctt_ilans2_compact).
+int ctt_ilans2_range_resolve_lanes_w16s32(const void* records, const void* s0,
+                                          const void* seal_carry, void* words,
+                                          void* flags, void* points, int L,
+                                          int T, void* cuda_stream,
+                                          int device) {
+  return launch_resolve_lanes(records, s0, seal_carry, words, flags, points,
+                              L, T, cuda_stream, device);
 }
 
 int ctt_ilans2_range_resolve_w32s64(const void* records, void* pend,

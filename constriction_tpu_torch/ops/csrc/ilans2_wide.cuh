@@ -8,8 +8,11 @@
 // a grouped message (kernel 16, Seg); ilans2_family.cu the decode for the
 // per-symbol families (kernel 11); ilans2_range.cu the range decode's twin
 // of the cluster decode at both presets (cluster_range_decode_kernel,
-// kernels 5 and 6), which shares its step exchange (exchange_step); and
-// tchain.cu the compaction (launch_compact) behind its TChain-12 decode.
+// kernels 5 and 6), which shares its step exchange (exchange_step), and
+// the compaction (launch_compact) behind its S=32 carry resolve (kernel 8);
+// and tchain.cu the step exchange, the encode model (RecordCdfModel) and
+// plan_cluster for its TChain-24 cluster encode (kernel 24), and the
+// compaction behind its TChain-12 decode (kernel 21).
 // They are templated on (W, S, Model); a model provides, besides stage():
 //   decode: template <int R> invert_lanes(t, l[R], q[R], sym[R], cum[R],
 //           prob[R]) -- the R quantiles of one thread at once (l may lie
@@ -24,12 +27,12 @@
 //           prob(), divide(x) (x / prob) and a static unit() (cum 0,
 //           prob 1).
 // BucketCdfModel below (decode: a bucket table in front of the CDF
-// search), ilans2.cu's RecordCdfModel (encode: a division record per
-// symbol, the division as a multiply-high; DivisionRecord at S=64,
-// DivisionRecord32 at S=32), exact_family.cu's TableModel (decode: the
-// packed tables in device memory, searched in lock step) and
-// ilans2_family.cu's FamilyModel (decode: family.cuh's bisection over the
-// integer CDF, in lock step) provide them.
+// search), RecordCdfModel below (encode: a division record per symbol, the
+// division as a multiply-high; DivisionRecord at S=64, DivisionRecord32 at
+// S=32), exact_family.cu's TableModel (decode: the packed tables in device
+// memory, searched in lock step) and ilans2_family.cu's FamilyModel
+// (decode: family.cuh's bisection over the integer CDF, in lock step)
+// provide them.
 //
 // Decode (cluster_decode_kernel).  A decode step needs the exclusive count of
 // refilling lanes below each lane over all L lanes, and that count depends on
@@ -221,6 +224,42 @@ __global__ void __launch_bounds__(128)
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= K) return;
   out[s] = Record::build(cdf[s], cdf[s + 1] - cdf[s]);
+}
+
+// The encode model of pass A (ilans2.cu, kernels 2 and 3) and of the
+// TChain-24 cluster encode (tchain.cu, kernel 24): each symbol's division
+// record (its interval and the multiply-high reciprocal of its
+// probability, built from the CDF by division_records_kernel), in shared
+// memory when the K records fit.  Symbols outside [0, K) are clamped to
+// K-1 to keep the reads in bounds (callers validate them).
+template <class Record>
+struct RecordCdfModel {
+  using Token = uint32_t;  // the symbol
+  using Interval = Record;
+  const int32_t* syms;
+  const Record* records;
+  int K;
+  int in_smem;
+
+  __device__ void stage(uint32_t* smem) {
+    if (!in_smem) return;
+    auto* dst = reinterpret_cast<Record*>(smem);
+    for (int s = threadIdx.x; s < K; s += blockDim.x) dst[s] = records[s];
+    records = dst;
+  }
+  __device__ Token fetch(int64_t i) const {
+    return min(static_cast<uint32_t>(syms[i]), static_cast<uint32_t>(K - 1));
+  }
+  __device__ Interval interval(Token sym) const { return records[sym]; }
+};
+
+// Dynamic shared memory of an encode over RecordCdfModel: the K division
+// records when they fit.
+template <class Record>
+size_t record_smem_bytes(RecordCdfModel<Record>* model) {
+  const size_t bytes = static_cast<size_t>(model->K) * sizeof(Record);
+  model->in_smem = bytes <= kSmemBudget;
+  return model->in_smem ? bytes : 0;
 }
 
 // The decode model of the categorical coders' cluster decodes (rANS,

@@ -17,20 +17,23 @@
 // below prob << (S-W-P) refills W bits, the one the exact inverse of the
 // other.
 //
-// The categorical pair is one template over (W, S, P), in the shape of the
-// TChain-12 encoder below: one thread block codes the message, heads live in
-// device memory (updated in place), the words a step flushes are written
-// in the next iteration once the block scan (lanes.cuh) has placed them,
-// the CDF is staged in shared memory when it fits, and a quantile finds its
-// symbol by binary search (find_symbol).  Lanes are strided (lane = row *
-// 1024 + thread) and the last row is guarded per warp, so any L that is a
-// multiple of 32 runs (the wrappers take multiples of 256 and 128, as the
-// JAX package does).  The head update is native: u32 at S=32 (head < 2^16
-// and prob <= 2^16 keep head * prob + (q - cum) below 2^32; the CDF and
-// prob are never held in 16 bits, since a one-symbol model has prob =
-// 2^16), u64 at S=64 (head < 2^40, prob <= 2^24: the product stays below
-// 2^64), and the S=64 encoder divides a u64 head by prob once per symbol
-// (a software routine on this card).
+// The categorical decodes and the TChain-16 encode are one template over
+// (W, S, P), in the shape of the TChain-12 encoder below: one thread block
+// codes the message, heads live in device memory (updated in place), the
+// words a step flushes are written in the next iteration once the block
+// scan (lanes.cuh) has placed them, the CDF is staged in shared memory
+// when it fits, and a quantile finds its symbol by binary search
+// (find_symbol).  Lanes are strided (lane = row * 1024 + thread) and the
+// last row is guarded per warp, so any L that is a multiple of 32 runs (the
+// wrappers take multiples of 256 and 128, as the JAX package does).  The
+// head update is native: u32 at S=32 (head < 2^16 and prob <= 2^16 keep
+// head * prob + (q - cum) below 2^32; the CDF and prob are never held in
+// 16 bits, since a one-symbol model has prob = 2^16), u64 at S=64 (head <
+// 2^40, prob <= 2^24: the product stays below 2^64).  The TChain-24 encode
+// (kernel 24) runs on ilans2_wide.cuh's cluster step instead
+// (cluster_tchain_encode_kernel, below): its heads in registers, one
+// exchange a step, the u64 division a multiply-high by each symbol's
+// DivisionRecord.
 //
 // Quantile layouts keep the Pallas wire format.  TChain-24: one quantile
 // per u32 word.  TChain-16 (ops/tchain.py pack_quantiles): within a step
@@ -46,14 +49,18 @@
 // inversion pass of one thread per symbol, which holds its
 // operation-bound work (a bisection over left() per quantile), a head
 // pass of one thread per lane, and ilans2_wide.cuh's row-major compaction.
-// The other five kernels run on one SM: latency and issue.  The table pair
+// The TChain-24 encode (kernel 24) runs on a cluster of up to 16 SMs: its
+// refills couple the lanes at every step, so the step's exchange and its
+// chain (record, ballot, barriers, one L2 load, a multiply-high) bound it.
+// The other four kernels run on one SM: latency and issue.  The table pair
 // does what the ILANS2 rANS kernels do per symbol (a dependent chain of
 // head load, CDF search, head update and store), so it should cost what
 // they cost per step; the family encoder adds two evaluations of left()
 // per re-encoded symbol (it keeps each lane's pending (cum, prob) in a
 // scratch array, `tab`, as the rANS family encoder does).  The TChain-16
 // and TChain-24 decodes have the TChain-12 decode's lane independence and
-// can take its head pass and compaction by instantiation.
+// can take its head pass and compaction by instantiation; the TChain-16
+// encode can take kernel 24's cluster step.
 
 #include "family.cuh"
 #include "ilans2_wide.cuh"
@@ -281,6 +288,221 @@ int launch_cat_encode(void* heads, const void* syms, const void* cdf, int K,
       static_cast<const uint32_t*>(words), wlen, static_cast<uint32_t*>(q), L,
       T, cdf_in_smem);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The TChain-24 encode (kernel 24) on a cluster of CTAs, the lanes split
+// as in ilans2_wide.cuh's cluster_decode_kernel (R lanes a thread, their
+// u64 heads in registers for the whole message).  A lane's refill decision
+// h < prob << 8 at step t reads the head that step t + 1's refill made,
+// and that refill's word index depends on every lane's decision there: the
+// lanes are coupled as an rANS decode's are, and the steps stay serial.
+// One step, T-1 .. 0: each lane's division record (RecordCdfModel over
+// DivisionRecord, staged in shared memory when the K records fit; the
+// symbols read a step ahead), the refill ballot, the cluster's exchange
+// (exchange_step), the R word loads (all issued before any is used; the
+// remainder stream read forward from word 0, in the order the decoder
+// wrote it), h = h << 32 | word, the division by prob as a multiply-high
+// (exact for every u64 h), and the quantile cum + h mod prob.  The L2
+// prefetch of the next two steps' words is the decode's.  heads[L]: the
+// decoder's final heads in, the heads before step 0 out.  words[wlen]: the
+// remainder stream; reads past its end yield 0.  q[T * L]: the quantiles
+// out, every one written.
+template <int W, int S, int P, int R, class Model>
+__global__ void __launch_bounds__(kClusterWarps * 32, 1)
+    cluster_tchain_encode_kernel(typename StateOf<S>::type* __restrict__ heads,
+                                 Model model,
+                                 const uint32_t* __restrict__ words,
+                                 int64_t wlen, uint32_t* __restrict__ q,
+                                 int L, int T, int groups_per_cta) {
+  using Head = typename StateOf<S>::type;
+  using Token = typename Model::Token;
+  using Interval = typename Model::Interval;
+  extern __shared__ __align__(16) uint32_t smem_model[];
+  __shared__ StepExchange xch;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int C = static_cast<int>(cluster.num_blocks());
+
+  constexpr int kShift = S - W - P;  // refill: head < prob << (S-W-P)
+  constexpr uint32_t kWordMask = W == 32 ? kFull : ((1u << W) - 1u);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warps = blockDim.x >> 5;
+  const uint32_t lt_mask = (1u << lane) - 1u;
+  const int G = L / 32;
+  const int g_end = min(G, (rank + 1) * groups_per_cta);
+  const int g0 = rank * groups_per_cta + warp * R;  // slot 0's group
+
+  model.stage(smem_model);
+  Head h[R];
+  Token tok[R];  // the symbols of the step being coded
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int l = (g0 + r) * 32 + lane;
+    const bool live = g0 + r < g_end;
+    h[r] = live ? heads[l] : Head(0);
+    tok[r] = live ? model.fetch(static_cast<int64_t>(T - 1) * L + l)
+                  : Token{};
+  }
+  int64_t base = 0;  // first stream word of this step's refills
+  // the first two steps' words into L2
+  const int64_t cluster_tid = static_cast<int64_t>(rank) * blockDim.x + tid;
+  const int64_t reach_lines = (2 * static_cast<int64_t>(L) + 31) / 32 + 1;
+  {
+    const int64_t at = cluster_tid * 32;
+    if (cluster_tid < reach_lines && at < wlen) prefetch_l2(words + at);
+  }
+  // the staged records are visible, and every CTA of the cluster runs
+  // before the first remote write
+  cluster_barrier();
+
+  for (int t = T - 1; t >= 0; --t) {
+    const int par = t & 1;
+    // the next step's symbols, a step ahead; this step's records and
+    // refill decisions
+    Token nxt[R];
+    Interval rec[R];
+    bool refill[R];
+    uint32_t count = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int l = (g0 + r) * 32 + lane;
+      const bool live = g0 + r < g_end;
+      nxt[r] = live && t > 0
+                   ? model.fetch(static_cast<int64_t>(t - 1) * L + l)
+                   : Token{};
+      rec[r] = model.interval(tok[r]);
+      refill[r] = false;
+      if (live) {  // warp-uniform
+        refill[r] = h[r] < (static_cast<Head>(rec[r].prob()) << kShift);
+        count += __popc(__ballot_sync(kFull, refill[r]));
+      }
+    }
+    const StepOffsets off =
+        exchange_step(xch, cluster, count, par, rank, C, lane, warp, warps);
+
+    // refill: the step's flagged lanes take the next words in lane order;
+    // all R loads are issued before any is used
+    int64_t idx = base + off.cta + off.warp;
+    uint32_t word[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      word[r] = 0u;
+      if (g0 + r < g_end) {
+        const unsigned bal = __ballot_sync(kFull, refill[r]);
+        const int64_t at = idx + __popc(bal & lt_mask);
+        if (refill[r] && at < wlen) word[r] = words[at];
+        idx += __popc(bal);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (g0 + r < g_end) {
+        if (refill[r]) {
+          h[r] = (h[r] << W) | static_cast<Head>(word[r] & kWordMask);
+        }
+        const Head quot = rec[r].divide(h[r]);
+        const uint32_t rem = static_cast<uint32_t>(
+            h[r] - quot * static_cast<Head>(rec[r].prob()));
+        q[static_cast<int64_t>(t) * L + (g0 + r) * 32 + lane] =
+            rec[r].cum() + rem;
+        h[r] = quot;
+      }
+      tok[r] = nxt[r];
+    }
+    base += off.total;
+    const int64_t at = (base & ~int64_t(31)) + cluster_tid * 32;
+    if (cluster_tid < reach_lines && at < wlen) prefetch_l2(words + at);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (g0 + r < g_end) heads[(g0 + r) * 32 + lane] = h[r];
+  }
+}
+
+using TChain24Model = RecordCdfModel<DivisionRecord>;
+using TChain24EncodeFn = void (*)(uint64_t*, TChain24Model, const uint32_t*,
+                                  int64_t, uint32_t*, int, int, int);
+
+TChain24EncodeFn tchain24_encode_for(int rows) {
+  switch (rows) {
+    case 1: return cluster_tchain_encode_kernel<32, 64, 24, 1, TChain24Model>;
+    case 2: return cluster_tchain_encode_kernel<32, 64, 24, 2, TChain24Model>;
+    case 4: return cluster_tchain_encode_kernel<32, 64, 24, 4, TChain24Model>;
+    case 8: return cluster_tchain_encode_kernel<32, 64, 24, 8, TChain24Model>;
+    case 16:
+      return cluster_tchain_encode_kernel<32, 64, 24, 16, TChain24Model>;
+    case 32:
+      return cluster_tchain_encode_kernel<32, 64, 24, 32, TChain24Model>;
+    default: return nullptr;
+  }
+}
+
+// The cluster encode's model, shared memory and plan for L lanes and K
+// symbols (`cluster` 0: the size picked from L).
+cudaError_t plan_tchain24_encode(int L, int K, int cluster, int device,
+                                 TChain24Model* model, size_t* bytes,
+                                 ClusterGeometry* geo,
+                                 TChain24EncodeFn* kernel) {
+  *bytes = record_smem_bytes(model);
+  return plan_cluster(L, cluster, *bytes, device, geo, kernel,
+                      tchain24_encode_for);
+}
+
+// The TChain-24 encode: the division records of the CDF's symbols into
+// records[K] (scratch the caller allocates, 16 bytes each), then the
+// cluster encode; `cluster` 0 picks the cluster size from L.
+int launch_tchain24_encode(void* heads, const void* syms, const void* cdf,
+                           int K, const void* words, long long wlen, void* q,
+                           void* records, int L, int T, int cluster,
+                           void* cuda_stream, int device) {
+  if (!valid_cat<64>(L, K, T)) return static_cast<int>(cudaErrorInvalidValue);
+  TChain24Model model{static_cast<const int32_t*>(syms),
+                      static_cast<const DivisionRecord*>(records), K, 0};
+  size_t bytes;
+  ClusterGeometry geo;
+  TChain24EncodeFn kernel;
+  cudaError_t err = plan_tchain24_encode(L, K, cluster, device, &model,
+                                         &bytes, &geo, &kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (T == 0) return static_cast<int>(cudaGetLastError());
+  const auto stream = static_cast<cudaStream_t>(cuda_stream);
+  division_records_kernel<DivisionRecord><<<ceil_div(K, 128), 128, 0,
+                                            stream>>>(
+      static_cast<const uint32_t*>(cdf), K,
+      static_cast<DivisionRecord*>(records));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(geo, bytes, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<uint64_t*>(heads), model,
+                           static_cast<const uint32_t*>(words),
+                           static_cast<int64_t>(wlen),
+                           static_cast<uint32_t*>(q), L, T,
+                           geo.groups_per_cta);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The cluster encode's geometry for L lanes and K symbols (`cluster` 0:
+// the size the encode picks), into out[7]: cluster size, groups per CTA,
+// lanes per thread, threads per CTA, the card's maximum of active clusters
+// of that shape, the dynamic shared memory bytes, whether the records are
+// in shared memory.
+int tchain24_geometry(int L, int K, int cluster, long long* out,
+                      int device) {
+  if (!valid_cat<64>(L, K, 0)) return static_cast<int>(cudaErrorInvalidValue);
+  TChain24Model model{nullptr, nullptr, K, 0};
+  size_t bytes;
+  ClusterGeometry geo;
+  TChain24EncodeFn kernel;
+  const cudaError_t err = plan_tchain24_encode(L, K, cluster, device, &model,
+                                               &bytes, &geo, &kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long vals[7] = {geo.cluster, geo.groups_per_cta, geo.rows,
+                             geo.threads, geo.max_active_clusters,
+                             static_cast<long long>(bytes), model.in_smem};
+  for (int k = 0; k < 7; ++k) out[k] = vals[k];
+  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -584,11 +806,30 @@ int ctt_tchain16_encode(void* heads, const void* syms, const void* cdf, int K,
                                        L, T, cuda_stream, device);
 }
 
+// records[K]: scratch for the division records (16 bytes each).
 int ctt_tchain24_encode(void* heads, const void* syms, const void* cdf, int K,
-                        const void* words, long long wlen, void* q, int L,
-                        int T, void* cuda_stream, int device) {
-  return launch_cat_encode<32, 64, 24>(heads, syms, cdf, K, words, wlen, q, L,
-                                       T, cuda_stream, device);
+                        const void* words, long long wlen, void* q,
+                        void* records, int L, int T, void* cuda_stream,
+                        int device) {
+  return launch_tchain24_encode(heads, syms, cdf, K, words, wlen, q, records,
+                                L, T, 0, cuda_stream, device);
+}
+
+// The same encode on a cluster of `cluster` CTAs (1 .. 16).
+int ctt_tchain24_encode_cluster(void* heads, const void* syms,
+                                const void* cdf, int K, const void* words,
+                                long long wlen, void* q, void* records, int L,
+                                int T, int cluster, void* cuda_stream,
+                                int device) {
+  if (cluster < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_tchain24_encode(heads, syms, cdf, K, words, wlen, q, records,
+                                L, T, cluster, cuda_stream, device);
+}
+
+int ctt_tchain24_geometry(int L, int K, int cluster, long long* out,
+                          void* cuda_stream, int device) {
+  (void)cuda_stream;
+  return tchain24_geometry(L, K, cluster, out, device);
 }
 
 int ctt_tchain12_family_decode(void* heads, const void* qw, const void* means,

@@ -13,7 +13,11 @@ adds +1 to the digits emitted so far.  So the encoder runs in two phases:
 - **phase B** (:func:`resolve`): backward in time, a pending +1 per lane
   resolves the carries, and a 2-deep delay line places each lane's words
   (its first two words form the point header) in the shared stream, step
-  by step, lanes ascending.
+  by step, lanes ascending.  A lane's carry chain reads only its own
+  records, and the renorm flag that places a word is already in them, so
+  at S=32 the card runs it as a lane pass (:func:`resolve_lanes`: dense
+  words and renorm ballots) and the encoders' row-major compaction
+  (``coder.compact_pass``); at S=64 one block still walks the steps.
 
 The wrappers launch the kernels of ``csrc/ilans2_range.cu`` for CUDA
 tensors, the seal running between the two launches on the device; CPU
@@ -33,6 +37,7 @@ import torch
 from .. import convert
 from . import _build
 from .coder import (
+    SCAN_BLOCKS,
     _check,
     _check_cdf_arg,
     _check_cfg,
@@ -40,12 +45,16 @@ from .coder import (
     _num_steps,
     _on_cuda,
     _symbol_tables,
+    flag_ballots,
 )
 from .coder64 import _add64, _mul_small, _shr64
 from .interleaved import LaneConfig
 
-# kernel launches made by this module's wrappers (never by the twins)
-LAUNCHES = {"record": 0, "resolve": 0, "record64": 0, "resolve64": 0}
+# kernel launches made by this module's wrappers (never by the twins); the
+# S=32 phase B's lane pass launched alone (resolve_lanes) counts under its
+# own key
+LAUNCHES = {"record": 0, "resolve": 0, "record64": 0, "resolve64": 0,
+            "resolve_lanes": 0}
 
 _M32 = 0xFFFFFFFF
 
@@ -208,14 +217,9 @@ def record_plain(symbols, cdf, cfg: LaneConfig):
 # ---------------------------------------------------------------------------
 
 
-def resolve(records, s0, seal_carry, cfg: LaneConfig, n: int):
-    """Phase B: resolve the carries and place the words.  ``records`` from
-    :func:`record`, ``(s0, seal_carry)`` from :func:`seal`, ``n`` the
-    message length.  Returns ``(points [L], stream int32[num_words])``.
-    JAX counterpart: ``pallas_range_enc._range_resolve_kernel`` /
-    ``_range_resolve_kernel64``.  CUDA tensors launch the kernel (reading
-    the stream's start back: one sync), CPU tensors run
-    :func:`resolve_plain`."""
+def _resolve_args(records, s0, seal_carry, cfg: LaneConfig, n: int):
+    """Checks phase B's arguments; returns (state dtype, kernel tag,
+    LAUNCHES suffix, T)."""
     dtype, tag, suffix = _preset(cfg)
     L = cfg.num_lanes
     device = records.device
@@ -226,25 +230,113 @@ def resolve(records, s0, seal_carry, cfg: LaneConfig, n: int):
     if records.numel() != T * L:
         raise ValueError(f"records must have {T * L} entries for n={n}, "
                          f"got {records.numel()}")
+    return dtype, tag, suffix, T
+
+
+def resolve(records, s0, seal_carry, cfg: LaneConfig, n: int):
+    """Phase B: resolve the carries and place the words.  ``records`` from
+    :func:`record`, ``(s0, seal_carry)`` from :func:`seal`, ``n`` the
+    message length.  Returns ``(points [L], stream int32[num_words])``.
+    JAX counterpart: ``pallas_range_enc._range_resolve_kernel`` /
+    ``_range_resolve_kernel64``.  CUDA tensors launch the kernels (S=32:
+    the lane pass and the compaction in one C call, their scratch the
+    dense words, the ballots and the compaction's block offsets; S=64: one
+    block), reading the stream's start back (one sync); CPU tensors run
+    :func:`resolve_plain`."""
+    dtype, tag, suffix, T = _resolve_args(records, s0, seal_carry, cfg, n)
+    L = cfg.num_lanes
+    device = records.device
     if not _on_cuda(device):
         return resolve_plain(records, s0, seal_carry, cfg, n)
     points = torch.zeros(L, dtype=dtype, device=device)
     if T == 0:
         return points, torch.zeros(0, dtype=torch.int32, device=device)
-    LAUNCHES["resolve" + suffix] += 1
     buf = torch.empty(n, dtype=torch.int32, device=device)
     end = torch.empty(1, dtype=torch.int64, device=device)
-    _build.call(
-        f"ctt_ilans2_range_resolve_{tag}", device, records,
-        seal_carry.clone(), s0.clone(), torch.zeros_like(s0), buf, n, end,
-        points, L, T,
-    )
+    if cfg.state_bits == 64:
+        _build.call(
+            f"ctt_ilans2_range_resolve_{tag}", device, records,
+            seal_carry.clone(), s0.clone(), torch.zeros_like(s0), buf, n,
+            end, points, L, T,
+        )
+    else:
+        words = torch.empty(T * L, dtype=torch.int32, device=device)
+        flags = torch.empty(T * L // 32, dtype=torch.int32, device=device)
+        offsets = torch.empty(SCAN_BLOCKS, dtype=torch.int64, device=device)
+        _build.call(
+            f"ctt_ilans2_range_resolve_{tag}", device, records, s0,
+            seal_carry, buf, n, end, points, words, flags, offsets, L, T,
+        )
+    LAUNCHES["resolve" + suffix] += 1
     return points, buf[int(end.item()):]
+
+
+def resolve_lanes(records, s0, seal_carry, cfg: LaneConfig, n: int):
+    """The S=32 phase B's lane pass alone (its arguments and checks, n >
+    0): ``(words int32[T, L], ballots int32[T, L / 32], points int32[L])``,
+    row t holding step t's resolved words and renorm ballots; the
+    compaction (``coder.compact_pass``) of the two is :func:`resolve`'s
+    stream.  On the card the words of lanes that do not renorm are left
+    unwritten; a CPU tensor runs :func:`resolve_lanes_plain` and packs its
+    flags with ``coder.flag_ballots``."""
+    _check_cfg(cfg, 16, 32, 16)
+    _, _, _, T = _resolve_args(records, s0, seal_carry, cfg, n)
+    L = cfg.num_lanes
+    device = records.device
+    if not _on_cuda(device):
+        words, flags, points = resolve_lanes_plain(records, s0, seal_carry,
+                                                   cfg, n)
+        return words, flag_ballots(flags), points
+    words = torch.empty(T, L, dtype=torch.int32, device=device)
+    ballots = torch.empty(T, L // 32, dtype=torch.int32, device=device)
+    points = torch.zeros(L, dtype=torch.int32, device=device)
+    _build.call("ctt_ilans2_range_resolve_lanes_w16s32", device, records, s0,
+                seal_carry, words, ballots, points, L, T)
+    LAUNCHES["resolve_lanes"] += 1
+    return words, ballots, points
+
+
+def resolve_lanes_plain(records, s0, seal_carry, cfg: LaneConfig, n: int):
+    """The lane pass of phase B in plain PyTorch (any device, either
+    preset, no checks): each lane's pending carry and delay line through
+    steps T-1 .. 0, vectorised over lanes, on its own records.  Returns
+    ``(words int32[T, L], flags bool[T, L], points)``: row t holds step
+    t's resolved words (0 where a lane does not renorm) and renorm flags,
+    so the row-major compaction (``coder.compact_pass_plain``) lays the
+    stream out step 0 first, lanes ascending in a step, as
+    :func:`resolve_plain` does."""
+    L, W = cfg.num_lanes, cfg.word_bits
+    device = records.device
+    T = _num_steps(n, L)
+    recs = records.to(torch.int64).reshape(T, L)
+    wmask = (1 << W) - 1
+    p = convert.u32_values(seal_carry)
+    d1 = convert.u32_values(s0)
+    d2 = torch.zeros(L, dtype=torch.int64, device=device)
+    words = torch.zeros(T, L, dtype=torch.int64, device=device)
+    flags = torch.zeros(T, L, dtype=torch.bool, device=device)
+    for t in range(T - 1, -1, -1):
+        rec = recs[t]
+        m = ((rec >> W) & 1) == 1
+        vfull = (rec & wmask) + p
+        words[t] = torch.where(m, d2, 0)  # the word resolved two later
+        flags[t] = m
+        p = torch.where(m, vfull >> W, p) + ((rec >> (W + 1)) & 1)
+        d2 = torch.where(m, d1, d2)
+        d1 = torch.where(m, vfull & wmask, d1)
+    return convert.u32_bits(words), flags, _points(d1, d2, cfg)
+
+
+def _points(d1, d2, cfg: LaneConfig):
+    """The point header of each lane from its first two resolved words."""
+    if cfg.state_bits == 64:
+        return convert.u64_join(d1, d2)
+    return convert.u32_bits((d1 << cfg.word_bits) | d2)
 
 
 def resolve_plain(records, s0, seal_carry, cfg: LaneConfig, n: int):
     """Plain PyTorch twin of :func:`resolve` (any device, no checks)."""
-    L, S, W = cfg.num_lanes, cfg.state_bits, cfg.word_bits
+    L, W = cfg.num_lanes, cfg.word_bits
     device = records.device
     recs = records.to(torch.int64)
     wmask = (1 << W) - 1
@@ -261,10 +353,7 @@ def resolve_plain(records, s0, seal_carry, cfg: LaneConfig, n: int):
         p = torch.where(m, vfull >> W, p) + ((rec >> (W + 1)) & 1)
         d2 = torch.where(m, d1, d2)
         d1 = torch.where(m, vfull & wmask, d1)
-    stream = convert.u32_bits(buf[int(e):n])
-    if S == 64:
-        return convert.u64_join(d1, d2), stream
-    return convert.u32_bits((d1 << W) | d2), stream
+    return _points(d1, d2, cfg), convert.u32_bits(buf[int(e):n])
 
 
 # ---------------------------------------------------------------------------

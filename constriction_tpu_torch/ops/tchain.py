@@ -45,8 +45,9 @@ import torch
 from .. import convert
 from . import _build
 from . import family as fam
-from .coder import (SCAN_BLOCKS, _check, _check_cdf_arg, _emit_words,
-                    _find_symbols, _on_cuda, _refill_words, flag_ballots)
+from .coder import (MAX_DECODE_LANES, SCAN_BLOCKS, _check, _check_cdf_arg,
+                    _emit_words, _find_symbols, _on_cuda, _refill_words,
+                    flag_ballots)
 from .interleaved import LaneConfig
 
 TCHAIN_CFG = LaneConfig(num_lanes=32768, word_bits=16, state_bits=32,
@@ -748,19 +749,26 @@ def _launch_decode(tag: str, q, cdf, L: int, T: int, seed: int,
 
 
 def _launch_encode(tag: str, symbols, remainders, heads, cdf, L: int, T: int,
-                   q_words: int):
+                   q_words: int, cluster: int = 0):
     """One encode launch; returns (quantile words, heads).  The kernel
     writes every quantile (TChain-16 as 16-bit halves), so the output needs
-    no zeroing."""
+    no zeroing.  TChain-24 (kernel 24, a cluster of ``cluster`` CTAs, or the
+    size it picks from L when 0) takes a scratch for the K division
+    records, 16 bytes each."""
     device = symbols.device
     out_heads = heads.clone()
     q = torch.empty(T * q_words, dtype=torch.int32, device=device)
     if T:
         cdf32 = cdf.to(torch.int32)
+        K = cdf32.numel() - 1
+        entry, extra, size = f"ctt_tchain{tag}_encode", (), ()
+        if tag == "24":
+            extra = (torch.empty(4 * K, dtype=torch.int32, device=device),)
+            if cluster:
+                entry, size = "ctt_tchain24_encode_cluster", (cluster,)
+        _build.call(entry, device, out_heads, symbols, cdf32, K, remainders,
+                    remainders.numel(), q, *extra, L, T, *size)
         LAUNCHES[f"encode{tag}"] += 1
-        _build.call(f"ctt_tchain{tag}_encode", device, out_heads, symbols,
-                    cdf32, cdf32.numel() - 1, remainders, remainders.numel(),
-                    q, L, T)
     return q, out_heads
 
 
@@ -910,13 +918,63 @@ def tchain24_encode(symbols, remainders, heads, cdf,
     ``remainders`` int32 words, ``heads`` int64[L] (u64 bits), ``cdf``
     int64[K+1], on one device.  Returns ``(q int32[T * L], heads
     int64[L])``: the quantiles and the heads before step 0.  CUDA tensors
-    launch the kernel, CPU tensors run :func:`tchain24_encode_plain`."""
+    launch the cluster encode (``csrc/tchain.cu``, kernel 24; num_lanes up
+    to ``coder.MAX_DECODE_LANES``, else ValueError), CPU tensors run
+    :func:`tchain24_encode_plain` at any L."""
     L = cfg.num_lanes
     T = _encode_args(symbols, remainders, heads, cdf, cfg, TCHAIN24_CFG, 128,
                      torch.int64)
     if not _on_cuda(symbols.device):
         return tchain24_encode_plain(symbols, remainders, heads, cdf, cfg)
+    _check_reach(L)
     return _launch_encode("24", symbols, remainders, heads, cdf, L, T, L)
+
+
+def _check_reach(L: int) -> None:
+    """The cluster encode's reach, as the cluster decodes' (16 CTAs x 1024
+    threads x 32 lanes a thread)."""
+    if L > MAX_DECODE_LANES:
+        raise ValueError(
+            f"the TChain-24 encode kernel takes num_lanes up to "
+            f"{MAX_DECODE_LANES} (16 CTAs x 1024 threads x 32 lanes a "
+            f"thread), got num_lanes={L}")
+
+
+def tchain24_encode_cluster(symbols, remainders, heads, cdf, cluster: int,
+                            cfg: LaneConfig = TCHAIN24_CFG):
+    """:func:`tchain24_encode` on a cluster of ``cluster`` CTAs (1 .. 16) in
+    place of the size the kernel picks from L (CUDA tensors): how the card
+    tests reach uneven partitions and CTAs with no lanes."""
+    L = cfg.num_lanes
+    T = _encode_args(symbols, remainders, heads, cdf, cfg, TCHAIN24_CFG, 128,
+                     torch.int64)
+    if not _on_cuda(symbols.device):
+        raise ValueError("a forced cluster size needs CUDA tensors")
+    if not 1 <= cluster <= 16:
+        raise ValueError(f"cluster must be in 1 .. 16, got {cluster}")
+    _check_reach(L)
+    return _launch_encode("24", symbols, remainders, heads, cdf, L, T, L,
+                          cluster)
+
+
+_GEOMETRY24_KEYS = ("cluster", "groups_per_cta", "lanes_per_thread",
+                    "threads_per_cta", "max_active_clusters", "smem_bytes",
+                    "records_in_smem")
+
+
+def geometry24(L: int, K: int, device=None, cluster: int = 0) -> dict:
+    """The TChain-24 encode's launch geometry for L lanes and K symbols on
+    ``device`` (a CUDA device; the current one by default): its cluster
+    (``cluster`` 0: the size the kernel picks from L), the CTAs' groups,
+    lanes per thread and threads, the card's maximum of such active
+    clusters, the shared memory of a CTA and whether the K division
+    records are in it."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    out = torch.zeros(len(_GEOMETRY24_KEYS), dtype=torch.int64)
+    _build.call("ctt_tchain24_geometry", device, L, K, cluster, out)
+    geo = dict(zip(_GEOMETRY24_KEYS, (int(v) for v in out)))
+    geo["ctas"] = geo["cluster"]
+    return geo
 
 
 def tchain24_encode_plain(symbols, remainders, heads, cdf,

@@ -905,8 +905,9 @@ def test_range32_decode_lanes_past_the_cluster_reach(dev):
 
 # which kernels ptxas must compile without spilling, at 2 and 4 lanes a
 # thread (L = 32768 and 65536): the range decodes at both presets, the
-# S=64 exact table decodes (kernel 15; kernel 16, its Seg instance) and the
-# family decode (kernel 11, each family)
+# S=64 exact table decodes (kernel 15; kernel 16, its Seg instance), the
+# family decode (kernel 11, each family) and the TChain-24 encode (kernel
+# 24); and kernel 8's lane pass (one lane a thread)
 NO_SPILL = {
     "range S=64": r"cluster_range_decode_kernelILi32ELi64ELi{R}E",
     "range S=32": r"cluster_range_decode_kernelILi16ELi32ELi{R}E",
@@ -916,6 +917,8 @@ NO_SPILL = {
     **{f"family {name}":
        rf"cluster_decode_kernelILi16ELi32ELi{{R}}E.*FamilyModelILi{k}EE"
        for k, name in enumerate(fam.FAMILIES)},
+    "tchain24 encode": r"cluster_tchain_encode_kernelILi32ELi64ELi24ELi{R}E",
+    "range resolve lanes": r"range_resolve_lanes_kernel",
 }
 
 
@@ -1401,9 +1404,154 @@ def test_tchain_cat_encoder_writes_every_quantile(dev, P):
     out = torch.full_like(qt, -1)
     heads = got[2].clone()
     cdf32 = cdf.to(torch.int32)
-    _build.call(f"ctt_tchain{P}_encode", dev, heads, got[0], cdf32,
-                cdf32.numel() - 1, got[1], got[1].numel(), out, L, T)
+    K = cdf32.numel() - 1
+    # kernel 24 takes a scratch for its K division records (16 bytes each)
+    records = (() if P == 16 else
+               (torch.empty(4 * K, dtype=torch.int32, device=dev),))
+    _build.call(f"ctt_tchain{P}_encode", dev, heads, got[0], cdf32, K,
+                got[1], got[1].numel(), out, *records, L, T)
     assert torch.equal(out, qt)
+
+
+# --- kernel 24 on the cluster step ------------------------------------------
+
+
+def _tchain24_message(L, T, K, dev, seed):
+    """A TChain-24 decode on the card, checked against the host oracle:
+    (cdf, quantiles, symbols, remainders, heads) as CUDA tensors, and the
+    host's decode."""
+    cfg = _cat_cfg(24, L)
+    cdf_np = _cat_cdf(K, 24, seed)
+    q = np.random.RandomState(seed).randint(0, 1 << 24, size=L * T).astype(
+        np.uint32)
+    cdf = convert.cdf_to_torch(cdf_np, dev)
+    qt = convert.u32_to_torch(q, dev)
+    got = tc.tchain24_decode(qt, cdf, cfg)
+    host = tc.tchain24_decode_host(q, cdf_np, cfg)
+    np.testing.assert_array_equal(convert.u32_from_torch(got[1]), host[1])
+    return cfg, cdf_np, cdf, qt, got, host
+
+
+def _check_tchain24_encode(cfg, cdf_np, cdf, qt, got, host, cluster):
+    before = tc.LAUNCHES["encode24"]
+    back = (tc.tchain24_encode_cluster(*got, cdf, cluster, cfg) if cluster
+            else tc.tchain24_encode(*got, cdf, cfg))
+    assert tc.LAUNCHES["encode24"] == before + 1
+    plain = tc.tchain24_encode_plain(*got, cdf, cfg)
+    assert torch.equal(back[0], plain[0]) and torch.equal(back[1], plain[1])
+    assert torch.equal(back[0], qt) and bool((back[1] == 256).all())
+    q_h, h_h = tc.tchain24_encode_host(*host, cdf_np, cfg)
+    np.testing.assert_array_equal(convert.u32_from_torch(back[0]), q_h)
+    np.testing.assert_array_equal(convert.u64_from_torch(back[1]), h_h)
+    # truncated remainders read as zero words
+    cut = got[1][: got[1].numel() // 3].clone()
+    a = (tc.tchain24_encode_cluster(got[0], cut, got[2], cdf, cluster, cfg)
+         if cluster else tc.tchain24_encode(got[0], cut, got[2], cdf, cfg))
+    a_p = tc.tchain24_encode_plain(got[0], cut, got[2], cdf, cfg)
+    assert torch.equal(a[0], a_p[0]) and torch.equal(a[1], a_p[1])
+
+
+@pytest.mark.parametrize("cluster", list(range(1, 17)))
+@pytest.mark.parametrize("L,T", [(128, 5), (32768, 3), (65536, 2)])
+def test_tchain24_cluster_encode_matches_twin(dev, L, T, cluster):
+    """Every forced cluster size at 128 lanes (CTAs left with no lanes),
+    the facade's 32768 and 65536 (up to 32 lanes a thread on one CTA; at
+    65536 one CTA would need 64, past the kernel's reach, and raises)."""
+    args = _tchain24_message(L, T, 100, dev, L + T)
+    if L // 32 > cluster * 32 * 32:
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            tc.tchain24_encode_cluster(*args[4], args[2], cluster, args[0])
+        return
+    _check_tchain24_encode(*args, cluster)
+
+
+@pytest.mark.parametrize("K", [1, 100, 70_000])
+@pytest.mark.parametrize("L,T", [(384, 7), (32768, 3), (65536, 2)])
+def test_tchain24_encode_records_in_shared_or_device_memory(dev, L, T, K):
+    """K=70000 division records (1.1 MB) stay in device memory; the
+    one-symbol model divides by 2^24."""
+    geo = tc.geometry24(L, K, dev)
+    assert geo["records_in_smem"] == (K < 70_000)
+    _check_tchain24_encode(*_tchain24_message(L, T, K, dev, K + L), 0)
+
+
+def test_tchain24_encode_runs_as_a_cluster_and_caps_its_lanes(dev):
+    geo = tc.geometry24(32768, 100, dev)
+    assert geo["cluster"] == 16 and geo["lanes_per_thread"] == 2
+    assert geo["max_active_clusters"] >= 1
+    geo = tc.geometry24(coder.MAX_DECODE_LANES, 100, dev)
+    assert geo["lanes_per_thread"] == 32
+    L = coder.MAX_DECODE_LANES + 128
+    cfg = _cat_cfg(24, L)
+    cdf = convert.cdf_to_torch(_cat_cdf(100, 24, 3), dev)
+    syms = torch.zeros(L, dtype=torch.int32, device=dev)
+    heads = torch.full((L,), 256, dtype=torch.int64, device=dev)
+    words = torch.zeros(0, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match=f"num_lanes={L}"):
+        tc.tchain24_encode(syms, words, heads, cdf, cfg)
+
+
+# --- kernel 8: the S=32 range resolve as a lane pass and the compaction ----
+
+
+def _resolve32_case(L, n, seed, dev, skewed):
+    """Phase A's records and the seal for L lanes (any multiple of 32: the
+    plain phase A on the CPU, moved to the card)."""
+    rng = np.random.RandomState(seed)
+    syms, cdf = _range_symbols(rng, 100, 12, n, skewed)
+    cfg = _cfg(32, L, 12)
+    rec, low_f, rng_f = range_enc.record_plain(
+        torch.from_numpy(syms.astype(np.int32)), convert.cdf_to_torch(cdf),
+        cfg)
+    s0, carry = range_enc.seal(low_f, rng_f, cfg)
+    return cfg, rec.to(dev), s0.to(dev), carry.to(dev)
+
+
+@pytest.mark.parametrize("skewed", [False, True])
+@pytest.mark.parametrize("L,n", [(32, 3000), (96, 96 * 50 - 7), (160, 100),
+                                 (1184, 1184 * 20 + 3), (32800, 32800 * 3)])
+def test_range_resolve32_entries_match_twin(dev, L, n, skewed):
+    """Kernel 8's C entries at lane counts the wrappers do not take
+    (multiples of 32, not of 128), with carry runs: the whole resolve and
+    its lane pass alone against the plain passes."""
+    cfg, rec, s0, carry = _resolve32_case(L, n, L + n, dev, skewed)
+    T = -(-n // L)
+    pts_p, stream_p = range_enc.resolve_plain(rec, s0, carry, cfg, n)
+    words_p, flags_p, lpts_p = range_enc.resolve_lanes_plain(rec, s0, carry,
+                                                             cfg, n)
+    words = torch.empty(T * L, dtype=torch.int32, device=dev)
+    flags = torch.empty(T * L // 32, dtype=torch.int32, device=dev)
+    offsets = torch.empty(coder.SCAN_BLOCKS, dtype=torch.int64, device=dev)
+    buf = torch.empty(n, dtype=torch.int32, device=dev)
+    end = torch.empty(1, dtype=torch.int64, device=dev)
+    pts = torch.empty(L, dtype=torch.int32, device=dev)
+    _build.call("ctt_ilans2_range_resolve_w16s32", dev, rec, s0, carry, buf,
+                n, end, pts, words, flags, offsets, L, T)
+    assert torch.equal(pts, pts_p)
+    assert torch.equal(buf[int(end.item()):], stream_p)
+    words.fill_(-1)
+    pts.fill_(-1)
+    _build.call("ctt_ilans2_range_resolve_lanes_w16s32", dev, rec, s0, carry,
+                words, flags, pts, L, T)
+    f = flags_p.reshape(-1)
+    assert torch.equal(flags.view(T, L // 32), coder.flag_ballots(flags_p))
+    assert torch.equal(words[f], words_p.reshape(-1)[f])
+    assert torch.equal(pts, lpts_p)
+
+
+@pytest.mark.parametrize("L,n", [(128, 1), (128, 5000), (32768, 1 << 20),
+                                 (65536, 3 * 65536 + 5)])
+def test_range_resolve32_wrappers_match_twin(dev, L, n):
+    cfg, rec, s0, carry = _resolve32_case(L, n, n, dev, skewed=False)
+    before = dict(range_enc.LAUNCHES)
+    pts, stream = range_enc.resolve(rec, s0, carry, cfg, n)
+    assert range_enc.LAUNCHES["resolve"] == before["resolve"] + 1
+    pts_p, stream_p = range_enc.resolve_plain(rec, s0, carry, cfg, n)
+    assert torch.equal(pts, pts_p) and torch.equal(stream, stream_p)
+    words, ballots, lpts = range_enc.resolve_lanes(rec, s0, carry, cfg, n)
+    assert range_enc.LAUNCHES["resolve_lanes"] == before["resolve_lanes"] + 1
+    assert torch.equal(lpts, pts)
+    assert torch.equal(coder.compact_pass(words, ballots), stream)
 
 
 @pytest.mark.parametrize("P", [16, 24])
