@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Twelve coding kernels timed in several checkouts on one card, one
+"""Fourteen coding kernels timed in several checkouts on one card, one
 checkout after another in the order given.
 
     git archive <commit> | tar -x -C _scratch/parent
@@ -25,6 +25,11 @@ builds its kernels and times, on the same inputs:
   w16s32``), its direct form: the flags counted from the records over the
   grid, one scan, and the lane pass writing the stream itself (this
   package keeps the scratch form, which was the faster);
+- kernel 10, the S=64 range encode's phase B, on the same symbols'
+  records at P=24, L=32768 and L=65536: its C entry on preallocated
+  scratch (a checkout whose entry takes the lane state in place, one
+  block, has it reset outside the CUDA events), and, where the checkout
+  has them, its lane pass and pass B alone;
 - kernel 24, the TChain-24 encode, on the JAX suite's TChain row (2^24
   uniform quantiles, K=100 Dirichlet(2), seed 1234) at L=32768: its C
   entry;
@@ -42,6 +47,10 @@ builds its kernels and times, on the same inputs:
   symbols and their means and scales, seed 1234, [-100, 100]) at
   L=32768, for each of the four families: its C entry on a stream the
   checkout's own encoder wrote;
+- kernel 17, the S=64 exact encode, on the exact row's planes (2^22
+  symbols, gaussian, P=24) at L=32768: its C entry (on preallocated
+  scratch where it takes some; the states reset outside the CUDA events),
+  and, where the checkout has them, its pass A and pass B alone;
 - kernel 16, the S=64 exact segment decode, on the exact row's grouped
   plan (2^22 symbols, gaussian, P=24, L=32768, its segments' tables built
   on the card): the whole chain of its launches (CUDA events around it,
@@ -159,10 +168,14 @@ def time_decodes(root: str, kernels: set) -> dict:
         _time_range32(out, syms, probs, check)
     if 8 in kernels:
         _time_resolve32(out, syms, probs, check)
+    if 10 in kernels:
+        _time_resolve64(out, syms, probs, check)
     if 24 in kernels:
         _time_tchain24(out, check)
     if 15 in kernels:
         _time_exact(out, check)
+    if 17 in kernels:
+        _time_exact_encode(out, check)
     if 21 in kernels:
         _time_tchain12(out, check)
     if 11 in kernels:
@@ -345,6 +358,70 @@ def _time_resolve32(out, syms, probs, check):
         out[f"resolve32{suffix}_ms"] = _events_ms(launch, reset)
 
 
+def _time_resolve64(out, syms, probs, check):
+    """Kernel 10 into ``out``: the S=64 range resolve's C entry on bench.py's
+    symbols at P=24, L=32768 and 65536, on preallocated scratch, against
+    the wrapper's points and stream.  A checkout whose entry takes the lane
+    state (pend, d1, d2: one block) has it reset outside the CUDA events;
+    one with the lane pass also times it and pass B alone."""
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.models import fast_quantized_cdf
+    from constriction_tpu_torch.ops import _build, range_enc
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    dev = syms.device
+    cdf = convert.cdf_to_torch(fast_quantized_cdf(probs, 24), dev)
+    entry = "ctt_ilans2_range_resolve_w32s64"
+    lanes_entry = "ctt_ilans2_range_resolve_lanes_w32s64"
+    for lanes in (LANES, 2 * LANES):
+        cfg = LaneConfig(num_lanes=lanes, word_bits=32, state_bits=64,
+                         precision=24)
+        T = -(-N // lanes)
+        recs, low_f, rng_f = range_enc.record(syms, cdf, cfg)
+        s0, carry = range_enc.seal(low_f, rng_f, cfg)
+        pts, words = range_enc.resolve(recs, s0, carry, cfg, N)
+        buf = torch.empty(N, dtype=torch.int32, device=dev)
+        end = torch.empty(1, dtype=torch.int64, device=dev)
+        p_buf = torch.empty_like(pts)
+        key = "resolve64" + ("" if lanes == LANES else f"_L{lanes}")
+        scratch = ()
+        if len(_build.SIGNATURES[entry]) == 12:  # one block, state in place
+            lane_state = [torch.empty_like(s0) for _ in range(3)]
+
+            def reset():
+                lane_state[0].copy_(carry)
+                lane_state[1].copy_(s0)
+                lane_state[2].zero_()
+            args = (recs, *lane_state, buf, N, end, p_buf, lanes, T)
+        else:
+            scratch = (torch.empty(T * lanes, dtype=torch.int32, device=dev),
+                       torch.empty(T * lanes // 32, dtype=torch.int32,
+                                   device=dev),
+                       torch.empty(1024, dtype=torch.int64, device=dev))
+            reset = None
+            args = (recs, s0, carry, buf, N, end, p_buf, *scratch, lanes, T)
+
+        def launch():
+            _build.call(entry, dev, *args)
+        if reset is not None:
+            reset()
+        launch()
+        check(p_buf, pts, f"{key} points")
+        check(buf[int(end.item()):], words, f"{key} stream")
+        out[f"{key}_ms"] = _events_ms(launch, reset)
+        if scratch and lanes_entry in _build.SIGNATURES:
+            out[f"{key}_lanes_ms"] = _events_ms(lambda: _build.call(
+                lanes_entry, dev, recs, s0, carry, scratch[0], scratch[1],
+                p_buf, lanes, T))
+            out[f"{key}_pass_b_ms"] = _events_ms(lambda: _build.call(
+                "ctt_ilans2_compact", dev, scratch[1], scratch[0],
+                scratch[1].numel(), buf, N, end, scratch[2]))
+            check(buf[int(end.item()):], words, f"{key} passes apart")
+        del recs
+
+
 def _time_tchain24(out, check):
     """Kernel 24 into ``out``: the TChain-24 encode's C entry on the JAX
     suite's TChain row (2^24 uniform 24-bit quantiles, K=100 Dirichlet(2),
@@ -467,6 +544,60 @@ def _time_exact(out, check):
         out[f"{key}_ms"] = _events_ms(launch_exact, lambda: s_buf.copy_(st))
 
 
+def _time_exact_encode(out, check):
+    """Kernel 17 into ``out``: the C entry on the exact row's planes at
+    L=32768, the states reset outside the CUDA events, against the
+    wrapper's states and stream; on preallocated scratch where the entry
+    takes some, and then its pass A and pass B alone too."""
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import _build
+    from constriction_tpu_torch.ops import exact_family as ef
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    dev = torch.device("cuda", 0)
+    means, scales, esyms = _exact_workload(N_EXACT)
+    cu, pr = ef.exact_ecp(esyms, means, scales, "gaussian", -100, 100, 24)
+    cfg = LaneConfig(num_lanes=LANES, word_bits=32, state_bits=64,
+                     precision=24)
+    c_t, p_t = convert.ecp_to_torch(cu, pr, LANES, dev)
+    st, w = ef.encode_tables(c_t, p_t, cfg, None, N_EXACT)
+    T = -(-N_EXACT // LANES)
+    s_buf = torch.empty_like(st)
+    buf = torch.empty(N_EXACT, dtype=torch.int32, device=dev)
+    end = torch.empty(1, dtype=torch.int64, device=dev)
+    entry = "ctt_exact_encode64"
+    scratch = ()
+    if len(_build.SIGNATURES[entry]) > 11:
+        scratch = (torch.empty(T * LANES, dtype=torch.int32, device=dev),
+                   torch.empty(T * LANES // 32, dtype=torch.int32,
+                               device=dev),
+                   torch.empty(1024, dtype=torch.int64, device=dev))
+
+    def reset():
+        s_buf.fill_(1 << 32)
+
+    def launch():
+        _build.call(entry, dev, s_buf, c_t, p_t, N_EXACT, buf, N_EXACT, end,
+                    *scratch, LANES, 24)
+
+    reset()
+    launch()
+    check(s_buf, st, "exact encode states")
+    check(buf[int(end.item()):], w, "exact encode stream")
+    out["exact_encode_ms"] = _events_ms(launch, reset)
+    if scratch and "ctt_exact_encode_lanes64" in _build.SIGNATURES:
+        out["exact_encode_pass_a_ms"] = _events_ms(lambda: _build.call(
+            "ctt_exact_encode_lanes64", dev, s_buf, c_t, p_t, N_EXACT,
+            scratch[0], scratch[1], LANES, 24), reset)
+        check(s_buf, st, "exact encode pass A states")
+        out["exact_encode_pass_b_ms"] = _events_ms(lambda: _build.call(
+            "ctt_ilans2_compact", dev, scratch[1], scratch[0],
+            scratch[1].numel(), buf, N_EXACT, end, scratch[2]))
+        check(buf[int(end.item()):], w, "exact encode passes apart")
+
+
 def _time_family(out, check):
     """Kernel 11 into ``out``: the C entry on the family row, each family,
     the states reset outside the CUDA events."""
@@ -587,7 +718,7 @@ def _time_exact_seg(out, check):
 
 
 def main(argv: list[str]) -> int:
-    kernels = "1,2,3,4,5,6,8,11,15,16,21,24"
+    kernels = "1,2,3,4,5,6,8,10,11,15,16,17,21,24"
     if len(argv) > 1 and argv[0] == "--kernels":
         kernels, argv = argv[1], argv[2:]
     if len(argv) == 2 and argv[0] == "--one":
@@ -596,7 +727,7 @@ def main(argv: list[str]) -> int:
         return 0
     if not argv:
         sys.exit("usage: chip_ab.py [--kernels "
-                 "1,2,3,4,5,6,8,11,15,16,21,24] CHECKOUT ...")
+                 "1,2,3,4,5,6,8,10,11,15,16,17,21,24] CHECKOUT ...")
     for root in argv:
         done = subprocess.run([sys.executable, os.path.abspath(__file__),
                                "--kernels", kernels, "--one", root])

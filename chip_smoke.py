@@ -26,9 +26,9 @@ prints one JSON object per phase, then the kernels line, the card's
                     is in shared memory, the encode's pass-A grid, and
                     ptxas' registers and spills for their kernels at each
                     preset and lanes a thread and for the lane passes of
-                    kernels 21 and 8.  A spill in the range decodes or
-                    kernels 11, 15, 16 and 24 at 2 or 4 lanes a thread, or
-                    in those lane passes, fails the run, as does kernel 11,
+                    kernels 21, 8, 10 and 17.  A spill in the range decodes
+                    or kernels 11, 15, 16 and 24 at 2 or 4 lanes a thread,
+                    or in those lane passes, fails the run, as does kernel 11,
                     16 or 24 on fewer than 16 CTAs at L=32768.
 2. kernels       -- each rANS kernel against its plain PyTorch twin on the
                     same CUDA tensors and against the numpy host oracle
@@ -69,10 +69,11 @@ prints one JSON object per phase, then the kernels line, the card's
                     symbols; every range kernel must have launched.
 8. range_times   -- kernel-only time of each range kernel at that size
                     (CUDA events around each launch, after a warm-up; the
-                    C entries on preallocated scratch), kernel 8's lane
-                    pass and pass B timed apart, its twin's time on the
-                    card (outputs equal to the kernel's), and the facade's
-                    encode and decode call times and host shares.
+                    C entries on preallocated scratch), phase B's lane
+                    pass and pass B timed apart at both presets (kernels 8
+                    and 10), its twin's time on the card (outputs equal
+                    to the kernel's), and the facade's encode and decode
+                    call times and host shares.
    range_sweep   -- the range decodes' time per coding step (kernel 5 at
                     P=24, kernel 6 at P=12) at T=256 steps over L=128 ..
                     65536, as phase 5 fits it.
@@ -168,7 +169,8 @@ prints one JSON object per phase, then the kernels line, the card's
                     (as the suite computes it), the host rows and segments
                     of the builder and which libm functions
                     ``utils/special.py`` picked.
-21. exact_times  -- kernel-only time of each of the four at that size, its
+21. exact_times  -- kernel-only time of each of the four at that size
+                    (kernel 17's pass A and pass B also apart), its
                     twin's time on the card, the device table build split
                     into evaluation, host patch and derive + pack (Msym/s),
                     the facade's call times, and each kernel's bound
@@ -288,14 +290,14 @@ RANGE_KERNELS = {
     "ilans2_range_record_w16s32": (
         "range_enc", "record",
         "constriction_tpu/ops/pallas_range_enc.py:151", RANGE_SOURCE),
-    # kernel 8: the lane pass and the compaction (ilans2_wide.cuh)
+    # kernels 8 and 10: the lane pass and the compaction (ilans2_wide.cuh)
     "range_resolve_lanes_w16s32": (
         "range_enc", "resolve",
         "constriction_tpu/ops/pallas_range_enc.py:185", RANGE_SOURCE),
     "ilans2_range_record_w32s64": (
         "range_enc", "record64",
         "constriction_tpu/ops/pallas_range_enc.py:441", RANGE_SOURCE),
-    "ilans2_range_resolve_w32s64": (
+    "range_resolve_lanes_w32s64": (
         "range_enc", "resolve64",
         "constriction_tpu/ops/pallas_range_enc.py:484", RANGE_SOURCE),
 }
@@ -528,7 +530,8 @@ def ptxas_usage(log: str, marks: tuple) -> dict:
 # both presets, the S=64 exact table decodes (kernels 15 and 16), the
 # family decode (kernel 11, each family) and the TChain-24 encode (kernel
 # 24) at 2 and 4 lanes a thread (L = 32768 and 65536), the TChain-12
-# decode's two passes and kernel 8's lane pass
+# decode's two passes, the range resolves' lane passes (kernels 8 and 10)
+# and kernel 17's pass A
 NO_SPILL = (r"cluster_range_decode_kernelILi32ELi64ELi[24]E",
             r"cluster_range_decode_kernelILi16ELi32ELi[24]E",
             r"cluster_decode_kernelILi32ELi64ELi[24]E.*TableModelELb0E",
@@ -537,7 +540,9 @@ NO_SPILL = (r"cluster_range_decode_kernelILi32ELi64ELi[24]E",
               for k in range(4)),
             r"cluster_tchain_encode_kernelILi32ELi64ELi24ELi[24]E",
             r"tchain12_invert_kernel", r"tchain12_heads_kernel",
-            r"range_resolve_lanes_kernel")
+            r"range_resolve_lanes_kernelILi16ELi32E",
+            r"range_resolve_lanes_kernelILi32ELi64E",
+            r"encode_lanes_kernelILi32ELi64E.*PlaneLanesModel")
 
 
 def phase_geometry(device) -> dict:
@@ -548,7 +553,8 @@ def phase_geometry(device) -> dict:
     (kernel 11, each family) and the TChain-24 cluster encode (kernel 24)
     at bench.py's lane counts for its K, and what ptxas reported for their
     kernels at each preset and lanes a thread and for the lane passes of
-    kernels 21 and 8.  Fails on a spill in a kernel of NO_SPILL, and unless
+    kernels 21, 8, 10 and 17.  Fails on a spill in a kernel of NO_SPILL,
+    and unless
     kernels 11, 16 and 24 run on 16 CTAs at L=32768."""
     import re
 
@@ -943,10 +949,10 @@ def host_range(symbols, cdf, cfg):
 
 
 def range_name(kind: str, label: str) -> str:
-    """The name of a range kernel in RANGE_KERNELS: kernel 8 is the S=32
-    phase B's lane pass (and the compaction)."""
-    if (kind, label) == ("resolve", "w16s32"):
-        return "range_resolve_lanes_w16s32"
+    """The name of a range kernel in RANGE_KERNELS: phase B (kernels 8 and
+    10) is the lane pass (and the compaction)."""
+    if kind == "resolve":
+        return f"range_resolve_lanes_{label}"
     return f"ilans2_range_{kind}_{label}"
 
 
@@ -1158,28 +1164,14 @@ def phase_range_times(device, probs, symbols, gpu: str,
         # kernel-only: the C entry points on preallocated buffers
         r_buf = torch.empty_like(recs)
         lo_buf, rg_buf = torch.empty_like(low_f), torch.empty_like(rng_f)
-        pend, d1, d2 = (torch.empty_like(s0) for _ in range(3))
         buf = torch.empty(n, dtype=torch.int32, device=device)
         end = torch.empty(1, dtype=torch.int64, device=device)
         p_buf = torch.empty_like(pts)
         planes = [torch.empty_like(pts) for _ in range(3)]
         o_buf = torch.empty(n, dtype=torch.int32, device=device)
         bad = torch.empty(1, dtype=torch.int64, device=device)
-        if S == 32:  # kernel 8: the lane pass and pass B, their scratch
-            scratch = (torch.empty(T * L, dtype=torch.int32, device=device),
-                       torch.empty(T * L // 32, dtype=torch.int32,
-                                   device=device),
-                       torch.empty(coder.SCAN_BLOCKS, dtype=torch.int64,
-                                   device=device))
-            resolve_args = (recs, s0, carry, buf, n, end, p_buf, *scratch,
-                            L, T)
-        else:  # kernel 10: one block, the lane state in place
-            resolve_args = (recs, pend, d1, d2, buf, n, end, p_buf, L, T)
-
-        def reset_resolve():
-            pend.copy_(carry)
-            d1.copy_(s0)
-            d2.zero_()
+        # phase B (kernel 8 or 10): the lane pass and pass B, their scratch
+        scratch = coder.compaction_scratch(T, L, device)
 
         def reset_decode():
             planes[0].zero_()
@@ -1191,9 +1183,9 @@ def phase_range_times(device, probs, symbols, gpu: str,
             "record": kernel_ms(lambda: None, lambda: _build.call(
                 f"ctt_ilans2_range_record_{label}", device, syms, n, cdf32,
                 K, r_buf, lo_buf, rg_buf, L, P), 3),
-            "resolve": kernel_ms(reset_resolve, lambda: _build.call(
-                f"ctt_ilans2_range_resolve_{label}", device, *resolve_args),
-                3),
+            "resolve": kernel_ms(lambda: None, lambda: _build.call(
+                f"ctt_ilans2_range_resolve_{label}", device, recs, s0, carry,
+                buf, n, end, p_buf, *scratch, L, T), 3),
             "decode": kernel_ms(reset_decode, lambda: _build.call(
                 f"ctt_ilans2_range_decode_{label}", device, *planes, words,
                 nw, cdf32, K, o_buf, n, L, P, bad), 3),
@@ -1202,21 +1194,19 @@ def phase_range_times(device, probs, symbols, gpu: str,
                 and torch.equal(buf[int(end.item()):], words)
                 and torch.equal(o_buf, syms) and int(bad.item()) == n):
             fail(f"range_times: {label} timed launches differ")
-        passes = {}
-        if S == 32:  # kernel 8's two passes apart
-            passes["resolve_lanes_ms"] = kernel_ms(lambda: None, lambda: (
-                _build.call("ctt_ilans2_range_resolve_lanes_w16s32", device,
-                            recs, s0, carry, scratch[0], scratch[1], p_buf,
-                            L, T)), 3)
-            passes["resolve_pass_b_ms"] = kernel_ms(lambda: None, lambda: (
-                _build.call("ctt_ilans2_compact", device, scratch[1],
-                            scratch[0], scratch[1].numel(), buf, n, end,
-                            scratch[2])), 3)
-            if not (torch.equal(p_buf, pts)
-                    and torch.equal(buf[int(end.item()):], words)):
-                fail("range_times: kernel 8's passes timed apart differ")
-            passes["resolve_scratch_bytes"] = 4 * (scratch[0].numel()
-                                                   + scratch[1].numel())
+        # phase B's two passes apart
+        passes = {"resolve_lanes_ms": kernel_ms(lambda: None, lambda: (
+            _build.call(f"ctt_ilans2_range_resolve_lanes_{label}", device,
+                        recs, s0, carry, scratch[0], scratch[1], p_buf, L,
+                        T)), 3)}
+        passes["resolve_pass_b_ms"] = kernel_ms(lambda: None, lambda: (
+            _build.call("ctt_ilans2_compact", device, scratch[1], scratch[0],
+                        scratch[1].numel(), buf, n, end, scratch[2])), 3)
+        if not (torch.equal(p_buf, pts)
+                and torch.equal(buf[int(end.item()):], words)):
+            fail(f"range_times: {label} phase B's passes timed apart differ")
+        passes["resolve_scratch_bytes"] = 4 * (scratch[0].numel()
+                                               + scratch[1].numel())
         # the twins on the same tensors (after the smaller warm-up above)
         plain_ms, rec_p = timed(lambda: range_enc.record_plain(syms, cdf,
                                                                cfg))
@@ -2764,7 +2754,7 @@ def phase_exact_times(device, work, keep: dict, gpu: str,
     import torch
 
     from constriction_tpu_torch import convert
-    from constriction_tpu_torch.ops import _build
+    from constriction_tpu_torch.ops import _build, coder
     from constriction_tpu_torch.ops import exact_family as ef
     from constriction_tpu_torch.ops import exact_tables as et
     from constriction_tpu_torch.ops.interleaved import LaneConfig
@@ -2824,15 +2814,28 @@ def phase_exact_times(device, work, keep: dict, gpu: str,
     torch.cuda.synchronize()
     plain["exact_eval_window"] = (time.perf_counter() - t0) * 1e3
     e["exact_eval_window"] = e_eval
-    # kernel 17 alone
+    # kernel 17 alone: both passes on preallocated scratch, then each
     s_buf = torch.empty(L, dtype=torch.int64, device=device)
     w_buf = torch.empty(n, dtype=torch.int32, device=device)
     end = torch.empty(1, dtype=torch.int64, device=device)
+    scratch = coder.compaction_scratch(T, L, device)
     ms["exact_encode64"] = kernel_ms(
         lambda: s_buf.fill_(1 << 32), lambda: _build.call(
             "ctt_exact_encode64", device, s_buf, c_t, p_t, n, w_buf, n, end,
-            L, EXACT_P), 3)
+            *scratch, L, EXACT_P), 3)
     same = torch.equal(s_buf, st) and torch.equal(w_buf[int(end):], w)
+    enc_passes = {"exact_encode64_pass_a_ms": kernel_ms(
+        lambda: s_buf.fill_(1 << 32), lambda: _build.call(
+            "ctt_exact_encode_lanes64", device, s_buf, c_t, p_t, n,
+            scratch[0], scratch[1], L, EXACT_P), 3)}
+    enc_passes["exact_encode64_pass_b_ms"] = kernel_ms(
+        lambda: None, lambda: _build.call(
+            "ctt_ilans2_compact", device, scratch[1], scratch[0],
+            scratch[1].numel(), w_buf, n, end, scratch[2]), 3)
+    same = (same and torch.equal(s_buf, st)
+            and torch.equal(w_buf[int(end):], w))
+    enc_passes["exact_encode64_scratch_bytes"] = 4 * (scratch[0].numel()
+                                                      + scratch[1].numel())
     plain["exact_encode64"], pe = timed(
         lambda: ef.encode_tables_plain(c_t, p_t, cfg, None, n))
     e["exact_encode64"] = planes_err((st, w), pe)
@@ -2941,6 +2944,7 @@ def phase_exact_times(device, work, keep: dict, gpu: str,
         **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
         **{f"{k}_bound_by": v[1] for k, v in bounds.items()},
         **{f"{k}_max_abs_err": v for k, v in e.items()},
+        **enc_passes,
         "seg_chain": {"launches": len(seg_launches),
                       "chain_ms": ms["exact_decode64_seg"], **seg_gap,
                       "gap_ms": ms["exact_decode64_seg"]

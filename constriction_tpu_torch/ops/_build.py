@@ -54,12 +54,10 @@ _DECODE_CLUSTER_ARGS = [_P, _P, _I64, _P, _I32, _P, _I64, _I32, _I32, _I32,
                         _P, _I32]
 _GEOMETRY_ARGS = [_I32, _I32, _I32, _I32, _P, _P, _I32]
 _RANGE_RECORD_ARGS = [_P, _I64, _P, _I32, _P, _P, _P, _I32, _I32, _P, _I32]
-_RANGE_RESOLVE_ARGS = [_P, _P, _P, _P, _P, _I64, _P, _P, _I32, _I32, _P,
-                       _I32]
-# kernel 8: records, s0, seal carry, buf, cap, end_out, points; its scratch
-# (words, flags, offsets)
-_RANGE_RESOLVE32_ARGS = [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _I32,
-                         _I32, _P, _I32]
+# phase B (kernels 8 and 10): records, s0, seal carry, buf, cap, end_out,
+# points; its scratch (words, flags, offsets)
+_RANGE_RESOLVE_ARGS = [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _I32, _I32,
+                       _P, _I32]
 _RANGE_RESOLVE_LANES_ARGS = [_P, _P, _P, _P, _P, _P, _I32, _I32, _P, _I32]
 _RANGE_DECODE_ARGS = [_P, _P, _P, _P, _I64, _P, _I32, _P, _I64, _I32, _I32,
                       _P, _P, _I32]
@@ -95,6 +93,11 @@ _TCHAIN24_ENCODE_CLUSTER_ARGS = [*_TCHAIN24_ENCODE_ARGS[:10], _I32, _P, _I32]
 _TCHAIN24_GEOMETRY_ARGS = [_I32, _I32, _I32, _P, _P, _I32]
 _D = ctypes.c_double
 _EXACT_ENCODE_ARGS = [_P, _P, _P, _I64, _P, _I64, _P, _I32, _I32, _P, _I32]
+# kernel 17: its scratch (words, flags, offsets) after end_out
+_EXACT_ENCODE64_ARGS = [*_EXACT_ENCODE_ARGS[:7], _P, _P, _P,
+                        *_EXACT_ENCODE_ARGS[7:]]
+# kernel 17's pass A: states, cums, probs, n, words, flags, L, P
+_EXACT_ENCODE_LANES_ARGS = [_P, _P, _P, _I64, _P, _P, _I32, _I32, _P, _I32]
 _EXACT_DECODE_ARGS = [_P, _P, _I64, _P, _I32, _P, _I64, _I32, _I32, _I32,
                       _I32, _I32, _P, _P, _I32]
 # the cluster size after base_io
@@ -117,9 +120,10 @@ SIGNATURES = {
     "ctt_ilans2_compact": _COMPACT_ARGS,
     "ctt_ilans2_range_record_w16s32": _RANGE_RECORD_ARGS,
     "ctt_ilans2_range_record_w32s64": _RANGE_RECORD_ARGS,
-    "ctt_ilans2_range_resolve_w16s32": _RANGE_RESOLVE32_ARGS,
-    "ctt_ilans2_range_resolve_lanes_w16s32": _RANGE_RESOLVE_LANES_ARGS,
+    "ctt_ilans2_range_resolve_w16s32": _RANGE_RESOLVE_ARGS,
     "ctt_ilans2_range_resolve_w32s64": _RANGE_RESOLVE_ARGS,
+    "ctt_ilans2_range_resolve_lanes_w16s32": _RANGE_RESOLVE_LANES_ARGS,
+    "ctt_ilans2_range_resolve_lanes_w32s64": _RANGE_RESOLVE_LANES_ARGS,
     "ctt_ilans2_range_decode_w16s32": _RANGE_DECODE_ARGS,
     "ctt_ilans2_range_decode_w32s64": _RANGE_DECODE_ARGS,
     "ctt_ilans2_range_decode_cluster_w16s32": _RANGE_DECODE_CLUSTER_ARGS,
@@ -141,7 +145,8 @@ SIGNATURES = {
     "ctt_tchain12_family_encode": _TCHAIN12_ENCODE_ARGS,
     "ctt_tchain12_invert_pass": _TCHAIN12_INVERT_ARGS,
     "ctt_tchain12_head_pass": _TCHAIN12_HEADS_ARGS,
-    "ctt_exact_encode64": _EXACT_ENCODE_ARGS,
+    "ctt_exact_encode64": _EXACT_ENCODE64_ARGS,
+    "ctt_exact_encode_lanes64": _EXACT_ENCODE_LANES_ARGS,
     "ctt_exact_encode32": _EXACT_ENCODE_ARGS,
     "ctt_exact_decode64": _EXACT_DECODE_ARGS,
     "ctt_exact_decode32": _EXACT_DECODE_ARGS,

@@ -244,6 +244,15 @@ def _records(cdf32, cfg: LaneConfig):
                        device=cdf32.device)
 
 
+def compaction_scratch(T: int, L: int, device):
+    """The scratch of a lane pass ahead of the compaction (pass B): dense
+    words int32[T * L], ballots int32[T * L / 32] and the compaction's
+    block offsets int64[SCAN_BLOCKS]."""
+    return (torch.empty(T * L, dtype=torch.int32, device=device),
+            torch.empty(T * L // 32, dtype=torch.int32, device=device),
+            torch.empty(SCAN_BLOCKS, dtype=torch.int64, device=device))
+
+
 def _launch_encode(tag: str, symbols, cdf, cfg: LaneConfig, states):
     """Both encode passes in one C call, coding into ``states`` in place;
     returns (final states, stream).  The scratch: the dense words (T * L),
@@ -254,13 +263,10 @@ def _launch_encode(tag: str, symbols, cdf, cfg: LaneConfig, states):
     T = _num_steps(n, L)
     buf = torch.empty(n, dtype=torch.int32, device=device)
     end = torch.empty(1, dtype=torch.int64, device=device)
-    words = torch.empty(T * L, dtype=torch.int32, device=device)
-    flags = torch.empty(T * L // 32, dtype=torch.int32, device=device)
-    offsets = torch.empty(SCAN_BLOCKS, dtype=torch.int64, device=device)
     cdf32 = cdf.to(torch.int32)
     _build.call(
         f"ctt_ilans2_encode_{tag}", device, states, symbols, n, cdf32,
-        cdf32.numel() - 1, buf, n, end, words, flags, offsets,
+        cdf32.numel() - 1, buf, n, end, *compaction_scratch(T, L, device),
         _records(cdf32, cfg), L, cfg.precision,
     )
     return states, buf[int(end.item()):]

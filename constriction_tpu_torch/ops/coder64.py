@@ -174,9 +174,8 @@ def encode64_steps(tables_at, n: int, cfg: LaneConfig, seeds, device):
     ``tables_at(i)`` gives the (cum, prob) int64 of the flat symbol indices
     ``i`` (one step's lanes; indices past n are masked).  Shared by the
     categorical twin above and the exact-family planes twin
-    (``exact_family.encode_tables_plain``), whose kernel runs
-    ``csrc/ilans2.cuh``'s single-block encode loop.  Returns ``(states
-    int64[L], stream int32)``."""
+    (``exact_family.encode_tables_plain``).  Returns ``(states int64[L],
+    stream int32)``."""
     L, P = cfg.num_lanes, cfg.precision
     hi, lo = _start_halves64(seeds, L, device)
     lanes = torch.arange(L, device=device)
@@ -248,10 +247,22 @@ def lanes_pass64_plain(symbols, cdf, cfg: LaneConfig, seeds=None):
     The kernel (``csrc/ilans2_wide.cuh``, ``encode_lanes_kernel``) keeps
     ``flags`` as one ballot per 32 lanes (:func:`flag_ballots`)."""
     n = symbols.numel()
-    L, P = cfg.num_lanes, cfg.precision
-    device = symbols.device
     cdf64 = cdf.to(torch.int64)
     K = cdf64.numel() - 1
+
+    def tables_at(i):
+        return _symbol_tables(symbols, cdf64, i, n, K)
+
+    return lanes64_steps(tables_at, n, cfg, seeds, symbols.device)
+
+
+def lanes64_steps(tables_at, n: int, cfg: LaneConfig, seeds, device):
+    """Pass A's step loop on (hi, lo) halves, ``tables_at`` as in
+    :func:`encode64_steps`.  Shared by :func:`lanes_pass64_plain` and the
+    exact-family planes pass (``exact_family.encode_lanes_plain``, kernel
+    17's pass A).  Returns ``(words int32[T, L], flags bool[T, L], states
+    int64[L])`` as :func:`lanes_pass64_plain` does."""
+    L, P = cfg.num_lanes, cfg.precision
     T = _num_steps(n, L)
     hi, lo = _start_halves64(seeds, L, device)
     lanes = torch.arange(L, device=device)
@@ -260,7 +271,7 @@ def lanes_pass64_plain(symbols, cdf, cfg: LaneConfig, seeds=None):
     for t in range(T - 1, -1, -1):
         i = t * L + lanes
         active = i < n
-        cum, prob = _symbol_tables(symbols, cdf64, i, n, K)
+        cum, prob = tables_at(i)
         prob = torch.where(active, prob, 1)
         renorm = _renorms64(hi, prob, active, P)
         words[t] = torch.where(renorm, lo, 0)

@@ -14,18 +14,22 @@
 //   constriction_tpu/ops/exact_family.py  _build_exact_decoder       (13)
 // and holds the same wire format and table layout.
 //
-// Kernels 13, 14 and 17 are the ILANS2 loops of ilans2.cuh (one block, a
-// warp ballot and block scan per step for the shared word stream, states
-// in device memory, native uint64_t / uint32_t state algebra and division),
-// instantiated over the models below; ilans2.cuh's header says what bounds
-// those loops.  Kernels 15 and 16 are ilans2_wide.cuh's cluster decode over
-// TableModel (up to 16 CTAs, states in registers, one exchange per step);
-// kernel 16 is its Seg instance, which starts from stream word *base_io and
-// writes the next segment's first word back there, so the segments of a
-// grouped message chain on the card with no host round trip.  The TPU
-// kernels' chunked table DMA, their 40x25-bit multiply limbs, their
-// f32-estimate division (_exact_div) and their refill/emit compaction stay
-// behind.
+// Kernels 13 and 14 are the ILANS2 loops of ilans2.cuh (one block, a warp
+// ballot and block scan per step for the shared word stream, states in
+// device memory, native uint32_t state algebra and division), instantiated
+// over the models below; ilans2.cuh's header says what bounds those loops.
+// Kernel 17 is ilans2_wide.cuh's two-pass encode over PlaneLanesModel:
+// pass A (encode_lanes_kernel, one thread per lane over the grid, the
+// state in a register, the planes read two steps ahead, the division from
+// an f64 estimate, words and renorm ballots to dense scratch) and pass B (launch_compact, the row-major
+// compaction of kernel 2).  Kernels 15 and 16 are ilans2_wide.cuh's
+// cluster decode over TableModel (up to 16 CTAs, states in registers, one
+// exchange per step); kernel 16 is its Seg instance, which starts from
+// stream word *base_io and writes the next segment's first word back
+// there, so the segments of a grouped message chain on the card with no
+// host round trip.  The TPU kernels' chunked table DMA, their 40x25-bit
+// multiply limbs, their f32-estimate division (_exact_div) and their
+// refill/emit compaction stay behind.
 //
 // Kernels 17 and 14 read (cum, prob) from the planes at t * L + l.
 //
@@ -79,7 +83,8 @@
 
 namespace {
 
-// Kernel 17's model: (cum, prob) planes [T, L], symbol i at index i.
+// Kernel 14's model (ilans2.cuh's single-block encode): (cum, prob)
+// planes [T, L], symbol i at index i.
 struct PlaneModel {
   const uint32_t* cums;
   const uint32_t* probs;
@@ -90,6 +95,56 @@ struct PlaneModel {
     prob = probs[i];
   }
   __device__ uint32_t prob(int64_t i) const { return probs[i]; }
+};
+
+// A symbol's interval read from the planes.  The planes hold no reciprocal
+// of prob (building one per symbol costs a division itself), and the card's
+// u64 division is a software routine of tens of instructions on the lane's
+// chain, so divide takes floor(x / prob) from float64 instead.  Pass A
+// divides only states x < prob * 2^(64-P) (the renorm test), so the
+// quotient is below 2^(64-P) <= 2^47 (16 < P <= 24).  The estimate is x
+// times the reciprocal of prob from rcp.approx.ftz.f64 (good to 2^-19
+// relatively, f64_quotient's note in ilans2_wide.cuh) after two Newton
+// steps (below 2^-37, then a few 2^-53), with x and the product rounded
+// once each: within 2^-50 of x / prob relatively, 2^-3 absolutely.  Its
+// truncation is off by at most one either way, and the remainder x - q
+// prob, exact as a signed 64-bit value (it lies in (-prob, 2 prob), and
+// u64 arithmetic wraps where q prob reaches 2^64), tells which.
+// constriction_tpu_torch/ops/exact_family.py (plane_correct) holds the
+// correction exact against integer division from every estimate within
+// one.  On an H100 pass A took 0.078-0.087 ms this way against 0.098-0.101
+// with the native division (chip_ab.py, NVIDIA H100 80GB HBM3, 700 W).
+struct PlaneInterval {
+  uint32_t c, p;
+
+  __device__ static PlaneInterval unit() { return {0, 1}; }
+  __device__ uint32_t cum() const { return c; }
+  __device__ uint32_t prob() const { return p; }
+  __device__ uint64_t divide(uint64_t x) const {
+    const double d = __uint2double_rn(p);
+    double r;
+    asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(d));
+    r = __fma_rn(r, __fma_rn(-d, r, 1.0), r);
+    r = __fma_rn(r, __fma_rn(-d, r, 1.0), r);
+    const uint64_t q = __double2ull_rz(__dmul_rn(__ull2double_rn(x), r));
+    const int64_t rem = static_cast<int64_t>(x - q * p);
+    if (rem < 0) return q - 1;
+    return rem >= static_cast<int64_t>(p) ? q + 1 : q;
+  }
+};
+
+// Kernel 17's model (ilans2_wide.cuh's pass A): the token is the (cum,
+// prob) pair itself, loaded from the planes two steps before it is coded,
+// so interval() reads no memory and nothing is staged.
+struct PlaneLanesModel {
+  using Token = PlaneInterval;
+  using Interval = PlaneInterval;
+  const uint32_t* cums;
+  const uint32_t* probs;
+
+  __device__ void stage(uint32_t*) {}
+  __device__ Token fetch(int64_t i) const { return {cums[i], probs[i]}; }
+  __device__ Interval interval(Token pair) const { return pair; }
 };
 
 // The regions of _invert_with_tables once the core search has given cnt
@@ -486,13 +541,13 @@ int launch_cluster_table_decode(void* states, const void* stream,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int W, int S>
-int launch_encode(void* states, const void* cums, const void* probs,
-                  long long n, void* buf, long long cap, void* end_out, int L,
-                  int P, void* cuda_stream, int device) {
-  auto kernel = ilans2_encode_kernel<W, S, PlaneModel>;
+// Kernel 14: the single-block encode over PlaneModel.
+int launch_encode32(void* states, const void* cums, const void* probs,
+                    long long n, void* buf, long long cap, void* end_out,
+                    int L, int P, void* cuda_stream, int device) {
+  auto kernel = ilans2_encode_kernel<16, 32, PlaneModel>;
   const size_t bytes = table_smem_bytes(L);
-  if (!valid_exact(L, P, S == 64)) {
+  if (!valid_exact(L, P, false)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err = prepare(kernel, device, bytes);
@@ -502,10 +557,46 @@ int launch_encode(void* states, const void* cums, const void* probs,
   const PlaneModel model{static_cast<const uint32_t*>(cums),
                          static_cast<const uint32_t*>(probs)};
   kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<typename StateOf<S>::type*>(states), model, n,
-      static_cast<uint32_t*>(buf), cap, static_cast<int64_t*>(end_out), L, P,
-      T);
+      static_cast<uint32_t*>(states), model, n, static_cast<uint32_t*>(buf),
+      cap, static_cast<int64_t*>(end_out), L, P, T);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 17's pass A alone: words[T * L] (left as they are where a lane
+// does not renorm) and flags[T * L / 32] out, states coded in place.
+int launch_encode_lanes64(void* states, const void* cums, const void* probs,
+                          long long n, void* words, void* flags, int L, int P,
+                          void* cuda_stream, int device) {
+  auto kernel = encode_lanes_kernel<32, 64, PlaneLanesModel>;
+  if (!valid_exact(L, P, true)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = prepare(kernel, device, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const int T = static_cast<int>((n + L - 1) / L);
+  const PlaneLanesModel model{static_cast<const uint32_t*>(cums),
+                              static_cast<const uint32_t*>(probs)};
+  kernel<<<ceil_div(L, kLaneThreads), kLaneThreads, 0,
+           static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<uint64_t*>(states), model, n, static_cast<uint32_t*>(words),
+      static_cast<uint32_t*>(flags), L, P, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 17: pass A, then pass B into buf[*end_out : cap].  Scratch the
+// caller allocates: words[T * L], flags[T * L / 32], offsets[kScanBlocks]
+// (u64).
+int launch_encode64(void* states, const void* cums, const void* probs,
+                    long long n, void* buf, long long cap, void* end_out,
+                    void* words, void* flags, void* offsets, int L, int P,
+                    void* cuda_stream, int device) {
+  const int err = launch_encode_lanes64(states, cums, probs, n, words, flags,
+                                        L, P, cuda_stream, device);
+  if (err != 0 || n <= 0) return err;
+  const long long n_flags = (n + L - 1) / L * (L / 32);
+  return launch_compact(flags, words, n_flags, buf, cap, end_out, offsets,
+                        cuda_stream, device);
 }
 
 template <int F>
@@ -541,18 +632,30 @@ int launch_eval(const void* means, const void* scales, const void* ws,
 // nothing, and returns cudaGetLastError() (0 on success).
 extern "C" {
 
+// Kernel 17 (words[T * L], flags[T * L / 32] and offsets[kScanBlocks] are
+// scratch).
 int ctt_exact_encode64(void* states, const void* cums, const void* probs,
                        long long n, void* buf, long long cap, void* end_out,
-                       int L, int P, void* cuda_stream, int device) {
-  return launch_encode<32, 64>(states, cums, probs, n, buf, cap, end_out, L,
-                               P, cuda_stream, device);
+                       void* words, void* flags, void* offsets, int L, int P,
+                       void* cuda_stream, int device) {
+  return launch_encode64(states, cums, probs, n, buf, cap, end_out, words,
+                         flags, offsets, L, P, cuda_stream, device);
+}
+
+// Kernel 17's pass A alone (pass B alone is ctt_ilans2_compact).
+int ctt_exact_encode_lanes64(void* states, const void* cums,
+                             const void* probs, long long n, void* words,
+                             void* flags, int L, int P, void* cuda_stream,
+                             int device) {
+  return launch_encode_lanes64(states, cums, probs, n, words, flags, L, P,
+                               cuda_stream, device);
 }
 
 int ctt_exact_encode32(void* states, const void* cums, const void* probs,
                        long long n, void* buf, long long cap, void* end_out,
                        int L, int P, void* cuda_stream, int device) {
-  return launch_encode<16, 32>(states, cums, probs, n, buf, cap, end_out, L,
-                               P, cuda_stream, device);
+  return launch_encode32(states, cums, probs, n, buf, cap, end_out, L, P,
+                         cuda_stream, device);
 }
 
 // base_io is unused (kernel 15 decodes from stream word 0).

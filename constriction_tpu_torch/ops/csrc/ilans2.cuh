@@ -1,7 +1,7 @@
 // The single-block ILANS2 decode and encode loops on Hopper (sm_90a), used
-// by exact_family.cu (the reference-exact families: kernel 13, the S=32
-// narrow table decode; kernels 14 and 17, the encoders over per-symbol
-// (cum, prob) planes).  One block of 1024 threads codes the whole message:
+// by exact_family.cu (the reference-exact families at S=32: kernel 13, the
+// narrow table decode; kernel 14, the encoder over per-symbol (cum, prob)
+// planes).  One block of 1024 threads codes the whole message:
 // per step each warp ballots its 32 lanes' flags, a block scan turns the
 // per-warp popcounts into group offsets, and each thread walks its lanes
 // one after another (lane = row * 1024 + thread), loading and storing each
@@ -11,9 +11,9 @@
 // The loops are templated on the preset (W, S) and on a model policy, as
 // are ilans2_wide.cuh's cluster decode and two-pass encode, which run the
 // categorical coder (ilans2.cu) at both presets, kernels 15 and 16
-// (exact_family.cu's TableModel) and kernel 11 (ilans2_family.cu's
-// FamilyModel); a model moves there by providing that header's
-// invert_lanes, or fetch / interval.
+// (exact_family.cu's TableModel), kernel 17 (its PlaneLanesModel) and
+// kernel 11 (ilans2_family.cu's FamilyModel); a model moves there by
+// providing that header's invert_lanes, or fetch / interval.
 //
 // A decode model provides
 //   __device__ void stage(uint32_t* smem_cdf);   // before the first step

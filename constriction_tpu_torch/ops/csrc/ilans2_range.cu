@@ -30,10 +30,10 @@
 // lane's word r + 2; words 0 and 1 form the point header).
 //
 // What bounds them on this card:
-// - Decode and phase B are serial over the T steps, and each step needs an
-//   exclusive prefix over all L lanes (refill ranks, emission offsets).
-//   The decode at both presets (kernel 5 at S=64, kernel 6 at S=32) runs
-//   ilans2_wide.cuh's cluster design (cluster_range_decode_kernel over
+// - The decode is serial over the T steps, and each step needs an
+//   exclusive prefix over all L lanes (refill ranks).  At both presets
+//   (kernel 5 at S=64, kernel 6 at S=32) it runs ilans2_wide.cuh's
+//   cluster design (cluster_range_decode_kernel over
 //   BucketCdfModel, shared with the rANS decodes): up to 16 CTAs, each
 //   lane's num = point - lower and range in registers for the whole
 //   message (the point in device memory, touched by refills only), one
@@ -42,16 +42,13 @@
 //   quantile's symbol), and the quantile's integer division replaced by an
 //   f64 estimate from an approximate reciprocal and one correcting product
 //   (f64_quotient).  The step's barriers and its chain (quotient, search,
-//   products, refill load) bound it.  Phase B at S=32 (kernel 8) is a lane
-//   pass over the whole grid and the encoders' row-major compaction
-//   (range_resolve_lanes_kernel, then launch_compact): a lane's carry
-//   chain reads only its own records, whose renorm flags fix where its
-//   words land, so nothing couples the lanes inside the step loop; the
-//   record loads bound it.  Phase B at S=64 (kernel 10) still runs in ONE
-//   block of 1024 threads with a warp ballot and a block scan per step
-//   (lanes.cuh), lane state in device memory (L2-resident) updated in
-//   place, and the emission of step t fused with the flagging of the next
-//   step: latency-bound on one SM.
+//   products, refill load) bound it.  Phase B at both presets (kernel 8 at
+//   S=32, kernel 10 at S=64) is a lane pass over the whole grid and the
+//   encoders' row-major compaction (range_resolve_lanes_kernel, then
+//   launch_compact): a lane's carry chain reads only its own records,
+//   whose renorm flags fix where its words land, so nothing couples the
+//   lanes inside the step loop; the record loads bound it (u32 records at
+//   S=32, u64 at S=64).
 // - Phase A has no cross-lane dependency: a grid of L / 128 blocks, one
 //   thread per lane looping over T, with symbol reads and record writes
 //   coalesced across a warp and the next step's symbol loaded ahead.  It
@@ -119,92 +116,24 @@ __global__ void __launch_bounds__(kRecordThreads)
   rng_out[l] = range;
 }
 
-// Phase B in one block (kernel 10, instantiated at S=64 only), walking
-// steps T-1 .. 0.  pend / d1s / d2s[L]: each lane's pending carry and delay
-// line, seeded by the caller from the seal (pend = seal carry, d1 = the
-// seal's word, d2 = 0) and updated in place.  buf[cap]: the words of step
-// t land right to left below an end pointer e, lanes ascending, so on
-// return the stream is buf[*end_out : cap].  points[L]: the first two
-// resolved words of each lane, (d1 << W) | d2.
-template <int W, int S>
-__global__ void __launch_bounds__(kThreads, 1)
-    ilans2_range_resolve_kernel(
-        const typename StateOf<S>::type* __restrict__ records,
-        uint32_t* __restrict__ pend, uint32_t* __restrict__ d1s,
-        uint32_t* __restrict__ d2s, uint32_t* __restrict__ buf, int64_t cap,
-        int64_t* __restrict__ end_out,
-        typename StateOf<S>::type* __restrict__ points, int L, int T) {
-  using State = typename StateOf<S>::type;
-  extern __shared__ uint32_t smem[];
-  const int G = L / 32;
-  const Smem s{smem, G};
-
-  constexpr uint64_t kWordMask = (uint64_t(1) << W) - 1;
-  const int tid = threadIdx.x, lane = tid & 31;
-  const uint32_t lt_mask = (1u << lane) - 1u;
-  const int rows = (L + kThreads - 1) / kThreads;
-  int64_t e = cap;  // words of the finished steps occupy buf[e : cap]
-
-  // Iteration j resolves and places step T - j (flagged in iteration
-  // j - 1), then flags the renorming lanes of step T - 1 - j.
-  for (int j = 0; j <= T; ++j) {
-    const int cur = j & 1, prev = cur ^ 1;
-    const int t = T - 1 - j;
-    for (int r = 0; r < rows; ++r) {
-      if (r * kThreads + (tid & ~31) >= L) break;  // warp-uniform
-      const int l = r * kThreads + tid;
-      const int g = l >> 5;
-      uint32_t p = pend[l], d1 = d1s[l], d2 = d2s[l];
-      if (j > 0) {
-        const State rec = records[static_cast<int64_t>(t + 1) * L + l];
-        if ((rec >> W) & 1) {
-          const int64_t idx = e + s.prefix(prev)[g] +
-                              __popc(s.ballots(prev)[g] & lt_mask);
-          buf[idx] = d2;  // the word resolved two emissions later
-          const uint64_t vfull = (uint64_t(rec) & kWordMask) + p;
-          d2 = d1;
-          d1 = static_cast<uint32_t>(vfull & kWordMask);
-          p = static_cast<uint32_t>(vfull >> W);
-        }
-        p += static_cast<uint32_t>((rec >> (W + 1)) & 1);
-      }
-      if (j < T) {
-        const State rec = records[static_cast<int64_t>(t) * L + l];
-        const unsigned bal = __ballot_sync(kFull, ((rec >> W) & 1) != 0);
-        if (lane == 0) s.ballots(cur)[g] = bal;
-      } else {
-        points[l] = (State(d1) << W) | State(d2);
-      }
-      pend[l] = p;
-      d1s[l] = d1;
-      d2s[l] = d2;
-    }
-    if (j == T) break;
-    __syncthreads();
-    const uint32_t total = scan_groups(s.ballots(cur), s.prefix(cur),
-                                       s.warp_sums(), G);
-    __syncthreads();
-    e -= total;
-  }
-  if (tid == 0) *end_out = e;
-}
-
-// The S=32 phase B (kernel 8) as a lane pass and the encoders' row-major
-// compaction.  A lane's pending carry and delay line (p, d1, d2) read only
-// the lane's own records, and where a word lands is fixed by the renorm
-// flags phase A already wrote into the records (bit W): the lanes meet
-// only there, as in the TChain-12 decode (tchain.cu, kernel 21).  So
-// range_resolve_lanes_kernel runs one thread per lane over the grid (blocks
-// of kResolveThreads, a per-warp guard: L is any multiple of 32), walks
-// t = T-1 .. 0 with (p, d1, d2) in registers, seeded from the seal (p =
-// seal carry, d1 = the seal's word, d2 = 0), and its records loaded
-// kResolveAhead steps ahead; at a renorm it writes d2 to a dense
-// words[t * L + l], each step one ballot of renorm flags per 32-lane group
-// to flags[t * G + g], and at the end points[l] = d1 << W | d2.  Pass B
+// Phase B (kernel 8 at S=32, kernel 10 at S=64) as a lane pass and the
+// encoders' row-major compaction.  A lane's pending carry and delay line
+// (p, d1, d2) read only the lane's own records, and where a word lands is
+// fixed by the renorm flags phase A already wrote into the records (bit
+// W): the lanes meet only there, as in the TChain-12 decode (tchain.cu,
+// kernel 21).  So range_resolve_lanes_kernel runs one thread per lane over
+// the grid (blocks of kResolveThreads, a per-warp guard: L is any multiple
+// of 32), walks t = T-1 .. 0 with (p, d1, d2) in u32 registers, seeded
+// from the seal (p = seal carry, d1 = the seal's word, d2 = 0), and its
+// records loaded kResolveAhead steps ahead; at a renorm it writes d2 to a
+// dense words[t * L + l], each step one ballot of renorm flags per 32-lane
+// group to flags[t * G + g], and at the end points[l] = d1 << W | d2.  At
+// W=32 the word plus the pending carry can reach 2^32 (vfull is 64 bits):
+// the new word is then 0 and the carry moves on in p.  Pass B
 // (launch_compact) writes the rows in ascending order: the stream runs
-// from step 0 to step T-1, lanes ascending within a step, as the single
-// block laid it out.  The lane pass is a chain of T short steps a lane;
-// its loads are the records, coalesced across a warp.
+// from step 0 to step T-1, lanes ascending within a step: the decoder's
+// consumption order.  The lane pass is a chain of T
+// short steps a lane; its loads are the records, coalesced across a warp.
 constexpr int kResolveThreads = 128;
 constexpr int kResolveAhead = 8;  // records a lane has in flight
 
@@ -283,60 +212,42 @@ int launch_record(const void* syms, long long n, const void* cdf, int K,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int W, int S>
-int launch_resolve(const void* records, void* pend, void* d1, void* d2,
-                   void* buf, long long cap, void* end_out, void* points,
-                   int L, int T, void* cuda_stream, int device) {
-  using State = typename StateOf<S>::type;
-  const size_t bytes = scratch_words(L / 32) * sizeof(uint32_t);
-  auto kernel = ilans2_range_resolve_kernel<W, S>;
-  if (L <= 0 || L % 32 != 0 || T < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaError_t err = prepare(kernel, device, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (T == 0) return static_cast<int>(cudaGetLastError());
-  kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<const State*>(records), static_cast<uint32_t*>(pend),
-      static_cast<uint32_t*>(d1), static_cast<uint32_t*>(d2),
-      static_cast<uint32_t*>(buf), cap, static_cast<int64_t*>(end_out),
-      static_cast<State*>(points), L, T);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Kernel 8's lane pass alone: words[T * L] (left as they are where a lane
+// Phase B's lane pass alone: words[T * L] (left as they are where a lane
 // does not renorm) and flags[T * L / 32] out.
+template <int W, int S>
 int launch_resolve_lanes(const void* records, const void* s0,
                          const void* seal_carry, void* words, void* flags,
                          void* points, int L, int T, void* cuda_stream,
                          int device) {
+  using State = typename StateOf<S>::type;
   if (L <= 0 || L % 32 != 0 || T < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (T == 0) return static_cast<int>(cudaGetLastError());
-  range_resolve_lanes_kernel<16, 32><<<ceil_div(L, kResolveThreads),
-                                       kResolveThreads, 0,
-                                       static_cast<cudaStream_t>(
-                                           cuda_stream)>>>(
-      static_cast<const uint32_t*>(records),
-      static_cast<const uint32_t*>(s0),
+  range_resolve_lanes_kernel<W, S><<<ceil_div(L, kResolveThreads),
+                                     kResolveThreads, 0,
+                                     static_cast<cudaStream_t>(
+                                         cuda_stream)>>>(
+      static_cast<const State*>(records), static_cast<const uint32_t*>(s0),
       static_cast<const uint32_t*>(seal_carry), static_cast<uint32_t*>(words),
-      static_cast<uint32_t*>(flags), static_cast<uint32_t*>(points), L, T);
+      static_cast<uint32_t*>(flags), static_cast<State*>(points), L, T);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernel 8: the lane pass, then pass B into buf[*end_out : cap].  Scratch
+// Phase B: the lane pass, then pass B into buf[*end_out : cap].  Scratch
 // the caller allocates: words[T * L], flags[T * L / 32], offsets[kScanBlocks]
 // (u64).
-int launch_resolve32(const void* records, const void* s0,
-                     const void* seal_carry, void* buf, long long cap,
-                     void* end_out, void* points, void* words, void* flags,
-                     void* offsets, int L, int T, void* cuda_stream,
-                     int device) {
-  const int err = launch_resolve_lanes(records, s0, seal_carry, words, flags,
-                                       points, L, T, cuda_stream, device);
+template <int W, int S>
+int launch_resolve(const void* records, const void* s0,
+                   const void* seal_carry, void* buf, long long cap,
+                   void* end_out, void* points, void* words, void* flags,
+                   void* offsets, int L, int T, void* cuda_stream,
+                   int device) {
+  const int err = launch_resolve_lanes<W, S>(records, s0, seal_carry, words,
+                                             flags, points, L, T,
+                                             cuda_stream, device);
   if (err != 0 || T == 0) return err;
   return launch_compact(flags, words, static_cast<long long>(T) * (L / 32),
                         buf, cap, end_out, offsets, cuda_stream, device);
@@ -421,35 +332,48 @@ int ctt_ilans2_range_record_w32s64(const void* syms, long long n,
                                P, cuda_stream, device);
 }
 
-// Kernel 8 (words[T * L], flags[T * L / 32] and offsets[kScanBlocks] are
-// scratch; s0 and seal_carry are read only).
+// Phase B: kernel 8 (S=32) and kernel 10 (S=64).  words[T * L],
+// flags[T * L / 32] and offsets[kScanBlocks] are scratch; s0 and seal_carry
+// are read only.
 int ctt_ilans2_range_resolve_w16s32(const void* records, const void* s0,
                                     const void* seal_carry, void* buf,
                                     long long cap, void* end_out,
                                     void* points, void* words, void* flags,
                                     void* offsets, int L, int T,
                                     void* cuda_stream, int device) {
-  return launch_resolve32(records, s0, seal_carry, buf, cap, end_out, points,
-                          words, flags, offsets, L, T, cuda_stream, device);
+  return launch_resolve<16, 32>(records, s0, seal_carry, buf, cap, end_out,
+                                points, words, flags, offsets, L, T,
+                                cuda_stream, device);
 }
 
-// Kernel 8's lane pass alone (pass B alone is ctt_ilans2_compact).
+int ctt_ilans2_range_resolve_w32s64(const void* records, const void* s0,
+                                    const void* seal_carry, void* buf,
+                                    long long cap, void* end_out,
+                                    void* points, void* words, void* flags,
+                                    void* offsets, int L, int T,
+                                    void* cuda_stream, int device) {
+  return launch_resolve<32, 64>(records, s0, seal_carry, buf, cap, end_out,
+                                points, words, flags, offsets, L, T,
+                                cuda_stream, device);
+}
+
+// Phase B's lane pass alone (pass B alone is ctt_ilans2_compact).
 int ctt_ilans2_range_resolve_lanes_w16s32(const void* records, const void* s0,
                                           const void* seal_carry, void* words,
                                           void* flags, void* points, int L,
                                           int T, void* cuda_stream,
                                           int device) {
-  return launch_resolve_lanes(records, s0, seal_carry, words, flags, points,
-                              L, T, cuda_stream, device);
+  return launch_resolve_lanes<16, 32>(records, s0, seal_carry, words, flags,
+                                      points, L, T, cuda_stream, device);
 }
 
-int ctt_ilans2_range_resolve_w32s64(const void* records, void* pend,
-                                    void* d1, void* d2, void* buf,
-                                    long long cap, void* end_out,
-                                    void* points, int L, int T,
-                                    void* cuda_stream, int device) {
-  return launch_resolve<32, 64>(records, pend, d1, d2, buf, cap, end_out,
-                                points, L, T, cuda_stream, device);
+int ctt_ilans2_range_resolve_lanes_w32s64(const void* records, const void* s0,
+                                          const void* seal_carry, void* words,
+                                          void* flags, void* points, int L,
+                                          int T, void* cuda_stream,
+                                          int device) {
+  return launch_resolve_lanes<32, 64>(records, s0, seal_carry, words, flags,
+                                      points, L, T, cuda_stream, device);
 }
 
 int ctt_ilans2_range_decode_w16s32(void* lows, void* rngs, void* pts,

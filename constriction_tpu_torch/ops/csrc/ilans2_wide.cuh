@@ -5,11 +5,13 @@
 // ilans2.cu instantiates them for the categorical coder at both presets
 // (W=32/S=64 and W=16/S=32, one CDF); exact_family.cu the decode for the
 // S=64 reference-exact tables, whole message (kernel 15) or one segment of
-// a grouped message (kernel 16, Seg); ilans2_family.cu the decode for the
+// a grouped message (kernel 16, Seg), and the encode over their (cum, prob)
+// planes (kernel 17, PlaneLanesModel); ilans2_family.cu the decode for the
 // per-symbol families (kernel 11); ilans2_range.cu the range decode's twin
 // of the cluster decode at both presets (cluster_range_decode_kernel,
 // kernels 5 and 6), which shares its step exchange (exchange_step), and
-// the compaction (launch_compact) behind its S=32 carry resolve (kernel 8);
+// the compaction (launch_compact) behind its carry resolves at both
+// presets (kernels 8 and 10);
 // and tchain.cu the step exchange, the encode model (RecordCdfModel) and
 // plan_cluster for its TChain-24 cluster encode (kernel 24), and the
 // compaction behind its TChain-12 decode (kernel 21).
@@ -29,10 +31,11 @@
 // BucketCdfModel below (decode: a bucket table in front of the CDF
 // search), RecordCdfModel below (encode: a division record per symbol, the
 // division as a multiply-high; DivisionRecord at S=64, DivisionRecord32 at
-// S=32), exact_family.cu's TableModel (decode: the packed tables in device
-// memory, searched in lock step) and ilans2_family.cu's FamilyModel
-// (decode: family.cuh's bisection over the integer CDF, in lock step)
-// provide them.
+// S=32), exact_family.cu's PlaneLanesModel (encode: the (cum, prob) pair
+// as the token, the division from an f64 estimate) and TableModel (decode: the packed
+// tables in device memory, searched in lock step) and ilans2_family.cu's
+// FamilyModel (decode: family.cuh's bisection over the integer CDF, in
+// lock step) provide them.
 //
 // Decode (cluster_decode_kernel).  A decode step needs the exclusive count of
 // refilling lanes below each lane over all L lanes, and that count depends on
@@ -73,16 +76,20 @@
 // decision and next state depend on its own state and symbol only; the lanes
 // meet only in where their words land in the stream.  Pass A: one thread per
 // lane over the grid runs its lane through steps T-1 .. 0 in registers (the
-// model's division: a multiply-high in place of the card's integer division,
-// which is a software routine at 32 and 64 bits), writes each emitted word to a dense scratch words[t * L + l] and one warp
-// ballot of renorm flags per (step, group) to flags[t * G + g]; no barrier
-// inside the step loop.  Pass B: an exclusive scan of popc(flags) in row-major
-// order (step ascending, group ascending: the decoder's consumption order) by
-// block sums (compact_count_kernel), one block scanning those sums
-// (compact_offsets_kernel) and a scan within each block that scatters the
-// flagged words (compact_scatter_kernel).  Word k of the stream lands at
-// buf[cap - total + k], so the stream is buf[*end_out : cap] as with the
-// single-block encoder.  Pass B moves one word per u32 whatever W is.
+// model's division: RecordCdfModel's multiply-high in place of the card's
+// integer division, which is a software routine at 32 and 64 bits;
+// PlaneLanesModel's f64 estimate and one correcting product, as its
+// planes hold no reciprocal),
+// writes each emitted word to a dense scratch words[t * L + l] and one
+// warp ballot of renorm flags per (step, group) to flags[t * G + g]; no
+// barrier inside the step loop.  Pass B: an exclusive scan of popc(flags)
+// in row-major order (step ascending, group ascending: the decoder's
+// consumption order) by block sums (compact_count_kernel), one block
+// scanning those sums (compact_offsets_kernel) and a scan within each block
+// that scatters the flagged words (compact_scatter_kernel).  Word k of the
+// stream lands at buf[cap - total + k], so the stream is buf[*end_out :
+// cap] as with the single-block encoder.  Pass B moves one word per u32
+// whatever W is.
 
 #pragma once
 

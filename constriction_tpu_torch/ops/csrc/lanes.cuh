@@ -6,17 +6,18 @@
 // what is here:
 //
 // - The single-block coders: ilans2.cuh's loops over exact_family.cu's
-//   narrow table and plane models (kernels 13, 14, 17), ilans2_range.cu's
-//   range encoder's phase B, ilans2_family.cu's encode (kernel 12) and
-//   tchain.cu (bits-back, but the TChain-12 decode).  One block of kThreads
+//   narrow table and plane models (kernels 13 and 14), ilans2_family.cu's
+//   encode (kernel 12) and tchain.cu (bits-back, but the TChain-12 decode
+//   and the TChain-24 encode).  One block of kThreads
 //   threads codes the message; the prefix comes from a warp ballot per 32
 //   lanes, a block scan of the per-warp popcounts (scan_groups, over the
 //   Smem carve-up below) and a popc of the ballot below the lane.
 // - ilans2_wide.cuh's cluster decodes and two-pass encode (ilans2.cu's
 //   categorical coder at both presets, kernels 1-4; the range decode at
 //   both presets, kernels 5 and 6; the S=64 exact table decodes, kernels
-//   15 and 16; the family decode, kernel 11; the compaction behind
-//   tchain.cu's TChain-12 decode), which take StateOf, the CDF staging,
+//   15 and 16, and encode, kernel 17; the family decode, kernel 11; the
+//   compaction behind ilans2_range.cu's carry resolves and tchain.cu's
+//   TChain-12 decode), which take StateOf, the CDF staging,
 //   the symbol search, valid_args and prepare from here and scan across
 //   CTAs themselves.
 //

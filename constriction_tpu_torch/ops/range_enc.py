@@ -15,9 +15,9 @@ adds +1 to the digits emitted so far.  So the encoder runs in two phases:
   (its first two words form the point header) in the shared stream, step
   by step, lanes ascending.  A lane's carry chain reads only its own
   records, and the renorm flag that places a word is already in them, so
-  at S=32 the card runs it as a lane pass (:func:`resolve_lanes`: dense
-  words and renorm ballots) and the encoders' row-major compaction
-  (``coder.compact_pass``); at S=64 one block still walks the steps.
+  at both presets the card runs it as a lane pass (:func:`resolve_lanes`:
+  dense words and renorm ballots) and the encoders' row-major compaction
+  (``coder.compact_pass``).
 
 The wrappers launch the kernels of ``csrc/ilans2_range.cu`` for CUDA
 tensors, the seal running between the two launches on the device; CPU
@@ -37,11 +37,11 @@ import torch
 from .. import convert
 from . import _build
 from .coder import (
-    SCAN_BLOCKS,
     _check,
     _check_cdf_arg,
     _check_cfg,
     _emit_words,
+    compaction_scratch,
     _num_steps,
     _on_cuda,
     _symbol_tables,
@@ -50,9 +50,9 @@ from .coder import (
 from .coder64 import _add64, _mul_small, _shr64
 from .interleaved import LaneConfig
 
-# kernel launches made by this module's wrappers (never by the twins); the
-# S=32 phase B's lane pass launched alone (resolve_lanes) counts under its
-# own key
+# kernel launches made by this module's wrappers (never by the twins); phase
+# B's lane pass launched alone (resolve_lanes, either preset) counts under
+# its own key
 LAUNCHES = {"record": 0, "resolve": 0, "record64": 0, "resolve64": 0,
             "resolve_lanes": 0}
 
@@ -238,11 +238,10 @@ def resolve(records, s0, seal_carry, cfg: LaneConfig, n: int):
     :func:`record`, ``(s0, seal_carry)`` from :func:`seal`, ``n`` the
     message length.  Returns ``(points [L], stream int32[num_words])``.
     JAX counterpart: ``pallas_range_enc._range_resolve_kernel`` /
-    ``_range_resolve_kernel64``.  CUDA tensors launch the kernels (S=32:
-    the lane pass and the compaction in one C call, their scratch the
-    dense words, the ballots and the compaction's block offsets; S=64: one
-    block), reading the stream's start back (one sync); CPU tensors run
-    :func:`resolve_plain`."""
+    ``_range_resolve_kernel64``.  CUDA tensors launch the lane pass and
+    the compaction in one C call (their scratch: the dense words, the
+    ballots and the compaction's block offsets), reading the stream's
+    start back (one sync); CPU tensors run :func:`resolve_plain`."""
     dtype, tag, suffix, T = _resolve_args(records, s0, seal_carry, cfg, n)
     L = cfg.num_lanes
     device = records.device
@@ -253,34 +252,24 @@ def resolve(records, s0, seal_carry, cfg: LaneConfig, n: int):
         return points, torch.zeros(0, dtype=torch.int32, device=device)
     buf = torch.empty(n, dtype=torch.int32, device=device)
     end = torch.empty(1, dtype=torch.int64, device=device)
-    if cfg.state_bits == 64:
-        _build.call(
-            f"ctt_ilans2_range_resolve_{tag}", device, records,
-            seal_carry.clone(), s0.clone(), torch.zeros_like(s0), buf, n,
-            end, points, L, T,
-        )
-    else:
-        words = torch.empty(T * L, dtype=torch.int32, device=device)
-        flags = torch.empty(T * L // 32, dtype=torch.int32, device=device)
-        offsets = torch.empty(SCAN_BLOCKS, dtype=torch.int64, device=device)
-        _build.call(
-            f"ctt_ilans2_range_resolve_{tag}", device, records, s0,
-            seal_carry, buf, n, end, points, words, flags, offsets, L, T,
-        )
+    _build.call(
+        f"ctt_ilans2_range_resolve_{tag}", device, records, s0, seal_carry,
+        buf, n, end, points, *compaction_scratch(T, L, device), L, T,
+    )
     LAUNCHES["resolve" + suffix] += 1
     return points, buf[int(end.item()):]
 
 
 def resolve_lanes(records, s0, seal_carry, cfg: LaneConfig, n: int):
-    """The S=32 phase B's lane pass alone (its arguments and checks, n >
-    0): ``(words int32[T, L], ballots int32[T, L / 32], points int32[L])``,
-    row t holding step t's resolved words and renorm ballots; the
-    compaction (``coder.compact_pass``) of the two is :func:`resolve`'s
-    stream.  On the card the words of lanes that do not renorm are left
-    unwritten; a CPU tensor runs :func:`resolve_lanes_plain` and packs its
-    flags with ``coder.flag_ballots``."""
-    _check_cfg(cfg, 16, 32, 16)
-    _, _, _, T = _resolve_args(records, s0, seal_carry, cfg, n)
+    """Phase B's lane pass alone, at either preset (its arguments and
+    checks, n > 0): ``(words int32[T, L], ballots int32[T, L / 32],
+    points [L])``, row t holding step t's resolved words and renorm
+    ballots, the points in the state layout; the compaction
+    (``coder.compact_pass``) of the two is :func:`resolve`'s stream.  On
+    the card the words of lanes that do not renorm are left unwritten; a
+    CPU tensor runs :func:`resolve_lanes_plain` and packs its flags with
+    ``coder.flag_ballots``."""
+    dtype, tag, _, T = _resolve_args(records, s0, seal_carry, cfg, n)
     L = cfg.num_lanes
     device = records.device
     if not _on_cuda(device):
@@ -289,8 +278,8 @@ def resolve_lanes(records, s0, seal_carry, cfg: LaneConfig, n: int):
         return words, flag_ballots(flags), points
     words = torch.empty(T, L, dtype=torch.int32, device=device)
     ballots = torch.empty(T, L // 32, dtype=torch.int32, device=device)
-    points = torch.zeros(L, dtype=torch.int32, device=device)
-    _build.call("ctt_ilans2_range_resolve_lanes_w16s32", device, records, s0,
+    points = torch.zeros(L, dtype=dtype, device=device)
+    _build.call(f"ctt_ilans2_range_resolve_lanes_{tag}", device, records, s0,
                 seal_carry, words, ballots, points, L, T)
     LAUNCHES["resolve_lanes"] += 1
     return words, ballots, points

@@ -45,9 +45,9 @@ import torch
 from .. import convert
 from . import _build
 from . import family as fam
-from .coder import (MAX_DECODE_LANES, SCAN_BLOCKS, _check, _check_cdf_arg,
-                    _emit_words, _find_symbols, _on_cuda, _refill_words,
-                    flag_ballots)
+from .coder import (MAX_DECODE_LANES, _check, _check_cdf_arg, _emit_words,
+                    _find_symbols, _on_cuda, _refill_words,
+                    compaction_scratch, flag_ballots)
 from .interleaved import LaneConfig
 
 TCHAIN_CFG = LaneConfig(num_lanes=32768, word_bits=16, state_bits=32,
@@ -269,11 +269,9 @@ def tchain12_family_decode(qw, means, scales, family: str, min_sym: int,
     end = torch.empty(1, dtype=torch.int64, device=device)
     # the passes' scratch: records, dense words, ballots, block offsets
     recs = torch.empty(n, dtype=torch.int32, device=device)
-    words = torch.empty(n, dtype=torch.int32, device=device)
-    flags = torch.empty(n // 32, dtype=torch.int32, device=device)
-    offsets = torch.empty(SCAN_BLOCKS, dtype=torch.int64, device=device)
     _build.call("ctt_tchain12_family_decode", device, heads, qw, means,
-                scales, syms, buf, n, end, recs, words, flags, offsets, L, T,
+                scales, syms, buf, n, end, recs,
+                *compaction_scratch(T, L, device), L, T,
                 fam.FAMILIES.index(family), min_sym, max_sym)
     LAUNCHES["decode12_family"] += 1
     return syms, buf[int(end.item()):], heads

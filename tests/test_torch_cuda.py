@@ -37,6 +37,8 @@ from constriction_tpu_torch.ops import interleaved2 as il2
 from constriction_tpu_torch.ops import tchain as tc
 from constriction_tpu_torch.ops.interleaved import LaneConfig
 
+from _range64_data import carry_through_ones
+
 pytestmark = pytest.mark.cuda
 
 PRESETS = {
@@ -907,7 +909,8 @@ def test_range32_decode_lanes_past_the_cluster_reach(dev):
 # thread (L = 32768 and 65536): the range decodes at both presets, the
 # S=64 exact table decodes (kernel 15; kernel 16, its Seg instance), the
 # family decode (kernel 11, each family) and the TChain-24 encode (kernel
-# 24); and kernel 8's lane pass (one lane a thread)
+# 24); and the lane passes of kernels 8 and 10 and kernel 17's pass A (one
+# lane a thread)
 NO_SPILL = {
     "range S=64": r"cluster_range_decode_kernelILi32ELi64ELi{R}E",
     "range S=32": r"cluster_range_decode_kernelILi16ELi32ELi{R}E",
@@ -919,6 +922,9 @@ NO_SPILL = {
        for k, name in enumerate(fam.FAMILIES)},
     "tchain24 encode": r"cluster_tchain_encode_kernelILi32ELi64ELi24ELi{R}E",
     "range resolve lanes": r"range_resolve_lanes_kernel",
+    "range resolve lanes S=64": r"range_resolve_lanes_kernelILi32ELi64E",
+    "exact encode lanes S=64":
+        r"encode_lanes_kernelILi32ELi64E.*PlaneLanesModel",
 }
 
 
@@ -1554,6 +1560,80 @@ def test_range_resolve32_wrappers_match_twin(dev, L, n):
     assert torch.equal(coder.compact_pass(words, ballots), stream)
 
 
+# --- kernel 10: the S=64 range resolve, kernel 8's lane pass at W=32 -------
+
+
+def _resolve64_case(L, n, seed, dev, kind):
+    """Phase A's records and the seal at W=32/S=64/P=24 for L lanes (any
+    multiple of 32: the plain phase A on the CPU, moved to the card):
+    ``kind`` dirichlet, skewed (carries) or ones (words of 0xFFFFFFFF
+    that take a carry)."""
+    if kind == "ones":
+        syms, cdf = carry_through_ones(L, n, seed)
+    else:
+        syms, cdf = _range_symbols(np.random.RandomState(seed), 100, 24, n,
+                                   kind == "skewed")
+    cfg = _cfg(64, L, 24)
+    rec, low_f, rng_f = range_enc.record_plain(
+        torch.from_numpy(syms.astype(np.int32)), convert.cdf_to_torch(cdf),
+        cfg)
+    s0, carry = range_enc.seal(low_f, rng_f, cfg)
+    return cfg, rec.to(dev), s0.to(dev), carry.to(dev)
+
+
+@pytest.mark.parametrize("kind,L,n", [
+    *((k, L, n) for k in ("dirichlet", "skewed")
+      for L, n in ((32, 3000), (96, 96 * 50 - 7), (160, 100),
+                   (1184, 1184 * 20 + 3), (32800, 32800 * 3))),
+    ("ones", 1184, 1184 * 20 + 3), ("ones", 32768, 32768 * 16 - 5)])
+def test_range_resolve64_entries_match_twin(dev, kind, L, n):
+    """Kernel 10's C entries at lane counts the wrappers do not take
+    (multiples of 32, not of 128), with carries and words of 0xFFFFFFFF
+    that take one: the whole resolve and its lane pass alone against the
+    plain passes."""
+    cfg, rec, s0, carry = _resolve64_case(L, n, L + n, dev, kind)
+    T = -(-n // L)
+    pts_p, stream_p = range_enc.resolve_plain(rec, s0, carry, cfg, n)
+    words_p, flags_p, lpts_p = range_enc.resolve_lanes_plain(rec, s0, carry,
+                                                             cfg, n)
+    words = torch.empty(T * L, dtype=torch.int32, device=dev)
+    flags = torch.empty(T * L // 32, dtype=torch.int32, device=dev)
+    offsets = torch.empty(coder.SCAN_BLOCKS, dtype=torch.int64, device=dev)
+    buf = torch.empty(n, dtype=torch.int32, device=dev)
+    end = torch.empty(1, dtype=torch.int64, device=dev)
+    pts = torch.empty(L, dtype=torch.int64, device=dev)
+    _build.call("ctt_ilans2_range_resolve_w32s64", dev, rec, s0, carry, buf,
+                n, end, pts, words, flags, offsets, L, T)
+    assert torch.equal(pts, pts_p)
+    assert torch.equal(buf[int(end.item()):], stream_p)
+    words.fill_(-1)
+    pts.fill_(-1)
+    _build.call("ctt_ilans2_range_resolve_lanes_w32s64", dev, rec, s0, carry,
+                words, flags, pts, L, T)
+    f = flags_p.reshape(-1)
+    assert torch.equal(flags.view(T, L // 32), coder.flag_ballots(flags_p))
+    assert torch.equal(words[f], words_p.reshape(-1)[f])
+    assert torch.equal(pts, lpts_p)
+
+
+@pytest.mark.parametrize("kind,L,n", [("dirichlet", 128, 1),
+                                      ("dirichlet", 128, 5000),
+                                      ("dirichlet", 32768, 32768 * 5 - 77),
+                                      ("ones", 32768, 32768 * 16 - 5),
+                                      ("skewed", 65536, 3 * 65536 + 5)])
+def test_range_resolve64_wrappers_match_twin(dev, kind, L, n):
+    cfg, rec, s0, carry = _resolve64_case(L, n, n, dev, kind)
+    before = dict(range_enc.LAUNCHES)
+    pts, stream = range_enc.resolve(rec, s0, carry, cfg, n)
+    assert range_enc.LAUNCHES["resolve64"] == before["resolve64"] + 1
+    pts_p, stream_p = range_enc.resolve_plain(rec, s0, carry, cfg, n)
+    assert torch.equal(pts, pts_p) and torch.equal(stream, stream_p)
+    words, ballots, lpts = range_enc.resolve_lanes(rec, s0, carry, cfg, n)
+    assert range_enc.LAUNCHES["resolve_lanes"] == before["resolve_lanes"] + 1
+    assert torch.equal(lpts, pts)
+    assert torch.equal(coder.compact_pass(words, ballots), stream)
+
+
 @pytest.mark.parametrize("P", [16, 24])
 def test_bits_back_facade_cuda_matches_cpu(dev, P):
     n = 2 * 32768
@@ -1610,6 +1690,7 @@ def _exact_cfg(L, P=24):
 
 @pytest.mark.parametrize("L,n,seeded", [(128, 1, False), (256, 3000, False),
                                         (256, 3000, True),
+                                        (32768, 3 * 32768 - 99, False),
                                         (32768, 3 * 32768 - 99, True)])
 def test_exact_encode_kernel_matches_twin(dev, L, n, seeded):
     cfg = _exact_cfg(L)
@@ -1628,6 +1709,46 @@ def test_exact_encode_kernel_matches_twin(dev, L, n, seeded):
     st_h, w_h = il2.encode_shared(cums, probs, cfg, seeds=seeds)
     np.testing.assert_array_equal(convert.u64_from_torch(st), st_h)
     np.testing.assert_array_equal(convert.u32_from_torch(w), w_h)
+
+
+@pytest.mark.parametrize("L,n,seeded,P", [(96, 96 * 40 - 7, True, 24),
+                                          (32768, 32768 * 4 - 99, False, 24),
+                                          (32768, 32768 * 4 - 99, True, 24),
+                                          (4096, 4096 * 6 - 5, True, 17)])
+def test_exact_encode64_passes_match_plain_passes(dev, L, n, seeded, P):
+    """Kernel 17's C entries (L a multiple of 32, not of 128, too; P=17,
+    where quotients reach 2^47): both passes on preallocated scratch
+    against the one-loop twin, and pass A alone (final states, ballots and
+    the words it flags) against ``encode_lanes_plain``."""
+    cfg = _exact_cfg(L, P)
+    means, scales, syms = _exact_data(n, seed=n + L)
+    cums, probs = ef.exact_ecp(syms, means, scales, "gaussian", -100, 100, P)
+    rng = np.random.RandomState(L)
+    seeds = (rng.randint(1 << 32, (1 << 63) - 1, L, dtype=np.int64).astype(
+        np.uint64) if seeded else np.full(L, 1 << 32, dtype=np.uint64))
+    c_t, p_t = convert.ecp_to_torch(cums, probs, L, dev)
+    s_t = convert.u64_to_torch(seeds, dev)
+    T = -(-n // L)
+    st_p, w_p = ef.encode_tables_plain(c_t, p_t, cfg, s_t, n)
+    words_p, flags_p, lst_p = ef.encode_lanes_plain(c_t, p_t, cfg, s_t, n)
+    words = torch.empty(T * L, dtype=torch.int32, device=dev)
+    flags = torch.empty(T * L // 32, dtype=torch.int32, device=dev)
+    offsets = torch.empty(coder.SCAN_BLOCKS, dtype=torch.int64, device=dev)
+    buf = torch.empty(n, dtype=torch.int32, device=dev)
+    end = torch.empty(1, dtype=torch.int64, device=dev)
+    states = s_t.clone()
+    _build.call("ctt_exact_encode64", dev, states, c_t, p_t, n, buf, n, end,
+                words, flags, offsets, L, P)
+    assert torch.equal(states, st_p)
+    assert torch.equal(buf[int(end.item()):], w_p)
+    words.fill_(-1)
+    states = s_t.clone()
+    _build.call("ctt_exact_encode_lanes64", dev, states, c_t, p_t, n, words,
+                flags, L, P)
+    f = flags_p.reshape(-1)
+    assert torch.equal(states, lst_p)
+    assert torch.equal(flags.view(T, L // 32), coder.flag_ballots(flags_p))
+    assert torch.equal(words[f], words_p.reshape(-1)[f])
 
 
 def _host_tables(means, scales, family, cfg, n, dev):

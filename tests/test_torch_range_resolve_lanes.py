@@ -171,6 +171,10 @@ def test_lane_pass_checks_its_arguments():
     records, s0, carry = _phase_a(syms, cdf, _cfg(L))
     with pytest.raises(ValueError, match="W=16, S=32"):
         range_enc.resolve_lanes(records, s0, carry,
+                                LaneConfig(L, 8, 32, 12), n)
+    # the S=64 lane pass (kernel 10) takes u64 records
+    with pytest.raises(TypeError, match="records must be torch.int64"):
+        range_enc.resolve_lanes(records, s0, carry,
                                 LaneConfig(L, 32, 64, 24), n)
     with pytest.raises(ValueError, match="records must have 384 entries"):
         range_enc.resolve_lanes(records[:-128], s0, carry, _cfg(L), n)
