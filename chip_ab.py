@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Fourteen coding kernels timed in several checkouts on one card, one
+"""Sixteen coding kernels timed in several checkouts on one card, one
 checkout after another in the order given.
 
     git archive <commit> | tar -x -C _scratch/parent
@@ -33,6 +33,12 @@ builds its kernels and times, on the same inputs:
 - kernel 24, the TChain-24 encode, on the JAX suite's TChain row (2^24
   uniform quantiles, K=100 Dirichlet(2), seed 1234) at L=32768: its C
   entry;
+- kernel 20, the TChain-16 encode, on the TChain-16 row (2^24 uniform
+  16-bit quantiles, the same model at P=16) at L=32768: its C entry (with
+  a records scratch where it takes one);
+- kernel 23, the TChain-24 decode, on the TChain-24 row: its C entry (on
+  preallocated scratch where it takes some), and, where the checkout has
+  them, its head pass and pass B alone;
 - kernel 15, the S=64 reference-exact table decode, on the JAX suite's
   exact row (2^22 synthetic symbols, gaussian, [-100, 100], P=24) at
   L=32768 and L=65536, over tables built on the card at the ungrouped
@@ -42,7 +48,8 @@ builds its kernels and times, on the same inputs:
   and scales on [-100, 100], seed 1234), 2^23 and 2^24 quantiles at
   L=32768, checked against its plain twin on the card, as whole calls of
   ``tchain.tchain12_family_decode`` (their arguments are the same in
-  every checkout);
+  every checkout), and at 2^23 its C entry on preallocated scratch and
+  its head pass alone;
 - kernel 11, the family rANS decode, on the family row itself (2^23
   symbols and their means and scales, seed 1234, [-100, 100]) at
   L=32768, for each of the four families: its C entry on a stream the
@@ -172,6 +179,10 @@ def time_decodes(root: str, kernels: set) -> dict:
         _time_resolve64(out, syms, probs, check)
     if 24 in kernels:
         _time_tchain24(out, check)
+    if 20 in kernels:
+        _time_tchain16(out, check)
+    if 23 in kernels:
+        _time_tchain24_decode(out, check)
     if 15 in kernels:
         _time_exact(out, check)
     if 17 in kernels:
@@ -463,11 +474,114 @@ def _time_tchain24(out, check):
     out["tchain24_encode_ms"] = _events_ms(launch, reset)
 
 
+def _time_tchain16(out, check):
+    """Kernel 20 into ``out``: the TChain-16 encode's C entry on the JAX
+    suite's TChain-16 row (2^24 uniform 16-bit quantiles, K=100
+    Dirichlet(2), seed 1234, L=32768), the heads reset outside the CUDA
+    events; the quantile words must come back.  A checkout whose entry
+    takes a records scratch gets one."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.models import fast_quantized_cdf
+    from constriction_tpu_torch.ops import _build
+    from constriction_tpu_torch.ops import tchain as tc
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(1234)
+    probs = rng.dirichlet(np.full(K, 2.0))
+    cdf = convert.cdf_to_torch(fast_quantized_cdf(probs, 16), dev)
+    cdf32 = cdf.to(torch.int32)
+    n = 1 << 24
+    qw = convert.quantiles16_to_torch(
+        rng.randint(0, 1 << 16, size=n).astype(np.uint16), LANES, dev)
+    syms, rem, heads = tc.tchain16_decode(qw, cdf, tc.TCHAIN_CFG)
+    h_buf = torch.empty_like(heads)
+    q_buf = torch.empty_like(qw)
+    entry = "ctt_tchain16_encode"
+    records = (() if len(_build.SIGNATURES[entry]) == 11 else
+               (torch.empty(2 * K, dtype=torch.int32, device=dev),))
+
+    def reset():
+        h_buf.copy_(heads)
+
+    def launch():
+        _build.call(entry, dev, h_buf, syms, cdf32, K, rem, rem.numel(),
+                    q_buf, *records, LANES, n // LANES)
+    reset()
+    launch()
+    check(q_buf, qw, "tchain16 encode")
+    out["tchain16_encode_ms"] = _events_ms(launch, reset)
+
+
+def _time_tchain24_decode(out, check):
+    """Kernel 23 into ``out``: the TChain-24 decode's C entry on the JAX
+    suite's TChain-24 row (2^24 uniform 24-bit quantiles, K=100
+    Dirichlet(2), seed 1234, L=32768), on preallocated scratch where it
+    takes some, the heads reset outside the CUDA events; symbols, stream
+    and heads must equal the wrapper's.  Where the checkout has them, its
+    head pass and pass B alone."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.models import fast_quantized_cdf
+    from constriction_tpu_torch.ops import _build, coder
+    from constriction_tpu_torch.ops import tchain as tc
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(1234)
+    probs = rng.dirichlet(np.full(K, 2.0))
+    cdf = convert.cdf_to_torch(fast_quantized_cdf(probs, 24), dev)
+    cdf32 = cdf.to(torch.int32)
+    n = 1 << 24
+    T = n // LANES
+    qt = convert.u32_to_torch(
+        rng.randint(0, 1 << 24, size=n).astype(np.uint32), dev)
+    want = tc.tchain24_decode(qt, cdf, tc.TCHAIN24_CFG)
+    i32 = {"dtype": torch.int32, "device": dev}
+    h_buf = torch.empty(LANES, dtype=torch.int64, device=dev)
+    s_buf, w_buf = torch.empty(n, **i32), torch.empty(n, **i32)
+    end = torch.empty(1, dtype=torch.int64, device=dev)
+    words, flags, offsets = coder.compaction_scratch(T, LANES, dev)
+    entry = "ctt_tchain24_decode"
+    scratch = (() if len(_build.SIGNATURES[entry]) == 12 else
+               (words, flags, offsets))
+
+    def reset():
+        h_buf.fill_(256)
+
+    def same(what):
+        check(s_buf, want[0], f"{what} symbols")
+        check(w_buf[int(end.item()):], want[1], f"{what} stream")
+        check(h_buf, want[2], f"{what} heads")
+
+    def launch():
+        _build.call(entry, dev, h_buf, qt, cdf32, K, s_buf, w_buf, n, end,
+                    *scratch, LANES, T)
+    reset()
+    launch()
+    same("tchain24 decode")
+    out["tchain24_decode_ms"] = _events_ms(launch, reset)
+    if "ctt_tchain24_head_pass" in _build.SIGNATURES:
+        out["tchain24_decode_heads_ms"] = _events_ms(
+            lambda: _build.call("ctt_tchain24_head_pass", dev, h_buf, qt,
+                                cdf32, K, s_buf, words, flags, LANES, T),
+            reset)
+        out["tchain24_decode_pass_b_ms"] = _events_ms(
+            lambda: _build.call("ctt_ilans2_compact", dev, flags, words,
+                                flags.numel(), w_buf, n, end, offsets))
+        same("tchain24 passes apart")
+
+
 def _time_tchain12(out, check):
     """Kernel 21 into ``out``: whole calls of the wrapper (launches, the
     scratch from PyTorch's caching allocator, the read-back of the
     stream's start) on the family row's inputs, at 2^23 and 2^24
-    quantiles."""
+    quantiles; at 2^23 also its C entry on preallocated scratch and its
+    head pass alone on the inversion pass's records (the heads reset
+    outside the CUDA events), each checked against the call."""
     import numpy as np
     import torch
 
@@ -494,9 +608,45 @@ def _time_tchain12(out, check):
                                                    -100, 100, cfg)
             for a, b, what in zip(got, want, ("symbols", "stream", "heads")):
                 check(a, b, f"tchain12 {what}")
+            _time_tchain12_entry(out, check, qw, mu, sg, got, n)
         out[f"tchain12_decode_n{n.bit_length() - 1}_ms"] = _events_ms(
             lambda: tc.tchain12_family_decode(qw, mu, sg, "gaussian", -100,
                                               100, cfg))
+
+
+def _time_tchain12_entry(out, check, qw, mu, sg, want, n):
+    """Kernel 21's C entry (gaussian) and its head pass alone into
+    ``out``."""
+    import torch
+
+    from constriction_tpu_torch.ops import _build, coder
+
+    dev = qw.device
+    T = n // LANES
+    i32 = {"dtype": torch.int32, "device": dev}
+    h_buf, s_buf = torch.empty(LANES, **i32), torch.empty(n, **i32)
+    w_buf, recs = torch.empty(n, **i32), torch.empty(n, **i32)
+    end = torch.empty(1, dtype=torch.int64, device=dev)
+    words, flags, offsets = coder.compaction_scratch(T, LANES, dev)
+
+    def reset():
+        h_buf.fill_(16)
+
+    def launch():
+        _build.call("ctt_tchain12_family_decode", dev, h_buf, qw, mu, sg,
+                    s_buf, w_buf, n, end, recs, words, flags, offsets,
+                    LANES, T, 0, -100, 100)
+
+    reset()
+    launch()
+    check(s_buf, want[0], "tchain12 entry symbols")
+    check(w_buf[int(end.item()):], want[1], "tchain12 entry stream")
+    check(h_buf, want[2], "tchain12 entry heads")
+    out["tchain12_decode_entry_ms"] = _events_ms(launch, reset)
+    out["tchain12_decode_heads_ms"] = _events_ms(
+        lambda: _build.call("ctt_tchain12_head_pass", dev, h_buf, recs,
+                            words, flags, LANES, T), reset)
+    check(h_buf, want[2], "tchain12 head pass heads")
 
 
 def _time_exact(out, check):
@@ -718,7 +868,7 @@ def _time_exact_seg(out, check):
 
 
 def main(argv: list[str]) -> int:
-    kernels = "1,2,3,4,5,6,8,10,11,15,16,17,21,24"
+    kernels = "1,2,3,4,5,6,8,10,11,15,16,17,20,21,23,24"
     if len(argv) > 1 and argv[0] == "--kernels":
         kernels, argv = argv[1], argv[2:]
     if len(argv) == 2 and argv[0] == "--one":
@@ -727,7 +877,7 @@ def main(argv: list[str]) -> int:
         return 0
     if not argv:
         sys.exit("usage: chip_ab.py [--kernels "
-                 "1,2,3,4,5,6,8,10,11,15,16,17,21,24] CHECKOUT ...")
+                 "1,2,3,4,5,6,8,10,11,15,16,17,20,21,23,24] CHECKOUT ...")
     for root in argv:
         done = subprocess.run([sys.executable, os.path.abspath(__file__),
                                "--kernels", kernels, "--one", root])

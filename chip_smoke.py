@@ -17,19 +17,20 @@ prints one JSON object per phase, then the kernels line, the card's
                     4 at P=12 and P=16), the range decodes (kernel 5 at
                     P=24, kernel 6 at P=12 and P=16), the S=64 exact
                     table decodes (kernels 15 and 16), the family
-                    decode (kernel 11, each family) and the TChain-24
-                    cluster encode (kernel 24): the decode's cluster
-                    size,
+                    decode (kernel 11, each family) and the TChain-16
+                    and TChain-24 cluster encodes (kernels 20 and 24):
+                    the decode's cluster size,
                     CTAs, threads, lanes per thread, the card's maximum of
                     such active clusters (more than one CTA, or the run
                     fails), its bucket table's lut_bits and whether the CDF
                     is in shared memory, the encode's pass-A grid, and
                     ptxas' registers and spills for their kernels at each
                     preset and lanes a thread and for the lane passes of
-                    kernels 21, 8, 10 and 17.  A spill in the range decodes
-                    or kernels 11, 15, 16 and 24 at 2 or 4 lanes a thread,
-                    or in those lane passes, fails the run, as does kernel 11,
-                    16 or 24 on fewer than 16 CTAs at L=32768.
+                    kernels 21, 23, 8, 10 and 17.  A spill in the range
+                    decodes or kernels 11, 15, 16, 20 and 24 at 2 or 4
+                    lanes a thread, or in those lane passes, fails the
+                    run, as does kernel 11, 16, 20 or 24 on fewer than 16
+                    CTAs at L=32768.
 2. kernels       -- each rANS kernel against its plain PyTorch twin on the
                     same CUDA tensors and against the numpy host oracle
                     (L=32768, about 2^20 symbols, with and without seeds):
@@ -117,7 +118,9 @@ prints one JSON object per phase, then the kernels line, the card's
                     and the port's numpy host oracles (L=32768, 2^20
                     quantiles, a K=100 Dirichlet(2) model at P=16 and P=24):
                     symbols, remainders, heads and re-encoded quantiles
-                    identical, every head back at its seed.
+                    identical, every head back at its seed; the TChain-24
+                    decode's two steps (the head pass, pass B) also
+                    launched alone, each against its plain version.
 15. tchain_main_path -- the JAX package's TChain benchmark rows (2^24
                     uniform quantiles, that model, L=32768, T=512) through
                     ``cuda.bits_back_decode`` -> ``bits_back_encode`` and
@@ -126,12 +129,14 @@ prints one JSON object per phase, then the kernels line, the card's
                     back with every head at 1 (P=16) and 256 (P=24); each of
                     the four kernels must have launched.
 16. tchain_times -- kernel-only time of each of the four at that size (C
-                    entries on preallocated buffers; kernel 24 with its
-                    records' scratch), its twin's time on the card
-                    (outputs equal), the facade's call times and host
-                    shares, and each kernel's bound.
-    tchain_sweep -- kernel 24's time per coding step at T=256 steps over
-                    L=128 .. 65536, as phase 5 fits it.
+                    entries on preallocated buffers; kernels 20 and 24 with
+                    their records' scratch, kernel 23 with the
+                    compaction's), kernel 23's two steps timed apart, its twin's time on the card (outputs equal),
+                    the facade's call times and host shares, and each
+                    kernel's bound.
+    tchain_sweep -- the cluster encodes' time per coding step at T=256
+                    steps, kernel 24 over L=128 .. 65536 and kernel 20
+                    over L=256 .. 65536, as phase 5 fits it.
 17. chain_decode -- ``cuda.decode_chain_iid`` on 2^24 symbols of random
                     chain data (K=100, P=24) and ``cuda.decode_chain_rows``
                     on 2^20 symbols with a K=16 model each, against the
@@ -320,11 +325,12 @@ FAMILY_KERNELS = {
 TCHAIN_KERNELS = {
     "tchain16_decode": ("tchain", "decode16",
                         "constriction_tpu/ops/tchain.py:264", TCHAIN_SOURCE),
-    "tchain16_encode": ("tchain", "encode16",
-                        "constriction_tpu/ops/tchain.py:302", TCHAIN_SOURCE),
+    # kernels 20 and 24 on the cluster step; kernel 23 as three grid steps
+    "cluster_tchain16_encode": ("tchain", "encode16",
+                                "constriction_tpu/ops/tchain.py:302",
+                                TCHAIN_SOURCE),
     "tchain24_decode": ("tchain", "decode24",
                         "constriction_tpu/ops/tchain.py:1106", TCHAIN_SOURCE),
-    # kernel 24 on the cluster step
     "cluster_tchain24_encode": ("tchain", "encode24",
                                 "constriction_tpu/ops/tchain.py:1147",
                                 TCHAIN_SOURCE),
@@ -528,10 +534,11 @@ def ptxas_usage(log: str, marks: tuple) -> dict:
 
 # the kernels ptxas must compile without spilling: the range decodes at
 # both presets, the S=64 exact table decodes (kernels 15 and 16), the
-# family decode (kernel 11, each family) and the TChain-24 encode (kernel
-# 24) at 2 and 4 lanes a thread (L = 32768 and 65536), the TChain-12
-# decode's two passes, the range resolves' lane passes (kernels 8 and 10)
-# and kernel 17's pass A
+# family decode (kernel 11, each family) and the TChain-16 and TChain-24
+# encodes (kernels 20 and 24) at 2 and 4 lanes a thread (L = 32768 and
+# 65536), the TChain-12 decode's first two passes (kernel 21), the
+# TChain-24 decode's head pass (kernel 23), the range resolves' lane
+# passes (kernels 8 and 10) and kernel 17's pass A
 NO_SPILL = (r"cluster_range_decode_kernelILi32ELi64ELi[24]E",
             r"cluster_range_decode_kernelILi16ELi32ELi[24]E",
             r"cluster_decode_kernelILi32ELi64ELi[24]E.*TableModelELb0E",
@@ -539,7 +546,9 @@ NO_SPILL = (r"cluster_range_decode_kernelILi32ELi64ELi[24]E",
             *(rf"cluster_decode_kernelILi16ELi32ELi[24]E.*FamilyModelILi{k}EE"
               for k in range(4)),
             r"cluster_tchain_encode_kernelILi32ELi64ELi24ELi[24]E",
-            r"tchain12_invert_kernel", r"tchain12_heads_kernel",
+            r"cluster_tchain_encode_kernelILi16ELi32ELi16ELi[24]E",
+            r"tchain12_invert_kernel", r"tchain_heads_kernelILi16ELi32ELi12E",
+            r"tchain_heads_kernelILi32ELi64ELi24E",
             r"range_resolve_lanes_kernelILi16ELi32E",
             r"range_resolve_lanes_kernelILi32ELi64E",
             r"encode_lanes_kernelILi32ELi64E.*PlaneLanesModel")
@@ -550,12 +559,12 @@ def phase_geometry(device) -> dict:
     rANS pairs (kernels 1 and 2 at P=24, kernels 3 and 4 at P=12 and P=16),
     the range decodes (kernel 5 at P=24, kernel 6 at P=12 and P=16), the
     S=64 exact table decodes (kernels 15 and 16), the family decode
-    (kernel 11, each family) and the TChain-24 cluster encode (kernel 24)
-    at bench.py's lane counts for its K, and what ptxas reported for their
-    kernels at each preset and lanes a thread and for the lane passes of
-    kernels 21, 8, 10 and 17.  Fails on a spill in a kernel of NO_SPILL,
-    and unless
-    kernels 11, 16 and 24 run on 16 CTAs at L=32768."""
+    (kernel 11, each family) and the TChain-16 and TChain-24 cluster
+    encodes (kernels 20 and 24) at bench.py's lane counts for its K, and
+    what ptxas reported for their kernels at each preset and lanes a
+    thread and for the lane passes of kernels 21, 23, 8, 10 and 17.  Fails
+    on a spill in a kernel of NO_SPILL, and unless kernels 11, 16, 20 and
+    24 run on 16 CTAs at L=32768."""
     import re
 
     from constriction_tpu_torch.ops import _build, coder, coder64
@@ -584,6 +593,9 @@ def phase_geometry(device) -> dict:
     rows += [{"kernel": 24, "preset": "w32s64", "num_lanes": L, "K": K_MAIN,
               "P": 24, **tc.geometry24(L, K_MAIN, device)}
              for L in (32768, BENCH_LANES)]
+    rows += [{"kernel": 20, "preset": "w16s32", "num_lanes": L, "K": K_MAIN,
+              "P": 16, **tc.geometry16(L, K_MAIN, device)}
+             for L in (32768, BENCH_LANES)]
     for row in rows:
         if "encode_blocks" in row:
             row["encode_grid"] = (f"{row['encode_blocks']} x "
@@ -591,7 +603,7 @@ def phase_geometry(device) -> dict:
         if row["cluster"] < 2:
             fail(f"geometry: kernel {row['kernel']} runs on one CTA at "
                  f"L={row['num_lanes']}")
-        if (row["kernel"] in (11, 16, 24) and row["num_lanes"] == 32768
+        if (row["kernel"] in (11, 16, 20, 24) and row["num_lanes"] == 32768
                 and row["ctas"] != 16):
             fail(f"geometry: kernel {row['kernel']} runs on {row['ctas']} "
                  f"CTAs at L=32768")
@@ -613,7 +625,7 @@ def phase_geometry(device) -> dict:
                                        "encode_lanes_kernelILi16ELi32E",
                                        "cluster_range_decode_kernel",
                                        "tchain12_invert_kernel",
-                                       "tchain12_heads_kernel",
+                                       "tchain_heads_kernel",
                                        "cluster_tchain_encode_kernel",
                                        "range_resolve_lanes_kernel",
                                        "division_records", "compact_"))}
@@ -1828,11 +1840,9 @@ def cat_presets() -> dict:
 
 
 def tchain_name(label: str, kind: str) -> str:
-    """The name of a categorical TChain kernel in TCHAIN_KERNELS: kernel
-    24 runs on the cluster step."""
-    if (label, kind) == ("tchain24", "encode"):
-        return "cluster_tchain24_encode"
-    return f"{label}_{kind}"
+    """The name of a categorical TChain kernel in TCHAIN_KERNELS: the
+    encodes (kernels 20 and 24) run on the cluster step."""
+    return f"cluster_{label}_{kind}" if kind == "encode" else f"{label}_{kind}"
 
 
 def cat_workload(n: int) -> dict:
@@ -1863,10 +1873,30 @@ def cat_to_torch(P: int, values, L: int, device):
     return convert.u32_to_torch(values, device)
 
 
+def tchain24_passes_err(qt, cdf, cfg, dec) -> int:
+    """Kernel 23's two steps launched alone, each against its plain version
+    on the same tensors, and composed against the decode ``dec``: the
+    largest mismatch."""
+    from constriction_tpu_torch.ops import coder
+    from constriction_tpu_torch.ops import tchain as tc
+
+    syms, words, ballots, heads = tc.tchain24_head_pass(qt, cdf, cfg)
+    syms_p, words_p, flags_p, heads_p = tc.tchain24_head_pass_plain(qt, cdf,
+                                                                    cfg)
+    stream = coder.compact_pass(words, ballots)
+    return max(mismatch(syms, syms_p),
+               mismatch(ballots, coder.flag_ballots(flags_p)),
+               mismatch(words[flags_p], words_p[flags_p]),
+               mismatch(heads, heads_p),
+               mismatch(stream, coder.compact_pass_plain(words_p, flags_p)),
+               planes_err((syms, stream, heads), dec))
+
+
 def phase_tchain_kernels(device, n: int) -> tuple[dict, dict]:
     """Each categorical TChain kernel against its twin and the numpy host
     oracle (L=32768, n quantiles): symbols, remainders, heads and the
-    re-encoded quantiles identical, every head back at its seed."""
+    re-encoded quantiles identical, every head back at its seed; kernel
+    23's two steps each against its plain version."""
     import torch
 
     from constriction_tpu_torch import convert
@@ -1886,6 +1916,8 @@ def phase_tchain_kernels(device, n: int) -> tuple[dict, dict]:
                     mismatch(got[0].cpu(), torch.from_numpy(host[0])),
                     mismatch(got[1], convert.u32_to_torch(host[1], device)),
                     mismatch(got[2], cat_to_torch(P, host[2], L, device)))
+        if P == 24:
+            e_dec = max(e_dec, tchain24_passes_err(qt, cdf, cfg, got))
         back = enc(*got, cdf, cfg)
         q_h, h_h = enc_h(*host, cdf_np, cfg)
         e_enc = max(planes_err(back, enc_p(*got, cdf, cfg)),
@@ -1957,7 +1989,7 @@ def phase_tchain_times(device, work, gpu: str,
 
     from constriction_tpu_torch import convert
     from constriction_tpu_torch import cuda as ctt
-    from constriction_tpu_torch.ops import _build
+    from constriction_tpu_torch.ops import _build, coder
 
     facade = {16: (ctt.bits_back_decode, ctt.bits_back_encode),
               24: (ctt.bits_back_decode24, ctt.bits_back_encode24)}
@@ -1980,20 +2012,37 @@ def phase_tchain_times(device, work, gpu: str,
         w_buf = torch.empty(n, dtype=torch.int32, device=device)
         q_buf = torch.empty_like(qt)
         end = torch.empty(1, dtype=torch.int64, device=device)
+        # kernel 23's scratch: dense words, ballots, offsets
+        scratch, passes = (), {}
+        if P == 24:
+            scratch = words, flags, offsets = coder.compaction_scratch(
+                T, L, device)
         ms = {}
         ms["decode"] = kernel_ms(
             lambda: h_buf.fill_(seed), lambda: _build.call(
                 f"ctt_{label}_decode", device, h_buf, qt, cdf32, K, s_buf,
-                w_buf, n, end, L, T), 5)
+                w_buf, n, end, *scratch, L, T), 5)
         same = (torch.equal(s_buf, got[0]) and torch.equal(h_buf, got[2])
                 and torch.equal(w_buf[int(end.item()):], got[1]))
-        # kernel 24 takes a scratch for its K division records
-        records = (() if P == 16 else
-                   (torch.empty(4 * K, dtype=torch.int32, device=device),))
+        if P == 24:  # its two steps apart: the head pass, pass B
+            passes = {
+                "heads": kernel_ms(lambda: h_buf.fill_(seed),
+                                   lambda: _build.call(
+                    "ctt_tchain24_head_pass", device, h_buf, qt, cdf32, K,
+                    s_buf, words, flags, L, T), 5),
+                "pass_b": kernel_ms(lambda: None, lambda: _build.call(
+                    "ctt_ilans2_compact", device, flags, words,
+                    flags.numel(), w_buf, n, end, offsets), 5),
+            }
+            same = (same and torch.equal(s_buf, got[0])
+                    and torch.equal(h_buf, got[2])
+                    and torch.equal(w_buf[int(end.item()):], got[1]))
+        # kernels 20 and 24 take a scratch for their K division records
+        records = coder._records(cdf32, cfg)
         ms["encode"] = kernel_ms(
             lambda: h_buf.copy_(got[2]), lambda: _build.call(
                 f"ctt_{label}_encode", device, h_buf, got[0], cdf32, K,
-                got[1], nr, q_buf, *records, L, T), 5)
+                got[1], nr, q_buf, records, L, T), 5)
         same = same and torch.equal(q_buf, qt) and bool((h_buf == seed).all())
         if not same:
             fail(f"tchain_times: {label} timed launches differ from the "
@@ -2033,6 +2082,7 @@ def phase_tchain_times(device, work, gpu: str,
             "coder": label, "K": K, "n": n, "num_lanes": L,
             "remainder_words": nr,
             **{f"{k}_ms": v for k, v in ms.items()},
+            **{f"decode_{k}_ms": v for k, v in passes.items()},
             **{f"{k}_ns_per_symbol": v * 1e6 / n for k, v in ms.items()},
             **{f"{k}_plain_ms": v for k, v in plain.items()},
             **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
@@ -2049,8 +2099,9 @@ def phase_tchain_times(device, work, gpu: str,
 
 
 def phase_tchain_sweep(device, gpu: str) -> dict:
-    """The TChain-24 encode (kernel 24) per coding step at SWEEP_STEPS
-    steps over SWEEP_LANES lanes, as phase_sweep times the rANS pairs:
+    """The cluster encodes (kernel 24, TChain-24; kernel 20, TChain-16) per
+    coding step at SWEEP_STEPS steps over SWEEP_LANES lanes (kernel 20 from
+    256, its lane multiple), as phase_sweep times the rANS pairs:
     kernel-only (CUDA events around the C entry, the heads reset outside
     them), its quantiles equal to the decoded ones, the floor at the fewest
     lanes and the slope from 4096 lanes up (microseconds per step per 1024
@@ -2059,41 +2110,51 @@ def phase_tchain_sweep(device, gpu: str) -> dict:
     import torch
 
     from constriction_tpu_torch import convert
-    from constriction_tpu_torch.ops import _build
+    from constriction_tpu_torch.ops import _build, coder
     from constriction_tpu_torch.ops import tchain as tc
     from constriction_tpu_torch.ops.interleaved import LaneConfig
 
     rng = np.random.RandomState(24)
     probs = rng.dirichlet(np.full(K_MAIN, 2.0))
-    cdf = convert.cdf_to_torch(model_cdf(probs, 24), device)
-    cdf32 = cdf.to(torch.int32)
-    records = torch.empty(4 * K_MAIN, dtype=torch.int32, device=device)
-    all_q = convert.u32_to_torch(rng.randint(
-        0, 1 << 24, size=max(SWEEP_LANES) * SWEEP_STEPS).astype(np.uint32),
-        device)
-    rows, us = [], []
-    for L in SWEEP_LANES:
-        cfg = LaneConfig(num_lanes=L, word_bits=32, state_bits=64,
-                         precision=24)
-        q = all_q[:L * SWEEP_STEPS]
-        syms, rem, heads = tc.tchain24_decode(q, cdf, cfg)
-        h_buf = torch.empty_like(heads)
-        q_buf = torch.empty_like(q)
-        ms = kernel_ms(lambda: h_buf.copy_(heads), lambda: _build.call(
-            "ctt_tchain24_encode", device, h_buf, syms, cdf32, K_MAIN, rem,
-            rem.numel(), q_buf, records, L, SWEEP_STEPS), 3)
-        if mismatch(q_buf, q) != 0 or not bool((h_buf == 256).all()):
-            fail(f"tchain_sweep: kernel 24 L={L} round trip")
-        us.append(ms * 1e3 / SWEEP_STEPS)
-        rows.append({"kernel": 24, "num_lanes": L, "steps": SWEEP_STEPS,
-                     "encode_ms": ms, "encode_us_per_step": us[-1],
-                     **tc.geometry24(L, K_MAIN, device)})
-    i = SWEEP_LANES.index(4096)
-    fit = {"us_per_step_floor": us[0],
-           "us_per_1024_lanes_per_step": (us[-1] - us[i]) * 1024 / (
-               SWEEP_LANES[-1] - SWEEP_LANES[i])}
-    return {"phase": "tchain_sweep", "cases": rows,
-            "fits": {"cluster_tchain24_encode": fit}, "gpu": gpu}
+    top = max(SWEEP_LANES) * SWEEP_STEPS
+    q24 = rng.randint(0, 1 << 24, size=top).astype(np.uint32)
+    q16 = rng.randint(0, 1 << 16, size=top).astype(np.uint16)
+    # kernel, name, W, S, P, quantiles, decode, geometry, seed head, lanes
+    presets = (
+        (24, "cluster_tchain24_encode", 32, 64, 24, q24, tc.tchain24_decode,
+         tc.geometry24, 256, SWEEP_LANES),
+        (20, "cluster_tchain16_encode", 16, 32, 16, q16, tc.tchain16_decode,
+         tc.geometry16, 1, (256,) + SWEEP_LANES[1:]),
+    )
+    rows, fits = [], {}
+    for kernel, name, W, S, P, q_np, decode, geometry, seed, lanes in presets:
+        cdf = convert.cdf_to_torch(model_cdf(probs, P), device)
+        cdf32 = cdf.to(torch.int32)
+        us = []
+        for L in lanes:
+            cfg = LaneConfig(num_lanes=L, word_bits=W, state_bits=S,
+                             precision=P)
+            q = cat_to_torch(P, q_np[:L * SWEEP_STEPS], L, device)
+            syms, rem, heads = decode(q, cdf, cfg)
+            records = coder._records(cdf32, cfg)
+            h_buf = torch.empty_like(heads)
+            q_buf = torch.empty_like(q)
+            ms = kernel_ms(lambda: h_buf.copy_(heads), lambda: _build.call(
+                f"ctt_tchain{P}_encode", device, h_buf, syms, cdf32, K_MAIN,
+                rem, rem.numel(), q_buf, records, L, SWEEP_STEPS), 3)
+            if mismatch(q_buf, q) != 0 or not bool((h_buf == seed).all()):
+                fail(f"tchain_sweep: kernel {kernel} L={L} round trip")
+            us.append(ms * 1e3 / SWEEP_STEPS)
+            rows.append({"kernel": kernel, "num_lanes": L,
+                         "steps": SWEEP_STEPS, "encode_ms": ms,
+                         "encode_us_per_step": us[-1],
+                         **geometry(L, K_MAIN, device)})
+        i = lanes.index(4096)
+        fits[name] = {"us_per_step_floor": us[0],
+                      "floor_lanes": lanes[0],
+                      "us_per_1024_lanes_per_step": (us[-1] - us[i]) * 1024
+                      / (lanes[-1] - lanes[i])}
+    return {"phase": "tchain_sweep", "cases": rows, "fits": fits, "gpu": gpu}
 
 
 def phase_chain_decode(device, gpu: str) -> dict:

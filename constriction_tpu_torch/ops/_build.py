@@ -83,14 +83,19 @@ _TCHAIN12_ENCODE_ARGS = [_P, _P, _P, _P, _P, _I64, _P, _P, _I32, _I32,
                          *_FAMILY_TAIL]
 _TCHAIN_DECODE_ARGS = [_P, _P, _P, _I32, _P, _P, _I64, _P, _I32, _I32, _P,
                        _I32]
-_TCHAIN_ENCODE_ARGS = [_P, _P, _P, _I32, _P, _I64, _P, _I32, _I32, _P, _I32]
-# kernel 24: the division records' scratch after q
-_TCHAIN24_ENCODE_ARGS = [_P, _P, _P, _I32, _P, _I64, _P, _P, _I32, _I32, _P,
-                         _I32]
+# kernel 23: its scratch (dense words, ballots, compaction offsets) after
+# end_out
+_TCHAIN24_DECODE_ARGS = [*_TCHAIN_DECODE_ARGS[:8], _P, _P, _P,
+                         *_TCHAIN_DECODE_ARGS[8:]]
+# kernel 23's head pass: heads, q, cdf, K, syms, words, flags, L, T
+_TCHAIN24_HEADS_ARGS = [_P, _P, _P, _I32, _P, _P, _P, _I32, _I32, _P, _I32]
+# kernels 20 and 24: the division records' scratch after q
+_TCHAIN_ENCODE_ARGS = [_P, _P, _P, _I32, _P, _I64, _P, _P, _I32, _I32, _P,
+                       _I32]
 # the cluster size after T
-_TCHAIN24_ENCODE_CLUSTER_ARGS = [*_TCHAIN24_ENCODE_ARGS[:10], _I32, _P, _I32]
+_TCHAIN_ENCODE_CLUSTER_ARGS = [*_TCHAIN_ENCODE_ARGS[:10], _I32, _P, _I32]
 # L, K, cluster size, out[7]
-_TCHAIN24_GEOMETRY_ARGS = [_I32, _I32, _I32, _P, _P, _I32]
+_TCHAIN_GEOMETRY_ARGS = [_I32, _I32, _I32, _P, _P, _I32]
 _D = ctypes.c_double
 _EXACT_ENCODE_ARGS = [_P, _P, _P, _I64, _P, _I64, _P, _I32, _I32, _P, _I32]
 # kernel 17: its scratch (words, flags, offsets) after end_out
@@ -137,10 +142,13 @@ SIGNATURES = {
     "ctt_family_left": _FAMILY_LEFT_ARGS,
     "ctt_tchain16_decode": _TCHAIN_DECODE_ARGS,
     "ctt_tchain16_encode": _TCHAIN_ENCODE_ARGS,
-    "ctt_tchain24_decode": _TCHAIN_DECODE_ARGS,
-    "ctt_tchain24_encode": _TCHAIN24_ENCODE_ARGS,
-    "ctt_tchain24_encode_cluster": _TCHAIN24_ENCODE_CLUSTER_ARGS,
-    "ctt_tchain24_geometry": _TCHAIN24_GEOMETRY_ARGS,
+    "ctt_tchain16_encode_cluster": _TCHAIN_ENCODE_CLUSTER_ARGS,
+    "ctt_tchain16_geometry": _TCHAIN_GEOMETRY_ARGS,
+    "ctt_tchain24_decode": _TCHAIN24_DECODE_ARGS,
+    "ctt_tchain24_head_pass": _TCHAIN24_HEADS_ARGS,
+    "ctt_tchain24_encode": _TCHAIN_ENCODE_ARGS,
+    "ctt_tchain24_encode_cluster": _TCHAIN_ENCODE_CLUSTER_ARGS,
+    "ctt_tchain24_geometry": _TCHAIN_GEOMETRY_ARGS,
     "ctt_tchain12_family_decode": _TCHAIN12_DECODE_ARGS,
     "ctt_tchain12_family_encode": _TCHAIN12_ENCODE_ARGS,
     "ctt_tchain12_invert_pass": _TCHAIN12_INVERT_ARGS,

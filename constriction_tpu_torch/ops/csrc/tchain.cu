@@ -17,23 +17,29 @@
 // below prob << (S-W-P) refills W bits, the one the exact inverse of the
 // other.
 //
-// The categorical decodes and the TChain-16 encode are one template over
-// (W, S, P), in the shape of the TChain-12 encoder below: one thread block
-// codes the message, heads live in device memory (updated in place), the
-// words a step flushes are written in the next iteration once the block
-// scan (lanes.cuh) has placed them, the CDF is staged in shared memory
-// when it fits, and a quantile finds its symbol by binary search
-// (find_symbol).  Lanes are strided (lane = row * 1024 + thread) and the
-// last row is guarded per warp, so any L that is a multiple of 32 runs (the
-// wrappers take multiples of 256 and 128, as the JAX package does).  The
-// head update is native: u32 at S=32 (head < 2^16 and prob <= 2^16 keep
-// head * prob + (q - cum) below 2^32; the CDF and prob are never held in
-// 16 bits, since a one-symbol model has prob = 2^16), u64 at S=64 (head <
-// 2^40, prob <= 2^24: the product stays below 2^64).  The TChain-24 encode
-// (kernel 24) runs on ilans2_wide.cuh's cluster step instead
-// (cluster_tchain_encode_kernel, below): its heads in registers, one
-// exchange a step, the u64 division a multiply-high by each symbol's
-// DivisionRecord.
+// The TChain-16 decode (kernel 19) is a single-block template over (W, S,
+// P), in the shape of the TChain-12 encoder below: one thread block codes
+// the message, heads live in device memory (updated in place), the words
+// a step flushes are written in the next iteration once the block scan
+// (lanes.cuh) has placed them, the CDF is staged in shared memory when it
+// fits, and a quantile finds its symbol by binary search (find_symbol).
+// Lanes are strided (lane = row * 1024 + thread) and the last row is
+// guarded per warp, so any L that is a multiple of 32 runs (the wrappers
+// take multiples of 256, as the JAX package does).  The head update is
+// native u32 (head < 2^16 and prob <= 2^16 keep head * prob + (q - cum)
+// below 2^32; the CDF and prob are never held in 16 bits, since a
+// one-symbol model has prob = 2^16).
+//
+// The encodes (kernels 20 and 24) run on ilans2_wide.cuh's cluster step
+// (cluster_tchain_encode_kernel, below): heads in registers, one exchange
+// a step, the division a multiply-high by each symbol's division record
+// (DivisionRecord32 at S=32, DivisionRecord at S=64).  The TChain-24
+// decode (kernel 23) and the TChain-12 decode (kernel 21) run as three
+// steps over the whole grid: a pass that finds each quantile's symbol
+// (a bucket-table search for kernel 23, a bisection over left() for
+// kernel 21), a head pass of one thread per lane
+// (tchain_heads_kernel, one template for both) and ilans2_wide.cuh's
+// row-major compaction.
 //
 // Quantile layouts keep the Pallas wire format.  TChain-24: one quantile
 // per u32 word.  TChain-16 (ops/tchain.py pack_quantiles): within a step
@@ -44,23 +50,22 @@
 // eight 128-lane rows share three word rows; the encoder ORs its bits into
 // zeroed words with atomicOr.
 //
-// What bounds them on this card.  The TChain-12 decode (kernel 21) runs
-// over the whole grid in three steps (below, before its launchers): an
-// inversion pass of one thread per symbol, which holds its
-// operation-bound work (a bisection over left() per quantile), a head
-// pass of one thread per lane, and ilans2_wide.cuh's row-major compaction.
-// The TChain-24 encode (kernel 24) runs on a cluster of up to 16 SMs: its
-// refills couple the lanes at every step, so the step's exchange and its
-// chain (record, ballot, barriers, one L2 load, a multiply-high) bound it.
-// The other four kernels run on one SM: latency and issue.  The table pair
-// does what the ILANS2 rANS kernels do per symbol (a dependent chain of
-// head load, CDF search, head update and store), so it should cost what
-// they cost per step; the family encoder adds two evaluations of left()
-// per re-encoded symbol (it keeps each lane's pending (cum, prob) in a
-// scratch array, `tab`, as the rANS family encoder does).  The TChain-16
-// and TChain-24 decodes have the TChain-12 decode's lane independence and
-// can take its head pass and compaction by instantiation; the TChain-16
-// encode can take kernel 24's cluster step.
+// What bounds them on this card.  The grid decodes (kernels 21 and 23):
+// kernel 21's inversion pass holds its operation-bound work (a bisection
+// over left() per quantile); kernel 23's search pass moves bytes (a
+// quantile in, a symbol and an 8-byte record out, a few shared-memory
+// reads between); the head passes are chains of T short steps a lane,
+// and the compaction moves one word per u32.  The cluster encodes
+// (kernels 20 and 24) run on up to 16 SMs: their refills couple the lanes
+// at every step, so the step's exchange and its chain (record, ballot,
+// barriers, one L2 load, a multiply-high) bound them.  The other two
+// kernels (19, the TChain-16 decode; 22, the TChain-12 encode) run on one
+// SM: latency and issue.  The family encoder adds two evaluations of
+// left() per re-encoded symbol (it keeps each lane's pending (cum, prob)
+// in a scratch array, `tab`, as the rANS family encoder does).  The
+// TChain-16 decode has kernel 23's lane independence and can take its
+// passes at (16, 32, 16), its records u64 (prob reaches 2^16, so
+// (q - cum) | prob << 16 needs 33 bits).
 
 #include "family.cuh"
 #include "ilans2_wide.cuh"
@@ -166,83 +171,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tid == 0) *end_out = e;
 }
 
-// The reverse pass over T * L symbols, steps T-1 .. 0.  heads[L]: the
-// decoder's final heads in, the heads before step 0 out (the seeds after a
-// full reverse).  words[wlen]: the remainder stream; reads past its end
-// yield 0.  q: the quantiles out, every one written.  Symbols are clamped
-// to K-1; callers validate them (and reject symbols of zero probability,
-// which would divide by 0).
-template <int W, int S, int P>
-__global__ void __launch_bounds__(kThreads, 1)
-    tchain_encode_kernel(typename StateOf<S>::type* __restrict__ heads,
-                         const int32_t* __restrict__ syms,
-                         const uint32_t* __restrict__ cdf_g, int K,
-                         const uint32_t* __restrict__ words, int64_t wlen,
-                         uint32_t* __restrict__ q, int L, int T,
-                         int cdf_in_smem) {
-  using Head = typename StateOf<S>::type;
-  extern __shared__ uint32_t smem[];
-  const int G = L / 32;
-  const Smem s{smem, G};
-  const uint32_t* cdf = stage_cdf(s.cdf(), cdf_g, K, cdf_in_smem);
-  __syncthreads();
-
-  constexpr int kShift = S - W - P;  // refill: head < prob << (S-W-P)
-  constexpr uint32_t kMask = W == 32 ? kFull : ((1u << W) - 1u);
-  const int tid = threadIdx.x, lane = tid & 31;
-  const uint32_t lt_mask = (1u << lane) - 1u;
-  const int rows = (L + kThreads - 1) / kThreads;
-  const uint32_t kmax = static_cast<uint32_t>(K - 1);
-  int64_t base = 0;         // first word of the pending step's refills
-  uint32_t last_total = 0;  // words the pending step consumed
-
-  // Iteration j refills and un-codes step T - j (flagged in iteration
-  // j - 1), then flags the refilling lanes of step T - 1 - j.
-  for (int j = 0; j <= T; ++j) {
-    const int cur = j & 1, prev = cur ^ 1;
-    const int t = T - 1 - j;
-    for (int r = 0; r < rows; ++r) {
-      if (r * kThreads + (tid & ~31) >= L) break;  // warp-uniform
-      const int l = r * kThreads + tid;
-      const int g = l >> 5;
-      Head h = heads[l];
-      if (j > 0) {
-        const uint32_t sym = min(
-            static_cast<uint32_t>(syms[static_cast<int64_t>(t + 1) * L + l]),
-            kmax);
-        const uint32_t cum = cdf[sym];
-        const uint32_t prob = cdf[sym + 1] - cum;
-        if (h < (static_cast<Head>(prob) << kShift)) {  // flagged last time
-          const int64_t idx = base + s.prefix(prev)[g] +
-                              __popc(s.ballots(prev)[g] & lt_mask);
-          const uint32_t word = idx < wlen ? words[idx] : 0u;
-          h = (h << W) | static_cast<Head>(word & kMask);
-        }
-        const Head quot = h / prob;
-        store_quantile<S>(q, t + 1, l, L,
-                          cum + static_cast<uint32_t>(h - quot * prob));
-        h = quot;
-      }
-      if (j < T) {
-        const uint32_t sym = min(
-            static_cast<uint32_t>(syms[static_cast<int64_t>(t) * L + l]), kmax);
-        const uint32_t prob = cdf[sym + 1] - cdf[sym];
-        const unsigned bal =
-            __ballot_sync(kFull, h < (static_cast<Head>(prob) << kShift));
-        if (lane == 0) s.ballots(cur)[g] = bal;
-      }
-      heads[l] = h;
-    }
-    if (j == T) break;
-    __syncthreads();
-    const uint32_t total = scan_groups(s.ballots(cur), s.prefix(cur),
-                                       s.warp_sums(), G);
-    __syncthreads();
-    base += last_total;
-    last_total = total;
-  }
-}
-
 // L a positive multiple of `lane_multiple` (256 planar at S=32, 128 at
 // S=64), at least one symbol, T steps whose symbol indices fit int64.
 template <int S>
@@ -271,42 +199,204 @@ int launch_cat_decode(void* heads, const void* q, const void* cdf, int K,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int W, int S, int P>
-int launch_cat_encode(void* heads, const void* syms, const void* cdf, int K,
-                      const void* words, long long wlen, void* q, int L, int T,
-                      void* cuda_stream, int device) {
-  if (!valid_cat<S>(L, K, T)) return static_cast<int>(cudaErrorInvalidValue);
-  int cdf_in_smem = 0;
-  const size_t bytes = smem_bytes(L, K, &cdf_in_smem);
-  auto kernel = tchain_encode_kernel<W, S, P>;
-  const cudaError_t err = prepare(kernel, device, bytes);
+// The grid decodes' head pass (kernels 21 and 23).  A lane's head update h
+// = h * prob + (q - cum) reads its own head only, and finding a quantile's
+// symbol reads no head at all; the lanes meet only where their flushed
+// words land.  So these decodes run over the whole grid: a head pass of one
+// thread per lane, lane l = blockIdx.x * kHeadThreads + threadIdx.x, through
+// steps 0 .. T-1, then ilans2_wide.cuh's row-major compaction
+// (launch_compact).  heads[L]: the seeds 2^(S-W-P) in, the final heads
+// out.  A head at or above 2^(S-P) after a step flushes its low W bits into
+// a dense scratch words[row * L + l] and shifts right by W, and
+// flags[row * G + g] is the ballot of group g's flushing lanes, row = T -
+// 1 - t, so that the compaction puts the step chunks right to left, lanes
+// ascending in a step (other words are left as they are).  A step source
+// gives each step's (prob, q - cum), kHeadAhead steps ahead:
+//   RecordSteps, kernel 21: the records (q - cum) | prob << 16 that its
+//       inversion pass wrote, one thread per symbol (a bisection over
+//       left() per quantile, the operation-bound work, which fills the
+//       card on its own);
+//   QuantileSteps, kernel 23: the quantiles themselves, each lane's next
+//       kHeadAhead searched at once in the block's staged bucket table and
+//       CDF (BucketCdfModel) and their symbols written.  A search pass of
+//       its own (a persistent grid writing u64 records (q - cum) | prob <<
+//       32) took 0.31 ms with the head pass and the compaction against
+//       0.24 ms for this form at 2^24 quantiles on an H100 (PERF.md §6):
+//       the search overlaps the head chain, and 128 MiB of records never
+//       go through device memory.
+// The u64 heads of kernel 23 stay below 2^40 between steps and prob <=
+// 2^24, so h * prob + (q - cum) < 2^64.
+constexpr int kHeadThreads = 128;
+constexpr int kHeadAhead = 8;  // steps a lane has in flight
+
+template <typename Rec>
+struct RecordSteps {
+  static constexpr bool kStaged = false;
+  static constexpr int kHalf = 4 * sizeof(Rec);  // prob above q - cum
+  using Token = Rec;
+  const Rec* recs;
+
+  __device__ void stage(uint32_t*) {}
+  __device__ Token fetch(int64_t i) const { return recs[i]; }
+  template <int N>
+  __device__ void resolve(const Token (&tok)[N], int, int, int, int,
+                          uint32_t (&prob)[N], uint32_t (&rem)[N]) const {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      prob[j] = static_cast<uint32_t>(tok[j] >> kHalf);
+      rem[j] = static_cast<uint32_t>(tok[j] & ((Rec(1) << kHalf) - 1u));
+    }
+  }
+};
+
+struct QuantileSteps {
+  static constexpr bool kStaged = true;
+  using Token = uint32_t;
+  const uint32_t* q;  // below 2^P (the wrappers check)
+  BucketCdfModel model;
+  int32_t* syms;
+
+  __device__ void stage(uint32_t* smem) { model.stage(smem); }
+  __device__ Token fetch(int64_t i) const { return q[i]; }
+  // steps t0 .. t0 + N - 1 of lane l (those below T hold a symbol)
+  template <int N>
+  __device__ void resolve(const Token (&tok)[N], int t0, int l, int L, int T,
+                          uint32_t (&prob)[N], uint32_t (&rem)[N]) const {
+    const int lanes[N] = {};  // unused by this model
+    int sym[N];
+    uint32_t cum[N];
+    model.invert_lanes(0, lanes, tok, sym, cum, prob);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (t0 + j < T) syms[static_cast<int64_t>(t0 + j) * L + l] = sym[j];
+      rem[j] = tok[j] - cum[j];
+    }
+  }
+};
+
+template <int W, int S, int P, class Source>
+__global__ void __launch_bounds__(kHeadThreads)
+    tchain_heads_kernel(typename StateOf<S>::type* __restrict__ heads,
+                        Source src, uint32_t* __restrict__ words,
+                        uint32_t* __restrict__ flags, int L, int T) {
+  using Head = typename StateOf<S>::type;
+  using Token = typename Source::Token;
+  constexpr Head kFlushAt = Head(1) << (S - P);
+  constexpr Head kMask = (Head(1) << W) - 1u;
+  extern __shared__ __align__(16) uint32_t smem_model[];
+  if constexpr (Source::kStaged) {
+    src.stage(smem_model);
+    __syncthreads();
+  }
+  const int l = blockIdx.x * kHeadThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31, g = l >> 5, G = L >> 5;
+  Head h = heads[l];
+  Token cur[kHeadAhead], nxt[kHeadAhead];
+#pragma unroll
+  for (int j = 0; j < kHeadAhead; ++j) {
+    cur[j] = j < T ? src.fetch(static_cast<int64_t>(j) * L + l) : Token(0);
+  }
+  for (int t0 = 0; t0 < T; t0 += kHeadAhead) {
+#pragma unroll
+    for (int j = 0; j < kHeadAhead; ++j) {
+      const int t = t0 + kHeadAhead + j;
+      nxt[j] = t < T ? src.fetch(static_cast<int64_t>(t) * L + l) : Token(0);
+    }
+    uint32_t prob[kHeadAhead], rem[kHeadAhead];
+    src.resolve(cur, t0, l, L, T, prob, rem);
+#pragma unroll
+    for (int j = 0; j < kHeadAhead; ++j) {
+      const int t = t0 + j;
+      if (t < T) {  // uniform
+        h = h * static_cast<Head>(prob[j]) + static_cast<Head>(rem[j]);
+        const bool flush = h >= kFlushAt;
+        const int64_t row = T - 1 - t;
+        if (flush) {
+          words[row * L + l] = static_cast<uint32_t>(h & kMask);
+          h >>= W;
+        }
+        const unsigned bal = __ballot_sync(kFull, flush);
+        if (lane == 0) flags[row * G + g] = bal;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kHeadAhead; ++j) cur[j] = nxt[j];
+  }
+  heads[l] = h;
+}
+
+// The head pass alone, L a positive multiple of `lane_multiple` (itself a
+// multiple of kHeadThreads), with `smem` bytes of the source's staging.
+template <int W, int S, int P, class Source>
+int launch_heads(void* heads, Source src, size_t smem, void* words,
+                 void* flags, int L, int T, int lane_multiple,
+                 void* cuda_stream, int device) {
+  if (L <= 0 || L % lane_multiple != 0 || T < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = tchain_heads_kernel<W, S, P, Source>;
+  const cudaError_t err = prepare(kernel, device, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (T == 0) return static_cast<int>(cudaGetLastError());
-  kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<typename StateOf<S>::type*>(heads),
-      static_cast<const int32_t*>(syms), static_cast<const uint32_t*>(cdf), K,
-      static_cast<const uint32_t*>(words), wlen, static_cast<uint32_t*>(q), L,
-      T, cdf_in_smem);
+  kernel<<<L / kHeadThreads, kHeadThreads, smem,
+           static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<typename StateOf<S>::type*>(heads), src,
+      static_cast<uint32_t*>(words), static_cast<uint32_t*>(flags), L, T);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The TChain-24 encode (kernel 24) on a cluster of CTAs, the lanes split
-// as in ilans2_wide.cuh's cluster_decode_kernel (R lanes a thread, their
-// u64 heads in registers for the whole message).  A lane's refill decision
-// h < prob << 8 at step t reads the head that step t + 1's refill made,
-// and that refill's word index depends on every lane's decision there: the
-// lanes are coupled as an rANS decode's are, and the steps stay serial.
-// One step, T-1 .. 0: each lane's division record (RecordCdfModel over
-// DivisionRecord, staged in shared memory when the K records fit; the
-// symbols read a step ahead), the refill ballot, the cluster's exchange
-// (exchange_step), the R word loads (all issued before any is used; the
-// remainder stream read forward from word 0, in the order the decoder
-// wrote it), h = h << 32 | word, the division by prob as a multiply-high
-// (exact for every u64 h), and the quantile cum + h mod prob.  The L2
-// prefetch of the next two steps' words is the decode's.  heads[L]: the
+// Kernel 23's head pass alone: syms[T * L], words[T * L], flags[T * L /
+// 32] and the heads from q[T * L].
+int launch_heads24(void* heads, const void* q, const void* cdf, int K,
+                   void* syms, void* words, void* flags, int L, int T,
+                   void* cuda_stream, int device) {
+  if (!valid_cat<64>(L, K, T)) return static_cast<int>(cudaErrorInvalidValue);
+  QuantileSteps src{static_cast<const uint32_t*>(q),
+                    {static_cast<const uint32_t*>(cdf), K, 0, 24, 0, nullptr},
+                    static_cast<int32_t*>(syms)};
+  const size_t smem = bucket_smem_bytes(&src.model);
+  return launch_heads<32, 64, 24>(heads, src, smem, words, flags, L, T, 128,
+                                  cuda_stream, device);
+}
+
+// The whole TChain-24 decode: the head pass and the three compaction
+// launches.  Scratch the caller allocates: words[T * L], flags[T * L / 32],
+// offsets[kScanBlocks] (u64).  On return the stream is buf[*end_out :
+// cap].
+int launch_tchain24_decode(void* heads, const void* q, const void* cdf, int K,
+                           void* syms, void* buf, long long cap,
+                           void* end_out, void* words, void* flags,
+                           void* offsets, int L, int T, void* cuda_stream,
+                           int device) {
+  const int err = launch_heads24(heads, q, cdf, K, syms, words, flags, L, T,
+                                 cuda_stream, device);
+  if (err != 0 || T == 0) return err;
+  return launch_compact(flags, words, static_cast<long long>(T) * (L / 32),
+                        buf, cap, end_out, offsets, cuda_stream, device);
+}
+
+// The categorical encodes (kernel 20, TChain-16; kernel 24, TChain-24) on
+// a cluster of CTAs, the lanes split as in ilans2_wide.cuh's
+// cluster_decode_kernel (R lanes a thread, their heads in registers for
+// the whole message: u32 at S=32, u64 at S=64).  A lane's refill decision
+// h < prob << (S-W-P) at step t reads the head that step t + 1's refill
+// made, and that refill's word index depends on every lane's decision
+// there: the lanes are coupled as an rANS decode's are, and the steps stay
+// serial.  One step, T-1 .. 0: each lane's division record (RecordCdfModel
+// over the preset's record, RecordOf<S>: DivisionRecord at S=64,
+// DivisionRecord32 at S=32; staged in shared memory when the K records
+// fit; the symbols read a step ahead), the refill ballot, the cluster's
+// exchange (exchange_step), the R word loads (all issued before any is
+// used; the remainder stream read forward from word 0, in the order the
+// decoder wrote it), h = h << W | word (a TChain-16 word keeps its low 16
+// bits), the division by prob as a multiply-high, and the quantile cum + h
+// mod prob, stored by store_quantile (a planar u16 half at S=32).  The
+// division is exact for every S-bit h, and a refilled head fits: h < prob
+// << (S-W-P) before the shift, so h < prob << (S-P) <= 2^S after it.  The
+// L2 prefetch of the next two steps' words is the decode's.  heads[L]: the
 // decoder's final heads in, the heads before step 0 out.  words[wlen]: the
-// remainder stream; reads past its end yield 0.  q[T * L]: the quantiles
-// out, every one written.
+// remainder stream; reads past its end yield 0.  q: the quantiles out
+// (TChain-16: T * L/2 planar words; TChain-24: T * L), every one written.
 template <int W, int S, int P, int R, class Model>
 __global__ void __launch_bounds__(kClusterWarps * 32, 1)
     cluster_tchain_encode_kernel(typename StateOf<S>::type* __restrict__ heads,
@@ -403,8 +493,7 @@ __global__ void __launch_bounds__(kClusterWarps * 32, 1)
         const Head quot = rec[r].divide(h[r]);
         const uint32_t rem = static_cast<uint32_t>(
             h[r] - quot * static_cast<Head>(rec[r].prob()));
-        q[static_cast<int64_t>(t) * L + (g0 + r) * 32 + lane] =
-            rec[r].cum() + rem;
+        store_quantile<S>(q, t, (g0 + r) * 32 + lane, L, rec[r].cum() + rem);
         h[r] = quot;
       }
       tok[r] = nxt[r];
@@ -419,66 +508,70 @@ __global__ void __launch_bounds__(kClusterWarps * 32, 1)
   }
 }
 
-using TChain24Model = RecordCdfModel<DivisionRecord>;
-using TChain24EncodeFn = void (*)(uint64_t*, TChain24Model, const uint32_t*,
-                                  int64_t, uint32_t*, int, int, int);
+template <int S>
+using TChainModel = RecordCdfModel<typename RecordOf<S>::type>;
+template <int S>
+using TChainEncodeFn = void (*)(typename StateOf<S>::type*, TChainModel<S>,
+                                const uint32_t*, int64_t, uint32_t*, int, int,
+                                int);
 
-TChain24EncodeFn tchain24_encode_for(int rows) {
+template <int W, int S, int P>
+TChainEncodeFn<S> tchain_encode_for(int rows) {
+  using Model = TChainModel<S>;
   switch (rows) {
-    case 1: return cluster_tchain_encode_kernel<32, 64, 24, 1, TChain24Model>;
-    case 2: return cluster_tchain_encode_kernel<32, 64, 24, 2, TChain24Model>;
-    case 4: return cluster_tchain_encode_kernel<32, 64, 24, 4, TChain24Model>;
-    case 8: return cluster_tchain_encode_kernel<32, 64, 24, 8, TChain24Model>;
-    case 16:
-      return cluster_tchain_encode_kernel<32, 64, 24, 16, TChain24Model>;
-    case 32:
-      return cluster_tchain_encode_kernel<32, 64, 24, 32, TChain24Model>;
+    case 1: return cluster_tchain_encode_kernel<W, S, P, 1, Model>;
+    case 2: return cluster_tchain_encode_kernel<W, S, P, 2, Model>;
+    case 4: return cluster_tchain_encode_kernel<W, S, P, 4, Model>;
+    case 8: return cluster_tchain_encode_kernel<W, S, P, 8, Model>;
+    case 16: return cluster_tchain_encode_kernel<W, S, P, 16, Model>;
+    case 32: return cluster_tchain_encode_kernel<W, S, P, 32, Model>;
     default: return nullptr;
   }
 }
 
 // The cluster encode's model, shared memory and plan for L lanes and K
 // symbols (`cluster` 0: the size picked from L).
-cudaError_t plan_tchain24_encode(int L, int K, int cluster, int device,
-                                 TChain24Model* model, size_t* bytes,
-                                 ClusterGeometry* geo,
-                                 TChain24EncodeFn* kernel) {
+template <int W, int S, int P>
+cudaError_t plan_tchain_encode(int L, int K, int cluster, int device,
+                               TChainModel<S>* model, size_t* bytes,
+                               ClusterGeometry* geo,
+                               TChainEncodeFn<S>* kernel) {
   *bytes = record_smem_bytes(model);
   return plan_cluster(L, cluster, *bytes, device, geo, kernel,
-                      tchain24_encode_for);
+                      tchain_encode_for<W, S, P>);
 }
 
-// The TChain-24 encode: the division records of the CDF's symbols into
-// records[K] (scratch the caller allocates, 16 bytes each), then the
-// cluster encode; `cluster` 0 picks the cluster size from L.
-int launch_tchain24_encode(void* heads, const void* syms, const void* cdf,
-                           int K, const void* words, long long wlen, void* q,
-                           void* records, int L, int T, int cluster,
-                           void* cuda_stream, int device) {
-  if (!valid_cat<64>(L, K, T)) return static_cast<int>(cudaErrorInvalidValue);
-  TChain24Model model{static_cast<const int32_t*>(syms),
-                      static_cast<const DivisionRecord*>(records), K, 0};
+// A categorical encode: the division records of the CDF's symbols into
+// records[K] (scratch the caller allocates: 16 bytes each at S=64, 8 at
+// S=32), then the cluster encode; `cluster` 0 picks the cluster size from
+// L.
+template <int W, int S, int P>
+int launch_tchain_encode(void* heads, const void* syms, const void* cdf,
+                         int K, const void* words, long long wlen, void* q,
+                         void* records, int L, int T, int cluster,
+                         void* cuda_stream, int device) {
+  using Record = typename RecordOf<S>::type;
+  if (!valid_cat<S>(L, K, T)) return static_cast<int>(cudaErrorInvalidValue);
+  TChainModel<S> model{static_cast<const int32_t*>(syms),
+                       static_cast<const Record*>(records), K, 0};
   size_t bytes;
   ClusterGeometry geo;
-  TChain24EncodeFn kernel;
-  cudaError_t err = plan_tchain24_encode(L, K, cluster, device, &model,
-                                         &bytes, &geo, &kernel);
+  TChainEncodeFn<S> kernel;
+  cudaError_t err = plan_tchain_encode<W, S, P>(L, K, cluster, device, &model,
+                                                &bytes, &geo, &kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (T == 0) return static_cast<int>(cudaGetLastError());
   const auto stream = static_cast<cudaStream_t>(cuda_stream);
-  division_records_kernel<DivisionRecord><<<ceil_div(K, 128), 128, 0,
-                                            stream>>>(
-      static_cast<const uint32_t*>(cdf), K,
-      static_cast<DivisionRecord*>(records));
+  division_records_kernel<Record><<<ceil_div(K, 128), 128, 0, stream>>>(
+      static_cast<const uint32_t*>(cdf), K, static_cast<Record*>(records));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(geo, bytes, stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<uint64_t*>(heads), model,
-                           static_cast<const uint32_t*>(words),
-                           static_cast<int64_t>(wlen),
-                           static_cast<uint32_t*>(q), L, T,
-                           geo.groups_per_cta);
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<typename StateOf<S>::type*>(heads), model,
+      static_cast<const uint32_t*>(words), static_cast<int64_t>(wlen),
+      static_cast<uint32_t*>(q), L, T, geo.groups_per_cta);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -488,15 +581,15 @@ int launch_tchain24_encode(void* heads, const void* syms, const void* cdf,
 // lanes per thread, threads per CTA, the card's maximum of active clusters
 // of that shape, the dynamic shared memory bytes, whether the records are
 // in shared memory.
-int tchain24_geometry(int L, int K, int cluster, long long* out,
-                      int device) {
-  if (!valid_cat<64>(L, K, 0)) return static_cast<int>(cudaErrorInvalidValue);
-  TChain24Model model{nullptr, nullptr, K, 0};
+template <int W, int S, int P>
+int tchain_geometry(int L, int K, int cluster, long long* out, int device) {
+  if (!valid_cat<S>(L, K, 0)) return static_cast<int>(cudaErrorInvalidValue);
+  TChainModel<S> model{nullptr, nullptr, K, 0};
   size_t bytes;
   ClusterGeometry geo;
-  TChain24EncodeFn kernel;
-  const cudaError_t err = plan_tchain24_encode(L, K, cluster, device, &model,
-                                               &bytes, &geo, &kernel);
+  TChainEncodeFn<S> kernel;
+  const cudaError_t err = plan_tchain_encode<W, S, P>(
+      L, K, cluster, device, &model, &bytes, &geo, &kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long vals[7] = {geo.cluster, geo.groups_per_cta, geo.rows,
                              geo.threads, geo.max_active_clusters,
@@ -511,7 +604,6 @@ int tchain24_geometry(int L, int K, int cluster, long long* out,
 
 constexpr int kW = 16, kP = family::kFx;
 constexpr uint32_t kWordMask = 0xffffu;
-constexpr uint32_t kFlushAt = 1u << (32 - kP);  // heads stay below 2^(S-P)
 constexpr int kRefillShift = 32 - kW - kP;      // refill: head < prob << 4
 
 // Where lane l's 12-bit quantile lives within a step's 3L/8 words.
@@ -549,10 +641,11 @@ __device__ __forceinline__ void store_q(uint32_t* __restrict__ qw, int l,
 //   (a) tchain12_invert_kernel, one thread per symbol: the quantile, the
 //       model, the bisection; writes the symbol and a record
 //       (q - cum) | prob << 16 (prob <= 2^12);
-//   (b) tchain12_heads_kernel, one thread per lane: the head chain through
-//       steps 0 .. T-1 on the records alone, each flushed word into a
-//       dense scratch words[row * L + l] and one ballot per (step, 32-lane
-//       group) into flags[row * G + g], with row = T - 1 - t;
+//   (b) tchain_heads_kernel<16, 32, 12, uint32_t> (above), one thread per
+//       lane: the head chain through steps 0 .. T-1 on the records alone,
+//       each flushed word into a dense scratch words[row * L + l] and one
+//       ballot per (step, 32-lane group) into flags[row * G + g], with row
+//       = T - 1 - t;
 //   (c) ilans2_wide.cuh's row-major compaction (launch_compact), which
 //       writes rows in ascending order: the stream's step chunks right to
 //       left, lanes ascending within a step, as the host oracle lays
@@ -561,8 +654,6 @@ __device__ __forceinline__ void store_q(uint32_t* __restrict__ qw, int l,
 // symbol) and fills the card; (b) is a chain of T short steps a lane with
 // the next records loaded ahead; (c) moves one word per u32.
 constexpr int kInvertThreads = 256;  // L is a multiple of 1024
-constexpr int kHeadThreads = 128;
-constexpr int kHeadAhead = 8;  // records a lane has in flight
 
 template <int F>
 __global__ void __launch_bounds__(kInvertThreads)
@@ -581,47 +672,6 @@ __global__ void __launch_bounds__(kInvertThreads)
   uint32_t cum, prob;
   syms[i] = family::invert<F>(static_cast<int>(q), m, sup, &cum, &prob);
   recs[i] = (q - cum) | (prob << 16);
-}
-
-// heads[L]: the seeds (16) in, the final heads out.  recs[T * L] from (a).
-__global__ void __launch_bounds__(kHeadThreads)
-    tchain12_heads_kernel(uint32_t* __restrict__ heads,
-                          const uint32_t* __restrict__ recs,
-                          uint32_t* __restrict__ words,
-                          uint32_t* __restrict__ flags, int L, int T) {
-  const int l = blockIdx.x * kHeadThreads + threadIdx.x;
-  const int lane = threadIdx.x & 31, g = l >> 5, G = L >> 5;
-  uint32_t h = heads[l];
-  uint32_t cur[kHeadAhead], nxt[kHeadAhead];
-#pragma unroll
-  for (int j = 0; j < kHeadAhead; ++j) {
-    cur[j] = j < T ? recs[static_cast<int64_t>(j) * L + l] : 0u;
-  }
-  for (int t0 = 0; t0 < T; t0 += kHeadAhead) {
-#pragma unroll
-    for (int j = 0; j < kHeadAhead; ++j) {
-      const int t = t0 + kHeadAhead + j;
-      nxt[j] = t < T ? recs[static_cast<int64_t>(t) * L + l] : 0u;
-    }
-#pragma unroll
-    for (int j = 0; j < kHeadAhead; ++j) {
-      const int t = t0 + j;
-      if (t < T) {  // uniform
-        h = h * (cur[j] >> 16) + (cur[j] & 0xffffu);
-        const bool flush = h >= kFlushAt;
-        const int64_t row = T - 1 - t;
-        if (flush) {
-          words[row * L + l] = h & kWordMask;
-          h >>= kW;
-        }
-        const unsigned bal = __ballot_sync(kFull, flush);
-        if (lane == 0) flags[row * G + g] = bal;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kHeadAhead; ++j) cur[j] = nxt[j];
-  }
-  heads[l] = h;
 }
 
 // The reverse pass over T * L symbols, steps T-1 .. 0.  heads[L]: the
@@ -721,19 +771,11 @@ int launch_invert(const void* qw, const void* means, const void* scales,
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_heads(void* heads, const void* recs, void* words, void* flags,
-                 int L, int T, void* cuda_stream, int device) {
-  if (L <= 0 || L % kThreads != 0 || T < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (T == 0) return static_cast<int>(cudaGetLastError());
-  tchain12_heads_kernel<<<L / kHeadThreads, kHeadThreads, 0,
-                          static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<uint32_t*>(heads), static_cast<const uint32_t*>(recs),
-      static_cast<uint32_t*>(words), static_cast<uint32_t*>(flags), L, T);
-  return static_cast<int>(cudaGetLastError());
+int launch_heads12(void* heads, const void* recs, void* words, void* flags,
+                   int L, int T, void* cuda_stream, int device) {
+  const RecordSteps<uint32_t> src{static_cast<const uint32_t*>(recs)};
+  return launch_heads<kW, 32, kP>(heads, src, 0, words, flags, L, T, kThreads,
+                                  cuda_stream, device);
 }
 
 // The whole decode: (a), (b) and the three compaction launches.  Scratch
@@ -748,7 +790,7 @@ int launch_decode(void* heads, const void* qw, const void* means,
   int err = launch_invert<F>(qw, means, scales, syms, recs, L, T, min_sym,
                              max_sym, cuda_stream, device);
   if (err != 0 || T == 0) return err;
-  err = launch_heads(heads, recs, words, flags, L, T, cuda_stream, device);
+  err = launch_heads12(heads, recs, words, flags, L, T, cuda_stream, device);
   if (err != 0) return err;
   return launch_compact(flags, words, static_cast<long long>(T) * (L / 32),
                         buf, cap, end_out, offsets, cuda_stream, device);
@@ -792,18 +834,51 @@ int ctt_tchain16_decode(void* heads, const void* qw, const void* cdf, int K,
                                        end_out, L, T, cuda_stream, device);
 }
 
+// words[T * L], flags[T * L / 32], offsets[kScanBlocks] (u64): scratch
+// for the head pass and the compaction.
 int ctt_tchain24_decode(void* heads, const void* q, const void* cdf, int K,
                         void* syms, void* buf, long long cap, void* end_out,
-                        int L, int T, void* cuda_stream, int device) {
-  return launch_cat_decode<32, 64, 24>(heads, q, cdf, K, syms, buf, cap,
-                                       end_out, L, T, cuda_stream, device);
+                        void* words, void* flags, void* offsets, int L, int T,
+                        void* cuda_stream, int device) {
+  return launch_tchain24_decode(heads, q, cdf, K, syms, buf, cap, end_out,
+                                words, flags, offsets, L, T, cuda_stream,
+                                device);
 }
 
+// The decode's head pass alone (pass B alone is ctt_ilans2_compact).
+int ctt_tchain24_head_pass(void* heads, const void* q, const void* cdf, int K,
+                           void* syms, void* words, void* flags, int L, int T,
+                           void* cuda_stream, int device) {
+  return launch_heads24(heads, q, cdf, K, syms, words, flags, L, T,
+                        cuda_stream, device);
+}
+
+// records[K]: scratch for the division records (8 bytes each).
 int ctt_tchain16_encode(void* heads, const void* syms, const void* cdf, int K,
-                        const void* words, long long wlen, void* qw, int L,
-                        int T, void* cuda_stream, int device) {
-  return launch_cat_encode<16, 32, 16>(heads, syms, cdf, K, words, wlen, qw,
-                                       L, T, cuda_stream, device);
+                        const void* words, long long wlen, void* qw,
+                        void* records, int L, int T, void* cuda_stream,
+                        int device) {
+  return launch_tchain_encode<16, 32, 16>(heads, syms, cdf, K, words, wlen,
+                                          qw, records, L, T, 0, cuda_stream,
+                                          device);
+}
+
+// The same encode on a cluster of `cluster` CTAs (1 .. 16).
+int ctt_tchain16_encode_cluster(void* heads, const void* syms,
+                                const void* cdf, int K, const void* words,
+                                long long wlen, void* qw, void* records,
+                                int L, int T, int cluster, void* cuda_stream,
+                                int device) {
+  if (cluster < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_tchain_encode<16, 32, 16>(heads, syms, cdf, K, words, wlen,
+                                          qw, records, L, T, cluster,
+                                          cuda_stream, device);
+}
+
+int ctt_tchain16_geometry(int L, int K, int cluster, long long* out,
+                          void* cuda_stream, int device) {
+  (void)cuda_stream;
+  return tchain_geometry<16, 32, 16>(L, K, cluster, out, device);
 }
 
 // records[K]: scratch for the division records (16 bytes each).
@@ -811,8 +886,9 @@ int ctt_tchain24_encode(void* heads, const void* syms, const void* cdf, int K,
                         const void* words, long long wlen, void* q,
                         void* records, int L, int T, void* cuda_stream,
                         int device) {
-  return launch_tchain24_encode(heads, syms, cdf, K, words, wlen, q, records,
-                                L, T, 0, cuda_stream, device);
+  return launch_tchain_encode<32, 64, 24>(heads, syms, cdf, K, words, wlen, q,
+                                          records, L, T, 0, cuda_stream,
+                                          device);
 }
 
 // The same encode on a cluster of `cluster` CTAs (1 .. 16).
@@ -822,14 +898,15 @@ int ctt_tchain24_encode_cluster(void* heads, const void* syms,
                                 int T, int cluster, void* cuda_stream,
                                 int device) {
   if (cluster < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_tchain24_encode(heads, syms, cdf, K, words, wlen, q, records,
-                                L, T, cluster, cuda_stream, device);
+  return launch_tchain_encode<32, 64, 24>(heads, syms, cdf, K, words, wlen, q,
+                                          records, L, T, cluster, cuda_stream,
+                                          device);
 }
 
 int ctt_tchain24_geometry(int L, int K, int cluster, long long* out,
                           void* cuda_stream, int device) {
   (void)cuda_stream;
-  return tchain24_geometry(L, K, cluster, out, device);
+  return tchain_geometry<32, 64, 24>(L, K, cluster, out, device);
 }
 
 int ctt_tchain12_family_decode(void* heads, const void* qw, const void* means,
@@ -858,7 +935,8 @@ int ctt_tchain12_invert_pass(const void* qw, const void* means,
 int ctt_tchain12_head_pass(void* heads, const void* recs, void* words,
                            void* flags, int L, int T, void* cuda_stream,
                            int device) {
-  return launch_heads(heads, recs, words, flags, L, T, cuda_stream, device);
+  return launch_heads12(heads, recs, words, flags, L, T, cuda_stream,
+                        device);
 }
 
 int ctt_tchain12_family_encode(void* heads, const void* syms,

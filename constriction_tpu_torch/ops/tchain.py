@@ -18,7 +18,9 @@ L lanes.  The presets:
   planar u32 words (:func:`pack_quantiles`), L a multiple of 256;
 - TChain-24 (the reference's default precision): W=32, S=64, P=24, u64
   heads seeded at 2^8; one 24-bit quantile per u32 word, L a multiple of
-  128;
+  128.  Its decode runs on the card as a head pass over the whole grid
+  (each lane searches its quantiles and runs its head) and the
+  compaction, each with a plain twin here;
 - TChain-12: W=16, S=32, P=12, heads seeded at 16, the model of each
   symbol inverted in-kernel (``family.invert_family``); 12-bit quantiles
   packed by :func:`pack_q12`, L a multiple of 1024.  Its decode's lanes
@@ -28,7 +30,9 @@ L lanes.  The presets:
 
 The wrappers launch the hand-written kernels of ``csrc/tchain.cu`` for CUDA
 tensors and run the plain PyTorch twins for CPU tensors; any other device
-raises.
+raises.  The TChain-16 and TChain-24 encodes run on a cluster of up to 16
+CTAs (the rANS decodes' step), which caps their num_lanes on a card at
+``coder.MAX_DECODE_LANES``.
 
 Tensor layout: quantiles travel as int32 tensors of u32 words (TChain-16:
 the planar words, T * L/2 of them; TChain-24: one per quantile; TChain-12:
@@ -46,7 +50,7 @@ from .. import convert
 from . import _build
 from . import family as fam
 from .coder import (MAX_DECODE_LANES, _check, _check_cdf_arg, _emit_words,
-                    _find_symbols, _on_cuda, _refill_words,
+                    _find_symbols, _on_cuda, _records, _refill_words,
                     compaction_scratch, flag_ballots)
 from .interleaved import LaneConfig
 
@@ -60,7 +64,7 @@ TCHAIN12_CFG = LaneConfig(num_lanes=32768, word_bits=16, state_bits=32,
 # kernel launches made by this module's wrappers (never by the twins)
 LAUNCHES = {"decode16": 0, "encode16": 0, "decode24": 0, "encode24": 0,
             "decode12_family": 0, "encode12_family": 0,
-            "invert12_family": 0, "heads12_family": 0}
+            "invert12_family": 0, "heads12_family": 0, "heads24": 0}
 
 _M12 = 0xFFF
 _M16 = 0xFFFF
@@ -729,8 +733,9 @@ def _encode_args(symbols, remainders, heads, cdf, cfg: LaneConfig,
 
 def _launch_decode(tag: str, q, cdf, L: int, T: int, seed: int,
                    head_dtype):
-    """One decode launch; returns (symbols, stream, heads).  Reads the end
-    pointer back (one sync)."""
+    """One decode call; returns (symbols, stream, heads).  TChain-24
+    (kernel 23: the head pass and the compaction) takes the compaction's
+    scratch.  Reads the end pointer back (one sync)."""
     device = q.device
     n = T * L
     heads = torch.full((L,), seed, dtype=head_dtype, device=device)
@@ -740,34 +745,48 @@ def _launch_decode(tag: str, q, cdf, L: int, T: int, seed: int,
     buf = torch.empty(n, dtype=torch.int32, device=device)  # <= 1 word/symbol
     end = torch.empty(1, dtype=torch.int64, device=device)
     cdf32 = cdf.to(torch.int32)
+    scratch = () if tag == "16" else compaction_scratch(T, L, device)
     LAUNCHES[f"decode{tag}"] += 1
     _build.call(f"ctt_tchain{tag}_decode", device, heads, q, cdf32,
-                cdf32.numel() - 1, syms, buf, n, end, L, T)
+                cdf32.numel() - 1, syms, buf, n, end, *scratch, L, T)
     return syms, buf[int(end.item()):], heads
 
 
-def _launch_encode(tag: str, symbols, remainders, heads, cdf, L: int, T: int,
-                   q_words: int, cluster: int = 0):
-    """One encode launch; returns (quantile words, heads).  The kernel
-    writes every quantile (TChain-16 as 16-bit halves), so the output needs
-    no zeroing.  TChain-24 (kernel 24, a cluster of ``cluster`` CTAs, or the
-    size it picks from L when 0) takes a scratch for the K division
-    records, 16 bytes each."""
+def _launch_encode(tag: str, symbols, remainders, heads, cdf,
+                   cfg: LaneConfig, T: int, q_words: int, cluster: int = 0):
+    """One encode launch on a cluster of ``cluster`` CTAs, or of the size
+    the kernel picks from L when 0 (kernels 20 and 24); returns (quantile
+    words, heads).  The kernel writes every quantile (TChain-16 as 16-bit
+    halves), so the output needs no zeroing.  It takes a scratch for the K
+    division records (``coder._records``: 8 bytes each at S=32, 16 at
+    S=64)."""
+    L = cfg.num_lanes
+    if L > MAX_DECODE_LANES:
+        raise ValueError(
+            f"the TChain-{cfg.precision} encode kernel takes num_lanes up to "
+            f"{MAX_DECODE_LANES} (16 CTAs x 1024 threads x 32 lanes a "
+            f"thread), got num_lanes={L}")
     device = symbols.device
     out_heads = heads.clone()
     q = torch.empty(T * q_words, dtype=torch.int32, device=device)
     if T:
         cdf32 = cdf.to(torch.int32)
         K = cdf32.numel() - 1
-        entry, extra, size = f"ctt_tchain{tag}_encode", (), ()
-        if tag == "24":
-            extra = (torch.empty(4 * K, dtype=torch.int32, device=device),)
-            if cluster:
-                entry, size = "ctt_tchain24_encode_cluster", (cluster,)
+        entry, size = f"ctt_tchain{tag}_encode", ()
+        if cluster:
+            entry, size = f"ctt_tchain{tag}_encode_cluster", (cluster,)
         _build.call(entry, device, out_heads, symbols, cdf32, K, remainders,
-                    remainders.numel(), q, *extra, L, T, *size)
+                    remainders.numel(), q, _records(cdf32, cfg), L, T, *size)
         LAUNCHES[f"encode{tag}"] += 1
     return q, out_heads
+
+
+def _forced_cluster(symbols, cluster: int) -> None:
+    """The checks of a forced cluster size: CUDA tensors, 1 .. 16 CTAs."""
+    if not _on_cuda(symbols.device):
+        raise ValueError("a forced cluster size needs CUDA tensors")
+    if not 1 <= cluster <= 16:
+        raise ValueError(f"cluster must be in 1 .. 16, got {cluster}")
 
 
 def tchain16_decode(qw, cdf, cfg: LaneConfig = TCHAIN_CFG):
@@ -821,13 +840,34 @@ def tchain16_encode(symbols, remainders, heads, cdf,
     ``remainders`` int32 words, ``heads`` int32[L], ``cdf`` int64[K+1], on
     one device.  Returns ``(qw int32[T * L/2], heads int32[L])``: the
     planar quantile words and the heads before step 0.  CUDA tensors launch
-    the kernel, CPU tensors run :func:`tchain16_encode_plain`."""
+    the cluster encode (``csrc/tchain.cu``, kernel 20; num_lanes up to
+    ``coder.MAX_DECODE_LANES``, else ValueError), CPU tensors run
+    :func:`tchain16_encode_plain` at any L."""
     L = cfg.num_lanes
     T = _encode_args(symbols, remainders, heads, cdf, cfg, TCHAIN_CFG, 256,
                      torch.int32)
     if not _on_cuda(symbols.device):
         return tchain16_encode_plain(symbols, remainders, heads, cdf, cfg)
-    return _launch_encode("16", symbols, remainders, heads, cdf, L, T, L // 2)
+    return _launch_encode("16", symbols, remainders, heads, cdf, cfg, T,
+                          L // 2)
+
+
+def tchain16_encode_cluster(symbols, remainders, heads, cdf, cluster: int,
+                            cfg: LaneConfig = TCHAIN_CFG):
+    """:func:`tchain16_encode` on a cluster of ``cluster`` CTAs (1 .. 16) in
+    place of the size the kernel picks from L (CUDA tensors): how the card
+    tests reach uneven partitions and CTAs with no lanes."""
+    T = _encode_args(symbols, remainders, heads, cdf, cfg, TCHAIN_CFG, 256,
+                     torch.int32)
+    _forced_cluster(symbols, cluster)
+    return _launch_encode("16", symbols, remainders, heads, cdf, cfg, T,
+                          cfg.num_lanes // 2, cluster)
+
+
+def geometry16(L: int, K: int, device=None, cluster: int = 0) -> dict:
+    """The TChain-16 encode's launch geometry (kernel 20), as
+    :func:`geometry24` reads kernel 24's."""
+    return _geometry("16", L, K, device, cluster)
 
 
 def tchain16_encode_plain(symbols, remainders, heads, cdf,
@@ -863,15 +903,90 @@ def tchain24_decode(q, cdf, cfg: LaneConfig = TCHAIN24_CFG):
     ``q`` int32[T * L] (24-bit quantiles, one per word), ``cdf``
     int64[K+1] at P=24, on one device.  Returns ``(symbols int32[T * L],
     stream int32[num_words], heads int64[L])`` (heads as u64 bits).  CUDA
-    tensors launch the kernel, CPU tensors run
-    :func:`tchain24_decode_plain`."""
+    tensors launch the decode's two steps over the whole grid
+    (``csrc/tchain.cu``, kernel 23): the head pass, one thread per lane,
+    each lane searching its quantiles in its block's bucket table
+    (:func:`tchain24_head_pass`), and the row-major compaction of the
+    flushed words (``coder.compact_pass``; four launches, one C call).  CPU
+    tensors run :func:`tchain24_decode_plain`, which equals the composition
+    of the two plain steps."""
     L = cfg.num_lanes
-    T = _cat_args(q, "q", cfg, TCHAIN24_CFG, 128, L, cdf)
-    if T and not bool(((q >= 0) & (q <= _M24)).all()):
-        raise ValueError("quantiles must be 24-bit values")
+    T = _tchain24_q_args(q, cdf, cfg)
     if not _on_cuda(q.device):
         return tchain24_decode_plain(q, cdf, cfg)
     return _launch_decode("24", q, cdf, L, T, 1 << 8, torch.int64)
+
+
+def _tchain24_q_args(q, cdf, cfg: LaneConfig) -> int:
+    """Checks a TChain-24 decode's quantiles, config and CDF; returns T."""
+    T = _cat_args(q, "q", cfg, TCHAIN24_CFG, 128, cfg.num_lanes, cdf)
+    if T and not bool(((q >= 0) & (q <= _M24)).all()):
+        raise ValueError("quantiles must be 24-bit values")
+    return T
+
+
+def tchain24_head_pass(q, cdf, cfg: LaneConfig = TCHAIN24_CFG):
+    """The head pass of :func:`tchain24_decode` alone (its arguments and
+    checks): ``(symbols int32[T * L], words int32[T, L], ballots int32[T,
+    L / 32], heads int64[L])``, row r of the words and ballots holding step
+    T - 1 - r.  CUDA tensors launch the kernel (``csrc/tchain.cu``,
+    ``tchain_heads_kernel`` over ``QuantileSteps``), which leaves the words
+    of lanes that flush nothing unwritten; CPU tensors run
+    :func:`tchain24_head_pass_plain` and pack its flags with
+    ``coder.flag_ballots``."""
+    T = _tchain24_q_args(q, cdf, cfg)
+    device = q.device
+    if not _on_cuda(device):
+        syms, words, flags, heads = tchain24_head_pass_plain(q, cdf, cfg)
+        return syms, words, flag_ballots(flags), heads
+    L = cfg.num_lanes
+    syms = torch.empty(T * L, dtype=torch.int32, device=device)
+    heads = torch.full((L,), 1 << 8, dtype=torch.int64, device=device)
+    words = torch.empty(T, L, dtype=torch.int32, device=device)
+    ballots = torch.empty(T, L // 32, dtype=torch.int32, device=device)
+    if T:
+        cdf32 = cdf.to(torch.int32)
+        _build.call("ctt_tchain24_head_pass", device, heads, q, cdf32,
+                    cdf32.numel() - 1, syms, words, ballots, L, T)
+        LAUNCHES["heads24"] += 1
+    return syms, words, ballots, heads
+
+
+def tchain24_head_pass_plain(q, cdf, cfg: LaneConfig = TCHAIN24_CFG):
+    """The head pass in plain PyTorch (any device, no checks): every
+    quantile's symbol, cum and prob at once (``searchsorted`` over the
+    CDF), then a loop over steps 0 .. T-1, vectorised over lanes, of head =
+    head * prob + (q - cum), the head as (hi, lo) u32 halves (as in
+    :func:`tchain24_decode_plain`); a head at or above 2^40 flushes its low
+    32 bits.  Returns ``(symbols int32[T * L], words int32[T, L], flags
+    bool[T, L], heads int64[L])``, the words and flags in reversed rows: row
+    T - 1 - t holds step t's flushed words (0 elsewhere) and flags, so the
+    row-major compaction (``coder.compact_pass_plain``) lays the stream out
+    as the decode does."""
+    L, W, S, P = (cfg.num_lanes, cfg.word_bits, cfg.state_bits,
+                  cfg.precision)
+    device = q.device
+    T = q.numel() // L
+    cdf64 = cdf.to(torch.int64)
+    qv = convert.u32_values(q)
+    sym = _find_symbols(cdf64, qv, cdf64.numel() - 1)
+    cum = cdf64[sym]
+    probs = (cdf64[sym + 1] - cum).reshape(T, L)
+    rems = (qv - cum).reshape(T, L)
+    hi = torch.zeros(L, dtype=torch.int64, device=device)
+    lo = torch.full((L,), 1 << (S - W - P), dtype=torch.int64, device=device)
+    words = torch.zeros(T, L, dtype=torch.int64, device=device)
+    flags = torch.zeros(T, L, dtype=torch.bool, device=device)
+    for t in range(T):
+        low = lo * probs[t] + rems[t]
+        hi = hi * probs[t] + (low >> 32)
+        lo = low & _M32
+        m = hi >= 1 << (S - P - 32)  # head >= 2^40: flush lo
+        words[T - 1 - t] = torch.where(m, lo, 0)
+        flags[T - 1 - t] = m
+        hi, lo = torch.where(m, 0, hi), torch.where(m, hi, lo)
+    return (sym.to(torch.int32), convert.u32_bits(words), flags,
+            convert.u64_join(hi, lo))
 
 
 def tchain24_decode_plain(q, cdf, cfg: LaneConfig = TCHAIN24_CFG):
@@ -919,23 +1034,12 @@ def tchain24_encode(symbols, remainders, heads, cdf,
     launch the cluster encode (``csrc/tchain.cu``, kernel 24; num_lanes up
     to ``coder.MAX_DECODE_LANES``, else ValueError), CPU tensors run
     :func:`tchain24_encode_plain` at any L."""
-    L = cfg.num_lanes
     T = _encode_args(symbols, remainders, heads, cdf, cfg, TCHAIN24_CFG, 128,
                      torch.int64)
     if not _on_cuda(symbols.device):
         return tchain24_encode_plain(symbols, remainders, heads, cdf, cfg)
-    _check_reach(L)
-    return _launch_encode("24", symbols, remainders, heads, cdf, L, T, L)
-
-
-def _check_reach(L: int) -> None:
-    """The cluster encode's reach, as the cluster decodes' (16 CTAs x 1024
-    threads x 32 lanes a thread)."""
-    if L > MAX_DECODE_LANES:
-        raise ValueError(
-            f"the TChain-24 encode kernel takes num_lanes up to "
-            f"{MAX_DECODE_LANES} (16 CTAs x 1024 threads x 32 lanes a "
-            f"thread), got num_lanes={L}")
+    return _launch_encode("24", symbols, remainders, heads, cdf, cfg, T,
+                          cfg.num_lanes)
 
 
 def tchain24_encode_cluster(symbols, remainders, heads, cdf, cluster: int,
@@ -943,21 +1047,25 @@ def tchain24_encode_cluster(symbols, remainders, heads, cdf, cluster: int,
     """:func:`tchain24_encode` on a cluster of ``cluster`` CTAs (1 .. 16) in
     place of the size the kernel picks from L (CUDA tensors): how the card
     tests reach uneven partitions and CTAs with no lanes."""
-    L = cfg.num_lanes
     T = _encode_args(symbols, remainders, heads, cdf, cfg, TCHAIN24_CFG, 128,
                      torch.int64)
-    if not _on_cuda(symbols.device):
-        raise ValueError("a forced cluster size needs CUDA tensors")
-    if not 1 <= cluster <= 16:
-        raise ValueError(f"cluster must be in 1 .. 16, got {cluster}")
-    _check_reach(L)
-    return _launch_encode("24", symbols, remainders, heads, cdf, L, T, L,
-                          cluster)
+    _forced_cluster(symbols, cluster)
+    return _launch_encode("24", symbols, remainders, heads, cdf, cfg, T,
+                          cfg.num_lanes, cluster)
 
 
-_GEOMETRY24_KEYS = ("cluster", "groups_per_cta", "lanes_per_thread",
-                    "threads_per_cta", "max_active_clusters", "smem_bytes",
-                    "records_in_smem")
+_GEOMETRY_KEYS = ("cluster", "groups_per_cta", "lanes_per_thread",
+                  "threads_per_cta", "max_active_clusters", "smem_bytes",
+                  "records_in_smem")
+
+
+def _geometry(tag: str, L: int, K: int, device, cluster: int) -> dict:
+    device = torch.device("cuda") if device is None else torch.device(device)
+    out = torch.zeros(len(_GEOMETRY_KEYS), dtype=torch.int64)
+    _build.call(f"ctt_tchain{tag}_geometry", device, L, K, cluster, out)
+    geo = dict(zip(_GEOMETRY_KEYS, (int(v) for v in out)))
+    geo["ctas"] = geo["cluster"]
+    return geo
 
 
 def geometry24(L: int, K: int, device=None, cluster: int = 0) -> dict:
@@ -967,12 +1075,7 @@ def geometry24(L: int, K: int, device=None, cluster: int = 0) -> dict:
     lanes per thread and threads, the card's maximum of such active
     clusters, the shared memory of a CTA and whether the K division
     records are in it."""
-    device = torch.device("cuda") if device is None else torch.device(device)
-    out = torch.zeros(len(_GEOMETRY24_KEYS), dtype=torch.int64)
-    _build.call("ctt_tchain24_geometry", device, L, K, cluster, out)
-    geo = dict(zip(_GEOMETRY24_KEYS, (int(v) for v in out)))
-    geo["ctas"] = geo["cluster"]
-    return geo
+    return _geometry("24", L, K, device, cluster)
 
 
 def tchain24_encode_plain(symbols, remainders, heads, cdf,

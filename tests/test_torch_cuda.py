@@ -908,9 +908,9 @@ def test_range32_decode_lanes_past_the_cluster_reach(dev):
 # which kernels ptxas must compile without spilling, at 2 and 4 lanes a
 # thread (L = 32768 and 65536): the range decodes at both presets, the
 # S=64 exact table decodes (kernel 15; kernel 16, its Seg instance), the
-# family decode (kernel 11, each family) and the TChain-24 encode (kernel
-# 24); and the lane passes of kernels 8 and 10 and kernel 17's pass A (one
-# lane a thread)
+# family decode (kernel 11, each family) and the TChain-16 and TChain-24
+# encodes (kernels 20 and 24); and the lane passes of kernels 8 and 10,
+# kernel 17's pass A and kernel 23's head pass (one lane a thread)
 NO_SPILL = {
     "range S=64": r"cluster_range_decode_kernelILi32ELi64ELi{R}E",
     "range S=32": r"cluster_range_decode_kernelILi16ELi32ELi{R}E",
@@ -921,6 +921,8 @@ NO_SPILL = {
        rf"cluster_decode_kernelILi16ELi32ELi{{R}}E.*FamilyModelILi{k}EE"
        for k, name in enumerate(fam.FAMILIES)},
     "tchain24 encode": r"cluster_tchain_encode_kernelILi32ELi64ELi24ELi{R}E",
+    "tchain16 encode": r"cluster_tchain_encode_kernelILi16ELi32ELi16ELi{R}E",
+    "tchain24 heads": r"tchain_heads_kernelILi32ELi64ELi24E",
     "range resolve lanes": r"range_resolve_lanes_kernel",
     "range resolve lanes S=64": r"range_resolve_lanes_kernelILi32ELi64E",
     "exact encode lanes S=64":
@@ -1411,49 +1413,57 @@ def test_tchain_cat_encoder_writes_every_quantile(dev, P):
     heads = got[2].clone()
     cdf32 = cdf.to(torch.int32)
     K = cdf32.numel() - 1
-    # kernel 24 takes a scratch for its K division records (16 bytes each)
-    records = (() if P == 16 else
-               (torch.empty(4 * K, dtype=torch.int32, device=dev),))
+    # kernels 20 and 24 take a scratch for their K division records
     _build.call(f"ctt_tchain{P}_encode", dev, heads, got[0], cdf32, K,
-                got[1], got[1].numel(), out, *records, L, T)
+                got[1], got[1].numel(), out,
+                coder._records(cdf32, _cat_cfg(P, L)), L, T)
     assert torch.equal(out, qt)
 
 
-# --- kernel 24 on the cluster step ------------------------------------------
+# --- kernels 24 and 20 on the cluster step ---------------------------------
+
+# P: the cluster encode and its forced-size form
+CLUSTER_ENCODE = {
+    16: (tc.tchain16_encode, tc.tchain16_encode_cluster),
+    24: (tc.tchain24_encode, tc.tchain24_encode_cluster),
+}
 
 
-def _tchain24_message(L, T, K, dev, seed):
-    """A TChain-24 decode on the card, checked against the host oracle:
-    (cdf, quantiles, symbols, remainders, heads) as CUDA tensors, and the
-    host's decode."""
-    cfg = _cat_cfg(24, L)
-    cdf_np = _cat_cdf(K, 24, seed)
-    q = np.random.RandomState(seed).randint(0, 1 << 24, size=L * T).astype(
-        np.uint32)
+def _cat_message(P, L, T, K, dev, seed):
+    """A TChain-16 or TChain-24 decode on the card, checked against the
+    host oracle: (cfg, cdf, CUDA tensors of the CDF, quantiles and the
+    decode, the host's decode, P)."""
+    cfg = _cat_cfg(P, L)
+    cdf_np = _cat_cdf(K, P, seed)
+    q = np.random.RandomState(seed).randint(0, 1 << P, size=L * T).astype(
+        np.uint16 if P == 16 else np.uint32)
     cdf = convert.cdf_to_torch(cdf_np, dev)
-    qt = convert.u32_to_torch(q, dev)
-    got = tc.tchain24_decode(qt, cdf, cfg)
-    host = tc.tchain24_decode_host(q, cdf_np, cfg)
+    qt = _q_to_torch(P, q, L, dev)
+    got = CAT[P][0](qt, cdf, cfg)
+    host = CAT[P][4](q, cdf_np, cfg)
     np.testing.assert_array_equal(convert.u32_from_torch(got[1]), host[1])
-    return cfg, cdf_np, cdf, qt, got, host
+    return cfg, cdf_np, cdf, qt, got, host, P
 
 
-def _check_tchain24_encode(cfg, cdf_np, cdf, qt, got, host, cluster):
-    before = tc.LAUNCHES["encode24"]
-    back = (tc.tchain24_encode_cluster(*got, cdf, cluster, cfg) if cluster
-            else tc.tchain24_encode(*got, cdf, cfg))
-    assert tc.LAUNCHES["encode24"] == before + 1
-    plain = tc.tchain24_encode_plain(*got, cdf, cfg)
+def _check_cluster_encode(cfg, cdf_np, cdf, qt, got, host, P, cluster):
+    enc, enc_cluster = CLUSTER_ENCODE[P]
+    enc_p, enc_h, seed = CAT[P][3], CAT[P][5], CAT[P][6]
+    L = cfg.num_lanes
+    before = tc.LAUNCHES[f"encode{P}"]
+    back = (enc_cluster(*got, cdf, cluster, cfg) if cluster
+            else enc(*got, cdf, cfg))
+    assert tc.LAUNCHES[f"encode{P}"] == before + 1
+    plain = enc_p(*got, cdf, cfg)
     assert torch.equal(back[0], plain[0]) and torch.equal(back[1], plain[1])
-    assert torch.equal(back[0], qt) and bool((back[1] == 256).all())
-    q_h, h_h = tc.tchain24_encode_host(*host, cdf_np, cfg)
-    np.testing.assert_array_equal(convert.u32_from_torch(back[0]), q_h)
-    np.testing.assert_array_equal(convert.u64_from_torch(back[1]), h_h)
+    assert torch.equal(back[0], qt) and bool((back[1] == seed).all())
+    q_h, h_h = enc_h(*host, cdf_np, cfg)
+    np.testing.assert_array_equal(_q_from_torch(P, back[0], L), q_h)
+    np.testing.assert_array_equal(_heads_np(P, back[1]), h_h)
     # truncated remainders read as zero words
     cut = got[1][: got[1].numel() // 3].clone()
-    a = (tc.tchain24_encode_cluster(got[0], cut, got[2], cdf, cluster, cfg)
-         if cluster else tc.tchain24_encode(got[0], cut, got[2], cdf, cfg))
-    a_p = tc.tchain24_encode_plain(got[0], cut, got[2], cdf, cfg)
+    a = (enc_cluster(got[0], cut, got[2], cdf, cluster, cfg) if cluster
+         else enc(got[0], cut, got[2], cdf, cfg))
+    a_p = enc_p(got[0], cut, got[2], cdf, cfg)
     assert torch.equal(a[0], a_p[0]) and torch.equal(a[1], a_p[1])
 
 
@@ -1463,12 +1473,12 @@ def test_tchain24_cluster_encode_matches_twin(dev, L, T, cluster):
     """Every forced cluster size at 128 lanes (CTAs left with no lanes),
     the facade's 32768 and 65536 (up to 32 lanes a thread on one CTA; at
     65536 one CTA would need 64, past the kernel's reach, and raises)."""
-    args = _tchain24_message(L, T, 100, dev, L + T)
+    args = _cat_message(24, L, T, 100, dev, L + T)
     if L // 32 > cluster * 32 * 32:
         with pytest.raises(RuntimeError, match="invalid argument"):
             tc.tchain24_encode_cluster(*args[4], args[2], cluster, args[0])
         return
-    _check_tchain24_encode(*args, cluster)
+    _check_cluster_encode(*args, cluster)
 
 
 @pytest.mark.parametrize("K", [1, 100, 70_000])
@@ -1478,7 +1488,7 @@ def test_tchain24_encode_records_in_shared_or_device_memory(dev, L, T, K):
     one-symbol model divides by 2^24."""
     geo = tc.geometry24(L, K, dev)
     assert geo["records_in_smem"] == (K < 70_000)
-    _check_tchain24_encode(*_tchain24_message(L, T, K, dev, K + L), 0)
+    _check_cluster_encode(*_cat_message(24, L, T, K, dev, K + L), 0)
 
 
 def test_tchain24_encode_runs_as_a_cluster_and_caps_its_lanes(dev):
@@ -1495,6 +1505,102 @@ def test_tchain24_encode_runs_as_a_cluster_and_caps_its_lanes(dev):
     words = torch.zeros(0, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match=f"num_lanes={L}"):
         tc.tchain24_encode(syms, words, heads, cdf, cfg)
+
+
+@pytest.mark.parametrize("cluster", list(range(1, 17)))
+@pytest.mark.parametrize("L,T", [(256, 5), (32768, 3), (65536, 2)])
+def test_tchain16_cluster_encode_matches_twin(dev, L, T, cluster):
+    """Kernel 20 at every forced cluster size: 256 lanes (CTAs left with no
+    lanes), the facade's 32768 and 65536 (past one CTA's reach at 65536,
+    which raises)."""
+    args = _cat_message(16, L, T, 100, dev, L + T)
+    if L // 32 > cluster * 32 * 32:
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            tc.tchain16_encode_cluster(*args[4], args[2], cluster, args[0])
+        return
+    _check_cluster_encode(*args, cluster)
+
+
+@pytest.mark.parametrize("K", [1, 100, 60_000])
+@pytest.mark.parametrize("L,T", [(768, 7), (32768, 3), (65536, 2)])
+def test_tchain16_encode_records_in_shared_or_device_memory(dev, L, T, K):
+    """K=60000 division records (480 KB) stay in device memory; the
+    one-symbol model divides by 2^16 and refills every lane at every
+    step."""
+    geo = tc.geometry16(L, K, dev)
+    assert geo["records_in_smem"] == (K < 60_000)
+    _check_cluster_encode(*_cat_message(16, L, T, K, dev, K + L), 0)
+
+
+def test_tchain16_encode_runs_as_a_cluster_and_caps_its_lanes(dev):
+    geo = tc.geometry16(32768, 100, dev)
+    assert geo["cluster"] == 16 and geo["lanes_per_thread"] == 2
+    assert geo["max_active_clusters"] >= 1
+    assert tc.geometry16(coder.MAX_DECODE_LANES, 100,
+                         dev)["lanes_per_thread"] == 32
+    L = coder.MAX_DECODE_LANES + 256
+    cfg = _cat_cfg(16, L)
+    cdf = convert.cdf_to_torch(_cat_cdf(100, 16, 3), dev)
+    syms = torch.zeros(L, dtype=torch.int32, device=dev)
+    heads = torch.ones(L, dtype=torch.int32, device=dev)
+    words = torch.zeros(0, dtype=torch.int32, device=dev)
+    before = dict(tc.LAUNCHES)
+    with pytest.raises(ValueError, match=f"num_lanes={L}"):
+        tc.tchain16_encode(syms, words, heads, cdf, cfg)
+    assert tc.LAUNCHES == before
+
+
+# --- kernel 23: the TChain-24 decode as two steps over the grid ------------
+
+
+@pytest.mark.parametrize("K", [1, 2, 100, 70_000])
+@pytest.mark.parametrize("L,T", [(128, 1), (384, 9), (32768, 5)])
+def test_tchain24_decode_passes_match_plain(dev, L, T, K):
+    """Kernel 23's two steps launched alone, each against its plain version
+    on the same CUDA tensors: the head pass (symbols, the flushed words
+    where flagged, the ballots and the heads; K=70000: the CDF in device
+    memory) and pass B (the stream); composed, the twin's decode, which
+    the whole call equals."""
+    cfg = _cat_cfg(24, L)
+    rng = np.random.RandomState(K + L + T)
+    cdf = convert.cdf_to_torch(_cat_cdf(K, 24, K + L), dev)
+    q = rng.randint(0, 1 << 24, size=L * T).astype(np.uint32)
+    q[:L] = (1 << 24) - 1  # the first step's top quantiles
+    qt = convert.u32_to_torch(q, dev)
+    before = dict(tc.LAUNCHES)
+    syms, words, ballots, heads = tc.tchain24_head_pass(qt, cdf, cfg)
+    syms_p, words_p, flags_p, heads_p = tc.tchain24_head_pass_plain(qt, cdf,
+                                                                    cfg)
+    assert torch.equal(syms, syms_p)
+    assert torch.equal(ballots, coder.flag_ballots(flags_p))
+    assert torch.equal(words[flags_p], words_p[flags_p])
+    assert torch.equal(heads, heads_p)
+    stream = coder.compact_pass(words, ballots)
+    assert torch.equal(stream, coder.compact_pass_plain(words_p, flags_p))
+    twin = tc.tchain24_decode_plain(qt, cdf, cfg)
+    assert torch.equal(syms, twin[0]) and torch.equal(stream, twin[1])
+    assert torch.equal(heads, twin[2])
+    assert tc.LAUNCHES["heads24"] == before["heads24"] + 1
+    assert tc.LAUNCHES["decode24"] == before["decode24"]
+    whole = tc.tchain24_decode(qt, cdf, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(whole, twin))
+    assert tc.LAUNCHES["decode24"] == before["decode24"] + 1
+
+
+def test_tchain24_head_pass_on_the_main_path_shape(dev):
+    """The TChain-24 row's shape, 2^24 quantiles at L=32768 (T=512): the
+    head pass against its plain version."""
+    L = 32768
+    cfg = _cat_cfg(24, L)
+    cdf = convert.cdf_to_torch(_cat_cdf(100, 24, 5), dev)
+    qt = convert.u32_to_torch(np.random.RandomState(5).randint(
+        0, 1 << 24, size=1 << 24).astype(np.uint32), dev)
+    syms, words, ballots, heads = tc.tchain24_head_pass(qt, cdf, cfg)
+    syms_p, words_p, flags_p, heads_p = tc.tchain24_head_pass_plain(qt, cdf,
+                                                                    cfg)
+    assert torch.equal(syms, syms_p) and torch.equal(heads, heads_p)
+    assert torch.equal(ballots, coder.flag_ballots(flags_p))
+    assert torch.equal(words[flags_p], words_p[flags_p])
 
 
 # --- kernel 8: the S=32 range resolve as a lane pass and the compaction ----
