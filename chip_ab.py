@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Sixteen coding kernels timed in several checkouts on one card, one
+"""Eighteen coding kernels timed in several checkouts on one card, one
 checkout after another in the order given.
 
     git archive <commit> | tar -x -C _scratch/parent
@@ -39,6 +39,8 @@ builds its kernels and times, on the same inputs:
 - kernel 23, the TChain-24 decode, on the TChain-24 row: its C entry (on
   preallocated scratch where it takes some), and, where the checkout has
   them, its head pass and pass B alone;
+- kernel 19, the TChain-16 decode, on the TChain-16 row: the same (a
+  checkout whose entry takes no scratch, one block, gets none);
 - kernel 15, the S=64 reference-exact table decode, on the JAX suite's
   exact row (2^22 synthetic symbols, gaussian, [-100, 100], P=24) at
   L=32768 and L=65536, over tables built on the card at the ungrouped
@@ -50,6 +52,13 @@ builds its kernels and times, on the same inputs:
   ``tchain.tchain12_family_decode`` (their arguments are the same in
   every checkout), and at 2^23 its C entry on preallocated scratch and
   its head pass alone;
+- kernel 22, the TChain-12 family encode, on the family row's 2^23
+  quantiles decoded at L=32768 (gaussian): its C entry on preallocated
+  scratch (8 bytes a symbol, and a u16 quantile a symbol where the entry
+  takes it; a checkout whose entry keeps L words of pending tables, one
+  block, uses the first of the 8-byte scratch), the heads reset and the
+  quantile words zeroed outside the CUDA events; where the checkout has
+  them, its tables pass alone and its cluster step with the packing pass;
 - kernel 11, the family rANS decode, on the family row itself (2^23
   symbols and their means and scales, seed 1234, [-100, 100]) at
   L=32768, for each of the four families: its C entry on a stream the
@@ -182,13 +191,17 @@ def time_decodes(root: str, kernels: set) -> dict:
     if 20 in kernels:
         _time_tchain16(out, check)
     if 23 in kernels:
-        _time_tchain24_decode(out, check)
+        _time_cat_decode(out, check, 24)
+    if 19 in kernels:
+        _time_cat_decode(out, check, 16)
     if 15 in kernels:
         _time_exact(out, check)
     if 17 in kernels:
         _time_exact_encode(out, check)
     if 21 in kernels:
         _time_tchain12(out, check)
+    if 22 in kernels:
+        _time_tchain12_encode(out, check)
     if 11 in kernels:
         _time_family(out, check)
     if 16 in kernels:
@@ -515,13 +528,13 @@ def _time_tchain16(out, check):
     out["tchain16_encode_ms"] = _events_ms(launch, reset)
 
 
-def _time_tchain24_decode(out, check):
-    """Kernel 23 into ``out``: the TChain-24 decode's C entry on the JAX
-    suite's TChain-24 row (2^24 uniform 24-bit quantiles, K=100
-    Dirichlet(2), seed 1234, L=32768), on preallocated scratch where it
-    takes some, the heads reset outside the CUDA events; symbols, stream
-    and heads must equal the wrapper's.  Where the checkout has them, its
-    head pass and pass B alone."""
+def _time_cat_decode(out, check, P: int):
+    """Kernel 23 (P=24) or kernel 19 (P=16) into ``out``: the decode's C
+    entry on the JAX suite's TChain row at that precision (2^24 uniform
+    quantiles, K=100 Dirichlet(2), seed 1234, L=32768), on preallocated
+    scratch where it takes some, the heads reset outside the CUDA events;
+    symbols, stream and heads must equal the wrapper's.  Where the checkout
+    has them, its head pass and pass B alone."""
     import numpy as np
     import torch
 
@@ -533,24 +546,31 @@ def _time_tchain24_decode(out, check):
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(1234)
     probs = rng.dirichlet(np.full(K, 2.0))
-    cdf = convert.cdf_to_torch(fast_quantized_cdf(probs, 24), dev)
+    cdf = convert.cdf_to_torch(fast_quantized_cdf(probs, P), dev)
     cdf32 = cdf.to(torch.int32)
     n = 1 << 24
     T = n // LANES
-    qt = convert.u32_to_torch(
-        rng.randint(0, 1 << 24, size=n).astype(np.uint32), dev)
-    want = tc.tchain24_decode(qt, cdf, tc.TCHAIN24_CFG)
+    q = rng.randint(0, 1 << P, size=n)
+    if P == 24:
+        cfg, decode, seed, head_dtype = (tc.TCHAIN24_CFG, tc.tchain24_decode,
+                                         256, torch.int64)
+        qt = convert.u32_to_torch(q.astype(np.uint32), dev)
+    else:
+        cfg, decode, seed, head_dtype = (tc.TCHAIN_CFG, tc.tchain16_decode, 1,
+                                         torch.int32)
+        qt = convert.quantiles16_to_torch(q.astype(np.uint16), LANES, dev)
+    want = decode(qt, cdf, cfg)
     i32 = {"dtype": torch.int32, "device": dev}
-    h_buf = torch.empty(LANES, dtype=torch.int64, device=dev)
+    h_buf = torch.empty(LANES, dtype=head_dtype, device=dev)
     s_buf, w_buf = torch.empty(n, **i32), torch.empty(n, **i32)
     end = torch.empty(1, dtype=torch.int64, device=dev)
     words, flags, offsets = coder.compaction_scratch(T, LANES, dev)
-    entry = "ctt_tchain24_decode"
+    entry, key = f"ctt_tchain{P}_decode", f"tchain{P}_decode"
     scratch = (() if len(_build.SIGNATURES[entry]) == 12 else
                (words, flags, offsets))
 
     def reset():
-        h_buf.fill_(256)
+        h_buf.fill_(seed)
 
     def same(what):
         check(s_buf, want[0], f"{what} symbols")
@@ -562,17 +582,17 @@ def _time_tchain24_decode(out, check):
                     *scratch, LANES, T)
     reset()
     launch()
-    same("tchain24 decode")
-    out["tchain24_decode_ms"] = _events_ms(launch, reset)
-    if "ctt_tchain24_head_pass" in _build.SIGNATURES:
-        out["tchain24_decode_heads_ms"] = _events_ms(
-            lambda: _build.call("ctt_tchain24_head_pass", dev, h_buf, qt,
+    same(key)
+    out[f"{key}_ms"] = _events_ms(launch, reset)
+    if f"ctt_tchain{P}_head_pass" in _build.SIGNATURES:
+        out[f"{key}_heads_ms"] = _events_ms(
+            lambda: _build.call(f"ctt_tchain{P}_head_pass", dev, h_buf, qt,
                                 cdf32, K, s_buf, words, flags, LANES, T),
             reset)
-        out["tchain24_decode_pass_b_ms"] = _events_ms(
+        out[f"{key}_pass_b_ms"] = _events_ms(
             lambda: _build.call("ctt_ilans2_compact", dev, flags, words,
                                 flags.numel(), w_buf, n, end, offsets))
-        same("tchain24 passes apart")
+        same(f"{key} passes apart")
 
 
 def _time_tchain12(out, check):
@@ -647,6 +667,68 @@ def _time_tchain12_entry(out, check, qw, mu, sg, want, n):
         lambda: _build.call("ctt_tchain12_head_pass", dev, h_buf, recs,
                             words, flags, LANES, T), reset)
     check(h_buf, want[2], "tchain12 head pass heads")
+
+
+def _time_tchain12_encode(out, check):
+    """Kernel 22 into ``out``: the TChain-12 family encode's C entry
+    (gaussian) on the family row's 2^23 quantiles decoded at L=32768, on
+    preallocated scratch (8 bytes a symbol; a checkout whose entry takes a
+    u16 quantile scratch too gets one), the heads reset and the quantile
+    words zeroed outside the CUDA events; the quantiles must come back and
+    every head must be 16.  Where the checkout has them, its tables pass
+    and, on those records, its cluster step with the packing pass."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import _build
+    from constriction_tpu_torch.ops import tchain as tc
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    dev = torch.device("cuda", 0)
+    cfg = LaneConfig(num_lanes=LANES, word_bits=16, state_bits=32,
+                     precision=12)
+    rng = np.random.RandomState(1234)
+    n = 1 << 23
+    T = n // LANES
+    means = (rng.randn(n) * 10).astype(np.float32)
+    scales = (0.3 + np.abs(rng.randn(n)) * 5).astype(np.float32)
+    quantiles = rng.randint(0, 1 << 12, size=n).astype(np.uint16)
+    mu, sg = convert.params_to_torch(means, scales, n, LANES, dev)
+    qw = convert.quantiles_to_torch(quantiles, LANES, dev)
+    syms, rem, heads = tc.tchain12_family_decode(qw, mu, sg, "gaussian",
+                                                 -100, 100, cfg)
+    h_buf, q_buf = torch.empty_like(heads), torch.empty_like(qw)
+    recs = torch.empty(n, dtype=torch.int64, device=dev)
+    q16 = torch.empty(n // 2, dtype=torch.int32, device=dev)
+    entry = "ctt_tchain12_family_encode"
+    scratch = (recs,) if len(_build.SIGNATURES[entry]) == 15 else (recs, q16)
+
+    def reset():
+        h_buf.copy_(heads)
+        q_buf.zero_()
+
+    def launch():
+        _build.call(entry, dev, h_buf, syms, mu, sg, rem, rem.numel(),
+                    *scratch, q_buf, LANES, T, 0, -100, 100)
+
+    def same(what):
+        check(q_buf, qw, f"{what} quantiles")
+        check(h_buf, torch.full_like(h_buf, 16), f"{what} heads")
+
+    reset()
+    launch()
+    same("tchain12 encode")
+    out["tchain12_encode_ms"] = _events_ms(launch, reset)
+    if "ctt_tchain12_tables_pass" in _build.SIGNATURES:
+        out["tchain12_encode_tables_ms"] = _events_ms(
+            lambda: _build.call("ctt_tchain12_tables_pass", dev, syms, mu, sg,
+                                recs, LANES, T, 0, -100, 100))
+        out["tchain12_encode_step_ms"] = _events_ms(
+            lambda: _build.call("ctt_tchain12_encode_step", dev, h_buf, recs,
+                                rem, rem.numel(), q16, q_buf, LANES, T),
+            reset)
+        same("tchain12 encode passes apart")
 
 
 def _time_exact(out, check):
@@ -868,7 +950,7 @@ def _time_exact_seg(out, check):
 
 
 def main(argv: list[str]) -> int:
-    kernels = "1,2,3,4,5,6,8,10,11,15,16,17,20,21,23,24"
+    kernels = "1,2,3,4,5,6,8,10,11,15,16,17,19,20,21,22,23,24"
     if len(argv) > 1 and argv[0] == "--kernels":
         kernels, argv = argv[1], argv[2:]
     if len(argv) == 2 and argv[0] == "--one":
@@ -877,7 +959,8 @@ def main(argv: list[str]) -> int:
         return 0
     if not argv:
         sys.exit("usage: chip_ab.py [--kernels "
-                 "1,2,3,4,5,6,8,10,11,15,16,17,20,21,23,24] CHECKOUT ...")
+                 "1,2,3,4,5,6,8,10,11,15,16,17,19,20,21,22,23,24] "
+                 "CHECKOUT ...")
     for root in argv:
         done = subprocess.run([sys.executable, os.path.abspath(__file__),
                                "--kernels", kernels, "--one", root])

@@ -17,8 +17,8 @@ prints one JSON object per phase, then the kernels line, the card's
                     4 at P=12 and P=16), the range decodes (kernel 5 at
                     P=24, kernel 6 at P=12 and P=16), the S=64 exact
                     table decodes (kernels 15 and 16), the family
-                    decode (kernel 11, each family) and the TChain-16
-                    and TChain-24 cluster encodes (kernels 20 and 24):
+                    decode (kernel 11, each family) and the TChain
+                    cluster encodes (kernels 20, 24 and 22's step):
                     the decode's cluster size,
                     CTAs, threads, lanes per thread, the card's maximum of
                     such active clusters (more than one CTA, or the run
@@ -26,11 +26,11 @@ prints one JSON object per phase, then the kernels line, the card's
                     is in shared memory, the encode's pass-A grid, and
                     ptxas' registers and spills for their kernels at each
                     preset and lanes a thread and for the lane passes of
-                    kernels 21, 23, 8, 10 and 17.  A spill in the range
-                    decodes or kernels 11, 15, 16, 20 and 24 at 2 or 4
-                    lanes a thread, or in those lane passes, fails the
-                    run, as does kernel 11, 16, 20 or 24 on fewer than 16
-                    CTAs at L=32768.
+                    kernels 21, 23, 19, 22, 8, 10 and 17.  A spill in the
+                    range decodes or kernels 11, 15, 16, 20, 24 and 22 at 2
+                    or 4 lanes a thread, or in those lane passes, fails
+                    the run, as does kernel 11, 16, 20, 24 or 22 on fewer
+                    than 16 CTAs at L=32768.
 2. kernels       -- each rANS kernel against its plain PyTorch twin on the
                     same CUDA tensors and against the numpy host oracle
                     (L=32768, about 2^20 symbols, with and without seeds):
@@ -92,8 +92,8 @@ prints one JSON object per phase, then the kernels line, the card's
                     partial last step; 32 full steps for TChain): states,
                     heads, words, quantiles and symbols identical; the
                     TChain-12 decode's three steps (inversion, heads,
-                    pass B) also launched alone, each against its plain
-                    version.
+                    pass B) and the encode's tables pass also launched
+                    alone, each against its plain version.
 11. family_main_path -- the JAX package's family benchmark workload (2^23
                     symbols, gaussian, support [-100, 100], seed 1234)
                     through ``cuda.encode_family`` -> ``decode_family`` and
@@ -108,7 +108,8 @@ prints one JSON object per phase, then the kernels line, the card's
                     entry for each of the four families (each on its own
                     encode's stream); the TChain-12 decode's three steps
                     timed apart, and the whole decode at 2^24 quantiles
-                    too.
+                    too; the TChain-12 encode's tables pass apart from
+                    its cluster step and packing pass.
 13. checkpoints  -- random access: on the v2 and v1 containers of the rANS
                     main path at both presets, ``cuda.build_checkpoints``
                     then ``cuda.decode_from_checkpoint`` from the middle
@@ -118,9 +119,9 @@ prints one JSON object per phase, then the kernels line, the card's
                     and the port's numpy host oracles (L=32768, 2^20
                     quantiles, a K=100 Dirichlet(2) model at P=16 and P=24):
                     symbols, remainders, heads and re-encoded quantiles
-                    identical, every head back at its seed; the TChain-24
-                    decode's two steps (the head pass, pass B) also
-                    launched alone, each against its plain version.
+                    identical, every head back at its seed; each decode's
+                    two steps (the head pass, pass B) also launched alone,
+                    each against its plain version.
 15. tchain_main_path -- the JAX package's TChain benchmark rows (2^24
                     uniform quantiles, that model, L=32768, T=512) through
                     ``cuda.bits_back_decode`` -> ``bits_back_encode`` and
@@ -130,13 +131,16 @@ prints one JSON object per phase, then the kernels line, the card's
                     the four kernels must have launched.
 16. tchain_times -- kernel-only time of each of the four at that size (C
                     entries on preallocated buffers; kernels 20 and 24 with
-                    their records' scratch, kernel 23 with the
-                    compaction's), kernel 23's two steps timed apart, its twin's time on the card (outputs equal),
-                    the facade's call times and host shares, and each
+                    their records' scratch, kernels 19 and 23 with the
+                    compaction's), each decode's two steps timed apart,
+                    its twin's time on the card (outputs equal), the
+                    facade's call times and host shares, and each
                     kernel's bound.
     tchain_sweep -- the cluster encodes' time per coding step at T=256
-                    steps, kernel 24 over L=128 .. 65536 and kernel 20
-                    over L=256 .. 65536, as phase 5 fits it.
+                    steps, kernel 24 over L=128 .. 65536, kernel 20 over
+                    L=256 .. 65536 and kernel 22's cluster step and
+                    packing pass (on its tables pass's records) over
+                    L=1024 .. 65536, as phase 5 fits it.
 17. chain_decode -- ``cuda.decode_chain_iid`` on 2^24 symbols of random
                     chain data (K=100, P=24) and ``cuda.decode_chain_rows``
                     on 2^20 symbols with a K=16 model each, against the
@@ -534,10 +538,11 @@ def ptxas_usage(log: str, marks: tuple) -> dict:
 
 # the kernels ptxas must compile without spilling: the range decodes at
 # both presets, the S=64 exact table decodes (kernels 15 and 16), the
-# family decode (kernel 11, each family) and the TChain-16 and TChain-24
-# encodes (kernels 20 and 24) at 2 and 4 lanes a thread (L = 32768 and
+# family decode (kernel 11, each family) and the TChain encodes (kernels
+# 20, 24 and 22's cluster step) at 2 and 4 lanes a thread (L = 32768 and
 # 65536), the TChain-12 decode's first two passes (kernel 21), the
-# TChain-24 decode's head pass (kernel 23), the range resolves' lane
+# TChain-24 and TChain-16 decodes' head passes (kernels 23 and 19), the
+# TChain-12 encode's tables pass (kernel 22), the range resolves' lane
 # passes (kernels 8 and 10) and kernel 17's pass A
 NO_SPILL = (r"cluster_range_decode_kernelILi32ELi64ELi[24]E",
             r"cluster_range_decode_kernelILi16ELi32ELi[24]E",
@@ -547,8 +552,10 @@ NO_SPILL = (r"cluster_range_decode_kernelILi32ELi64ELi[24]E",
               for k in range(4)),
             r"cluster_tchain_encode_kernelILi32ELi64ELi24ELi[24]E",
             r"cluster_tchain_encode_kernelILi16ELi32ELi16ELi[24]E",
+            r"cluster_tchain_encode_kernelILi16ELi32ELi12ELi[24]E",
             r"tchain12_invert_kernel", r"tchain_heads_kernelILi16ELi32ELi12E",
             r"tchain_heads_kernelILi32ELi64ELi24E",
+            r"tchain_heads_kernelILi16ELi32ELi16E", r"tchain12_tables_kernel",
             r"range_resolve_lanes_kernelILi16ELi32E",
             r"range_resolve_lanes_kernelILi32ELi64E",
             r"encode_lanes_kernelILi32ELi64E.*PlaneLanesModel")
@@ -559,12 +566,12 @@ def phase_geometry(device) -> dict:
     rANS pairs (kernels 1 and 2 at P=24, kernels 3 and 4 at P=12 and P=16),
     the range decodes (kernel 5 at P=24, kernel 6 at P=12 and P=16), the
     S=64 exact table decodes (kernels 15 and 16), the family decode
-    (kernel 11, each family) and the TChain-16 and TChain-24 cluster
-    encodes (kernels 20 and 24) at bench.py's lane counts for its K, and
-    what ptxas reported for their kernels at each preset and lanes a
-    thread and for the lane passes of kernels 21, 23, 8, 10 and 17.  Fails
-    on a spill in a kernel of NO_SPILL, and unless kernels 11, 16, 20 and
-    24 run on 16 CTAs at L=32768."""
+    (kernel 11, each family) and the TChain cluster encodes (kernels 20,
+    24 and 22's step) at bench.py's lane counts for its K, and what ptxas
+    reported for their kernels at each preset and lanes a thread and for
+    the lane passes of kernels 21, 23, 19, 22, 8, 10 and 17.  Fails on a
+    spill in a kernel of NO_SPILL, and unless kernels 11, 16, 20, 24 and
+    22 run on 16 CTAs at L=32768."""
     import re
 
     from constriction_tpu_torch.ops import _build, coder, coder64
@@ -596,6 +603,8 @@ def phase_geometry(device) -> dict:
     rows += [{"kernel": 20, "preset": "w16s32", "num_lanes": L, "K": K_MAIN,
               "P": 16, **tc.geometry16(L, K_MAIN, device)}
              for L in (32768, BENCH_LANES)]
+    rows += [{"kernel": 22, "preset": "w16s32", "num_lanes": L, "P": 12,
+              **tc.geometry12(L, device)} for L in (32768, BENCH_LANES)]
     for row in rows:
         if "encode_blocks" in row:
             row["encode_grid"] = (f"{row['encode_blocks']} x "
@@ -603,8 +612,8 @@ def phase_geometry(device) -> dict:
         if row["cluster"] < 2:
             fail(f"geometry: kernel {row['kernel']} runs on one CTA at "
                  f"L={row['num_lanes']}")
-        if (row["kernel"] in (11, 16, 20, 24) and row["num_lanes"] == 32768
-                and row["ctas"] != 16):
+        if (row["kernel"] in (11, 16, 20, 22, 24)
+                and row["num_lanes"] == 32768 and row["ctas"] != 16):
             fail(f"geometry: kernel {row['kernel']} runs on {row['ctas']} "
                  f"CTAs at L=32768")
     log = _build.ptxas_log()
@@ -625,6 +634,7 @@ def phase_geometry(device) -> dict:
                                        "encode_lanes_kernelILi16ELi32E",
                                        "cluster_range_decode_kernel",
                                        "tchain12_invert_kernel",
+                                       "tchain12_tables_kernel",
                                        "tchain_heads_kernel",
                                        "cluster_tchain_encode_kernel",
                                        "range_resolve_lanes_kernel",
@@ -1473,10 +1483,14 @@ def tchain_case(device, cfg, family, means, scales, quantiles, errs) -> dict:
     enc_p = tc.tchain12_family_encode_plain(*dec, mu, sg, family, lo, hi, cfg)
     q_h, h_h = tc.tchain12_family_encode_host(syms_h, rem_h, heads_h, means,
                                               scales, family, lo, hi, cfg)
+    # the encode's tables pass launched alone against its plain version
+    e_t = mismatch(
+        tc.tchain12_tables_pass(dec[0], mu, sg, family, lo, hi, cfg),
+        tc.tchain12_tables_pass_plain(dec[0], mu, sg, family, lo, hi, cfg))
     e_enc = max(planes_err(enc, enc_p), mismatch(
         torch.from_numpy(convert.quantiles_from_torch(enc[0], L).astype(
             np.int32)), torch.from_numpy(q_h.astype(np.int32))),
-        mismatch(enc[1], convert.u32_to_torch(h_h, device)))
+        mismatch(enc[1], convert.u32_to_torch(h_h, device)), e_t)
     round_trip = (mismatch(enc[0], qw) == 0
                   and mismatch(enc[1], torch.full_like(enc[1], 16)) == 0)
     errs["tchain12_family_decode"] = max(
@@ -1486,7 +1500,7 @@ def tchain_case(device, cfg, family, means, scales, quantiles, errs) -> dict:
     row = {"coder": "tchain12", "family": family, "n": n, "num_lanes": L,
            "words": int(dec[1].numel()), "decode_max_abs_err": e_dec,
            "invert_pass_max_abs_err": e_a, "head_pass_max_abs_err": e_b,
-           "pass_b_max_abs_err": e_c,
+           "pass_b_max_abs_err": e_c, "tables_pass_max_abs_err": e_t,
            "encode_max_abs_err": e_enc, "round_trip": round_trip}
     if e_enc or e_dec or not round_trip:
         fail(f"tchain kernel != twin or host oracle, or no round trip: {row}")
@@ -1679,12 +1693,26 @@ def phase_family_times(device, work, gpu: str,
 
     def reset_chain_encode():
         h_buf.copy_(bb[2])
-        q_buf.zero_()  # the kernel ORs its bits into zeroed words
+        q_buf.fill_(-1)  # every word is written
 
+    # kernel 22's scratch: a division record (8 bytes) and a u16 quantile
+    # a symbol
+    recs12 = torch.empty(n, dtype=torch.int64, device=device)
+    q16 = torch.empty(n // 2, **i32)
     ms["tchain12_family_encode"] = kernel_ms(
         reset_chain_encode, lambda: _build.call(
             "ctt_tchain12_family_encode", device, h_buf, bb[0], mu, sg, bb[1],
-            nr, tab, q_buf, L, T, fi, lo, hi), 3)
+            nr, recs12, q16, q_buf, L, T, fi, lo, hi), 3)
+    same = same and torch.equal(q_buf, qw) and bool((h_buf == 16).all())
+    # its steps apart: the tables pass; the cluster step and the packing
+    enc_passes = {
+        "tables": kernel_ms(lambda: None, lambda: _build.call(
+            "ctt_tchain12_tables_pass", device, bb[0], mu, sg, recs12, L, T,
+            fi, lo, hi), 3),
+        "step": kernel_ms(reset_chain_encode, lambda: _build.call(
+            "ctt_tchain12_encode_step", device, h_buf, recs12, bb[1], nr,
+            q16, q_buf, L, T), 3),
+    }
     same = same and torch.equal(q_buf, qw) and bool((h_buf == 16).all())
     if not same:
         fail("family_times: timed launches differ from the wrappers' output")
@@ -1773,6 +1801,11 @@ def phase_family_times(device, work, gpu: str,
         "tchain12_family_decode_invert_bound_ms": bound(
             q_bytes + 8 * n + 8 * n, decode_ops)[0],
         "tchain12_family_decode_n24_ms": n24_ms,
+        **{f"tchain12_family_encode_{k}_ms": v
+           for k, v in enc_passes.items()},
+        # symbols and parameters in, records out
+        "tchain12_family_encode_tables_bound_ms": bound(
+            4 * n + 8 * n + 8 * n, (2 * n - bb_ends) * per_left)[0],
         **{f"{k}_ns_per_symbol": v * 1e6 / n for k, v in ms.items()},
         **{f"{k}_plain_ms": v for k, v in plain.items()},
         **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
@@ -1873,16 +1906,19 @@ def cat_to_torch(P: int, values, L: int, device):
     return convert.u32_to_torch(values, device)
 
 
-def tchain24_passes_err(qt, cdf, cfg, dec) -> int:
-    """Kernel 23's two steps launched alone, each against its plain version
-    on the same tensors, and composed against the decode ``dec``: the
-    largest mismatch."""
+def tchain_passes_err(P: int, qt, cdf, cfg, dec) -> int:
+    """A categorical decode's two steps (kernel 19 at P=16, kernel 23 at
+    P=24) launched alone, each against its plain version on the same
+    tensors, and composed against the decode ``dec``: the largest
+    mismatch."""
     from constriction_tpu_torch.ops import coder
     from constriction_tpu_torch.ops import tchain as tc
 
-    syms, words, ballots, heads = tc.tchain24_head_pass(qt, cdf, cfg)
-    syms_p, words_p, flags_p, heads_p = tc.tchain24_head_pass_plain(qt, cdf,
-                                                                    cfg)
+    head_pass, plain = {
+        16: (tc.tchain16_head_pass, tc.tchain16_head_pass_plain),
+        24: (tc.tchain24_head_pass, tc.tchain24_head_pass_plain)}[P]
+    syms, words, ballots, heads = head_pass(qt, cdf, cfg)
+    syms_p, words_p, flags_p, heads_p = plain(qt, cdf, cfg)
     stream = coder.compact_pass(words, ballots)
     return max(mismatch(syms, syms_p),
                mismatch(ballots, coder.flag_ballots(flags_p)),
@@ -1896,7 +1932,7 @@ def phase_tchain_kernels(device, n: int) -> tuple[dict, dict]:
     """Each categorical TChain kernel against its twin and the numpy host
     oracle (L=32768, n quantiles): symbols, remainders, heads and the
     re-encoded quantiles identical, every head back at its seed; kernel
-    23's two steps each against its plain version."""
+    19's and kernel 23's two steps each against its plain version."""
     import torch
 
     from constriction_tpu_torch import convert
@@ -1916,8 +1952,7 @@ def phase_tchain_kernels(device, n: int) -> tuple[dict, dict]:
                     mismatch(got[0].cpu(), torch.from_numpy(host[0])),
                     mismatch(got[1], convert.u32_to_torch(host[1], device)),
                     mismatch(got[2], cat_to_torch(P, host[2], L, device)))
-        if P == 24:
-            e_dec = max(e_dec, tchain24_passes_err(qt, cdf, cfg, got))
+        e_dec = max(e_dec, tchain_passes_err(P, qt, cdf, cfg, got))
         back = enc(*got, cdf, cfg)
         q_h, h_h = enc_h(*host, cdf_np, cfg)
         e_enc = max(planes_err(back, enc_p(*got, cdf, cfg)),
@@ -2012,31 +2047,28 @@ def phase_tchain_times(device, work, gpu: str,
         w_buf = torch.empty(n, dtype=torch.int32, device=device)
         q_buf = torch.empty_like(qt)
         end = torch.empty(1, dtype=torch.int64, device=device)
-        # kernel 23's scratch: dense words, ballots, offsets
-        scratch, passes = (), {}
-        if P == 24:
-            scratch = words, flags, offsets = coder.compaction_scratch(
-                T, L, device)
+        # the decode's scratch (kernels 19 and 23): dense words, ballots,
+        # offsets
+        words, flags, offsets = coder.compaction_scratch(T, L, device)
         ms = {}
         ms["decode"] = kernel_ms(
             lambda: h_buf.fill_(seed), lambda: _build.call(
                 f"ctt_{label}_decode", device, h_buf, qt, cdf32, K, s_buf,
-                w_buf, n, end, *scratch, L, T), 5)
+                w_buf, n, end, words, flags, offsets, L, T), 5)
         same = (torch.equal(s_buf, got[0]) and torch.equal(h_buf, got[2])
                 and torch.equal(w_buf[int(end.item()):], got[1]))
-        if P == 24:  # its two steps apart: the head pass, pass B
-            passes = {
-                "heads": kernel_ms(lambda: h_buf.fill_(seed),
-                                   lambda: _build.call(
-                    "ctt_tchain24_head_pass", device, h_buf, qt, cdf32, K,
-                    s_buf, words, flags, L, T), 5),
-                "pass_b": kernel_ms(lambda: None, lambda: _build.call(
-                    "ctt_ilans2_compact", device, flags, words,
-                    flags.numel(), w_buf, n, end, offsets), 5),
-            }
-            same = (same and torch.equal(s_buf, got[0])
-                    and torch.equal(h_buf, got[2])
-                    and torch.equal(w_buf[int(end.item()):], got[1]))
+        # its two steps apart: the head pass, pass B
+        passes = {
+            "heads": kernel_ms(lambda: h_buf.fill_(seed), lambda: _build.call(
+                f"ctt_{label}_head_pass", device, h_buf, qt, cdf32, K, s_buf,
+                words, flags, L, T), 5),
+            "pass_b": kernel_ms(lambda: None, lambda: _build.call(
+                "ctt_ilans2_compact", device, flags, words, flags.numel(),
+                w_buf, n, end, offsets), 5),
+        }
+        same = (same and torch.equal(s_buf, got[0])
+                and torch.equal(h_buf, got[2])
+                and torch.equal(w_buf[int(end.item()):], got[1]))
         # kernels 20 and 24 take a scratch for their K division records
         records = coder._records(cdf32, cfg)
         ms["encode"] = kernel_ms(
@@ -2099,9 +2131,10 @@ def phase_tchain_times(device, work, gpu: str,
 
 
 def phase_tchain_sweep(device, gpu: str) -> dict:
-    """The cluster encodes (kernel 24, TChain-24; kernel 20, TChain-16) per
-    coding step at SWEEP_STEPS steps over SWEEP_LANES lanes (kernel 20 from
-    256, its lane multiple), as phase_sweep times the rANS pairs:
+    """The cluster encodes (kernel 24, TChain-24; kernel 20, TChain-16;
+    kernel 22's cluster step, TChain-12) per coding step at SWEEP_STEPS
+    steps over SWEEP_LANES lanes (kernel 20 from 256, kernel 22 from 1024,
+    their lane multiples), as phase_sweep times the rANS pairs:
     kernel-only (CUDA events around the C entry, the heads reset outside
     them), its quantiles equal to the decoded ones, the floor at the fewest
     lanes and the slope from 4096 lanes up (microseconds per step per 1024
@@ -2149,12 +2182,51 @@ def phase_tchain_sweep(device, gpu: str) -> dict:
                          "steps": SWEEP_STEPS, "encode_ms": ms,
                          "encode_us_per_step": us[-1],
                          **geometry(L, K_MAIN, device)})
-        i = lanes.index(4096)
-        fits[name] = {"us_per_step_floor": us[0],
-                      "floor_lanes": lanes[0],
-                      "us_per_1024_lanes_per_step": (us[-1] - us[i]) * 1024
-                      / (lanes[-1] - lanes[i])}
+        fits[name] = sweep_fit(lanes, us)
+    # kernel 22's cluster step and packing pass on its tables pass's
+    # records (the family row's gaussian models; L a multiple of 1024)
+    lanes = SWEEP_LANES[1:]
+    means, scales, _, quantiles = family_workload(max(lanes) * SWEEP_STEPS)
+    lo, hi = FAMILY_SUPPORT
+    us = []
+    for L in lanes:
+        cfg = LaneConfig(num_lanes=L, word_bits=16, state_bits=32,
+                         precision=12)
+        n = L * SWEEP_STEPS
+        mu, sg = convert.params_to_torch(means[:n], scales[:n], n, L, device)
+        qw = convert.quantiles_to_torch(quantiles[:n], L, device)
+        syms, rem, heads = tc.tchain12_family_decode(qw, mu, sg, MAIN_FAMILY,
+                                                     lo, hi, cfg)
+        recs = tc.tchain12_tables_pass(syms, mu, sg, MAIN_FAMILY, lo, hi,
+                                       cfg)
+        h_buf = torch.empty_like(heads)
+        q_buf = torch.empty_like(qw)
+        q16 = torch.empty(n // 2, dtype=torch.int32, device=device)
+
+        def reset():
+            h_buf.copy_(heads)
+            q_buf.fill_(-1)
+
+        ms = kernel_ms(reset, lambda: _build.call(
+            "ctt_tchain12_encode_step", device, h_buf, recs, rem,
+            rem.numel(), q16, q_buf, L, SWEEP_STEPS), 3)
+        if mismatch(q_buf, qw) != 0 or not bool((h_buf == 16).all()):
+            fail(f"tchain_sweep: kernel 22 L={L} round trip")
+        us.append(ms * 1e3 / SWEEP_STEPS)
+        rows.append({"kernel": 22, "num_lanes": L, "steps": SWEEP_STEPS,
+                     "encode_step_ms": ms, "encode_us_per_step": us[-1],
+                     **tc.geometry12(L, device)})
+    fits["tchain12_family_encode_step"] = sweep_fit(lanes, us)
     return {"phase": "tchain_sweep", "cases": rows, "fits": fits, "gpu": gpu}
+
+
+def sweep_fit(lanes, us) -> dict:
+    """The per-step floor at the fewest lanes and the slope from 4096 lanes
+    up (microseconds per step per 1024 lanes)."""
+    i = lanes.index(4096)
+    return {"us_per_step_floor": us[0], "floor_lanes": lanes[0],
+            "us_per_1024_lanes_per_step": (us[-1] - us[i]) * 1024
+            / (lanes[-1] - lanes[i])}
 
 
 def phase_chain_decode(device, gpu: str) -> dict:

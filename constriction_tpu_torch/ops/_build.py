@@ -79,16 +79,24 @@ _TCHAIN12_DECODE_ARGS = [_P, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P,
                          _I32, _I32, *_FAMILY_TAIL]
 _TCHAIN12_INVERT_ARGS = [_P, _P, _P, _P, _P, _I32, _I32, *_FAMILY_TAIL]
 _TCHAIN12_HEADS_ARGS = [_P, _P, _P, _P, _I32, _I32, _P, _I32]
-_TCHAIN12_ENCODE_ARGS = [_P, _P, _P, _P, _P, _I64, _P, _P, _I32, _I32,
+# kernel 22: its scratch (records, u16 quantiles) after wlen
+_TCHAIN12_ENCODE_ARGS = [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _I32, _I32,
                          *_FAMILY_TAIL]
-_TCHAIN_DECODE_ARGS = [_P, _P, _P, _I32, _P, _P, _I64, _P, _I32, _I32, _P,
-                       _I32]
-# kernel 23: its scratch (dense words, ballots, compaction offsets) after
-# end_out
-_TCHAIN24_DECODE_ARGS = [*_TCHAIN_DECODE_ARGS[:8], _P, _P, _P,
-                         *_TCHAIN_DECODE_ARGS[8:]]
-# kernel 23's head pass: heads, q, cdf, K, syms, words, flags, L, T
-_TCHAIN24_HEADS_ARGS = [_P, _P, _P, _I32, _P, _P, _P, _I32, _I32, _P, _I32]
+# the cluster size after max_sym
+_TCHAIN12_ENCODE_CLUSTER_ARGS = [*_TCHAIN12_ENCODE_ARGS[:14], _I32, _P, _I32]
+# kernel 22's tables pass: syms, means, scales, recs, L, T
+_TCHAIN12_TABLES_ARGS = [_P, _P, _P, _P, _I32, _I32, *_FAMILY_TAIL]
+# kernel 22's cluster step and packing pass: heads, recs, words, wlen, q16,
+# qw, L, T
+_TCHAIN12_STEP_ARGS = [_P, _P, _P, _I64, _P, _P, _I32, _I32, _P, _I32]
+# L, cluster size, out[7]
+_TCHAIN12_GEOMETRY_ARGS = [_I32, _I32, _P, _P, _I32]
+# kernels 19 and 23: heads, q, cdf, K, syms, buf, cap, end_out, then their
+# scratch (dense words, ballots, compaction offsets), L, T
+_TCHAIN_DECODE_ARGS = [_P, _P, _P, _I32, _P, _P, _I64, _P, _P, _P, _P, _I32,
+                       _I32, _P, _I32]
+# their head pass: heads, q, cdf, K, syms, words, flags, L, T
+_TCHAIN_HEADS_ARGS = [_P, _P, _P, _I32, _P, _P, _P, _I32, _I32, _P, _I32]
 # kernels 20 and 24: the division records' scratch after q
 _TCHAIN_ENCODE_ARGS = [_P, _P, _P, _I32, _P, _I64, _P, _P, _I32, _I32, _P,
                        _I32]
@@ -141,16 +149,21 @@ SIGNATURES = {
     "ctt_family_encode": _FAMILY_ENCODE_ARGS,
     "ctt_family_left": _FAMILY_LEFT_ARGS,
     "ctt_tchain16_decode": _TCHAIN_DECODE_ARGS,
+    "ctt_tchain16_head_pass": _TCHAIN_HEADS_ARGS,
     "ctt_tchain16_encode": _TCHAIN_ENCODE_ARGS,
     "ctt_tchain16_encode_cluster": _TCHAIN_ENCODE_CLUSTER_ARGS,
     "ctt_tchain16_geometry": _TCHAIN_GEOMETRY_ARGS,
-    "ctt_tchain24_decode": _TCHAIN24_DECODE_ARGS,
-    "ctt_tchain24_head_pass": _TCHAIN24_HEADS_ARGS,
+    "ctt_tchain24_decode": _TCHAIN_DECODE_ARGS,
+    "ctt_tchain24_head_pass": _TCHAIN_HEADS_ARGS,
     "ctt_tchain24_encode": _TCHAIN_ENCODE_ARGS,
     "ctt_tchain24_encode_cluster": _TCHAIN_ENCODE_CLUSTER_ARGS,
     "ctt_tchain24_geometry": _TCHAIN_GEOMETRY_ARGS,
     "ctt_tchain12_family_decode": _TCHAIN12_DECODE_ARGS,
     "ctt_tchain12_family_encode": _TCHAIN12_ENCODE_ARGS,
+    "ctt_tchain12_family_encode_cluster": _TCHAIN12_ENCODE_CLUSTER_ARGS,
+    "ctt_tchain12_tables_pass": _TCHAIN12_TABLES_ARGS,
+    "ctt_tchain12_encode_step": _TCHAIN12_STEP_ARGS,
+    "ctt_tchain12_geometry": _TCHAIN12_GEOMETRY_ARGS,
     "ctt_tchain12_invert_pass": _TCHAIN12_INVERT_ARGS,
     "ctt_tchain12_head_pass": _TCHAIN12_HEADS_ARGS,
     "ctt_exact_encode64": _EXACT_ENCODE64_ARGS,

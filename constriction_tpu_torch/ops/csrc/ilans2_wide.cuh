@@ -12,11 +12,11 @@
 // kernels 5 and 6), which shares its step exchange (exchange_step), and
 // the compaction (launch_compact) behind its carry resolves at both
 // presets (kernels 8 and 10);
-// and tchain.cu the step exchange, the encode model (RecordCdfModel) and
-// plan_cluster for its TChain-16 and TChain-24 cluster encodes (kernels 20
-// and 24), the decode model (BucketCdfModel) for its TChain-24 decode's
-// search pass, and the compaction behind its TChain-12 and TChain-24
-// decodes (kernels 21 and 23).
+// and tchain.cu the step exchange, the encode model (RecordCdfModel),
+// DivisionRecord32 and plan_cluster for its cluster encodes (kernels 20,
+// 22 and 24), the decode model (BucketCdfModel) for the searches inside
+// its TChain-16 and TChain-24 head passes, and the compaction behind its
+// decodes (kernels 19, 21 and 23).
 // They are templated on (W, S, Model); a model provides, besides stage():
 //   decode: template <int R> invert_lanes(t, l[R], q[R], sym[R], cum[R],
 //           prob[R]) -- the R quantiles of one thread at once (l may lie
@@ -236,10 +236,10 @@ __global__ void __launch_bounds__(128)
 }
 
 // The encode model of pass A (ilans2.cu, kernels 2 and 3) and of the
-// TChain cluster encodes (tchain.cu, kernels 20 and 24): each symbol's
-// division record (its interval and the multiply-high reciprocal of its
-// probability, built from the CDF by division_records_kernel), in shared
-// memory when the K records fit.  Symbols outside [0, K) are clamped to
+// categorical TChain cluster encodes (tchain.cu, kernels 20 and 24): each
+// symbol's division record (its interval and the multiply-high reciprocal
+// of its probability, built from the CDF by division_records_kernel), in
+// shared memory when the K records fit.  Symbols outside [0, K) are clamped to
 // K-1 to keep the reads in bounds (callers validate them).
 template <class Record>
 struct RecordCdfModel {
@@ -272,14 +272,14 @@ size_t record_smem_bytes(RecordCdfModel<Record>* model) {
 }
 
 // The decode model of the categorical coders' cluster decodes (rANS,
-// kernels 1 and 4; range, kernels 5 and 6) and of the TChain-24 decode's
-// search pass (tchain.cu, kernel 23): the CDF, in shared memory when it
-// fits, behind a bucket table in shared memory: lut[b] is the symbol of
-// quantile b << (P - lut_bits), so quantile q's symbol lies between
-// lut[q >> (P - lut_bits)] and the next entry, and a binary search between
-// the two (zero or one probe for most quantiles of a K=100 model at P=24)
-// gives find_symbol's answer.  With lut_bits == P, lut[q] is that answer
-// and nothing is searched.
+// kernels 1 and 4; range, kernels 5 and 6) and of the TChain-16 and
+// TChain-24 decodes' head passes (tchain.cu, kernels 19 and 23): the CDF,
+// in shared memory when it fits, behind a bucket table in shared memory:
+// lut[b] is the symbol of quantile b << (P - lut_bits), so quantile q's
+// symbol lies between lut[q >> (P - lut_bits)] and the next entry, and a
+// binary search between the two (zero or one probe for most quantiles of
+// a K=100 model at P=24) gives find_symbol's answer.  With lut_bits == P,
+// lut[q] is that answer and nothing is searched.
 struct BucketCdfModel {
   const uint32_t* cdf;
   int K;

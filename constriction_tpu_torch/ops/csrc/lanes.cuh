@@ -6,9 +6,8 @@
 // what is here:
 //
 // - The single-block coders: ilans2.cuh's loops over exact_family.cu's
-//   narrow table and plane models (kernels 13 and 14), ilans2_family.cu's
-//   encode (kernel 12) and tchain.cu's TChain-16 decode and TChain-12
-//   encode (kernels 19 and 22).  One block of kThreads
+//   narrow table and plane models (kernels 13 and 14) and
+//   ilans2_family.cu's encode (kernel 12).  One block of kThreads
 //   threads codes the message; the prefix comes from a warp ballot per 32
 //   lanes, a block scan of the per-warp popcounts (scan_groups, over the
 //   Smem carve-up below) and a popc of the ballot below the lane.
@@ -17,8 +16,8 @@
 //   both presets, kernels 5 and 6; the S=64 exact table decodes, kernels
 //   15 and 16, and encode, kernel 17; the family decode, kernel 11; the
 //   compaction behind ilans2_range.cu's carry resolves and tchain.cu's
-//   TChain-12 and TChain-24 decodes; tchain.cu's cluster encodes, kernels
-//   20 and 24), which take StateOf, the CDF staging,
+//   decodes, kernels 19, 21 and 23; tchain.cu's cluster encodes, kernels
+//   20, 22 and 24), which take StateOf, the CDF staging,
 //   the symbol search, valid_args and prepare from here and scan across
 //   CTAs themselves.
 //

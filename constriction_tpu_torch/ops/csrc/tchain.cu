@@ -17,29 +17,25 @@
 // below prob << (S-W-P) refills W bits, the one the exact inverse of the
 // other.
 //
-// The TChain-16 decode (kernel 19) is a single-block template over (W, S,
-// P), in the shape of the TChain-12 encoder below: one thread block codes
-// the message, heads live in device memory (updated in place), the words
-// a step flushes are written in the next iteration once the block scan
-// (lanes.cuh) has placed them, the CDF is staged in shared memory when it
-// fits, and a quantile finds its symbol by binary search (find_symbol).
-// Lanes are strided (lane = row * 1024 + thread) and the last row is
-// guarded per warp, so any L that is a multiple of 32 runs (the wrappers
-// take multiples of 256, as the JAX package does).  The head update is
-// native u32 (head < 2^16 and prob <= 2^16 keep head * prob + (q - cum)
-// below 2^32; the CDF and prob are never held in 16 bits, since a
-// one-symbol model has prob = 2^16).
+// The decodes run over the whole grid, their lanes meeting only where
+// their flushed words land: a head pass of one thread per lane
+// (tchain_heads_kernel, one template for the three presets) and
+// ilans2_wide.cuh's row-major compaction (launch_compact).  The TChain-16
+// and TChain-24 decodes (kernels 19 and 23) find each quantile's symbol
+// inside the head pass, each lane searching its next quantiles in its
+// block's staged bucket table (QuantileSteps over BucketCdfModel); the
+// TChain-12 decode (kernel 21) runs a bisection over left() per quantile
+// in a pass of its own ahead of the head pass (tchain12_invert_kernel).
 //
-// The encodes (kernels 20 and 24) run on ilans2_wide.cuh's cluster step
-// (cluster_tchain_encode_kernel, below): heads in registers, one exchange
-// a step, the division a multiply-high by each symbol's division record
-// (DivisionRecord32 at S=32, DivisionRecord at S=64).  The TChain-24
-// decode (kernel 23) and the TChain-12 decode (kernel 21) run as three
-// steps over the whole grid: a pass that finds each quantile's symbol
-// (a bucket-table search for kernel 23, a bisection over left() for
-// kernel 21), a head pass of one thread per lane
-// (tchain_heads_kernel, one template for both) and ilans2_wide.cuh's
-// row-major compaction.
+// The encodes (kernels 20, 24 and 22) run on ilans2_wide.cuh's cluster
+// step (cluster_tchain_encode_kernel, below): heads in registers, one
+// exchange a step, the division a multiply-high by each symbol's division
+// record (DivisionRecord32 at S=32, DivisionRecord at S=64).  Kernels 20
+// and 24 build the K records of their CDF ahead of the step; kernel 22,
+// whose symbols each have a model of their own, builds one record a symbol
+// in a tables pass over the whole grid (tchain12_tables_kernel: the two
+// evaluations of left() a symbol, which read no head) and the step reads
+// each lane's record a step ahead.
 //
 // Quantile layouts keep the Pallas wire format.  TChain-24: one quantile
 // per u32 word.  TChain-16 (ops/tchain.py pack_quantiles): within a step
@@ -47,25 +43,20 @@
 // the high half of word l - L/2; lanes read and write their own 16-bit
 // half, so two lanes of different warps never touch the same bytes and
 // the encoder's output needs no zeroing and no atomics.  TChain-12 (pack_q12):
-// eight 128-lane rows share three word rows; the encoder ORs its bits into
-// zeroed words with atomicOr.
+// eight 128-lane rows share three word rows; the encoder's cluster step
+// stores each quantile as a u16 into a scratch, and a packing pass of one
+// thread per word writes the rows.  The cluster step stores through a
+// policy (PlanarStore, HalfStore) so that one template writes each layout.
 //
-// What bounds them on this card.  The grid decodes (kernels 21 and 23):
-// kernel 21's inversion pass holds its operation-bound work (a bisection
-// over left() per quantile); kernel 23's search pass moves bytes (a
-// quantile in, a symbol and an 8-byte record out, a few shared-memory
-// reads between); the head passes are chains of T short steps a lane,
-// and the compaction moves one word per u32.  The cluster encodes
-// (kernels 20 and 24) run on up to 16 SMs: their refills couple the lanes
-// at every step, so the step's exchange and its chain (record, ballot,
-// barriers, one L2 load, a multiply-high) bound them.  The other two
-// kernels (19, the TChain-16 decode; 22, the TChain-12 encode) run on one
-// SM: latency and issue.  The family encoder adds two evaluations of
-// left() per re-encoded symbol (it keeps each lane's pending (cum, prob)
-// in a scratch array, `tab`, as the rANS family encoder does).  The
-// TChain-16 decode has kernel 23's lane independence and can take its
-// passes at (16, 32, 16), its records u64 (prob reaches 2^16, so
-// (q - cum) | prob << 16 needs 33 bits).
+// What bounds them on this card.  The grid decodes: kernel 21's inversion
+// pass holds its operation-bound work (a bisection over left() per
+// quantile); the head passes are chains of T short steps a lane (kernels
+// 19 and 23 with their searches inside), and the compaction moves one word
+// per u32.  The cluster encodes run on up to 16 SMs: their refills couple
+// the lanes at every step, so the step's exchange and its chain (record,
+// ballot, barriers, one L2 load, a multiply-high) bound them; kernel 22's
+// tables pass holds its operation-bound work (two left() and a record a
+// symbol) and fills the card.
 
 #include "family.cuh"
 #include "ilans2_wide.cuh"
@@ -94,83 +85,6 @@ __device__ __forceinline__ uint32_t load_quantile(const uint32_t* __restrict__ q
   }
 }
 
-template <int S>
-__device__ __forceinline__ void store_quantile(uint32_t* __restrict__ q, int t,
-                                               int l, int L, uint32_t v) {
-  if constexpr (S == 32) {
-    uint16_t* half = reinterpret_cast<uint16_t*>(q);
-    half[static_cast<int64_t>(t) * L + planar_half(l, L)] =
-        static_cast<uint16_t>(v);
-  } else {
-    q[static_cast<int64_t>(t) * L + l] = v;
-  }
-}
-
-// Bits-back decode of T * L quantiles under cdf_g[K+1] (total 2^P).
-// heads[L]: the seeds 2^(S-W-P) in, the final heads out.  q: TChain-16
-// planar words (T * L/2) or TChain-24 words (T * L), values below 2^P.
-// buf[cap]: the flushed words of step t land right to left below an end
-// pointer, so on return the remainder stream is buf[*end_out : cap].
-template <int W, int S, int P>
-__global__ void __launch_bounds__(kThreads, 1)
-    tchain_decode_kernel(typename StateOf<S>::type* __restrict__ heads,
-                         const uint32_t* __restrict__ q,
-                         const uint32_t* __restrict__ cdf_g, int K,
-                         int32_t* __restrict__ syms, uint32_t* __restrict__ buf,
-                         int64_t cap, int64_t* __restrict__ end_out, int L,
-                         int T, int cdf_in_smem) {
-  using Head = typename StateOf<S>::type;
-  extern __shared__ uint32_t smem[];
-  const int G = L / 32;
-  const Smem s{smem, G};
-  const uint32_t* cdf = stage_cdf(s.cdf(), cdf_g, K, cdf_in_smem);
-  __syncthreads();
-
-  constexpr Head kFlush = Head(1) << (S - P);
-  constexpr Head kMask = (Head(1) << W) - 1u;
-  const int tid = threadIdx.x, lane = tid & 31;
-  const uint32_t lt_mask = (1u << lane) - 1u;
-  const int rows = (L + kThreads - 1) / kThreads;
-  int64_t e = cap;  // words of the finished steps occupy buf[e : cap]
-
-  // Iteration t writes the words step t - 1 flushed (a head still at or
-  // above 2^(S-P) carries its pending word in its low W bits), then decodes
-  // step t.
-  for (int t = 0; t <= T; ++t) {
-    const int cur = t & 1, prev = cur ^ 1;
-    for (int r = 0; r < rows; ++r) {
-      if (r * kThreads + (tid & ~31) >= L) break;  // warp-uniform
-      const int l = r * kThreads + tid;
-      const int g = l >> 5;
-      Head h = heads[l];
-      if (t > 0 && h >= kFlush) {
-        const int64_t idx = e + s.prefix(prev)[g] +
-                            __popc(s.ballots(prev)[g] & lt_mask);
-        buf[idx] = static_cast<uint32_t>(h & kMask);
-        h >>= W;
-      }
-      if (t < T) {
-        const uint32_t qv = load_quantile<S>(q, t, l, L);
-        const int sym = find_symbol(cdf, K, qv);
-        const uint32_t cum = cdf[sym];
-        const uint32_t prob = cdf[sym + 1] - cum;
-        h = h * prob + (qv - cum);
-        syms[static_cast<int64_t>(t) * L + l] = sym;
-        const unsigned bal = __ballot_sync(kFull, h >= kFlush);
-        if (lane == 0) s.ballots(cur)[g] = bal;
-      }
-      heads[l] = h;
-    }
-    if (t == T) break;
-    __syncthreads();
-    const uint32_t total = scan_groups(s.ballots(cur), s.prefix(cur),
-                                       s.warp_sums(), G);
-    __syncthreads();
-    e -= total;
-  }
-  if (tid == 0) *end_out = e;
-}
-
 // L a positive multiple of `lane_multiple` (256 planar at S=32, 128 at
 // S=64), at least one symbol, T steps whose symbol indices fit int64.
 template <int S>
@@ -180,52 +94,38 @@ bool valid_cat(int L, int K, long long T) {
          T <= (1 << 30);
 }
 
-template <int W, int S, int P>
-int launch_cat_decode(void* heads, const void* q, const void* cdf, int K,
-                      void* syms, void* buf, long long cap, void* end_out,
-                      int L, int T, void* cuda_stream, int device) {
-  if (!valid_cat<S>(L, K, T)) return static_cast<int>(cudaErrorInvalidValue);
-  int cdf_in_smem = 0;
-  const size_t bytes = smem_bytes(L, K, &cdf_in_smem);
-  auto kernel = tchain_decode_kernel<W, S, P>;
-  const cudaError_t err = prepare(kernel, device, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (T == 0) return static_cast<int>(cudaGetLastError());
-  kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<typename StateOf<S>::type*>(heads),
-      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(cdf), K,
-      static_cast<int32_t*>(syms), static_cast<uint32_t*>(buf), cap,
-      static_cast<int64_t*>(end_out), L, T, cdf_in_smem);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The grid decodes' head pass (kernels 21 and 23).  A lane's head update h
-// = h * prob + (q - cum) reads its own head only, and finding a quantile's
-// symbol reads no head at all; the lanes meet only where their flushed
-// words land.  So these decodes run over the whole grid: a head pass of one
-// thread per lane, lane l = blockIdx.x * kHeadThreads + threadIdx.x, through
-// steps 0 .. T-1, then ilans2_wide.cuh's row-major compaction
-// (launch_compact).  heads[L]: the seeds 2^(S-W-P) in, the final heads
-// out.  A head at or above 2^(S-P) after a step flushes its low W bits into
-// a dense scratch words[row * L + l] and shifts right by W, and
+// The grid decodes' head pass (kernels 19, 21 and 23).  A lane's head
+// update h = h * prob + (q - cum) reads its own head only, and finding a
+// quantile's symbol reads no head at all; the lanes meet only where their
+// flushed words land.  So these decodes run over the whole grid: a head
+// pass of one thread per lane, lane l = blockIdx.x * kHeadThreads +
+// threadIdx.x, through steps 0 .. T-1, then ilans2_wide.cuh's row-major
+// compaction (launch_compact).  heads[L]: the seeds 2^(S-W-P) in, the
+// final heads out.  A head at or above 2^(S-P) after a step flushes its low
+// W bits into a dense scratch words[row * L + l] and shifts right by W, and
 // flags[row * G + g] is the ballot of group g's flushing lanes, row = T -
 // 1 - t, so that the compaction puts the step chunks right to left, lanes
 // ascending in a step (other words are left as they are).  A step source
-// gives each step's (prob, q - cum), kHeadAhead steps ahead:
+// fetches lane l's token of step t and gives each step's (prob, q - cum),
+// kHeadAhead steps ahead:
 //   RecordSteps, kernel 21: the records (q - cum) | prob << 16 that its
 //       inversion pass wrote, one thread per symbol (a bisection over
 //       left() per quantile, the operation-bound work, which fills the
 //       card on its own);
-//   QuantileSteps, kernel 23: the quantiles themselves, each lane's next
-//       kHeadAhead searched at once in the block's staged bucket table and
-//       CDF (BucketCdfModel) and their symbols written.  A search pass of
-//       its own (a persistent grid writing u64 records (q - cum) | prob <<
-//       32) took 0.31 ms with the head pass and the compaction against
-//       0.24 ms for this form at 2^24 quantiles on an H100 (PERF.md §6):
-//       the search overlaps the head chain, and 128 MiB of records never
-//       go through device memory.
-// The u64 heads of kernel 23 stay below 2^40 between steps and prob <=
-// 2^24, so h * prob + (q - cum) < 2^64.
+//   QuantileSteps<S>, kernels 19 (S=32: the lane's planar u16 half) and
+//       23 (S=64: one quantile a word): the quantiles themselves, each
+//       lane's next kHeadAhead searched at once in the block's staged
+//       bucket table and CDF (BucketCdfModel; the CDF stays in device
+//       memory when it does not fit beside the table) and their symbols
+//       written.  For kernel 23 a search pass of its own (a persistent grid
+//       writing u64 records (q - cum) | prob << 32) took 0.31 ms with the
+//       head pass and the compaction against 0.24 ms for this form at 2^24
+//       quantiles on an H100 (PERF.md §6): the search overlaps the head
+//       chain, and the records never go through device memory.
+// Kernel 19's u32 heads stay below 2^16 between steps and prob <= 2^16 (a
+// one-symbol model has prob = 2^16 and flushes every lane at every step),
+// so h * prob + (q - cum) < 2^32; kernel 23's u64 heads stay below 2^40
+// and prob <= 2^24, so h * prob + (q - cum) < 2^64.
 constexpr int kHeadThreads = 128;
 constexpr int kHeadAhead = 8;  // steps a lane has in flight
 
@@ -237,7 +137,9 @@ struct RecordSteps {
   const Rec* recs;
 
   __device__ void stage(uint32_t*) {}
-  __device__ Token fetch(int64_t i) const { return recs[i]; }
+  __device__ Token fetch(int t, int l, int L) const {
+    return recs[static_cast<int64_t>(t) * L + l];
+  }
   template <int N>
   __device__ void resolve(const Token (&tok)[N], int, int, int, int,
                           uint32_t (&prob)[N], uint32_t (&rem)[N]) const {
@@ -249,6 +151,7 @@ struct RecordSteps {
   }
 };
 
+template <int S>
 struct QuantileSteps {
   static constexpr bool kStaged = true;
   using Token = uint32_t;
@@ -257,7 +160,9 @@ struct QuantileSteps {
   int32_t* syms;
 
   __device__ void stage(uint32_t* smem) { model.stage(smem); }
-  __device__ Token fetch(int64_t i) const { return q[i]; }
+  __device__ Token fetch(int t, int l, int L) const {
+    return load_quantile<S>(q, t, l, L);
+  }
   // steps t0 .. t0 + N - 1 of lane l (those below T hold a symbol)
   template <int N>
   __device__ void resolve(const Token (&tok)[N], int t0, int l, int L, int T,
@@ -294,13 +199,13 @@ __global__ void __launch_bounds__(kHeadThreads)
   Token cur[kHeadAhead], nxt[kHeadAhead];
 #pragma unroll
   for (int j = 0; j < kHeadAhead; ++j) {
-    cur[j] = j < T ? src.fetch(static_cast<int64_t>(j) * L + l) : Token(0);
+    cur[j] = j < T ? src.fetch(j, l, L) : Token(0);
   }
   for (int t0 = 0; t0 < T; t0 += kHeadAhead) {
 #pragma unroll
     for (int j = 0; j < kHeadAhead; ++j) {
       const int t = t0 + kHeadAhead + j;
-      nxt[j] = t < T ? src.fetch(static_cast<int64_t>(t) * L + l) : Token(0);
+      nxt[j] = t < T ? src.fetch(t, l, L) : Token(0);
     }
     uint32_t prob[kHeadAhead], rem[kHeadAhead];
     src.resolve(cur, t0, l, L, T, prob, rem);
@@ -345,59 +250,81 @@ int launch_heads(void* heads, Source src, size_t smem, void* words,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernel 23's head pass alone: syms[T * L], words[T * L], flags[T * L /
-// 32] and the heads from q[T * L].
-int launch_heads24(void* heads, const void* q, const void* cdf, int K,
-                   void* syms, void* words, void* flags, int L, int T,
-                   void* cuda_stream, int device) {
-  if (!valid_cat<64>(L, K, T)) return static_cast<int>(cudaErrorInvalidValue);
-  QuantileSteps src{static_cast<const uint32_t*>(q),
-                    {static_cast<const uint32_t*>(cdf), K, 0, 24, 0, nullptr},
-                    static_cast<int32_t*>(syms)};
+// A categorical decode's head pass alone (kernel 19: TChain-16, q the
+// T * L/2 planar words; kernel 23: TChain-24, q[T * L]): syms[T * L],
+// words[T * L], flags[T * L / 32] and the heads.
+template <int W, int S, int P>
+int launch_cat_heads(void* heads, const void* q, const void* cdf, int K,
+                     void* syms, void* words, void* flags, int L, int T,
+                     void* cuda_stream, int device) {
+  if (!valid_cat<S>(L, K, T)) return static_cast<int>(cudaErrorInvalidValue);
+  QuantileSteps<S> src{
+      static_cast<const uint32_t*>(q),
+      {static_cast<const uint32_t*>(cdf), K, 0, P, 0, nullptr},
+      static_cast<int32_t*>(syms)};
   const size_t smem = bucket_smem_bytes(&src.model);
-  return launch_heads<32, 64, 24>(heads, src, smem, words, flags, L, T, 128,
-                                  cuda_stream, device);
+  return launch_heads<W, S, P>(heads, src, smem, words, flags, L, T,
+                               kHeadThreads, cuda_stream, device);
 }
 
-// The whole TChain-24 decode: the head pass and the three compaction
+// A whole categorical decode: the head pass and the three compaction
 // launches.  Scratch the caller allocates: words[T * L], flags[T * L / 32],
 // offsets[kScanBlocks] (u64).  On return the stream is buf[*end_out :
 // cap].
-int launch_tchain24_decode(void* heads, const void* q, const void* cdf, int K,
-                           void* syms, void* buf, long long cap,
-                           void* end_out, void* words, void* flags,
-                           void* offsets, int L, int T, void* cuda_stream,
-                           int device) {
-  const int err = launch_heads24(heads, q, cdf, K, syms, words, flags, L, T,
-                                 cuda_stream, device);
+template <int W, int S, int P>
+int launch_cat_decode(void* heads, const void* q, const void* cdf, int K,
+                      void* syms, void* buf, long long cap, void* end_out,
+                      void* words, void* flags, void* offsets, int L, int T,
+                      void* cuda_stream, int device) {
+  const int err = launch_cat_heads<W, S, P>(heads, q, cdf, K, syms, words,
+                                            flags, L, T, cuda_stream, device);
   if (err != 0 || T == 0) return err;
   return launch_compact(flags, words, static_cast<long long>(T) * (L / 32),
                         buf, cap, end_out, offsets, cuda_stream, device);
 }
 
-// The categorical encodes (kernel 20, TChain-16; kernel 24, TChain-24) on
-// a cluster of CTAs, the lanes split as in ilans2_wide.cuh's
+// The quantile store of the categorical encodes: a planar u16 half at
+// S=32 (load_quantile's), a word at S=64.  Kernel 22's is HalfStore,
+// below.
+template <int S>
+struct PlanarStore {
+  __device__ static void store(uint32_t* __restrict__ q, int t, int l, int L,
+                               uint32_t v) {
+    if constexpr (S == 32) {
+      reinterpret_cast<uint16_t*>(q)[static_cast<int64_t>(t) * L +
+                                     planar_half(l, L)] =
+          static_cast<uint16_t>(v);
+    } else {
+      q[static_cast<int64_t>(t) * L + l] = v;
+    }
+  }
+};
+
+// The encodes (kernel 20, TChain-16; kernel 24, TChain-24; kernel 22,
+// TChain-12) on a cluster of CTAs, the lanes split as in ilans2_wide.cuh's
 // cluster_decode_kernel (R lanes a thread, their heads in registers for
 // the whole message: u32 at S=32, u64 at S=64).  A lane's refill decision
 // h < prob << (S-W-P) at step t reads the head that step t + 1's refill
 // made, and that refill's word index depends on every lane's decision
 // there: the lanes are coupled as an rANS decode's are, and the steps stay
-// serial.  One step, T-1 .. 0: each lane's division record (RecordCdfModel
-// over the preset's record, RecordOf<S>: DivisionRecord at S=64,
-// DivisionRecord32 at S=32; staged in shared memory when the K records
-// fit; the symbols read a step ahead), the refill ballot, the cluster's
-// exchange (exchange_step), the R word loads (all issued before any is
-// used; the remainder stream read forward from word 0, in the order the
-// decoder wrote it), h = h << W | word (a TChain-16 word keeps its low 16
+// serial.  One step, T-1 .. 0: each lane's division record (the model's
+// token read a step ahead, its interval: RecordCdfModel over the preset's
+// record, RecordOf<S>, for kernels 20 and 24, the symbol the token and the
+// K records staged in shared memory when they fit; RecordLanesModel for
+// kernel 22, the record itself the token), the refill ballot, the
+// cluster's exchange (exchange_step), the R word loads (all issued before
+// any is used; the remainder stream read forward from word 0, in the order
+// the decoder wrote it), h = h << W | word (a 16-bit word keeps its low 16
 // bits), the division by prob as a multiply-high, and the quantile cum + h
-// mod prob, stored by store_quantile (a planar u16 half at S=32).  The
-// division is exact for every S-bit h, and a refilled head fits: h < prob
-// << (S-W-P) before the shift, so h < prob << (S-P) <= 2^S after it.  The
-// L2 prefetch of the next two steps' words is the decode's.  heads[L]: the
-// decoder's final heads in, the heads before step 0 out.  words[wlen]: the
-// remainder stream; reads past its end yield 0.  q: the quantiles out
-// (TChain-16: T * L/2 planar words; TChain-24: T * L), every one written.
-template <int W, int S, int P, int R, class Model>
+// mod prob, stored by the Store policy.  The division is exact for every
+// S-bit h, and a refilled head fits: h < prob << (S-W-P) before the shift,
+// so h < prob << (S-P) <= 2^S after it.  The L2 prefetch of the next two
+// steps' words is the decode's.  heads[L]: the decoder's final heads in,
+// the heads before step 0 out.  words[wlen]: the remainder stream; reads
+// past its end yield 0.  q: the quantiles out (TChain-16: T * L/2 planar
+// words; TChain-24: T * L; TChain-12: T * L u16 halves), every one
+// written.
+template <int W, int S, int P, int R, class Model, class Store>
 __global__ void __launch_bounds__(kClusterWarps * 32, 1)
     cluster_tchain_encode_kernel(typename StateOf<S>::type* __restrict__ heads,
                                  Model model,
@@ -424,7 +351,7 @@ __global__ void __launch_bounds__(kClusterWarps * 32, 1)
 
   model.stage(smem_model);
   Head h[R];
-  Token tok[R];  // the symbols of the step being coded
+  Token tok[R];  // the tokens of the step being coded
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int l = (g0 + r) * 32 + lane;
@@ -447,8 +374,8 @@ __global__ void __launch_bounds__(kClusterWarps * 32, 1)
 
   for (int t = T - 1; t >= 0; --t) {
     const int par = t & 1;
-    // the next step's symbols, a step ahead; this step's records and
-    // refill decisions
+    // the next step's tokens, a step ahead; this step's records and refill
+    // decisions
     Token nxt[R];
     Interval rec[R];
     bool refill[R];
@@ -493,7 +420,7 @@ __global__ void __launch_bounds__(kClusterWarps * 32, 1)
         const Head quot = rec[r].divide(h[r]);
         const uint32_t rem = static_cast<uint32_t>(
             h[r] - quot * static_cast<Head>(rec[r].prob()));
-        store_quantile<S>(q, t, (g0 + r) * 32 + lane, L, rec[r].cum() + rem);
+        Store::store(q, t, (g0 + r) * 32 + lane, L, rec[r].cum() + rem);
         h[r] = quot;
       }
       tok[r] = nxt[r];
@@ -508,28 +435,60 @@ __global__ void __launch_bounds__(kClusterWarps * 32, 1)
   }
 }
 
-template <int S>
-using TChainModel = RecordCdfModel<typename RecordOf<S>::type>;
-template <int S>
-using TChainEncodeFn = void (*)(typename StateOf<S>::type*, TChainModel<S>,
-                                const uint32_t*, int64_t, uint32_t*, int, int,
-                                int);
+template <int S, class Model>
+using ClusterEncodeFn = void (*)(typename StateOf<S>::type*, Model,
+                                 const uint32_t*, int64_t, uint32_t*, int,
+                                 int, int);
 
-template <int W, int S, int P>
-TChainEncodeFn<S> tchain_encode_for(int rows) {
-  using Model = TChainModel<S>;
+template <int W, int S, int P, class Model, class Store>
+ClusterEncodeFn<S, Model> cluster_encode_for(int rows) {
   switch (rows) {
-    case 1: return cluster_tchain_encode_kernel<W, S, P, 1, Model>;
-    case 2: return cluster_tchain_encode_kernel<W, S, P, 2, Model>;
-    case 4: return cluster_tchain_encode_kernel<W, S, P, 4, Model>;
-    case 8: return cluster_tchain_encode_kernel<W, S, P, 8, Model>;
-    case 16: return cluster_tchain_encode_kernel<W, S, P, 16, Model>;
-    case 32: return cluster_tchain_encode_kernel<W, S, P, 32, Model>;
+    case 1: return cluster_tchain_encode_kernel<W, S, P, 1, Model, Store>;
+    case 2: return cluster_tchain_encode_kernel<W, S, P, 2, Model, Store>;
+    case 4: return cluster_tchain_encode_kernel<W, S, P, 4, Model, Store>;
+    case 8: return cluster_tchain_encode_kernel<W, S, P, 8, Model, Store>;
+    case 16: return cluster_tchain_encode_kernel<W, S, P, 16, Model, Store>;
+    case 32: return cluster_tchain_encode_kernel<W, S, P, 32, Model, Store>;
     default: return nullptr;
   }
 }
 
-// The cluster encode's model, shared memory and plan for L lanes and K
+// One launch of a planned cluster encode on `cuda_stream`.
+template <int S, class Model>
+int launch_cluster_encode(ClusterEncodeFn<S, Model> kernel,
+                          const ClusterGeometry& geo, size_t bytes,
+                          void* heads, Model model, const void* words,
+                          long long wlen, void* q, int L, int T,
+                          void* cuda_stream) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      geo, bytes, static_cast<cudaStream_t>(cuda_stream), &attr);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<typename StateOf<S>::type*>(heads), model,
+      static_cast<const uint32_t*>(words), static_cast<int64_t>(wlen),
+      static_cast<uint32_t*>(q), L, T, geo.groups_per_cta);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The cluster geometry into out[7]: cluster size, groups per CTA, lanes
+// per thread, threads per CTA, the card's maximum of active clusters of
+// that shape, the dynamic shared memory bytes, whether the records are in
+// shared memory.
+inline void geometry_out(const ClusterGeometry& geo, size_t bytes,
+                         int in_smem, long long* out) {
+  const long long vals[7] = {geo.cluster, geo.groups_per_cta, geo.rows,
+                             geo.threads, geo.max_active_clusters,
+                             static_cast<long long>(bytes), in_smem};
+  for (int k = 0; k < 7; ++k) out[k] = vals[k];
+}
+
+template <int S>
+using TChainModel = RecordCdfModel<typename RecordOf<S>::type>;
+template <int S>
+using TChainEncodeFn = ClusterEncodeFn<S, TChainModel<S>>;
+
+// The categorical encode's model, shared memory and plan for L lanes and K
 // symbols (`cluster` 0: the size picked from L).
 template <int W, int S, int P>
 cudaError_t plan_tchain_encode(int L, int K, int cluster, int device,
@@ -537,8 +496,9 @@ cudaError_t plan_tchain_encode(int L, int K, int cluster, int device,
                                ClusterGeometry* geo,
                                TChainEncodeFn<S>* kernel) {
   *bytes = record_smem_bytes(model);
-  return plan_cluster(L, cluster, *bytes, device, geo, kernel,
-                      tchain_encode_for<W, S, P>);
+  return plan_cluster(
+      L, cluster, *bytes, device, geo, kernel,
+      cluster_encode_for<W, S, P, TChainModel<S>, PlanarStore<S>>);
 }
 
 // A categorical encode: the division records of the CDF's symbols into
@@ -561,26 +521,18 @@ int launch_tchain_encode(void* heads, const void* syms, const void* cdf,
                                                 &bytes, &geo, &kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (T == 0) return static_cast<int>(cudaGetLastError());
-  const auto stream = static_cast<cudaStream_t>(cuda_stream);
-  division_records_kernel<Record><<<ceil_div(K, 128), 128, 0, stream>>>(
-      static_cast<const uint32_t*>(cdf), K, static_cast<Record*>(records));
+  division_records_kernel<Record>
+      <<<ceil_div(K, 128), 128, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
+          static_cast<const uint32_t*>(cdf), K,
+          static_cast<Record*>(records));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(geo, bytes, stream, &attr);
-  err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<typename StateOf<S>::type*>(heads), model,
-      static_cast<const uint32_t*>(words), static_cast<int64_t>(wlen),
-      static_cast<uint32_t*>(q), L, T, geo.groups_per_cta);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch_cluster_encode<S>(kernel, geo, bytes, heads, model, words,
+                                  wlen, q, L, T, cuda_stream);
 }
 
-// The cluster encode's geometry for L lanes and K symbols (`cluster` 0:
-// the size the encode picks), into out[7]: cluster size, groups per CTA,
-// lanes per thread, threads per CTA, the card's maximum of active clusters
-// of that shape, the dynamic shared memory bytes, whether the records are
-// in shared memory.
+// The categorical encode's geometry for L lanes and K symbols (`cluster`
+// 0: the size the encode picks), into out[7] (geometry_out).
 template <int W, int S, int P>
 int tchain_geometry(int L, int K, int cluster, long long* out, int device) {
   if (!valid_cat<S>(L, K, 0)) return static_cast<int>(cudaErrorInvalidValue);
@@ -591,10 +543,7 @@ int tchain_geometry(int L, int K, int cluster, long long* out, int device) {
   const cudaError_t err = plan_tchain_encode<W, S, P>(
       L, K, cluster, device, &model, &bytes, &geo, &kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long vals[7] = {geo.cluster, geo.groups_per_cta, geo.rows,
-                             geo.threads, geo.max_active_clusters,
-                             static_cast<long long>(bytes), model.in_smem};
-  for (int k = 0; k < 7; ++k) out[k] = vals[k];
+  geometry_out(geo, bytes, model.in_smem, out);
   return 0;
 }
 
@@ -603,8 +552,6 @@ int tchain_geometry(int L, int K, int cluster, long long* out, int device) {
 // ---------------------------------------------------------------------------
 
 constexpr int kW = 16, kP = family::kFx;
-constexpr uint32_t kWordMask = 0xffffu;
-constexpr int kRefillShift = 32 - kW - kP;      // refill: head < prob << 4
 
 // Where lane l's 12-bit quantile lives within a step's 3L/8 words.
 struct QSlot {
@@ -624,13 +571,6 @@ __device__ __forceinline__ uint32_t load_q(const uint32_t* __restrict__ qw,
   uint32_t v = qw[s.word] >> s.shift;
   if (s.shift > 20) v |= qw[s.word + 128] << (32 - s.shift);
   return v & 0xfffu;
-}
-
-__device__ __forceinline__ void store_q(uint32_t* __restrict__ qw, int l,
-                                        uint32_t q) {
-  const QSlot s = q_slot(l);
-  atomicOr(&qw[s.word], q << s.shift);
-  if (s.shift > 20) atomicOr(&qw[s.word + 128], q >> (32 - s.shift));
 }
 
 // The TChain-12 decode in three steps over the whole grid.  A lane's head
@@ -674,74 +614,99 @@ __global__ void __launch_bounds__(kInvertThreads)
   recs[i] = (q - cum) | (prob << 16);
 }
 
-// The reverse pass over T * L symbols, steps T-1 .. 0.  heads[L]: the
-// decoder's final heads in, the heads before step 0 out (16 each after a
-// full reverse).  words[wlen]: the remainder stream; reads past its end
-// yield 0.  qw: T * 3L/8 words, zeroed by the caller.  tab[L]: scratch,
-// cum | prob << 16 of each lane's pending step.  Symbols are clamped into
-// the support; callers validate them.
+// The TChain-12 encode (kernel 22) in three steps.  Its refills couple the
+// lanes at every step, as the categorical encodes' do, but a symbol's
+// interval (two evaluations of left(), the operation-bound work) reads no
+// head.  So:
+//   (a) tchain12_tables_kernel, one thread per symbol over the whole grid:
+//       the model, the symbol clamped into the support (callers validate
+//       symbols), family::tables (the pinned ends: cum 0 at min_sym, right
+//       2^12 at max_sym) and the symbol's DivisionRecord32 (cum < 2^12,
+//       prob <= 2^12) into recs[T * L];
+//   (b) cluster_tchain_encode_kernel<16, 32, 12, R, RecordLanesModel,
+//       HalfStore> (above): kernel 20's cluster step, each lane's record
+//       read a step ahead as its token, the refill test h < prob << 4, the
+//       quantile a u16 into q16[T * L];
+//   (c) tchain12_pack_kernel, one thread per packed word over the whole
+//       grid (pack_q12).
+// (a) fills the card; (b) is the serial step on up to 16 SMs.  ORing each
+// quantile into its 12-bit slot of zeroed words from (b) with atomicOr, in
+// place of (c), took 0.85-0.88 ms for (b) against 0.81-0.83 for (b) and
+// (c) at 2^23 symbols on an H100 (PERF.md §6).
 template <int F>
-__global__ void __launch_bounds__(kThreads, 1)
-    tchain12_family_encode_kernel(uint32_t* __restrict__ heads,
-                                  const int32_t* __restrict__ syms,
-                                  const float* __restrict__ means,
-                                  const float* __restrict__ scales,
-                                  const uint32_t* __restrict__ words,
-                                  int64_t wlen, uint32_t* __restrict__ tab,
-                                  uint32_t* __restrict__ qw, int L, int T,
-                                  family::Support sup) {
-  extern __shared__ uint32_t smem[];
-  const int G = L / 32;
-  const Smem s{smem, G};
-  const int tid = threadIdx.x, lane = tid & 31;
-  const uint32_t lt_mask = (1u << lane) - 1u;
-  const int rows = L / kThreads;
-  const int64_t step_words = 3 * static_cast<int64_t>(L) / 8;
-  int64_t base = 0;         // first word of the pending step's refills
-  uint32_t last_total = 0;  // words the pending step consumed
+__global__ void __launch_bounds__(kInvertThreads)
+    tchain12_tables_kernel(const int32_t* __restrict__ syms,
+                           const float* __restrict__ means,
+                           const float* __restrict__ scales,
+                           DivisionRecord32* __restrict__ recs,
+                           family::Support sup) {
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * kInvertThreads + threadIdx.x;
+  const family::Model m = family::load_model(means, scales, i);
+  const int sym = min(max(syms[i], sup.min_sym), sup.max_sym);
+  uint32_t cum, prob;
+  family::tables<F>(sym, m, sup, &cum, &prob);
+  recs[i] = DivisionRecord32::build(cum, prob);
+}
 
-  // Iteration j refills and un-codes step T - j (flagged in iteration
-  // j - 1), then evaluates and flags step T - 1 - j.
-  for (int j = 0; j <= T; ++j) {
-    const int cur = j & 1, prev = cur ^ 1;
-    const int t = T - 1 - j;
-    for (int r = 0; r < rows; ++r) {
-      const int l = r * kThreads + tid;
-      const int g = l >> 5;
-      uint32_t h = heads[l];
-      if (j > 0) {
-        const uint32_t packed = tab[l];
-        const uint32_t cum = packed & 0xffffu, prob = packed >> 16;
-        if (h < (prob << kRefillShift)) {  // the decision flagged last time
-          const int64_t idx = base + s.prefix(prev)[g] +
-                              __popc(s.ballots(prev)[g] & lt_mask);
-          const uint32_t word = idx < wlen ? words[idx] : 0u;
-          h = (h << kW) | (word & kWordMask);
-        }
-        store_q(qw + (t + 1) * step_words, l, cum + h % prob);
-        h /= prob;
-      }
-      if (j < T) {
-        const int64_t i = static_cast<int64_t>(t) * L + l;
-        const family::Model m = family::load_model(means, scales, i);
-        const int sym = min(max(syms[i], sup.min_sym), sup.max_sym);
-        uint32_t cum, prob;
-        family::tables<F>(sym, m, sup, &cum, &prob);
-        tab[l] = cum | (prob << 16);
-        const unsigned bal =
-            __ballot_sync(kFull, h < (prob << kRefillShift));
-        if (lane == 0) s.ballots(cur)[g] = bal;
-      }
-      heads[l] = h;
-    }
-    if (j == T) break;
-    __syncthreads();
-    const uint32_t total = scan_groups(s.ballots(cur), s.prefix(cur),
-                                       s.warp_sums(), G);
-    __syncthreads();
-    base += last_total;
-    last_total = total;
+// Kernel 22's encode model: the token is the symbol's record itself, read
+// a step before it is coded, so interval() reads no memory and nothing is
+// staged (the shape of exact_family.cu's PlaneLanesModel).
+struct RecordLanesModel {
+  using Token = DivisionRecord32;
+  using Interval = DivisionRecord32;
+  const DivisionRecord32* recs;
+
+  __device__ void stage(uint32_t*) {}
+  __device__ Token fetch(int64_t i) const { return recs[i]; }
+  __device__ Interval interval(Token rec) const { return rec; }
+};
+
+// Kernel 22's quantile store: a u16 a symbol into q16[T * L].
+struct HalfStore {
+  __device__ static void store(uint32_t* __restrict__ q, int t, int l, int L,
+                               uint32_t v) {
+    reinterpret_cast<uint16_t*>(q)[static_cast<int64_t>(t) * L + l] =
+        static_cast<uint16_t>(v);
   }
+};
+
+// Step (c): word i of the T * 3L/8 packed words from the u16 quantiles
+// q16[T * L] (pack_q12: word row 3k + j of a step holds rows 8k .. 8k+7's
+// quantiles of its column, 12 bits each, low bits first).
+__global__ void __launch_bounds__(kInvertThreads)
+    tchain12_pack_kernel(const uint16_t* __restrict__ q16,
+                         uint32_t* __restrict__ qw, int L, int64_t n_words) {
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * kInvertThreads + threadIdx.x;
+  if (i >= n_words) return;
+  const int64_t step_words = 3 * static_cast<int64_t>(L) / 8;
+  const int64_t t = i / step_words;
+  const int w = static_cast<int>(i - t * step_words);
+  const int row = w >> 7, k = row / 3, j = row - 3 * k;
+  const uint16_t* g = q16 + t * L + 8 * k * 128 + (w & 127);
+  uint32_t v;
+  if (j == 0) {
+    v = g[0] | (uint32_t(g[128]) << 12) | (uint32_t(g[256]) << 24);
+  } else if (j == 1) {
+    v = (uint32_t(g[256]) >> 8) | (uint32_t(g[384]) << 4) |
+        (uint32_t(g[512]) << 16) | (uint32_t(g[640]) << 28);
+  } else {
+    v = (uint32_t(g[640]) >> 4) | (uint32_t(g[768]) << 8) |
+        (uint32_t(g[896]) << 20);
+  }
+  qw[i] = v;
+}
+
+using Encode12Fn = ClusterEncodeFn<32, RecordLanesModel>;
+
+// Kernel 22's cluster step for L lanes (`cluster` 0: the size picked from
+// L); nothing is staged.
+cudaError_t plan_encode12(int L, int cluster, int device,
+                          ClusterGeometry* geo, Encode12Fn* kernel) {
+  return plan_cluster(
+      L, cluster, 0, device, geo, kernel,
+      cluster_encode_for<kW, 32, kP, RecordLanesModel, HalfStore>);
 }
 
 bool valid_chain(int L, long long T, int min_sym, int max_sym) {
@@ -749,21 +714,32 @@ bool valid_chain(int L, long long T, int min_sym, int max_sym) {
          family::valid_support(min_sym, max_sym);
 }
 
-template <int F>
-int launch_invert(const void* qw, const void* means, const void* scales,
-                  void* syms, void* recs, int L, int T, int min_sym,
-                  int max_sym, void* cuda_stream, int device) {
+// The grid of a pass of one thread per symbol over T steps of L lanes
+// (kernel 21's inversion, kernel 22's tables pass): after the checks and
+// the device, T * L / kInvertThreads blocks into *blocks (0 when T is 0).
+int symbol_grid(int L, int T, int min_sym, int max_sym, int device,
+                unsigned* blocks) {
+  *blocks = 0;
   if (!valid_chain(L, T, min_sym, max_sym)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (T == 0) return static_cast<int>(cudaGetLastError());
-  const long long blocks =
-      static_cast<long long>(T) * (L / kInvertThreads);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  tchain12_invert_kernel<F><<<static_cast<unsigned>(blocks), kInvertThreads,
-                              0, static_cast<cudaStream_t>(cuda_stream)>>>(
+  const long long n = static_cast<long long>(T) * (L / kInvertThreads);
+  if (n > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  *blocks = static_cast<unsigned>(n);
+  return 0;
+}
+
+template <int F>
+int launch_invert(const void* qw, const void* means, const void* scales,
+                  void* syms, void* recs, int L, int T, int min_sym,
+                  int max_sym, void* cuda_stream, int device) {
+  unsigned blocks;
+  const int err = symbol_grid(L, T, min_sym, max_sym, device, &blocks);
+  if (err != 0 || blocks == 0) return err;
+  tchain12_invert_kernel<F><<<blocks, kInvertThreads, 0,
+                              static_cast<cudaStream_t>(cuda_stream)>>>(
       static_cast<const uint32_t*>(qw), static_cast<const float*>(means),
       static_cast<const float*>(scales), static_cast<int32_t*>(syms),
       static_cast<uint32_t*>(recs), L,
@@ -796,26 +772,83 @@ int launch_decode(void* heads, const void* qw, const void* means,
                         buf, cap, end_out, offsets, cuda_stream, device);
 }
 
+// Step (a) of the encode alone: recs[T * L] (8 bytes each) from the
+// symbols and their models.
+template <int F>
+int launch_tables(const void* syms, const void* means, const void* scales,
+                  void* recs, int L, int T, int min_sym, int max_sym,
+                  void* cuda_stream, int device) {
+  unsigned blocks;
+  const int err = symbol_grid(L, T, min_sym, max_sym, device, &blocks);
+  if (err != 0 || blocks == 0) return err;
+  tchain12_tables_kernel<F><<<blocks, kInvertThreads, 0,
+                              static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<const int32_t*>(syms), static_cast<const float*>(means),
+      static_cast<const float*>(scales),
+      static_cast<DivisionRecord32*>(recs),
+      family::make_support(min_sym, max_sym));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Steps (b) and (c) on the records of step (a), (b) on a cluster of
+// `cluster` CTAs (0: the size picked from L).  heads[L]: the decoder's
+// final heads in, the heads before step 0 out.  words[wlen]: the remainder
+// stream.  q16[T * L] (u16): scratch.  qw: the T * 3L/8 packed words, every
+// one written.
+int launch_encode_step(void* heads, const void* recs, const void* words,
+                       long long wlen, void* q16, void* qw, int L, int T,
+                       int cluster, void* cuda_stream, int device) {
+  if (L <= 0 || L % kThreads != 0 || T < 0 || T > (1 << 30)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  ClusterGeometry geo;
+  Encode12Fn kernel;
+  const cudaError_t err = plan_encode12(L, cluster, device, &geo, &kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (T == 0) return static_cast<int>(cudaGetLastError());
+  const int e = launch_cluster_encode<32>(
+      kernel, geo, 0, heads,
+      RecordLanesModel{static_cast<const DivisionRecord32*>(recs)}, words,
+      wlen, q16, L, T, cuda_stream);
+  if (e != 0) return e;
+  const int64_t n_words = static_cast<int64_t>(T) * (3 * (L / 8));
+  tchain12_pack_kernel<<<static_cast<unsigned>(
+                             (n_words + kInvertThreads - 1) / kInvertThreads),
+                         kInvertThreads, 0,
+                         static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<const uint16_t*>(q16), static_cast<uint32_t*>(qw), L,
+      n_words);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The whole encode: (a), (b) on a cluster of `cluster` CTAs (0: the size
+// picked from L) and (c).  recs[T * L] (8 bytes each) and q16[T * L] (u16):
+// scratch the caller allocates.  Symbols are clamped into the support;
+// callers validate them.
 template <int F>
 int launch_encode(void* heads, const void* syms, const void* means,
                   const void* scales, const void* words, long long wlen,
-                  void* tab, void* qw, int L, int T, int min_sym, int max_sym,
-                  void* cuda_stream, int device) {
-  if (!valid_chain(L, T, min_sym, max_sym)) {
+                  void* recs, void* q16, void* qw, int L, int T, int min_sym,
+                  int max_sym, int cluster, void* cuda_stream, int device) {
+  const int err = launch_tables<F>(syms, means, scales, recs, L, T, min_sym,
+                                   max_sym, cuda_stream, device);
+  if (err != 0) return err;
+  return launch_encode_step(heads, recs, words, wlen, q16, qw, L, T, cluster,
+                            cuda_stream, device);
+}
+
+// Kernel 22's cluster geometry for L lanes (`cluster` 0: the size the
+// encode picks), into out[7] (geometry_out; no shared memory).
+int geometry12(int L, int cluster, long long* out, int device) {
+  if (L <= 0 || L % kThreads != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t bytes = scratch_words(L / 32) * sizeof(uint32_t);
-  auto kernel = tchain12_family_encode_kernel<F>;
-  const cudaError_t err = prepare(kernel, device, bytes);
+  ClusterGeometry geo;
+  Encode12Fn kernel;
+  const cudaError_t err = plan_encode12(L, cluster, device, &geo, &kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (T == 0) return static_cast<int>(cudaGetLastError());
-  kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<uint32_t*>(heads), static_cast<const int32_t*>(syms),
-      static_cast<const float*>(means), static_cast<const float*>(scales),
-      static_cast<const uint32_t*>(words), wlen, static_cast<uint32_t*>(tab),
-      static_cast<uint32_t*>(qw), L, T,
-      family::make_support(min_sym, max_sym));
-  return static_cast<int>(cudaGetLastError());
+  geometry_out(geo, 0, 0, out);
+  return 0;
 }
 
 }  // namespace
@@ -827,30 +860,40 @@ int launch_encode(void* heads, const void* syms, const void* means,
 // laplace, logistic, cauchy).
 extern "C" {
 
+// words[T * L], flags[T * L / 32], offsets[kScanBlocks] (u64): scratch
+// for the head pass and the compaction.  qw: the T * L/2 planar words.
 int ctt_tchain16_decode(void* heads, const void* qw, const void* cdf, int K,
                         void* syms, void* buf, long long cap, void* end_out,
-                        int L, int T, void* cuda_stream, int device) {
+                        void* words, void* flags, void* offsets, int L, int T,
+                        void* cuda_stream, int device) {
   return launch_cat_decode<16, 32, 16>(heads, qw, cdf, K, syms, buf, cap,
-                                       end_out, L, T, cuda_stream, device);
+                                       end_out, words, flags, offsets, L, T,
+                                       cuda_stream, device);
 }
 
-// words[T * L], flags[T * L / 32], offsets[kScanBlocks] (u64): scratch
-// for the head pass and the compaction.
+// The decode's head pass alone (pass B alone is ctt_ilans2_compact).
+int ctt_tchain16_head_pass(void* heads, const void* qw, const void* cdf,
+                           int K, void* syms, void* words, void* flags, int L,
+                           int T, void* cuda_stream, int device) {
+  return launch_cat_heads<16, 32, 16>(heads, qw, cdf, K, syms, words, flags,
+                                      L, T, cuda_stream, device);
+}
+
+// The same two entries for TChain-24 (q: T * L words).
 int ctt_tchain24_decode(void* heads, const void* q, const void* cdf, int K,
                         void* syms, void* buf, long long cap, void* end_out,
                         void* words, void* flags, void* offsets, int L, int T,
                         void* cuda_stream, int device) {
-  return launch_tchain24_decode(heads, q, cdf, K, syms, buf, cap, end_out,
-                                words, flags, offsets, L, T, cuda_stream,
-                                device);
+  return launch_cat_decode<32, 64, 24>(heads, q, cdf, K, syms, buf, cap,
+                                       end_out, words, flags, offsets, L, T,
+                                       cuda_stream, device);
 }
 
-// The decode's head pass alone (pass B alone is ctt_ilans2_compact).
 int ctt_tchain24_head_pass(void* heads, const void* q, const void* cdf, int K,
                            void* syms, void* words, void* flags, int L, int T,
                            void* cuda_stream, int device) {
-  return launch_heads24(heads, q, cdf, K, syms, words, flags, L, T,
-                        cuda_stream, device);
+  return launch_cat_heads<32, 64, 24>(heads, q, cdf, K, syms, words, flags, L,
+                                      T, cuda_stream, device);
 }
 
 // records[K]: scratch for the division records (8 bytes each).
@@ -939,14 +982,54 @@ int ctt_tchain12_head_pass(void* heads, const void* recs, void* words,
                         device);
 }
 
+// recs[T * L] (8 bytes each) and q16[T * L] (u16): scratch for the division
+// records of step (a) and the quantiles of step (b).
 int ctt_tchain12_family_encode(void* heads, const void* syms,
                                const void* means, const void* scales,
-                               const void* words, long long wlen, void* tab,
-                               void* qw, int L, int T, int fam, int min_sym,
-                               int max_sym, void* cuda_stream, int device) {
+                               const void* words, long long wlen, void* recs,
+                               void* q16, void* qw, int L, int T, int fam,
+                               int min_sym, int max_sym, void* cuda_stream,
+                               int device) {
   return CTT_DISPATCH_FAMILY(fam, launch_encode, heads, syms, means, scales,
-                             words, wlen, tab, qw, L, T, min_sym, max_sym,
-                             cuda_stream, device);
+                             words, wlen, recs, q16, qw, L, T, min_sym,
+                             max_sym, 0, cuda_stream, device);
+}
+
+// The same encode on a cluster of `cluster` CTAs (1 .. 16).
+int ctt_tchain12_family_encode_cluster(void* heads, const void* syms,
+                                       const void* means, const void* scales,
+                                       const void* words, long long wlen,
+                                       void* recs, void* q16, void* qw, int L,
+                                       int T, int fam, int min_sym,
+                                       int max_sym, int cluster,
+                                       void* cuda_stream, int device) {
+  if (cluster < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return CTT_DISPATCH_FAMILY(fam, launch_encode, heads, syms, means, scales,
+                             words, wlen, recs, q16, qw, L, T, min_sym,
+                             max_sym, cluster, cuda_stream, device);
+}
+
+// The encode's steps alone: (a) the tables pass; (b) the cluster step on
+// its records (the cluster size picked from L) with (c) the packing pass.
+int ctt_tchain12_tables_pass(const void* syms, const void* means,
+                             const void* scales, void* recs, int L, int T,
+                             int fam, int min_sym, int max_sym,
+                             void* cuda_stream, int device) {
+  return CTT_DISPATCH_FAMILY(fam, launch_tables, syms, means, scales, recs, L,
+                             T, min_sym, max_sym, cuda_stream, device);
+}
+
+int ctt_tchain12_encode_step(void* heads, const void* recs, const void* words,
+                             long long wlen, void* q16, void* qw, int L, int T,
+                             void* cuda_stream, int device) {
+  return launch_encode_step(heads, recs, words, wlen, q16, qw, L, T, 0,
+                            cuda_stream, device);
+}
+
+int ctt_tchain12_geometry(int L, int cluster, long long* out,
+                          void* cuda_stream, int device) {
+  (void)cuda_stream;
+  return geometry12(L, cluster, out, device);
 }
 
 }  // extern "C"

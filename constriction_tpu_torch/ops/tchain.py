@@ -18,21 +18,24 @@ L lanes.  The presets:
   planar u32 words (:func:`pack_quantiles`), L a multiple of 256;
 - TChain-24 (the reference's default precision): W=32, S=64, P=24, u64
   heads seeded at 2^8; one 24-bit quantile per u32 word, L a multiple of
-  128.  Its decode runs on the card as a head pass over the whole grid
-  (each lane searches its quantiles and runs its head) and the
-  compaction, each with a plain twin here;
+  128;
 - TChain-12: W=16, S=32, P=12, heads seeded at 16, the model of each
   symbol inverted in-kernel (``family.invert_family``); 12-bit quantiles
-  packed by :func:`pack_q12`, L a multiple of 1024.  Its decode's lanes
-  meet only where their flushed words land, so on the card it runs as
-  three steps over the whole grid (inversion, heads, compaction), each
-  with a plain twin here.
+  packed by :func:`pack_q12`, L a multiple of 1024.
+
+Every decode's lanes meet only where their flushed words land, so on the
+card each runs over the whole grid: a head pass of one thread per lane
+(TChain-16 and TChain-24: each lane searches its quantiles and runs its
+head; TChain-12: after an inversion pass of one thread per symbol) and
+the compaction, each step with a plain twin here.  Every encode's refills
+couple its lanes, so it runs on a cluster of up to 16 CTAs (the rANS
+decodes' step), which caps its num_lanes on a card at
+``coder.MAX_DECODE_LANES``; TChain-12's evaluates its models first, in a
+tables pass of one thread per symbol with a plain twin here.
 
 The wrappers launch the hand-written kernels of ``csrc/tchain.cu`` for CUDA
 tensors and run the plain PyTorch twins for CPU tensors; any other device
-raises.  The TChain-16 and TChain-24 encodes run on a cluster of up to 16
-CTAs (the rANS decodes' step), which caps their num_lanes on a card at
-``coder.MAX_DECODE_LANES``.
+raises.
 
 Tensor layout: quantiles travel as int32 tensors of u32 words (TChain-16:
 the planar words, T * L/2 of them; TChain-24: one per quantile; TChain-12:
@@ -64,7 +67,8 @@ TCHAIN12_CFG = LaneConfig(num_lanes=32768, word_bits=16, state_bits=32,
 # kernel launches made by this module's wrappers (never by the twins)
 LAUNCHES = {"decode16": 0, "encode16": 0, "decode24": 0, "encode24": 0,
             "decode12_family": 0, "encode12_family": 0,
-            "invert12_family": 0, "heads12_family": 0, "heads24": 0}
+            "invert12_family": 0, "heads12_family": 0,
+            "tables12_family": 0, "heads16": 0, "heads24": 0}
 
 _M12 = 0xFFF
 _M16 = 0xFFFF
@@ -416,8 +420,46 @@ def tchain12_family_encode(symbols, remainders, heads, means, scales,
     ``symbols`` int32[T * L], ``remainders`` int32 words, ``heads``
     int32[L], ``means`` and ``scales`` float32[T * L], on one device.
     Returns ``(qw int32[T * 3L/8], heads int32[L])``: the packed quantiles
-    and the heads before step 0.  CUDA tensors launch the kernel, CPU
-    tensors run :func:`tchain12_family_encode_plain`."""
+    and the heads before step 0.  CUDA tensors launch the encode's three
+    steps (``csrc/tchain.cu``, kernel 22; one C call): the tables pass, one
+    thread per symbol (:func:`tchain12_tables_pass`), the cluster step on
+    its records (num_lanes up to ``coder.MAX_DECODE_LANES``, else
+    ValueError) and the packing of its quantiles.  CPU tensors run
+    :func:`tchain12_family_encode_plain` at any L."""
+    T = _encode12_args(symbols, remainders, heads, means, scales, family,
+                       min_sym, max_sym, cfg)
+    if not _on_cuda(symbols.device):
+        return tchain12_family_encode_plain(symbols, remainders, heads, means,
+                                            scales, family, min_sym, max_sym,
+                                            cfg)
+    return _launch_encode12(symbols, remainders, heads, means, scales,
+                            family, min_sym, max_sym, cfg, T)
+
+
+def tchain12_family_encode_cluster(symbols, remainders, heads, means, scales,
+                                   family: str, min_sym: int, max_sym: int,
+                                   cluster: int,
+                                   cfg: LaneConfig = TCHAIN12_CFG):
+    """:func:`tchain12_family_encode` with its cluster step on ``cluster``
+    CTAs (1 .. 16) in place of the size the kernel picks from L (CUDA
+    tensors): how the card tests reach uneven partitions and CTAs with no
+    lanes."""
+    T = _encode12_args(symbols, remainders, heads, means, scales, family,
+                       min_sym, max_sym, cfg)
+    _forced_cluster(symbols, cluster)
+    return _launch_encode12(symbols, remainders, heads, means, scales,
+                            family, min_sym, max_sym, cfg, T, cluster)
+
+
+def geometry12(L: int, device=None, cluster: int = 0) -> dict:
+    """The TChain-12 encode's cluster step (kernel 22) for L lanes, as
+    :func:`geometry24` reads kernel 24's (nothing is staged:
+    ``smem_bytes`` and ``records_in_smem`` are 0)."""
+    return _geometry("12", device, L, cluster)
+
+
+def _encode12_args(symbols, remainders, heads, means, scales, family: str,
+                   min_sym: int, max_sym: int, cfg: LaneConfig) -> int:
     L = cfg.num_lanes
     T = _chain_args(symbols, "symbols", cfg, family, min_sym, max_sym, L)
     device = symbols.device
@@ -425,20 +467,81 @@ def tchain12_family_encode(symbols, remainders, heads, means, scales,
     _check("remainders", remainders, torch.int32, device)
     _check("heads", heads, torch.int32, device, L)
     fam.check_symbols(symbols, min_sym, max_sym)
-    if not _on_cuda(device):
-        return tchain12_family_encode_plain(symbols, remainders, heads, means,
-                                            scales, family, min_sym, max_sym,
-                                            cfg)
+    return T
+
+
+def _launch_encode12(symbols, remainders, heads, means, scales, family: str,
+                     min_sym: int, max_sym: int, cfg: LaneConfig, T: int,
+                     cluster: int = 0):
+    """One C call of kernel 22 (its cluster step on ``cluster`` CTAs, or the
+    size it picks from L when 0); its scratch holds each symbol's 8-byte
+    division record and its u16 quantile, which the packing pass writes
+    into every quantile word."""
+    L = cfg.num_lanes
+    if L > MAX_DECODE_LANES:
+        raise ValueError(
+            f"the TChain-12 encode kernel takes num_lanes up to "
+            f"{MAX_DECODE_LANES} (16 CTAs x 1024 threads x 32 lanes a "
+            f"thread), got num_lanes={L}")
+    device = symbols.device
     out_heads = heads.clone()
-    qw = torch.zeros(T * _step_words(L), dtype=torch.int32, device=device)
+    qw = torch.empty(T * _step_words(L), dtype=torch.int32, device=device)
     if T:
-        tables_scratch = torch.empty(L, dtype=torch.int32, device=device)
+        recs = torch.empty(T * L, dtype=torch.int64, device=device)
+        q16 = torch.empty(T * L // 2, dtype=torch.int32, device=device)
+        entry, size = "ctt_tchain12_family_encode", ()
+        if cluster:
+            entry, size = "ctt_tchain12_family_encode_cluster", (cluster,)
+        _build.call(entry, device, out_heads, symbols, means, scales,
+                    remainders, remainders.numel(), recs, q16, qw, L, T,
+                    fam.FAMILIES.index(family), min_sym, max_sym, *size)
         LAUNCHES["encode12_family"] += 1
-        _build.call("ctt_tchain12_family_encode", device, out_heads, symbols,
-                    means, scales, remainders, remainders.numel(),
-                    tables_scratch, qw, L, T, fam.FAMILIES.index(family),
-                    min_sym, max_sym)
     return qw, out_heads
+
+
+def tchain12_tables_pass(symbols, means, scales, family: str, min_sym: int,
+                         max_sym: int, cfg: LaneConfig = TCHAIN12_CFG):
+    """The tables pass of :func:`tchain12_family_encode` alone (its checks
+    on the symbols and models): ``records int64[T * L]``, each symbol's
+    division record (``csrc/ilans2_wide.cuh``, ``DivisionRecord32``) as one
+    u64, ``magic | (cum | (prob - 1) << 16) << 32``.  CUDA tensors launch
+    the kernel (``csrc/tchain.cu``, ``tchain12_tables_kernel``), CPU
+    tensors run :func:`tchain12_tables_pass_plain`."""
+    L = cfg.num_lanes
+    T = _chain_args(symbols, "symbols", cfg, family, min_sym, max_sym, L)
+    device = symbols.device
+    fam.check_params(means, scales, T * L, device)
+    fam.check_symbols(symbols, min_sym, max_sym)
+    if not _on_cuda(device):
+        return tchain12_tables_pass_plain(symbols, means, scales, family,
+                                          min_sym, max_sym, cfg)
+    recs = torch.empty(T * L, dtype=torch.int64, device=device)
+    if T:
+        _build.call("ctt_tchain12_tables_pass", device, symbols, means,
+                    scales, recs, L, T, fam.FAMILIES.index(family), min_sym,
+                    max_sym)
+        LAUNCHES["tables12_family"] += 1
+    return recs
+
+
+def tchain12_tables_pass_plain(symbols, means, scales, family: str,
+                               min_sym: int, max_sym: int,
+                               cfg: LaneConfig = TCHAIN12_CFG):
+    """The tables pass in plain PyTorch (any device, no checks), vectorised
+    over all T * L symbols: each symbol, clamped into the support as the
+    kernel clamps it, its (cum, prob) under its model (``family.tables``)
+    and its division record ``magic | (cum | (prob - 1) << 16) << 32``,
+    magic the 32-bit multiply-high reciprocal of prob <= 2^12
+    (``coder.division_magic32``).  Returns records int64[T * L]."""
+    sym = symbols.clamp(min_sym, max_sym)
+    cum, prob = fam.tables(torch, family, min_sym, max_sym, sym, means,
+                           1.0 / scales)
+    cum, prob = cum.to(torch.int64), prob.to(torch.int64)
+    log = torch.zeros_like(prob)  # ceil(log2 prob)
+    for k in range(fam.FX):
+        log += prob > 1 << k
+    magic = ((torch.ones_like(log) << log) - prob << 32) // prob + 1
+    return magic | (cum | (prob - 1) << 16) << 32
 
 
 def tchain12_family_encode_plain(symbols, remainders, heads, means, scales,
@@ -733,9 +836,9 @@ def _encode_args(symbols, remainders, heads, cdf, cfg: LaneConfig,
 
 def _launch_decode(tag: str, q, cdf, L: int, T: int, seed: int,
                    head_dtype):
-    """One decode call; returns (symbols, stream, heads).  TChain-24
-    (kernel 23: the head pass and the compaction) takes the compaction's
-    scratch.  Reads the end pointer back (one sync)."""
+    """One decode call (kernels 19 and 23: the head pass and the
+    compaction, on the compaction's scratch); returns (symbols, stream,
+    heads).  Reads the end pointer back (one sync)."""
     device = q.device
     n = T * L
     heads = torch.full((L,), seed, dtype=head_dtype, device=device)
@@ -745,10 +848,10 @@ def _launch_decode(tag: str, q, cdf, L: int, T: int, seed: int,
     buf = torch.empty(n, dtype=torch.int32, device=device)  # <= 1 word/symbol
     end = torch.empty(1, dtype=torch.int64, device=device)
     cdf32 = cdf.to(torch.int32)
-    scratch = () if tag == "16" else compaction_scratch(T, L, device)
     LAUNCHES[f"decode{tag}"] += 1
     _build.call(f"ctt_tchain{tag}_decode", device, heads, q, cdf32,
-                cdf32.numel() - 1, syms, buf, n, end, *scratch, L, T)
+                cdf32.numel() - 1, syms, buf, n, end,
+                *compaction_scratch(T, L, device), L, T)
     return syms, buf[int(end.item()):], heads
 
 
@@ -796,12 +899,92 @@ def tchain16_decode(qw, cdf, cfg: LaneConfig = TCHAIN_CFG):
     ``qw`` int32[T * L/2] (the :func:`pack_quantiles` words, flattened),
     ``cdf`` int64[K+1] at P=16, on one device.  Returns ``(symbols
     int32[T * L], stream int32[num_words], heads int32[L])``.  CUDA tensors
-    launch the kernel, CPU tensors run :func:`tchain16_decode_plain`."""
+    launch the decode's two steps over the whole grid (``csrc/tchain.cu``,
+    kernel 19): the head pass, one thread per lane, each lane searching its
+    quantiles in its block's bucket table (:func:`tchain16_head_pass`), and
+    the row-major compaction of the flushed words (``coder.compact_pass``;
+    four launches, one C call).  CPU tensors run
+    :func:`tchain16_decode_plain`, which equals the composition of the two
+    plain steps."""
     L = cfg.num_lanes
-    T = _cat_args(qw, "qw", cfg, TCHAIN_CFG, 256, L // 2, cdf)
+    T = _tchain16_q_args(qw, cdf, cfg)
     if not _on_cuda(qw.device):
         return tchain16_decode_plain(qw, cdf, cfg)
     return _launch_decode("16", qw, cdf, L, T, 1, torch.int32)
+
+
+def _tchain16_q_args(qw, cdf, cfg: LaneConfig) -> int:
+    """Checks a TChain-16 decode's planar words, config and CDF; returns
+    T."""
+    return _cat_args(qw, "qw", cfg, TCHAIN_CFG, 256, cfg.num_lanes // 2, cdf)
+
+
+def tchain16_head_pass(qw, cdf, cfg: LaneConfig = TCHAIN_CFG):
+    """The head pass of :func:`tchain16_decode` alone (its arguments and
+    checks): ``(symbols int32[T * L], words int32[T, L], ballots int32[T,
+    L / 32], heads int32[L])``, row r of the words and ballots holding step
+    T - 1 - r.  CUDA tensors launch the kernel (``csrc/tchain.cu``,
+    ``tchain_heads_kernel`` over ``QuantileSteps<32>``), which leaves the
+    words of lanes that flush nothing unwritten; CPU tensors run
+    :func:`tchain16_head_pass_plain` and pack its flags with
+    ``coder.flag_ballots``."""
+    T = _tchain16_q_args(qw, cdf, cfg)
+    if not _on_cuda(qw.device):
+        syms, words, flags, heads = tchain16_head_pass_plain(qw, cdf, cfg)
+        return syms, words, flag_ballots(flags), heads
+    return _launch_head_pass("16", qw, cdf, cfg.num_lanes, T, 1, torch.int32)
+
+
+def _launch_head_pass(tag: str, q, cdf, L: int, T: int, seed: int,
+                      head_dtype):
+    """One launch of a categorical decode's head pass (kernels 19 and 23)
+    into fresh outputs: (symbols, words, ballots, heads)."""
+    device = q.device
+    syms = torch.empty(T * L, dtype=torch.int32, device=device)
+    heads = torch.full((L,), seed, dtype=head_dtype, device=device)
+    words = torch.empty(T, L, dtype=torch.int32, device=device)
+    ballots = torch.empty(T, L // 32, dtype=torch.int32, device=device)
+    if T:
+        cdf32 = cdf.to(torch.int32)
+        _build.call(f"ctt_tchain{tag}_head_pass", device, heads, q, cdf32,
+                    cdf32.numel() - 1, syms, words, ballots, L, T)
+        LAUNCHES[f"heads{tag}"] += 1
+    return syms, words, ballots, heads
+
+
+def tchain16_head_pass_plain(qw, cdf, cfg: LaneConfig = TCHAIN_CFG):
+    """The head pass in plain PyTorch (any device, no checks): every
+    quantile's symbol, cum and prob at once (``searchsorted`` over the
+    CDF), then a loop over steps 0 .. T-1, vectorised over lanes, of head =
+    head * prob + (q - cum) (below 2^32: heads stay below 2^16 and prob <=
+    2^16); a head at or above 2^16 flushes its low 16 bits.  Returns
+    ``(symbols int32[T * L], words int32[T, L], flags bool[T, L], heads
+    int32[L])``, the words and flags in reversed rows: row T - 1 - t holds
+    step t's flushed words (0 elsewhere) and flags, so the row-major
+    compaction (``coder.compact_pass_plain``) lays the stream out as the
+    decode does."""
+    L, W, S, P = (cfg.num_lanes, cfg.word_bits, cfg.state_bits,
+                  cfg.precision)
+    device = qw.device
+    T = qw.numel() // (L // 2)
+    q = unpack_quantiles(
+        convert.u32_values(qw).reshape(T, L // 256, 128), torch)
+    cdf64 = cdf.to(torch.int64)
+    sym = _find_symbols(cdf64, q, cdf64.numel() - 1)
+    cum = cdf64[sym]
+    probs = (cdf64[sym + 1] - cum).reshape(T, L)
+    rems = (q - cum).reshape(T, L)
+    heads = torch.ones(L, dtype=torch.int64, device=device)
+    words = torch.zeros(T, L, dtype=torch.int64, device=device)
+    flags = torch.zeros(T, L, dtype=torch.bool, device=device)
+    for t in range(T):
+        heads = heads * probs[t] + rems[t]
+        m = heads >= 1 << (S - P)
+        words[T - 1 - t] = torch.where(m, heads & _M16, 0)
+        flags[T - 1 - t] = m
+        heads = torch.where(m, heads >> W, heads)
+    return (sym.to(torch.int32), convert.u32_bits(words), flags,
+            convert.u32_bits(heads))
 
 
 def tchain16_decode_plain(qw, cdf, cfg: LaneConfig = TCHAIN_CFG):
@@ -867,7 +1050,7 @@ def tchain16_encode_cluster(symbols, remainders, heads, cdf, cluster: int,
 def geometry16(L: int, K: int, device=None, cluster: int = 0) -> dict:
     """The TChain-16 encode's launch geometry (kernel 20), as
     :func:`geometry24` reads kernel 24's."""
-    return _geometry("16", L, K, device, cluster)
+    return _geometry("16", device, L, K, cluster)
 
 
 def tchain16_encode_plain(symbols, remainders, heads, cdf,
@@ -930,26 +1113,16 @@ def tchain24_head_pass(q, cdf, cfg: LaneConfig = TCHAIN24_CFG):
     checks): ``(symbols int32[T * L], words int32[T, L], ballots int32[T,
     L / 32], heads int64[L])``, row r of the words and ballots holding step
     T - 1 - r.  CUDA tensors launch the kernel (``csrc/tchain.cu``,
-    ``tchain_heads_kernel`` over ``QuantileSteps``), which leaves the words
-    of lanes that flush nothing unwritten; CPU tensors run
+    ``tchain_heads_kernel`` over ``QuantileSteps<64>``), which leaves the
+    words of lanes that flush nothing unwritten; CPU tensors run
     :func:`tchain24_head_pass_plain` and pack its flags with
     ``coder.flag_ballots``."""
     T = _tchain24_q_args(q, cdf, cfg)
-    device = q.device
-    if not _on_cuda(device):
+    if not _on_cuda(q.device):
         syms, words, flags, heads = tchain24_head_pass_plain(q, cdf, cfg)
         return syms, words, flag_ballots(flags), heads
-    L = cfg.num_lanes
-    syms = torch.empty(T * L, dtype=torch.int32, device=device)
-    heads = torch.full((L,), 1 << 8, dtype=torch.int64, device=device)
-    words = torch.empty(T, L, dtype=torch.int32, device=device)
-    ballots = torch.empty(T, L // 32, dtype=torch.int32, device=device)
-    if T:
-        cdf32 = cdf.to(torch.int32)
-        _build.call("ctt_tchain24_head_pass", device, heads, q, cdf32,
-                    cdf32.numel() - 1, syms, words, ballots, L, T)
-        LAUNCHES["heads24"] += 1
-    return syms, words, ballots, heads
+    return _launch_head_pass("24", q, cdf, cfg.num_lanes, T, 1 << 8,
+                             torch.int64)
 
 
 def tchain24_head_pass_plain(q, cdf, cfg: LaneConfig = TCHAIN24_CFG):
@@ -1059,10 +1232,12 @@ _GEOMETRY_KEYS = ("cluster", "groups_per_cta", "lanes_per_thread",
                   "records_in_smem")
 
 
-def _geometry(tag: str, L: int, K: int, device, cluster: int) -> dict:
+def _geometry(tag: str, device, *args) -> dict:
+    """An encode's cluster geometry as ``ctt_tchain{tag}_geometry(*args,
+    out)`` reports it."""
     device = torch.device("cuda") if device is None else torch.device(device)
     out = torch.zeros(len(_GEOMETRY_KEYS), dtype=torch.int64)
-    _build.call(f"ctt_tchain{tag}_geometry", device, L, K, cluster, out)
+    _build.call(f"ctt_tchain{tag}_geometry", device, *args, out)
     geo = dict(zip(_GEOMETRY_KEYS, (int(v) for v in out)))
     geo["ctas"] = geo["cluster"]
     return geo
@@ -1075,7 +1250,7 @@ def geometry24(L: int, K: int, device=None, cluster: int = 0) -> dict:
     lanes per thread and threads, the card's maximum of such active
     clusters, the shared memory of a CTA and whether the K division
     records are in it."""
-    return _geometry("24", L, K, device, cluster)
+    return _geometry("24", device, L, K, cluster)
 
 
 def tchain24_encode_plain(symbols, remainders, heads, cdf,

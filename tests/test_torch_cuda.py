@@ -908,9 +908,10 @@ def test_range32_decode_lanes_past_the_cluster_reach(dev):
 # which kernels ptxas must compile without spilling, at 2 and 4 lanes a
 # thread (L = 32768 and 65536): the range decodes at both presets, the
 # S=64 exact table decodes (kernel 15; kernel 16, its Seg instance), the
-# family decode (kernel 11, each family) and the TChain-16 and TChain-24
-# encodes (kernels 20 and 24); and the lane passes of kernels 8 and 10,
-# kernel 17's pass A and kernel 23's head pass (one lane a thread)
+# family decode (kernel 11, each family) and the TChain encodes (kernels
+# 20, 24 and 22's cluster step); and the lane passes of kernels 8 and 10,
+# kernel 17's pass A, kernel 23's and kernel 19's head passes and kernel
+# 22's tables pass (one lane a thread)
 NO_SPILL = {
     "range S=64": r"cluster_range_decode_kernelILi32ELi64ELi{R}E",
     "range S=32": r"cluster_range_decode_kernelILi16ELi32ELi{R}E",
@@ -922,7 +923,10 @@ NO_SPILL = {
        for k, name in enumerate(fam.FAMILIES)},
     "tchain24 encode": r"cluster_tchain_encode_kernelILi32ELi64ELi24ELi{R}E",
     "tchain16 encode": r"cluster_tchain_encode_kernelILi16ELi32ELi16ELi{R}E",
+    "tchain12 encode": r"cluster_tchain_encode_kernelILi16ELi32ELi12ELi{R}E",
     "tchain24 heads": r"tchain_heads_kernelILi32ELi64ELi24E",
+    "tchain16 heads": r"tchain_heads_kernelILi16ELi32ELi16E",
+    "tchain12 tables": r"tchain12_tables_kernel",
     "range resolve lanes": r"range_resolve_lanes_kernel",
     "range resolve lanes S=64": r"range_resolve_lanes_kernelILi32ELi64E",
     "exact encode lanes S=64":
@@ -1601,6 +1605,160 @@ def test_tchain24_head_pass_on_the_main_path_shape(dev):
     assert torch.equal(syms, syms_p) and torch.equal(heads, heads_p)
     assert torch.equal(ballots, coder.flag_ballots(flags_p))
     assert torch.equal(words[flags_p], words_p[flags_p])
+
+
+# --- kernel 19: the TChain-16 decode as two steps over the grid ------------
+
+
+@pytest.mark.parametrize("K", [1, 2, 100, 60_000])
+@pytest.mark.parametrize("L,T", [(256, 1), (768, 9), (32768, 5)])
+def test_tchain16_decode_passes_match_plain(dev, L, T, K):
+    """Kernel 19's two steps launched alone, each against its plain version
+    on the same CUDA tensors: the head pass (symbols, the flushed words
+    where flagged, the ballots and the heads; K=60000: the CDF in device
+    memory; K=1: every lane flushes at every step) and pass B (the
+    stream); composed, the twin's decode, which the whole call equals."""
+    cfg = _cat_cfg(16, L)
+    rng = np.random.RandomState(K + L + T)
+    cdf = convert.cdf_to_torch(_cat_cdf(K, 16, K + L), dev)
+    q = rng.randint(0, 1 << 16, size=L * T).astype(np.uint16)
+    q[:L] = (1 << 16) - 1  # the first step's top quantiles
+    qw = convert.quantiles16_to_torch(q, L, dev)
+    before = dict(tc.LAUNCHES)
+    syms, words, ballots, heads = tc.tchain16_head_pass(qw, cdf, cfg)
+    syms_p, words_p, flags_p, heads_p = tc.tchain16_head_pass_plain(qw, cdf,
+                                                                    cfg)
+    assert torch.equal(syms, syms_p)
+    assert torch.equal(ballots, coder.flag_ballots(flags_p))
+    assert torch.equal(words[flags_p], words_p[flags_p])
+    assert torch.equal(heads, heads_p)
+    stream = coder.compact_pass(words, ballots)
+    assert torch.equal(stream, coder.compact_pass_plain(words_p, flags_p))
+    twin = tc.tchain16_decode_plain(qw, cdf, cfg)
+    assert torch.equal(syms, twin[0]) and torch.equal(stream, twin[1])
+    assert torch.equal(heads, twin[2])
+    assert tc.LAUNCHES["heads16"] == before["heads16"] + 1
+    assert tc.LAUNCHES["decode16"] == before["decode16"]
+    whole = tc.tchain16_decode(qw, cdf, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(whole, twin))
+    assert tc.LAUNCHES["decode16"] == before["decode16"] + 1
+
+
+def test_tchain16_head_pass_on_the_main_path_shape(dev):
+    """The TChain-16 row's shape, 2^24 quantiles at L=32768 (T=512): the
+    head pass against its plain version."""
+    L = 32768
+    cfg = _cat_cfg(16, L)
+    cdf = convert.cdf_to_torch(_cat_cdf(100, 16, 5), dev)
+    qw = convert.quantiles16_to_torch(np.random.RandomState(5).randint(
+        0, 1 << 16, size=1 << 24).astype(np.uint16), L, dev)
+    syms, words, ballots, heads = tc.tchain16_head_pass(qw, cdf, cfg)
+    syms_p, words_p, flags_p, heads_p = tc.tchain16_head_pass_plain(qw, cdf,
+                                                                    cfg)
+    assert torch.equal(syms, syms_p) and torch.equal(heads, heads_p)
+    assert torch.equal(ballots, coder.flag_ballots(flags_p))
+    assert torch.equal(words[flags_p], words_p[flags_p])
+
+
+# --- kernel 22: the TChain-12 encode as a tables pass and the cluster step -
+
+
+def _tchain12_message(L, T, family, dev, seed):
+    """A TChain-12 decode on the card of uniform quantiles: (cfg, means,
+    scales, quantile words, the decode)."""
+    rng = np.random.RandomState(seed)
+    cfg = _family_cfg(L)
+    n = L * T
+    means, scales, _ = _family_data(rng, n)
+    q = rng.randint(0, 1 << 12, size=n).astype(np.uint16)
+    mu, sg = convert.params_to_torch(means, scales, n, L, dev)
+    qw = convert.quantiles_to_torch(q, L, dev)
+    return cfg, mu, sg, qw, tc.tchain12_family_decode(qw, mu, sg, family, LO,
+                                                      HI, cfg)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 16])
+@pytest.mark.parametrize("L,T", [(1024, 5), (32768, 3), (65536, 2)])
+def test_tchain12_cluster_encode_matches_twin(dev, L, T, cluster):
+    """Kernel 22 at forced cluster sizes: 1024 lanes (CTAs left with no
+    lanes at 16), the facade's 32768 and 65536 (past one CTA's reach at
+    65536, which raises); truncated remainders read as zero words."""
+    cfg, mu, sg, qw, got = _tchain12_message(L, T, "gaussian", dev, L + T)
+    args = (mu, sg, "gaussian", LO, HI)
+    if L // 32 > cluster * 32 * 32:
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            tc.tchain12_family_encode_cluster(*got, *args, cluster, cfg)
+        return
+    before = tc.LAUNCHES["encode12_family"]
+    back = tc.tchain12_family_encode_cluster(*got, *args, cluster, cfg)
+    assert tc.LAUNCHES["encode12_family"] == before + 1
+    plain = tc.tchain12_family_encode_plain(*got, *args, cfg)
+    assert torch.equal(back[0], plain[0]) and torch.equal(back[1], plain[1])
+    assert torch.equal(back[0], qw) and bool((back[1] == 16).all())
+    cut = got[1][: got[1].numel() // 3].clone()
+    a = tc.tchain12_family_encode_cluster(got[0], cut, got[2], *args,
+                                          cluster, cfg)
+    a_p = tc.tchain12_family_encode_plain(got[0], cut, got[2], *args, cfg)
+    assert torch.equal(a[0], a_p[0]) and torch.equal(a[1], a_p[1])
+
+
+@pytest.mark.parametrize("family", fam.FAMILIES)
+def test_tchain12_encode_passes_match_plain(dev, family):
+    """Kernel 22's tables pass launched alone against its plain version
+    (symbols pinned at both ends of the support among them), and its
+    cluster step and packing pass (the C entry) on those records, whose
+    quantiles and heads equal the whole encode's and the twin's; the heads
+    and remainders need not come from a decode."""
+    L, T = 3072, 4
+    cfg = _family_cfg(L)
+    rng = np.random.RandomState(40 + len(family))
+    n = L * T
+    means, scales, symbols = _family_data(rng, n)
+    symbols[rng.rand(n) < 0.2] = LO
+    symbols[rng.rand(n) < 0.2] = HI
+    mu, sg = convert.params_to_torch(means, scales, n, L, dev)
+    syms = torch.from_numpy(symbols).to(dev)
+    heads = torch.from_numpy(rng.randint(16, 1 << 20, size=L).astype(
+        np.int32)).to(dev)
+    rem = convert.u32_to_torch(rng.randint(0, 1 << 32, size=2 * n,
+                                           dtype=np.int64).astype(np.uint32),
+                               dev)
+    before = dict(tc.LAUNCHES)
+    recs = tc.tchain12_tables_pass(syms, mu, sg, family, LO, HI, cfg)
+    assert torch.equal(recs, tc.tchain12_tables_pass_plain(
+        syms, mu, sg, family, LO, HI, cfg))
+    assert tc.LAUNCHES["tables12_family"] == before["tables12_family"] + 1
+    whole = tc.tchain12_family_encode(syms, rem, heads, mu, sg, family, LO,
+                                      HI, cfg)
+    twin = tc.tchain12_family_encode_plain(syms, rem, heads, mu, sg, family,
+                                           LO, HI, cfg)
+    assert torch.equal(whole[0], twin[0]) and torch.equal(whole[1], twin[1])
+    h_buf = heads.clone()
+    q_buf = torch.full_like(whole[0], -1)
+    q16 = torch.empty(n // 2, dtype=torch.int32, device=dev)
+    _build.call("ctt_tchain12_encode_step", dev, h_buf, recs, rem,
+                rem.numel(), q16, q_buf, L, T)
+    assert torch.equal(q_buf, whole[0]) and torch.equal(h_buf, whole[1])
+
+
+def test_tchain12_encode_runs_as_a_cluster_and_caps_its_lanes(dev):
+    geo = tc.geometry12(32768, dev)
+    assert geo["cluster"] == 16 and geo["lanes_per_thread"] == 2
+    assert geo["max_active_clusters"] >= 1 and geo["smem_bytes"] == 0
+    assert tc.geometry12(coder.MAX_DECODE_LANES, dev)[
+        "lanes_per_thread"] == 32
+    L = coder.MAX_DECODE_LANES + 1024
+    cfg = _family_cfg(L)
+    syms = torch.zeros(L, dtype=torch.int32, device=dev)
+    mu = torch.zeros(L, dtype=torch.float32, device=dev)
+    sg = torch.ones(L, dtype=torch.float32, device=dev)
+    heads = torch.full((L,), 16, dtype=torch.int32, device=dev)
+    words = torch.zeros(0, dtype=torch.int32, device=dev)
+    before = dict(tc.LAUNCHES)
+    with pytest.raises(ValueError, match=f"num_lanes={L}"):
+        tc.tchain12_family_encode(syms, words, heads, mu, sg, "gaussian", LO,
+                                  HI, cfg)
+    assert tc.LAUNCHES == before
 
 
 # --- kernel 8: the S=32 range resolve as a lane pass and the compaction ----

@@ -87,7 +87,7 @@ def _records(cdf):
 
 def _planar_half(L):
     """The u16 half of a step's L/2 words that holds each lane's quantile
-    (``store_quantile<32>``)."""
+    (``PlanarStore<32>``)."""
     lanes = np.arange(L)
     return np.where(lanes < L // 2, 2 * lanes, 2 * (lanes - L // 2) + 1)
 
