@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Eighteen coding kernels timed in several checkouts on one card, one
+"""Twenty coding kernels timed in several checkouts on one card, one
 checkout after another in the order given.
 
     git archive <commit> | tar -x -C _scratch/parent
@@ -63,6 +63,20 @@ builds its kernels and times, on the same inputs:
   symbols and their means and scales, seed 1234, [-100, 100]) at
   L=32768, for each of the four families: its C entry on a stream the
   checkout's own encoder wrote;
+- kernel 12, the family rANS encode, on the same row (gaussian): its C
+  entry on preallocated scratch (a checkout whose entry keeps L words of
+  pending tables, one block, gets those; one that runs the tables pass,
+  pass A and pass B gets its records, dense words, ballots and block
+  offsets), the states reset outside the CUDA events; where the checkout
+  has them, its tables pass, pass A and pass B alone;
+- kernel 13, the S=32 reference-exact decode, on the facade's default
+  exact call (the exact row's synthetic latents cut to 2^20 symbols,
+  gaussian, [-100, 100], W=16, S=32, P=12, L=32768) over the host
+  builder's narrow tables (built once a run, in up to 8 worker processes,
+  and shared by the checkouts through a temporary directory): its C entry
+  with the search the checkout picks for the tables' width, and with the
+  scan and the binary search forced, the states reset outside the CUDA
+  events;
 - kernel 17, the S=64 exact encode, on the exact row's planes (2^22
   symbols, gaussian, P=24) at L=32768: its C entry (on preallocated
   scratch where it takes some; the states reset outside the CUDA events),
@@ -90,9 +104,11 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 N = 1 << 25
 N_EXACT = 1 << 22
+N_EXACT32 = 1 << 20  # the facade's default exact call, as chip_smoke.py cuts it
 K = 100
 LANES = 32768
 REPS, LAUNCHES = 5, 10
@@ -206,6 +222,10 @@ def time_decodes(root: str, kernels: set) -> dict:
         _time_family(out, check)
     if 16 in kernels:
         _time_exact_seg(out, check)
+    if 12 in kernels:
+        _time_family_encode(out, check)
+    if 13 in kernels:
+        _time_exact32(out, check, root)
     return out
 
 
@@ -731,6 +751,155 @@ def _time_tchain12_encode(out, check):
         same("tchain12 encode passes apart")
 
 
+def _time_family_encode(out, check):
+    """Kernel 12 into ``out`` (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import _build, coder
+    from constriction_tpu_torch.ops import family as fam
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    dev = torch.device("cuda", 0)
+    n = 1 << 23
+    T = n // LANES
+    cfg = LaneConfig(num_lanes=LANES, word_bits=16, state_bits=32,
+                     precision=12)
+    rng = np.random.RandomState(1234)
+    means = (rng.randn(n) * 10).astype(np.float32)
+    scales = (0.3 + np.abs(rng.randn(n)) * 5).astype(np.float32)
+    symbols = np.clip(np.round(means + rng.randn(n) * scales), -100, 100
+                      ).astype(np.int32)
+    mu, sg = convert.params_to_torch(means, scales, n, LANES, dev)
+    syms = torch.from_numpy(symbols).to(dev)
+    st, w = fam.encode_family(syms, mu, sg, "gaussian", -100, 100, cfg)
+    states = torch.empty_like(st)
+    buf = torch.empty(n, dtype=torch.int32, device=dev)
+    end = torch.empty(1, dtype=torch.int64, device=dev)
+    recs = torch.empty(n, dtype=torch.int64, device=dev)
+    entry = "ctt_family_encode"
+    passes = len(_build.SIGNATURES[entry]) > 15
+    if passes:
+        words, flags, offsets = coder.compaction_scratch(T, LANES, dev)
+        scratch = (recs, buf, n, end, words, flags, offsets)
+    else:  # one block: L words of pending tables
+        scratch = (recs, buf, n, end)
+
+    def reset():
+        states.fill_(1 << 16)
+
+    def launch():
+        _build.call(entry, dev, states, syms, n, mu, sg, *scratch, LANES, 0,
+                    -100, 100)
+
+    def same(what):
+        check(states, st, f"{what} states")
+        check(buf[int(end.item()):], w, f"{what} stream")
+
+    reset()
+    launch()
+    same("family encode")
+    out["family_encode_ms"] = _events_ms(launch, reset)
+    if not passes:
+        return
+    out["family_encode_tables_ms"] = _events_ms(
+        lambda: _build.call("ctt_family_tables_pass", dev, syms, mu, sg, recs,
+                            n, 0, -100, 100))
+    out["family_encode_pass_a_ms"] = _events_ms(
+        lambda: _build.call("ctt_family_encode_lanes", dev, states, recs, n,
+                            words, flags, LANES), reset)
+    out["family_encode_pass_b_ms"] = _events_ms(
+        lambda: _build.call("ctt_ilans2_compact", dev, flags, words,
+                            flags.numel(), buf, n, end, offsets))
+    same("family encode passes apart")
+
+
+def _narrow_chunk(args):
+    """The host builder's narrow tables of a run of steps (a worker
+    process): ``exact_family.narrow_tables`` at the chunk's own cmax."""
+    root, means, scales, nsteps, R = args
+    sys.path.insert(0, os.path.abspath(root))
+    from constriction_tpu_torch.ops import exact_family as ef
+
+    return ef.narrow_tables(means, scales, "gaussian", -100, 100, 12, None,
+                            nsteps, R)[0]
+
+
+def _exact32_tables(root: str, means, scales):
+    """Kernel 13's narrow tables u32[T, CP1, R, 128] for the default call:
+    from the run's cache directory ($CHIP_AB_CACHE) when an earlier
+    checkout built them, else built in step chunks by up to 8 worker
+    processes, each chunk padded to the widest chunk's planes with 0xFFFF
+    pairs (fields no quantile selects), and cached."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    cache = os.environ.get("CHIP_AB_CACHE")
+    path = os.path.join(cache, "exact32_tables.npy") if cache else None
+    if path and os.path.exists(path):
+        return np.load(path)
+    T = N_EXACT32 // LANES
+    per = -(-T // min(8, os.cpu_count() or 1))
+    chunks = [(root, means[t * LANES:(t + per) * LANES],
+               scales[t * LANES:(t + per) * LANES], min(per, T - t),
+               LANES // 128)
+              for t in range(0, T, per)]
+    with ProcessPoolExecutor(
+            max_workers=len(chunks),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        parts = list(pool.map(_narrow_chunk, chunks))
+    cp1 = max(p.shape[1] for p in parts)
+    tabs = np.concatenate([np.concatenate([p, np.full(
+        (p.shape[0], cp1 - p.shape[1], *p.shape[2:]), 0xFFFFFFFF, np.uint32)],
+        1) for p in parts])
+    if path:
+        np.save(path, tabs)
+    return tabs
+
+
+def _time_exact32(out, check, root: str):
+    """Kernel 13 into ``out`` (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import exact_family as ef
+    from constriction_tpu_torch.ops import _build
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    dev = torch.device("cuda", 0)
+    n = N_EXACT32
+    cfg = LaneConfig(num_lanes=LANES, word_bits=16, state_bits=32,
+                     precision=12)
+    means, scales, symbols = _exact_workload(n)
+    cums, probs = ef.exact_ecp(symbols, means, scales, "gaussian", -100, 100,
+                               12)
+    c_t, p_t = convert.ecp_to_torch(cums, probs, LANES, dev)
+    st, w = ef.encode_tables(c_t, p_t, cfg, None, n)
+    tabs = convert.exact_tables_to_torch(_exact32_tables(root, means, scales),
+                                         dev)
+    syms = torch.from_numpy(symbols.astype(np.int32)).to(dev)
+    states = torch.empty_like(st)
+    o_buf = torch.empty(n, dtype=torch.int32, device=dev)
+    out["decode32_planes"] = int(tabs.shape[1])
+    modes = {"": int(ef.bisect_tables(tabs.shape[1], True)), "_scan": 0,
+             "_bisect": 1}
+    for suffix, bisect in modes.items():
+        def launch():
+            _build.call("ctt_exact_decode32", dev, states, w, w.numel(), tabs,
+                        tabs.shape[1], o_buf, n, LANES, 12, -100, 100,
+                        bisect, None)
+
+        states.copy_(st)
+        launch()
+        check(o_buf, syms, f"decode32{suffix}")
+        out[f"decode32{suffix}_ms"] = _events_ms(
+            launch, lambda: states.copy_(st))
+
+
 def _time_exact(out, check):
     """Kernel 15 into ``out``: the ungrouped exact row over tables built on
     the card, at L=32768 and L=65536 (2 and 4 lanes a thread)."""
@@ -950,7 +1119,7 @@ def _time_exact_seg(out, check):
 
 
 def main(argv: list[str]) -> int:
-    kernels = "1,2,3,4,5,6,8,10,11,15,16,17,19,20,21,22,23,24"
+    kernels = "1,2,3,4,5,6,8,10,11,12,13,15,16,17,19,20,21,22,23,24"
     if len(argv) > 1 and argv[0] == "--kernels":
         kernels, argv = argv[1], argv[2:]
     if len(argv) == 2 and argv[0] == "--one":
@@ -958,14 +1127,15 @@ def main(argv: list[str]) -> int:
         print(json.dumps(time_decodes(argv[1], picked)), flush=True)
         return 0
     if not argv:
-        sys.exit("usage: chip_ab.py [--kernels "
-                 "1,2,3,4,5,6,8,10,11,15,16,17,19,20,21,22,23,24] "
-                 "CHECKOUT ...")
-    for root in argv:
-        done = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--kernels", kernels, "--one", root])
-        if done.returncode != 0:
-            return done.returncode
+        sys.exit(f"usage: chip_ab.py [--kernels {kernels}] CHECKOUT ...")
+    with tempfile.TemporaryDirectory() as cache:
+        env = {**os.environ, "CHIP_AB_CACHE": cache}
+        for root in argv:
+            done = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                   "--kernels", kernels, "--one", root],
+                                  env=env)
+            if done.returncode != 0:
+                return done.returncode
     return 0
 
 

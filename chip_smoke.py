@@ -16,9 +16,10 @@ prints one JSON object per phase, then the kernels line, the card's
                     at both presets (kernels 1 and 2 at P=24; kernels 3 and
                     4 at P=12 and P=16), the range decodes (kernel 5 at
                     P=24, kernel 6 at P=12 and P=16), the S=64 exact
-                    table decodes (kernels 15 and 16), the family
-                    decode (kernel 11, each family) and the TChain
-                    cluster encodes (kernels 20, 24 and 22's step):
+                    table decodes (kernels 15 and 16), the S=32 one
+                    (kernel 13), the family decode (kernel 11, each
+                    family) and the TChain cluster encodes (kernels 20,
+                    24 and 22's step):
                     the decode's cluster size,
                     CTAs, threads, lanes per thread, the card's maximum of
                     such active clusters (more than one CTA, or the run
@@ -26,11 +27,12 @@ prints one JSON object per phase, then the kernels line, the card's
                     is in shared memory, the encode's pass-A grid, and
                     ptxas' registers and spills for their kernels at each
                     preset and lanes a thread and for the lane passes of
-                    kernels 21, 23, 19, 22, 8, 10 and 17.  A spill in the
-                    range decodes or kernels 11, 15, 16, 20, 24 and 22 at 2
-                    or 4 lanes a thread, or in those lane passes, fails
-                    the run, as does kernel 11, 16, 20, 24 or 22 on fewer
-                    than 16 CTAs at L=32768.
+                    kernels 21, 23, 19, 8, 10, 17 and 12 and the family
+                    tables pass (kernels 22 and 12).  A spill in the
+                    range decodes or kernels 11, 13, 15, 16, 20, 24 and 22
+                    at 2 or 4 lanes a thread, or in those lane passes,
+                    fails the run, as does kernel 11, 13, 16, 20, 24 or
+                    22 on fewer than 16 CTAs at L=32768.
 2. kernels       -- each rANS kernel against its plain PyTorch twin on the
                     same CUDA tensors and against the numpy host oracle
                     (L=32768, about 2^20 symbols, with and without seeds):
@@ -91,9 +93,10 @@ prints one JSON object per phase, then the kernels line, the card's
                     all four families, L=32768 (about 2^20 symbols with a
                     partial last step; 32 full steps for TChain): states,
                     heads, words, quantiles and symbols identical; the
-                    TChain-12 decode's three steps (inversion, heads,
-                    pass B) and the encode's tables pass also launched
-                    alone, each against its plain version.
+                    rANS encode's three steps (tables pass, pass A, pass
+                    B), the TChain-12 decode's three steps (inversion,
+                    heads, pass B) and its encode's tables pass also
+                    launched alone, each against its plain version.
 11. family_main_path -- the JAX package's family benchmark workload (2^23
                     symbols, gaussian, support [-100, 100], seed 1234)
                     through ``cuda.encode_family`` -> ``decode_family`` and
@@ -108,8 +111,9 @@ prints one JSON object per phase, then the kernels line, the card's
                     entry for each of the four families (each on its own
                     encode's stream); the TChain-12 decode's three steps
                     timed apart, and the whole decode at 2^24 quantiles
-                    too; the TChain-12 encode's tables pass apart from
-                    its cluster step and packing pass.
+                    too; the rANS encode's three steps timed apart; the
+                    TChain-12 encode's tables pass apart from its
+                    cluster step and packing pass.
 13. checkpoints  -- random access: on the v2 and v1 containers of the rANS
                     main path at both presets, ``cuda.build_checkpoints``
                     then ``cuda.decode_from_checkpoint`` from the middle
@@ -219,10 +223,13 @@ prints one JSON object per phase, then the kernels line, the card's
                     over the main path's planes and tables, the twins'
                     time on the card (outputs equal), the facade's call
                     times and host share, each kernel's bound (kernel 13:
-                    the table words on the binary search's path), and the
+                    the table words on the binary search's path), the
                     narrow search sweep (scan and binary search at table
                     widths from the tight one to 128 planes) that fixes
-                    ``exact_family.BISECT_FROM_PLANES_NARROW``.
+                    ``exact_family.BISECT_FROM_PLANES_NARROW``, and
+                    kernel 13's time per step at T=256 steps over L=128
+                    .. 65536 on the main path's tables, tiled (the floor
+                    and slope as phase 5 fits them).
 
 Each main path runs with every launch counter set to 0 just before it, and
 the counts read just after it are the ``launches`` of its kernels.
@@ -357,7 +364,7 @@ EXACT_KERNELS = {
 EXACT32_KERNELS = {
     "exact_decode32": ("exact", "decode32",
                        "constriction_tpu/ops/exact_family.py:1106",
-                       EXACT_SOURCE),
+                       WIDE_SOURCE),
     "exact_encode32": ("exact", "encode32",
                        "constriction_tpu/ops/exact_family.py:1148",
                        EXACT_SOURCE),
@@ -537,17 +544,18 @@ def ptxas_usage(log: str, marks: tuple) -> dict:
 
 
 # the kernels ptxas must compile without spilling: the range decodes at
-# both presets, the S=64 exact table decodes (kernels 15 and 16), the
-# family decode (kernel 11, each family) and the TChain encodes (kernels
-# 20, 24 and 22's cluster step) at 2 and 4 lanes a thread (L = 32768 and
-# 65536), the TChain-12 decode's first two passes (kernel 21), the
-# TChain-24 and TChain-16 decodes' head passes (kernels 23 and 19), the
-# TChain-12 encode's tables pass (kernel 22), the range resolves' lane
-# passes (kernels 8 and 10) and kernel 17's pass A
+# both presets, the exact table decodes (kernels 15 and 16 at S=64, 13 at
+# S=32), the family decode (kernel 11, each family) and the TChain encodes
+# (kernels 20, 24 and 22's cluster step) at 2 and 4 lanes a thread (L =
+# 32768 and 65536), the TChain-12 decode's first two passes (kernel 21),
+# the TChain-24 and TChain-16 decodes' head passes (kernels 23 and 19), the
+# family tables pass (kernels 22 and 12), the range resolves' lane passes
+# (kernels 8 and 10) and the pass A of kernels 17 and 12
 NO_SPILL = (r"cluster_range_decode_kernelILi32ELi64ELi[24]E",
             r"cluster_range_decode_kernelILi16ELi32ELi[24]E",
             r"cluster_decode_kernelILi32ELi64ELi[24]E.*TableModelELb0E",
             r"cluster_decode_kernelILi32ELi64ELi[24]E.*TableModelELb1E",
+            r"cluster_decode_kernelILi16ELi32ELi[24]E.*NarrowTableModel",
             *(rf"cluster_decode_kernelILi16ELi32ELi[24]E.*FamilyModelILi{k}EE"
               for k in range(4)),
             r"cluster_tchain_encode_kernelILi32ELi64ELi24ELi[24]E",
@@ -555,23 +563,25 @@ NO_SPILL = (r"cluster_range_decode_kernelILi32ELi64ELi[24]E",
             r"cluster_tchain_encode_kernelILi16ELi32ELi12ELi[24]E",
             r"tchain12_invert_kernel", r"tchain_heads_kernelILi16ELi32ELi12E",
             r"tchain_heads_kernelILi32ELi64ELi24E",
-            r"tchain_heads_kernelILi16ELi32ELi16E", r"tchain12_tables_kernel",
+            r"tchain_heads_kernelILi16ELi32ELi16E", r"family_tables_kernel",
             r"range_resolve_lanes_kernelILi16ELi32E",
             r"range_resolve_lanes_kernelILi32ELi64E",
-            r"encode_lanes_kernelILi32ELi64E.*PlaneLanesModel")
+            r"encode_lanes_kernelILi32ELi64E.*PlaneLanesModel",
+            r"encode_lanes_kernelILi16ELi32E.*RecordLanesModel")
 
 
 def phase_geometry(device) -> dict:
     """Launch geometry of the cluster decodes and the two-pass encodes: the
     rANS pairs (kernels 1 and 2 at P=24, kernels 3 and 4 at P=12 and P=16),
     the range decodes (kernel 5 at P=24, kernel 6 at P=12 and P=16), the
-    S=64 exact table decodes (kernels 15 and 16), the family decode
-    (kernel 11, each family) and the TChain cluster encodes (kernels 20,
-    24 and 22's step) at bench.py's lane counts for its K, and what ptxas
-    reported for their kernels at each preset and lanes a thread and for
-    the lane passes of kernels 21, 23, 19, 22, 8, 10 and 17.  Fails on a
-    spill in a kernel of NO_SPILL, and unless kernels 11, 16, 20, 24 and
-    22 run on 16 CTAs at L=32768."""
+    exact table decodes (kernels 15 and 16 at S=64, kernel 13 at S=32),
+    the family decode (kernel 11, each family) and the TChain cluster
+    encodes (kernels 20, 24 and 22's step) at bench.py's lane counts for
+    its K, and what ptxas reported for their kernels at each preset and
+    lanes a thread and for the lane passes of kernels 21, 23, 19, 8, 10,
+    17 and 12 and the family tables pass.  Fails on a spill in a kernel of
+    NO_SPILL, and unless kernels 11, 13, 16, 20, 24 and 22 run on 16 CTAs
+    at L=32768."""
     import re
 
     from constriction_tpu_torch.ops import _build, coder, coder64
@@ -594,6 +604,9 @@ def phase_geometry(device) -> dict:
     rows += [{"kernel": 16 if seg else 15, "preset": "w32s64",
               "num_lanes": L, "P": EXACT_P, **ef.geometry(L, device, seg)}
              for L in (32768, BENCH_LANES) for seg in (False, True)]
+    rows += [{"kernel": 13, "preset": "w16s32", "num_lanes": L,
+              "P": EXACT32_P, **ef.geometry(L, device, narrow=True)}
+             for L in (32768, BENCH_LANES)]
     rows += [{"kernel": 11, "preset": "w16s32", "num_lanes": L, "P": 12,
               "family": family, **fam.geometry(L, family, device)}
              for L in (32768, BENCH_LANES) for family in fam.FAMILIES]
@@ -612,7 +625,7 @@ def phase_geometry(device) -> dict:
         if row["cluster"] < 2:
             fail(f"geometry: kernel {row['kernel']} runs on one CTA at "
                  f"L={row['num_lanes']}")
-        if (row["kernel"] in (11, 16, 20, 22, 24)
+        if (row["kernel"] in (11, 13, 16, 20, 22, 24)
                 and row["num_lanes"] == 32768 and row["ctas"] != 16):
             fail(f"geometry: kernel {row['kernel']} runs on {row['ctas']} "
                  f"CTAs at L=32768")
@@ -634,7 +647,7 @@ def phase_geometry(device) -> dict:
                                        "encode_lanes_kernelILi16ELi32E",
                                        "cluster_range_decode_kernel",
                                        "tchain12_invert_kernel",
-                                       "tchain12_tables_kernel",
+                                       "family_tables_kernel",
                                        "tchain_heads_kernel",
                                        "cluster_tchain_encode_kernel",
                                        "range_resolve_lanes_kernel",
@@ -1404,11 +1417,14 @@ def phase_family_math(device) -> dict:
 
 
 def family_case(device, cfg, family, means, scales, symbols, errs) -> dict:
-    """The rANS family pair against its twins and the numpy host oracles."""
+    """The rANS family pair against its twins and the numpy host oracles;
+    the encode's three steps also launched alone, each against its plain
+    version on the same tensors."""
     import numpy as np
     import torch
 
     from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import coder
     from constriction_tpu_torch.ops import family as fam
     from constriction_tpu_torch.ops import interleaved2 as il2
 
@@ -1421,9 +1437,22 @@ def family_case(device, cfg, family, means, scales, symbols, errs) -> dict:
     cums, probs = fam.family_tables_host(symbols, means, scales, family, lo,
                                          hi)
     st_h, w_h = il2.encode_shared(cums, probs, cfg)
+    # (a) the tables pass, (b) pass A, (c) pass B, each alone
+    recs = fam.family_tables_pass(syms, mu, sg, family, lo, hi, cfg)
+    e_a = mismatch(recs, fam.family_tables_pass_plain(syms, mu, sg, family,
+                                                      lo, hi))
+    words, ballots, states = fam.family_lanes_pass(recs, cfg)
+    words_p, flags_p, states_p = fam.family_lanes_pass_plain(recs, n, cfg)
+    e_b = max(mismatch(ballots, coder.flag_ballots(flags_p)),
+              mismatch(words[flags_p], words_p[flags_p]),
+              mismatch(states, states_p))
+    stream = coder.compact_pass(words, ballots)
+    e_c = max(mismatch(stream, coder.compact_pass_plain(words_p, flags_p)),
+              planes_err((states, stream), (st_p, w_p)))
     e_enc = max(mismatch(st, st_p), mismatch(w, w_p),
                 mismatch(st, convert.u32_to_torch(st_h, device)),
-                mismatch(w, convert.u32_to_torch(w_h, device)))
+                mismatch(w, convert.u32_to_torch(w_h, device)), e_a, e_b,
+                e_c)
     out, fin = fam.decode_family(st, w, mu, sg, family, lo, hi, cfg, n,
                                  return_final_states=True)
     out_p, fin_p = fam.decode_family_plain(st, w, mu, sg, family, lo, hi, cfg,
@@ -1438,6 +1467,8 @@ def family_case(device, cfg, family, means, scales, symbols, errs) -> dict:
     errs["family_decode"] = max(errs.get("family_decode", 0), e_dec)
     row = {"coder": "rans", "family": family, "n": n, "num_lanes": L,
            "words": int(w.numel()), "encode_max_abs_err": e_enc,
+           "tables_pass_max_abs_err": e_a, "pass_a_max_abs_err": e_b,
+           "pass_b_max_abs_err": e_c,
            "decode_max_abs_err": e_dec, "round_trip": round_trip}
     if e_enc or e_dec or not round_trip:
         fail(f"family kernel != twin or host oracle, or no round trip: {row}")
@@ -1622,16 +1653,35 @@ def phase_family_times(device, work, gpu: str,
 
     i32 = {"dtype": torch.int32, "device": device}
     s_buf, h_buf = torch.empty(L, **i32), torch.empty(L, **i32)
-    tab, o_buf = torch.empty(L, **i32), torch.empty(n, **i32)
+    o_buf = torch.empty(n, **i32)
     w_buf, q_buf = torch.empty(n, **i32), torch.empty_like(qw)
     end = torch.empty(1, dtype=torch.int64, device=device)
+    # kernel 12's scratch: a division record (8 bytes) a symbol, the dense
+    # words, the ballots and the compaction's block offsets
+    recs12 = torch.empty(n, dtype=torch.int64, device=device)
+    words12, flags12, offsets12 = coder.compaction_scratch(T, L, device)
     ms = {}
     ms["family_encode"] = kernel_ms(
         lambda: s_buf.fill_(1 << 16), lambda: _build.call(
-            "ctt_family_encode", device, s_buf, syms, n, mu, sg, tab, w_buf,
-            n, end, L, fi, lo, hi), 3)
+            "ctt_family_encode", device, s_buf, syms, n, mu, sg, recs12,
+            w_buf, n, end, words12, flags12, offsets12, L, fi, lo, hi), 3)
     same = (torch.equal(s_buf, st)
             and torch.equal(w_buf[int(end.item()):], w))
+    # its three steps apart: (a) tables, (b) pass A, (c) pass B
+    enc12_passes = {
+        "tables": kernel_ms(lambda: None, lambda: _build.call(
+            "ctt_family_tables_pass", device, syms, mu, sg, recs12, n, fi,
+            lo, hi), 3),
+        "pass_a": kernel_ms(lambda: s_buf.fill_(1 << 16), lambda: _build.call(
+            "ctt_family_encode_lanes", device, s_buf, recs12, n, words12,
+            flags12, L), 3),
+        "pass_b": kernel_ms(lambda: None, lambda: _build.call(
+            "ctt_ilans2_compact", device, flags12, words12, flags12.numel(),
+            w_buf, n, end, offsets12), 3),
+    }
+    same = (same and torch.equal(s_buf, st)
+            and torch.equal(w_buf[int(end.item()):], w))
+    del recs12, words12, flags12
     ms["family_decode"] = kernel_ms(
         lambda: s_buf.copy_(st), lambda: _build.call(
             "ctt_family_decode", device, s_buf, w, nw, mu, sg, o_buf, n, L,
@@ -1797,6 +1847,10 @@ def phase_family_times(device, work, gpu: str,
         **{f"family_decode_{k}_bound_ms": bound(
             8 * L + 4 * family_words[k] + 8 * n + 4 * n,
             n * (steps * (LEFT_OPS[k] + 6) + 8))[0] for k in per_family},
+        **{f"family_encode_{k}_ms": v for k, v in enc12_passes.items()},
+        # symbols and parameters in, records out
+        "family_encode_tables_bound_ms": bound(
+            4 * n + 8 * n + 8 * n, (2 * n - ends) * per_left)[0],
         **{f"tchain12_family_decode_{k}_ms": v for k, v in passes.items()},
         "tchain12_family_decode_invert_bound_ms": bound(
             q_bytes + 8 * n + 8 * n, decode_ops)[0],
@@ -3368,6 +3422,50 @@ def search_sweep32(device, cases) -> tuple[list, int | None]:
     return rows, from_planes
 
 
+def sweep32_lanes(device, tabs, cums, probs, syms, lo, hi) -> tuple:
+    """Kernel 13 per coding step at SWEEP_STEPS steps over SWEEP_LANES lanes
+    (the default search for the tables' width), as phase_sweep times the
+    rANS pairs: the main path's n symbols repeated (symbol i of a sweep
+    message is symbol i mod n, with its table column and planes), encoded
+    by kernel 14, decoded through the C entry alone (CUDA events around it,
+    the states reset outside them) and checked against the symbols.
+    Returns the rows and sweep_fit's floor and slope."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import exact_family as ef
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    T, CP1, L0 = tabs.shape
+    n = T * L0
+    cols = tabs.permute(1, 0, 2).reshape(CP1, n)
+    bisect = int(ef.bisect_tables(CP1, True))
+    rows, us = [], []
+    for L in SWEEP_LANES:
+        cfg = LaneConfig(num_lanes=L, word_bits=16, state_bits=32,
+                         precision=EXACT32_P)
+        m = L * SWEEP_STEPS
+        idx = np.arange(m) % n
+        tb = cols[:, torch.from_numpy(idx).to(device)].reshape(
+            CP1, SWEEP_STEPS, L).permute(1, 0, 2).contiguous()
+        c_t, p_t = convert.ecp_to_torch(cums[idx], probs[idx], L, device)
+        st, w = ef.encode_tables(c_t, p_t, cfg, None, m)
+        s_buf = torch.empty_like(st)
+        o_buf = torch.empty(m, dtype=torch.int32, device=device)
+        ms = kernel_ms(lambda: s_buf.copy_(st), lambda: decode32_launch(
+            device, s_buf, w, tb, o_buf, m, cfg, lo, hi, bisect), 3)
+        if not np.array_equal(o_buf.cpu().numpy(), syms[idx]):
+            fail(f"sweep32_lanes: kernel 13 L={L} round trip")
+        us.append(ms * 1e3 / SWEEP_STEPS)
+        rows.append({"kernel": 13, "num_lanes": L, "steps": SWEEP_STEPS,
+                     "planes": CP1, "bisect": bool(bisect),
+                     "decode_ms": ms, "decode_us_per_step": us[-1],
+                     **ef.geometry(L, device, narrow=True)})
+        del tb, c_t, p_t, st, w
+    return rows, sweep_fit(list(SWEEP_LANES), us)
+
+
 def phase_exact32_times(device, work, keep: dict, gpu: str,
                         errs: dict) -> tuple[dict, dict]:
     """Kernel-only time of kernels 14 and 13 at the main path's shapes (CUDA
@@ -3420,6 +3518,8 @@ def phase_exact32_times(device, work, keep: dict, gpu: str,
         fail(f"exact32_times: kernel != twin at full size: {e}")
     sweep, from_planes = search_sweep32(device, [
         *keep["sweep_cases"], (st, w, tabs, n, cfg, lo, hi)])
+    lanes_rows, lanes_fit = sweep32_lanes(device, tabs, keep["cums"],
+                                          keep["probs"], syms, lo, hi)
 
     words, probes = search_path_words(tabs, keep["cums"], n, narrow=True)
     bounds = {
@@ -3448,6 +3548,8 @@ def phase_exact32_times(device, work, keep: dict, gpu: str,
         **{f"facade_{k}_host_share": 1 - ms[v] * 1e-3 / calls[k]
            for k, v in kernel_of.items()},
         "search_by_width": sweep,
+        "decode32_by_lanes": lanes_rows,
+        "decode32_sweep_fit": lanes_fit,
         "bisect_from_planes_measured": from_planes,
         "BISECT_FROM_PLANES_NARROW": ef.BISECT_FROM_PLANES_NARROW,
         "gpu": gpu,

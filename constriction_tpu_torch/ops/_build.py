@@ -70,8 +70,14 @@ _FAMILY_DECODE_ARGS = [_P, _P, _I64, _P, _P, _P, _I64, _I32, *_FAMILY_TAIL]
 _FAMILY_DECODE_CLUSTER_ARGS = [*_FAMILY_DECODE_ARGS[:11], _I32, _P, _I32]
 # L, family index, cluster size, out[5]
 _FAMILY_GEOMETRY_ARGS = [_I32, _I32, _I32, _P, _P, _I32]
-_FAMILY_ENCODE_ARGS = [_P, _P, _I64, _P, _P, _P, _P, _I64, _P, _I32,
-                       *_FAMILY_TAIL]
+# kernel 12: states, syms, n, means, scales, records, buf, cap, end_out,
+# then the compaction's scratch (dense words, ballots, offsets), L
+_FAMILY_ENCODE_ARGS = [_P, _P, _I64, _P, _P, _P, _P, _I64, _P, _P, _P, _P,
+                       _I32, *_FAMILY_TAIL]
+# its tables pass: syms, means, scales, records, n
+_FAMILY_TABLES_ARGS = [_P, _P, _P, _P, _I64, *_FAMILY_TAIL]
+# its pass A: states, records, n, words, flags, L
+_FAMILY_LANES_ARGS = [_P, _P, _I64, _P, _P, _I32, _P, _I32]
 _FAMILY_LEFT_ARGS = [_P, _P, _P, _P, _I64, *_FAMILY_TAIL]
 # after end_out: the scratch (records, dense words, ballots, compaction
 # offsets)
@@ -117,6 +123,8 @@ _EXACT_DECODE_ARGS = [_P, _P, _I64, _P, _I32, _P, _I64, _I32, _I32, _I32,
 _EXACT_DECODE_CLUSTER_ARGS = [*_EXACT_DECODE_ARGS[:13], _I32, _P, _I32]
 # L, seg (kernel 16's instance), out[5]
 _EXACT_GEOMETRY_ARGS = [_I32, _I32, _P, _P, _I32]
+# kernel 13's: L, out[5]
+_EXACT_GEOMETRY32_ARGS = [_I32, _P, _P, _I32]
 _EXACT_EVAL_ARGS = [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _D, _D,
                     _I32, _P, _P, _P, _I32]
 SIGNATURES = {
@@ -147,6 +155,8 @@ SIGNATURES = {
     "ctt_family_decode_cluster": _FAMILY_DECODE_CLUSTER_ARGS,
     "ctt_family_geometry": _FAMILY_GEOMETRY_ARGS,
     "ctt_family_encode": _FAMILY_ENCODE_ARGS,
+    "ctt_family_tables_pass": _FAMILY_TABLES_ARGS,
+    "ctt_family_encode_lanes": _FAMILY_LANES_ARGS,
     "ctt_family_left": _FAMILY_LEFT_ARGS,
     "ctt_tchain16_decode": _TCHAIN_DECODE_ARGS,
     "ctt_tchain16_head_pass": _TCHAIN_HEADS_ARGS,
@@ -171,9 +181,11 @@ SIGNATURES = {
     "ctt_exact_encode32": _EXACT_ENCODE_ARGS,
     "ctt_exact_decode64": _EXACT_DECODE_ARGS,
     "ctt_exact_decode32": _EXACT_DECODE_ARGS,
+    "ctt_exact_decode32_cluster": _EXACT_DECODE_CLUSTER_ARGS,
     "ctt_exact_decode64_seg": _EXACT_DECODE_ARGS,
     "ctt_exact_decode64_seg_cluster": _EXACT_DECODE_CLUSTER_ARGS,
     "ctt_exact_geometry64": _EXACT_GEOMETRY_ARGS,
+    "ctt_exact_geometry32": _EXACT_GEOMETRY32_ARGS,
     "ctt_exact_eval_window": _EXACT_EVAL_ARGS,
 }
 

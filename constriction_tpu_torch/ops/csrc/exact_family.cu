@@ -14,17 +14,18 @@
 //   constriction_tpu/ops/exact_family.py  _build_exact_decoder       (13)
 // and holds the same wire format and table layout.
 //
-// Kernels 13 and 14 are the ILANS2 loops of ilans2.cuh (one block, a warp
+// Kernel 14 is the ILANS2 encode loop of ilans2.cuh (one block, a warp
 // ballot and block scan per step for the shared word stream, states in
-// device memory, native uint32_t state algebra and division), instantiated
-// over the models below; ilans2.cuh's header says what bounds those loops.
-// Kernel 17 is ilans2_wide.cuh's two-pass encode over PlaneLanesModel:
-// pass A (encode_lanes_kernel, one thread per lane over the grid, the
-// state in a register, the planes read two steps ahead, the division from
-// an f64 estimate, words and renorm ballots to dense scratch) and pass B (launch_compact, the row-major
-// compaction of kernel 2).  Kernels 15 and 16 are ilans2_wide.cuh's
+// device memory, native uint32_t state algebra and division) over
+// PlaneModel; ilans2.cuh's header says what bounds that loop.  Kernel 17
+// is ilans2_wide.cuh's two-pass encode over PlaneLanesModel: pass A
+// (encode_lanes_kernel, one thread per lane over the grid, the state in a
+// register, the planes read two steps ahead, the division from an f64
+// estimate, words and renorm ballots to dense scratch) and pass B
+// (launch_compact, the row-major compaction of kernel 2).  Kernels 15 and 16 are ilans2_wide.cuh's
 // cluster decode over TableModel (up to 16 CTAs, states in registers, one
-// exchange per step); kernel 16 is its Seg instance, which starts from
+// exchange per step), kernel 13 the same decode at W=16, S=32 over
+// NarrowTableModel; kernel 16 is its Seg instance, which starts from
 // stream word *base_io and writes the next segment's first word back
 // there, so the segments of a grouped message chain on the card with no
 // host round trip.  The TPU kernels' chunked table DMA, their 40x25-bit
@@ -72,11 +73,15 @@
 // no-successor value past the last field is 0xFFFF (0x10000 in b space,
 // only ever used through min(nxtc, rstart)).  The scan and the binary
 // search (the wrapper picks by width, ops/exact_family.py
-// BISECT_FROM_PLANES_NARROW: on an H100 the binary search was the faster
-// from 7 planes up) run over the 2 (CP1 - 1) fields.  What bounds
-// it: the table words a lane reads (4 + 2 (CP1 - 1) bytes a symbol for the
-// scan, about log2(2 (CP1 - 1)) + 2 dependent words for the search) by one
-// SM.
+// BISECT_FROM_PLANES_NARROW) run over the 2 (CP1 - 1) fields, the binary
+// search over a thread's R lanes in lock step as kernel 15's does.  What
+// bounds it: the table words on a lane's search path (about log2(2 (CP1 -
+// 1)) + 2 dependent words a symbol; the scan reads 4 + 2 (CP1 - 1) bytes,
+// independent loads) and the cluster step's exchange.  On an NVIDIA H100
+// 80GB HBM3 at 700 W a step of the facade's default call (75 planes) took
+// 6.2-6.6 us at 2 lanes a thread (L = 4096 .. 32768), 2.8 at L = 128 and
+// 14.5 at 4 lanes a thread (chip_smoke.py, exact32_times): 0.24 ms at 2^20
+// symbols, L = 32768, against 4.2-4.3 ms on one block (chip_ab.py).
 
 #include "ilans2.cuh"
 #include "ilans2_wide.cuh"
@@ -311,9 +316,18 @@ struct TableModel {
   }
 };
 
-// Kernel 13's model: narrow tables [T, CP1, L], field k in the 16-bit half
-// k & 1 of plane 1 + k / 2.  The same two searches as TableModel over the
-// 2 (CP1 - 1) fields, with the pad 0xFFFF past the last one.
+// Kernel 13's model (ilans2_wide.cuh's cluster decode): narrow tables [T,
+// CP1, L], field k in the 16-bit half k & 1 of plane 1 + k / 2.  The same
+// two searches as TableModel over the N = 2 (CP1 - 1) fields, with the pad
+// 0xFFFF past the last one.  The binary search is TableModel's lock-step
+// lower bound (one load a probe and no funnel shift: a field never spans
+// two words); its last level reads, a lane at a time, the field at the
+// bound and its successor with the aux word.  The field before the bound,
+// which TableModel also reads, is never needed: the bound moves past 0
+// only onto a field below q, so cnt = 0 exactly when base is 0 and field
+// 0 is not below q.  cnt, cumc and nxtc equal the scan's
+// (exact_family.py, invert_tables_bisect, is this probe order in plain
+// PyTorch).  Lanes past L read lane L - 1's column.
 struct NarrowTableModel {
   const uint32_t* tabs;
   int CP1, L, P, min_sym, span, free;
@@ -321,60 +335,90 @@ struct NarrowTableModel {
 
   __device__ void stage(uint32_t*) {}
 
-  __device__ uint32_t field(const uint32_t* col, int k) const {
-    const uint32_t w = col[static_cast<int64_t>(1 + (k >> 1)) * L];
+  // field k of lane l of the step whose aux plane starts at `step`
+  __device__ uint32_t field_at(const uint32_t* step, int l, int k) const {
+    const uint32_t w = step[static_cast<int64_t>(1 + (k >> 1)) * L + l];
     return (w >> (16 * (k & 1))) & 0xFFFFu;
   }
 
-  __device__ int invert(int t, int l, uint32_t q, uint32_t& cum,
-                        uint32_t& prob) const {
-    const uint32_t* col = tabs + static_cast<int64_t>(t) * CP1 * L + l;
-    const uint32_t aux = col[0];
-    const int cl = static_cast<int>(aux & 0xFFFFu);
-    const int nc = static_cast<int>(aux >> 16);
-    const int N = 2 * (CP1 - 1);
-    int cnt = 0;
-    uint32_t cumc = 0xFFFFFFFFu;  // b - 1 of the last field below q
-    uint32_t nxtc = 0;            // b - 1 of its successor
-    if (bisect) {
-      int lo = 0, hi = N;  // cnt = the number of fields below q
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (field(col, mid) < q) {
-          lo = mid + 1;
-        } else {
-          hi = mid;
-        }
+  // the select scan over all fields of one lane (the Pallas body's
+  // semantics)
+  __device__ void scan(const uint32_t* col, uint32_t q, int& cnt,
+                       uint32_t& cumc, uint32_t& nxtc) const {
+    uint32_t pend = 0;  // the field awaiting its successor
+    auto take = [&](uint32_t b, uint32_t bn) {
+      if (b < q) {
+        ++cnt;
+        cumc = b;
+        nxtc = bn;
       }
-      cnt = lo;
-      if (cnt > 0) cumc = field(col, cnt - 1);
-      nxtc = cnt < N ? field(col, cnt) : 0xFFFFu;
-    } else {
-      uint32_t pend = 0;  // the field awaiting its successor
-      auto take = [&](uint32_t b, uint32_t bn) {
-        if (b < q) {
-          ++cnt;
-          cumc = b;
-          nxtc = bn;
-        }
-      };
+    };
 #pragma unroll 4
-      for (int g = 0; g < CP1 - 1; ++g) {
-        const uint32_t w = col[static_cast<int64_t>(1 + g) * L];
-        const uint32_t b0 = w & 0xFFFFu;
-        const uint32_t b1 = w >> 16;
-        if (g == 0) {
-          nxtc = b0;  // covers cnt == 0
-        } else {
-          take(pend, b0);
-        }
-        take(b0, b1);
-        pend = b1;
+    for (int g = 0; g < CP1 - 1; ++g) {
+      const uint32_t w = col[static_cast<int64_t>(1 + g) * L];
+      const uint32_t b0 = w & 0xFFFFu;
+      const uint32_t b1 = w >> 16;
+      if (g == 0) {
+        nxtc = b0;  // covers cnt == 0
+      } else {
+        take(pend, b0);
       }
-      take(pend, 0xFFFFu);
+      take(b0, b1);
+      pend = b1;
     }
-    return exact_regions(q, cl, nc, cnt, cumc, nxtc, P, span, free, min_sym,
-                         cum, prob);
+    take(pend, 0xFFFFu);
+  }
+
+  template <int R>
+  __device__ void invert_lanes(int t, const int (&l)[R],
+                               const uint32_t (&q)[R], int (&sym)[R],
+                               uint32_t (&cum)[R], uint32_t (&prob)[R]) const {
+    const uint32_t* step = tabs + static_cast<int64_t>(t) * CP1 * L;
+    if (bisect) {
+      const int N = 2 * (CP1 - 1);
+      int base[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) base[r] = 0;
+      for (int len = N; len > 1;) {
+        const int half = len >> 1;
+        uint32_t f[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          f[r] = field_at(step, min(l[r], L - 1), base[r] + half);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (f[r] < q[r]) base[r] += half;
+        }
+        len -= half;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int lc = min(l[r], L - 1);
+        const uint32_t aux = step[lc];
+        const uint32_t fb = field_at(step, lc, base[r]);
+        const uint32_t fn = field_at(step, lc, min(base[r] + 1, N - 1));
+        const bool below = fb < q[r];
+        const uint32_t cumc = below ? fb : 0xFFFFFFFFu;
+        const uint32_t nxtc = !below ? fb : base[r] + 1 < N ? fn : 0xFFFFu;
+        sym[r] = exact_regions(q[r], static_cast<int>(aux & 0xFFFFu),
+                               static_cast<int>(aux >> 16),
+                               base[r] + (below ? 1 : 0), cumc, nxtc, P, span,
+                               free, min_sym, cum[r], prob[r]);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const uint32_t* col = step + min(l[r], L - 1);
+        int cnt = 0;
+        uint32_t cumc = 0xFFFFFFFFu, nxtc = 0;
+        scan(col, q[r], cnt, cumc, nxtc);
+        const uint32_t aux = col[0];
+        sym[r] = exact_regions(q[r], static_cast<int>(aux & 0xFFFFu),
+                               static_cast<int>(aux >> 16), cnt, cumc, nxtc,
+                               P, span, free, min_sym, cum[r], prob[r]);
+      }
+    }
   }
 };
 
@@ -465,20 +509,28 @@ bool table_args(int L, int P, int CP1, long long span, long long free,
   return valid_exact(L, P, wide) && planes_ok && span >= 1 && free >= 2;
 }
 
-// The single-block decode of kernel 13 (NarrowTableModel, S=32).
-template <int W, int S, class Model>
-int launch_decode(void* states, const void* stream, long long slen,
-                  const void* tabs, int CP1, void* syms, long long n, int L,
-                  int P, int min_sym, int max_sym, int bisect,
-                  void* cuda_stream, int device) {
-  auto kernel = ilans2_decode_kernel<W, S, Model>;
-  const size_t bytes = table_smem_bytes(L);
+// Kernels 15 and 16 (W=32, S=64, TableModel) and 13 (W=16, S=32,
+// NarrowTableModel): ilans2_wide.cuh's cluster decode (the tables stay in
+// device memory; no dynamic shared memory) on `cluster` CTAs (0: the size
+// picked from L).  Seg (kernel 16) starts from stream word *base_io and
+// writes the next segment's first word back there.
+template <int W, int S, class Model, bool Seg>
+int launch_cluster_table_decode(void* states, const void* stream,
+                                long long slen, const void* tabs, int CP1,
+                                void* syms, long long n, int L, int P,
+                                int min_sym, int max_sym, int bisect,
+                                void* base_io, int cluster, void* cuda_stream,
+                                int device) {
   const long long span = static_cast<long long>(max_sym) - min_sym;
   const long long free = (1ll << P) - 1 - span;
-  if (!table_args(L, P, CP1, span, free, S == 64)) {
+  if (!table_args(L, P, CP1, span, free, S == 64) ||
+      (Seg && base_io == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t err = prepare(kernel, device, bytes);
+  ClusterGeometry geo;
+  ClusterDecodeFn<W, S, Model, Seg> kernel;
+  cudaError_t err = plan_cluster_decode<W, S, Model, Seg>(
+      L, cluster, 0, device, &geo, &kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   const int T = static_cast<int>((n + L - 1) / L);
@@ -490,55 +542,32 @@ int launch_decode(void* states, const void* stream, long long slen,
                     static_cast<int>(span),
                     static_cast<int>(free),
                     bisect != 0};
-  kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<typename StateOf<S>::type*>(states),
-      static_cast<const uint32_t*>(stream), slen, model,
-      static_cast<int32_t*>(syms), n, L, P, T);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Kernels 15 and 16: ilans2_wide.cuh's cluster decode over TableModel (the
-// tables stay in device memory; no dynamic shared memory) on `cluster`
-// CTAs (0: the size picked from L).  Seg (kernel 16) starts from stream
-// word *base_io and writes the next segment's first word back there.
-template <bool Seg>
-int launch_cluster_table_decode(void* states, const void* stream,
-                                long long slen, const void* tabs, int CP1,
-                                void* syms, long long n, int L, int P,
-                                int min_sym, int max_sym, int bisect,
-                                void* base_io, int cluster, void* cuda_stream,
-                                int device) {
-  const long long span = static_cast<long long>(max_sym) - min_sym;
-  const long long free = (1ll << P) - 1 - span;
-  if (!table_args(L, P, CP1, span, free, true) ||
-      (Seg && base_io == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  ClusterGeometry geo;
-  ClusterDecodeFn<32, 64, TableModel, Seg> kernel;
-  cudaError_t err = plan_cluster_decode<32, 64, TableModel, Seg>(
-      L, cluster, 0, device, &geo, &kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const int T = static_cast<int>((n + L - 1) / L);
-  const TableModel model{static_cast<const uint32_t*>(tabs),
-                         CP1,
-                         L,
-                         P,
-                         min_sym,
-                         static_cast<int>(span),
-                         static_cast<int>(free),
-                         bisect != 0};
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(
       geo, 0, static_cast<cudaStream_t>(cuda_stream), &attr);
   err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<uint64_t*>(states),
+      &cfg, kernel, static_cast<typename StateOf<S>::type*>(states),
       static_cast<const uint32_t*>(stream), static_cast<int64_t>(slen), model,
       static_cast<int32_t*>(syms), static_cast<int64_t>(n), L, P, T,
       geo.groups_per_cta, static_cast<int64_t*>(Seg ? base_io : nullptr));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The geometry of a table decode for L lanes (the cluster size it picks)
+// into out[5]: cluster size, groups per CTA, lanes per thread, threads per
+// CTA, the card's maximum of active clusters of that shape.
+template <int W, int S, class Model, bool Seg>
+int table_geometry(int L, long long* out, int device) {
+  ClusterGeometry geo;
+  ClusterDecodeFn<W, S, Model, Seg> kernel;
+  const cudaError_t err =
+      plan_cluster_decode<W, S, Model, Seg>(L, 0, 0, device, &geo, &kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long vals[5] = {geo.cluster, geo.groups_per_cta, geo.rows,
+                             geo.threads, geo.max_active_clusters};
+  for (int k = 0; k < 5; ++k) out[k] = vals[k];
+  return 0;
 }
 
 // Kernel 14: the single-block encode over PlaneModel.
@@ -664,33 +693,18 @@ int ctt_exact_decode64(void* states, const void* stream, long long slen,
                        int L, int P, int min_sym, int max_sym, int bisect,
                        void* base_io, void* cuda_stream, int device) {
   (void)base_io;
-  return launch_cluster_table_decode<false>(
+  return launch_cluster_table_decode<32, 64, TableModel, false>(
       states, stream, slen, tabs, CP1, syms, n, L, P, min_sym, max_sym,
       bisect, nullptr, 0, cuda_stream, device);
 }
 
 // The geometry of kernel 15 (seg 0) or kernel 16 (seg 1) for L lanes into
-// out[5]: cluster size, groups per CTA, lanes per thread, threads per CTA,
-// the card's maximum of active clusters of that shape.
+// out[5] (table_geometry).
 int ctt_exact_geometry64(int L, int seg, long long* out, void* cuda_stream,
                          int device) {
   (void)cuda_stream;
-  ClusterGeometry geo;
-  cudaError_t err;
-  if (seg) {
-    ClusterDecodeFn<32, 64, TableModel, true> kernel;
-    err = plan_cluster_decode<32, 64, TableModel, true>(L, 0, 0, device,
-                                                        &geo, &kernel);
-  } else {
-    ClusterDecodeFn<32, 64, TableModel, false> kernel;
-    err = plan_cluster_decode<32, 64, TableModel, false>(L, 0, 0, device,
-                                                         &geo, &kernel);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long vals[5] = {geo.cluster, geo.groups_per_cta, geo.rows,
-                             geo.threads, geo.max_active_clusters};
-  for (int k = 0; k < 5; ++k) out[k] = vals[k];
-  return 0;
+  return seg ? table_geometry<32, 64, TableModel, true>(L, out, device)
+             : table_geometry<32, 64, TableModel, false>(L, out, device);
 }
 
 // base_io: the segment's first stream word in, the next segment's out.
@@ -698,7 +712,7 @@ int ctt_exact_decode64_seg(void* states, const void* stream, long long slen,
                            const void* tabs, int CP1, void* syms, long long n,
                            int L, int P, int min_sym, int max_sym, int bisect,
                            void* base_io, void* cuda_stream, int device) {
-  return launch_cluster_table_decode<true>(
+  return launch_cluster_table_decode<32, 64, TableModel, true>(
       states, stream, slen, tabs, CP1, syms, n, L, P, min_sym, max_sym,
       bisect, base_io, 0, cuda_stream, device);
 }
@@ -711,7 +725,7 @@ int ctt_exact_decode64_seg_cluster(void* states, const void* stream,
                                    void* base_io, int cluster,
                                    void* cuda_stream, int device) {
   if (cluster < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_cluster_table_decode<true>(
+  return launch_cluster_table_decode<32, 64, TableModel, true>(
       states, stream, slen, tabs, CP1, syms, n, L, P, min_sym, max_sym,
       bisect, base_io, cluster, cuda_stream, device);
 }
@@ -722,9 +736,30 @@ int ctt_exact_decode32(void* states, const void* stream, long long slen,
                        int L, int P, int min_sym, int max_sym, int bisect,
                        void* base_io, void* cuda_stream, int device) {
   (void)base_io;
-  return launch_decode<16, 32, NarrowTableModel>(
+  return launch_cluster_table_decode<16, 32, NarrowTableModel, false>(
       states, stream, slen, tabs, CP1, syms, n, L, P, min_sym, max_sym,
-      bisect, cuda_stream, device);
+      bisect, nullptr, 0, cuda_stream, device);
+}
+
+// The same decode on a cluster of `cluster` CTAs (1 .. 16).
+int ctt_exact_decode32_cluster(void* states, const void* stream,
+                               long long slen, const void* tabs, int CP1,
+                               void* syms, long long n, int L, int P,
+                               int min_sym, int max_sym, int bisect,
+                               void* base_io, int cluster, void* cuda_stream,
+                               int device) {
+  (void)base_io;
+  if (cluster < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_cluster_table_decode<16, 32, NarrowTableModel, false>(
+      states, stream, slen, tabs, CP1, syms, n, L, P, min_sym, max_sym,
+      bisect, nullptr, cluster, cuda_stream, device);
+}
+
+// Kernel 13's geometry for L lanes into out[5] (table_geometry).
+int ctt_exact_geometry32(int L, long long* out, void* cuda_stream,
+                         int device) {
+  (void)cuda_stream;
+  return table_geometry<16, 32, NarrowTableModel, false>(L, out, device);
 }
 
 int ctt_exact_eval_window(const void* means, const void* scales,

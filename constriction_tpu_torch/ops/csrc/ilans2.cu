@@ -43,8 +43,8 @@
 //
 // The cluster size follows L (auto_cluster) and the geometry entries report
 // it.  The L a cluster reaches is 16 * 32 * 32 * 32 lanes (32 lanes a
-// thread); a larger L returns an error.  ilans2.cuh's single-block loops
-// serve exact_family.cu's coders only.
+// thread); a larger L returns an error.  ilans2.cuh's single-block encode
+// loop serves exact_family.cu's kernel 14 only.
 //
 // Both models are ilans2_wide.cuh's: the decode's (BucketCdfModel) is
 // shared with the range decode (ilans2_range.cu), the encode's

@@ -1,25 +1,21 @@
-// The single-block ILANS2 decode and encode loops on Hopper (sm_90a), used
-// by exact_family.cu (the reference-exact families at S=32: kernel 13, the
-// narrow table decode; kernel 14, the encoder over per-symbol (cum, prob)
-// planes).  One block of 1024 threads codes the whole message:
-// per step each warp ballots its 32 lanes' flags, a block scan turns the
-// per-warp popcounts into group offsets, and each thread walks its lanes
-// one after another (lane = row * 1024 + thread), loading and storing each
-// lane state in device memory once per step.  On an H100 a step costs about
-// 1.5 us at L = 128 and 1.0-1.5 us more per 1024 lanes (chip_smoke.py,
-// sweep): the lane loop's latency on one SM, not the barriers, bounds it.
-// The loops are templated on the preset (W, S) and on a model policy, as
-// are ilans2_wide.cuh's cluster decode and two-pass encode, which run the
-// categorical coder (ilans2.cu) at both presets, kernels 15 and 16
-// (exact_family.cu's TableModel), kernel 17 (its PlaneLanesModel) and
-// kernel 11 (ilans2_family.cu's FamilyModel); a model moves there by
-// providing that header's invert_lanes, or fetch / interval.
+// The single-block ILANS2 encode loop on Hopper (sm_90a), used by
+// exact_family.cu for kernel 14 (the S=32 reference-exact encoder over
+// per-symbol (cum, prob) planes).  One block of 1024 threads codes the
+// whole message: per step each warp ballots its 32 lanes' flags, a block
+// scan turns the per-warp popcounts into group offsets, and each thread
+// walks its lanes one after another (lane = row * 1024 + thread), loading
+// and storing each lane state in device memory once per step.  On an H100
+// a step costs about 1.5 us at L = 128 and 1.0-1.5 us more per 1024 lanes
+// (chip_smoke.py, sweep): the lane loop's latency on one SM, not the
+// barriers, bounds it.  Every other coder runs ilans2_wide.cuh's cluster
+// decode or its two-pass encode (the categorical coder at both presets,
+// ilans2.cu; kernels 13, 15 and 16, exact_family.cu's table models, and
+// kernel 17, its PlaneLanesModel; kernel 11, ilans2_family.cu's
+// FamilyModel; kernel 12's lane pass over family_records.cuh's
+// RecordLanesModel); a model moves there by providing that header's
+// fetch / interval.
 //
-// A decode model provides
-//   __device__ void stage(uint32_t* smem_cdf);   // before the first step
-//   __device__ int invert(int t, int l, uint32_t q,
-//                         uint32_t& cum, uint32_t& prob) const;
-// (quantile q of lane l at step t -> symbol, cum, prob), an encode model
+// The loop is templated on the preset (W, S) and on an encode model:
 //   __device__ void stage(uint32_t* smem_cdf);
 //   __device__ void lookup(int64_t i, uint32_t& cum, uint32_t& prob) const;
 //   __device__ uint32_t prob(int64_t i) const;
@@ -30,69 +26,6 @@
 #include "lanes.cuh"
 
 namespace {
-
-// Decode n symbols.  states[L]: initial decoder states in, final states out.
-// stream[slen]: W-bit words, one per u32; reads past the end yield 0 (a
-// truncated or corrupt stream decodes to garbage, never faults).
-template <int W, int S, class Model>
-__global__ void __launch_bounds__(kThreads, 1)
-    ilans2_decode_kernel(typename StateOf<S>::type* __restrict__ states,
-                         const uint32_t* __restrict__ stream, int64_t slen,
-                         Model model, int32_t* __restrict__ syms, int64_t n,
-                         int L, int P, int T) {
-  using State = typename StateOf<S>::type;
-  extern __shared__ uint32_t smem[];
-  const int G = L / 32;
-  const Smem s{smem, G};
-  model.stage(s.cdf());
-  __syncthreads();
-
-  constexpr State kLower = State(1) << (S - W);
-  constexpr uint32_t kWordMask = W == 32 ? kFull : ((1u << W) - 1u);
-  const uint32_t qmask = (1u << P) - 1u;
-  const int tid = threadIdx.x, lane = tid & 31;
-  const uint32_t lt_mask = (1u << lane) - 1u;
-  const int rows = (L + kThreads - 1) / kThreads;
-  int64_t base = 0;         // first stream word of the pending step's refills
-  uint32_t last_total = 0;  // words the pending step consumed
-
-  // Iteration t refills for step t - 1, then decodes step t.
-  for (int t = 0; t <= T; ++t) {
-    const int cur = t & 1, prev = cur ^ 1;
-    for (int r = 0; r < rows; ++r) {
-      if (r * kThreads + (tid & ~31) >= L) break;  // warp-uniform
-      const int l = r * kThreads + tid;
-      const int g = l >> 5;
-      State x = states[l];
-      if (t > 0 && x < kLower) {
-        const int64_t idx = base + s.prefix(prev)[g] +
-                            __popc(s.ballots(prev)[g] & lt_mask);
-        const uint32_t word = idx < slen ? stream[idx] : 0u;
-        x = (x << W) | static_cast<State>(word & kWordMask);
-      }
-      if (t < T) {
-        const int64_t i = static_cast<int64_t>(t) * L + l;
-        if (i < n) {
-          const uint32_t q = static_cast<uint32_t>(x) & qmask;
-          uint32_t cum, prob;
-          const int sym = model.invert(t, l, q, cum, prob);
-          x = (x >> P) * prob + (q - cum);
-          syms[i] = sym;
-        }
-        const unsigned bal = __ballot_sync(kFull, x < kLower);
-        if (lane == 0) s.ballots(cur)[g] = bal;
-      }
-      states[l] = x;
-    }
-    if (t == T) break;
-    __syncthreads();
-    const uint32_t total = scan_groups(s.ballots(cur), s.prefix(cur),
-                                       s.warp_sums(), G);
-    __syncthreads();
-    base += last_total;
-    last_total = total;
-  }
-}
 
 // Encode n symbols, walking steps T-1 .. 0.  states[L]: encoder start states
 // (the seeds) in, final states (the decoder's initial states) out.  buf[cap]:

@@ -30,26 +30,34 @@
 // thread (L = 4096 .. 32768), 5.3 at one and 17.5 at four (chip_smoke.py,
 // sweep), about 90 issued instructions a left() evaluation.
 //
-// Encode (kernel 12): one thread block codes the whole message: the T
-// steps are a serial chain through the per-step prefix count over all L
-// lanes (warp ballot, block scan: lanes.cuh), and each thread walks its
-// L / 1024 lanes one after another.  The renorm decision of step t needs
-// prob(t), and its state update, made one iteration later once the step's
-// emission offsets are known, needs (cum, prob)(t) again: the kernel keeps
-// them per lane in a scratch array in device memory (`tab`, L words,
-// L2-resident) rather than evaluating left() twice more.  What the Pallas
-// kernels do about the TPU does not carry over: no double-buffered
-// parameter DMA (a lane loads its own mean and scale, coalesced), no table
-// staging (there is no table), native u32 division.
+// Encode (kernel 12): three launches over the whole grid.  A lane's renorm
+// decision and next state read only its own state and symbol, and a
+// symbol's interval (two left() evaluations, the operation-bound part)
+// reads no state at all; the lanes meet only where their words land.  So:
+//   (a) family_records.cuh's tables pass (family_tables_kernel, kernel
+//       22's too), one thread per symbol: each symbol's DivisionRecord32
+//       (its (cum, prob) and the multiply-high reciprocal of prob) into
+//       recs[n];
+//   (b) pass A, ilans2_wide.cuh's encode_lanes_kernel<16, 32,
+//       RecordLanesModel> at P = 12 (kernel 3's pass A): one thread per
+//       lane runs steps T-1 .. 0 with its state in a register, each record
+//       fetched a step ahead, the division a __umulhi, each emitted word
+//       into a dense scratch words[t * L + l] and one ballot per (step,
+//       32-lane group) into flags;
+//   (c) pass B, the row-major compaction (launch_compact) into the
+//       stream.
+// (a) holds the evaluations and fills the card, (b) is a chain of T short
+// steps a lane, (c) moves one word per u32.  The Pallas kernel's
+// double-buffered parameter DMA and in-kernel compaction do not carry
+// over.
 
 #include "family.cuh"
+#include "family_records.cuh"
 #include "ilans2_wide.cuh"
-#include "lanes.cuh"
 
 namespace {
 
 constexpr int kW = 16, kP = family::kFx;
-constexpr uint32_t kWordMask = 0xffffu;
 
 // Lanes of a thread bisected together: the R = 2 instance's chains fill
 // the 64 registers a thread of a 1024-thread CTA has; at R = 4 four chains
@@ -141,77 +149,6 @@ struct FamilyModel {
   }
 };
 
-// Encode n symbols, walking steps T-1 .. 0.  states[L]: the seeds in, the
-// decoder's initial states out.  buf[cap]: the words of step t land right
-// to left below an end pointer, so on return the stream is
-// buf[*end_out : cap].  tab[L]: scratch, cum | prob << 16 of each lane's
-// pending step.  Symbols are clamped into the support; callers validate
-// them.
-template <int F>
-__global__ void __launch_bounds__(kThreads, 1)
-    family_encode_kernel(uint32_t* __restrict__ states,
-                         const int32_t* __restrict__ syms, int64_t n,
-                         const float* __restrict__ means,
-                         const float* __restrict__ scales,
-                         uint32_t* __restrict__ tab,
-                         uint32_t* __restrict__ buf, int64_t cap,
-                         int64_t* __restrict__ end_out, int L, int T,
-                         family::Support sup) {
-  extern __shared__ uint32_t smem[];
-  const int G = L / 32;
-  const Smem s{smem, G};
-  const int tid = threadIdx.x, lane = tid & 31;
-  const uint32_t lt_mask = (1u << lane) - 1u;
-  const int rows = (L + kThreads - 1) / kThreads;
-  int64_t e = cap;  // words of the finished steps occupy buf[e : cap]
-
-  // Iteration j emits and codes step T - j (flagged in iteration j - 1),
-  // then evaluates and flags step T - 1 - j.
-  for (int j = 0; j <= T; ++j) {
-    const int cur = j & 1, prev = cur ^ 1;
-    const int t = T - 1 - j;
-    for (int r = 0; r < rows; ++r) {
-      if (r * kThreads + (tid & ~31) >= L) break;  // warp-uniform
-      const int l = r * kThreads + tid;
-      const int g = l >> 5;
-      uint32_t x = states[l];
-      if (j > 0 && static_cast<int64_t>(t + 1) * L + l < n) {
-        const uint32_t packed = tab[l];
-        const uint32_t cum = packed & 0xffffu, prob = packed >> 16;
-        if ((x >> (32 - kP)) >= prob) {  // the decision flagged last iteration
-          const int64_t idx = e + s.prefix(prev)[g] +
-                              __popc(s.ballots(prev)[g] & lt_mask);
-          buf[idx] = x & kWordMask;
-          x >>= kW;
-        }
-        x = ((x / prob) << kP) | (cum + x % prob);
-      }
-      if (j < T) {
-        const int64_t i = static_cast<int64_t>(t) * L + l;
-        bool renorm = false;
-        if (i < n) {
-          const family::Model m = family::load_model(means, scales, i);
-          const int sym = min(max(syms[i], sup.min_sym), sup.max_sym);
-          uint32_t cum, prob;
-          family::tables<F>(sym, m, sup, &cum, &prob);
-          tab[l] = cum | (prob << 16);
-          renorm = (x >> (32 - kP)) >= prob;
-        }
-        const unsigned bal = __ballot_sync(kFull, renorm);
-        if (lane == 0) s.ballots(cur)[g] = bal;
-      }
-      states[l] = x;
-    }
-    if (j == T) break;
-    __syncthreads();
-    const uint32_t total = scan_groups(s.ballots(cur), s.prefix(cur),
-                                       s.warp_sums(), G);
-    __syncthreads();
-    e -= total;
-  }
-  if (tid == 0) *end_out = e;
-}
-
 // left(x[i]) under model i, elementwise: the integer CDF by itself, so a
 // test can hold it against the plain arithmetic value by value.
 template <int F>
@@ -278,27 +215,62 @@ int geometry(int L, int cluster, long long* out, int device) {
   return 0;
 }
 
-template <int F>
-int launch_encode(void* states, const void* syms, long long n,
-                  const void* means, const void* scales, void* tab, void* buf,
-                  long long cap, void* end_out, int L, int min_sym,
-                  int max_sym, void* cuda_stream, int device) {
-  if (!valid_lanes(L) || !family::valid_support(min_sym, max_sym)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t bytes = scratch_words(L / 32) * sizeof(uint32_t);
-  auto kernel = family_encode_kernel<F>;
-  const cudaError_t err = prepare(kernel, device, bytes);
+// Kernel 12's pass A alone over the records of (a): words[T * L] (left as
+// they are where a lane does not renorm) and flags[T * L / 32] out, states
+// coded in place.
+int launch_encode_lanes(void* states, const void* recs, long long n,
+                        void* words, void* flags, int L, void* cuda_stream,
+                        int device) {
+  if (!valid_lanes(L)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = encode_lanes_kernel<kW, 32, RecordLanesModel>;
+  const cudaError_t err = prepare(kernel, device, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   const int T = static_cast<int>((n + L - 1) / L);
-  kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<uint32_t*>(states), static_cast<const int32_t*>(syms), n,
-      static_cast<const float*>(means), static_cast<const float*>(scales),
-      static_cast<uint32_t*>(tab), static_cast<uint32_t*>(buf), cap,
-      static_cast<int64_t*>(end_out), L, T,
-      family::make_support(min_sym, max_sym));
+  kernel<<<ceil_div(L, kLaneThreads), kLaneThreads, 0,
+           static_cast<cudaStream_t>(cuda_stream)>>>(
+      static_cast<uint32_t*>(states),
+      RecordLanesModel{static_cast<const DivisionRecord32*>(recs)},
+      static_cast<int64_t>(n), static_cast<uint32_t*>(words),
+      static_cast<uint32_t*>(flags), L, kP, T);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 12's tables pass (a) alone: recs[n] (8 bytes each).
+template <int F>
+int launch_tables(const void* syms, const void* means, const void* scales,
+                  void* recs, long long n, int min_sym, int max_sym,
+                  void* cuda_stream, int device) {
+  if (n < 0 || !family::valid_support(min_sym, max_sym)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_family_tables<F>(syms, means, scales, recs, n, min_sym,
+                                 max_sym,
+                                 static_cast<cudaStream_t>(cuda_stream));
+}
+
+// Kernel 12: (a), (b) and (c) into buf[*end_out : cap].  Scratch the caller
+// allocates: recs[n] (8 bytes each), words[T * L], flags[T * L / 32],
+// offsets[kScanBlocks] (u64).  Symbols are clamped into the support;
+// callers validate them.
+template <int F>
+int launch_encode(void* states, const void* syms, long long n,
+                  const void* means, const void* scales, void* recs,
+                  void* buf, long long cap, void* end_out, void* words,
+                  void* flags, void* offsets, int L, int min_sym, int max_sym,
+                  void* cuda_stream, int device) {
+  if (!valid_lanes(L)) return static_cast<int>(cudaErrorInvalidValue);
+  int err = launch_tables<F>(syms, means, scales, recs, n, min_sym, max_sym,
+                             cuda_stream, device);
+  if (err != 0 || n <= 0) return err;
+  err = launch_encode_lanes(states, recs, n, words, flags, L, cuda_stream,
+                            device);
+  if (err != 0) return err;
+  const long long n_flags = (n + L - 1) / L * (L / 32);
+  return launch_compact(flags, words, n_flags, buf, cap, end_out, offsets,
+                        cuda_stream, device);
 }
 
 template <int F>
@@ -354,14 +326,34 @@ int ctt_family_geometry(int L, int fam, int cluster, long long* out,
   return CTT_DISPATCH_FAMILY(fam, geometry, L, cluster, out, device);
 }
 
+// Kernel 12: recs[n] (8 bytes each), words[T * L], flags[T * L / 32] and
+// offsets[kScanBlocks] (u64) are scratch.
 int ctt_family_encode(void* states, const void* syms, long long n,
-                      const void* means, const void* scales, void* tab,
-                      void* buf, long long cap, void* end_out, int L, int fam,
-                      int min_sym, int max_sym, void* cuda_stream,
-                      int device) {
+                      const void* means, const void* scales, void* recs,
+                      void* buf, long long cap, void* end_out, void* words,
+                      void* flags, void* offsets, int L, int fam, int min_sym,
+                      int max_sym, void* cuda_stream, int device) {
   return CTT_DISPATCH_FAMILY(fam, launch_encode, states, syms, n, means,
-                             scales, tab, buf, cap, end_out, L, min_sym,
-                             max_sym, cuda_stream, device);
+                             scales, recs, buf, cap, end_out, words, flags,
+                             offsets, L, min_sym, max_sym, cuda_stream,
+                             device);
+}
+
+// Kernel 12's steps alone: (a) the tables pass, (b) pass A (pass B alone is
+// ctt_ilans2_compact).
+int ctt_family_tables_pass(const void* syms, const void* means,
+                           const void* scales, void* recs, long long n,
+                           int fam, int min_sym, int max_sym,
+                           void* cuda_stream, int device) {
+  return CTT_DISPATCH_FAMILY(fam, launch_tables, syms, means, scales, recs, n,
+                             min_sym, max_sym, cuda_stream, device);
+}
+
+int ctt_family_encode_lanes(void* states, const void* recs, long long n,
+                            void* words, void* flags, int L,
+                            void* cuda_stream, int device) {
+  return launch_encode_lanes(states, recs, n, words, flags, L, cuda_stream,
+                             device);
 }
 
 int ctt_family_left(const void* x, const void* means, const void* scales,

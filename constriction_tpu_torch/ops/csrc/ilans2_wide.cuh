@@ -5,9 +5,12 @@
 // ilans2.cu instantiates them for the categorical coder at both presets
 // (W=32/S=64 and W=16/S=32, one CDF); exact_family.cu the decode for the
 // S=64 reference-exact tables, whole message (kernel 15) or one segment of
-// a grouped message (kernel 16, Seg), and the encode over their (cum, prob)
+// a grouped message (kernel 16, Seg), and for the S=32 narrow tables
+// (kernel 13, NarrowTableModel), and the encode over their (cum, prob)
 // planes (kernel 17, PlaneLanesModel); ilans2_family.cu the decode for the
-// per-symbol families (kernel 11); ilans2_range.cu the range decode's twin
+// per-symbol families (kernel 11) and the encode over their division
+// records (kernel 12, family_records.cuh's RecordLanesModel, behind a
+// tables pass); ilans2_range.cu the range decode's twin
 // of the cluster decode at both presets (cluster_range_decode_kernel,
 // kernels 5 and 6), which shares its step exchange (exchange_step), and
 // the compaction (launch_compact) behind its carry resolves at both
@@ -34,8 +37,10 @@
 // search), RecordCdfModel below (encode: a division record per symbol, the
 // division as a multiply-high; DivisionRecord at S=64, DivisionRecord32 at
 // S=32), exact_family.cu's PlaneLanesModel (encode: the (cum, prob) pair
-// as the token, the division from an f64 estimate) and TableModel (decode: the packed
-// tables in device memory, searched in lock step) and ilans2_family.cu's
+// as the token, the division from an f64 estimate), TableModel and
+// NarrowTableModel (decode: the packed wide or narrow tables in device
+// memory, searched in lock step), family_records.cuh's RecordLanesModel
+// (encode: a symbol's record as the token) and ilans2_family.cu's
 // FamilyModel (decode: family.cuh's bisection over the integer CDF, in
 // lock step) provide them.
 //
@@ -193,7 +198,12 @@ struct __align__(16) DivisionRecord {
 // The S=32 record (N = 32, 1 <= prob <= 2^16, cum < 2^16): the state never
 // needs 64 bits, so the division is one __umulhi in place of
 // __umul64hi's several 32-bit multiplies, a short link in pass A's chain of
-// dependent steps; 8 bytes a record, l recomputed from prob.
+// dependent steps; 8 bytes a record, l recomputed from prob.  build takes
+// magic from one u64 division, ((2^l - prob) << 32) / prob + 1 (the
+// numerator below 2^48): in the family tables pass (family_records.cuh),
+// which builds a record a symbol, it took 0.091 ms at 2^23 symbols against
+// 0.126-0.128 by 32 steps of shift and subtract (scaled_quotient), on an
+// NVIDIA H100 80GB HBM3 at 700 W (chip_ab.py).
 struct __align__(8) DivisionRecord32 {
   uint32_t magic;
   uint32_t cum_prob;  // cum | (prob - 1) << 16
@@ -202,7 +212,9 @@ struct __align__(8) DivisionRecord32 {
   __device__ static DivisionRecord32 build(uint32_t cum, uint32_t prob) {
     const int l = ceil_log2(prob);
     const uint32_t q =
-        prob > 0 ? scaled_quotient<uint32_t>((1u << l) - prob, prob) : 0;
+        prob > 0 ? static_cast<uint32_t>(
+                       (static_cast<uint64_t>((1u << l) - prob) << 32) / prob)
+                 : 0;
     return {q + 1, (cum & 0xFFFFu) | ((prob - 1) << 16)};
   }
   __device__ uint32_t cum() const { return cum_prob & 0xFFFFu; }

@@ -5,19 +5,19 @@
 // ranks when decoding, emission offsets when encoding).  Two designs use
 // what is here:
 //
-// - The single-block coders: ilans2.cuh's loops over exact_family.cu's
-//   narrow table and plane models (kernels 13 and 14) and
-//   ilans2_family.cu's encode (kernel 12).  One block of kThreads
+// - The single-block coder: ilans2.cuh's encode loop over
+//   exact_family.cu's plane model (kernel 14).  One block of kThreads
 //   threads codes the message; the prefix comes from a warp ballot per 32
 //   lanes, a block scan of the per-warp popcounts (scan_groups, over the
 //   Smem carve-up below) and a popc of the ballot below the lane.
 // - ilans2_wide.cuh's cluster decodes and two-pass encode (ilans2.cu's
 //   categorical coder at both presets, kernels 1-4; the range decode at
-//   both presets, kernels 5 and 6; the S=64 exact table decodes, kernels
-//   15 and 16, and encode, kernel 17; the family decode, kernel 11; the
-//   compaction behind ilans2_range.cu's carry resolves and tchain.cu's
-//   decodes, kernels 19, 21 and 23; tchain.cu's cluster encodes, kernels
-//   20, 22 and 24), which take StateOf, the CDF staging,
+//   both presets, kernels 5 and 6; the exact table decodes, kernels 15
+//   and 16 at S=64 and 13 at S=32, and encode, kernel 17; the family
+//   decode, kernel 11, and encode, kernel 12; the compaction behind
+//   ilans2_range.cu's carry resolves and tchain.cu's decodes, kernels 19,
+//   21 and 23; tchain.cu's cluster encodes, kernels 20, 22 and 24), which
+//   take StateOf, the CDF staging,
 //   the symbol search, valid_args and prepare from here and scan across
 //   CTAs themselves.
 //

@@ -33,9 +33,10 @@
 // record (DivisionRecord32 at S=32, DivisionRecord at S=64).  Kernels 20
 // and 24 build the K records of their CDF ahead of the step; kernel 22,
 // whose symbols each have a model of their own, builds one record a symbol
-// in a tables pass over the whole grid (tchain12_tables_kernel: the two
-// evaluations of left() a symbol, which read no head) and the step reads
-// each lane's record a step ahead.
+// in a tables pass over the whole grid (family_records.cuh's
+// family_tables_kernel, shared with kernel 12: the two evaluations of
+// left() a symbol, which read no head) and the step reads each lane's
+// record a step ahead.
 //
 // Quantile layouts keep the Pallas wire format.  TChain-24: one quantile
 // per u32 word.  TChain-16 (ops/tchain.py pack_quantiles): within a step
@@ -59,6 +60,7 @@
 // symbol) and fills the card.
 
 #include "family.cuh"
+#include "family_records.cuh"
 #include "ilans2_wide.cuh"
 
 namespace {
@@ -618,49 +620,20 @@ __global__ void __launch_bounds__(kInvertThreads)
 // lanes at every step, as the categorical encodes' do, but a symbol's
 // interval (two evaluations of left(), the operation-bound work) reads no
 // head.  So:
-//   (a) tchain12_tables_kernel, one thread per symbol over the whole grid:
-//       the model, the symbol clamped into the support (callers validate
-//       symbols), family::tables (the pinned ends: cum 0 at min_sym, right
-//       2^12 at max_sym) and the symbol's DivisionRecord32 (cum < 2^12,
-//       prob <= 2^12) into recs[T * L];
+//   (a) family_records.cuh's tables pass (family_tables_kernel, one
+//       thread per symbol over the whole grid, kernel 12's too): the
+//       symbol's DivisionRecord32 into recs[T * L];
 //   (b) cluster_tchain_encode_kernel<16, 32, 12, R, RecordLanesModel,
 //       HalfStore> (above): kernel 20's cluster step, each lane's record
-//       read a step ahead as its token, the refill test h < prob << 4, the
-//       quantile a u16 into q16[T * L];
+//       (family_records.cuh's RecordLanesModel) read a step ahead as its
+//       token, the refill test h < prob << 4, the quantile a u16 into
+//       q16[T * L];
 //   (c) tchain12_pack_kernel, one thread per packed word over the whole
 //       grid (pack_q12).
 // (a) fills the card; (b) is the serial step on up to 16 SMs.  ORing each
 // quantile into its 12-bit slot of zeroed words from (b) with atomicOr, in
 // place of (c), took 0.85-0.88 ms for (b) against 0.81-0.83 for (b) and
 // (c) at 2^23 symbols on an H100 (PERF.md §6).
-template <int F>
-__global__ void __launch_bounds__(kInvertThreads)
-    tchain12_tables_kernel(const int32_t* __restrict__ syms,
-                           const float* __restrict__ means,
-                           const float* __restrict__ scales,
-                           DivisionRecord32* __restrict__ recs,
-                           family::Support sup) {
-  const int64_t i =
-      static_cast<int64_t>(blockIdx.x) * kInvertThreads + threadIdx.x;
-  const family::Model m = family::load_model(means, scales, i);
-  const int sym = min(max(syms[i], sup.min_sym), sup.max_sym);
-  uint32_t cum, prob;
-  family::tables<F>(sym, m, sup, &cum, &prob);
-  recs[i] = DivisionRecord32::build(cum, prob);
-}
-
-// Kernel 22's encode model: the token is the symbol's record itself, read
-// a step before it is coded, so interval() reads no memory and nothing is
-// staged (the shape of exact_family.cu's PlaneLanesModel).
-struct RecordLanesModel {
-  using Token = DivisionRecord32;
-  using Interval = DivisionRecord32;
-  const DivisionRecord32* recs;
-
-  __device__ void stage(uint32_t*) {}
-  __device__ Token fetch(int64_t i) const { return recs[i]; }
-  __device__ Interval interval(Token rec) const { return rec; }
-};
 
 // Kernel 22's quantile store: a u16 a symbol into q16[T * L].
 struct HalfStore {
@@ -781,13 +754,10 @@ int launch_tables(const void* syms, const void* means, const void* scales,
   unsigned blocks;
   const int err = symbol_grid(L, T, min_sym, max_sym, device, &blocks);
   if (err != 0 || blocks == 0) return err;
-  tchain12_tables_kernel<F><<<blocks, kInvertThreads, 0,
-                              static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<const int32_t*>(syms), static_cast<const float*>(means),
-      static_cast<const float*>(scales),
-      static_cast<DivisionRecord32*>(recs),
-      family::make_support(min_sym, max_sym));
-  return static_cast<int>(cudaGetLastError());
+  return launch_family_tables<F>(syms, means, scales, recs,
+                                 static_cast<long long>(T) * L, min_sym,
+                                 max_sym,
+                                 static_cast<cudaStream_t>(cuda_stream));
 }
 
 // Steps (b) and (c) on the records of step (a), (b) on a cluster of

@@ -21,10 +21,11 @@ produces can be re-coded here with zero rate change:
   Kernel 15 (wide) or kernel 13 (narrow) inverts the quantiles against
   them (:func:`decode_tables`); kernel 16 does the same for one segment of
   a core-size-grouped message at S=64, carrying the stream offset from
-  launch to launch (:func:`decode_tables_seg`).  Kernels 15 and 16 run
-  ``csrc/ilans2_wide.cuh``'s cluster decode (:func:`geometry`), their
-  binary search over the R lanes of a thread in lock step
-  (:func:`invert_tables_bisect` is that probe order in plain PyTorch);
+  launch to launch (:func:`decode_tables_seg`).  Kernels 15, 16 and 13 run
+  ``csrc/ilans2_wide.cuh``'s cluster decode (:func:`geometry`; at most
+  :data:`coder.MAX_DECODE_LANES` lanes on a card), their binary search
+  over the R lanes of a thread in lock step (:func:`invert_tables_bisect`
+  is that probe order in plain PyTorch, for wide and narrow tables);
 - grouping (S=64 only, as in the JAX package): :func:`group_plan`
   stable-sorts the symbols by a deterministic core-size bound computed
   from (means, scales) alone, so each decode segment runs at its own tight
@@ -727,10 +728,10 @@ def group_plan(means, scales, family: str, min_sym: int, max_sym: int,
 # ---------------------------------------------------------------------------
 
 
-def check_cfg(cfg: LaneConfig) -> None:
+def check_cfg(cfg: LaneConfig, lane_multiple: int = LANES) -> None:
     """The configs of this path: W=32, S=64, 16 < P <= 24 (wide tables) or
     W=16, S=32, P <= 16 (narrow tables), lanes a positive multiple of
-    128."""
+    ``lane_multiple`` (128)."""
     ws = (cfg.word_bits, cfg.state_bits)
     if not ((ws == (32, 64) and 16 < cfg.precision <= 24)
             or (ws == (16, 32) and 0 < cfg.precision <= 16)):
@@ -738,9 +739,9 @@ def check_cfg(cfg: LaneConfig) -> None:
             "the exact-family coders take W=32, S=64, 16 < P <= 24 or W=16, "
             f"S=32, P <= 16; got W={cfg.word_bits}, S={cfg.state_bits}, "
             f"P={cfg.precision}")
-    if cfg.num_lanes <= 0 or cfg.num_lanes % LANES:
+    if cfg.num_lanes <= 0 or cfg.num_lanes % lane_multiple:
         raise ValueError(
-            f"num_lanes must be a positive multiple of {LANES}, got "
+            f"num_lanes must be a positive multiple of {lane_multiple}, got "
             f"{cfg.num_lanes}")
 
 
@@ -956,8 +957,9 @@ def encode_lanes_plain(cums, probs, cfg: LaneConfig, seeds=None,
 
 
 def _decode_args(states, stream, tabs, cfg: LaneConfig, min_sym: int,
-                 max_sym: int, n: int) -> torch.device:
-    check_cfg(cfg)
+                 max_sym: int, n: int,
+                 lane_multiple: int = LANES) -> torch.device:
+    check_cfg(cfg, lane_multiple)
     if not isinstance(states, torch.Tensor):
         raise TypeError("states must be a torch.Tensor")
     device = states.device
@@ -981,11 +983,13 @@ def _decode_args(states, stream, tabs, cfg: LaneConfig, min_sym: int,
 # symbols), kernel 15 alike; narrower tables were not met and keep the scan
 BISECT_FROM_PLANES = 16
 # the same for kernel 13's narrow tables (CP1 = cmax / 2 + 1, two fields a
-# plane): measured on an H100 by chip_smoke.py's narrow search sweep
-# (exact32_times), where the binary search was faster at every width from
-# 7 planes up (by 15% at 7, 4.6-6.0x at 128) and the scan below (by 17% at
-# 3 and 4 planes, 5% at 6)
-BISECT_FROM_PLANES_NARROW = 7
+# plane) on the cluster step: measured on an NVIDIA H100 80GB HBM3 at 700 W
+# by chip_smoke.py's narrow search sweep (exact32_times, 2^20 symbols,
+# L=32768), where the lock-step binary search was faster at every width it
+# met, from 3 planes (0.121 against 0.126 ms) through 7 (0.139 / 0.208),
+# 17 (0.163 / 0.363) and 75 (0.233 / 1.250) to 128 (0.214 / 1.998);
+# narrower tables were not met and keep the scan
+BISECT_FROM_PLANES_NARROW = 3
 
 
 def bisect_tables(CP1: int, narrow: bool = False) -> bool:
@@ -1009,16 +1013,16 @@ def decode_tables(states, stream, tabs, cfg: LaneConfig, min_sym: int,
     ``stream`` int32 words, ``tabs`` int32 ``[T, CP1, L]``
     (``convert.exact_tables_to_torch``), one device.  Returns symbols
     int32[n], and with ``return_final_states`` also the final states.
-    CUDA tensors launch the kernel, CPU tensors run
-    :func:`decode_tables_plain`."""
+    CUDA tensors launch the kernel (ValueError for L above
+    :data:`MAX_DECODE_LANES`), CPU tensors run :func:`decode_tables_plain`
+    at any L."""
     device = _decode_args(states, stream, tabs, cfg, min_sym, max_sym,
                           num_symbols)
     if not _on_cuda(device):
         syms, fin, _ = decode_tables_plain(states, stream, tabs, cfg,
                                            min_sym, max_sym, num_symbols)
         return (syms, fin) if return_final_states else syms
-    if _wide(cfg):
-        _check_reach(cfg)
+    _check_reach(cfg)
     fin = states.clone()
     syms = torch.empty(num_symbols, dtype=torch.int32, device=device)
     if num_symbols:
@@ -1032,8 +1036,9 @@ def decode_tables(states, stream, tabs, cfg: LaneConfig, min_sym: int,
 
 
 def _check_reach(cfg: LaneConfig) -> None:
-    """The S=64 table decodes (kernels 15 and 16) run on a cluster of at
-    most 16 CTAs: L past :data:`MAX_DECODE_LANES` raises before a launch."""
+    """The table decodes (kernels 15 and 16 at S=64, 13 at S=32) run on a
+    cluster of at most 16 CTAs: L past :data:`MAX_DECODE_LANES` raises
+    before a launch."""
     if cfg.num_lanes > MAX_DECODE_LANES:
         raise ValueError(
             f"the exact table decode kernel takes at most {MAX_DECODE_LANES} "
@@ -1041,14 +1046,18 @@ def _check_reach(cfg: LaneConfig) -> None:
             f"{cfg.num_lanes}")
 
 
-def geometry(L: int, device=None, seg: bool = False) -> dict:
-    """Kernel 15's (with ``seg``, kernel 16's) launch geometry for L lanes
-    on ``device`` (a CUDA device; the current one by default): its cluster,
-    the CTAs' groups, lanes per thread and threads, and the card's maximum
-    of such active clusters."""
+def geometry(L: int, device=None, seg: bool = False,
+             narrow: bool = False) -> dict:
+    """Kernel 15's (with ``seg``, kernel 16's; with ``narrow``, kernel
+    13's) launch geometry for L lanes on ``device`` (a CUDA device; the
+    current one by default): its cluster, the CTAs' groups, lanes per
+    thread and threads, and the card's maximum of such active clusters."""
     device = torch.device("cuda") if device is None else torch.device(device)
     out = torch.zeros(5, dtype=torch.int64)
-    _build.call("ctt_exact_geometry64", device, L, int(seg), out)
+    if narrow:
+        _build.call("ctt_exact_geometry32", device, L, out)
+    else:
+        _build.call("ctt_exact_geometry64", device, L, int(seg), out)
     keys = ("cluster", "groups_per_cta", "lanes_per_thread",
             "threads_per_cta", "max_active_clusters")
     geo = dict(zip(keys, (int(v) for v in out)))
@@ -1115,6 +1124,40 @@ def decode_tables_seg_cluster(states, stream, tabs, base, cfg: LaneConfig,
                        num_symbols, cluster)
 
 
+def decode_tables32_cluster(states, stream, tabs, cfg: LaneConfig,
+                            min_sym: int, max_sym: int, num_symbols: int,
+                            cluster: int = 0, bisect: bool | None = None):
+    """Kernel 13 (W=16, S=32, narrow tables) on a cluster of ``cluster``
+    CTAs (1 .. 16; 0: the size it picks from L) and with its search forced
+    (``bisect`` True or False; None: by table width, as
+    :func:`decode_tables` picks), for any L that is a multiple of 32 (CUDA
+    tensors): how the card tests reach small lane counts, uneven
+    partitions and both searches.  Returns ``(symbols int32[n], final
+    states int32[L])``."""
+    if _wide(cfg):
+        raise ValueError("kernel 13 decodes S=32 narrow tables; got S=64")
+    device = _decode_args(states, stream, tabs, cfg, min_sym, max_sym,
+                          num_symbols, lane_multiple=32)
+    if not _on_cuda(device):
+        raise ValueError("a forced cluster size needs CUDA tensors")
+    if not 0 <= cluster <= 16:
+        raise ValueError(f"cluster must be in 0 .. 16, got {cluster}")
+    _check_reach(cfg)
+    if bisect is None:
+        bisect = bisect_tables(tabs.shape[1], True)
+    fin = states.clone()
+    syms = torch.empty(num_symbols, dtype=torch.int32, device=device)
+    if num_symbols:
+        entry, extra = (("ctt_exact_decode32_cluster", (cluster,)) if cluster
+                        else ("ctt_exact_decode32", ()))
+        _build.call(entry, device, fin, stream, stream.numel(), tabs,
+                    tabs.shape[1], syms, num_symbols, cfg.num_lanes,
+                    cfg.precision, min_sym, max_sym, int(bisect), None,
+                    *extra)
+        LAUNCHES["decode32"] += 1
+    return syms, fin
+
+
 def _table_fields(tab):
     """The (b - 1) fields of one step's wide table planes ``[CP1, L]`` (u32
     values in int64), in order: ``[4G, L]``."""
@@ -1157,15 +1200,19 @@ def invert_tables(q, tab, min_sym: int, max_sym: int, P: int):
 
 
 def invert_tables_bisect(q, tab, min_sym: int, max_sym: int, P: int):
-    """:func:`invert_tables` for wide tables by kernel 15's lock-step
-    binary search (``csrc/exact_family.cu``, ``TableModel::invert_lanes``),
-    in its probe order: a branchless lower bound over the N = 4G fields
-    (every lane probes ``base + half`` at each of the ceil(log2 N) levels
-    and moves ``base`` up where that field is below q), then one level
-    reading the fields before, at and after ``base``.  Equal to
-    :func:`invert_tables` on tables whose fields ascend (pads 2^P - 1
-    last), as the builders write them."""
-    fields = _table_fields(tab)
+    """:func:`invert_tables` by the kernels' lock-step binary search
+    (``csrc/exact_family.cu``: ``TableModel::invert_lanes`` for wide
+    tables, P > 16, kernels 15 and 16; ``NarrowTableModel::invert_lanes``
+    for narrow ones, kernel 13), in their probe order: a branchless lower
+    bound over the N fields (4G wide, 2 (CP1 - 1) narrow; every lane probes
+    ``base + half`` at each of the ceil(log2 N) levels and moves ``base``
+    up where that field is below q), then one level reading the fields at
+    and after ``base`` (kernel 15 also reads the one before, which is never
+    used: ``base`` moves past 0 only onto a field below q).  Equal to
+    :func:`invert_tables` on tables whose fields ascend (pads last: 2^P - 1
+    wide, 0xFFFF narrow), as the builders write them."""
+    wide = P > 16
+    fields = _table_fields(tab) if wide else _narrow_fields(tab)
     N = fields.shape[0]
     lanes = torch.arange(fields.shape[1], device=q.device)
     base = torch.zeros_like(q)
@@ -1174,13 +1221,13 @@ def invert_tables_bisect(q, tab, min_sym: int, max_sym: int, P: int):
         half = length >> 1
         base = torch.where(fields[base + half, lanes] < q, base + half, base)
         length -= half
-    fp = fields[(base - 1).clamp(min=0), lanes]
     fb = fields[base, lanes]
     fn = fields[(base + 1).clamp(max=N - 1), lanes]
     below = fb < q
     cnt = base + below.to(torch.int64)
-    cumc = torch.where(below, fb, torch.where(base > 0, fp, _M32))
-    nxtc = torch.where(below, torch.where(base + 1 < N, fn, (1 << P) - 1), fb)
+    cumc = torch.where(below, fb, _M32)
+    pad = (1 << P) - 1 if wide else 0xFFFF
+    nxtc = torch.where(below, torch.where(base + 1 < N, fn, pad), fb)
     return _table_regions(q, tab[0], cnt, cumc + 1, nxtc + 1, min_sym,
                           max_sym, P)
 
@@ -1215,11 +1262,15 @@ def _table_regions(q, aux, cnt, cum_c, nxt_c, min_sym: int, max_sym: int,
 
 
 def decode_tables_plain(states, stream, tabs, cfg: LaneConfig, min_sym: int,
-                        max_sym: int, num_symbols: int, base=None):
+                        max_sym: int, num_symbols: int, base=None,
+                        bisect: bool = False):
     """Plain PyTorch twin of kernels 15, 16 and 13 (any device, no checks).
     Returns ``(symbols int32[n], final states, next base int64[1])``, the
     states in the type of ``states``, decoding from stream word ``base``
-    (int64[1], default 0).  Numpy oracle: :func:`decode_family_exact_host`."""
+    (int64[1], default 0).  ``bisect`` inverts by the kernels' binary search
+    (:func:`invert_tables_bisect`) in place of their scan
+    (:func:`invert_tables`).  Numpy oracle: :func:`decode_family_exact_host`."""
+    invert = invert_tables_bisect if bisect else invert_tables
     L, P = cfg.num_lanes, cfg.precision
     device = states.device
     words = convert.u32_values(stream)
@@ -1234,7 +1285,7 @@ def decode_tables_plain(states, stream, tabs, cfg: LaneConfig, min_sym: int,
         for t in range(T):
             active = t * L + lanes < num_symbols
             q = x & ((1 << P) - 1)
-            sym, cum, prob = invert_tables(q, convert.u32_values(tabs[t]),
+            sym, cum, prob = invert(q, convert.u32_values(tabs[t]),
                                            min_sym, max_sym, P)
             x = torch.where(active, (x >> P) * prob + (q - cum), x)
             m = x < cfg.lower_bound
@@ -1246,7 +1297,7 @@ def decode_tables_plain(states, stream, tabs, cfg: LaneConfig, min_sym: int,
     for t in range(T):
         active = t * L + lanes < num_symbols
         q = lo & ((1 << P) - 1)
-        sym, cum, prob = invert_tables(q, convert.u32_values(tabs[t]),
+        sym, cum, prob = invert(q, convert.u32_values(tabs[t]),
                                        min_sym, max_sym, P)
         # (state >> P) * prob + (q - cum), the product split at 2^32
         sh_hi = hi >> P

@@ -8,8 +8,14 @@ at the small preset (W=16, S=32, P=12) with the model inverted by bisection
 over ``left(x) = (x - min_sym) + trunc(free * CDF(t))``.  The wrappers
 launch the hand-written kernels of ``csrc/ilans2_family.cu`` for CUDA
 tensors (the decode on ``csrc/ilans2_wide.cuh``'s cluster of up to 16 CTAs,
-at most :data:`coder.MAX_DECODE_LANES` lanes; the encode on one block) and
-run the plain PyTorch twins for CPU tensors; any other device raises.
+at most :data:`coder.MAX_DECODE_LANES` lanes; the encode as three launches
+over the whole grid: a tables pass of one thread per symbol writing each
+symbol's division record, a lane pass and the encoders' row-major
+compaction) and run the plain PyTorch twins for CPU tensors; any other
+device raises.  :func:`family_tables_pass_plain`,
+:func:`family_lanes_pass_plain` and ``coder.compact_pass_plain`` are the
+encode's three steps in plain PyTorch (:func:`encode_family_lanes_plain`
+composes them); the kernels' index math mirrors them.
 
 Float rounding is part of the wire format.  The standardized argument is
 ``t = ((float(x) - 0.5) - mean) * (1 / scale)``, then ``* 4096``, a clamp
@@ -35,13 +41,17 @@ import torch
 from .. import convert
 from . import _build
 from .coder import (MAX_DECODE_LANES, _check, _emit_words, _num_steps,
-                    _on_cuda, _refill_words)
+                    _on_cuda, _refill_words, compact_pass_plain,
+                    compaction_scratch, flag_ballots)
 from .interleaved import LaneConfig
 
 FAMILIES = ("gaussian", "laplace", "logistic", "cauchy")
 
-# kernel launches made by this module's wrappers (never by the twins)
-LAUNCHES = {"encode": 0, "decode": 0}
+# kernel launches made by this module's wrappers (never by the twins); the
+# encode's tables pass and lane pass launched alone (family_tables_pass,
+# family_lanes_pass) count under their own keys
+LAUNCHES = {"encode": 0, "decode": 0, "tables": 0, "encode_lanes": 0}
+_M32 = (1 << 32) - 1
 
 FX = 12  # fixed-point fraction bits (the coder's precision)
 T_CLAMP = 8 << FX  # |t| <= 8 scales; beyond is leak-level mass
@@ -283,11 +293,9 @@ def _check_precision(precision: int) -> None:
             f"got {precision}")
 
 
-def check_model(cfg: LaneConfig, family: str, min_sym: int, max_sym: int,
-                lane_multiple: int = 128) -> None:
-    """The configs and supports the family coders take; each failure names
-    its argument.  The JAX package asserts the same conditions
-    (``pallas_family.encode_family_pallas``)."""
+def check_cfg(cfg: LaneConfig, lane_multiple: int = 128) -> None:
+    """The configs the family coders take: W=16, S=32, P=12 and lanes a
+    positive multiple of ``lane_multiple``."""
     if (cfg.word_bits, cfg.state_bits) != (16, 32):
         raise ValueError(
             f"cfg must have word_bits=16 and state_bits=32, got W="
@@ -297,6 +305,14 @@ def check_model(cfg: LaneConfig, family: str, min_sym: int, max_sym: int,
         raise ValueError(
             f"num_lanes must be a positive multiple of {lane_multiple}, "
             f"got {cfg.num_lanes}")
+
+
+def check_model(cfg: LaneConfig, family: str, min_sym: int, max_sym: int,
+                lane_multiple: int = 128) -> None:
+    """The configs and supports the family coders take; each failure names
+    its argument.  The JAX package asserts the same conditions
+    (``pallas_family.encode_family_pallas``)."""
+    check_cfg(cfg, lane_multiple)
     if family not in FAMILIES:
         raise ValueError(f"family must be one of {FAMILIES}, got {family!r}")
     if max_sym <= min_sym:
@@ -350,7 +366,10 @@ def encode_family(symbols, means, scales, family: str, min_sym: int,
     ``symbols`` int32[n]; ``means``, ``scales`` float32[T * L] in the
     padded layout of the module docstring, on the same device.  Returns
     ``(states int32[L], stream int32[num_words])``.  CUDA tensors launch
-    the kernel, CPU tensors run :func:`encode_family_plain`."""
+    the kernel's three steps in one C call (their scratch: a division
+    record a symbol, then ``coder.compaction_scratch``) and read the
+    stream's start back (one sync); CPU tensors run
+    :func:`encode_family_plain`."""
     check_model(cfg, family, min_sym, max_sym)
     if not isinstance(symbols, torch.Tensor):
         raise TypeError("symbols must be a torch.Tensor")
@@ -366,12 +385,13 @@ def encode_family(symbols, means, scales, family: str, min_sym: int,
     if n == 0:
         return states, torch.zeros(0, dtype=torch.int32, device=device)
     buf = torch.empty(n, dtype=torch.int32, device=device)
-    tables_scratch = torch.empty(L, dtype=torch.int32, device=device)
     end = torch.empty(1, dtype=torch.int64, device=device)
-    LAUNCHES["encode"] += 1
+    recs = torch.empty(n, dtype=torch.int64, device=device)
     _build.call("ctt_family_encode", device, states, symbols, n, means,
-                scales, tables_scratch, buf, n, end, L,
+                scales, recs, buf, n, end,
+                *compaction_scratch(_num_steps(n, L), L, device), L,
                 FAMILIES.index(family), min_sym, max_sym)
+    LAUNCHES["encode"] += 1
     return states, buf[int(end.item()):]
 
 
@@ -401,6 +421,158 @@ def encode_family_plain(symbols, means, scales, family: str, min_sym: int,
         x = torch.where(renorm, x >> W, x)
         x = torch.where(active, ((x // prob) << P) | (cum + x % prob), x)
     return convert.u32_bits(x), convert.u32_bits(buf[int(e):n])
+
+
+def _ceil_log2(prob):
+    """ceil(log2 prob) of int64 ``prob`` in 1 .. 2^16, elementwise."""
+    log = torch.zeros_like(prob)
+    for k in range(16):
+        log += prob > 1 << k
+    return log
+
+
+def record_magic(prob):
+    """The multiply-high reciprocal of int64 ``prob`` in 1 .. 2^16 as the
+    tables pass builds it (``csrc/ilans2_wide.cuh``,
+    ``DivisionRecord32::build``): one division, ((2^l - prob) << 32) //
+    prob + 1 with l = ceil(log2 prob), the numerator below 2^48.  Equal to
+    ``coder.division_magic32(prob)[0]``."""
+    return ((1 << _ceil_log2(prob)) - prob << 32) // prob + 1
+
+
+def family_tables_pass_plain(symbols, means, scales, family: str,
+                             min_sym: int, max_sym: int):
+    """The encodes' tables pass in plain PyTorch (kernel 12's step (a), and
+    kernel 22's; any device, no checks), over the n symbols of
+    ``symbols``: each symbol, clamped into the support as the kernel
+    clamps it, its (cum, prob) under its model (:func:`tables`; ``means``
+    and ``scales`` may run past n) and its division record ``magic | (cum
+    | (prob - 1) << 16) << 32`` (:func:`record_magic`).  Returns records
+    int64[n]."""
+    n = symbols.numel()
+    sym = symbols.clamp(min_sym, max_sym)
+    cum, prob = tables(torch, family, min_sym, max_sym, sym, means[:n],
+                       1.0 / scales[:n])
+    cum, prob = cum.to(torch.int64), prob.to(torch.int64)
+    return record_magic(prob) | (cum | (prob - 1) << 16) << 32
+
+
+def record_divide(x, magic, prob):
+    """x // prob for int64 x below 2^32 as the lane pass divides it, from
+    the record's ``magic`` (:func:`record_magic`): t = (magic x) >> 32
+    (``__umulhi``, here with no product past 2^48), then (t + ((x - t) >>
+    min(l, 1))) >> max(l - 1, 0), l = ceil(log2 prob)."""
+    t = (magic * (x >> 16) + ((magic * (x & 0xFFFF)) >> 16)) >> 16
+    up = (prob > 1).to(torch.int64)  # min(l, 1); l - up is max(l - 1, 0)
+    return (t + ((x - t) >> up)) >> (_ceil_log2(prob) - up)
+
+
+def family_lanes_pass_plain(recs, n: int, cfg: LaneConfig):
+    """Kernel 12's pass A in plain PyTorch (any device, no checks): every
+    lane runs steps T-1 .. 0 on its own over the records of symbols 0 ..
+    n - 1 (:func:`family_tables_pass_plain`), its state divided by a
+    record's probability as the kernel divides it (:func:`record_divide`).
+    Returns ``(words int32[T, L], flags bool[T, L], states int32[L])``:
+    ``flags[t, l]`` is set where lane l renorms before coding symbol t * L
+    + l, and ``words[t, l]`` is then its 16-bit word (0 elsewhere); the
+    states are the final ones.  Lanes of a partial last step neither code
+    nor flag.  ``coder.compact_pass_plain`` of words and flags is the
+    stream."""
+    L, S, W, P = cfg.num_lanes, cfg.state_bits, cfg.word_bits, cfg.precision
+    device = recs.device
+    T = _num_steps(n, L)
+    flat = torch.ones(T * L, dtype=torch.int64, device=device)  # unit
+    flat[:n] = recs[:n]
+    magic = flat & _M32
+    cum = (flat >> 32) & 0xFFFF
+    prob = (flat >> 48) + 1
+    x = torch.full((L,), 1 << (S - W), dtype=torch.int64, device=device)
+    lanes = torch.arange(L, device=device)
+    words = torch.zeros(T, L, dtype=torch.int64, device=device)
+    flags = torch.zeros(T, L, dtype=torch.bool, device=device)
+    for t in range(T - 1, -1, -1):
+        active = t * L + lanes < n
+        at = slice(t * L, (t + 1) * L)
+        p = prob[at]
+        renorm = active & ((x >> (S - P)) >= p)
+        words[t] = torch.where(renorm, x & cfg.word_mask, 0)
+        flags[t] = renorm
+        x = torch.where(renorm, x >> W, x)
+        q = record_divide(x, magic[at], p)
+        x = torch.where(active, (q << P) | (cum[at] + (x - q * p)), x)
+    return convert.u32_bits(words), flags, convert.u32_bits(x)
+
+
+def encode_family_lanes_plain(symbols, means, scales, family: str,
+                              min_sym: int, max_sym: int, cfg: LaneConfig):
+    """Kernel 12's three steps composed in plain PyTorch (any device, no
+    checks): :func:`family_tables_pass_plain`, :func:`family_lanes_pass_plain`
+    and ``coder.compact_pass_plain``.  Returns ``(states int32[L], stream
+    int32[num_words])``, equal to :func:`encode_family_plain`'s."""
+    n = symbols.numel()
+    recs = family_tables_pass_plain(symbols, means, scales, family, min_sym,
+                                    max_sym)
+    words, flags, states = family_lanes_pass_plain(recs, n, cfg)
+    return states, compact_pass_plain(words, flags)
+
+
+def _pass_args(symbols, means, scales, family: str, min_sym: int,
+               max_sym: int, cfg: LaneConfig) -> torch.device:
+    check_model(cfg, family, min_sym, max_sym)
+    if not isinstance(symbols, torch.Tensor):
+        raise TypeError("symbols must be a torch.Tensor")
+    device = symbols.device
+    _check("symbols", symbols, torch.int32, device)
+    check_params(means, scales, _num_steps(symbols.numel(), cfg.num_lanes)
+                 * cfg.num_lanes, device)
+    check_symbols(symbols, min_sym, max_sym)
+    return device
+
+
+def family_tables_pass(symbols, means, scales, family: str, min_sym: int,
+                       max_sym: int, cfg: LaneConfig):
+    """Kernel 12's tables pass alone (its arguments as
+    :func:`encode_family`'s): records int64[n].  CUDA tensors launch it,
+    CPU tensors run :func:`family_tables_pass_plain`."""
+    device = _pass_args(symbols, means, scales, family, min_sym, max_sym,
+                        cfg)
+    if not _on_cuda(device):
+        return family_tables_pass_plain(symbols, means, scales, family,
+                                        min_sym, max_sym)
+    n = symbols.numel()
+    recs = torch.empty(n, dtype=torch.int64, device=device)
+    if n:
+        _build.call("ctt_family_tables_pass", device, symbols, means, scales,
+                    recs, n, FAMILIES.index(family), min_sym, max_sym)
+        LAUNCHES["tables"] += 1
+    return recs
+
+
+def family_lanes_pass(recs, cfg: LaneConfig):
+    """Kernel 12's pass A alone over the records of its tables pass (n > 0):
+    ``(words int32[T, L], ballots int32[T, L / 32], states int32[L])``.  On
+    the card the words of lanes that emit nothing are left unwritten; a CPU
+    tensor runs :func:`family_lanes_pass_plain` and packs its flags with
+    ``coder.flag_ballots``."""
+    check_cfg(cfg)
+    if not isinstance(recs, torch.Tensor):
+        raise TypeError("recs must be a torch.Tensor")
+    device = recs.device
+    _check("recs", recs, torch.int64, device)
+    n, L = recs.numel(), cfg.num_lanes
+    if n == 0:
+        raise ValueError("recs must hold at least one symbol's record")
+    if not _on_cuda(device):
+        words, flags, states = family_lanes_pass_plain(recs, n, cfg)
+        return words, flag_ballots(flags), states
+    T = _num_steps(n, L)
+    states = torch.full((L,), 1 << 16, dtype=torch.int32, device=device)
+    words = torch.empty(T, L, dtype=torch.int32, device=device)
+    ballots = torch.empty(T, L // 32, dtype=torch.int32, device=device)
+    _build.call("ctt_family_encode_lanes", device, states, recs, n, words,
+                ballots, L)
+    LAUNCHES["encode_lanes"] += 1
+    return words, ballots, states
 
 
 def _decode_args(states, stream, means, scales, cfg: LaneConfig,

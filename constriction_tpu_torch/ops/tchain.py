@@ -505,7 +505,7 @@ def tchain12_tables_pass(symbols, means, scales, family: str, min_sym: int,
     on the symbols and models): ``records int64[T * L]``, each symbol's
     division record (``csrc/ilans2_wide.cuh``, ``DivisionRecord32``) as one
     u64, ``magic | (cum | (prob - 1) << 16) << 32``.  CUDA tensors launch
-    the kernel (``csrc/tchain.cu``, ``tchain12_tables_kernel``), CPU
+    the kernel (``csrc/family_records.cuh``, ``family_tables_kernel``), CPU
     tensors run :func:`tchain12_tables_pass_plain`."""
     L = cfg.num_lanes
     T = _chain_args(symbols, "symbols", cfg, family, min_sym, max_sym, L)
@@ -532,16 +532,10 @@ def tchain12_tables_pass_plain(symbols, means, scales, family: str,
     kernel clamps it, its (cum, prob) under its model (``family.tables``)
     and its division record ``magic | (cum | (prob - 1) << 16) << 32``,
     magic the 32-bit multiply-high reciprocal of prob <= 2^12
-    (``coder.division_magic32``).  Returns records int64[T * L]."""
-    sym = symbols.clamp(min_sym, max_sym)
-    cum, prob = fam.tables(torch, family, min_sym, max_sym, sym, means,
-                           1.0 / scales)
-    cum, prob = cum.to(torch.int64), prob.to(torch.int64)
-    log = torch.zeros_like(prob)  # ceil(log2 prob)
-    for k in range(fam.FX):
-        log += prob > 1 << k
-    magic = ((torch.ones_like(log) << log) - prob << 32) // prob + 1
-    return magic | (cum | (prob - 1) << 16) << 32
+    (``coder.division_magic32``): ``family.family_tables_pass_plain``, the
+    pass kernel 12 shares.  Returns records int64[T * L]."""
+    return fam.family_tables_pass_plain(symbols, means, scales, family,
+                                        min_sym, max_sym)
 
 
 def tchain12_family_encode_plain(symbols, remainders, heads, means, scales,

@@ -907,17 +907,19 @@ def test_range32_decode_lanes_past_the_cluster_reach(dev):
 
 # which kernels ptxas must compile without spilling, at 2 and 4 lanes a
 # thread (L = 32768 and 65536): the range decodes at both presets, the
-# S=64 exact table decodes (kernel 15; kernel 16, its Seg instance), the
-# family decode (kernel 11, each family) and the TChain encodes (kernels
-# 20, 24 and 22's cluster step); and the lane passes of kernels 8 and 10,
-# kernel 17's pass A, kernel 23's and kernel 19's head passes and kernel
-# 22's tables pass (one lane a thread)
+# exact table decodes (kernel 15; kernel 16, its Seg instance; kernel 13 at
+# S=32), the family decode (kernel 11, each family) and the TChain encodes
+# (kernels 20, 24 and 22's cluster step); and the lane passes of kernels 8
+# and 10, kernel 17's and kernel 12's pass A, kernel 23's and kernel 19's
+# head passes and the family tables pass of kernels 22 and 12 (one lane a
+# thread)
 NO_SPILL = {
     "range S=64": r"cluster_range_decode_kernelILi32ELi64ELi{R}E",
     "range S=32": r"cluster_range_decode_kernelILi16ELi32ELi{R}E",
     "exact S=64": r"cluster_decode_kernelILi32ELi64ELi{R}E.*TableModel",
     "exact seg S=64":
         r"cluster_decode_kernelILi32ELi64ELi{R}E.*TableModelELb1E",
+    "exact S=32": r"cluster_decode_kernelILi16ELi32ELi{R}E.*NarrowTableModel",
     **{f"family {name}":
        rf"cluster_decode_kernelILi16ELi32ELi{{R}}E.*FamilyModelILi{k}EE"
        for k, name in enumerate(fam.FAMILIES)},
@@ -926,7 +928,9 @@ NO_SPILL = {
     "tchain12 encode": r"cluster_tchain_encode_kernelILi16ELi32ELi12ELi{R}E",
     "tchain24 heads": r"tchain_heads_kernelILi32ELi64ELi24E",
     "tchain16 heads": r"tchain_heads_kernelILi16ELi32ELi16E",
-    "tchain12 tables": r"tchain12_tables_kernel",
+    "tchain12 tables": r"family_tables_kernel",
+    "family encode lanes":
+        r"encode_lanes_kernelILi16ELi32E.*RecordLanesModel",
     "range resolve lanes": r"range_resolve_lanes_kernel",
     "range resolve lanes S=64": r"range_resolve_lanes_kernelILi32ELi64E",
     "exact encode lanes S=64":
@@ -1153,17 +1157,63 @@ def test_family_decode_lanes_at_and_past_the_cluster_reach(dev):
     assert fam.LAUNCHES == before
 
 
+@pytest.mark.parametrize("family", fam.FAMILIES)
+@pytest.mark.parametrize("L,n", [(128, 1), (128, 128 * 7 + 3),
+                                 (1024, 1024 * 5), (32768, 32768 * 2 + 11),
+                                 (coder.MAX_DECODE_LANES,
+                                  coder.MAX_DECODE_LANES + 99)])
+def test_family_encode_passes_match_plain(dev, family, L, n):
+    """Kernel 12's three launches: the tables pass, pass A and pass B, each
+    alone against its plain version on the same tensors, and the C entry
+    against the twin, the three-step twin and the numpy host oracle; L up
+    to coder.MAX_DECODE_LANES (the grid passes take any L), partial last
+    steps, symbols pinned at both ends of the support."""
+    rng = np.random.RandomState(L + n + len(family))
+    means, scales, symbols = _family_data(rng, n, cauchy=family == "cauchy")
+    symbols[rng.rand(n) < 0.1] = LO
+    symbols[rng.rand(n) < 0.1] = HI
+    cfg = _family_cfg(L)
+    mu, sg = convert.params_to_torch(means, scales, n, L, dev)
+    syms = torch.from_numpy(symbols).to(dev)
+    before = dict(fam.LAUNCHES)
+    recs = fam.family_tables_pass(syms, mu, sg, family, LO, HI, cfg)
+    assert torch.equal(recs, fam.family_tables_pass_plain(
+        syms, mu, sg, family, LO, HI))
+    words, ballots, states = fam.family_lanes_pass(recs, cfg)
+    words_p, flags_p, states_p = fam.family_lanes_pass_plain(recs, n, cfg)
+    assert torch.equal(ballots, coder.flag_ballots(flags_p))
+    assert torch.equal(words[flags_p], words_p[flags_p])
+    assert torch.equal(states, states_p)
+    stream = coder.compact_pass(words, ballots)
+    assert torch.equal(stream, coder.compact_pass_plain(words_p, flags_p))
+    st, w = fam.encode_family(syms, mu, sg, family, LO, HI, cfg)
+    assert fam.LAUNCHES["tables"] == before["tables"] + 1
+    assert fam.LAUNCHES["encode_lanes"] == before["encode_lanes"] + 1
+    assert fam.LAUNCHES["encode"] == before["encode"] + 1
+    assert torch.equal(st, states) and torch.equal(w, stream)
+    st_p, w_p = fam.encode_family_plain(syms, mu, sg, family, LO, HI, cfg)
+    assert torch.equal(st, st_p) and torch.equal(w, w_p)
+    st_l, w_l = fam.encode_family_lanes_plain(syms, mu, sg, family, LO, HI,
+                                              cfg)
+    assert torch.equal(st, st_l) and torch.equal(w, w_l)
+    cums, probs = fam.family_tables_host(symbols, means, scales, family, LO,
+                                         HI)
+    st_h, w_h = il2.encode_shared(cums, probs, cfg)
+    np.testing.assert_array_equal(convert.u32_from_torch(st), st_h)
+    np.testing.assert_array_equal(convert.u32_from_torch(w), w_h)
+
+
 def test_failed_call_leaves_no_error_behind(dev):
-    """A C entry that fails in a runtime call (the single-block family
+    """A C entry that fails in a runtime call (kernel 14's single-block
     encode asks for more shared memory than a block has at L = 524288)
     raises, and the next call does not report that failure as its own."""
     L = coder.MAX_DECODE_LANES
+    cfg = LaneConfig(num_lanes=L, word_bits=16, state_bits=32, precision=12)
+    planes = torch.ones((1, L), dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="ctt_exact_encode32 failed"):
+        ef.encode_tables(planes - 1, planes, cfg, None, 1000)
     rng = np.random.RandomState(29)
     means, scales, symbols = _family_data(rng, 1000)
-    mu, sg = convert.params_to_torch(means, scales, 1000, L, dev)
-    with pytest.raises(RuntimeError, match="ctt_family_encode failed"):
-        fam.encode_family(torch.from_numpy(symbols).to(dev), mu, sg,
-                          "gaussian", LO, HI, _family_cfg(L))
     _check_family(_family_cfg(128), "gaussian", means, scales, symbols, dev)
 
 
@@ -2376,6 +2426,102 @@ def test_exact32_decode_kernel_matches_twin(dev, family, L, n, monkeypatch):
         convert.u32_from_torch(states), convert.u32_from_torch(cut), means,
         scales, fam_name, lo, hi, cfg, n)
     np.testing.assert_array_equal(got.cpu().numpy(), host)
+
+
+def _tiled_narrow_message(L, n, dev, seed):
+    """A message of n symbols at L lanes whose models repeat 1024 base
+    models (symbol i has model i mod 1024), so that a large L costs no
+    host table build: the host builder's narrow tables and ``exact_ecp``'s
+    planes of the base models, tiled, and the numpy host coder's states and
+    stream.  Returns (cfg, symbols, states, stream, tabs int32 [T, CP1, L]
+    on the card)."""
+    B = 1024
+    means, scales, base = _exact_data(B, seed)
+    tabs4, _ = ef.narrow_tables(means, scales, "gaussian", -100, 100, 12,
+                                None, 1, B // 128)
+    cols = convert.exact_tables_to_torch(tabs4)[0]
+    cums, probs = ef.exact_ecp(base, means, scales, "gaussian", -100, 100, 12)
+    T = -(-n // L)
+    idx = np.arange(T * L) % B
+    tabs = cols[:, torch.from_numpy(idx)].reshape(-1, T, L).permute(1, 0, 2)
+    cfg = _exact32_cfg(L)
+    st, w = il2.encode_shared(cums[idx[:n]], probs[idx[:n]], cfg)
+    return (cfg, base[idx[:n]], convert.u32_to_torch(st, dev),
+            convert.u32_to_torch(w, dev), tabs.contiguous().to(dev))
+
+
+@pytest.mark.parametrize("bisect", [False, True])
+@pytest.mark.parametrize("L", [32, 1024, 32768, coder.MAX_DECODE_LANES])
+def test_exact32_cluster_decode_matches_twin(dev, L, bisect):
+    """Kernel 13 on the cluster step, the scan and the binary search
+    forced, at the fewest lanes, the exact suite's L and the cluster's
+    reach: against the twin decoding the same way, the symbols and the
+    final states; through ``decode_tables`` too where L is a multiple of
+    128."""
+    n = 2 * L + 7 if L < coder.MAX_DECODE_LANES else L + 99
+    cfg, syms, st, w, tabs = _tiled_narrow_message(L, n, dev, seed=L)
+    before = ef.LAUNCHES["decode32"]
+    out, fin = ef.decode_tables32_cluster(st, w, tabs, cfg, -100, 100, n,
+                                          bisect=bisect)
+    assert ef.LAUNCHES["decode32"] == before + 1
+    np.testing.assert_array_equal(out.cpu().numpy(), syms)
+    assert bool((fin == 1 << 16).all())
+    out_p, fin_p, _ = ef.decode_tables_plain(st, w, tabs, cfg, -100, 100, n,
+                                             bisect=bisect)
+    assert torch.equal(out, out_p) and torch.equal(fin, fin_p)
+    if L % 128 == 0:
+        got, fin_w = ef.decode_tables(st, w, tabs, cfg, -100, 100, n,
+                                      return_final_states=True)
+        assert torch.equal(got, out) and torch.equal(fin_w, fin)
+
+
+@pytest.mark.parametrize("bisect", [False, True])
+@pytest.mark.parametrize("L,cluster", [(32, 1), (32, 16), (96, 5),
+                                       (4096, 3), (4096, 16), (32768, 1),
+                                       (32768, 8)])
+def test_exact32_cluster_partitions_match_twin(dev, L, cluster, bisect):
+    """Forced cluster sizes: groups that do not divide evenly over the CTAs
+    (4096/3), CTAs left with no lanes (32/16, 96/5), one CTA holding 32
+    lanes a thread (32768/1); partial last steps."""
+    for n in (1, L - 5, 2 * L + 7):
+        cfg, syms, st, w, tabs = _tiled_narrow_message(L, n, dev,
+                                                       seed=L + cluster)
+        out, fin = ef.decode_tables32_cluster(st, w, tabs, cfg, -100, 100, n,
+                                              cluster, bisect)
+        out_p, fin_p, _ = ef.decode_tables_plain(st, w, tabs, cfg, -100, 100,
+                                                 n, bisect=bisect)
+        assert torch.equal(out, out_p) and torch.equal(fin, fin_p)
+        np.testing.assert_array_equal(out.cpu().numpy(), syms)
+
+
+def test_exact32_decode_runs_as_a_cluster(dev):
+    """Kernel 13 at L = 32768: 16 CTAs, 2 lanes a thread; at the reach,
+    16 CTAs of 32 lanes a thread."""
+    geo = ef.geometry(32768, dev, narrow=True)
+    assert geo["cluster"] == 16 and geo["max_active_clusters"] >= 1
+    assert geo["lanes_per_thread"] == 2
+    geo = ef.geometry(coder.MAX_DECODE_LANES, dev, narrow=True)
+    assert geo["cluster"] == 16 and geo["lanes_per_thread"] == 32
+
+
+def test_exact32_decode_lanes_past_the_cluster_reach(dev):
+    """128 lanes past coder.MAX_DECODE_LANES raise ValueError with the limit
+    named and launch nothing; the CPU twin takes them."""
+    L = coder.MAX_DECODE_LANES + 128
+    cfg = _exact32_cfg(L)
+    states = torch.full((L,), 1 << 16, dtype=torch.int32, device=dev)
+    stream = torch.zeros(8, dtype=torch.int32, device=dev)
+    tabs = torch.zeros((1, 2, L), dtype=torch.int32, device=dev)
+    before = dict(ef.LAUNCHES)
+    with pytest.raises(ValueError, match=f"at most {L - 128} lanes"):
+        ef.decode_tables(states, stream, tabs, cfg, -100, 100, 10)
+    with pytest.raises(ValueError, match=f"at most {L - 128} lanes"):
+        ef.decode_tables32_cluster(states, stream, tabs, cfg, -100, 100, 10,
+                                   16)
+    assert ef.LAUNCHES == before
+    out = ef.decode_tables(states.cpu(), stream.cpu(), tabs.cpu(), cfg, -100,
+                           100, 10)
+    assert out.shape == (10,)
 
 
 @pytest.mark.parametrize("family", ["gaussian", "laplace", "cauchy"])
