@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Twenty coding kernels timed in several checkouts on one card, one
+"""Twenty-two coding kernels timed in several checkouts on one card, one
 checkout after another in the order given.
 
     git archive <commit> | tar -x -C _scratch/parent
@@ -81,6 +81,14 @@ builds its kernels and times, on the same inputs:
   symbols, gaussian, P=24) at L=32768: its C entry (on preallocated
   scratch where it takes some; the states reset outside the CUDA events),
   and, where the checkout has them, its pass A and pass B alone;
+- kernel 14, the S=32 exact encode, on the default exact call's planes
+  (2^20 symbols, P=12, L=32768): its C entry (on preallocated scratch
+  where it takes some; the states reset outside the CUDA events), and,
+  where the checkout has them, its pass A and pass B alone;
+- kernel 18, the window evaluator, on the exact row's grouped plan (2^22
+  symbols, gaussian, P=24, L=32768, the builder's windows): one launch a
+  segment back to back, every entry and flag checked against its plain
+  twin;
 - kernel 16, the S=64 exact segment decode, on the exact row's grouped
   plan (2^22 symbols, gaussian, P=24, L=32768, its segments' tables built
   on the card): the whole chain of its launches (CUDA events around it,
@@ -226,6 +234,10 @@ def time_decodes(root: str, kernels: set) -> dict:
         _time_family_encode(out, check)
     if 13 in kernels:
         _time_exact32(out, check, root)
+    if 14 in kernels:
+        _time_exact_encode32(out, check)
+    if 18 in kernels:
+        _time_eval_window(out, check)
     return out
 
 
@@ -1118,8 +1130,122 @@ def _time_exact_seg(out, check):
     out["exact_seg_enqueue_ms"] = enqueue
 
 
+def _time_exact_encode32(out, check):
+    """Kernel 14 into ``out``: the C entry on the default exact call's
+    planes (2^20 symbols, P=12, L=32768), the states reset outside the CUDA
+    events, against the wrapper's states and stream; on preallocated
+    scratch where the entry takes some (a checkout whose entry takes none
+    runs one block), and then its pass A and pass B alone too."""
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import _build
+    from constriction_tpu_torch.ops import exact_family as ef
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    dev = torch.device("cuda", 0)
+    n = N_EXACT32
+    means, scales, esyms = _exact_workload(n)
+    cu, pr = ef.exact_ecp(esyms, means, scales, "gaussian", -100, 100, 12)
+    cfg = LaneConfig(num_lanes=LANES, word_bits=16, state_bits=32,
+                     precision=12)
+    c_t, p_t = convert.ecp_to_torch(cu, pr, LANES, dev)
+    st, w = ef.encode_tables(c_t, p_t, cfg, None, n)
+    T = -(-n // LANES)
+    s_buf = torch.empty_like(st)
+    buf = torch.empty(n, dtype=torch.int32, device=dev)
+    end = torch.empty(1, dtype=torch.int64, device=dev)
+    entry = "ctt_exact_encode32"
+    scratch = ()
+    if len(_build.SIGNATURES[entry]) > 11:
+        scratch = (torch.empty(T * LANES, dtype=torch.int32, device=dev),
+                   torch.empty(T * LANES // 32, dtype=torch.int32,
+                               device=dev),
+                   torch.empty(1024, dtype=torch.int64, device=dev))
+
+    def reset():
+        s_buf.fill_(1 << 16)
+
+    def launch():
+        _build.call(entry, dev, s_buf, c_t, p_t, n, buf, n, end, *scratch,
+                    LANES, 12)
+
+    reset()
+    launch()
+    check(s_buf, st, "exact32 encode states")
+    check(buf[int(end.item()):], w, "exact32 encode stream")
+    out["exact32_encode_ms"] = _events_ms(launch, reset)
+    if not scratch:
+        return
+    out["exact32_encode_pass_a_ms"] = _events_ms(lambda: _build.call(
+        "ctt_exact_encode_lanes32", dev, s_buf, c_t, p_t, n, scratch[0],
+        scratch[1], LANES, 12), reset)
+    check(s_buf, st, "exact32 encode pass A states")
+    out["exact32_encode_pass_b_ms"] = _events_ms(lambda: _build.call(
+        "ctt_ilans2_compact", dev, scratch[1], scratch[0],
+        scratch[1].numel(), buf, n, end, scratch[2]))
+    check(buf[int(end.item()):], w, "exact32 encode passes apart")
+
+
+def _time_eval_window(out, check):
+    """Kernel 18 into ``out``: one launch a segment of the exact row's
+    grouped plan (2^22 symbols, gaussian, P=24, L=32768) over the
+    builder's windows, launched back to back (CUDA events around the
+    chain), every entry and flag checked against ``eval_window_plain``,
+    and the live share where the checkout has ``live_ends_plain``."""
+    import numpy as np
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.ops import _build
+    from constriction_tpu_torch.ops import exact_family as ef
+    from constriction_tpu_torch.ops import exact_tables as et
+
+    dev = torch.device("cuda", 0)
+    lo, hi, P = -100, 100, 24
+    means, scales, _ = _exact_workload(N_EXACT)
+    perm, segs = ef.group_plan(means, scales, "gaussian", lo, hi, P, LANES,
+                               N_EXACT)
+    T = -(-N_EXACT // LANES)
+    pm, ps = ef._pad_params(means[perm], scales[perm], T * LANES, "gaussian",
+                            hi)
+    CL = ef._EST_C["gaussian"][0]
+    t_star, eps, has_star = et._band("gaussian")
+    wins = []
+    for t0, ns, cm in segs:
+        m = pm[t0 * LANES:(t0 + ns) * LANES]
+        sc = ps[t0 * LANES:(t0 + ns) * LANES]
+        ws = np.clip(np.ceil(m - CL * sc) - 3.0, lo + 1, hi).astype(np.int32)
+        W = min(cm + 16, hi - lo + 17)
+        m_t, s_t = convert.params64_to_torch(m, sc, dev)
+        wins.append((m_t, s_t, torch.from_numpy(ws).to(dev), W,
+                     torch.empty((len(m), W), dtype=torch.int32, device=dev),
+                     torch.empty((len(m), W), dtype=torch.bool, device=dev)))
+    out["eval_launches"] = len(wins)
+    out["eval_entries"] = sum(m_t.numel() * W for m_t, _, _, W, _, _ in wins)
+    if hasattr(et, "live_ends_plain"):
+        live = sum(int(et.live_ends_plain(m_t, s_t, ws_t, "gaussian", hi,
+                                          W).sum())
+                   for m_t, s_t, ws_t, W, _, _ in wins)
+        out["eval_live_share"] = live / out["eval_entries"]
+    def launch():
+        for m_t, s_t, ws_t, W, tv, amb in wins:
+            _build.call("ctt_exact_eval_window", dev, m_t, s_t, ws_t,
+                        m_t.numel(), W, 0, lo, hi, P, t_star, eps,
+                        int(has_star), tv, amb)
+
+    launch()
+    for m_t, s_t, ws_t, W, tv, amb in wins:
+        tv_p, amb_p = et.eval_window_plain(m_t, s_t, ws_t, "gaussian", lo, hi,
+                                           P, W)
+        check(tv, tv_p, "eval_window tv")
+        check(amb, amb_p, "eval_window ambig")
+        del tv_p, amb_p
+    out["eval_window_ms"] = _events_ms(launch)
+
+
 def main(argv: list[str]) -> int:
-    kernels = "1,2,3,4,5,6,8,10,11,12,13,15,16,17,19,20,21,22,23,24"
+    kernels = "1,2,3,4,5,6,8,10,11,12,13,14,15,16,17,18,19,20,21,22,23,24"
     if len(argv) > 1 and argv[0] == "--kernels":
         kernels, argv = argv[1], argv[2:]
     if len(argv) == 2 and argv[0] == "--one":

@@ -27,12 +27,13 @@ prints one JSON object per phase, then the kernels line, the card's
                     is in shared memory, the encode's pass-A grid, and
                     ptxas' registers and spills for their kernels at each
                     preset and lanes a thread and for the lane passes of
-                    kernels 21, 23, 19, 8, 10, 17 and 12 and the family
-                    tables pass (kernels 22 and 12).  A spill in the
+                    kernels 21, 23, 19, 8, 10, 17, 14 and 12, the family
+                    tables pass (kernels 22 and 12) and the window
+                    evaluator (kernel 18, each family).  A spill in the
                     range decodes or kernels 11, 13, 15, 16, 20, 24 and 22
-                    at 2 or 4 lanes a thread, or in those lane passes,
-                    fails the run, as does kernel 11, 13, 16, 20, 24 or
-                    22 on fewer than 16 CTAs at L=32768.
+                    at 2 or 4 lanes a thread, or in those lane passes or
+                    kernel 18, fails the run, as does kernel 11, 13, 16,
+                    20, 24 or 22 on fewer than 16 CTAs at L=32768.
 2. kernels       -- each rANS kernel against its plain PyTorch twin on the
                     same CUDA tensors and against the numpy host oracle
                     (L=32768, about 2^20 symbols, with and without seeds):
@@ -153,9 +154,11 @@ prints one JSON object per phase, then the kernels line, the card's
 18. exact_builder -- the reference-exact families' on-card table builder:
                     both canaries (window evaluator, whole builder) pass
                     on the card; kernel 18 (window evaluation) against its
-                    twin on the card and every entry it calls unambiguous
-                    against the host oracle ``exact_tv_at`` (2^20 symbols
-                    of the suite's distribution, gaussian, laplace, cauchy);
+                    twin on the card, every entry and every flag, and every
+                    entry it calls unambiguous against the host oracle
+                    ``exact_tv_at`` (2^20 symbols of the suite's
+                    distribution, gaussian, laplace, cauchy), with the
+                    shares of live, saturated and out-of-support entries;
                     tables built on the card equal to the host builder's
                     bit for bit (2^18 symbols each).
 19. exact_kernels -- kernels 15, 16 and 17 against their twins on the same
@@ -184,7 +187,10 @@ prints one JSON object per phase, then the kernels line, the card's
                     ``utils/special.py`` picked.
 21. exact_times  -- kernel-only time of each of the four at that size
                     (kernel 17's pass A and pass B also apart), its
-                    twin's time on the card, the device table build split
+                    twin's time on the card (kernel 18: equal on every
+                    entry and flag; its entries and their live,
+                    saturated and out-of-support shares), the device
+                    table build split
                     into evaluation, host patch and derive + pack (Msym/s),
                     the facade's call times, and each kernel's bound
                     (kernels 15 and 16: the table words on the binary
@@ -209,7 +215,8 @@ prints one JSON object per phase, then the kernels line, the card's
                     symbols (4 steps); kernel 14 with and without seeds,
                     kernel 13 through its wrapper and with the scan and
                     the binary search forced, over the host builder's
-                    narrow tables.  Tolerance 0.
+                    narrow tables; kernel 14's pass A also launched alone
+                    against its plain version.  Tolerance 0.
 23. exact32_main_path -- the facade's DEFAULT exact call, no cfg
                     (W=16, S=32, P=12, L=32768): ``cuda.encode_family_
                     exact(sym, mu, sigma, "gaussian", -100, 100)`` ->
@@ -220,8 +227,9 @@ prints one JSON object per phase, then the kernels line, the card's
                     ``exact_ecp``'s planes, the decode equal to the
                     symbols; both kernels launched.
 24. exact32_times -- kernel-only time of kernels 14 and 13 at that size
-                    over the main path's planes and tables, the twins'
-                    time on the card (outputs equal), the facade's call
+                    over the main path's planes and tables (kernel 14's
+                    pass A and pass B also apart), the twins' time on the
+                    card (outputs equal), the facade's call
                     times and host share, each kernel's bound (kernel 13:
                     the table words on the binary search's path), the
                     narrow search sweep (scan and binary search at table
@@ -239,8 +247,10 @@ integer operations over 33.5 T per second (NVIDIA's 67 TFLOP/s float32
 rate counts a fused multiply-add as two); for the family kernels the
 operations are ``left()`` evaluations (LEFT_OPS each, counted from
 family.cuh) times what this run's inputs need; for the window evaluator
-the float64 operations of each window entry (EVAL_OPS) over the card's
-34 TFLOP/s float64 rate outside the tensor cores (NVIDIA's data sheet).
+the float64 flops read from its SASS (EVAL_T_FLOPS for every entry in
+the support, EVAL_CDF_FLOPS more for each live one, a DFMA as two) over
+the card's 34 TFLOP/s float64 rate outside the tensor cores (NVIDIA's
+data sheet).
 No single PyTorch call computes these functions, so ``library_ms`` is
 null.  The numpy host oracles of phases 18 and 19 and of phase 22 run in
 worker processes (at most 8), which the script stops before phase 20 and
@@ -550,7 +560,8 @@ def ptxas_usage(log: str, marks: tuple) -> dict:
 # 32768 and 65536), the TChain-12 decode's first two passes (kernel 21),
 # the TChain-24 and TChain-16 decodes' head passes (kernels 23 and 19), the
 # family tables pass (kernels 22 and 12), the range resolves' lane passes
-# (kernels 8 and 10) and the pass A of kernels 17 and 12
+# (kernels 8 and 10), the pass A of kernels 17, 14 and 12 and the window
+# evaluator (kernel 18, each family)
 NO_SPILL = (r"cluster_range_decode_kernelILi32ELi64ELi[24]E",
             r"cluster_range_decode_kernelILi16ELi32ELi[24]E",
             r"cluster_decode_kernelILi32ELi64ELi[24]E.*TableModelELb0E",
@@ -567,7 +578,9 @@ NO_SPILL = (r"cluster_range_decode_kernelILi32ELi64ELi[24]E",
             r"range_resolve_lanes_kernelILi16ELi32E",
             r"range_resolve_lanes_kernelILi32ELi64E",
             r"encode_lanes_kernelILi32ELi64E.*PlaneLanesModel",
-            r"encode_lanes_kernelILi16ELi32E.*RecordLanesModel")
+            r"encode_lanes_kernelILi16ELi32E.*PlaneLanesModel",
+            r"encode_lanes_kernelILi16ELi32E.*RecordLanesModel",
+            *(rf"exact_eval_window_kernelILi{k}E" for k in range(3)))
 
 
 def phase_geometry(device) -> dict:
@@ -578,8 +591,8 @@ def phase_geometry(device) -> dict:
     the family decode (kernel 11, each family) and the TChain cluster
     encodes (kernels 20, 24 and 22's step) at bench.py's lane counts for
     its K, and what ptxas reported for their kernels at each preset and
-    lanes a thread and for the lane passes of kernels 21, 23, 19, 8, 10,
-    17 and 12 and the family tables pass.  Fails on a spill in a kernel of
+    lanes a thread, for the lane passes of kernels 21, 23, 19, 8, 10, 17,
+    14 and 12, the family tables pass and kernel 18.  Fails on a spill in a kernel of
     NO_SPILL, and unless kernels 11, 13, 16, 20, 24 and 22 run on 16 CTAs
     at L=32768."""
     import re
@@ -651,6 +664,7 @@ def phase_geometry(device) -> dict:
                                        "tchain_heads_kernel",
                                        "cluster_tchain_encode_kernel",
                                        "range_resolve_lanes_kernel",
+                                       "exact_eval_window_kernel",
                                        "division_records", "compact_"))}
 
 
@@ -2427,11 +2441,28 @@ def builder_windows(family, means, scales, W_core: int):
     return ws.astype(np.int64), W_core
 
 
+def window_shares(means, scales, ws, family, W: int) -> dict:
+    """Kernel 18's entries by kind on these windows: the live ones (before
+    each row's live end, ``exact_tables.live_ends_plain``: a CDF each),
+    the certainly saturated ones (in the support, past the live end) and
+    the ones out of the support (both (free, 0) with no CDF)."""
+    from constriction_tpu_torch.ops import exact_tables as et
+
+    lo, hi = EXACT_SUPPORT
+    entries = means.numel() * W
+    live = int(et.live_ends_plain(means, scales, ws, family, hi, W).sum())
+    support = int((hi - ws.long() + 1).clamp(0, W).sum())
+    return {"live_share": live / entries,
+            "saturated_share": (support - live) / entries,
+            "out_of_support_share": 1 - support / entries}
+
+
 def phase_exact_builder(device, pool, errs: dict) -> dict:
-    """Both canaries on the card; kernel 18 against its twin on the card
-    and every entry it calls unambiguous against the host oracle (2^20
-    symbols of each continuous family); device-built tables against the
-    host builder, bit for bit (2^18 symbols each)."""
+    """Both canaries on the card; kernel 18 against its twin on the card,
+    every entry and every flag, and every entry it calls unambiguous
+    against the host oracle (2^20 symbols of each continuous family), with
+    the shares of live, saturated and out-of-support entries; device-built
+    tables against the host builder, bit for bit (2^18 symbols each)."""
     import numpy as np
     import torch
 
@@ -2460,11 +2491,10 @@ def phase_exact_builder(device, pool, errs: dict) -> dict:
         tv, amb = et.eval_window(m_t, s_t, ws_t, family, lo, hi, EXACT_P, W)
         tv_p, amb_p = et.eval_window_plain(m_t, s_t, ws_t, family, lo, hi,
                                            EXACT_P, W)
-        both = ~amb & ~amb_p
-        twin_err = int((tv[both].long() - tv_p[both].long()).abs().max()) \
-            if bool(both.any()) else 0
+        twin_err = mismatch(tv, tv_p)
         flags_differ = int((amb != amb_p).sum())
-        del tv_p, amb_p, both
+        del tv_p, amb_p
+        shares = window_shares(m_t, s_t, ws_t, family, W)
         tv_h = tv.cpu().numpy().reshape(-1)
         amb_h = amb.cpu().numpy().reshape(-1)
         del tv, amb
@@ -2477,12 +2507,12 @@ def phase_exact_builder(device, pool, errs: dict) -> dict:
         err = max(err, twin_err, wrong)
         rows.append({
             "family": family, "symbols": len(means), "W": W,
-            "entries": int(tv_h.size), "ambiguous_share": share,
+            "entries": int(tv_h.size), **shares, "ambiguous_share": share,
             "accepted_entries_wrong": wrong, "twin_max_abs_err": twin_err,
             "flags_differ_from_twin": flags_differ,
             "identical_to_twin": twin_err == 0 and flags_differ == 0,
         })
-        if wrong or twin_err or share >= 0.2:
+        if wrong or twin_err or flags_differ or share >= 0.2:
             fail(f"exact_builder: window evaluator: {rows[-1]}")
     for family in ef.DEVICE_FAMILIES:
         host4, ch = tables[family].result()
@@ -2922,11 +2952,47 @@ def search_path_words(tabs, cums, k: int,
 ENCODE64_OPS = 30
 DECODE64_OPS = 40
 PROBE_OPS = 6
-# f64 operations of one window entry in exact_family.cu's kernel 18 (the
-# argument 4, the rounding rules 12, the CDF: erf about 24, exp about 16,
-# atan about 22 from CUDA's polynomial degrees)
-EVAL_OPS = {"gaussian": 40, "laplace": 32, "cauchy": 38}
+# float64 flops of kernel 18's gaussian entries (exact_family.cu,
+# exact_eval_window_kernel<0>), read from cuobjdump -sass of its build on
+# an H100 (sm_90a): a DFMA counts 2, a DADD, DMUL or DSETP 1, MUFU and the
+# division's rare slow path nothing.  Every entry in the support needs its
+# argument t (two DADD, the division's seven DFMA and one DMUL) and the
+# saturation compare (a DADD and two DSETP): EVAL_T_FLOPS.  A live entry
+# also runs the CDF and the rounding rules, the rest of the live loop's
+# straight-line body (44 DFMA, 10 DADD, 4 DMUL, 7 DSETP in all; CUDA's erf
+# takes no branch there): EVAL_CDF_FLOPS.  exact_times reports the static
+# counts of the whole kernel beside them (sass_f64).
+EVAL_T_FLOPS = 20
+EVAL_CDF_FLOPS = 89
 F64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores
+
+
+def sass_f64(pattern: str) -> dict | None:
+    """Static counts of the float64 instructions (DFMA, DADD, DMUL, DSETP,
+    MUFU) in the SASS of the built kernels whose mangled name matches
+    ``pattern`` (cuobjdump -sass of the library), or None without
+    cuobjdump."""
+    import re
+    import shutil
+
+    from constriction_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", _build._library_path()],
+                          capture_output=True, text=True).stdout
+    out = {}
+    for block in re.split(r"\n\s+Function : ", sass)[1:]:
+        name = block.split(None, 1)[0]
+        if not re.search(pattern, name):
+            continue
+        counts = {}
+        for op in re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
+                             r"(DFMA|DADD|DMUL|DSETP|MUFU)", block):
+            counts[op] = counts.get(op, 0) + 1
+        out[name] = counts
+    return out
 
 
 def phase_exact_times(device, work, keep: dict, gpu: str,
@@ -2988,19 +3054,20 @@ def phase_exact_times(device, work, keep: dict, gpu: str,
 
     ms, plain, e = {}, {}, {}
     ms["exact_eval_window"] = kernel_ms(lambda: None, eval_all, 3)
-    e_eval = 0
-    t0 = time.perf_counter()
-    for m_t, s_t, ws_t, W, tv, amb in wins:
-        tv_p, amb_p = et.eval_window_plain(m_t, s_t, ws_t, family, lo, hi,
-                                           EXACT_P, W)
-        both = ~amb & ~amb_p
-        if bool(both.any()):
-            e_eval = max(e_eval, int((tv[both].long() - tv_p[both].long())
-                                     .abs().max()))
-        del tv_p, amb_p, both
-    torch.cuda.synchronize()
-    plain["exact_eval_window"] = (time.perf_counter() - t0) * 1e3
-    e["exact_eval_window"] = e_eval
+    plain["exact_eval_window"], twins = timed(lambda: [
+        et.eval_window_plain(m_t, s_t, ws_t, family, lo, hi, EXACT_P, W)
+        for m_t, s_t, ws_t, W, _, _ in wins])
+    # every entry and every flag
+    e["exact_eval_window"] = max(
+        max(mismatch(tv, tv_p), int((amb != amb_p).sum()))
+        for (_, _, _, _, tv, amb), (tv_p, amb_p) in zip(wins, twins))
+    del twins
+    entries = sum(m_t.numel() * W for m_t, _, _, W, _, _ in wins)
+    eval_shares: dict = {}
+    for m_t, s_t, ws_t, W, _, _ in wins:
+        for k, v in window_shares(m_t, s_t, ws_t, family, W).items():
+            eval_shares[k] = eval_shares.get(k, 0.0) + v * m_t.numel() * W
+    eval_shares = {k: v / entries for k, v in eval_shares.items()}
     # kernel 17 alone: both passes on preallocated scratch, then each
     s_buf = torch.empty(L, dtype=torch.int64, device=device)
     w_buf = torch.empty(n, dtype=torch.int32, device=device)
@@ -3097,7 +3164,6 @@ def phase_exact_times(device, work, keep: dict, gpu: str,
     seg_words = sum(wd for wd, _ in seg_path)
     seg_probes = sum(pr for _, pr in seg_path)
     u_words, u_probes = search_path_words(tab_u, cu, n)
-    entries = sum(m_t.numel() * W for m_t, _, _, W, _, _ in wins)
     bounds = {
         "exact_encode64": bound(8 * n + 16 * L + 4 * nw, ENCODE64_OPS * n),
         "exact_decode64_seg": bound(
@@ -3107,9 +3173,14 @@ def phase_exact_times(device, work, keep: dict, gpu: str,
             4 * u_words + 4 * nwu + 4 * n + 16 * L,
             PROBE_OPS * u_probes + DECODE64_OPS * n),
     }
+    # kernel 18: 5 bytes written an entry, 20 read a symbol; the argument
+    # and compare of every entry in the support, the CDF of the live ones
     t_bytes = (entries * 5 + 20 * sum(m_t.numel() for m_t, *_ in wins)) \
         / HBM_BYTES_PER_S * 1e3
-    t_ops = entries * EVAL_OPS[family] / F64_OPS_PER_S * 1e3
+    support = 1 - eval_shares["out_of_support_share"]
+    eval_flops = entries * (EVAL_T_FLOPS * support
+                            + EVAL_CDF_FLOPS * eval_shares["live_share"])
+    t_ops = eval_flops / F64_OPS_PER_S * 1e3
     bounds["exact_eval_window"] = ((t_bytes, "bytes") if t_bytes >= t_ops
                                    else (t_ops, "operations"))
     times = {}
@@ -3120,6 +3191,9 @@ def phase_exact_times(device, work, keep: dict, gpu: str,
     row = {
         "family": family, "n": n, "num_lanes": L,
         "segments": len(segs), "window_entries": entries,
+        **{f"window_{k}": v for k, v in eval_shares.items()},
+        "window_flops": eval_flops,
+        "sass_f64": sass_f64(r"exact_eval_window_kernelILi0E"),
         "seg_table_bytes": sum(k * 4 * tb.shape[1] for (_, k), (tb, _)
                                in zip(spans, built)),
         "seg_search_path_bytes_per_symbol": 4 * seg_words / n,
@@ -3158,9 +3232,11 @@ def phase_exact_times(device, work, keep: dict, gpu: str,
 # reference-exact families at the small preset (W=16, S=32, P <= 16)
 # ---------------------------------------------------------------------------
 
-# integer operations per symbol of the S=32 encoder (u32 division and
-# remainder, renorm test, emission) and of the narrow table decoder outside
-# its search (regions, state update, refill)
+# operations per symbol of the S=32 encoder's pass A (the quotient's f64
+# estimate, four DFMA and a DMUL, its correcting product, the remainder,
+# renorm test and emission), counted at the integer rate, and of the
+# narrow table decoder outside its search (regions, state update, refill);
+# the encoder's bytes bound it either way (exact32_times)
 ENCODE32_OPS = 20
 DECODE32_OPS = 30
 
@@ -3226,12 +3302,36 @@ def decode32_launch(device, states, stream, tabs, syms, n, cfg, lo, hi,
                 lo, hi, bisect, None)
 
 
+def encode32_pass_a_err(device, c_t, p_t, cfg, seeds, n: int) -> int:
+    """Kernel 14's pass A launched alone (``ctt_exact_encode_lanes32``)
+    against its plain version ``exact_family.encode_lanes_plain``: final
+    states, ballots and the words it flags; 0 when equal."""
+    import torch
+
+    from constriction_tpu_torch.ops import _build, coder
+    from constriction_tpu_torch.ops import exact_family as ef
+
+    L = cfg.num_lanes
+    T = -(-n // L)
+    words, flags, _ = coder.compaction_scratch(T, L, device)
+    states = (seeds.clone() if seeds is not None else torch.full(
+        (L,), cfg.lower_bound, dtype=torch.int32, device=device))
+    _build.call("ctt_exact_encode_lanes32", device, states, c_t, p_t, n,
+                words, flags, L, cfg.precision)
+    w_p, f_p, st_p = ef.encode_lanes_plain(c_t, p_t, cfg, seeds, n)
+    f = f_p.reshape(-1)
+    return max(mismatch(states, st_p),
+               mismatch(flags.view(T, L // 32), coder.flag_ballots(f_p)),
+               mismatch(words[f], w_p.reshape(-1)[f]))
+
+
 def phase_exact32_kernels(device, pool, errs: dict, keep: dict) -> dict:
     """Kernels 14 and 13 against their twins on the same CUDA tensors and
     against the numpy oracles (``encode_shared``,
     ``decode_family_exact_host``), L=32768: kernel 14 with and without
-    seeds, kernel 13 through its wrapper and with the scan and the binary
-    search forced, over the host builder's narrow tables."""
+    seeds, its pass A also alone against its plain version, kernel 13
+    through its wrapper and with the scan and the binary search forced,
+    over the host builder's narrow tables."""
     import numpy as np
     import torch
 
@@ -3264,12 +3364,14 @@ def phase_exact32_kernels(device, pool, errs: dict, keep: dict) -> dict:
             st, w = ef.encode_tables(c_t, p_t, cfg, s_t, n)
             st_p, w_p = ef.encode_tables_plain(c_t, p_t, cfg, s_t, n)
             st_h, w_h = il2.encode_shared(cums, probs, cfg, seeds=seeds)
-            e = max(mismatch(st, st_p), mismatch(w, w_p))
+            e = max(mismatch(st, st_p), mismatch(w, w_p),
+                    encode32_pass_a_err(device, c_t, p_t, cfg, s_t, n))
             same_h = (np.array_equal(convert.u32_from_torch(st), st_h)
                       and np.array_equal(convert.u32_from_torch(w), w_h))
             e14 = max(e14, e, 0 if same_h else 1)
             rows.append({"kernel": "exact_encode32", "case": label,
-                         "seeded": seeded, "n": n, "max_abs_err_vs_twin": e,
+                         "seeded": seeded, "n": n,
+                         "max_abs_err_vs_twin_and_pass_a": e,
                          "identical_to_host_oracle": same_h})
             if not seeded:
                 states, stream = st, w
@@ -3470,15 +3572,15 @@ def phase_exact32_times(device, work, keep: dict, gpu: str,
                         errs: dict) -> tuple[dict, dict]:
     """Kernel-only time of kernels 14 and 13 at the main path's shapes (CUDA
     events around the C entry points, after a warm-up), over the main
-    path's own planes and tables; each twin's time on the card (outputs
-    equal); the facade's call times and their host share; each kernel's
+    path's own planes and tables, kernel 14's pass A and pass B also
+    apart; each twin's time on the card (outputs equal); the facade's call times and their host share; each kernel's
     bound (kernel 13: the table words on the binary search's path, counted
     from this run's tables and symbols); and the narrow search sweep."""
     import numpy as np
     import torch
 
     from constriction_tpu_torch import convert
-    from constriction_tpu_torch.ops import _build
+    from constriction_tpu_torch.ops import _build, coder
     from constriction_tpu_torch.ops import exact_family as ef
 
     means, scales, syms = work
@@ -3494,11 +3596,22 @@ def phase_exact32_times(device, work, keep: dict, gpu: str,
     s_buf = torch.empty(L, dtype=torch.int32, device=device)
     w_buf = torch.empty(n, dtype=torch.int32, device=device)
     end = torch.empty(1, dtype=torch.int64, device=device)
+    scratch = coder.compaction_scratch(-(-n // L), L, device)
     ms["exact_encode32"] = kernel_ms(
         lambda: s_buf.fill_(1 << 16), lambda: _build.call(
             "ctt_exact_encode32", device, s_buf, c_t, p_t, n, w_buf, n, end,
-            L, P), 3)
+            *scratch, L, P), 3)
     same = torch.equal(s_buf, st) and torch.equal(w_buf[int(end):], w)
+    enc_passes = {"exact_encode32_pass_a_ms": kernel_ms(
+        lambda: s_buf.fill_(1 << 16), lambda: _build.call(
+            "ctt_exact_encode_lanes32", device, s_buf, c_t, p_t, n,
+            scratch[0], scratch[1], L, P), 3)}
+    enc_passes["exact_encode32_pass_b_ms"] = kernel_ms(
+        lambda: None, lambda: _build.call(
+            "ctt_ilans2_compact", device, scratch[1], scratch[0],
+            scratch[1].numel(), w_buf, n, end, scratch[2]), 3)
+    same = (same and torch.equal(s_buf, st)
+            and torch.equal(w_buf[int(end):], w))
     plain["exact_encode32"], pe = timed(
         lambda: ef.encode_tables_plain(c_t, p_t, cfg, None, n))
     e["exact_encode32"] = planes_err((st, w), pe)
@@ -3544,6 +3657,7 @@ def phase_exact32_times(device, work, keep: dict, gpu: str,
         **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
         **{f"{k}_bound_by": v[1] for k, v in bounds.items()},
         **{f"{k}_max_abs_err": v for k, v in e.items()},
+        **enc_passes,
         **{f"facade_{k}_call_s": calls[k] for k in kernel_of},
         **{f"facade_{k}_host_share": 1 - ms[v] * 1e-3 / calls[k]
            for k, v in kernel_of.items()},

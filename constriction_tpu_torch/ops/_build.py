@@ -111,11 +111,11 @@ _TCHAIN_ENCODE_CLUSTER_ARGS = [*_TCHAIN_ENCODE_ARGS[:10], _I32, _P, _I32]
 # L, K, cluster size, out[7]
 _TCHAIN_GEOMETRY_ARGS = [_I32, _I32, _I32, _P, _P, _I32]
 _D = ctypes.c_double
-_EXACT_ENCODE_ARGS = [_P, _P, _P, _I64, _P, _I64, _P, _I32, _I32, _P, _I32]
-# kernel 17: its scratch (words, flags, offsets) after end_out
-_EXACT_ENCODE64_ARGS = [*_EXACT_ENCODE_ARGS[:7], _P, _P, _P,
-                        *_EXACT_ENCODE_ARGS[7:]]
-# kernel 17's pass A: states, cums, probs, n, words, flags, L, P
+# kernels 17 and 14: states, cums, probs, n, buf, cap, end_out, their
+# scratch (words, flags, offsets), L, P
+_EXACT_ENCODE_ARGS = [_P, _P, _P, _I64, _P, _I64, _P, _P, _P, _P, _I32, _I32,
+                      _P, _I32]
+# their pass A: states, cums, probs, n, words, flags, L, P
 _EXACT_ENCODE_LANES_ARGS = [_P, _P, _P, _I64, _P, _P, _I32, _I32, _P, _I32]
 _EXACT_DECODE_ARGS = [_P, _P, _I64, _P, _I32, _P, _I64, _I32, _I32, _I32,
                       _I32, _I32, _P, _P, _I32]
@@ -176,9 +176,10 @@ SIGNATURES = {
     "ctt_tchain12_geometry": _TCHAIN12_GEOMETRY_ARGS,
     "ctt_tchain12_invert_pass": _TCHAIN12_INVERT_ARGS,
     "ctt_tchain12_head_pass": _TCHAIN12_HEADS_ARGS,
-    "ctt_exact_encode64": _EXACT_ENCODE64_ARGS,
+    "ctt_exact_encode64": _EXACT_ENCODE_ARGS,
     "ctt_exact_encode_lanes64": _EXACT_ENCODE_LANES_ARGS,
     "ctt_exact_encode32": _EXACT_ENCODE_ARGS,
+    "ctt_exact_encode_lanes32": _EXACT_ENCODE_LANES_ARGS,
     "ctt_exact_decode64": _EXACT_DECODE_ARGS,
     "ctt_exact_decode32": _EXACT_DECODE_ARGS,
     "ctt_exact_decode32_cluster": _EXACT_DECODE_CLUSTER_ARGS,

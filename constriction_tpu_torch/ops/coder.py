@@ -469,8 +469,7 @@ def encode32_steps(tables_at, n: int, cfg: LaneConfig, seeds, device):
     the (cum, prob) int64 of the flat symbol indices ``i`` (one step's
     lanes; indices past n are masked).  Shared by the categorical twin
     above and the exact-family planes twin
-    (``exact_family.encode_tables_plain``), whose kernel runs
-    ``csrc/ilans2.cuh``'s single-block encode loop.  ``seeds`` optional
+    (``exact_family.encode_tables_plain``).  ``seeds`` optional
     int32[L] (u32 bits).  Returns ``(states int32[L], stream int32)``."""
     L = cfg.num_lanes
     x = _start_states32(seeds, cfg, device)
@@ -521,10 +520,22 @@ def lanes_pass32_plain(symbols, cdf, cfg: LaneConfig, seeds=None):
     ``encode_lanes_kernel<16, 32, ...>``) keeps ``flags`` as one ballot per
     32 lanes (:func:`flag_ballots`)."""
     n = symbols.numel()
-    L = cfg.num_lanes
-    device = symbols.device
     cdf64 = cdf.to(torch.int64)
     K = cdf64.numel() - 1
+
+    def tables_at(i):
+        return _symbol_tables(symbols, cdf64, i, n, K)
+
+    return lanes32_steps(tables_at, n, cfg, seeds, symbols.device)
+
+
+def lanes32_steps(tables_at, n: int, cfg: LaneConfig, seeds, device):
+    """Pass A's step loop at S=32, ``tables_at`` as in
+    :func:`encode32_steps`.  Shared by :func:`lanes_pass32_plain` and the
+    exact-family planes pass (``exact_family.encode_lanes_plain``, kernel
+    14's pass A).  Returns ``(words int32[T, L], flags bool[T, L], states
+    int32[L])`` as :func:`lanes_pass32_plain` does."""
+    L = cfg.num_lanes
     T = _num_steps(n, L)
     x = _start_states32(seeds, cfg, device)
     lanes = torch.arange(L, device=device)
@@ -533,7 +544,7 @@ def lanes_pass32_plain(symbols, cdf, cfg: LaneConfig, seeds=None):
     for t in range(T - 1, -1, -1):
         i = t * L + lanes
         active = i < n
-        cum, prob = _symbol_tables(symbols, cdf64, i, n, K)
+        cum, prob = tables_at(i)
         prob = torch.where(active, prob, 1)
         renorm = _renorms32(x, prob, active, cfg)
         words[t] = torch.where(renorm, x & cfg.word_mask, 0)

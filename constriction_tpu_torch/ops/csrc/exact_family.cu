@@ -14,14 +14,12 @@
 //   constriction_tpu/ops/exact_family.py  _build_exact_decoder       (13)
 // and holds the same wire format and table layout.
 //
-// Kernel 14 is the ILANS2 encode loop of ilans2.cuh (one block, a warp
-// ballot and block scan per step for the shared word stream, states in
-// device memory, native uint32_t state algebra and division) over
-// PlaneModel; ilans2.cuh's header says what bounds that loop.  Kernel 17
-// is ilans2_wide.cuh's two-pass encode over PlaneLanesModel: pass A
+// Kernels 17 and 14 are ilans2_wide.cuh's two-pass encode over
+// PlaneLanesModel, at W=32, S=64 and at W=16, S=32: pass A
 // (encode_lanes_kernel, one thread per lane over the grid, the state in a
 // register, the planes read two steps ahead, the division from an f64
-// estimate, words and renorm ballots to dense scratch) and pass B
+// estimate at S=64, the native u32 division at S=32, words and renorm
+// ballots to dense scratch) and pass B
 // (launch_compact, the row-major compaction of kernel 2).  Kernels 15 and 16 are ilans2_wide.cuh's
 // cluster decode over TableModel (up to 16 CTAs, states in registers, one
 // exchange per step), kernel 13 the same decode at W=16, S=32 over
@@ -30,7 +28,7 @@
 // there, so the segments of a grouped message chain on the card with no
 // host round trip.  The TPU kernels' chunked table DMA, their 40x25-bit
 // multiply limbs, their f32-estimate division (_exact_div) and their
-// refill/emit compaction stay behind.
+// refill/emit compaction stay behind.  No kernel here runs on one block.
 //
 // Kernels 17 and 14 read (cum, prob) from the planes at t * L + l.
 //
@@ -55,16 +53,29 @@
 // 1.10 ms) or with bulk prefetches (1.59): the prefetch traffic delays the
 // search's own reads (chip_ab.py).
 //
-// Kernel 18 evaluates one (symbol, window position) entry per thread in
-// native float64 with CUDA's erf / exp / atan: tv = trunc(free * CDF(s -
-// 1/2)) where that is farther than 2^-6 from an integer, else an ambiguity
-// flag for the host's exact patch (constriction_tpu_torch/ops/
-// exact_tables.py states the rules).  The double-f32 arithmetic of the TPU
-// kernel, which had no native f64, is not carried over.  The products and
-// sums use __dmul_rn / __dadd_rn / __dsub_rn, so no multiply-add is fused
-// and the plain twin's separate torch operations round alike.  What bounds
-// it: the 5 bytes written per entry against one erf, exp or atan and a
-// division per entry; every SM runs it.
+// Kernel 18 evaluates the (symbol, window position) entries in native
+// float64 with CUDA's erf / exp / atan: tv = trunc(free * CDF(s - 1/2))
+// where that is farther than 2^-6 from an integer, else an ambiguity flag
+// for the host's exact patch (constriction_tpu_torch/ops/exact_tables.py
+// states the rules).  The double-f32 arithmetic of the TPU kernel, which
+// had no native f64, is not carried over.  The products and sums use
+// __dmul_rn / __dadd_rn / __dsub_rn, so no multiply-add is fused and the
+// plain twin's separate torch operations round alike.  A row's entries
+// from its live end on, the first j that is out of the support or
+// certainly saturated (t - t* > eps), are (free, 0) whatever their CDF:
+// both tests are monotone in j for den > 0, so a search with the entry's
+// own arithmetic finds that end exactly (exact_tables.py,
+// live_ends_plain), and only the entries before it run a CDF.  Each warp
+// works on four rows with no barrier (the search, a flat walk of their
+// live entries, the fill of their ends); offsets among its rows
+// are 32-bit and no entry takes a 64-bit division.  What bounds it:
+// instruction issue in the live entries' CDF path, about 200 instructions
+// an entry (gaussian, from the SASS), 65 of them on the float64 pipe and
+// 68 UMOVs that load erf's 64-bit coefficients (CUDA's erf is one
+// straight-line polynomial and an exp, with no branch to sort entries by:
+// a form that ran a tile's live entries grouped by |t| < 1 was 3% slower
+// on an NVIDIA H100 80GB HBM3 at 700 W, chip_ab.py),
+// against the 5 bytes written per entry; every SM runs it.
 //
 // Kernel 13 reads narrow tables [T, CP1, L]: the aux plane (core_lo - min
 // | ncore << 16), then CP1 - 1 planes of two 16-bit (b - 1) fields each,
@@ -83,48 +94,38 @@
 // 14.5 at 4 lanes a thread (chip_smoke.py, exact32_times): 0.24 ms at 2^20
 // symbols, L = 32768, against 4.2-4.3 ms on one block (chip_ab.py).
 
-#include "ilans2.cuh"
 #include "ilans2_wide.cuh"
 
 namespace {
 
-// Kernel 14's model (ilans2.cuh's single-block encode): (cum, prob)
-// planes [T, L], symbol i at index i.
-struct PlaneModel {
-  const uint32_t* cums;
-  const uint32_t* probs;
-
-  __device__ void stage(uint32_t*) {}
-  __device__ void lookup(int64_t i, uint32_t& cum, uint32_t& prob) const {
-    cum = cums[i];
-    prob = probs[i];
-  }
-  __device__ uint32_t prob(int64_t i) const { return probs[i]; }
-};
-
-// A symbol's interval read from the planes.  The planes hold no reciprocal
-// of prob (building one per symbol costs a division itself), and the card's
-// u64 division is a software routine of tens of instructions on the lane's
-// chain, so divide takes floor(x / prob) from float64 instead.  Pass A
-// divides only states x < prob * 2^(64-P) (the renorm test), so the
-// quotient is below 2^(64-P) <= 2^47 (16 < P <= 24).  The estimate is x
-// times the reciprocal of prob from rcp.approx.ftz.f64 (good to 2^-19
-// relatively, f64_quotient's note in ilans2_wide.cuh) after two Newton
-// steps (below 2^-37, then a few 2^-53), with x and the product rounded
-// once each: within 2^-50 of x / prob relatively, 2^-3 absolutely.  Its
-// truncation is off by at most one either way, and the remainder x - q
-// prob, exact as a signed 64-bit value (it lies in (-prob, 2 prob), and
-// u64 arithmetic wraps where q prob reaches 2^64), tells which.
-// constriction_tpu_torch/ops/exact_family.py (plane_correct) holds the
-// correction exact against integer division from every estimate within
-// one.  On an H100 pass A took 0.078-0.087 ms this way against 0.098-0.101
-// with the native division (chip_ab.py, NVIDIA H100 80GB HBM3, 700 W).
+// A symbol's interval read from the planes.  At S=32 (kernel 14, P <= 16)
+// divide is the card's native u32 division, a short float-reciprocal
+// sequence.  At S=64 (kernel 17) the card's u64 division is a software
+// routine of tens of instructions on the lane's chain, and the planes hold
+// no reciprocal (building one per symbol costs a division itself), so
+// divide takes floor(x / prob) from float64 instead.  Pass A divides only
+// states x < prob * 2^(64-P) (the renorm test), so the quotient is below
+// 2^(64-P) <= 2^47 (16 < P <= 24).  The estimate is x times the reciprocal
+// of prob from rcp.approx.ftz.f64 (good to 2^-19 relatively, f64_quotient's
+// note in ilans2_wide.cuh) after two Newton steps (below 2^-37, then a few
+// 2^-53), with x and the product rounded once each: within 2^-50 of x /
+// prob relatively, 2^-3 absolutely.  Its truncation is off by at most one
+// either way, and the remainder x - q prob, exact as a signed 64-bit value
+// (it lies in (-prob, 2 prob), and u64 arithmetic wraps where q prob
+// reaches 2^64), tells which.  constriction_tpu_torch/ops/exact_family.py
+// (plane_correct) holds the correction exact against integer division from
+// every estimate within one.  On an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_ab.py) kernel 17's pass A took 0.078-0.087 ms this way against
+// 0.098-0.101 with the native u64 division; kernel 14's pass A took
+// 0.0112-0.0209 ms with the native u32 division against 0.0113-0.0248 with
+// this f64 form, in turns in one call.
 struct PlaneInterval {
   uint32_t c, p;
 
   __device__ static PlaneInterval unit() { return {0, 1}; }
   __device__ uint32_t cum() const { return c; }
   __device__ uint32_t prob() const { return p; }
+  __device__ uint32_t divide(uint32_t x) const { return x / p; }
   __device__ uint64_t divide(uint64_t x) const {
     const double d = __uint2double_rn(p);
     double r;
@@ -138,9 +139,9 @@ struct PlaneInterval {
   }
 };
 
-// Kernel 17's model (ilans2_wide.cuh's pass A): the token is the (cum,
-// prob) pair itself, loaded from the planes two steps before it is coded,
-// so interval() reads no memory and nothing is staged.
+// Kernels 17 and 14's model (ilans2_wide.cuh's pass A): the token is the
+// (cum, prob) pair itself, loaded from the planes two steps before it is
+// coded, so interval() reads no memory and nothing is staged.
 struct PlaneLanesModel {
   using Token = PlaneInterval;
   using Interval = PlaneInterval;
@@ -422,75 +423,195 @@ struct NarrowTableModel {
   }
 };
 
-// Kernel 18.  F: 0 gaussian, 1 laplace, 2 cauchy.  tv[n, W], ambig[n, W]
-// (one byte, 0 or 1) for s = ws[i] + j.
+// Kernel 18's blocks of kEvalThreads threads, each warp on kWarpRows rows;
+// W is at most kEvalMaxW, so that an entry's offset among its warp's rows,
+// r * W + j, fits 32 bits.
+constexpr int kEvalThreads = 256;
+constexpr int kWarpRows = 4;
+constexpr int kEvalMaxW = 1 << 25;
+
+// What kernel 18 takes besides the tensors.
+struct EvalArgs {
+  int max_sym;
+  int freei;
+  double free;
+  double t_star;
+  double eps;
+  int has_star;
+};
+
 template <int F>
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ double eval_den(double scale) {
+  return F == 0 ? __dmul_rn(scale, 1.4142135623730951) : scale;
+}
+
+// The standardized argument t = ((s - 1/2) - mean) / den of symbol value s.
+__device__ __forceinline__ double eval_t(int64_t s, double mean, double den) {
+  return __ddiv_rn(__dsub_rn(__dsub_rn(static_cast<double>(s), 0.5), mean),
+                   den);
+}
+
+// One entry of argument t in the support: (tv, ambig) by the rules of
+// exact_tables.py.
+struct EvalOut {
+  int32_t tv;
+  uint8_t ambig;
+};
+
+template <int F>
+__device__ __forceinline__ EvalOut eval_entry(double t, const EvalArgs& a) {
+  constexpr double kMargin = 0.015625;  // 2^-6
+  constexpr double kPi = 3.141592653589793;
+  double cdf;
+  if (F == 0) {
+    cdf = __dmul_rn(0.5, __dadd_rn(1.0, erf(t)));
+  } else if (F == 1) {
+    cdf = t < 0.0 ? __dmul_rn(0.5, exp(t))
+                  : __dsub_rn(1.0, __dmul_rn(0.5, exp(-t)));
+  } else {
+    cdf = __dadd_rn(0.5, __ddiv_rn(atan(t), kPi));
+  }
+  const double A = __dmul_rn(a.free, cdf);
+  const double I = rint(A);
+  const double f = __dsub_rn(A, I);
+  const double fl = floor(f);
+  const int u = static_cast<int>(I) + static_cast<int>(fl);
+  const double fr = __dsub_rn(f, fl);
+  const bool unamb_frac = fr > kMargin && fr < 1.0 - kMargin;
+  // A + margin < 1 pins trunc to 0 regardless of sign wobble near 0
+  const bool unamb_zero = u <= 0 && A < 1.0 - kMargin;
+  bool certain_sat = false, band = false;
+  if (a.has_star) {
+    const double d = __dsub_rn(t, a.t_star);
+    certain_sat = d > a.eps;
+    band = fabs(d) <= a.eps;
+  }
+  // below the threshold the CDF is certainly < 1.0: A margin-close to
+  // free from below pins the value to free - 1
+  const bool unamb_top = !certain_sat && !band &&
+                         A > __dadd_rn(__dsub_rn(a.free, 1.0), kMargin);
+  int v = u > 0 ? u : 0;
+  if (unamb_zero) v = 0;
+  if (unamb_top) v = a.freei - 1;
+  if (certain_sat) v = a.freei;
+  const bool unamb = unamb_frac || unamb_zero || unamb_top || certain_sat;
+  return {v, static_cast<uint8_t>((!unamb || band) ? 1 : 0)};
+}
+
+// Kernel 18.  F: 0 gaussian, 1 laplace, 2 cauchy.  tv[n, W], ambig[n, W]
+// (one byte, 0 or 1) for s = ws[i] + j.  Warp g of the grid takes the
+// kWarpRows rows from g * kWarpRows on, with no barrier.  Lane 8 rr + q
+// works on row rr: the row's eight lanes find its live end by an 8-ary
+// search (a probe each a round, about three rounds for a window of 70),
+// the warp walks its rows' live entries in one flat index, two a lane at a
+// time (the row by three compares against the prefix, its mean, den and ws
+// by shuffles from lane 8 rr), and fills their ends with (free, 0).
+template <int F>
+__global__ void __launch_bounds__(kEvalThreads)
     exact_eval_window_kernel(const double* __restrict__ means,
                              const double* __restrict__ scales,
                              const int32_t* __restrict__ ws, int64_t n, int W,
-                             int max_sym, double free, int freei,
-                             double t_star, double eps, int has_star,
-                             int32_t* __restrict__ tv,
+                             EvalArgs a, int32_t* __restrict__ tv,
                              uint8_t* __restrict__ ambig) {
-  constexpr double kMargin = 0.015625;  // 2^-6
-  constexpr double kSqrt2 = 1.4142135623730951;
-  constexpr double kPi = 3.141592653589793;
-  const int64_t total = n * W;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       e < total; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t i = e / W;
-    const int j = static_cast<int>(e - i * W);
-    const int64_t s = static_cast<int64_t>(ws[i]) + j;
-    if (s > max_sym) {  // out of support: the saturated sentinel
-      tv[e] = freei;
-      ambig[e] = 0;
-      continue;
-    }
-    const double x =
-        __dsub_rn(__dsub_rn(static_cast<double>(s), 0.5), means[i]);
-    const double den = F == 0 ? __dmul_rn(scales[i], kSqrt2) : scales[i];
-    const double t = __ddiv_rn(x, den);
-    double cdf;
-    if (F == 0) {
-      cdf = __dmul_rn(0.5, __dadd_rn(1.0, erf(t)));
-    } else if (F == 1) {
-      cdf = t < 0.0 ? __dmul_rn(0.5, exp(t))
-                    : __dsub_rn(1.0, __dmul_rn(0.5, exp(-t)));
-    } else {
-      cdf = __dadd_rn(0.5, __ddiv_rn(atan(t), kPi));
-    }
-    const double A = __dmul_rn(free, cdf);
-    const double I = rint(A);
-    const double f = __dsub_rn(A, I);
-    const double fl = floor(f);
-    const int u = static_cast<int>(I) + static_cast<int>(fl);
-    const double fr = __dsub_rn(f, fl);
-    const bool unamb_frac = fr > kMargin && fr < 1.0 - kMargin;
-    // A + margin < 1 pins trunc to 0 regardless of sign wobble near 0
-    const bool unamb_zero = u <= 0 && A < 1.0 - kMargin;
-    bool certain_sat = false, band = false;
-    if (has_star) {
-      const double d = __dsub_rn(t, t_star);
-      certain_sat = d > eps;
-      band = fabs(d) <= eps;
-    }
-    // below the threshold the CDF is certainly < 1.0: A margin-close to
-    // free from below pins the value to free - 1
-    const bool unamb_top = !certain_sat && !band &&
-                           A > __dadd_rn(__dsub_rn(free, 1.0), kMargin);
-    int v = u > 0 ? u : 0;
-    if (unamb_zero) v = 0;
-    if (unamb_top) v = freei - 1;
-    if (certain_sat) v = freei;
-    const bool unamb = unamb_frac || unamb_zero || unamb_top || certain_sat;
-    tv[e] = v;
-    ambig[e] = (!unamb || band) ? 1 : 0;
+  const int lane = threadIdx.x & 31;
+  const int rr = lane >> 3, q = lane & 7;
+  const int64_t row0 = (static_cast<int64_t>(blockIdx.x) *
+                            (kEvalThreads / 32) +
+                        (threadIdx.x >> 5)) * kWarpRows;  // the warp's rows
+  if (row0 >= n) return;  // warp-uniform
+  const bool has_row = row0 + rr < n;
+  double mean = 0.0, den = 1.0;
+  int w0 = 0, end = 0;
+  if (has_row) {
+    mean = means[row0 + rr];
+    den = eval_den<F>(scales[row0 + rr]);
+    w0 = ws[row0 + rr];
+    const int64_t room = static_cast<int64_t>(a.max_sym) - w0 + 1;
+    end = room <= 0 ? 0 : room < W ? static_cast<int>(room) : W;
   }
-}
+  // (a) the live end: the first j in [0, end) with t - t* > eps
+  const bool search = has_row && a.has_star && den > 0.0;
+  int lo = 0, hi = search ? end : 0;
+  while (__any_sync(kFull, lo < hi)) {
+    const int len = hi - lo;
+    const int p = lo + len * (q + 1) / 9;  // below hi where len > 0
+    const bool sat =
+        lo < hi && __dsub_rn(eval_t(static_cast<int64_t>(w0) + p, mean, den),
+                             a.t_star) > a.eps;
+    const unsigned bits = (__ballot_sync(kFull, sat) >> (8 * rr)) & 0xFFu;
+    if (lo < hi) {
+      if (bits != 0u) {  // the first saturated probe f: (p_{f-1}, p_f]
+        const int f = __ffs(bits) - 1;
+        hi = lo + len * (f + 1) / 9;
+        lo = f > 0 ? lo + len * f / 9 + 1 : lo;
+      } else {
+        lo = lo + len * 8 / 9 + 1;
+      }
+    }
+  }
+  if (search) end = lo;
 
-size_t table_smem_bytes(int L) {
-  return scratch_words(L / 32) * sizeof(uint32_t);
+  // (b) the live entries of the warp's rows in one flat index
+  int start[kWarpRows + 1];
+  start[0] = 0;
+#pragma unroll
+  for (int r = 0; r < kWarpRows; ++r) {
+    start[r + 1] = start[r] + __shfl_sync(kFull, end, 8 * r);
+  }
+  const int total = start[kWarpRows];
+  const int64_t base = row0 * W;
+  // entry k's argument t and its offset among the warp's rows (the row by
+  // three compares; its mean, den and ws from lane 8 r)
+  auto locate = [&](int k, int& off) {
+    const int r = (k >= start[1]) + (k >= start[2]) + (k >= start[3]);
+    const double m = __shfl_sync(kFull, mean, 8 * r);
+    const double d = __shfl_sync(kFull, den, 8 * r);
+    const int w = __shfl_sync(kFull, w0, 8 * r);
+    const int j = k - (r == 0   ? 0
+                       : r == 1 ? start[1]
+                       : r == 2 ? start[2]
+                                : start[3]);
+    off = r * W + j;
+    return eval_t(static_cast<int64_t>(w) + j, m, d);
+  };
+  // entries k and k + 32 a lane while more than 32 are left, their CDFs
+  // side by side (4% faster than one a lane on the exact row: chip_ab.py,
+  // NVIDIA H100 80GB HBM3, 700 W), then one
+  int k0 = 0;
+  for (; total - k0 > 32; k0 += 64) {
+    const int kb = k0 + 32 + lane;
+    int off_a, off_b;
+    const double ta = locate(k0 + lane, off_a);
+    const double tb = locate(min(kb, total - 1), off_b);
+    const EvalOut ea = eval_entry<F>(ta, a);
+    const EvalOut eb = eval_entry<F>(tb, a);
+    tv[base + off_a] = ea.tv;
+    ambig[base + off_a] = ea.ambig;
+    if (kb < total) {
+      tv[base + off_b] = eb.tv;
+      ambig[base + off_b] = eb.ambig;
+    }
+  }
+  for (; k0 < total; k0 += 32) {
+    const int k = k0 + lane;
+    int off;
+    const double t = locate(min(k, total - 1), off);
+    if (k < total) {
+      const EvalOut e = eval_entry<F>(t, a);
+      tv[base + off] = e.tv;
+      ambig[base + off] = e.ambig;
+    }
+  }
+
+  // (c) the entries at and past each row's live end: (free, 0)
+#pragma unroll
+  for (int r = 0; r < kWarpRows; ++r) {
+    if (row0 + r >= n) break;
+    for (int j = start[r + 1] - start[r] + lane; j < W; j += 32) {
+      tv[base + r * W + j] = a.freei;
+      ambig[base + r * W + j] = 0;
+    }
+  }
 }
 
 // The lane counts and precisions of the wide (S=64) and narrow (S=32)
@@ -570,34 +691,15 @@ int table_geometry(int L, long long* out, int device) {
   return 0;
 }
 
-// Kernel 14: the single-block encode over PlaneModel.
-int launch_encode32(void* states, const void* cums, const void* probs,
-                    long long n, void* buf, long long cap, void* end_out,
-                    int L, int P, void* cuda_stream, int device) {
-  auto kernel = ilans2_encode_kernel<16, 32, PlaneModel>;
-  const size_t bytes = table_smem_bytes(L);
-  if (!valid_exact(L, P, false)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaError_t err = prepare(kernel, device, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const int T = static_cast<int>((n + L - 1) / L);
-  const PlaneModel model{static_cast<const uint32_t*>(cums),
-                         static_cast<const uint32_t*>(probs)};
-  kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<uint32_t*>(states), model, n, static_cast<uint32_t*>(buf),
-      cap, static_cast<int64_t*>(end_out), L, P, T);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Kernel 17's pass A alone: words[T * L] (left as they are where a lane
-// does not renorm) and flags[T * L / 32] out, states coded in place.
-int launch_encode_lanes64(void* states, const void* cums, const void* probs,
-                          long long n, void* words, void* flags, int L, int P,
-                          void* cuda_stream, int device) {
-  auto kernel = encode_lanes_kernel<32, 64, PlaneLanesModel>;
-  if (!valid_exact(L, P, true)) {
+// Pass A alone of kernel 17 (W=32, S=64) or kernel 14 (W=16, S=32):
+// words[T * L] (left as they are where a lane does not renorm) and
+// flags[T * L / 32] out, states coded in place.
+template <int W, int S>
+int launch_encode_lanes(void* states, const void* cums, const void* probs,
+                        long long n, void* words, void* flags, int L, int P,
+                        void* cuda_stream, int device) {
+  auto kernel = encode_lanes_kernel<W, S, PlaneLanesModel>;
+  if (!valid_exact(L, P, S == 64)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err = prepare(kernel, device, 0);
@@ -608,49 +710,54 @@ int launch_encode_lanes64(void* states, const void* cums, const void* probs,
                               static_cast<const uint32_t*>(probs)};
   kernel<<<ceil_div(L, kLaneThreads), kLaneThreads, 0,
            static_cast<cudaStream_t>(cuda_stream)>>>(
-      static_cast<uint64_t*>(states), model, n, static_cast<uint32_t*>(words),
-      static_cast<uint32_t*>(flags), L, P, T);
+      static_cast<typename StateOf<S>::type*>(states), model, n,
+      static_cast<uint32_t*>(words), static_cast<uint32_t*>(flags), L, P, T);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernel 17: pass A, then pass B into buf[*end_out : cap].  Scratch the
-// caller allocates: words[T * L], flags[T * L / 32], offsets[kScanBlocks]
-// (u64).
-int launch_encode64(void* states, const void* cums, const void* probs,
-                    long long n, void* buf, long long cap, void* end_out,
-                    void* words, void* flags, void* offsets, int L, int P,
-                    void* cuda_stream, int device) {
-  const int err = launch_encode_lanes64(states, cums, probs, n, words, flags,
-                                        L, P, cuda_stream, device);
+// Kernel 17 or 14: pass A, then pass B into buf[*end_out : cap].  Scratch
+// the caller allocates: words[T * L], flags[T * L / 32],
+// offsets[kScanBlocks] (u64).
+template <int W, int S>
+int launch_encode(void* states, const void* cums, const void* probs,
+                  long long n, void* buf, long long cap, void* end_out,
+                  void* words, void* flags, void* offsets, int L, int P,
+                  void* cuda_stream, int device) {
+  const int err = launch_encode_lanes<W, S>(states, cums, probs, n, words,
+                                            flags, L, P, cuda_stream, device);
   if (err != 0 || n <= 0) return err;
   const long long n_flags = (n + L - 1) / L * (L / 32);
   return launch_compact(flags, words, n_flags, buf, cap, end_out, offsets,
                         cuda_stream, device);
 }
 
+// Kernel 18: a warp for every kWarpRows rows.  (A grid of only as many
+// blocks as the card keeps resident, each warp looping over groups of
+// rows, took 1.833-1.845 ms against 1.653-1.661 on the exact row, in turns
+// in one chip_ab.py call, NVIDIA H100 80GB HBM3, 700 W.)
 template <int F>
 int launch_eval(const void* means, const void* scales, const void* ws,
                 long long n, int W, int min_sym, int max_sym, int P,
                 double t_star, double eps, int has_star, void* tv,
                 void* ambig, void* cuda_stream, int device) {
+  constexpr long long kBlockRows = kEvalThreads / 32 * kWarpRows;
   const long long freei = (1ll << P) - 1 - (static_cast<long long>(max_sym) -
                                             min_sym);
-  if (W < 1 || P <= 16 || P > 24 || freei < 2) {
+  if (W < 1 || W > kEvalMaxW || P <= 16 || P > 24 || freei < 2 ||
+      n > ((1ll << 31) - 1) * kBlockRows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const long long total = n * W;
-  constexpr int kBlock = 256;
-  const long long want = (total + kBlock - 1) / kBlock;
-  const int blocks = static_cast<int>(want < 132 * 64 ? want : 132 * 64);
+  const EvalArgs args{max_sym,      static_cast<int>(freei),
+                      static_cast<double>(freei), t_star, eps, has_star};
   exact_eval_window_kernel<F>
-      <<<blocks, kBlock, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
+      <<<static_cast<unsigned>((n + kBlockRows - 1) / kBlockRows),
+         kEvalThreads, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
           static_cast<const double*>(means), static_cast<const double*>(scales),
-          static_cast<const int32_t*>(ws), n, W, max_sym,
-          static_cast<double>(freei), static_cast<int>(freei), t_star, eps,
-          has_star, static_cast<int32_t*>(tv), static_cast<uint8_t*>(ambig));
+          static_cast<const int32_t*>(ws), n, W, args,
+          static_cast<int32_t*>(tv), static_cast<uint8_t*>(ambig));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -661,30 +768,41 @@ int launch_eval(const void* means, const void* scales, const void* ws,
 // nothing, and returns cudaGetLastError() (0 on success).
 extern "C" {
 
-// Kernel 17 (words[T * L], flags[T * L / 32] and offsets[kScanBlocks] are
-// scratch).
+// Kernels 17 (S=64) and 14 (S=32): words[T * L], flags[T * L / 32] and
+// offsets[kScanBlocks] are scratch.
 int ctt_exact_encode64(void* states, const void* cums, const void* probs,
                        long long n, void* buf, long long cap, void* end_out,
                        void* words, void* flags, void* offsets, int L, int P,
                        void* cuda_stream, int device) {
-  return launch_encode64(states, cums, probs, n, buf, cap, end_out, words,
-                         flags, offsets, L, P, cuda_stream, device);
-}
-
-// Kernel 17's pass A alone (pass B alone is ctt_ilans2_compact).
-int ctt_exact_encode_lanes64(void* states, const void* cums,
-                             const void* probs, long long n, void* words,
-                             void* flags, int L, int P, void* cuda_stream,
-                             int device) {
-  return launch_encode_lanes64(states, cums, probs, n, words, flags, L, P,
-                               cuda_stream, device);
+  return launch_encode<32, 64>(states, cums, probs, n, buf, cap, end_out,
+                               words, flags, offsets, L, P, cuda_stream,
+                               device);
 }
 
 int ctt_exact_encode32(void* states, const void* cums, const void* probs,
                        long long n, void* buf, long long cap, void* end_out,
-                       int L, int P, void* cuda_stream, int device) {
-  return launch_encode32(states, cums, probs, n, buf, cap, end_out, L, P,
-                         cuda_stream, device);
+                       void* words, void* flags, void* offsets, int L, int P,
+                       void* cuda_stream, int device) {
+  return launch_encode<16, 32>(states, cums, probs, n, buf, cap, end_out,
+                               words, flags, offsets, L, P, cuda_stream,
+                               device);
+}
+
+// Pass A alone of kernel 17 or 14 (pass B alone is ctt_ilans2_compact).
+int ctt_exact_encode_lanes64(void* states, const void* cums,
+                             const void* probs, long long n, void* words,
+                             void* flags, int L, int P, void* cuda_stream,
+                             int device) {
+  return launch_encode_lanes<32, 64>(states, cums, probs, n, words, flags, L,
+                                     P, cuda_stream, device);
+}
+
+int ctt_exact_encode_lanes32(void* states, const void* cums,
+                             const void* probs, long long n, void* words,
+                             void* flags, int L, int P, void* cuda_stream,
+                             int device) {
+  return launch_encode_lanes<16, 32>(states, cums, probs, n, words, flags, L,
+                                     P, cuda_stream, device);
 }
 
 // base_io is unused (kernel 15 decodes from stream word 0).

@@ -43,8 +43,7 @@
 //
 // The cluster size follows L (auto_cluster) and the geometry entries report
 // it.  The L a cluster reaches is 16 * 32 * 32 * 32 lanes (32 lanes a
-// thread); a larger L returns an error.  ilans2.cuh's single-block encode
-// loop serves exact_family.cu's kernel 14 only.
+// thread); a larger L returns an error.
 //
 // Both models are ilans2_wide.cuh's: the decode's (BucketCdfModel) is
 // shared with the range decode (ilans2_range.cu), the encode's

@@ -7,7 +7,7 @@
 // S=64 reference-exact tables, whole message (kernel 15) or one segment of
 // a grouped message (kernel 16, Seg), and for the S=32 narrow tables
 // (kernel 13, NarrowTableModel), and the encode over their (cum, prob)
-// planes (kernel 17, PlaneLanesModel); ilans2_family.cu the decode for the
+// planes (kernel 17 at S=64, kernel 14 at S=32, PlaneLanesModel); ilans2_family.cu the decode for the
 // per-symbol families (kernel 11) and the encode over their division
 // records (kernel 12, family_records.cuh's RecordLanesModel, behind a
 // tables pass); ilans2_range.cu the range decode's twin
@@ -95,8 +95,7 @@
 // scanning those sums (compact_offsets_kernel) and a scan within each block
 // that scatters the flagged words (compact_scatter_kernel).  Word k of the
 // stream lands at buf[cap - total + k], so the stream is buf[*end_out :
-// cap] as with the single-block encoder.  Pass B moves one word per u32
-// whatever W is.
+// cap].  Pass B moves one word per u32 whatever W is.
 
 #pragma once
 

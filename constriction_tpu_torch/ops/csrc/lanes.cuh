@@ -1,28 +1,18 @@
-// Lane machinery shared by the coders on Hopper (sm_90a).
+// Lane machinery shared by the coders on Hopper (sm_90a): StateOf, the CDF
+// staging (shared memory when it fits, device memory otherwise), the
+// quantile -> symbol search, valid_args and prepare.
 //
-// Every such coder runs L lanes that share one word stream, so each
-// coding step needs an exclusive prefix count over all L lanes (refill
-// ranks when decoding, emission offsets when encoding).  Two designs use
-// what is here:
-//
-// - The single-block coder: ilans2.cuh's encode loop over
-//   exact_family.cu's plane model (kernel 14).  One block of kThreads
-//   threads codes the message; the prefix comes from a warp ballot per 32
-//   lanes, a block scan of the per-warp popcounts (scan_groups, over the
-//   Smem carve-up below) and a popc of the ballot below the lane.
-// - ilans2_wide.cuh's cluster decodes and two-pass encode (ilans2.cu's
-//   categorical coder at both presets, kernels 1-4; the range decode at
-//   both presets, kernels 5 and 6; the exact table decodes, kernels 15
-//   and 16 at S=64 and 13 at S=32, and encode, kernel 17; the family
-//   decode, kernel 11, and encode, kernel 12; the compaction behind
-//   ilans2_range.cu's carry resolves and tchain.cu's decodes, kernels 19,
-//   21 and 23; tchain.cu's cluster encodes, kernels 20, 22 and 24), which
-//   take StateOf, the CDF staging,
-//   the symbol search, valid_args and prepare from here and scan across
-//   CTAs themselves.
-//
-// Also here: the CDF staging (shared memory when it fits, device memory
-// otherwise) and the quantile -> symbol search.
+// Every coder runs L lanes that share one word stream, so each coding step
+// needs an exclusive prefix count over all L lanes (refill ranks when
+// decoding, emission offsets when encoding).  They all run
+// ilans2_wide.cuh's cluster decodes or its two-pass encode (ilans2.cu's
+// categorical coder at both presets, kernels 1-4; the range decode at both
+// presets, kernels 5 and 6; the exact table decodes, kernels 15 and 16 at
+// S=64 and 13 at S=32, and encodes, kernel 17 at S=64 and 14 at S=32; the
+// family decode, kernel 11, and encode, kernel 12; the compaction behind
+// ilans2_range.cu's carry resolves and tchain.cu's decodes, kernels 19, 21
+// and 23; tchain.cu's cluster encodes, kernels 20, 22 and 24), which scan
+// across CTAs themselves.  No coder runs on one block.
 
 #pragma once
 
@@ -32,8 +22,7 @@
 
 namespace {
 
-constexpr int kThreads = 1024;  // threads of a single-block coder
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 1024;  // the lane multiple of tchain.cu's TChain-12 chain
 constexpr unsigned kFull = 0xffffffffu;
 // dynamic shared memory a launch may ask for (the card offers 227 KB)
 constexpr size_t kSmemBudget = 200 * 1024;
@@ -48,26 +37,6 @@ template <>
 struct StateOf<64> {
   using type = uint64_t;
 };
-
-// Shared-memory carve-up of a single-block coder: ballots and group
-// prefixes for two steps (the fused loop reads step t's while it writes
-// step t + 1's), the per-warp sums of the block scan, then the CDF when it
-// fits.  Buffers are picked by pointer arithmetic on the step parity, which
-// keeps them out of local memory.
-struct Smem {
-  uint32_t* base;
-  int G;
-  __device__ uint32_t* ballots(int parity) const { return base + parity * G; }
-  __device__ uint32_t* prefix(int parity) const {
-    return base + (2 + parity) * G;
-  }
-  __device__ uint32_t* warp_sums() const { return base + 4 * G; }
-  __device__ uint32_t* cdf() const { return base + 4 * G + kWarps; }
-};
-
-__host__ __device__ constexpr size_t scratch_words(int G) {
-  return 4 * static_cast<size_t>(G) + kWarps;
-}
 
 // CDF copied into shared memory at `dst` when it fits, else read from
 // device memory.  The caller puts a barrier after it.
@@ -97,58 +66,11 @@ __device__ __forceinline__ int find_symbol(const uint32_t* cdf, int K,
   return lo;
 }
 
-// Exclusive block scan over the G = L / 32 per-group popcounts of `ballots`
-// into `prefix`; returns the step's total.  Each thread sums a contiguous
-// run of groups, warps scan with shuffles, and every warp rescans the 32
-// warp sums itself (one barrier fewer than a warp-0 pass).  The caller puts
-// a barrier after it before `prefix` is read.  Needs kThreads threads.
-__device__ __forceinline__ uint32_t scan_groups(const uint32_t* ballots,
-                                                uint32_t* prefix,
-                                                uint32_t* warp_sums, int G) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int per = (G + kThreads - 1) / kThreads;
-  const int g0 = tid * per;
-  uint32_t local = 0;
-  for (int k = 0; k < per; ++k) {
-    if (g0 + k < G) local += __popc(ballots[g0 + k]);
-  }
-  uint32_t incl = local;
-  for (int off = 1; off < 32; off <<= 1) {
-    const uint32_t v = __shfl_up_sync(kFull, incl, off);
-    if (lane >= off) incl += v;
-  }
-  if (lane == 31) warp_sums[warp] = incl;
-  __syncthreads();
-  const uint32_t ws = warp_sums[lane];
-  uint32_t wincl = ws;
-  for (int off = 1; off < 32; off <<= 1) {
-    const uint32_t v = __shfl_up_sync(kFull, wincl, off);
-    if (lane >= off) wincl += v;
-  }
-  const uint32_t warp_base = __shfl_sync(kFull, wincl - ws, warp);
-  const uint32_t total = __shfl_sync(kFull, wincl, 31);
-  uint32_t run = warp_base + incl - local;
-  for (int k = 0; k < per; ++k) {
-    if (g0 + k < G) {
-      prefix[g0 + k] = run;
-      run += __popc(ballots[g0 + k]);
-    }
-  }
-  return total;
-}
-
 // Bytes of a staged CDF, and whether it fits beside `scratch` bytes.
 inline size_t cdf_smem_bytes(size_t scratch, int K, int* cdf_in_smem) {
   const size_t cdf = (static_cast<size_t>(K) + 1) * sizeof(uint32_t);
   *cdf_in_smem = scratch + cdf <= kSmemBudget;
   return *cdf_in_smem ? cdf : 0;
-}
-
-// Shared-memory size of a single-block coder's launch; decides whether the
-// CDF is staged.
-inline size_t smem_bytes(int L, int K, int* cdf_in_smem) {
-  const size_t scratch = scratch_words(L / 32) * sizeof(uint32_t);
-  return scratch + cdf_smem_bytes(scratch, K, cdf_in_smem);
 }
 
 // The lane counts, alphabets and precisions the kernels take.

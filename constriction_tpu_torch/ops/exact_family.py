@@ -9,10 +9,10 @@ gaussian, laplace, cauchy or binomial models, so a stream the reference
 produces can be re-coded here with zero rate change:
 
 - encode: the host evaluates two f64 CDFs per symbol into ``(cum, prob)``
-  planes (:func:`exact_ecp`), and kernel 17 (S=64: a lane pass over the
-  planes, :func:`encode_lanes_plain` in plain PyTorch, and the encoders'
-  row-major compaction) or kernel 14 (S=32, one block) codes them
-  (:func:`encode_tables`);
+  planes (:func:`exact_ecp`), and kernel 17 (S=64) or kernel 14 (S=32)
+  codes them (:func:`encode_tables`): a lane pass over the planes
+  (:func:`encode_lanes_plain` in plain PyTorch, either preset) and the
+  encoders' row-major compaction;
 - decode: per symbol, a compact exact description of the quantile
   partition.  The leaky-quantized table is linear in both tails, so only
   the core boundaries (at most ``cmax``) are stored behind an aux plane
@@ -65,7 +65,7 @@ from ..utils import special
 from . import _build
 from .coder import (MAX_DECODE_LANES, _check, _check_seeds, _num_steps,
                     _on_cuda, _refill_words, compaction_scratch,
-                    encode32_steps)
+                    encode32_steps, lanes32_steps)
 from .coder64 import _M32, encode64_steps, lanes64_steps
 from .interleaved import LaneConfig
 
@@ -849,10 +849,9 @@ def encode_tables(cums, probs, cfg: LaneConfig, seeds=None,
     bits) at S=64, int32[L] (u32 bits) at S=32.  Returns ``(states[L],
     stream int32[num_words])``, the states in the seeds' type,
     bit-identical to ``interleaved2.encode_shared``.  CUDA tensors launch
-    the kernel (at S=64 its two passes in one C call, their scratch the
-    dense words, the ballots and the compaction's block offsets), reading
-    the stream's start back (one sync); CPU tensors run
-    :func:`encode_tables_plain`."""
+    the kernel's two passes in one C call (their scratch the dense words,
+    the ballots and the compaction's block offsets), reading the stream's
+    start back (one sync); CPU tensors run :func:`encode_tables_plain`."""
     check_cfg(cfg)
     wide = _wide(cfg)
     state_dtype = torch.int64 if wide else torch.int32
@@ -877,11 +876,10 @@ def encode_tables(cums, probs, cfg: LaneConfig, seeds=None,
         return states, torch.zeros(0, dtype=torch.int32, device=device)
     buf = torch.empty(n, dtype=torch.int32, device=device)
     end = torch.empty(1, dtype=torch.int64, device=device)
-    scratch = compaction_scratch(T, L, device) if wide else ()
     tag = "encode64" if wide else "encode32"
     LAUNCHES[tag] += 1
     _build.call(f"ctt_exact_{tag}", device, states, cums, probs, n, buf, n,
-                end, *scratch, L, cfg.precision)
+                end, *compaction_scratch(T, L, device), L, cfg.precision)
     return states, buf[int(end.item()):]
 
 
@@ -892,14 +890,20 @@ def encode_tables_plain(cums, probs, cfg: LaneConfig, seeds=None,
     ``coder.encode_iid_plain`` (S=32) over the planes.  Numpy oracle:
     ``interleaved2.encode_shared``."""
     n = cums.numel() if num_symbols is None else int(num_symbols)
+    steps = encode64_steps if _wide(cfg) else encode32_steps
+    return steps(_plane_tables(cums, probs), n, cfg, seeds, cums.device)
+
+
+def _plane_tables(cums, probs):
+    """``tables_at(i)`` of the step loops over the planes: the (cum, prob)
+    int64 of flat symbol indices ``i``."""
     flat_c = convert.u32_values(cums.reshape(-1))
     flat_p = convert.u32_values(probs.reshape(-1))
 
     def tables_at(i):
         return flat_c[i], flat_p[i]
 
-    steps = encode64_steps if _wide(cfg) else encode32_steps
-    return steps(tables_at, n, cfg, seeds, cums.device)
+    return tables_at
 
 
 _M64 = (1 << 64) - 1
@@ -907,11 +911,12 @@ _M64 = (1 << 64) - 1
 
 def plane_correct(q: int, x: int, prob: int) -> int:
     """Kernel 17's correction of a quotient estimate ``q`` of x / prob
-    (``csrc/exact_family.cu``, ``PlaneInterval::divide``): the remainder x
-    - q prob in u64 arithmetic, read as a signed 64-bit value, then one
-    step down or up.  floor(x / prob) for every estimate within one of it,
-    given 1 <= prob <= 2^P and x < prob * 2^(64 - P), 16 < P <= 24 (so
-    that the true remainder lies in (-prob, 2 prob))."""
+    (``csrc/exact_family.cu``, ``PlaneInterval::divide`` at S=64): the
+    remainder x - q prob in u64 arithmetic, read as a signed 64-bit value,
+    then one step down or up.  floor(x / prob) for every estimate within
+    one of it, given 1 <= prob <= 2^P and x < prob * 2^(64 - P), 16 < P <=
+    24 (so that the true remainder lies in (-prob, 2 prob)).  Kernel 14
+    (S=32) divides natively."""
     rem = (x - q * prob) & _M64
     if rem >= 1 << 63:
         return q - 1
@@ -919,8 +924,8 @@ def plane_correct(q: int, x: int, prob: int) -> int:
 
 
 def plane_quotient(x: int, prob: int) -> int:
-    """floor(x / prob) as kernel 17 takes it for x < prob * 2^(64 - P):
-    an estimate truncated to an integer, then :func:`plane_correct`.  The
+    """floor(x / prob) as kernel 17 takes it for x < prob * 2^(64 - P): an
+    estimate truncated to an integer, then :func:`plane_correct`.  The
     kernel's estimate is x times an approximate reciprocal refined by two
     Newton steps, within 2^-50 of x / prob relatively; here it is the
     correctly rounded float64 quotient, within 2^-52 (Python's int ->
@@ -931,24 +936,21 @@ def plane_quotient(x: int, prob: int) -> int:
 
 def encode_lanes_plain(cums, probs, cfg: LaneConfig, seeds=None,
                        num_symbols: int | None = None):
-    """Kernel 17's pass A in plain PyTorch (W=32/S=64, any device, no
-    checks): every lane runs steps T-1 .. 0 over its column of the planes
-    on its own (``coder64.lanes64_steps``).  Returns ``(words int32[T, L],
-    flags bool[T, L], states int64[L])``: ``flags[t, l]`` is set where lane
-    l renorms before coding symbol t * L + l, and ``words[t, l]`` is then
-    the word it emits (0 elsewhere).  ``coder.compact_pass_plain`` of
-    words and flags is :func:`encode_tables_plain`'s stream.  The kernel
+    """Pass A of kernel 17 (W=32/S=64) or kernel 14 (W=16/S=32) in plain
+    PyTorch (any device, no checks): every lane runs steps T-1 .. 0 over
+    its column of the planes on its own (``coder64.lanes64_steps`` /
+    ``coder.lanes32_steps``).  Returns ``(words int32[T, L], flags bool[T,
+    L], states[L])``, the states int64 at S=64 and int32 at S=32:
+    ``flags[t, l]`` is set where lane l renorms before coding symbol t * L
+    + l, and ``words[t, l]`` is then the word it emits (0 elsewhere).
+    ``coder.compact_pass_plain`` of words and flags is
+    :func:`encode_tables_plain`'s stream.  The kernels
     (``csrc/ilans2_wide.cuh``, ``encode_lanes_kernel`` over
-    ``csrc/exact_family.cu``'s ``PlaneLanesModel``) keeps ``flags`` as one
+    ``csrc/exact_family.cu``'s ``PlaneLanesModel``) keep ``flags`` as one
     ballot per 32 lanes (``coder.flag_ballots``)."""
     n = cums.numel() if num_symbols is None else int(num_symbols)
-    flat_c = convert.u32_values(cums.reshape(-1))
-    flat_p = convert.u32_values(probs.reshape(-1))
-
-    def tables_at(i):
-        return flat_c[i], flat_p[i]
-
-    return lanes64_steps(tables_at, n, cfg, seeds, cums.device)
+    steps = lanes64_steps if _wide(cfg) else lanes32_steps
+    return steps(_plane_tables(cums, probs), n, cfg, seeds, cums.device)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,9 @@ This module builds the same rows on the card:
 1. window evaluation (:func:`eval_window`, kernel 18 of
    ``csrc/exact_family.cu``): per symbol and window position, ``A =
    free * CDF(t)`` in native float64 with CUDA's ``erf`` / ``exp`` /
-   ``atan``.  An entry's trunc value is taken from A only where A is
+   ``atan``, for the entries before each row's live end
+   (:func:`live_ends_plain`); the entries from there on are known
+   without a CDF.  An entry's trunc value is taken from A only where A is
    farther than ``MARGIN`` (2^-6) from an integer; the margin is about
    2^22 times the float64 error of A at P = 24 (|A| < 2^24, error below
    2^-28), so no accepted entry can carry a wrong value.  The others are
@@ -183,18 +185,10 @@ def eval_window_plain(means, scales, ws, family: str, min_sym: int,
     one float64 torch operation per step of ``_eval_window64``, in the
     kernel's order.  JAX counterpart: ``exact_tables_jax._eval_window64``
     without its Chebyshev surrogates."""
-    device = means.device
-    f64 = torch.float64
     free = ef._free(min_sym, max_sym, precision)
     freei = int(free)
     m = MARGIN
-    j = torch.arange(W, dtype=torch.int64, device=device)
-    s = ws.to(torch.int64)[:, None] + j[None, :]
-    x = (s.to(f64) - 0.5) - means[:, None]
-    den = scales[:, None]
-    if family == "gaussian":
-        den = den * _SQRT2
-    t = x / den
+    s, t = window_t(means, scales, ws, family, W)
     if family == "gaussian":
         cdf = 0.5 * (1.0 + torch.special.erf(t))
     elif family == "laplace":
@@ -233,6 +227,57 @@ def eval_window_plain(means, scales, ws, family: str, min_sym: int,
     tv = torch.where(oos, freei, tv).to(torch.int32)
     ambig = ambig & ~oos
     return tv, ambig
+
+
+def window_t(means, scales, ws, family: str, W: int):
+    """The window's symbol values ``s = ws[i] + j`` int64 [n, W] and their
+    standardized arguments ``t = ((s - 1/2) - mean) / den`` float64 [n,
+    W], den the scale (gaussian: times sqrt 2), as kernel 18 rounds
+    them."""
+    j = torch.arange(W, dtype=torch.int64, device=means.device)
+    s = ws.to(torch.int64)[:, None] + j[None, :]
+    return s, _std_arg(s, means[:, None], _den(scales, family)[:, None])
+
+
+def _den(scales, family: str):
+    """The kernel's den: the scale, times sqrt 2 for gaussian (the erf
+    argument)."""
+    return scales * _SQRT2 if family == "gaussian" else scales
+
+
+def _std_arg(s, mean, den):
+    """((s - 1/2) - mean) / den in float64 torch operations."""
+    return ((s.to(torch.float64) - 0.5) - mean) / den
+
+
+def live_ends_plain(means, scales, ws, family: str, max_sym: int, W: int):
+    """Each row's live end as kernel 18 finds it (any device, no checks):
+    the first window position j whose entry is out of the support (s >
+    max_sym) or certainly saturated (t - t* > eps), else W; int64 [n].
+    Every entry at and past it is ``(free, False)`` in
+    :func:`eval_window_plain`, whatever its CDF.  Both tests are monotone
+    in j where den > 0 (a subtraction and a division by a positive number
+    round monotonically), so the saturation end is a search over [0,
+    support end) with the entry's own arithmetic: a binary search here, for
+    all rows in lock step; the kernel probes eight positions a round, the
+    eight lanes of a row at once, and finds the same first position.  Rows
+    with den not above 0 (or a family without t*) end at the support
+    end."""
+    ws64 = ws.to(torch.int64)
+    end = (max_sym - ws64 + 1).clamp(0, W)
+    t_star, eps, has_star = _band(family)
+    if not has_star:
+        return end
+    den = _den(scales, family)
+    lo = torch.zeros_like(end)
+    hi = torch.where(den > 0, end, 0)
+    while bool((lo < hi).any()):
+        mid = (lo + hi) // 2
+        sat = (_std_arg(ws64 + mid, means, den) - t_star) > eps
+        live = lo < hi
+        hi = torch.where(live & sat, mid, hi)
+        lo = torch.where(live & ~sat, mid + 1, lo)
+    return torch.where(den > 0, lo, end)
 
 
 def ambig_count(ambig) -> torch.Tensor:

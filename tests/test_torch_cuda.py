@@ -910,9 +910,9 @@ def test_range32_decode_lanes_past_the_cluster_reach(dev):
 # exact table decodes (kernel 15; kernel 16, its Seg instance; kernel 13 at
 # S=32), the family decode (kernel 11, each family) and the TChain encodes
 # (kernels 20, 24 and 22's cluster step); and the lane passes of kernels 8
-# and 10, kernel 17's and kernel 12's pass A, kernel 23's and kernel 19's
-# head passes and the family tables pass of kernels 22 and 12 (one lane a
-# thread)
+# and 10, kernel 17's, kernel 14's and kernel 12's pass A, kernel 23's and
+# kernel 19's head passes, the family tables pass of kernels 22 and 12 (one
+# lane a thread) and the window evaluator (kernel 18, each family)
 NO_SPILL = {
     "range S=64": r"cluster_range_decode_kernelILi32ELi64ELi{R}E",
     "range S=32": r"cluster_range_decode_kernelILi16ELi32ELi{R}E",
@@ -935,6 +935,10 @@ NO_SPILL = {
     "range resolve lanes S=64": r"range_resolve_lanes_kernelILi32ELi64E",
     "exact encode lanes S=64":
         r"encode_lanes_kernelILi32ELi64E.*PlaneLanesModel",
+    "exact encode lanes S=32":
+        r"encode_lanes_kernelILi16ELi32E.*PlaneLanesModel",
+    **{f"eval window {name}": rf"exact_eval_window_kernelILi{k}E"
+       for k, name in enumerate(ef.DEVICE_FAMILIES)},
 }
 
 
@@ -1204,14 +1208,16 @@ def test_family_encode_passes_match_plain(dev, family, L, n):
 
 
 def test_failed_call_leaves_no_error_behind(dev):
-    """A C entry that fails in a runtime call (kernel 14's single-block
-    encode asks for more shared memory than a block has at L = 524288)
-    raises, and the next call does not report that failure as its own."""
-    L = coder.MAX_DECODE_LANES
-    cfg = LaneConfig(num_lanes=L, word_bits=16, state_bits=32, precision=12)
-    planes = torch.ones((1, L), dtype=torch.int32, device=dev)
-    with pytest.raises(RuntimeError, match="ctt_exact_encode32 failed"):
-        ef.encode_tables(planes - 1, planes, cfg, None, 1000)
+    """A C entry whose launch the runtime refuses (the family tables pass
+    over 2^39 symbols asks for a grid of 2^31 blocks, one past the card's
+    limit; the tensors are never read) raises, and the next call does not
+    report that failure as its own."""
+    syms = torch.zeros(32, dtype=torch.int32, device=dev)
+    params = torch.ones(32, dtype=torch.float32, device=dev)
+    recs = torch.empty(32, dtype=torch.int64, device=dev)
+    with pytest.raises(RuntimeError, match="ctt_family_tables_pass failed"):
+        _build.call("ctt_family_tables_pass", dev, syms, params, params, recs,
+                    1 << 39, 0, LO, HI)
     rng = np.random.RandomState(29)
     means, scales, symbols = _family_data(rng, 1000)
     _check_family(_family_cfg(128), "gaussian", means, scales, symbols, dev)
@@ -2255,6 +2261,50 @@ def test_eval_window_kernel_matches_oracle(dev, family):
     assert amb.mean() < 0.2
 
 
+def _eval_rows(family, n, W, seed):
+    """Window rows of kernel 18: the builder's windows of random models,
+    a block of rows far past t* (a whole tile saturated) and rows past the
+    support."""
+    rng = np.random.RandomState(seed)
+    means = rng.uniform(-110, 110, n)
+    scales = np.exp(rng.uniform(np.log(0.02), np.log(12.0), n))
+    CL = ef._EST_C[family][0]
+    ws = (np.full(n, -99, np.int64) if np.isinf(CL) else np.clip(
+        np.ceil(means - CL * scales) - 3.0, -99, 100).astype(np.int64))
+    sat = slice(32, min(n, 96))  # blocks of 32 rows: one all saturated
+    means[sat], scales[sat], ws[sat] = -100.0, 1e-14, 90
+    ws[n // 2:n // 2 + 5] = 101
+    return means, scales, ws
+
+
+@pytest.mark.parametrize("W", [1, 31, 32, 33, 271])
+@pytest.mark.parametrize("family", ["gaussian", "laplace", "cauchy"])
+def test_eval_window_kernel_equals_twin_everywhere(dev, family, W):
+    """Kernel 18 against ``eval_window_plain`` on every entry and every
+    flag, through its C entry (outputs pre-filled with junk) and its
+    wrapper: n not a multiple of a block's 32 rows, a block of rows all
+    saturated (live end 0, ``live_ends_plain``), rows past the support."""
+    n = 1000 + W
+    means, scales, ws = _eval_rows(family, n, W, seed=W + len(family))
+    m_t, s_t = convert.params64_to_torch(means, scales, dev)
+    ws_t = torch.from_numpy(ws.astype(np.int32)).to(dev)
+    t_star, eps, has_star = et._band(family)
+    tv = torch.full((n, W), -7, dtype=torch.int32, device=dev)
+    amb = torch.ones((n, W), dtype=torch.bool, device=dev)
+    _build.call("ctt_exact_eval_window", dev, m_t, s_t, ws_t, n, W,
+                ef.DEVICE_FAMILIES.index(family), -100, 100, 24, t_star, eps,
+                int(has_star), tv, amb)
+    tv_p, amb_p = et.eval_window_plain(m_t, s_t, ws_t, family, -100, 100, 24,
+                                       W)
+    assert torch.equal(tv, tv_p) and torch.equal(amb, amb_p)
+    ends = et.live_ends_plain(m_t, s_t, ws_t, family, 100, W)
+    assert bool((ends[32:64] == 0).all())
+    before = ef.LAUNCHES["eval_window"]
+    tv_w, amb_w = et.eval_window(m_t, s_t, ws_t, family, -100, 100, 24, W)
+    assert ef.LAUNCHES["eval_window"] == before + 1
+    assert torch.equal(tv_w, tv_p) and torch.equal(amb_w, amb_p)
+
+
 def test_exact_canaries_on_the_card(dev):
     et.eval_window_canary(dev)
     et.builder_canary(dev)
@@ -2373,6 +2423,57 @@ def test_exact32_encode_kernel_matches_twin(dev, P, L, n, seeded):
     st_h, w_h = il2.encode_shared(cums, probs, cfg, seeds=seeds)
     np.testing.assert_array_equal(convert.u32_from_torch(st), st_h)
     np.testing.assert_array_equal(convert.u32_from_torch(w), w_h)
+
+
+def _planes32(L, n, P, seed):
+    """(cum, prob) planes at S=32: exact_ecp's at P = 12 and 16, random
+    ones (every prob 1 .. 2^P) at P = 1."""
+    rng = np.random.RandomState(seed)
+    if P == 1:
+        probs = rng.randint(1, 3, size=n)
+        cums = (rng.random_sample(n) * (3 - probs)).astype(np.int64)
+        return cums.astype(np.uint32), probs.astype(np.uint32)
+    means, scales, syms = _exact_data(n, seed=seed)
+    return ef.exact_ecp(syms, means, scales, "gaussian", -100, 100, P)
+
+
+@pytest.mark.parametrize("P", [1, 12, 16])
+@pytest.mark.parametrize("L", [32, 1024, 32768, coder.MAX_DECODE_LANES])
+def test_exact32_encode_passes_match_plain_passes(dev, L, P):
+    """Kernel 14's C entries at any L a multiple of 32, seeded, with a
+    partial last step: both passes on preallocated scratch against the
+    one-loop twin and the numpy oracle, and pass A alone (final states,
+    ballots and the words it flags) against ``encode_lanes_plain``."""
+    T = 3 if L < coder.MAX_DECODE_LANES else 2
+    n = T * L - 7
+    cfg = _exact32_cfg(L, P)
+    cums, probs = _planes32(L, n, P, seed=L + P)
+    rng = np.random.RandomState(L)
+    seeds = rng.randint(1 << 16, 1 << 32, L, dtype=np.int64).astype(np.uint32)
+    c_t, p_t = convert.ecp_to_torch(cums, probs, L, dev)
+    s_t = convert.u32_to_torch(seeds, dev)
+    st_p, w_p = ef.encode_tables_plain(c_t, p_t, cfg, s_t, n)
+    words_p, flags_p, lst_p = ef.encode_lanes_plain(c_t, p_t, cfg, s_t, n)
+    words, flags, offsets = coder.compaction_scratch(T, L, dev)
+    buf = torch.empty(n, dtype=torch.int32, device=dev)
+    end = torch.empty(1, dtype=torch.int64, device=dev)
+    states = s_t.clone()
+    _build.call("ctt_exact_encode32", dev, states, c_t, p_t, n, buf, n, end,
+                words, flags, offsets, L, P)
+    assert torch.equal(states, st_p)
+    assert torch.equal(buf[int(end.item()):], w_p)
+    st_h, w_h = il2.encode_shared(cums, probs, cfg, seeds=seeds)
+    np.testing.assert_array_equal(convert.u32_from_torch(states), st_h)
+    np.testing.assert_array_equal(
+        convert.u32_from_torch(buf[int(end.item()):]), w_h)
+    words.fill_(-1)
+    states = s_t.clone()
+    _build.call("ctt_exact_encode_lanes32", dev, states, c_t, p_t, n, words,
+                flags, L, P)
+    f = flags_p.reshape(-1)
+    assert torch.equal(states, lst_p)
+    assert torch.equal(flags.view(T, L // 32), coder.flag_ballots(flags_p))
+    assert torch.equal(words[f], words_p.reshape(-1)[f])
 
 
 def _exact32_case(family, n, seed):
