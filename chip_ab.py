@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Twenty-two coding kernels timed in several checkouts on one card, one
-checkout after another in the order given.
+"""All twenty-four coding kernels timed in several checkouts on one card,
+one checkout after another in the order given.
 
     git archive <commit> | tar -x -C _scratch/parent
     python3 chip_ab.py _scratch/parent . . _scratch/parent
     python3 chip_ab.py --kernels 11,16 _scratch/parent . . _scratch/parent
+    python3 chip_ab.py --kernels 7,9 _scratch/parent . . _scratch/parent
 
 Each checkout runs in a process of its own (the packages share a name),
 builds its kernels and times, on the same inputs:
@@ -19,6 +20,12 @@ builds its kernels and times, on the same inputs:
   L=65536 (2 and 4 lanes a thread), P=24;
 - kernel 6, the S=32 range decode, on the same symbols at L=32768, P=12
   and P=16, and at L=65536, P=12;
+- kernels 7 and 9, the range encode's phase A at S=32 (P=12) and S=64
+  (P=24), on the same symbols at L=32768 and L=65536: the C entry on
+  preallocated records and final (lower, range) planes, and, in a
+  checkout that has ``ctt_ilans2_range_record_form_*``, each phase-A form
+  of ``RECORD_FORMS`` (the register ring and the TMA ring at several
+  depths, block widths and stage counts);
 - kernel 8, the S=32 range encode's phase B (carry resolve), on the same
   symbols' records at L=32768, P=12: its C entry on preallocated scratch,
   and, in a checkout that has it (``ctt_ilans2_range_resolve_direct_
@@ -206,6 +213,8 @@ def time_decodes(root: str, kernels: set) -> dict:
         _time_range(out, syms, probs, check)
     if 6 in kernels:
         _time_range32(out, syms, probs, check)
+    if kernels & {7, 9}:
+        _time_record(out, syms, probs, check, kernels)
     if 8 in kernels:
         _time_resolve32(out, syms, probs, check)
     if 10 in kernels:
@@ -355,6 +364,70 @@ def _time_range32(out, syms, probs, check):
         launch()
         check(o_buf, syms, key)
         out[f"{key}_ms"] = _events_ms(launch, reset_range)
+
+
+# phase A's forms timed where a checkout has ``ctt_ilans2_range_record_
+# form_*``: (form, lanes a block, steps a tile, ring stages); form 0 the
+# register ring, 1 the TMA ring
+RECORD_FORMS = ((0, 128, 16, 0), (0, 128, 32, 0), (0, 64, 32, 0),
+                (0, 128, 48, 0), (1, 128, 16, 4), (1, 128, 32, 3),
+                (1, 128, 32, 4), (1, 64, 32, 4))
+
+
+def _time_record(out, syms, probs, check, kernels):
+    """Kernels 7 and 9 into ``out``: the range encode's phase A at P=12
+    (W=16/S=32, kernel 7) and P=24 (W=32/S=64, kernel 9) on bench.py's
+    symbols at L=32768 and 65536, its C entry on preallocated records and
+    final (lower, range) planes, against the wrapper's outputs.  Neither
+    entry takes a scratch (a checkout whose entry did would need one, by
+    its signature's length).  Where the checkout has the form entry, each
+    of RECORD_FORMS alike."""
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.models import fast_quantized_cdf
+    from constriction_tpu_torch.ops import _build, range_enc
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    dev = syms.device
+    for kernel, tag, W, S, P in ((7, "w16s32", 16, 32, 12),
+                                 (9, "w32s64", 32, 64, 24)):
+        if kernel not in kernels:
+            continue
+        cdf = convert.cdf_to_torch(fast_quantized_cdf(probs, P), dev)
+        cdf32 = cdf.to(torch.int32)
+        entry = f"ctt_ilans2_range_record_{tag}"
+        if len(_build.SIGNATURES[entry]) != 11:
+            sys.exit(f"chip_ab: {entry} takes arguments this script does "
+                     "not know")
+        forms = {"": (entry, ())}
+        if f"ctt_ilans2_range_record_form_{tag}" in _build.SIGNATURES:
+            for f in RECORD_FORMS:
+                name = ("ring", "tma")[f[0]] + "_" + "x".join(
+                    str(v) for v in f[1:3 if f[0] == 0 else 4])
+                forms["_" + name] = (
+                    f"ctt_ilans2_range_record_form_{tag}", f)
+        for lanes in (LANES, 2 * LANES):
+            cfg = LaneConfig(num_lanes=lanes, word_bits=W, state_bits=S,
+                             precision=P)
+            want = range_enc.record(syms, cdf, cfg)
+            bufs = [torch.empty_like(x) for x in want]
+            key = f"record_{tag}" + ("" if lanes == LANES else f"_L{lanes}")
+            for suffix, (name, form) in forms.items():
+                def launch():
+                    _build.call(name, dev, syms, N, cdf32, K, *bufs, lanes,
+                                P, *form)
+                for b in bufs:
+                    b.zero_()
+                launch()
+                for got, ref in zip(bufs, want):
+                    check(got, ref, key + suffix)
+                out[f"{key}{suffix}_ms"] = _events_ms(launch)
+            # the same bytes as one PyTorch copy: the symbols read once,
+            # a record's width written per symbol
+            rec = bufs[0][:N]
+            out[f"{key}_copy_ms"] = _events_ms(lambda: rec.copy_(syms))
+            del want, bufs, rec
 
 
 def _time_resolve32(out, syms, probs, check):
@@ -1245,7 +1318,8 @@ def _time_eval_window(out, check):
 
 
 def main(argv: list[str]) -> int:
-    kernels = "1,2,3,4,5,6,8,10,11,12,13,14,15,16,17,18,19,20,21,22,23,24"
+    kernels = ("1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,22,"
+               "23,24")
     if len(argv) > 1 and argv[0] == "--kernels":
         kernels, argv = argv[1], argv[2:]
     if len(argv) == 2 and argv[0] == "--one":

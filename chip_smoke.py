@@ -27,7 +27,8 @@ prints one JSON object per phase, then the kernels line, the card's
                     is in shared memory, the encode's pass-A grid, and
                     ptxas' registers and spills for their kernels at each
                     preset and lanes a thread and for the lane passes of
-                    kernels 21, 23, 19, 8, 10, 17, 14 and 12, the family
+                    kernels 21, 23, 19, 8, 10, 17, 14 and 12, the range
+                    encode's phase A (kernels 7 and 9), the family
                     tables pass (kernels 22 and 12) and the window
                     evaluator (kernel 18, each family).  A spill in the
                     range decodes or kernels 11, 13, 15, 16, 20, 24 and 22
@@ -75,7 +76,9 @@ prints one JSON object per phase, then the kernels line, the card's
                     (CUDA events around each launch, after a warm-up; the
                     C entries on preallocated scratch), phase B's lane
                     pass and pass B timed apart at both presets (kernels 8
-                    and 10), its twin's time on the card (outputs equal
+                    and 10), phase A's launch shape (depth, ring stages,
+                    shared-memory bytes) and achieved TB/s (kernels 7 and
+                    9), its twin's time on the card (outputs equal
                     to the kernel's), and the facade's encode and decode
                     call times and host shares.
    range_sweep   -- the range decodes' time per coding step (kernel 5 at
@@ -560,8 +563,9 @@ def ptxas_usage(log: str, marks: tuple) -> dict:
 # 32768 and 65536), the TChain-12 decode's first two passes (kernel 21),
 # the TChain-24 and TChain-16 decodes' head passes (kernels 23 and 19), the
 # family tables pass (kernels 22 and 12), the range resolves' lane passes
-# (kernels 8 and 10), the pass A of kernels 17, 14 and 12 and the window
-# evaluator (kernel 18, each family)
+# (kernels 8 and 10), the range encode's phase A (kernels 7 and 9), the
+# pass A of kernels 17, 14 and 12 and the window evaluator (kernel 18, each
+# family)
 NO_SPILL = (r"cluster_range_decode_kernelILi32ELi64ELi[24]E",
             r"cluster_range_decode_kernelILi16ELi32ELi[24]E",
             r"cluster_decode_kernelILi32ELi64ELi[24]E.*TableModelELb0E",
@@ -577,6 +581,8 @@ NO_SPILL = (r"cluster_range_decode_kernelILi32ELi64ELi[24]E",
             r"tchain_heads_kernelILi16ELi32ELi16E", r"family_tables_kernel",
             r"range_resolve_lanes_kernelILi16ELi32E",
             r"range_resolve_lanes_kernelILi32ELi64E",
+            r"range_record_ring_kernelILi16ELi32E",
+            r"range_record_ring_kernelILi32ELi64E",
             r"encode_lanes_kernelILi32ELi64E.*PlaneLanesModel",
             r"encode_lanes_kernelILi16ELi32E.*PlaneLanesModel",
             r"encode_lanes_kernelILi16ELi32E.*RecordLanesModel",
@@ -592,7 +598,8 @@ def phase_geometry(device) -> dict:
     encodes (kernels 20, 24 and 22's step) at bench.py's lane counts for
     its K, and what ptxas reported for their kernels at each preset and
     lanes a thread, for the lane passes of kernels 21, 23, 19, 8, 10, 17,
-    14 and 12, the family tables pass and kernel 18.  Fails on a spill in a kernel of
+    14 and 12, range phase A (kernels 7 and 9), the family tables pass and
+    kernel 18.  Fails on a spill in a kernel of
     NO_SPILL, and unless kernels 11, 13, 16, 20, 24 and 22 run on 16 CTAs
     at L=32768."""
     import re
@@ -664,6 +671,7 @@ def phase_geometry(device) -> dict:
                                        "tchain_heads_kernel",
                                        "cluster_tchain_encode_kernel",
                                        "range_resolve_lanes_kernel",
+                                       "range_record_",
                                        "exact_eval_window_kernel",
                                        "division_records", "compact_"))}
 
@@ -1256,6 +1264,11 @@ def phase_range_times(device, probs, symbols, gpu: str,
             fail(f"range_times: {label} phase B's passes timed apart differ")
         passes["resolve_scratch_bytes"] = 4 * (scratch[0].numel()
                                                + scratch[1].numel())
+        # phase A (kernels 7 and 9): its launch shape and achieved rate
+        record_bytes = 4 * n + 4 * (K + 1) + B * T * L + 2 * B * L
+        passes.update({f"record_{k}": v for k, v in
+                       range_enc.record_geometry(cfg, K, device).items()})
+        passes["record_tb_per_s"] = record_bytes / ms["record"] / 1e9
         # the twins on the same tensors (after the smaller warm-up above)
         plain_ms, rec_p = timed(lambda: range_enc.record_plain(syms, cdf,
                                                                cfg))
@@ -1270,8 +1283,7 @@ def phase_range_times(device, probs, symbols, gpu: str,
                            planes_err(fin, dec_out[1]))}
         bounds = {
             # symbols and CDF in; records and final (lower, range) out
-            "record": bound(4 * n + 4 * (K + 1) + B * T * L + 2 * B * L,
-                            12 * n),
+            "record": bound(record_bytes, 12 * n),
             # records, seal words and carries in; stream and points out
             "resolve": bound(B * T * L + 8 * L + 4 * nw + B * L, 8 * T * L),
             # points, stream and CDF in; symbols and final planes out

@@ -54,6 +54,8 @@ _DECODE_CLUSTER_ARGS = [_P, _P, _I64, _P, _I32, _P, _I64, _I32, _I32, _I32,
                         _P, _I32]
 _GEOMETRY_ARGS = [_I32, _I32, _I32, _I32, _P, _P, _I32]
 _RANGE_RECORD_ARGS = [_P, _I64, _P, _I32, _P, _P, _P, _I32, _I32, _P, _I32]
+# L, K, out[5]
+_RANGE_RECORD_GEOMETRY_ARGS = [_I32, _I32, _P, _P, _I32]
 # phase B (kernels 8 and 10): records, s0, seal carry, buf, cap, end_out,
 # points; its scratch (words, flags, offsets)
 _RANGE_RESOLVE_ARGS = [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _I32, _I32,
@@ -141,6 +143,7 @@ SIGNATURES = {
     "ctt_ilans2_compact": _COMPACT_ARGS,
     "ctt_ilans2_range_record_w16s32": _RANGE_RECORD_ARGS,
     "ctt_ilans2_range_record_w32s64": _RANGE_RECORD_ARGS,
+    "ctt_ilans2_range_record_geometry": _RANGE_RECORD_GEOMETRY_ARGS,
     "ctt_ilans2_range_resolve_w16s32": _RANGE_RESOLVE_ARGS,
     "ctt_ilans2_range_resolve_w32s64": _RANGE_RESOLVE_ARGS,
     "ctt_ilans2_range_resolve_lanes_w16s32": _RANGE_RESOLVE_LANES_ARGS,

@@ -50,70 +50,101 @@
 //   lanes inside the step loop; the record loads bound it (u32 records at
 //   S=32, u64 at S=64).
 // - Phase A has no cross-lane dependency: a grid of L / 128 blocks, one
-//   thread per lane looping over T, with symbol reads and record writes
-//   coalesced across a warp and the next step's symbol loaded ahead.  It
-//   moves T * L symbols in and T * L records out, so device memory bounds
-//   it once enough warps are in flight; at L = 32768 only 1024 warps cover
-//   132 SMs, so latency still shows.
+//   thread per lane looping over T (range_record_ring_kernel), with symbol
+//   reads and record writes coalesced across a warp.  It moves T * L
+//   symbols in and T * L records out, so device memory bounds it once
+//   enough loads are in flight; at L = 32768 only 8 warps an SM run, so a
+//   lane keeps its next 32 symbols in registers, each step issuing the
+//   load 32 steps ahead (one load in flight a lane left it at one device
+//   round trip a step).
 
 #include "ilans2_wide.cuh"
 
 namespace {
-
-constexpr int kRecordThreads = 128;
 
 // Record layout (phase A -> phase B), one State-wide word per (step, lane):
 // bits [0, W) the provisional renorm word (0 without renorm), bit W the
 // renorm flag, bit W + 1 the carry flag.  At S=32 this is the Pallas u32
 // record; at S=64 it packs the Pallas kernel's record and flags planes.
 
-// Phase A.  records[T * L] out; low_out / rng_out[L]: the final (lower,
-// range) per lane.  Steps at i >= n leave the lane unchanged with record
-// 0.  Symbols outside [0, K) are clamped to K-1; callers validate them.
+// One lane of phase A: (lower, range) and the step on one symbol, which
+// returns the step's record.  Symbols outside [0, K) are clamped to K-1;
+// callers validate them.
 template <int W, int S>
-__global__ void __launch_bounds__(kRecordThreads)
-    ilans2_range_record_kernel(const int32_t* __restrict__ syms, int64_t n,
-                               const uint32_t* __restrict__ cdf_g, int K,
-                               typename StateOf<S>::type* __restrict__ records,
-                               typename StateOf<S>::type* __restrict__ low_out,
-                               typename StateOf<S>::type* __restrict__ rng_out,
-                               int L, int P, int T, int cdf_in_smem) {
+struct RecordLane {
   using State = typename StateOf<S>::type;
-  extern __shared__ uint32_t smem[];
-  const uint32_t* cdf = stage_cdf(smem, cdf_g, K, cdf_in_smem);
-  __syncthreads();
-  const int l = blockIdx.x * kRecordThreads + threadIdx.x;
-  if (l >= L) return;
-
-  constexpr State kLower = State(1) << (S - W);
-  const uint32_t kmax = static_cast<uint32_t>(K - 1);
+  static constexpr State kLower = State(1) << (S - W);
   State lower = 0, range = ~State(0);
-  int32_t next = l < n ? syms[l] : 0;
-  for (int t = 0; t < T; ++t) {
-    const int64_t i = static_cast<int64_t>(t) * L + l;
-    const int32_t cur = next;
-    if (i + L < n) next = syms[i + L];  // the next step's load in flight
-    State rec = 0;
-    if (i < n) {
-      const uint32_t sym = min(static_cast<uint32_t>(cur), kmax);
-      const uint32_t cum = cdf[sym];
-      const uint32_t prob = cdf[sym + 1] - cum;
-      const State scale = range >> P;
-      const State add = scale * cum;
-      lower += add;  // wraps mod 2^S: the big-number +1 event
-      const State carry = lower < add ? 1 : 0;
-      range = scale * prob;
-      if (range < kLower) {
-        rec = (lower >> (S - W)) | (State(1) << W);
-        lower <<= W;
-        range <<= W;
-      }
-      rec |= carry << (W + 1);
+
+  __device__ __forceinline__ State step(const uint32_t* cdf, uint32_t kmax,
+                                        int P, int32_t s) {
+    const uint32_t sym = min(static_cast<uint32_t>(s), kmax);
+    const uint32_t cum = cdf[sym];
+    const uint32_t prob = cdf[sym + 1] - cum;
+    const State scale = range >> P;
+    const State add = scale * cum;
+    lower += add;  // wraps mod 2^S: the big-number +1 event
+    const State carry = lower < add ? 1 : 0;
+    range = scale * prob;
+    State rec = carry << (W + 1);
+    if (range < kLower) {
+      rec |= (lower >> (S - W)) | (State(1) << W);
+      lower <<= W;
+      range <<= W;
     }
-    records[i] = rec;
+    return rec;
   }
-  low_out[l] = lower;
-  rng_out[l] = range;
+};
+
+// Phase A as a register ring.  A grid of L / kLanes blocks, one
+// thread per lane over the T steps; each thread holds its lane's next
+// kDepth symbols in registers, and each step's use of a slot issues the
+// load kDepth steps ahead into it, so kDepth loads a lane stay in flight.
+// The lane's loads and stores walk two pointers by L a step, and the steps
+// it codes are one 32-bit count (so no 64-bit index is kept per slot).
+// records[T * L] out (steps at i >= n leave the lane unchanged with record
+// 0); low_out / rng_out[L]: the final (lower, range) per lane.
+template <int W, int S, int kLanes, int kDepth>
+__global__ void __launch_bounds__(kLanes)
+    range_record_ring_kernel(const int32_t* __restrict__ syms, int64_t n,
+                             const uint32_t* __restrict__ cdf_g, int K,
+                             typename StateOf<S>::type* __restrict__ records,
+                             typename StateOf<S>::type* __restrict__ low_out,
+                             typename StateOf<S>::type* __restrict__ rng_out,
+                             int L, int P, int T, int cdf_in_smem) {
+  using State = typename StateOf<S>::type;
+  extern __shared__ __align__(16) uint32_t smem_model[];
+  const uint32_t* cdf = stage_cdf(smem_model, cdf_g, K, cdf_in_smem);
+  __syncthreads();
+  const int l = blockIdx.x * kLanes + threadIdx.x;
+  if ((l & ~31) >= L) return;  // warp-uniform: L % 32 == 0
+  const uint32_t kmax = static_cast<uint32_t>(K - 1);
+  // the steps at which lane l codes a symbol: t < tl <=> t * L + l < n
+  const int tl = l < n ? static_cast<int>((n - 1 - l) / L) + 1 : 0;
+  const int32_t* src = syms + l;
+  State* dst = records + l;
+  RecordLane<W, S> lane;
+  int32_t ring[kDepth];
+#pragma unroll
+  for (int j = 0; j < kDepth; ++j) {
+    ring[j] = j < tl ? *src : 0;
+    src += L;
+  }
+  for (int t0 = 0; t0 < T; t0 += kDepth) {
+#pragma unroll
+    for (int j = 0; j < kDepth; ++j) {
+      const int t = t0 + j;
+      const int32_t cur = ring[j];
+      ring[j] = t + kDepth < tl ? *src : 0;
+      src += L;
+      if (t < T) {
+        *dst = t < tl ? lane.step(cdf, kmax, P, cur) : State(0);
+        dst += L;
+      }
+    }
+  }
+  low_out[l] = lane.lower;
+  rng_out[l] = lane.range;
 }
 
 // Phase B (kernel 8 at S=32, kernel 10 at S=64) as a lane pass and the
@@ -191,25 +222,48 @@ int num_steps(long long n, int L) {
   return static_cast<int>((n + L - 1) / L);
 }
 
+// Phase A's launch shape: lanes a block and steps a lane has in flight.
+// Timed on the H100 at L=32768 and 65536 over both presets (chip_ab.py):
+// 32 steps was the best depth overall (48 gained up to 2% at 32768 and
+// lost up to 10% at 65536, 16 lost 7-9% at 32768), 64 lanes a block tied
+// 128, and a TMA ring of shared-memory tiles (one cp.async.bulk a step row,
+// an mbarrier a stage) was 14-17% slower at L=32768 and tied at best.
+constexpr int kRecordLanes = 128;
+constexpr int kRecordDepth = 32;
+
+// Phase A: records[T * L], low_out / rng_out[L].
 template <int W, int S>
 int launch_record(const void* syms, long long n, const void* cdf, int K,
                   void* records, void* low_out, void* rng_out, int L, int P,
                   void* cuda_stream, int device) {
   using State = typename StateOf<S>::type;
+  auto kernel = range_record_ring_kernel<W, S, kRecordLanes, kRecordDepth>;
+  if (!valid_args(L, P, K)) return static_cast<int>(cudaErrorInvalidValue);
   int cdf_in_smem = 0;
   const size_t bytes = cdf_smem_bytes(0, K, &cdf_in_smem);
-  auto kernel = ilans2_range_record_kernel<W, S>;
-  if (!valid_args(L, P, K)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = prepare(kernel, device, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const int blocks = (L + kRecordThreads - 1) / kRecordThreads;
-  kernel<<<blocks, kRecordThreads, bytes,
+  kernel<<<ceil_div(L, kRecordLanes), kRecordLanes, bytes,
            static_cast<cudaStream_t>(cuda_stream)>>>(
       static_cast<const int32_t*>(syms), n, static_cast<const uint32_t*>(cdf),
       K, static_cast<State*>(records), static_cast<State*>(low_out),
       static_cast<State*>(rng_out), L, P, num_steps(n, L), cdf_in_smem);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Phase A's launch shape for L lanes and K symbols, into out[5]: lanes a
+// block, blocks, steps a lane has in flight, dynamic shared-memory bytes,
+// whether the CDF is in shared memory.
+int record_geometry(int L, int K, long long* out) {
+  if (!valid_args(L, 1, K)) return static_cast<int>(cudaErrorInvalidValue);
+  int cdf_in_smem = 0;
+  const size_t bytes = cdf_smem_bytes(0, K, &cdf_in_smem);
+  const long long vals[5] = {kRecordLanes, ceil_div(L, kRecordLanes),
+                             kRecordDepth, static_cast<long long>(bytes),
+                             cdf_in_smem};
+  for (int k = 0; k < 5; ++k) out[k] = vals[k];
+  return 0;
 }
 
 // Phase B's lane pass alone: words[T * L] (left as they are where a lane
@@ -330,6 +384,14 @@ int ctt_ilans2_range_record_w32s64(const void* syms, long long n,
                                    void* cuda_stream, int device) {
   return launch_record<32, 64>(syms, n, cdf, K, records, low_out, rng_out, L,
                                P, cuda_stream, device);
+}
+
+// Phase A's launch shape (either preset: the kernel's shape is the same).
+int ctt_ilans2_range_record_geometry(int L, int K, long long* out,
+                                     void* cuda_stream, int device) {
+  (void)cuda_stream;
+  (void)device;
+  return record_geometry(L, K, out);
 }
 
 // Phase B: kernel 8 (S=32) and kernel 10 (S=64).  words[T * L],

@@ -140,7 +140,9 @@ def record(symbols, cdf, cfg: LaneConfig):
     """Phase A: ``(records [T*L], low_f [L], rng_f [L])`` in the state
     layout (module docstring).  JAX counterpart:
     ``pallas_range_enc._range_record_kernel`` / ``_range_record_kernel64``.
-    CUDA tensors launch the kernel, CPU tensors run :func:`record_plain`."""
+    CUDA tensors launch the kernel, which walks the steps as
+    :func:`record_tiles_plain` does at :func:`record_geometry`'s depth; CPU
+    tensors run :func:`record_plain`."""
     dtype, tag, suffix = _preset(cfg)
     _check_symbols(symbols, cdf)
     if not _on_cuda(symbols.device):
@@ -160,24 +162,38 @@ def record(symbols, cdf, cfg: LaneConfig):
     return records, low_f, rng_f
 
 
-def record_plain(symbols, cdf, cfg: LaneConfig):
-    """Plain PyTorch twin of :func:`record` (any device, no checks); S=64
-    on (hi, lo) halves."""
-    L, S, W, P = cfg.num_lanes, cfg.state_bits, cfg.word_bits, cfg.precision
-    device = symbols.device
-    n = symbols.numel()
-    T = _num_steps(n, L)
-    cdf64 = cdf.to(torch.int64)
-    K = cdf64.numel() - 1
-    lanes = torch.arange(L, device=device)
-    recs = torch.empty(T * L, dtype=torch.int64, device=device)
-    zeros = torch.zeros(L, dtype=torch.int64, device=device)
-    ones = torch.full((L,), _M32, dtype=torch.int64, device=device)
-    l_hi, l_lo, r_hi, r_lo = zeros, zeros, ones, ones  # S=32 uses lo only
-    for t in range(T):
-        i = t * L + lanes
-        active = i < n
-        cum, prob = _symbol_tables(symbols, cdf64, i, n, K)
+def record_geometry(cfg: LaneConfig, K: int, device=None) -> dict:
+    """Phase A's launch shape on ``device`` (a CUDA device; the current one
+    by default) for ``cfg``'s lanes and K symbols: lanes a block, blocks,
+    ``depth`` (the steps of symbols a lane has in flight, in registers),
+    dynamic shared-memory bytes and whether the CDF is in shared memory."""
+    _preset(cfg)
+    device = torch.device("cuda") if device is None else torch.device(device)
+    out = torch.zeros(5, dtype=torch.int64)
+    _build.call("ctt_ilans2_range_record_geometry", device, cfg.num_lanes, K,
+                out)
+    keys = ("lanes_per_block", "blocks", "depth", "smem_bytes",
+            "cdf_in_smem")
+    return dict(zip(keys, (int(v) for v in out)))
+
+
+class _Lanes:
+    """Every lane's (lower, range) as u32 halves in int64 tensors (S=32
+    uses the low halves only) and one step of phase A over them."""
+
+    def __init__(self, cfg: LaneConfig, device):
+        L = cfg.num_lanes
+        self.S, self.W, self.P = cfg.state_bits, cfg.word_bits, cfg.precision
+        zeros = torch.zeros(L, dtype=torch.int64, device=device)
+        ones = torch.full((L,), _M32, dtype=torch.int64, device=device)
+        self.l_hi, self.l_lo, self.r_hi, self.r_lo = zeros, zeros, ones, ones
+
+    def step(self, cum, prob, active):
+        """One step on the lanes where ``active``; returns its records
+        (int64, 0 on the other lanes, which stay as they are)."""
+        S, W, P = self.S, self.W, self.P
+        l_hi, l_lo, r_hi, r_lo = self.l_hi, self.l_lo, self.r_hi, self.r_lo
+        zeros = torch.zeros_like(l_lo)
         if S == 64:
             s_hi, s_lo = _shr64(r_hi, r_lo, P)
             n_hi, n_lo, carry = _add64(l_hi, l_lo,
@@ -203,13 +219,70 @@ def record_plain(symbols, cdf, cfg: LaneConfig):
             word = l_lo >> (S - W)
             l_lo = torch.where(m, (l_lo << W) & _M32, l_lo)
             r_lo = torch.where(m, r_lo << W, r_lo)
-        recs[t * L:(t + 1) * L] = (torch.where(m, word | (1 << W), 0)
-                                   | (carry << (W + 1)))
-    if S == 64:
-        return (recs, convert.u64_join(l_hi, l_lo),
-                convert.u64_join(r_hi, r_lo))
-    return (recs.to(torch.int32), convert.u32_bits(l_lo),
-            convert.u32_bits(r_lo))
+        self.l_hi, self.l_lo, self.r_hi, self.r_lo = l_hi, l_lo, r_hi, r_lo
+        return torch.where(m, word | (1 << W), 0) | (carry << (W + 1))
+
+    def result(self, recs):
+        """``(records, low_f, rng_f)`` in the state layout."""
+        if self.S == 64:
+            return (recs, convert.u64_join(self.l_hi, self.l_lo),
+                    convert.u64_join(self.r_hi, self.r_lo))
+        return (recs.to(torch.int32), convert.u32_bits(self.l_lo),
+                convert.u32_bits(self.r_lo))
+
+
+def record_plain(symbols, cdf, cfg: LaneConfig):
+    """Plain PyTorch twin of :func:`record` (any device, no checks); S=64
+    on (hi, lo) halves."""
+    L = cfg.num_lanes
+    device = symbols.device
+    n = symbols.numel()
+    T = _num_steps(n, L)
+    cdf64 = cdf.to(torch.int64)
+    K = cdf64.numel() - 1
+    lanes = torch.arange(L, device=device)
+    recs = torch.empty(T * L, dtype=torch.int64, device=device)
+    state = _Lanes(cfg, device)
+    for t in range(T):
+        i = t * L + lanes
+        cum, prob = _symbol_tables(symbols, cdf64, i, n, K)
+        recs[t * L:(t + 1) * L] = state.step(cum, prob, i < n)
+    return state.result(recs)
+
+
+def record_tiles_plain(symbols, cdf, cfg: LaneConfig, depth: int):
+    """Phase A walked as the kernel walks it (any device, no checks), with
+    the result of :func:`record_plain`: the steps in tiles of ``depth``,
+    each tile's symbols read as one [depth, L] block before its steps run
+    (the kernel's lanes hold ``depth`` steps of symbols in flight).  A step
+    row that lies wholly below n comes from the block; the rest (the
+    partial last step, all of it when n < L) is read lane by lane, 0 past
+    n, and its lanes past n stay as they are with record 0."""
+    L = cfg.num_lanes
+    device = symbols.device
+    n = symbols.numel()
+    T = _num_steps(n, L)
+    cdf64 = cdf.to(torch.int64)
+    K = cdf64.numel() - 1
+    lanes = torch.arange(L, device=device)
+    recs = torch.empty(T * L, dtype=torch.int64, device=device)
+    state = _Lanes(cfg, device)
+    whole = n // L  # step rows wholly below n
+    for t0 in range(0, T, depth):
+        rows = min(depth, T - t0)
+        tile = torch.zeros(rows, L, dtype=torch.int64, device=device)
+        k = max(0, min(rows, whole - t0))
+        tile[:k] = symbols[t0 * L:(t0 + k) * L].reshape(k, L)
+        for j in range(rows):
+            i = (t0 + j) * L + lanes
+            active = i < n
+            s = tile[j] if j < k else torch.where(
+                active, symbols[i.clamp(max=n - 1)].to(torch.int64), 0)
+            s = torch.where((s < 0) | (s >= K), K - 1, s)
+            cum = cdf64[s]
+            recs[(t0 + j) * L:(t0 + j + 1) * L] = state.step(
+                cum, cdf64[s + 1] - cum, active)
+    return state.result(recs)
 
 
 # ---------------------------------------------------------------------------

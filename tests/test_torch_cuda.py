@@ -593,6 +593,111 @@ def test_range_skewed_model_carry_runs(dev, S, P):
     _check_range(S, _cfg(S, 256, P), syms, cdf, dev)
 
 
+# --- the range encoder's phase A (kernels 7 and 9, range_record_ring_kernel:
+# each lane's symbols loaded `depth` steps ahead) at its edges --------------
+
+
+def _record_geometry(S, L, K, dev):
+    return range_enc.record_geometry(_cfg(S, L, 12), K, dev)
+
+
+def _check_record(S, cfg, syms_np, cdf_np, dev):
+    """Phase A's kernel against record_plain and the tiles walk at the
+    kernel's own depth, on the same CUDA tensors; one launch counted."""
+    syms = torch.from_numpy(syms_np.astype(np.int32)).to(dev)
+    cdf = convert.cdf_to_torch(cdf_np, dev)
+    key = "record64" if S == 64 else "record"
+    before = range_enc.LAUNCHES[key]
+    got = range_enc.record(syms, cdf, cfg)
+    assert range_enc.LAUNCHES[key] == before + 1
+    depth = range_enc.record_geometry(cfg, len(cdf_np) - 1, dev)["depth"]
+    for want in (range_enc.record_plain(syms, cdf, cfg),
+                 range_enc.record_tiles_plain(syms, cdf, cfg, depth)):
+        assert all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(got, want))
+    return got
+
+
+@pytest.mark.parametrize("S,P", [(64, 24), (32, 12)])
+@pytest.mark.parametrize("L", [128, 384])
+@pytest.mark.parametrize("dT", [-1, 0, 1])
+@pytest.mark.parametrize("kind", ["whole", "partial", "short"])
+def test_range_record_edges_of_the_ring(dev, S, P, L, dT, kind):
+    """T one below, at and one past a multiple of the ring's depth; n whole,
+    with a partial last step, and shorter than one step."""
+    depth = _record_geometry(S, L, 100, dev)["depth"]
+    T = 2 * depth + dT
+    n = {"whole": T * L, "partial": (T - 1) * L + 5, "short": L - 5}[kind]
+    rng = np.random.RandomState(L + T + P)
+    syms, cdf = _range_symbols(rng, 100, P, n, skewed=False)
+    _check_record(S, _cfg(S, L, P), syms, cdf, dev)
+
+
+@pytest.mark.parametrize("S,P", [(64, 24), (32, 12)])
+def test_range_record_at_65536_lanes(dev, S, P):
+    L = 65536
+    rng = np.random.RandomState(P)
+    syms, cdf = _range_symbols(rng, 100, P, 3 * L + 5, skewed=False)
+    geo = _record_geometry(S, L, 100, dev)
+    assert geo["blocks"] * geo["lanes_per_block"] == L
+    _check_record(S, _cfg(S, L, P), syms, cdf, dev)
+
+
+@pytest.mark.parametrize("S,P,K", [(64, 24, 70_000), (32, 16, 60_000)])
+def test_range_record_cdf_in_device_memory(dev, S, P, K):
+    assert _record_geometry(S, 512, K, dev)["cdf_in_smem"] == 0
+    assert _record_geometry(S, 512, 100, dev)["cdf_in_smem"] == 1
+    rng = np.random.RandomState(K + 1)
+    syms, cdf = _range_symbols(rng, K, P, 512 * 40 + 9, skewed=False)
+    _check_record(S, _cfg(S, 512, P), syms, cdf, dev)
+
+
+@pytest.mark.parametrize("S,P", [(64, 24), (32, 12)])
+def test_range_record_skewed_model(dev, S, P):
+    rng = np.random.RandomState(31)
+    syms, cdf = _range_symbols(rng, 4, P, 256 * 300 + 17, skewed=True)
+    _check_record(S, _cfg(S, 256, P), syms, cdf, dev)
+
+
+@pytest.mark.parametrize("S,P", [(64, 24), (32, 12)])
+@pytest.mark.parametrize("L,n", [(96, 95), (96, 96 * 40 + 7),
+                                 (160, 160 * 33)])
+def test_range_record_entry_at_lanes_of_32(dev, S, P, L, n):
+    """The C entry takes any L that is a multiple of 32 (the wrappers,
+    multiples of 128): a block's last warps past L do nothing."""
+    rng = np.random.RandomState(L + n)
+    syms_np, cdf_np = _range_symbols(rng, 100, P, n, skewed=False)
+    cfg = _cfg(S, L, P)
+    syms = torch.from_numpy(syms_np.astype(np.int32)).to(dev)
+    cdf = convert.cdf_to_torch(cdf_np, dev)
+    dtype = torch.int64 if S == 64 else torch.int32
+    T = -(-n // L)
+    out = (torch.full((T * L,), 7, dtype=dtype, device=dev),
+           torch.zeros(L, dtype=dtype, device=dev),
+           torch.full((L,), -1, dtype=dtype, device=dev))
+    _build.call(f"ctt_ilans2_range_record_w{S // 2}s{S}", dev, syms, n,
+                cdf.to(torch.int32), len(cdf_np) - 1, *out, L, P)
+    want = range_enc.record_plain(syms, cdf, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+@pytest.mark.parametrize("S,P", [(64, 24), (32, 12)])
+def test_range_record_symbols_at_any_offset(dev, S, P):
+    """A view of the symbols at an odd offset (not 16-byte aligned) codes
+    as its aligned copy: the ring's loads are one int32 a lane."""
+    rng = np.random.RandomState(S)
+    syms_np, cdf_np = _range_symbols(rng, 100, P, 128 * 70 + 3, skewed=False)
+    cfg = _cfg(S, 128, P)
+    cdf = convert.cdf_to_torch(cdf_np, dev)
+    padded = torch.from_numpy(
+        np.concatenate([[0], syms_np]).astype(np.int32)).to(dev)
+    view = padded[1:]
+    assert view.data_ptr() % 16 != 0
+    got = range_enc.record(view, cdf, cfg)
+    want = range_enc.record(view.clone(), cdf, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.parametrize("S,P", [(64, 24), (32, 12)])
 def test_range_seeded_decode_from_checkpoint(dev, S, P):
     rng = np.random.RandomState(21)
@@ -912,7 +1017,8 @@ def test_range32_decode_lanes_past_the_cluster_reach(dev):
 # (kernels 20, 24 and 22's cluster step); and the lane passes of kernels 8
 # and 10, kernel 17's, kernel 14's and kernel 12's pass A, kernel 23's and
 # kernel 19's head passes, the family tables pass of kernels 22 and 12 (one
-# lane a thread) and the window evaluator (kernel 18, each family)
+# lane a thread), the range encode's phase A (kernels 7 and 9) and the
+# window evaluator (kernel 18, each family)
 NO_SPILL = {
     "range S=64": r"cluster_range_decode_kernelILi32ELi64ELi{R}E",
     "range S=32": r"cluster_range_decode_kernelILi16ELi32ELi{R}E",
@@ -933,6 +1039,8 @@ NO_SPILL = {
         r"encode_lanes_kernelILi16ELi32E.*RecordLanesModel",
     "range resolve lanes": r"range_resolve_lanes_kernel",
     "range resolve lanes S=64": r"range_resolve_lanes_kernelILi32ELi64E",
+    "range record S=32": r"range_record_ring_kernelILi16ELi32E",
+    "range record S=64": r"range_record_ring_kernelILi32ELi64E",
     "exact encode lanes S=64":
         r"encode_lanes_kernelILi32ELi64E.*PlaneLanesModel",
     "exact encode lanes S=32":
