@@ -123,6 +123,24 @@ prints one JSON object per phase, then the kernels line, the card's
                     then ``cuda.decode_from_checkpoint`` from the middle
                     checkpoint must give the message's suffix, through the
                     decode kernels.
+    sharded      -- the block-sharded containers (``constriction_tpu_torch.
+                    parallel``, B=8, the config ``parallel.encode`` picks):
+                    ``sharded_bytes``: v1 rANS, compact v2 rANS and v1
+                    range containers of the first N_KERNEL_CHECK symbols at
+                    P=24 and P=12 written on the card, byte for byte the
+                    port's numpy host coders' (``parallel.encode_host``),
+                    decoded exactly, and one within-block checkpoint seek
+                    per preset; ``sharded_main_path``: the main workload
+                    (2^25 symbols) through ``parallel.encode`` ->
+                    ``decode`` for the six containers, exact, with the
+                    call times, each call's launches (one a block), L and
+                    T per block and the size against the single v2
+                    container; every rANS and range kernel must have
+                    launched; ``sharded_times``: each container's B block
+                    calls back to back between CUDA events beside one call
+                    of the same wrapper on the same symbols;
+                    ``sharded_dryrun``: ``parallel.dryrun([card])``, whose
+                    kernels must all have launched.
 14. tchain_kernels -- the TChain-16 and TChain-24 pairs against their twins
                     and the port's numpy host oracles (L=32768, 2^20
                     quantiles, a K=100 Dirichlet(2) model at P=16 and P=24):
@@ -1933,6 +1951,208 @@ def phase_checkpoints(device, symbols, containers: dict,
         if not (len(offsets) and row["suffix_exact"] and launches == 1):
             fail(f"checkpoints: {row}")
     return {"phase": "checkpoints", "n": len(symbols), "cases": rows}
+
+
+# the block-sharded containers (parallel/): ILANS2 units of one message in
+# equal blocks, each coded by the rANS or range kernels above
+SHARDED_BLOCKS = 8
+SHARDED_CONTAINERS = (("rans", False), ("rans", True), ("range", False))
+SHARDED_KERNELS = {**KERNELS, **RANGE_KERNELS}
+SHARDED_CKPT_INTERVAL = 2
+# the dry run's legs on one card: the containers and block legs at their
+# tiny shapes (kernels 2, 9 and 10 are not among them)
+DRYRUN_KERNELS = {
+    name: table[name]
+    for table in (KERNELS, RANGE_KERNELS, FAMILY_KERNELS, TCHAIN_KERNELS,
+                  EXACT32_KERNELS)
+    for name in table
+    if name in ("ilans2_decode_w32s64", "ilans2_encode_w16s32",
+                "ilans2_decode_w16s32", "ilans2_range_decode_w32s64",
+                "ilans2_range_decode_w16s32", "ilans2_range_record_w16s32",
+                "range_resolve_lanes_w16s32", "family_decode",
+                "exact_decode32", "tchain16_decode")
+}
+
+
+def sharded_name(P: int, coder: str, compact: bool) -> str:
+    return f"P{P}_{coder}_{'v2' if compact else 'v1'}"
+
+
+def phase_sharded_bytes(device, probs, symbols) -> dict:
+    """The sharded containers of the first N_KERNEL_CHECK symbols of the
+    main workload, written on the card (B=8, the lane config
+    ``parallel.encode`` picks), against the port's numpy host coders run
+    block by block and packed by the same framing
+    (``parallel.encode_host``), byte for byte; they must decode to the
+    symbols, and one within-block checkpoint seek per preset (v1 rANS
+    containers) must give its slice of the message."""
+    import numpy as np
+
+    from constriction_tpu_torch import parallel
+
+    syms = symbols[:N_KERNEL_CHECK]
+    rows = []
+    for P in (24, 12):
+        cdf = model_cdf(probs, P)
+        for coder_name, compact in SHARDED_CONTAINERS:
+            cont = parallel.encode(syms, cdf, num_blocks=SHARDED_BLOCKS,
+                                   device=device, coder=coder_name,
+                                   compact=compact)
+            ref = parallel.encode_host(syms, cdf, None, SHARDED_BLOCKS,
+                                       coder_name, compact)
+            out = parallel.decode(cont, cdf, device=device)
+            row = {"container": sharded_name(P, coder_name, compact),
+                   "words": int(len(cont)),
+                   "identical_to_host_oracle": bool(np.array_equal(cont, ref)),
+                   "decodes_exactly": bool(np.array_equal(out, syms))}
+            rows.append(row)
+            if not (row["identical_to_host_oracle"]
+                    and row["decodes_exactly"]):
+                fail(f"sharded bytes: {row}")
+            if coder_name == "rans" and not compact:
+                offsets, states = parallel.build_block_checkpoints(
+                    cont, cdf, SHARDED_CKPT_INTERVAL)
+                block_len = parallel.unpack_sharded(cont)[3]
+                block, c = SHARDED_BLOCKS - 1, offsets.shape[1] // 2
+                start, suffix = parallel.decode_block_from_checkpoint(
+                    cont, cdf, SHARDED_CKPT_INTERVAL, block, c, offsets,
+                    states, device=device)
+                row["seek"] = {"block": block, "checkpoint": c,
+                               "start_symbol": int(start),
+                               "suffix_exact": bool(np.array_equal(
+                                   suffix, syms[start:(block + 1)
+                                                * block_len]))}
+                if not row["seek"]["suffix_exact"]:
+                    fail(f"sharded seek: {row}")
+    return {"phase": "sharded_bytes", "n": len(syms),
+            "blocks": SHARDED_BLOCKS, "cases": rows}
+
+
+def phase_sharded_main(device, probs, symbols, singles: dict,
+                       keep: dict) -> dict:
+    """``parallel.encode`` -> ``decode`` of the whole main workload (B=8)
+    at both presets for the three containers: exact round trips, the
+    facade's call times (host clock), each call's launches, each block's L
+    and T, and the size against the single v2 container of the same
+    message (``singles[(P, True)]``, from the main path).  ``keep[name]``
+    gets (coder, compact, cdf, container) for the kernel times."""
+    import numpy as np
+
+    from constriction_tpu_torch import parallel
+    from constriction_tpu_torch.ops import coder, coder64, range_enc
+
+    counters = {"coder": coder.LAUNCHES, "coder64": coder64.LAUNCHES,
+                "range_enc": range_enc.LAUNCHES}
+    rows = []
+    for P in (24, 12):
+        cdf = model_cdf(probs, P)
+        for coder_name, compact in SHARDED_CONTAINERS:
+            name = sharded_name(P, coder_name, compact)
+            before = {m: dict(c) for m, c in counters.items()}
+            t0 = time.perf_counter()
+            cont = parallel.encode(symbols, cdf, num_blocks=SHARDED_BLOCKS,
+                                   device=device, coder=coder_name,
+                                   compact=compact)
+            t1 = time.perf_counter()
+            mid = {m: dict(c) for m, c in counters.items()}
+            out = parallel.decode(cont, cdf, device=device)
+            t2 = time.perf_counter()
+            fields = (parallel.unpack_sharded_v2(cont) if compact
+                      else parallel.unpack_sharded(cont))
+            block_len, cfg = fields[3], fields[4]
+            row = {
+                "container": name, "words": int(len(cont)),
+                "single_v2_words": int(len(singles[(P, True)][1])),
+                "num_lanes": cfg.num_lanes,
+                "steps_per_block": -(-block_len // cfg.num_lanes),
+                "block_len": int(block_len),
+                "k_tail": int(fields[5]) if compact else 0,
+                "decodes_exactly": bool(np.array_equal(out, symbols)),
+                "encode_call_s": t1 - t0, "decode_call_s": t2 - t1,
+                "encode_launches": {
+                    f"{m}.{k}": c[k] - before[m][k]
+                    for m, c in mid.items() for k in c
+                    if c[k] != before[m][k]},
+                "decode_launches": {
+                    f"{m}.{k}": c[k] - mid[m][k]
+                    for m, c in counters.items() for k in c
+                    if c[k] != mid[m][k]},
+            }
+            rows.append(row)
+            keep[name] = (coder_name, compact, cdf, cont)
+            if not row["decodes_exactly"]:
+                fail(f"sharded main path: {row}")
+    return {"phase": "sharded_main_path", "n": len(symbols),
+            "blocks": SHARDED_BLOCKS, "cases": rows}
+
+
+def phase_sharded_times(device, keep: dict, gpu: str) -> dict:
+    """The B blocks' wrapper calls of each container back to back between
+    CUDA events, beside one call of the same wrapper on the same symbols
+    as one container at the same L (T = B times the block's steps).  The
+    rANS decode reads nothing back; the encodes (their end pointer, and a
+    seeded one its seeds' check) and the range decode (its invalid-data
+    flag) read back once a call, so the blocks' time holds B such waits
+    and the host work each exposes."""
+    import torch
+
+    from constriction_tpu_torch import convert, parallel
+    from constriction_tpu_torch.ops import coder, coder64, range_enc
+
+    rows = []
+    for name, (coder_name, compact, cdf_np, cont) in keep.items():
+        fields = (parallel.unpack_sharded_v2(cont) if compact
+                  else parallel.unpack_sharded(cont))
+        states, streams, _, block_len, cfg = fields[:5]
+        wide = cfg.state_bits == 64
+        cdf = convert.cdf_to_torch(cdf_np, device)
+        st = [convert.states_to_torch(s, cfg, device) for s in states]
+        sw = [convert.u32_to_torch(w, device) for w in streams]
+        ranged = coder_name == "range"
+        if ranged:
+            dec = coder64.decode_shared_range64 if wide else \
+                coder.decode_shared_range
+            enc = range_enc.encode_iid_range64 if wide else \
+                range_enc.encode_iid_range
+            syms = [dec(p, w, cdf, cfg, block_len) for p, w in zip(st, sw)]
+            seeds = [None] * len(st)
+        else:
+            dec = coder64.decode_shared64 if wide else coder.decode_shared
+            enc = coder64.encode_iid64 if wide else coder.encode_iid
+            decoded = [dec(s, w, cdf, cfg, block_len,
+                           return_final_states=True)
+                       for s, w in zip(st, sw)]
+            syms = [d[0] for d in decoded]
+            # a v2 block's final states are its encoder's seeds
+            seeds = [d[1] if compact else None for d in decoded]
+
+        def encode(s, sd):
+            return enc(s, cdf, cfg) if ranged else enc(s, cdf, cfg, seeds=sd)
+
+        again = [encode(s, sd) for s, sd in zip(syms, seeds)]
+        if any(not torch.equal(a[0], s) or not torch.equal(a[1], w)
+               for a, s, w in zip(again, st, sw)):
+            fail(f"sharded times: {name}: the blocks' encode != container")
+        whole = torch.cat(syms)
+        one_st, one_sw = encode(whole, seeds[0])
+        if mismatch(dec(one_st, one_sw, cdf, cfg, whole.numel()), whole):
+            fail(f"sharded times: {name}: one call's round trip")
+        rows.append({
+            "container": name, "blocks": len(streams),
+            "num_lanes": cfg.num_lanes,
+            "steps_per_block": -(-block_len // cfg.num_lanes),
+            "blocks_encode_ms": time_ms(
+                lambda: [encode(s, sd) for s, sd in zip(syms, seeds)], 3),
+            "blocks_decode_ms": time_ms(
+                lambda: [dec(s, w, cdf, cfg, block_len)
+                         for s, w in zip(st, sw)], 3),
+            "one_call_encode_ms": time_ms(lambda: encode(whole, seeds[0]),
+                                          3),
+            "one_call_decode_ms": time_ms(
+                lambda: dec(one_st, one_sw, cdf, cfg, whole.numel()), 3),
+            "gpu": gpu,
+        })
+    return {"phase": "sharded_times", "cases": rows}
 
 
 def cat_presets() -> dict:
@@ -3761,6 +3981,16 @@ def main(argv) -> int:
     emit(phase_checkpoints(
         device, symbols, containers,
         {"coder": coder.LAUNCHES, "coder64": coder64.LAUNCHES}))
+    emit(phase_sharded_bytes(device, probs, symbols))
+    sharded: dict = {}
+    run_main_path(modules, SHARDED_KERNELS,
+                  lambda: phase_sharded_main(device, probs, symbols,
+                                             containers, sharded))
+    emit(phase_sharded_times(device, sharded, gpu))
+    from constriction_tpu_torch.parallel import dryrun
+    run_main_path(modules, DRYRUN_KERNELS,
+                  lambda: {"phase": "sharded_dryrun",
+                           "legs": dryrun([device])})
 
     tchain_rec, tchain_errs = phase_tchain_kernels(device, N_KERNEL_CHECK_TCHAIN)
     emit(tchain_rec)

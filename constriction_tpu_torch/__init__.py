@@ -24,6 +24,14 @@ binomial): ``cuda.encode_family_exact`` / ``cuda.decode_family_exact``
 and the v2 family container, ``cuda.encode_family_exact_container`` /
 ``cuda.decode_family_exact_container``.  All 24 Pallas kernels of the
 JAX package have a Hopper kernel here.
+
+Beside the facade: ``parallel`` (the JAX package's ``parallel``) writes
+and reads block-sharded containers (``parallel.encode`` /
+``parallel.decode``, v1 and compact v2, rANS or range blocks, with
+within-block checkpoints) on one card or a list of devices, runs the
+block legs (``parallel.shard_*_cuda``) and its dry run
+(``parallel.dryrun``); ``ops.tables`` (the JAX package's
+``ops.tables_jax``) builds model tables on the tensors' device.
 """
 
 __version__ = "0.1.0"

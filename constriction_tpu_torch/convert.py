@@ -22,7 +22,11 @@ torch has few operations on unsigned integers:
   (:func:`params64_to_torch`), their per-symbol (cum, prob) u32 planes ->
   int32 ``[T, L]`` (:func:`ecp_to_torch`) and their packed wide decode
   tables ``u32[T, CP1, R, 128]`` -> int32 ``[T, CP1, L]``
-  (:func:`exact_tables_to_torch`).
+  (:func:`exact_tables_to_torch`);
+- the JAX package's block-leg inputs (``parallel.sharding``): ``[..., 128]``
+  u32 tiles (padded streams, planar quantile words) -> flat int32
+  (:func:`rows_to_torch`), ``f32[T, 2, R, 128]`` family parameters ->
+  two float32 ``[T * L]`` (:func:`family_params_to_torch`).
 
 Kernels read these buffers as ``uint32_t`` / ``uint64_t``; the plain twins
 widen them with :func:`u32_values` / :func:`u64_halves`.
@@ -195,6 +199,46 @@ def exact_tables_from_torch(tabs: torch.Tensor) -> np.ndarray:
     """Inverse of :func:`exact_tables_to_torch`: ``u32[T, CP1, R, 128]``."""
     T, CP1, L = tabs.shape
     return u32_from_torch(tabs.reshape(-1)).reshape(T, CP1, L // 128, 128)
+
+
+def rows_to_torch(rows, device="cpu") -> torch.Tensor:
+    """u32 data in the JAX package's tile layout ``[..., 128]`` (a block's
+    padded stream window ``[rows, 128]``, ``pallas_coder._pad_stream2d``;
+    TChain-16 planar quantile words ``[T, R/2, 128]``,
+    ``tchain.pack_quantiles``) -> the flat int32 tensor the port's wrappers
+    take.  A stream window's zero padding past the stream's end reads as
+    the zero words a decode past the end reads anyway.  JAX counterpart:
+    the per-block slices of ``shard_*_pallas``'s inputs."""
+    return u32_to_torch(np.asarray(rows, dtype=np.uint32).reshape(-1), device)
+
+
+def rows_from_torch(t: torch.Tensor, rows: int) -> np.ndarray:
+    """Inverse of :func:`rows_to_torch`: u32 ``[rows, 128]``, ``t``
+    zero-padded to whole rows."""
+    a = np.zeros(rows * 128, dtype=np.uint32)
+    words = u32_from_torch(t)
+    a[:len(words)] = words
+    return a.reshape(rows, 128)
+
+
+def family_params_to_torch(params, device="cpu") -> tuple:
+    """A block's device-family parameters in the JAX package's layout
+    ``f32[T, 2, R, 128]`` (means, then scales, ``pallas_family._blocks3d``
+    stacked) -> two float32 tensors ``[T * L]`` (L = 128 R) on ``device``:
+    the padded layout ``ops.family.decode_family`` takes
+    (:func:`params_to_torch`).  JAX counterpart: the per-block ``params``
+    of ``sharding.shard_decode_family_pallas``."""
+    p = np.asarray(params, dtype=np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(p[:, k]).reshape(-1))
+                 .to(device) for k in (0, 1))
+
+
+def family_params_from_torch(means: torch.Tensor, scales: torch.Tensor,
+                             L: int) -> np.ndarray:
+    """Inverse of :func:`family_params_to_torch`: ``f32[T, 2, R, 128]``."""
+    m, s = (t.detach().to("cpu", torch.float32).numpy().reshape(
+        -1, L // 128, 128) for t in (means, scales))
+    return np.stack([m, s], axis=1)
 
 
 def quantiles_to_torch(quantiles, L: int, device="cpu") -> torch.Tensor:

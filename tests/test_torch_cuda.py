@@ -2755,3 +2755,85 @@ def test_exact32_facade_default_on_the_card(dev, family):
     assert out.dtype == out_c.dtype == np.int32
     np.testing.assert_array_equal(out, out_c)
     np.testing.assert_array_equal(out, syms)
+
+
+# --- block-sharded containers and block legs (parallel/)
+
+
+def _sharded_data(P, n, seed):
+    cdf_np, probs = _cdf(100, P, seed=P)
+    rng = np.random.RandomState(seed)
+    return cdf_np, rng.choice(100, size=n, p=probs).astype(np.int64)
+
+
+@pytest.mark.parametrize("P", [12, 24])
+@pytest.mark.parametrize("coder_name,compact", [("rans", False),
+                                                ("rans", True),
+                                                ("range", False)])
+def test_sharded_containers_on_the_card_equal_cpu(dev, P, coder_name,
+                                                  compact):
+    """Eight blocks, the last one short; at this size the compact container
+    has a pooled tail.  The card's bytes are the twins' and the numpy host
+    coders'; each block launched its kernels once."""
+    from constriction_tpu_torch import parallel
+
+    W = 32 if P == 24 else 16
+    cfg = LaneConfig(num_lanes=256, word_bits=W, state_bits=2 * W,
+                     precision=P)
+    cdf_np, syms = _sharded_data(P, 29_001, seed=P + compact)
+    counters = (coder64.LAUNCHES if P == 24 else coder.LAUNCHES,
+                range_enc.LAUNCHES)
+    before = [dict(c) for c in counters]
+    cont = parallel.encode(syms, cdf_np, cfg=cfg, num_blocks=8, device=dev,
+                           coder=coder_name, compact=compact)
+    if coder_name == "rans":
+        key, c = "encode", 0
+    else:
+        key, c = "record64" if P == 24 else "record", 1
+    assert counters[c][key] - before[c][key] >= 8
+    kw = {"cfg": cfg, "num_blocks": 8, "coder": coder_name,
+          "compact": compact}
+    np.testing.assert_array_equal(
+        cont, parallel.encode(syms, cdf_np, device="cpu", **kw))
+    np.testing.assert_array_equal(
+        cont, parallel.encode_host(syms, cdf_np, cfg, 8, coder_name, compact))
+    if compact:
+        assert parallel.unpack_sharded_v2(cont)[5] > 0
+    np.testing.assert_array_equal(parallel.decode(cont, cdf_np, device=dev),
+                                  syms)
+    # blocks split over the card and the CPU give the same bytes
+    np.testing.assert_array_equal(
+        cont, parallel.encode(syms, cdf_np, device=[dev, "cpu"], **kw))
+    np.testing.assert_array_equal(
+        parallel.decode(cont, cdf_np, device=["cpu", dev]), syms)
+
+
+@pytest.mark.parametrize("P", [12, 24])
+@pytest.mark.parametrize("coder_name", ["rans", "range"])
+def test_sharded_block_seek_on_the_card(dev, P, coder_name):
+    from constriction_tpu_torch import parallel
+
+    cdf_np, syms = _sharded_data(P, 40_003, seed=3)
+    W = 32 if P == 24 else 16
+    cfg = LaneConfig(num_lanes=512, word_bits=W, state_bits=2 * W,
+                     precision=P)
+    cont = parallel.encode(syms, cdf_np, cfg=cfg, num_blocks=4, device=dev,
+                           coder=coder_name)
+    offsets, states = parallel.build_block_checkpoints(cont, cdf_np, 4)
+    block_len = parallel.unpack_sharded(cont)[3]
+    for block in (0, 3):
+        c = offsets.shape[1] // 2
+        start, suffix = parallel.decode_block_from_checkpoint(
+            cont, cdf_np, 4, block, c, offsets, states, device=dev)
+        assert start == block * block_len + (c + 1) * 4 * 512
+        np.testing.assert_array_equal(
+            suffix, syms[start:min((block + 1) * block_len, len(syms))])
+
+
+def test_dryrun_on_the_card(dev):
+    from constriction_tpu_torch import parallel
+
+    for devices in ([dev], [dev, dev]):
+        legs = parallel.dryrun(devices)
+        assert len(legs) == 10
+        assert all(leg["blocks"] == len(devices) for leg in legs.values())

@@ -341,7 +341,11 @@ def test_port_imports_no_jax():
         "import constriction_tpu_torch.utils.special\n"
         "from constriction_tpu_torch.ops import (_build, coder, coder64,\n"
         "    chain, exact_family, exact_tables, family, framing,\n"
-        "    framing_family, interleaved, interleaved2, range_enc, tchain)\n"
+        "    framing_family, interleaved, interleaved2, range_enc, tables,\n"
+        "    tchain)\n"
+        "import constriction_tpu_torch.parallel\n"
+        "from constriction_tpu_torch.parallel import (container, dryrun,\n"
+        "    sharding)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'constriction_tpu'))\n"
         "assert not bad, bad\n"
