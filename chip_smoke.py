@@ -3,14 +3,32 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA device (it exits non-zero without one) and nvcc; it builds
-the kernels from constriction_tpu_torch/ops/csrc into build/ first.  It
+Needs one CUDA device (it exits non-zero without one), nvcc and g++; it
+builds the kernels from constriction_tpu_torch/ops/csrc and the host codec
+(constriction_tpu_torch/native) into build/ first.  It
 prints one JSON object per phase, then the kernels line, the card's
 ``nvidia-smi`` name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
 
 1. build         -- nvcc build time (one nvcc per source, in parallel),
                     ptxas register/shared-memory report.
+   native        -- the host codec (``constriction_tpu_torch/native``, C++
+                    built with g++ at first use): its build time, the
+                    host's CPU model and OpenMP team size, and each entry
+                    point the port binds against its plain numpy version,
+                    byte for byte, with both times: erf / erfc on 2^20
+                    values, the exact-family tables (``exact_ecp``,
+                    ``exact_ncore``, ``exact_boundary_tables``,
+                    ``_packed_table_rows``, ``packed_tables_device`` with
+                    unique and with repeated (mean, scale) pairs,
+                    ``exact_tv_at``) on 2^16 models (binomial's tables on
+                    2^12), and the shared-stream coders (``encode_shared``
+                    seeded and not, ``decode_shared_cdf``,
+                    ``build_checkpoints``, ``encode_shared_range``,
+                    ``decode_shared_range_cdf``) on 2^20 symbols at both
+                    presets (L=32768); a range encode at (W, S, P) = (8,
+                    32, 8), which the plain encoder does not take,
+                    round-tripped through the plain decoder.
    geometry      -- the launch geometry of the cluster decodes and
                     two-pass encodes at L=32768 and 65536: the rANS pairs
                     at both presets (kernels 1 and 2 at P=24; kernels 3 and
@@ -36,8 +54,9 @@ prints one JSON object per phase, then the kernels line, the card's
                     kernel 18, fails the run, as does kernel 11, 13, 16,
                     20, 24 or 22 on fewer than 16 CTAs at L=32768.
 2. kernels       -- each rANS kernel against its plain PyTorch twin on the
-                    same CUDA tensors and against the numpy host oracle
-                    (L=32768, about 2^20 symbols, with and without seeds):
+                    same CUDA tensors and against the host oracle (the
+                    host codec's ILANS2 coder; L=32768, about 2^20
+                    symbols, with and without seeds):
                     streams, initial and final lane states and symbols must
                     be identical (integer coding: tolerance 0).
 3. main path     -- bench.py's workload (2^25 symbols, K=100, Dirichlet(2),
@@ -61,7 +80,7 @@ prints one JSON object per phase, then the kernels line, the card's
                     L=4096 to 65536).
 6. range_kernels -- each of the six range kernels (phase A, phase B,
                     decode; both presets) against its twin on the same CUDA
-                    tensors and against the port's numpy host range coder
+                    tensors and against the port's host range coder
                     (L=32768, about 2^20 symbols, P=24 and P=12, and a
                     skewed carry-run model; the S=32 preset also at
                     L=65536 and at P=16), plus a seeded decode from a
@@ -122,13 +141,15 @@ prints one JSON object per phase, then the kernels line, the card's
                     main path at both presets, ``cuda.build_checkpoints``
                     then ``cuda.decode_from_checkpoint`` from the middle
                     checkpoint must give the message's suffix, through the
-                    decode kernels.
+                    decode kernels; ``build_checkpoints`` timed as it runs
+                    (the host codec at S=32) and with its plain version in
+                    place, whose snapshots must be the same.
     sharded      -- the block-sharded containers (``constriction_tpu_torch.
                     parallel``, B=8, the config ``parallel.encode`` picks):
                     ``sharded_bytes``: v1 rANS, compact v2 rANS and v1
                     range containers of the first N_KERNEL_CHECK symbols at
                     P=24 and P=12 written on the card, byte for byte the
-                    port's numpy host coders' (``parallel.encode_host``),
+                    port's host coders' (``parallel.encode_host``),
                     decoded exactly, and one within-block checkpoint seek
                     per preset; ``sharded_main_path``: the main workload
                     (2^25 symbols) through ``parallel.encode`` ->
@@ -183,8 +204,8 @@ prints one JSON object per phase, then the kernels line, the card's
                     tables built on the card equal to the host builder's
                     bit for bit (2^18 symbols each).
 19. exact_kernels -- kernels 15, 16 and 17 against their twins on the same
-                    CUDA tensors and the port's numpy oracles
-                    (``encode_shared``, ``decode_family_exact_host``) at
+                    CUDA tensors and the port's host oracles
+                    (``encode_shared_plain``, ``decode_family_exact_host``) at
                     L=32768, about 2^20 symbols: kernel 17 with and without
                     seeds, kernel 15 over the host builder's tables at the
                     batch's largest core, kernel 16 over three or more
@@ -227,7 +248,7 @@ prints one JSON object per phase, then the kernels line, the card's
                     16).
 22. exact32_kernels -- kernels 14 and 13 (the S=32 reference-exact pair)
                     against their twins on the same CUDA tensors and the
-                    port's numpy oracles (``encode_shared``,
+                    port's host oracles (``encode_shared_plain``,
                     ``decode_family_exact_host``) at L=32768: gaussian,
                     laplace and cauchy on [-100, 100] (about 2^20 symbols,
                     partial last step), gaussian with sharp cores (2^20)
@@ -243,10 +264,11 @@ prints one JSON object per phase, then the kernels line, the card's
                     exact(sym, mu, sigma, "gaussian", -100, 100)`` ->
                     ``decode_family_exact(..., num_symbols=n)`` on 2^20
                     symbols of the suite's synthetic latents (the host
-                    table builder cuts the suite's 2^22): states and
-                    stream byte for byte the numpy host coder's on
-                    ``exact_ecp``'s planes, the decode equal to the
-                    symbols; both kernels launched.
+                    table build cuts the suite's 2^22): states and
+                    stream byte for byte the plain host coder's on
+                    ``exact_ecp_plain``'s planes, the decode equal to the
+                    symbols, the narrow tables' build time; both kernels
+                    launched.
 24. exact32_times -- kernel-only time of kernels 14 and 13 at that size
                     over the main path's planes and tables (kernel 14's
                     pass A and pass B also apart), the twins' time on the
@@ -273,16 +295,19 @@ the support, EVAL_CDF_FLOPS more for each live one, a DFMA as two) over
 the card's 34 TFLOP/s float64 rate outside the tensor cores (NVIDIA's
 data sheet).
 No single PyTorch call computes these functions, so ``library_ms`` is
-null.  The numpy host oracles of phases 18 and 19 and of phase 22 run in
+null.  The host oracles of phases 18 and 19 and of phase 22 run in
 worker processes (at most 8), which the script stops before phase 20 and
 before phase 23.
 
 Everything comes from the port: the model's CDF
 (``constriction_tpu_torch.models``) and the host oracles, which are the
-port's numpy ILANS2 and ILANS2-R host coders under the port's container
-framing, its numpy family and TChain oracles, its numpy chain decode and
-its numpy exact-family host builder and decode oracle (the CPU tests
-hold them byte for byte against the JAX package).  The script imports
+port's ILANS2 and ILANS2-R host coders (the host codec, C++) under the
+port's container framing, its numpy family and TChain oracles, its numpy
+chain decode, its exact-family host builder (the host codec) and decode
+oracle, and for the exact-family encoders the plain numpy versions of
+``exact_ecp`` and ``encode_shared`` (the native phase and the CPU tests
+hold the host codec byte for byte against the plain versions, and the CPU
+tests both against the JAX package).  The script imports
 nothing of JAX or of the JAX package, and checks that at the end.
 """
 
@@ -400,15 +425,20 @@ EXACT32_KERNELS = {
                        "constriction_tpu/ops/exact_family.py:1148",
                        EXACT_SOURCE),
 }
+# the native phase: models of the exact-table checks, symbols of the
+# shared-stream coders'
+N_NATIVE_TABLES = 1 << 16
+N_NATIVE_STREAM = 1 << 20
 N_EXACT = 1 << 22  # the JAX suite's exact-family row at its TPU size
 N_EXACT_CHECK = (1 << 20) - 12345  # partial last step
 N_EXACT_EVAL = 1 << 20
 N_EXACT_TABLES = 1 << 18
 N_EXACT_HOST_TABLES = 1 << 18  # the ungrouped decode with host-built
-# tables (numpy f64 CDFs): a size where that takes seconds
+# tables (cmax=None)
 # the facade's default S=32 pair (W=16, P=12): its narrow tables come from
-# the host builder (numpy f64 CDFs, about a minute per 2^20 symbols on the
-# card's host), which cuts the suite's 2^22 symbols to 2^20
+# the host builder (the host codec's fill, then a numpy pack of the [n,
+# cmax] boundaries), 2.1 s at 2^20 symbols and 13.4 s at the suite's 2^22
+# on the card's host, which keeps the cut at 2^20
 N_EXACT32 = 1 << 20
 N_EXACT32_CHECK = (1 << 20) - 12345  # partial last step
 EXACT32_CHECK_LANES = 32768
@@ -466,7 +496,7 @@ def model_cdf(probs, precision):
 
 
 def host_container(symbols, cdf, cfg, compact: bool):
-    """The host oracle's container: the numpy host coder for every lane,
+    """The host oracle's container: the host coder for every lane,
     under the v2 framing or in a v1 container (the JAX package's
     ``framing.encode_iid_v2`` / ``interleaved2.encode_iid_categorical2``
     with ``device=False``)."""
@@ -557,6 +587,211 @@ def phase_build() -> dict:
                   if "registers" in ln or "spill" in ln],
         "gpu": gpu_line(),
     }
+
+
+def cpu_model() -> str:
+    """The host CPU from /proc/cpuinfo: its model name, else (where that
+    is missing or "unknown", as on the card's host) its vendor, family and
+    model numbers (the first value of each field)."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                key, sep, value = ln.partition(":")
+                if sep:
+                    fields.setdefault(key.strip().lower(), value.strip())
+    except OSError:
+        return "unknown"
+    if fields.get("model name", "unknown") != "unknown":
+        return fields["model name"]
+    return " ".join(f"{k} {fields[k]}" for k in (
+        "vendor_id", "cpu family", "model", "stepping")
+        if fields.get(k, "unknown") != "unknown") or "unknown"
+
+
+def omp_threads() -> int:
+    """The OpenMP team size the host codec's loops run with (libgomp,
+    which the codec links, is in the process once the codec is loaded)."""
+    import ctypes
+
+    return int(ctypes.CDLL("libgomp.so.1").omp_get_max_threads())
+
+
+def same_arrays(a, b) -> bool:
+    """Equal results: arrays (dtype, shape and bytes), scalars, or tuples
+    of them."""
+    import numpy as np
+
+    if isinstance(a, tuple):
+        return (isinstance(b, tuple) and len(a) == len(b)
+                and all(same_arrays(x, y) for x, y in zip(a, b)))
+    if np.isscalar(a) or np.isscalar(b):
+        return a == b
+    a, b = np.asarray(a), np.asarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+
+
+def native_cases():
+    """(entry, label, routed function, plain version, arguments) of the
+    native phase: exact tables at N_NATIVE_TABLES models, the shared-stream
+    coders at N_NATIVE_STREAM symbols (L=32768)."""
+    import numpy as np
+
+    from constriction_tpu_torch.ops import exact_family as ef
+    from constriction_tpu_torch.ops import exact_tables as et
+    from constriction_tpu_torch.ops import interleaved2 as il2
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+    from constriction_tpu_torch.utils import special
+
+    lo, hi = EXACT_SUPPORT
+    nt = N_NATIVE_TABLES
+    means, scales, syms = exact_workload(nt)
+    rng = np.random.RandomState(20)
+    x = rng.uniform(-7.0, 7.0, N_NATIVE_STREAM)
+    cases = [("erf", "f64", special.erf_native, special.erf_plain, (x,)),
+             ("erfc", "f64", special.erfc_native, special.erfc_plain, (x,))]
+    for fam in ("gaussian", "laplace", "cauchy"):
+        cases.append(("exact_ecp", f"{fam}_p24", ef.exact_ecp,
+                      ef.exact_ecp_plain,
+                      (syms, means, scales, fam, lo, hi, 24)))
+        cases.append(("exact_ncore", f"{fam}_p24", ef.exact_ncore,
+                      ef.exact_ncore_plain, (means, scales, fam, lo, hi, 24)))
+        cases.append(("exact_boundary_tables", f"{fam}_p24",
+                      ef.exact_boundary_tables, ef.exact_boundary_tables_plain,
+                      (means, scales, fam, lo, hi, 24)))
+    cases.append(("exact_ecp", "gaussian_p12", ef.exact_ecp,
+                  ef.exact_ecp_plain,
+                  (syms, means, scales, "gaussian", lo, hi, 12)))
+    cases.append(("exact_boundary_tables", "gaussian_p12",
+                  ef.exact_boundary_tables, ef.exact_boundary_tables_plain,
+                  (means, scales, "gaussian", lo, hi, 12)))
+    # binomial's f64 CDF costs microseconds in the plain version: 2^12
+    # models for its tables
+    nb = 1 << 12
+    ps = rng.uniform(0.02, 0.98, nt)
+    bsyms = rng.binomial(60, ps)
+    cases.append(("exact_ecp", "binomial_p12", ef.exact_ecp,
+                  ef.exact_ecp_plain,
+                  (bsyms, np.full(nt, 60.0), ps, "binomial", 0, 60, 12)))
+    cases.append(("exact_boundary_tables", "binomial_p12",
+                  ef.exact_boundary_tables, ef.exact_boundary_tables_plain,
+                  (np.full(nb, 60.0), ps[:nb], "binomial", 0, 60, 12)))
+    cmax = int(ef.exact_ncore(means, scales, "gaussian", lo, hi, 24).max())
+    cases.append(("_packed_table_rows", "gaussian_p24",
+                  ef._packed_table_rows, ef._packed_table_rows_plain,
+                  (means, scales, "gaussian", lo, hi, 24, cmax)))
+    R = 256
+    nsteps = nt // (R * 128)
+    cases.append(("packed_tables_device", "gaussian_unique",
+                  ef.packed_tables_device, ef.packed_tables_device_plain,
+                  (means, scales, "gaussian", lo, hi, 24, min(255, cmax + 8),
+                   nsteps, R)))
+    # a hyperprior-like batch: scales from a table of 64, means on a grid
+    qm = np.round(means * 2.0) / 2.0
+    qs = np.exp(np.round(np.log(scales) * 8.0) / 8.0)
+    cases.append(("packed_tables_device", "gaussian_repeated",
+                  ef.packed_tables_device, ef.packed_tables_device_plain,
+                  (qm, qs, "gaussian", lo, hi, 24, min(255, cmax + 8),
+                   nsteps, R)))
+    W = 48
+    ws = np.clip(np.ceil(means - 5.5 * scales) - 3, lo + 1, hi).astype(
+        np.int64)
+    sym_i = np.repeat(np.arange(nt), W)
+    svals = np.minimum((ws[:, None] + np.arange(W)[None, :]).reshape(-1), hi)
+    cases.append(("exact_tv_at", "gaussian_p24", et.exact_tv_at,
+                  et.exact_tv_at_plain,
+                  ("gaussian", lo, hi, 24, means, scales, sym_i, svals)))
+    ns = N_NATIVE_STREAM
+    rng = np.random.RandomState(1234)
+    probs = rng.dirichlet(np.full(K_MAIN, 2.0))
+    ssyms = rng.choice(K_MAIN, size=ns, p=probs).astype(np.int64)
+    for W_, S_, P_ in ((16, 32, 12), (32, 64, 24)):
+        cfg = LaneConfig(32768, W_, S_, P_)
+        cdf = np.asarray(model_cdf(probs, P_), dtype=np.uint64)
+        cums, pr = cdf[ssyms], cdf[ssyms + 1] - cdf[ssyms]
+        label = f"w{W_}s{S_}p{P_}"
+        states, stream = il2.encode_shared(cums, pr, cfg)
+        points, rstream = il2.encode_shared_range(cums, pr, cfg)
+        cases += [
+            ("encode_shared", label, il2.encode_shared,
+             il2.encode_shared_plain, (cums, pr, cfg)),
+            ("decode_shared_cdf", label, il2.decode_shared_cdf,
+             il2.decode_shared_cdf_plain,
+             (states, stream, ns, cdf, cfg, True)),
+            ("encode_shared_range", label, il2.encode_shared_range,
+             il2.encode_shared_range_plain, (cums, pr, cfg)),
+            ("decode_shared_range_cdf", label, il2.decode_shared_range_cdf,
+             il2.decode_shared_range_cdf_plain,
+             (points, rstream, ns, cdf, cfg)),
+        ]
+        if S_ == 32:
+            seeds = (np.uint32(1 << 16) + rng.randint(
+                0, 1 << 16, 32768).astype(np.uint32))
+            cases += [
+                ("encode_shared", label + "_seeded", il2.encode_shared,
+                 il2.encode_shared_plain, (cums, pr, cfg, seeds)),
+                ("build_checkpoints", label, il2.build_checkpoints,
+                 il2.build_checkpoints_plain,
+                 (states, stream, ns, cdf, cfg, 4)),
+            ]
+    return cases
+
+
+def phase_native() -> dict:
+    """The host codec: its build time, the host's CPU model and OpenMP
+    team size, each bound entry point against its plain version byte for
+    byte with both times, and a range encode at (W, S, P) = (8, 32, 8),
+    which the plain encoder does not take, round-tripped through the plain
+    decoder."""
+    import numpy as np
+
+    from constriction_tpu_torch import native
+    from constriction_tpu_torch.native import build
+    from constriction_tpu_torch.ops import interleaved2 as il2
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+    from constriction_tpu_torch.utils import special
+
+    clock = time.perf_counter
+    t0 = clock()
+    native.library()
+    load_s = clock() - t0
+    info = build.build_info or {}
+    rows = []
+    for entry, label, fn, plain, args in native_cases():
+        t0 = clock()
+        got = fn(*args)
+        t1 = clock()
+        want = plain(*args)
+        t2 = clock()
+        rows.append({"entry": entry, "case": label, "native_s": t1 - t0,
+                     "plain_s": t2 - t1,
+                     "identical": same_arrays(got, want)})
+    ns = N_NATIVE_STREAM
+    rng = np.random.RandomState(8)
+    probs = rng.dirichlet(np.full(K_MAIN, 2.0))
+    syms = rng.choice(K_MAIN, size=ns, p=probs).astype(np.int64)
+    cfg = LaneConfig(32768, 8, 32, 8)
+    cdf = np.asarray(model_cdf(probs, 8), dtype=np.uint64)
+    t0 = clock()
+    points, stream = il2.encode_shared_range(
+        cdf[syms], cdf[syms + 1] - cdf[syms], cfg)
+    t1 = clock()
+    back = il2.decode_shared_range_cdf_plain(points, stream, ns, cdf, cfg)
+    t2 = clock()
+    rows.append({"entry": "encode_shared_range", "case": "w8s32p8",
+                 "native_s": t1 - t0, "plain_decode_s": t2 - t1,
+                 "identical": bool(np.array_equal(back, syms))})
+    rec = {"phase": "native", "load_s": load_s,
+           "build_s": info.get("seconds"), "command": info.get("command"),
+           "cpu": cpu_model(), "cpus": os.cpu_count(),
+           "omp_threads": omp_threads(), "erf": special.ERF,
+           "special_picked": special.PICKED, "cases": rows}
+    bad = [r for r in rows if not r["identical"]]
+    if bad:
+        emit(rec)
+        fail(f"native: entry points differ from their plain versions: {bad}")
+    return rec
 
 
 def ptxas_usage(log: str, marks: tuple) -> dict:
@@ -1013,7 +1248,7 @@ def range_presets():
 
 
 def host_range(symbols, cdf, cfg):
-    """The port's numpy host range encoder: ``(points, stream)``."""
+    """The port's host range encoder: ``(points, stream)``."""
     import numpy as np
 
     from constriction_tpu_torch.ops import interleaved2 as il2
@@ -1923,17 +2158,29 @@ def phase_checkpoints(device, symbols, containers: dict,
                       counters: dict) -> dict:
     """Random access on the rANS main path's containers: a decode from the
     middle checkpoint must equal the message's suffix and must have run
-    the decode kernel."""
+    the decode kernel.  ``build_checkpoints`` is timed as it runs (the
+    host codec where it takes the config) and with the plain version in
+    its place, whose snapshots must be the same."""
     import numpy as np
 
     from constriction_tpu_torch import cuda as ctt
+    from constriction_tpu_torch.ops import interleaved2 as il2
 
     rows = []
+    routed = il2.build_checkpoints
     for (P, compact), (cdf, data) in containers.items():
         for counts in counters.values():
             counts["decode"] = 0
         t0 = time.perf_counter()
         offsets, states = ctt.build_checkpoints(data, cdf, CKPT_INTERVAL)
+        build_s = time.perf_counter() - t0
+        il2.build_checkpoints = il2.build_checkpoints_plain
+        try:
+            t0 = time.perf_counter()
+            plain = ctt.build_checkpoints(data, cdf, CKPT_INTERVAL)
+            plain_s = time.perf_counter() - t0
+        finally:
+            il2.build_checkpoints = routed
         t1 = time.perf_counter()
         c = len(offsets) // 2
         start, suffix = ctt.decode_from_checkpoint(
@@ -1945,10 +2192,13 @@ def phase_checkpoints(device, symbols, containers: dict,
                "from_checkpoint": c, "start_symbol": int(start),
                "suffix_exact": bool(np.array_equal(suffix, symbols[start:])),
                "decode_launches": launches,
-               "build_checkpoints_s": t1 - t0,
+               "build_checkpoints_s": build_s,
+               "build_checkpoints_plain_s": plain_s,
+               "plain_identical": same_arrays((offsets, states), plain),
                "decode_from_checkpoint_s": t2 - t1}
         rows.append(row)
-        if not (len(offsets) and row["suffix_exact"] and launches == 1):
+        if not (len(offsets) and row["suffix_exact"] and launches == 1
+                and row["plain_identical"]):
             fail(f"checkpoints: {row}")
     return {"phase": "checkpoints", "n": len(symbols), "cases": rows}
 
@@ -2801,7 +3051,7 @@ def phase_exact_kernels(device, pool, errs: dict) -> dict:
         s_t = None if seeds is None else convert.u64_to_torch(seeds, device)
         st, w = ef.encode_tables(c_t, p_t, cfg, s_t, n)
         st_p, w_p = ef.encode_tables_plain(c_t, p_t, cfg, s_t, n)
-        st_h, w_h = il2.encode_shared(cums, probs, cfg, seeds=seeds)
+        st_h, w_h = il2.encode_shared_plain(cums, probs, cfg, seeds=seeds)
         e = max(mismatch(st, st_p), mismatch(w, w_p))
         same_h = (np.array_equal(convert.u64_from_torch(st), st_h)
                   and np.array_equal(convert.u32_from_torch(w), w_h))
@@ -2944,20 +3194,21 @@ def phase_exact_main(device, work, keep: dict) -> dict:
         device_tables=False).cpu().numpy()
     t_f = clock() - t_f
     t.append(clock())
-    # host oracles
+    # host oracles: the plain (numpy) versions of the host codec's paths
     perm, segs = ef.group_plan(means, scales, family, lo, hi, EXACT_P,
                                cfg.num_lanes, n)
-    cums, probs = ef.exact_ecp(syms[perm], means[perm], scales[perm], family,
-                               lo, hi, EXACT_P)
-    st_h, w_h = il2.encode_shared(cums, probs, cfg)
+    cums, probs = ef.exact_ecp_plain(syms[perm], means[perm], scales[perm],
+                                     family, lo, hi, EXACT_P)
+    st_h, w_h = il2.encode_shared_plain(cums, probs, cfg)
 
     def encode_a(n_A, seeds):
-        return il2.encode_shared(cums[:n_A], probs[:n_A], cfg, seeds=seeds)
+        return il2.encode_shared_plain(cums[:n_A], probs[:n_A], cfg,
+                                       seeds=seeds)
 
     data_h = framing.frame_planes_v2(cums, probs, cfg, None, encode_a)
-    cu, pu = ef.exact_ecp(syms, means, scales, family, lo, hi, EXACT_P)
-    st_uh, w_uh = il2.encode_shared(cu, pu, cfg)
-    st_fh, w_fh = il2.encode_shared(cu[:nf], pu[:nf], cfg)
+    cu, pu = ef.exact_ecp_plain(syms, means, scales, family, lo, hi, EXACT_P)
+    st_uh, w_uh = il2.encode_shared_plain(cu, pu, cfg)
+    st_fh, w_fh = il2.encode_shared_plain(cu[:nf], pu[:nf], cfg)
     t.append(clock())
     info = info_bits(syms, means, scales)
     p = framing.parse_v2(data)
@@ -2994,7 +3245,7 @@ def phase_exact_main(device, work, keep: dict) -> dict:
             (cfg.num_lanes * 64 + len(w) * 32) / info - 1) * 100,
         "host_rows": et.HOST_ROWS["count"],
         "host_segments": et.HOST_SEGMENTS["count"],
-        "special_picked": special.PICKED,
+        "special_picked": special.PICKED, "erf": special.ERF,
         **{f"{k}_call_s": v for k, v in calls.items()},
     }
     keep.update(calls=calls, segs=segs, perm=perm, cums=cums, probs=probs,
@@ -3595,7 +3846,8 @@ def phase_exact32_kernels(device, pool, errs: dict, keep: dict) -> dict:
                                                                   device)
             st, w = ef.encode_tables(c_t, p_t, cfg, s_t, n)
             st_p, w_p = ef.encode_tables_plain(c_t, p_t, cfg, s_t, n)
-            st_h, w_h = il2.encode_shared(cums, probs, cfg, seeds=seeds)
+            st_h, w_h = il2.encode_shared_plain(cums, probs, cfg,
+                                                seeds=seeds)
             e = max(mismatch(st, st_p), mismatch(w, w_p),
                     encode32_pass_a_err(device, c_t, p_t, cfg, s_t, n))
             same_h = (np.array_equal(convert.u32_from_torch(st), st_h)
@@ -3670,7 +3922,9 @@ def phase_exact32_main(device, work, keep: dict) -> dict:
     build = ef.narrow_tables
 
     def kept_tables(*args):
+        t0 = time.perf_counter()
         keep["tables"] = build(*args)
+        keep["table_build_s"] = time.perf_counter() - t0
         return keep["tables"]
 
     clock = time.perf_counter
@@ -3686,9 +3940,9 @@ def phase_exact32_main(device, work, keep: dict) -> dict:
         ef.narrow_tables = build
     t.append(clock())
     cfg = ctt._pick_cfg_family(n, None, False)
-    cums, probs = ef.exact_ecp(syms, means, scales, family, lo, hi,
-                               cfg.precision)
-    st_h, w_h = il2.encode_shared(cums, probs, cfg)
+    cums, probs = ef.exact_ecp_plain(syms, means, scales, family, lo, hi,
+                                     cfg.precision)
+    st_h, w_h = il2.encode_shared_plain(cums, probs, cfg)
     t.append(clock())
     tabs4, cmax = keep["tables"]
     ncore = tabs4[:, 0] >> 16
@@ -3700,6 +3954,7 @@ def phase_exact32_main(device, work, keep: dict) -> dict:
         "states_dtype": str(st.dtype), "symbols_dtype": str(out.dtype),
         "ncore_max": int(ncore.max()), "ncore_mean": float(ncore.mean()),
         "cmax": cmax, "planes": int(tabs4.shape[1]),
+        "table_build_s": keep["table_build_s"],
         "stream_words": int(len(w)),
         "identical_to_host_oracle": bool(
             st.dtype == np.uint32 and np.array_equal(st, st_h)
@@ -3940,6 +4195,7 @@ def main(argv) -> int:
     build = phase_build()
     emit(build)
     gpu = build["gpu"]
+    emit(phase_native())
     modules = {"coder": coder.LAUNCHES, "coder64": coder64.LAUNCHES,
                "range_enc": range_enc.LAUNCHES, "family": family.LAUNCHES,
                "tchain": tchain.LAUNCHES, "exact": exact_family.LAUNCHES}

@@ -4,7 +4,7 @@
     python3 chip_sweep32.py
 
 Runs ``exact32_kernels`` (kernels 14 and 13 against their twins and the
-numpy oracles), ``exact32_main_path`` (the facade's default exact call on
+host oracles), ``exact32_main_path`` (the facade's default exact call on
 2^20 symbols) and ``exact32_times`` (kernel and twin times, bounds, the narrow
 scan-or-search sweep that fixes ``exact_family.BISECT_FROM_PLANES_NARROW``
 and kernel 13's time per step over L) as chip_smoke.py does, in a

@@ -218,15 +218,11 @@ def _key(sources: list[str]) -> str:
 
 
 def _nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                     "bin", "nvcc"),
-    ):
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError(
-        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
+        "nvcc not found (PATH, /usr/local/cuda/bin): the CUDA kernels of "
         "constriction_tpu_torch cannot be built"
     )
 

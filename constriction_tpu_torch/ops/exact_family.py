@@ -40,8 +40,12 @@ JAX counterpart: ``constriction_tpu/ops/exact_family.py``.  The host part
 (the model helpers, :func:`exact_ncore`, :func:`exact_ecp`,
 :func:`exact_boundary_tables`, :func:`pack_decode_tables`,
 :func:`packed_tables_device`, the host decode oracle and the grouping
-plan) is a copy of its numpy branches, which the JAX package's tests hold
-bit-identical to its C++ ones; the port builds no C++ host library.  The
+plan) is a copy of its host code: :func:`exact_ncore`, :func:`exact_ecp`,
+:func:`exact_boundary_tables`, :func:`_packed_table_rows` and
+:func:`packed_tables_device` run the host codec (``native/``, C++ over
+glibc's libm) under the JAX package's conditions, as its C++ branches do,
+and each numpy branch survives as a ``*_plain`` version that no card path
+calls (``tests/test_torch_native.py`` holds the two bit-identical).  The
 device part replaces the Pallas kernels ``_build_exact_decoder64``,
 ``_build_exact_decoder64_seg``, ``_build_exact_encoder64``,
 ``_build_exact_decoder`` and ``_build_exact_encoder`` with the
@@ -60,7 +64,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .. import convert
+from .. import convert, native
 from ..utils import special
 from . import _build
 from .coder import (MAX_DECODE_LANES, _check, _check_seeds, _num_steps,
@@ -164,11 +168,63 @@ def _free(min_sym: int, max_sym: int, precision: int) -> float:
 # ---------------------------------------------------------------------------
 
 
+def _check_exact_family(family: str) -> None:
+    """The families of the host codec; the same error as :func:`_cdf`."""
+    if family not in EXACT_FAMILIES:
+        raise ValueError(f"unknown family {family!r}")
+
+
+def _unique_pairs(mean, scale):
+    """``(means, scales, inverse)`` of the distinct (mean, scale) pairs
+    where :func:`_dedup_probe` finds deduplication worth it, else the
+    inputs and None."""
+    dd = _dedup_probe(mean, scale)
+    if dd is None:
+        return mean, scale, None
+    uz, inv = dd
+    return np.ascontiguousarray(uz.real), np.ascontiguousarray(uz.imag), inv
+
+
+def _raise_overflow(bad: int, cmax: int) -> None:
+    """The codec's table fills return 1 + the index of a symbol whose core
+    exceeds cmax, or 0."""
+    if bad:
+        raise ValueError(
+            f"core of symbol {int(bad) - 1} needs more than cmax={cmax} "
+            "boundaries; increase cmax (flat distributions make the whole "
+            "support non-linear)")
+
+
+def _params(means, scales):
+    mean = np.ascontiguousarray(np.asarray(means, np.float64).reshape(-1))
+    scale = np.ascontiguousarray(np.asarray(scales, np.float64).reshape(-1))
+    if len(mean) != len(scale):
+        raise ValueError(
+            f"means and scales differ in length: {len(mean)} vs {len(scale)}")
+    return mean, scale
+
+
 def exact_ncore(means, scales, family: str, min_sym: int, max_sym: int,
                 precision: int) -> np.ndarray:
-    """Per-symbol core sizes (number of non-linear boundaries): a batch
-    bisection on the monotone trunc value.  JAX counterpart: the numpy
-    branch of ``exact_family.exact_ncore``."""
+    """Per-symbol core sizes (number of non-linear boundaries), u32: the
+    host codec's bisection (``ctpu_exact_ncore``), over the unique (mean,
+    scale) pairs where :func:`_dedup_probe` finds them worth it (a core
+    size depends on its pair alone).  JAX counterpart:
+    ``exact_family.exact_ncore``; plain version :func:`exact_ncore_plain`."""
+    _check_exact_family(family)
+    um, us, inv = _unique_pairs(*_params(means, scales))
+    out = np.empty(len(um), dtype=np.uint32)
+    native.library().ctpu_exact_ncore(native.DIST_KIND[family], min_sym,
+                                      max_sym, precision, um, us, len(um),
+                                      out)
+    return out if inv is None else out[inv]
+
+
+def exact_ncore_plain(means, scales, family: str, min_sym: int,
+                      max_sym: int, precision: int) -> np.ndarray:
+    """:func:`exact_ncore` in numpy: a batch bisection on the monotone
+    trunc value.  JAX counterpart: the numpy branch of
+    ``exact_family.exact_ncore``."""
     mean = np.asarray(means, dtype=np.float64).reshape(-1)
     scale = np.asarray(scales, dtype=np.float64).reshape(-1)
     n = len(mean)
@@ -209,8 +265,40 @@ def exact_ncore(means, scales, family: str, min_sym: int, max_sym: int,
 def exact_ecp(symbols, means, scales, family: str, min_sym: int,
               max_sym: int, precision: int) -> Tuple[np.ndarray, np.ndarray]:
     """Per-symbol (cum, prob) u32 with the exact reference formulas
-    (quantize.rs:525-568), vectorized over per-symbol (mean, scale).  JAX
-    counterpart: the numpy branch of ``exact_family.exact_ecp``."""
+    (quantize.rs:525-568), vectorized over per-symbol (mean, scale): the
+    host codec's ``ctpu_quantized_ecp`` for one-dimensional batches of at
+    least 64 symbols with one (mean, scale) each, as in the JAX package,
+    and :func:`exact_ecp_plain` below that.  JAX counterpart:
+    ``exact_family.exact_ecp``."""
+    s = np.asarray(symbols, dtype=np.int64)
+    mean = np.asarray(means, dtype=np.float64)
+    scale = np.asarray(scales, dtype=np.float64)
+    if not (family in EXACT_FAMILIES and s.ndim == 1 and mean.ndim == 1
+            and len(s) == len(mean) and scale.shape == mean.shape
+            and len(s) >= 64):
+        return exact_ecp_plain(s, mean, scale, family, min_sym, max_sym,
+                               precision)
+    if np.any((s < min_sym) | (s > max_sym)):
+        raise ValueError("symbol outside support")
+    if _free(min_sym, max_sym, precision) < 1.0:
+        raise ValueError("support too large for precision")
+    cums = np.empty(len(s), dtype=np.uint32)
+    probs = np.empty(len(s), dtype=np.uint32)
+    err = native.library().ctpu_quantized_ecp(
+        native.DIST_KIND[family], min_sym, max_sym, precision,
+        np.ascontiguousarray(s, dtype=np.int32), np.ascontiguousarray(mean),
+        np.ascontiguousarray(scale), len(s), cums, probs)
+    # the plain path's prob <= 0 check: a wrapped right - left is a huge u32
+    if err != 0 or np.any((probs - 1) >= np.uint32(1 << precision)):
+        raise ValueError("invalid underlying continuous distribution")
+    return cums, probs
+
+
+def exact_ecp_plain(symbols, means, scales, family: str, min_sym: int,
+                    max_sym: int, precision: int
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`exact_ecp` in numpy.  JAX counterpart: the numpy branch of
+    ``exact_family.exact_ecp``."""
     s = np.asarray(symbols, dtype=np.int64)
     if np.any((s < min_sym) | (s > max_sym)):
         raise ValueError("symbol outside support")
@@ -231,22 +319,11 @@ def exact_ecp(symbols, means, scales, family: str, min_sym: int,
     return left.astype(np.uint32), prob.astype(np.uint32)
 
 
-def exact_boundary_tables(means, scales, family: str, min_sym: int,
-                          max_sym: int, precision: int,
-                          cmax: int | None = None
-                          ) -> Tuple[np.ndarray, np.ndarray]:
-    """Compact exact decode tables: per symbol position, the core boundary
-    values ``b(s) = trunc(free * CDF(s - 1/2)) + (s - min)`` for s in
-    [core_lo, core_hi], where the core is the maximal range outside which
-    the trunc value is exactly 0 (left tail) or saturated (right tail).
-
-    Returns ``(aux u32[n], core u32[n, cmax])``.  For P <= 16 ("narrow")
-    ``aux = (core_lo - min) | ncore << 16`` and pads are 0xFFFF; for
-    16 < P <= 24 ("wide") ``aux = (core_lo - min) | ncore << 24`` and pads
-    are ``1 << P``, a value no real boundary takes that doubles as the
-    no-next-boundary sentinel.  Raises ValueError if a symbol's core
-    exceeds ``cmax``.  JAX counterpart: the numpy window branch of
-    ``exact_family.exact_boundary_tables``."""
+def _table_args(means, scales, family: str, min_sym: int, max_sym: int,
+                precision: int, cmax: int | None, ncore_fn):
+    """The checks and the cmax sizing of the boundary-table builders:
+    ``(mean, scale, cmax)``; ``ncore_fn`` is :func:`exact_ncore` or its
+    plain version."""
     mean = np.asarray(means, dtype=np.float64).reshape(-1)
     scale = np.asarray(scales, dtype=np.float64).reshape(-1)
     n = len(mean)
@@ -254,12 +331,11 @@ def exact_boundary_tables(means, scales, family: str, min_sym: int,
     if P > 24:
         raise ValueError("exact tables support precisions up to 24")
     wide = P > 16
-    padv = (1 << P) if wide else 0xFFFF
     aux_shift = 24 if wide else 16
     if cmax is None:
         # auto-size to the tight max: table bytes and the kernel's scan
         # both cost O(cmax)
-        ncore = exact_ncore(mean, scale, family, min_sym, max_sym, P)
+        ncore = ncore_fn(mean, scale, family, min_sym, max_sym, P)
         cmax = max(int(ncore.max()) if n else 1, 1)
         if not wide:
             cmax += cmax & 1  # narrow tables pack boundary PAIRS
@@ -273,9 +349,61 @@ def exact_boundary_tables(means, scales, family: str, min_sym: int,
         raise ValueError(
             f"cmax={cmax} exceeds the table format's ncore cap "
             f"{(1 << (32 - aux_shift)) - 1}")
-    free = _free(min_sym, max_sym, P)
-    if free < 2.0:
+    if _free(min_sym, max_sym, P) < 2.0:
         raise ValueError("support too large for precision")
+    return mean, scale, cmax
+
+
+def exact_boundary_tables(means, scales, family: str, min_sym: int,
+                          max_sym: int, precision: int,
+                          cmax: int | None = None
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """Compact exact decode tables: per symbol position, the core boundary
+    values ``b(s) = trunc(free * CDF(s - 1/2)) + (s - min)`` for s in
+    [core_lo, core_hi], where the core is the maximal range outside which
+    the trunc value is exactly 0 (left tail) or saturated (right tail).
+
+    Returns ``(aux u32[n], core u32[n, cmax])``.  For P <= 16 ("narrow")
+    ``aux = (core_lo - min) | ncore << 16`` and pads are 0xFFFF; for
+    16 < P <= 24 ("wide") ``aux = (core_lo - min) | ncore << 24`` and pads
+    are ``1 << P``, a value no real boundary takes that doubles as the
+    no-next-boundary sentinel.  ``cmax=None`` sizes the width to the
+    batch's largest core (rounded up to even for narrow tables).  Raises
+    ValueError if a symbol's core exceeds ``cmax``.  The host codec's
+    ``ctpu_exact_boundaries`` (a guess-seeded search for each left edge,
+    then a forward fill).  JAX counterpart:
+    ``exact_family.exact_boundary_tables``; plain version
+    :func:`exact_boundary_tables_plain`."""
+    _check_exact_family(family)
+    mean, scale, cmax = _table_args(means, scales, family, min_sym, max_sym,
+                                    precision, cmax, exact_ncore)
+    n = len(mean)
+    aux = np.empty(n, dtype=np.uint32)
+    core = np.empty((n, cmax), dtype=np.uint32)
+    bad = native.library().ctpu_exact_boundaries(
+        native.DIST_KIND[family], min_sym, max_sym, precision,
+        np.ascontiguousarray(mean), np.ascontiguousarray(scale), n, cmax,
+        aux, core.reshape(-1))
+    _raise_overflow(bad, cmax)
+    return aux, core
+
+
+def exact_boundary_tables_plain(means, scales, family: str, min_sym: int,
+                                max_sym: int, precision: int,
+                                cmax: int | None = None
+                                ) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`exact_boundary_tables` in numpy: every boundary of a window
+    placed by the approximate inverse CDF, its edges then verified.  JAX
+    counterpart: the numpy window branch of
+    ``exact_family.exact_boundary_tables``."""
+    mean, scale, cmax = _table_args(means, scales, family, min_sym, max_sym,
+                                    precision, cmax, exact_ncore_plain)
+    n = len(mean)
+    P = precision
+    wide = P > 16
+    padv = (1 << P) if wide else 0xFFFF
+    aux_shift = 24 if wide else 16
+    free = _free(min_sym, max_sym, P)
     span = max_sym - min_sym
 
     # window guess from the approximate PPF, with margin; exactness is then
@@ -383,12 +511,41 @@ def pack_decode_tables(aux: np.ndarray, core: np.ndarray,
     return tabs, cmax
 
 
+def _check_wide_precision(precision: int) -> None:
+    if not 16 < precision <= 24:
+        raise ValueError(f"wide tables need 16 < P <= 24, got {precision}")
+
+
 def _packed_table_rows(mean, scale, family: str, min_sym: int, max_sym: int,
                        precision: int, cmax: int) -> Tuple[np.ndarray, int]:
     """Packed wide-table rows ``[n, 1 + 3*ceil(cmax/4)] u32`` (plane 0 is
-    aux) for any parameter vectors, built ``_ROW_CHUNK`` rows at a time
-    (each row depends on its own (mean, scale) only).  JAX counterpart:
-    the numpy branch of ``exact_family._packed_table_rows``."""
+    aux) for any parameter vectors, plus the rounded cmax: the host codec's
+    fused fill and pack (``ctpu_exact_tables_packed``) for ``cmax <= 255``,
+    else :func:`exact_boundary_tables` and :func:`pack_decode_tables`.  JAX
+    counterpart: ``exact_family._packed_table_rows``; plain version
+    :func:`_packed_table_rows_plain`."""
+    _check_exact_family(family)
+    _check_wide_precision(precision)
+    mean, scale = _params(mean, scale)
+    if cmax > 255:
+        aux, core = exact_boundary_tables(mean, scale, family, min_sym,
+                                          max_sym, precision, cmax)
+        return pack_decode_tables(aux, core, precision)
+    G = -(-cmax // 4)
+    tabs = np.empty((len(mean), 1 + 3 * G), dtype=np.uint32)
+    bad = native.library().ctpu_exact_tables_packed(
+        native.DIST_KIND[family], min_sym, max_sym, precision, mean, scale,
+        len(mean), cmax, tabs.reshape(-1))
+    _raise_overflow(bad, cmax)
+    return tabs, 4 * G
+
+
+def _packed_table_rows_plain(mean, scale, family: str, min_sym: int,
+                             max_sym: int, precision: int,
+                             cmax: int) -> Tuple[np.ndarray, int]:
+    """:func:`_packed_table_rows` in numpy, built ``_ROW_CHUNK`` rows at a
+    time (each row depends on its own (mean, scale) only).  JAX
+    counterpart: the numpy branch of ``exact_family._packed_table_rows``."""
     mean = np.asarray(mean, np.float64).reshape(-1)
     scale = np.asarray(scale, np.float64).reshape(-1)
     n = len(mean)
@@ -396,11 +553,52 @@ def _packed_table_rows(mean, scale, family: str, min_sym: int, max_sym: int,
     tabs = np.empty((n, 1 + 3 * G), np.uint32)
     for r0 in range(0, n, _ROW_CHUNK):
         r1 = min(r0 + _ROW_CHUNK, n)
-        aux, core = exact_boundary_tables(
+        aux, core = exact_boundary_tables_plain(
             mean[r0:r1], scale[r0:r1], family, min_sym, max_sym, precision,
             cmax)
         tabs[r0:r1], _ = pack_decode_tables(aux, core, precision)
     return tabs, 4 * G
+
+
+def _tight(ncore_max: int) -> int:
+    """The table width, a multiple of 4, that a batch whose largest core
+    is ``ncore_max`` needs."""
+    return max(4, -(-max(ncore_max, 1) // 4) * 4)
+
+
+def _rows_tight(mean, scale, family, min_sym, max_sym, precision, cmax,
+                rows_fn):
+    """Rows at the caller's cmax, refilled at the tight width when that is
+    at least one quad narrower (the caller's cmax is an upper bound; the
+    kernels' scan and the table bytes cost O(width))."""
+    tabs, cmax_r = rows_fn(mean, scale, family, min_sym, max_sym, precision,
+                           cmax)
+    tight = _tight(int((tabs[:, 0] >> 24).max()))
+    if tight < cmax_r:
+        tabs, cmax_r = rows_fn(mean, scale, family, min_sym, max_sym,
+                               precision, tight)
+    return tabs, cmax_r
+
+
+def _device_args(means, scales, precision: int, nsteps: int, R: int):
+    mean = np.ascontiguousarray(np.asarray(means, np.float64).reshape(-1))
+    scale = np.ascontiguousarray(np.asarray(scales, np.float64).reshape(-1))
+    n = nsteps * R * LANES
+    if len(mean) != n or len(scale) != n:
+        raise ValueError(
+            f"means and scales must have nsteps * R * 128 = {n} entries")
+    _check_wide_precision(precision)
+    return mean, scale
+
+
+def _unique_rows(pairs, family, min_sym, max_sym, precision, cmax,
+                 rows_fn):
+    """Rows of every symbol at the tight width, each distinct (mean,
+    scale) pair of :func:`_unique_pairs` built once and gathered back."""
+    um, us, inv = pairs
+    tabs, cmax_r = _rows_tight(um, us, family, min_sym, max_sym, precision,
+                               cmax, rows_fn)
+    return (tabs if inv is None else tabs[inv]), cmax_r
 
 
 def packed_tables_device(means, scales, family: str, min_sym: int,
@@ -409,34 +607,54 @@ def packed_tables_device(means, scales, family: str, min_sym: int,
     """Wide decode tables in the JAX package's device layout ``[nsteps,
     CP1, R, 128]`` u32 (plane axis in front of the lane axes), plus the
     rounded cmax; :func:`convert.exact_tables_to_torch` gives the port's
-    ``[nsteps, CP1, L]``.  Repeated (mean, scale) pairs are built once and
-    gathered back; the caller's cmax is an upper bound, and the rows are
-    refilled at the tight width when that is at least one quad narrower.
-    JAX counterpart: the numpy branch of
-    ``exact_family.packed_tables_device``."""
-    mean = np.ascontiguousarray(np.asarray(means, np.float64).reshape(-1))
-    scale = np.ascontiguousarray(np.asarray(scales, np.float64).reshape(-1))
-    n = nsteps * R * LANES
-    if len(mean) != n or len(scale) != n:
-        raise ValueError(
-            f"means and scales must have nsteps * R * 128 = {n} entries")
-    if not 16 < precision <= 24:
-        raise ValueError(f"wide tables need 16 < P <= 24, got {precision}")
-    dd = _dedup_probe(mean, scale)
-    if dd is not None:
-        uz, inv = dd
-        um = np.ascontiguousarray(uz.real)
-        us = np.ascontiguousarray(uz.imag)
-    else:
-        um, us = mean, scale
-    tabs, cmax_r = _packed_table_rows(um, us, family, min_sym, max_sym,
-                                      precision, cmax)
-    tight = max(4, -(-max(int((tabs[:, 0] >> 24).max()), 1) // 4) * 4)
-    if tight < cmax_r:
-        tabs, cmax_r = _packed_table_rows(um, us, family, min_sym, max_sym,
-                                          precision, tight)
-    if dd is not None:
-        tabs = tabs[inv]
+    ``[nsteps, CP1, L]``.  The caller's cmax is an upper bound, and the
+    rows are refilled at the tight width when that is at least one quad
+    narrower.  A batch without repeated (mean, scale) pairs and with
+    ``cmax <= 255`` takes the host codec's fill, pack and transpose in one
+    pass (``ctpu_exact_tables_packed_t``); otherwise repeated pairs are
+    built once (:func:`_packed_table_rows`) and gathered back, and the
+    codec transposes (``ctpu_transpose_u32``).  JAX counterpart:
+    ``exact_family.packed_tables_device``; plain version
+    :func:`packed_tables_device_plain`."""
+    _check_exact_family(family)
+    pairs = _unique_pairs(*_device_args(means, scales, precision, nsteps, R))
+    mean, scale, inv = pairs
+    lib = native.library()
+    rows = R * LANES
+    if cmax <= 255 and inv is None:
+
+        def fused(cm):
+            G = -(-cm // 4)
+            tabs4 = np.empty((nsteps, 1 + 3 * G, rows), dtype=np.uint32)
+            ncm = np.zeros(1, np.int32)
+            bad = lib.ctpu_exact_tables_packed_t(
+                native.DIST_KIND[family], min_sym, max_sym, precision, mean,
+                scale, nsteps, rows, cm, tabs4.reshape(-1), ncm)
+            _raise_overflow(bad, cm)
+            return tabs4, 4 * G, int(ncm[0])
+
+        tabs4, cmax_r, ncore_max = fused(cmax)
+        if _tight(ncore_max) < cmax_r:
+            tabs4, cmax_r, _ = fused(_tight(ncore_max))
+        return tabs4.reshape(nsteps, -1, R, LANES), cmax_r
+    tabs, cmax_r = _unique_rows(pairs, family, min_sym, max_sym, precision,
+                                cmax, _packed_table_rows)
+    CP1 = tabs.shape[1]
+    tabs4 = np.empty((nsteps, CP1, rows), dtype=np.uint32)
+    lib.ctpu_transpose_u32(np.ascontiguousarray(tabs).reshape(-1),
+                           tabs4.reshape(-1), nsteps, rows, CP1)
+    return tabs4.reshape(nsteps, CP1, R, LANES), cmax_r
+
+
+def packed_tables_device_plain(means, scales, family: str, min_sym: int,
+                               max_sym: int, precision: int, cmax: int,
+                               nsteps: int, R: int
+                               ) -> Tuple[np.ndarray, int]:
+    """:func:`packed_tables_device` in numpy.  JAX counterpart: the numpy
+    branch of ``exact_family.packed_tables_device``."""
+    pairs = _unique_pairs(*_device_args(means, scales, precision, nsteps, R))
+    tabs, cmax_r = _unique_rows(pairs, family, min_sym, max_sym, precision,
+                                cmax, _packed_table_rows_plain)
     CP1 = tabs.shape[1]
     tabs4 = np.ascontiguousarray(
         tabs.reshape(nsteps, R, LANES, CP1).transpose(0, 3, 1, 2)

@@ -20,7 +20,7 @@ This module builds the same rows on the card:
    bisection over f64 bit patterns (:func:`sat_threshold`); a band of
    ``|t*| 2^-30 + 2^-30`` around it stays ambiguous;
 2. host patches: the ambiguous entries are re-evaluated exactly on the
-   host (:func:`exact_tv_at`, numpy through ``utils/special.py``);
+   host (:func:`exact_tv_at`, the host codec over glibc's libm);
 3. :func:`derive_pack`: torch operations on the card derive each row's
    (core_lo, ncore) and pack the planes;
 4. rows whose window was inconclusive or overflowed, and whole segments
@@ -50,7 +50,7 @@ import time
 import numpy as np
 import torch
 
-from .. import convert
+from .. import convert, native
 from . import _build
 from . import exact_family as ef
 from .coder import _on_cuda
@@ -296,9 +296,29 @@ def ambig_indices(ambig) -> torch.Tensor:
 def exact_tv_at(family: str, min_sym: int, max_sym: int, precision: int,
                 means, scales, sym_i, svals) -> np.ndarray:
     """Host patch oracle: ``trunc_u32(free * CDF(s - 1/2))`` at ``s =
-    svals[k]`` under the model of symbol ``sym_i[k]``, exact (glibc
-    through ``utils/special.py``).  Returns u32 numpy.  JAX counterpart:
-    ``native.LIB.ctpu_exact_tv_at``."""
+    svals[k]`` under the model of symbol ``sym_i[k]``, exact (the host
+    codec's ``ctpu_exact_tv_at``, glibc's libm).  Returns u32 numpy.  JAX
+    counterpart: ``native.LIB.ctpu_exact_tv_at``; plain version
+    :func:`exact_tv_at_plain`."""
+    ef._check_exact_family(family)
+    mean, scale = ef._params(means, scales)
+    sym_i = np.ascontiguousarray(np.asarray(sym_i, np.int64).reshape(-1))
+    svals = np.ascontiguousarray(np.asarray(svals, np.int32).reshape(-1))
+    if len(sym_i) != len(svals):
+        raise ValueError("sym_i and svals differ in length")
+    if len(sym_i) and (sym_i.min() < 0 or sym_i.max() >= len(mean)):
+        raise ValueError("sym_i indexes past the models")
+    out = np.empty(len(sym_i), dtype=np.uint32)
+    native.library().ctpu_exact_tv_at(
+        native.DIST_KIND[family], min_sym, max_sym, precision, mean, scale,
+        sym_i, svals, len(sym_i), out)
+    return out
+
+
+def exact_tv_at_plain(family: str, min_sym: int, max_sym: int,
+                      precision: int, means, scales, sym_i,
+                      svals) -> np.ndarray:
+    """:func:`exact_tv_at` in numpy through ``utils/special.py``."""
     mean = np.asarray(means, np.float64).reshape(-1)
     scale = np.asarray(scales, np.float64).reshape(-1)
     sym_i = np.asarray(sym_i, np.int64)

@@ -23,12 +23,15 @@ which travels beside the stream as ``points``.
 
 JAX counterpart: ``constriction_tpu.ops.interleaved2``.  The host functions
 here (``encode_shared``, ``decode_shared_cdf``, the packers, the range
-decoder, the rANS and range checkpoints) are copies of its numpy paths, so
-that the port imports nothing of the JAX package; the JAX package runs the
-same algebra in C++ where it can, and ``tests/test_torch_host.py``,
+coder, the rANS and range checkpoints) are copies of its host code, so
+that the port imports nothing of the JAX package.  :func:`encode_shared`,
+:func:`decode_shared_cdf`, :func:`build_checkpoints`,
+:func:`encode_shared_range` and :func:`decode_shared_range_cdf` run the
+host codec (``native/``, C++) under the JAX package's conditions, and each
+numpy branch survives as a ``*_plain`` version that no card path calls;
+``tests/test_torch_native.py``, ``tests/test_torch_host.py``,
 ``tests/test_torch_range.py`` and ``tests/test_torch_checkpoints.py`` hold
-the two byte for byte.  Its host range encoder is C++ only; the port's
-(:func:`encode_shared_range`) is numpy.
+them byte for byte against each other and the JAX package.
 Lane coding runs on the port's coder: the kernels for a CUDA device, the
 plain twins for the CPU.  Configs the kernels do not take are coded by the
 host coder, exactly as the JAX package does: the same semantics, not a
@@ -37,10 +40,12 @@ fallback.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
-from .. import convert
+from .. import convert, native
 from . import coder, coder64
 from .interleaved import LaneConfig, state_dtype
 
@@ -63,8 +68,89 @@ def kernel_eligible(cfg: LaneConfig) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# host coder (numpy, any W/S/P and lane count)
+# host coder (the host codec, C++; numpy plain versions; any W/S/P and lane
+# count)
 # ---------------------------------------------------------------------------
+
+# the host codec takes messages of at least this many symbols (below it,
+# the numpy versions), as in the JAX package
+NATIVE_MIN_SYMBOLS = 256
+L1_BITS = 16
+
+
+@lru_cache(maxsize=16)
+def _lookup_table(cdf_bytes: bytes, precision: int) -> np.ndarray:
+    """quantile -> symbol table u32[2^P] of the host codec's lookup decoders,
+    memoized per model.  JAX counterpart:
+    ``interleaved2._lookup_table_cached``."""
+    cdf = np.frombuffer(cdf_bytes, dtype=np.uint32).astype(np.uint64)
+    qs = np.arange(1 << precision, dtype=np.uint64)
+    return (np.searchsorted(cdf, qs, side="right") - 1).astype(np.uint32)
+
+
+@lru_cache(maxsize=16)
+def _l1_table(cdf_bytes: bytes, precision: int, l1_bits: int) -> np.ndarray:
+    """Bucket table of the host codec's two-level CDF search: entry i is the
+    largest symbol whose left cumulative is <= (i << (P - l1_bits));
+    ``(1 << l1_bits) + 1`` u32 entries, memoized per model.  JAX
+    counterpart: ``interleaved2._l1_table_cached``."""
+    cdf = np.frombuffer(cdf_bytes, dtype=np.uint32).astype(np.uint64)
+    bases = np.arange((1 << l1_bits) + 1, dtype=np.uint64) << np.uint64(
+        precision - l1_bits)
+    return (np.searchsorted(cdf, bases, side="right") - 1).astype(np.uint32)
+
+
+def _pairs(x) -> np.ndarray:
+    """u64[L] -> (lo, hi) u32 pairs u32[2L], the codec's wide-state layout."""
+    x = np.asarray(x, dtype=np.uint64)
+    out = np.empty(2 * len(x), dtype=np.uint32)
+    out[0::2] = (x & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    out[1::2] = (x >> np.uint64(32)).astype(np.uint32)
+    return out
+
+
+def _unpairs(p: np.ndarray) -> np.ndarray:
+    return p[0::2].astype(np.uint64) | (p[1::2].astype(np.uint64)
+                                        << np.uint64(32))
+
+
+def _encode_args(cums, probs, cfg: LaneConfig, seeds):
+    n = len(cums)
+    if len(probs) != n:
+        raise ValueError(
+            f"cums and probs must have equal length, got {n} vs {len(probs)}"
+        )
+    S, W = cfg.state_bits, cfg.word_bits
+    if seeds is not None:
+        seeds = np.asarray(seeds, dtype=np.uint64).reshape(-1)
+        if len(seeds) != cfg.num_lanes:
+            raise ValueError(
+                f"seeds must have num_lanes={cfg.num_lanes} entries")
+        if np.any(seeds >> np.uint64(S - W) == 0) or (
+            S < 64 and np.any(seeds >> np.uint64(S))
+        ):
+            raise ValueError("seeds must lie in [2^(S-W), 2^S)")
+    return seeds
+
+
+def _zero_padded(stream, T: int, L: int) -> np.ndarray:
+    """The stream as u32, zero-padded to the T * L words a decode can read
+    at most (one a lane a step): the codec's rANS decoders stop refilling
+    at the end of their input, and the padding makes reads past the end
+    give zero words, as the plain versions and the kernels do.  The pad is
+    zeroed lazily by the allocator and touched only by such reads."""
+    stream = np.asarray(stream)
+    out = np.zeros(max(T * L, len(stream)), dtype=np.uint32)
+    out[:len(stream)] = stream
+    return out
+
+
+def _check_cdf(cdf, P: int) -> None:
+    if int(np.asarray(cdf)[-1]) != 1 << P:
+        raise ValueError(
+            f"cdf[-1] must equal 2**precision = {1 << P}, got "
+            f"{int(np.asarray(cdf)[-1])}"
+        )
 
 
 def encode_shared(cums, probs, cfg: LaneConfig, seeds=None):
@@ -72,25 +158,45 @@ def encode_shared(cums, probs, cfg: LaneConfig, seeds=None):
     ``(initial decoder states, stream u32[num_words])``: u64 states for
     S > 32, u32 otherwise; stream entries are W-bit words.  ``seeds``
     (optional, [L]) are the encoder's start states, each in
-    [2^(S-W), 2^S); a full decode's final states equal them.  JAX
-    counterpart: ``constriction_tpu.ops.interleaved2.encode_shared``."""
+    [2^(S-W), 2^S); a full decode's final states equal them.  The host
+    codec (``ctpu_ilans2_encode[_seeded]``) from
+    :data:`NATIVE_MIN_SYMBOLS` symbols on, :func:`encode_shared_plain`
+    below.  JAX counterpart:
+    ``constriction_tpu.ops.interleaved2.encode_shared``."""
+    seeds = _encode_args(cums, probs, cfg, seeds)
     n = len(cums)
-    if len(probs) != n:
-        raise ValueError(
-            f"cums and probs must have equal length, got {n} vs {len(probs)}"
-        )
+    if n < NATIVE_MIN_SYMBOLS:
+        return encode_shared_plain(cums, probs, cfg, seeds)
+    L = cfg.num_lanes
+    S, W, P = cfg.state_bits, cfg.word_bits, cfg.precision
+    T = -(-n // L)
+    cums32 = np.ascontiguousarray(cums, dtype=np.uint32)
+    probs32 = np.ascontiguousarray(probs, dtype=np.uint32)
+    if not probs32.all():  # the codec divides by each prob
+        raise ValueError("probs must be positive")
+    wide = S > 32
+    cap = T * L + 8
+    buf = np.empty(cap, dtype=np.uint32)
+    states = np.empty(2 * L if wide else L, dtype=np.uint32)
+    lib = native.library()
+    if seeds is None:
+        slen = lib.ctpu_ilans2_encode(cums32, probs32, n, L, T, W, S, P,
+                                      states, buf, cap)
+    else:
+        seeds32 = _pairs(seeds) if wide else seeds.astype(np.uint32)
+        slen = lib.ctpu_ilans2_encode_seeded(cums32, probs32, n, L, T, W, S,
+                                             P, seeds32, states, buf, cap)
+    return (_unpairs(states) if wide else states), buf[cap - slen:].copy()
+
+
+def encode_shared_plain(cums, probs, cfg: LaneConfig, seeds=None):
+    """:func:`encode_shared` in numpy.  JAX counterpart: the numpy branch of
+    ``constriction_tpu.ops.interleaved2.encode_shared``."""
+    seeds = _encode_args(cums, probs, cfg, seeds)
+    n = len(cums)
     L = cfg.num_lanes
     S, W, P = cfg.state_bits, cfg.word_bits, cfg.precision
     T = -(-n // L) if n else 0
-    if seeds is not None:
-        seeds = np.asarray(seeds, dtype=np.uint64).reshape(-1)
-        if len(seeds) != L:
-            raise ValueError(f"seeds must have num_lanes={L} entries")
-        if np.any(seeds >> np.uint64(S - W) == 0) or (
-            S < 64 and np.any(seeds >> np.uint64(S))
-        ):
-            raise ValueError("seeds must lie in [2^(S-W), 2^S)")
-
     cums64 = np.zeros(T * L, dtype=np.uint64)
     probs64 = np.ones(T * L, dtype=np.uint64)
     cums64[:n] = cums
@@ -115,24 +221,71 @@ def encode_shared(cums, probs, cfg: LaneConfig, seeds=None):
     return states.astype(state_dtype(cfg)), stream
 
 
-def decode_shared_cdf(init_states, stream, num_symbols: int, cdf,
-                      cfg: LaneConfig, return_final_states: bool = False):
-    """Host ILANS2 decoder with a CDF-table model; reads past the end of
-    the stream give zero words.  Returns symbols int32[num_symbols], and
-    with ``return_final_states`` also the final lane states.  JAX
-    counterpart: ``constriction_tpu.ops.interleaved2.decode_shared_cdf``."""
+def _decode_args(init_states, cdf, cfg: LaneConfig) -> None:
     L = cfg.num_lanes
-    S, W, P = cfg.state_bits, cfg.word_bits, cfg.precision
     if len(init_states) != L:
         raise ValueError(
             f"init_states must have num_lanes={L} entries, got "
             f"{len(init_states)}"
         )
-    if int(np.asarray(cdf)[-1]) != 1 << P:
-        raise ValueError(
-            f"cdf[-1] must equal 2**precision = {1 << P}, got "
-            f"{int(np.asarray(cdf)[-1])}"
-        )
+    _check_cdf(cdf, cfg.precision)
+
+
+def decode_shared_cdf(init_states, stream, num_symbols: int, cdf,
+                      cfg: LaneConfig, return_final_states: bool = False):
+    """Host ILANS2 decoder with a CDF-table model; reads past the end of
+    the stream give zero words.  Returns symbols int32[num_symbols], and
+    with ``return_final_states`` also the final lane states.  The host
+    codec from :data:`NATIVE_MIN_SYMBOLS` symbols on: a 2^P lookup table
+    at S <= 32 and P <= 20 (``ctpu_ilans2_decode_lookup``), a CDF search
+    at 32 < S <= 64 (``ctpu_ilans2_decode_cdf64``, two-level with a
+    2^16-bucket table above P = 16); :func:`decode_shared_cdf_plain`
+    otherwise.  JAX counterpart:
+    ``constriction_tpu.ops.interleaved2.decode_shared_cdf``."""
+    _decode_args(init_states, cdf, cfg)
+    L = cfg.num_lanes
+    S, W, P = cfg.state_bits, cfg.word_bits, cfg.precision
+    lookup = S <= 32 and P <= 20
+    if num_symbols < NATIVE_MIN_SYMBOLS or not (lookup or 32 < S <= 64):
+        return decode_shared_cdf_plain(init_states, stream, num_symbols,
+                                       cdf, cfg, return_final_states)
+    T = -(-num_symbols // L)
+    cdf32 = np.ascontiguousarray(np.asarray(cdf), dtype=np.uint32)
+    stream32 = _zero_padded(stream, T, L)
+    out = np.empty(num_symbols, dtype=np.int32)
+    lib = native.library()
+    if lookup:
+        # a copy: the codec writes the final states back into it
+        states = np.array(init_states, dtype=np.uint32, copy=True)
+        lib.ctpu_ilans2_decode_lookup(
+            states, stream32, len(stream32), num_symbols, L, T,
+            _lookup_table(cdf32.tobytes(), P), cdf32, W, S, P, out)
+        fin = states
+    else:
+        states = _pairs(init_states)
+        if P > L1_BITS:
+            lib.ctpu_ilans2_decode_cdf64_l1(
+                states, stream32, len(stream32), num_symbols, L, T, cdf32,
+                len(cdf32), _l1_table(cdf32.tobytes(), P, L1_BITS), L1_BITS,
+                W, S, P, out)
+        else:
+            lib.ctpu_ilans2_decode_cdf64(
+                states, stream32, len(stream32), num_symbols, L, T, cdf32,
+                len(cdf32), W, S, P, out)
+        fin = _unpairs(states)
+    if return_final_states:
+        return out, fin
+    return out
+
+
+def decode_shared_cdf_plain(init_states, stream, num_symbols: int, cdf,
+                            cfg: LaneConfig,
+                            return_final_states: bool = False):
+    """:func:`decode_shared_cdf` in numpy.  JAX counterpart: the numpy
+    branch of ``constriction_tpu.ops.interleaved2.decode_shared_cdf``."""
+    _decode_args(init_states, cdf, cfg)
+    L = cfg.num_lanes
+    S, W, P = cfg.state_bits, cfg.word_bits, cfg.precision
     T = -(-num_symbols // L) if num_symbols else 0
     lower = np.uint64(1 << (S - W))
     states = np.asarray(init_states).astype(np.uint64)
@@ -176,11 +329,34 @@ def _state_mask(S: int) -> np.uint64:
 def encode_shared_range(cums, probs, cfg: LaneConfig):
     """Host ILANS2-R encoder over per-symbol (cum, prob) tables: L range
     coders sharing one word stream in decode-consumption order.  Returns
-    ``(points, stream u32[num_words])``: u32 points for S=32, u64 for S=64.
+    ``(points, stream u32[num_words])``: u32 points for S <= 32, u64
+    above.  The host codec's ``ctpu_ilans2_range_encode`` (per-lane
+    Inverted-run bookkeeping), at any (W, S) with S <= 64.  JAX
+    counterpart: ``constriction_tpu.ops.interleaved2.encode_shared_range``
+    (the same C++); plain version :func:`encode_shared_range_plain`."""
+    n = len(cums)
+    if len(probs) != n:
+        raise ValueError(
+            f"cums and probs must have equal length, got {n} vs {len(probs)}"
+        )
+    L = cfg.num_lanes
+    S = cfg.state_bits
+    if S > 64:
+        raise ValueError(f"the host range coder takes S <= 64, got {S}")
+    T = -(-n // L) if n else 0
+    wide = S > 32
+    points = np.zeros(2 * L if wide else L, dtype=np.uint32)
+    buf = np.zeros(max(T * L, 1), dtype=np.uint32)
+    slen = native.library().ctpu_ilans2_range_encode(
+        np.ascontiguousarray(cums, dtype=np.uint32),
+        np.ascontiguousarray(probs, dtype=np.uint32),
+        n, L, T, cfg.word_bits, S, cfg.precision, points, buf)
+    return (_unpairs(points) if wide else points), buf[:slen].copy()
 
-    JAX counterpart: ``constriction_tpu.ops.interleaved2.encode_shared_range``,
-    which wraps the C++ ``ctpu_ilans2_range_encode`` (per-lane Inverted-run
-    bookkeeping).  This one is numpy, in the two-phase big-number form of
+
+def encode_shared_range_plain(cums, probs, cfg: LaneConfig):
+    """:func:`encode_shared_range` in numpy, at the two presets' (W, S) =
+    (16, 32) and (32, 64), in the two-phase big-number form of
     ``pallas_range_enc.py``: a forward pass over steps, vectorised over
     lanes, records each step's provisional renorm word, renorm flag and
     carry (a wrap of the S-bit lower, i.e. +1 to the words already emitted);
@@ -304,22 +480,53 @@ def _range_oracle_loop(pts, lows, rngs, stream, num_symbols, cdf64, cfg,
     return out[:num_symbols], caps
 
 
-def decode_shared_range_cdf(points, stream, num_symbols: int, cdf,
-                            cfg: LaneConfig):
-    """Host ILANS2-R decoder with a CDF-table model (numpy); reads past the
-    end of the stream give zero words; data inconsistent with the model
-    raises ValueError.  JAX counterpart: the numpy branch of
-    ``constriction_tpu.ops.interleaved2.decode_shared_range_cdf``."""
+def _range_decode_args(points, cdf, cfg: LaneConfig) -> None:
     L = cfg.num_lanes
     if len(points) != L:
         raise ValueError(
             f"points must have num_lanes={L} entries, got {len(points)}"
         )
-    if int(np.asarray(cdf)[-1]) != 1 << cfg.precision:
+    _check_cdf(cdf, cfg.precision)
+
+
+def decode_shared_range_cdf(points, stream, num_symbols: int, cdf,
+                            cfg: LaneConfig):
+    """Host ILANS2-R decoder with a CDF-table model; reads past the end of
+    the stream give zero words; data inconsistent with the model raises
+    ValueError.  The host codec's two-level CDF search
+    (``ctpu_ilans2_range_decode_cdf_l1``) from :data:`NATIVE_MIN_SYMBOLS`
+    symbols on at S <= 64, :func:`decode_shared_range_cdf_plain`
+    otherwise.  JAX counterpart:
+    ``constriction_tpu.ops.interleaved2.decode_shared_range_cdf``."""
+    _range_decode_args(points, cdf, cfg)
+    L = cfg.num_lanes
+    S, W, P = cfg.state_bits, cfg.word_bits, cfg.precision
+    if num_symbols < NATIVE_MIN_SYMBOLS or S > 64:
+        return decode_shared_range_cdf_plain(points, stream, num_symbols,
+                                             cdf, cfg)
+    T = -(-num_symbols // L)
+    cdf32 = np.ascontiguousarray(np.asarray(cdf), dtype=np.uint32)
+    l1_bits = min(P, L1_BITS)
+    stream32 = np.ascontiguousarray(stream, dtype=np.uint32)
+    out = np.empty(num_symbols, dtype=np.int32)
+    bad = native.library().ctpu_ilans2_range_decode_cdf_l1(
+        _pairs(points), stream32, len(stream32), num_symbols, L, T, cdf32,
+        len(cdf32), _l1_table(cdf32.tobytes(), P, l1_bits), l1_bits, W, S,
+        P, out)
+    if bad >= 0:
         raise ValueError(
-            f"cdf[-1] must equal 2**precision = {1 << cfg.precision}, got "
-            f"{int(np.asarray(cdf)[-1])}"
-        )
+            "Tried to decode data that is inconsistent with the entropy "
+            f"model (quantile >= 2**precision at symbol {bad}).")
+    return out
+
+
+def decode_shared_range_cdf_plain(points, stream, num_symbols: int, cdf,
+                                  cfg: LaneConfig):
+    """:func:`decode_shared_range_cdf` in numpy.  JAX counterpart: the
+    numpy branch of
+    ``constriction_tpu.ops.interleaved2.decode_shared_range_cdf``."""
+    _range_decode_args(points, cdf, cfg)
+    L = cfg.num_lanes
     out, _ = _range_oracle_loop(
         np.asarray(points).astype(np.uint64), np.zeros(L, np.uint64),
         np.full(L, _state_mask(cfg.state_bits), np.uint64),
@@ -539,8 +746,44 @@ def decode_iid_categorical2(data, cdf, device="cuda") -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+def _ckpt_args(num_symbols: int, cfg: LaneConfig, interval: int):
+    if interval <= 0:
+        raise ValueError(f"interval must be positive, got {interval}")
+    L = cfg.num_lanes
+    T = -(-num_symbols // L) if num_symbols else 0
+    C = max(-(-T // interval) - 1, 0)
+    return (T, np.zeros(C, dtype=np.int64),
+            np.zeros((C, L), dtype=state_dtype(cfg)))
+
+
 def build_checkpoints(init_states, stream, num_symbols: int, cdf,
                       cfg: LaneConfig, interval: int):
+    """Decode once on the host, capturing a (stream offset, lane states)
+    snapshot every ``interval`` steps: see :func:`build_checkpoints_plain`.
+    The host codec's ``ctpu_ilans2_decode_ckpt`` at S <= 32 and P <= 20,
+    the plain version otherwise.  JAX counterpart:
+    ``constriction_tpu.ops.interleaved2.build_checkpoints``."""
+    T, offsets, states_out = _ckpt_args(num_symbols, cfg, interval)
+    S, W, P = cfg.state_bits, cfg.word_bits, cfg.precision
+    if not (S <= 32 and P <= 20):
+        return build_checkpoints_plain(init_states, stream, num_symbols, cdf,
+                                       cfg, interval)
+    if len(offsets) == 0:
+        return offsets, states_out
+    _decode_args(init_states, cdf, cfg)
+    cdf32 = np.ascontiguousarray(np.asarray(cdf), dtype=np.uint32)
+    stream32 = _zero_padded(stream, T, cfg.num_lanes)
+    native.library().ctpu_ilans2_decode_ckpt(
+        np.ascontiguousarray(init_states, dtype=np.uint32), stream32,
+        len(stream32), num_symbols, cfg.num_lanes, T,
+        _lookup_table(cdf32.tobytes(), P), cdf32, W, S, P,
+        np.empty(num_symbols, dtype=np.int32), interval, offsets,
+        states_out.reshape(-1))
+    return offsets, states_out
+
+
+def build_checkpoints_plain(init_states, stream, num_symbols: int, cdf,
+                            cfg: LaneConfig, interval: int):
     """Decode once on the host, capturing a (stream offset, lane states)
     snapshot every ``interval`` steps.  Snapshot c is a complete coder
     state for symbol ``(c + 1) * interval * L`` on: a decoder seeded with
@@ -549,17 +792,11 @@ def build_checkpoints(init_states, stream, num_symbols: int, cdf,
     i64[C], states [C, L])``, u64 states for S > 32 and u32 otherwise, with
     ``C = ceil(T / interval) - 1`` (the snapshot at step 0 is the container
     header itself).  JAX counterpart: the numpy branch of
-    ``constriction_tpu.ops.interleaved2.build_checkpoints`` (its C++ branch
-    gives the same arrays)."""
-    if interval <= 0:
-        raise ValueError(f"interval must be positive, got {interval}")
+    ``constriction_tpu.ops.interleaved2.build_checkpoints``."""
+    T, offsets, states_out = _ckpt_args(num_symbols, cfg, interval)
     L = cfg.num_lanes
     S, W, P = cfg.state_bits, cfg.word_bits, cfg.precision
-    T = -(-num_symbols // L) if num_symbols else 0
-    C = max(-(-T // interval) - 1, 0)
-    offsets = np.zeros(C, dtype=np.int64)
-    states_out = np.zeros((C, L), dtype=state_dtype(cfg))
-    if C == 0:
+    if len(offsets) == 0:
         return offsets, states_out
     states = np.asarray(init_states).astype(np.uint64)
     stream = np.asarray(stream)

@@ -9,17 +9,26 @@ them from the Rust ``probability`` / ``special`` / ``libm`` crates, whose
 glibc's libm, which backs CPython's ``math`` module on Linux.  The bits of
 these functions are the wire format, so each vectorized ufunc (scipy's
 ``erf``, numpy's ``exp`` and ``arctan``) is used only where it equals the
-``math`` function bit for bit on a probe grid; otherwise a ``frompyfunc``
-wrapper around ``math`` runs.  :data:`PICKED` records which.
+``math`` function bit for bit on a probe grid.  Where scipy's erf is
+not, :func:`erf` / :func:`erfc` run the host codec's array loops
+(``ctpu_erf_array`` / ``ctpu_erfc_array``: the same glibc functions
+``math`` binds, checked against ``math`` on the probe grid at their first
+call, which raises RuntimeError on a difference).  :func:`erf_plain` /
+:func:`erfc_plain` take a ``frompyfunc`` wrapper around ``math`` there
+instead; exp and atan take one where numpy's ufuncs differ.
+:data:`PICKED` records what the plain versions resolved to, and
+:data:`ERF` what :func:`erf` runs (``"scipy"`` or ``"native"``).
 
-JAX counterpart: ``constriction_tpu/utils/special.py``, of which this is a
-copy without its native (C++) erf branch and without the approximate
-inverse CDFs; ``tests/test_torch_exact_family.py`` holds the two equal bit
-for bit.  Everything here is vectorized over numpy arrays in float64.
+JAX counterpart: ``constriction_tpu/utils/special.py`` (its native erf
+branch included), without the approximate inverse CDFs;
+``tests/test_torch_exact_family.py`` and ``tests/test_torch_native.py``
+hold the two equal bit for bit.  Everything here is vectorized over numpy
+arrays in float64.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -31,7 +40,8 @@ _SQRT2 = math.sqrt(2.0)
 # ---------------------------------------------------------------------------
 
 # scipy's erf where it matches glibc's bit for bit (vectorized and fast),
-# else a frompyfunc'd math.erf.  The check runs once at import time over a
+# else the host codec's loop over glibc's (erf) or a frompyfunc'd math.erf
+# (erf_plain).  The scipy check runs once at import time over a
 # deterministic sample grid.
 
 
@@ -43,9 +53,9 @@ def _scalar_erfc_vec(x: np.ndarray) -> np.ndarray:
     return np.asarray(np.frompyfunc(math.erfc, 1, 1)(np.asarray(x)), dtype=np.float64)
 
 
-def _pick_erf():
+def _erf_grid() -> np.ndarray:
     rng = np.random.RandomState(0)
-    grid = np.concatenate(
+    return np.concatenate(
         [
             rng.uniform(-6.5, 6.5, size=4096),
             rng.uniform(-0.9, 0.9, size=1024),
@@ -53,21 +63,64 @@ def _pick_erf():
             np.array([0.0, -0.0, 1e-300, -1e-300, 0.84375, 1.25, 2.857, 6.0]),
         ]
     )
-    ours_erf = _scalar_erf_vec(grid)
-    ours_erfc = _scalar_erfc_vec(grid)
+
+
+def _pick_erf():
+    grid = _erf_grid()
     try:
         from scipy.special import erf as _scipy_erf, erfc as _scipy_erfc
 
-        if np.array_equal(_scipy_erf(grid), ours_erf) and np.array_equal(
-            _scipy_erfc(grid), ours_erfc
-        ):
+        if (np.array_equal(_scipy_erf(grid), _scalar_erf_vec(grid))
+                and np.array_equal(_scipy_erfc(grid), _scalar_erfc_vec(grid))):
             return _scipy_erf, _scipy_erfc
     except ImportError:  # pragma: no cover
         pass
-    return _scalar_erf_vec, _scalar_erfc_vec
+    return None
 
 
-erf, erfc = _pick_erf()
+def _native_loop(name: str, x) -> np.ndarray:
+    from .. import native
+
+    x = np.asarray(x, dtype=np.float64)
+    flat = np.ascontiguousarray(x).reshape(-1)
+    out = np.empty_like(flat)
+    getattr(native.library(), name)(flat, out, flat.size)
+    return out.reshape(x.shape)
+
+
+@functools.cache
+def _check_native() -> None:
+    """Holds the host codec's erf and erfc against ``math`` on the probe
+    grid, once a process (a failure raises on every call)."""
+    grid = _erf_grid()
+    for fn, ref in (("ctpu_erf_array", _scalar_erf_vec),
+                    ("ctpu_erfc_array", _scalar_erfc_vec)):
+        if not np.array_equal(_native_loop(fn, grid), ref(grid)):
+            raise RuntimeError(
+                f"the host codec's {fn} differs from math on the probe grid")
+
+
+def erf_native(x) -> np.ndarray:
+    """erf through the host codec (glibc)."""
+    _check_native()
+    return _native_loop("ctpu_erf_array", x)
+
+
+def erfc_native(x) -> np.ndarray:
+    """erfc through the host codec (glibc)."""
+    _check_native()
+    return _native_loop("ctpu_erfc_array", x)
+
+
+_SCIPY = _pick_erf()
+if _SCIPY is not None:
+    erf, erfc = _SCIPY
+    erf_plain, erfc_plain = _SCIPY
+else:
+    erf, erfc = erf_native, erfc_native
+    erf_plain, erfc_plain = _scalar_erf_vec, _scalar_erfc_vec
+# what erf runs
+ERF = "scipy" if _SCIPY is not None else "native"
 
 
 def _pick_ufunc(np_fn, math_fn):
@@ -107,9 +160,9 @@ def _pick_ufunc(np_fn, math_fn):
 _exp = _pick_ufunc(np.exp, math.exp)
 _atan = _pick_ufunc(np.arctan, math.atan)
 
-# which implementation each function resolved to on this host
+# which implementation each plain function resolved to on this host
 PICKED = {
-    "erf": "math" if erf is _scalar_erf_vec else "scipy",
+    "erf": "math" if erf_plain is _scalar_erf_vec else "scipy",
     "exp": "numpy" if _exp is np.exp else "math",
     "atan": "numpy" if _atan is np.arctan else "math",
 }

@@ -339,6 +339,9 @@ def test_port_imports_no_jax():
         "import constriction_tpu_torch, constriction_tpu_torch.cuda\n"
         "import constriction_tpu_torch.convert, constriction_tpu_torch.models\n"
         "import constriction_tpu_torch.utils.special\n"
+        "import constriction_tpu_torch.native\n"
+        "from constriction_tpu_torch.native import build\n"
+        "constriction_tpu_torch.native.library()\n"
         "from constriction_tpu_torch.ops import (_build, coder, coder64,\n"
         "    chain, exact_family, exact_tables, family, framing,\n"
         "    framing_family, interleaved, interleaved2, range_enc, tables,\n"

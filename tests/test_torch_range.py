@@ -1,7 +1,8 @@
 """The port's range coder (ILANS2-R) against the JAX package, on the CPU.
 
-The port's numpy host range coder, its plain PyTorch twins (what a CPU
-tensor runs) and its facade are held against the JAX package: the Pallas
+The port's host range coder (the host codec and its numpy plain version),
+its plain PyTorch twins (what a CPU tensor runs) and its facade are held
+against the JAX package: the Pallas
 range kernels in interpret mode (kept to a few cases: each costs seconds),
 its numpy host oracle, its checkpoints and its facade.  The JAX package's
 host range code prefers its C++ library where that is loaded; every test
@@ -315,13 +316,23 @@ def test_empty_message_matches_jax_facade():
 
 
 def test_host_encoder_covers_the_two_presets_only():
+    """The plain host range encoder covers the two presets' (W, S) only;
+    the routed one (the host codec, as in the JAX package) codes any S <=
+    64, so the facade takes (8, 32) too and decodes it back."""
     syms, cdf = _data(10, 8, 100, seed=2)
     cfg = LaneConfig(num_lanes=128, word_bits=8, state_bits=32, precision=8)
+    c = cdf.astype(np.uint64)
     with pytest.raises(ValueError, match=r"\(W, S\) = \(16, 32\) and "
                                          r"\(32, 64\); got \(8, 32\)"):
-        _host_encode(syms, cdf, cfg)
-    with pytest.raises(ValueError, match=r"got \(8, 32\)"):
-        ctt.encode_iid_range(syms, cdf, cfg=cfg, device="cpu")
+        il2.encode_shared_range_plain(c[syms], c[syms + 1] - c[syms], cfg)
+    pts, words = ctt.encode_iid_range(syms, cdf, cfg=cfg, device="cpu")
+    for got in (_host_encode(syms, cdf, cfg), (pts, words)):
+        np.testing.assert_array_equal(
+            ctt.decode_iid_range(*got, cdf, len(syms), cfg=cfg,
+                                 device="cpu"), syms)
+        np.testing.assert_array_equal(
+            ref_il2.decode_shared_range_cdf(*got, len(syms), cdf,
+                                            _ref_cfg(cfg)), syms)
 
 
 def test_symbols_out_of_range_raise():
