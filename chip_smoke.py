@@ -281,6 +281,32 @@ prints one JSON object per phase, then the kernels line, the card's
                     kernel 13's time per step at T=256 steps over L=128
                     .. 65536 on the main path's tables, tiled (the floor
                     and slope as phase 5 fits them).
+25. host_api     -- the constriction-compatible host API
+                    (``constriction_tpu_torch.stream``, ``.symbol``,
+                    ``.models``; host code, numpy in and out) on this
+                    machine: the README's quick start and the golden
+                    vectors of the QuantizedGaussian family (ANS and
+                    range words), the chain coder's bits-back round trip
+                    and Huffman on both bit coders, word for word; bench.py's
+                    model (K=100, Dirichlet(2), seed 1234, P=24) at 2^20
+                    symbols through ``AnsCoder``, ``RangeEncoder`` /
+                    ``RangeDecoder`` and ``ChainCoder`` (and the cores'
+                    lookup decodes at P=12 and 16), the QuantizedGaussian
+                    family at 2^20 through the ANS and range coders (the
+                    chain coder's family decode is a Python loop: 2^11),
+                    each round trip exact and each host-codec entry equal
+                    to its ``*_plain`` loop on a 2^14-symbol prefix (2^11
+                    for the family decodes, whose loops evaluate one
+                    scalar erf at a time), both times printed; 2^16
+                    (mean, scale, symbol) rows at P=24 whose host
+                    ``(cum, prob)`` (``QuantizedFamily.ecp_all``) the card
+                    codes (``cuda.encode_family_exact`` at W=32, S=64,
+                    kernel 17: the host coder's stream on those planes),
+                    decodes (kernels 18 and 15) and, inverted in the
+                    card-built tables at q = cum, gives back as (symbol,
+                    cum, prob); Huffman and Exp-Golomb round trips over
+                    2^16 symbols.  No launch of this phase counts in the
+                    kernels line.
 
 Each main path runs with every launch counter set to 0 just before it, and
 the counts read just after it are the ``launches`` of its kernels.
@@ -300,7 +326,7 @@ worker processes (at most 8), which the script stops before phase 20 and
 before phase 23.
 
 Everything comes from the port: the model's CDF
-(``constriction_tpu_torch.models``) and the host oracles, which are the
+(``constriction_tpu_torch.models``), the host API and the host oracles, which are the
 port's ILANS2 and ILANS2-R host coders (the host codec, C++) under the
 port's container framing, its numpy family and TChain oracles, its numpy
 chain decode, its exact-family host builder (the host codec) and decode
@@ -458,6 +484,14 @@ N_FAMILY = 1 << 23  # the family benchmark row of the JAX package's suite
 FAMILY_SUPPORT = (-100, 100)
 MAIN_FAMILY = "gaussian"
 N_MATH = 1 << 22
+N_HOST_API = 1 << 20  # the host API's bulk round trips
+N_HOST_API_PLAIN = 1 << 14  # the prefix its Python loops run on
+# the family decodes' loops evaluate the quantizer's CDF one scalar at a
+# time (about a millisecond a symbol where erf runs through the host codec)
+N_HOST_API_FAMILY_PLAIN = 1 << 11
+N_HOST_API_CROSS = 1 << 16  # rows of the host-model / card cross-check
+HOST_API_CROSS_LANES = 4096
+N_HOST_API_SYMBOL = 1 << 16
 CKPT_INTERVAL = 256
 # arithmetic operations of one left() in family.cuh (standardized argument
 # 8, sign 2, the family's sigmoid or arctangent, one or two small floor
@@ -4158,6 +4192,410 @@ def phase_exact32_times(device, work, keep: dict, gpu: str,
     return {"phase": "exact32_times", "cases": [row]}, times
 
 
+def host_api_golden() -> list:
+    """The quick start and the golden flows of the host API, each with its
+    exact words: [(flow, ok)]."""
+    import numpy as np
+
+    import constriction_tpu_torch as constriction
+
+    sm = constriction.stream.model
+    out = []
+    message = np.array([6, 10, -4, 2, 5, 2, 1, 0, 2], dtype=np.int32)
+    model = sm.QuantizedGaussian(-50, 50, 3.2, 9.6)
+    enc = constriction.stream.stack.AnsCoder()
+    enc.encode_reverse(message, model)
+    words = enc.get_compressed()
+    back = constriction.stream.stack.AnsCoder(words).decode(model, 9)
+    out.append(("quick_start", words.tolist() == [3114258274, 357938615]
+                and np.array_equal(back, message)))
+    family = sm.QuantizedGaussian(-100, 100)
+    sym = np.array([23, -15, 78, 43, -69], dtype=np.int32)
+    means = np.array([35.2, -1.7, 30.1, 71.2, -75.1])
+    stds = np.array([10.1, 25.3, 23.8, 35.4, 3.9])
+    ans = constriction.stream.stack.AnsCoder()
+    ans.encode_reverse(sym, family, means, stds)
+    words = ans.get_compressed()
+    back = constriction.stream.stack.AnsCoder(words).decode(family, means,
+                                                            stds)
+    out.append(("ans_gaussian_family", words.tolist() == [1109163715, 757457]
+                and np.array_equal(back, sym)))
+    rng_enc = constriction.stream.queue.RangeEncoder()
+    rng_enc.encode(sym, family, means, stds)
+    words = rng_enc.get_compressed()
+    dec = constriction.stream.queue.RangeDecoder(words)
+    back = dec.decode(family, means, stds)
+    out.append(("range_gaussian_family",
+                words.tolist() == [473034731, 2276733146]
+                and np.array_equal(back, sym) and dec.maybe_exhausted()))
+    data = np.random.RandomState(123).randint(2**32, size=100,
+                                              dtype=np.uint32)
+    chain = constriction.stream.chain.ChainCoder(data, seal=True)
+    cmeans, cstds = np.arange(50, dtype=np.float64), np.full(50, 10.0)
+    csym = chain.decode(family, cmeans, cstds)
+    prefix, suffix = chain.get_remainders()
+    again = constriction.stream.chain.ChainCoder(suffix, is_remainders=True)
+    again.encode_reverse(csym, family, cmeans, cstds)
+    head, tail = again.get_data(unseal=True)
+    out.append(("chain_bits_back", len(head) == 0 and np.array_equal(
+        np.concatenate([prefix, tail]), data)))
+    probs = np.array([0.3, 0.2, 0.4, 0.1], dtype=np.float32)
+    msg = [1, 3, 2, 3, 0, 1, 3, 0, 2, 1, 1, 3, 3, 1, 2, 0, 1, 3, 1]
+    huff = constriction.symbol.huffman
+    book = huff.EncoderHuffmanTree(probs)
+    dbook = huff.DecoderHuffmanTree(probs)
+    queue = constriction.symbol.QueueEncoder()
+    for s in msg:
+        queue.encode_symbol(s, book)
+    qwords, qbits = queue.get_compressed_and_bitrate()
+    qdec = constriction.symbol.QueueDecoder(qwords)
+    stack = constriction.symbol.StackCoder()
+    for s in reversed(msg):
+        stack.encode_symbol(s, book)
+    swords, sbits = stack.get_compressed_and_bitrate()
+    out.append(("huffman_queue_stack",
+                qwords.tolist() == [3756389791, 61358] and qbits == 48
+                and [qdec.decode_symbol(dbook) for _ in msg] == msg
+                and swords.tolist() == [2818274807, 129455] and sbits == 48
+                and [stack.decode_symbol(dbook) for _ in msg] == msg))
+    return out
+
+
+def _ans_state(core):
+    return core.get_compressed().tobytes(), core.state, len(core.bulk)
+
+
+def _range_state(core):
+    return core.lower, core.range, core.point, core.cursor, core.pos()
+
+
+def _chain_state(core):
+    return (core.compressed.view().tobytes(), core.remainders.view().tobytes(),
+            core.head_compressed, core.head_remainders)
+
+
+def host_api_rows(clock) -> list:
+    """Each host-codec entry of the host API at N_HOST_API symbols, round
+    tripped, and on a prefix against its ``*_plain`` loop (words, symbols
+    and the coder's state after the call): one row each, with the times."""
+    import numpy as np
+
+    import constriction_tpu_torch as constriction
+    from constriction_tpu_torch.models import (ContiguousLookupDecoderModel,
+                                               QuantizedFamily,
+                                               fast_quantized_cdf)
+    from constriction_tpu_torch.ops.ans import AnsCoderCore
+    from constriction_tpu_torch.ops.chain import ChainCoderCore
+    from constriction_tpu_torch.ops.range import (RangeDecoderCore,
+                                                  RangeEncoderCore)
+
+    sm = constriction.stream.model
+    n, p, pf = N_HOST_API, N_HOST_API_PLAIN, N_HOST_API_FAMILY_PLAIN
+    rng = np.random.RandomState(1234)
+    probs = rng.dirichlet(np.full(K_MAIN, 2.0))
+    syms = rng.choice(K_MAIN, size=n, p=probs).astype(np.int32)
+    data = rng.randint(0, 1 << 32, size=n, dtype=np.uint32)
+    rows = []
+
+    def row(entry, case, route_s, plain_s, identical, round_trip=None,
+            **more):
+        rows.append({"entry": entry, "case": case, "route_s": route_s,
+                     "plain_s": plain_s, "identical": bool(identical),
+                     "round_trip": (None if round_trip is None
+                                    else bool(round_trip)), **more})
+
+    def timed(fn, *args):
+        t0 = clock()
+        out = fn(*args)
+        return out, clock() - t0
+
+    # bench.py's model through the stream API (P=24)
+    model = sm.Categorical(probs, perfect=False)
+    inner = model._as_parameterized()
+    cums, prs = inner.ecp_array(syms)
+    enc = constriction.stream.stack.AnsCoder()
+    _, t_enc = timed(enc.encode_reverse, syms, model)
+    words = enc.get_compressed()
+    back, t_dec = timed(constriction.stream.stack.AnsCoder(words).decode,
+                        model, n)
+    a, b = AnsCoderCore(), AnsCoderCore()
+    _, t_r = timed(a.encode_reverse_tables, cums[:p], prs[:p], 24)
+    _, t_p = timed(b.encode_reverse_tables_plain, cums[:p], prs[:p], 24)
+    row("ctpu_ans_encode_reverse", "stack_iid_p24", t_r, t_p,
+        _ans_state(a) == _ans_state(b), np.array_equal(back, syms),
+        n=n, n_plain=p, call_s=t_enc, decode_call_s=t_dec)
+    a, b = AnsCoderCore.from_compressed(words), AnsCoderCore.from_compressed(
+        words)
+    got, t_r = timed(a.decode_iid_symbols, p, inner)
+    want, t_p = timed(b.decode_iid_symbols_plain, p, inner)
+    row("ctpu_ans_decode_cdf", "stack_iid_p24", t_r, t_p,
+        np.array_equal(got, want) and _ans_state(a) == _ans_state(b),
+        np.array_equal(back, syms), n=n, n_plain=p, call_s=t_dec)
+
+    renc = constriction.stream.queue.RangeEncoder()
+    _, t_enc = timed(renc.encode, syms, model)
+    rwords = renc.get_compressed()
+    # P=24 has no table route in the range decode (gate P <= 16): the loop
+    rback, t_dec = timed(constriction.stream.queue.RangeDecoder(rwords).decode,
+                         model, n)
+    a, b = RangeEncoderCore(), RangeEncoderCore()
+    _, t_r = timed(a.encode_tables, cums[:p], prs[:p], 24)
+    _, t_p = timed(b.encode_tables_plain, cums[:p], prs[:p], 24)
+    row("ctpu_range_encode", "queue_iid_p24", t_r, t_p,
+        a.get_compressed().tobytes() == b.get_compressed().tobytes()
+        and (a.lower, a.range, a.inverted) == (b.lower, b.range, b.inverted),
+        np.array_equal(rback, syms), n=n, n_plain=p, call_s=t_enc,
+        decode_loop_call_s=t_dec)
+
+    chain = constriction.stream.chain.ChainCoder(data, seal=True)
+    # P=24 has no table route in the chain decode (gate P <= 16): the loop
+    csym, t_dec = timed(chain.decode, model, n)
+    prefix, suffix = chain.get_remainders()
+    cenc = constriction.stream.chain.ChainCoder(suffix, is_remainders=True)
+    _, t_enc = timed(cenc.encode_reverse, csym, model)
+    head, tail = cenc.get_data(unseal=True)
+    ccum, cprob = inner.ecp_array(csym[:p])
+    a = ChainCoderCore.from_remainders(suffix)
+    b = ChainCoderCore.from_remainders(suffix)
+    _, t_r = timed(a.encode_reverse_tables, ccum, cprob)
+    _, t_p = timed(b.encode_reverse_tables_plain, ccum, cprob)
+    row("ctpu_chain_encode_reverse", "chain_iid_p24", t_r, t_p,
+        _chain_state(a) == _chain_state(b),
+        len(head) == 0 and np.array_equal(np.concatenate([prefix, tail]),
+                                          data),
+        n=n, n_plain=p, call_s=t_enc, decode_loop_call_s=t_dec)
+
+    # the cores' lookup decodes: the host API's lookup model at P=12
+    # (ANS, range) and P=16 (chain)
+    for entry, P in (("ctpu_ans_decode_lookup", 12),
+                     ("ctpu_range_decode_lookup", 12),
+                     ("ctpu_chain_decode_lookup", 16)):
+        cdf = fast_quantized_cdf(probs, P)
+        lut = ContiguousLookupDecoderModel(cdf, P)
+        if entry == "ctpu_ans_decode_lookup":
+            core = AnsCoderCore()
+            core.encode_reverse_tables(cdf[syms], cdf[syms + 1] - cdf[syms], P)
+            w = core.get_compressed()
+            back, t_call = timed(AnsCoderCore.from_compressed(w)
+                                 .decode_iid_symbols, n, lut)
+            trip = np.array_equal(back, syms)
+            a, b = AnsCoderCore.from_compressed(w), AnsCoderCore.from_compressed(w)
+            got, t_r = timed(a.decode_iid_symbols, p, lut)
+            want, t_p = timed(b.decode_iid_symbols_plain, p, lut)
+            same = np.array_equal(got, want) and _ans_state(a) == _ans_state(b)
+        elif entry == "ctpu_range_decode_lookup":
+            core = RangeEncoderCore()
+            core.encode_tables(cdf[syms], cdf[syms + 1] - cdf[syms], P)
+            w = core.get_compressed()
+            back, t_call = timed(RangeDecoderCore.from_compressed(w)
+                                 .decode_iid_symbols, n, lut)
+            trip = np.array_equal(back, syms)
+            a = RangeDecoderCore.from_compressed(w)
+            b = RangeDecoderCore.from_compressed(w)
+            got, t_r = timed(a.decode_iid_symbols, p, lut)
+            want, t_p = timed(b.decode_iid_symbols_plain, p, lut)
+            same = (np.array_equal(got, want)
+                    and _range_state(a) == _range_state(b))
+        else:
+            core = ChainCoderCore.from_binary(data, 32, 64, P)
+            back, t_call = timed(core.decode_iid_symbols, n, lut)
+            core.encode_reverse_tables(cdf[back], cdf[back + 1] - cdf[back])
+            trip = np.array_equal(core.into_binary()[1], data)
+            a = ChainCoderCore.from_binary(data, 32, 64, P)
+            b = ChainCoderCore.from_binary(data, 32, 64, P)
+            got, t_r = timed(a.decode_iid_symbols, p, lut)
+            want, t_p = timed(b.decode_iid_symbols_plain, p, lut)
+            same = (np.array_equal(got, want)
+                    and _chain_state(a) == _chain_state(b))
+        row(entry, f"lookup_p{P}", t_r, t_p, same, trip, n=n, n_plain=p,
+            call_s=t_call)
+
+    # the QuantizedGaussian family (-100, 100) with per-symbol means and
+    # scales (the JAX suite's exact-family latents)
+    lo, hi = EXACT_SUPPORT
+    means, scales, fsyms = exact_workload(n)
+    fsyms = fsyms.astype(np.int32)
+    fam_model = sm.QuantizedGaussian(lo, hi)
+    fam = QuantizedFamily("gaussian", lo, hi, means[:p], scales[:p], 24)
+    got, t_r = timed(fam.ecp_all, fsyms[:p])
+    want, t_p = timed(fam.ecp_all_plain, fsyms[:p])
+    row("ctpu_quantized_ecp", "gaussian_p24", t_r, t_p,
+        all(np.array_equal(x, y) for x, y in zip(got, want)), n_plain=p)
+    small = QuantizedFamily("gaussian", lo, hi, means[:pf], scales[:pf], 24)
+    enc = constriction.stream.stack.AnsCoder()
+    _, t_enc = timed(enc.encode_reverse, fsyms, fam_model, means, scales)
+    words = enc.get_compressed()
+    back, t_dec = timed(constriction.stream.stack.AnsCoder(words).decode,
+                        fam_model, means, scales)
+    a, b = AnsCoderCore.from_compressed(words), AnsCoderCore.from_compressed(
+        words)
+    got, t_r = timed(a.decode_symbols, small)
+    want, t_p = timed(b.decode_symbols_plain, small)
+    row("ctpu_ans_decode_quantized", "stack_gaussian_family", t_r, t_p,
+        np.array_equal(got, want) and _ans_state(a) == _ans_state(b),
+        np.array_equal(back, fsyms), n=n, n_plain=pf, call_s=t_dec,
+        encode_call_s=t_enc)
+    renc = constriction.stream.queue.RangeEncoder()
+    _, t_enc = timed(renc.encode, fsyms, fam_model, means, scales)
+    rwords = renc.get_compressed()
+    dec = constriction.stream.queue.RangeDecoder(rwords)
+    back, t_dec = timed(dec.decode, fam_model, means, scales)
+    a = RangeDecoderCore.from_compressed(rwords)
+    b = RangeDecoderCore.from_compressed(rwords)
+    got, t_r = timed(a.decode_symbols, small)
+    want, t_p = timed(b.decode_symbols_plain, small)
+    row("ctpu_range_decode_quantized", "queue_gaussian_family", t_r, t_p,
+        np.array_equal(got, want) and _range_state(a) == _range_state(b),
+        np.array_equal(back, fsyms) and dec.maybe_exhausted(), n=n,
+        n_plain=pf, call_s=t_dec, encode_call_s=t_enc)
+    # the chain coder has no family decode route: bits-back on 2^11
+    chain = constriction.stream.chain.ChainCoder(data[:pf], seal=True)
+    csym, t_dec = timed(chain.decode, fam_model, means[:pf], scales[:pf])
+    prefix, suffix = chain.get_remainders()
+    a = ChainCoderCore.from_remainders(suffix)
+    b = ChainCoderCore.from_remainders(suffix)
+    _, t_r = timed(a.encode_symbols_reverse, csym, small)
+    _, t_p = timed(b.encode_reverse_tables_plain, *small.ecp_all_plain(csym))
+    row("ctpu_chain_encode_reverse", "chain_gaussian_family", t_r, t_p,
+        _chain_state(a) == _chain_state(b),
+        np.array_equal(np.concatenate([prefix, a.into_binary()[1]]),
+                       data[:pf]),
+        n=pf, n_plain=pf, decode_loop_call_s=t_dec)
+    return rows
+
+
+def host_api_cross_check(device) -> dict:
+    """N_HOST_API_CROSS (mean, scale, symbol) rows at P=24 on [-100, 100]:
+    the host API's ``(cum, prob)`` (``QuantizedFamily.ecp_all``, the host
+    codec's ``ctpu_quantized_ecp``) against what the card codes and
+    decodes (``cuda.encode_family_exact`` / ``decode_family_exact`` at
+    W=32, S=64: kernels 17, 18 and 15) and against the card-built tables
+    inverted at q = cum (kernel 18's tables, ``exact_family.
+    invert_tables``)."""
+    import numpy as np
+    import torch
+
+    import constriction_tpu_torch as constriction
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch import cuda as ctt
+    from constriction_tpu_torch.ops import exact_family as ef
+    from constriction_tpu_torch.ops import exact_tables as et
+    from constriction_tpu_torch.ops import interleaved2 as il2
+    from constriction_tpu_torch.ops.interleaved import LaneConfig
+
+    n, L = N_HOST_API_CROSS, HOST_API_CROSS_LANES
+    T = n // L
+    lo, hi = EXACT_SUPPORT
+    means, scales, syms = exact_workload(n)
+    clock = time.perf_counter
+    t0 = clock()
+    fam = constriction.stream.model.QuantizedGaussian(lo, hi)._parameterize(
+        (means, scales))
+    cum, prob = fam.ecp_all(syms)
+    t_host = clock() - t0
+    cfg = LaneConfig(L, 32, 64, 24)
+    for key in ef.LAUNCHES:
+        ef.LAUNCHES[key] = 0
+    t0 = clock()
+    st, w = ctt.encode_family_exact(syms, means, scales, "gaussian", lo, hi,
+                                    cfg=cfg, device=device)
+    t_enc = clock() - t0
+    st_h, w_h = il2.encode_shared_plain(cum, prob, cfg)
+    t0 = clock()
+    out = ctt.decode_family_exact(st, w, means, scales, "gaussian", lo, hi,
+                                  n, cfg=cfg, device=device)
+    t_dec = clock() - t0
+    est = int(ef._ncore_estimate(means, scales, "gaussian", lo, hi).max())
+    (tabs, cmax), = et.packed_tables_on_device_batch(
+        [(means, scales, min(255, -(-est // 4) * 4), T)], "gaussian", lo,
+        hi, 24, L, device)
+    q = torch.from_numpy(cum.astype(np.int64)).to(device).reshape(T, L)
+    inv = [ef.invert_tables(q[t], convert.u32_values(tabs[t]), lo, hi, 24)
+           for t in range(T)]
+    got = [torch.cat([x[i] for x in inv]).cpu().numpy() for i in range(3)]
+    return {
+        "rows": n, "lanes": L, "precision": 24, "family": "gaussian",
+        "support": [lo, hi], "table_cmax": int(cmax),
+        "card_codes_host_model": bool(np.array_equal(st, st_h)
+                                      and np.array_equal(w, w_h)),
+        "card_decodes_symbols": bool(np.array_equal(out, syms)),
+        "tables_invert_to_host_model": bool(
+            np.array_equal(got[0], syms)
+            and np.array_equal(got[1], cum.astype(np.int64))
+            and np.array_equal(got[2], prob.astype(np.int64))),
+        "launches": {k: ef.LAUNCHES[k]
+                     for k in ("eval_window", "encode64", "decode64")},
+        "host_ecp_s": t_host, "card_encode_call_s": t_enc,
+        "card_decode_call_s": t_dec,
+    }
+
+
+def host_api_symbol_codes(clock) -> list:
+    """Huffman and Exp-Golomb round trips over N_HOST_API_SYMBOL symbols
+    on the queue and the stack bit coder: [(case, seconds, ok)]."""
+    import numpy as np
+
+    import constriction_tpu_torch as constriction
+
+    rng = np.random.RandomState(17)
+    probs = rng.dirichlet(np.full(K_MAIN, 2.0))
+    out = []
+    for name in ("huffman", "exp_golomb"):
+        if name == "huffman":
+            syms = rng.choice(K_MAIN, size=N_HOST_API_SYMBOL, p=probs)
+            book = constriction.symbol.huffman.EncoderHuffmanTree(probs)
+            dbook = constriction.symbol.huffman.DecoderHuffmanTree(probs)
+        else:
+            syms = rng.geometric(0.02, size=N_HOST_API_SYMBOL) - 1
+            book = dbook = constriction.symbol.exp_golomb.ExpGolomb()
+        syms = syms.tolist()
+        t0 = clock()
+        queue = constriction.symbol.QueueEncoder()
+        for s in syms:
+            queue.encode_symbol(s, book)
+        qdec = constriction.symbol.QueueDecoder(queue.get_compressed()[0])
+        ok = [qdec.decode_symbol(dbook) for _ in syms] == syms
+        stack = constriction.symbol.StackCoder()
+        for s in reversed(syms):
+            stack.encode_symbol(s, book)
+        sdec = constriction.symbol.StackCoder(stack.get_compressed()[0])
+        ok = ok and [sdec.decode_symbol(dbook) for _ in syms] == syms
+        out.append({"case": name, "n": len(syms), "seconds": clock() - t0,
+                    "bits": int(queue.get_compressed()[1]), "ok": bool(ok)})
+    return out
+
+
+def phase_host_api(device, gpu: str) -> dict:
+    """The constriction-compatible host API on this machine: golden
+    vectors, the host-codec routes at N_HOST_API symbols against their
+    plain loops, the host models against the card's exact-family kernels,
+    and the symbol codes."""
+    from constriction_tpu_torch.utils import special
+
+    clock = time.perf_counter
+    t0 = clock()
+    golden = host_api_golden()
+    rows = host_api_rows(clock)
+    cross = host_api_cross_check(device)
+    codes = host_api_symbol_codes(clock)
+    rec = {"phase": "host_api", "gpu": gpu, "cpu": cpu_model(),
+           "cpus": os.cpu_count(), "omp_threads": omp_threads(),
+           "erf": special.ERF, "golden": dict(golden), "cases": rows,
+           "cross_check": cross, "symbol_codes": codes,
+           "seconds": clock() - t0}
+    bad = ([g for g, ok in golden if not ok]
+           + [r for r in rows if not r["identical"]
+              or r["round_trip"] is False]
+           + [k for k in ("card_codes_host_model", "card_decodes_symbols",
+                          "tables_invert_to_host_model") if not cross[k]]
+           + [k for k, v in cross["launches"].items() if not v]
+           + [c for c in codes if not c["ok"]])
+    if bad:
+        emit(rec)
+        fail(f"host_api: {bad}")
+    return rec
+
+
 def run_main_path(modules: dict, table: dict, phase):
     """Runs ``phase()`` with every launch counter set to 0 just before it;
     returns its record with the launches of ``table``'s kernels, read just
@@ -4281,6 +4719,8 @@ def main(argv) -> int:
     exact32_times, more = phase_exact32_times(device, work, keep32, gpu, errs)
     emit(exact32_times)
     times.update(more)
+
+    emit(phase_host_api(device, gpu))
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "constriction_tpu"))

@@ -32,6 +32,20 @@ within-block checkpoints) on one card or a list of devices, runs the
 block legs (``parallel.shard_*_cuda``) and its dry run
 (``parallel.dryrun``); ``ops.tables`` (the JAX package's
 ``ops.tables_jax``) builds model tables on the tensors' device.
+
+The constriction-compatible host API is ported too: ``stream`` (``stack.
+AnsCoder``, ``queue.RangeEncoder`` / ``RangeDecoder``, ``chain.ChainCoder``
+and the models of ``stream.model``), ``symbol`` (bit-granular coders,
+Huffman and Exp-Golomb) and ``models`` (the fixed-point models), over the
+scalar coder cores of ``ops`` and the word backends of ``backends``.  It
+is host code, as in the JAX package: numpy arrays and Python ints in and
+out, no ``device`` argument; its bulk paths run the host codec
+(``native``), so ``import constriction_tpu_torch as constriction`` runs
+constriction's examples bit for bit.
 """
 
+from . import models, stream, symbol
+
 __version__ = "0.1.0"
+
+__all__ = ["models", "stream", "symbol", "__version__"]

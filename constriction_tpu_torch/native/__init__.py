@@ -31,6 +31,36 @@ i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
 i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
 f64p = np.ctypeslib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS")
 
+
+# the host coders' state records, as codec.cpp's RangeEncState,
+# RangeDecState and ChainState (the JAX package's structs, field for field)
+class RangeEncState(ctypes.Structure):
+    _fields_ = [
+        ("lower", ctypes.c_uint64),
+        ("range", ctypes.c_uint64),
+        ("num_inverted", ctypes.c_uint64),
+        ("first_inverted", ctypes.c_uint32),
+    ]
+
+
+class RangeDecState(ctypes.Structure):
+    _fields_ = [
+        ("lower", ctypes.c_uint64),
+        ("range", ctypes.c_uint64),
+        ("point", ctypes.c_uint64),
+        ("cursor", ctypes.c_int64),
+    ]
+
+
+class ChainState(ctypes.Structure):
+    _fields_ = [
+        ("head_compressed", ctypes.c_uint64),
+        ("head_remainders", ctypes.c_uint64),
+        ("compressed_len", ctypes.c_int64),
+        ("remainders_len", ctypes.c_int64),
+    ]
+
+
 # the codec's distribution index of each exact family
 DIST_KIND = {"gaussian": 0, "laplace": 1, "cauchy": 2, "binomial": 3}
 
@@ -39,6 +69,9 @@ _FAM = [_I32, _I32, _I32, _I32]  # kind, min_sym, max_sym, precision
 # the shared-stream decoders' head: states, stream, stream length,
 # num_symbols, L, T
 _DEC = [u32p, u32p, _I64, _I64, _I32, _I32]
+# the scalar coders' tail: W, S, P
+_WSP = [_I32, _I32, _I32]
+_U64P = ctypes.POINTER(ctypes.c_uint64)
 # name: (restype, argtypes)
 SIGNATURES = {
     "ctpu_erf_array": (None, [f64p, f64p, _I64]),
@@ -71,6 +104,31 @@ SIGNATURES = {
         _I64, [u32p, u32p, _I64, _I32, _I32, _I32, _I32, _I32, u32p, u32p]),
     "ctpu_ilans2_range_decode_cdf_l1": (
         _I64, [*_DEC, u32p, _I32, u32p, _I32, _I32, _I32, _I32, i32p]),
+    # the host API's bulk paths (ops/ans.py, ops/range.py, ops/chain.py)
+    "ctpu_ans_encode_reverse": (
+        _I64, [_U64P, u32p, _I64, u32p, u32p, _I64, *_WSP]),
+    "ctpu_ans_decode_lookup": (
+        _I64, [_U64P, u32p, _I64, u32p, u32p, i32p, _I64, *_WSP]),
+    "ctpu_ans_decode_cdf": (
+        _I64, [_U64P, u32p, _I64, u32p, _I64, i32p, _I64, *_WSP]),
+    "ctpu_ans_decode_quantized": (
+        _I64, [_U64P, u32p, _I64, _I32, _I32, _I32, f64p, f64p, i32p, _I64,
+               *_WSP]),
+    "ctpu_range_encode": (
+        _I64, [ctypes.POINTER(RangeEncState), u32p, _I64, u32p, u32p, _I64,
+               *_WSP]),
+    "ctpu_range_decode_lookup": (
+        _I64, [ctypes.POINTER(RangeDecState), u32p, _I64, u32p, u32p, i32p,
+               _I64, *_WSP]),
+    "ctpu_range_decode_quantized": (
+        _I64, [ctypes.POINTER(RangeDecState), u32p, _I64, _I32, _I32, _I32,
+               f64p, f64p, i32p, _I64, *_WSP]),
+    "ctpu_chain_decode_lookup": (
+        _I64, [ctypes.POINTER(ChainState), u32p, u32p, _I64, u32p, u32p,
+               i32p, _I64, *_WSP]),
+    "ctpu_chain_encode_reverse": (
+        _I64, [ctypes.POINTER(ChainState), u32p, _I64, u32p, u32p, u32p,
+               _I64, *_WSP]),
 }
 
 _lock = threading.Lock()

@@ -20,9 +20,10 @@ instead; exp and atan take one where numpy's ufuncs differ.
 :data:`ERF` what :func:`erf` runs (``"scipy"`` or ``"native"``).
 
 JAX counterpart: ``constriction_tpu/utils/special.py`` (its native erf
-branch included), without the approximate inverse CDFs;
-``tests/test_torch_exact_family.py`` and ``tests/test_torch_native.py``
-hold the two equal bit for bit.  Everything here is vectorized over numpy
+branch and its approximate inverse CDFs included, the latter the host
+models' decode guesses); ``tests/test_torch_exact_family.py``,
+``tests/test_torch_native.py`` and ``tests/test_torch_models.py`` hold the
+two equal bit for bit.  Everything here is vectorized over numpy
 arrays in float64.
 """
 
@@ -322,3 +323,102 @@ def binomial_cdf(x, n, p):
 
     result = np.where(below, 0.0, np.where(above, 1.0, body))
     return result
+
+
+# ---------------------------------------------------------------------------
+# Approximate inverse CDFs (decode-time initial guesses only).
+#
+# These do NOT affect the bitstream: the decoder's quantile search always
+# converges to the unique symbol whose fixed-point interval contains the
+# quantile (quantize.rs:580-779).  Accuracy only affects speed.
+# ---------------------------------------------------------------------------
+
+
+def gaussian_ppf(xi, mean, std):
+    xi = np.asarray(xi, dtype=np.float64)
+    return mean + std * _SQRT2 * _erfinv(2.0 * xi - 1.0)
+
+
+def _erfinv(y):
+    """Vectorized approximate inverse error function (Winitzki-style + one
+    Newton refinement).  Only used for decode initial guesses."""
+    y = np.clip(np.asarray(y, dtype=np.float64), -1.0 + 1e-16, 1.0 - 1e-16)
+    w = -np.log((1.0 - y) * (1.0 + y))
+    # Rational approximation (Giles 2010 style).
+    small = w < 5.0
+    ws = w - 2.5
+    wl = np.sqrt(np.where(small, 5.0, w)) - 3.0
+    ps = (
+        2.81022636e-08
+        + ws
+        * (
+            3.43273939e-07
+            + ws
+            * (
+                -3.5233877e-06
+                + ws
+                * (
+                    -4.39150654e-06
+                    + ws
+                    * (
+                        0.00021858087
+                        + ws
+                        * (
+                            -0.00125372503
+                            + ws * (-0.00417768164 + ws * (0.246640727 + ws * 1.50140941))
+                        )
+                    )
+                )
+            )
+        )
+    )
+    pl = (
+        -0.000200214257
+        + wl
+        * (
+            0.000100950558
+            + wl
+            * (
+                0.00134934322
+                + wl
+                * (
+                    -0.00367342844
+                    + wl
+                    * (
+                        0.00573950773
+                        + wl * (-0.0076224613 + wl * (0.00943887047 + wl * (1.00167406 + wl * 2.83297682)))
+                    )
+                )
+            )
+        )
+    )
+    x = np.where(small, ps, pl) * y
+    # One Newton step: f(x) = erf(x) - y.
+    with np.errstate(over="ignore", invalid="ignore"):
+        err = erf(x) - y
+        step = err * (math.sqrt(math.pi) / 2.0) * np.exp(np.minimum(x * x, 700.0))
+    x = x - np.where(np.isfinite(step), step, 0.0)
+    return x
+
+
+def laplace_ppf(xi, mean, b):
+    xi = np.clip(np.asarray(xi, dtype=np.float64), 1e-300, 1.0 - 1e-16)
+    return np.where(
+        xi < 0.5,
+        mean + b * np.log(2.0 * xi),
+        mean - b * np.log(2.0 - 2.0 * xi),
+    )
+
+
+def cauchy_ppf(xi, loc, scale):
+    xi = np.clip(np.asarray(xi, dtype=np.float64), 1e-300, 1.0 - 1e-16)
+    return loc + scale * np.tan(math.pi * (xi - 0.5))
+
+
+def binomial_ppf(xi, n, p):
+    # Normal approximation; only a guess.
+    n_f = np.asarray(n, dtype=np.float64)
+    p = np.asarray(p, dtype=np.float64)
+    mu = n_f * p
+    sigma = np.sqrt(np.maximum(n_f * p * (1.0 - p), 1e-12))
+    return np.clip(np.rint(gaussian_ppf(xi, mu, sigma)), 0.0, n_f)

@@ -332,10 +332,25 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 def test_port_imports_no_jax():
     """Neither jax nor any module of the JAX package is imported by the
+    port, the host API included, and the README's quick start runs on the
     port.  conftest imports jax in this process, so the check runs in a
     fresh interpreter."""
     code = (
         "import sys\n"
+        "import numpy as np\n"
+        "import constriction_tpu_torch as constriction\n"
+        "message = np.array([6, 10, -4, 2, 5, 2, 1, 0, 2], dtype=np.int32)\n"
+        "entropy_model = constriction.stream.model.QuantizedGaussian(\n"
+        "    -50, 50, 3.2, 9.6)\n"
+        "encoder = constriction.stream.stack.AnsCoder()\n"
+        "encoder.encode_reverse(message, entropy_model)\n"
+        "compressed = encoder.get_compressed()\n"
+        "decoder = constriction.stream.stack.AnsCoder(compressed)\n"
+        "assert np.all(decoder.decode(entropy_model, 9) == message)\n"
+        "import constriction_tpu_torch.stream, constriction_tpu_torch.symbol\n"
+        "import constriction_tpu_torch.backends\n"
+        "import constriction_tpu_torch.ops.ans, constriction_tpu_torch.ops.range\n"
+        "import constriction_tpu_torch.ops.bitstream\n"
         "import constriction_tpu_torch, constriction_tpu_torch.cuda\n"
         "import constriction_tpu_torch.convert, constriction_tpu_torch.models\n"
         "import constriction_tpu_torch.utils.special\n"

@@ -12,13 +12,17 @@ shared-stream coders (``encode_shared``, ``decode_shared_cdf``,
 functions take the plain versions, as the JAX package does; the sizes here
 sit on both sides of them.  The loader: two processes building into one
 empty build root at once, a compiler that does not exist, a library that
-does not load; and no source of the port reads an environment variable.  Integer
+does not load; and no source of the port reads an environment variable.
+The bindings: every entry of ``native.SIGNATURES``, and the nine coder
+entries of the host API and their three state structs typed as the JAX
+package binds them.  Integer
 coding and f64 special functions: tolerance is equality.
 """
 
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -503,9 +507,49 @@ def test_port_reads_no_environment():
     assert not hits, hits
 
 
+# the entries the host API's coder cores call, and the JAX package's
+# argument types for them (constriction_tpu/native/__init__.py's _bind)
+HOST_API_ENTRIES = (
+    "ctpu_ans_encode_reverse", "ctpu_ans_decode_lookup",
+    "ctpu_ans_decode_cdf", "ctpu_ans_decode_quantized", "ctpu_range_encode",
+    "ctpu_range_decode_lookup", "ctpu_range_decode_quantized",
+    "ctpu_chain_decode_lookup", "ctpu_chain_encode_reverse")
+
+
+def _ctype_name(t) -> str:
+    """A ctypes type by name: ndpointers by dtype, pointers by target."""
+    if hasattr(t, "_dtype_"):
+        return f"ndpointer({t._dtype_})"
+    if hasattr(t, "_type_") and isinstance(t._type_, type):
+        return f"POINTER({t._type_.__name__})"
+    return t.__name__ if t is not None else "None"
+
+
+class _Recorder:
+    """Stands in for a ctypes library: each entry is a namespace that keeps
+    the restype and argtypes set on it."""
+
+    def __getattr__(self, name):
+        fn = types.SimpleNamespace()
+        setattr(self, name, fn)
+        return fn
+
+
 def test_signatures_bind_every_entry():
     lib = native.library()
     for name, (restype, argtypes) in native.SIGNATURES.items():
         fn = getattr(lib, name)
         assert fn.argtypes == argtypes and fn.restype == restype
     assert native.DIST_KIND == ref_native.DIST_KIND
+    # the host API's nine entries, typed as the JAX package binds them:
+    # its _bind run on a recorder instead of its library
+    ref_lib = ref_native._bind(_Recorder())
+    for name in HOST_API_ENTRIES:
+        restype, argtypes = native.SIGNATURES[name]
+        want = getattr(ref_lib, name)
+        assert _ctype_name(restype) == _ctype_name(want.restype), name
+        assert [_ctype_name(t) for t in argtypes] == [
+            _ctype_name(t) for t in want.argtypes], name
+    for struct in ("RangeEncState", "RangeDecState", "ChainState"):
+        assert [(f, t.__name__) for f, t in getattr(native, struct)._fields_] == [
+            (f, t.__name__) for f, t in getattr(ref_native, struct)._fields_]
