@@ -307,6 +307,24 @@ prints one JSON object per phase, then the kernels line, the card's
                     cum, prob); Huffman and Exp-Golomb round trips over
                     2^16 symbols.  No launch of this phase counts in the
                     kernels line.
+26. examples     -- the six scripts of ``examples_torch/`` (the JAX
+                    package's examples, ported), each ``run("cuda")`` in
+                    this process at its card size, with every launch
+                    counter set to 0 just before it: its printed lines,
+                    wall time and the kernels it launched (each kernel the
+                    script's docstring names must have launched).  Every
+                    container, stream, state and checkpoint the scripts
+                    write equals the port's host oracle on the same input
+                    (``interleaved2.encode_shared`` and its v1 and v2
+                    framing, ``encode_shared_range``, the exact families'
+                    planes through ``encode_shared``, ``ops/family.py``'s
+                    ``family_tables_host`` / ``decode_family_host``, the
+                    sharded streams block by block, the plain
+                    ``AnsCoderCore`` loop, ``build_checkpoints_plain``,
+                    ``exact_family.decode_family_exact_host``), and
+                    every decode
+                    its input.  No launch of this phase counts in the
+                    kernels line.
 
 Each main path runs with every launch counter set to 0 just before it, and
 the counts read just after it are the ``launches`` of its kernels.
@@ -4596,6 +4614,206 @@ def phase_host_api(device, gpu: str) -> dict:
     return rec
 
 
+# the kernels each example launches on the card: (counter module, key)
+EXAMPLE_KERNELS = {
+    "default_preset": [("coder64", "encode"), ("coder64", "decode"),
+                       ("range_enc", "record64"), ("range_enc", "resolve64"),
+                       ("coder64", "range_decode"), ("exact", "encode64"),
+                       ("exact", "eval_window"), ("exact", "decode64")],
+    "compact_framing": [("coder64", "encode"), ("coder64", "decode")],
+    "bits_back": [("coder", "encode"), ("coder", "decode")],
+    "multichip_sharded": [("coder", "encode"), ("coder", "decode")],
+    "neural_latents": [("family", "encode"), ("family", "decode")],
+    "reference_exact_and_seek": [("exact", "encode32"), ("exact", "decode32"),
+                                 ("coder", "decode")],
+}
+
+
+def example_script(name: str):
+    """``examples_torch/<name>.py``, loaded by its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", os.path.join(REPO, "examples_torch",
+                                               f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def iid_planes(cdf, symbols):
+    import numpy as np
+
+    cdf64 = np.asarray(cdf, dtype=np.uint64)
+    return cdf64[symbols], cdf64[symbols + 1] - cdf64[symbols]
+
+
+def example_checks(name: str, mod, out: dict) -> dict:
+    """{check: ok} of one example's artifacts against the port's host
+    oracles on the same input."""
+    import numpy as np
+
+    from constriction_tpu_torch import cuda as ctt
+    from constriction_tpu_torch.models import QuantizedFamily
+    from constriction_tpu_torch.ops import exact_family as ef
+    from constriction_tpu_torch.ops import family, framing
+    from constriction_tpu_torch.ops import interleaved2 as il2
+    from constriction_tpu_torch.ops.ans import AnsCoderCore
+
+    eq = same_arrays
+    if name == "default_preset":
+        x = mod.inputs()
+        planes = iid_planes(x["cdf"], x["symbols"])
+        exact = ef.exact_ecp(x["family_symbols"], x["means"], x["scales"],
+                             "gaussian", -100, 100, 24)
+        return {
+            "v2_container": eq(out["container"], host_container(
+                x["symbols"], x["cdf"], mod.CFG, True)),
+            "range_pair": eq((out["points"], out["stream"]),
+                             il2.encode_shared_range(*planes, mod.CFG)),
+            "exact_planes_stream": eq(
+                (out["family_states"], out["family_stream"]),
+                il2.encode_shared(*exact, mod.CFG)),
+            "decodes": bool(
+                np.array_equal(out["decoded"], x["symbols"])
+                and np.array_equal(out["range_decoded"], x["symbols"])
+                and np.array_equal(out["family_decoded"],
+                                   x["family_symbols"])),
+        }
+    if name == "compact_framing":
+        x = mod.inputs()
+        cdf64 = np.asarray(x["cdf"], dtype=np.float64)
+        est = float(-np.log2((cdf64[x["symbols"] + 1] - cdf64[x["symbols"]])
+                             / cdf64[-1]).sum())
+        cfg = ctt._pick_cfg(mod.N, None, x["cdf"], est_bits=est)
+        ref = AnsCoderCore(word_bits=32, state_bits=64)
+        ref.encode_reverse_tables_plain(
+            *(p.astype(np.uint32) for p in iid_planes(x["cdf"], x["symbols"])),
+            mod.P)
+        p = framing.parse_v2(out["v2"])
+        ckpts = il2.build_checkpoints_plain(p.states_A, p.stream_A, p.n_A,
+                                            x["cdf"], p.cfg, mod.INTERVAL)
+        return {
+            "v2_container": eq(out["v2"], host_container(
+                x["symbols"], x["cdf"], cfg, True)),
+            "v1_container": eq(out["v1"], host_container(
+                x["symbols"], x["cdf"], cfg, False)),
+            "reference_words": eq(out["reference_words"],
+                                  ref.get_compressed()),
+            "checkpoints": eq((out["offsets"], out["states"]), ckpts),
+            "decodes": bool(
+                np.array_equal(out["decoded"], x["symbols"])
+                and np.array_equal(out["suffix"],
+                                   x["symbols"][out["seek_start"]:])),
+        }
+    if name == "bits_back":
+        x = mod.inputs()
+        cdf = x["models12"][out["z"]].cdf
+        return {
+            "v1_container": eq(out["container"], host_container(
+                x["message"], cdf, mod.CFG12, False)),
+            "decodes": bool(
+                np.array_equal(out["decoded"], x["message"])
+                and np.array_equal(out["recovered_side_info"],
+                                   x["side_info"])),
+        }
+    if name == "multichip_sharded":
+        D = len(out["devices"])
+        x = mod.inputs(D)
+        blocks = x["message"].reshape(D, mod.BLOCK_LEN)
+        return {
+            "block_streams": all(
+                eq((st, sw), il2.encode_shared(*iid_planes(x["cdf"], blk),
+                                               mod.CFG))
+                for st, sw, blk in zip(out["states"], out["streams"], blocks)),
+            "decodes": bool(np.array_equal(out["decoded"], x["message"])),
+        }
+    if name == "neural_latents":
+        x = mod.inputs()
+        n = len(x["symbols"])
+        fam = QuantizedFamily("gaussian", *mod.SUPPORT, x["means"],
+                              x["stds"], precision=12)
+        states, stream = il2.encode_shared_plain(
+            *fam.ecp_all_plain(x["symbols"]), mod.CFG)
+        args = (x["means"].astype(np.float32), x["stds"].astype(np.float32),
+                "gaussian", *mod.SUPPORT)
+        dstates, dstream = il2.encode_shared(
+            *family.family_tables_host(x["symbols"], *args), mod.CFG)
+        return {
+            "v1_container": eq(out["container"], il2.pack_container2(
+                states, stream, n, mod.CFG)),
+            "host_decode_plain": eq(
+                out["host_decoded"].astype(np.int32),
+                ef.decode_family_exact_host(
+                    states, stream, x["means"], x["stds"], "gaussian",
+                    *mod.SUPPORT, mod.CFG, n).astype(np.int32)),
+            "family_stream": eq((out["family_states"], out["family_stream"]),
+                                (dstates, dstream)),
+            "family_decode_host": eq(
+                out["family_decoded"],
+                family.decode_family_host(dstates, dstream, *args, mod.CFG,
+                                          n)),
+            "decodes": bool(
+                np.array_equal(out["host_decoded"], x["symbols"])
+                and np.array_equal(out["family_decoded"], x["symbols"])),
+        }
+    x = mod.inputs("cuda")
+    cfg, n = x["cfg"], len(x["msg"])
+    exact = ef.exact_ecp(x["symbols"], x["means"], x["stds"], "gaussian",
+                         -100, 100, 12)
+    states, stream = il2.encode_shared_plain(*iid_planes(x["cdf"], x["msg"]),
+                                             cfg)
+    return {
+        "exact_planes_stream": eq((out["states"], out["stream"]),
+                                  il2.encode_shared(*exact, cfg)),
+        "iid_stream": eq((out["iid_states"], out["iid_stream"]),
+                         (states, stream)),
+        "checkpoints": eq(
+            (out["offsets"], out["checkpoint_states"]),
+            il2.build_checkpoints_plain(states, stream, n, x["cdf"], cfg,
+                                        mod.INTERVAL)),
+        "decodes": bool(
+            np.array_equal(out["decoded"], x["symbols"])
+            and np.array_equal(out["suffix"], x["msg"][out["seek_start"]:])),
+    }
+
+
+def phase_examples(device, gpu: str, modules: dict) -> dict:
+    """Each script of ``examples_torch/`` through ``run("cuda")`` at its
+    card size: lines, wall time, the launches read around it, and its
+    artifacts against the port's host oracles."""
+    import torch
+
+    rec = {"phase": "examples", "gpu": gpu, "scripts": {}}
+    bad = []
+    t_phase = time.perf_counter()
+    for name, want in EXAMPLE_KERNELS.items():
+        mod = example_script(name)
+        for counts in modules.values():
+            for key in counts:
+                counts[key] = 0
+        t0 = time.perf_counter()
+        out = mod.run("cuda")
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        launched = {f"{m}.{k}": v for m, counts in modules.items()
+                    for k, v in counts.items() if v}
+        t0 = time.perf_counter()
+        checks = example_checks(name, mod, out)
+        rec["scripts"][name] = {
+            "lines": out["lines"], "wall_s": wall, "launches": launched,
+            "checks": checks, "oracle_s": time.perf_counter() - t0,
+        }
+        bad += [f"{name}: {c}" for c, ok in checks.items() if not ok]
+        bad += [f"{name}: {m}.{k} never launched" for m, k in want
+                if not launched.get(f"{m}.{k}")]
+    rec["seconds"] = time.perf_counter() - t_phase
+    if bad:
+        emit(rec)
+        fail(f"examples: {bad}")
+    return rec
+
+
 def run_main_path(modules: dict, table: dict, phase):
     """Runs ``phase()`` with every launch counter set to 0 just before it;
     returns its record with the launches of ``table``'s kernels, read just
@@ -4721,6 +4939,7 @@ def main(argv) -> int:
     times.update(more)
 
     emit(phase_host_api(device, gpu))
+    emit(phase_examples(device, gpu, modules))
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "constriction_tpu"))

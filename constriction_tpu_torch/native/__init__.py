@@ -100,6 +100,8 @@ SIGNATURES = {
         None, [*_DEC, u32p, _I32, _I32, _I32, _I32, i32p]),
     "ctpu_ilans2_decode_cdf64_l1": (
         None, [*_DEC, u32p, _I32, u32p, _I32, _I32, _I32, _I32, i32p]),
+    "ctpu_ilans2_decode_quantized": (
+        None, [*_DEC, _I32, _I32, _I32, f64p, f64p, *_WSP, i32p]),
     "ctpu_ilans2_range_encode": (
         _I64, [u32p, u32p, _I64, _I32, _I32, _I32, _I32, _I32, u32p, u32p]),
     "ctpu_ilans2_range_decode_cdf_l1": (

@@ -29,6 +29,9 @@ that the port imports nothing of the JAX package.  :func:`encode_shared`,
 :func:`encode_shared_range` and :func:`decode_shared_range_cdf` run the
 host codec (``native/``, C++) under the JAX package's conditions, and each
 numpy branch survives as a ``*_plain`` version that no card path calls;
+:func:`decode_shared_quantized` (the per-symbol family decode that the
+JAX package's neural-latents example calls in C++) always runs the codec,
+with ``exact_family.decode_family_exact_host`` as its plain version;
 ``tests/test_torch_native.py``, ``tests/test_torch_host.py``,
 ``tests/test_torch_range.py`` and ``tests/test_torch_checkpoints.py`` hold
 them byte for byte against each other and the JAX package.
@@ -46,6 +49,7 @@ import numpy as np
 import torch
 
 from .. import convert, native
+from ..models.quantized import BinomialFamily
 from . import coder, coder64
 from .interleaved import LaneConfig, state_dtype
 
@@ -315,6 +319,70 @@ def decode_shared_cdf_plain(init_states, stream, num_symbols: int, cdf,
     if return_final_states:
         return out[:num_symbols], states.astype(state_dtype(cfg))
     return out[:num_symbols]
+
+
+def _quantized_args(init_states, num_symbols: int, family, cfg: LaneConfig):
+    """``(kind, min_sym, max_sym, param_a, param_b)`` of a
+    :class:`~constriction_tpu_torch.models.QuantizedFamily` (gaussian,
+    laplace, cauchy) or a ``BinomialFamily`` of one trial count (support
+    [0, n], params (n, p)), after the checks of the host codec's
+    per-symbol family decode: u32 lane states (S=32), one model a
+    symbol, the family's precision the config's."""
+    if isinstance(family, BinomialFamily):
+        trials = np.unique(family.ns)
+        if len(trials) != 1:
+            raise ValueError("a binomial family must have one trial count, "
+                             f"got {len(trials)}")
+        kind, min_sym, max_sym = "binomial", 0, int(trials[0])
+        precision = family.precision
+        param_a, param_b = family.ns.astype(np.float64), family.ps
+    else:
+        kind, q = family.kind, family.quantizer
+        min_sym, max_sym, precision = q.min, q.max, q.precision
+        param_a, param_b = family.param_a, family.param_b
+    if cfg.state_bits != 32:
+        raise ValueError("the per-symbol family decode takes u32 lane states "
+                         f"(S=32), got S={cfg.state_bits}")
+    if precision != cfg.precision:
+        raise ValueError(f"the family's precision {precision} is not the "
+                         f"config's {cfg.precision}")
+    if len(init_states) != cfg.num_lanes:
+        raise ValueError(
+            f"init_states must have num_lanes={cfg.num_lanes} entries, got "
+            f"{len(init_states)}")
+    if len(param_a) != num_symbols:
+        raise ValueError(f"the family has {len(param_a)} models for "
+                         f"{num_symbols} symbols")
+    return (kind, min_sym, max_sym, np.ascontiguousarray(param_a),
+            np.ascontiguousarray(param_b, dtype=np.float64))
+
+
+def decode_shared_quantized(init_states, stream, num_symbols: int, family,
+                            cfg: LaneConfig) -> np.ndarray:
+    """Host ILANS2 decode of a stream that :func:`encode_shared` wrote over
+    a family's exact ``(cum, prob)`` (``family.ecp_all``): per symbol the
+    leakily quantized model of its own parameters, inverted by the host
+    codec (``ctpu_ilans2_decode_quantized``).  ``family`` is a
+    ``QuantizedFamily`` or a ``BinomialFamily`` of one trial count (see
+    :func:`_quantized_args`); S=32 only.  Reads past the end of the
+    stream give zero words, as in :func:`decode_shared_cdf`.  Returns int32
+    symbols.  JAX counterpart: the C++ call of
+    ``examples/neural_latents.py``'s ``_host_decode_family``; plain version
+    ``exact_family.decode_family_exact_host`` over the family's
+    ``(param_a, param_b)`` (``(ns, ps)`` for a binomial family), which
+    decodes the same stream through the exact boundary tables."""
+    kind, min_sym, max_sym, pa, pb = _quantized_args(init_states,
+                                                     num_symbols, family, cfg)
+    L = cfg.num_lanes
+    T = -(-num_symbols // L)
+    stream32 = _zero_padded(stream, T, L)
+    out = np.empty(num_symbols, dtype=np.int32)
+    native.library().ctpu_ilans2_decode_quantized(
+        np.ascontiguousarray(init_states, dtype=np.uint32), stream32,
+        len(stream32), num_symbols, L, T,
+        native.DIST_KIND[kind], min_sym, max_sym, pa, pb, cfg.word_bits,
+        cfg.state_bits, cfg.precision, out)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -13,10 +13,14 @@ functions take the plain versions, as the JAX package does; the sizes here
 sit on both sides of them.  The loader: two processes building into one
 empty build root at once, a compiler that does not exist, a library that
 does not load; and no source of the port reads an environment variable.
-The bindings: every entry of ``native.SIGNATURES``, and the nine coder
-entries of the host API and their three state structs typed as the JAX
-package binds them.  Integer
-coding and f64 special functions: tolerance is equality.
+The bindings: every entry of ``native.SIGNATURES``, and the ten coder
+entries of the host API and the examples (the nine of the scalar coder
+cores, ``ctpu_ilans2_decode_quantized``) and the three state structs
+typed as the JAX package binds them.  The per-symbol family decode
+(``decode_shared_quantized``) against its plain version (the exact
+family's host decode, the port's and the JAX package's) and the round
+trip.
+Integer coding and f64 special functions: tolerance is equality.
 """
 
 import os
@@ -33,7 +37,11 @@ from constriction_tpu.ops import interleaved2 as ref_il2
 from constriction_tpu.ops.interleaved import LaneConfig as RefCfg
 from constriction_tpu.utils import special as ref_special
 from constriction_tpu_torch import native
-from constriction_tpu_torch.models import fast_quantized_cdf
+from constriction_tpu_torch.models import (
+    BinomialFamily,
+    QuantizedFamily,
+    fast_quantized_cdf,
+)
 from constriction_tpu_torch.native import build
 from constriction_tpu_torch.ops import exact_family as ef
 from constriction_tpu_torch.ops import exact_tables as et
@@ -507,13 +515,15 @@ def test_port_reads_no_environment():
     assert not hits, hits
 
 
-# the entries the host API's coder cores call, and the JAX package's
-# argument types for them (constriction_tpu/native/__init__.py's _bind)
-HOST_API_ENTRIES = (
+# the coder entries the host API's cores and the examples' host family
+# decode call, and the JAX package's argument types for them
+# (constriction_tpu/native/__init__.py's _bind)
+CODER_ENTRIES = (
     "ctpu_ans_encode_reverse", "ctpu_ans_decode_lookup",
     "ctpu_ans_decode_cdf", "ctpu_ans_decode_quantized", "ctpu_range_encode",
     "ctpu_range_decode_lookup", "ctpu_range_decode_quantized",
-    "ctpu_chain_decode_lookup", "ctpu_chain_encode_reverse")
+    "ctpu_chain_decode_lookup", "ctpu_chain_encode_reverse",
+    "ctpu_ilans2_decode_quantized")
 
 
 def _ctype_name(t) -> str:
@@ -541,10 +551,10 @@ def test_signatures_bind_every_entry():
         fn = getattr(lib, name)
         assert fn.argtypes == argtypes and fn.restype == restype
     assert native.DIST_KIND == ref_native.DIST_KIND
-    # the host API's nine entries, typed as the JAX package binds them:
-    # its _bind run on a recorder instead of its library
+    # the ten coder entries, typed as the JAX package binds them: its
+    # _bind run on a recorder instead of its library
     ref_lib = ref_native._bind(_Recorder())
-    for name in HOST_API_ENTRIES:
+    for name in CODER_ENTRIES:
         restype, argtypes = native.SIGNATURES[name]
         want = getattr(ref_lib, name)
         assert _ctype_name(restype) == _ctype_name(want.restype), name
@@ -553,3 +563,85 @@ def test_signatures_bind_every_entry():
     for struct in ("RangeEncState", "RangeDecState", "ChainState"):
         assert [(f, t.__name__) for f, t in getattr(native, struct)._fields_] == [
             (f, t.__name__) for f, t in getattr(ref_native, struct)._fields_]
+
+
+# ---------------------------------------------------------------------------
+# the per-symbol family decode (ctpu_ilans2_decode_quantized)
+# ---------------------------------------------------------------------------
+
+QUANTIZED_LANES = 16
+
+
+def _family(family, n, P, seed):
+    """(the port's family model, its symbols, the exact family's host
+    decode arguments (means, scales, family, min_sym, max_sym)) of n
+    seeded models."""
+    means, scales, lo, hi = _models(family, n, seed)
+    if family == "binomial":
+        syms = np.random.RandomState(seed + 1).binomial(NT, scales)
+        fam = BinomialFamily(np.full(n, NT), scales, P)
+    else:
+        syms = _symbols(means, scales, lo, hi, seed + 1)
+        fam = QuantizedFamily(family, lo, hi, means, scales, P)
+    return fam, syms, (means, scales, family, lo, hi)
+
+
+def _plain_decodes(states, stream, n, args, cfg):
+    """The plain version of ``decode_shared_quantized``: the port's exact
+    family host decode, held against the JAX package's."""
+    W, S, P = cfg.word_bits, cfg.state_bits, cfg.precision
+    plain = ef.decode_family_exact_host(states, stream, *args, cfg, n)
+    _same(plain, ref_ef.decode_family_exact_host(
+        states, stream, *args, RefCfg(cfg.num_lanes, W, S, P), n))
+    return plain.astype(np.int32)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("n", [63, 64, 1000])
+@pytest.mark.parametrize("P", [12, 16])
+def test_decode_shared_quantized_two_way(family, n, P):
+    """The codec's decode equals its plain version (the exact family's
+    host decode, the port's and the JAX package's), and both give back
+    the symbols the family's own (cum, prob) encoded."""
+    cfg = LaneConfig(QUANTIZED_LANES, 16, 32, P)
+    fam, syms, args = _family(family, n, P, n + P)
+    states, stream = il2.encode_shared(*fam.ecp_all(syms), cfg)
+    got = il2.decode_shared_quantized(states, stream, n, fam, cfg)
+    _same(got, _plain_decodes(states, stream, n, args, cfg))
+    _same(got, syms.astype(np.int32))
+
+
+@pytest.mark.parametrize("family", ["gaussian", "binomial"])
+def test_decode_shared_quantized_cut_stream(family):
+    """With the stream cut short, reads past its end give zero words in
+    the codec and in the plain version: the same symbols, not the
+    message."""
+    n = 1000
+    cfg = LaneConfig(QUANTIZED_LANES, 16, 32, 12)
+    fam, syms, args = _family(family, n, 12, 5)
+    states, stream = il2.encode_shared(*fam.ecp_all(syms), cfg)
+    cut = stream[:len(stream) // 2]
+    got = il2.decode_shared_quantized(states, cut, n, fam, cfg)
+    _same(got, _plain_decodes(states, cut, n, args, cfg))
+    assert not np.array_equal(got, syms)
+
+
+def test_decode_shared_quantized_checks():
+    fam, syms, _ = _family("gaussian", 100, 12, 0)
+    cfg = LaneConfig(QUANTIZED_LANES, 16, 32, 12)
+    states, stream = il2.encode_shared(*fam.ecp_all(syms), cfg)
+    decode = il2.decode_shared_quantized
+    with pytest.raises(ValueError, match="S=32"):
+        decode(states, stream, 100, fam, LaneConfig(QUANTIZED_LANES, 32, 64,
+                                                    12))
+    with pytest.raises(ValueError, match="precision"):
+        decode(states, stream, 100, fam, LaneConfig(QUANTIZED_LANES, 16, 32,
+                                                    16))
+    with pytest.raises(ValueError, match="num_lanes"):
+        decode(states[:-1], stream, 100, fam, cfg)
+    with pytest.raises(ValueError, match="models"):
+        decode(states, stream, 99, fam, cfg)
+    with pytest.raises(ValueError, match="one trial count"):
+        decode(states, stream, 100,
+               BinomialFamily(np.arange(100) + 1, np.full(100, 0.5), 12),
+               cfg)
