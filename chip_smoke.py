@@ -145,22 +145,34 @@ prints one JSON object per phase, then the kernels line, the card's
                     (the host codec at S=32) and with its plain version in
                     place, whose snapshots must be the same.
     sharded      -- the block-sharded containers (``constriction_tpu_torch.
-                    parallel``, B=8, the config ``parallel.encode`` picks):
-                    ``sharded_bytes``: v1 rANS, compact v2 rANS and v1
-                    range containers of the first N_KERNEL_CHECK symbols at
-                    P=24 and P=12 written on the card, byte for byte the
-                    port's host coders' (``parallel.encode_host``),
-                    decoded exactly, and one within-block checkpoint seek
-                    per preset; ``sharded_main_path``: the main workload
-                    (2^25 symbols) through ``parallel.encode`` ->
-                    ``decode`` for the six containers, exact, with the
-                    call times, each call's launches (one a block), L and
-                    T per block and the size against the single v2
-                    container; every rANS and range kernel must have
-                    launched; ``sharded_times``: each container's B block
-                    calls back to back between CUDA events beside one call
-                    of the same wrapper on the same symbols;
-                    ``sharded_dryrun``: ``parallel.dryrun([card])``, whose
+                    parallel``, B=8, the config ``parallel.encode`` picks),
+                    each call one block program (upload, launch, gather);
+                    in ``sharded_bytes``, ``sharded_main_path`` and
+                    ``sharded_dryrun`` every launch half runs under
+                    ``torch.cuda.set_sync_debug_mode("error")`` (any
+                    read-back in it fails the run) and each call's uploads
+                    and read-backs are counted: ``sharded_bytes``: v1 rANS,
+                    compact v2 rANS and v1 range containers of the first
+                    N_KERNEL_CHECK symbols at P=24 and P=12 written on the
+                    card, and on device lists that repeat it 2 and 8
+                    times, byte for byte the port's host coders'
+                    (``parallel.encode_host``), decoded exactly, and one
+                    within-block checkpoint seek per preset;
+                    ``sharded_main_path``: the main workload (2^25 symbols)
+                    through ``parallel.encode`` -> ``decode`` for the six
+                    containers, exact, with the call times, each call's
+                    launches (one a block) and transfers, L and T per
+                    block and the size against the single v2 container;
+                    every rANS and range kernel must have launched;
+                    ``sharded_times``: each container's B block calls back
+                    to back between CUDA events beside one call of the
+                    same wrapper on the same symbols, and the block
+                    program's encode and decode on the host clock
+                    (``program_*_ms``: launch and gather;
+                    ``program_launch_*_ms``: the launch half and a
+                    synchronize), on every card where torch sees more than
+                    one; ``sharded_dryrun``: ``parallel.dryrun([card])``
+                    (three containers and the eight block legs), whose
                     kernels must all have launched.
 14. tchain_kernels -- the TChain-16 and TChain-24 pairs against their twins
                     and the port's numpy host oracles (L=32768, 2^20
@@ -357,6 +369,7 @@ nothing of JAX or of the JAX package, and checks that at the end.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -2280,52 +2293,121 @@ def sharded_name(P: int, coder: str, compact: bool) -> str:
     return f"P{P}_{coder}_{'v2' if compact else 'v1'}"
 
 
+@contextlib.contextmanager
+def program_watch():
+    """Runs every launch half of the block program
+    (``parallel.container.launch``) under
+    ``torch.cuda.set_sync_debug_mode("error")``, where any host
+    synchronisation raises and ends the run, and counts the program's transfers
+    (``convert.upload`` and the gathers' ``convert.to_host``).  Yields
+    ``{"windows": [blocks of each launch half], "uploads": n,
+    "read_backs": n}``."""
+    import torch
+
+    from constriction_tpu_torch import convert
+    from constriction_tpu_torch.parallel import container
+
+    seen = {"windows": [], "uploads": 0, "read_backs": 0}
+    launch, up, back = container.launch, convert.upload, convert.to_host
+
+    def strict(step, programs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = launch(step, programs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        seen["windows"].append(sum(len(blocks) for blocks in programs))
+        return out
+
+    def counted_upload(tensors, device):
+        seen["uploads"] += 1
+        return up(tensors, device)
+
+    def counted_back(t):
+        seen["read_backs"] += 1
+        return back(t)
+
+    container.launch = strict
+    convert.upload, convert.to_host = counted_upload, counted_back
+    try:
+        yield seen
+    finally:
+        container.launch = launch
+        convert.upload, convert.to_host = up, back
+
+
+def transfers(seen: dict, fn):
+    """``fn()`` and the uploads and read-backs it made under
+    :func:`program_watch`."""
+    seen.update(uploads=0, read_backs=0)
+    out = fn()
+    return out, {"uploads": seen["uploads"],
+                 "read_backs": seen["read_backs"]}
+
+
 def phase_sharded_bytes(device, probs, symbols) -> dict:
     """The sharded containers of the first N_KERNEL_CHECK symbols of the
     main workload, written on the card (B=8, the lane config
-    ``parallel.encode`` picks), against the port's numpy host coders run
-    block by block and packed by the same framing
-    (``parallel.encode_host``), byte for byte; they must decode to the
-    symbols, and one within-block checkpoint seek per preset (v1 rANS
-    containers) must give its slice of the message."""
+    ``parallel.encode`` picks), and on device lists that repeat the card 2
+    and 8 times, against the port's numpy host coders run block by block
+    and packed by the same framing (``parallel.encode_host``), byte for
+    byte; they must decode to the symbols, and one within-block checkpoint
+    seek per preset (v1 rANS containers) must give its slice of the
+    message.  Every launch half under :func:`program_watch`."""
     import numpy as np
 
     from constriction_tpu_torch import parallel
 
     syms = symbols[:N_KERNEL_CHECK]
     rows = []
-    for P in (24, 12):
-        cdf = model_cdf(probs, P)
-        for coder_name, compact in SHARDED_CONTAINERS:
-            cont = parallel.encode(syms, cdf, num_blocks=SHARDED_BLOCKS,
-                                   device=device, coder=coder_name,
-                                   compact=compact)
-            ref = parallel.encode_host(syms, cdf, None, SHARDED_BLOCKS,
-                                       coder_name, compact)
-            out = parallel.decode(cont, cdf, device=device)
-            row = {"container": sharded_name(P, coder_name, compact),
-                   "words": int(len(cont)),
-                   "identical_to_host_oracle": bool(np.array_equal(cont, ref)),
-                   "decodes_exactly": bool(np.array_equal(out, syms))}
-            rows.append(row)
-            if not (row["identical_to_host_oracle"]
-                    and row["decodes_exactly"]):
-                fail(f"sharded bytes: {row}")
-            if coder_name == "rans" and not compact:
-                offsets, states = parallel.build_block_checkpoints(
-                    cont, cdf, SHARDED_CKPT_INTERVAL)
-                block_len = parallel.unpack_sharded(cont)[3]
-                block, c = SHARDED_BLOCKS - 1, offsets.shape[1] // 2
-                start, suffix = parallel.decode_block_from_checkpoint(
-                    cont, cdf, SHARDED_CKPT_INTERVAL, block, c, offsets,
-                    states, device=device)
-                row["seek"] = {"block": block, "checkpoint": c,
-                               "start_symbol": int(start),
-                               "suffix_exact": bool(np.array_equal(
-                                   suffix, syms[start:(block + 1)
-                                                * block_len]))}
-                if not row["seek"]["suffix_exact"]:
-                    fail(f"sharded seek: {row}")
+    with program_watch() as seen:
+        for P in (24, 12):
+            cdf = model_cdf(probs, P)
+            for coder_name, compact in SHARDED_CONTAINERS:
+                def encode(devices):
+                    return parallel.encode(
+                        syms, cdf, num_blocks=SHARDED_BLOCKS, device=devices,
+                        coder=coder_name, compact=compact)
+
+                windows = len(seen["windows"])
+                cont, enc = transfers(seen, lambda: encode(device))
+                out, dec = transfers(
+                    seen, lambda: parallel.decode(cont, cdf, device=device))
+                ref = parallel.encode_host(syms, cdf, None, SHARDED_BLOCKS,
+                                           coder_name, compact)
+                row = {"container": sharded_name(P, coder_name, compact),
+                       "words": int(len(cont)),
+                       "identical_to_host_oracle": bool(
+                           np.array_equal(cont, ref)),
+                       "decodes_exactly": bool(np.array_equal(out, syms)),
+                       "transfers": {"encode": enc, "decode": dec}}
+                for k in (2, 8):
+                    row[f"card_x{k}_identical"] = bool(
+                        np.array_equal(encode([device] * k), ref)
+                        and np.array_equal(parallel.decode(
+                            ref, cdf, device=[device] * k), syms))
+                row["launch_windows"] = len(seen["windows"]) - windows
+                rows.append(row)
+                if not (row["identical_to_host_oracle"]
+                        and row["decodes_exactly"]
+                        and row["card_x2_identical"]
+                        and row["card_x8_identical"]):
+                    fail(f"sharded bytes: {row}")
+                if coder_name == "rans" and not compact:
+                    offsets, states = parallel.build_block_checkpoints(
+                        cont, cdf, SHARDED_CKPT_INTERVAL)
+                    block_len = parallel.unpack_sharded(cont)[3]
+                    block, c = SHARDED_BLOCKS - 1, offsets.shape[1] // 2
+                    start, suffix = parallel.decode_block_from_checkpoint(
+                        cont, cdf, SHARDED_CKPT_INTERVAL, block, c, offsets,
+                        states, device=device)
+                    row["seek"] = {"block": block, "checkpoint": c,
+                                   "start_symbol": int(start),
+                                   "suffix_exact": bool(np.array_equal(
+                                       suffix, syms[start:(block + 1)
+                                                    * block_len]))}
+                    if not row["seek"]["suffix_exact"]:
+                        fail(f"sharded seek: {row}")
     return {"phase": "sharded_bytes", "n": len(syms),
             "blocks": SHARDED_BLOCKS, "cases": rows}
 
@@ -2351,14 +2433,16 @@ def phase_sharded_main(device, probs, symbols, singles: dict,
         for coder_name, compact in SHARDED_CONTAINERS:
             name = sharded_name(P, coder_name, compact)
             before = {m: dict(c) for m, c in counters.items()}
-            t0 = time.perf_counter()
-            cont = parallel.encode(symbols, cdf, num_blocks=SHARDED_BLOCKS,
-                                   device=device, coder=coder_name,
-                                   compact=compact)
-            t1 = time.perf_counter()
-            mid = {m: dict(c) for m, c in counters.items()}
-            out = parallel.decode(cont, cdf, device=device)
-            t2 = time.perf_counter()
+            with program_watch() as seen:
+                t0 = time.perf_counter()
+                cont, enc = transfers(seen, lambda: parallel.encode(
+                    symbols, cdf, num_blocks=SHARDED_BLOCKS, device=device,
+                    coder=coder_name, compact=compact))
+                t1 = time.perf_counter()
+                mid = {m: dict(c) for m, c in counters.items()}
+                out, dec = transfers(
+                    seen, lambda: parallel.decode(cont, cdf, device=device))
+                t2 = time.perf_counter()
             fields = (parallel.unpack_sharded_v2(cont) if compact
                       else parallel.unpack_sharded(cont))
             block_len, cfg = fields[3], fields[4]
@@ -2371,6 +2455,8 @@ def phase_sharded_main(device, probs, symbols, singles: dict,
                 "k_tail": int(fields[5]) if compact else 0,
                 "decodes_exactly": bool(np.array_equal(out, symbols)),
                 "encode_call_s": t1 - t0, "decode_call_s": t2 - t1,
+                "transfers": {"encode": enc, "decode": dec},
+                "launch_windows": seen["windows"],
                 "encode_launches": {
                     f"{m}.{k}": c[k] - before[m][k]
                     for m, c in mid.items() for k in c
@@ -2388,6 +2474,52 @@ def phase_sharded_main(device, probs, symbols, singles: dict,
             "blocks": SHARDED_BLOCKS, "cases": rows}
 
 
+def program_ms(devices, program, reps: int = 3) -> tuple[float, float]:
+    """Milliseconds per call of a block program ``(programs, step,
+    finish)`` on the host clock after a warm-up, each run started after
+    every card's ``synchronize()``: (launch and gather, the launch half and
+    a ``synchronize()``)."""
+    import torch
+
+    from constriction_tpu_torch.parallel import container
+
+    programs, step, finish = program
+    cards = sorted({torch.device(d) for d in devices}, key=str)
+
+    def sync():
+        for card in cards:
+            torch.cuda.synchronize(card)
+
+    container.gather(finish, container.launch(step, programs))
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        container.gather(finish, container.launch(step, programs))
+    t1 = time.perf_counter()
+    sync()
+    t2 = time.perf_counter()
+    for _ in range(reps):
+        container.launch(step, programs)
+        sync()
+    t3 = time.perf_counter()
+    return (t1 - t0) * 1e3 / reps, (t3 - t2) * 1e3 / reps
+
+
+def program_times(devices, padded, seeds, states, streams, cdf_np, cfg,
+                  block_len: int, coder_id: int) -> dict:
+    """:func:`program_ms` of a container's encode and decode programs on
+    ``devices``."""
+    from constriction_tpu_torch.parallel import container
+
+    B = len(streams)
+    enc = program_ms(devices, container.encode_program(
+        padded, cdf_np, cfg, B, block_len, coder_id, seeds, devices))
+    dec = program_ms(devices, container.decode_program(
+        states, streams, cdf_np, cfg, block_len, coder_id, devices))
+    return {"program_encode_ms": enc[0], "program_launch_encode_ms": enc[1],
+            "program_decode_ms": dec[0], "program_launch_decode_ms": dec[1]}
+
+
 def phase_sharded_times(device, keep: dict, gpu: str) -> dict:
     """The B blocks' wrapper calls of each container back to back between
     CUDA events, beside one call of the same wrapper on the same symbols
@@ -2395,12 +2527,16 @@ def phase_sharded_times(device, keep: dict, gpu: str) -> dict:
     rANS decode reads nothing back; the encodes (their end pointer, and a
     seeded one its seeds' check) and the range decode (its invalid-data
     flag) read back once a call, so the blocks' time holds B such waits
-    and the host work each exposes."""
+    and the host work each exposes.  Beside them the block program of the
+    same blocks (:func:`program_times`), which waits for nothing between
+    launches; with more than one card, also over every card."""
+    import numpy as np
     import torch
 
     from constriction_tpu_torch import convert, parallel
     from constriction_tpu_torch.ops import coder, coder64, range_enc
 
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     rows = []
     for name, (coder_name, compact, cdf_np, cont) in keep.items():
         fields = (parallel.unpack_sharded_v2(cont) if compact
@@ -2439,7 +2575,7 @@ def phase_sharded_times(device, keep: dict, gpu: str) -> dict:
         one_st, one_sw = encode(whole, seeds[0])
         if mismatch(dec(one_st, one_sw, cdf, cfg, whole.numel()), whole):
             fail(f"sharded times: {name}: one call's round trip")
-        rows.append({
+        row = {
             "container": name, "blocks": len(streams),
             "num_lanes": cfg.num_lanes,
             "steps_per_block": -(-block_len // cfg.num_lanes),
@@ -2452,9 +2588,37 @@ def phase_sharded_times(device, keep: dict, gpu: str) -> dict:
                                           3),
             "one_call_decode_ms": time_ms(
                 lambda: dec(one_st, one_sw, cdf, cfg, whole.numel()), 3),
-            "gpu": gpu,
-        })
-    return {"phase": "sharded_times", "cases": rows}
+        }
+        program = (
+            whole.cpu().numpy(),
+            np.stack([convert.states_from_torch(sd, cfg) for sd in seeds])
+            if compact else None,
+            states, streams, cdf_np, cfg, block_len,
+            parallel.CODER_RANGE if ranged else parallel.CODER_RANS)
+        row.update(program_times([device], *program))
+        if len(cards) > 1:
+            row["all_cards"] = {"cards": len(cards),
+                                **program_times(cards, *program)}
+        row["gpu"] = gpu
+        rows.append(row)
+    return {"phase": "sharded_times", "cases": rows,
+            "multi_card": (f"{len(cards)} cards: all_cards" if len(cards) > 1
+                           else "not measured: torch sees one card")}
+
+
+def phase_sharded_dryrun(device) -> dict:
+    """``parallel.dryrun([card])`` under :func:`program_watch`: its three
+    containers (an encode and a decode each) and eight block legs, one
+    launch window each, none with a host synchronisation."""
+    from constriction_tpu_torch.parallel import dryrun
+
+    with program_watch() as seen:
+        legs = dryrun([device])
+    if len(seen["windows"]) != 3 * 2 + 8:
+        fail(f"sharded dryrun: {len(seen['windows'])} launch windows")
+    return {"phase": "sharded_dryrun", "legs": legs,
+            "launch_windows": len(seen["windows"]),
+            "uploads": seen["uploads"], "read_backs": seen["read_backs"]}
 
 
 def cat_presets() -> dict:
@@ -4899,10 +5063,8 @@ def main(argv) -> int:
                   lambda: phase_sharded_main(device, probs, symbols,
                                              containers, sharded))
     emit(phase_sharded_times(device, sharded, gpu))
-    from constriction_tpu_torch.parallel import dryrun
     run_main_path(modules, DRYRUN_KERNELS,
-                  lambda: {"phase": "sharded_dryrun",
-                           "legs": dryrun([device])})
+                  lambda: phase_sharded_dryrun(device))
 
     tchain_rec, tchain_errs = phase_tchain_kernels(device, N_KERNEL_CHECK_TCHAIN)
     emit(tchain_rec)

@@ -31,6 +31,10 @@ torch has few operations on unsigned integers:
 Kernels read these buffers as ``uint32_t`` / ``uint64_t``; the plain twins
 widen them with :func:`u32_values` / :func:`u64_halves`.
 
+A block program (``parallel``) moves its data in bulk: :func:`upload` puts
+many tensors on a device in one transfer, and :func:`read_back` brings the
+outputs of many launches back in at most two, through :func:`to_host`.
+
 JAX counterpart of this module: the JAX package keeps the same data as
 numpy u32/u64 arrays and moves them with ``jnp.asarray``; its S=64 kernels
 split u64 states into (hi, lo) u32 tiles
@@ -305,3 +309,71 @@ def u64_join(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     counterpart: the (hi, lo) join in ``pallas_coder64`` wrappers."""
     signed_hi = torch.where(hi >= 1 << 31, hi - (1 << 32), hi)
     return signed_hi * (1 << 32) + lo
+
+
+# ---------------------------------------------------------------------------
+# bulk transfers
+# ---------------------------------------------------------------------------
+
+# each tensor's bytes start at a multiple of this in a packed buffer, so
+# every piece can be viewed back as its dtype
+_ALIGN = 16
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bytes as a flat uint8 view (of a copy where its flat form
+    has no unit stride, as a one-element tensor may have)."""
+    t = t.reshape(-1)
+    if t.stride(0) != 1:
+        t = t.clone(memory_format=torch.contiguous_format)
+    return t.view(torch.uint8)
+
+
+def upload(tensors, device) -> list:
+    """One host -> device transfer of several tensors: their bytes packed
+    into one buffer, moved to ``device`` and viewed back as tensors of the
+    inputs' dtypes and shapes (views of that buffer).  JAX counterpart: the
+    ``jnp.asarray`` of a ``shard_map``'s inputs."""
+    sizes = [t.numel() * t.element_size() for t in tensors]
+    starts = np.cumsum([0] + [-(-b // _ALIGN) * _ALIGN for b in sizes])
+    buf = torch.empty(int(starts[-1]), dtype=torch.uint8)
+    for t, at, b in zip(tensors, starts, sizes):
+        buf[at:at + b] = _bytes(t.detach().cpu())
+    buf = buf.to(device)
+    return [buf[at:at + b].view(t.dtype).reshape(t.shape)
+            for t, at, b in zip(tensors, starts, sizes)]
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """One device -> host transfer: ``t`` as a numpy array.  The gathers of
+    the block programs read back through this function alone."""
+    return t.detach().cpu().numpy()
+
+
+def read_back(outputs) -> list:
+    """The outputs of launches on one device as numpy arrays, in at most
+    two transfers (:func:`to_host`) however many there are.  Each output
+    is a tensor, read whole, or the ``(buf, end)`` pair of a launch form,
+    read as ``buf[end:]`` (``end`` an int64[1] tensor).  The ends come back
+    first, in one transfer; then every output, in one more.  The arrays
+    keep the outputs' dtypes and shapes; they are views of that one host
+    buffer, which none of them overlaps.  JAX counterpart: the
+    ``all_gather`` and ``np.asarray`` closing a ``shard_map``."""
+    if not outputs:
+        return []
+    ends = [o[1] for o in outputs if isinstance(o, tuple)]
+    if ends:
+        at = iter(to_host(torch.cat(ends)).tolist())
+        outputs = [o[0][next(at):] if isinstance(o, tuple) else o
+                   for o in outputs]
+    pieces, starts, at = [], [], 0
+    for o in outputs:
+        b = _bytes(o)
+        pad = -b.numel() % _ALIGN
+        pieces += [b, b.new_zeros(pad)] if pad else [b]
+        starts.append(at)
+        at += b.numel() + pad
+    flat = to_host(torch.cat(pieces))
+    return [flat[at:at + o.numel() * o.element_size()]
+            .view(torch.empty(0, dtype=o.dtype).numpy().dtype)
+            .reshape(o.shape) for o, at in zip(outputs, starts)]

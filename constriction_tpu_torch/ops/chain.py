@@ -120,12 +120,24 @@ def _pop_words(data, n: int) -> np.ndarray:
     return pop
 
 
-def chain_decode_iid(data, n: int, cdf, xp=torch, device="cpu"):
+def _torch_device(xp, device):
+    """The device of the torch path (``cuda._device``: a CUDA device without
+    a card raises); None for numpy."""
+    if xp is np:
+        return None
+    from ..cuda import _device
+
+    return _device(device)
+
+
+def chain_decode_iid(data, n: int, cdf, xp=torch, device="cuda"):
     """Decode ``n`` i.i.d. symbols from chain-coder data (default preset,
     ``ChainCoderCore.from_compressed`` framing) under the fixed-point
-    ``cdf`` (P=24).  With ``xp=torch`` the work runs on ``device`` and
-    returns an int32 tensor there; with ``xp=np`` it is numpy throughout.
-    JAX counterpart: ``chain_jax.chain_decode_iid``."""
+    ``cdf`` (P=24).  With ``xp=torch`` the work runs on ``device`` (the
+    card by default; ``"cpu"`` for the CPU) and returns an int32 tensor
+    there; with ``xp=np`` it is numpy throughout.  JAX counterpart:
+    ``chain_jax.chain_decode_iid``."""
+    device = _torch_device(xp, device)
     pop = _pop_words(data, n)
     cuts = np.asarray(cdf, dtype=np.int64)[1:-1]
     if xp is np:
@@ -137,11 +149,12 @@ def chain_decode_iid(data, n: int, cdf, xp=torch, device="cpu"):
                               right=True).to(torch.int32)
 
 
-def chain_decode_rows(data, rows, xp=torch, device="cpu"):
+def chain_decode_rows(data, rows, xp=torch, device="cuda"):
     """Decode with one categorical model per symbol: ``rows`` is [n, K+1]
     fixed-point CDFs (last column 2^24).  ``xp`` and ``device`` as in
     :func:`chain_decode_iid`.  JAX counterpart:
     ``chain_jax.chain_decode_rows``."""
+    device = _torch_device(xp, device)
     rows = np.asarray(rows)
     n = rows.shape[0]
     pop = _pop_words(data, n)

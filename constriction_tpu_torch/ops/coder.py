@@ -124,12 +124,15 @@ def _check_cdf_arg(cdf, device: torch.device) -> None:
 
 
 def _check_seeds(seeds, cfg: LaneConfig, dtype: torch.dtype,
-                 device: torch.device) -> None:
-    """Same errors as ``interleaved2.encode_shared``."""
+                 device: torch.device, values: bool = True) -> None:
+    """Same errors as ``interleaved2.encode_shared``; ``values`` checks the
+    range of the seeds too (one read-back from a card)."""
     L, S, W = cfg.num_lanes, cfg.state_bits, cfg.word_bits
     if seeds.numel() != L:
         raise ValueError(f"seeds must have num_lanes={L} entries")
     _check("seeds", seeds, dtype, device)
+    if not values:
+        return
     if S > 32:  # int64 bits: below the floor 2^32 iff in [0, 2^32)
         bad = (seeds >= 0) & (seeds < 1 << (S - W))
     else:
@@ -138,16 +141,18 @@ def _check_seeds(seeds, cfg: LaneConfig, dtype: torch.dtype,
         raise ValueError("seeds must lie in [2^(S-W), 2^S)")
 
 
-def _encode_args(symbols, cdf, cfg: LaneConfig, seeds, state_dtype):
-    """Validates the encoder's arguments; returns the start states (a fresh
-    tensor the coder may update in place)."""
+def _encode_args(symbols, cdf, cfg: LaneConfig, seeds, state_dtype,
+                 seed_values: bool = True):
+    """Validates the encoder's arguments (the seeds' range with
+    ``seed_values``); returns the start states (a fresh tensor the coder
+    may update in place)."""
     if not isinstance(symbols, torch.Tensor):
         raise TypeError("symbols must be a torch.Tensor")
     device = symbols.device
     _check("symbols", symbols, torch.int32, device)
     _check_cdf_arg(cdf, device)
     if seeds is not None:
-        _check_seeds(seeds, cfg, state_dtype, device)
+        _check_seeds(seeds, cfg, state_dtype, device, seed_values)
         return seeds.clone()
     floor = 1 << (cfg.state_bits - cfg.word_bits)
     return torch.full((cfg.num_lanes,), floor, dtype=state_dtype,
@@ -255,9 +260,10 @@ def compaction_scratch(T: int, L: int, device):
 
 def _launch_encode(tag: str, symbols, cdf, cfg: LaneConfig, states):
     """Both encode passes in one C call, coding into ``states`` in place;
-    returns (final states, stream).  The scratch: the dense words (T * L),
+    returns (final states, buf int32[n], end int64[1]), the stream
+    ``buf[end:]`` (:func:`trim`).  The scratch: the dense words (T * L),
     the ballots (T * L / 32), the compaction's block offsets and each
-    symbol's division record.  Reads the stream's start back (one sync)."""
+    symbol's division record.  Reads nothing back."""
     device = symbols.device
     n, L = symbols.numel(), cfg.num_lanes
     T = _num_steps(n, L)
@@ -269,7 +275,31 @@ def _launch_encode(tag: str, symbols, cdf, cfg: LaneConfig, states):
         cdf32.numel() - 1, buf, n, end, *compaction_scratch(T, L, device),
         _records(cdf32, cfg), L, cfg.precision,
     )
-    return states, buf[int(end.item()):]
+    return states, buf, end
+
+
+def trim(buf, end):
+    """The stream of a launch form's ``(buf, end)``: ``buf[end:]``.  Reads
+    ``end`` back (one sync)."""
+    return buf[int(end.item()):]
+
+
+def _encode(tag: str, symbols, cdf, cfg: LaneConfig, seeds, state_dtype,
+            seed_values: bool, plain, launches: dict):
+    """The rANS encode of either preset as a launch form: ``(states, buf,
+    end)`` on the symbols' device, the stream ``buf[end:]``, nothing read
+    back but, with ``seed_values``, the seeds' range.  CPU tensors run the
+    twin ``plain``, with end 0."""
+    states = _encode_args(symbols, cdf, cfg, seeds, state_dtype, seed_values)
+    device = symbols.device
+    if not _on_cuda(device):
+        states, stream = plain(symbols, cdf, cfg, seeds)
+        return states, stream, torch.zeros(1, dtype=torch.int64)
+    if symbols.numel() == 0:
+        return (states, torch.zeros(0, dtype=torch.int32, device=device),
+                torch.zeros(1, dtype=torch.int64, device=device))
+    launches["encode"] += 1
+    return _launch_encode(tag, symbols, cdf, cfg, states)
 
 
 def _launch_lanes(tag: str, symbols, cdf, cfg: LaneConfig, states):
@@ -400,8 +430,8 @@ def _raise_if_invalid(first_bad: int, n: int) -> None:
 def _launch_range_decode(tag: str, planes, stream, cdf, cfg: LaneConfig,
                          n: int, cluster: int = 0):
     """One range-decode launch updating ``planes`` (lows, rngs, pts) in
-    place; returns symbols int32[n].  Reads the invalid-data flag back (one
-    sync) and raises on it.  Both presets run the cluster decode (a
+    place; returns (symbols int32[n], flag int64[1]): the flag holds the
+    first symbol whose quantile was >= 2^P, or n.  Reads nothing back.  Both presets run the cluster decode (a
     ValueError for an L past its reach): ``cluster`` CTAs, or the size it
     picks from L when 0."""
     device = stream.device
@@ -420,8 +450,26 @@ def _launch_range_decode(tag: str, planes, stream, cdf, cfg: LaneConfig,
         entry, device, *planes, stream, stream.numel(), cdf32,
         cdf32.numel() - 1, syms, n, L, cfg.precision, bad, *extra,
     )
-    _raise_if_invalid(int(bad.item()), n)
-    return syms
+    return syms, bad
+
+
+def _range_decode(tag: str, points, stream, cdf, cfg: LaneConfig, n: int,
+                  lows, rngs, state_dtype, steps, launches: dict):
+    """The range decode of either preset as a launch form: (symbols
+    int32[n], flag int64[1], final (lows, rngs, pts)), nothing read back.
+    CPU tensors run the twin's ``steps``."""
+    planes = _range_decode_args(points, stream, cdf, cfg, lows, rngs,
+                                state_dtype)
+    device = points.device
+    if not _on_cuda(device):
+        syms, planes, bad = steps(points, stream, cdf, cfg, n, lows, rngs)
+        return syms, bad.reshape(1), planes
+    if n == 0:
+        return (torch.zeros(0, dtype=torch.int32, device=device),
+                torch.zeros(1, dtype=torch.int64, device=device), planes)
+    syms, bad = _launch_range_decode(tag, planes, stream, cdf, cfg, n)
+    launches["range_decode"] += 1
+    return syms, bad, planes
 
 
 # ---------------------------------------------------------------------------
@@ -440,14 +488,21 @@ def encode_iid(symbols, cdf, cfg: LaneConfig, seeds=None):
     states and the W-bit words, one per element.  CUDA tensors launch the
     kernel, CPU tensors run :func:`encode_iid_plain`."""
     _check_cfg(cfg, 16, 32, 16)
-    states = _encode_args(symbols, cdf, cfg, seeds, torch.int32)
-    if not _on_cuda(symbols.device):
-        return encode_iid_plain(symbols, cdf, cfg, seeds)
-    if symbols.numel() == 0:
-        return states, torch.zeros(0, dtype=torch.int32,
-                                   device=symbols.device)
-    LAUNCHES["encode"] += 1
-    return _launch_encode("w16s32", symbols, cdf, cfg, states)
+    states, buf, end = _encode("w16s32", symbols, cdf, cfg, seeds,
+                               torch.int32, True, encode_iid_plain, LAUNCHES)
+    return states, trim(buf, end)
+
+
+def launch_encode_iid(symbols, cdf, cfg: LaneConfig, seeds=None):
+    """:func:`encode_iid` as a launch form: ``(states int32[L], buf, end
+    int64[1])`` on the symbols' device, the stream ``buf[end:]``
+    (:func:`trim`).  It reads nothing back, so the seeds' range is not
+    checked: the caller checks it on the host
+    (``interleaved2.check_seeds``).  CPU tensors run
+    :func:`encode_iid_plain`, with end 0."""
+    _check_cfg(cfg, 16, 32, 16)
+    return _encode("w16s32", symbols, cdf, cfg, seeds, torch.int32, False,
+                   encode_iid_plain, LAUNCHES)
 
 
 def encode_iid_plain(symbols, cdf, cfg: LaneConfig, seeds=None):
@@ -687,17 +742,21 @@ def decode_shared_range(points, stream, cdf, cfg: LaneConfig, n: int,
     :data:`MAX_DECODE_LANES`), CPU tensors run
     :func:`decode_shared_range_plain`."""
     _check_cfg(cfg, 16, 32, 16)
-    planes = _range_decode_args(points, stream, cdf, cfg, lows, rngs,
-                                torch.int32)
-    if not _on_cuda(points.device):
-        return decode_shared_range_plain(points, stream, cdf, cfg, n, lows,
-                                         rngs, return_final_states)
-    if n == 0:
-        syms = torch.zeros(0, dtype=torch.int32, device=points.device)
-    else:
-        syms = _launch_range_decode("w16s32", planes, stream, cdf, cfg, n)
-        LAUNCHES["range_decode"] += 1
+    syms, bad, planes = _range_decode("w16s32", points, stream, cdf, cfg, n,
+                                      lows, rngs, torch.int32, _range_steps32,
+                                      LAUNCHES)
+    _raise_if_invalid(int(bad.item()), n)
     return (syms, planes) if return_final_states else syms
+
+
+def launch_decode_shared_range(points, stream, cdf, cfg: LaneConfig, n: int,
+                               lows=None, rngs=None):
+    """:func:`decode_shared_range` as a launch form: ``(symbols int32[n],
+    flag int64[1])``, nothing read back: the flag holds the first symbol
+    whose quantile was >= 2^P, or n.  CPU tensors run the twin's steps."""
+    _check_cfg(cfg, 16, 32, 16)
+    return _range_decode("w16s32", points, stream, cdf, cfg, n, lows, rngs,
+                         torch.int32, _range_steps32, LAUNCHES)[:2]
 
 
 def decode_shared_range_cluster(points, stream, cdf, cfg: LaneConfig, n: int,
@@ -721,8 +780,10 @@ def _range_cluster(tag: str, points, stream, cdf, cfg: LaneConfig, n: int,
         raise ValueError("a forced cluster size needs CUDA tensors")
     if not 1 <= cluster <= 16:
         raise ValueError(f"cluster must be in 1 .. 16, got {cluster}")
-    syms = _launch_range_decode(tag, planes, stream, cdf, cfg, n, cluster)
+    syms, bad = _launch_range_decode(tag, planes, stream, cdf, cfg, n,
+                                     cluster)
     launches["range_decode"] += 1
+    _raise_if_invalid(int(bad.item()), n)
     return syms, planes
 
 
@@ -842,6 +903,17 @@ def decode_shared_range_plain(points, stream, cdf, cfg: LaneConfig, n: int,
     argument checks).  JAX counterpart:
     ``constriction_tpu.ops.pallas_coder.decode_shared_range_pallas``; numpy
     oracle ``interleaved2.decode_shared_range_cdf``."""
+    syms, planes, first_bad = _range_steps32(points, stream, cdf, cfg, n,
+                                             lows, rngs)
+    _raise_if_invalid(int(first_bad), n)
+    return (syms, planes) if return_final_states else syms
+
+
+def _range_steps32(points, stream, cdf, cfg: LaneConfig, n: int, lows,
+                   rngs):
+    """The step loop of :func:`decode_shared_range_plain`: (symbols
+    int32[n], final (lows, rngs, pts), the first bad symbol or n as an
+    int64 tensor)."""
     L, S, W, P = cfg.num_lanes, cfg.state_bits, cfg.word_bits, cfg.precision
     M = (1 << S) - 1
     device = points.device
@@ -876,8 +948,5 @@ def decode_shared_range_plain(points, stream, cdf, cfg: LaneConfig, n: int,
         rg = torch.where(m, rg << W, rg)
         pt = torch.where(m, ((pt << W) & M) | w, pt)
         out[t * L:(t + 1) * L] = sym.to(torch.int32)
-    _raise_if_invalid(int(first_bad), n)
-    syms = out[:n]
-    if return_final_states:
-        return syms, tuple(convert.u32_bits(v) for v in (lo, rg, pt))
-    return syms
+    return (out[:n], tuple(convert.u32_bits(v) for v in (lo, rg, pt)),
+            first_bad)

@@ -48,24 +48,24 @@ from .coder import (  # noqa: F401 (pass B and its helpers, re-exported)
     _check_cluster_args,
     _decode_args,
     _emit_words,
+    _encode,
     _encode_args,
     _find_symbols,
     _geometry,
     _launch_decode,
-    _launch_encode,
     _launch_lanes,
-    _launch_range_decode,
     _num_steps,
     _on_cuda,
     _raise_if_invalid,
     _range_cluster,
-    _range_decode_args,
+    _range_decode,
     _refill_words,
     _symbol_tables,
     ballot_flags,
     compact_pass,
     compact_pass_plain,
     flag_ballots,
+    trim,
 )
 from .coder import range_quantile as coder_range_quantile
 from .coder import range_quotient as coder_range_quotient
@@ -144,14 +144,20 @@ def encode_iid64(symbols, cdf, cfg: LaneConfig, seeds=None):
     ``(states int64[L], stream int32[num_words])``.  CUDA tensors launch the
     kernel, CPU tensors run :func:`encode_iid64_plain`."""
     _check_cfg(cfg, 32, 64, 24)
-    states = _encode_args(symbols, cdf, cfg, seeds, torch.int64)
-    if not _on_cuda(symbols.device):
-        return encode_iid64_plain(symbols, cdf, cfg, seeds)
-    if symbols.numel() == 0:
-        return states, torch.zeros(0, dtype=torch.int32,
-                                   device=symbols.device)
-    LAUNCHES["encode"] += 1
-    return _launch_encode("w32s64", symbols, cdf, cfg, states)
+    states, buf, end = _encode("w32s64", symbols, cdf, cfg, seeds,
+                               torch.int64, True, encode_iid64_plain,
+                               LAUNCHES)
+    return states, trim(buf, end)
+
+
+def launch_encode_iid64(symbols, cdf, cfg: LaneConfig, seeds=None):
+    """:func:`encode_iid64` as a launch form: ``(states int64[L], buf, end
+    int64[1])``, the stream ``buf[end:]``, nothing read back (the seeds'
+    range is the caller's to check), as ``coder.launch_encode_iid``.  CPU
+    tensors run :func:`encode_iid64_plain`, with end 0."""
+    _check_cfg(cfg, 32, 64, 24)
+    return _encode("w32s64", symbols, cdf, cfg, seeds, torch.int64, False,
+                   encode_iid64_plain, LAUNCHES)
 
 
 def encode_iid64_plain(symbols, cdf, cfg: LaneConfig, seeds=None):
@@ -414,17 +420,21 @@ def decode_shared_range64(points, stream, cdf, cfg: LaneConfig, n: int,
     tensors launch the kernel, CPU tensors run
     :func:`decode_shared_range64_plain`."""
     _check_cfg(cfg, 32, 64, 24)
-    planes = _range_decode_args(points, stream, cdf, cfg, lows, rngs,
-                                torch.int64)
-    if not _on_cuda(points.device):
-        return decode_shared_range64_plain(points, stream, cdf, cfg, n, lows,
-                                           rngs, return_final_states)
-    if n == 0:
-        syms = torch.zeros(0, dtype=torch.int32, device=points.device)
-    else:
-        syms = _launch_range_decode("w32s64", planes, stream, cdf, cfg, n)
-        LAUNCHES["range_decode"] += 1
+    syms, bad, planes = _range_decode("w32s64", points, stream, cdf, cfg, n,
+                                      lows, rngs, torch.int64, _range_steps64,
+                                      LAUNCHES)
+    _raise_if_invalid(int(bad.item()), n)
     return (syms, planes) if return_final_states else syms
+
+
+def launch_decode_shared_range64(points, stream, cdf, cfg: LaneConfig, n: int,
+                                 lows=None, rngs=None):
+    """:func:`decode_shared_range64` as a launch form: ``(symbols
+    int32[n], flag int64[1])``, nothing read back, as
+    ``coder.launch_decode_shared_range``."""
+    _check_cfg(cfg, 32, 64, 24)
+    return _range_decode("w32s64", points, stream, cdf, cfg, n, lows, rngs,
+                         torch.int64, _range_steps64, LAUNCHES)[:2]
 
 
 def decode_shared_range64_cluster(points, stream, cdf, cfg: LaneConfig,
@@ -455,6 +465,17 @@ def decode_shared_range64_plain(points, stream, cdf, cfg: LaneConfig, n: int,
     argument checks), on (hi, lo) halves.  JAX counterpart:
     ``constriction_tpu.ops.pallas_coder64.decode_shared_range64_pallas``;
     numpy oracle ``interleaved2.decode_shared_range_cdf``."""
+    syms, planes, first_bad = _range_steps64(points, stream, cdf, cfg, n,
+                                             lows, rngs)
+    _raise_if_invalid(int(first_bad), n)
+    return (syms, planes) if return_final_states else syms
+
+
+def _range_steps64(points, stream, cdf, cfg: LaneConfig, n: int, lows,
+                   rngs):
+    """The step loop of :func:`decode_shared_range64_plain`: (symbols
+    int32[n], final (lows, rngs, pts), the first bad symbol or n as an
+    int64 tensor)."""
     L, P = cfg.num_lanes, cfg.precision
     device = points.device
     zeros = torch.zeros(L, dtype=torch.int64, device=device)
@@ -493,9 +514,5 @@ def decode_shared_range64_plain(points, stream, cdf, cfg: LaneConfig, n: int,
         r_hi, r_lo = torch.where(m, r_lo, r_hi), torch.where(m, 0, r_lo)
         p_hi, p_lo = torch.where(m, p_lo, p_hi), torch.where(m, w, p_lo)
         out[t * L:(t + 1) * L] = sym.to(torch.int32)
-    _raise_if_invalid(int(first_bad), n)
-    syms = out[:n]
-    if return_final_states:
-        return syms, tuple(convert.u64_join(h, lo) for h, lo in (
-            (l_hi, l_lo), (r_hi, r_lo), (p_hi, p_lo)))
-    return syms
+    return out[:n], tuple(convert.u64_join(h, lo) for h, lo in (
+        (l_hi, l_lo), (r_hi, r_lo), (p_hi, p_lo))), first_bad

@@ -326,12 +326,16 @@ def check_model(cfg: LaneConfig, family: str, min_sym: int, max_sym: int,
             f"of leakiness per symbol")
 
 
-def check_params(means, scales, count: int, device: torch.device) -> None:
+def check_params(means, scales, count: int, device: torch.device,
+                 values: bool = True) -> None:
     """Means must be finite and every scale's float32 reciprocal finite and
     positive: anything else makes the truncating cast depend on the
-    backend.  (The JAX package does not check.)"""
+    backend.  (The JAX package does not check.)  Without ``values`` only
+    the tensors' types and sizes are checked, with no read-back."""
     _check("means", means, torch.float32, device, count)
     _check("scales", scales, torch.float32, device, count)
+    if not values:
+        return
     if not bool(torch.isfinite(means).all()):
         raise ValueError("means must be finite")
     inv = 1.0 / scales
@@ -576,14 +580,14 @@ def family_lanes_pass(recs, cfg: LaneConfig):
 
 
 def _decode_args(states, stream, means, scales, cfg: LaneConfig,
-                 n: int) -> None:
+                 n: int, param_values: bool = True) -> None:
     if not isinstance(states, torch.Tensor):
         raise TypeError("states must be a torch.Tensor")
     device = states.device
     _check("states", states, torch.int32, device, cfg.num_lanes)
     _check("stream", stream, torch.int32, device)
     check_params(means, scales, _num_steps(n, cfg.num_lanes) * cfg.num_lanes,
-                 device)
+                 device, param_values)
 
 
 def decode_family(states, stream, means, scales, family: str, min_sym: int,
@@ -598,16 +602,30 @@ def decode_family(states, stream, means, scales, family: str, min_sym: int,
     states int32[L] (after a full decode, 2^16 each).  CUDA tensors launch
     the kernel (ValueError for L above :data:`coder.MAX_DECODE_LANES`),
     CPU tensors run :func:`decode_family_plain`."""
-    check_model(cfg, family, min_sym, max_sym)
-    _decode_args(states, stream, means, scales, cfg, n)
-    device = states.device
-    if not _on_cuda(device):
-        return decode_family_plain(states, stream, means, scales, family,
-                                   min_sym, max_sym, cfg, n,
-                                   return_final_states)
-    syms, fin = _launch_decode(states, stream, means, scales, family, min_sym,
-                               max_sym, cfg, n)
+    syms, fin = _decode_family(states, stream, means, scales, family,
+                               min_sym, max_sym, cfg, n, True)
     return (syms, fin) if return_final_states else syms
+
+
+def launch_decode_family(states, stream, means, scales, family: str,
+                         min_sym: int, max_sym: int, cfg: LaneConfig, n: int):
+    """:func:`decode_family` as a launch form: ``(symbols int32[n], final
+    states)``, nothing read back, so the parameters' values are the
+    caller's to check (:func:`check_params` on the host)."""
+    return _decode_family(states, stream, means, scales, family, min_sym,
+                          max_sym, cfg, n, False)
+
+
+def _decode_family(states, stream, means, scales, family: str, min_sym: int,
+                   max_sym: int, cfg: LaneConfig, n: int,
+                   param_values: bool):
+    check_model(cfg, family, min_sym, max_sym)
+    _decode_args(states, stream, means, scales, cfg, n, param_values)
+    if not _on_cuda(states.device):
+        return decode_family_plain(states, stream, means, scales, family,
+                                   min_sym, max_sym, cfg, n, True)
+    return _launch_decode(states, stream, means, scales, family, min_sym,
+                          max_sym, cfg, n)
 
 
 def _launch_decode(states, stream, means, scales, family: str, min_sym: int,

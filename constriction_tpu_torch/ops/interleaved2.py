@@ -124,16 +124,21 @@ def _encode_args(cums, probs, cfg: LaneConfig, seeds):
         raise ValueError(
             f"cums and probs must have equal length, got {n} vs {len(probs)}"
         )
+    return None if seeds is None else check_seeds(seeds, cfg)
+
+
+def check_seeds(seeds, cfg: LaneConfig) -> np.ndarray:
+    """Encoder start states ``[L]`` on the host: each in [2^(S-W), 2^S),
+    else ValueError.  Returns them as uint64."""
     S, W = cfg.state_bits, cfg.word_bits
-    if seeds is not None:
-        seeds = np.asarray(seeds, dtype=np.uint64).reshape(-1)
-        if len(seeds) != cfg.num_lanes:
-            raise ValueError(
-                f"seeds must have num_lanes={cfg.num_lanes} entries")
-        if np.any(seeds >> np.uint64(S - W) == 0) or (
-            S < 64 and np.any(seeds >> np.uint64(S))
-        ):
-            raise ValueError("seeds must lie in [2^(S-W), 2^S)")
+    seeds = np.asarray(seeds, dtype=np.uint64).reshape(-1)
+    if len(seeds) != cfg.num_lanes:
+        raise ValueError(
+            f"seeds must have num_lanes={cfg.num_lanes} entries")
+    if np.any(seeds >> np.uint64(S - W) == 0) or (
+        S < 64 and np.any(seeds >> np.uint64(S))
+    ):
+        raise ValueError("seeds must lie in [2^(S-W), 2^S)")
     return seeds
 
 
@@ -733,21 +738,102 @@ def unpack_container2(data):
 # ---------------------------------------------------------------------------
 
 
+def launch_encode(symbols, cdf, cfg: LaneConfig, seeds=None):
+    """The port's rANS encode at ``cfg``'s preset as a launch form, on
+    tensors on one device: ``(states, buf, end)``, the stream ``buf[end:]``
+    (``coder.launch_encode_iid`` / ``coder64.launch_encode_iid64``).
+    Nothing is read back: the seeds' range is the caller's to check
+    (:func:`check_seeds`)."""
+    launch = (coder64.launch_encode_iid64 if cfg.state_bits == 64
+              else coder.launch_encode_iid)
+    return launch(symbols, cdf, cfg, seeds)
+
+
+def launch_decode(states, stream, cdf, cfg: LaneConfig, n: int):
+    """The port's rANS decode at ``cfg``'s preset on tensors on one device:
+    ``(symbols int32[n], final states)``.  It reads nothing back (the
+    decode has no flag), so the decode itself is its launch form."""
+    decode = (coder64.decode_shared64 if cfg.state_bits == 64
+              else coder.decode_shared)
+    return decode(states, stream, cdf, cfg, n, return_final_states=True)
+
+
+def launch_encode_range(symbols, cdf, cfg: LaneConfig):
+    """The port's range encode at ``cfg``'s preset as a launch form:
+    ``(points, buf, end)`` (``range_enc.launch_encode``); the symbols'
+    range is the caller's to check."""
+    from . import range_enc
+
+    return range_enc.launch_encode(symbols, cdf, cfg)
+
+
+def launch_decode_range(points, stream, cdf, cfg: LaneConfig, n: int,
+                        lows=None, rngs=None):
+    """The port's range decode at ``cfg``'s preset as a launch form:
+    ``(symbols int32[n], flag int64[1])``
+    (``coder.launch_decode_shared_range`` /
+    ``coder64.launch_decode_shared_range64``)."""
+    launch = (coder64.launch_decode_shared_range64 if cfg.state_bits == 64
+              else coder.launch_decode_shared_range)
+    return launch(points, stream, cdf, cfg, n, lows, rngs)
+
+
+def _host_states(states: np.ndarray, cfg: LaneConfig) -> np.ndarray:
+    """int32 / int64 bit patterns read back -> u32 / u64 states."""
+    return states.view(state_dtype(cfg))
+
+
+def finish_encodes(launched: list, cfg: LaneConfig) -> list:
+    """Encodes launched on one device (:func:`launch_encode` /
+    :func:`launch_encode_range` results, in order) read back in two
+    transfers (``convert.read_back``): ``[(states or points, stream)]``
+    numpy, as :func:`encode_shared` / :func:`encode_shared_range` give
+    them."""
+    got = convert.read_back([x for st, buf, end in launched
+                             for x in (st, (buf, end))])
+    return [(_host_states(st, cfg), w.view(np.uint32))
+            for st, w in zip(got[::2], got[1::2])]
+
+
+def finish_decodes(launched: list, cfg: LaneConfig) -> list:
+    """rANS decodes launched on one device (:func:`launch_decode` results)
+    read back in one transfer: ``[(symbols int32, final states)]``."""
+    got = convert.read_back([x for pair in launched for x in pair])
+    return [(syms, _host_states(fin, cfg))
+            for syms, fin in zip(got[::2], got[1::2])]
+
+
+def finish_range_decodes(launched: list) -> list:
+    """Range decodes launched on one device (:func:`launch_decode_range`
+    results) read back in one transfer: ``[(symbols int32, flag)]``, the
+    flag the first symbol whose quantile was >= 2^P, or the symbol count
+    (:func:`range_symbols` raises on it)."""
+    got = convert.read_back([x for pair in launched for x in pair])
+    return [(syms, int(bad[0])) for syms, bad in zip(got[::2], got[1::2])]
+
+
+def range_symbols(decoded: list) -> list:
+    """The symbols of finished range decodes (:func:`finish_range_decodes`,
+    in block order); the first block whose flag names a symbol raises the
+    host oracle's ValueError."""
+    for syms, bad in decoded:
+        coder._raise_if_invalid(bad, len(syms))
+    return [syms for syms, _ in decoded]
+
+
 def encode_lanes(symbols, cdf, cfg: LaneConfig, device, seeds=None):
     """Code numpy symbols on ``device`` with the port's coder; returns
     numpy ``(states, stream)`` as :func:`encode_shared` does (u64 states
-    for S=64, u32 otherwise).  JAX counterpart:
-    ``pallas_coder.encode_iid_pallas`` / ``pallas_coder64.encode_iid64_pallas``."""
-    device = torch.device(device)
-    syms = torch.from_numpy(
-        np.ascontiguousarray(symbols, dtype=np.int32)
-    ).to(device)
-    cdf_t = convert.cdf_to_torch(cdf, device)
-    seeds_t = (None if seeds is None
-               else convert.states_to_torch(seeds, cfg, device))
-    encode = coder64.encode_iid64 if cfg.state_bits == 64 else coder.encode_iid
-    states, stream = encode(syms, cdf_t, cfg, seeds=seeds_t)
-    return convert.states_from_torch(states, cfg), convert.u32_from_torch(stream)
+    for S=64, u32 otherwise): one upload, the launch form, one finish.
+    JAX counterpart: ``pallas_coder.encode_iid_pallas`` /
+    ``pallas_coder64.encode_iid64_pallas``."""
+    inputs = [torch.from_numpy(np.ascontiguousarray(symbols, dtype=np.int32)),
+              convert.cdf_to_torch(cdf)]
+    if seeds is not None:
+        inputs.append(convert.states_to_torch(check_seeds(seeds, cfg), cfg))
+    syms, cdf_t, *seeds_t = convert.upload(inputs, torch.device(device))
+    return finish_encodes([launch_encode(syms, cdf_t, cfg, *seeds_t)],
+                          cfg)[0]
 
 
 def decode_lanes(states, stream, n: int, cdf, cfg: LaneConfig, device):
@@ -756,15 +842,10 @@ def decode_lanes(states, stream, n: int, cdf, cfg: LaneConfig, device):
     ``pallas_coder.decode_shared_pallas`` /
     ``pallas_coder64.decode_shared64_pallas`` with
     ``return_final_states=True``."""
-    device = torch.device(device)
-    decode = (coder64.decode_shared64 if cfg.state_bits == 64
-              else coder.decode_shared)
-    syms, fin = decode(
-        convert.states_to_torch(states, cfg, device),
-        convert.u32_to_torch(stream, device),
-        convert.cdf_to_torch(cdf, device), cfg, n, return_final_states=True,
-    )
-    return syms.cpu().numpy(), convert.states_from_torch(fin, cfg)
+    st, sw, cdf_t = convert.upload(
+        [convert.states_to_torch(states, cfg), convert.u32_to_torch(stream),
+         convert.cdf_to_torch(cdf)], torch.device(device))
+    return finish_decodes([launch_decode(st, sw, cdf_t, cfg, n)], cfg)[0]
 
 
 def check_precision(cfg: LaneConfig) -> None:
@@ -928,19 +1009,17 @@ def decode_from_checkpoint(ckpt_index: int, offsets, ckpt_states, stream,
 def encode_range_lanes(symbols, cdf, cfg: LaneConfig, device):
     """Range-code numpy symbols on ``device`` with the port's coder;
     returns numpy ``(points, stream)`` as :func:`encode_shared_range` does.
-    JAX counterpart: ``pallas_range_enc.encode_iid_range_pallas`` /
+    Symbols outside [0, K) raise ValueError.  JAX counterpart:
+    ``pallas_range_enc.encode_iid_range_pallas`` /
     ``encode_iid_range64_pallas``."""
-    from . import range_enc
+    from ..cuda import _check_symbols
 
-    device = torch.device(device)
-    syms = torch.from_numpy(
-        np.ascontiguousarray(symbols, dtype=np.int32)
-    ).to(device)
-    encode = (range_enc.encode_iid_range64 if cfg.state_bits == 64
-              else range_enc.encode_iid_range)
-    points, stream = encode(syms, convert.cdf_to_torch(cdf, device), cfg)
-    return (convert.states_from_torch(points, cfg),
-            convert.u32_from_torch(stream))
+    symbols = np.ascontiguousarray(symbols, dtype=np.int32)
+    _check_symbols(symbols, cdf)
+    syms, cdf_t = convert.upload(
+        [torch.from_numpy(symbols), convert.cdf_to_torch(cdf)],
+        torch.device(device))
+    return finish_encodes([launch_encode_range(syms, cdf_t, cfg)], cfg)[0]
 
 
 def decode_range_lanes(points, stream, n: int, cdf, cfg: LaneConfig, device,
@@ -951,19 +1030,13 @@ def decode_range_lanes(points, stream, n: int, cdf, cfg: LaneConfig, device,
     ``pallas_coder.decode_shared_range_pallas`` /
     ``pallas_coder64.decode_shared_range64_pallas`` (``seeded=True`` with
     planes)."""
-    device = torch.device(device)
-    decode = (coder64.decode_shared_range64 if cfg.state_bits == 64
-              else coder.decode_shared_range)
-    planes = {}
+    inputs = [convert.states_to_torch(points, cfg),
+              convert.u32_to_torch(stream), convert.cdf_to_torch(cdf)]
     if lows is not None:
-        lo, rn = convert.planes_to_torch((lows, rngs), cfg, device)
-        planes = {"lows": lo, "rngs": rn}
-    syms = decode(
-        convert.states_to_torch(points, cfg, device),
-        convert.u32_to_torch(stream, device),
-        convert.cdf_to_torch(cdf, device), cfg, n, **planes,
-    )
-    return syms.cpu().numpy()
+        inputs += convert.planes_to_torch((lows, rngs), cfg)
+    pt, sw, cdf_t, *planes = convert.upload(inputs, torch.device(device))
+    return range_symbols(finish_range_decodes(
+        [launch_decode_range(pt, sw, cdf_t, cfg, n, *planes)]))[0]
 
 
 def encode_iid_categorical_range(symbols, cdf, cfg: LaneConfig,

@@ -46,6 +46,7 @@ from .coder import (
     _on_cuda,
     _symbol_tables,
     flag_ballots,
+    trim,
 )
 from .coder64 import _add64, _mul_small, _shr64
 from .interleaved import LaneConfig
@@ -123,13 +124,16 @@ def _preset(cfg: LaneConfig):
     return torch.int32, "w16s32", ""
 
 
-def _check_symbols(symbols, cdf) -> None:
+def _check_symbols(symbols, cdf, values: bool = True) -> None:
+    """The symbols' and the CDF's tensors; with ``values`` also the
+    symbols' range (one read-back from a card)."""
     if not isinstance(symbols, torch.Tensor):
         raise TypeError("symbols must be a torch.Tensor")
     _check("symbols", symbols, torch.int32, symbols.device)
     _check_cdf_arg(cdf, symbols.device)
     K = cdf.numel() - 1
-    if symbols.numel() and bool(((symbols < 0) | (symbols >= K)).any()):
+    if values and symbols.numel() and bool(
+            ((symbols < 0) | (symbols >= K)).any()):
         raise ValueError(
             f"symbols must be in [0, {K}), got range "
             f"[{int(symbols.min())}, {int(symbols.max())}]"
@@ -143,8 +147,14 @@ def record(symbols, cdf, cfg: LaneConfig):
     CUDA tensors launch the kernel, which walks the steps as
     :func:`record_tiles_plain` does at :func:`record_geometry`'s depth; CPU
     tensors run :func:`record_plain`."""
-    dtype, tag, suffix = _preset(cfg)
+    _preset(cfg)
     _check_symbols(symbols, cdf)
+    return _record(symbols, cdf, cfg)
+
+
+def _record(symbols, cdf, cfg: LaneConfig):
+    """:func:`record` past its checks."""
+    dtype, tag, suffix = _preset(cfg)
     if not _on_cuda(symbols.device):
         return record_plain(symbols, cdf, cfg)
     L, n = cfg.num_lanes, symbols.numel()
@@ -315,22 +325,32 @@ def resolve(records, s0, seal_carry, cfg: LaneConfig, n: int):
     the compaction in one C call (their scratch: the dense words, the
     ballots and the compaction's block offsets), reading the stream's
     start back (one sync); CPU tensors run :func:`resolve_plain`."""
-    dtype, tag, suffix, T = _resolve_args(records, s0, seal_carry, cfg, n)
-    L = cfg.num_lanes
-    device = records.device
-    if not _on_cuda(device):
+    _resolve_args(records, s0, seal_carry, cfg, n)
+    if not _on_cuda(records.device):
         return resolve_plain(records, s0, seal_carry, cfg, n)
+    points, buf, end = _resolve(records, s0, seal_carry, cfg, n)
+    return points, trim(buf, end)
+
+
+def _resolve(records, s0, seal_carry, cfg: LaneConfig, n: int):
+    """Phase B on the card as a launch form (records on a CUDA device):
+    ``(points, buf, end int64[1])``, the stream ``buf[end:]``, nothing read
+    back; no checks."""
+    dtype, tag, suffix = _preset(cfg)
+    L = cfg.num_lanes
+    T = _num_steps(n, L)
+    device = records.device
     points = torch.zeros(L, dtype=dtype, device=device)
+    end = torch.zeros(1, dtype=torch.int64, device=device)
     if T == 0:
-        return points, torch.zeros(0, dtype=torch.int32, device=device)
+        return points, torch.zeros(0, dtype=torch.int32, device=device), end
     buf = torch.empty(n, dtype=torch.int32, device=device)
-    end = torch.empty(1, dtype=torch.int64, device=device)
     _build.call(
         f"ctt_ilans2_range_resolve_{tag}", device, records, s0, seal_carry,
         buf, n, end, points, *compaction_scratch(T, L, device), L, T,
     )
     LAUNCHES["resolve" + suffix] += 1
-    return points, buf[int(end.item()):]
+    return points, buf, end
 
 
 def resolve_lanes(records, s0, seal_carry, cfg: LaneConfig, n: int):
@@ -424,9 +444,26 @@ def resolve_plain(records, s0, seal_carry, cfg: LaneConfig, n: int):
 
 
 def _encode(symbols, cdf, cfg: LaneConfig):
-    records, low_f, rng_f = record(symbols, cdf, cfg)
+    _check_symbols(symbols, cdf)
+    points, buf, end = launch_encode(symbols, cdf, cfg)
+    return points, trim(buf, end)
+
+
+def launch_encode(symbols, cdf, cfg: LaneConfig):
+    """:func:`encode_iid_range` or :func:`encode_iid_range64` (by ``cfg``)
+    as a launch form: record, seal and resolve, ``(points, buf, end
+    int64[1])`` with the stream ``buf[end:]`` (``coder.trim``).  It reads
+    nothing back, so the symbols' range is not checked: the caller checks
+    it on the host.  CPU tensors run :func:`encode_iid_range_plain`, with
+    end 0."""
+    _preset(cfg)
+    _check_symbols(symbols, cdf, values=False)
+    if not _on_cuda(symbols.device):
+        points, stream = encode_iid_range_plain(symbols, cdf, cfg)
+        return points, stream, torch.zeros(1, dtype=torch.int64)
+    records, low_f, rng_f = _record(symbols, cdf, cfg)
     s0, seal_carry = seal(low_f, rng_f, cfg)
-    return resolve(records, s0, seal_carry, cfg, symbols.numel())
+    return _resolve(records, s0, seal_carry, cfg, symbols.numel())
 
 
 def encode_iid_range(symbols, cdf, cfg: LaneConfig):

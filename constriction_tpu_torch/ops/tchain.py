@@ -54,7 +54,7 @@ from . import _build
 from . import family as fam
 from .coder import (MAX_DECODE_LANES, _check, _check_cdf_arg, _emit_words,
                     _find_symbols, _on_cuda, _records, _refill_words,
-                    compaction_scratch, flag_ballots)
+                    compaction_scratch, flag_ballots, trim)
 from .interleaved import LaneConfig
 
 TCHAIN_CFG = LaneConfig(num_lanes=32768, word_bits=16, state_bits=32,
@@ -778,10 +778,13 @@ def tchain24_encode_host(symbols, remainders, heads, cdf,
 # --- the coders
 
 
-def _check_model(cdf, device: torch.device, P: int) -> None:
-    """A fixed-point CDF at precision P: 0 first, non-decreasing, 2^P
-    last."""
+def _check_model(cdf, device: torch.device, P: int,
+                 values: bool = True) -> None:
+    """A fixed-point CDF at precision P: 0 first, non-decreasing, 2^P last
+    (without ``values``, only its tensor: no read-back)."""
     _check_cdf_arg(cdf, device)
+    if not values:
+        return
     c = cdf.cpu()
     if int(c[0]) != 0 or int(c[-1]) != 1 << P or bool((c[1:] < c[:-1]).any()):
         raise ValueError(
@@ -803,14 +806,16 @@ def _check_cat_symbols(symbols, cdf) -> None:
 
 
 def _cat_args(first, name: str, cfg: LaneConfig, want: LaneConfig,
-              lane_multiple: int, step: int, cdf) -> int:
-    """Checks the leading tensor, the config and the CDF; returns T, the
-    tensor holding ``step`` entries per coding step."""
+              lane_multiple: int, step: int, cdf,
+              cdf_values: bool = True) -> int:
+    """Checks the leading tensor, the config and the CDF (its values with
+    ``cdf_values``); returns T, the tensor holding ``step`` entries per
+    coding step."""
     if not isinstance(first, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor")
     _check(name, first, torch.int32, first.device)
     _check_preset(cfg, want, lane_multiple)
-    _check_model(cdf, first.device, want.precision)
+    _check_model(cdf, first.device, want.precision, cdf_values)
     if first.numel() % step:
         raise ValueError(
             f"{name} must hold whole steps of {step} entries (num_lanes="
@@ -831,22 +836,28 @@ def _encode_args(symbols, remainders, heads, cdf, cfg: LaneConfig,
 def _launch_decode(tag: str, q, cdf, L: int, T: int, seed: int,
                    head_dtype):
     """One decode call (kernels 19 and 23: the head pass and the
-    compaction, on the compaction's scratch); returns (symbols, stream,
-    heads).  Reads the end pointer back (one sync)."""
+    compaction, on the compaction's scratch); returns (symbols, buf, end
+    int64[1], heads), the stream ``buf[end:]`` (``coder.trim``).  Reads
+    nothing back."""
     device = q.device
     n = T * L
     heads = torch.full((L,), seed, dtype=head_dtype, device=device)
     syms = torch.empty(n, dtype=torch.int32, device=device)
+    end = torch.zeros(1, dtype=torch.int64, device=device)
     if T == 0:
-        return syms, torch.zeros(0, dtype=torch.int32, device=device), heads
+        return (syms, torch.zeros(0, dtype=torch.int32, device=device), end,
+                heads)
     buf = torch.empty(n, dtype=torch.int32, device=device)  # <= 1 word/symbol
-    end = torch.empty(1, dtype=torch.int64, device=device)
     cdf32 = cdf.to(torch.int32)
     LAUNCHES[f"decode{tag}"] += 1
     _build.call(f"ctt_tchain{tag}_decode", device, heads, q, cdf32,
                 cdf32.numel() - 1, syms, buf, n, end,
                 *compaction_scratch(T, L, device), L, T)
-    return syms, buf[int(end.item()):], heads
+    return syms, buf, end, heads
+
+
+def _trimmed(syms, buf, end, heads):
+    return syms, trim(buf, end), heads
 
 
 def _launch_encode(tag: str, symbols, remainders, heads, cdf,
@@ -904,13 +915,28 @@ def tchain16_decode(qw, cdf, cfg: LaneConfig = TCHAIN_CFG):
     T = _tchain16_q_args(qw, cdf, cfg)
     if not _on_cuda(qw.device):
         return tchain16_decode_plain(qw, cdf, cfg)
-    return _launch_decode("16", qw, cdf, L, T, 1, torch.int32)
+    return _trimmed(*_launch_decode("16", qw, cdf, L, T, 1, torch.int32))
 
 
-def _tchain16_q_args(qw, cdf, cfg: LaneConfig) -> int:
+def launch_tchain16_decode(qw, cdf, cfg: LaneConfig = TCHAIN_CFG):
+    """:func:`tchain16_decode` as a launch form: ``(symbols, buf, end
+    int64[1], heads)``, the stream ``buf[end:]`` (``coder.trim``), nothing
+    read back, so the CDF's values are the caller's to check
+    (:func:`_check_model` on the host).  CPU tensors run :func:`tchain16_decode_plain`,
+    with end 0."""
+    T = _tchain16_q_args(qw, cdf, cfg, cdf_values=False)
+    if not _on_cuda(qw.device):
+        syms, stream, heads = tchain16_decode_plain(qw, cdf, cfg)
+        return syms, stream, torch.zeros(1, dtype=torch.int64), heads
+    return _launch_decode("16", qw, cdf, cfg.num_lanes, T, 1, torch.int32)
+
+
+def _tchain16_q_args(qw, cdf, cfg: LaneConfig,
+                     cdf_values: bool = True) -> int:
     """Checks a TChain-16 decode's planar words, config and CDF; returns
     T."""
-    return _cat_args(qw, "qw", cfg, TCHAIN_CFG, 256, cfg.num_lanes // 2, cdf)
+    return _cat_args(qw, "qw", cfg, TCHAIN_CFG, 256, cfg.num_lanes // 2, cdf,
+                     cdf_values)
 
 
 def tchain16_head_pass(qw, cdf, cfg: LaneConfig = TCHAIN_CFG):
@@ -1091,7 +1117,7 @@ def tchain24_decode(q, cdf, cfg: LaneConfig = TCHAIN24_CFG):
     T = _tchain24_q_args(q, cdf, cfg)
     if not _on_cuda(q.device):
         return tchain24_decode_plain(q, cdf, cfg)
-    return _launch_decode("24", q, cdf, L, T, 1 << 8, torch.int64)
+    return _trimmed(*_launch_decode("24", q, cdf, L, T, 1 << 8, torch.int64))
 
 
 def _tchain24_q_args(q, cdf, cfg: LaneConfig) -> int:

@@ -6,17 +6,30 @@ coding).  The header holds the block geometry and not the device count,
 so a container written on one card reads back bit for bit on any list of
 devices, and on the JAX package's meshes of any shape.
 
-Each block is coded by the port's per-call lane wrappers
-(``interleaved2.encode_lanes`` / ``decode_lanes``, ``encode_range_lanes``
-/ ``decode_range_lanes``): the CUDA kernels on a CUDA device, their plain
-PyTorch twins on the CPU.  ``device`` is ``"cuda"`` (the default: one
-card; raises without one), ``"cpu"``, or a sequence of devices: D is the
-largest divisor of the block count B that is at most the number of
-devices, device d codes blocks [d B/D, (d+1) B/D), and the results are
-gathered on the host in block order.  The devices are driven one after
-another from this process (each wrapper reads its result back), so D
-cards do not yet code at once.  Configs the kernels do not take are coded
-by the numpy host coders, as the JAX package does.
+``device`` is ``"cuda"`` (the default: one card; raises without one),
+``"cpu"``, or a sequence of devices, such as ``["cuda:0", "cuda:1"]``: D
+is the largest divisor of the block count B that is at most the number
+of devices, and device d codes blocks [d B/D, (d+1) B/D).  A list may
+name one card more than once; the bytes never depend on the list.
+
+Each call is one block program in three halves:
+
+- upload (:func:`upload`): one host -> device transfer a device, of its
+  blocks' symbols (or states and streams), the v2 seeds and the CDF;
+- launch (:func:`launch`): every block of every device, devices in order,
+  through the coders' launch forms (``interleaved2.launch_encode`` /
+  ``launch_decode`` / ``launch_encode_range`` / ``launch_decode_range``:
+  the CUDA kernels on a CUDA device, their plain PyTorch twins on the
+  CPU).  A launch form reads nothing back, so no device waits for the
+  host and all D cards code at once;
+- gather (:func:`gather`): a fixed number of read-backs a device, whatever
+  its block count (an encode: the streams' starts, then the streams and
+  states; a decode: the symbols, with the final states or the range
+  flags), the results in block order.  Range data the model cannot have
+  written raises ValueError once, after every block was launched.
+
+Argument checks run on the host before the upload.  Configs the kernels
+do not take are coded by the numpy host coders, as the JAX package does.
 
 Container layout (u32 words):
 
@@ -40,9 +53,11 @@ symbols are coded first into a nested compact container
 (``ops/framing.py``) whose bits ride in all blocks' seed states and come
 back from the blocks' final lane states.  Layout at :func:`pack_sharded_v2`.
 
-JAX counterpart: ``constriction_tpu.parallel.container``; ``mesh`` and
-its ``shard_map`` of the Pallas kernels become ``device`` and a loop over
-blocks, and the bytes are the same.  Unlike the JAX package, an encoder
+JAX counterpart: ``constriction_tpu.parallel.container``: its one SPMD
+program (``_encode_blocks_generic`` / ``_decode_blocks_generic``, a
+``shard_map`` over the mesh, an in-order ``all_gather``, one transfer to
+the host) becomes the three halves above over ``device``, and the bytes
+are the same.  Unlike the JAX package, an encoder
 config with precision above the word size raises ValueError, as the
 port's i.i.d. encoders do (``interleaved2.check_precision``).
 """
@@ -52,6 +67,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import convert
 from ..ops import framing as fr
 from ..ops import interleaved2 as il2
 from ..ops.interleaved import LaneConfig, state_dtype
@@ -339,15 +355,18 @@ def _sharded_v2_recover_tail(fin_states, cdf, cfg: LaneConfig, B: int,
 
 def _devices(device) -> list:
     """``device`` -> a list of torch devices, each checked as ``cuda.py``
-    checks one (a CUDA device without a card raises)."""
+    checks one (a CUDA device without a card raises).  A CUDA device with
+    no index becomes the current card, once for the call: the kernels'
+    C entries select their own card, which moves the current one."""
     from ..cuda import _device
 
     if isinstance(device, (str, torch.device)):
-        return [_device(device)]
+        device = [device]
     devices = [_device(d) for d in device]
     if not devices:
         raise ValueError("device must name at least one device")
-    return devices
+    return [torch.device("cuda", torch.cuda.current_device())
+            if d.type == "cuda" and d.index is None else d for d in devices]
 
 
 def _pick_device_count(B: int, num_devices: int) -> int:
@@ -360,12 +379,64 @@ def _pick_device_count(B: int, num_devices: int) -> int:
     return d
 
 
-def block_devices(B: int, devices: list) -> list:
-    """The device of each of B blocks: device d of the first D (D from
-    :func:`_pick_device_count`) takes blocks [d B/D, (d+1) B/D).  JAX
-    counterpart: the ``P(BLOCK_AXIS)`` split of ``shard_map``."""
+def _device_blocks(B: int, devices: list) -> list:
+    """``[(device, slice of its blocks)]``: device d of the first D (D from
+    :func:`_pick_device_count`) takes blocks [d B/D, (d+1) B/D)."""
     per = B // _pick_device_count(B, len(devices))
-    return [devices[b // per] for b in range(B)]
+    return [(devices[d], slice(d * per, (d + 1) * per))
+            for d in range(B // per)]
+
+
+def block_devices(B: int, devices: list) -> list:
+    """The device of each of B blocks (:func:`_device_blocks`).  JAX
+    counterpart: the ``P(BLOCK_AXIS)`` split of ``shard_map``."""
+    return [dev for dev, blocks in _device_blocks(B, devices)
+            for _ in range(blocks.start, blocks.stop)]
+
+
+# ---------------------------------------------------------------------------
+# the block program: upload, launch, gather
+# ---------------------------------------------------------------------------
+
+
+def upload(blocks: list, shared: list, devices: list) -> list:
+    """The upload half of a block program.  ``blocks`` holds one list of
+    tensors per block, ``shared`` the tensors every block reads (the CDF);
+    each device gets its blocks' tensors and the shared ones in one
+    transfer (``convert.upload``).  Returns, per device that codes (in
+    block order), one argument list per block: the shared tensors, then
+    the block's own, all on that device."""
+    programs = []
+    for dev, mine in _device_blocks(len(blocks), devices):
+        mine = blocks[mine]
+        up = convert.upload(list(shared) + [t for b in mine for t in b], dev)
+        k = len(shared)
+        rest = up[k:]
+        at = np.cumsum([0] + [len(b) for b in mine])
+        programs.append([up[:k] + rest[at[i]:at[i + 1]]
+                         for i in range(len(mine))])
+    return programs
+
+
+def launch(step, programs: list) -> list:
+    """The launch half: ``step(*arguments)`` for every block of every
+    device, devices in order and blocks in order, on inputs already on
+    their devices (:func:`upload`).  The steps are launch forms, which
+    read nothing back, so no device waits for another and all of them
+    code at once; the window raises under
+    ``torch.cuda.set_sync_debug_mode("error")`` if one did.  Returns each
+    device's launched outputs.  JAX counterpart: the per-device loop of a
+    ``shard_map`` body."""
+    return [[step(*args) for args in blocks] for blocks in programs]
+
+
+def gather(finish, launched: list) -> list:
+    """The gather half: ``finish`` reads one device's launched outputs back
+    in a number of transfers that does not depend on its block count
+    (``interleaved2.finish_*``, ``convert.read_back``); returns every
+    block's result, in block order.  JAX counterpart: the in-order
+    ``all_gather`` and the one transfer to the host."""
+    return [r for outs in launched for r in finish(outs)]
 
 
 # ---------------------------------------------------------------------------
@@ -390,29 +461,55 @@ def _check_cdf(cdf, cfg: LaneConfig, encoding: bool) -> None:
 
 def _encode_blocks(padded, cdf, cfg: LaneConfig, B: int, block_len: int,
                    coder_id: int, seeds, devices):
-    """Code each block: on its device with the port's lane wrappers where
-    the kernels take ``cfg``, else (and with ``devices`` None) with the
-    numpy host coders.  Returns ``(states [B, L], streams)``."""
-    on_card = devices is not None and il2.kernel_eligible(cfg)
-    where = block_devices(B, devices) if on_card else [None] * B
+    """Code each block: one program over ``devices`` where the kernels take
+    ``cfg``, else (and with ``devices`` None) the numpy host coders block
+    by block.  Returns ``(states [B, L], streams)``."""
+    if devices is None or not il2.kernel_eligible(cfg):
+        return _encode_blocks_host(padded, cdf, cfg, B, block_len, coder_id,
+                                   seeds)
+    programs, step, finish = encode_program(padded, cdf, cfg, B, block_len,
+                                            coder_id, seeds, devices)
+    out = gather(finish, launch(step, programs))
+    return np.stack([st for st, _ in out]), [w for _, w in out]
+
+
+def encode_program(padded, cdf, cfg: LaneConfig, B: int, block_len: int,
+                   coder_id: int, seeds, devices) -> tuple:
+    """An encode's upload half, after the seeds' host check: ``(programs,
+    step, finish)`` for :func:`launch` and :func:`gather`, whose results
+    are each block's ``(states, stream)``.  ``padded`` holds the B blocks'
+    symbols, ``seeds`` None or [B, L]."""
+    syms = torch.from_numpy(padded.astype(np.int32).reshape(B, block_len))
+    blocks = [[syms[b]] for b in range(B)]
+    if seeds is not None:
+        for b in range(B):
+            blocks[b].append(convert.states_to_torch(
+                il2.check_seeds(seeds[b], cfg), cfg))
+    programs = upload(blocks, [convert.cdf_to_torch(cdf)], devices)
+    if coder_id == CODER_RANGE:
+        def step(cdf_t, s):
+            return il2.launch_encode_range(s, cdf_t, cfg)
+    else:
+        def step(cdf_t, s, *seed):
+            return il2.launch_encode(s, cdf_t, cfg, *seed)
+    return programs, step, lambda outs: il2.finish_encodes(outs, cfg)
+
+
+def _encode_blocks_host(padded, cdf, cfg: LaneConfig, B: int, block_len: int,
+                        coder_id: int, seeds):
+    """The numpy host coders block by block (the JAX package's
+    ``device=False`` loop)."""
     cdf64 = np.asarray(cdf, dtype=np.uint64)
     states = np.empty((B, cfg.num_lanes), state_dtype(cfg))
     streams = []
     for b in range(B):
         blk = padded[b * block_len:(b + 1) * block_len]
-        seed = None if seeds is None else seeds[b]
+        cums, probs = cdf64[blk], cdf64[blk + 1] - cdf64[blk]
         if coder_id == CODER_RANGE:
-            if on_card:
-                st, sw = il2.encode_range_lanes(blk, cdf, cfg, where[b])
-            else:
-                st, sw = il2.encode_shared_range(
-                    cdf64[blk], cdf64[blk + 1] - cdf64[blk], cfg)
-        elif on_card:
-            st, sw = il2.encode_lanes(blk, cdf, cfg, where[b], seeds=seed)
+            states[b], sw = il2.encode_shared_range(cums, probs, cfg)
         else:
-            st, sw = il2.encode_shared(cdf64[blk], cdf64[blk + 1] - cdf64[blk],
-                                       cfg, seeds=seed)
-        states[b] = st
+            states[b], sw = il2.encode_shared(
+                cums, probs, cfg, seeds=None if seeds is None else seeds[b])
         streams.append(sw)
     return states, streams
 
@@ -499,36 +596,61 @@ def encode_host(symbols, cdf, cfg: LaneConfig | None = None,
 
 def _decode_blocks(states, streams, cdf, cfg: LaneConfig, block_len: int,
                    coder_id: int, devices, want_final: bool = False):
-    """Decode each block on its device (the lane wrappers; range data the
-    model cannot have written raises ValueError), or on the numpy host
-    decoders for configs the kernels do not take.  Returns the symbols of
-    all blocks, and with ``want_final`` also the final states [B, L]."""
+    """Decode each block: one program over ``devices`` where the kernels
+    take ``cfg``, else the numpy host decoders block by block.  Range data
+    the model cannot have written raises ValueError, once, after every
+    block was launched and read back.  Returns the symbols of all blocks,
+    and with ``want_final`` also the final states [B, L]."""
+    if not il2.kernel_eligible(cfg):
+        return _decode_blocks_host(states, streams, cdf, cfg, block_len,
+                                   coder_id, want_final)
+    programs, step, finish = decode_program(states, streams, cdf, cfg,
+                                            block_len, coder_id, devices)
+    got = gather(finish, launch(step, programs))
+    if coder_id == CODER_RANGE:
+        return np.concatenate(il2.range_symbols(got))
+    out = np.concatenate([syms for syms, _ in got])
+    return (out, np.stack([fin for _, fin in got])) if want_final else out
+
+
+def decode_program(states, streams, cdf, cfg: LaneConfig, block_len: int,
+                   coder_id: int, devices) -> tuple:
+    """A decode's upload half: ``(programs, step, finish)`` for
+    :func:`launch` and :func:`gather`, whose results are each block's
+    ``(symbols, final states)`` (rANS) or ``(symbols, flag)`` (range:
+    ``interleaved2.range_symbols`` raises on the flags).  Each device gets
+    its blocks' states and its streams concatenated."""
     B = len(streams)
-    on_card = il2.kernel_eligible(cfg)
-    where = block_devices(B, devices) if on_card else [None] * B
+    st = convert.states_to_torch(states, cfg).reshape(B, cfg.num_lanes)
+    flat = convert.u32_to_torch(np.concatenate(streams))
+    at = np.cumsum([0] + [len(w) for w in streams])
+    programs = upload([[st[b], flat[at[b]:at[b + 1]]] for b in range(B)],
+                      [convert.cdf_to_torch(cdf)], devices)
+    if coder_id == CODER_RANGE:
+        def step(cdf_t, pt, w):
+            return il2.launch_decode_range(pt, w, cdf_t, cfg, block_len)
+        return programs, step, il2.finish_range_decodes
+
+    def step(cdf_t, s, w):
+        return il2.launch_decode(s, w, cdf_t, cfg, block_len)
+    return programs, step, lambda outs: il2.finish_decodes(outs, cfg)
+
+
+def _decode_blocks_host(states, streams, cdf, cfg: LaneConfig,
+                        block_len: int, coder_id: int, want_final: bool):
+    """The numpy host decoders block by block."""
     outs, fins = [], []
-    for b in range(B):
+    for b in range(len(streams)):
         if coder_id == CODER_RANGE:
-            if on_card:
-                out = il2.decode_range_lanes(states[b], streams[b], block_len,
-                                             cdf, cfg, where[b])
-            else:
-                out = il2.decode_shared_range_cdf(states[b], streams[b],
-                                                  block_len, cdf, cfg)
-        elif on_card:
-            out, fin = il2.decode_lanes(states[b], streams[b], block_len,
-                                        cdf, cfg, where[b])
-            fins.append(fin)
-        else:
-            out, fin = il2.decode_shared_cdf(states[b], streams[b], block_len,
-                                             cdf, cfg,
-                                             return_final_states=True)
-            fins.append(fin)
+            outs.append(il2.decode_shared_range_cdf(states[b], streams[b],
+                                                    block_len, cdf, cfg))
+            continue
+        out, fin = il2.decode_shared_cdf(states[b], streams[b], block_len,
+                                         cdf, cfg, return_final_states=True)
         outs.append(out)
-    out = (np.concatenate(outs) if outs else np.zeros(0, np.int32))
-    if want_final:
-        return out, np.stack(fins)
-    return out
+        fins.append(fin)
+    out = np.concatenate(outs)
+    return (out, np.stack(fins)) if want_final else out
 
 
 def decode(container, cdf, device="cuda") -> np.ndarray:

@@ -12,7 +12,9 @@ family, reference-exact family, TChain-16, and the DEFAULT-preset rANS
 and range decodes).  Every leg is held against the port's numpy oracles:
 the containers against :func:`container.encode_host`, the blocks' encodes
 against the host coders, every decode against the symbols it must give.
-The first mismatch raises AssertionError.
+The first mismatch raises AssertionError.  Each container call and each
+leg is one block program (``container.upload``, ``launch``, ``gather``):
+fourteen launch halves in all, none of which reads anything back.
 """
 
 from __future__ import annotations

@@ -1,18 +1,22 @@
-"""Block legs: the per-call coders over a list of independent blocks.
+"""Block legs: the coders over a list of independent blocks.
 
 Each leg takes one input per block in the port's own layout (the one its
-per-call wrapper takes), codes block b on the device
-``container.block_devices`` gives it (``device``: ``"cuda"``, the
-default, raising without a card; ``"cpu"``, the plain PyTorch twins; or a
-sequence of devices, the blocks split in order over the largest divisor
-of B they hold), and returns one numpy output per block, in block order,
-read back to the host.  Blocks share nothing, so no leg communicates.
+per-call wrapper takes) and runs one block program over ``device``
+(``container.upload``, ``launch``, ``gather``): ``"cuda"``, the default,
+raising without a card; ``"cpu"``, the plain PyTorch twins; or a sequence
+of devices, the blocks split in order over the largest divisor of B they
+hold (``container.block_devices``).  Each device gets one upload; its
+blocks are launched back to back through the coders' launch forms, which
+read nothing back; then a fixed number of read-backs a device returns one
+numpy output per block, in block order.  Values the kernels cannot check
+without a read-back (family parameters, the TChain CDF) are checked on the
+host first.  Blocks share nothing, so no leg communicates.
 
 JAX counterpart: the ``shard_*_pallas`` legs of
-``constriction_tpu.parallel.sharding`` (one Pallas kernel per device of a
-mesh under ``shard_map``); their ``[D, rows, 128]`` window layouts do not
-carry over (``convert.rows_to_torch`` and ``convert.family_params_to_torch``
-turn them into the port's).  Its ILANS v1 and ``jax_coder2`` legs
+``constriction_tpu.parallel.sharding`` (one Pallas kernel per block under
+``shard_map``); their ``[D, rows, 128]`` window layouts do not carry over
+(``convert.rows_to_torch`` and ``convert.family_params_to_torch`` turn
+them into the port's).  Its ILANS v1 and ``jax_coder2`` legs
 (``shard_encode``, ``shard_decode_lookup``, ``shard_encode2``,
 ``shard_decode2``, ``gather_blocks``) are not ported.
 """
@@ -20,12 +24,14 @@ turn them into the port's).  Its ILANS v1 and ``jax_coder2`` legs
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .. import convert
 from ..ops import exact_family, family, tchain
 from ..ops import interleaved2 as il2
 from ..ops.interleaved import LaneConfig
-from .container import _devices, block_devices
+from . import container
+from .container import _devices
 
 
 def prepare_blocks(symbols, cdf, num_blocks: int, cfg: LaneConfig):
@@ -51,9 +57,11 @@ def prepare_blocks(symbols, cdf, num_blocks: int, cfg: LaneConfig):
     return cums.reshape(D, T, L), probs.reshape(D, T, L), lens, T
 
 
-def _placed(blocks, device) -> list:
-    """The device of each block, for ``len(blocks)`` blocks."""
-    return block_devices(len(blocks), _devices(device))
+def _run(step, finish, blocks: list, shared: list, device) -> list:
+    """A leg's three halves (``container.upload`` / ``launch`` /
+    ``gather``) over ``device``."""
+    programs = container.upload(blocks, shared, _devices(device))
+    return container.gather(finish, container.launch(step, programs))
 
 
 def _check_preset(cfg: LaneConfig, S: int) -> None:
@@ -69,15 +77,28 @@ def shard_encode2_cuda(blocks, cdf, cfg: LaneConfig, device="cuda",
     array per block.  Returns ``[(states, stream)]`` as
     ``interleaved2.encode_lanes`` does.  JAX counterpart:
     ``sharding.shard_encode2_pallas``."""
-    where = _placed(blocks, device)
-    return [il2.encode_lanes(blk, cdf, cfg, dev,
-                             seeds=None if seeds is None else seeds[b])
-            for b, (blk, dev) in enumerate(zip(blocks, where))]
+    inputs = []
+    for b, blk in enumerate(blocks):
+        t = [torch.from_numpy(np.ascontiguousarray(blk, dtype=np.int32))]
+        if seeds is not None:
+            t.append(convert.states_to_torch(il2.check_seeds(seeds[b], cfg),
+                                             cfg))
+        inputs.append(t)
+    return _run(lambda c, s, *sd: il2.launch_encode(s, c, cfg, *sd),
+                lambda outs: il2.finish_encodes(outs, cfg), inputs,
+                [convert.cdf_to_torch(cdf)], device)
+
+
+def _lane_inputs(states, streams, cfg: LaneConfig) -> list:
+    return [[convert.states_to_torch(st, cfg), convert.u32_to_torch(sw)]
+            for st, sw in zip(states, streams)]
 
 
 def _decode(states, streams, cdf, cfg, block_len: int, device) -> list:
-    return [il2.decode_lanes(st, sw, block_len, cdf, cfg, dev)[0]
-            for st, sw, dev in zip(states, streams, _placed(streams, device))]
+    return _run(
+        lambda c, st, sw: il2.launch_decode(st, sw, c, cfg, block_len)[0],
+        convert.read_back, _lane_inputs(states, streams, cfg),
+        [convert.cdf_to_torch(cdf)], device)
 
 
 def shard_decode2_cuda(states, streams, cdf, cfg: LaneConfig, block_len: int,
@@ -99,16 +120,18 @@ def shard_decode64_cuda(states, streams, cdf, cfg: LaneConfig,
 
 
 def _decode_range(points, streams, cdf, cfg, block_len: int, device) -> list:
-    return [il2.decode_range_lanes(pt, sw, block_len, cdf, cfg, dev)
-            for pt, sw, dev in zip(points, streams, _placed(streams, device))]
+    return il2.range_symbols(_run(
+        lambda c, pt, sw: il2.launch_decode_range(pt, sw, c, cfg, block_len),
+        il2.finish_range_decodes, _lane_inputs(points, streams, cfg),
+        [convert.cdf_to_torch(cdf)], device))
 
 
 def shard_decode_range_cuda(points, streams, cdf, cfg: LaneConfig,
                             block_len: int, device="cuda") -> list:
     """S=32 range decode (kernel 6) of each block's (u32 points [L],
     stream) pair; data the model cannot have written raises ValueError
-    (the JAX leg returns a flag per block instead).  JAX counterpart:
-    ``sharding.shard_decode_range_pallas``."""
+    after every block was launched (the JAX leg returns a flag per block
+    instead).  JAX counterpart: ``sharding.shard_decode_range_pallas``."""
     _check_preset(cfg, 32)
     return _decode_range(points, streams, cdf, cfg, block_len, device)
 
@@ -128,33 +151,44 @@ def shard_decode_family_cuda(states, params, streams, family_name: str,
     """Per-symbol family decode (kernel 11) of each block: ``states``
     int32[L] and ``streams`` int32 tensors, ``params`` one ``(means,
     scales)`` pair of float32[T * L] tensors a block (the padded layout of
-    ``ops.family.decode_family``), moved to the block's device.  Returns
-    int32 symbols per block.  JAX counterpart:
-    ``sharding.shard_decode_family_pallas``."""
-    out = []
-    for st, (mu, sd), sw, dev in zip(states, params, streams,
-                                     _placed(streams, device)):
-        out.append(family.decode_family(
-            st.to(dev), sw.to(dev), mu.to(dev), sd.to(dev), family_name,
-            min_sym, max_sym, cfg, block_len).cpu().numpy())
-    return out
+    ``ops.family.decode_family``).  The parameters' values are checked on
+    the host, every block's, before the upload.  Returns int32 symbols per
+    block.  JAX counterpart: ``sharding.shard_decode_family_pallas``."""
+    cpu = torch.device("cpu")
+    count = -(-block_len // cfg.num_lanes) * cfg.num_lanes
+    inputs = []
+    for st, (mu, sd), sw in zip(states, params, streams):
+        t = [x.detach().cpu() for x in (st, mu, sd, sw)]
+        family.check_params(t[1], t[2], count, cpu)
+        inputs.append(t)
+    return _run(
+        lambda st, mu, sd, sw: family.launch_decode_family(
+            st, sw, mu, sd, family_name, min_sym, max_sym, cfg,
+            block_len)[0],
+        convert.read_back, inputs, [], device)
 
 
 def shard_tchain_decode_cuda(qwords, cdf, cfg: LaneConfig = tchain.TCHAIN_CFG,
                              device="cuda") -> list:
     """TChain-16 bits-back decode (kernel 19) of each block's planar
     quantile words (int32[T * L/2] tensors, ``ops.tchain.pack_quantiles``
-    flattened).  Returns ``[(symbols int32, remainders u32, heads
-    u32[L])]`` numpy per block.  JAX counterpart:
-    ``sharding.shard_tchain_decode_pallas`` (which returns the remainder
-    windows and their ends instead of the remainders)."""
-    out = []
-    for qw, dev in zip(qwords, _placed(qwords, device)):
-        syms, rem, heads = tchain.tchain16_decode(
-            qw.to(dev), convert.cdf_to_torch(cdf, dev), cfg)
-        out.append((syms.cpu().numpy(), convert.u32_from_torch(rem),
-                    convert.u32_from_torch(heads)))
-    return out
+    flattened); the CDF is checked once, on the host.  Returns
+    ``[(symbols int32, remainders u32, heads u32[L])]`` numpy per block.
+    JAX counterpart: ``sharding.shard_tchain_decode_pallas`` (which returns
+    the remainder windows and their ends instead of the remainders)."""
+    cdf_t = convert.cdf_to_torch(cdf)
+    tchain._check_model(cdf_t, cdf_t.device, tchain.TCHAIN_CFG.precision)
+
+    def step(c, qw):
+        syms, buf, end, heads = tchain.launch_tchain16_decode(qw, c, cfg)
+        return syms, (buf, end), heads
+
+    def finish(outs):
+        got = convert.read_back([x for out in outs for x in out])
+        return [(syms, rem.view(np.uint32), heads.view(np.uint32))
+                for syms, rem, heads in zip(got[::3], got[1::3], got[2::3])]
+
+    return _run(step, finish, [[qw] for qw in qwords], [cdf_t], device)
 
 
 def shard_decode_exact_family_cuda(states, tabs, streams, min_sym: int,
@@ -163,14 +197,12 @@ def shard_decode_exact_family_cuda(states, tabs, streams, min_sym: int,
     """Reference-exact family decode of each block against its own
     precomputed tables (kernel 13 at W=16/S=32, kernel 15 at W=32/S=64):
     ``states`` int32[L] (int64 at S=64), ``tabs`` int32 ``[T, CP1, L]``
-    (``convert.exact_tables_to_torch``) and ``streams`` int32 tensors,
-    moved to the block's device.  Returns int32 symbols per block.  JAX
-    counterpart: ``sharding.shard_decode_exact_family_pallas`` (whose
-    ``cmax`` the tables' plane count gives here)."""
-    out = []
-    for st, tab, sw, dev in zip(states, tabs, streams,
-                                _placed(streams, device)):
-        out.append(exact_family.decode_tables(
-            st.to(dev), sw.to(dev), tab.to(dev), cfg, min_sym, max_sym,
-            block_len).cpu().numpy())
-    return out
+    (``convert.exact_tables_to_torch``) and ``streams`` int32 tensors.
+    Returns int32 symbols per block.  JAX counterpart:
+    ``sharding.shard_decode_exact_family_pallas`` (whose ``cmax`` the
+    tables' plane count gives here)."""
+    return _run(
+        lambda st, tab, sw: exact_family.decode_tables(
+            st, sw, tab, cfg, min_sym, max_sym, block_len),
+        convert.read_back, [list(blk) for blk in zip(states, tabs, streams)],
+        [], device)

@@ -4,9 +4,13 @@ The scaling story for an entropy coder is embarrassingly parallel: split
 the message into D independent blocks and give every device its own
 lane-interleaved coder (``parallel.shard_encode2_cuda`` /
 ``shard_decode2_cuda``: encode kernel 3, decode kernel 4 on each card).
-Each block comes back as its own ``(lane states, stream)`` pair; the
-container is the in-order concatenation of the block streams on the host
-(the port has no mesh and no collective).
+Each leg is one block program: one upload a device, every device's
+blocks launched with nothing read back in between, so all D cards code
+at once, then a fixed number of read-backs a device.  Each block comes
+back as its own ``(lane states, stream)`` pair; the container is the
+in-order concatenation of the block streams on the host (the JAX
+example's ``all_gather`` becomes those read-backs; no collective runs
+between the cards).
 
 ``--device cpu`` codes the blocks on eight "cpu" entries (the JAX
 example's virtual 8-device mesh) with the kernels' plain PyTorch twins;

@@ -205,7 +205,8 @@ def _wide_encode(syms, cdf, cfg, seeds):
     """Kernel 2 at any L that is a multiple of 32 (the wrapper takes
     multiples of 128)."""
     states = coder._encode_args(syms, cdf, cfg, seeds, torch.int64)
-    return coder._launch_encode("w32s64", syms, cdf, cfg, states)
+    states, buf, end = coder._launch_encode("w32s64", syms, cdf, cfg, states)
+    return states, coder.trim(buf, end)
 
 
 def _wide_pair(L, n, kind, seeded, dev, seed):
@@ -358,7 +359,8 @@ def _wide32_pair(L, n, P, seeded, dev, seed, K=100):
     seeds = _seeds(rng, cfg, dev) if seeded else None
     states = coder._encode_args(syms, cdf, cfg, seeds, torch.int32)
     before = dict(coder.LAUNCHES)
-    st, w = coder._launch_encode("w16s32", syms, cdf, cfg, states)
+    st, buf, end = coder._launch_encode("w16s32", syms, cdf, cfg, states)
+    w = coder.trim(buf, end)
     st_p, w_p = coder.encode_iid_plain(syms, cdf, cfg, seeds)
     assert torch.equal(st, st_p) and torch.equal(w, w_p)
     out, fin = coder._launch_decode("w16s32", st, w, cdf, cfg, n)
@@ -2837,3 +2839,77 @@ def test_dryrun_on_the_card(dev):
         legs = parallel.dryrun(devices)
         assert len(legs) == 10
         assert all(leg["blocks"] == len(devices) for leg in legs.values())
+
+
+@pytest.fixture
+def strict_launch(dev, monkeypatch):
+    """Runs every launch half of the block program (``container.launch``)
+    under ``torch.cuda.set_sync_debug_mode("error")``, where any read-back
+    or other host synchronisation raises; records each window's block
+    count."""
+    from constriction_tpu_torch.ops import _build
+    from constriction_tpu_torch.parallel import container
+
+    _build.library()  # built before any window
+    real, windows = container.launch, []
+
+    def strict(step, programs):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(step, programs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        windows.append(sum(len(blocks) for blocks in programs))
+        return out
+
+    monkeypatch.setattr(container, "launch", strict)
+    return windows
+
+
+@pytest.mark.parametrize("P", [12, 24])
+@pytest.mark.parametrize("coder_name,compact", [("rans", False),
+                                                ("rans", True),
+                                                ("range", False)])
+def test_program_launch_window_has_no_sync(dev, strict_launch, P, coder_name,
+                                          compact):
+    """Every container kind: the launch halves of encode and decode read
+    nothing back, and device lists that repeat the card give the bytes of
+    the card alone, which are the host coders'."""
+    from constriction_tpu_torch import parallel
+
+    W = 32 if P == 24 else 16
+    cfg = LaneConfig(num_lanes=256, word_bits=W, state_bits=2 * W,
+                     precision=P)
+    cdf_np, syms = _sharded_data(P, 29_001, seed=P + compact)
+    kw = {"cfg": cfg, "num_blocks": 8, "coder": coder_name,
+          "compact": compact}
+    one = parallel.encode(syms, cdf_np, device=[dev], **kw)
+    np.testing.assert_array_equal(
+        one, parallel.encode_host(syms, cdf_np, cfg, 8, coder_name, compact))
+    for k in (2, 8):
+        np.testing.assert_array_equal(
+            parallel.encode(syms, cdf_np, device=[dev] * k, **kw), one)
+        np.testing.assert_array_equal(
+            parallel.decode(one, cdf_np, device=[dev] * k), syms)
+    assert strict_launch == [8] * 5
+
+
+def test_legs_launch_window_has_no_sync(dev, strict_launch):
+    """The dry run's three containers and eight legs on two entries of the
+    card: each launch half reads nothing back."""
+    from constriction_tpu_torch import parallel
+
+    legs = parallel.dryrun([dev, dev])
+    assert len(legs) == 10
+    assert len(strict_launch) == 3 * 2 + 8
+
+
+def test_launch_window_check_catches_a_read_back(dev, strict_launch):
+    """The check of the two tests above: a step that reads a value back
+    raises in the window."""
+    from constriction_tpu_torch.parallel import container
+
+    with pytest.raises(RuntimeError):
+        container.launch(lambda t: t.sum().item(),
+                         [[[torch.ones(4, device=dev)]]])

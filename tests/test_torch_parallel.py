@@ -28,6 +28,7 @@ from constriction_tpu.ops.interleaved import LaneConfig as RefLaneConfig
 from constriction_tpu.parallel import container as jcont
 from constriction_tpu_torch import convert, parallel
 from constriction_tpu_torch.models import fast_quantized_cdf
+from constriction_tpu_torch.ops import chain as ch
 from constriction_tpu_torch.ops import exact_family as exf
 from constriction_tpu_torch.ops import family as fam
 from constriction_tpu_torch.ops import interleaved2 as il2
@@ -408,6 +409,9 @@ def test_entry_points_need_a_card_by_default():
                 cont, cdf, 1)),
         lambda: parallel.shard_encode2_cuda([syms], cdf, CFG),
         lambda: parallel.dryrun(["cuda"]),
+        lambda: ch.chain_decode_iid(np.ones(8, np.uint32), 4, cdf),
+        lambda: ch.chain_decode_rows(np.ones(8, np.uint32),
+                                     np.tile(cdf, (4, 1))),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

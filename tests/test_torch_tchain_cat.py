@@ -440,7 +440,7 @@ def test_chain_decode_iid_equals_chain_jax(n, alphabet):
         probs, 24).cdf
     data = _chain_data(rng, n + 8)
     ref = chain_jax.chain_decode_iid(data, n, cdf, xp=np)
-    got = ch.chain_decode_iid(data, n, cdf)
+    got = ch.chain_decode_iid(data, n, cdf, device="cpu")
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), ref)
     _equal([ch.chain_decode_iid(data, n, cdf, np)], [ref])
@@ -486,7 +486,7 @@ def test_chain_decode_rejects_truncated_data():
         chain_jax.chain_decode_iid(words[:20], 60, cdf, xp=np)
     for xp in (np, torch):
         with pytest.raises(ch.OutOfCompressedData, match="out of compressed"):
-            ch.chain_decode_iid(words[:20], 60, cdf, xp)
+            ch.chain_decode_iid(words[:20], 60, cdf, xp, device="cpu")
     with pytest.raises(AssertionError):  # the reference's class
         ctt.decode_chain_iid(words[:20], 60, cdf, device="cpu")
     rows = np.tile(cdf.astype(np.uint32), (60, 1))
